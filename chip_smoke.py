@@ -3,27 +3,48 @@
 
     python3 chip_smoke.py [--seed N]
 
-Builds the port's CUDA kernel from the sources in this checkout (``nvcc``,
+Builds the port's CUDA kernels from the sources in this checkout (``nvcc``,
 at first use), then runs, printing one JSON line per phase:
 
-1. ``device``     — the card, torch/CUDA versions, the kernel's build time
-                    and ``ptxas`` register report.
-2. ``k1_shapes``  — kernel K1 (``fold_entries``) against its plain torch
-                    version on the card, bit-exact, at ragged E, A in
-                    {2, 8, 12, 32}, R in {1, 3, 5, 7, 64}, counters near
-                    2^32-1 and ``n_passes`` = 3.
-3. ``scenarios``  — mint → apply → cross-deliver → merge → fold on the
-                    card through ``BatchedOrswot``, held against the
-                    sequential oracle ``crdt_tpu_torch.pure.Orswot``
-                    (gap/dup dots, rm of an unseen member, parked
-                    ahead-removes, repeated self-merge, DeferredOverflow).
-4. ``full_width`` — BASELINE config 3: ``BatchedOrswot.fold()`` over
-                    R=10240 replicas × E=102400 members × A=8 actors
-                    (D=4 parked slots), which must launch K1; the folded
-                    entries and the converged state are held bit-exact
-                    against the plain fold run in 512-replica chunks.
-                    Reports K1's median time, GB/s, merges/s and its
-                    share of the bandwidth bound.
+1. ``device``         — the card, torch/CUDA versions, the kernels' build
+                        time and ``ptxas`` register report.
+2. ``k1_shapes``      — kernel K1 (``fold_entries``) against its plain
+                        torch version on the card, bit-exact, at ragged E,
+                        A in {2, 8, 12, 32}, R in {1, 3, 5, 7, 64},
+                        counters near 2^32-1 and ``n_passes`` = 3.
+3. ``scenarios``      — mint → apply → cross-deliver → merge → fold on the
+                        card through ``BatchedOrswot``, held against the
+                        sequential oracle ``crdt_tpu_torch.pure.Orswot``
+                        (gap/dup dots, rm of an unseen member, parked
+                        ahead-removes, repeated self-merge, DeferredOverflow).
+4. ``full_width``     — BASELINE config 3: ``BatchedOrswot.fold()`` over
+                        R=10240 replicas × E=102400 members × A=8 actors
+                        (D=4 parked slots), which must launch K1; the folded
+                        entries and the converged state are held bit-exact
+                        against the plain fold run in 512-replica chunks.
+                        Reports K1's median time, GB/s, merges/s and its
+                        share of the bandwidth bound.
+5. ``k2_shapes``      — kernel K2 (``fold_cells``) against its plain torch
+                        version on the card, bit-exact, at ragged K, A in
+                        {1, 3, 4, 8, 32}, R in {1, 3, 5, 7, 8, 64} and
+                        counters near 2^32-1; A > 32 and a non-contiguous
+                        input must raise.
+6. ``map_scenarios``  — the same probe set through ``BatchedMap`` on the
+                        card against the oracle ``crdt_tpu_torch.pure.Map``
+                        (cross-delivered op streams with parked removes,
+                        garbage ops, rm of an unseen key, a full key
+                        universe, merges, repeated self-merge, folds through
+                        K2, reset_remove, DotRange, SlotOverflow,
+                        DeferredOverflow).
+7. ``full_width_map`` — BASELINE config 4 at ``bench.py``'s shape and
+                        state rule: ``BatchedMap.fold()`` over R=8 replicas
+                        × K=1,000,000 keys × S=2 sibling slots × A=4 actors
+                        (D=4, 16 parked keyset-removes), then again at
+                        R=64. The fused fold is held leaf for leaf against
+                        the plain tree fold on the card before any number
+                        is reported; then K2's time, GB/s, merges/s and
+                        share of the bound, the fused fold's pieces, and
+                        ``fold()`` end to end with ``to_pure``'s share.
 
 Then the ``nvidia-smi`` name/power-limit line, a ``kernels`` JSON line, and
 as the last line ``{"ok": true, "device": {...}}``. Any failed check raises
@@ -53,12 +74,22 @@ PEAK_SCALAR_OPS_PER_S = 67e12
 # two compare+selects (wa, wb), min, two max, the presence OR, the final
 # select pair, and the top max.
 OPS_PER_LANE = 10
+# ... and per (replica, key, actor) cell of one cell join: two
+# compare+selects (wa, wb), the equality compare+select, the max of wa and
+# wb, and the top max.
+OPS_PER_CELL = 8
 
 K1 = {
     "name": "fold_entries (K1)",
     "route": "cuda",
     "source": "crdt_tpu_torch/csrc/fold.cu",
     "replaces": "crdt_tpu/ops/pallas_kernels.py:106",
+}
+K2 = {
+    "name": "fold_cells (K2)",
+    "route": "cuda",
+    "source": "crdt_tpu_torch/csrc/fold.cu",
+    "replaces": "crdt_tpu/ops/pallas_kernels.py:91",
 }
 
 
@@ -88,12 +119,12 @@ def time_ms(fn, device) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
-def fold_bound_ms(r: int, e: int, a: int) -> dict:
+def fold_bound_ms(r: int, e: int, a: int, ops_per_lane: int = OPS_PER_LANE) -> dict:
     """The least time the card could take for the fold of ``top[r, a]``,
     ``ctr[r, e, a]``: bytes read once and written once over the memory
     rate, operations over the scalar rate; the larger bounds it."""
     nbytes = 4 * (r * a + r * e * a + a + e * a)
-    ops = OPS_PER_LANE * r * e * a
+    ops = ops_per_lane * r * e * a
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     ops_ms = ops / PEAK_SCALAR_OPS_PER_S * 1e3
     return {
@@ -551,6 +582,460 @@ def phase_full_width(device, seed: int, r=10240, e=102400, a=8, d=4,
     return out
 
 
+# ---- phase 5 -------------------------------------------------------------
+
+K2_CASES = (
+    # (R, K, A, counters near 2^32-1)
+    (1, 1000, 4, False),
+    (3, 777, 1, False),
+    (8, 1001, 3, True),
+    (8, 999, 4, True),
+    (5, 130, 8, False),
+    (64, 1000, 4, False),
+    (64, 777, 8, True),
+    (7, 333, 32, True),
+    (64, 100, 32, False),
+)
+
+
+def random_cells(r, k, a, high, gen, device):
+    """``top[r, a]``, ``wctr[r, k, a]`` (u32) as real replicas reach them:
+    actor y writes key k at counter c1 and perhaps later at c2 > c1
+    (which evicts c1); a replica holds the newest write its top covers,
+    unless it removed it (15%). Values 1..99, or within 99 of 2^32-1 when
+    ``high``."""
+    import torch
+
+    from crdt_tpu_torch._dtypes import from_wide
+
+    def draw(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=device, dtype=torch.int64)
+
+    c1 = draw(1, 50, (k, a)) * (draw(0, 10, (k, a)) < 8)
+    c2 = torch.where(c1 > 0, c1 + draw(1, 50, (k, a)), 0) * draw(0, 2, (k, a))
+    top = draw(0, 100, (r, a))
+    t = top[:, None, :]
+    held = torch.where((c2 > 0) & (c2 <= t), c2, torch.where((c1 > 0) & (c1 <= t), c1, 0))
+    held = held * (torch.rand((r, k, a), generator=gen, device=device) >= 0.15)
+    if high:
+        base = (1 << 32) - 100
+        held = torch.where(held > 0, held + base, 0)
+        top = top + base
+    return from_wide(top, torch.uint32), from_wide(held, torch.uint32)
+
+
+def phase_k2_shapes(device, seed: int) -> int:
+    """K2 vs its plain version at each case; returns the max |diff| (0)."""
+    import torch
+
+    from crdt_tpu_torch.ops.fold_kernels import fold_cells, fold_cells_plain
+
+    gen = torch.Generator(device=device).manual_seed(seed + 2)
+    worst, rows = 0, []
+    for r, k, a, high in K2_CASES:
+        top, wctr = random_cells(r, k, a, high, gen, device)
+        kt, kw = fold_cells(top, wctr)
+        pt, pw = fold_cells_plain(top, wctr)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        diff = max(max_abs_diff(kt, pt), max_abs_diff(kw, pw))
+        worst = max(worst, diff)
+        rows.append({"R": r, "K": k, "A": a, "high": high, "max_abs_err": diff})
+        check(diff == 0, f"K2 disagrees with its plain version at {rows[-1]}")
+    refused = 0
+    if device.type == "cuda":
+        top, wctr = random_cells(3, 64, 33, False, gen, device)
+        with expect_raises(ValueError):
+            fold_cells(top, wctr)  # A > 32
+        top, wctr = random_cells(3, 64, 8, False, gen, device)
+        with expect_raises(ValueError):
+            fold_cells(top, wctr.transpose(1, 2).contiguous().transpose(1, 2))  # non-contiguous
+        with expect_raises(TypeError):
+            fold_cells(top, wctr.view(torch.int32))
+        refused = 3
+    emit({"phase": "k2_shapes", "cases": rows, "max_abs_err": worst, "tolerance": 0,
+          "refused_inputs": refused})
+    return worst
+
+
+# ---- phase 6 -------------------------------------------------------------
+
+MAP_KEYS = list("pqrs")
+
+
+def mint_map_sites(rng, n_sites, n_cmds):
+    """Map<K, MVReg> sites: each writes keys under its own actor, removes
+    keys it sees, and occasionally merges another site's state, so later
+    remove clocks cover other actors' dots (their delivery ahead of those
+    writes parks them)."""
+    from crdt_tpu_torch.pure import Map, MVReg
+
+    sites = [Map(MVReg) for _ in range(n_sites)]
+    streams = [[] for _ in range(n_sites)]
+    for _ in range(n_cmds):
+        i = rng.randrange(n_sites)
+        s = sites[i]
+        roll = rng.random()
+        if roll < 0.4 or not s.keys():
+            val = rng.randrange(5)
+            op = s.update(rng.choice(MAP_KEYS), s.len().derive_add_ctx(f"s{i}"),
+                          lambda reg, c: reg.write(val, c))
+        elif roll < 0.65:
+            victim = rng.choice(sorted(s.keys()))
+            op = s.rm(victim, s.get(victim).derive_rm_ctx())
+        else:
+            s.merge(sites[rng.randrange(n_sites)].clone())
+            continue
+        s.apply(op)
+        streams[i].append(op)
+    return sites, streams
+
+
+def phase_map_scenarios(device, seed: int, rounds: int = 6) -> dict:
+    import torch
+
+    from crdt_tpu_torch.config import configured
+    from crdt_tpu_torch.dot import Dot
+    from crdt_tpu_torch.models import BatchedMap, DeferredOverflow, SlotOverflow
+    from crdt_tpu_torch.ops.fold_kernels import fold_cells
+    from crdt_tpu_torch.pure import Map, MVReg
+    from crdt_tpu_torch.pure.map import MapRm, Up
+    from crdt_tpu_torch.pure.mvreg import Put
+    from crdt_tpu_torch.traits import DotRange
+    from crdt_tpu_torch.utils import Interner
+    from crdt_tpu_torch.vclock import VClock
+
+    rng = random.Random(seed + 6)
+    counts = {"ops": 0, "merges": 0, "folds": 0, "parked_seen": 0, "resets": 0}
+    launches0 = fold_cells.launches
+    for _ in range(rounds):
+        n = rng.randint(3, 5)
+        sites, streams = mint_map_sites(rng, n, 24)
+        actors = Interner([f"s{i}" for i in range(n)])
+        keys, values = Interner(MAP_KEYS), Interner(range(5))
+        caps = dict(sibling_cap=n, deferred_cap=8)
+        # State round trip through the device is lossless.
+        model = BatchedMap.from_pure(sites, keys=keys.clone(), actors=actors.clone(),
+                                     values=values.clone(), device=device, **caps)
+        for i, s in enumerate(sites):
+            check(model.to_pure(i) == s, "from_pure/to_pure round trip")
+
+        # Cross-delivery: every replica gets random prefixes of every
+        # stream, interleaved with per-stream order kept.
+        replicas = [Map(MVReg) for _ in range(n)]
+        model = BatchedMap(n, len(MAP_KEYS), n, keys=keys.clone(), actors=actors.clone(),
+                           values=values.clone(), device=device, **caps)
+        for j in range(n):
+            cut = [q[: rng.randint(0, len(q))] for q in streams]
+            for op in interleave(rng, cut):
+                replicas[j].apply(op)
+                model.apply(j, op)
+                counts["ops"] += 1
+            check(model.to_pure(j) == replicas[j], f"map op path, replica {j}")
+            counts["parked_seen"] += len(replicas[j].deferred)
+
+        # Garbage ops and a key outside the full universe are refused and
+        # leave the replica untouched.
+        with expect_raises(TypeError):
+            model.apply(0, "not an op")
+        with expect_raises(IndexError):
+            model.apply(0, MapRm(clock=VClock({"s0": 1}), keyset=("ghost",)))
+        check(model.to_pure(0) == replicas[0], "refused op left state untouched")
+
+        # Pairwise merges and repeated self-merge.
+        for _ in range(n):
+            dst, src = rng.randrange(n), rng.randrange(n)
+            replicas[dst].merge(replicas[src].clone())
+            model.merge_from(dst, src)
+            counts["merges"] += 1
+            check(model.to_pure(dst) == replicas[dst], "map merge_from vs oracle merge")
+        before = model.to_pure(0)
+        model.merge_from(0, 0)
+        model.merge_from(0, 0)
+        check(model.to_pure(0) == before, "repeated self-merge changed state")
+
+        # Full fold (K2 on a card) vs the oracle merge chain.
+        expect = Map(MVReg)
+        for s in replicas:
+            expect.merge(s.clone())
+        check(model.fold() == expect, "map fold vs oracle merge chain")
+        counts["folds"] += 1
+
+        # reset_remove of one actor's early history.
+        clock = VClock({"s0": 2, f"s{n - 1}": 1})
+        model.reset_remove(1, clock)
+        replicas[1].reset_remove(clock)
+        check(model.to_pure(1) == replicas[1], "map reset_remove")
+        counts["resets"] += 1
+
+    def up(actor, counter, key, val):
+        dot = Dot(actor, counter)
+        return Up(dot=dot, key=key, op=Put(dot=dot, clock=VClock({actor: counter}), val=val))
+
+    # A remove that overtakes the write it covers parks, then replays
+    # when the write lands.
+    site = Map(MVReg)
+    write = site.update("p", site.len().derive_add_ctx("a"), lambda reg, c: reg.write(1, c))
+    site.apply(write)
+    rm = site.rm("p", site.get("p").derive_rm_ctx())
+    late = BatchedMap(1, 2, 1, device=device)
+    pure = Map(MVReg)
+    for op in (rm, write):
+        late.apply(0, op)
+        pure.apply(op)
+        counts["parked_seen"] += len(pure.deferred)
+        check(late.to_pure(0) == pure, "parked remove and its replay")
+    check(not pure.deferred and not late.keys_of(0), "the parked remove did not replay")
+
+    # rm of an unseen key with spare lanes: interned, nothing to remove.
+    spare = BatchedMap(1, 4, 2, device=device)
+    pure = Map(MVReg)
+    op = MapRm(clock=VClock(), keyset=("never-written",))
+    spare.apply(0, op)
+    pure.apply(op)
+    check(spare.to_pure(0) == pure, "rm of an unseen key")
+
+    # Strict mode: gapped and duplicate dots raise DotRange on both sides,
+    # and the rejected op leaves the replica and its interners unchanged.
+    with configured(strict=True):
+        m = BatchedMap(1, 4, 2, device=device)
+        p = Map(MVReg)
+        m.apply(0, up("a", 1, "x", 7))
+        p.apply(up("a", 1, "x", 7))
+        for bad in (up("a", 3, "y", 8), up("a", 1, "y", 8)):
+            for target in (lambda: m.apply(0, bad), lambda: p.validate_op(bad)):
+                with expect_raises(DotRange):
+                    target()
+        check(m.to_pure(0) == p and "y" not in m.keys, "rejected op had effects")
+
+    # SlotOverflow: three concurrent writers of one key, two sibling slots.
+    tight = BatchedMap(1, 2, 3, sibling_cap=2, device=device)
+    tight.apply(0, up("a", 1, "x", 1))
+    tight.apply(0, up("b", 1, "x", 2))
+    with expect_raises(SlotOverflow):
+        tight.apply(0, up("c", 1, "x", 3))
+    # DeferredOverflow: two distinct ahead removes, one slot.
+    tight = BatchedMap(1, 2, 2, deferred_cap=1, device=device)
+    tight.apply(0, MapRm(clock=VClock({"a": 5}), keyset=("x",)))
+    with expect_raises(DeferredOverflow):
+        tight.apply(0, MapRm(clock=VClock({"a": 6}), keyset=("y",)))
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    counts["k2_launches"] = fold_cells.launches - launches0
+    check(device.type != "cuda" or counts["k2_launches"] == counts["folds"],
+          "the card's map folds did not all go through K2")
+    check(counts["parked_seen"] > 0, "no map scenario parked an ahead remove")
+    emit({"phase": "map_scenarios", **counts})
+    return counts
+
+
+# ---- phase 7 -------------------------------------------------------------
+
+def fill_config4(model, seed: int, chunk: int, n_parked: int = 16, n_clocks: int = 4,
+                 max_lag: float = 0.02, p_remove: float = 0.01):
+    """Replica states in place, on the device, ``chunk`` keys at a time:
+    ``bench.py``'s config-4 layout (``bench_map``) — one fixed counter per
+    (key, slot), key·S + j + 1, written with only its own actor lane set
+    in the write clock; slot 0 always written, later slots with
+    probability 1/2; actors rotate over the slots — drawn as projections
+    of ONE write history, so that the replicas converge to a map that
+    fits S sibling slots. The write at (key k, slot j) is actor
+    (k + j) % A's; replica i has seen each actor's writes up to its top,
+    which lags the history's end by up to ``max_lag``; it holds every
+    write its top covers, except the keys it removed (probability
+    ``p_remove / R`` per key). Slot tables are canonical (live slots
+    first, by actor). Plus ``n_parked`` keyset-removes parked ahead of
+    every top over ``n_clocks`` distinct clocks, together masking ~1% of
+    the keys, so the fused fold's epilogue dedupes, replays and keeps
+    ``n_clocks`` slots."""
+    import torch
+
+    from crdt_tpu_torch._dtypes import bits, from_wide
+
+    st = model.state
+    c = st.child
+    r, k, s = c.wact.shape
+    a, d = st.top.shape[-1], st.dvalid.shape[-1]
+    dev = st.top.device
+    gen = torch.Generator(device=dev).manual_seed(seed + 4)
+    end = k * s  # the history's last counter
+    lag = torch.rand((r, a), generator=gen, device=dev) * max_lag * end
+    top = (end - lag).long()
+    slot = torch.arange(s, device=dev)
+    for lo in range(0, k, chunk):
+        hi = min(k, lo + chunk)
+        keys = torch.arange(lo, hi, device=dev)[:, None]
+        ctr = (keys * s + slot + 1).expand(r, hi - lo, s)
+        act = ((keys + slot) % a).expand(r, hi - lo, s)
+        written = (slot == 0) | (torch.rand((hi - lo, s), generator=gen, device=dev) < 0.5)
+        kept = torch.rand((r, hi - lo, 1), generator=gen, device=dev) >= p_remove / r
+        held = written & kept & (ctr <= torch.gather(top[:, None, :].expand(r, hi - lo, a), 2, act))
+        # Canonical slot order: live slots first, then by actor.
+        order = torch.argsort((~held).long() * a + act, dim=-1, stable=True)
+        held, act, ctr = (torch.gather(x, 2, order) for x in (held, act, ctr))
+        clk = torch.zeros((r, hi - lo, s, a), dtype=torch.int64, device=dev)
+        clk.scatter_(-1, act[..., None], ctr[..., None])
+        clk = torch.where(held[..., None], clk, 0)
+        c.wact[:, lo:hi] = torch.where(held, act, 0).to(torch.int32)
+        bits(c.wctr)[:, lo:hi] = bits(from_wide(torch.where(held, ctr, 0), torch.uint32))
+        bits(c.clk)[:, lo:hi] = bits(from_wide(clk, torch.uint32))
+        c.val[:, lo:hi] = torch.where(held, (ctr - 1) % 5, 0).to(torch.int32)
+        c.valid[:, lo:hi] = held
+    bits(st.top)[:] = bits(from_wide(top, torch.uint32))
+    # Parked removes: clock lane 0 runs ahead of every top; the other
+    # lanes cover every dot, so each masked key's cells die in the replay.
+    pos = torch.arange(n_parked, device=dev)
+    rows, slots = pos * r // n_parked, pos % min(d, 2)
+    clocks = torch.full((n_clocks, a), end, dtype=torch.int64, device=dev)
+    clocks[:, 0] = end + 1 + torch.arange(n_clocks, device=dev)
+    bits(st.dcl)[rows, slots] = bits(from_wide(clocks[pos % n_clocks], torch.uint32))
+    st.dvalid[rows, slots] = True
+    st.dkeys[rows, slots] = torch.rand((n_parked, k), generator=gen, device=dev) < 0.01 / n_parked
+
+
+def time_each(fn, device, n: int) -> float:
+    """Per-call ms of ``n`` back-to-back calls of ``fn`` (CUDA events
+    around the run on a card), so the host's launch overhead overlaps
+    with the device's work instead of adding to a short kernel's time."""
+    return time_ms(lambda: [fn() for _ in range(n)], device) / n
+
+
+def phase_full_width_map(device, seed: int, r: int = 8, k: int = 1_000_000, s: int = 2,
+                         a: int = 4, d: int = 4, chunk: int = 1 << 17, repeats: int = 7,
+                         per_sample: int = 20) -> dict:
+    import torch
+
+    from crdt_tpu_torch.models import BatchedMap
+    from crdt_tpu_torch.models.map import _to_pure
+    from crdt_tpu_torch.ops.fold_kernels import (
+        decode_cells, fold_cells, fold_cells_plain, fold_fused_map, settle_folded_map,
+    )
+    from crdt_tpu_torch.ops.map import _tree_fold
+    from crdt_tpu_torch.utils import Interner
+    from crdt_tpu_torch._dtypes import bits
+
+    on_card = device.type == "cuda"
+    sync = (lambda: torch.cuda.synchronize(device)) if on_card else (lambda: None)
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    model = BatchedMap(r, k, a, s, d, keys=Interner(range(k)),
+                       actors=Interner(f"a{i}" for i in range(a)), values=Interner(range(5)),
+                       device=device)
+    fill_config4(model, seed, chunk)
+    sync()
+    setup_s = time.perf_counter() - t0
+    st = model.state
+
+    # The main path, counted: BatchedMap.fold() must go through K2.
+    fold_cells.launches = 0
+    t0 = time.perf_counter()
+    converged = model.fold()
+    sync()
+    fold_e2e_ms = (time.perf_counter() - t0) * 1e3
+    launches = fold_cells.launches
+    check(not on_card or launches >= 1, "BatchedMap.fold() did not launch K2")
+
+    # The gate, before any number: the fused fold against the plain tree
+    # fold on the same device, leaf for leaf, tolerance 0. The parked
+    # buffer is a set of (clock, keys) slots whose order differs between
+    # fold orders (the JAX package's fused and tree folds differ the same
+    # way), so it is compared in clock order.
+    fused, fused_flags = fold_fused_map(st)
+    got = {}
+    tree_ms = time_ms(lambda: got.update(zip(("tree", "flags"), _tree_fold(st))), device)
+    tree, tree_flags = got["tree"], got["flags"]
+    for (name, x), (_, y) in zip(_named_leaves(_parked_in_clock_order(fused)),
+                                 _named_leaves(_parked_in_clock_order(tree))):
+        check(x.dtype == y.dtype and torch.equal(bits(x), bits(y)),
+              f"fused map fold differs from the tree fold in {name}")
+    check(torch.equal(fused_flags, tree_flags), "fused and tree overflow flags differ")
+    check(not bool(fused_flags.any()), "unexpected overflow at full width")
+    t0 = time.perf_counter()
+    expect = _to_pure(fused, model.keys, model.actors, model.values)
+    to_pure_ms = (time.perf_counter() - t0) * 1e3
+    check(expect == converged, "BatchedMap.fold() differs from the gated fused fold")
+    check(len(converged.entries) > k * 9 // 10, "the fold lost more keys than were removed")
+    check(len(converged.deferred) == 4, "the parked ahead-removes did not survive")
+
+    # K2 alone on the decoded cells, CUDA events (each sample is
+    # ``per_sample`` back-to-back launches: at R=8 one launch is tens of µs).
+    cells = decode_cells(st)
+    times = [time_each(lambda: fold_cells(st.top, cells), device, per_sample)
+             for _ in range(repeats)]
+    k2_ms = statistics.median(times)
+    k_top, k_w = fold_cells(st.top, cells)
+    plain = {}
+    plain_ms = time_ms(lambda: plain.update(zip(("top", "w"), fold_cells_plain(st.top, cells))),
+                       device)
+    diff = max(max_abs_diff(k_top, plain["top"]), max_abs_diff(k_w, plain["w"]))
+    check(diff == 0, f"K2 at full width disagrees with its plain version (max {diff})")
+
+    # Where fold() spends its time: decode, K2, the epilogue (winner
+    # select, parked-remove replay, compaction, slot tables) and the read
+    # back to oracle form on the host.
+    decode_ms = statistics.median(time_ms(lambda: decode_cells(st), device) for _ in range(3))
+    settle_ms = statistics.median(
+        time_ms(lambda: settle_folded_map(k_top, k_w, st), device) for _ in range(3))
+    fused_ms = statistics.median(time_ms(lambda: fold_fused_map(st), device) for _ in range(3))
+    busy = profile_busy(model.fold, device)
+
+    bound = fold_bound_ms(r, k, a, OPS_PER_CELL)
+    out = {
+        "phase": "full_width_map",
+        "R": r, "K": k, "S": s, "A": a, "D": d,
+        "setup_s": setup_s,
+        "k2_ms_median": k2_ms, "k2_ms_runs": times, "k2_launches_per_sample": per_sample,
+        "k2_gb_per_s": bound["bytes"] / (k2_ms * 1e-3) / 1e9,
+        "merges_per_s": (r - 1) / (k2_ms * 1e-3),
+        "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+        "bound_share": bound["bound_ms"] / k2_ms,
+        "k2_plain_ms": plain_ms,
+        "tree_fold_ms_gate": tree_ms,
+        "decode_ms": decode_ms,
+        "settle_ms_winner_select_and_epilogue": settle_ms,
+        "fold_fused_map_ms": fused_ms,
+        "fold_e2e_ms_incl_to_pure": fold_e2e_ms,
+        "to_pure_ms": to_pure_ms,
+        "to_pure_share_of_fold_e2e": to_pure_ms / fold_e2e_ms,
+        "fold_profile": busy,
+        "k2_launches_in_fold": launches,
+        "max_abs_err": diff,
+        "converged_keys": len(converged.entries),
+        "converged_parked": len(converged.deferred),
+        "peak_mem_gb": torch.cuda.max_memory_allocated(device) / 1e9 if on_card else None,
+    }
+    emit(out)
+    return out
+
+
+def _parked_in_clock_order(state):
+    """An unbatched MapState with its parked slots reordered: valid slots
+    first, by clock."""
+    import torch
+
+    from crdt_tpu_torch._dtypes import bits, to_wide
+
+    dcl, dvalid = to_wide(state.dcl).tolist(), state.dvalid.tolist()
+    order = sorted(range(len(dvalid)), key=lambda i: (not dvalid[i], dcl[i]))
+    idx = torch.tensor(order, device=state.dvalid.device)
+    return state._replace(dcl=bits(state.dcl)[idx].view(state.dcl.dtype),
+                          dkeys=state.dkeys[idx], dvalid=state.dvalid[idx])
+
+
+def _named_leaves(state, prefix=""):
+    """``(dotted name, tensor)`` for every leaf of a nested NamedTuple."""
+    out = []
+    for name, x in zip(state._fields, state):
+        if isinstance(x, tuple):
+            out += _named_leaves(x, f"{prefix}{name}.")
+        else:
+            out.append((prefix + name, x))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=20261016)
@@ -571,6 +1056,11 @@ def main(argv=None) -> int:
     phase_scenarios(device, args.seed)
     full = phase_full_width(device, args.seed)
     check(fold_entries.launches >= full["k1_launches_in_fold"], "launch counter went backwards")
+    worst2 = phase_k2_shapes(device, args.seed)
+    phase_map_scenarios(device, args.seed)
+    # Config 4 as bench.py commits it (R = 8), then at R = 64.
+    full_map = phase_full_width_map(device, args.seed, r=8)
+    wide_map = phase_full_width_map(device, args.seed, r=64)
 
     print(dev["nvidia_smi"], flush=True)
     emit({"kernels": [{
@@ -581,6 +1071,15 @@ def main(argv=None) -> int:
         "plain_ms": full["plain_chunked_ms_check_not_a_yardstick"],
         "bound_ms": full["bound_ms"],
         "bound_by": full["bound_by"],
+        "library_ms": None,
+    }, {
+        **K2,
+        "launches": full_map["k2_launches_in_fold"],
+        "max_abs_err": max(worst2, full_map["max_abs_err"], wide_map["max_abs_err"]),
+        "ms": full_map["k2_ms_median"],
+        "plain_ms": full_map["k2_plain_ms"],
+        "bound_ms": full_map["bound_ms"],
+        "bound_by": full_map["bound_by"],
         "library_ms": None,
     }]})
     emit({"ok": True, "device": {
