@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``crdt_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--only PHASES]
 
-Builds the port's CUDA kernels from the sources in this checkout (``nvcc``,
+``--only`` (a development aid) runs the named phases alone and prints no
+kernels line and no ok line; the script's contract is the full run with no
+arguments. Builds the port's CUDA kernels from the sources in this checkout (``nvcc``,
 at first use), then runs, printing one JSON line per phase:
 
 1. ``device``         — the card, torch/CUDA versions, the kernels' build
@@ -45,6 +47,30 @@ at first use), then runs, printing one JSON line per phase:
                         is reported; then K2's time, GB/s, merges/s and
                         share of the bound, the fused fold's pieces, and
                         ``fold()`` end to end with ``to_pure``'s share.
+
+8. ``k3_shapes``      — kernel K3 (``wire_pack``) against its plain torch
+                        version on the card, every output at tolerance 0:
+                        the four flag sets (plain, gated, gated+acked,
+                        parked), N in {1, 31, 1024, 65537}, LC in {1, 2, 8,
+                        16, 33}, B in {1, 8}, u32 and u64 clocks, rows
+                        inside and outside the ±32 Ki window, bases above
+                        clocks near the dtype's max; bad inputs must raise.
+9. ``delta_scenarios`` — small oracle-minted rings on 4 virtual ranks, all
+                        of ``pipeline`` × ``fused``: fused == layered on
+                        every leaf, equal residue, and the converged rows
+                        == ``mesh_fold`` when the residue is 0.
+10. ``full_width_delta`` — the dense δ anti-entropy ring at config 3's
+                        widths (E=102400, A=8, D=4) on P=8 virtual ranks
+                        with R=5120 replicas (half of config 3's 10240: the
+                        fctx plane is as large as ctr), through
+                        ``mesh_delta_gossip``: fused ring (K3) == layered
+                        ring == ``mesh_fold`` (K1) on every leaf with
+                        residue 0; K3's time, launches, bytes (distinct
+                        data) and bound share, the ring's wall time (the
+                        median of 5 warm rings of each kind, alternating),
+                        rounds, slots and wire bytes per link-round, the
+                        local fold's time, the device's busy share and peak
+                        memory.
 
 Then the ``nvidia-smi`` name/power-limit line, a ``kernels`` JSON line, and
 as the last line ``{"ok": true, "device": {...}}``. Any failed check raises
@@ -91,6 +117,13 @@ K2 = {
     "source": "crdt_tpu_torch/csrc/fold.cu",
     "replaces": "crdt_tpu/ops/pallas_kernels.py:91",
 }
+K3 = {
+    "name": "wire_pack (K3)",
+    "route": "cuda",
+    "source": "crdt_tpu_torch/csrc/wire.cu",
+    "replaces": "crdt_tpu/ops/wire_kernels.py:105",
+}
+SOURCES = ("fold.cu", "wire.cu")
 
 
 def emit(obj) -> None:
@@ -192,11 +225,12 @@ def phase_device(device) -> dict:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
-    _build.library("fold.cu")
+    _build.build_all(SOURCES)  # one nvcc per source, all started together
     load_s = time.perf_counter() - t0
-    info = _build.build_info["fold.cu"]
-    ptxas = [ln.strip() for ln in info["log"].splitlines()
-             if "registers" in ln or "spill" in ln or "Compiling" in ln]
+    info = {src: _build.build_info[src] for src in SOURCES}
+    ptxas = {src: [ln.strip() for ln in i["log"].splitlines()
+                   if "registers" in ln or "spill" in ln or "Compiling" in ln]
+             for src, i in info.items()}
     out = {
         "phase": "device",
         "nvidia_smi": smi,
@@ -205,7 +239,7 @@ def phase_device(device) -> dict:
         "python": sys.version.split()[0],
         "device_name": torch.cuda.get_device_name(device),
         "capability": list(torch.cuda.get_device_capability(device)),
-        "nvcc_seconds": info["seconds"],
+        "nvcc_seconds": {src: i["seconds"] for src, i in info.items()},
         "build_and_load_seconds": load_s,
         "ptxas": ptxas,
     }
@@ -415,6 +449,17 @@ class expect_raises:
 
 # ---- phase 4 -------------------------------------------------------------
 
+def config3_history(draw, e: int, a: int):
+    """Config 3's add history ``[e, a]``: ~70% of the (member, actor) dots
+    set, values 1..99 (``draw(lo, hi, shape)`` draws integers)."""
+    return draw(1, 100, (e, a)) * (draw(0, 10, (e, a)) >= 3)
+
+
+def config3_tops(draw, r: int, a: int):
+    """How far each of ``r`` replicas has seen each actor: 90..99."""
+    return draw(90, 100, (r, a))
+
+
 def fill_config3(model, seed: int, chunk: int):
     """Replica states in place, chunk by chunk on the device, projected
     from one add history (``project``): ~70% of the history's dots set,
@@ -437,10 +482,10 @@ def fill_config3(model, seed: int, chunk: int):
         return torch.randint(lo, hi, shape, generator=gen, device=dev, dtype=torch.int32)
 
     ctr32, top32, dcl32 = bits(st.ctr), bits(st.top), bits(st.dcl)
-    history = draw(1, 100, (e, a)) * (draw(0, 10, (e, a)) >= 3)
+    history = config3_history(draw, e, a)
     for lo in range(0, r, chunk):
         hi = min(r, lo + chunk)
-        tops = draw(90, 100, (hi - lo, a))
+        tops = config3_tops(draw, hi - lo, a)
         ctr32[lo:hi] = project(history, tops, gen, 0.05 / r)
         top32[lo:hi] = tops
     clocks = draw(0, 100, (d, a))
@@ -452,10 +497,11 @@ def fill_config3(model, seed: int, chunk: int):
     st.dmask[parked, 0] = torch.rand((parked.numel(), e), generator=gen, device=dev) < 0.01
 
 
-def profile_busy(fn, device):
+def profile_busy(fn, device, host_top: int = 0):
     """Run ``fn()`` once under ``torch.profiler``: wall time, the summed
-    device time of its kernels, their share of the wall time, and the
-    kernels that took most of it. None off a card."""
+    device time of its kernels, their share of the wall time, the kernels
+    that took most of it and (``host_top``) the host-side ops with the
+    most self CPU time. None off a card."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -466,9 +512,10 @@ def profile_busy(fn, device):
         fn()
         torch.cuda.synchronize(device)
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
+    rows, host = [], []
     for ev in prof.key_averages():
         if not str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            host.append((ev.self_cpu_time_total / 1e3, ev.key, ev.count))
             continue  # host-side ops; their kernels are listed on their own
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
@@ -477,11 +524,62 @@ def profile_busy(fn, device):
             rows.append((us / 1e3, ev.key, ev.count))
     rows.sort(reverse=True)
     device_ms = sum(ms for ms, _, _ in rows)
-    return {
+    out = {
         "wall_ms": wall_ms, "device_ms": device_ms,
         "busy_share": device_ms / wall_ms,
         "top": [{"kernel": k[:80], "ms": ms, "calls": n} for ms, k, n in rows[:6]],
     }
+    if host_top:
+        host.sort(reverse=True)
+        out["host_top"] = [{"op": k[:60], "self_cpu_ms": ms, "calls": n}
+                           for ms, k, n in host[:host_top]]
+    return out
+
+
+def graph_ms(fn, device, n: int) -> float:
+    """Per-call ms of ``n`` calls of ``fn`` captured in one CUDA graph and
+    replayed between CUDA events: the host-side wrapper runs once, at
+    capture, so the replay times the device work of the calls alone (a
+    kernel and the allocations' memsets). The host clock on the CPU."""
+    import torch
+
+    if device.type != "cuda":
+        return time_each(fn, device, n)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        fn()  # warm-up off the default stream, as graph capture wants
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize(device)
+    return time_ms(graph.replay, device) / n
+
+
+def kernel_device_ms(fn, device, name: str, n: int):
+    """Mean device time of the kernels whose name contains ``name``, over
+    ``n`` calls of ``fn`` under ``torch.profiler`` (the device's own
+    clock: the host's wrapper overhead is not in it). None off a card or
+    when the profiler shows no such kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if device.type != "cuda":
+        return None
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize(device)
+    total, calls = 0.0, 0
+    for ev in prof.key_averages():
+        if name in ev.key and str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            us = getattr(ev, "self_device_time_total", None)
+            total += us if us is not None else getattr(ev, "self_cuda_time_total", 0)
+            calls += ev.count
+    return total / 1e3 / calls if calls else None
 
 
 def phase_full_width(device, seed: int, r=10240, e=102400, a=8, d=4,
@@ -947,8 +1045,8 @@ def phase_full_width_map(device, seed: int, r: int = 8, k: int = 1_000_000, s: i
     got = {}
     tree_ms = time_ms(lambda: got.update(zip(("tree", "flags"), _tree_fold(st))), device)
     tree, tree_flags = got["tree"], got["flags"]
-    for (name, x), (_, y) in zip(_named_leaves(_parked_in_clock_order(fused)),
-                                 _named_leaves(_parked_in_clock_order(tree))):
+    for (name, x), (_, y) in zip(_named_leaves(parked_in_clock_order(fused)),
+                                 _named_leaves(parked_in_clock_order(tree))):
         check(x.dtype == y.dtype and torch.equal(bits(x), bits(y)),
               f"fused map fold differs from the tree fold in {name}")
     check(torch.equal(fused_flags, tree_flags), "fused and tree overflow flags differ")
@@ -1011,20 +1109,6 @@ def phase_full_width_map(device, seed: int, r: int = 8, k: int = 1_000_000, s: i
     return out
 
 
-def _parked_in_clock_order(state):
-    """An unbatched MapState with its parked slots reordered: valid slots
-    first, by clock."""
-    import torch
-
-    from crdt_tpu_torch._dtypes import bits, to_wide
-
-    dcl, dvalid = to_wide(state.dcl).tolist(), state.dvalid.tolist()
-    order = sorted(range(len(dvalid)), key=lambda i: (not dvalid[i], dcl[i]))
-    idx = torch.tensor(order, device=state.dvalid.device)
-    return state._replace(dcl=bits(state.dcl)[idx].view(state.dcl.dtype),
-                          dkeys=state.dkeys[idx], dvalid=state.dvalid[idx])
-
-
 def _named_leaves(state, prefix=""):
     """``(dotted name, tensor)`` for every leaf of a nested NamedTuple."""
     out = []
@@ -1036,10 +1120,617 @@ def _named_leaves(state, prefix=""):
     return out
 
 
+# ---- phase 8 -------------------------------------------------------------
+
+K3_FLAGS = {
+    # name -> (gated, acked, parked)
+    "plain": (False, False, False),
+    "gated": (True, False, False),
+    "gated_acked": (True, True, False),
+    "parked": (False, False, True),
+}
+K3_NS = (1, 31, 1024, 65537)
+K3_LCS = (1, 2, 8, 16, 33)
+K3_BS = (1, 8)
+# (B, layout): contiguous per-row inputs at every B, and at the largest B
+# also the ring's layout (broadcast watermark and digest, ``know`` inside
+# ``clocks``).
+K3_LAYOUTS = tuple((b, "rows") for b in K3_BS) + ((K3_BS[-1], "ring"),)
+
+
+def k3_spec(flags: str, lc: int):
+    """The WireLaneSpec of one K3 case: the ctx plane is the last
+    ``max(1, lc // 2)`` columns where a verdict reads it."""
+    from crdt_tpu_torch.ops.wire_kernels import WireLaneSpec
+
+    gated, acked, parked = K3_FLAGS[flags]
+    a = max(1, lc // 2)
+    ctx = (lc - a, lc) if (gated or acked) else (0, 0)
+    return WireLaneSpec(lc=lc, ctx_lo=ctx[0], ctx_hi=ctx[1], gated=gated, acked=acked,
+                        parked=parked)
+
+
+def random_wire_case(spec, b, n, dtype, gen, device):
+    """K3's inputs ``[b, n, lc]`` around a per-row watermark: lanes within
+    ±40 of it, a quarter of the rows with one lane 40,000 or 2^30 away
+    (outside the ±32 Ki window: deferred when valid and ungated), 30% of
+    the bases within 20 of the dtype's max with clocks wrapping past it,
+    and gate / ack inputs that cover some rows and miss others."""
+    import torch
+
+    from crdt_tpu_torch._dtypes import from_raw
+
+    lc = spec.lc
+    a = spec.ctx_hi - spec.ctx_lo
+
+    def draw(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=device, dtype=torch.int64)
+
+    def rand(shape):
+        return torch.rand(shape, generator=gen, device=device)
+
+    wide = dtype == torch.uint64
+    top = -1 if wide else (1 << 32) - 1  # the dtype's max, as its raw int64 bits
+    base = draw(0, 1 << 20, (b, n, lc))
+    base = torch.where(rand((b, n, 1)) < 0.3, top - draw(0, 20, (b, n, lc)), base)
+    delta = draw(-40, 40, (b, n, lc))
+    far = (rand((b, n, 1)) < 0.25) & (draw(0, lc, (b, n, 1)) == torch.arange(lc, device=device))
+    jump = torch.where(rand((b, n, lc)) < 0.5, 40_000, 1 << 30) * torch.where(
+        rand((b, n, lc)) < 0.5, -1, 1)
+    raw_clocks = base + torch.where(far, jump, delta)
+    clocks, base = from_raw(raw_clocks, dtype), from_raw(base, dtype)
+    out = dict(clocks=clocks, base=base, valid=rand((b, n)) < 0.8)
+    if spec.gated:
+        ctx = raw_clocks[..., spec.ctx_lo:spec.ctx_hi]
+        know = torch.where((rand((b, n, 1)) < 0.3) & (torch.arange(a, device=device) == 0),
+                           ctx ^ 1, ctx)
+        dig = torch.where((rand((b, n, 1)) < 0.3) & (torch.arange(a, device=device) == a - 1),
+                          know - 1, know)
+        out.update(know=from_raw(know, dtype), dig=from_raw(dig, dtype))
+    if spec.acked:
+        cols = torch.arange(lc, device=device)
+        winc = torch.where((rand((b, n, 1)) < 0.3) & (cols == 0), raw_clocks ^ 2, raw_clocks)
+        winc = torch.where((rand((b, n, 1)) < 0.3) & (cols == spec.ctx_lo), winc - 1, winc)
+        out.update(winc=from_raw(winc, dtype), ack_ok=rand((b, n)) < 0.7)
+    return out
+
+
+def ring_layout(spec, case):
+    """``case`` laid out as the δ ring's codec hands it to K3: the
+    watermark (and the digest) one stored row per link, broadcast over the
+    slots, and the gate's ``know`` read in place from ``clocks`` (here its
+    ctx columns, so that the gate covers rows)."""
+    out = dict(case, base=case["base"][:, :1].expand(case["base"].shape))
+    if spec.gated:
+        out.update(dig=case["dig"][:, :1].expand(case["dig"].shape),
+                   know=case["clocks"][..., spec.ctx_lo:spec.ctx_hi])
+    return out
+
+
+def wire_diff(x, y) -> int:
+    """Max |difference| over the leaves of two WirePackOut (flags count
+    their mismatches); 0 when every leaf is equal."""
+    import torch
+
+    worst = 0
+    for u, v in zip(x, y):
+        check(u.shape == v.shape and u.dtype == v.dtype, "WirePackOut leaves differ in shape")
+        worst = max(worst, int((u != v).sum()) if u.dtype == torch.bool else max_abs_diff(u, v))
+    return worst
+
+
+def phase_k3_shapes(device, seed: int) -> int:
+    """K3 vs its plain version over every case; returns the max |diff| (0)."""
+    import torch
+
+    from crdt_tpu_torch.ops.wire_kernels import WireLaneSpec, wire_pack, wire_pack_plain
+
+    gen = torch.Generator(device=device).manual_seed(seed + 8)
+    on_card = device.type == "cuda"
+    worst, n_cases, rows = 0, 0, []
+    launches0 = wire_pack.launches
+    for flags in K3_FLAGS:
+        for dtype in (torch.uint32, torch.uint64):
+            for lc in K3_LCS:
+                spec = k3_spec(flags, lc)
+                for n in K3_NS:
+                    for b, layout in K3_LAYOUTS:
+                        case = random_wire_case(spec, b, n, dtype, gen, device)
+                        if b == 1:  # the unstacked [N, LC] form
+                            case = {k: v[0] for k, v in case.items()}
+                        if layout == "ring":
+                            case = ring_layout(spec, case)
+                        got = wire_pack(spec, **case)
+                        want = wire_pack_plain(spec, **case)
+                        diff = wire_diff(got, want)
+                        n_cases += 1
+                        worst = max(worst, diff)
+                        check(diff == 0, f"K3 disagrees with its plain version at "
+                              f"{flags} {dtype} LC={lc} N={n} B={b} {layout} layout")
+                        if n == 65537 and b == 8:
+                            rows.append({"flags": flags, "dtype": str(dtype), "LC": lc,
+                                         "layout": layout,
+                                         "kept": int(want.keep.sum()),
+                                         "deferred": int(want.defer.sum()),
+                                         "covered": int(want.covered.sum())})
+    if on_card:
+        torch.cuda.synchronize(device)
+    launches = wire_pack.launches - launches0
+    check(not on_card or launches == n_cases, "K3 was not launched for every case")
+    refused = 0
+    if on_card:
+        spec = k3_spec("gated", 16)
+        case = random_wire_case(spec, 2, 64, torch.uint32, gen, device)
+        bad = [
+            ("a CPU base with CUDA clocks", ValueError, dict(case, base=case["base"].cpu())),
+            ("non-contiguous clocks", ValueError,
+             dict(case, clocks=case["clocks"].transpose(0, 1).contiguous().transpose(0, 1))),
+            ("int32 clocks", TypeError, dict(case, clocks=case["clocks"].view(torch.int32))),
+            ("u64 base with u32 clocks", TypeError,
+             dict(case, base=case["base"].to(torch.int64).view(torch.uint64))),
+            ("int8 valid", TypeError, dict(case, valid=case["valid"].to(torch.int8))),
+            ("base with strided lanes", ValueError,
+             dict(case, base=case["base"].transpose(1, 2).contiguous().transpose(1, 2))),
+        ]
+        for what, exc, args in bad:
+            with expect_raises(exc):
+                wire_pack(spec, **args)
+            refused += 1
+        wide = WireLaneSpec(lc=65)
+        c65 = random_wire_case(wide, 1, 8, torch.uint32, gen, device)
+        with expect_raises(ValueError):
+            wire_pack(wide, **c65)  # LC above the compiled maximum
+        empty = random_wire_case(spec, 2, 1, torch.uint32, gen, device)
+        with expect_raises(ValueError):
+            wire_pack(spec, **{k: v[:, :0] for k, v in empty.items()})  # N = 0
+        refused += 2
+        check(wire_pack.launches - launches0 == n_cases, "a refused input launched K3")
+    emit({"phase": "k3_shapes", "cases": n_cases, "launches": launches,
+          "largest_cases": rows, "max_abs_err": worst, "tolerance": 0,
+          "refused_inputs": refused})
+    return worst
+
+
+# ---- phase 9 -------------------------------------------------------------
+
+def mint_tracked(rng, n, members):
+    """``n`` oracle replicas from one op history with random causal
+    delivery (per-actor prefixes), and each replica's applied-op log: the
+    δ tests' workload (tests/test_delta.py ``_rand_states``)."""
+    from crdt_tpu_torch.pure.orswot import Orswot
+
+    reps = [Orswot() for _ in range(n)]
+    applied = [[] for _ in range(n)]
+    got = [[0] * n for _ in range(n)]
+    seq = [0] * n
+    for _ in range(rng.randint(8, 25)):
+        origin = rng.randrange(n)
+        m = rng.choice(members)
+        if rng.random() < 0.6 or not reps[origin].read().val:
+            op = reps[origin].add(m, reps[origin].read().derive_add_ctx(f"s{origin}"))
+        else:
+            victim = rng.choice(sorted(reps[origin].read().val))
+            op = reps[origin].rm(victim, reps[origin].contains(victim).derive_rm_ctx())
+        for i in range(n):
+            if i == origin:
+                reps[i].apply(op)
+                applied[i].append(op)
+            elif got[i][origin] == seq[origin] and rng.random() < 0.5:
+                reps[i].apply(op)
+                applied[i].append(op)
+                got[i][origin] += 1
+        seq[origin] += 1
+    return reps, applied
+
+
+def op_tracking(model, applied, device):
+    """``(dirty, fctx)`` from per-replica op logs at op granularity: adds
+    contribute their dot at their members, removes their clock."""
+    import numpy as np
+
+    from crdt_tpu_torch.convert import tracking_from_numpy
+    from crdt_tpu_torch.pure.orswot import Add
+
+    r = model.n_replicas
+    e, a = model.state.ctr.shape[-2:]
+    dirty = np.zeros((r, e), bool)
+    fctx = np.zeros((r, e, a), np.uint32)
+    for i, ops_i in enumerate(applied):
+        for op in ops_i:
+            dots = ({op.dot.actor: op.dot.counter} if isinstance(op, Add) else op.clock.dots)
+            for m in op.members:
+                eid = model.members.id_of(m)
+                dirty[i, eid] = True
+                for actor, c in dots.items():
+                    aid = model.actors.id_of(actor)
+                    fctx[i, eid, aid] = max(fctx[i, eid, aid], c)
+    return tracking_from_numpy(dirty, fctx, device=device)
+
+
+def parked_in_clock_order(state):
+    """``state`` (an OrswotState or MapState, with any leading batch axes)
+    with each row's parked slots reordered: valid slots first, by clock.
+    Fold orders may park the same removes in different slots (the JAX
+    package's fused and tree folds differ the same way)."""
+    import torch
+
+    from crdt_tpu_torch._dtypes import bits, to_wide
+
+    mask = "dmask" if hasattr(state, "dmask") else "dkeys"
+    lead, d = state.dvalid.shape[:-1], state.dvalid.shape[-1]
+    valid = state.dvalid.reshape(-1, d).tolist()
+    clocks = to_wide(state.dcl).reshape(-1, d, state.dcl.shape[-1]).tolist()
+    idx = torch.tensor([sorted(range(d), key=lambda i: (not v[i], c[i]))
+                        for v, c in zip(valid, clocks)], device=state.dvalid.device)
+    idx = idx.reshape(*lead, d)
+    take = lambda x: torch.take_along_dim(  # noqa: E731
+        bits(x), idx.reshape(*idx.shape, *([1] * (x.dim() - idx.dim()))),
+        dim=idx.dim() - 1).view(x.dtype)
+    return state._replace(dcl=take(state.dcl), dvalid=take(state.dvalid),
+                          **{mask: take(getattr(state, mask))})
+
+
+def same_leaves(x, y) -> bool:
+    import torch
+
+    from crdt_tpu_torch._dtypes import bits
+
+    return all(u.dtype == v.dtype and u.shape == v.shape and torch.equal(bits(u), bits(v))
+               for u, v in zip(x, y))
+
+
+def rows_equal_fold(rows, folded) -> bool:
+    """Every rank's converged row equals the folded state (parked slots in
+    clock order on both sides)."""
+    from crdt_tpu_torch.ops.lattice import tree_map
+
+    rows = parked_in_clock_order(rows)
+    one = parked_in_clock_order(tree_map(lambda x: x[None], folded))
+    return all(same_leaves(tree_map(lambda x: x[q], rows), tree_map(lambda x: x[0], one))
+               for q in range(rows.top.shape[0]))
+
+
+def phase_delta_scenarios(device, seed: int, n_seeds: int = 3) -> dict:
+    import torch
+
+    from crdt_tpu_torch.models import BatchedOrswot
+    from crdt_tpu_torch.ops.wire_kernels import wire_pack
+    from crdt_tpu_torch.parallel import VirtualMesh, mesh_delta_gossip, mesh_fold
+
+    mesh = VirtualMesh(4, device)
+    counts = {"rings": 0, "certified": 0, "matched_fold": 0, "k3_launches": 0}
+    launches0 = wire_pack.launches
+    for k in range(n_seeds):
+        rng = random.Random(seed + 90 + k)
+        reps, applied = mint_tracked(rng, 8, ["a", "b", "c", "d", "e"])
+        model = BatchedOrswot.from_pure(reps, device=device)
+        dirty, fctx = op_tracking(model, applied, device)
+        folded, of_f = mesh_fold(model.state, mesh)
+        check(not bool(of_f), "mesh_fold overflowed")
+        for cap in (64, 2):
+            for pipeline in (True, False):
+                outs = {}
+                for fused in (True, False):
+                    outs[fused] = mesh_delta_gossip(model.state, dirty, fctx, mesh, rounds=12,
+                                                    cap=cap, pipeline=pipeline, fused=fused)
+                    counts["rings"] += 1
+                (fr, fd, fo, fres), (lr, ld, lo, lres) = outs[True], outs[False]
+                what = f"seed {k} cap {cap} pipeline {pipeline}"
+                check(same_leaves(fr, lr) and torch.equal(fd, ld) and bool(fo) == bool(lo),
+                      f"fused ring differs from the layered ring ({what})")
+                check(int(fres) == int(lres), f"fused and layered residue differ ({what})")
+                if int(fres) == 0:
+                    counts["certified"] += 1
+                    check(rows_equal_fold(fr, folded), f"certified ring != mesh_fold ({what})")
+                    counts["matched_fold"] += 1
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    counts["k3_launches"] = wire_pack.launches - launches0
+    check(device.type != "cuda" or counts["k3_launches"] > 0, "no fused ring launched K3")
+    check(counts["certified"] > 0, "no scenario ring certified")
+    emit({"phase": "delta_scenarios", **counts})
+    return counts
+
+
+# ---- phase 10 ------------------------------------------------------------
+
+def fill_delta_config3(r, e, a, d, p, seed, device, chunk=128, n_cross=3, n_des=3):
+    """Replica states, dirty and fctx for the δ ring, on the device, chunk
+    by chunk. All replicas start from ONE synced state drawn as
+    ``fill_config3`` draws a replica (history with ~70% of dots set,
+    values 1..99, top 90..99 per actor, ~5% of members removed). After the
+    sync each actor mints a stream of L = E/100 ops over its own 1% of the
+    members (2/3 adds of a fresh dot, 1/3 removes of a synced member), in
+    a random order; a replica holds a prefix of every stream — rank q's
+    replicas a prefix of at most H[q, a] ops, the whole stream at actor
+    a's home rank (a % P), and each rank's replica 0 exactly H. Plus
+    ``n_cross`` removes, each the last op of actor k + A/2's stream,
+    covering the add that ends actor k's stream: ``n_des`` replicas per
+    rank hold the remove but not the add, so they park it ahead of their
+    top. ``(dirty, fctx)`` accumulate with ``interval_accumulate`` from
+    the synced state over two steps (the adds, then the removes), so no
+    dot is born and removed inside one interval (the tracking contract).
+    Returns ``(state, dirty, fctx, info)``."""
+    import torch
+
+    from crdt_tpu_torch._dtypes import bits, from_wide
+    from crdt_tpu_torch.ops.orswot import empty
+    from crdt_tpu_torch.parallel import interval_accumulate
+
+    gen = torch.Generator(device=device).manual_seed(seed + 10)
+    u32 = torch.uint32
+
+    def draw(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=device, dtype=torch.int64)
+
+    rl = r // p
+    check(rl * p == r and a >= 2 * n_cross and d > n_cross and rl > n_des, "bad δ shape")
+    # The synced state (fill_config3's draw for one replica).
+    history = config3_history(draw, e, a)
+    top0 = config3_tops(draw, 1, a)
+    ctr0 = project(history, top0, gen, 0.05)[0]
+
+    # Post-sync streams: L + 1 positions per actor; position L holds the
+    # cross ops (add at actor k, remove at actor k + A/2), else nothing.
+    n_ops = max(3, e // 100)
+    perm = torch.randperm(e, generator=gen, device=device)
+    pos = torch.stack([torch.randperm(n_ops, generator=gen, device=device) for _ in range(a)])
+    members = perm[: a * n_ops].reshape(a, n_ops)
+    n_add = (2 * n_ops) // 3
+    is_add = torch.zeros((a, n_ops + 1), dtype=torch.bool, device=device)
+    is_add.scatter_(1, pos[:, :n_add], True)
+    cross_m = perm[a * n_ops: a * n_ops + n_cross]
+    cross_b = torch.arange(n_cross, device=device)
+    cross_a = cross_b + a // 2
+    is_add[cross_b, n_ops] = True
+    cum = torch.cat([torch.zeros((a, 1), dtype=torch.int64, device=device),
+                     torch.cumsum(is_add.long(), 1)], 1)  # adds before each position
+    acts = torch.arange(a, device=device)[:, None]
+    add_m = torch.cat([members[:, :n_add].reshape(-1), cross_m])
+    add_a = torch.cat([acts.expand(a, n_add).reshape(-1), cross_b])
+    add_j = torch.cat([pos[:, :n_add].reshape(-1), torch.full_like(cross_b, n_ops)])
+    add_c = top0[0, add_a] + 1 + cum[add_a, add_j]
+    rm_m = torch.cat([members[:, n_add:].reshape(-1), cross_m])
+    rm_a = torch.cat([acts.expand(a, n_ops - n_add).reshape(-1), cross_a])
+    rm_j = torch.cat([pos[:, n_add:].reshape(-1), torch.full_like(cross_a, n_ops)])
+    rm_rc = ctr0[rm_m].clone()
+    rm_rc[-n_cross:].scatter_(1, cross_b[:, None], add_c[-n_cross:, None])
+
+    # Prefixes: rank horizons, full at the home rank, replica 0 at the
+    # horizon, designated replicas holding the cross removes only.
+    ranks = torch.arange(p, device=device)[:, None]
+    horizon = ((n_ops + 1) * (0.4 + 0.5 * torch.rand((p, a), generator=gen, device=device))).long()
+    horizon = torch.where(acts.T % p == ranks, n_ops + 1, horizon)
+    hz = horizon.repeat_interleave(rl, 0)
+    prefix = torch.minimum((torch.rand((r, a), generator=gen, device=device) * (hz + 1)).long(), hz)
+    first = torch.arange(r, device=device) % rl
+    prefix = torch.where((first == 0)[:, None], hz, prefix)
+    des = (first >= 1) & (first <= n_des)
+    prefix[des[:, None] & (acts.T >= a // 2) & (acts.T < a // 2 + n_cross)] = n_ops + 1
+    held_b = des[:, None] & (acts.T < n_cross)
+    prefix = torch.where(held_b, torch.clamp_max(prefix, n_ops), prefix)
+
+    state = empty(e, a, d, batch=(r,), device=device)
+    dirty = torch.zeros((r, e), dtype=torch.bool, device=device)
+    fctx = torch.zeros((r, e, a), dtype=torch.int32, device=device).view(u32)
+    synced = ctr0.to(torch.int32).view(u32)
+    for lo in range(0, r, chunk):
+        hi = min(r, lo + chunk)
+        pc = prefix[lo:hi]
+        top = top0 + torch.gather(cum, 1, pc.T).T
+        ctr = ctr0.expand(hi - lo, e, a).clone()
+        held = pc[:, add_a] > add_j
+        ctr[:, add_m, add_a] = torch.where(held, add_c, ctr[:, add_m, add_a])
+        mid = ctr.clone()
+        held = pc[:, rm_a] > rm_j
+        rows = ctr[:, rm_m]
+        ctr[:, rm_m] = torch.where(held[..., None] & (rows <= rm_rc), 0, rows)
+        ahead = held[:, -n_cross:] & ~torch.all(rm_rc[-n_cross:] <= top[:, None, :], -1)
+        slot = torch.cumsum(ahead.long(), 1) - 1
+        dcl = torch.zeros((hi - lo, d, a), dtype=torch.int64, device=device)
+        dmask = torch.zeros((hi - lo, d, e), dtype=torch.bool, device=device)
+        ii, kk = torch.nonzero(ahead, as_tuple=True)
+        dcl[ii, slot[ii, kk]] = rm_rc[-n_cross:][kk]
+        dmask[ii, slot[ii, kk], cross_m[kk]] = True
+        # interval_accumulate reads the endpoint states' ctr only.
+        at = lambda x: state._replace(ctr=x)  # noqa: E731
+        dd, ff = interval_accumulate(dirty[lo:hi], fctx[lo:hi], at(synced.expand(hi - lo, e, a)),
+                                     at(from_wide(mid, u32)))
+        dd, ff = interval_accumulate(dd, ff, at(from_wide(mid, u32)), at(from_wide(ctr, u32)))
+        dirty[lo:hi], bits(fctx)[lo:hi] = dd, bits(ff)
+        bits(state.top)[lo:hi] = bits(from_wide(top, u32))
+        bits(state.ctr)[lo:hi] = bits(from_wide(ctr, u32))
+        bits(state.dcl)[lo:hi] = bits(from_wide(dcl, u32))
+        state.dmask[lo:hi] = dmask
+        state.dvalid[lo:hi] = torch.arange(d, device=device) < ahead.sum(1, keepdim=True)
+    info = {"ops_per_actor": n_ops, "cross_removes": n_cross,
+            "replicas_parking": int(state.dvalid.any(-1).sum()),
+            "dirty_rows_per_replica_mean": float(dirty.sum(-1).float().mean())}
+    return state, dirty, fctx, info
+
+
+def distinct_bytes(t) -> int:
+    """Bytes of the distinct elements a tensor view holds: a broadcast
+    (stride-0) axis counts once."""
+    n = 1
+    for size, stride in zip(t.shape, t.stride()):
+        n *= size if stride else 1
+    return n * t.element_size()
+
+
+def k3_bytes(args: dict, out) -> int:
+    """The bytes K3 must move for one call: each distinct input element
+    read once (``know`` read in place inside ``clocks`` adds nothing),
+    each output written once."""
+    clocks = args["clocks"]
+    ins = [v for k, v in args.items() if k != "spec" and not (
+        k == "know" and v.untyped_storage().data_ptr() == clocks.untyped_storage().data_ptr())]
+    return sum(distinct_bytes(v) for v in ins) + sum(x.numel() * x.element_size() for x in out)
+
+
+def phase_full_width_delta(device, seed: int, r: int = 5120, e: int = 102400, a: int = 8,
+                           d: int = 4, p: int = 8, cap: int = 4096, chunk: int = 128,
+                           repeats: int = 7, per_sample: int = 50,
+                           ring_samples: int = 5) -> dict:
+    import torch
+
+    from crdt_tpu_torch.ops.fold_kernels import fold_auto, fold_entries
+    from crdt_tpu_torch.ops.wire_kernels import wire_pack, wire_pack_plain
+    from crdt_tpu_torch.parallel import VirtualMesh, mesh_delta_gossip, mesh_fold
+    from crdt_tpu_torch.parallel import wire as wire_mod
+    from crdt_tpu_torch.parallel.anti_entropy import local_folds, rank_blocks
+    from crdt_tpu_torch.parallel.collectives import ppermute
+    from crdt_tpu_torch.parallel.delta import extract_delta
+    from crdt_tpu_torch.parallel.delta_ring import _packet_template
+    from crdt_tpu_torch._dtypes import bits, umax
+
+    on_card = device.type == "cuda"
+    sync = (lambda: torch.cuda.synchronize(device)) if on_card else (lambda: None)
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    state, dirty, fctx, info = fill_delta_config3(r, e, a, d, p, seed, device, chunk)
+    sync()
+    setup_s = time.perf_counter() - t0
+    mesh = VirtualMesh(p, device)
+    rl = r // p
+    backlog = int(dirty.view(p, rl, e).any(1).sum(-1).max())
+    base_rounds = 2 * (p - 1) * (1 + -(-backlog // cap)) - 1
+
+    # The main path, counted: the fused ring must launch K3 (and K1 for
+    # the local folds). Raise the budget by the formula until it certifies.
+    attempts = []
+    for extra in range(3):
+        rounds = 2 * (p - 1) * (1 + -(-backlog // cap) + extra) - 1
+        stats = {}
+        wire_pack.launches = fold_entries.launches = 0
+        t0 = time.perf_counter()
+        fused = mesh_delta_gossip(state, dirty, fctx, mesh, rounds=rounds, cap=cap,
+                                  stats=stats)
+        sync()
+        cold_ms = (time.perf_counter() - t0) * 1e3  # the first ring: allocator growth in it
+        k3_launches, k1_launches = wire_pack.launches, fold_entries.launches
+        attempts.append({"rounds": rounds, "residue": int(fused[3]), "ring_ms_cold": cold_ms})
+        if int(fused[3]) == 0:
+            break
+    check(int(fused[3]) == 0, f"the fused ring did not certify after {attempts}")
+    check(not bool(fused[2]), "the fused ring overflowed")
+    check(not on_card or (k3_launches > 0 and k1_launches > 0),
+          "the fused ring did not launch K3 and K1")
+
+    # The gate: layered ring (no K3) and mesh_fold (K1) on the same inputs.
+    layered_stats = {}
+    layered = mesh_delta_gossip(state, dirty, fctx, mesh, rounds=rounds, cap=cap, fused=False,
+                                stats=layered_stats)
+    check(same_leaves(fused[0], layered[0]) and torch.equal(fused[1], layered[1]),
+          "fused ring differs from the layered ring")
+    check(int(layered[3]) == 0 and bool(layered[2]) == bool(fused[2]),
+          "layered ring residue/overflow differ")
+    t0 = time.perf_counter()
+    folded, of_f = mesh_fold(state, mesh)
+    sync()
+    mesh_fold_ms = (time.perf_counter() - t0) * 1e3
+    check(not bool(of_f), "mesh_fold overflowed")
+    check(rows_equal_fold(fused[0], folded), "certified ring rows != mesh_fold")
+
+    # Ring wall time: the counted ring and the gate's layered ring were
+    # each kind's untimed warm-up; now `ring_samples` of each, alternating.
+    ring_runs = {True: [], False: []}
+    for _ in range(ring_samples):
+        for kind in (True, False):
+            t0 = time.perf_counter()
+            res = mesh_delta_gossip(state, dirty, fctx, mesh, rounds=rounds, cap=cap, fused=kind)
+            sync()
+            ring_runs[kind].append((time.perf_counter() - t0) * 1e3)
+            check(int(res[3]) == 0, "a timed ring did not certify")
+    ring_ms, layered_ms = (statistics.median(ring_runs[k]) for k in (True, False))
+
+    # K3 alone, on round 0's packet at the ring's shapes (8 links × cap
+    # slots), CUDA events; and its plain version on the same inputs.
+    blocks = rank_blocks(state, mesh)
+    lf_ms = time_ms(lambda: local_folds(blocks, fold_auto), device)
+    ranks, _ = local_folds(blocks, fold_auto)
+    d0 = dirty.view(p, rl, e).any(1)
+    f0 = torch.stack([bits(umax(fctx.view(p, rl, e, a)[q], 0)) for q in range(p)]).view(fctx.dtype)
+    pkt, _, _ = extract_delta(ranks, d0, f0, cap, start=0)
+    rtop = ppermute(ranks.top, [(i, (i - 1) % p) for i in range(p)])
+    codec = wire_mod.WireCodec(_packet_template(ranks, cap, fctx.dtype), e,
+                               wire_mod.know_dense, gated=True, acked=False)
+    args = codec.slot_inputs(pkt, rtop=rtop)
+    k3_out = wire_pack(**args)
+    plain_out = wire_pack_plain(**args)
+    k3_err = wire_diff(k3_out, plain_out)
+    check(k3_err == 0, "K3 at the ring's shape disagrees with its plain version")
+    # K3 per launch: CUDA events around a replayed graph of launches (the
+    # device's work alone), the kernel's own device time (profiler), and
+    # per call through the Python wrapper (events around back-to-back
+    # calls: the host's checks and allocations are in it).
+    times = [graph_ms(lambda: wire_pack(**args), device, per_sample) for _ in range(repeats)]
+    k3_ms = statistics.median(times)
+    dev_ms = kernel_device_ms(lambda: wire_pack(**args), device, "wire_kernel", per_sample)
+    call_ms = statistics.median(time_each(lambda: wire_pack(**args), device, per_sample)
+                                for _ in range(repeats))
+    plain_ms = statistics.median(time_ms(lambda: wire_pack_plain(**args), device)
+                                 for _ in range(3))
+    nbytes = k3_bytes(args, k3_out)
+    lanes = args["clocks"].numel() + (args["know"].numel() if "know" in args else 0)
+    bound = {"bytes_ms": nbytes / PEAK_BYTES_PER_S * 1e3,
+             "ops_ms": 12 * lanes / PEAK_SCALAR_OPS_PER_S * 1e3}
+    k3_bound_ms = max(bound.values())
+    busy = profile_busy(lambda: mesh_delta_gossip(state, dirty, fctx, mesh, rounds=rounds,
+                                                  cap=cap), device, host_top=12)
+    busy_layered = profile_busy(lambda: mesh_delta_gossip(state, dirty, fctx, mesh,
+                                                          rounds=rounds, cap=cap, fused=False),
+                                device, host_top=12)
+    links = stats["rounds"] * stats["links"]
+    out = {
+        "phase": "full_width_delta",
+        "R": r, "E": e, "A": a, "D": d, "P": p, "cap": cap,
+        "reduced": {"R": [10240, r, "fctx [R, E, A] is as large as ctr; at R=10240 the inputs "
+                                   "alone are 72.3 GB"]},
+        "setup_s": setup_s, **info,
+        "backlog_max_per_rank": backlog, "rounds_formula": base_rounds, "attempts": attempts,
+        "rounds": rounds, "residue": int(fused[3]),
+        "ring_ms_fused": ring_ms, "ring_ms_layered": layered_ms,
+        "ring_ms_fused_runs": ring_runs[True], "ring_ms_layered_runs": ring_runs[False],
+        "mesh_fold_ms": mesh_fold_ms,
+        "local_fold_ms_k1_and_epilogue_all_ranks": lf_ms,
+        "k3_launches_in_ring": k3_launches, "k1_launches_in_ring": k1_launches,
+        "k3_ms_median": k3_ms, "k3_ms_runs": times, "k3_launches_per_sample": per_sample,
+        "k3_ms_device_profiler": dev_ms, "k3_ms_per_call_incl_wrapper": call_ms,
+        "k3_bytes": nbytes, "k3_bound_ms": k3_bound_ms,
+        "k3_bound_by": "bytes" if bound["bytes_ms"] >= bound["ops_ms"] else "operations",
+        "k3_bound_share": k3_bound_ms / k3_ms, "k3_plain_ms": plain_ms, "k3_max_abs_err": k3_err,
+        "slots_shipped_per_link_round": stats["slots_shipped"] / links,
+        "slots_deferred": stats["slots_deferred"], "parked_lost": stats["parked_lost"],
+        "wire_bytes_per_link_round": stats["wire_bytes"],
+        "layered_packet_bytes_per_link_round": stats["packet_bytes"],
+        "layered_slots_shipped_per_link_round": layered_stats["slots_shipped"] / links,
+        "ring_profile": busy, "layered_ring_profile": busy_layered,
+        "converged_members": int(bits(folded.ctr).ne(0).any(-1).sum()),
+        "converged_parked": int(folded.dvalid.sum()),
+        "peak_mem_gb": torch.cuda.max_memory_allocated(device) / 1e9 if on_card else None,
+    }
+    emit(out)
+    return out
+
+
+PHASES = ("k1", "scenarios", "full_width", "k2", "map_scenarios", "full_width_map", "k3",
+          "delta_scenarios", "full_width_delta")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=20261016)
+    ap.add_argument("--only", default="",
+                    help="comma-separated phases to run (a partial run prints no kernels "
+                         f"line and no ok line); phases: {', '.join(PHASES)}")
     args = ap.parse_args(argv)
+    only = [x for x in args.only.split(",") if x]
+    bad = sorted(set(only) - set(PHASES))
+    if bad:
+        ap.error(f"unknown phases {bad}")
 
     import torch
 
@@ -1052,21 +1743,40 @@ def main(argv=None) -> int:
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     dev = phase_device(device)
-    worst = phase_k1_shapes(device, args.seed)
-    phase_scenarios(device, args.seed)
-    full = phase_full_width(device, args.seed)
-    check(fold_entries.launches >= full["k1_launches_in_fold"], "launch counter went backwards")
-    worst2 = phase_k2_shapes(device, args.seed)
-    phase_map_scenarios(device, args.seed)
-    # Config 4 as bench.py commits it (R = 8), then at R = 64.
-    full_map = phase_full_width_map(device, args.seed, r=8)
-    wide_map = phase_full_width_map(device, args.seed, r=64)
+    run = lambda name: not only or name in only  # noqa: E731
+    res = {}
+    if run("k1"):
+        res["k1"] = phase_k1_shapes(device, args.seed)
+    if run("scenarios"):
+        phase_scenarios(device, args.seed)
+    if run("full_width"):
+        res["full"] = phase_full_width(device, args.seed)
+        check(fold_entries.launches >= res["full"]["k1_launches_in_fold"],
+              "launch counter went backwards")
+    if run("k2"):
+        res["k2"] = phase_k2_shapes(device, args.seed)
+    if run("map_scenarios"):
+        phase_map_scenarios(device, args.seed)
+    if run("full_width_map"):
+        # Config 4 as bench.py commits it (R = 8), then at R = 64.
+        res["map"] = phase_full_width_map(device, args.seed, r=8)
+        res["map64"] = phase_full_width_map(device, args.seed, r=64)
+    if run("k3"):
+        res["k3"] = phase_k3_shapes(device, args.seed)
+    if run("delta_scenarios"):
+        phase_delta_scenarios(device, args.seed)
+    if run("full_width_delta"):
+        res["delta"] = phase_full_width_delta(device, args.seed)
+    if only:
+        print(f"chip_smoke: partial run of {only}; no kernels line", flush=True)
+        return 0
 
+    full, full_map, wide_map, delta = res["full"], res["map"], res["map64"], res["delta"]
     print(dev["nvidia_smi"], flush=True)
     emit({"kernels": [{
         **K1,
         "launches": full["k1_launches_in_fold"],
-        "max_abs_err": max(worst, full["max_abs_err"]),
+        "max_abs_err": max(res["k1"], full["max_abs_err"]),
         "ms": full["k1_ms_median"],
         "plain_ms": full["plain_chunked_ms_check_not_a_yardstick"],
         "bound_ms": full["bound_ms"],
@@ -1075,11 +1785,20 @@ def main(argv=None) -> int:
     }, {
         **K2,
         "launches": full_map["k2_launches_in_fold"],
-        "max_abs_err": max(worst2, full_map["max_abs_err"], wide_map["max_abs_err"]),
+        "max_abs_err": max(res["k2"], full_map["max_abs_err"], wide_map["max_abs_err"]),
         "ms": full_map["k2_ms_median"],
         "plain_ms": full_map["k2_plain_ms"],
         "bound_ms": full_map["bound_ms"],
         "bound_by": full_map["bound_by"],
+        "library_ms": None,
+    }, {
+        **K3,
+        "launches": delta["k3_launches_in_ring"],
+        "max_abs_err": max(res["k3"], delta["k3_max_abs_err"]),
+        "ms": delta["k3_ms_median"],
+        "plain_ms": delta["k3_plain_ms"],
+        "bound_ms": delta["k3_bound_ms"],
+        "bound_by": delta["k3_bound_by"],
         "library_ms": None,
     }]})
     emit({"ok": True, "device": {

@@ -72,3 +72,37 @@ def bits(x: torch.Tensor) -> torch.Tensor:
     if x.dtype == torch.uint64:
         return x.view(torch.int64)
     return x
+
+
+def umax(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The unsigned max of a ``uint32``/``uint64`` tensor along ``dim``,
+    in one temporary of the signed width: flipping the sign bit maps the
+    unsigned order onto the signed one (``amax`` then runs on a signed
+    dtype, which every device implements)."""
+    s = bits(x)
+    flip = -(1 << (8 * s.element_size() - 1))
+    return ((s ^ flip).amax(dim=dim) ^ flip).view(x.dtype)
+
+
+def raw(x: torch.Tensor) -> torch.Tensor:
+    """The lane values of an unsigned tensor as ``int64`` bits for
+    wrapping arithmetic: ``uint32`` zero-extended (wrap with
+    :func:`from_raw`), ``uint64`` as its two's-complement bit view."""
+    if x.dtype == torch.uint64:
+        return x.view(torch.int64)
+    return to_wide(x)
+
+
+def from_raw(y: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Inverse of :func:`raw`, wrapping modulo the lane width."""
+    if dtype == torch.uint64:
+        return y.view(torch.uint64)
+    return (y & _MASK32).to(torch.int32).view(torch.uint32)
+
+
+def mul32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a * b mod 2**32`` for ``int64`` lanes in ``[0, 2**32)``, without
+    overflowing ``int64``: the product is taken in 16-bit halves of
+    ``a``."""
+    lo, hi = a & 0xFFFF, a >> 16
+    return (lo * b + (((hi * b) & 0xFFFF) << 16)) & _MASK32

@@ -9,7 +9,9 @@ both directions copy:
 - ``OrswotState``: ``top``/``ctr``/``dcl`` u32, ``dmask``/``dvalid`` bool;
 - ``MapState``: ``top``/``dcl`` u32, ``dkeys``/``dvalid`` bool, and
   ``child``, a dict of the ``MVRegState`` leaves ``wact`` i32, ``wctr``
-  u32, ``clk`` u32, ``val`` i32, ``valid`` bool.
+  u32, ``clk`` u32, ``val`` i32, ``valid`` bool;
+- δ tracking (``tracking_from_numpy``): ``dirty`` bool, ``fctx`` u32 or
+  u64.
 """
 
 from __future__ import annotations
@@ -82,3 +84,20 @@ def map_to_numpy(state: MapState) -> dict:
     out = _leaves_to_numpy(state, _MAP_DTYPES)
     out["child"] = _leaves_to_numpy(state.child, _CHILD_DTYPES)
     return out
+
+
+def tracking_from_numpy(dirty: np.ndarray, fctx: np.ndarray, device="cuda"):
+    """The δ tracking pair of the JAX package (``dirty [R, E]`` bool,
+    ``fctx [R, E, A]`` u32 or u64, e.g. from its
+    ``parallel.delta.interval_accumulate``) → ``(dirty, fctx)`` tensors on
+    ``device``. Raises on any other dtype (no silent casts)."""
+    dirty, fctx = np.asarray(dirty), np.asarray(fctx)
+    if dirty.dtype != np.bool_:
+        raise TypeError(f"tracking leaf 'dirty' must be bool, got {dirty.dtype}")
+    if fctx.dtype == np.uint32:
+        f = torch.tensor(fctx.view(np.int32), device=device).view(torch.uint32)
+    elif fctx.dtype == np.uint64:
+        f = torch.tensor(fctx.view(np.int64), device=device).view(torch.uint64)
+    else:
+        raise TypeError(f"tracking leaf 'fctx' must be uint32 or uint64, got {fctx.dtype}")
+    return torch.tensor(dirty, device=device), f

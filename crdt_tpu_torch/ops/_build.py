@@ -45,36 +45,49 @@ def _nvcc() -> str:
     )
 
 
+def _target(source: str) -> str:
+    """The shared library path of ``csrc/<source>`` for the current
+    source text and flags."""
+    with open(os.path.join(_CSRC, source), "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return os.path.join(BUILD_DIR, f"lib{os.path.splitext(source)[0]}-{digest}.so")
+
+
+def build_all(sources) -> Dict[str, ctypes.CDLL]:
+    """Build (one ``nvcc`` per source, all started together) and load the
+    libraries of ``sources`` that are not loaded yet. Raises
+    RuntimeError naming every source that failed to build."""
+    with _lock:
+        todo = [s for s in dict.fromkeys(sources) if s not in _libs]
+        procs = {}
+        for source in todo:
+            out = _target(source)
+            info = {"seconds": 0.0, "log": ""}
+            if not os.path.exists(out):
+                os.makedirs(BUILD_DIR, exist_ok=True)
+                tmp = f"{out}.{os.getpid()}.tmp"
+                proc = subprocess.Popen(
+                    [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(_CSRC, source)],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                )
+                procs[source] = (proc, tmp, out, time.perf_counter())
+            build_info[source] = info
+        failed = []
+        for source, (proc, tmp, out, t0) in procs.items():
+            log = proc.communicate()[0]
+            build_info[source] = {"seconds": time.perf_counter() - t0, "log": log.strip()}
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed on {source}:\n{log.strip()}")
+            else:
+                os.replace(tmp, out)
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        for source in todo:
+            _libs[source] = ctypes.CDLL(_target(source))
+        return {s: _libs[s] for s in sources}
+
+
 def library(source: str) -> ctypes.CDLL:
     """The loaded shared library of ``csrc/<source>``, built on first use.
     Raises RuntimeError when it cannot be built."""
-    with _lock:
-        lib = _libs.get(source)
-        if lib is not None:
-            return lib
-        src = os.path.join(_CSRC, source)
-        with open(src, "rb") as f:
-            digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        stem = os.path.splitext(source)[0]
-        out = os.path.join(BUILD_DIR, f"lib{stem}-{digest}.so")
-        info = {"seconds": 0.0, "log": ""}
-        if not os.path.exists(out):
-            nvcc = _nvcc()
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{out}.{os.getpid()}.tmp"
-            t0 = time.perf_counter()
-            proc = subprocess.run(
-                [nvcc, *NVCC_FLAGS, "-o", tmp, src],
-                capture_output=True, text=True,
-            )
-            info = {
-                "seconds": time.perf_counter() - t0,
-                "log": (proc.stdout + proc.stderr).strip(),
-            }
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {source}:\n{info['log']}")
-            os.replace(tmp, out)
-        lib = ctypes.CDLL(out)
-        build_info[source] = info
-        _libs[source] = lib
-        return lib
+    return build_all([source])[source]

@@ -1,0 +1,61 @@
+"""The replica mesh of one card, and the pads that fit a batch to it.
+
+The JAX package runs anti-entropy as a mesh program: ``shard_map`` over a
+``(replica, element)`` device mesh, with ``ppermute``/``psum``/``pmax``
+over the replica axis. One card cannot hold two NCCL ranks, so here the
+replica axis is a leading tensor axis of length P — **P virtual ranks on
+one device**: rank q owns replica rows ``[q·R/P, (q+1)·R/P)``, exactly
+the block a ``P(REPLICA_AXIS)`` sharding gives device q, and a collective
+is a gather or a reduction along that axis (``collectives.py``). The
+element axis is 1: element shards never communicate (the join is
+element-wise), so nothing of the program is lost.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .._dtypes import bits
+from ..ops.orswot import OrswotState, empty
+
+
+class VirtualMesh:
+    """P virtual replica ranks on one device — where the JAX package's
+    ``make_mesh(P, 1)`` stands."""
+
+    def __init__(self, p: int, device="cuda"):
+        if p < 1:
+            raise ValueError(f"a mesh needs at least one rank, got {p}")
+        self.p = int(p)
+        self.device = torch.device(device)
+
+
+def pad_replicas(state: OrswotState, multiple: int) -> OrswotState:
+    """Pad the replica axis up to a multiple with join identities (the
+    empty state), so it divides the mesh's replica axis; the join absorbs
+    identity rows."""
+    r = state.top.shape[0]
+    pad = (-r) % multiple
+    if pad == 0:
+        return state
+    ident = empty(
+        state.ctr.shape[-2], state.ctr.shape[-1], state.dcl.shape[-2], batch=(pad,),
+        device=state.top.device,
+    )
+    return OrswotState(*(torch.cat([bits(x), bits(p)]).view(x.dtype) for x, p in zip(state, ident)))
+
+
+def pad_elements(state: OrswotState, multiple: int) -> OrswotState:
+    """Pad the element axis with never-present slots so it divides the
+    mesh's element axis (1 on a virtual mesh: a no-op there)."""
+    pad = (-state.ctr.shape[-2]) % multiple
+    if pad == 0:
+        return state
+    f = torch.nn.functional.pad
+    return state._replace(
+        ctr=f(bits(state.ctr), (0, 0, 0, pad)).view(state.ctr.dtype),
+        dmask=f(state.dmask, (0, pad)),
+    )
+
+
+__all__ = ["VirtualMesh", "pad_elements", "pad_replicas"]

@@ -1,0 +1,505 @@
+"""The bit-packed δ wire format and the fused send path — counterpart of
+the JAX package's ``parallel/wire.py`` for the dense ORSWOT flavor.
+
+:class:`WireCodec` lowers a ``DeltaPacket`` onto an all-u32 wire tree in
+one fused pass over the slot clock lanes (``ops.wire_kernels.wire_pack``:
+kernel K3 on a card) plus a second instance over the parked-remove clocks,
+and the receiver inverts it with plain torch. Wire layout (``WirePacket``,
+every leaf u32, leaf order static):
+
+    slots  [C, Ws]   slot clock lanes (rows, then ctxs) as biased-u16
+                     deltas against the link watermark, two per word
+    parked [D, Wp]   parked-remove clocks, same encoding
+    ids    [..]      slot indices as u16 pairs when E <= 2^16, else raw
+    raws   ()        (no unbounded non-clock lanes in the dense flavor)
+    bits   [..]      every bool plane — slot validity, parked dmask and
+                     dvalid — as one u32 bitmap
+
+The watermark is the receiver's frozen digest top when ``digest=`` is on
+(the ack window's ctx joins it once ``ack_window=`` is ported) and zero
+otherwise; both ends derive it from knowledge they share, so the round
+trip is bit-exact. A slot outside the ±32 Ki window is DEFERRED: shipped
+invalid and re-marked dirty before the round's backlog count
+(:func:`remark_deferred`), so the residue certificate prices it. An
+unencodable parked remove is wire LOSS: the ring forces ``residue >= 1``
+and does not adopt the mesh top. The checksum (:func:`wire_checksum`)
+chains K3's in-pass partials into ``faults.integrity.checksum`` of the
+wire tree.
+
+Every method takes packets with one leading batch axis (the ring's P
+links) or none.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, List, NamedTuple, Optional, Tuple
+
+import torch
+
+from .._dtypes import bits, from_wide, to_wide
+from ..delta_opt.ackwin import AckWindow, _content_names, _core
+from ..faults.integrity import chain
+from ..ops import wire_kernels as wk
+from ..ops.lattice import tree_map
+from .delta import put_rows, take_rows
+
+_U16_SPAN = 65536
+
+
+class WirePacket(NamedTuple):
+    """The all-u32 wire tree (module docstring layout). Fields hold
+    tuples so a flavor without a plane class contributes no leaf."""
+
+    slots: Tuple[torch.Tensor, ...]
+    parked: Tuple[torch.Tensor, ...]
+    ids: Tuple[torch.Tensor, ...]
+    raws: Tuple[torch.Tensor, ...]
+    bits: Tuple[torch.Tensor, ...]
+
+
+class WireAux(NamedTuple):
+    """Sender-side byproducts of one fused pack."""
+
+    keep: torch.Tensor          # [.., C] bool — slots on the wire
+    defer: torch.Tensor         # [.., C] bool — narrow-deferred (re-mark dirty)
+    covered: torch.Tensor       # [.., C] bool — ack verdicts
+    parked_lost: torch.Tensor   # [..] int32 — unencodable parked slots
+    packed_words: torch.Tensor  # [..] u32 — nonzero wire words
+    checksum: torch.Tensor      # [..] u32 — integrity digest of the wire tree
+
+
+# Leaf classes, decided by field name + shape (the JAX package's packet
+# conventions).
+(_CLOCK, _CTX, _PDCL, _ID, _RAW, _SLOTVALID, _CBOOL, _PVALID, _PBOOL) = range(9)
+_PARKED_SUFFIXES = ("dcl", "dmask", "dkeys", "dvalid")
+
+
+def _classify(name: str, shape, dtype) -> int:
+    if name in ("idx", "wact"):
+        return _ID
+    if name == "ctxs":
+        return _CTX
+    if name.endswith("dcl"):
+        return _PDCL
+    if name.endswith("dvalid"):
+        return _PVALID
+    if name.endswith("dmask") or name.endswith("dkeys"):
+        return _PBOOL
+    if dtype == torch.bool:
+        return _SLOTVALID if len(shape) == 1 else _CBOOL
+    if name in ("rows", "wctr", "clk"):
+        return _CLOCK
+    return _RAW
+
+
+def _named_leaves(tree, out=None):
+    """Depth-first (field order) list of ``(field name, leaf)``."""
+    if out is None:
+        out = []
+    for f in tree._fields:
+        child = getattr(tree, f)
+        if hasattr(child, "_fields"):
+            _named_leaves(child, out)
+        else:
+            out.append((f, child))
+    return out
+
+
+class _Rec(NamedTuple):
+    """One packet leaf's static plan row."""
+
+    i: int
+    name: str
+    cls: int
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+def _numel(shape) -> int:
+    n = 1
+    for s in shape:
+        n *= s
+    return n
+
+
+class WireCodec:
+    """The static pack/unpack plan for one flavor's packet template (one
+    link's packet: leaves without the batch axis; ``torch.empty(...,
+    device="meta")`` leaves will do). ``know_fn`` maps a packet to its
+    per-slot knowledge clock ``[.., C, A]`` (the digest-gate subject)."""
+
+    def __init__(self, template, n_rows: int, know_fn: Callable, gated: bool, acked: bool):
+        self.n_rows = n_rows
+        self.know_fn = know_fn
+        self.gated = gated
+        self.acked = acked
+        core = _core(template)
+        self.c = core.idx.shape[0]
+        self.a = core.ctxs.shape[-1]
+        self.ct = core.ctxs.dtype
+        self.content_names = _content_names(core)
+        self.template_type = type(template)
+        named = _named_leaves(template)
+        self.records: List[_Rec] = [
+            _Rec(i, name, _classify(name, tuple(leaf.shape), leaf.dtype), tuple(leaf.shape),
+                 leaf.dtype)
+            for i, (name, leaf) in enumerate(named)
+        ]
+        by_cls = lambda *cls: [r for r in self.records if r.cls in cls]  # noqa: E731
+        self.clock_recs = by_cls(_CLOCK)
+        self.ctx_rec = by_cls(_CTX)[0]
+        self.id_recs = by_cls(_ID)
+        self.bool_recs = by_cls(_SLOTVALID, _CBOOL, _PVALID, _PBOOL)
+        self.parked_recs = by_cls(_PDCL)
+        self.pvalid_recs = by_cls(_PVALID)
+        odd = [r.name for r in self.records
+               if r.cls in (_RAW, _CBOOL) or (r.cls == _ID and r.name != "idx")
+               or (r.cls == _CLOCK and _numel(r.shape) != self.c * self.a)]
+        if odd:
+            raise NotImplementedError(
+                f"WireCodec: only the dense ORSWOT packet is ported, not the lanes {odd} "
+                f"of the map and nested flavors (ROADMAP item 7)"
+            )
+
+        # Slot clock matrix columns: content planes in walk order, the
+        # ctx plane last (the kernel's [ctx_lo, ctx_hi) range).
+        cols = 0
+        self.clock_cols: List[Tuple[int, int]] = []
+        for r in self.clock_recs:
+            n = _numel(r.shape) // self.c
+            self.clock_cols.append((cols, cols + n))
+            cols += n
+        self.ctx_lo, self.ctx_hi = cols, cols + self.a
+        self.lc = cols + self.a
+        # The dense gate's subject (know_dense) is the rows plane: K3 reads
+        # it in place, as that column range of the slot matrix.
+        self.rows_cols = dict(zip((r.name for r in self.clock_recs), self.clock_cols)).get("rows")
+
+        # Parked groups: prefix -> row offset in the concatenated parked
+        # matrix, in walk order.
+        self.pd = 0
+        self.pgroup_row = {}
+        for r in self.parked_recs:
+            self.pgroup_row[r.name[: -len("dcl")]] = self.pd
+            self.pd += r.shape[0]
+
+        self.n_bits = sum(_numel(r.shape) for r in self.bool_recs)
+        # u16 ids need their static bound proven: slot indices by the row
+        # universe. A wider universe ships ids raw.
+        self.narrow_ids = n_rows <= _U16_SPAN and self.a <= _U16_SPAN
+        self.slot_spec = wk.WireLaneSpec(
+            lc=self.lc, ctx_lo=self.ctx_lo, ctx_hi=self.ctx_hi, gated=gated, acked=acked,
+        )
+        self.parked_spec = wk.WireLaneSpec(lc=self.a, parked=True)
+
+        # Static byte prices (telemetry.packet_useful_bytes' group sums).
+        parked_cls = (_PDCL, _PVALID, _PBOOL)
+        self.slot_price = sum(
+            (_numel(r.shape) // self.c) * r.dtype.itemsize
+            for r in self.records if r.cls not in parked_cls
+        )
+        self.parked_prices = {}
+        for pref in self.pgroup_row:
+            group = [r for r in self.records
+                     if r.name in tuple(pref + s for s in _PARKED_SUFFIXES)]
+            d = group[0].shape[0]
+            self.parked_prices[pref] = (
+                d, sum((_numel(r.shape) // d) * r.dtype.itemsize for r in group))
+
+    # ---- shared base/watermark derivation --------------------------------
+
+    def _slot_base(self, idx, rtop, mctx):
+        """The slot watermark (wide): acked-window ctx (when on) joined
+        with the digest top (when gated), zero otherwise — ``[B, C, A]``
+        with the ack window, else one row per link, ``[B, 1, A]``."""
+        base = torch.zeros((idx.shape[0], 1, self.a), dtype=torch.int64, device=idx.device)
+        if self.gated and rtop is not None:
+            base = torch.maximum(base, to_wide(rtop)[:, None, :])
+        if self.acked and mctx is not None:
+            base = torch.maximum(base, to_wide(take_rows(mctx, idx)))
+        return base
+
+    def _base_matrix(self, basemat):
+        """Per-lane bases ``[B, C, LC]`` in the slot matrix's column
+        layout: every clock plane (A-minor, like the ctx plane) takes the
+        slot's watermark. A per-link watermark stays one stored row,
+        broadcast over the slots."""
+        rows = _narrow(basemat.repeat(1, 1, len(self.clock_recs) + 1), self.ct)
+        return rows.expand(-1, self.c, -1)
+
+    def _parked_base(self, rtop, lead, device):
+        """The parked instance's watermark ``[B, PD, A]``: the link's
+        digest top (or zero), one row broadcast over the parked slots."""
+        if self.gated and rtop is not None:
+            row = bits(rtop)[:, None, :]
+        else:
+            row = torch.zeros((lead, 1, self.a), dtype=_signed(self.ct), device=device)
+        return row.expand(lead, self.pd, self.a).view(self.ct)
+
+    # ---- sender ----------------------------------------------------------
+
+    def slot_inputs(self, pkt, rtop=None, win: Optional[AckWindow] = None) -> dict:
+        """The slot K3 instance's arguments for a batched packet: ``spec,
+        clocks, base, valid`` and ``know``/``dig`` (gated) or
+        ``winc``/``ack_ok`` (acked)."""
+        leaves = [leaf for _, leaf in _named_leaves(pkt)]
+        core = _core(pkt)
+        idx = core.idx
+        b = idx.shape[0]
+        mctx = win.ctx if win is not None else None
+        basemat = self._slot_base(idx, rtop, mctx)
+        clocks = torch.cat(
+            [bits(leaves[r.i]).reshape(b, self.c, hi - lo)
+             for r, (lo, hi) in zip(self.clock_recs, self.clock_cols)]
+            + [bits(leaves[self.ctx_rec.i]).reshape(b, self.c, self.a)],
+            dim=-1,
+        ).view(self.ct)
+        out = dict(spec=self.slot_spec, clocks=clocks, base=self._base_matrix(basemat),
+                   valid=core.valid.contiguous())
+        if self.gated:
+            if self.know_fn is know_dense and self.rows_cols is not None:
+                out["know"] = clocks[..., self.rows_cols[0]:self.rows_cols[1]]
+            else:
+                out["know"] = self.know_fn(pkt).contiguous()
+            out["dig"] = bits(rtop)[:, None, :].expand(b, self.c, self.a).view(self.ct)
+        if self.acked:
+            out["winc"], same_rest = self._win_matrix(win, idx, leaves)
+            out["ack_ok"] = (torch.gather(win.ackd, -1, idx.long()) & same_rest).contiguous()
+        return out
+
+    def pack(self, pkt, rtop=None, win: Optional[AckWindow] = None):
+        """One fused pass from the flavor packet to the wire tree.
+        ``rtop`` is the receiver's frozen digest top ``[.., A]``
+        (``digest=``), ``win`` the link's ack window. Returns
+        ``(WirePacket, WireAux)``."""
+        batched = pkt.idx.dim() == 2
+        if not batched:
+            pkt, rtop, win = _add_batch(pkt), _add_batch(rtop), _add_batch(win)
+        wire, aux = self._pack(pkt, rtop, win)
+        if not batched:
+            wire, aux = _drop_batch(wire), _drop_batch(aux)
+        return wire, aux
+
+    def _pack(self, pkt, rtop, win):
+        leaves = [leaf for _, leaf in _named_leaves(pkt)]
+        b = pkt.idx.shape[0]
+        out = wk.wire_pack(**self.slot_inputs(pkt, rtop, win))
+
+        # Parked clock planes: one fused pass over the concatenated
+        # levels against the digest watermark; an unencodable valid slot
+        # is wire loss.
+        pcl = torch.cat([bits(leaves[r.i]).reshape(b, -1, self.a) for r in self.parked_recs],
+                        dim=1).view(self.ct)
+        pvalid = torch.cat([leaves[r.i] for r in self.pvalid_recs], dim=-1)
+        pout = wk.wire_pack(self.parked_spec, pcl, self._parked_base(rtop, b, pcl.device),
+                            pvalid.contiguous())
+        pvalid_wire = pvalid & ~pout.defer
+
+        def slotmask(flat):
+            lanes = bits(flat).reshape(b, self.c, -1)
+            return torch.where(out.keep[..., None], lanes, 0).reshape(b, -1).view(flat.dtype)
+
+        ids = []
+        for r in self.id_recs:
+            # Masked/invalid slots ship zero ids; the receiver fills them
+            # with distinct no-op indices (fill_invalid_idx).
+            flat = slotmask(leaves[r.i].reshape(b, -1))
+            ids.append(wk.pack_u16_pairs(flat) if self.narrow_ids
+                       else flat.to(torch.int32).view(torch.uint32))
+        flags = []
+        for r in self.bool_recs:
+            x = leaves[r.i]
+            if r.cls == _SLOTVALID:
+                x = out.keep
+            elif r.cls == _PVALID:
+                lo = self.pgroup_row[r.name[: -len("dvalid")]]
+                x = pvalid_wire[:, lo:lo + r.shape[0]]
+            else:  # parked masks: zero the rows whose slot left the wire
+                pref = r.name[: -len("dmask")] if r.name.endswith("dmask") else r.name[: -len("dkeys")]
+                lo = self.pgroup_row[pref]
+                sel = pvalid_wire[:, lo:lo + r.shape[0]]
+                x = x & sel.reshape(b, r.shape[0], *([1] * (x.dim() - 2)))
+            flags.append(x.reshape(b, -1))
+        wire = WirePacket(slots=(out.words,), parked=(pout.words,), ids=tuple(ids), raws=(),
+                          bits=(wk.pack_bits(torch.cat(flags, dim=-1)),))
+
+        nnz = to_wide(out.nnz) + to_wide(pout.nnz)
+        for x in list(ids) + list(wire.bits):
+            nnz = nnz + (bits(x) != 0).sum(dim=-1)
+        aux = WireAux(
+            keep=out.keep, defer=out.defer, covered=out.covered,
+            parked_lost=(pvalid & pout.defer).sum(dim=-1).to(torch.int32),
+            packed_words=from_wide(nnz & 0xFFFFFFFF, torch.uint32),
+            checksum=wire_checksum(wire, {0: out.chk, 1: pout.chk}, batch_dims=1),
+        )
+        return wire, aux
+
+    def _win_matrix(self, win: AckWindow, idx, leaves):
+        """The ack verdict's inputs: the window's confirmed content planes
+        gathered at ``idx`` in the clock columns + its ctx in the ctx
+        columns, and the equality of the non-clock content lanes (none in
+        the dense flavor)."""
+        by_name = {f: [rows] for f, rows in zip(self.content_names, win.rows)}
+        b = idx.shape[0]
+        cols = [bits(take_rows(by_name[r.name].pop(0), idx)).reshape(b, self.c, hi - lo)
+                for r, (lo, hi) in zip(self.clock_recs, self.clock_cols)]
+        cols.append(bits(take_rows(win.ctx, idx)))
+        winc = torch.cat(cols, dim=-1).view(self.ct)
+        same = torch.ones(idx.shape, dtype=torch.bool, device=idx.device)
+        return winc, same
+
+    # ---- receiver --------------------------------------------------------
+
+    def unpack(self, wire: WirePacket, own_top=None, mirror_ctx=None):
+        """Invert :meth:`pack` with the receiver's copy of the watermark —
+        its own frozen top (≡ the digest the sender held) and its ack
+        mirror ctx. Returns the flavor packet, bit-identical to the
+        sender's gated/masked packet."""
+        batched = wire.slots[0].dim() == 3
+        if not batched:
+            wire, own_top, mirror_ctx = (
+                _add_batch(wire), _add_batch(own_top), _add_batch(mirror_ctx))
+        pkt = self._unpack(wire, own_top, mirror_ctx)
+        return pkt if batched else _drop_batch(pkt)
+
+    def _unpack(self, wire: WirePacket, own_top, mirror_ctx):
+        leaves = [None] * len(self.records)
+        b = wire.slots[0].shape[0]
+        flat = wk.unpack_bits(wire.bits[0], self.n_bits)
+        off = 0
+        keep = None
+        pvalid_parts = []
+        for r in self.bool_recs:
+            n = _numel(r.shape)
+            x = flat[:, off:off + n].reshape(b, *r.shape)
+            off += n
+            leaves[r.i] = x
+            if r.cls == _SLOTVALID:
+                keep = x
+            if r.cls == _PVALID:
+                pvalid_parts.append(x)
+        for k, r in enumerate(self.id_recs):
+            w = wire.ids[k]
+            vals = (wk.unpack_u16_pairs(w, _numel(r.shape), r.dtype) if self.narrow_ids
+                    else bits(w).to(r.dtype))
+            vals = vals.reshape(b, *r.shape)
+            if r.name == "idx":
+                vals = fill_invalid_idx(vals, keep, self.n_rows)
+            leaves[r.i] = vals
+        idx = leaves[self.id_recs[0].i]  # idx walks first by convention
+        base = self._base_matrix(self._slot_base(idx, own_top, mirror_ctx))
+        dec = wk.wire_unpack(self.slot_spec, wire.slots[0], base, keep, self.ct)
+        for r, (lo, hi) in zip(self.clock_recs, self.clock_cols):
+            leaves[r.i] = dec[..., lo:hi].reshape(b, *r.shape).view(r.dtype)
+        rc = self.ctx_rec
+        leaves[rc.i] = dec[..., self.ctx_lo:self.ctx_hi].reshape(b, *rc.shape).view(rc.dtype)
+        pdec = wk.wire_unpack(self.parked_spec, wire.parked[0],
+                              self._parked_base(own_top, b, dec.device),
+                              torch.cat(pvalid_parts, dim=-1), self.ct)
+        lo = 0
+        for r in self.parked_recs:
+            d = r.shape[0]
+            leaves[r.i] = pdec[:, lo:lo + d].reshape(b, *r.shape).view(r.dtype)
+            lo += d
+        return self.template_type(*leaves)
+
+    # ---- sender-side bookkeeping ----------------------------------------
+
+    def mask(self, pkt, keep):
+        """The sender's gated packet (content zeroed where the fused pass
+        masked or deferred) — the ack window's bookkeeping copy."""
+        out = []
+        for r, (_, leaf) in zip(self.records, _named_leaves(pkt)):
+            if r.cls in (_PDCL, _PVALID, _PBOOL) or r.name == "idx":
+                out.append(leaf)
+            elif r.cls == _SLOTVALID:
+                out.append(keep)
+            else:
+                sel = keep.reshape(*keep.shape, *([1] * (len(r.shape) - 1)))
+                out.append(torch.where(sel, bits(leaf), 0).view(leaf.dtype))
+        return self.template_type(*out)
+
+    def useful_bytes(self, pkt, keep) -> torch.Tensor:
+        """``telemetry.packet_useful_bytes`` of the gated packet from the
+        keep mask and the static prices (float32, per batch lane)."""
+        leaves = [leaf for _, leaf in _named_leaves(pkt)]
+        total = keep.sum(dim=-1).to(torch.float32) * self.slot_price
+        for r in self.pvalid_recs:
+            _, price = self.parked_prices[r.name[: -len("dvalid")]]
+            total = total + leaves[r.i].sum(dim=-1).to(torch.float32) * price
+        return total
+
+
+def _signed(dtype: torch.dtype) -> torch.dtype:
+    return torch.int64 if dtype == torch.uint64 else torch.int32
+
+
+def _narrow(wide: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Wide (``_dtypes.to_wide``) lanes → ``dtype`` lanes, contiguous."""
+    return from_wide(wide, dtype).contiguous()
+
+
+def _add_batch(tree):
+    if tree is None:
+        return None
+    return tree_map(lambda x: x[None], tree)
+
+
+def _drop_batch(tree):
+    return tree_map(lambda x: x[0], tree)
+
+
+def wire_checksum(wire: WirePacket, partials, batch_dims: int = 0) -> torch.Tensor:
+    """``faults.integrity.checksum`` of the wire tree, with K3's in-pass
+    partials standing in for the big leaves (``partials`` maps leaf index
+    → u32 partial): same leaf walk, same odd-constant chaining. Returns
+    u32, one per batch lane."""
+    leaves = [x for group in wire for x in group]
+    total = None
+    for i, leaf in enumerate(leaves):
+        part = partials.get(i)
+        part = to_wide(part) if part is not None else to_wide(
+            wk.leaf_checksum(leaf, batch_dims))
+        total = part if total is None else chain(total, part)
+    return from_wide(total, torch.uint32)
+
+
+def fill_invalid_idx(idx: torch.Tensor, keep: torch.Tensor, e: int) -> torch.Tensor:
+    """Distinct no-op scatter targets for the invalid slots whose indices
+    shipped as zeros: the first free (un-kept) element positions,
+    ascending, per batch lane."""
+    taken = torch.zeros((*idx.shape[:-1], e), dtype=torch.int32, device=idx.device)
+    taken = taken.scatter_add(-1, idx.long(), keep.to(torch.int32)) > 0
+    free = torch.argsort(taken.to(torch.uint8), dim=-1, stable=True)
+    rank = torch.cumsum((~keep).to(torch.int64), dim=-1) - 1
+    filler = torch.gather(free, -1, rank.clamp_min(0)).to(idx.dtype)
+    return torch.where(keep, idx, filler)
+
+
+def core_idx(pkt):
+    """The leaf slot packet's element indices."""
+    return _core(pkt).idx
+
+
+def remark_deferred(dirty, idx, defer):
+    """Re-mark narrow-deferred slots dirty (they never reached the wire),
+    before the round's backlog count."""
+    return put_rows(dirty, idx, torch.gather(dirty, -1, idx.long()) | defer)
+
+
+def know_dense(pkt):
+    """``delta.gate_delta``'s subject: the slot's live dot rows."""
+    return _core(pkt).rows
+
+
+# One registered codec per δ flavor; a fused ring of a kind missing here
+# raises (the map and nested flavors are ROADMAP item 7).
+WIRE_SURFACES = {
+    "delta_gossip": know_dense,
+}
+
+
+__all__ = [
+    "WIRE_SURFACES", "WireAux", "WireCodec", "WirePacket", "core_idx", "fill_invalid_idx",
+    "know_dense", "remark_deferred", "wire_checksum",
+]

@@ -1,6 +1,6 @@
-"""The port on a CUDA device: kernels K1 and K2 against their plain
-versions, and the models' folds on the card against the same folds on the
-CPU.
+"""The port on a CUDA device: kernels K1, K2 and K3 against their plain
+versions, the models' folds on the card against the same folds on the
+CPU, and the δ ring on the card (fused == layered == mesh_fold).
 
 Marked ``cuda``; every test skips without a device. It imports neither
 JAX nor the JAX package, so it also runs where JAX is not installed:
@@ -19,6 +19,7 @@ from crdt_tpu_torch.models import BatchedMap, BatchedOrswot
 from crdt_tpu_torch.ops.fold_kernels import (
     fold_cells, fold_cells_plain, fold_entries, fold_entries_plain,
 )
+from crdt_tpu_torch.ops.wire_kernels import wire_pack, wire_pack_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -88,3 +89,66 @@ def test_map_fold_on_the_card_matches_the_cpu(card, seed):
     before = fold_cells.launches
     assert on_card.fold() == on_cpu.fold()
     assert fold_cells.launches == before + 1
+
+
+@pytest.mark.parametrize("lc", [1, 16, 33])
+@pytest.mark.parametrize("dtype", [torch.uint32, torch.uint64])
+@pytest.mark.parametrize("flags", sorted(chip_smoke.K3_FLAGS))
+def test_k3_matches_its_plain_version(card, flags, dtype, lc):
+    gen = torch.Generator(device=card).manual_seed(lc * 10 + len(flags))
+    spec = chip_smoke.k3_spec(flags, lc)
+    for n in (31, 1024):
+        for b, layout in chip_smoke.K3_LAYOUTS:
+            case = chip_smoke.random_wire_case(spec, b, n, dtype, gen, card)
+            if b == 1:
+                case = {k: v[0] for k, v in case.items()}
+            if layout == "ring":
+                case = chip_smoke.ring_layout(spec, case)
+            before = wire_pack.launches
+            got = wire_pack(spec, **case)
+            want = wire_pack_plain(spec, **case)
+            torch.cuda.synchronize(card)
+            assert wire_pack.launches == before + 1
+            for x, y in zip(got, want):
+                assert x.shape == y.shape and torch.equal(bits(x), bits(y))
+
+
+def test_k3_refuses_what_it_cannot_take(card):
+    gen = torch.Generator(device=card).manual_seed(7)
+    spec = chip_smoke.k3_spec("gated", 16)
+    case = chip_smoke.random_wire_case(spec, 2, 64, torch.uint32, gen, card)
+    with pytest.raises(ValueError, match="CUDA"):
+        wire_pack(spec, **dict(case, base=case["base"].cpu()))
+    with pytest.raises(ValueError, match="contiguous"):
+        wire_pack(spec, **dict(case, clocks=case["clocks"].transpose(0, 1).contiguous()
+                               .transpose(0, 1)))
+    with pytest.raises(ValueError, match="lanes"):
+        wire_pack(spec, **dict(case, base=case["base"].transpose(1, 2).contiguous()
+                               .transpose(1, 2)))
+    with pytest.raises(TypeError, match="uint32"):
+        wire_pack(spec, **dict(case, clocks=case["clocks"].view(torch.int32)))
+    with pytest.raises(ValueError, match="1..64"):
+        wide = chip_smoke.k3_spec("plain", 65)
+        wire_pack(wide, **chip_smoke.random_wire_case(wide, 1, 4, torch.uint32, gen, card))
+    with pytest.raises(ValueError, match="slot row"):
+        wire_pack(spec, **{k: v[:, :0] for k, v in case.items()})
+
+
+@pytest.mark.parametrize("pipeline", [True, False])
+def test_the_delta_ring_on_the_card(card, pipeline):
+    from crdt_tpu_torch.parallel import VirtualMesh, mesh_delta_gossip, mesh_fold
+
+    rng = random.Random(3)
+    reps, applied = chip_smoke.mint_tracked(rng, 8, ["a", "b", "c", "d"])
+    model = BatchedOrswot.from_pure(reps, device=card)
+    dirty, fctx = chip_smoke.op_tracking(model, applied, card)
+    mesh = VirtualMesh(4, card)
+    before = wire_pack.launches
+    fused = mesh_delta_gossip(model.state, dirty, fctx, mesh, rounds=8, cap=64,
+                              pipeline=pipeline)
+    assert wire_pack.launches > before
+    layered = mesh_delta_gossip(model.state, dirty, fctx, mesh, rounds=8, cap=64,
+                                pipeline=pipeline, fused=False)
+    assert chip_smoke.same_leaves(fused[0], layered[0]) and int(fused[3]) == int(layered[3]) == 0
+    folded, _ = mesh_fold(model.state, mesh)
+    assert chip_smoke.rows_equal_fold(fused[0], folded)
