@@ -51,10 +51,13 @@ at first use), then runs, printing one JSON line per phase:
 8. ``k3_shapes``      — kernel K3 (``wire_pack``) against its plain torch
                         version on the card, every output at tolerance 0:
                         the four flag sets (plain, gated, gated+acked,
-                        parked), N in {1, 31, 1024, 65537}, LC in {1, 2, 8,
-                        16, 33}, B in {1, 8}, u32 and u64 clocks, rows
-                        inside and outside the ±32 Ki window, bases above
-                        clocks near the dtype's max; bad inputs must raise.
+                        parked), N in {1, 31, 1024, 65537}, LC in {1, 2, 3,
+                        8, 16, 17, 33, 64} (every row-group width), B in
+                        {1, 8}, u32 and u64 clocks, rows inside and outside
+                        the ±32 Ki window, bases above clocks near the
+                        dtype's max; grouped launches (``wire_pack_many``:
+                        the δ round's slot + parked pair, two mixed pairs,
+                        a group of four); bad inputs must raise.
 9. ``delta_scenarios`` — small oracle-minted rings on 4 virtual ranks, all
                         of ``pipeline`` × ``fused``: fused == layered on
                         every leaf, equal residue, and the converged rows
@@ -65,9 +68,15 @@ at first use), then runs, printing one JSON line per phase:
                         fctx plane is as large as ctr), through
                         ``mesh_delta_gossip``: fused ring (K3) == layered
                         ring == ``mesh_fold`` (K1) on every leaf with
-                        residue 0; K3's time, launches, bytes (distinct
-                        data) and bound share, the ring's wall time (the
-                        median of 5 warm rings of each kind, alternating),
+                        residue 0; K3 launched once per round; K3's time
+                        (per launch over a replayed graph, alone under the
+                        profiler, per call through the wrapper), the
+                        grouped round's time, bytes (distinct data) and
+                        bound shares, a graph of 10 wrapped calls holding
+                        10 kernel nodes and no memset, ``k3_sweep`` (K3
+                        up to 1M rows, where bytes set the bound), the
+                        ring's wall time (the median of 5 warm rings of
+                        each kind, alternating),
                         rounds, slots and wire bytes per link-round, the
                         local fold's time, the device's busy share and peak
                         memory.
@@ -88,6 +97,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -225,7 +235,8 @@ def phase_device(device) -> dict:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
-    _build.build_all(SOURCES)  # one nvcc per source, all started together
+    with ThreadPoolExecutor(len(SOURCES)) as pool:  # one nvcc per source, started together
+        list(pool.map(_build.library, SOURCES))
     load_s = time.perf_counter() - t0
     info = {src: _build.build_info[src] for src in SOURCES}
     ptxas = {src: [ln.strip() for ln in i["log"].splitlines()
@@ -539,24 +550,62 @@ def profile_busy(fn, device, host_top: int = 0):
 def graph_ms(fn, device, n: int) -> float:
     """Per-call ms of ``n`` calls of ``fn`` captured in one CUDA graph and
     replayed between CUDA events: the host-side wrapper runs once, at
-    capture, so the replay times the device work of the calls alone (a
-    kernel and the allocations' memsets). The host clock on the CPU."""
+    capture, so the replay times the device work of the calls alone. The
+    host clock on the CPU."""
     import torch
 
     if device.type != "cuda":
         return time_each(fn, device, n)
-    side = torch.cuda.Stream(device)
-    side.wait_stream(torch.cuda.current_stream(device))
-    with torch.cuda.stream(side):
-        fn()  # warm-up off the default stream, as graph capture wants
-    torch.cuda.current_stream(device).wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(n):
-            fn()
+    graph = capture(fn, device, n)
     graph.replay()
     torch.cuda.synchronize(device)
     return time_ms(graph.replay, device) / n
+
+
+def capture(fn, device, n: int, keep_graph: bool = False):
+    """A CUDA graph of ``n`` calls of ``fn``, captured on a side stream
+    after one warm-up call on that stream (so allocations a call makes
+    once per stream happen before the capture)."""
+    import torch
+
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=keep_graph)
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(n):
+            fn()
+    return graph
+
+
+# CUgraphNodeType (CUDA driver API).
+GRAPH_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "graph", 5: "empty",
+                    6: "wait_event", 7: "event_record", 10: "mem_alloc", 11: "mem_free"}
+
+
+def graph_nodes(fn, device, n: int) -> dict:
+    """The device operations ``n`` calls of ``fn`` issue: the nodes of a
+    CUDA graph that captures them, counted by type through the driver
+    API (``cuGraphGetNodes``, ``cuGraphNodeGetType``)."""
+    import ctypes
+
+    graph = capture(fn, device, n, keep_graph=True)
+    cuda = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    check(cuda.cuGraphGetNodes(handle, None, ctypes.byref(count)) == 0, "cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * count.value)()
+    check(cuda.cuGraphGetNodes(handle, nodes, ctypes.byref(count)) == 0, "cuGraphGetNodes failed")
+    kinds = {}
+    for node in nodes[:count.value]:
+        kind = ctypes.c_int(-1)
+        check(cuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0,
+              "cuGraphNodeGetType failed")
+        name = GRAPH_NODE_TYPES.get(kind.value, str(kind.value))
+        kinds[name] = kinds.get(name, 0) + 1
+    return kinds
 
 
 def kernel_device_ms(fn, device, name: str, n: int):
@@ -1130,12 +1179,24 @@ K3_FLAGS = {
     "parked": (False, False, True),
 }
 K3_NS = (1, 31, 1024, 65537)
-K3_LCS = (1, 2, 8, 16, 33)
+# Every row-group width G = the power of two >= ceil(LC / 2): 1 (LC 1, 2),
+# 2 (3), 4 (8), 8 (16), 16 (17), 32 (33, and 64 with W = 32).
+K3_LCS = (1, 2, 3, 8, 16, 17, 33, 64)
 K3_BS = (1, 8)
 # (B, layout): contiguous per-row inputs at every B, and at the largest B
 # also the ring's layout (broadcast watermark and digest, ``know`` inside
 # ``clocks``).
 K3_LAYOUTS = tuple((b, "rows") for b in K3_BS) + ((K3_BS[-1], "ring"),)
+# Grouped launches (``wire_pack_many``), each instance (flags, LC, B, N,
+# layout): the δ ring's round (slot + parked), two pairs that differ in
+# every field, and a group of the kernel's four instances.
+K3_GROUPS = (
+    (("gated", 16, 8, 4096, "ring"), ("parked", 8, 8, 4, "ring")),
+    (("gated_acked", 33, 8, 1024, "rows"), ("plain", 3, 1, 65537, "rows")),
+    (("parked", 64, 8, 31, "ring"), ("gated", 17, 1, 1, "rows")),
+    (("plain", 1, 8, 1024, "rows"), ("gated", 8, 1, 65537, "ring"),
+     ("gated_acked", 64, 8, 31, "rows"), ("parked", 2, 1, 1, "rows")),
+)
 
 
 def k3_spec(flags: str, lc: int):
@@ -1223,7 +1284,9 @@ def phase_k3_shapes(device, seed: int) -> int:
     """K3 vs its plain version over every case; returns the max |diff| (0)."""
     import torch
 
-    from crdt_tpu_torch.ops.wire_kernels import WireLaneSpec, wire_pack, wire_pack_plain
+    from crdt_tpu_torch.ops.wire_kernels import (
+        WireLaneSpec, wire_pack, wire_pack_many, wire_pack_plain,
+    )
 
     gen = torch.Generator(device=device).manual_seed(seed + 8)
     on_card = device.type == "cuda"
@@ -1253,10 +1316,27 @@ def phase_k3_shapes(device, seed: int) -> int:
                                          "kept": int(want.keep.sum()),
                                          "deferred": int(want.defer.sum()),
                                          "covered": int(want.covered.sum())})
+    n_groups = 0
+    for group in K3_GROUPS:
+        for dtype in (torch.uint32, torch.uint64):
+            calls = []
+            for flags, lc, b, n, layout in group:
+                spec = k3_spec(flags, lc)
+                case = random_wire_case(spec, b, n, dtype, gen, device)
+                if layout == "ring":
+                    case = ring_layout(spec, case)
+                calls.append(dict(case, spec=spec))
+            outs = wire_pack_many(calls)
+            n_groups += 1
+            for call, got in zip(calls, outs):
+                diff = wire_diff(got, wire_pack_plain(**call))
+                worst = max(worst, diff)
+                check(diff == 0, f"K3 disagrees with its plain version in the group {group} "
+                      f"{dtype}")
     if on_card:
         torch.cuda.synchronize(device)
     launches = wire_pack.launches - launches0
-    check(not on_card or launches == n_cases, "K3 was not launched for every case")
+    check(not on_card or launches == n_cases + n_groups, "K3 was not launched for every case")
     refused = 0
     if on_card:
         spec = k3_spec("gated", 16)
@@ -1284,8 +1364,10 @@ def phase_k3_shapes(device, seed: int) -> int:
         with expect_raises(ValueError):
             wire_pack(spec, **{k: v[:, :0] for k, v in empty.items()})  # N = 0
         refused += 2
-        check(wire_pack.launches - launches0 == n_cases, "a refused input launched K3")
-    emit({"phase": "k3_shapes", "cases": n_cases, "launches": launches,
+        check(wire_pack.launches - launches0 == n_cases + n_groups,
+              "a refused input launched K3")
+    emit({"phase": "k3_shapes", "cases": n_cases, "grouped_launches": n_groups,
+          "launches": launches,
           "largest_cases": rows, "max_abs_err": worst, "tolerance": 0,
           "refused_inputs": refused})
     return worst
@@ -1568,14 +1650,50 @@ def k3_bytes(args: dict, out) -> int:
     return sum(distinct_bytes(v) for v in ins) + sum(x.numel() * x.element_size() for x in out)
 
 
+# K3 where bytes, not launch latency, set the bound: (flags, B, N) at
+# LC 16 in the ring's layout; the last point is the fan-out plane's
+# subscriber count (B * E ~ 1M rows, ROADMAP item 11).
+K3_SWEEP = (("gated", 8, 4096), ("gated", 8, 65536), ("gated", 8, 262144),
+            ("plain", 1, 1 << 20))
+
+
+def k3_sweep(device, seed: int, points, repeats: int, per_sample: int) -> list:
+    """K3 per launch (CUDA events over a replayed graph, median of
+    ``repeats``) at each ``(flags, B, N)`` point, held bit-exact against its
+    plain version first, with its bound (distinct bytes over the nominal
+    memory rate), bound share and GB/s."""
+    import torch
+
+    from crdt_tpu_torch.ops.wire_kernels import wire_pack, wire_pack_plain
+
+    gen = torch.Generator(device=device).manual_seed(seed + 11)
+    rows = []
+    for flags, b, n in points:
+        spec = k3_spec(flags, 16)
+        args = dict(ring_layout(spec, random_wire_case(spec, b, n, torch.uint32, gen, device)),
+                    spec=spec)
+        want = wire_pack_plain(**args)
+        check(wire_diff(wire_pack(**args), want) == 0,
+              f"K3 disagrees with its plain version at the sweep point {flags} B={b} N={n}")
+        ms = statistics.median(graph_ms(lambda: wire_pack(**args), device, per_sample)
+                               for _ in range(repeats))
+        nbytes = k3_bytes(args, want)
+        bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+        rows.append({"flags": flags, "B": b, "N": n, "LC": 16, "ms": ms, "bytes": nbytes,
+                     "bound_ms": bound_ms, "bound_share": bound_ms / ms,
+                     "gb_per_s": nbytes / ms / 1e6})
+        del args, want
+    return rows
+
+
 def phase_full_width_delta(device, seed: int, r: int = 5120, e: int = 102400, a: int = 8,
                            d: int = 4, p: int = 8, cap: int = 4096, chunk: int = 128,
                            repeats: int = 7, per_sample: int = 50,
-                           ring_samples: int = 5) -> dict:
+                           ring_samples: int = 5, sweep_points=K3_SWEEP) -> dict:
     import torch
 
     from crdt_tpu_torch.ops.fold_kernels import fold_auto, fold_entries
-    from crdt_tpu_torch.ops.wire_kernels import wire_pack, wire_pack_plain
+    from crdt_tpu_torch.ops.wire_kernels import wire_pack, wire_pack_many, wire_pack_plain
     from crdt_tpu_torch.parallel import VirtualMesh, mesh_delta_gossip, mesh_fold
     from crdt_tpu_torch.parallel import wire as wire_mod
     from crdt_tpu_torch.parallel.anti_entropy import local_folds, rank_blocks
@@ -1658,26 +1776,43 @@ def phase_full_width_delta(device, seed: int, r: int = 5120, e: int = 102400, a:
     codec = wire_mod.WireCodec(_packet_template(ranks, cap, fctx.dtype), e,
                                wire_mod.know_dense, gated=True, acked=False)
     args = codec.slot_inputs(pkt, rtop=rtop)
+    pargs = codec.parked_inputs(pkt, rtop=rtop)
     k3_out = wire_pack(**args)
     plain_out = wire_pack_plain(**args)
     k3_err = wire_diff(k3_out, plain_out)
     check(k3_err == 0, "K3 at the ring's shape disagrees with its plain version")
+    group = [args, pargs]
+    group_out = wire_pack_many(group)
+    group_err = max(wire_diff(x, wire_pack_plain(**a)) for x, a in zip(group_out, group))
+    check(group_err == 0, "K3's grouped round disagrees with its plain version")
     # K3 per launch: CUDA events around a replayed graph of launches (the
     # device's work alone), the kernel's own device time (profiler), and
     # per call through the Python wrapper (events around back-to-back
-    # calls: the host's checks and allocations are in it).
+    # calls: the host's checks and allocation are in it).
     times = [graph_ms(lambda: wire_pack(**args), device, per_sample) for _ in range(repeats)]
     k3_ms = statistics.median(times)
     dev_ms = kernel_device_ms(lambda: wire_pack(**args), device, "wire_kernel", per_sample)
     call_ms = statistics.median(time_each(lambda: wire_pack(**args), device, per_sample)
                                 for _ in range(repeats))
+    group_times = [graph_ms(lambda: wire_pack_many(group), device, per_sample)
+                   for _ in range(repeats)]
     plain_ms = statistics.median(time_ms(lambda: wire_pack_plain(**args), device)
                                  for _ in range(3))
     nbytes = k3_bytes(args, k3_out)
+    group_bytes = sum(k3_bytes(a, x) for a, x in zip(group, group_out))
     lanes = args["clocks"].numel() + (args["know"].numel() if "know" in args else 0)
     bound = {"bytes_ms": nbytes / PEAK_BYTES_PER_S * 1e3,
              "ops_ms": 12 * lanes / PEAK_SCALAR_OPS_PER_S * 1e3}
     k3_bound_ms = max(bound.values())
+    group_bound_ms = group_bytes / PEAK_BYTES_PER_S * 1e3
+    # What a wrapped call issues on the device: one kernel node per call in
+    # a captured graph, and no memset.
+    nodes = graph_nodes(lambda: wire_pack(**args), device, 10) if on_card else None
+    check(not on_card or nodes == {"kernel": 10},
+          f"10 wrapped K3 calls captured as {nodes}, not 10 kernel nodes")
+    check(not on_card or k3_launches == rounds,
+          f"the fused ring launched K3 {k3_launches} times in {rounds} rounds")
+    sweep = k3_sweep(device, seed, sweep_points, repeats=3, per_sample=20)
     busy = profile_busy(lambda: mesh_delta_gossip(state, dirty, fctx, mesh, rounds=rounds,
                                                   cap=cap), device, host_top=12)
     busy_layered = profile_busy(lambda: mesh_delta_gossip(state, dirty, fctx, mesh,
@@ -1701,7 +1836,13 @@ def phase_full_width_delta(device, seed: int, r: int = 5120, e: int = 102400, a:
         "k3_ms_device_profiler": dev_ms, "k3_ms_per_call_incl_wrapper": call_ms,
         "k3_bytes": nbytes, "k3_bound_ms": k3_bound_ms,
         "k3_bound_by": "bytes" if bound["bytes_ms"] >= bound["ops_ms"] else "operations",
-        "k3_bound_share": k3_bound_ms / k3_ms, "k3_plain_ms": plain_ms, "k3_max_abs_err": k3_err,
+        "k3_bound_share": k3_bound_ms / k3_ms,
+        "k3_bound_share_device_profiler": k3_bound_ms / dev_ms if dev_ms else None,
+        "k3_plain_ms": plain_ms, "k3_max_abs_err": max(k3_err, group_err),
+        "k3_group_ms_median": statistics.median(group_times), "k3_group_ms_runs": group_times,
+        "k3_group_bytes": group_bytes, "k3_group_bound_ms": group_bound_ms,
+        "k3_group_bound_share": group_bound_ms / statistics.median(group_times),
+        "k3_graph_nodes_per_10_calls": nodes, "k3_sweep": sweep,
         "slots_shipped_per_link_round": stats["slots_shipped"] / links,
         "slots_deferred": stats["slots_deferred"], "parked_lost": stats["parked_lost"],
         "wire_bytes_per_link_round": stats["wire_bytes"],

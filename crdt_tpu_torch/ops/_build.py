@@ -26,7 +26,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_lock = threading.Lock()
+# One lock per source: a source builds once, two sources may build at once.
+_locks: Dict[str, threading.Lock] = {}
 _libs: Dict[str, ctypes.CDLL] = {}
 # source name -> {"seconds": build time (0.0 when cached), "log": nvcc output}
 build_info: Dict[str, dict] = {}
@@ -53,41 +54,26 @@ def _target(source: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{os.path.splitext(source)[0]}-{digest}.so")
 
 
-def build_all(sources) -> Dict[str, ctypes.CDLL]:
-    """Build (one ``nvcc`` per source, all started together) and load the
-    libraries of ``sources`` that are not loaded yet. Raises
-    RuntimeError naming every source that failed to build."""
-    with _lock:
-        todo = [s for s in dict.fromkeys(sources) if s not in _libs]
-        procs = {}
-        for source in todo:
+def library(source: str) -> ctypes.CDLL:
+    """The loaded shared library of ``csrc/<source>``, built on first use.
+    Raises RuntimeError when it cannot be built."""
+    with _locks.setdefault(source, threading.Lock()):
+        if source not in _libs:
             out = _target(source)
             info = {"seconds": 0.0, "log": ""}
             if not os.path.exists(out):
                 os.makedirs(BUILD_DIR, exist_ok=True)
                 tmp = f"{out}.{os.getpid()}.tmp"
-                proc = subprocess.Popen(
+                t0 = time.perf_counter()
+                proc = subprocess.run(
                     [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(_CSRC, source)],
                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
                 )
-                procs[source] = (proc, tmp, out, time.perf_counter())
-            build_info[source] = info
-        failed = []
-        for source, (proc, tmp, out, t0) in procs.items():
-            log = proc.communicate()[0]
-            build_info[source] = {"seconds": time.perf_counter() - t0, "log": log.strip()}
-            if proc.returncode != 0:
-                failed.append(f"nvcc failed on {source}:\n{log.strip()}")
-            else:
+                info = {"seconds": time.perf_counter() - t0, "log": proc.stdout.strip()}
+                if proc.returncode != 0:
+                    build_info[source] = info
+                    raise RuntimeError(f"nvcc failed on {source}:\n{info['log']}")
                 os.replace(tmp, out)
-        if failed:
-            raise RuntimeError("\n".join(failed))
-        for source in todo:
-            _libs[source] = ctypes.CDLL(_target(source))
-        return {s: _libs[s] for s in sources}
-
-
-def library(source: str) -> ctypes.CDLL:
-    """The loaded shared library of ``csrc/<source>``, built on first use.
-    Raises RuntimeError when it cannot be built."""
-    return build_all([source])[source]
+            build_info[source] = info
+            _libs[source] = ctypes.CDLL(out)
+        return _libs[source]

@@ -21,14 +21,16 @@ side of a δ round needs:
 ``wire_pack`` dispatches on the tensors: CUDA tensors launch kernel K3
 (``csrc/wire.cu``) or raise; CPU tensors take ``wire_pack_plain``. Both
 take one ``[N, LC]`` slot matrix or a ``[B, N, LC]`` stack (the δ ring
-stacks its P links, so one launch serves a round). The unpack side and
+stacks its P links), and ``wire_pack_many`` packs several such instances
+in one launch (a round's slot and parked instances). The unpack side and
 the bitmap / u16-pair helpers are plain torch, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional
+from contextlib import nullcontext
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -39,8 +41,9 @@ from .._dtypes import bits, from_raw, from_wide, mul32, raw, to_wide
 BIAS = 32768
 _U16 = 65536
 _MASK32 = 0xFFFFFFFF
-# K3 keeps a row's packed words in registers: at most this many clock
-# lanes per slot (the dense ORSWOT flavor has LC = 2A, A <= 32).
+# K3 packs a row with one thread per wire word, at most a warp: at most
+# this many clock lanes per slot (the dense ORSWOT flavor has LC = 2A,
+# A <= 32).
 LC_MAX = 64
 
 
@@ -159,10 +162,9 @@ def _check(name: str, t: torch.Tensor, shape: tuple, dtype, rows: bool = False) 
         raise ValueError(f"wire_pack: {name} must be contiguous")
 
 
-def _launch(spec, clocks, base, valid, know, dig, winc, ack_ok) -> WirePackOut:
-    """Check a ``[B, N, LC]`` stack against what K3 takes, launch it on
-    the current stream, and return its outputs; raises on anything it
-    cannot take and on a failed launch."""
+def _check_call(spec, clocks, base, valid, know, dig, winc, ack_ok) -> None:
+    """Check one ``[B, N, LC]`` instance against what K3 takes; raises on
+    anything it cannot take."""
     b, n, lc = clocks.shape
     dt = clocks.dtype
     if dt not in (torch.uint32, torch.uint64):
@@ -171,6 +173,8 @@ def _launch(spec, clocks, base, valid, know, dig, winc, ack_ok) -> WirePackOut:
         raise ValueError(f"wire_pack: the kernel takes 1..{LC_MAX} clock lanes, got {lc}")
     if n < 1 or b < 1:
         raise ValueError(f"wire_pack: needs at least one slot row, got [B={b}, N={n}]")
+    if n > MAX_ROWS:
+        raise ValueError(f"wire_pack: the kernel takes at most {MAX_ROWS} rows per batch, got {n}")
     if not 0 <= spec.ctx_lo <= spec.ctx_hi <= lc:
         raise ValueError(f"wire_pack: ctx columns [{spec.ctx_lo}, {spec.ctx_hi}) outside {lc}")
     _check("clocks", clocks, (b, n, lc), dt)
@@ -187,36 +191,131 @@ def _launch(spec, clocks, base, valid, know, dig, winc, ack_ok) -> WirePackOut:
             raise ValueError("wire_pack: an acked spec needs winc and ack_ok")
         _check("winc", winc, (b, n, lc), dt)
         _check("ack_ok", ack_ok, (b, n), torch.bool)
-    devs = {t.device for t in (clocks, base, valid, know, dig, winc, ack_ok) if t is not None}
+
+
+# Instances one launch packs (csrc/wire.cu ``kMaxInst``), rows per batch
+# (``kMaxRows``), batches per launch (``kMaxBatches``), and the
+# per-(device, stream) scratch in int32 words: two uint64 counters per
+# batch.
+MAX_GROUP = 4
+MAX_ROWS = 1 << 28
+MAX_BATCHES = 65536
+_SCRATCH = 4 * MAX_BATCHES
+_scratch: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _scratch_buffer(dev: torch.device, stream: int) -> torch.Tensor:
+    """K3's scratch on (``dev``, ``stream``): the per-batch counters of
+    ``nnz``/``chk``, zeroed once here and left at 0 by every launch.
+    Launches on one stream never overlap and two streams never share a
+    buffer, so no two launches in flight do. A
+    graph that captures K3 holds the capture stream's buffer: make one
+    call on that stream before capturing, so that the zeroing is not
+    captured with it."""
+    key = (dev.index, stream)
+    t = _scratch.get(key)
+    if t is None:
+        t = _scratch[key] = torch.zeros(_SCRATCH, dtype=torch.int32, device=dev)
+    return t
+
+
+def _launch(calls) -> List[WirePackOut]:
+    """Check ``[B, N, LC]`` instances ``(spec, clocks, base, valid, know,
+    dig, winc, ack_ok)`` against what K3 takes, launch them as one group
+    on the current stream, and return their outputs; raises on anything
+    it cannot take and on a failed launch."""
+    if not 1 <= len(calls) <= MAX_GROUP:
+        raise ValueError(f"wire_pack: one launch packs 1..{MAX_GROUP} instances, got {len(calls)}")
+    for c in calls:
+        _check_call(*c)
+    dt = calls[0][1].dtype
+    if any(c[1].dtype != dt for c in calls):
+        raise TypeError("wire_pack: a group's instances must share one clock dtype")
+    devs = {t.device for c in calls for t in c[1:] if t is not None}
     if len(devs) != 1:
         raise ValueError(f"wire_pack: inputs on several devices: {sorted(map(str, devs))}")
+    total_b = sum(c[1].shape[0] for c in calls)
+    if total_b > MAX_BATCHES:
+        raise ValueError(f"wire_pack: one launch takes at most {MAX_BATCHES} batches, got {total_b}")
 
     lib = _kernel()
-    w = spec.w
-    dev = clocks.device
-    with torch.cuda.device(dev):
-        words = torch.empty((b, n, w), dtype=torch.int32, device=dev)
-        flags = torch.empty((3, b, n), dtype=torch.bool, device=dev)
-        stats = torch.zeros((b, 2), dtype=torch.int32, device=dev)
-        ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
-        row_strides = lambda t: (t.stride(0), t.stride(1)) if spec.gated else (0, 0)  # noqa: E731
-        err = lib.crdt_wire_pack(
-            dt.itemsize, int(spec.gated), int(spec.acked),
+    # One allocation for every output: per instance its words and stats
+    # (u32), then all flag planes (bytes).
+    plan, n32, nflag = [], 0, 0
+    for spec, clocks, *_ in calls:
+        b, n, _ = clocks.shape
+        plan.append((b, n, n32, n32 + b * n * spec.w, nflag))
+        n32 += b * n * spec.w + 2 * b
+        nflag += 3 * b * n
+    dev = calls[0][1].device
+    buf = torch.empty(n32 + -(-nflag // 4), dtype=torch.uint32, device=dev)
+    flag_buf = buf[n32:].view(torch.bool)
+    base_ptr, flag_ptr = buf.data_ptr(), flag_buf.data_ptr()
+
+    desc = []
+    for (spec, clocks, base, valid, know, dig, winc, ack_ok), (b, n, ow, os_, of) in zip(
+            calls, plan):
+        g, ac = spec.gated, spec.acked
+        desc += [
             clocks.data_ptr(), base.data_ptr(), valid.data_ptr(),
-            ptr(know if spec.gated else None), ptr(dig if spec.gated else None),
-            ptr(winc if spec.acked else None), ptr(ack_ok if spec.acked else None),
-            words.data_ptr(), flags[0].data_ptr(), flags[1].data_ptr(), flags[2].data_ptr(),
-            stats.data_ptr(), b, n, lc, max(a, 0), spec.ctx_lo, spec.ctx_hi,
-            base.stride(0), base.stride(1), *row_strides(know), *row_strides(dig),
-            torch.cuda.current_stream().cuda_stream,
-        )
+            know.data_ptr() if g else 0, dig.data_ptr() if g else 0,
+            winc.data_ptr() if ac else 0, ack_ok.data_ptr() if ac else 0,
+            base_ptr + 4 * ow, flag_ptr + of, base_ptr + 4 * os_,
+            b, n, spec.lc, spec.ctx_hi - spec.ctx_lo, spec.ctx_lo, spec.ctx_hi, int(g), int(ac),
+            base.stride(0), base.stride(1), know.stride(0) if g else 0,
+            know.stride(1) if g else 0, dig.stride(0) if g else 0, dig.stride(1) if g else 0,
+        ]
+    ctx = torch.cuda.device(dev) if dev.index != torch.cuda.current_device() else nullcontext()
+    with ctx:
+        stream = torch.cuda.current_stream().cuda_stream
+        scratch = _scratch_buffer(dev, stream)
+        err = lib.crdt_wire_pack_many(dt.itemsize, len(calls), (ctypes.c_longlong * len(desc))(
+            *desc), scratch.data_ptr(), _SCRATCH, stream)
     if err != 0:
         raise RuntimeError(f"wire_pack: kernel launch failed (cudaError {err})")
-    stats = stats.view(torch.uint32)
-    return WirePackOut(
-        words=words.view(torch.uint32), keep=flags[0], defer=flags[1],
-        covered=flags[2], nnz=stats[:, 0], chk=stats[:, 1],
-    )
+    outs = []
+    for spec, (b, n, ow, os_, of) in zip((c[0] for c in calls), plan):
+        outs.append(WirePackOut(
+            buf[ow:ow + b * n * spec.w].view(b, n, spec.w),
+            *flag_buf[of:of + 3 * b * n].view(3, b, n).unbind(0),
+            *buf[os_:os_ + 2 * b].view(b, 2).unbind(1),
+        ))
+    return outs
+
+
+_ARGS = ("clocks", "base", "valid", "know", "dig", "winc", "ack_ok")
+
+
+def wire_pack_many(calls: Sequence[dict]) -> List[WirePackOut]:
+    """Several fused pack passes in ONE launch of K3: ``calls`` holds each
+    instance's :func:`wire_pack` keyword arguments (``spec``, ``clocks``,
+    ``base``, ``valid`` and the optional inputs), and the result one
+    :class:`WirePackOut` each, in order. CUDA instances share a clock
+    dtype and a device (at most ``MAX_GROUP`` of them); CPU tensors take
+    :func:`wire_pack_plain` for each. ``wire_pack.launches`` counts the
+    launches: one per group."""
+    items = []
+    for c in calls:
+        spec = c["spec"]
+        args = tuple(c.get(k) for k in _ARGS)
+        clocks = args[0]
+        if clocks.dim() not in (2, 3):
+            raise ValueError(
+                f"wire_pack: clocks must be [N, LC] or [B, N, LC], got {tuple(clocks.shape)}")
+        if clocks.shape[-1] != spec.lc:
+            raise ValueError(
+                f"wire_pack: clocks have {clocks.shape[-1]} lanes, spec.lc is {spec.lc}")
+        items.append((spec, args))
+    if not items:
+        raise ValueError("wire_pack: nothing to pack")
+    if all(t.device.type == "cpu" for _, args in items for t in args if t is not None):
+        return [wire_pack_plain(spec, *args) for spec, args in items]
+    stacked = [(spec, *(t if t is None or args[0].dim() == 3 else t[None] for t in args))
+               for spec, args in items]
+    outs = _launch(stacked)
+    wire_pack.launches += 1
+    return [out if args[0].dim() == 3 else WirePackOut(*(x[0] for x in out))
+            for out, (_, args) in zip(outs, items)]
 
 
 def wire_pack(
@@ -241,24 +340,11 @@ def wire_pack(
 
     Replaces the TPU kernel ``_wire_kernel`` (crdt_tpu/ops/wire_kernels.py,
     launched by its ``wire_pack``). CPU tensors take
-    :func:`wire_pack_plain`; CUDA tensors launch K3 on the current stream,
-    and anything the kernel cannot take raises. ``wire_pack.launches``
-    counts the launches."""
-    if clocks.dim() not in (2, 3):
-        raise ValueError(f"wire_pack: clocks must be [N, LC] or [B, N, LC], got {tuple(clocks.shape)}")
-    if clocks.shape[-1] != spec.lc:
-        raise ValueError(f"wire_pack: clocks have {clocks.shape[-1]} lanes, spec.lc is {spec.lc}")
-    given = [t for t in (clocks, base, valid, know, dig, winc, ack_ok) if t is not None]
-    if all(t.device.type == "cpu" for t in given):
-        return wire_pack_plain(spec, clocks, base, valid, know, dig, winc, ack_ok)
-    if clocks.dim() == 2:
-        add = lambda t: None if t is None else t[None]  # noqa: E731
-        out = _launch(spec, *(add(t) for t in (clocks, base, valid, know, dig, winc, ack_ok)))
-        out = WirePackOut(*(x[0] for x in out))
-    else:
-        out = _launch(spec, clocks, base, valid, know, dig, winc, ack_ok)
-    wire_pack.launches += 1
-    return out
+    :func:`wire_pack_plain`; CUDA tensors launch K3 on the current stream
+    (a group of one, :func:`wire_pack_many`), and anything the kernel
+    cannot take raises. ``wire_pack.launches`` counts the launches."""
+    return wire_pack_many([dict(spec=spec, clocks=clocks, base=base, valid=valid, know=know,
+                                dig=dig, winc=winc, ack_ok=ack_ok)])[0]
 
 
 wire_pack.launches = 0
@@ -268,10 +354,11 @@ def _kernel() -> ctypes.CDLL:
     from ._build import library
 
     lib = library("wire.cu")
-    if lib.crdt_wire_pack.argtypes is None:
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.crdt_wire_pack.argtypes = [i, i, i] + [p] * 12 + [ll, ll, i, i, i, i] + [ll] * 6 + [p]
-        lib.crdt_wire_pack.restype = i
+    if lib.crdt_wire_pack_many.argtypes is None:
+        p = ctypes.c_void_p
+        lib.crdt_wire_pack_many.argtypes = [ctypes.c_int, ctypes.c_int, p, p,
+                                            ctypes.c_longlong, p]
+        lib.crdt_wire_pack_many.restype = ctypes.c_int
     return lib
 
 
@@ -335,6 +422,6 @@ def leaf_checksum(leaf: torch.Tensor, batch_dims: int = 0) -> torch.Tensor:
 
 __all__ = [
     "BIAS", "LC_MAX", "WireLaneSpec", "WirePackOut", "leaf_checksum", "pack_bits",
-    "pack_u16_pairs", "unpack_bits", "unpack_u16_pairs", "wire_pack",
+    "pack_u16_pairs", "unpack_bits", "unpack_u16_pairs", "wire_pack", "wire_pack_many",
     "wire_pack_plain", "wire_unpack",
 ]

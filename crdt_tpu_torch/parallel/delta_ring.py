@@ -6,9 +6,9 @@ folds its replica block, then ``rounds`` rounds of extract → ``ppermute``
 → apply, then the top-closure collective. Here the P ranks are the
 leading axis of every tensor (``mesh.VirtualMesh``), so one call of
 ``extract``/``apply``/the wire pass serves all P links of a round: the
-fused wire is one K3 launch per spec instance per round, whatever P is.
-``ppermute`` is a gather along the rank axis, ``psum``/``pmax`` reduce
-it. Only the local fold loops over ranks (K1 has no rank axis:
+fused wire is one K3 launch per round (slot and parked instances in one
+group), whatever P is. ``ppermute`` is a roll (ring shifts) or a gather
+along the rank axis, ``psum``/``pmax`` reduce it. Only the local fold loops over ranks (K1 has no rank axis:
 ``anti_entropy.local_folds``).
 
 Modes ported (the JAX module docstring gives their soundness):

@@ -2,10 +2,11 @@
 the JAX package's ``parallel/wire.py`` for the dense ORSWOT flavor.
 
 :class:`WireCodec` lowers a ``DeltaPacket`` onto an all-u32 wire tree in
-one fused pass over the slot clock lanes (``ops.wire_kernels.wire_pack``:
-kernel K3 on a card) plus a second instance over the parked-remove clocks,
-and the receiver inverts it with plain torch. Wire layout (``WirePacket``,
-every leaf u32, leaf order static):
+one fused pass over the slot clock lanes plus a second instance over the
+parked-remove clocks, both in one launch (``ops.wire_kernels.
+wire_pack_many``: kernel K3 on a card), and the receiver inverts it with
+plain torch. Wire layout (``WirePacket``, every leaf u32, leaf order
+static):
 
     slots  [C, Ws]   slot clock lanes (rows, then ctxs) as biased-u16
                      deltas against the link watermark, two per word
@@ -267,6 +268,18 @@ class WireCodec:
             out["ack_ok"] = (torch.gather(win.ackd, -1, idx.long()) & same_rest).contiguous()
         return out
 
+    def parked_inputs(self, pkt, rtop=None) -> dict:
+        """The parked K3 instance's arguments for a batched packet: the
+        parked clock planes concatenated over the levels, against the
+        digest watermark, and their validity."""
+        leaves = [leaf for _, leaf in _named_leaves(pkt)]
+        b = pkt.idx.shape[0]
+        pcl = torch.cat([bits(leaves[r.i]).reshape(b, -1, self.a) for r in self.parked_recs],
+                        dim=1).view(self.ct)
+        pvalid = torch.cat([leaves[r.i] for r in self.pvalid_recs], dim=-1)
+        return dict(spec=self.parked_spec, clocks=pcl,
+                    base=self._parked_base(rtop, b, pcl.device), valid=pvalid.contiguous())
+
     def pack(self, pkt, rtop=None, win: Optional[AckWindow] = None):
         """One fused pass from the flavor packet to the wire tree.
         ``rtop`` is the receiver's frozen digest top ``[.., A]``
@@ -283,16 +296,11 @@ class WireCodec:
     def _pack(self, pkt, rtop, win):
         leaves = [leaf for _, leaf in _named_leaves(pkt)]
         b = pkt.idx.shape[0]
-        out = wk.wire_pack(**self.slot_inputs(pkt, rtop, win))
-
-        # Parked clock planes: one fused pass over the concatenated
-        # levels against the digest watermark; an unencodable valid slot
-        # is wire loss.
-        pcl = torch.cat([bits(leaves[r.i]).reshape(b, -1, self.a) for r in self.parked_recs],
-                        dim=1).view(self.ct)
-        pvalid = torch.cat([leaves[r.i] for r in self.pvalid_recs], dim=-1)
-        pout = wk.wire_pack(self.parked_spec, pcl, self._parked_base(rtop, b, pcl.device),
-                            pvalid.contiguous())
+        # The slot and parked instances in one launch; an unencodable
+        # valid parked slot is wire loss.
+        parked = self.parked_inputs(pkt, rtop)
+        pvalid = parked["valid"]
+        out, pout = wk.wire_pack_many([self.slot_inputs(pkt, rtop, win), parked])
         pvalid_wire = pvalid & ~pout.defer
 
         def slotmask(flat):

@@ -194,6 +194,33 @@ def test_k3_wrapper_refuses_what_the_kernel_cannot_take(what):
         wire_kernels.wire_pack(spec, **args)
 
 
+@pytest.mark.parametrize("what,exc,match", [
+    ("mixed dtypes", TypeError, "one clock dtype"),
+    ("five instances", ValueError, "1..4 instances"),
+    ("rows above the maximum", ValueError, "at most 4 rows"),
+])
+def test_k3_group_refuses_what_the_kernel_cannot_take(monkeypatch, what, exc, match):
+    """A grouped launch checks every instance and what they must share,
+    before it builds or launches anything."""
+    from crdt_tpu_torch.ops import wire_kernels
+
+    spec = wire_kernels.WireLaneSpec(lc=8, ctx_lo=4, ctx_hi=8, gated=True)
+    call = dict(spec=spec, **_fake(_k3_inputs()))
+    calls = [call, dict(call)]
+    if what == "mixed dtypes":
+        wide = {k: v.to(torch.int64).view(torch.uint64) if v.dtype == torch.uint32 else v
+                for k, v in _k3_inputs().items()}
+        calls[1] = dict(spec=spec, **_fake(wide))
+    if what == "five instances":
+        calls = [call] * 5
+    if what == "rows above the maximum":
+        monkeypatch.setattr(wire_kernels, "MAX_ROWS", 4)
+    before = wire_kernels.wire_pack.launches
+    with pytest.raises(exc, match=match):
+        wire_kernels.wire_pack_many(calls)
+    assert wire_kernels.wire_pack.launches == before
+
+
 def test_k3_wrapper_takes_the_rings_views_in_place(monkeypatch, tmp_path):
     """A watermark and digest row broadcast over the slots and ``know`` as
     a column range of ``clocks`` pass the wrapper's checks: it goes on to
@@ -247,8 +274,18 @@ def test_chip_smoke_k3_cases_cover_every_flag_set_and_both_dtypes():
 
     assert set(chip_smoke.K3_FLAGS) == {"plain", "gated", "gated_acked", "parked"}
     assert chip_smoke.K3_NS == (1, 31, 1024, 65537)
-    assert chip_smoke.K3_LCS == (1, 2, 8, 16, 33) and chip_smoke.K3_BS == (1, 8)
+    assert chip_smoke.K3_LCS == (1, 2, 3, 8, 16, 17, 33, 64) and chip_smoke.K3_BS == (1, 8)
     assert chip_smoke.K3_LAYOUTS == ((1, "rows"), (8, "rows"), (8, "ring"))
+    # Every row-group width (threads per row: the power of two >= ceil(LC / 2)).
+    widths = {1 << ((lc + 1) // 2 - 1).bit_length() for lc in chip_smoke.K3_LCS}
+    assert widths == {1, 2, 4, 8, 16, 32} and max(chip_smoke.K3_LCS) == 64
+    # Grouped launches: the ring's round (gated slot + parked) and a group
+    # of the kernel's maximum size, in every flag set.
+    assert chip_smoke.K3_GROUPS[0] == (("gated", 16, 8, 4096, "ring"), ("parked", 8, 8, 4, "ring"))
+    from crdt_tpu_torch.ops.wire_kernels import MAX_GROUP
+
+    assert max(len(g) for g in chip_smoke.K3_GROUPS) == MAX_GROUP
+    assert {f for g in chip_smoke.K3_GROUPS for f, *_ in g} == set(chip_smoke.K3_FLAGS)
     spec = chip_smoke.k3_spec("gated_acked", 33)
     assert (spec.ctx_lo, spec.ctx_hi, spec.gated, spec.acked) == (17, 33, True, True)
 

@@ -19,7 +19,8 @@ from crdt_tpu_torch.models import BatchedMap, BatchedOrswot
 from crdt_tpu_torch.ops.fold_kernels import (
     fold_cells, fold_cells_plain, fold_entries, fold_entries_plain,
 )
-from crdt_tpu_torch.ops.wire_kernels import wire_pack, wire_pack_plain
+from crdt_tpu_torch.ops import wire_kernels
+from crdt_tpu_torch.ops.wire_kernels import wire_pack, wire_pack_many, wire_pack_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -111,6 +112,79 @@ def test_k3_matches_its_plain_version(card, flags, dtype, lc):
             assert wire_pack.launches == before + 1
             for x, y in zip(got, want):
                 assert x.shape == y.shape and torch.equal(bits(x), bits(y))
+
+
+def _same(x, y):
+    return all(u.shape == v.shape and torch.equal(bits(u), bits(v)) for u, v in zip(x, y))
+
+
+def _wire_call(card, gen, flags, lc, b, n, layout, dtype=torch.uint32):
+    spec = chip_smoke.k3_spec(flags, lc)
+    case = chip_smoke.random_wire_case(spec, b, n, dtype, gen, card)
+    if layout == "ring":
+        case = chip_smoke.ring_layout(spec, case)
+    return dict(case, spec=spec)
+
+
+@pytest.mark.parametrize("dtype", [torch.uint32, torch.uint64])
+@pytest.mark.parametrize("group", range(len(chip_smoke.K3_GROUPS)))
+def test_k3_grouped_launch_matches_its_plain_version(card, group, dtype):
+    gen = torch.Generator(device=card).manual_seed(group)
+    calls = [_wire_call(card, gen, *inst, dtype=dtype) for inst in chip_smoke.K3_GROUPS[group]]
+    before = wire_pack.launches
+    outs = wire_pack_many(calls)
+    torch.cuda.synchronize(card)
+    assert wire_pack.launches == before + 1
+    for call, out in zip(calls, outs):
+        assert _same(out, wire_pack_plain(**call))
+
+
+def _counters(card):
+    stream = torch.cuda.current_stream(card).cuda_stream
+    return wire_kernels._scratch[(card.index, stream)]
+
+
+def test_k3_back_to_back_launches_leave_the_counters_at_0(card):
+    """Batches of many blocks finish through the scratch counters: two
+    launches in a row give the same stats, and the counters read 0."""
+    gen = torch.Generator(device=card).manual_seed(11)
+    call = _wire_call(card, gen, "gated", 16, 3, 300_001, "ring")
+    want = wire_pack_plain(**call)
+    first, second = wire_pack(**call), wire_pack(**call)
+    torch.cuda.synchronize(card)
+    assert _same(first, want) and _same(second, want)
+    assert int(bits(want.nnz).sum()) > 0
+    assert not _counters(card).any()
+
+
+def test_k3_on_a_second_stream(card):
+    gen = torch.Generator(device=card).manual_seed(12)
+    calls = [_wire_call(card, gen, "gated_acked", 33, 2, 70_001, "rows"),
+             _wire_call(card, gen, "plain", 7, 8, 5_000, "ring")]
+    side = torch.cuda.Stream(card)
+    side.wait_stream(torch.cuda.current_stream(card))
+    with torch.cuda.stream(side):
+        on_side = wire_pack_many(calls)
+        on_side_counters = _counters(card)
+    on_default = wire_pack_many(calls)  # in flight beside the side stream's launch
+    torch.cuda.synchronize(card)
+    for call, x, y in zip(calls, on_side, on_default):
+        want = wire_pack_plain(**call)
+        assert _same(x, want) and _same(y, want)
+    assert not on_side_counters.any() and not _counters(card).any()
+
+
+@pytest.mark.parametrize("lc", [2, 3, 8, 16, 17, 64])
+def test_k3_rows_not_a_multiple_of_a_block(card, lc):
+    """N one past a block's rows (256 / G) and one short of it, and a
+    batch whose tiles outnumber a wave's share."""
+    gen = torch.Generator(device=card).manual_seed(lc)
+    rows = 256 // (1 << ((lc + 1) // 2 - 1).bit_length())
+    for n in (rows + 1, 3 * rows - 1, 1000 * rows + 7):
+        call = _wire_call(card, gen, "gated", lc, 4, n, "ring")
+        out = wire_pack(**call)
+        torch.cuda.synchronize(card)
+        assert _same(out, wire_pack_plain(**call)), n
 
 
 def test_k3_refuses_what_it_cannot_take(card):
