@@ -80,6 +80,23 @@ at first use), then runs, printing one JSON line per phase:
                         rounds, slots and wire bytes per link-round, the
                         local fold's time, the device's busy share and peak
                         memory.
+11. ``map_delta_scenarios`` — small oracle-minted Map<K, MVReg> rings on 4
+                        virtual ranks, ``pipeline`` × cap 16 / 1: fused ==
+                        layered on every leaf, equal residue, and the
+                        converged rows == ``mesh_fold_map`` when certified.
+12. ``full_width_delta_map`` — the Map δ ring at config 4's widths (K=1M,
+                        S=2, A=4, D=4) with R=64 replicas on P=8 virtual
+                        ranks, cap 4096, through ``mesh_delta_gossip_map``:
+                        fused ring (K3 at LC 14) == layered ring ==
+                        ``mesh_fold_map`` with residue 0; K2 once per rank
+                        and K3 once per round; one round run with torch's
+                        sync debug mode on (no host sync); K3 at the Map
+                        layout per launch over a replayed graph and alone,
+                        its bytes and bound, 10 wrapped calls = 10 kernel
+                        nodes; ring walls (median of 5 of each kind,
+                        alternating), busy share and launches per round;
+                        and the same traffic with every key written, where
+                        the wire's window leaves the fused ring uncertified.
 
 Then the ``nvidia-smi`` name/power-limit line, a ``kernels`` JSON line, and
 as the last line ``{"ok": true, "device": {...}}``. Any failed check raises
@@ -539,6 +556,7 @@ def profile_busy(fn, device, host_top: int = 0):
         "wall_ms": wall_ms, "device_ms": device_ms,
         "busy_share": device_ms / wall_ms,
         "top": [{"kernel": k[:80], "ms": ms, "calls": n} for ms, k, n in rows[:6]],
+        "launch_kernel_calls": sum(n for _, k, n in host if k == "cudaLaunchKernel"),
     }
     if host_top:
         host.sort(reverse=True)
@@ -564,8 +582,8 @@ def graph_ms(fn, device, n: int) -> float:
 
 def capture(fn, device, n: int, keep_graph: bool = False):
     """A CUDA graph of ``n`` calls of ``fn``, captured on a side stream
-    after one warm-up call on that stream (so allocations a call makes
-    once per stream happen before the capture)."""
+    after one warm-up call on that stream (so a call's one-time
+    allocations happen before the capture)."""
     import torch
 
     side = torch.cuda.Stream(device)
@@ -1453,12 +1471,14 @@ def parked_in_clock_order(state):
 
 
 def same_leaves(x, y) -> bool:
+    """Every leaf of two (nested) tuples of tensors equal, bit for bit."""
     import torch
 
     from crdt_tpu_torch._dtypes import bits
 
-    return all(u.dtype == v.dtype and u.shape == v.shape and torch.equal(bits(u), bits(v))
-               for u, v in zip(x, y))
+    if isinstance(x, tuple):
+        return len(x) == len(y) and all(same_leaves(u, v) for u, v in zip(x, y))
+    return x.dtype == y.dtype and x.shape == y.shape and torch.equal(bits(x), bits(y))
 
 
 def rows_equal_fold(rows, folded) -> bool:
@@ -1686,6 +1706,107 @@ def k3_sweep(device, seed: int, points, repeats: int, per_sample: int) -> list:
     return rows
 
 
+def certify_ring(ring, backlog: int, p: int, cap: int, counters, sync):
+    """The main path, counted: ``ring(rounds, stats)`` (a fused δ ring) with
+    the budget ``2·(P−1)·(1 + ⌈backlog/cap⌉ + extra) − 1`` for extra = 0,
+    1, 2 until it certifies, the kernels' launch ``counters`` set to 0 just
+    before each run and read just after. Returns ``(out, rounds, stats,
+    attempts, launches)``."""
+    attempts = []
+    for extra in range(3):
+        rounds = 2 * (p - 1) * (1 + -(-backlog // cap) + extra) - 1
+        stats = {}
+        for counted in counters:
+            counted.launches = 0
+        t0 = time.perf_counter()
+        out = ring(rounds, stats)
+        sync()
+        cold_ms = (time.perf_counter() - t0) * 1e3  # the first ring: allocator growth in it
+        launches = [counted.launches for counted in counters]
+        attempts.append({"rounds": rounds, "residue": int(out[3]), "ring_ms_cold": cold_ms})
+        if int(out[3]) == 0:
+            break
+    check(int(out[3]) == 0, f"the fused ring did not certify after {attempts}")
+    return out, rounds, stats, attempts, launches
+
+
+def alternate_rings(ring, samples: int, sync) -> dict:
+    """Wall ms of ``samples`` rings of each kind, ``ring(fused)`` for fused
+    True and False in turn (each kind warmed up by the caller); every ring
+    must certify. Returns the runs by kind."""
+    runs = {True: [], False: []}
+    for _ in range(samples):
+        for kind in (True, False):
+            t0 = time.perf_counter()
+            res = ring(kind)
+            sync()
+            runs[kind].append((time.perf_counter() - t0) * 1e3)
+            check(int(res[3]) == 0, "a timed ring did not certify")
+            del res
+    return runs
+
+
+def k3_at_ring_shape(args: dict, pargs: dict, device, repeats: int, per_sample: int) -> dict:
+    """K3 on one round's slot instance ``args`` (and, grouped with the
+    parked instance ``pargs``, the round's one launch), held bit-exact
+    against its plain version first; then per launch (CUDA events around a
+    replayed graph of launches: the device's work alone), alone (the
+    profiler's device time), per call through the Python wrapper (events
+    around back-to-back calls: the host's checks and allocation are in
+    it), the plain version's time, the bytes and bound over distinct data,
+    and the device operations of 10 wrapped calls (one kernel node each,
+    no memset)."""
+    import torch
+
+    from crdt_tpu_torch.ops.wire_kernels import wire_pack, wire_pack_many, wire_pack_plain
+
+    on_card = device.type == "cuda"
+    k3_out = wire_pack(**args)
+    k3_err = wire_diff(k3_out, wire_pack_plain(**args))
+    check(k3_err == 0, "K3 at the ring's shape disagrees with its plain version")
+    group = [args, pargs]
+    group_out = wire_pack_many(group)
+    group_err = max(wire_diff(x, wire_pack_plain(**g)) for x, g in zip(group_out, group))
+    check(group_err == 0, "K3's grouped round disagrees with its plain version")
+    times = [graph_ms(lambda: wire_pack(**args), device, per_sample) for _ in range(repeats)]
+    k3_ms = statistics.median(times)
+    dev_ms = kernel_device_ms(lambda: wire_pack(**args), device, "wire_kernel", per_sample)
+    call_ms = statistics.median(time_each(lambda: wire_pack(**args), device, per_sample)
+                                for _ in range(repeats))
+    group_times = [graph_ms(lambda: wire_pack_many(group), device, per_sample)
+                   for _ in range(repeats)]
+    group_ms = statistics.median(group_times)
+    plain_ms = statistics.median(time_ms(lambda: wire_pack_plain(**args), device)
+                                 for _ in range(3))
+    nbytes = k3_bytes(args, k3_out)
+    group_bytes = sum(k3_bytes(g, x) for g, x in zip(group, group_out))
+    lanes = args["clocks"].numel() + (args["know"].numel() if "know" in args else 0)
+    bound = {"bytes_ms": nbytes / PEAK_BYTES_PER_S * 1e3,
+             "ops_ms": 12 * lanes / PEAK_SCALAR_OPS_PER_S * 1e3}
+    bound_ms = max(bound.values())
+    group_bound_ms = group_bytes / PEAK_BYTES_PER_S * 1e3
+    nodes = graph_nodes(lambda: wire_pack(**args), device, 10) if on_card else None
+    check(not on_card or nodes == {"kernel": 10},
+          f"10 wrapped K3 calls captured as {nodes}, not 10 kernel nodes")
+    del k3_out, group_out
+    if on_card:
+        torch.cuda.synchronize(device)
+    return {
+        "k3_lc": args["clocks"].shape[-1],
+        "k3_ms_median": k3_ms, "k3_ms_runs": times, "k3_launches_per_sample": per_sample,
+        "k3_ms_device_profiler": dev_ms, "k3_ms_per_call_incl_wrapper": call_ms,
+        "k3_bytes": nbytes, "k3_bound_ms": bound_ms,
+        "k3_bound_by": "bytes" if bound["bytes_ms"] >= bound["ops_ms"] else "operations",
+        "k3_bound_share": bound_ms / k3_ms,
+        "k3_bound_share_device_profiler": bound_ms / dev_ms if dev_ms else None,
+        "k3_plain_ms": plain_ms, "k3_max_abs_err": max(k3_err, group_err),
+        "k3_group_ms_median": group_ms, "k3_group_ms_runs": group_times,
+        "k3_group_bytes": group_bytes, "k3_group_bound_ms": group_bound_ms,
+        "k3_group_bound_share": group_bound_ms / group_ms,
+        "k3_graph_nodes_per_10_calls": nodes,
+    }
+
+
 def phase_full_width_delta(device, seed: int, r: int = 5120, e: int = 102400, a: int = 8,
                            d: int = 4, p: int = 8, cap: int = 4096, chunk: int = 128,
                            repeats: int = 7, per_sample: int = 50,
@@ -1693,7 +1814,7 @@ def phase_full_width_delta(device, seed: int, r: int = 5120, e: int = 102400, a:
     import torch
 
     from crdt_tpu_torch.ops.fold_kernels import fold_auto, fold_entries
-    from crdt_tpu_torch.ops.wire_kernels import wire_pack, wire_pack_many, wire_pack_plain
+    from crdt_tpu_torch.ops.wire_kernels import wire_pack
     from crdt_tpu_torch.parallel import VirtualMesh, mesh_delta_gossip, mesh_fold
     from crdt_tpu_torch.parallel import wire as wire_mod
     from crdt_tpu_torch.parallel.anti_entropy import local_folds, rank_blocks
@@ -1716,26 +1837,16 @@ def phase_full_width_delta(device, seed: int, r: int = 5120, e: int = 102400, a:
     backlog = int(dirty.view(p, rl, e).any(1).sum(-1).max())
     base_rounds = 2 * (p - 1) * (1 + -(-backlog // cap)) - 1
 
-    # The main path, counted: the fused ring must launch K3 (and K1 for
-    # the local folds). Raise the budget by the formula until it certifies.
-    attempts = []
-    for extra in range(3):
-        rounds = 2 * (p - 1) * (1 + -(-backlog // cap) + extra) - 1
-        stats = {}
-        wire_pack.launches = fold_entries.launches = 0
-        t0 = time.perf_counter()
-        fused = mesh_delta_gossip(state, dirty, fctx, mesh, rounds=rounds, cap=cap,
-                                  stats=stats)
-        sync()
-        cold_ms = (time.perf_counter() - t0) * 1e3  # the first ring: allocator growth in it
-        k3_launches, k1_launches = wire_pack.launches, fold_entries.launches
-        attempts.append({"rounds": rounds, "residue": int(fused[3]), "ring_ms_cold": cold_ms})
-        if int(fused[3]) == 0:
-            break
-    check(int(fused[3]) == 0, f"the fused ring did not certify after {attempts}")
+    # The main path, counted: the fused ring must launch K3 once per round
+    # (and K1 for the local folds).
+    fused, rounds, stats, attempts, (k3_launches, k1_launches) = certify_ring(
+        lambda rounds, stats: mesh_delta_gossip(state, dirty, fctx, mesh, rounds=rounds,
+                                                cap=cap, stats=stats),
+        backlog, p, cap, (wire_pack, fold_entries), sync)
     check(not bool(fused[2]), "the fused ring overflowed")
-    check(not on_card or (k3_launches > 0 and k1_launches > 0),
-          "the fused ring did not launch K3 and K1")
+    check(not on_card or (k3_launches == rounds and k1_launches > 0),
+          f"the fused ring launched K3 {k3_launches} times in {rounds} rounds and K1 "
+          f"{k1_launches} times")
 
     # The gate: layered ring (no K3) and mesh_fold (K1) on the same inputs.
     layered_stats = {}
@@ -1754,14 +1865,8 @@ def phase_full_width_delta(device, seed: int, r: int = 5120, e: int = 102400, a:
 
     # Ring wall time: the counted ring and the gate's layered ring were
     # each kind's untimed warm-up; now `ring_samples` of each, alternating.
-    ring_runs = {True: [], False: []}
-    for _ in range(ring_samples):
-        for kind in (True, False):
-            t0 = time.perf_counter()
-            res = mesh_delta_gossip(state, dirty, fctx, mesh, rounds=rounds, cap=cap, fused=kind)
-            sync()
-            ring_runs[kind].append((time.perf_counter() - t0) * 1e3)
-            check(int(res[3]) == 0, "a timed ring did not certify")
+    ring_runs = alternate_rings(lambda kind: mesh_delta_gossip(
+        state, dirty, fctx, mesh, rounds=rounds, cap=cap, fused=kind), ring_samples, sync)
     ring_ms, layered_ms = (statistics.median(ring_runs[k]) for k in (True, False))
 
     # K3 alone, on round 0's packet at the ring's shapes (8 links × cap
@@ -1775,43 +1880,8 @@ def phase_full_width_delta(device, seed: int, r: int = 5120, e: int = 102400, a:
     rtop = ppermute(ranks.top, [(i, (i - 1) % p) for i in range(p)])
     codec = wire_mod.WireCodec(_packet_template(ranks, cap, fctx.dtype), e,
                                wire_mod.know_dense, gated=True, acked=False)
-    args = codec.slot_inputs(pkt, rtop=rtop)
-    pargs = codec.parked_inputs(pkt, rtop=rtop)
-    k3_out = wire_pack(**args)
-    plain_out = wire_pack_plain(**args)
-    k3_err = wire_diff(k3_out, plain_out)
-    check(k3_err == 0, "K3 at the ring's shape disagrees with its plain version")
-    group = [args, pargs]
-    group_out = wire_pack_many(group)
-    group_err = max(wire_diff(x, wire_pack_plain(**a)) for x, a in zip(group_out, group))
-    check(group_err == 0, "K3's grouped round disagrees with its plain version")
-    # K3 per launch: CUDA events around a replayed graph of launches (the
-    # device's work alone), the kernel's own device time (profiler), and
-    # per call through the Python wrapper (events around back-to-back
-    # calls: the host's checks and allocation are in it).
-    times = [graph_ms(lambda: wire_pack(**args), device, per_sample) for _ in range(repeats)]
-    k3_ms = statistics.median(times)
-    dev_ms = kernel_device_ms(lambda: wire_pack(**args), device, "wire_kernel", per_sample)
-    call_ms = statistics.median(time_each(lambda: wire_pack(**args), device, per_sample)
-                                for _ in range(repeats))
-    group_times = [graph_ms(lambda: wire_pack_many(group), device, per_sample)
-                   for _ in range(repeats)]
-    plain_ms = statistics.median(time_ms(lambda: wire_pack_plain(**args), device)
-                                 for _ in range(3))
-    nbytes = k3_bytes(args, k3_out)
-    group_bytes = sum(k3_bytes(a, x) for a, x in zip(group, group_out))
-    lanes = args["clocks"].numel() + (args["know"].numel() if "know" in args else 0)
-    bound = {"bytes_ms": nbytes / PEAK_BYTES_PER_S * 1e3,
-             "ops_ms": 12 * lanes / PEAK_SCALAR_OPS_PER_S * 1e3}
-    k3_bound_ms = max(bound.values())
-    group_bound_ms = group_bytes / PEAK_BYTES_PER_S * 1e3
-    # What a wrapped call issues on the device: one kernel node per call in
-    # a captured graph, and no memset.
-    nodes = graph_nodes(lambda: wire_pack(**args), device, 10) if on_card else None
-    check(not on_card or nodes == {"kernel": 10},
-          f"10 wrapped K3 calls captured as {nodes}, not 10 kernel nodes")
-    check(not on_card or k3_launches == rounds,
-          f"the fused ring launched K3 {k3_launches} times in {rounds} rounds")
+    k3 = k3_at_ring_shape(codec.slot_inputs(pkt, rtop=rtop), codec.parked_inputs(pkt, rtop=rtop),
+                          device, repeats, per_sample)
     sweep = k3_sweep(device, seed, sweep_points, repeats=3, per_sample=20)
     busy = profile_busy(lambda: mesh_delta_gossip(state, dirty, fctx, mesh, rounds=rounds,
                                                   cap=cap), device, host_top=12)
@@ -1832,17 +1902,7 @@ def phase_full_width_delta(device, seed: int, r: int = 5120, e: int = 102400, a:
         "mesh_fold_ms": mesh_fold_ms,
         "local_fold_ms_k1_and_epilogue_all_ranks": lf_ms,
         "k3_launches_in_ring": k3_launches, "k1_launches_in_ring": k1_launches,
-        "k3_ms_median": k3_ms, "k3_ms_runs": times, "k3_launches_per_sample": per_sample,
-        "k3_ms_device_profiler": dev_ms, "k3_ms_per_call_incl_wrapper": call_ms,
-        "k3_bytes": nbytes, "k3_bound_ms": k3_bound_ms,
-        "k3_bound_by": "bytes" if bound["bytes_ms"] >= bound["ops_ms"] else "operations",
-        "k3_bound_share": k3_bound_ms / k3_ms,
-        "k3_bound_share_device_profiler": k3_bound_ms / dev_ms if dev_ms else None,
-        "k3_plain_ms": plain_ms, "k3_max_abs_err": max(k3_err, group_err),
-        "k3_group_ms_median": statistics.median(group_times), "k3_group_ms_runs": group_times,
-        "k3_group_bytes": group_bytes, "k3_group_bound_ms": group_bound_ms,
-        "k3_group_bound_share": group_bound_ms / statistics.median(group_times),
-        "k3_graph_nodes_per_10_calls": nodes, "k3_sweep": sweep,
+        **k3, "k3_sweep": sweep,
         "slots_shipped_per_link_round": stats["slots_shipped"] / links,
         "slots_deferred": stats["slots_deferred"], "parked_lost": stats["parked_lost"],
         "wire_bytes_per_link_round": stats["wire_bytes"],
@@ -1857,8 +1917,456 @@ def phase_full_width_delta(device, seed: int, r: int = 5120, e: int = 102400, a:
     return out
 
 
+# ---- phase 11 ------------------------------------------------------------
+
+def mint_map_tracked(rng, n, n_cmds=14, keys=MAP_KEYS):
+    """``n`` Map<K, MVReg> oracle sites, one actor each, minting puts (70%)
+    and keyset-removes with random per-origin PREFIX delivery, and each
+    site's applied-op log: the δ-map tests' workload
+    (tests/test_delta_map.py ``_site_run``)."""
+    from crdt_tpu_torch.pure import Map, MVReg
+
+    sites = [Map(MVReg) for _ in range(n)]
+    applied = [[] for _ in range(n)]
+    got = [[0] * n for _ in range(n)]
+    seq = [0] * n
+    for _ in range(n_cmds):
+        i = rng.randrange(n)
+        s, key = sites[i], rng.choice(keys)
+        if rng.random() < 0.7:
+            val = rng.randrange(40)
+            op = s.update(key, s.len().derive_add_ctx(f"s{i}"), lambda reg, c: reg.write(val, c))
+        else:
+            op = s.rm(key, s.get(key).derive_rm_ctx())
+        s.apply(op)
+        applied[i].append(op)
+        for j in range(n):
+            if j != i and got[j][i] == seq[i] and rng.random() < 0.5:
+                sites[j].apply(op)
+                applied[j].append(op)
+                got[j][i] += 1
+        seq[i] += 1
+    return sites, applied
+
+
+def map_op_tracking(model, applied, device):
+    """``(dirty, fctx)`` of a ``BatchedMap`` from per-replica op logs: a put
+    contributes its witness dot at its key, a keyset-remove its clock at
+    every key it names."""
+    import numpy as np
+
+    from crdt_tpu_torch.convert import tracking_from_numpy
+    from crdt_tpu_torch.pure.map import Up
+
+    r = model.n_replicas
+    k, a = model.state.dkeys.shape[-1], model.state.top.shape[-1]
+    dirty = np.zeros((r, k), bool)
+    fctx = np.zeros((r, k, a), np.uint32)
+    for i, ops_i in enumerate(applied):
+        for op in ops_i:
+            if isinstance(op, Up):
+                touched, dots = [op.key], {op.dot.actor: op.dot.counter}
+            else:
+                touched, dots = op.keyset, op.clock.dots
+            for key in touched:
+                kid = model.keys.id_of(key)
+                dirty[i, kid] = True
+                for actor, c in dots.items():
+                    aid = model.actors.id_of(actor)
+                    fctx[i, kid, aid] = max(fctx[i, kid, aid], c)
+    return tracking_from_numpy(dirty, fctx, device=device)
+
+
+def phase_map_delta_scenarios(device, seed: int, n_seeds: int = 3) -> dict:
+    import torch
+
+    from crdt_tpu_torch.models import BatchedMap
+    from crdt_tpu_torch.ops.wire_kernels import wire_pack
+    from crdt_tpu_torch.parallel import VirtualMesh, mesh_delta_gossip_map, mesh_fold_map
+    from crdt_tpu_torch.utils import Interner
+
+    mesh = VirtualMesh(4, device)
+    counts = {"rings": 0, "certified": 0, "matched_fold": 0, "k3_launches": 0}
+    launches0 = wire_pack.launches
+    for k in range(n_seeds):
+        sites, applied = mint_map_tracked(random.Random(seed + 110 + k), 6, n_cmds=18)
+        model = BatchedMap.from_pure(sites, keys=Interner(MAP_KEYS),
+                                     actors=Interner(f"s{i}" for i in range(6)),
+                                     values=Interner(range(40)), device=device)
+        dirty, fctx = map_op_tracking(model, applied, device)
+        folded, of_f = mesh_fold_map(model.state, mesh)
+        check(not bool(of_f.any()), "mesh_fold_map overflowed")
+        for cap in (16, 1):
+            for pipeline in (True, False):
+                outs = {}
+                for fused in (True, False):
+                    outs[fused] = mesh_delta_gossip_map(
+                        model.state, dirty, fctx, mesh, rounds=40 if cap == 1 else 8, cap=cap,
+                        pipeline=pipeline, fused=fused)
+                    counts["rings"] += 1
+                (fr, fd, fo, fres), (lr, ld, lo, lres) = outs[True], outs[False]
+                what = f"seed {k} cap {cap} pipeline {pipeline}"
+                check(same_leaves(fr, lr) and torch.equal(fd, ld) and torch.equal(fo, lo),
+                      f"fused map ring differs from the layered ring ({what})")
+                check(int(fres) == int(lres), f"fused and layered residue differ ({what})")
+                if int(fres) == 0:
+                    counts["certified"] += 1
+                    check(rows_equal_fold(fr, folded), f"certified map ring != mesh_fold_map "
+                                                       f"({what})")
+                    counts["matched_fold"] += 1
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    counts["k3_launches"] = wire_pack.launches - launches0
+    check(device.type != "cuda" or counts["k3_launches"] > 0, "no fused map ring launched K3")
+    check(counts["certified"] > 0, "no map scenario ring certified")
+    emit({"phase": "map_delta_scenarios", **counts})
+    return counts
+
+
+# ---- phase 12 ------------------------------------------------------------
+
+def fill_delta_config4(r, k, s, a, d, p, seed, device, chunk=8, n_ops=1024, n_cross=2,
+                       n_des=2, written=None):
+    """Replica states, dirty and fctx for the Map δ ring, on the device,
+    ``chunk`` replicas at a time. All replicas start from ONE synced state:
+    ``written`` keys (default K/20) of a random order hold content by
+    ``fill_config4``'s rule (slot 0 always written, later slots with
+    probability 1/2, the write clock holding its own lane only), with the
+    counters dense per actor: the write at (written key i, slot j) is
+    actor (i·S + j) % A's, counter (i·S + j) // A + 1; every write is
+    held, and the top is the largest counter on every lane (K·S/80 =
+    25,000 at config 4). Dense counters keep the tops inside the wire's
+    ±32 Ki window (a zero lane — a dead sibling slot, a removed key —
+    encodes against a top of at most 32,768 only), which bench.py's
+    counters (key·S + j + 1, tops 2,000,000) leave. After the sync each
+    actor mints a stream of L = ``n_ops`` ops (at most its share)
+    over distinct keys of its own 1% of the keys (all written), in a
+    random order: 2/3
+    puts of a fresh dot, whose write clock is the synced top with the
+    actor's lane at the new counter, so the put replaces the key's synced
+    siblings; and 1/3 keyset-removes, each under the clock of its key's
+    synced content. A replica holds a prefix of every stream — rank q's
+    replicas a prefix of at most H[q, a] ops, the whole stream at actor a's
+    home rank (a % P), and each rank's replica 0 exactly H. ``n_cross``
+    streams end in a put (actor b) and ``n_cross`` in a keyset-remove of
+    that key under the put's clock (actor b + A/2): ``n_des`` replicas per
+    rank hold the remove but not the put, so they park it ahead of their
+    top. Every touched key carries removal knowledge (the siblings a put
+    superseded, or the removed content), so it rides the ring to the end:
+    the A·L - n_cross touched keys must fit the cap for the ring to
+    certify (A·L = 4,096 = cap at config 4). ``(dirty, fctx)``
+    accumulate with ``interval_accumulate_map`` from the synced state over
+    two steps (the puts, then the removes), so no dot is born and removed
+    inside one interval. Returns ``(state, dirty, fctx, info)``."""
+    import torch
+
+    from crdt_tpu_torch._dtypes import bits, from_wide
+    from crdt_tpu_torch.ops import map as map_ops
+    from crdt_tpu_torch.ops.mvreg import MVRegState
+    from crdt_tpu_torch.parallel import interval_accumulate_map
+
+    gen = torch.Generator(device=device).manual_seed(seed + 12)
+    u32, i64 = torch.uint32, torch.int64
+    rl = r // p
+    share = max(1, k // 100)
+    n_ops = min(n_ops, share)
+    written = k // 20 if written is None else written
+    check(rl * p == r and a >= 2 * n_cross and d > n_cross and rl > n_des
+          and a * share <= written <= k and n_ops >= 4, "bad δ map shape")
+
+    def rand(shape):
+        return torch.rand(shape, generator=gen, device=device)
+
+    # The synced state: the first `written` keys of a random order, by
+    # fill_config4's rule with dense per-actor counters, every write held.
+    perm = torch.randperm(k, generator=gen, device=device)
+    slot = torch.arange(s, device=device)
+    q = torch.arange(written, device=device)[:, None] * s + slot
+    act0, ctr0 = q % a, q // a + 1
+    live0 = (slot == 0) | (rand((written, s)) < 0.5)
+    order = torch.argsort((~live0).long() * a + act0, dim=-1, stable=True)
+    live0, act0, ctr0 = (torch.gather(x, 1, order) for x in (live0, act0, ctr0))
+    clk0 = torch.zeros((written, s, a), dtype=i64, device=device)
+    clk0.scatter_(-1, act0[..., None], ctr0[..., None])
+    rows0 = (torch.where(live0, act0, 0).to(torch.int32), torch.where(live0, ctr0, 0),
+             torch.where(live0[..., None], clk0, 0),
+             torch.where(live0, (ctr0 - 1) % 5, 0).to(torch.int32), live0)
+    synced = MVRegState(*(x.new_zeros((k, *x.shape[1:])).index_copy_(0, perm[:written], x)
+                          for x in rows0))
+    top0 = torch.full((a,), (written * s - 1) // a + 1, dtype=i64, device=device)
+
+    # Post-sync streams: L ops per actor over distinct keys of its share.
+    # Positions 0 .. L-2 hold its regular ops in a random order; position
+    # L-1 a put, except at actors b + A/2 (b < n_cross), where it is the
+    # cross remove of the key that actor b's last put wrote.
+    own = perm[: a * share].reshape(a, share)
+    op_key = torch.stack([own[i, torch.randperm(share, generator=gen, device=device)[:n_ops]]
+                          for i in range(a)])
+    n_reg = n_ops - 1
+    pos = torch.stack([torch.randperm(n_reg, generator=gen, device=device) for _ in range(a)])
+    n_put = (2 * n_reg) // 3
+    cross_b = torch.arange(n_cross, device=device)
+    cross_a = cross_b + a // 2
+    last_put = torch.ones((a,), dtype=torch.bool, device=device)
+    last_put[cross_a] = False
+    is_put = torch.zeros((a, n_ops), dtype=torch.bool, device=device)
+    is_put.scatter_(1, pos[:, :n_put], True)
+    is_put[:, n_ops - 1] = last_put
+    cum = torch.cat([torch.zeros((a, 1), dtype=i64, device=device),
+                     torch.cumsum(is_put.long(), 1)], 1)  # puts before each position
+    acts = torch.arange(a, device=device)[:, None]
+    last_a = torch.arange(a, device=device)[last_put]  # cross_b first
+    put_m = torch.cat([op_key[:, :n_put].reshape(-1), op_key[last_a, n_ops - 1]])
+    put_a = torch.cat([acts.expand(a, n_put).reshape(-1), last_a])
+    put_j = torch.cat([pos[:, :n_put].reshape(-1), torch.full_like(last_a, n_ops - 1)])
+    put_c = top0[put_a] + 1 + cum[put_a, put_j]
+    put_clock = top0.expand(put_m.numel(), a).clone()
+    put_clock.scatter_(1, put_a[:, None], put_c[:, None])
+    n_puts = put_m.numel()
+    new = MVRegState(  # the key's row after a put: one live slot
+        wact=torch.nn.functional.pad(put_a[:, None], (0, s - 1)).to(torch.int32),
+        wctr=torch.nn.functional.pad(put_c[:, None], (0, s - 1)),
+        clk=torch.cat([put_clock[:, None], put_clock.new_zeros((n_puts, s - 1, a))], 1),
+        val=torch.nn.functional.pad((put_c % 5)[:, None], (0, s - 1)).to(torch.int32),
+        valid=torch.nn.functional.pad(torch.ones((n_puts, 1), dtype=torch.bool, device=device),
+                                      (0, s - 1)),
+    )
+    cross_m = op_key[cross_b, n_ops - 1]
+    rm_m = torch.cat([op_key[:, n_put:n_reg].reshape(-1), cross_m])
+    rm_a = torch.cat([acts.expand(a, n_reg - n_put).reshape(-1), cross_a])
+    rm_j = torch.cat([pos[:, n_put:].reshape(-1), torch.full_like(cross_a, n_ops - 1)])
+    rm_rc = synced.clk[rm_m].amax(1)
+    rm_rc[-n_cross:] = put_clock[a * n_put + cross_b]
+
+    # Prefixes: rank horizons, full at the home rank, replica 0 at the
+    # horizon, designated replicas holding the cross removes only.
+    ranks = torch.arange(p, device=device)[:, None]
+    horizon = (n_ops * (0.4 + 0.5 * rand((p, a)))).long()
+    horizon = torch.where(acts.T % p == ranks, n_ops, horizon)
+    hz = horizon.repeat_interleave(rl, 0)
+    prefix = torch.minimum((rand((r, a)) * (hz + 1)).long(), hz)
+    first = torch.arange(r, device=device) % rl
+    prefix = torch.where((first == 0)[:, None], hz, prefix)
+    des = (first >= 1) & (first <= n_des)
+    prefix[des[:, None] & (acts.T >= a // 2) & (acts.T < a // 2 + n_cross)] = n_ops
+    prefix = torch.where(des[:, None] & (acts.T < n_cross), torch.clamp_max(prefix, n_ops - 1),
+                         prefix)
+
+    state = map_ops.empty(k, a, s, d, batch=(r,), device=device)
+    dirty = torch.zeros((r, k), dtype=torch.bool, device=device)
+    fctx = torch.zeros((r, k, a), dtype=torch.int32, device=device).view(u32)
+    narrow = lambda c: MVRegState(c.wact, from_wide(c.wctr, u32), from_wide(c.clk, u32),  # noqa: E731
+                                  c.val, c.valid)
+    at = lambda c: state._replace(child=narrow(c))  # noqa: E731
+    for lo in range(0, r, chunk):
+        hi = min(r, lo + chunk)
+        pc = prefix[lo:hi]
+        top = top0 + torch.gather(cum, 1, pc.T).T
+        child = MVRegState(*(x.expand(hi - lo, *x.shape).clone() for x in synced))
+        held = pc[:, put_a] > put_j  # [c, puts]
+        for x, n in zip(child, new):
+            x[:, put_m] = torch.where(held.reshape(*held.shape, *([1] * (x.dim() - 2))), n,
+                                      x[:, put_m])
+        mid = MVRegState(*(x.clone() for x in child))
+        held = pc[:, rm_a] > rm_j  # [c, removes]
+        rows = MVRegState(*(x[:, rm_m] for x in child))
+        rc = rm_rc.expand(hi - lo, *rm_rc.shape)
+        covered = rows.wctr <= torch.gather(rc, 2, rows.wact.long())
+        rows = map_ops._canon_child(rows._replace(valid=rows.valid & ~(held[..., None] & covered)))
+        for x, y in zip(child, rows):
+            x[:, rm_m] = y
+        ahead = held[:, -n_cross:] & ~torch.all(rm_rc[-n_cross:] <= top[:, None, :], -1)
+        slot_of = torch.cumsum(ahead.long(), 1) - 1
+        dcl = torch.zeros((hi - lo, d, a), dtype=i64, device=device)
+        dkeys = torch.zeros((hi - lo, d, k), dtype=torch.bool, device=device)
+        ii, kk = torch.nonzero(ahead, as_tuple=True)
+        dcl[ii, slot_of[ii, kk]] = rm_rc[-n_cross:][kk]
+        dkeys[ii, slot_of[ii, kk], cross_m[kk]] = True
+        base = MVRegState(*(x.expand(hi - lo, *x.shape) for x in synced))
+        dd, ff = interval_accumulate_map(dirty[lo:hi], fctx[lo:hi], at(base), at(mid))
+        dd, ff = interval_accumulate_map(dd, ff, at(mid), at(child))
+        dirty[lo:hi], bits(fctx)[lo:hi] = dd, bits(ff)
+        for x, y in zip(state.child, narrow(child)):
+            bits(x)[lo:hi] = bits(y)
+        bits(state.top)[lo:hi] = bits(from_wide(top, u32))
+        bits(state.dcl)[lo:hi] = bits(from_wide(dcl, u32))
+        state.dkeys[lo:hi] = dkeys
+        state.dvalid[lo:hi] = torch.arange(d, device=device) < ahead.sum(1, keepdim=True)
+    info = {"written_keys": written, "synced_top": int(top0[0]),
+            "ops_per_actor": n_ops, "puts_per_actor": n_put, "cross_removes": n_cross,
+            "replicas_parking": int(state.dvalid.any(-1).sum()),
+            "dirty_keys_per_replica_mean": float(dirty.sum(-1).float().mean())}
+    return state, dirty, fctx, info
+
+
+def phase_full_width_delta_map(device, seed: int, r: int = 64, k: int = 1_000_000, s: int = 2,
+                               a: int = 4, d: int = 4, p: int = 8, cap: int = 4096,
+                               chunk: int = 8, repeats: int = 7, per_sample: int = 50,
+                               ring_samples: int = 5) -> dict:
+    import torch
+
+    from crdt_tpu_torch._dtypes import bits, umax
+    from crdt_tpu_torch.ops import map as map_ops
+    from crdt_tpu_torch.ops.fold_kernels import fold_cells
+    from crdt_tpu_torch.ops.wire_kernels import wire_pack
+    from crdt_tpu_torch.parallel import VirtualMesh, mesh_delta_gossip_map, mesh_fold_map
+    from crdt_tpu_torch.parallel import wire as wire_mod
+    from crdt_tpu_torch.parallel.anti_entropy import local_folds, rank_blocks
+    from crdt_tpu_torch.parallel.collectives import ppermute
+    from crdt_tpu_torch.parallel.delta_map import (
+        apply_delta_map, extract_delta_map, packet_template_map,
+    )
+
+    on_card = device.type == "cuda"
+    sync = (lambda: torch.cuda.synchronize(device)) if on_card else (lambda: None)
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    state, dirty, fctx, info = fill_delta_config4(r, k, s, a, d, p, seed, device, chunk)
+    sync()
+    setup_s = time.perf_counter() - t0
+    state_gb = sum(x.numel() * x.element_size() for x in (*state.child, state.top, state.dcl,
+                                                           state.dkeys, state.dvalid)) / 1e9
+    mesh = VirtualMesh(p, device)
+    rl = r // p
+    backlog = int(dirty.view(p, rl, k).any(1).sum(-1).max())
+    base_rounds = 2 * (p - 1) * (1 + -(-backlog // cap)) - 1
+
+    # The main path, counted: the fused Map ring must launch K2 once per
+    # rank (its local fold) and K3 once per round.
+    fused, rounds, stats, attempts, (k3_launches, k2_launches) = certify_ring(
+        lambda rounds, stats: mesh_delta_gossip_map(state, dirty, fctx, mesh, rounds=rounds,
+                                                    cap=cap, stats=stats),
+        backlog, p, cap, (wire_pack, fold_cells), sync)
+    check(not bool(fused[2].any()), "the fused map ring overflowed")
+    check(not on_card or (k3_launches == rounds and k2_launches == p),
+          f"the fused map ring launched K3 {k3_launches} times in {rounds} rounds and K2 "
+          f"{k2_launches} times on {p} ranks")
+
+    # The gate: the layered ring (no K3) and mesh_fold_map on the same inputs.
+    layered_stats = {}
+    layered = mesh_delta_gossip_map(state, dirty, fctx, mesh, rounds=rounds, cap=cap,
+                                    fused=False, stats=layered_stats)
+    check(same_leaves(fused[0], layered[0]) and torch.equal(fused[1], layered[1]),
+          "fused map ring differs from the layered ring")
+    check(int(layered[3]) == 0 and torch.equal(layered[2], fused[2]),
+          "layered map ring residue/overflow differ")
+    t0 = time.perf_counter()
+    folded, of_f = mesh_fold_map(state, mesh)
+    sync()
+    mesh_fold_ms = (time.perf_counter() - t0) * 1e3
+    check(not bool(of_f.any()), "mesh_fold_map overflowed")
+    check(rows_equal_fold(fused[0], folded), "certified map ring rows != mesh_fold_map")
+    converged = {"converged_keys": int(folded.child.valid.any(-1).sum()),
+                 "converged_parked": int(folded.dvalid.sum())}
+    del layered, folded
+
+    # Ring wall time: the counted ring and the gate's layered ring were each
+    # kind's untimed warm-up; now `ring_samples` of each, alternating.
+    ring_runs = alternate_rings(lambda kind: mesh_delta_gossip_map(
+        state, dirty, fctx, mesh, rounds=rounds, cap=cap, fused=kind), ring_samples, sync)
+    ring_ms, layered_ms = (statistics.median(ring_runs[x]) for x in (True, False))
+
+    # K3 at the Map layout, on round 0's packet (P links × cap slots × LC
+    # = S + S·A + A lanes against a per-slot base), CUDA events over a
+    # replayed graph; and its plain version on the same inputs.
+    blocks = rank_blocks(state, mesh)
+    lf_ms = time_ms(lambda: local_folds(blocks, map_ops.fold), device)
+    ranks, _ = local_folds(blocks, map_ops.fold)
+    d0 = dirty.view(p, rl, k).any(1)
+    f0 = torch.stack([bits(umax(fctx.view(p, rl, k, a)[q], 0)) for q in range(p)]).view(
+        fctx.dtype)
+    pkt, _, _ = extract_delta_map(ranks, d0, f0, cap, start=0)
+    rtop = ppermute(ranks.top, [(i, (i - 1) % p) for i in range(p)])
+    codec = wire_mod.WireCodec(packet_template_map(ranks, cap, fctx.dtype), k,
+                               wire_mod.know_map, gated=True, acked=False)
+    args = codec.slot_inputs(pkt, rtop=rtop)
+    pargs = codec.parked_inputs(pkt, rtop=rtop)
+    check(args["clocks"].shape[-1] == s + s * a + a and args["base"].is_contiguous(),
+          "the Map slot instance is not LC = S + S·A + A against a per-slot base")
+
+    def one_round():
+        """A fused round as the ring runs it: extract, K3 pack, ship,
+        unpack, apply."""
+        pk, dd, ff = extract_delta_map(ranks, d0, f0, cap, start=0)
+        wired, aux = codec.pack(pk, rtop=rtop)
+        dd = wire_mod.remark_deferred(dd, wire_mod.core_idx(pk), aux.defer)
+        got = codec.unpack(ppermute(wired, [(i, (i + 1) % p) for i in range(p)]),
+                           own_top=ranks.top)
+        return apply_delta_map(ranks, got, dd, ff)
+
+    # No operation of a Map round waits for the device (a CUDA graph of
+    # the round could capture it): torch raises on any synchronising call.
+    one_round()
+    if on_card:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        one_round()
+    finally:
+        if on_card:
+            torch.cuda.set_sync_debug_mode("default")
+    sync()
+    k3 = k3_at_ring_shape(args, pargs, device, repeats, per_sample)
+    busy = profile_busy(lambda: mesh_delta_gossip_map(state, dirty, fctx, mesh, rounds=rounds,
+                                                      cap=cap), device, host_top=12)
+    busy_layered = profile_busy(lambda: mesh_delta_gossip_map(
+        state, dirty, fctx, mesh, rounds=rounds, cap=cap, fused=False), device, host_top=12)
+    links = stats["rounds"] * stats["links"]
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9 if on_card else None
+    residue = int(fused[3])
+
+    # The same traffic with every key written (bench.py's key count; tops
+    # K·S/A): a row with a zero lane — a dead sibling slot, a removed key —
+    # leaves the wire's ±32 Ki window of the receiver's top and defers, so
+    # the fused ring starves where the layered one certifies.
+    del state, dirty, fctx, fused, blocks, ranks, pkt, args, pargs
+    if on_card:
+        torch.cuda.empty_cache()
+    st_all, d_all, f_all, info_all = fill_delta_config4(r, k, s, a, d, p, seed, device, chunk,
+                                                        written=k)
+    all_stats = {}
+    all_fused = mesh_delta_gossip_map(st_all, d_all, f_all, mesh, rounds=rounds, cap=cap,
+                                      stats=all_stats)
+    all_layered = mesh_delta_gossip_map(st_all, d_all, f_all, mesh, rounds=rounds, cap=cap,
+                                        fused=False)
+    all_written = {"synced_top": info_all["synced_top"], "rounds": rounds,
+                   "fused_residue": int(all_fused[3]), "layered_residue": int(all_layered[3]),
+                   "fused_slots_deferred": all_stats["slots_deferred"]}
+    del st_all, d_all, f_all, all_fused, all_layered
+    out = {
+        "phase": "full_width_delta_map",
+        "R": r, "K": k, "S": s, "A": a, "D": d, "P": p, "cap": cap,
+        "reduced": {"written_keys": [k, info["written_keys"],
+                                     "the synced store's counters stay inside the wire's "
+                                     "±32 Ki window (see every_key_written)"]},
+        "setup_s": setup_s, "state_gb": state_gb, **info,
+        "backlog_max_per_rank": backlog, "rounds_formula": base_rounds, "attempts": attempts,
+        "rounds": rounds, "residue": residue,
+        "ring_ms_fused": ring_ms, "ring_ms_layered": layered_ms,
+        "ring_ms_fused_runs": ring_runs[True], "ring_ms_layered_runs": ring_runs[False],
+        "mesh_fold_map_ms": mesh_fold_ms,
+        "local_fold_ms_k2_and_epilogue_all_ranks": lf_ms,
+        "k3_launches_in_ring": k3_launches, "k2_launches_in_ring": k2_launches, **k3,
+        "round_syncs_with_host": False if on_card else None,
+        "slots_shipped_per_link_round": stats["slots_shipped"] / links,
+        "slots_deferred": stats["slots_deferred"], "parked_lost": stats["parked_lost"],
+        "wire_bytes_per_link_round": stats["wire_bytes"],
+        "layered_packet_bytes_per_link_round": stats["packet_bytes"],
+        "layered_slots_shipped_per_link_round": layered_stats["slots_shipped"] / links,
+        "ring_profile": busy, "layered_ring_profile": busy_layered,
+        "launch_kernel_calls_per_round_fused":
+            busy["launch_kernel_calls"] / rounds if busy else None,
+        "launch_kernel_calls_per_round_layered":
+            busy_layered["launch_kernel_calls"] / rounds if busy_layered else None,
+        **converged, "every_key_written": all_written, "peak_mem_gb": peak_gb,
+    }
+    emit(out)
+    return out
+
+
 PHASES = ("k1", "scenarios", "full_width", "k2", "map_scenarios", "full_width_map", "k3",
-          "delta_scenarios", "full_width_delta")
+          "delta_scenarios", "full_width_delta", "map_delta_scenarios", "full_width_delta_map")
 
 
 def main(argv=None) -> int:
@@ -1908,6 +2416,10 @@ def main(argv=None) -> int:
         phase_delta_scenarios(device, args.seed)
     if run("full_width_delta"):
         res["delta"] = phase_full_width_delta(device, args.seed)
+    if run("map_delta_scenarios"):
+        phase_map_delta_scenarios(device, args.seed)
+    if run("full_width_delta_map"):
+        res["delta_map"] = phase_full_width_delta_map(device, args.seed)
     if only:
         print(f"chip_smoke: partial run of {only}; no kernels line", flush=True)
         return 0
@@ -1935,7 +2447,8 @@ def main(argv=None) -> int:
     }, {
         **K3,
         "launches": delta["k3_launches_in_ring"],
-        "max_abs_err": max(res["k3"], delta["k3_max_abs_err"]),
+        "max_abs_err": max(res["k3"], delta["k3_max_abs_err"],
+                           res["delta_map"]["k3_max_abs_err"]),
         "ms": delta["k3_ms_median"],
         "plain_ms": delta["k3_plain_ms"],
         "bound_ms": delta["k3_bound_ms"],

@@ -84,8 +84,10 @@
 //    atomic returned: it stores the stat with a plain store and sets the
 //    counter back to 0. No fence, no second pass over partials: one
 //    atomic per block and stat. The counters live in a scratch buffer that
-//    the wrapper allocates and zeroes ONCE per (device, stream); every
-//    launch leaves them at 0, and launches on one stream never overlap.
+//    is zeroed ONCE and that no two launches in flight together share:
+//    an eager launch takes the scratch of its (device, stream), a launch
+//    captured into a CUDA graph the scratch of its capture
+//    (`crdt_wire_graph_scratch`), and every launch leaves it at 0.
 //    Per-block partials summed by the batch's last block would need a fence
 //    and a ticket before a second pass: a longer tail. A cluster reduction
 //    through distributed shared memory was not taken: at B = 1 it caps a
@@ -100,6 +102,10 @@
 #include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <map>
+#include <mutex>
+#include <utility>
+#include <vector>
 
 namespace {
 
@@ -508,4 +514,116 @@ extern "C" int crdt_wire_pack_many(int clock_bytes, int count, const long long* 
   auto* sc = static_cast<uint32_t*>(scratch);
   if (clock_bytes == 4) return launch<uint32_t>(grp, count, desc, sc, scratch_words, s);
   return launch<uint64_t>(grp, count, desc, sc, scratch_words, s);
+}
+
+// ---- the stats scratch of a captured launch --------------------------------
+//
+// A graph's replays are ordered behind one another, but two graphs may be
+// replayed on two streams at once, and a graph may run beside eager
+// launches. So a launch captured into a graph must not count in the scratch
+// of its capture stream: it gets a scratch that belongs to its capture. The
+// scratch is allocated and zeroed outside the graph (no node joins it), and
+// a CUDA user object hands it back to a free list when the graph and its
+// executable graphs are destroyed, after their last launch. Every launch
+// leaves the counters at 0, but a scratch taken from the free list is
+// zeroed again all the same.
+
+namespace {
+
+struct GraphScratch {
+  void* ptr;
+  long long bytes;
+  unsigned long long capture;
+  void* stream;
+};
+
+std::mutex g_mu;
+std::map<std::pair<unsigned long long, void*>, GraphScratch*> g_live;  // by (capture, stream)
+std::vector<std::pair<void*, long long>> g_free;  // scratch of destroyed graphs
+
+// Runs on a CUDA thread when the last graph holding the scratch is gone:
+// no CUDA call may be made here.
+void CUDART_CB release_scratch(void* data) {
+  auto* gs = static_cast<GraphScratch*>(data);
+  std::lock_guard<std::mutex> lock(g_mu);
+  g_live.erase({gs->capture, gs->stream});
+  g_free.emplace_back(gs->ptr, gs->bytes);
+  delete gs;
+}
+
+// Zeroes `bytes` at `p` and waits, on a stream of its own that no capture
+// holds.
+cudaError_t zero_outside(void* p, long long bytes) {
+  cudaStream_t side = nullptr;
+  cudaError_t e = cudaStreamCreateWithFlags(&side, cudaStreamNonBlocking);
+  if (e != cudaSuccess) return e;
+  e = cudaMemsetAsync(p, 0, (size_t)bytes, side);
+  const cudaError_t w = cudaStreamSynchronize(side);
+  cudaStreamDestroy(side);
+  return e != cudaSuccess ? e : w;
+}
+
+}  // namespace
+
+// The stats scratch (`bytes`, zeroed) of K3 launches on `stream` while
+// `stream` is capturing a CUDA graph: one per (capture, stream), owned by
+// the graph being captured. Sets `*out` to null when `stream` is not
+// capturing. Returns a cudaError_t (0 = cudaSuccess).
+extern "C" int crdt_wire_graph_scratch(void* stream, long long bytes, void** out) {
+  if (out == nullptr || bytes <= 0) return (int)cudaErrorInvalidValue;
+  *out = nullptr;
+  const auto s = static_cast<cudaStream_t>(stream);
+  cudaStreamCaptureStatus status = cudaStreamCaptureStatusNone;
+  unsigned long long capture = 0;
+  cudaGraph_t graph = nullptr;
+  cudaError_t e = cudaStreamGetCaptureInfo(s, &status, &capture, &graph);
+  if (e != cudaSuccess) return (int)e;
+  if (status != cudaStreamCaptureStatusActive) return 0;
+  void* p = nullptr;
+  {
+    std::lock_guard<std::mutex> lock(g_mu);
+    const auto it = g_live.find({capture, stream});
+    if (it != g_live.end() && it->second->bytes >= bytes) {
+      *out = it->second->ptr;
+      return 0;
+    }
+    if (it != g_live.end()) return (int)cudaErrorInvalidValue;
+    for (size_t i = 0; i < g_free.size(); ++i) {
+      if (g_free[i].second == bytes) {
+        p = g_free[i].first;
+        g_free.erase(g_free.begin() + (long)i);
+        break;
+      }
+    }
+  }
+  // The capture forbids allocating and waiting on this thread unless its
+  // mode is relaxed; the work goes to memory and a stream the capture does
+  // not hold, so it records nothing into the graph.
+  cudaStreamCaptureMode mode = cudaStreamCaptureModeRelaxed;
+  e = cudaThreadExchangeStreamCaptureMode(&mode);
+  if (e != cudaSuccess) return (int)e;
+  if (p == nullptr) e = cudaMalloc(&p, (size_t)bytes);
+  if (e == cudaSuccess) e = zero_outside(p, bytes);
+  cudaThreadExchangeStreamCaptureMode(&mode);
+  if (e != cudaSuccess) return (int)e;
+  auto* gs = new GraphScratch{p, bytes, capture, stream};
+  cudaUserObject_t obj = nullptr;
+  e = cudaUserObjectCreate(&obj, gs, release_scratch, 1, cudaUserObjectNoDestructorSync);
+  if (e != cudaSuccess) {
+    delete gs;
+    std::lock_guard<std::mutex> lock(g_mu);
+    g_free.emplace_back(p, bytes);
+    return (int)e;
+  }
+  {
+    std::lock_guard<std::mutex> lock(g_mu);
+    g_live[{capture, stream}] = gs;
+  }
+  e = cudaGraphRetainUserObject(graph, obj, 1, cudaGraphUserObjectMove);
+  if (e != cudaSuccess) {
+    cudaUserObjectRelease(obj, 1);  // the destructor returns the scratch
+    return (int)e;
+  }
+  *out = p;
+  return 0;
 }

@@ -228,6 +228,27 @@ def _dedupe_deferred(dcl, dmask, dvalid):
     return dcl, merged.reshape(dmask.shape), keep.reshape(dvalid.shape)
 
 
+def _dedupe_deferred_fixed(dcl, dmask, dvalid):
+    """:func:`_dedupe_deferred` in fixed shapes, with no sync with the
+    host, for a few slots per batch lane (a δ apply's 2·D): the JAX
+    package's ``[..., N, N]`` equal-clock matrix picks each valid slot's
+    group head (the first valid slot with an equal clock), and the member
+    masks are OR-ed into the heads with a loop over the N slots, not a
+    float matmul. Same first-of-group rule, same bits."""
+    n = dvalid.shape[-1]
+    c = bits(dcl)
+    eq = (dvalid[..., :, None] & dvalid[..., None, :]
+          & torch.all(c[..., :, None, :] == c[..., None, :, :], dim=-1))
+    rep = torch.argmax(eq.to(torch.uint8), dim=-2)  # the head of each slot's group
+    heads = torch.arange(n, device=dvalid.device)
+    keep = dvalid & (rep == heads)
+    merged = torch.zeros_like(dmask)
+    for i in range(n):
+        to_head = (rep[..., i, None] == heads) & dvalid[..., i, None]  # [..., N]
+        merged = merged | (to_head[..., :, None] & dmask[..., i, None, :])
+    return dcl, merged & keep[..., None], keep
+
+
 def _compact_deferred(dcl, dmask, dvalid, cap: int):
     """Stable-sort valid slots to the front and truncate (or pad) to
     ``cap`` slots. Returns the compacted buffer plus an overflow flag."""

@@ -194,9 +194,8 @@ def _check_call(spec, clocks, base, valid, know, dig, winc, ack_ok) -> None:
 
 
 # Instances one launch packs (csrc/wire.cu ``kMaxInst``), rows per batch
-# (``kMaxRows``), batches per launch (``kMaxBatches``), and the
-# per-(device, stream) scratch in int32 words: two uint64 counters per
-# batch.
+# (``kMaxRows``), batches per launch (``kMaxBatches``), and the stats
+# scratch in int32 words: two uint64 counters per batch.
 MAX_GROUP = 4
 MAX_ROWS = 1 << 28
 MAX_BATCHES = 65536
@@ -205,18 +204,36 @@ _scratch: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def _scratch_buffer(dev: torch.device, stream: int) -> torch.Tensor:
-    """K3's scratch on (``dev``, ``stream``): the per-batch counters of
-    ``nnz``/``chk``, zeroed once here and left at 0 by every launch.
-    Launches on one stream never overlap and two streams never share a
-    buffer, so no two launches in flight do. A
-    graph that captures K3 holds the capture stream's buffer: make one
-    call on that stream before capturing, so that the zeroing is not
-    captured with it."""
+    """The stats scratch of EAGER K3 launches on (``dev``, ``stream``):
+    the per-batch counters of ``nnz``/``chk``, zeroed once here and left
+    at 0 by every launch. The rule the scratch keeps is that no two
+    launches that can be in flight together share counters. Eager launches
+    on one stream run one after another, so they share that stream's
+    buffer, and launches on two streams take two buffers. A launch
+    captured into a CUDA graph does not come here: it takes the scratch
+    of its capture (:func:`_scratch_ptr`), since a graph is replayed on
+    whatever stream its caller names, beside other graphs captured on the
+    same stream, while its own replays run one after another."""
     key = (dev.index, stream)
     t = _scratch.get(key)
     if t is None:
         t = _scratch[key] = torch.zeros(_SCRATCH, dtype=torch.int32, device=dev)
     return t
+
+
+def _scratch_ptr(lib: ctypes.CDLL, dev: torch.device, stream: int) -> int:
+    """The address of the stats scratch of a launch on ``stream`` now: the
+    stream's own buffer (:func:`_scratch_buffer`), or, while the stream
+    captures a graph, a buffer that belongs to that capture — allocated
+    and zeroed outside the graph, so the graph gains no node, and freed
+    with the graph (``csrc/wire.cu`` ``crdt_wire_graph_scratch``)."""
+    if not torch.cuda.is_current_stream_capturing():
+        return _scratch_buffer(dev, stream).data_ptr()
+    out = ctypes.c_void_p()
+    err = lib.crdt_wire_graph_scratch(stream, 4 * _SCRATCH, ctypes.byref(out))
+    if err != 0 or not out.value:
+        raise RuntimeError(f"wire_pack: no scratch for the captured launch (cudaError {err})")
+    return out.value
 
 
 def _launch(calls) -> List[WirePackOut]:
@@ -268,9 +285,9 @@ def _launch(calls) -> List[WirePackOut]:
     ctx = torch.cuda.device(dev) if dev.index != torch.cuda.current_device() else nullcontext()
     with ctx:
         stream = torch.cuda.current_stream().cuda_stream
-        scratch = _scratch_buffer(dev, stream)
+        scratch = _scratch_ptr(lib, dev, stream)
         err = lib.crdt_wire_pack_many(dt.itemsize, len(calls), (ctypes.c_longlong * len(desc))(
-            *desc), scratch.data_ptr(), _SCRATCH, stream)
+            *desc), scratch, _SCRATCH, stream)
     if err != 0:
         raise RuntimeError(f"wire_pack: kernel launch failed (cudaError {err})")
     outs = []
@@ -359,6 +376,8 @@ def _kernel() -> ctypes.CDLL:
         lib.crdt_wire_pack_many.argtypes = [ctypes.c_int, ctypes.c_int, p, p,
                                             ctypes.c_longlong, p]
         lib.crdt_wire_pack_many.restype = ctypes.c_int
+        lib.crdt_wire_graph_scratch.argtypes = [p, ctypes.c_longlong, ctypes.POINTER(p)]
+        lib.crdt_wire_graph_scratch.restype = ctypes.c_int
     return lib
 
 

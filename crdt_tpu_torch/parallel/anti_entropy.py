@@ -1,15 +1,16 @@
-"""Full-state anti-entropy over the virtual rank axis — the dense ORSWOT
-entries ``mesh_fold`` and ``mesh_gossip`` of the JAX package's
+"""Full-state anti-entropy over the virtual rank axis — the entries
+``mesh_fold`` and ``mesh_gossip`` (dense ORSWOT) and ``mesh_fold_map``
+and ``mesh_gossip_map`` (Map<K, MVReg>) of the JAX package's
 ``parallel/anti_entropy.py``.
 
 Each rank folds its own replica block first (``fold_auto``: kernel K1
-plus the epilogue on a card, the plain tree fold on the CPU); then one
-lattice all-reduce (``mesh_fold``) or ``rounds`` ring rounds
-(``mesh_gossip``) join the ranks. K1 has no rank axis, so the local fold
-is one launch per rank, each streaming that rank's contiguous replica
-block. The JAX entries' ``telemetry=``, ``donate=``, ``stability=``,
-``faults=`` and ``lag_threshold=`` modes are still to port (ROADMAP
-item 15) and raise.
+plus the epilogue on a card; ``ops.map.fold``: kernel K2 plus its
+epilogue; the plain tree folds on the CPU); then one lattice all-reduce
+(``mesh_fold*``) or ``rounds`` ring rounds (``mesh_gossip*``) join the
+ranks. K1 and K2 have no rank axis, so the local fold is one launch per
+rank, each streaming that rank's contiguous replica block. The JAX
+entries' ``telemetry=``, ``donate=``, ``stability=``, ``faults=`` and
+``lag_threshold=`` modes are still to port (ROADMAP item 15) and raise.
 """
 
 from __future__ import annotations
@@ -19,12 +20,14 @@ from typing import Optional, Tuple
 import torch
 
 from .._dtypes import bits
+from ..ops import map as map_ops
 from ..ops import orswot as ops
 from ..ops.fold_kernels import fold_auto
 from ..ops.lattice import tree_map
+from ..ops.map import MapState
 from ..ops.orswot import OrswotState
-from .collectives import all_reduce_join, ring_round
-from .mesh import VirtualMesh, pad_replicas
+from .collectives import all_reduce_join, all_reduce_lattice, ring_round
+from .mesh import VirtualMesh, pad_replicas, pad_replicas_map
 
 
 def _refuse(**modes) -> None:
@@ -36,10 +39,12 @@ def _refuse(**modes) -> None:
         )
 
 
-def rank_blocks(state: OrswotState, mesh: VirtualMesh) -> OrswotState:
-    """``state [R, ...]`` on the mesh's device, padded with identities to
-    a multiple of P and viewed as ``[P, R/P, ...]`` rank blocks."""
-    state = pad_replicas(tree_map(lambda x: x.to(mesh.device), state), mesh.p)
+def rank_blocks(state, mesh: VirtualMesh):
+    """``state [R, ...]`` (an ``OrswotState`` or a ``MapState``) on the
+    mesh's device, padded with identities of its kind to a multiple of P
+    and viewed as ``[P, R/P, ...]`` rank blocks."""
+    pad = pad_replicas_map if isinstance(state, MapState) else pad_replicas
+    state = pad(tree_map(lambda x: x.to(mesh.device), state), mesh.p)
     return tree_map(lambda x: x.reshape(mesh.p, -1, *x.shape[1:]), state)
 
 
@@ -58,7 +63,8 @@ def local_folds(blocks: OrswotState, fold_fn) -> Tuple[OrswotState, torch.Tensor
     p = blocks.top.shape[0]
     outs = [fold_fn(tree_map(lambda x: x[q], blocks)) for q in range(p)]
     folded = stack([s for s, _ in outs], outs[0][0])
-    return folded, torch.stack([torch.as_tensor(of).reshape(()) for _, of in outs])
+    flags = [torch.as_tensor(of) for _, of in outs]
+    return folded, torch.stack([of.reshape(()) if of.numel() == 1 else of for of in flags])
 
 
 def _fold_fn(prefer: str):
@@ -107,4 +113,44 @@ def mesh_gossip(
     return folded, torch.any(of)
 
 
-__all__ = ["local_folds", "mesh_fold", "mesh_gossip", "rank_blocks"]
+def mesh_fold_map(
+    state: MapState, mesh: VirtualMesh, telemetry: bool = False, donate: bool = False,
+) -> Tuple[MapState, torch.Tensor]:
+    """Full-mesh anti-entropy for Map<K, MVReg> (BASELINE config 4): each
+    rank folds its block (``ops.map.fold``: K2 and its epilogue on a
+    card), then one lattice-join all-reduce over the ranks, on
+    ``mesh.device``. Returns ``(converged state, overflow [2])`` —
+    [sibling slab, deferred buffer] as in ``ops.map.join``."""
+    _refuse(telemetry=telemetry, donate=donate)
+    folded, of_local = local_folds(rank_blocks(state, mesh), map_ops.fold)
+    joined, of_cross = all_reduce_lattice(folded, map_ops.join, map_ops.fold)
+    return tree_map(lambda x: x[0], joined), torch.any(of_local, dim=0) | of_cross
+
+
+def mesh_gossip_map(
+    state: MapState,
+    mesh: VirtualMesh,
+    rounds: Optional[int] = None,
+    telemetry: bool = False,
+    donate: bool = False,
+    stability: bool = False,
+    faults=None,
+    lag_threshold=None,
+) -> Tuple[MapState, torch.Tensor]:
+    """Ring anti-entropy for Map<K, MVReg>: each rank folds its block,
+    then ``rounds`` (default P-1) unit-shift ring rounds, each shipping
+    one state per link. Returns ``(states [P, ...], overflow [2])``; with
+    P-1 rounds every row is the full join."""
+    _refuse(telemetry=telemetry, donate=donate, stability=stability,
+            faults=faults is not None, lag_threshold=lag_threshold is not None)
+    if rounds is None:
+        rounds = mesh.p - 1
+    folded, of = local_folds(rank_blocks(state, mesh), map_ops.fold)
+    for _ in range(rounds):
+        folded, of_r = ring_round(folded, reduce_overflow=False, join_fn=map_ops.join)
+        of = of | of_r
+    return folded, torch.any(of, dim=0)
+
+
+__all__ = ["local_folds", "mesh_fold", "mesh_fold_map", "mesh_gossip", "mesh_gossip_map",
+           "rank_blocks"]

@@ -76,7 +76,8 @@ def all_reduce_lattice(
 ) -> Tuple[Any, torch.Tensor]:
     """All-reduce with a lattice-join monoid over the rank axis of
     ``local`` (``[P, ...]`` leaves). Returns every rank's global join
-    (``[P, ...]``) and the overflow flag OR-reduced over the ranks."""
+    (``[P, ...]``) and the overflow flags OR-reduced over the ranks (one
+    per flag of ``join_fn``: a scalar for ORSWOT, ``[2]`` for the Map)."""
     size = _size(local)
     overflow = torch.zeros((), dtype=torch.bool, device=_leaf(local).device)
     if size & (size - 1) == 0 and size > 1:
@@ -84,13 +85,13 @@ def all_reduce_lattice(
         while k < size:
             other = ppermute(local, [(i, i ^ k) for i in range(size)])
             local, of = join_fn(local, other)
-            overflow = overflow | torch.any(of)
+            overflow = overflow | torch.any(of, dim=0)
             k *= 2
     elif size > 1:
         folded, overflow = fold_fn(local)
         local = tree_map(lambda x: bits(x).expand(size, *x.shape).contiguous().view(x.dtype),
                          folded)
-        overflow = torch.any(overflow)
+        overflow = torch.as_tensor(overflow, device=_leaf(local).device).to(torch.bool)
     return local, overflow
 
 

@@ -70,6 +70,15 @@ def put_rows(x: torch.Tensor, idx: torch.Tensor, v: torch.Tensor) -> torch.Tenso
     return torch.scatter(bits(x), idx.dim() - 1, _index(x, idx), bits(v)).view(x.dtype)
 
 
+def mask_slots(keep: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``x [.., C, ...]`` with the slots ``keep [.., C]`` leaves out zeroed
+    (any lane dtype, bool included)."""
+    sel = keep.reshape(*keep.shape, *([1] * (x.dim() - keep.dim())))
+    if x.dtype == torch.bool:
+        return x & sel
+    return torch.where(sel, bits(x), 0).view(x.dtype)
+
+
 def interval_accumulate(
     dirty: torch.Tensor, fctx: torch.Tensor, old: OrswotState, new: OrswotState
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -176,8 +185,8 @@ def gate_delta(pkt: DeltaPacket, digest: torch.Tensor) -> DeltaPacket:
         rows <= to_wide(digest)[..., None, :], dim=-1
     )
     keep = pkt.valid & ~covered
-    zero = lambda x: torch.where(keep[..., None], bits(x), 0).view(x.dtype)  # noqa: E731
-    return pkt._replace(valid=keep, rows=zero(pkt.rows), ctxs=zero(pkt.ctxs))
+    return pkt._replace(valid=keep, rows=mask_slots(keep, pkt.rows),
+                        ctxs=mask_slots(keep, pkt.ctxs))
 
 
 def close_top_orswot(folded: OrswotState, top: torch.Tensor) -> OrswotState:
@@ -256,5 +265,6 @@ def mesh_delta_gossip(
 
 __all__ = [
     "DeltaPacket", "apply_delta", "close_top_orswot", "dirty_between", "extract_delta",
-    "gate_delta", "interval_accumulate", "mesh_delta_gossip", "put_rows", "take_rows",
+    "gate_delta", "interval_accumulate", "mask_slots", "mesh_delta_gossip", "put_rows",
+    "take_rows",
 ]

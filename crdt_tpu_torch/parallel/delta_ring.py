@@ -24,7 +24,9 @@ Modes ported (the JAX module docstring gives their soundness):
   dirty before the backlog count, unencodable parked removes count as
   wire loss (residue forced >= 1, mesh top not adopted). ``fused=False``
   is the layered path, the port's in-package oracle. A fused ring of a
-  kind without a registered codec raises.
+  kind without a registered codec raises. The codec's plan comes from the
+  flavor's packet template (``template=``: meta tensors of one link's
+  packet, where the JAX ring takes ``jax.eval_shape`` of the extract).
 
 The residue certificate, the overflow OR, the narrow-lost parked count and
 the guarded top adoption follow the JAX ring exactly. ``telemetry=``,
@@ -47,8 +49,9 @@ from .mesh import VirtualMesh
 
 
 def _packet_template(folded, cap: int, fctx_dtype: torch.dtype) -> DeltaPacket:
-    """One link's ``DeltaPacket`` shapes (meta tensors) — the codec's
-    plan input, where the JAX ring uses ``jax.eval_shape`` of extract."""
+    """One link's dense ``DeltaPacket`` shapes (meta tensors) — the
+    codec's plan input, where the JAX ring uses ``jax.eval_shape`` of
+    extract."""
     e, a = folded.ctr.shape[-2:]
     d = folded.dcl.shape[-2]
     c = min(cap, e)
@@ -90,6 +93,7 @@ def run_delta_ring(
     wal=None,
     fused: bool = True,
     stats: Optional[dict] = None,
+    template: Callable = _packet_template,  # (folded [P, ...], cap, fctx dtype) -> packet
 ):
     """Run the δ ring; returns ``(states [P, ...], dirty [P, E], overflow,
     residue)``. ``residue`` is the mesh-wide count of slot-starved
@@ -147,7 +151,7 @@ def run_delta_ring(
               "deferred": torch.zeros((), dtype=torch.int64, device=mesh.device)}
     if fused:
         codec = _wire.WireCodec(
-            _packet_template(folded, cap, fctx.dtype), d.shape[-1],
+            template(folded, cap, fctx.dtype), d.shape[-1],
             _wire.WIRE_SURFACES[kind], gated=gated, acked=False,
         )
 
@@ -222,7 +226,7 @@ def run_delta_ring(
     else:
         top = top_all.contiguous()
     folded = close_top(folded, top)
-    overflow = torch.any(of)
+    overflow = torch.any(of, dim=0)
     residue = psum(starved)
     if fused:
         residue = torch.maximum(residue, (nlost_tot > 0).to(residue.dtype))

@@ -16,6 +16,9 @@ from __future__ import annotations
 import torch
 
 from .._dtypes import bits
+from ..ops import map as map_ops
+from ..ops.lattice import tree_map
+from ..ops.map import MapState
 from ..ops.orswot import OrswotState, empty
 
 
@@ -58,4 +61,36 @@ def pad_elements(state: OrswotState, multiple: int) -> OrswotState:
     )
 
 
-__all__ = ["VirtualMesh", "pad_elements", "pad_replicas"]
+def pad_replicas_map(state: MapState, multiple: int) -> MapState:
+    """Pad a Map batch's replica axis with join identities (see
+    :func:`pad_replicas`)."""
+    pad = (-state.top.shape[0]) % multiple
+    if pad == 0:
+        return state
+    ident = map_ops.empty(
+        state.dkeys.shape[-1], state.top.shape[-1], state.child.wact.shape[-1],
+        state.dcl.shape[-2], batch=(pad,), device=state.top.device,
+    )
+    return tree_map(lambda x, p: torch.cat([bits(x), bits(p).to(bits(x).dtype)]).view(x.dtype),
+                    state, ident)
+
+
+def pad_keys(state: MapState, multiple: int) -> MapState:
+    """Pad a Map batch's key axis with never-written slots so it divides
+    the mesh's element axis (1 on a virtual mesh: a no-op there); padded
+    keys hold no dots, so the join never surfaces them."""
+    pad = (-state.dkeys.shape[-1]) % multiple
+    if pad == 0:
+        return state
+    f = torch.nn.functional.pad
+    r = state.top.dim() - 1  # leading batch axes
+
+    def kpad(x):  # the key axis sits right after the batch axes
+        widths = [0, 0] * (x.dim() - r - 1) + [0, pad]
+        return f(bits(x), widths).view(x.dtype)
+
+    return state._replace(child=tree_map(kpad, state.child),
+                          dkeys=f(state.dkeys, (0, pad)))
+
+
+__all__ = ["VirtualMesh", "pad_elements", "pad_keys", "pad_replicas", "pad_replicas_map"]

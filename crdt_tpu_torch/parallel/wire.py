@@ -1,20 +1,31 @@
 """The bit-packed δ wire format and the fused send path — counterpart of
-the JAX package's ``parallel/wire.py`` for the dense ORSWOT flavor.
+the JAX package's ``parallel/wire.py`` for the dense ORSWOT and the
+Map<K, MVReg> flavors.
 
-:class:`WireCodec` lowers a ``DeltaPacket`` onto an all-u32 wire tree in
-one fused pass over the slot clock lanes plus a second instance over the
-parked-remove clocks, both in one launch (``ops.wire_kernels.
-wire_pack_many``: kernel K3 on a card), and the receiver inverts it with
-plain torch. Wire layout (``WirePacket``, every leaf u32, leaf order
-static):
+:class:`WireCodec` lowers a flavor's packet (``delta.DeltaPacket``,
+``delta_map.MapDeltaPacket``) onto an all-u32 wire tree in one fused pass
+over the slot clock lanes plus a second instance over the parked-remove
+clocks, both in one launch (``ops.wire_kernels.wire_pack_many``: kernel
+K3 on a card), and the receiver inverts it with plain torch. Wire layout
+(``WirePacket``, every leaf u32, leaf order static):
 
-    slots  [C, Ws]   slot clock lanes (rows, then ctxs) as biased-u16
-                     deltas against the link watermark, two per word
+    slots  [C, Ws]   slot clock lanes (dense: rows; map: wctr, clk) and
+                     the ctxs last, as biased-u16 deltas against the link
+                     watermark, two per word
     parked [D, Wp]   parked-remove clocks, same encoding
-    ids    [..]      slot indices as u16 pairs when E <= 2^16, else raw
-    raws   ()        (no unbounded non-clock lanes in the dense flavor)
-    bits   [..]      every bool plane — slot validity, parked dmask and
-                     dvalid — as one u32 bitmap
+    ids    [..]      slot indices and actor ids (map: wact) as u16 pairs
+                     when the key universe and A are <= 2^16, else raw
+    raws   [..]      unbounded non-clock lanes (map: the payload ``val``),
+                     bit-cast, masked slots zeroed
+    bits   [..]      every bool plane — slot validity, content validity
+                     (map), parked masks and dvalid — as one u32 bitmap
+
+A clock plane's watermark is the link's per-slot base in its column
+layout: an A-wide plane takes the base itself, an S·A-wide plane (map
+``clk``) the base tiled S times, the map's witness counters ``wctr`` the
+base gathered at each slot's actor id ``wact``. Where every plane takes
+the base itself and the base is one row per link (the dense flavor under
+the digest), K3 reads it as that one row broadcast over the slots.
 
 The watermark is the receiver's frozen digest top when ``digest=`` is on
 (the ack window's ctx joins it once ``ack_window=`` is ported) and zero
@@ -42,7 +53,7 @@ from ..delta_opt.ackwin import AckWindow, _content_names, _core
 from ..faults.integrity import chain
 from ..ops import wire_kernels as wk
 from ..ops.lattice import tree_map
-from .delta import put_rows, take_rows
+from .delta import mask_slots, put_rows, take_rows
 
 _U16_SPAN = 65536
 
@@ -106,6 +117,18 @@ def _named_leaves(tree, out=None):
     return out
 
 
+def _rebuild(template, leaves):
+    """A packet of ``template``'s (nested NamedTuple) structure from its
+    leaves in :func:`_named_leaves` order."""
+    it = iter(leaves)
+
+    def build(node):
+        return type(node)(*(build(getattr(node, f)) if hasattr(getattr(node, f), "_fields")
+                            else next(it) for f in node._fields))
+
+    return build(template)
+
+
 class _Rec(NamedTuple):
     """One packet leaf's static plan row."""
 
@@ -139,7 +162,7 @@ class WireCodec:
         self.a = core.ctxs.shape[-1]
         self.ct = core.ctxs.dtype
         self.content_names = _content_names(core)
-        self.template_type = type(template)
+        self.template = template
         named = _named_leaves(template)
         self.records: List[_Rec] = [
             _Rec(i, name, _classify(name, tuple(leaf.shape), leaf.dtype), tuple(leaf.shape),
@@ -150,17 +173,10 @@ class WireCodec:
         self.clock_recs = by_cls(_CLOCK)
         self.ctx_rec = by_cls(_CTX)[0]
         self.id_recs = by_cls(_ID)
+        self.raw_recs = by_cls(_RAW)
         self.bool_recs = by_cls(_SLOTVALID, _CBOOL, _PVALID, _PBOOL)
         self.parked_recs = by_cls(_PDCL)
         self.pvalid_recs = by_cls(_PVALID)
-        odd = [r.name for r in self.records
-               if r.cls in (_RAW, _CBOOL) or (r.cls == _ID and r.name != "idx")
-               or (r.cls == _CLOCK and _numel(r.shape) != self.c * self.a)]
-        if odd:
-            raise NotImplementedError(
-                f"WireCodec: only the dense ORSWOT packet is ported, not the lanes {odd} "
-                f"of the map and nested flavors (ROADMAP item 7)"
-            )
 
         # Slot clock matrix columns: content planes in walk order, the
         # ctx plane last (the kernel's [ctx_lo, ctx_hi) range).
@@ -175,6 +191,10 @@ class WireCodec:
         # The dense gate's subject (know_dense) is the rows plane: K3 reads
         # it in place, as that column range of the slot matrix.
         self.rows_cols = dict(zip((r.name for r in self.clock_recs), self.clock_cols)).get("rows")
+        # Witness counters take their base at the slot's actor id; with
+        # none, every plane takes the base itself or tiles it.
+        self.gathered = "wctr" in {r.name for r in self.clock_recs} and any(
+            r.name == "wact" for r in self.id_recs)
 
         # Parked groups: prefix -> row offset in the concatenated parked
         # matrix, in walk order.
@@ -220,13 +240,33 @@ class WireCodec:
             base = torch.maximum(base, to_wide(take_rows(mctx, idx)))
         return base
 
-    def _base_matrix(self, basemat):
+    def _base_matrix(self, basemat, wact2=None):
         """Per-lane bases ``[B, C, LC]`` in the slot matrix's column
-        layout: every clock plane (A-minor, like the ctx plane) takes the
-        slot's watermark. A per-link watermark stays one stored row,
-        broadcast over the slots."""
-        rows = _narrow(basemat.repeat(1, 1, len(self.clock_recs) + 1), self.ct)
-        return rows.expand(-1, self.c, -1)
+        layout, from the watermark ``basemat [B, 1 or C, A]``: an A-wide
+        plane takes it, a wider plane of whole A-blocks tiles it, witness
+        counters ``wctr`` gather it at the actor ids ``wact2 [B, C, S]``,
+        any other plane takes 0; the ctx plane takes it last. A per-link
+        watermark with no gathered plane stays one stored row, broadcast
+        over the slots; otherwise the matrix is materialised."""
+        src = basemat.expand(-1, self.c, -1) if self.gathered else basemat
+        bases = []
+        for r, (lo, hi) in zip(self.clock_recs, self.clock_cols):
+            n = hi - lo
+            if r.name == "wctr" and self.gathered:
+                bases.append(torch.gather(src, -1, wact2.long()))
+            elif n % self.a == 0:
+                bases.append(src.repeat(1, 1, n // self.a))
+            else:
+                bases.append(src.new_zeros((*src.shape[:2], n)))
+        return _narrow(torch.cat(bases + [src], dim=-1), self.ct).expand(-1, self.c, -1)
+
+    def _wact2(self, leaves, b):
+        """The slot actor ids ``[B, C, S]`` the gathered bases read (None
+        without a gathered plane)."""
+        if not self.gathered:
+            return None
+        r = next(r for r in self.id_recs if r.name == "wact")
+        return leaves[r.i].reshape(b, self.c, -1)
 
     def _parked_base(self, rtop, lead, device):
         """The parked instance's watermark ``[B, PD, A]``: the link's
@@ -255,8 +295,8 @@ class WireCodec:
             + [bits(leaves[self.ctx_rec.i]).reshape(b, self.c, self.a)],
             dim=-1,
         ).view(self.ct)
-        out = dict(spec=self.slot_spec, clocks=clocks, base=self._base_matrix(basemat),
-                   valid=core.valid.contiguous())
+        base = self._base_matrix(basemat, self._wact2(leaves, b))
+        out = dict(spec=self.slot_spec, clocks=clocks, base=base, valid=core.valid.contiguous())
         if self.gated:
             if self.know_fn is know_dense and self.rows_cols is not None:
                 out["know"] = clocks[..., self.rows_cols[0]:self.rows_cols[1]]
@@ -303,22 +343,24 @@ class WireCodec:
         out, pout = wk.wire_pack_many([self.slot_inputs(pkt, rtop, win), parked])
         pvalid_wire = pvalid & ~pout.defer
 
-        def slotmask(flat):
-            lanes = bits(flat).reshape(b, self.c, -1)
-            return torch.where(out.keep[..., None], lanes, 0).reshape(b, -1).view(flat.dtype)
+        def slotmask(leaf):
+            return mask_slots(out.keep, leaf.reshape(b, self.c, -1)).reshape(b, -1)
 
         ids = []
         for r in self.id_recs:
             # Masked/invalid slots ship zero ids; the receiver fills them
             # with distinct no-op indices (fill_invalid_idx).
-            flat = slotmask(leaves[r.i].reshape(b, -1))
+            flat = slotmask(leaves[r.i])
             ids.append(wk.pack_u16_pairs(flat) if self.narrow_ids
                        else flat.to(torch.int32).view(torch.uint32))
+        raws = [slotmask(leaves[r.i]).view(torch.uint32) for r in self.raw_recs]
         flags = []
         for r in self.bool_recs:
             x = leaves[r.i]
             if r.cls == _SLOTVALID:
                 x = out.keep
+            elif r.cls == _CBOOL:
+                x = slotmask(x)
             elif r.cls == _PVALID:
                 lo = self.pgroup_row[r.name[: -len("dvalid")]]
                 x = pvalid_wire[:, lo:lo + r.shape[0]]
@@ -328,11 +370,11 @@ class WireCodec:
                 sel = pvalid_wire[:, lo:lo + r.shape[0]]
                 x = x & sel.reshape(b, r.shape[0], *([1] * (x.dim() - 2)))
             flags.append(x.reshape(b, -1))
-        wire = WirePacket(slots=(out.words,), parked=(pout.words,), ids=tuple(ids), raws=(),
-                          bits=(wk.pack_bits(torch.cat(flags, dim=-1)),))
+        wire = WirePacket(slots=(out.words,), parked=(pout.words,), ids=tuple(ids),
+                          raws=tuple(raws), bits=(wk.pack_bits(torch.cat(flags, dim=-1)),))
 
         nnz = to_wide(out.nnz) + to_wide(pout.nnz)
-        for x in list(ids) + list(wire.bits):
+        for x in list(ids) + raws + list(wire.bits):
             nnz = nnz + (bits(x) != 0).sum(dim=-1)
         aux = WireAux(
             keep=out.keep, defer=out.defer, covered=out.covered,
@@ -345,15 +387,29 @@ class WireCodec:
     def _win_matrix(self, win: AckWindow, idx, leaves):
         """The ack verdict's inputs: the window's confirmed content planes
         gathered at ``idx`` in the clock columns + its ctx in the ctx
-        columns, and the equality of the non-clock content lanes (none in
-        the dense flavor)."""
-        by_name = {f: [rows] for f, rows in zip(self.content_names, win.rows)}
+        columns, and the one-bool-per-slot equality of the non-clock
+        content lanes (map: ids, payload, content validity)."""
+        core = _core(self.template)
+        by_name = {}
+        for f, rows in zip(self.content_names, win.rows):
+            node = getattr(core, f)
+            if hasattr(node, "_fields"):
+                for (n, _), v in zip(_named_leaves(node), rows):
+                    by_name.setdefault(n, []).append(v)
+            else:
+                by_name.setdefault(f, []).append(rows)
         b = idx.shape[0]
         cols = [bits(take_rows(by_name[r.name].pop(0), idx)).reshape(b, self.c, hi - lo)
                 for r, (lo, hi) in zip(self.clock_recs, self.clock_cols)]
         cols.append(bits(take_rows(win.ctx, idx)))
         winc = torch.cat(cols, dim=-1).view(self.ct)
         same = torch.ones(idx.shape, dtype=torch.bool, device=idx.device)
+        for r in self.records:
+            vals = by_name.get(r.name)
+            if not vals or r.cls in (_CLOCK, _CTX):
+                continue
+            w = bits(take_rows(vals.pop(0), idx)).reshape(b, self.c, -1)
+            same = same & torch.all(w == bits(leaves[r.i]).reshape(b, self.c, -1), dim=-1)
         return winc, same
 
     # ---- receiver --------------------------------------------------------
@@ -394,8 +450,11 @@ class WireCodec:
             if r.name == "idx":
                 vals = fill_invalid_idx(vals, keep, self.n_rows)
             leaves[r.i] = vals
+        for k, r in enumerate(self.raw_recs):
+            leaves[r.i] = wire.raws[k].view(r.dtype).reshape(b, *r.shape)
         idx = leaves[self.id_recs[0].i]  # idx walks first by convention
-        base = self._base_matrix(self._slot_base(idx, own_top, mirror_ctx))
+        base = self._base_matrix(self._slot_base(idx, own_top, mirror_ctx),
+                                 self._wact2(leaves, b))
         dec = wk.wire_unpack(self.slot_spec, wire.slots[0], base, keep, self.ct)
         for r, (lo, hi) in zip(self.clock_recs, self.clock_cols):
             leaves[r.i] = dec[..., lo:hi].reshape(b, *r.shape).view(r.dtype)
@@ -409,7 +468,7 @@ class WireCodec:
             d = r.shape[0]
             leaves[r.i] = pdec[:, lo:lo + d].reshape(b, *r.shape).view(r.dtype)
             lo += d
-        return self.template_type(*leaves)
+        return _rebuild(self.template, leaves)
 
     # ---- sender-side bookkeeping ----------------------------------------
 
@@ -423,9 +482,8 @@ class WireCodec:
             elif r.cls == _SLOTVALID:
                 out.append(keep)
             else:
-                sel = keep.reshape(*keep.shape, *([1] * (len(r.shape) - 1)))
-                out.append(torch.where(sel, bits(leaf), 0).view(leaf.dtype))
-        return self.template_type(*out)
+                out.append(mask_slots(keep, leaf))
+        return _rebuild(self.template, out)
 
     def useful_bytes(self, pkt, keep) -> torch.Tensor:
         """``telemetry.packet_useful_bytes`` of the gated packet from the
@@ -500,14 +558,23 @@ def know_dense(pkt):
     return _core(pkt).rows
 
 
+def know_map(pkt):
+    """``delta_map.gate_delta_map``'s subject: the witness-dot knowledge
+    of the shipped content slots."""
+    from .delta_map import _key_knowledge
+
+    return _key_knowledge(_core(pkt).child)
+
+
 # One registered codec per δ flavor; a fused ring of a kind missing here
-# raises (the map and nested flavors are ROADMAP item 7).
+# raises (the nested flavors are ROADMAP item 13).
 WIRE_SURFACES = {
     "delta_gossip": know_dense,
+    "map_delta_gossip": know_map,
 }
 
 
 __all__ = [
     "WIRE_SURFACES", "WireAux", "WireCodec", "WirePacket", "core_idx", "fill_invalid_idx",
-    "know_dense", "remark_deferred", "wire_checksum",
+    "know_dense", "know_map", "remark_deferred", "wire_checksum",
 ]

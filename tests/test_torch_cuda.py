@@ -174,6 +174,47 @@ def test_k3_on_a_second_stream(card):
     assert not on_side_counters.any() and not _counters(card).any()
 
 
+def test_k3_graphs_of_one_capture_stream_replayed_on_two_streams(card):
+    """Two graphs captured with ``torch.cuda.graph`` and no stream share
+    torch's one capture stream. Each holds 64 K3 launches small enough
+    (2 batches of 128 blocks) that the two graphs' launches run side by
+    side when they are replayed on two streams, many times, with an eager
+    launch on the capture stream beside them: every launch's nnz/chk
+    equals the plain version's, so no two launches in flight share stats
+    counters."""
+    gen = torch.Generator(device=card).manual_seed(13)
+    calls = [_wire_call(card, gen, "gated", 16, 2, 4096, "ring") for _ in range(2)]
+    wants = [wire_pack_plain(**c) for c in calls]
+    assert not torch.equal(bits(wants[0].chk), bits(wants[1].chk))
+    graphs, outs = [], []
+    for call in calls:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outs.append([wire_pack(**call) for _ in range(64)])
+        graphs.append(graph)
+    capture_stream = torch.cuda.graph.default_capture_stream
+    streams = [torch.cuda.Stream(card) for _ in graphs]
+    for s in streams + [capture_stream]:
+        s.wait_stream(torch.cuda.current_stream(card))
+    stat = lambda o: torch.stack([bits(o.nnz), bits(o.chk)])  # noqa: E731
+    seen = [[] for _ in graphs]
+    eager = []
+    for _ in range(50):
+        for graph, s in zip(graphs, streams):  # both in flight before any read
+            with torch.cuda.stream(s):
+                graph.replay()
+        with torch.cuda.stream(capture_stream):
+            eager.append(wire_pack(**calls[0]))
+        for k, (s, out) in enumerate(zip(streams, outs)):
+            with torch.cuda.stream(s):
+                seen[k].append(torch.stack([stat(o) for o in out]))
+    torch.cuda.synchronize(card)
+    for want, got in zip(wants, seen):
+        bad = sum(int((x != stat(want)).any(dim=(1, 2)).sum()) for x in got)
+        assert bad == 0, f"{bad} of {64 * len(got)} replayed launches disagree"
+    assert all(_same(x, wants[0]) for x in eager)
+
+
 @pytest.mark.parametrize("lc", [2, 3, 8, 16, 17, 64])
 def test_k3_rows_not_a_multiple_of_a_block(card, lc):
     """N one past a block's rows (256 / G) and one short of it, and a
