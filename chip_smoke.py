@@ -25,7 +25,11 @@ at first use), then runs, printing one JSON line per phase:
                         entries and the converged state are held bit-exact
                         against the plain fold run in 512-replica chunks.
                         Reports K1's median time, GB/s, merges/s and its
-                        share of the bandwidth bound.
+                        share of the bandwidth bound. Then the same state
+                        streams through ``mesh_stream_fold`` in 1,024-row
+                        blocks on P=8 virtual ranks: K1 once per rank and
+                        block (80), the result == ``fold_fused`` on every
+                        leaf.
 5. ``k2_shapes``      — kernel K2 (``fold_cells``) against its plain torch
                         version on the card, bit-exact, at ragged K, A in
                         {1, 3, 4, 8, 32}, R in {1, 3, 5, 7, 8, 64} and
@@ -97,6 +101,29 @@ at first use), then runs, printing one JSON line per phase:
                         alternating), busy share and launches per round;
                         and the same traffic with every key written, where
                         the wire's window leaves the fused ring uncertified.
+13. ``sparse_scenarios`` — the probe set through ``BatchedSparseOrswot`` (the
+                        segment-encoded ORSWOT) on the card against the
+                        oracle and a dense ``BatchedOrswot`` twin (through
+                        ``to_dense``): cross-delivered op streams with parked
+                        ahead-removes, merges, self-merge, reset_remove,
+                        folds, DotCapacityOverflow, DeferredOverflow.
+14. ``flagship``       — BASELINE's metric of record at its literal shape
+                        (``BENCH_CONFIGS.json`` "flagship"): 10,240 replicas
+                        over a 1,000,000-element universe, A=8, segment cap
+                        4,096, streamed through ``mesh_stream_fold_sparse``
+                        in 40 blocks of 256 on P=8 virtual ranks, on a
+                        torch copy of ``bench.py``'s population. Gates
+                        first: the 24-replica subsample (stream == the
+                        co-resident fold == block size 4 == the oracle merge
+                        chain), the converged state == the master table,
+                        the stream == ``mesh_fold_sparse`` of the whole
+                        co-resident population; one step under sync debug
+                        mode "error". Then merges/s = (R-1) / stream wall
+                        (median and range of 5 warm passes, CUDA events)
+                        from device-generated and from pinned host blocks,
+                        with busy share, launches per block and the sorts'
+                        share of device time (profiled over 10 blocks),
+                        peak memory and ``overlap_hit``.
 
 Then the ``nvidia-smi`` name/power-limit line, a ``kernels`` JSON line, and
 as the last line ``{"ok": true, "device": {...}}``. Any failed check raises
@@ -107,6 +134,7 @@ and exits non-zero without one. It imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import os
 import random
@@ -555,6 +583,7 @@ def profile_busy(fn, device, host_top: int = 0):
     out = {
         "wall_ms": wall_ms, "device_ms": device_ms,
         "busy_share": device_ms / wall_ms,
+        "sort_ms": sum(ms for ms, k, _ in rows if "sort" in k.lower()),
         "top": [{"kernel": k[:80], "ms": ms, "calls": n} for ms, k, n in rows[:6]],
         "launch_kernel_calls": sum(n for _, k, n in host if k == "cudaLaunchKernel"),
     }
@@ -650,7 +679,7 @@ def kernel_device_ms(fn, device, name: str, n: int):
 
 
 def phase_full_width(device, seed: int, r=10240, e=102400, a=8, d=4,
-                     chunk=512, repeats=6) -> dict:
+                     chunk=512, repeats=6, stream_rows=1024, p=8) -> dict:
     import torch
 
     from crdt_tpu_torch._dtypes import bits, from_wide, to_wide
@@ -712,6 +741,12 @@ def phase_full_width(device, seed: int, r=10240, e=102400, a=8, d=4,
     check(len(converged.entries) > e // 2, "the fold lost most members")
     check(len(converged.deferred) == d, "the parked ahead-removes did not survive")
 
+    # The dense stream: the same population in `stream_rows`-row blocks
+    # through mesh_stream_fold on P virtual ranks, whose rank-local folds
+    # are fold_auto (K1 + epilogue on the card) — counted, and held leaf
+    # for leaf against fold_fused.
+    stream = dense_stream_check(st, device, stream_rows, p)
+
     # Where fold() spends its time: K1 + epilogue on the device, then the
     # read back to oracle form on the host; and the device's busy share
     # of one more fold() under the profiler.
@@ -740,11 +775,39 @@ def phase_full_width(device, seed: int, r=10240, e=102400, a=8, d=4,
         "max_abs_err": diff,
         "converged_members": len(converged.entries),
         "converged_parked": len(converged.deferred),
+        "dense_stream": stream,
         "peak_mem_gb": (torch.cuda.max_memory_allocated(device) / 1e9
                         if device.type == "cuda" else None),
     }
     emit(out)
     return out
+
+
+def dense_stream_check(st, device, block_rows: int, p: int) -> dict:
+    """``mesh_stream_fold`` of the dense batch ``st`` in ``block_rows``-row
+    blocks on ``p`` virtual ranks: K1 must launch once per rank and block,
+    and the converged state must equal ``fold_fused``'s on every leaf."""
+    import torch
+
+    from crdt_tpu_torch.ops.fold_kernels import fold_entries, fold_fused
+    from crdt_tpu_torch.parallel import VirtualMesh, iter_blocks, mesh_stream_fold
+
+    r = st.top.shape[0]
+    n_blocks = -(-r // block_rows)
+    fold_entries.launches = 0
+    t0 = time.perf_counter()
+    got, of = mesh_stream_fold(iter_blocks(st, block_rows), VirtualMesh(p, device))
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    stream_ms = (time.perf_counter() - t0) * 1e3
+    launches = fold_entries.launches
+    check(device.type != "cuda" or launches == n_blocks * p,
+          f"the dense stream launched K1 {launches} times for {n_blocks} blocks on {p} ranks")
+    want, want_of = fold_fused(st)
+    check(same_leaves(got, want), "the dense stream differs from fold_fused")
+    check(bool(of) == bool(want_of), "the dense stream's overflow differs from fold_fused's")
+    return {"block_rows": block_rows, "P": p, "blocks": n_blocks,
+            "k1_launches_in_stream": launches, "stream_ms_first_run": stream_ms}
 
 
 # ---- phase 5 -------------------------------------------------------------
@@ -2365,8 +2428,368 @@ def phase_full_width_delta_map(device, seed: int, r: int = 64, k: int = 1_000_00
     return out
 
 
+# ---- phase 13 ------------------------------------------------------------
+
+def parked_sets(state):
+    """Each row's parked removes of a dense state as a set of (clock,
+    element set) pairs, equal-clock slots unioned (one oracle entry)."""
+    from crdt_tpu_torch._dtypes import to_wide
+
+    out = []
+    dcl = to_wide(state.dcl).reshape(-1, *state.dcl.shape[-2:]).tolist()
+    dmask = state.dmask.reshape(-1, *state.dmask.shape[-2:]).tolist()
+    dvalid = state.dvalid.reshape(-1, state.dvalid.shape[-1]).tolist()
+    for cl, masks, ok in zip(dcl, dmask, dvalid):
+        row = {}
+        for c, m, v in zip(cl, masks, ok):
+            if v:
+                row.setdefault(tuple(c), set()).update(e for e, b in enumerate(m) if b)
+        out.append({(c, frozenset(m)) for c, m in row.items()})
+    return out
+
+
+def sparse_equals_dense(sparse, dense) -> bool:
+    """A sparse batch and a dense batch hold the same replicas: entries and
+    tops bit for bit through ``to_dense``, parked removes as sets."""
+    from crdt_tpu_torch.ops import sparse_orswot as sp
+
+    back = sp.to_dense(sparse, dense.ctr.shape[-2])
+    return (same_leaves(back.ctr, dense.ctr) and same_leaves(back.top, dense.top)
+            and parked_sets(back) == parked_sets(dense))
+
+
+def phase_sparse_scenarios(device, seed: int, rounds: int = 6, cap: int = 64) -> dict:
+    import torch
+
+    from crdt_tpu_torch.models import (
+        BatchedOrswot, BatchedSparseOrswot, DeferredOverflow, DotCapacityOverflow,
+    )
+    from crdt_tpu_torch.dot import Dot
+    from crdt_tpu_torch.pure.orswot import Add, Orswot, Rm
+    from crdt_tpu_torch.utils import Interner
+    from crdt_tpu_torch.vclock import VClock
+
+    t_phase = time.perf_counter()
+    rng = random.Random(seed + 13)
+    counts = {"ops": 0, "merges": 0, "folds": 0, "resets": 0, "parked_seen": 0}
+    for _ in range(rounds):
+        n = rng.randint(3, 5)
+        sites, streams = mint_sites(rng, n, 24)
+        actors = Interner([f"s{i}" for i in range(n)])
+        members = Interner(MEMBERS)
+        model = BatchedSparseOrswot.from_pure(sites, dot_cap=cap, deferred_cap=8, rm_width=8,
+                                              members=members, actors=actors, device=device)
+        for i, s in enumerate(sites):
+            check(model.to_pure(i) == s, "sparse from_pure/to_pure round trip")
+
+        # Cross-delivery on the sparse model and a dense twin: every
+        # replica gets random prefixes of every stream, interleaved.
+        replicas = [Orswot() for _ in range(n)]
+        model = BatchedSparseOrswot(n, cap, n, 8, 8, members=members.clone(),
+                                    actors=actors.clone(), device=device)
+        twin = BatchedOrswot(n, len(MEMBERS), n, 8, members=members.clone(),
+                             actors=actors.clone(), device=device)
+        for j in range(n):
+            cut = [q[: rng.randint(0, len(q))] for q in streams]
+            for op in interleave(rng, cut):
+                replicas[j].apply(op)
+                model.apply(j, op)
+                twin.apply(j, op)
+                counts["ops"] += 1
+            check(model.to_pure(j) == replicas[j], f"sparse op path, replica {j}")
+            counts["parked_seen"] += len(replicas[j].deferred)
+        check(sparse_equals_dense(model.state, twin.state), "sparse != dense after the op path")
+
+        # Pairwise merges, repeated self-merge, reset_remove.
+        for _ in range(n):
+            dst, src = rng.randrange(n), rng.randrange(n)
+            replicas[dst].merge(replicas[src].clone())
+            model.merge_from(dst, src)
+            twin.merge_from(dst, src)
+            counts["merges"] += 1
+            check(model.to_pure(dst) == replicas[dst], "sparse merge_from vs oracle merge")
+        before = model.to_pure(0)
+        model.merge_from(0, 0)
+        model.merge_from(0, 0)
+        check(model.to_pure(0) == before, "repeated sparse self-merge changed state")
+        victim = rng.randrange(n)
+        clock = VClock({a: c // 2 for a, c in replicas[victim].clock.dots.items()})
+        replicas[victim].reset_remove(clock)
+        model.reset_remove(victim, clock)
+        twin.reset_remove(victim, clock)
+        counts["resets"] += 1
+        check(model.to_pure(victim) == replicas[victim], "sparse reset_remove vs oracle")
+        check(sparse_equals_dense(model.state, twin.state), "sparse != dense after merges")
+
+        expect = Orswot()
+        for s in replicas:
+            expect.merge(s.clone())
+        check(model.fold() == expect == twin.fold(), "sparse fold vs oracle and dense fold")
+        counts["folds"] += 1
+
+    # Capacity: too many live cells, a full parked buffer, a too-long list.
+    small = BatchedSparseOrswot(1, 2, 1, deferred_cap=1, rm_width=4, device=device)
+    with expect_raises(DotCapacityOverflow):
+        small.apply(0, Add(dot=Dot("a", 1), members=("x", "y", "z")))
+    check("x" not in small.members, "a refused add interned its members")
+    small.apply(0, Rm(clock=VClock({"a": 5}), members=("x",)))
+    with expect_raises(DeferredOverflow):
+        small.apply(0, Rm(clock=VClock({"a": 6}), members=("y",)))
+    with expect_raises(DeferredOverflow):
+        small.apply(0, Rm(clock=VClock({"a": 6}), members=tuple("pqrst")))
+    pair = BatchedSparseOrswot(2, 2, 2, device=device)
+    pair.apply(0, Add(dot=Dot("a", 1), members=("x", "y")))
+    pair.apply(1, Add(dot=Dot("b", 1), members=("z",)))
+    with expect_raises(DotCapacityOverflow):
+        pair.merge_from(0, 1)
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    check(counts["parked_seen"] > 0, "no sparse scenario parked an ahead remove")
+    out = {"phase": "sparse_scenarios", **counts, "phase_s": time.perf_counter() - t_phase}
+    emit(out)
+    return out
+
+
+# ---- phase 14 ------------------------------------------------------------
+
+def flagship_population(c: int, universe: int, n_actors: int, device, seed: int = 13):
+    """The flagship workload (``bench.py`` ``_flagship_population``, in
+    torch): one master table of ``c`` live (element, actor) cells sampled
+    from ``universe``, sorted by (eid, act), with counter ``eid·A + act +
+    1``; replica ``r`` holds the first ``L_r ∈ [c/2, c]`` lanes (a hash of
+    r), a per-actor prefix of every counter sequence, so the population is
+    causally valid and its join is exactly the master table. Returns
+    ``(gen, master)``: ``gen(row_ids)`` makes a canonical
+    ``SparseOrswotState [B, ...]`` on the device, ``master`` holds the
+    table and its per-actor top."""
+    import numpy as np
+    import torch
+
+    from crdt_tpu_torch._dtypes import bits
+    from crdt_tpu_torch.ops import sparse_orswot as sp
+
+    rng = np.random.default_rng(seed)
+    eids = np.sort(rng.choice(universe, size=c, replace=False).astype(np.int64))
+    acts = rng.integers(0, n_actors, c).astype(np.int32)
+    order = np.lexsort((acts, eids))
+    eids, acts = eids[order], acts[order]
+    ctrs = (eids * n_actors + acts + 1).astype(np.uint32)
+    # Per-lane running top: a replica holding lanes [0, L) has top cummax[L-1].
+    cummax = np.zeros((c, n_actors), np.uint32)
+    run = np.zeros(n_actors, np.uint32)
+    for i in range(c):
+        run[acts[i]] = max(run[acts[i]], ctrs[i])
+        cummax[i] = run
+    u32 = lambda x: torch.tensor(x.view(np.int32), device=device).view(torch.uint32)  # noqa: E731
+    master = {"eid": torch.tensor(eids.astype(np.int32), device=device),
+              "act": torch.tensor(acts, device=device), "ctr": u32(ctrs),
+              "tops": u32(cummax), "top": u32(cummax[-1].copy())}
+    half = c // 2
+    lanes = torch.arange(c, device=device)
+
+    def gen(row_ids):
+        cut = half + ((row_ids * 2654435761) & 0xFFFFFFFF) % max(c - half + 1, 1)
+        valid = lanes[None, :] < cut[:, None]
+        state = sp.empty(c, n_actors, batch=(row_ids.shape[0],), device=device)
+        return state._replace(
+            top=bits(master["tops"])[cut - 1].view(torch.uint32),
+            eid=torch.where(valid, master["eid"], -1),
+            act=torch.where(valid, master["act"], 0),
+            ctr=torch.where(valid, bits(master["ctr"]), 0).view(torch.uint32),
+            valid=valid,
+        )
+
+    return gen, master
+
+
+def flagship_subsample_gate(device, mesh, n_actors: int) -> dict:
+    """``bench.py`` ``_flagship_bit_identity`` on the port: 24 replicas of
+    the flagship construction at c = 64 over 4,096 elements (seed 17),
+    streamed in blocks of 8 and of 4, against the co-resident tree fold and
+    the sequential oracle merge chain."""
+    import torch
+
+    from crdt_tpu_torch._dtypes import to_wide
+    from crdt_tpu_torch.ops import sparse_orswot as sp
+    from crdt_tpu_torch.ops.lattice import tree_map
+    from crdt_tpu_torch.parallel import iter_blocks, mesh_stream_fold_sparse
+    from crdt_tpu_torch.pure.orswot import Orswot
+    from crdt_tpu_torch.vclock import VClock
+
+    sub_r, sub_c, sub_uni = 24, 64, 4096
+    gen, _ = flagship_population(sub_c, sub_uni, n_actors, device, seed=17)
+    pop = gen(torch.arange(sub_r, device=device))
+    acc, of = mesh_stream_fold_sparse(iter_blocks(pop, 8), mesh)
+    check(not bool(of.any()), "the flagship subsample overflowed")
+    acc4, _ = mesh_stream_fold_sparse(iter_blocks(pop, 4), mesh)
+    coresident, _ = sp.fold(pop)
+
+    def pure_of(row) -> Orswot:
+        o = Orswot()
+        o.clock = VClock({a: c for a, c in enumerate(to_wide(row.top).tolist()) if c})
+        for e, a, c, v in zip(row.eid.tolist(), row.act.tolist(), to_wide(row.ctr).tolist(),
+                              row.valid.tolist()):
+            if v:
+                o.entries.setdefault(e, VClock()).dots[a] = c
+        return o
+
+    oracle = Orswot()
+    for i in range(sub_r):
+        oracle.merge(pure_of(tree_map(lambda x: x[i], pop)))
+    out = {"subsample_shape": f"{sub_r}x{sub_uni} (c={sub_c})",
+           "stream_equals_coresident": same_leaves(acc, coresident),
+           "block_count_invariant": same_leaves(acc, acc4),
+           "stream_equals_pure_oracle": pure_of(acc) == oracle}
+    check(all(out[k] for k in ("stream_equals_coresident", "block_count_invariant",
+                               "stream_equals_pure_oracle")),
+          f"the flagship bit-identity gate failed: {out}")
+    return out
+
+
+def phase_flagship(device, seed: int, r: int = 10240, universe: int = 1_000_000, a: int = 8,
+                   cap: int = 4096, block_rows: int = 256, p: int = 8, passes: int = 5,
+                   profile_blocks: int = 10) -> dict:
+    """BASELINE's metric of record at its literal shape (``BENCH_CONFIGS.json``
+    "flagship"): merges/s across R replicas of the segment-encoded ORSWOT over
+    a 1M-element universe, streamed through P virtual ranks in replica
+    blocks. Gates first; then the stream's wall from both block sources."""
+    import torch
+
+    from crdt_tpu_torch.ops import sparse_orswot as sp
+    from crdt_tpu_torch.ops.lattice import tree_map
+    from crdt_tpu_torch.parallel import VirtualMesh, mesh_fold_sparse, mesh_stream_fold_sparse
+    from crdt_tpu_torch.parallel import stream as stream_mod
+    from crdt_tpu_torch.utils.metrics import metrics
+
+    del seed  # the flagship population has its own seeds (13; 17 for the subsample)
+    t_phase = time.perf_counter()
+    on_card = device.type == "cuda"
+    sync = (lambda: torch.cuda.synchronize(device)) if on_card else (lambda: None)
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    mesh = VirtualMesh(p, device)
+    n_blocks = -(-r // block_rows)
+    r_run = n_blocks * block_rows
+    gate = flagship_subsample_gate(device, mesh, a)
+
+    t0 = time.perf_counter()
+    gen, master = flagship_population(cap, universe, a, device)
+    sync()
+    setup_s = time.perf_counter() - t0
+    per_replica = sp.nbytes(gen(torch.arange(1, device=device)))
+
+    def device_blocks():
+        for b in range(n_blocks):
+            yield gen(torch.arange(b * block_rows, (b + 1) * block_rows, device=device))
+
+    t0 = time.perf_counter()
+    acc, of = mesh_stream_fold_sparse(device_blocks(), mesh)
+    sync()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    check(not bool(of.any()), "the flagship stream overflowed its caps")
+    # Gate: the converged accumulator is exactly the master table.
+    check(bool(acc.valid.all()) and torch.equal(acc.eid, master["eid"])
+          and torch.equal(acc.act, master["act"])
+          and same_leaves(acc.ctr, master["ctr"]) and same_leaves(acc.top, master["top"]),
+          "the flagship stream did not converge to the master table")
+    # Gate: the stream equals the co-resident fold of the whole population.
+    pop = gen(torch.arange(r_run, device=device))
+    t0 = time.perf_counter()
+    co, co_of = mesh_fold_sparse(pop, mesh)
+    sync()
+    coresident_ms = (time.perf_counter() - t0) * 1e3
+    check(not bool(co_of.any()) and same_leaves(acc, co),
+          "the flagship stream differs from mesh_fold_sparse of the co-resident population")
+    coresident_gb = sum(x.numel() * x.element_size() for x in pop) / 1e9
+    coresident_peak_gb = torch.cuda.max_memory_allocated(device) / 1e9 if on_card else None
+    del pop, co
+
+    # One stream step waits for nothing on the host: torch raises on any
+    # synchronising call under sync debug mode "error".
+    plan = stream_mod._plan_sparse()
+    block0 = gen(torch.arange(block_rows, device=device))
+    acc0 = sp.empty(cap, a, device=device)
+    stream_mod._step(plan, acc0, block0, p)
+    if on_card:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        stream_mod._step(plan, acc0, block0, p)
+    finally:
+        if on_card:
+            torch.cuda.set_sync_debug_mode("default")
+    sync()
+    del block0, acc0
+
+    # The same blocks from pinned host memory (set-up, untimed).
+    host_blocks = []
+    for block in device_blocks():
+        host_blocks.append(tree_map(
+            lambda x: x.cpu().pin_memory() if on_card else x.clone(), block))
+    sources = {"device": device_blocks, "pinned_host": lambda: iter(host_blocks)}
+    acc_h, of_h = mesh_stream_fold_sparse(sources["pinned_host"](), mesh)
+    check(same_leaves(acc_h, acc) and torch.equal(of_h, of),
+          "the stream from pinned host blocks differs from the stream of device blocks")
+    del acc_h
+
+    def overlap():
+        return metrics.snapshot()["counters"].get("stream.overlap_hit", 0)
+
+    runs = {k: [] for k in sources}
+    hits = {k: [] for k in sources}
+    peak = {k: 0.0 for k in sources}
+    for _ in range(passes):  # alternating, after one warm pass of each above
+        for name, src in sources.items():
+            h0 = overlap()
+            if on_card:
+                torch.cuda.reset_peak_memory_stats(device)
+            runs[name].append(time_ms(lambda: mesh_stream_fold_sparse(src(), mesh), device))
+            hits[name].append(overlap() - h0)
+            if on_card:
+                peak[name] = max(peak[name], torch.cuda.max_memory_allocated(device) / 1e9)
+    per_source = {}
+    for name, src in sources.items():
+        # The profiler's trace of a whole stream (≈ 77k launches) takes
+        # longer to read back than the stream takes to run: profile the
+        # first `profile_blocks` blocks.
+        busy = profile_busy(lambda: mesh_stream_fold_sparse(
+            itertools.islice(src(), profile_blocks), mesh), device)
+        med = statistics.median(runs[name])
+        per_source[name] = {
+            "stream_ms_median": med, "stream_ms_min": min(runs[name]),
+            "stream_ms_max": max(runs[name]), "stream_ms_runs": runs[name],
+            "merges_per_s": (r_run - 1) / (med * 1e-3),
+            "overlap_hit_per_pass": hits[name],
+            "peak_mem_gb": peak[name] if on_card else None,
+            "profile": busy,
+            "busy_share": busy["busy_share"] if busy else None,
+            "sort_share_of_device_time": busy["sort_ms"] / busy["device_ms"] if busy else None,
+            "launch_kernel_calls_per_block":
+                busy["launch_kernel_calls"] / profile_blocks if busy else None,
+        }
+    out = {
+        "phase": "flagship",
+        "R": r_run, "universe": universe, "A": a, "segment_cap": cap, "D": 4, "Q": 8,
+        "block_rows": block_rows, "blocks": n_blocks, "P": p, "profiled_blocks": profile_blocks,
+        "bit_identity_gate": gate, "setup_s": setup_s,
+        "per_replica_bytes": per_replica, "block_mb": per_replica * block_rows / 1e6,
+        "coresident_gb": coresident_gb, "coresident_mesh_fold_sparse_ms": coresident_ms,
+        "coresident_peak_mem_gb": coresident_peak_gb,
+        "converged_live_cells": int(acc.valid.sum()),
+        "first_stream_ms_cold": first_ms, "step_syncs_with_host": False if on_card else None,
+        "merges_per_s_device_blocks": per_source["device"]["merges_per_s"],
+        "merges_per_s_pinned_host_blocks": per_source["pinned_host"]["merges_per_s"],
+        "sources": per_source,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    emit(out)
+    return out
+
+
 PHASES = ("k1", "scenarios", "full_width", "k2", "map_scenarios", "full_width_map", "k3",
-          "delta_scenarios", "full_width_delta", "map_delta_scenarios", "full_width_delta_map")
+          "delta_scenarios", "full_width_delta", "map_delta_scenarios", "full_width_delta_map",
+          "sparse_scenarios", "flagship")
 
 
 def main(argv=None) -> int:
@@ -2420,6 +2843,10 @@ def main(argv=None) -> int:
         phase_map_delta_scenarios(device, args.seed)
     if run("full_width_delta_map"):
         res["delta_map"] = phase_full_width_delta_map(device, args.seed)
+    if run("sparse_scenarios"):
+        phase_sparse_scenarios(device, args.seed)
+    if run("flagship"):
+        res["flagship"] = phase_flagship(device, args.seed)
     if only:
         print(f"chip_smoke: partial run of {only}; no kernels line", flush=True)
         return 0

@@ -11,6 +11,9 @@ Layers of the dense ORSWOT slice: ``pure`` (the sequential oracle) →
 ``ops.orswot`` (batched join / apply / tree fold) → ``ops.fold_kernels``
 (the fused fold: kernel K1 + plain-torch epilogue) → ``models.orswot``
 (``BatchedOrswot``). ``convert`` carries states across packages as numpy.
+Later slices add the Map<K, MVReg> (``ops.map``, ``models.map``), the δ
+rings (``parallel``), the segment-encoded ORSWOT (``ops.sparse_orswot``,
+``models.sparse_orswot``) and the replica stream (``parallel.stream``).
 """
 
 from .traits import CvRDT, CmRDT, ResetRemove, Causal, ValidationError, DotRange

@@ -10,6 +10,8 @@ both directions copy:
 - ``MapState``: ``top``/``dcl`` u32, ``dkeys``/``dvalid`` bool, and
   ``child``, a dict of the ``MVRegState`` leaves ``wact`` i32, ``wctr``
   u32, ``clk`` u32, ``val`` i32, ``valid`` bool;
+- ``SparseOrswotState``: ``top``/``ctr``/``dcl`` u32, ``eid``/``act``/
+  ``didx`` i32, ``valid``/``dvalid`` bool;
 - δ tracking (``tracking_from_numpy``): ``dirty`` bool, ``fctx`` u32 or
   u64.
 """
@@ -25,12 +27,17 @@ from ._dtypes import bits
 from .ops.map import MapState
 from .ops.mvreg import MVRegState
 from .ops.orswot import OrswotState
+from .ops.sparse_orswot import SparseOrswotState
 
 _DTYPES = {
     "top": np.uint32, "ctr": np.uint32, "dcl": np.uint32,
     "dmask": np.bool_, "dvalid": np.bool_,
 }
 _MAP_DTYPES = {"top": np.uint32, "dcl": np.uint32, "dkeys": np.bool_, "dvalid": np.bool_}
+_SPARSE_DTYPES = {
+    "top": np.uint32, "eid": np.int32, "act": np.int32, "ctr": np.uint32, "valid": np.bool_,
+    "dcl": np.uint32, "didx": np.int32, "dvalid": np.bool_,
+}
 _CHILD_DTYPES = {
     "wact": np.int32, "wctr": np.uint32, "clk": np.uint32, "val": np.int32, "valid": np.bool_,
 }
@@ -69,6 +76,20 @@ def orswot_from_numpy(arrays: Dict[str, np.ndarray], device="cuda") -> OrswotSta
 def orswot_to_numpy(state: OrswotState) -> Dict[str, np.ndarray]:
     """A port ``OrswotState`` → a dict of numpy arrays (u32 / bool)."""
     return _leaves_to_numpy(state, _DTYPES)
+
+
+def sparse_orswot_from_numpy(arrays: Dict[str, np.ndarray], device="cuda") -> SparseOrswotState:
+    """``{"top", "eid", "act", "ctr", "valid", "dcl", "didx", "dvalid"}``
+    numpy arrays → a ``SparseOrswotState`` on ``device``. Raises on a
+    missing leaf or a dtype other than the leaf's (no silent casts)."""
+    return SparseOrswotState(**_leaves_from_numpy("sparse orswot", arrays, _SPARSE_DTYPES,
+                                                  device))
+
+
+def sparse_orswot_to_numpy(state: SparseOrswotState) -> Dict[str, np.ndarray]:
+    """A port ``SparseOrswotState`` → a dict of numpy arrays (u32 / i32 /
+    bool)."""
+    return _leaves_to_numpy(state, _SPARSE_DTYPES)
 
 
 def map_from_numpy(arrays: dict, device="cuda") -> MapState:

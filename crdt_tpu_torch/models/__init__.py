@@ -3,5 +3,7 @@
 from .map import BatchedMap
 from .orswot import BatchedOrswot, DeferredOverflow
 from .registers import SlotOverflow
+from .sparse_orswot import BatchedSparseOrswot, DotCapacityOverflow
 
-__all__ = ["BatchedMap", "BatchedOrswot", "DeferredOverflow", "SlotOverflow"]
+__all__ = ["BatchedMap", "BatchedOrswot", "BatchedSparseOrswot", "DeferredOverflow",
+           "DotCapacityOverflow", "SlotOverflow"]

@@ -1,11 +1,12 @@
 """Full-state anti-entropy over the virtual rank axis — the entries
-``mesh_fold`` and ``mesh_gossip`` (dense ORSWOT) and ``mesh_fold_map``
-and ``mesh_gossip_map`` (Map<K, MVReg>) of the JAX package's
-``parallel/anti_entropy.py``.
+``mesh_fold`` and ``mesh_gossip`` (dense ORSWOT), ``mesh_fold_map`` and
+``mesh_gossip_map`` (Map<K, MVReg>) and ``mesh_fold_sparse`` (the
+segment-encoded ORSWOT) of the JAX package's ``parallel/anti_entropy.py``.
 
 Each rank folds its own replica block first (``fold_auto``: kernel K1
 plus the epilogue on a card; ``ops.map.fold``: kernel K2 plus its
-epilogue; the plain tree folds on the CPU); then one lattice all-reduce
+epilogue; the plain tree folds on the CPU; the sparse join, which has no
+kernel, in one batched tree for all ranks); then one lattice all-reduce
 (``mesh_fold*``) or ``rounds`` ring rounds (``mesh_gossip*``) join the
 ranks. K1 and K2 have no rank axis, so the local fold is one launch per
 rank, each streaming that rank's contiguous replica block. The JAX
@@ -22,28 +23,34 @@ import torch
 from .._dtypes import bits
 from ..ops import map as map_ops
 from ..ops import orswot as ops
+from ..ops import sparse_orswot as sp
 from ..ops.fold_kernels import fold_auto
 from ..ops.lattice import tree_map
 from ..ops.map import MapState
 from ..ops.orswot import OrswotState
+from ..ops.sparse_orswot import SparseOrswotState
 from .collectives import all_reduce_join, all_reduce_lattice, ring_round
-from .mesh import VirtualMesh, pad_replicas, pad_replicas_map
+from .mesh import VirtualMesh, pad_replicas, pad_replicas_map, pad_replicas_sparse
 
 
-def _refuse(**modes) -> None:
-    """Raise for a mode of the JAX entry that the port does not run yet."""
+def _refuse(item: str = "15", **modes) -> None:
+    """Raise for a mode of the JAX entry that the port does not run yet,
+    naming the ROADMAP item that ports it."""
     on = [name for name, value in modes.items() if value]
     if on:
         raise NotImplementedError(
-            f"{', '.join(on)}: not ported yet (ROADMAP item 15); call without it"
+            f"{', '.join(on)}: not ported yet (ROADMAP item {item}); call without it"
         )
 
 
 def rank_blocks(state, mesh: VirtualMesh):
-    """``state [R, ...]`` (an ``OrswotState`` or a ``MapState``) on the
-    mesh's device, padded with identities of its kind to a multiple of P
-    and viewed as ``[P, R/P, ...]`` rank blocks."""
-    pad = pad_replicas_map if isinstance(state, MapState) else pad_replicas
+    """``state [R, ...]`` (an ``OrswotState``, ``MapState`` or
+    ``SparseOrswotState``) on the mesh's device, padded with identities of
+    its kind to a multiple of P and viewed as ``[P, R/P, ...]`` rank
+    blocks."""
+    pad = (pad_replicas_map if isinstance(state, MapState)
+           else pad_replicas_sparse if isinstance(state, SparseOrswotState)
+           else pad_replicas)
     state = pad(tree_map(lambda x: x.to(mesh.device), state), mesh.p)
     return tree_map(lambda x: x.reshape(mesh.p, -1, *x.shape[1:]), state)
 
@@ -59,7 +66,14 @@ def stack(states, dtype_like) -> OrswotState:
 def local_folds(blocks: OrswotState, fold_fn) -> Tuple[OrswotState, torch.Tensor]:
     """Every rank's fold of its own replica block (``fold_fn`` on one
     ``[R/P, ...]`` block → ``(state, overflow)``): ``[P, ...]`` states and
-    the per-rank overflow flags ``[P]``."""
+    the per-rank overflow flags ``[P]`` (``[P, 2]`` for two-lane flags).
+
+    A sparse block folds in ONE tree over the row axis with the P ranks
+    as a batch (``fold_fn`` is ``ops.sparse_orswot.fold``, whose join takes
+    any leading batch): the same pairs as P separate folds, so the same
+    bits, in 1/P of the launches."""
+    if isinstance(blocks, SparseOrswotState):
+        return fold_fn(tree_map(lambda x: x.transpose(0, 1).contiguous(), blocks))
     p = blocks.top.shape[0]
     outs = [fold_fn(tree_map(lambda x: x[q], blocks)) for q in range(p)]
     folded = stack([s for s, _ in outs], outs[0][0])
@@ -152,5 +166,21 @@ def mesh_gossip_map(
     return folded, torch.any(of, dim=0)
 
 
-__all__ = ["local_folds", "mesh_fold", "mesh_fold_map", "mesh_gossip", "mesh_gossip_map",
-           "rank_blocks"]
+def mesh_fold_sparse(
+    states: SparseOrswotState, mesh: VirtualMesh, telemetry: bool = False,
+    donate: bool = False,
+) -> Tuple[SparseOrswotState, torch.Tensor]:
+    """Converge a SPARSE (segment-encoded) ORSWOT replica batch over the
+    mesh's replica axis, the segment table replicated (the element axis
+    is 1): each rank folds its block (one batched log tree, see
+    :func:`local_folds`), then one lattice-join all-reduce over the ranks,
+    on ``mesh.device``. Returns ``(converged state, overflow [2])`` —
+    [dot capacity, deferred capacity]."""
+    _refuse(telemetry=telemetry, donate=donate)
+    folded, of_local = local_folds(rank_blocks(states, mesh), sp.fold)
+    joined, of_cross = all_reduce_lattice(folded, sp.join, sp.fold)
+    return tree_map(lambda x: x[0], joined), torch.any(of_local, dim=0) | of_cross
+
+
+__all__ = ["local_folds", "mesh_fold", "mesh_fold_map", "mesh_fold_sparse", "mesh_gossip",
+           "mesh_gossip_map", "rank_blocks"]

@@ -37,8 +37,9 @@ def _size(tree) -> int:
 def ppermute(tree, perm: Sequence[Tuple[int, int]]):
     """``lax.ppermute`` on the rank axis: rank ``dst`` receives rank
     ``src``'s slice for every ``(src, dst)`` pair; a rank no pair
-    targets receives zeros. A ring shift (every ring round) is a roll;
-    any other permutation gathers through an index table."""
+    targets receives zeros. A ring shift (every ring round) is a roll,
+    recursive doubling's exchange ``i <-> i ^ k`` a swap of halves; any
+    other permutation gathers through an index table."""
     p = _size(tree)
     src = [-1] * p
     for s, d in perm:
@@ -46,6 +47,14 @@ def ppermute(tree, perm: Sequence[Tuple[int, int]]):
     shift = -src[0] % p
     if all(s == (d - shift) % p for d, s in enumerate(src)):
         return tree_map(lambda x: torch.roll(bits(x), shift, 0).view(x.dtype), tree)
+    k = src[0]
+    if k > 0 and k & (k - 1) == 0 and p % (2 * k) == 0 and all(
+            s == d ^ k for d, s in enumerate(src)):
+        # Recursive doubling's exchange i <-> i ^ k: swap the two halves of
+        # every group of 2k ranks (no index table to copy to the device).
+        return tree_map(
+            lambda x: bits(x).reshape(p // (2 * k), 2, k, *x.shape[1:]).flip(1)
+            .reshape(x.shape).view(x.dtype), tree)
     device = _leaf(tree).device
     table = torch.tensor([max(s, 0) for s in src], device=device)
     hole = torch.tensor([s < 0 for s in src], device=device)
@@ -77,7 +86,8 @@ def all_reduce_lattice(
     """All-reduce with a lattice-join monoid over the rank axis of
     ``local`` (``[P, ...]`` leaves). Returns every rank's global join
     (``[P, ...]``) and the overflow flags OR-reduced over the ranks (one
-    per flag of ``join_fn``: a scalar for ORSWOT, ``[2]`` for the Map)."""
+    per flag of ``join_fn``: a scalar for ORSWOT, ``[2]`` for the Map and
+    the sparse ORSWOT)."""
     size = _size(local)
     overflow = torch.zeros((), dtype=torch.bool, device=_leaf(local).device)
     if size & (size - 1) == 0 and size > 1:

@@ -19,7 +19,9 @@ from .._dtypes import bits
 from ..ops import map as map_ops
 from ..ops.lattice import tree_map
 from ..ops.map import MapState
+from ..ops import sparse_orswot as sp
 from ..ops.orswot import OrswotState, empty
+from ..ops.sparse_orswot import SparseOrswotState
 
 
 class VirtualMesh:
@@ -75,6 +77,17 @@ def pad_replicas_map(state: MapState, multiple: int) -> MapState:
                     state, ident)
 
 
+def pad_replicas_sparse(state: SparseOrswotState, multiple: int) -> SparseOrswotState:
+    """Pad a sparse ORSWOT batch's replica axis with join identities (see
+    :func:`pad_replicas`; the JAX package's ``_sparse_pad_and_template``)."""
+    pad = (-state.top.shape[0]) % multiple
+    if pad == 0:
+        return state
+    ident = sp.empty(state.eid.shape[-1], state.top.shape[-1], *state.didx.shape[-2:],
+                     batch=(pad,), device=state.top.device)
+    return tree_map(lambda x, p: torch.cat([bits(x), bits(p)]).view(x.dtype), state, ident)
+
+
 def pad_keys(state: MapState, multiple: int) -> MapState:
     """Pad a Map batch's key axis with never-written slots so it divides
     the mesh's element axis (1 on a virtual mesh: a no-op there); padded
@@ -93,4 +106,5 @@ def pad_keys(state: MapState, multiple: int) -> MapState:
                           dkeys=f(state.dkeys, (0, pad)))
 
 
-__all__ = ["VirtualMesh", "pad_elements", "pad_keys", "pad_replicas", "pad_replicas_map"]
+__all__ = ["VirtualMesh", "pad_elements", "pad_keys", "pad_replicas", "pad_replicas_map",
+           "pad_replicas_sparse"]

@@ -1,0 +1,374 @@
+"""Replica-streaming fold — anti-entropy for populations that do not fit
+on the card. Counterpart of the JAX package's ``parallel/stream.py``: its
+sparse (segment-encoded ORSWOT) and dense ORSWOT plans.
+
+    acc = identity (or init)
+    for block in blocks:              # [B, ...] replica blocks
+        acc = join(acc, mesh_fold(block))
+
+One step on the mesh's P virtual ranks: each rank folds its rows of the
+block (``anti_entropy.local_folds``: the sparse join as one batched log
+tree for all ranks; ``fold_auto`` per rank for dense blocks — kernel K1
+and its epilogue on a card), one lattice all-reduce joins the ranks
+(``collectives.all_reduce_lattice``), and the result joins into the
+accumulator. Rank q folds block rows ``[q·B/P, (q+1)·B/P)``, the rows a
+``P(REPLICA_AXIS)`` sharding gives device q in the JAX package, and the
+folds pair the same rows, so the bits are the JAX stream's. The JAX
+package keeps the accumulator on every device (``shard_map``'s layout);
+the port keeps ONE, rank 0's, which is what the JAX package reads back.
+A sparse step waits for nothing on the host (overflow flags stay device
+tensors until the caller reads them); the dense join's parked-slot dedupe
+(``ops.orswot._dedupe_deferred``) does.
+
+- ``pipeline=True`` (default): a block that arrives as a CPU tensor is
+  staged onto the card on a side CUDA stream from pinned memory
+  (``non_blocking``); the step's stream waits on an event the copy
+  records, and ``record_stream`` keeps the block alive until the step
+  has read it. Block k+1 is fetched and staged right after block k's
+  step is enqueued, so the copy overlaps the step. ``stream.overlap_hit``
+  counts stagings issued while the previous step was still in flight. A
+  block already on the card is not copied. ``pipeline=False`` copies on
+  the step's stream and synchronises after every step (the counter stays
+  0).
+- ``donate=True`` (default): torch has no aliasing program; the caller's
+  ``init`` is copied once and never consumed, and each step drops the old
+  accumulator as soon as the new one is enqueued. With ``donate=False``
+  the ``init`` tensors are the first accumulator (no op writes in place).
+- Residency: the accumulator, the block in its step and the next staged
+  block — independent of the population.
+- A block that fails to fetch or stage raises :class:`StreamInterrupted`
+  carrying the accumulator (the exact join of the blocks before it) and
+  the resume index; ``init=exc.acc`` with the remaining blocks completes
+  the fold bit-identically.
+
+Block contract: the first block fixes the template (caps and rows, rows
+rounded up to a multiple of P). A later block may be SMALLER
+(identity-padded: the ragged tail) or carry NARROWER caps (widened on
+arrival), both counted in ``stream.repacked_blocks``; a larger one
+refuses (re-chunk the source).
+
+Modes of the JAX entries still to port raise ``NotImplementedError``
+naming their ROADMAP item: ``telemetry=``, ``frontier=``/``compact_every=``
+(item 15), ``widen_policy=`` (15.3), ``faults=`` (15.4), ``wal=`` (9). The
+sparse Map and element-sharded plans are item 12b.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Iterable, Tuple
+
+import torch
+
+from .._dtypes import bits
+from ..ops import orswot as ops
+from ..ops import sparse_orswot as sp
+from ..ops.fold_kernels import fold_auto
+from ..ops.lattice import tree_map
+from ..utils.metrics import metrics
+from .anti_entropy import _refuse, local_folds
+from .collectives import all_reduce_lattice
+from .mesh import VirtualMesh
+
+
+class StreamInterrupted(RuntimeError):
+    """A block failed to fetch or stage mid-stream. ``acc`` is the
+    accumulator — the exact lattice join of the blocks already applied, a
+    valid joinable state — and the stream resumes from block
+    ``blocks_done`` via ``init=exc.acc`` on a fresh call."""
+
+    def __init__(self, cause: BaseException, acc, blocks_done: int):
+        super().__init__(
+            f"replica stream interrupted at block {blocks_done} "
+            f"({type(cause).__name__}: {cause}); .acc holds the join of "
+            f"blocks [0, {blocks_done}) — resume with init=exc.acc"
+        )
+        self.cause = cause
+        self.acc = acc
+        self.blocks_done = blocks_done
+
+
+@dataclass(frozen=True)
+class _StreamPlan:
+    """The per-kind closure set the generic block loop composes."""
+
+    kind: str                # metrics name
+    join_fn: Callable        # (a, b) -> (state, flags)
+    fold_fn: Callable        # [rows, ...] -> (state, flags)
+    local_fold: Callable     # [P, rows, ...] -> ([P, ...], flags [P, ...])
+    caps_of: Callable        # state -> {axis: cap}
+    empty: Callable          # (caps, batch, device) -> identity batch
+    widen_state: Callable    # (state, {axis: cap}) -> state
+
+
+def _plan_sparse() -> _StreamPlan:
+    return _StreamPlan(
+        kind="sparse_stream_fold",
+        join_fn=sp.join,
+        fold_fn=sp.fold,
+        local_fold=lambda blocks: local_folds(blocks, sp.fold),
+        caps_of=lambda s: {
+            "dot_cap": s.eid.shape[-1], "n_actors": s.top.shape[-1],
+            "deferred_cap": s.didx.shape[-2], "rm_width": s.didx.shape[-1],
+        },
+        empty=lambda caps, batch, device: sp.empty(
+            caps["dot_cap"], caps["n_actors"], caps["deferred_cap"], caps["rm_width"],
+            batch=batch, device=device,
+        ),
+        widen_state=lambda s, caps: sp.widen(s, **caps),
+    )
+
+
+def _plan_dense() -> _StreamPlan:
+    return _StreamPlan(
+        kind="orswot_stream_fold",
+        join_fn=ops.join,
+        fold_fn=ops.fold,
+        local_fold=lambda blocks: local_folds(blocks, fold_auto),
+        caps_of=lambda s: {
+            "n_elems": s.ctr.shape[-2], "n_actors": s.top.shape[-1],
+            "deferred_cap": s.dvalid.shape[-1],
+        },
+        empty=lambda caps, batch, device: ops.empty(
+            caps["n_elems"], caps["n_actors"], caps["deferred_cap"], batch=batch, device=device,
+        ),
+        widen_state=lambda s, caps: ops.widen(s, **caps),
+    )
+
+
+def _leaves(tree):
+    return list(tree) if isinstance(tree, tuple) else [tree]
+
+
+def _rows_of(tree) -> int:
+    return _leaves(tree)[0].shape[0]
+
+
+def _nbytes(tree) -> int:
+    return sum(x.numel() * x.element_size() for x in _leaves(tree))
+
+
+def _widen_to(plan: _StreamPlan, state, caps: Dict[str, int]):
+    """Widen ``state`` up to ``caps`` where narrower (the same object when
+    nothing grows)."""
+    have = plan.caps_of(state)
+    grow = {k: v for k, v in caps.items() if have[k] < v}
+    return plan.widen_state(state, grow) if grow else state
+
+
+def _step(plan: _StreamPlan, acc, block, p: int):
+    """One block on P virtual ranks: rank-local folds, the lattice
+    all-reduce, the join into the accumulator. ``block`` has a multiple
+    of P rows on the accumulator's device. Returns ``(acc, overflow)``."""
+    ranks = tree_map(lambda x: x.reshape(p, -1, *x.shape[1:]), block)
+    folded, of_local = plan.local_fold(ranks)
+    joined, of_cross = all_reduce_lattice(folded, plan.join_fn, plan.fold_fn)
+    acc, of_join = plan.join_fn(acc, tree_map(lambda x: x[0], joined))
+    return acc, torch.any(of_local, dim=0) | of_join | of_cross
+
+
+def _upload(raw, device: torch.device, side):
+    """``raw`` on ``device``. With a ``side`` stream (pipelined, on a card)
+    a CPU block is copied from pinned memory on that stream and comes back
+    with the copy's event; otherwise the block is moved on the current
+    stream (a no-op for a block already there) and comes back with None."""
+    if side is None or _leaves(raw)[0].device.type != "cpu":
+        return tree_map(lambda x: x.to(device), raw), None
+    with torch.cuda.stream(side):
+        block = tree_map(
+            lambda x: (x if x.is_pinned() else x.pin_memory()).to(device, non_blocking=True),
+            raw,
+        )
+        copied = torch.cuda.Event()
+        copied.record(side)
+    return block, copied
+
+
+def _stream_fold(
+    plan: _StreamPlan,
+    blocks: Iterable,
+    mesh: VirtualMesh,
+    *,
+    init=None,
+    telemetry: bool = False,
+    donate: bool = True,
+    pipeline: bool = True,
+    widen_policy=None,
+    frontier=None,
+    compact_every: int = 0,
+    faults=None,
+    wal=None,
+    wal_every: int = 0,
+    wal_base: int = 0,
+):
+    """The shared scaffold: template derivation, upload and repack of each
+    block, the double-buffered step loop and the interrupt protocol (see
+    the module docstring)."""
+    _refuse(telemetry=telemetry, frontier=frontier is not None, compact_every=compact_every)
+    _refuse("15.3", widen_policy=widen_policy is not None)
+    _refuse("15.4", faults=faults is not None)
+    _refuse("9", wal=wal is not None, wal_every=wal_every, wal_base=wal_base)
+    device, p = mesh.device, mesh.p
+    on_card = device.type == "cuda"
+    it = iter(blocks)
+
+    try:
+        first = next(it, None)
+    except ValueError:
+        raise  # caller bugs propagate as they are
+    except Exception as exc:
+        metrics.count("stream.interrupted")
+        raise StreamInterrupted(exc, init, 0) from exc
+    if first is None and init is None:
+        raise ValueError("empty block stream and no init accumulator")
+
+    # ---- template: caps and padded row count from the first block -----
+    if first is not None:
+        caps = plan.caps_of(first)
+        rows = _rows_of(first)
+        template_rows = rows + (-rows) % p
+    else:
+        caps = plan.caps_of(init)
+        template_rows = p
+    if init is not None:
+        caps = {k: max(v, plan.caps_of(init)[k]) for k, v in caps.items()}
+
+    side = torch.cuda.Stream(device) if on_card and pipeline else None
+
+    def stage(raw):
+        """Check ``raw`` against the template and start its upload."""
+        raw_caps = plan.caps_of(raw)
+        if any(raw_caps[k] > v for k, v in caps.items()):
+            raise ValueError(
+                f"block caps {raw_caps} exceed the stream template {caps} — widen the "
+                f"template (stream from the widest block first) or re-chunk"
+            )
+        if _rows_of(raw) > template_rows:
+            raise ValueError(
+                f"block has {_rows_of(raw)} rows > stream template {template_rows} "
+                f"— re-chunk the source"
+            )
+        return _upload(raw, device, side)
+
+    def arrive(staged):
+        """The staged block, ready for its step: the step's stream waits
+        for the copy, the block is marked in use there, and a narrow or
+        short block is widened and identity-padded to the template."""
+        block, copied = staged
+        if copied is not None:
+            main = torch.cuda.current_stream(device)
+            main.wait_event(copied)
+            for x in _leaves(block):
+                x.record_stream(main)
+        widened = _widen_to(plan, block, caps)
+        rows = _rows_of(widened)
+        if rows < template_rows:
+            pad = plan.empty(caps, (template_rows - rows,), device)
+            widened = tree_map(
+                lambda x, e: torch.cat([bits(x), bits(e).to(bits(x).dtype)]).view(x.dtype),
+                widened, pad,
+            )
+        if widened is not block:
+            metrics.count("stream.repacked_blocks")
+        return widened
+
+    # ---- accumulator -------------------------------------------------
+    if init is not None:
+        acc = tree_map(lambda x: x.to(device), _widen_to(plan, init, caps))
+        if donate:
+            acc = tree_map(torch.clone, acc)  # never consume the caller's buffers
+    else:
+        acc = plan.empty(caps, (), device)
+
+    metrics.count(f"stream.{plan.kind}_rounds")
+    try:
+        staged = stage(first) if first is not None else None
+    except ValueError:
+        raise
+    except Exception as exc:
+        metrics.count("stream.interrupted")
+        raise StreamInterrupted(exc, acc, 0) from exc
+
+    overflow = None
+    blocks_done = staged_bytes = overlap_hits = 0
+    while staged is not None:
+        block = arrive(staged)
+        staged_bytes += _nbytes(block)
+        acc, of = _step(plan, acc, block, p)
+        overflow = of if overflow is None else overflow | of
+        blocks_done += 1
+        del block, staged
+        if not pipeline:
+            if on_card:
+                torch.cuda.synchronize(device)
+        elif on_card:
+            enqueued = torch.cuda.Event()
+            enqueued.record()
+            if not enqueued.query():
+                # The next staging is issued while this step is still in
+                # flight: its upload overlaps the step's kernels.
+                overlap_hits += 1
+        try:
+            nxt = next(it, None)
+            staged = stage(nxt) if nxt is not None else None
+        except ValueError:
+            raise
+        except Exception as exc:
+            metrics.count("stream.interrupted")
+            raise StreamInterrupted(exc, acc, blocks_done) from exc
+
+    if overflow is None:
+        overflow = torch.zeros((), dtype=torch.bool, device=device)
+    metrics.count("stream.blocks", blocks_done)
+    metrics.count("stream.staged_bytes", staged_bytes)
+    metrics.count("stream.overlap_hit", overlap_hits)
+    metrics.observe("stream.acc_bytes", _nbytes(acc))
+    return acc, overflow
+
+
+# ---- public entry points --------------------------------------------------
+
+def mesh_stream_fold_sparse(
+    blocks: Iterable, mesh: VirtualMesh, *, init=None, telemetry: bool = False,
+    donate: bool = True, pipeline: bool = True, widen_policy=None, frontier=None,
+    compact_every: int = 0, faults=None, wal=None, wal_every: int = 0, wal_base: int = 0,
+) -> Tuple[Any, torch.Tensor]:
+    """Stream-fold SPARSE (segment-encoded) ORSWOT replica blocks
+    ``[B, ...]`` into one converged state on ``mesh.device`` — the
+    arbitrary-N fold the flagship shape (10,240 replicas × a 1M-element
+    universe) runs through. Returns ``(state, overflow [2])``: [dot
+    capacity, deferred capacity]."""
+    return _stream_fold(
+        _plan_sparse(), blocks, mesh, init=init, telemetry=telemetry, donate=donate,
+        pipeline=pipeline, widen_policy=widen_policy, frontier=frontier,
+        compact_every=compact_every, faults=faults, wal=wal, wal_every=wal_every,
+        wal_base=wal_base,
+    )
+
+
+def mesh_stream_fold(
+    blocks: Iterable, mesh: VirtualMesh, *, init=None, telemetry: bool = False,
+    donate: bool = True, pipeline: bool = True, widen_policy=None, frontier=None,
+    compact_every: int = 0, faults=None, wal=None, wal_every: int = 0, wal_base: int = 0,
+) -> Tuple[Any, torch.Tensor]:
+    """Stream-fold DENSE ORSWOT replica blocks ``[B, E, A]`` on
+    ``mesh.device``; each rank's local fold is ``fold_auto`` (kernel K1
+    and its epilogue on a card). Returns ``(state, overflow)``."""
+    return _stream_fold(
+        _plan_dense(), blocks, mesh, init=init, telemetry=telemetry, donate=donate,
+        pipeline=pipeline, widen_policy=widen_policy, frontier=frontier,
+        compact_every=compact_every, faults=faults, wal=wal, wal_every=wal_every,
+        wal_base=wal_base,
+    )
+
+
+def iter_blocks(states, block_rows: int):
+    """Slice a co-resident ``[N, ...]`` batch into ``[block_rows, ...]``
+    stream blocks (views) — the bridge for populations that do fit (tests,
+    subsampled gates) and the reference shape for real sources."""
+    n = _rows_of(states)
+    for lo in range(0, n, block_rows):
+        yield tree_map(lambda x: x[lo: lo + block_rows], states)
+
+
+__all__ = ["StreamInterrupted", "iter_blocks", "mesh_stream_fold", "mesh_stream_fold_sparse"]

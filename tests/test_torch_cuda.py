@@ -1,6 +1,8 @@
 """The port on a CUDA device: kernels K1, K2 and K3 against their plain
 versions, the models' folds on the card against the same folds on the
-CPU, and the δ ring on the card (fused == layered == mesh_fold).
+CPU (the sparse ORSWOT's too), the δ ring on the card (fused == layered ==
+mesh_fold), and the replica stream from pinned host blocks against the
+stream from blocks on the card and on the CPU.
 
 Marked ``cuda``; every test skips without a device. It imports neither
 JAX nor the JAX package, so it also runs where JAX is not installed:
@@ -267,3 +269,43 @@ def test_the_delta_ring_on_the_card(card, pipeline):
     assert chip_smoke.same_leaves(fused[0], layered[0]) and int(fused[3]) == int(layered[3]) == 0
     folded, _ = mesh_fold(model.state, mesh)
     assert chip_smoke.rows_equal_fold(fused[0], folded)
+
+
+@pytest.mark.parametrize("seed", [1, 2, 3])
+def test_sparse_model_on_the_card_matches_the_cpu(card, seed):
+    from crdt_tpu_torch.models import BatchedSparseOrswot
+
+    rng = random.Random(seed)
+    sites, streams = chip_smoke.mint_sites(rng, 5, 40)
+    models = {}
+    for dev in (card, "cpu"):
+        m = BatchedSparseOrswot(5, 64, 5, deferred_cap=8, device=dev)
+        order = random.Random(seed)
+        for j in range(5):
+            cut = [q[: order.randint(0, len(q))] for q in streams]
+            for op in chip_smoke.interleave(order, cut):
+                m.apply(j, op)
+        m.merge_from(0, 1)
+        models[dev] = m
+    assert chip_smoke.same_leaves(tuple(x.cpu() for x in models[card].state),
+                                  models["cpu"].state)
+    assert models[card].fold() == models["cpu"].fold()
+
+
+def test_the_stream_from_pinned_host_blocks_equals_the_stream_from_device_blocks(card):
+    from crdt_tpu_torch.ops.lattice import tree_map
+    from crdt_tpu_torch.parallel import VirtualMesh, mesh_stream_fold_sparse
+
+    gen, master = chip_smoke.flagship_population(256, 100_000, 8, card, seed=5)
+    rows = [torch.arange(b * 64, (b + 1) * 64, device=card) for b in range(8)]
+    on_card = [gen(r) for r in rows]
+    pinned = [tree_map(lambda x: x.cpu().pin_memory(), b) for b in on_card]
+    mesh = VirtualMesh(8, card)
+    want, want_of = mesh_stream_fold_sparse(iter(on_card), mesh)
+    for pipeline in (True, False):
+        got, got_of = mesh_stream_fold_sparse(iter(pinned), mesh, pipeline=pipeline)
+        assert chip_smoke.same_leaves(got, want) and torch.equal(got_of, want_of)
+    cpu, _ = mesh_stream_fold_sparse(iter([tree_map(lambda x: x.cpu(), b) for b in on_card]),
+                                     VirtualMesh(8, "cpu"))
+    assert chip_smoke.same_leaves(tuple(x.cpu() for x in want), cpu)
+    assert bool(want.valid.all()) and torch.equal(want.eid, master["eid"])
