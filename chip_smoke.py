@@ -83,7 +83,16 @@ at first use), then runs, printing one JSON line per phase:
                         each kind, alternating),
                         rounds, slots and wire bytes per link-round, the
                         local fold's time, the device's busy share and peak
-                        memory.
+                        memory. Then the same rings with ``ack_window=True``
+                        (key ``ack_window``): acked fused == acked layered ==
+                        the unacked ring == ``mesh_fold``, residue 0, every
+                        K3 launch (one per round) carrying its acked
+                        instance; slots shipped and window-skipped against
+                        the unacked ring; K3's acked instance (per-slot base,
+                        window lanes) per launch and alone with its bytes and
+                        bound; the walls (median of 5 of each kind, acked
+                        and unacked fused and layered rings alternating),
+                        busy share and peak memory.
 11. ``map_delta_scenarios`` — small oracle-minted Map<K, MVReg> rings on 4
                         virtual ranks, ``pipeline`` × cap 16 / 1: fused ==
                         layered on every leaf, equal residue, and the
@@ -101,6 +110,9 @@ at first use), then runs, printing one JSON line per phase:
                         alternating), busy share and launches per round;
                         and the same traffic with every key written, where
                         the wire's window leaves the fused ring uncertified.
+                        Then the acked rings as in phase 10 (3 walls of each
+                        kind), one acked round under sync debug "error", and
+                        K3's acked instance at LC 14.
 13. ``sparse_scenarios`` — the probe set through ``BatchedSparseOrswot`` (the
                         segment-encoded ORSWOT) on the card against the
                         oracle and a dense ``BatchedOrswot`` twin (through
@@ -124,6 +136,26 @@ at first use), then runs, printing one JSON line per phase:
                         with busy share, launches per block and the sorts'
                         share of device time (profiled over 10 blocks),
                         peak memory and ``overlap_hit``.
+15. ``elastic``        — the overflow → widen → re-enter loops: at config
+                        3's widths (R=5120 on 8 virtual ranks) a
+                        ``BatchedOrswot`` born with ``deferred_cap`` 2 under
+                        traffic whose rank folds meet 3 parked removes;
+                        ``gossip_elastic`` and ``delta_gossip_elastic``
+                        (without and with the ack window) overflow in their
+                        first attempt, widen to 4 and equal rings born at 4
+                        and ``mesh_fold``; ``gossip_elastic`` on a
+                        ``BatchedSparseOrswot`` (``dot_cap`` 1024 → 4096) and
+                        a ``BatchedMap`` at config 4's widths (D 1 → 2), each
+                        == a wider-born ring and its fold.
+16. ``resync``         — ``delta_opt.heal.resync`` over 8 ranks that
+                        diverged from one snapshot, dense at config 3's
+                        widths and Map at config 4's: healed == the join
+                        chain of the ranks; lanes, bytes against full states,
+                        wall.
+17. ``donate``         — ``donate=True`` at R == P = 8 for ``mesh_gossip``
+                        (config 3's widths) and ``mesh_delta_gossip_map``
+                        (config 4's): == the copying runs, outputs in the
+                        inputs' storage, peak and resident memory of both.
 
 Then the ``nvidia-smi`` name/power-limit line, a ``kernels`` JSON line, and
 as the last line ``{"ok": true, "device": {...}}``. Any failed check raises
@@ -1599,7 +1631,8 @@ def phase_delta_scenarios(device, seed: int, n_seeds: int = 3) -> dict:
 
 # ---- phase 10 ------------------------------------------------------------
 
-def fill_delta_config3(r, e, a, d, p, seed, device, chunk=128, n_cross=3, n_des=3):
+def fill_delta_config3(r, e, a, d, p, seed, device, chunk=128, n_cross=3, n_des=3,
+                       max_parked=None, synced_out=None):
     """Replica states, dirty and fctx for the δ ring, on the device, chunk
     by chunk. All replicas start from ONE synced state drawn as
     ``fill_config3`` draws a replica (history with ~70% of dots set,
@@ -1615,7 +1648,12 @@ def fill_delta_config3(r, e, a, d, p, seed, device, chunk=128, n_cross=3, n_des=
     top. ``(dirty, fctx)`` accumulate with ``interval_accumulate`` from
     the synced state over two steps (the adds, then the removes), so no
     dot is born and removed inside one interval (the tracking contract).
-    Returns ``(state, dirty, fctx, info)``."""
+    ``max_parked`` caps the cross removes a replica holds (its first ones
+    in actor order), so a replica parks at most that many and a state with
+    ``d = max_parked`` is born, while a rank's fold can meet all
+    ``n_cross`` (the elastic phase's overflow). ``synced_out``, a list,
+    receives the synced state every replica started from. Returns
+    ``(state, dirty, fctx, info)``."""
     import torch
 
     from crdt_tpu_torch._dtypes import bits, from_wide
@@ -1629,7 +1667,8 @@ def fill_delta_config3(r, e, a, d, p, seed, device, chunk=128, n_cross=3, n_des=
         return torch.randint(lo, hi, shape, generator=gen, device=device, dtype=torch.int64)
 
     rl = r // p
-    check(rl * p == r and a >= 2 * n_cross and d > n_cross and rl > n_des, "bad δ shape")
+    fits = d > n_cross if max_parked is None else d >= max_parked
+    check(rl * p == r and a >= 2 * n_cross and fits and rl > n_des, "bad δ shape")
     # The synced state (fill_config3's draw for one replica).
     history = config3_history(draw, e, a)
     top0 = config3_tops(draw, 1, a)
@@ -1674,6 +1713,11 @@ def fill_delta_config3(r, e, a, d, p, seed, device, chunk=128, n_cross=3, n_des=
     prefix[des[:, None] & (acts.T >= a // 2) & (acts.T < a // 2 + n_cross)] = n_ops + 1
     held_b = des[:, None] & (acts.T < n_cross)
     prefix = torch.where(held_b, torch.clamp_max(prefix, n_ops), prefix)
+    if max_parked is not None:
+        rm_cols = prefix[:, a // 2: a // 2 + n_cross]
+        over = torch.cumsum((rm_cols > n_ops).long(), 1) > max_parked
+        prefix[:, a // 2: a // 2 + n_cross] = torch.where(over, torch.clamp_max(rm_cols, n_ops),
+                                                          rm_cols)
 
     state = empty(e, a, d, batch=(r,), device=device)
     dirty = torch.zeros((r, e), dtype=torch.bool, device=device)
@@ -1711,6 +1755,9 @@ def fill_delta_config3(r, e, a, d, p, seed, device, chunk=128, n_cross=3, n_des=
     info = {"ops_per_actor": n_ops, "cross_removes": n_cross,
             "replicas_parking": int(state.dvalid.any(-1).sum()),
             "dirty_rows_per_replica_mean": float(dirty.sum(-1).float().mean())}
+    if synced_out is not None:
+        synced_out.append(empty(e, a, d, device=device)._replace(
+            top=from_wide(top0[0], u32), ctr=synced))
     return state, dirty, fctx, info
 
 
@@ -1793,13 +1840,13 @@ def certify_ring(ring, backlog: int, p: int, cap: int, counters, sync):
     return out, rounds, stats, attempts, launches
 
 
-def alternate_rings(ring, samples: int, sync) -> dict:
-    """Wall ms of ``samples`` rings of each kind, ``ring(fused)`` for fused
-    True and False in turn (each kind warmed up by the caller); every ring
-    must certify. Returns the runs by kind."""
-    runs = {True: [], False: []}
+def alternate_rings(ring, samples: int, sync, kinds=(True, False)) -> dict:
+    """Wall ms of ``samples`` rings of each kind, ``ring(kind)`` for each
+    of ``kinds`` in turn (fused True and False by default; each kind warmed
+    up by the caller); every ring must certify. Returns the runs by kind."""
+    runs = {kind: [] for kind in kinds}
     for _ in range(samples):
-        for kind in (True, False):
+        for kind in kinds:
             t0 = time.perf_counter()
             res = ring(kind)
             sync()
@@ -1951,6 +1998,8 @@ def phase_full_width_delta(device, seed: int, r: int = 5120, e: int = 102400, a:
     busy_layered = profile_busy(lambda: mesh_delta_gossip(state, dirty, fctx, mesh,
                                                           rounds=rounds, cap=cap, fused=False),
                                 device, host_top=12)
+    acked = acked_dense_ring(state, dirty, fctx, mesh, rounds, cap, fused, folded,
+                             (ranks, pkt, rtop), device, sync, repeats, per_sample, ring_samples)
     links = stats["rounds"] * stats["links"]
     out = {
         "phase": "full_width_delta",
@@ -1975,8 +2024,107 @@ def phase_full_width_delta(device, seed: int, r: int = 5120, e: int = 102400, a:
         "converged_members": int(bits(folded.ctr).ne(0).any(-1).sum()),
         "converged_parked": int(folded.dvalid.sum()),
         "peak_mem_gb": torch.cuda.max_memory_allocated(device) / 1e9 if on_card else None,
+        "ack_window": acked,
     }
     emit(out)
+    return out
+
+
+def acked_k3(template, n_rows, know_fn, pkt, rtop, device, repeats, per_sample) -> dict:
+    """K3's acked instance at a ring's shape (``k3_at_ring_shape``): round
+    0's packet against a window that confirmed every other slot of that
+    same packet, so half the slots are covered."""
+    import torch
+
+    from crdt_tpu_torch.delta_opt import ackwin
+    from crdt_tpu_torch.ops.wire_kernels import wire_pack
+    from crdt_tpu_torch.parallel import wire as wire_mod
+
+    p, c = pkt.idx.shape
+    win = ackwin.init_window(template, n_rows, batch=(p,), device=device)
+    ackwin.update_window(win, pkt, pkt.valid & (torch.arange(c, device=device) % 2 == 0))
+    codec = wire_mod.WireCodec(template, n_rows, know_fn, gated=True, acked=True)
+    args = codec.slot_inputs(pkt, rtop=rtop, win=win)
+    covered = int(wire_pack(**args).covered.sum())
+    out = k3_at_ring_shape(args, codec.parked_inputs(pkt, rtop=rtop), device, repeats, per_sample)
+    check(covered > 0, "the acked K3 probe covered no slot")
+    return {**out, "k3_covered_slots_in_probe": covered}
+
+
+def acked_rings(ring, rounds: int, unacked, folded, sync, samples: int, on_card: bool) -> dict:
+    """The main path with ``ack_window=True``, counted: ``ring(fused, ack,
+    stats)`` runs a ring at ``rounds``. The acked fused ring must launch K3
+    once per round, every launch with its acked instance; then the gates
+    (acked fused == acked layered on every leaf, == the unacked fused
+    ring's states, == the fold, residue 0) and ``samples`` warm walls of
+    acked and unacked kind, all four alternating."""
+    from crdt_tpu_torch.ops.wire_kernels import wire_pack
+
+    stats, layered_stats, plain_stats = {}, {}, {}
+    wire_pack.launches = wire_pack.acked_launches = 0
+    out = ring(True, True, stats)
+    sync()
+    launches = (wire_pack.launches, wire_pack.acked_launches)
+    check(int(out[3]) == 0 and not bool(out[2].any()), "the acked fused ring did not certify")
+    check(not on_card or launches == (rounds, rounds),
+          f"the acked ring launched K3 {launches} times (all, acked) in {rounds} rounds")
+    layered = ring(False, True, layered_stats)
+    check(same_leaves(out[0], layered[0]) and same_leaves(out[1], layered[1])
+          and int(layered[3]) == 0, "the acked fused ring differs from the acked layered ring")
+    check(same_leaves(out[0], unacked[0]), "the acked ring differs from the unacked ring")
+    check(rows_equal_fold(out[0], folded), "the certified acked ring's rows != the fold")
+    del out, layered
+    ring(True, False, plain_stats)  # the unacked fused ring's counts
+    # Acked and unacked rings of both wires in turn: host time drifts
+    # between calls and within one, so only alternating walls compare.
+    kinds = [(fused, ack) for ack in (True, False) for fused in (True, False)]
+    runs = alternate_rings(lambda kind: ring(*kind, None), samples, sync, kinds)
+    med = {kind: statistics.median(runs[kind]) for kind in kinds}
+    links = stats["rounds"] * stats["links"]
+    return {
+        "rounds": rounds, "residue": 0, "k3_launches": launches[0],
+        "k3_acked_launches": launches[1],
+        "slots_shipped": stats["slots_shipped"], "slots_acked_skipped": stats["slots_acked_skipped"],
+        "slots_shipped_unacked": plain_stats["slots_shipped"],
+        "layered_slots_shipped": layered_stats["slots_shipped"],
+        "layered_slots_acked_skipped": layered_stats["slots_acked_skipped"],
+        "slots_shipped_per_link_round": stats["slots_shipped"] / links,
+        "ack_bytes_per_link_round": stats["ack_bytes"],
+        "ring_ms_fused": med[True, True], "ring_ms_layered": med[False, True],
+        "ring_ms_fused_unacked": med[True, False], "ring_ms_layered_unacked": med[False, False],
+        "acked_over_unacked_fused": med[True, True] / med[True, False],
+        "acked_over_unacked_layered": med[False, True] / med[False, False],
+        "ring_ms_runs": {f"{'fused' if f else 'layered'}_{'acked' if a else 'unacked'}":
+                         runs[f, a] for f, a in kinds},
+    }
+
+
+def acked_dense_ring(state, dirty, fctx, mesh, rounds, cap, unacked, folded, probe,
+                     device, sync, repeats, per_sample, samples) -> dict:
+    """``full_width_delta`` with ``ack_window=True`` (ROADMAP 7b): the
+    acked rings' gates, counts and walls, K3's acked instance at the ring's
+    shape, the acked fused ring's busy share and the section's peak
+    memory."""
+    import torch
+
+    from crdt_tpu_torch.delta_opt import ackwin
+    from crdt_tpu_torch.parallel import mesh_delta_gossip
+    from crdt_tpu_torch.parallel import wire as wire_mod
+    from crdt_tpu_torch.parallel.delta_ring import _packet_template
+
+    on_card = device.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
+    ring = lambda kind, ack, st: mesh_delta_gossip(  # noqa: E731
+        state, dirty, fctx, mesh, rounds=rounds, cap=cap, fused=kind, ack_window=ack, stats=st)
+    out = acked_rings(ring, rounds, unacked, folded, sync, samples, on_card)
+    ranks, pkt, rtop = probe
+    template = _packet_template(ranks, cap, fctx.dtype)
+    out.update(acked_k3(template, dirty.shape[-1], wire_mod.know_dense, pkt, rtop, device,
+                        repeats, per_sample))
+    out["slot_bytes"] = ackwin.slot_bytes(template)
+    out["ring_profile"] = profile_busy(lambda: ring(True, True, None), device)
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated(device) / 1e9 if on_card else None
     return out
 
 
@@ -2089,7 +2237,7 @@ def phase_map_delta_scenarios(device, seed: int, n_seeds: int = 3) -> dict:
 # ---- phase 12 ------------------------------------------------------------
 
 def fill_delta_config4(r, k, s, a, d, p, seed, device, chunk=8, n_ops=1024, n_cross=2,
-                       n_des=2, written=None):
+                       n_des=2, written=None, max_parked=None, synced_out=None):
     """Replica states, dirty and fctx for the Map δ ring, on the device,
     ``chunk`` replicas at a time. All replicas start from ONE synced state:
     ``written`` keys (default K/20) of a random order hold content by
@@ -2120,7 +2268,8 @@ def fill_delta_config4(r, k, s, a, d, p, seed, device, chunk=8, n_ops=1024, n_cr
     certify (A·L = 4,096 = cap at config 4). ``(dirty, fctx)``
     accumulate with ``interval_accumulate_map`` from the synced state over
     two steps (the puts, then the removes), so no dot is born and removed
-    inside one interval. Returns ``(state, dirty, fctx, info)``."""
+    inside one interval. ``max_parked`` and ``synced_out`` as in
+    :func:`fill_delta_config3`. Returns ``(state, dirty, fctx, info)``."""
     import torch
 
     from crdt_tpu_torch._dtypes import bits, from_wide
@@ -2134,7 +2283,8 @@ def fill_delta_config4(r, k, s, a, d, p, seed, device, chunk=8, n_ops=1024, n_cr
     share = max(1, k // 100)
     n_ops = min(n_ops, share)
     written = k // 20 if written is None else written
-    check(rl * p == r and a >= 2 * n_cross and d > n_cross and rl > n_des
+    fits = d > n_cross if max_parked is None else d >= max_parked
+    check(rl * p == r and a >= 2 * n_cross and fits and rl > n_des
           and a * share <= written <= k and n_ops >= 4, "bad δ map shape")
 
     def rand(shape):
@@ -2214,6 +2364,11 @@ def fill_delta_config4(r, k, s, a, d, p, seed, device, chunk=8, n_ops=1024, n_cr
     prefix[des[:, None] & (acts.T >= a // 2) & (acts.T < a // 2 + n_cross)] = n_ops
     prefix = torch.where(des[:, None] & (acts.T < n_cross), torch.clamp_max(prefix, n_ops - 1),
                          prefix)
+    if max_parked is not None:
+        rm_cols = prefix[:, a // 2: a // 2 + n_cross]
+        over = torch.cumsum((rm_cols >= n_ops).long(), 1) > max_parked
+        prefix[:, a // 2: a // 2 + n_cross] = torch.where(
+            over, torch.clamp_max(rm_cols, n_ops - 1), rm_cols)
 
     state = map_ops.empty(k, a, s, d, batch=(r,), device=device)
     dirty = torch.zeros((r, k), dtype=torch.bool, device=device)
@@ -2259,6 +2414,9 @@ def fill_delta_config4(r, k, s, a, d, p, seed, device, chunk=8, n_ops=1024, n_cr
             "ops_per_actor": n_ops, "puts_per_actor": n_put, "cross_removes": n_cross,
             "replicas_parking": int(state.dvalid.any(-1).sum()),
             "dirty_keys_per_replica_mean": float(dirty.sum(-1).float().mean())}
+    if synced_out is not None:
+        synced_out.append(map_ops.empty(k, a, s, d, device=device)._replace(
+            top=from_wide(top0, u32), child=narrow(synced)))
     return state, dirty, fctx, info
 
 
@@ -2323,7 +2481,7 @@ def phase_full_width_delta_map(device, seed: int, r: int = 64, k: int = 1_000_00
     check(rows_equal_fold(fused[0], folded), "certified map ring rows != mesh_fold_map")
     converged = {"converged_keys": int(folded.child.valid.any(-1).sum()),
                  "converged_parked": int(folded.dvalid.sum())}
-    del layered, folded
+    del layered
 
     # Ring wall time: the counted ring and the gate's layered ring were each
     # kind's untimed warm-up; now `ring_samples` of each, alternating.
@@ -2375,6 +2533,9 @@ def phase_full_width_delta_map(device, seed: int, r: int = 64, k: int = 1_000_00
                                                       cap=cap), device, host_top=12)
     busy_layered = profile_busy(lambda: mesh_delta_gossip_map(
         state, dirty, fctx, mesh, rounds=rounds, cap=cap, fused=False), device, host_top=12)
+    acked = acked_map_ring(state, dirty, fctx, mesh, rounds, cap, fused, folded,
+                           (ranks, d0, f0, rtop), device, sync, repeats, per_sample)
+    del folded
     links = stats["rounds"] * stats["links"]
     peak_gb = torch.cuda.max_memory_allocated(device) / 1e9 if on_card else None
     residue = int(fused[3])
@@ -2423,8 +2584,75 @@ def phase_full_width_delta_map(device, seed: int, r: int = 64, k: int = 1_000_00
         "launch_kernel_calls_per_round_layered":
             busy_layered["launch_kernel_calls"] / rounds if busy_layered else None,
         **converged, "every_key_written": all_written, "peak_mem_gb": peak_gb,
+        "ack_window": acked,
     }
     emit(out)
+    return out
+
+
+def acked_map_ring(state, dirty, fctx, mesh, rounds, cap, unacked, folded, probe, device, sync,
+                   repeats, per_sample, samples: int = 3) -> dict:
+    """``full_width_delta_map`` with ``ack_window=True`` (ROADMAP 7b): the
+    acked rings' gates, counts and walls (``samples`` of each kind: a Map
+    ring takes seconds), one acked round under torch's sync debug mode
+    "error", K3's acked instance at LC 14, busy share and peak memory."""
+    import torch
+
+    from crdt_tpu_torch.delta_opt import ackwin
+    from crdt_tpu_torch.ops import wire_kernels as wk
+    from crdt_tpu_torch.parallel import mesh_delta_gossip_map
+    from crdt_tpu_torch.parallel import wire as wire_mod
+    from crdt_tpu_torch.parallel.collectives import ppermute
+    from crdt_tpu_torch.parallel.delta_map import (
+        apply_delta_map, extract_delta_map, packet_template_map,
+    )
+
+    on_card = device.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
+    ring = lambda kind, ack, st: mesh_delta_gossip_map(  # noqa: E731
+        state, dirty, fctx, mesh, rounds=rounds, cap=cap, fused=kind, ack_window=ack, stats=st)
+    out = acked_rings(ring, rounds, unacked, folded, sync, samples, on_card)
+
+    ranks, d0, f0, rtop = probe
+    p, k = d0.shape
+    template = packet_template_map(ranks, cap, fctx.dtype)
+    codec = wire_mod.WireCodec(template, k, wire_mod.know_map, gated=True, acked=True)
+    win = ackwin.init_window(template, k, batch=(p,), device=device)
+    mirror = [torch.zeros_like(win.ctx)]  # the receivers' copy of the window ctx
+    perm = [(i, (i + 1) % p) for i in range(p)]
+    inv = [(i, (i - 1) % p) for i in range(p)]
+
+    def one_acked_round():
+        """An acked fused round as the ring runs it: extract, K3 pack
+        against the window, ship, unpack against the mirror, apply, then
+        the mirror's promotion and the ack bitmap's trip back."""
+        pk, dd, ff = extract_delta_map(ranks, d0, f0, cap, start=0)
+        wired, aux = codec.pack(pk, rtop=rtop, win=win)
+        dd = wire_mod.remark_deferred(dd, wire_mod.core_idx(pk), aux.defer)
+        got = codec.unpack(ppermute(wired, perm), own_top=ranks.top, mirror_ctx=mirror[0])
+        st, dd, ff, _ = apply_delta_map(ranks, got, dd, ff)
+        acks = ackwin.ack_bits(got)
+        mirror[0] = wire_mod.mirror_promote(mirror[0], got, acks)
+        acks = wk.unpack_bits(ppermute(wk.pack_bits(acks), inv), acks.shape[-1])
+        ackwin.update_window(win, codec.mask(pk, aux.keep), acks)
+        return st
+
+    one_acked_round()
+    if on_card:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        one_acked_round()
+    finally:
+        if on_card:
+            torch.cuda.set_sync_debug_mode("default")
+    sync()
+    pkt, _, _ = extract_delta_map(ranks, d0, f0, cap, start=0)
+    out.update(acked_k3(template, k, wire_mod.know_map, pkt, rtop, device, repeats, per_sample))
+    out["slot_bytes"] = ackwin.slot_bytes(template)
+    out["round_syncs_with_host"] = False if on_card else None
+    out["ring_profile"] = profile_busy(lambda: ring(True, True, None), device)
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated(device) / 1e9 if on_card else None
     return out
 
 
@@ -2787,9 +3015,322 @@ def phase_flagship(device, seed: int, r: int = 10240, universe: int = 1_000_000,
     return out
 
 
+# ---- phases 15-17 (ROADMAP 7b) ---------------------------------------------
+
+def sparse_actor_population(r: int, c: int, universe: int, a: int, dot_cap: int, device,
+                            seed: int = 17):
+    """A sparse ORSWOT population whose union outgrows each replica: one
+    master table of ``c`` (element, actor) cells as in
+    :func:`flagship_population`, and replica ``i`` holds a prefix of actor
+    ``i % a``'s cells only (between half and all of them), so every
+    replica fits ``dot_cap`` while a fold of ``a`` replicas needs the
+    whole table. Causally valid: a replica's top covers exactly the
+    counters of its prefix."""
+    import numpy as np
+    import torch
+
+    from crdt_tpu_torch.ops import sparse_orswot as sp
+
+    rng = np.random.default_rng(seed)
+    eids = np.sort(rng.choice(universe, size=c, replace=False).astype(np.int64))
+    acts = rng.integers(0, a, c).astype(np.int64)
+    ctrs = eids * a + acts + 1
+    cols = {"eid": np.full((r, dot_cap), -1, np.int32), "act": np.zeros((r, dot_cap), np.int32),
+            "ctr": np.zeros((r, dot_cap), np.int64), "valid": np.zeros((r, dot_cap), bool)}
+    top = np.zeros((r, a), np.int64)
+    for i in range(r):
+        g = i % a
+        own = np.nonzero(acts == g)[0]
+        n = len(own) // 2 + (i * 2654435761) % (len(own) - len(own) // 2 + 1)
+        check(n <= dot_cap, "a replica outgrows the sparse population's dot_cap")
+        cols["eid"][i, :n], cols["act"][i, :n] = eids[own[:n]], g
+        cols["ctr"][i, :n], cols["valid"][i, :n] = ctrs[own[:n]], True
+        top[i, g] = ctrs[own[n - 1]] if n else 0
+    u32 = lambda x: torch.tensor(x.astype(np.uint32).view(np.int32), device=device).view(  # noqa: E731
+        torch.uint32)
+    return sp.empty(dot_cap, a, batch=(r,), device=device)._replace(
+        top=u32(top), eid=torch.tensor(cols["eid"], device=device),
+        act=torch.tensor(cols["act"], device=device), ctr=u32(cols["ctr"]),
+        valid=torch.tensor(cols["valid"], device=device))
+
+
+def phase_elastic(device, seed: int, r: int = 5120, e: int = 102400, a: int = 8, p: int = 8,
+                  cap: int = 4096, chunk: int = 128, map_r: int = 64, k: int = 1_000_000,
+                  s: int = 2, map_a: int = 4, map_chunk: int = 8, sp_r: int = 64,
+                  sp_cells: int = 4096, sp_universe: int = 1_000_000) -> dict:
+    """The overflow → widen → re-enter loops on the card. Dense ORSWOT at
+    config 3's widths born with ``deferred_cap = 2`` under traffic whose
+    rank folds meet three parked cross removes: ``delta_gossip_elastic``
+    (without and with the ack window) and ``gossip_elastic`` must overflow
+    in their first attempt, widen to 4 and certify, equal to rings of a
+    model born at 4 and to ``mesh_fold``. Then ``gossip_elastic`` on a
+    ``BatchedSparseOrswot`` whose replicas each hold one actor's cells
+    (``dot_cap`` overflow) and on a ``BatchedMap`` at config 4's widths born
+    with one parked slot, each equal to a wider-born ring and its fold."""
+    import torch
+
+    from crdt_tpu_torch.models import BatchedMap, BatchedOrswot, BatchedSparseOrswot
+    from crdt_tpu_torch.ops.fold_kernels import fold_cells, fold_entries
+    from crdt_tpu_torch.parallel import (
+        VirtualMesh, delta_gossip_elastic, gossip_elastic, mesh_delta_gossip, mesh_fold,
+        mesh_fold_map, mesh_fold_sparse, mesh_gossip, mesh_gossip_map, mesh_gossip_sparse,
+    )
+    from crdt_tpu_torch.utils.metrics import metrics
+
+    on_card = device.type == "cuda"
+    sync = (lambda: torch.cuda.synchronize(device)) if on_card else (lambda: None)
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    t_phase = time.perf_counter()
+    mesh = VirtualMesh(p, device)
+    rl = r // p
+    counters = lambda: dict(metrics.snapshot()["counters"])  # noqa: E731
+
+    def dense(d):
+        st, dd, ff, info = fill_delta_config3(r, e, a, d, p, seed, device, chunk, max_parked=2)
+        model = BatchedOrswot(1, e, a, d, device=device)
+        model.state = st
+        return model, dd, ff, info
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    out = {"phase": "elastic", "P": p}
+    # gossip_elastic on the dense model (K1 in every attempt's local folds).
+    model, dd, ff, info = dense(2)
+    backlog = int(dd.view(p, rl, e).any(1).sum(-1).max())
+    rounds = 2 * (p - 1) * (1 + -(-backlog // cap)) - 1
+    del dd, ff
+    c0, fold_entries.launches = counters(), 0
+    (g_rows, g_widened), g_ms = timed(lambda: gossip_elastic(model, mesh))
+    migrations = counters().get("elastic.gossip_migrations", 0) - c0.get(
+        "elastic.gossip_migrations", 0)
+    check(g_widened == {"deferred_cap": 4} and migrations == 1,
+          f"dense gossip_elastic widened {g_widened} in {migrations} migrations, not 2 -> 4")
+    out["dense_gossip"] = {"R": r, "E": e, "A": a, "born_deferred_cap": 2, "widened": g_widened,
+                           "migrations": migrations, "k1_launches": fold_entries.launches,
+                           "wall_ms": g_ms, **info}
+    check(not on_card or fold_entries.launches == 2 * p, "gossip_elastic did not run K1")
+    del model
+    # delta_gossip_elastic, unacked and acked: the same (dirty, fctx) in both
+    # attempts of each.
+    d_rows = {}
+    for ack in (False, True):
+        model, dd, ff, _ = dense(2)
+        c0, fold_entries.launches = counters(), 0
+        res, ms = timed(lambda: delta_gossip_elastic(model, dd, ff, mesh, rounds=rounds, cap=cap,
+                                                     ack_window=ack))
+        migrations = counters().get("elastic.delta_migrations", 0) - c0.get(
+            "elastic.delta_migrations", 0)
+        check(res[4] == {"deferred_cap": 4} and migrations == 1 and int(res[3]) == 0
+              and not bool(res[2]),
+              f"delta_gossip_elastic (ack_window={ack}) widened {res[4]} in {migrations} "
+              f"migrations, residue {int(res[3])}")
+        check(model.state.dvalid.shape[-1] == 4, "the model was not widened in place")
+        out["delta_acked" if ack else "delta"] = {
+            "rounds": rounds, "widened": res[4], "migrations": migrations, "wall_ms": ms,
+            "k1_launches": fold_entries.launches}
+        d_rows[ack] = res[0]
+        del model, dd, ff, res
+    # Born at 4: the δ ring, the full-state ring and the fold.
+    st4, dd4, ff4, _ = fill_delta_config3(r, e, a, 4, p, seed, device, chunk, max_parked=2)
+    ring4 = mesh_delta_gossip(st4, dd4, ff4, mesh, rounds=rounds, cap=cap)
+    check(int(ring4[3]) == 0 and not bool(ring4[2]), "the ring born at D = 4 did not certify")
+    del dd4, ff4
+    check(same_leaves(d_rows[False], ring4[0]) and same_leaves(d_rows[True], ring4[0]),
+          "delta_gossip_elastic's rows differ from the ring born at D = 4")
+    g4, of4 = mesh_gossip(st4, mesh)
+    check(not bool(of4) and same_leaves(g_rows, g4),
+          "gossip_elastic's rows differ from mesh_gossip born at D = 4")
+    folded, _ = mesh_fold(st4, mesh)
+    check(rows_equal_fold(ring4[0], folded) and rows_equal_fold(g4, folded),
+          "the widened rings' rows != mesh_fold")
+    out["dense_converged_parked"] = int(folded.dvalid.sum())
+    del st4, ring4, g4, folded, d_rows, g_rows
+
+    # gossip_elastic on the sparse ORSWOT: dot_cap outgrown by rank folds.
+    born = sp_cells // 4
+    model = BatchedSparseOrswot(1, born, a, device=device)
+    model.state = sparse_actor_population(sp_r, sp_cells, sp_universe, a, born, device)
+    (sp_rows, sp_widened), ms = timed(lambda: gossip_elastic(model, mesh))
+    check(sp_widened == {"dot_cap": sp_cells}, f"sparse gossip_elastic widened {sp_widened}")
+    wide = sparse_actor_population(sp_r, sp_cells, sp_universe, a, sp_cells, device)
+    sp4, sp_of = mesh_gossip_sparse(wide, mesh)
+    sp_fold, _ = mesh_fold_sparse(wide, mesh)
+    check(not bool(sp_of.any()) and same_leaves(sp_rows, sp4),
+          "sparse gossip_elastic's rows differ from the ring born at the widened dot_cap")
+    check(all(same_leaves(tuple(x[q] for x in sp4), tuple(sp_fold)) for q in range(p)),
+          "the sparse ring's rows != mesh_fold_sparse")
+    out["sparse_gossip"] = {"R": sp_r, "cells": sp_cells, "universe": sp_universe, "A": a,
+                            "born_dot_cap": born, "widened": sp_widened, "wall_ms": ms,
+                            "converged_cells": int(sp_fold.valid.sum())}
+    del model, wide, sp4, sp_rows, sp_fold
+
+    # gossip_elastic on the Map (K2 in every attempt's local folds).
+    def map_model(d):
+        st, _, _, info = fill_delta_config4(map_r, k, s, map_a, d, p, seed, device, map_chunk,
+                                            max_parked=1)
+        model = BatchedMap(1, k, map_a, s, d, device=device)
+        model.state = st
+        return model, info
+
+    model, info = map_model(1)
+    c0, fold_cells.launches = counters(), 0
+    (m_rows, m_widened), ms = timed(lambda: gossip_elastic(model, mesh))
+    migrations = counters().get("elastic.gossip_migrations", 0) - c0.get(
+        "elastic.gossip_migrations", 0)
+    check(m_widened == {"deferred_cap": 2} and migrations == 1,
+          f"map gossip_elastic widened {m_widened} in {migrations} migrations")
+    check(not on_card or fold_cells.launches == 2 * p, "map gossip_elastic did not run K2")
+    k2 = fold_cells.launches
+    del model
+    wide, _ = map_model(2)
+    m4, m_of = mesh_gossip_map(wide.state, mesh)
+    folded, _ = mesh_fold_map(wide.state, mesh)
+    check(not bool(m_of.any()) and same_leaves(m_rows, m4) and rows_equal_fold(m4, folded),
+          "map gossip_elastic's rows differ from the ring born at D = 2 or its fold")
+    out["map_gossip"] = {"R": map_r, "K": k, "S": s, "A": map_a, "born_deferred_cap": 1,
+                         "widened": m_widened, "migrations": migrations, "k2_launches": k2,
+                         "wall_ms": ms, "replicas_parking": info["replicas_parking"]}
+    del wide, m4, m_rows, folded
+    out["reduced"] = {"map_deferred_cap": [
+        4, 2, "config 4's A = 4 leaves room for two cross removes, which cannot outgrow D = 4: "
+              "the Map model is born at D = 1 and widens to 2"]}
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated(device) / 1e9 if on_card else None
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return out
+
+
+def diverged_ranks(kind: str, p: int, seed: int, device, **widths):
+    """P ranks that diverged from one synced snapshot: rank q's replica 0
+    of the δ fills (a prefix of every actor's post-sync stream, so a few
+    thousand changed rows per rank), their ``(dirty, fctx)`` and the
+    synced state they all inflate."""
+    from crdt_tpu_torch.ops.lattice import tree_map
+
+    synced = []
+    rl = 4
+    if kind == "orswot":
+        st, dd, ff, _ = fill_delta_config3(p * rl, widths["e"], widths["a"], widths["d"], p, seed,
+                                           device, chunk=rl * p, synced_out=synced)
+    else:
+        st, dd, ff, _ = fill_delta_config4(p * rl, widths["k"], widths["s"], widths["a"],
+                                           widths["d"], p, seed, device, chunk=8,
+                                           synced_out=synced)
+    pick = lambda x: x[::rl].contiguous()  # noqa: E731
+    return tree_map(pick, st), pick(dd), pick(ff), synced[0]
+
+
+def phase_resync(device, seed: int, p: int = 8, e: int = 102400, a: int = 8, d: int = 4,
+                 k: int = 1_000_000, s: int = 2, map_a: int = 4) -> dict:
+    """``delta_opt.heal.resync`` over P = 8 ranks that diverged from one
+    snapshot, dense at config 3's widths and Map at config 4's: the healed
+    rows == the left-to-right join chain of the ranks themselves on every
+    leaf; lanes and bytes shipped against full states, and the wall."""
+    import torch
+
+    from crdt_tpu_torch.delta_opt import resync
+    from crdt_tpu_torch.ops import map as map_ops
+    from crdt_tpu_torch.ops import orswot
+    from crdt_tpu_torch.ops.lattice import tree_map
+
+    on_card = device.type == "cuda"
+    sync = (lambda: torch.cuda.synchronize(device)) if on_card else (lambda: None)
+    out = {"phase": "resync", "P": p}
+    for kind, join, widths in (("orswot", orswot.join, dict(e=e, a=a, d=d)),
+                               ("map", map_ops.join, dict(k=k, s=s, a=map_a, d=d))):
+        ranks, _, _, since = diverged_ranks(kind, p, seed, device, **widths)
+        resync(kind, ranks, since)  # warm-up
+        sync()
+        t0 = time.perf_counter()
+        healed, report = resync(kind, ranks, since)
+        sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        chain = tree_map(lambda x: x[0], ranks)
+        for q in range(1, p):
+            chain, _ = join(chain, tree_map(lambda x: x[q], ranks))
+        check(all(same_leaves(tree_map(lambda x: x[q], healed), chain) for q in range(p)),
+              f"{kind} resync differs from the join chain")
+        out[kind] = {**widths, "lanes_shipped": report.lanes_shipped,
+                     "bytes_shipped": report.bytes_shipped,
+                     "bytes_full_state": report.bytes_full_state, "ratio": report.ratio,
+                     "wall_ms": wall_ms}
+        del ranks, since, healed, chain
+    emit(out)
+    return out
+
+
+def phase_donate(device, seed: int, p: int = 8, e: int = 102400, a: int = 8, d: int = 4,
+                 k: int = 1_000_000, s: int = 2, map_a: int = 4, cap: int = 4096) -> dict:
+    """``donate=True`` at R == P = 8: ``mesh_gossip`` at config 3's widths
+    and ``mesh_delta_gossip_map`` at config 4's equal their copying runs on
+    every leaf, and their outputs live in the donated inputs' storage.
+    Peak memory of both runs beside each other, and what each leaves
+    allocated after it, both above what was allocated before the call
+    (the inputs included)."""
+    import torch
+
+    from crdt_tpu_torch.ops.lattice import tree_map
+    from crdt_tpu_torch.parallel import VirtualMesh, mesh_delta_gossip_map, mesh_gossip
+
+    on_card = device.type == "cuda"
+    mesh = VirtualMesh(p, device)
+    out = {"phase": "donate", "R": p, "P": p}
+
+    def peak(fn):
+        if on_card:
+            torch.cuda.synchronize(device)
+            torch.cuda.reset_peak_memory_stats(device)
+            base = torch.cuda.memory_allocated(device)
+        res = fn()
+        if on_card:
+            torch.cuda.synchronize(device)
+            return res, {"peak_gb": (torch.cuda.max_memory_allocated(device) - base) / 1e9,
+                         "resident_gb_after": (torch.cuda.memory_allocated(device) - base) / 1e9}
+        return res, None
+
+    def leaves(tree):
+        return [tree] if isinstance(tree, torch.Tensor) else [y for x in tree for y in leaves(x)]
+
+    dense, _, _, _ = diverged_ranks("orswot", p, seed, device, e=e, a=a, d=d)
+    copied, donated = tree_map(torch.clone, dense), tree_map(torch.clone, dense)
+    (rows0, of0), peak0 = peak(lambda: mesh_gossip(copied, mesh))
+    (rows1, of1), peak1 = peak(lambda: mesh_gossip(donated, mesh, donate=True))
+    check(same_leaves(rows0, rows1) and bool(of0) == bool(of1),
+          "donated mesh_gossip differs from the copying run")
+    check(all(x.data_ptr() == y.data_ptr() for x, y in zip(leaves(rows1), leaves(donated))),
+          "donated mesh_gossip's rows are not in the input's storage")
+    out["mesh_gossip"] = {"E": e, "A": a, "D": d, "copying": peak0, "donated": peak1}
+    del dense, copied, rows0, rows1, donated
+
+    ranks, dd, ff, _ = diverged_ranks("map", p, seed, device, k=k, s=s, a=map_a, d=d)
+    rounds = 2 * (p - 1) * (1 + -(-int(dd.sum(-1).max()) // cap)) - 1
+    copied, dd0 = tree_map(torch.clone, ranks), dd.clone()
+    ring0, peak0 = peak(lambda: mesh_delta_gossip_map(copied, dd0, ff, mesh, rounds=rounds,
+                                                      cap=cap))
+    ds, dd1 = tree_map(torch.clone, ranks), dd.clone()
+    ring1, peak1 = peak(lambda: mesh_delta_gossip_map(ds, dd1, ff, mesh, rounds=rounds, cap=cap,
+                                                      donate=True))
+    check(same_leaves(ring0, ring1) and int(ring1[3]) == 0,
+          "donated mesh_delta_gossip_map differs from the copying run")
+    check(all(x.data_ptr() == y.data_ptr() for x, y in zip(leaves(ring1[0]), leaves(ds)))
+          and ring1[1].data_ptr() == dd1.data_ptr(),
+          "donated mesh_delta_gossip_map's outputs are not in the input's storage")
+    out["mesh_delta_gossip_map"] = {"K": k, "S": s, "A": map_a, "D": d, "rounds": rounds,
+                                    "copying": peak0, "donated": peak1}
+    emit(out)
+    return out
+
+
+
 PHASES = ("k1", "scenarios", "full_width", "k2", "map_scenarios", "full_width_map", "k3",
           "delta_scenarios", "full_width_delta", "map_delta_scenarios", "full_width_delta_map",
-          "sparse_scenarios", "flagship")
+          "sparse_scenarios", "flagship", "elastic", "resync", "donate")
 
 
 def main(argv=None) -> int:
@@ -2847,6 +3388,12 @@ def main(argv=None) -> int:
         phase_sparse_scenarios(device, args.seed)
     if run("flagship"):
         res["flagship"] = phase_flagship(device, args.seed)
+    if run("elastic"):
+        phase_elastic(device, args.seed)
+    if run("resync"):
+        phase_resync(device, args.seed)
+    if run("donate"):
+        phase_donate(device, args.seed)
     if only:
         print(f"chip_smoke: partial run of {only}; no kernels line", flush=True)
         return 0

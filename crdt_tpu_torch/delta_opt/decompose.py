@@ -1,0 +1,169 @@
+"""Join-irreducible decomposition — the minimal-δ half of Enes et al.,
+"Efficient Synchronization of State-based CRDTs" (arXiv 1803.02750);
+counterpart of the JAX package's ``delta_opt/decompose.py``.
+
+A state's inflation over a known lower bound ``since`` splits into
+**row planes** (the per-unit lanes of its content — dense ORSWOT element
+rows, Map key cells, MVReg sibling slots, clock actor lanes, sparse
+segment lanes) and a **residual** (the top clock and the bounded parked
+buffers, which ride whole). A :class:`Decomposition` is the row planes
+masked down to the lanes that differ from ``since``:
+
+- ``lanes``    — the row planes, leading lane axis ``L``, zeroed outside
+  ``valid``;
+- ``valid``    — the changed-lane mask (a positional diff against
+  ``since``'s rows);
+- ``residual`` — the non-row planes of the source state, whole.
+
+``reconstruct(since, d)`` writes the valid lanes over ``since``'s rows
+and adopts the residual, reproducing the source state bit-exactly; the
+kind's join then recomposes it with any peer (``heal.resync``). Rows plus
+the whole-state top are the finest decomposition a clock-compressed
+context can express soundly (the JAX module docstring gives the argument).
+
+The JAX package finds each kind's split/unsplit pair through its
+registry (``analysis.registry.register_decomposition``); the port has no
+registry yet (ROADMAP item 16), so :data:`KINDS` below is the one table
+mapping each ported kind to its ``(join, split, unsplit)``, the pairs
+living beside each kind's ops (``ops/<kind>.py`` ``_decomp_split`` /
+``_decomp_unsplit``). States are unbatched, as the JAX functions take
+them (the JAX resync vmaps them; ``heal.resync`` calls them per rank).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, NamedTuple
+
+import torch
+
+from .._dtypes import bits
+from ..ops.lattice import mask_slots, tree_leaves, tree_map
+
+
+class Decomposer(NamedTuple):
+    """One kind's decomposition plan: its join (for recomposition) and
+    its split/unsplit pair."""
+
+    join: Callable    # (a, b) -> state or (state, overflow)
+    split: Callable   # state -> (rows, residual)
+    unsplit: Callable  # (rows, residual) -> state
+
+
+class Decomposition(NamedTuple):
+    """One state's irredundant join decomposition over ``since``."""
+
+    lanes: Any             # row planes, leading lane axis L (masked)
+    valid: torch.Tensor    # [L] bool — changed lanes
+    residual: Any          # non-row planes (top, parked buffers), whole
+
+
+def _lane_mask(valid: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
+    return valid.reshape(-1, *([1] * (leaf.dim() - 1)))
+
+
+def _changed_lanes(rows_a, rows_b) -> torch.Tensor:
+    """Per-lane OR of leaf-wise differences over every trailing axis."""
+    out = None
+    for a, b in zip(tree_leaves(rows_a), tree_leaves(rows_b)):
+        neq = torch.any((bits(a) != bits(b)).reshape(a.shape[0], -1), dim=-1)
+        out = neq if out is None else out | neq
+    return out
+
+
+def decompose_rows(state, since, split) -> Decomposition:
+    """The generic row-diff decomposition: ``split(state)`` yields ``(rows,
+    residual)`` with a shared leading lane axis on every row leaf; a lane
+    is emitted iff it differs from ``since``'s."""
+    rows_s, res = split(state)
+    rows_o, _ = split(since)
+    valid = _changed_lanes(rows_s, rows_o)
+    return Decomposition(lanes=tree_map(lambda x: mask_slots(valid, x), rows_s), valid=valid,
+                         residual=res)
+
+
+def reconstruct_rows(since, d: Decomposition, split, unsplit):
+    """Join the decomposition's lanes over ``since``: valid lanes replace
+    ``since``'s rows positionally, the residual is adopted whole. For
+    ``since <= s`` this reproduces ``s`` bit-exactly."""
+    rows_o, _ = split(since)
+    rows = tree_map(lambda lane, old: torch.where(_lane_mask(d.valid, lane), bits(lane),
+                                                  bits(old)).view(lane.dtype), d.lanes, rows_o)
+    return unsplit(rows, d.residual)
+
+
+def drop_lane(d: Decomposition, lane: int) -> Decomposition:
+    """The decomposition minus one lane (the irredundancy law's probe):
+    invalidate and zero lane ``lane``."""
+    valid = d.valid.clone()
+    valid[lane] = False
+    return Decomposition(lanes=tree_map(lambda x: mask_slots(valid, x), d.lanes), valid=valid,
+                         residual=d.residual)
+
+
+def _table() -> dict:
+    from ..ops import map as map_ops
+    from ..ops import mvreg, orswot, sparse_orswot, vclock
+
+    return {
+        "orswot": Decomposer(orswot.join, orswot._decomp_split, orswot._decomp_unsplit),
+        "map": Decomposer(map_ops.join, map_ops._decomp_split, map_ops._decomp_unsplit),
+        "mvreg": Decomposer(mvreg.join, mvreg._decomp_split, mvreg._decomp_unsplit),
+        "vclock": Decomposer(vclock.merge, vclock._decomp_split, vclock._decomp_unsplit),
+        "sparse_orswot": Decomposer(sparse_orswot.join, sparse_orswot._decomp_split,
+                                    sparse_orswot._decomp_unsplit),
+    }
+
+
+#: kind name -> :class:`Decomposer`, for every kind the port has.
+KINDS = _table()
+
+
+def get_decomposer(dec_or_kind) -> Decomposer:
+    """A kind's :class:`Decomposer` by name (or a Decomposer itself)."""
+    if isinstance(dec_or_kind, str):
+        try:
+            return KINDS[dec_or_kind]
+        except KeyError:
+            raise KeyError(f"no decomposition for kind {dec_or_kind!r}; the port has "
+                           f"{sorted(KINDS)}") from None
+    return dec_or_kind
+
+
+def decompose(dec_or_kind, state, since) -> Decomposition:
+    """Decompose ``state`` over ``since`` by a kind name or a
+    :class:`Decomposer`."""
+    return decompose_rows(state, since, get_decomposer(dec_or_kind).split)
+
+
+def reconstruct(dec_or_kind, since, d: Decomposition):
+    dec = get_decomposer(dec_or_kind)
+    return reconstruct_rows(since, d, dec.split, dec.unsplit)
+
+
+# ---- byte accounting ------------------------------------------------------
+
+def lane_bytes(d: Decomposition) -> int:
+    """Static per-lane byte count of the row planes."""
+    n = max(d.valid.shape[-1], 1)
+    return sum((leaf.numel() // n) * leaf.element_size() for leaf in tree_leaves(d.lanes))
+
+
+def residual_bytes(d: Decomposition) -> int:
+    return (sum(leaf.numel() * leaf.element_size() for leaf in tree_leaves(d.residual))
+            + d.valid.numel() * d.valid.element_size())
+
+
+def decomposition_bytes(d: Decomposition) -> torch.Tensor:
+    """Shipped-payload bytes of one decomposition (float32): valid lanes
+    priced at the static per-lane width, plus the residual and the
+    validity mask riding whole (the ``bytes_useful`` convention)."""
+    return (d.valid.sum(dtype=torch.float32) * lane_bytes(d)
+            + torch.tensor(float(residual_bytes(d)), dtype=torch.float32,
+                           device=d.valid.device))
+
+
+__all__ = [
+    "Decomposer", "Decomposition", "KINDS", "decompose", "decompose_rows",
+    "decomposition_bytes", "drop_lane", "get_decomposer", "lane_bytes", "reconstruct",
+    "reconstruct_rows", "residual_bytes",
+]

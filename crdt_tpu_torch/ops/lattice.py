@@ -6,7 +6,9 @@ associative, commutative and idempotent. The batch is padded to a power
 of two with join identities, which the join absorbs. States are
 NamedTuples of tensors; ``join`` broadcasts over leading batch axes
 (the JAX package's ``jax.vmap(join)`` becomes a join on batched
-leaves).
+leaves). Beside it, the tree walks (``tree_map``, ``tree_leaves``) and
+the row gathers and scatters every packet and window function shares
+(``take_rows``, ``put_rows``, ``mask_slots``).
 """
 
 from __future__ import annotations
@@ -25,6 +27,39 @@ def tree_map(fn: Callable, *trees):
         out = [tree_map(fn, *kids) for kids in zip(*trees)]
         return type(first)(*out) if hasattr(first, "_fields") else tuple(out)
     return fn(*trees)
+
+
+def tree_leaves(tree) -> list:
+    """The tensors of a (nested) NamedTuple/tuple, depth first."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [leaf for x in tree for leaf in tree_leaves(x)]
+
+
+def row_index(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``idx [.., C]`` expanded over the trailing axes of ``x [.., E, ...]``
+    for a gather/scatter along the row axis."""
+    extra = x.dim() - idx.dim()
+    return idx.long().reshape(*idx.shape, *([1] * extra)).expand(*idx.shape, *x.shape[idx.dim():])
+
+
+def take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows ``idx [.., C]`` of ``x [.., E, ...]`` (any lane dtype)."""
+    return torch.gather(bits(x), idx.dim() - 1, row_index(x, idx)).view(x.dtype)
+
+
+def put_rows(x: torch.Tensor, idx: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """A copy of ``x`` with rows ``idx`` set to ``v`` (indices distinct)."""
+    return torch.scatter(bits(x), idx.dim() - 1, row_index(x, idx), bits(v)).view(x.dtype)
+
+
+def mask_slots(keep: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``x [.., C, ...]`` with the slots ``keep [.., C]`` leaves out zeroed
+    (any lane dtype, bool included)."""
+    sel = keep.reshape(*keep.shape, *([1] * (x.dim() - keep.dim())))
+    if x.dtype == torch.bool:
+        return x & sel
+    return torch.where(sel, bits(x), 0).view(x.dtype)
 
 
 def _cat(xs, ys):

@@ -432,3 +432,14 @@ def apply_rm(state: MapState, rm_clock, key_mask):
         _narrow(MapState(top=st.top, child=child, dcl=dcl, dkeys=dkeys, dvalid=dvalid)),
         overflow,
     )
+
+
+def _decomp_split(s: MapState):
+    """Decomposition granularity (``delta_opt/``): one δ lane per key's
+    content-slot row group; top + parked keyset buffer residual."""
+    return s.child, (s.top, s.dcl, s.dkeys, s.dvalid)
+
+
+def _decomp_unsplit(rows, res) -> MapState:
+    top, dcl, dkeys, dvalid = res
+    return MapState(top=top, child=rows, dcl=dcl, dkeys=dkeys, dvalid=dvalid)

@@ -238,3 +238,14 @@ def apply_put(state: MVRegState, wact, wctr, clock, val):
         valid=valid | onehot,
     )
     return _narrow(out), overflow
+
+
+def _decomp_split(s: MVRegState):
+    """Decomposition granularity (``delta_opt/``): one δ lane per sibling
+    slot — a slot's (witness dot, clock, value) is one concurrent write,
+    the register's join-irreducible unit; no residual."""
+    return s, ()
+
+
+def _decomp_unsplit(rows, res) -> MVRegState:
+    return rows

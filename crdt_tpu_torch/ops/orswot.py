@@ -436,3 +436,16 @@ def apply_rm(state: OrswotState, rm_clock, member_mask):
         ),
         overflow,
     )
+
+
+def _decomp_split(s: OrswotState):
+    """Join-irreducible decomposition granularity (``delta_opt/``): one δ
+    lane per element birth-clock row; the top clock and the bounded
+    parked-remove buffer are the residual."""
+    return (s.ctr,), (s.top, s.dcl, s.dmask, s.dvalid)
+
+
+def _decomp_unsplit(rows, res) -> OrswotState:
+    (ctr,) = rows
+    top, dcl, dmask, dvalid = res
+    return OrswotState(top=top, ctr=ctr, dcl=dcl, dmask=dmask, dvalid=dvalid)

@@ -574,6 +574,20 @@ def nbytes(state: SparseOrswotState) -> int:
     return total // (int(np.prod(lead)) if lead else 1)
 
 
+def _decomp_split(s: SparseOrswotState):
+    """Decomposition granularity (``delta_opt/``): one δ lane per segment-
+    table dot lane (positional — canonical order keeps the diff tight
+    under append-style growth); top + parked buffer residual."""
+    return (s.eid, s.act, s.ctr, s.valid), (s.top, s.dcl, s.didx, s.dvalid)
+
+
+def _decomp_unsplit(rows, res) -> SparseOrswotState:
+    eid, act, ctr, valid = rows
+    top, dcl, didx, dvalid = res
+    return SparseOrswotState(top=top, eid=eid, act=act, ctr=ctr, valid=valid,
+                             dcl=dcl, didx=didx, dvalid=dvalid)
+
+
 __all__ = [
     "SparseOrswotState", "apply_add", "apply_rm", "changed_dots", "empty", "fold",
     "from_dense", "join", "narrow", "nbytes", "reset_remove", "to_dense", "widen",

@@ -57,3 +57,15 @@ def reset_remove(clock: torch.Tensor, other: torch.Tensor) -> torch.Tensor:
     wc = to_wide(clock)
     zero = wide_scalar(0, clock.dtype)
     return from_wide(torch.where(wc <= to_wide(other), zero, wc), clock.dtype)
+
+
+def _decomp_split(s: torch.Tensor):
+    """Decomposition granularity (``delta_opt/``): one δ lane per actor
+    counter — a clock's join-irreducibles are its per-actor dots; no
+    residual."""
+    return (s,), ()
+
+
+def _decomp_unsplit(rows, res) -> torch.Tensor:
+    (counters,) = rows
+    return counters

@@ -310,7 +310,8 @@ def wire_pack_many(calls: Sequence[dict]) -> List[WirePackOut]:
     :class:`WirePackOut` each, in order. CUDA instances share a clock
     dtype and a device (at most ``MAX_GROUP`` of them); CPU tensors take
     :func:`wire_pack_plain` for each. ``wire_pack.launches`` counts the
-    launches: one per group."""
+    launches, one per group, and ``wire_pack.acked_launches`` those whose
+    group holds an acked instance."""
     items = []
     for c in calls:
         spec = c["spec"]
@@ -331,6 +332,7 @@ def wire_pack_many(calls: Sequence[dict]) -> List[WirePackOut]:
                for spec, args in items]
     outs = _launch(stacked)
     wire_pack.launches += 1
+    wire_pack.acked_launches += any(spec.acked for spec, _ in items)
     return [out if args[0].dim() == 3 else WirePackOut(*(x[0] for x in out))
             for out, (_, args) in zip(outs, items)]
 
@@ -365,6 +367,7 @@ def wire_pack(
 
 
 wire_pack.launches = 0
+wire_pack.acked_launches = 0
 
 
 def _kernel() -> ctypes.CDLL:

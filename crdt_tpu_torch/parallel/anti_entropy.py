@@ -9,9 +9,21 @@ epilogue; the plain tree folds on the CPU; the sparse join, which has no
 kernel, in one batched tree for all ranks); then one lattice all-reduce
 (``mesh_fold*``) or ``rounds`` ring rounds (``mesh_gossip*``) join the
 ranks. K1 and K2 have no rank axis, so the local fold is one launch per
-rank, each streaming that rank's contiguous replica block. The JAX
-entries' ``telemetry=``, ``donate=``, ``stability=``, ``faults=`` and
-``lag_threshold=`` modes are still to port (ROADMAP item 15) and raise.
+rank, each streaming that rank's contiguous replica block.
+``mesh_gossip_sparse`` is the ring for the segment-encoded ORSWOT, and
+``gossip_elastic`` the ring entries' overflow → widen → re-enter loop
+(``elastic.py``).
+
+``donate=True`` (the JAX entries' zero-copy mode) says the caller yields
+the input state. A ring entry keeps the ``[P, ...]`` layout, so when the
+padded replica axis equals P its outputs are written into the caller's
+tensors and returned in them: one copy of the state outlives the call.
+Any other batch counts ``anti_entropy.donate_unaliasable``. A fold entry
+reduces the replica axis away, so no output can take the input's place.
+Every input the outputs do not live in is freed after the run
+(:func:`_consume`). The JAX entries' ``telemetry=`` (ROADMAP item 15),
+``stability=`` and ``lag_threshold=`` (15.2) and ``faults=`` (15.4) modes
+are still to port and raise, naming their items.
 """
 
 from __future__ import annotations
@@ -21,11 +33,12 @@ from typing import Optional, Tuple
 import torch
 
 from .._dtypes import bits
+from ..utils.metrics import metrics
 from ..ops import map as map_ops
 from ..ops import orswot as ops
 from ..ops import sparse_orswot as sp
 from ..ops.fold_kernels import fold_auto
-from ..ops.lattice import tree_map
+from ..ops.lattice import tree_leaves, tree_map
 from ..ops.map import MapState
 from ..ops.orswot import OrswotState
 from ..ops.sparse_orswot import SparseOrswotState
@@ -33,14 +46,77 @@ from .collectives import all_reduce_join, all_reduce_lattice, ring_round
 from .mesh import VirtualMesh, pad_replicas, pad_replicas_map, pad_replicas_sparse
 
 
-def _refuse(item: str = "15", **modes) -> None:
-    """Raise for a mode of the JAX entry that the port does not run yet,
-    naming the ROADMAP item that ports it."""
-    on = [name for name, value in modes.items() if value]
+# The ROADMAP item that ports each mode of the JAX entries still missing.
+_UNPORTED = {"telemetry": "15", "frontier": "15", "compact_every": "15", "stability": "15.2",
+             "lag_threshold": "15.2", "reclaim": "15.2", "widen_policy": "15.3",
+             "faults": "15.4", "wal": "9", "wal_every": "9", "wal_base": "9"}
+
+
+def _refuse(fn: str, **modes) -> None:
+    """Raise for the modes of a JAX entry that the port does not run yet,
+    each naming the ROADMAP item that ports it."""
+    on = [f"{name}= (ROADMAP item {_UNPORTED[name]})" for name, value in modes.items() if value]
     if on:
-        raise NotImplementedError(
-            f"{', '.join(on)}: not ported yet (ROADMAP item {item}); call without it"
-        )
+        raise NotImplementedError(f"{fn}: {', '.join(on)} not ported yet; call without it")
+
+
+def _donation(state, mesh: VirtualMesh, donate: bool) -> bool:
+    """Whether a ring entry's ``[P, ...]`` outputs can take the donated
+    input's place: exactly when the padded replica axis equals P (one
+    replica row per rank, the steady-state mesh shape). A donating call
+    with any other batch counts ``anti_entropy.donate_unaliasable`` (the
+    JAX package's ``_ring_donate_argnums``)."""
+    if not donate:
+        return False
+    r = tree_leaves(state)[0].shape[0]
+    if r + (-r) % mesh.p != mesh.p:
+        metrics.count("anti_entropy.donate_unaliasable")
+        return False
+    return True
+
+
+def _write_back(dst, src):
+    """Copy every leaf of ``src`` into the matching leaf of ``dst`` (same
+    shape, dtype and device) and return the tree of the leaves that now
+    hold the result: ``dst``'s where they matched, ``src``'s elsewhere."""
+    if isinstance(src, torch.Tensor):
+        if (dst.shape != src.shape or dst.dtype != src.dtype or dst.device != src.device):
+            return src
+        if src.untyped_storage().data_ptr() == dst.untyped_storage().data_ptr():
+            if src.data_ptr() == dst.data_ptr() and src.stride() == dst.stride():
+                return dst
+            src = src.clone()
+        bits(dst).copy_(bits(src))
+        return dst
+    out = [_write_back(a, b) for a, b in zip(dst, src)]
+    return type(src)(*out) if hasattr(src, "_fields") else tuple(out)
+
+
+def _consume(donated, keep=()) -> None:
+    """Donation's end: free the storage of every donated input leaf that
+    no output in ``keep`` lives in — the caller yielded it. A storage
+    torch cannot resize (one borrowed from numpy) is left to the caller's
+    reference."""
+    kept = {leaf.untyped_storage().data_ptr() for leaf in tree_leaves(keep)}
+    for leaf in tree_leaves(donated):
+        storage = leaf.untyped_storage()
+        if storage.data_ptr() in kept or storage.nbytes() == 0:
+            continue
+        try:
+            storage.resize_(0)
+        except RuntimeError:
+            pass
+
+
+def _donate_ring(donate: bool, aliasable: bool, state, out):
+    """A ring entry's donation: write the ``[P, ...]`` outputs into the
+    caller's state when aliasable, then free what is left of it."""
+    if not donate:
+        return out
+    if aliasable:
+        out = _write_back(state, out)
+    _consume(state, keep=out)
+    return out
 
 
 def rank_blocks(state, mesh: VirtualMesh):
@@ -95,10 +171,13 @@ def mesh_fold(
     converged state — each rank folds its block, then one lattice-join
     all-reduce over the ranks, on ``mesh.device``. Returns ``(converged
     state, overflow)``."""
-    _refuse(telemetry=telemetry, donate=donate)
+    _refuse("mesh_fold", telemetry=telemetry)
     folded, of_local = local_folds(rank_blocks(state, mesh), _fold_fn(local_fold))
     joined, of_cross = all_reduce_join(folded)
-    return tree_map(lambda x: x[0], joined), torch.any(of_local) | of_cross
+    out = tree_map(lambda x: x[0], joined)
+    if donate:
+        _consume(state, keep=out)
+    return out, torch.any(of_local) | of_cross
 
 
 def mesh_gossip(
@@ -115,16 +194,25 @@ def mesh_gossip(
     """Ring anti-entropy: each rank folds its block, then ``rounds``
     (default P-1) unit-shift ring rounds, each shipping one state per
     link. Returns ``(states [P, ...], overflow)``; with P-1 rounds every
-    row is the full join."""
-    _refuse(telemetry=telemetry, donate=donate, stability=stability,
+    row is the full join. ``donate=True``: see the module docstring."""
+    _refuse("mesh_gossip", telemetry=telemetry, stability=stability,
             faults=faults is not None, lag_threshold=lag_threshold is not None)
+    return _gossip(state, mesh, rounds, donate, _fold_fn(local_fold), ops.join)
+
+
+def _gossip(state, mesh: VirtualMesh, rounds: Optional[int], donate: bool, fold_fn, join_fn):
+    """The ring scaffold of the ``mesh_gossip*`` entries: each rank folds
+    its block, then ``rounds`` (default P-1) unit-shift ring rounds.
+    Returns ``(states [P, ...], overflow)`` with the flags OR-reduced over
+    the ranks."""
+    aliasable = _donation(state, mesh, donate)
     if rounds is None:
         rounds = mesh.p - 1
-    folded, of = local_folds(rank_blocks(state, mesh), _fold_fn(local_fold))
+    folded, of = local_folds(rank_blocks(state, mesh), fold_fn)
     for _ in range(rounds):
-        folded, of_r = ring_round(folded, reduce_overflow=False, join_fn=ops.join)
+        folded, of_r = ring_round(folded, reduce_overflow=False, join_fn=join_fn)
         of = of | of_r
-    return folded, torch.any(of)
+    return _donate_ring(donate, aliasable, state, folded), torch.any(of, dim=0)
 
 
 def mesh_fold_map(
@@ -135,10 +223,13 @@ def mesh_fold_map(
     card), then one lattice-join all-reduce over the ranks, on
     ``mesh.device``. Returns ``(converged state, overflow [2])`` —
     [sibling slab, deferred buffer] as in ``ops.map.join``."""
-    _refuse(telemetry=telemetry, donate=donate)
+    _refuse("mesh_fold_map", telemetry=telemetry)
     folded, of_local = local_folds(rank_blocks(state, mesh), map_ops.fold)
     joined, of_cross = all_reduce_lattice(folded, map_ops.join, map_ops.fold)
-    return tree_map(lambda x: x[0], joined), torch.any(of_local, dim=0) | of_cross
+    out = tree_map(lambda x: x[0], joined)
+    if donate:
+        _consume(state, keep=out)
+    return out, torch.any(of_local, dim=0) | of_cross
 
 
 def mesh_gossip_map(
@@ -155,15 +246,9 @@ def mesh_gossip_map(
     then ``rounds`` (default P-1) unit-shift ring rounds, each shipping
     one state per link. Returns ``(states [P, ...], overflow [2])``; with
     P-1 rounds every row is the full join."""
-    _refuse(telemetry=telemetry, donate=donate, stability=stability,
+    _refuse("mesh_gossip_map", telemetry=telemetry, stability=stability,
             faults=faults is not None, lag_threshold=lag_threshold is not None)
-    if rounds is None:
-        rounds = mesh.p - 1
-    folded, of = local_folds(rank_blocks(state, mesh), map_ops.fold)
-    for _ in range(rounds):
-        folded, of_r = ring_round(folded, reduce_overflow=False, join_fn=map_ops.join)
-        of = of | of_r
-    return folded, torch.any(of, dim=0)
+    return _gossip(state, mesh, rounds, donate, map_ops.fold, map_ops.join)
 
 
 def mesh_fold_sparse(
@@ -176,11 +261,94 @@ def mesh_fold_sparse(
     :func:`local_folds`), then one lattice-join all-reduce over the ranks,
     on ``mesh.device``. Returns ``(converged state, overflow [2])`` —
     [dot capacity, deferred capacity]."""
-    _refuse(telemetry=telemetry, donate=donate)
+    _refuse("mesh_fold_sparse", telemetry=telemetry)
     folded, of_local = local_folds(rank_blocks(states, mesh), sp.fold)
     joined, of_cross = all_reduce_lattice(folded, sp.join, sp.fold)
-    return tree_map(lambda x: x[0], joined), torch.any(of_local, dim=0) | of_cross
+    out = tree_map(lambda x: x[0], joined)
+    if donate:
+        _consume(states, keep=out)
+    return out, torch.any(of_local, dim=0) | of_cross
 
 
-__all__ = ["local_folds", "mesh_fold", "mesh_fold_map", "mesh_fold_sparse", "mesh_gossip",
-           "mesh_gossip_map", "rank_blocks"]
+def mesh_gossip_sparse(
+    states: SparseOrswotState,
+    mesh: VirtualMesh,
+    rounds: Optional[int] = None,
+    telemetry: bool = False,
+    donate: bool = False,
+    stability: bool = False,
+    faults=None,
+    lag_threshold=None,
+) -> Tuple[SparseOrswotState, torch.Tensor]:
+    """Ring anti-entropy for SPARSE (segment-encoded) ORSWOT replica
+    batches, the segment table replicated as in :func:`mesh_fold_sparse`:
+    each rank folds its block, then ``rounds`` (default P-1) unit-shift
+    ring rounds of ``ops.sparse_orswot.join``, one segment table per link
+    per round (traffic proportional to live dots, not the universe).
+    Returns ``(states [P, ...], overflow [2])``."""
+    _refuse("mesh_gossip_sparse", telemetry=telemetry, stability=stability,
+            faults=faults is not None, lag_threshold=lag_threshold is not None)
+    return _gossip(states, mesh, rounds, donate, sp.fold, sp.join)
+
+
+def gossip_elastic(model, mesh: VirtualMesh, rounds: Optional[int] = None, policy=None,
+                   telemetry: bool = False, donate: bool = False, stability: bool = False,
+                   reclaim=None, faults=None, lag_threshold=None):
+    """Ring anti-entropy with elastic capacity recovery — the
+    overflow → widen → resume loop at mesh scale (``elastic.py``): run the
+    model family's ring gossip on ``model.state``; when a capacity lane
+    overflows, the attempt's result is discarded (the gossip entries never
+    commit to the model), the implicated axes widen by ``policy.factor``
+    with the live state re-encoded on the device, and the ring re-enters.
+    The widened state is bit-identical to a wider-born one, so the
+    re-entered ring converges to the full join of the wider family.
+
+    Covers ``BatchedOrswot`` (``mesh_gossip``; the deferred lane),
+    ``BatchedSparseOrswot`` (``mesh_gossip_sparse``; dot and deferred
+    lanes) and ``BatchedMap`` (``mesh_gossip_map``; sibling and deferred
+    lanes). ``donate=True`` donates each attempt's state into the ring and
+    restores ``model.state`` from a pre-round copy afterwards (a failed
+    attempt needs the pre-round state). Returns ``(rows, widened)``: the
+    ``[P, ...]`` rows and the axes grown (empty when capacity sufficed).
+    ``telemetry=`` (ROADMAP item 15), ``stability=``, ``lag_threshold=``
+    and ``reclaim=`` (item 15.2) and ``faults=`` (item 15.4) raise."""
+    from .. import elastic
+    from ..models.map import BatchedMap
+    from ..models.orswot import BatchedOrswot
+    from ..models.sparse_orswot import BatchedSparseOrswot
+    _refuse("gossip_elastic", telemetry=telemetry, stability=stability,
+            lag_threshold=lag_threshold is not None, reclaim=reclaim is not None,
+            faults=faults is not None)
+    policy = policy or elastic.DEFAULT_POLICY
+    plans = ((BatchedOrswot, mesh_gossip, ("deferred_cap",)),
+             (BatchedSparseOrswot, mesh_gossip_sparse, ("dot_cap", "deferred_cap")),
+             (BatchedMap, mesh_gossip_map, ("sibling_cap", "deferred_cap")))
+    plan = next(((run, lanes) for cls, run, lanes in plans if isinstance(model, cls)), None)
+    if plan is None:
+        raise TypeError(
+            f"gossip_elastic covers BatchedOrswot, BatchedSparseOrswot and BatchedMap, got "
+            f"{type(model).__name__}")
+    run, lanes = plan
+    widened: dict = {}
+    migrations = 0
+    while True:
+        if donate:
+            snap = tree_map(torch.clone, model.state)
+        rows, flags = run(model.state, mesh, rounds, donate=donate)
+        if donate:
+            model.state = snap
+        flags = torch.atleast_1d(flags).tolist()
+        hot = tuple(axis for lane, axis in enumerate(lanes) if flags[lane])
+        if not hot:
+            return rows, widened
+        if migrations >= policy.max_migrations:
+            raise RuntimeError(
+                f"gossip still overflowing after {migrations} migrations (axes grown: "
+                f"{widened}); raise policy.factor or max_migrations")
+        metrics.count("elastic.gossip_migrations")
+        widened.update(elastic.widen(model, hot, policy))
+        migrations += 1
+
+
+__all__ = ["gossip_elastic", "local_folds", "mesh_fold", "mesh_fold_map", "mesh_fold_sparse",
+           "mesh_gossip", "mesh_gossip_map", "mesh_gossip_sparse", "rank_blocks"]

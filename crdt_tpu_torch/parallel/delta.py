@@ -31,6 +31,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from .._dtypes import bits, from_wide, to_wide
+from ..ops.lattice import mask_slots, put_rows, take_rows
 from ..ops.orswot import (
     DTYPE,
     OrswotState,
@@ -51,32 +52,6 @@ class DeltaPacket(NamedTuple):
     dcl: torch.Tensor     # [.., D, A] parked removes ride whole
     dmask: torch.Tensor   # [.., D, E]
     dvalid: torch.Tensor  # [.., D]
-
-
-def _index(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``idx [.., C]`` expanded over the trailing axes of ``x [.., E, ...]``
-    for a gather/scatter along the row axis."""
-    extra = x.dim() - idx.dim()
-    return idx.long().reshape(*idx.shape, *([1] * extra)).expand(*idx.shape, *x.shape[idx.dim():])
-
-
-def take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Rows ``idx [.., C]`` of ``x [.., E, ...]`` (any lane dtype)."""
-    return torch.gather(bits(x), idx.dim() - 1, _index(x, idx)).view(x.dtype)
-
-
-def put_rows(x: torch.Tensor, idx: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """A copy of ``x`` with rows ``idx`` set to ``v`` (indices distinct)."""
-    return torch.scatter(bits(x), idx.dim() - 1, _index(x, idx), bits(v)).view(x.dtype)
-
-
-def mask_slots(keep: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """``x [.., C, ...]`` with the slots ``keep [.., C]`` leaves out zeroed
-    (any lane dtype, bool included)."""
-    sel = keep.reshape(*keep.shape, *([1] * (x.dim() - keep.dim())))
-    if x.dtype == torch.bool:
-        return x & sel
-    return torch.where(sel, bits(x), 0).view(x.dtype)
 
 
 def interval_accumulate(
@@ -244,10 +219,15 @@ def mesh_delta_gossip(
     top covers (``gate_delta``); ``fused=True`` ships every packet through
     the fused wire pass (kernel K3 on a card) in the bit-packed format of
     ``parallel/wire.py``, ``fused=False`` through the layered path — the
-    converged states are bit-identical. ``stats``, when a dict, receives
-    the run's counts (``delta_ring.run_delta_ring``). ``telemetry=``,
-    ``donate=True``, ``faults=``, ``ack_window=`` and ``wal=`` are still
-    to port (ROADMAP item 7) and raise.
+    converged states are bit-identical. ``ack_window=True`` adds the
+    per-link acked-interval window (``delta_opt/ackwin.py``): slots the
+    peer positively confirmed joining stop shipping, removals included;
+    the converged states stay bit-identical. ``donate=True`` yields
+    ``(state, dirty)``: at R == P the outputs come back in the caller's
+    tensors. ``stats``, when a dict, receives the run's counts
+    (``delta_ring.run_delta_ring`` documents both modes and the counts).
+    ``telemetry=`` (ROADMAP item 15), ``faults=`` (item 15.4) and ``wal=``
+    (item 9) are still to port and raise.
 
     Returns ``(states [P, ...], dirty [P, E], overflow, residue)``."""
     from ..ops.fold_kernels import fold_auto

@@ -275,9 +275,10 @@ def mesh_delta_gossip_map(
     on a card). ``dirty [R, K]`` / ``fctx [R, K, A]`` come from
     :func:`interval_accumulate_map` or op logs. See
     ``delta.mesh_delta_gossip`` for the modes, the ROUNDS BUDGET and
-    ``stats``; ``telemetry=``, ``donate=True``, ``faults=``,
-    ``ack_window=`` and ``wal=`` are still to port (ROADMAP item 7) and
-    raise. Returns ``(states [P, ...], dirty [P, K], overflow [2],
+    ``stats``, ``ack_window=`` (the Map ring ships removal-carrying
+    slots, which only the ack window can mask) and ``donate=``;
+    ``telemetry=`` (ROADMAP item 15), ``faults=`` (item 15.4) and ``wal=``
+    (item 9) are still to port and raise. Returns ``(states [P, ...], dirty [P, K], overflow [2],
     residue)``."""
     from .delta_ring import run_delta_ring
 

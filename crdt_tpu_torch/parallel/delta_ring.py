@@ -28,10 +28,28 @@ Modes ported (the JAX module docstring gives their soundness):
   flavor's packet template (``template=``: meta tensors of one link's
   packet, where the JAX ring takes ``jax.eval_shape`` of the extract).
 
+- ``ack_window=True`` — the per-link acked-interval window
+  (``delta_opt/ackwin.py``): after each apply the receiver ships one
+  bool per slot back one inverse hop (a u32 bitmap on the fused wire),
+  the sender promotes the confirmed slots of its own shipped copy into
+  the window, and later slots whose content and context the peer has
+  positively confirmed are masked — removals included. The fused wire
+  takes the window as K3's acked verdict and per-slot watermark (the
+  receiver decodes against its mirror, ``wire.mirror_promote``; under
+  ``pipeline=True`` the mirror from before this round's promotion); the
+  layered wire masks with ``gate_window`` after the digest gate. Counts
+  ``delta_opt.ack_window_runs``; ``stats`` gets ``slots_acked_skipped``.
+- ``donate=True`` — the caller yields ``state`` and ``dirty``: when the
+  padded replica axis equals P (one replica row per rank) the ``[P,
+  ...]`` outputs are written into the caller's tensors and returned in
+  them, so one copy of the state outlives the call; otherwise the miss
+  counts ``anti_entropy.donate_unaliasable`` and the inputs are freed
+  after the run (``anti_entropy._consume``). ``fctx`` is never donated.
+
 The residue certificate, the overflow OR, the narrow-lost parked count and
-the guarded top adoption follow the JAX ring exactly. ``telemetry=``,
-``faults=`` (and its delay mode), ``ack_window=``, ``wal=`` and
-``donate=True`` are still to port (ROADMAP item 7) and raise.
+the guarded top adoption follow the JAX ring exactly. ``telemetry=``
+(ROADMAP item 15), ``faults=`` with its delay mode (item 15.4) and
+``wal=`` (item 9) are still to port and raise, naming their items.
 """
 
 from __future__ import annotations
@@ -41,8 +59,12 @@ from typing import Callable, Optional
 import torch
 
 from .._dtypes import bits, umax
+from ..delta_opt import ackwin as _ackwin
+from ..ops import wire_kernels as _wk
+from ..ops.lattice import tree_map
+from ..utils.metrics import metrics
 from . import wire as _wire
-from .anti_entropy import local_folds, rank_blocks
+from .anti_entropy import _consume, _donation, _refuse, _write_back, local_folds, rank_blocks
 from .collectives import pmax, ppermute, psum
 from .delta import DeltaPacket
 from .mesh import VirtualMesh
@@ -105,29 +127,31 @@ def run_delta_ring(
     ``stats``, when a dict, receives the run's counts: ``rounds``,
     ``links`` (P), ``slots_shipped`` (slots on the wire, all links and
     rounds), ``slots_deferred``, ``parked_lost``, ``packet_bytes`` (one
-    link's layered ``DeltaPacket``) and, fused, ``wire_bytes`` (one link's
-    ``WirePacket``) — shapes are static, so both are per link-round."""
-    off = dict(telemetry=telemetry, donate=donate, faults=faults is not None,
-               ack_window=bool(ack_window), wal=wal is not None)
-    on = [name for name, value in off.items() if value]
-    if on:
-        raise NotImplementedError(
-            f"run_delta_ring: {', '.join(on)} not ported yet (ROADMAP item 7)"
-        )
+    link's layered ``DeltaPacket``), fused ``wire_bytes`` (one link's
+    ``WirePacket``) — shapes are static, so both are per link-round — and,
+    with ``ack_window=``, ``slots_acked_skipped`` (slots the window
+    masked, all links and rounds; times ``ackwin.slot_bytes`` it is the
+    JAX ring's ``bytes_acked_skipped``) and ``ack_bytes`` (one link's ack
+    lane per round). The counts stay on the device until this read."""
+    _refuse("run_delta_ring", telemetry=telemetry, faults=faults is not None,
+            wal=wal is not None)
     if fused and kind not in _wire.WIRE_SURFACES:
         raise NotImplementedError(
             f"run_delta_ring: fused=True needs a wire codec for {kind!r}; only "
-            f"{sorted(_wire.WIRE_SURFACES)} are ported (ROADMAP item 7)"
+            f"{sorted(_wire.WIRE_SURFACES)} are ported (ROADMAP item 13)"
         )
     p = mesh.p
     gated = digest and gate is not None
+    acked = bool(ack_window)
     win = (p - 1) if not pipeline else max(2 * (p - 1) - 1, 0)
     if rounds is None:
         rounds = win
     perm = [(i, (i + 1) % p) for i in range(p)]
-    # Digest exchange runs against the ring: rank i's packets land on
-    # i+1, so i needs i+1's frozen top.
+    # Digest exchange and acks run against the ring: rank i's packets land
+    # on i+1, so i needs i+1's frozen top and i+1's acks.
     inv_perm = [(i, (i - 1) % p) for i in range(p)]
+    aliasable = _donation(state, mesh, donate)
+    caller = (state, dirty)
 
     blocks = rank_blocks(state, mesh)
     rl = blocks.top.shape[1]
@@ -148,73 +172,124 @@ def run_delta_ring(
     rtop = ppermute(folded.top, inv_perm) if gated else None
 
     counts = {"shipped": torch.zeros((), dtype=torch.int64, device=mesh.device),
-              "deferred": torch.zeros((), dtype=torch.int64, device=mesh.device)}
+              "deferred": torch.zeros((), dtype=torch.int64, device=mesh.device),
+              "skipped": torch.zeros((), dtype=torch.int64, device=mesh.device)}
+    tmpl = template(folded, cap, fctx.dtype)
+    n_rows = d.shape[-1]
+    if acked:
+        awin = _ackwin.init_window(tmpl, n_rows, batch=(p,), device=mesh.device)
     if fused:
-        codec = _wire.WireCodec(
-            template(folded, cap, fctx.dtype), d.shape[-1],
-            _wire.WIRE_SURFACES[kind], gated=gated, acked=False,
-        )
+        codec = _wire.WireCodec(tmpl, n_rows, _wire.WIRE_SURFACES[kind], gated=gated,
+                                acked=acked)
+        # The receiver's mirror of its up-ring sender's window ctx.
+        mctx = mctx_prev = torch.zeros((p, n_rows, codec.a), dtype=codec.ct, device=mesh.device) \
+            if acked else None
 
-        def send(pkt):
-            wired, aux = codec.pack(pkt, rtop=rtop)
+        def send(pkt, aw):
+            wired, aux = codec.pack(pkt, rtop=rtop, win=aw)
             counts["shipped"] += aux.keep.sum()
             counts["deferred"] += aux.defer.sum()
-            return ppermute(wired, perm), aux
+            if acked:
+                counts["skipped"] += aux.covered.sum()
+            sent = codec.mask(pkt, aux.keep) if acked else None
+            return ppermute(wired, perm), aux, sent
 
-        def receive(wired, st):
-            return codec.unpack(wired, own_top=st.top if gated else None)
+        def receive(wired, st, mirror):
+            return codec.unpack(wired, own_top=st.top if gated else None, mirror_ctx=mirror)
     else:
-        def send(pkt):
+        def send(pkt, aw):
             if gated:
                 pkt = gate(pkt, rtop)
+            if aw is not None:
+                # Layering: the digest gate fired first; the window masks
+                # what the peer has positively confirmed, removals too.
+                pkt, covered = _ackwin.gate_window(pkt, aw)
+                counts["skipped"] += covered.sum()
             counts["shipped"] += pkt.valid.sum()
-            return ppermute(pkt, perm), None
+            return ppermute(pkt, perm), None, pkt
 
-        def receive(wired, st):
+        def receive(wired, st, mirror):
             return wired
 
-    def out_step(pkt, d):
+    def ack_exchange(sent, rcvd):
+        """Back-propagate the applied packet's per-slot confirmation one
+        inverse hop (a u32 bitmap on the fused wire) and promote the
+        sender's own shipped copy into its window."""
+        acks = _ackwin.ack_bits(rcvd)
+        if fused:
+            words = ppermute(_wk.pack_bits(acks), inv_perm)
+            counts.setdefault("ack_bytes", _nbytes(words))
+            acks = _wk.unpack_bits(words, acks.shape[-1])
+        else:
+            acks = ppermute(acks, inv_perm)
+            counts.setdefault("ack_bytes", _nbytes(acks))
+        _ackwin.update_window(awin, sent, acks)
+
+    def out_step(pkt, d, aw):
         """Put one extracted packet on the wire: re-mark its deferred
-        slots (fused) before the backlog count."""
-        wired, aux = send(pkt)
+        slots (fused) before the backlog count. Returns the wire, the
+        tracking, the parked loss and the sender's shipped copy."""
+        wired, aux, sent = send(pkt, aw)
         if "packet_bytes" not in counts:
             counts["packet_bytes"], counts["wire_bytes"] = _nbytes(pkt), _nbytes(wired)
         lost = torch.zeros((p,), dtype=torch.int32, device=mesh.device)
         if fused:
             d = _wire.remark_deferred(d, _wire.core_idx(pkt), aux.defer)
             lost = aux.parked_lost
-        return wired, d, lost
+        return wired, d, lost, sent
 
     starved = torch.zeros((p,), dtype=torch.int64, device=mesh.device)
     nlost = torch.zeros((p,), dtype=torch.int32, device=mesh.device)
     if pipeline and rounds > 0:
-        # Prologue: round 0's packet goes in flight before the loop.
+        # Prologue: round 0's packet goes in flight before the loop; the
+        # round-0 window is empty, so nothing is masked and the receiver's
+        # round-0 mirror matches by construction.
         pkt, d, f = extract(folded, d, f, cap, start=0)
-        flight, d, nlost = out_step(pkt, d)
+        flight, d, nlost, sent = out_step(pkt, d, awin if acked else None)
         if 0 >= rounds - win:
             starved = starved + d.sum(dim=-1)
         for r in range(rounds - 1):
             # Extract round r+1's packet from the pre-apply state and put
-            # it in flight, then merge round r's in-flight packet.
+            # it in flight (against the current window), then merge round
+            # r's in-flight packet, decoded with the mirror from before the
+            # last promotion.
             pkt, d, f = extract(folded, d, f, cap, start=(r + 1) * cap)
-            nxt, d, lost = out_step(pkt, d)
+            nxt, d, lost, sent_nxt = out_step(pkt, d, awin if acked else None)
             nlost = nlost + lost
             if (r + 1) >= rounds - win:
                 starved = starved + d.sum(dim=-1)
-            folded, d, f, of_r = apply_fn(folded, receive(flight, folded), d, f)
+            rcvd = receive(flight, folded, mctx_prev if fused and acked else None)
+            folded, d, f, of_r = apply_fn(folded, rcvd, d, f)
             of = of | of_r
+            if acked:
+                # The ack is for the packet applied this round, shipped
+                # last round: the window lags one round more, like
+                # knowledge itself.
+                if fused:
+                    mctx_prev, mctx = mctx, _wire.mirror_promote(
+                        mctx, rcvd, _ackwin.ack_bits(rcvd))
+                ack_exchange(sent, rcvd)
+                sent = sent_nxt
             flight = nxt
-        folded, d, f, of_r = apply_fn(folded, receive(flight, folded), d, f)
+        rcvd = receive(flight, folded, mctx_prev if fused and acked else None)
+        folded, d, f, of_r = apply_fn(folded, rcvd, d, f)
         of = of | of_r
     else:
         for r in range(rounds):
             pkt, d, f = extract(folded, d, f, cap, start=r * cap)
-            wired, d, lost = out_step(pkt, d)
+            wired, d, lost, sent = out_step(pkt, d, awin if acked else None)
             nlost = nlost + lost
             if r >= rounds - win:
                 starved = starved + d.sum(dim=-1)
-            folded, d, f, of_r = apply_fn(folded, receive(wired, folded), d, f)
+            # The mirror before this round's promotion matches the
+            # sender's encode state.
+            rcvd = receive(wired, folded, mctx if fused and acked else None)
+            folded, d, f, of_r = apply_fn(folded, rcvd, d, f)
             of = of | of_r
+            if acked:
+                if fused:
+                    mctx = _wire.mirror_promote(mctx, rcvd, _ackwin.ack_bits(rcvd))
+                ack_exchange(sent, rcvd)
 
     own_top = folded.top
     top_all = bits(pmax(own_top)).expand(own_top.shape).view(own_top.dtype)
@@ -232,6 +307,12 @@ def run_delta_ring(
         residue = torch.maximum(residue, (nlost_tot > 0).to(residue.dtype))
     if rounds < win:
         residue = torch.clamp_min(residue, 1)
+    if acked:
+        metrics.count("delta_opt.ack_window_runs")
+    if donate:
+        if aliasable:
+            folded, d = _write_back(caller, (folded, d))
+        _consume(caller, keep=(folded, d))
     if stats is not None:
         stats.update(
             rounds=rounds, links=p, slots_shipped=int(counts["shipped"]),
@@ -240,4 +321,81 @@ def run_delta_ring(
         )
         if fused:
             stats["wire_bytes"] = counts.get("wire_bytes", 0)
+        if acked:
+            stats["slots_acked_skipped"] = int(counts["skipped"])
+            stats["ack_bytes"] = counts.get("ack_bytes", 0)
     return folded, d, overflow, residue.to(torch.int32)
+
+
+def delta_gossip_elastic(
+    model,
+    dirty: torch.Tensor,
+    fctx: torch.Tensor,
+    mesh: VirtualMesh,
+    rounds: Optional[int] = None,
+    cap: int = 64,
+    local_fold: str = "auto",
+    policy=None,
+    telemetry: bool = False,
+    pipeline: bool = True,
+    digest: bool = True,
+    donate: bool = False,
+    reclaim=None,
+    faults=None,
+    ack_window=False,
+    wal=None,
+    fused: bool = True,
+    stats: Optional[dict] = None,
+):
+    """δ-ring anti-entropy with elastic capacity recovery for dense ORSWOT
+    replica batches (``BatchedOrswot``): when a run flags parked-buffer
+    overflow its result is discarded (the δ entry never commits to the
+    model), ``deferred_cap`` widens by ``policy.factor`` with the live
+    state re-encoded on the device (``elastic.widen``), and the ring
+    re-enters with the SAME ``(dirty, fctx)`` — sound because the rejected
+    run mutated nothing and the widened state is bit-identical to a
+    wider-born one. The re-entered ring's ``residue == 0`` still certifies
+    the full join.
+
+    ``pipeline``/``digest``/``fused``/``ack_window`` thread into every
+    attempt (each attempt starts a fresh ack window). ``donate=True``
+    donates each attempt's ``(state, dirty)`` into the ring and restores
+    ``model.state`` and ``dirty`` from a pre-round device copy afterwards,
+    since a failed attempt needs the pre-round state. ``stats`` holds the
+    last attempt's counts.
+
+    Returns ``(states, dirty, overflow, residue, widened)``: the
+    ``mesh_delta_gossip`` tuple plus the axes grown (empty when capacity
+    sufficed). ``telemetry=`` (ROADMAP item 15), ``reclaim=`` (item 15.2),
+    ``faults=`` (item 15.4) and ``wal=`` (item 9) raise."""
+    from .. import elastic
+    from .delta import mesh_delta_gossip
+
+    _refuse("delta_gossip_elastic", telemetry=telemetry, reclaim=reclaim is not None,
+            faults=faults is not None, wal=wal is not None)
+    policy = policy or elastic.DEFAULT_POLICY
+    widened: dict = {}
+    migrations = 0
+    while True:
+        if donate:
+            snap = tree_map(torch.clone, model.state)
+            snap_dirty = dirty.clone()
+        out = mesh_delta_gossip(
+            model.state, dirty, fctx, mesh, rounds, cap, local_fold, pipeline=pipeline,
+            digest=digest, donate=donate, ack_window=ack_window, fused=fused, stats=stats,
+        )
+        if donate:
+            model.state, dirty = snap, snap_dirty
+        if not bool(torch.any(out[2])):
+            return (*out, widened)
+        if migrations >= policy.max_migrations:
+            raise RuntimeError(
+                f"δ ring still overflowing after {migrations} migrations (axes grown: "
+                f"{widened}); raise policy.factor or max_migrations"
+            )
+        metrics.count("elastic.delta_migrations")
+        widened.update(elastic.widen(model, ("deferred_cap",), policy))
+        migrations += 1
+
+
+__all__ = ["delta_gossip_elastic", "run_delta_ring"]

@@ -204,10 +204,10 @@ def _stream_fold(
     """The shared scaffold: template derivation, upload and repack of each
     block, the double-buffered step loop and the interrupt protocol (see
     the module docstring)."""
-    _refuse(telemetry=telemetry, frontier=frontier is not None, compact_every=compact_every)
-    _refuse("15.3", widen_policy=widen_policy is not None)
-    _refuse("15.4", faults=faults is not None)
-    _refuse("9", wal=wal is not None, wal_every=wal_every, wal_base=wal_base)
+    _refuse("mesh_stream_fold", telemetry=telemetry, frontier=frontier is not None,
+            compact_every=compact_every, widen_policy=widen_policy is not None,
+            faults=faults is not None, wal=wal is not None, wal_every=wal_every,
+            wal_base=wal_base)
     device, p = mesh.device, mesh.p
     on_card = device.type == "cuda"
     it = iter(blocks)

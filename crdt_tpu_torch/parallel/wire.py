@@ -28,9 +28,10 @@ the base itself and the base is one row per link (the dense flavor under
 the digest), K3 reads it as that one row broadcast over the slots.
 
 The watermark is the receiver's frozen digest top when ``digest=`` is on
-(the ack window's ctx joins it once ``ack_window=`` is ported) and zero
-otherwise; both ends derive it from knowledge they share, so the round
-trip is bit-exact. A slot outside the ±32 Ki window is DEFERRED: shipped
+(joined, under ``ack_window=``, with the link's acked window ctx at each
+slot: the sender's ``AckWindow.ctx`` and the receiver's mirror of it,
+:func:`mirror_promote`) and zero otherwise; both ends derive it from
+knowledge they share, so the round trip is bit-exact. A slot outside the ±32 Ki window is DEFERRED: shipped
 invalid and re-marked dirty before the round's backlog count
 (:func:`remark_deferred`), so the residue certificate prices it. An
 unencodable parked remove is wire LOSS: the ring forces ``residue >= 1``
@@ -553,6 +554,21 @@ def remark_deferred(dirty, idx, defer):
     return put_rows(dirty, idx, torch.gather(dirty, -1, idx.long()) | defer)
 
 
+def mirror_promote(mctx, pkt, acks, keep=None):
+    """The receiver-side twin of ``ackwin.update_window``'s ctx
+    promotion, driven by knowledge the receiver holds: the packet it just
+    applied and the ack bits it computed itself (``keep``: a faulted
+    run's fate, None for reliable delivery). Keeps the mirror
+    bit-identical to the sender's window ctx, the other half of the acked
+    encode watermark. Returns a new tensor: the pipelined ring keeps the
+    mirror from before the promotion too."""
+    core = _core(pkt)
+    ok = core.valid & acks if keep is None else core.valid & acks & keep
+    old = to_wide(take_rows(mctx, core.idx))
+    new = torch.where(ok[..., None], torch.maximum(old, to_wide(core.ctxs)), old)
+    return put_rows(mctx, core.idx, from_wide(new, mctx.dtype))
+
+
 def know_dense(pkt):
     """``delta.gate_delta``'s subject: the slot's live dot rows."""
     return _core(pkt).rows
@@ -576,5 +592,5 @@ WIRE_SURFACES = {
 
 __all__ = [
     "WIRE_SURFACES", "WireAux", "WireCodec", "WirePacket", "core_idx", "fill_invalid_idx",
-    "know_dense", "know_map", "remark_deferred", "wire_checksum",
+    "know_dense", "know_map", "mirror_promote", "remark_deferred", "wire_checksum",
 ]

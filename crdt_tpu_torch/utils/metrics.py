@@ -4,7 +4,8 @@ The part of the JAX package's ``utils/metrics.py`` that the dense ORSWOT
 model feeds: ``metrics.count(name, n)`` for monotonic counters (e.g.
 ``orswot.merges``), ``metrics.observe(name, value)`` for last/min/max/
 sum/n gauges (e.g. ``orswot.deferred_depth``), and ``snapshot()`` to
-read them. Host-side only; no kernel touches it.
+read them (``reset()`` clears them); ``state_nbytes`` prices a state. Host-side only; no kernel
+touches it.
 """
 
 from __future__ import annotations
@@ -35,6 +36,11 @@ class Metrics:
             g["sum"] += value
             g["n"] += 1
 
+    def reset(self) -> None:
+        with self._lock:
+            self._counters.clear()
+            self._gauges.clear()
+
     def snapshot(self) -> Dict[str, Any]:
         with self._lock:
             return {
@@ -45,4 +51,12 @@ class Metrics:
 
 metrics = Metrics()
 
-__all__ = ["Metrics", "metrics"]
+
+def state_nbytes(state) -> int:
+    """Total bytes of a state's tensors (a NamedTuple tree)."""
+    if hasattr(state, "element_size"):
+        return state.numel() * state.element_size()
+    return sum(state_nbytes(x) for x in state)
+
+
+__all__ = ["Metrics", "metrics", "state_nbytes"]

@@ -99,7 +99,7 @@ def test_entries_refuse_unported_modes_and_default_to_the_card():
 
     arrays = replicas(1)
     state = orswot_from_numpy(arrays, device="cpu")
-    for kw in (dict(telemetry=True), dict(donate=True), dict(stability=True),
+    for kw in (dict(telemetry=True), dict(donate=True, telemetry=True), dict(stability=True),
                dict(faults=object()), dict(lag_threshold=3)):
         with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
             mesh_gossip(state, VirtualMesh(4, "cpu"), **kw)

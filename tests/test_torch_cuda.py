@@ -1,7 +1,9 @@
 """The port on a CUDA device: kernels K1, K2 and K3 against their plain
 versions, the models' folds on the card against the same folds on the
 CPU (the sparse ORSWOT's too), the δ ring on the card (fused == layered ==
-mesh_fold), and the replica stream from pinned host blocks against the
+mesh_fold), with its ack window (K3's acked instance once per round; an
+acked Map round with no host sync) and donation (outputs in the inputs'
+storage), and the replica stream from pinned host blocks against the
 stream from blocks on the card and on the CPU.
 
 Marked ``cuda``; every test skips without a device. It imports neither
@@ -269,6 +271,81 @@ def test_the_delta_ring_on_the_card(card, pipeline):
     assert chip_smoke.same_leaves(fused[0], layered[0]) and int(fused[3]) == int(layered[3]) == 0
     folded, _ = mesh_fold(model.state, mesh)
     assert chip_smoke.rows_equal_fold(fused[0], folded)
+
+
+def _small_ring(card):
+    rng = random.Random(3)
+    reps, applied = chip_smoke.mint_tracked(rng, 8, ["a", "b", "c", "d"])
+    model = BatchedOrswot.from_pure(reps, device=card)
+    dirty, fctx = chip_smoke.op_tracking(model, applied, card)
+    return model, dirty, fctx
+
+
+@pytest.mark.parametrize("pipeline", [True, False])
+def test_the_acked_delta_ring_on_the_card(card, pipeline):
+    """The acked fused ring (K3's acked instance once per round) == the
+    acked layered ring == the unacked ring == mesh_fold, and it equals the
+    same acked ring on the CPU, dirty marks included."""
+    from crdt_tpu_torch.parallel import VirtualMesh, mesh_delta_gossip, mesh_fold
+
+    model, dirty, fctx = _small_ring(card)
+    mesh = VirtualMesh(4, card)
+    before = (wire_pack.launches, wire_pack.acked_launches)
+    acked = mesh_delta_gossip(model.state, dirty, fctx, mesh, rounds=8, cap=64,
+                              pipeline=pipeline, ack_window=True)
+    torch.cuda.synchronize(card)
+    assert (wire_pack.launches - before[0], wire_pack.acked_launches - before[1]) == (8, 8)
+    layered = mesh_delta_gossip(model.state, dirty, fctx, mesh, rounds=8, cap=64,
+                                pipeline=pipeline, fused=False, ack_window=True)
+    plain = mesh_delta_gossip(model.state, dirty, fctx, mesh, rounds=8, cap=64,
+                              pipeline=pipeline)
+    assert chip_smoke.same_leaves(acked[:2], layered[:2]) and int(acked[3]) == 0
+    assert chip_smoke.same_leaves(acked[0], plain[0])
+    folded, _ = mesh_fold(model.state, mesh)
+    assert chip_smoke.rows_equal_fold(acked[0], folded)
+    from crdt_tpu_torch.ops.lattice import tree_map
+
+    cpu = lambda t: tree_map(lambda x: x.cpu(), t)  # noqa: E731
+    on_cpu = mesh_delta_gossip(cpu(model.state), dirty.cpu(), fctx.cpu(), VirtualMesh(4, "cpu"),
+                               rounds=8, cap=64, pipeline=pipeline, ack_window=True)
+    assert chip_smoke.same_leaves(cpu(tuple(acked[:2])), tuple(on_cpu[:2]))
+
+
+def test_an_acked_map_round_holds_no_host_sync(card):
+    """One acked fused Map round (K3's acked instance, the mirror's
+    promotion, the ack bitmap, the window's promotion) under torch's sync
+    debug mode "error"."""
+    from crdt_tpu_torch.parallel import VirtualMesh, mesh_delta_gossip_map, mesh_fold_map
+
+    state, dirty, fctx, _ = chip_smoke.fill_delta_config4(32, 3000, 2, 4, 4, 8, 1, card, chunk=8)
+    mesh = VirtualMesh(8, card)
+    unacked = mesh_delta_gossip_map(state, dirty, fctx, mesh, rounds=27, cap=128)
+    folded, _ = mesh_fold_map(state, mesh)
+    res = chip_smoke.acked_map_ring(state, dirty, fctx, mesh, 27, 128, unacked, folded,
+                                    _map_probe(state, dirty, fctx, mesh, 128), card,
+                                    lambda: torch.cuda.synchronize(card), 2, 2, samples=1)
+    assert res["round_syncs_with_host"] is False and res["k3_acked_launches"] == 27
+
+
+def _map_probe(state, dirty, fctx, mesh, cap):
+    from crdt_tpu_torch._dtypes import umax
+    from crdt_tpu_torch.ops import map as map_ops
+    from crdt_tpu_torch.parallel.anti_entropy import local_folds, rank_blocks
+    from crdt_tpu_torch.parallel.collectives import ppermute
+
+    p = mesh.p
+    rl, k, a = dirty.shape[0] // p, dirty.shape[-1], fctx.shape[-1]
+    ranks, _ = local_folds(rank_blocks(state, mesh), map_ops.fold)
+    d0 = dirty.view(p, rl, k).any(1)
+    f0 = torch.stack([bits(umax(fctx.view(p, rl, k, a)[q], 0)) for q in range(p)]).view(
+        fctx.dtype)
+    return ranks, d0, f0, ppermute(ranks.top, [(i, (i - 1) % p) for i in range(p)])
+
+
+def test_donated_outputs_alias_their_inputs(card):
+    """At R == P the ring entries' outputs live in the donated inputs'
+    storage; the values equal the copying runs'."""
+    chip_smoke.phase_donate(card, 1, e=2000, k=3000, cap=128)
 
 
 @pytest.mark.parametrize("seed", [1, 2, 3])
