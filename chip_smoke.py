@@ -92,7 +92,15 @@ at first use), then runs, printing one JSON line per phase:
                         window lanes) per launch and alone with its bytes and
                         bound; the walls (median of 5 of each kind, acked
                         and unacked fused and layered rings alternating),
-                        busy share and peak memory.
+                        busy share and peak memory. Then the ring with
+                        ``wal=`` (key ``durable``): generation 1 is every
+                        rank at the synced state, the logged ring == the
+                        unlogged one (K3 once per round, K1 once per rank),
+                        recovery from the reopened log == its rows, a torn
+                        second append truncated on reopen, a corrupt newest
+                        generation fallen back; record and snapshot bytes,
+                        the append's wall by part, recovery's by part, and
+                        the logged and unlogged walls alternating.
 11. ``map_delta_scenarios`` — small oracle-minted Map<K, MVReg> rings on 4
                         virtual ranks, ``pipeline`` × cap 16 / 1: fused ==
                         layered on every leaf, equal residue, and the
@@ -112,7 +120,8 @@ at first use), then runs, printing one JSON line per phase:
                         the wire's window leaves the fused ring uncertified.
                         Then the acked rings as in phase 10 (3 walls of each
                         kind), one acked round under sync debug "error", and
-                        K3's acked instance at LC 14.
+                        K3's acked instance at LC 14; and the ring with
+                        ``wal=`` as in phase 10 (2 walls of each kind).
 13. ``sparse_scenarios`` — the probe set through ``BatchedSparseOrswot`` (the
                         segment-encoded ORSWOT) on the card against the
                         oracle and a dense ``BatchedOrswot`` twin (through
@@ -135,7 +144,12 @@ at first use), then runs, printing one JSON line per phase:
                         from device-generated and from pinned host blocks,
                         with busy share, launches per block and the sorts'
                         share of device time (profiled over 10 blocks),
-                        peak memory and ``overlap_hit``.
+                        peak memory and ``overlap_hit``. Then ``wal=`` (key
+                        ``durable``): a pass whose source dies after block
+                        20 raises ``StreamInterrupted`` with resume records
+                        at blocks 8, 16 and 20; the stream resumed from the
+                        reopened log == the uninterrupted pass; logged
+                        (``wal_every=8``) and unlogged walls alternating.
 15. ``elastic``        — the overflow → widen → re-enter loops: at config
                         3's widths (R=5120 on 8 virtual ranks) a
                         ``BatchedOrswot`` born with ``deferred_cap`` 2 under
@@ -146,7 +160,10 @@ at first use), then runs, printing one JSON line per phase:
                         and ``mesh_fold``; ``gossip_elastic`` on a
                         ``BatchedSparseOrswot`` (``dot_cap`` 1024 → 4096) and
                         a ``BatchedMap`` at config 4's widths (D 1 → 2), each
-                        == a wider-born ring and its fold.
+                        == a wider-born ring and its fold. The unacked
+                        ``delta_gossip_elastic`` runs with ``wal=``: one
+                        full-state record (the widen changed the shapes),
+                        recovered == the committed rows.
 16. ``resync``         — ``delta_opt.heal.resync`` over 8 ranks that
                         diverged from one snapshot, dense at config 3's
                         widths and Map at config 4's: healed == the join
@@ -156,6 +173,14 @@ at first use), then runs, printing one JSON line per phase:
                         (config 3's widths) and ``mesh_delta_gossip_map``
                         (config 4's): == the copying runs, outputs in the
                         inputs' storage, peak and resident memory of both.
+18. ``durability``     — the crashpoint diagonal on the card (each of the
+                        15 crashpoints once, the five decomposition kinds
+                        cycled: recovery == the last durable record), and
+                        ``checkpoint.save`` / ``load`` of a ``BatchedMap``
+                        at config 4's widths, R = 8, == what was saved.
+                        Every durable run writes under a temporary
+                        directory, removed afterwards, and reports its
+                        filesystem's type and free bytes.
 
 Then the ``nvidia-smi`` name/power-limit line, a ``kernels`` JSON line, and
 as the last line ``{"ok": true, "device": {...}}``. Any failed check raises
@@ -1931,6 +1956,7 @@ def phase_full_width_delta(device, seed: int, r: int = 5120, e: int = 102400, a:
     from crdt_tpu_torch.parallel.collectives import ppermute
     from crdt_tpu_torch.parallel.delta import extract_delta
     from crdt_tpu_torch.parallel.delta_ring import _packet_template
+    from crdt_tpu_torch.ops.lattice import tree_map
     from crdt_tpu_torch._dtypes import bits, umax
 
     on_card = device.type == "cuda"
@@ -1939,7 +1965,9 @@ def phase_full_width_delta(device, seed: int, r: int = 5120, e: int = 102400, a:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
-    state, dirty, fctx, info = fill_delta_config3(r, e, a, d, p, seed, device, chunk)
+    synced = []
+    state, dirty, fctx, info = fill_delta_config3(r, e, a, d, p, seed, device, chunk,
+                                                  synced_out=synced)
     sync()
     setup_s = time.perf_counter() - t0
     mesh = VirtualMesh(p, device)
@@ -2000,6 +2028,15 @@ def phase_full_width_delta(device, seed: int, r: int = 5120, e: int = 102400, a:
                                 device, host_top=12)
     acked = acked_dense_ring(state, dirty, fctx, mesh, rounds, cap, fused, folded,
                              (ranks, pkt, rtop), device, sync, repeats, per_sample, ring_samples)
+    # The ring with wal= (ROADMAP 9): the log's object is the [P, ...] rank
+    # state, every rank at the synced state before the burst.
+    durable = with_scratch_dir(lambda root: durable_ring(
+        "orswot", lambda wal: mesh_delta_gossip(state, dirty, fctx, mesh, rounds=rounds, cap=cap,
+                                                wal=wal),
+        tree_map(lambda x: x.expand(p, *x.shape).clone(), synced[0]), fused,
+        (wire_pack, fold_entries), rounds, sync, ring_samples, root))
+    check(not on_card or durable["launches_in_logged_ring"] == [rounds, p],
+          f"the ring with wal= launched K3 and K1 {durable['launches_in_logged_ring']} times")
     links = stats["rounds"] * stats["links"]
     out = {
         "phase": "full_width_delta",
@@ -2024,7 +2061,7 @@ def phase_full_width_delta(device, seed: int, r: int = 5120, e: int = 102400, a:
         "converged_members": int(bits(folded.ctr).ne(0).any(-1).sum()),
         "converged_parked": int(folded.dvalid.sum()),
         "peak_mem_gb": torch.cuda.max_memory_allocated(device) / 1e9 if on_card else None,
-        "ack_window": acked,
+        "ack_window": acked, "durable": durable,
     }
     emit(out)
     return out
@@ -2423,11 +2460,12 @@ def fill_delta_config4(r, k, s, a, d, p, seed, device, chunk=8, n_ops=1024, n_cr
 def phase_full_width_delta_map(device, seed: int, r: int = 64, k: int = 1_000_000, s: int = 2,
                                a: int = 4, d: int = 4, p: int = 8, cap: int = 4096,
                                chunk: int = 8, repeats: int = 7, per_sample: int = 50,
-                               ring_samples: int = 5) -> dict:
+                               ring_samples: int = 5, durable_samples: int = 2) -> dict:
     import torch
 
     from crdt_tpu_torch._dtypes import bits, umax
     from crdt_tpu_torch.ops import map as map_ops
+    from crdt_tpu_torch.ops.lattice import tree_map
     from crdt_tpu_torch.ops.fold_kernels import fold_cells
     from crdt_tpu_torch.ops.wire_kernels import wire_pack
     from crdt_tpu_torch.parallel import VirtualMesh, mesh_delta_gossip_map, mesh_fold_map
@@ -2444,7 +2482,9 @@ def phase_full_width_delta_map(device, seed: int, r: int = 64, k: int = 1_000_00
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
-    state, dirty, fctx, info = fill_delta_config4(r, k, s, a, d, p, seed, device, chunk)
+    synced = []
+    state, dirty, fctx, info = fill_delta_config4(r, k, s, a, d, p, seed, device, chunk,
+                                                  synced_out=synced)
     sync()
     setup_s = time.perf_counter() - t0
     state_gb = sum(x.numel() * x.element_size() for x in (*state.child, state.top, state.dcl,
@@ -2536,6 +2576,15 @@ def phase_full_width_delta_map(device, seed: int, r: int = 64, k: int = 1_000_00
     acked = acked_map_ring(state, dirty, fctx, mesh, rounds, cap, fused, folded,
                            (ranks, d0, f0, rtop), device, sync, repeats, per_sample)
     del folded
+    # The ring with wal= (ROADMAP 9), as in full_width_delta; 2 walls of
+    # each kind (a Map ring takes seconds).
+    durable = with_scratch_dir(lambda root: durable_ring(
+        "map", lambda wal: mesh_delta_gossip_map(state, dirty, fctx, mesh, rounds=rounds,
+                                                 cap=cap, wal=wal),
+        tree_map(lambda x: x.expand(p, *x.shape).clone(), synced.pop()), fused,
+        (wire_pack, fold_cells), rounds, sync, durable_samples, root))
+    check(not on_card or durable["launches_in_logged_ring"] == [rounds, p],
+          f"the map ring with wal= launched K3 and K2 {durable['launches_in_logged_ring']} times")
     links = stats["rounds"] * stats["links"]
     peak_gb = torch.cuda.max_memory_allocated(device) / 1e9 if on_card else None
     residue = int(fused[3])
@@ -2584,7 +2633,7 @@ def phase_full_width_delta_map(device, seed: int, r: int = 64, k: int = 1_000_00
         "launch_kernel_calls_per_round_layered":
             busy_layered["launch_kernel_calls"] / rounds if busy_layered else None,
         **converged, "every_key_written": all_written, "peak_mem_gb": peak_gb,
-        "ack_window": acked,
+        "ack_window": acked, "durable": durable,
     }
     emit(out)
     return out
@@ -2877,7 +2926,7 @@ def flagship_subsample_gate(device, mesh, n_actors: int) -> dict:
 
 def phase_flagship(device, seed: int, r: int = 10240, universe: int = 1_000_000, a: int = 8,
                    cap: int = 4096, block_rows: int = 256, p: int = 8, passes: int = 5,
-                   profile_blocks: int = 10) -> dict:
+                   profile_blocks: int = 10, durable_passes: int = 3) -> dict:
     """BASELINE's metric of record at its literal shape (``BENCH_CONFIGS.json``
     "flagship"): merges/s across R replicas of the segment-encoded ORSWOT over
     a 1M-element universe, streamed through P virtual ranks in replica
@@ -2996,6 +3045,9 @@ def phase_flagship(device, seed: int, r: int = 10240, universe: int = 1_000_000,
             "launch_kernel_calls_per_block":
                 busy["launch_kernel_calls"] / profile_blocks if busy else None,
         }
+    durable = with_scratch_dir(lambda root: durable_stream(
+        device_blocks, acc, mesh, sp.empty(cap, a, device=device), n_blocks, sync, durable_passes,
+        root))
     out = {
         "phase": "flagship",
         "R": r_run, "universe": universe, "A": a, "segment_cap": cap, "D": 4, "Q": 8,
@@ -3008,11 +3060,89 @@ def phase_flagship(device, seed: int, r: int = 10240, universe: int = 1_000_000,
         "first_stream_ms_cold": first_ms, "step_syncs_with_host": False if on_card else None,
         "merges_per_s_device_blocks": per_source["device"]["merges_per_s"],
         "merges_per_s_pinned_host_blocks": per_source["pinned_host"]["merges_per_s"],
-        "sources": per_source,
+        "sources": per_source, "durable": durable,
         "phase_s": time.perf_counter() - t_phase,
     }
     emit(out)
     return out
+
+
+def durable_stream(blocks, want, mesh, template, n_blocks: int, sync, passes: int,
+                   root: str) -> dict:
+    """The replica stream with ``wal=`` (ROADMAP 9): a pass whose block
+    source dies after half the blocks (20 of the flagship's 40) must raise
+    ``StreamInterrupted`` with resume records every fifth of the blocks
+    (8) and at the interrupt; from a
+    reopened log, ``load_stream_resume`` and a re-entered stream
+    (``init=acc``, ``wal_base``) land on ``want``, the uninterrupted pass.
+    Then ``passes`` walls of the logged and the unlogged pass, alternating."""
+    import shutil
+
+    from crdt_tpu_torch.durability import Wal, load_stream_resume
+    from crdt_tpu_torch.parallel import StreamInterrupted, mesh_stream_fold_sparse
+
+    die_after, every = n_blocks // 2, max(1, n_blocks // 5)
+
+    def dying():
+        yield from itertools.islice(blocks(), die_after)
+        raise OSError(f"the block source went away after block {die_after}")
+
+    wal_dir = os.path.join(root, "wal")
+    w = Wal(wal_dir)
+    t0 = time.perf_counter()
+    interrupted = None
+    try:
+        mesh_stream_fold_sparse(dying(), mesh, wal=w, wal_every=every)
+    except StreamInterrupted as exc:
+        interrupted = exc.blocks_done
+    sync()
+    dying_ms = (time.perf_counter() - t0) * 1e3
+    check(interrupted == die_after, f"the dying stream stopped at block {interrupted}")
+    resume_points = [m["blocks_done"] for _, m, _ in w.records()]
+    expect = [*range(every, die_after + 1, every), die_after]
+    check(resume_points == expect, f"resume records at {resume_points}, not {expect}")
+    appended = dict(w.seconds)
+    w.close()
+    t0 = time.perf_counter()
+    w = Wal(wal_dir)
+    open_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    acc, done = load_stream_resume(w, template)
+    load_s = time.perf_counter() - t0
+    resumed, of = mesh_stream_fold_sparse(itertools.islice(blocks(), done, None), mesh, init=acc,
+                                          wal=w, wal_every=every, wal_base=done)
+    check(done == die_after and not bool(of.any()) and same_leaves(resumed, want),
+          "the resumed stream differs from the uninterrupted pass")
+    points = [m["blocks_done"] for _, m, _ in w.records()]
+    check(points[-1] == n_blocks, f"the resumed stream's last resume record is at {points[-1]}")
+    resume_record_bytes = w.bytes_appended / (len(points) - len(resume_points))
+    w.close()
+    logs = [Wal(os.path.join(root, f"timed-{i}")) for i in range(passes)]
+    pending = iter(logs)
+    runs = {True: [], False: []}
+    for _ in range(passes):
+        for logged in (True, False):
+            t0 = time.perf_counter()
+            mesh_stream_fold_sparse(blocks(), mesh, wal=next(pending) if logged else None,
+                                    wal_every=every if logged else 0)
+            sync()
+            runs[logged].append((time.perf_counter() - t0) * 1e3)
+    fsyncs = [log.fsyncs for log in logs]
+    for log in logs:
+        log.close()
+        shutil.rmtree(log.path)
+    return {
+        "die_after_blocks": die_after, "wal_every": every, "resume_points": resume_points,
+        "dying_pass_ms": dying_ms, "append_wall_s_dying_pass": appended,
+        "resume_record_bytes": resume_record_bytes,
+        "acc_bytes": sum(x.numel() * x.element_size() for x in want),
+        "recovery": {"open_scan_s": open_s, "load_stream_resume_s": load_s},
+        "fsyncs_per_logged_pass": fsyncs,
+        "stream_ms_logged": statistics.median(runs[True]),
+        "stream_ms_unlogged": statistics.median(runs[False]),
+        "logged_over_unlogged": statistics.median(runs[True]) / statistics.median(runs[False]),
+        "stream_ms_logged_runs": runs[True], "stream_ms_unlogged_runs": runs[False],
+    }
 
 
 # ---- phases 15-17 (ROADMAP 7b) ---------------------------------------------
@@ -3069,8 +3199,10 @@ def phase_elastic(device, seed: int, r: int = 5120, e: int = 102400, a: int = 8,
     with one parked slot, each equal to a wider-born ring and its fold."""
     import torch
 
+    from crdt_tpu_torch.durability import Wal
     from crdt_tpu_torch.models import BatchedMap, BatchedOrswot, BatchedSparseOrswot
     from crdt_tpu_torch.ops.fold_kernels import fold_cells, fold_entries
+    from crdt_tpu_torch.ops.lattice import tree_map
     from crdt_tpu_torch.parallel import (
         VirtualMesh, delta_gossip_elastic, gossip_elastic, mesh_delta_gossip, mesh_fold,
         mesh_fold_map, mesh_fold_sparse, mesh_gossip, mesh_gossip_map, mesh_gossip_sparse,
@@ -3087,8 +3219,11 @@ def phase_elastic(device, seed: int, r: int = 5120, e: int = 102400, a: int = 8,
     rl = r // p
     counters = lambda: dict(metrics.snapshot()["counters"])  # noqa: E731
 
+    synced = []
+
     def dense(d):
-        st, dd, ff, info = fill_delta_config3(r, e, a, d, p, seed, device, chunk, max_parked=2)
+        st, dd, ff, info = fill_delta_config3(r, e, a, d, p, seed, device, chunk, max_parked=2,
+                                              synced_out=synced)
         model = BatchedOrswot(1, e, a, d, device=device)
         model.state = st
         return model, dd, ff, info
@@ -3117,13 +3252,29 @@ def phase_elastic(device, seed: int, r: int = 5120, e: int = 102400, a: int = 8,
     check(not on_card or fold_entries.launches == 2 * p, "gossip_elastic did not run K1")
     del model
     # delta_gossip_elastic, unacked and acked: the same (dirty, fctx) in both
-    # attempts of each.
+    # attempts of each. The unacked loop runs with wal= (ROADMAP 9), its
+    # log's base the [P, ...] synced state at D = 2: the committed attempt,
+    # widened, is one full-state record.
     d_rows = {}
     for ack in (False, True):
         model, dd, ff, _ = dense(2)
-        c0, fold_entries.launches = counters(), 0
-        res, ms = timed(lambda: delta_gossip_elastic(model, dd, ff, mesh, rounds=rounds, cap=cap,
-                                                     ack_window=ack))
+        base = tree_map(lambda x: x.expand(p, *x.shape).clone(), synced.pop())
+
+        def run(root):
+            wal = None
+            if root is not None:
+                wal = Wal(os.path.join(root, "wal"), fsync="on_round")
+                wal.attach(base)
+            c0, fold_entries.launches = counters(), 0
+            res, ms = timed(lambda: delta_gossip_elastic(model, dd, ff, mesh, rounds=rounds,
+                                                         cap=cap, ack_window=ack, wal=wal))
+            record = elastic_record(wal, root, base, res[0]) if wal is not None else {}
+            return {"res": res, "ms": ms, "c0": c0, "record": record}
+
+        ran = run(None) if ack else with_scratch_dir(run)
+        res, ms, c0 = ran["res"], ran["ms"], ran["c0"]
+        if not ack:
+            out["delta_wal"] = {**ran["record"], "filesystem": ran["filesystem"]}
         migrations = counters().get("elastic.delta_migrations", 0) - c0.get(
             "elastic.delta_migrations", 0)
         check(res[4] == {"deferred_cap": 4} and migrations == 1 and int(res[3]) == 0
@@ -3204,6 +3355,29 @@ def phase_elastic(device, seed: int, r: int = 5120, e: int = 102400, a: int = 8,
     out["phase_s"] = time.perf_counter() - t_phase
     emit(out)
     return out
+
+
+def elastic_record(wal, root: str, base, committed) -> dict:
+    """The log of a ``delta_gossip_elastic`` run with ``wal=``: exactly one
+    record, a full-state record (the widen changed the shapes), and
+    recovery from it (no snapshot: the genesis is ``base``) equals the
+    committed attempt's rows."""
+    from crdt_tpu_torch.durability import Wal, recover_state
+
+    records = [m for _, m, _ in wal.records()]
+    record_bytes, fsyncs = wal.bytes_appended, wal.fsyncs
+    wal.close()
+    check(records == [{"rtype": "state", "kind": "orswot", "batched": True}],
+          f"delta_gossip_elastic logged {records}, not one full-state record")
+    t0 = time.perf_counter()
+    with Wal(wal.path) as w:
+        got, rep = recover_state(os.path.join(root, "snap"), w, base, kind="orswot",
+                                 default=base)
+    recover_s = time.perf_counter() - t0
+    check(rep.full_state_records == 1 and same_leaves(got, committed),
+          "the recovery from delta_gossip_elastic's log != the committed rows")
+    return {"records": records, "record_bytes": record_bytes, "fsyncs": fsyncs,
+            "recovery_s": recover_s}
 
 
 def diverged_ranks(kind: str, p: int, seed: int, device, **widths):
@@ -3327,10 +3501,314 @@ def phase_donate(device, seed: int, p: int = 8, e: int = 102400, a: int = 8, d: 
     return out
 
 
+# ---- durability (ROADMAP item 9) ----------------------------------------------
+
+def fs_info(path) -> dict:
+    """The filesystem that holds ``path``: its mount point and type (the
+    longest matching mount point of ``/proc/mounts``) and its free bytes.
+    An fsync on ``tmpfs`` is not a disk barrier, and fsync times depend on
+    the filesystem."""
+    real = os.path.realpath(path)
+    mount, fstype = "", None
+    with open("/proc/mounts") as f:
+        for line in f:
+            fields = line.split()
+            mnt = fields[1].replace("\\040", " ")
+            inside = real == mnt or real.startswith(mnt.rstrip("/") + "/")
+            if inside and len(mnt) >= len(mount):
+                mount, fstype = mnt, fields[2]
+    st = os.statvfs(real)
+    return {"path": real, "mount": mount, "fstype": fstype,
+            "free_bytes": st.f_bavail * st.f_frsize}
+
+
+def with_scratch_dir(fn):
+    """``fn(root)`` in a fresh temporary directory, removed afterwards; the
+    result carries the directory's filesystem (:func:`fs_info`)."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        return {**fn(root), "filesystem": fs_info(root)}
+    finally:
+        shutil.rmtree(root)
+
+
+def kind_arrays(kind: str, rng) -> dict:
+    """One random unbatched state of decomposition ``kind`` as numpy leaves
+    (``convert``'s names and dtypes; a vclock is ``{"clock": [A] u32}``).
+    The WAL's positional diff is exact on any bits, so any state is a fair
+    crash-recovery input."""
+    import numpy as np
+
+    def u32(shape):
+        return rng.integers(0, 50, shape).astype(np.uint32)
+
+    if kind == "orswot":
+        return dict(top=u32((3,)), ctr=u32((8, 3)), dcl=u32((2, 3)),
+                    dmask=rng.random((2, 8)) < 0.4, dvalid=rng.random(2) < 0.5)
+    child = dict(wact=rng.integers(0, 3, (4, 2)).astype(np.int32), wctr=u32((4, 2)),
+                 clk=u32((4, 2, 3)), val=rng.integers(0, 9, (4, 2)).astype(np.int32),
+                 valid=rng.random((4, 2)) < 0.5)
+    if kind == "map":
+        return dict(top=u32((3,)), child=child, dcl=u32((2, 3)),
+                    dkeys=rng.random((2, 4)) < 0.4, dvalid=rng.random(2) < 0.5)
+    if kind == "mvreg":
+        return {k: v[0] for k, v in child.items()}
+    if kind == "vclock":
+        return dict(clock=u32((5,)))
+    check(kind == "sparse_orswot", f"no random state for kind {kind!r}")
+    return dict(top=u32((3,)), eid=rng.integers(-1, 30, 8).astype(np.int32),
+                act=rng.integers(0, 3, 8).astype(np.int32), ctr=u32((8,)),
+                valid=rng.random(8) < 0.6, dcl=u32((2, 3)),
+                didx=rng.integers(-1, 30, (2, 4)).astype(np.int32), dvalid=rng.random(2) < 0.5)
+
+
+def kind_state(kind: str, arrays: dict, device):
+    """:func:`kind_arrays`'s leaves as the port's state on ``device``."""
+    from crdt_tpu_torch.convert import (
+        leaf_from_numpy, map_from_numpy, orswot_from_numpy, sparse_orswot_from_numpy,
+    )
+    from crdt_tpu_torch.ops.mvreg import MVRegState
+
+    if kind == "orswot":
+        return orswot_from_numpy(arrays, device)
+    if kind == "map":
+        return map_from_numpy(arrays, device)
+    if kind == "sparse_orswot":
+        return sparse_orswot_from_numpy(arrays, device)
+    if kind == "mvreg":
+        return MVRegState(**{k: leaf_from_numpy(v, device) for k, v in arrays.items()})
+    return leaf_from_numpy(arrays["clock"], device)
+
+
+def fuzz_workload(root: str, kind: str, states) -> None:
+    """The durable workload a crashpoint kills (``tests/test_durability.py``'s):
+    δ records of ``states[1:]`` over ``states[0]`` in a log of 512-byte
+    segments (rotation), fsynced after every append, and two snapshots with
+    retain 1 (the prune)."""
+    from crdt_tpu_torch.durability import Wal, snapshot
+
+    w = Wal(os.path.join(root, "wal"), fsync="every_n", every_n=1, segment_bytes=512)
+    w.attach(states[0])
+    for i, st in enumerate(states[1:], 1):
+        w.append_state(kind, st, batched=False)
+        if i in (2, 4):
+            snapshot.save_state(os.path.join(root, "snap"), kind, st, wal_seq=w.last_seq,
+                                retain=1)
+    w.close()
+
+
+def crashpoint_diagonal(device, seed: int, root: str) -> dict:
+    """Every registered crashpoint once, the port's decomposition kinds
+    cycled, states on ``device``: the workload dies at the point, and
+    recovery from the surviving files lands bit-identically on the state
+    of the last durable record."""
+    import numpy as np
+
+    from crdt_tpu_torch.delta_opt.decompose import KINDS
+    from crdt_tpu_torch.durability import Wal, crashpoints, recover_state
+
+    kinds = sorted(KINDS)
+    points = crashpoints.registered()
+    with crashpoints.recording() as crossed:
+        states = [kind_state("orswot", kind_arrays("orswot", np.random.default_rng(seed)), device)
+                  for _ in range(6)]
+        fuzz_workload(os.path.join(root, "coverage"), "orswot", states)
+    check(crossed == set(points), f"the workload crosses {sorted(crossed)}, not every point")
+    landed = {}
+    for i, point in enumerate(points):
+        kind = kinds[i % len(kinds)]
+        rng = np.random.default_rng(seed + i)
+        states = [kind_state(kind, kind_arrays(kind, rng), device) for _ in range(6)]
+        run = os.path.join(root, f"fuzz-{i:02d}")
+
+        def recover():
+            with Wal(os.path.join(run, "wal")) as w:
+                got, _ = recover_state(os.path.join(run, "snap"), w, states[0], kind=kind,
+                                       default=states[0])
+                landed[point] = (kind, w.last_seq)
+                return got, states[w.last_seq]
+
+        failures = crashpoints.fuzz(lambda name: fuzz_workload(run, kind, states), recover,
+                                    same_leaves, names=(point,))
+        check(not failures, f"crashpoint {point} ({kind}): {failures}")
+    return {"crashpoints": len(points), "kinds": kinds,
+            "recovered_to_seq": {p: {"kind": k, "seq": q} for p, (k, q) in landed.items()}}
+
+
+def durable_ring(kind: str, ring, base, out, counters, rounds: int, sync, samples: int,
+                 root: str) -> dict:
+    """A δ ring entry with ``wal=``, on the state it certified unlogged
+    (``out``). The log's object is the mesh's ``[P, ...]`` rank state:
+    ``base`` (every rank at the synced state the fill started from) is
+    snapshot as generation 1 and attached as the diff base; the logged ring
+    ``ring(wal)`` must equal ``out`` and launch the kernels as the unlogged
+    one did (``counters`` set to 0 just before, read just after). Then:
+    "restart" (reopen, recover: == the ring's rows); a second append killed
+    at ``wal.mid_append`` (reopening truncates the torn tail, recovery lands
+    on the last durable record); a corrupt newest generation (recovery
+    falls back a generation, replays the suffix, still bit-identical); and
+    ``samples`` walls of the logged and unlogged ring, alternating."""
+    import shutil
+
+    from crdt_tpu_torch.delta_opt.decompose import KINDS
+    from crdt_tpu_torch.durability import (
+        SimulatedCrash, Wal, crashpoints, recover_state, snapshot,
+    )
+    from crdt_tpu_torch.ops.lattice import tree_leaves
+    from crdt_tpu_torch.utils.metrics import state_nbytes
+
+    snap_dir, wal_dir = os.path.join(root, kind, "snap"), os.path.join(root, kind, "wal")
+    t0 = time.perf_counter()
+    snapshot.save_state(snap_dir, kind, base, wal_seq=0)
+    snap_s = time.perf_counter() - t0
+    w = Wal(wal_dir, fsync="on_round")
+    w.attach(base)
+    fsyncs0 = w.fsyncs
+    for counted in counters:
+        counted.launches = 0
+    t0 = time.perf_counter()
+    logged = ring(w)
+    sync()
+    logged_ms = (time.perf_counter() - t0) * 1e3
+    launches = [counted.launches for counted in counters]
+    check(same_leaves(logged[0], out[0]) and same_leaves(logged[1], out[1])
+          and int(logged[3]) == 0, f"the {kind} ring with wal= differs from the unlogged ring")
+    check(w.last_seq == 1 and w.fsyncs - fsyncs0 == 1,
+          f"the {kind} ring logged {w.last_seq} records with {w.fsyncs - fsyncs0} fsyncs")
+    append = {"decompose_s": w.seconds["decompose"], "copy_s": w.seconds["copy"],
+              "write_s": w.seconds["write"], "fsync_s": w.seconds["fsync"]}
+    record_bytes = w.bytes_appended
+    w.close()
+
+    # "Restart": the log and the snapshot alone.
+    t0 = time.perf_counter()
+    w = Wal(wal_dir)
+    open_s = time.perf_counter() - t0
+    (_, meta, leaves), = list(w.records())
+    n_rows = len(tree_leaves(KINDS[kind].split(base)[0]))
+    valid = leaves[n_rows]
+    got, rep = recover_state(snap_dir, w, base, kind=kind)
+    sync()
+    check(meta["rtype"] == "delta" and rep.generation == 1 and rep.replayed_records == 1
+          and same_leaves(got, logged[0]), f"the {kind} recovery != the logged ring")
+    # The restarted process resumes logging over what it recovered; its
+    # next append is killed mid-frame: the torn tail.
+    w.attach(got)
+    del got
+    crashed = None
+    try:
+        with crashpoints.armed("wal.mid_append"):
+            w.append_state(kind, base)
+    except SimulatedCrash as crash:
+        crashed = crash.name
+    check(crashed == "wal.mid_append", f"the armed append died at {crashed}")
+    w.close()
+    t0 = time.perf_counter()
+    w = Wal(wal_dir)
+    torn_open_s = time.perf_counter() - t0
+    check(w.torn_tails == 1 and w.last_seq == 1,
+          f"reopening truncated {w.torn_tails} tails, last seq {w.last_seq}")
+    got, rep_torn = recover_state(snap_dir, w, base, kind=kind)
+    check(same_leaves(got, logged[0]), f"the {kind} recovery after the torn tail differs")
+    del got
+
+    # A corrupt newest generation: fall back one, replay the longer suffix.
+    t0 = time.perf_counter()
+    snapshot.save_state(snap_dir, kind, logged[0], wal_seq=w.last_seq)
+    snap2_s = time.perf_counter() - t0
+    snapshot.corrupt_generation(snap_dir, 2)
+    got, rep_fb = recover_state(snap_dir, w, base, kind=kind)
+    check(rep_fb.generation == 1 and rep_fb.snapshot_fallbacks == 1
+          and rep_fb.replayed_records == 1 and same_leaves(got, logged[0]),
+          f"the {kind} recovery past a corrupt generation differs ({rep_fb})")
+    w.close()
+    del got, logged
+
+    # Walls: fresh logs, attached before the timing (the caller's seed),
+    # the logged and the unlogged ring alternating.
+    logs = [Wal(os.path.join(root, kind, f"timed-{i}"), fsync="on_round")
+            for i in range(samples)]
+    for log in logs:
+        log.attach(base)
+    pending = iter(logs)
+    runs = alternate_rings(lambda on: ring(next(pending) if on else None), samples, sync)
+    timed_append = [sum(log.seconds.values()) * 1e3 for log in logs]
+    for log in logs:
+        log.close()
+        shutil.rmtree(log.path)
+    full = state_nbytes(out[0])
+    gen1 = os.path.getsize(os.path.join(snap_dir, "gen-00000001.npz"))
+    return {
+        "kind": kind, "rounds": rounds, "launches_in_logged_ring": launches,
+        "record_bytes": record_bytes, "full_state_bytes": full,
+        "record_over_full_state": record_bytes / full,
+        "changed_lanes": int(valid.sum()), "lanes": int(valid.size),
+        "append_wall_s": append, "fsyncs_in_ring": 1,
+        "snapshot_bytes": gen1, "snapshot_write_s": snap_s, "snapshot2_write_s": snap2_s,
+        "logged_ring_ms_first": logged_ms,
+        "recovery": {"open_scan_s": open_s, "generation_load_s": rep.load_seconds,
+                     "replay_s": rep.replay_seconds, "total_s": open_s + rep.seconds},
+        "recovery_after_torn_tail": {"open_scan_s": torn_open_s, "total_s": rep_torn.seconds},
+        "recovery_after_fallback": {"generation_load_s": rep_fb.load_seconds,
+                                    "replay_s": rep_fb.replay_seconds},
+        "ring_ms_logged": statistics.median(runs[True]),
+        "ring_ms_unlogged": statistics.median(runs[False]),
+        "logged_over_unlogged": statistics.median(runs[True]) / statistics.median(runs[False]),
+        "ring_ms_logged_runs": runs[True], "ring_ms_unlogged_runs": runs[False],
+        "append_ms_in_timed_runs": timed_append,
+    }
+
+
+def phase_durability(device, seed: int, r: int = 8, k: int = 1_000_000, s: int = 2, a: int = 4,
+                     d: int = 4, chunk: int = 1 << 17) -> dict:
+    """The durability core on the card: the crashpoint diagonal (each of
+    the 15 crashpoints once, the five decomposition kinds cycled, small
+    states on the card), then ``checkpoint.save`` / ``load`` of a
+    ``BatchedMap`` at config 4's widths (R = 8, bench.py's state rule),
+    equal to what was saved, leaf for leaf and interner for interner."""
+    import torch
+
+    from crdt_tpu_torch import checkpoint
+    from crdt_tpu_torch.models import BatchedMap
+    from crdt_tpu_torch.utils import Interner
+    from crdt_tpu_torch.utils.metrics import state_nbytes
+
+    def runs(root):
+        diagonal = crashpoint_diagonal(device, seed, root)
+        model = BatchedMap(r, k, a, s, d, keys=Interner(range(k)),
+                           actors=Interner(f"a{i}" for i in range(a)), values=Interner(range(5)),
+                           device=device)
+        fill_config4(model, seed, chunk)
+        path = os.path.join(root, "config4.npz")
+        t0 = time.perf_counter()
+        checkpoint.save(path, model)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = checkpoint.load(path, device=device)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        load_s = time.perf_counter() - t0
+        check(isinstance(back, BatchedMap) and same_leaves(back.state, model.state)
+              and all(getattr(back, n).items() == getattr(model, n).items()
+                      for n in ("keys", "actors", "values")),
+              "the loaded config-4 checkpoint differs from the saved model")
+        return {"crashpoint_diagonal": diagonal, "checkpoint_map": {
+            "R": r, "K": k, "S": s, "A": a, "D": d, "file_bytes": os.path.getsize(path),
+            "state_bytes": state_nbytes(model.state), "save_s": save_s, "load_s": load_s}}
+
+    t_phase = time.perf_counter()
+    out = {"phase": "durability", **with_scratch_dir(runs)}
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return out
+
 
 PHASES = ("k1", "scenarios", "full_width", "k2", "map_scenarios", "full_width_map", "k3",
           "delta_scenarios", "full_width_delta", "map_delta_scenarios", "full_width_delta_map",
-          "sparse_scenarios", "flagship", "elastic", "resync", "donate")
+          "sparse_scenarios", "flagship", "elastic", "resync", "donate", "durability")
 
 
 def main(argv=None) -> int:
@@ -3394,6 +3872,8 @@ def main(argv=None) -> int:
         phase_resync(device, args.seed)
     if run("donate"):
         phase_donate(device, args.seed)
+    if run("durability"):
+        phase_durability(device, args.seed)
     if only:
         print(f"chip_smoke: partial run of {only}; no kernels line", flush=True)
         return 0

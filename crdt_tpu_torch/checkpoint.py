@@ -1,0 +1,273 @@
+"""Checkpoint / resume for device-resident replica state — the port's
+copy of the JAX package's ``checkpoint.py``, in its on-disk format.
+
+A model's struct-of-arrays state goes into one ``.npz`` (host numpy
+copies, dtypes as the JAX package stores them: u32 lanes ``<u4``, bools
+``|b1``), and the host-side tables (interners) ride along as a
+canonical-JSON ``meta`` member of the same file, interned items written
+through ``serde.encode``. Every array carries a content checksum
+(:func:`array_checksum`) recorded in the meta. Files written by either
+package load in the other. ``load`` rebuilds the model on ``device``;
+resuming is then ordinary anti-entropy (``merge``/``fold`` with the live
+replicas).
+
+Ported kinds: ``BatchedOrswot`` (``orswot``), ``BatchedSparseOrswot``
+(``sparse_orswot``) and ``BatchedMap`` (``map``). The JAX package's other
+kinds raise naming the ROADMAP item that ports them: the nested maps
+(13), the sparse maps (12b), lists and counters (14). ``compact=True``
+needs the ``reclaim/`` plane (item 15.2) and raises.
+"""
+
+from __future__ import annotations
+
+import io
+import json
+import os
+import warnings
+import zlib
+from typing import Union
+
+import numpy as np
+
+from . import serde
+from .convert import leaf_from_numpy, leaf_to_numpy
+from .models.map import BatchedMap
+from .models.orswot import BatchedOrswot
+from .models.sparse_orswot import BatchedSparseOrswot
+from .ops.map import MapState
+from .ops.mvreg import MVRegState
+from .ops.orswot import OrswotState
+from .ops.sparse_orswot import SparseOrswotState
+from .utils import Interner
+from .utils.metrics import metrics
+
+#: The JAX package's checkpoint kinds the port does not have yet, with the
+#: ROADMAP item that ports each.
+_UNPORTED_KINDS = {
+    "map_orswot": "13", "map_map": "13", "map3": "13", "sparse_map_orswot": "12b",
+    "sparse_map_map": "12b", "sparse_map": "12b", "list": "14", "glist": "14",
+}
+
+
+class CheckpointCorrupt(RuntimeError):
+    """A checkpoint's stored bytes fail their recorded content checksum.
+    ``array`` names the offending array so the operator knows WHAT
+    rotted, not just that something did. Raised by :func:`load` instead
+    of silently reconstructing a model from rotten bytes; recovery is a
+    matter for the generational snapshot tier (``durability.snapshot``
+    falls back one generation)."""
+
+    def __init__(self, path, array: str, expect: int, got=None):
+        detail = (
+            "is MISSING from the file" if got is None
+            else f"fails its content checksum (recorded {expect:#010x}, "
+                 f"stored bytes hash to {got:#010x})"
+        )
+        super().__init__(
+            f"checkpoint {os.fspath(path)!r}: array {array!r} {detail} — "
+            f"the file is corrupt; restore from an older generation "
+            f"instead of loading rotten state"
+        )
+        self.path = os.fspath(path)
+        self.array = array
+
+
+def array_checksum(v: np.ndarray) -> int:
+    """CRC-32 of one array's dtype, shape, and content bytes — the
+    per-array integrity unit ``save`` records and ``load`` verifies
+    (also the manifest unit of ``durability.snapshot``)."""
+    v = np.ascontiguousarray(v)
+    crc = zlib.crc32(f"{v.dtype.str}:{v.shape}".encode("ascii"))
+    # crc32 takes any buffer: hash the array's memory in place instead
+    # of a tobytes() copy (flagship-scale content planes are GBs).
+    return zlib.crc32(v.reshape(-1).view(np.uint8).data, crc) & 0xFFFFFFFF
+
+
+def fsync_dir(path) -> None:
+    """fsync a DIRECTORY so a just-renamed/created entry inside it is
+    durable across power loss (write-then-rename alone only orders the
+    data, not the directory entry). Best-effort on platforms whose
+    directories refuse O_RDONLY opens."""
+    flags = os.O_RDONLY | getattr(os, "O_DIRECTORY", 0)
+    try:
+        fd = os.open(os.fspath(path), flags)
+    except OSError:
+        return
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+
+
+def _interner_items(interner: Interner):
+    return [serde.encode(item) for item in interner.items()]
+
+
+def _interner_from(items) -> Interner:
+    return Interner(serde.decode(item) for item in items)
+
+
+def _fields(prefix: str, state) -> dict:
+    return {f"{prefix}{k}": leaf_to_numpy(v) for k, v in state._asdict().items()}
+
+
+def _dump(model) -> tuple:
+    """``(meta, arrays)`` for a checkpointable model — the type dispatch
+    :func:`save` serializes and ``durability.snapshot`` layers generations
+    on. ``arrays`` values are host numpy; ``meta`` is JSON-serializable."""
+    if isinstance(model, BatchedOrswot):
+        meta = {"kind": "orswot", "members": _interner_items(model.members),
+                "actors": _interner_items(model.actors)}
+        arrays = _fields("s_", model.state)
+    elif isinstance(model, BatchedSparseOrswot):
+        meta = {"kind": "sparse_orswot", "members": _interner_items(model.members),
+                "actors": _interner_items(model.actors)}
+        arrays = _fields("s_", model.state)
+    elif isinstance(model, BatchedMap):
+        meta = {"kind": "map", "keys": _interner_items(model.keys),
+                "actors": _interner_items(model.actors),
+                "values": _interner_items(model.values)}
+        arrays = {f"s_{k}": leaf_to_numpy(v) for k, v in model.state._asdict().items()
+                  if k != "child"}
+        arrays.update(_fields("c_", model.state.child))
+    else:
+        raise TypeError(
+            f"cannot checkpoint {type(model).__name__}: the port checkpoints BatchedOrswot, "
+            f"BatchedSparseOrswot and BatchedMap (the nested maps come with ROADMAP item 13, "
+            f"the sparse maps with 12b, lists and counters with 14)"
+        )
+    return meta, arrays
+
+
+def to_npz_bytes(meta: dict, arrays: dict) -> bytes:
+    """One .npz image of ``(meta, arrays)`` with per-array content
+    checksums recorded in the meta — the byte format ``save`` writes
+    and ``durability.snapshot`` frames into generations."""
+    meta = dict(meta)
+    meta["checksums"] = {k: array_checksum(v) for k, v in arrays.items()}
+    buf = io.BytesIO()
+    np.savez(
+        buf,
+        meta=np.frombuffer(json.dumps(meta, sort_keys=True).encode("utf-8"), dtype=np.uint8),
+        **arrays,
+    )
+    return buf.getvalue()
+
+
+_WARNED_NO_CHECKSUMS = False
+
+
+def from_npz_bytes(path, raw) -> tuple:
+    """Parse + integrity-check one .npz image: returns ``(meta,
+    arrays)`` or raises :class:`CheckpointCorrupt` naming the first
+    array whose stored bytes fail their recorded checksum. Checkpoints
+    predating the checksums load with a one-shot warning — their
+    integrity is UNKNOWN, not verified."""
+    global _WARNED_NO_CHECKSUMS
+    with np.load(io.BytesIO(raw) if isinstance(raw, bytes) else raw) as z:
+        meta = json.loads(bytes(z["meta"]).decode("utf-8"))
+        arrays = {k: z[k] for k in z.files if k != "meta"}
+    sums = meta.get("checksums")
+    if sums is None:
+        if not _WARNED_NO_CHECKSUMS:
+            _WARNED_NO_CHECKSUMS = True
+            warnings.warn(
+                f"checkpoint {os.fspath(path)!r} predates per-array "
+                f"content checksums — integrity NOT verified (re-save to "
+                f"upgrade). Warned once per process.",
+                stacklevel=3,
+            )
+        metrics.count("checkpoint.loaded_unverified")
+        return meta, arrays
+    # Iterate the RECORDED set, not the stored one: a rotten file that
+    # dropped an array entirely must fail here with its name, not leak
+    # a bare KeyError out of the restore dispatch.
+    missing = sorted(set(sums) - set(arrays))
+    if missing:
+        raise CheckpointCorrupt(path, missing[0], int(sums[missing[0]]))
+    for name, v in arrays.items():
+        got = array_checksum(v)
+        expect = int(sums.get(name, -1))
+        if got != expect:
+            raise CheckpointCorrupt(path, name, expect, got)
+    return meta, arrays
+
+
+def save(path: Union[str, os.PathLike], model, compact: bool = False) -> None:
+    """Checkpoint a device model to ``path`` (one .npz file) with
+    per-array content checksums, atomically AND durably: the tmp file
+    (and its directory) is fsynced BEFORE the rename — write-then-rename
+    without the fsync orders nothing across power loss, so a crash
+    could leave the renamed file empty. ``compact=True`` (compact-on-save)
+    raises: it needs the ``reclaim/`` plane, ROADMAP item 15.2."""
+    if compact:
+        raise NotImplementedError(
+            "checkpoint.save: compact=True (ROADMAP item 15.2) not ported yet; call without it"
+        )
+    meta, arrays = _dump(model)
+    tmp = f"{os.fspath(path)}.tmp"
+    with open(tmp, "wb") as f:
+        f.write(to_npz_bytes(meta, arrays))
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+    fsync_dir(os.path.dirname(os.path.abspath(os.fspath(path))))
+
+
+def load(path: Union[str, os.PathLike], device="cuda"):
+    """Restore a model checkpointed by ``save`` (either package's) onto
+    ``device``; raises :class:`CheckpointCorrupt` (naming the array) when
+    the stored bytes fail their recorded content checksums instead of
+    silently reconstructing from rotten state."""
+    with open(path, "rb") as f:
+        meta, arrays = from_npz_bytes(path, f.read())
+    return _restore(meta, arrays, device)
+
+
+def _prefixed(arrays: dict, prefix: str, device) -> dict:
+    return {k[len(prefix):]: leaf_from_numpy(v, device)
+            for k, v in arrays.items() if k.startswith(prefix)}
+
+
+def _restore(meta: dict, arrays: dict, device="cuda"):
+    """Rebuild the model from a parsed ``(meta, arrays)`` image on
+    ``device`` (the inverse of :func:`_dump`; shared with
+    ``durability.snapshot``)."""
+    kind = meta["kind"]
+    if kind == "orswot":
+        state = OrswotState(**_prefixed(arrays, "s_", device))
+        model = BatchedOrswot(
+            state.top.shape[0], state.ctr.shape[-2], state.ctr.shape[-1], state.dcl.shape[-2],
+            members=_interner_from(meta["members"]), actors=_interner_from(meta["actors"]),
+            device="meta",
+        )
+    elif kind == "sparse_orswot":
+        state = SparseOrswotState(**_prefixed(arrays, "s_", device))
+        model = BatchedSparseOrswot(
+            state.top.shape[0], state.eid.shape[-1], state.top.shape[-1], state.dcl.shape[-2],
+            state.didx.shape[-1], members=_interner_from(meta["members"]),
+            actors=_interner_from(meta["actors"]), device="meta",
+        )
+    elif kind == "map":
+        state = MapState(child=MVRegState(**_prefixed(arrays, "c_", device)),
+                         **_prefixed(arrays, "s_", device))
+        model = BatchedMap(
+            state.top.shape[0], state.dkeys.shape[-1], state.top.shape[-1],
+            state.child.wact.shape[-1], state.dcl.shape[-2],
+            keys=_interner_from(meta["keys"]), actors=_interner_from(meta["actors"]),
+            values=_interner_from(meta["values"]), device="meta",
+        )
+    elif kind in _UNPORTED_KINDS:
+        raise NotImplementedError(
+            f"checkpoint kind {kind!r} is not ported yet (ROADMAP item {_UNPORTED_KINDS[kind]})"
+        )
+    else:
+        raise ValueError(f"unknown checkpoint kind {kind!r}")
+    model.state = state
+    return model
+
+
+__all__ = [
+    "CheckpointCorrupt", "array_checksum", "fsync_dir", "from_npz_bytes", "load", "save",
+    "to_npz_bytes",
+]

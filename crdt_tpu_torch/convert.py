@@ -14,6 +14,10 @@ both directions copy:
   ``didx`` i32, ``valid``/``dvalid`` bool;
 - δ tracking (``tracking_from_numpy``): ``dirty`` bool, ``fctx`` u32 or
   u64.
+
+:func:`leaf_to_numpy` / :func:`leaf_from_numpy` carry one leaf of any
+dtype (the durability files' leaves: u32 stays ``<u4``, u64 ``<u8``, bool
+``|b1``), through a signed view for the unsigned lanes.
 """
 
 from __future__ import annotations
@@ -23,7 +27,6 @@ from typing import Dict
 import numpy as np
 import torch
 
-from ._dtypes import bits
 from .ops.map import MapState
 from .ops.mvreg import MVRegState
 from .ops.orswot import OrswotState
@@ -43,6 +46,29 @@ _CHILD_DTYPES = {
 }
 
 
+_UNSIGNED = {torch.uint32: (torch.int32, np.uint32), torch.uint64: (torch.int64, np.uint64)}
+_SIGNED_VIEW = {np.dtype(np.uint32): (np.int32, torch.uint32),
+                np.dtype(np.uint64): (np.int64, torch.uint64)}
+
+
+def leaf_to_numpy(x: torch.Tensor) -> np.ndarray:
+    """One tensor → a host numpy copy with the same dtype and bytes."""
+    if x.dtype in _UNSIGNED:
+        signed, unsigned = _UNSIGNED[x.dtype]
+        return x.view(signed).cpu().numpy().copy().view(unsigned)
+    return x.cpu().numpy().copy()
+
+
+def leaf_from_numpy(x: np.ndarray, device="cuda") -> torch.Tensor:
+    """One numpy array → a tensor on ``device`` with the same dtype and
+    bytes (inverse of :func:`leaf_to_numpy`)."""
+    x = np.ascontiguousarray(x)
+    if x.dtype in _SIGNED_VIEW:
+        signed, unsigned = _SIGNED_VIEW[x.dtype]
+        return torch.tensor(x.view(signed), device=device).view(unsigned)
+    return torch.tensor(x, device=device)
+
+
 def _leaves_from_numpy(kind: str, arrays, dtypes: dict, device) -> dict:
     """Each named leaf of ``arrays`` as a tensor on ``device``. Raises on a
     missing leaf or a dtype other than the leaf's (no silent casts)."""
@@ -51,19 +77,12 @@ def _leaves_from_numpy(kind: str, arrays, dtypes: dict, device) -> dict:
         x = np.asarray(arrays[name])
         if x.dtype != dtype:
             raise TypeError(f"{kind} leaf {name!r} must be {np.dtype(dtype)}, got {x.dtype}")
-        if dtype is np.uint32:
-            leaves[name] = torch.tensor(x.view(np.int32), device=device).view(torch.uint32)
-        else:
-            leaves[name] = torch.tensor(x, device=device)
+        leaves[name] = leaf_from_numpy(x, device)
     return leaves
 
 
 def _leaves_to_numpy(state, dtypes: dict) -> dict:
-    out = {}
-    for name, dtype in dtypes.items():
-        x = bits(getattr(state, name)).cpu().numpy().copy()
-        out[name] = x.view(np.uint32) if dtype is np.uint32 else x
-    return out
+    return {name: leaf_to_numpy(getattr(state, name)) for name in dtypes}
 
 
 def orswot_from_numpy(arrays: Dict[str, np.ndarray], device="cuda") -> OrswotState:
@@ -115,10 +134,6 @@ def tracking_from_numpy(dirty: np.ndarray, fctx: np.ndarray, device="cuda"):
     dirty, fctx = np.asarray(dirty), np.asarray(fctx)
     if dirty.dtype != np.bool_:
         raise TypeError(f"tracking leaf 'dirty' must be bool, got {dirty.dtype}")
-    if fctx.dtype == np.uint32:
-        f = torch.tensor(fctx.view(np.int32), device=device).view(torch.uint32)
-    elif fctx.dtype == np.uint64:
-        f = torch.tensor(fctx.view(np.int64), device=device).view(torch.uint64)
-    else:
+    if fctx.dtype not in (np.uint32, np.uint64):
         raise TypeError(f"tracking leaf 'fctx' must be uint32 or uint64, got {fctx.dtype}")
-    return torch.tensor(dirty, device=device), f
+    return leaf_from_numpy(dirty, device), leaf_from_numpy(fctx, device)

@@ -27,7 +27,9 @@ registry yet (ROADMAP item 16), so :data:`KINDS` below is the one table
 mapping each ported kind to its ``(join, split, unsplit)``, the pairs
 living beside each kind's ops (``ops/<kind>.py`` ``_decomp_split`` /
 ``_decomp_unsplit``). States are unbatched, as the JAX functions take
-them (the JAX resync vmaps them; ``heal.resync`` calls them per rank).
+them (the JAX resync vmaps them; ``heal.resync`` calls them per rank), or
+``[P, ...]`` with ``batched=True``, the layout the write-ahead log
+records (``durability.wal``).
 """
 
 from __future__ import annotations
@@ -58,25 +60,30 @@ class Decomposition(NamedTuple):
 
 
 def _lane_mask(valid: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
-    return valid.reshape(-1, *([1] * (leaf.dim() - 1)))
+    return valid.reshape(*valid.shape, *([1] * (leaf.dim() - valid.dim())))
 
 
-def _changed_lanes(rows_a, rows_b) -> torch.Tensor:
-    """Per-lane OR of leaf-wise differences over every trailing axis."""
+def _changed_lanes(rows_a, rows_b, batched: bool = False) -> torch.Tensor:
+    """Per-lane OR of leaf-wise differences over every trailing axis (the
+    lane axis is the first, or the second under a leading rank axis)."""
     out = None
+    lead = 2 if batched else 1
     for a, b in zip(tree_leaves(rows_a), tree_leaves(rows_b)):
-        neq = torch.any((bits(a) != bits(b)).reshape(a.shape[0], -1), dim=-1)
+        neq = torch.any((bits(a) != bits(b)).reshape(*a.shape[:lead], -1), dim=-1)
         out = neq if out is None else out | neq
     return out
 
 
-def decompose_rows(state, since, split) -> Decomposition:
+def decompose_rows(state, since, split, batched: bool = False) -> Decomposition:
     """The generic row-diff decomposition: ``split(state)`` yields ``(rows,
     residual)`` with a shared leading lane axis on every row leaf; a lane
-    is emitted iff it differs from ``since``'s."""
+    is emitted iff it differs from ``since``'s. ``batched=True`` takes
+    ``[P, ...]`` states and decomposes each rank over its own row of
+    ``since`` (the JAX package's ``jax.vmap(decompose)``); ``valid`` is
+    then ``[P, L]`` and every leaf keeps the rank axis."""
     rows_s, res = split(state)
     rows_o, _ = split(since)
-    valid = _changed_lanes(rows_s, rows_o)
+    valid = _changed_lanes(rows_s, rows_o, batched)
     return Decomposition(lanes=tree_map(lambda x: mask_slots(valid, x), rows_s), valid=valid,
                          residual=res)
 
@@ -129,13 +136,15 @@ def get_decomposer(dec_or_kind) -> Decomposer:
     return dec_or_kind
 
 
-def decompose(dec_or_kind, state, since) -> Decomposition:
+def decompose(dec_or_kind, state, since, batched: bool = False) -> Decomposition:
     """Decompose ``state`` over ``since`` by a kind name or a
-    :class:`Decomposer`."""
-    return decompose_rows(state, since, get_decomposer(dec_or_kind).split)
+    :class:`Decomposer` (``batched`` as in :func:`decompose_rows`)."""
+    return decompose_rows(state, since, get_decomposer(dec_or_kind).split, batched)
 
 
 def reconstruct(dec_or_kind, since, d: Decomposition):
+    """Reconstruct the decomposed state over ``since`` (either layout:
+    unbatched, or ``[P, ...]`` with ``valid [P, L]``)."""
     dec = get_decomposer(dec_or_kind)
     return reconstruct_rows(since, d, dec.split, dec.unsplit)
 

@@ -6,9 +6,9 @@ associative, commutative and idempotent. The batch is padded to a power
 of two with join identities, which the join absorbs. States are
 NamedTuples of tensors; ``join`` broadcasts over leading batch axes
 (the JAX package's ``jax.vmap(join)`` becomes a join on batched
-leaves). Beside it, the tree walks (``tree_map``, ``tree_leaves``) and
-the row gathers and scatters every packet and window function shares
-(``take_rows``, ``put_rows``, ``mask_slots``).
+leaves). Beside it, the tree walks (``tree_map``, ``tree_leaves``,
+``tree_unflatten``) and the row gathers and scatters every packet and
+window function shares (``take_rows``, ``put_rows``, ``mask_slots``).
 """
 
 from __future__ import annotations
@@ -34,6 +34,26 @@ def tree_leaves(tree) -> list:
     if isinstance(tree, torch.Tensor):
         return [tree]
     return [leaf for x in tree for leaf in tree_leaves(x)]
+
+
+def tree_unflatten(template, leaves):
+    """A tree shaped like ``template`` holding ``leaves`` in
+    :func:`tree_leaves` order (the inverse of that walk)."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, torch.Tensor):
+            leaf = next(it, None)
+            if leaf is None:
+                raise ValueError("fewer leaves than the template has")
+            return leaf
+        kids = [build(x) for x in node]
+        return type(node)(*kids) if hasattr(node, "_fields") else tuple(kids)
+
+    out = build(template)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the template has")
+    return out
 
 
 def row_index(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -49,7 +49,7 @@ from .mesh import VirtualMesh, pad_replicas, pad_replicas_map, pad_replicas_spar
 # The ROADMAP item that ports each mode of the JAX entries still missing.
 _UNPORTED = {"telemetry": "15", "frontier": "15", "compact_every": "15", "stability": "15.2",
              "lag_threshold": "15.2", "reclaim": "15.2", "widen_policy": "15.3",
-             "faults": "15.4", "wal": "9", "wal_every": "9", "wal_base": "9"}
+             "faults": "15.4"}
 
 
 def _refuse(fn: str, **modes) -> None:

@@ -224,10 +224,11 @@ def mesh_delta_gossip(
     peer positively confirmed joining stop shipping, removals included;
     the converged states stay bit-identical. ``donate=True`` yields
     ``(state, dirty)``: at R == P the outputs come back in the caller's
-    tensors. ``stats``, when a dict, receives the run's counts
-    (``delta_ring.run_delta_ring`` documents both modes and the counts).
-    ``telemetry=`` (ROADMAP item 15), ``faults=`` (item 15.4) and ``wal=``
-    (item 9) are still to port and raise.
+    tensors. ``wal=`` (a ``durability.Wal``) logs the run's converged rows
+    as one δ record of kind ``orswot`` + a round barrier. ``stats``, when a
+    dict, receives the run's counts (``delta_ring.run_delta_ring``
+    documents the modes and the counts). ``telemetry=`` (ROADMAP item 15)
+    and ``faults=`` (item 15.4) are still to port and raise.
 
     Returns ``(states [P, ...], dirty [P, E], overflow, residue)``."""
     from ..ops.fold_kernels import fold_auto
@@ -238,8 +239,8 @@ def mesh_delta_gossip(
         local_fold=lambda s: fold_auto(s, prefer=local_fold),
         extract=extract_delta, apply_fn=apply_delta, close_top=close_top_orswot,
         telemetry=telemetry, pipeline=pipeline, digest=digest, gate=gate_delta,
-        donate=donate, faults=faults, ack_window=ack_window, wal=wal, fused=fused,
-        stats=stats,
+        donate=donate, faults=faults, ack_window=ack_window, wal=wal, wal_kind="orswot",
+        fused=fused, stats=stats,
     )
 
 

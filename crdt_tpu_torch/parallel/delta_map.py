@@ -276,10 +276,10 @@ def mesh_delta_gossip_map(
     :func:`interval_accumulate_map` or op logs. See
     ``delta.mesh_delta_gossip`` for the modes, the ROUNDS BUDGET and
     ``stats``, ``ack_window=`` (the Map ring ships removal-carrying
-    slots, which only the ack window can mask) and ``donate=``;
-    ``telemetry=`` (ROADMAP item 15), ``faults=`` (item 15.4) and ``wal=``
-    (item 9) are still to port and raise. Returns ``(states [P, ...], dirty [P, K], overflow [2],
-    residue)``."""
+    slots, which only the ack window can mask), ``donate=`` and ``wal=``
+    (δ records of kind ``map``); ``telemetry=`` (ROADMAP item 15) and
+    ``faults=`` (item 15.4) are still to port and raise. Returns
+    ``(states [P, ...], dirty [P, K], overflow [2], residue)``."""
     from .delta_ring import run_delta_ring
 
     return run_delta_ring(
@@ -287,8 +287,8 @@ def mesh_delta_gossip_map(
         local_fold=map_ops.fold,
         extract=extract_delta_map, apply_fn=apply_delta_map, close_top=close_top_map,
         telemetry=telemetry, pipeline=pipeline, digest=digest, gate=gate_delta_map,
-        donate=donate, faults=faults, ack_window=ack_window, wal=wal, fused=fused,
-        stats=stats, template=packet_template_map,
+        donate=donate, faults=faults, ack_window=ack_window, wal=wal, wal_kind="map",
+        fused=fused, stats=stats, template=packet_template_map,
     )
 
 

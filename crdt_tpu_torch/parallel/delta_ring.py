@@ -46,10 +46,18 @@ Modes ported (the JAX module docstring gives their soundness):
   counts ``anti_entropy.donate_unaliasable`` and the inputs are freed
   after the run (``anti_entropy._consume``). ``fctx`` is never donated.
 
+- ``wal=`` (a ``durability.Wal``) — crash durability: the log's diff
+  base is attached (a device clone of the padded input, since a donating
+  run consumes it) when the log has none, and after the run — never
+  inside a round — the converged ``[P, ...]`` rows are appended as one δ
+  record under ``wal_kind`` and the round barrier is marked
+  (``Wal.mark_round``, the ``on_round`` policy's one fsync). A crash then
+  recovers to the last durable run through ``durability.recover``.
+
 The residue certificate, the overflow OR, the narrow-lost parked count and
 the guarded top adoption follow the JAX ring exactly. ``telemetry=``
-(ROADMAP item 15), ``faults=`` with its delay mode (item 15.4) and
-``wal=`` (item 9) are still to port and raise, naming their items.
+(ROADMAP item 15) and ``faults=`` with its delay mode (item 15.4) are
+still to port and raise, naming their items.
 """
 
 from __future__ import annotations
@@ -113,6 +121,7 @@ def run_delta_ring(
     faults=None,
     ack_window=False,
     wal=None,
+    wal_kind: Optional[str] = None,   # merge kind the δ records decompose under
     fused: bool = True,
     stats: Optional[dict] = None,
     template: Callable = _packet_template,  # (folded [P, ...], cap, fctx dtype) -> packet
@@ -133,8 +142,9 @@ def run_delta_ring(
     masked, all links and rounds; times ``ackwin.slot_bytes`` it is the
     JAX ring's ``bytes_acked_skipped``) and ``ack_bytes`` (one link's ack
     lane per round). The counts stay on the device until this read."""
-    _refuse("run_delta_ring", telemetry=telemetry, faults=faults is not None,
-            wal=wal is not None)
+    _refuse("run_delta_ring", telemetry=telemetry, faults=faults is not None)
+    if wal is not None and wal_kind is None:
+        raise ValueError("wal= needs wal_kind= (the merge kind δ records decompose under)")
     if fused and kind not in _wire.WIRE_SURFACES:
         raise NotImplementedError(
             f"run_delta_ring: fused=True needs a wire codec for {kind!r}; only "
@@ -154,6 +164,9 @@ def run_delta_ring(
     caller = (state, dirty)
 
     blocks = rank_blocks(state, mesh)
+    if wal is not None and wal.tail is None:
+        # The diff base, before the run: a donating run consumes the input.
+        wal.attach(tree_map(lambda x: x.reshape(-1, *x.shape[2:]), blocks))
     rl = blocks.top.shape[1]
     pad_r = p * rl - dirty.shape[0]
     dirty = dirty.to(mesh.device)
@@ -313,6 +326,10 @@ def run_delta_ring(
         if aliasable:
             folded, d = _write_back(caller, (folded, d))
         _consume(caller, keep=(folded, d))
+    if wal is not None:
+        # The host-side durability append, after the run.
+        wal.append_state(wal_kind, folded)
+        wal.mark_round()
     if stats is not None:
         stats.update(
             rounds=rounds, links=p, slots_shipped=int(counts["shipped"]),
@@ -364,15 +381,23 @@ def delta_gossip_elastic(
     since a failed attempt needs the pre-round state. ``stats`` holds the
     last attempt's counts.
 
+    ``wal=`` logs ONLY the committed attempt (a rejected overflowing run
+    mutated nothing, so it must not reach the log either); the log's diff
+    base is ``model.state`` when it has none, and a widen changes the
+    shapes, which the log absorbs as a full-``state`` record
+    (``Wal.append_state``'s fallback) — replay re-anchors there.
+
     Returns ``(states, dirty, overflow, residue, widened)``: the
     ``mesh_delta_gossip`` tuple plus the axes grown (empty when capacity
-    sufficed). ``telemetry=`` (ROADMAP item 15), ``reclaim=`` (item 15.2),
-    ``faults=`` (item 15.4) and ``wal=`` (item 9) raise."""
+    sufficed). ``telemetry=`` (ROADMAP item 15), ``reclaim=`` (item 15.2)
+    and ``faults=`` (item 15.4) raise."""
     from .. import elastic
     from .delta import mesh_delta_gossip
 
     _refuse("delta_gossip_elastic", telemetry=telemetry, reclaim=reclaim is not None,
-            faults=faults is not None, wal=wal is not None)
+            faults=faults is not None)
+    if wal is not None and wal.tail is None:
+        wal.attach(model.state)
     policy = policy or elastic.DEFAULT_POLICY
     widened: dict = {}
     migrations = 0
@@ -387,6 +412,10 @@ def delta_gossip_elastic(
         if donate:
             model.state, dirty = snap, snap_dirty
         if not bool(torch.any(out[2])):
+            if wal is not None:
+                # The committed attempt is the durable transition.
+                wal.append_state("orswot", out[0])
+                wal.mark_round()
             return (*out, widened)
         if migrations >= policy.max_migrations:
             raise RuntimeError(

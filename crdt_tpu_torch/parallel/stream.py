@@ -40,6 +40,16 @@ tensors until the caller reads them); the dense join's parked-slot dedupe
   carrying the accumulator (the exact join of the blocks before it) and
   the resume index; ``init=exc.acc`` with the remaining blocks completes
   the fold bit-identically.
+- ``wal=`` (a ``durability.Wal``) makes that contract DURABLE: every
+  ``StreamInterrupted`` first persists a fsynced resume record (the
+  accumulator plus the resume index), ``wal_every=k`` persists one every k
+  blocks as well, and the finished pass persists its last one, so a hard
+  kill (no exception path at all: a preemption) still resumes from the
+  last persisted block through ``durability.recover.load_stream_resume``.
+  Records carry the ABSOLUTE block index ``wal_base + blocks_done``: a
+  resumed run passes the index it resumed from as ``wal_base=``. Each
+  persist copies the accumulator to the host (a sync: size ``wal_every``
+  like a checkpoint cadence).
 
 Block contract: the first block fixes the template (caps and rows, rows
 rounded up to a multiple of P). A later block may be SMALLER
@@ -49,8 +59,8 @@ refuses (re-chunk the source).
 
 Modes of the JAX entries still to port raise ``NotImplementedError``
 naming their ROADMAP item: ``telemetry=``, ``frontier=``/``compact_every=``
-(item 15), ``widen_policy=`` (15.3), ``faults=`` (15.4), ``wal=`` (9). The
-sparse Map and element-sharded plans are item 12b.
+(item 15), ``widen_policy=`` (15.3), ``faults=`` (15.4). The sparse Map
+and element-sharded plans are item 12b.
 """
 
 from __future__ import annotations
@@ -206,11 +216,18 @@ def _stream_fold(
     the module docstring)."""
     _refuse("mesh_stream_fold", telemetry=telemetry, frontier=frontier is not None,
             compact_every=compact_every, widen_policy=widen_policy is not None,
-            faults=faults is not None, wal=wal is not None, wal_every=wal_every,
-            wal_base=wal_base)
+            faults=faults is not None)
     device, p = mesh.device, mesh.p
     on_card = device.type == "cuda"
     it = iter(blocks)
+
+    def persist_resume(acc_now, done: int) -> None:
+        """One fsynced resume record at the absolute index ``wal_base +
+        done`` (module docstring)."""
+        if wal is None or acc_now is None:
+            return
+        wal.append_resume(plan.kind, acc_now, wal_base + done)
+        wal.sync()
 
     try:
         first = next(it, None)
@@ -218,6 +235,7 @@ def _stream_fold(
         raise  # caller bugs propagate as they are
     except Exception as exc:
         metrics.count("stream.interrupted")
+        persist_resume(init, 0)
         raise StreamInterrupted(exc, init, 0) from exc
     if first is None and init is None:
         raise ValueError("empty block stream and no init accumulator")
@@ -287,6 +305,7 @@ def _stream_fold(
         raise
     except Exception as exc:
         metrics.count("stream.interrupted")
+        persist_resume(acc, 0)
         raise StreamInterrupted(exc, acc, 0) from exc
 
     overflow = None
@@ -298,6 +317,8 @@ def _stream_fold(
         overflow = of if overflow is None else overflow | of
         blocks_done += 1
         del block, staged
+        if wal_every and blocks_done % wal_every == 0:
+            persist_resume(acc, blocks_done)
         if not pipeline:
             if on_card:
                 torch.cuda.synchronize(device)
@@ -315,7 +336,9 @@ def _stream_fold(
             raise
         except Exception as exc:
             metrics.count("stream.interrupted")
+            persist_resume(acc, blocks_done)
             raise StreamInterrupted(exc, acc, blocks_done) from exc
+    persist_resume(acc, blocks_done)
 
     if overflow is None:
         overflow = torch.zeros((), dtype=torch.bool, device=device)

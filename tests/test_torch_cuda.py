@@ -4,7 +4,9 @@ CPU (the sparse ORSWOT's too), the δ ring on the card (fused == layered ==
 mesh_fold), with its ack window (K3's acked instance once per round; an
 acked Map round with no host sync) and donation (outputs in the inputs'
 storage), and the replica stream from pinned host blocks against the
-stream from blocks on the card and on the CPU.
+stream from blocks on the card and on the CPU; the durability core on the
+card (a logged ring and its recovery, a stream resumed from its log, the
+crashpoint diagonal and a checkpoint round trip).
 
 Marked ``cuda``; every test skips without a device. It imports neither
 JAX nor the JAX package, so it also runs where JAX is not installed:
@@ -386,3 +388,52 @@ def test_the_stream_from_pinned_host_blocks_equals_the_stream_from_device_blocks
                                      VirtualMesh(8, "cpu"))
     assert chip_smoke.same_leaves(tuple(x.cpu() for x in want), cpu)
     assert bool(want.valid.all()) and torch.equal(want.eid, master["eid"])
+
+
+def test_a_logged_ring_on_the_card_recovers_bit_identical(card):
+    """The δ ring with ``wal=`` on the card (``chip_smoke.durable_ring``):
+    it equals the unlogged ring and launches K3 once per round and K1 once
+    per rank; the reopened log and snapshot recover its rows on the card,
+    after a torn tail and past a corrupt generation too."""
+    from crdt_tpu_torch.ops import orswot as ops
+    from crdt_tpu_torch.ops.fold_kernels import fold_entries
+    from crdt_tpu_torch.parallel import VirtualMesh, mesh_delta_gossip
+
+    model, dirty, fctx = _small_ring(card)
+    mesh = VirtualMesh(4, card)
+    plain = mesh_delta_gossip(model.state, dirty, fctx, mesh, rounds=8, cap=64)
+    e, a = model.state.ctr.shape[-2:]
+    base = ops.empty(e, a, model.state.dvalid.shape[-1], batch=(4,), device=card)
+    res = chip_smoke.with_scratch_dir(lambda root: chip_smoke.durable_ring(
+        "orswot", lambda wal: mesh_delta_gossip(model.state, dirty, fctx, mesh, rounds=8, cap=64,
+                                                wal=wal),
+        base, plain, (wire_pack, fold_entries), 8, lambda: torch.cuda.synchronize(card), 1,
+        root))
+    assert res["launches_in_logged_ring"] == [8, 4]
+    assert 0 < res["changed_lanes"] <= res["lanes"]
+
+
+def test_the_stream_resumes_from_its_log_on_the_card(card):
+    """A sparse stream on the card whose source dies halfway resumes from
+    its log to the uninterrupted pass (``chip_smoke.durable_stream``)."""
+    from crdt_tpu_torch.ops import sparse_orswot as sp
+    from crdt_tpu_torch.parallel import VirtualMesh, mesh_stream_fold_sparse
+
+    gen, _ = chip_smoke.flagship_population(256, 100_000, 8, card, seed=5)
+    mesh = VirtualMesh(8, card)
+
+    def blocks():
+        return (gen(torch.arange(b * 64, (b + 1) * 64, device=card)) for b in range(10))
+
+    want, _ = mesh_stream_fold_sparse(blocks(), mesh)
+    res = chip_smoke.with_scratch_dir(lambda root: chip_smoke.durable_stream(
+        blocks, want, mesh, sp.empty(256, 8, device=card), 10,
+        lambda: torch.cuda.synchronize(card), 1, root))
+    assert res["resume_points"] == [2, 4, 5]
+
+
+def test_the_durability_phase_on_the_card(card):
+    """The crashpoint diagonal with states on the card and a BatchedMap
+    checkpoint round trip (``chip_smoke.phase_durability``, small K)."""
+    res = chip_smoke.phase_durability(card, 1, k=3000, chunk=1000)
+    assert res["crashpoint_diagonal"]["crashpoints"] == 15

@@ -196,8 +196,9 @@ def test_elastic_wrappers_refuse_unported_modes(flag, item):
     port = BatchedOrswot.from_pure([port_orswot(r) for r in _orswot_pures(P, 1)], device="cpu")
     with pytest.raises(NotImplementedError, match=rf"ROADMAP item {item}\)"):
         gossip_elastic(port, port_mesh, **flag)
-    flag = dict(wal=object()) if "stability" in flag else flag
-    item = "9" if "wal" in flag else item
+    # delta_gossip_elastic has no stability=; it refuses reclaim= (the same
+    # item) in the company of the ported wal=.
+    flag = dict(reclaim=object(), wal=object()) if "stability" in flag else flag
     dirty = torch.ones((P, port.state.ctr.shape[-2]), dtype=torch.bool)
     with pytest.raises(NotImplementedError, match=rf"ROADMAP item {item}\)"):
         delta_gossip_elastic(port, dirty, torch.zeros_like(port.state.ctr), port_mesh, **flag)

@@ -1,0 +1,89 @@
+"""The port's ``serde`` against the JAX package's: the same value encodes
+to the same tagged tree (and the same canonical bytes) in both packages,
+and the port decodes the JAX encoding back to its own types — primitives,
+``Dot``/``OrdDot``, ``VClock`` and the pure ``Orswot``, ``Map`` and
+``MVReg`` with their ops. The JAX package's tags for types the port does
+not have yet decode to ``NotImplementedError`` naming ROADMAP item 14."""
+
+import random
+
+import pytest
+
+from crdt_tpu import serde as ref_serde
+from crdt_tpu.dot import Dot as RefDot, OrdDot as RefOrdDot
+from crdt_tpu.pure.gcounter import GCounter as RefGCounter
+from crdt_tpu.pure.lwwreg import LWWReg as RefLWWReg
+from crdt_tpu.vclock import VClock as RefVClock
+from crdt_tpu_torch import serde
+from crdt_tpu_torch.dot import Dot, OrdDot
+from crdt_tpu_torch.pure.map import Nop
+
+from test_map import _site_run, mv_map, put
+from test_torch_convert import port_clock, port_map, port_map_op, port_mvreg, port_op, port_orswot
+from test_torch_sparse_orswot import mint, population
+
+PRIMITIVES = [None, True, False, 0, -7, 2**70, 1.5, -0.0, float("inf"), "s", "", b"\x00\xff",
+              (1, "a", (None,)), [1, [2.5, b"x"]], {3, "x", (1, 2)}, frozenset({"y", 4}),
+              {"k": [1], 2: (3,), (4, 5): None}]
+
+
+# Ids by position: a set's repr depends on the process's hash seed, and the
+# test workers must collect the same ids.
+@pytest.mark.parametrize("value", PRIMITIVES,
+                         ids=[f"{type(v).__name__}-{i}" for i, v in enumerate(PRIMITIVES)])
+def test_primitives_encode_and_decode_as_in_jax(value):
+    assert serde.encode(value) == ref_serde.encode(value)
+    assert serde.to_bytes(value) == ref_serde.to_bytes(value)
+    assert serde.from_bytes(ref_serde.to_bytes(value)) == ref_serde.from_bytes(
+        ref_serde.to_bytes(value))
+
+
+def test_dots_and_clocks_encode_as_in_jax():
+    clock = RefVClock({"A": 3, ("t", 1): 2**40, 7: 1})
+    pairs = [(RefDot("A", 5), Dot("A", 5)), (RefOrdDot("B", 2), OrdDot("B", 2)),
+             (clock, port_clock(clock))]
+    for ref, port in pairs:
+        assert serde.encode(port) == ref_serde.encode(ref)
+        assert serde.decode(ref_serde.encode(ref)) == port
+
+
+@pytest.mark.parametrize("seed", [1, 2, 3])
+def test_orswots_and_their_ops_encode_as_in_jax(seed):
+    for ref in population(seed):
+        port = port_orswot(ref)
+        assert serde.to_bytes(port) == ref_serde.to_bytes(ref)
+        assert serde.from_bytes(ref_serde.to_bytes(ref)) == port
+    for stream in mint(random.Random(seed), 24):
+        for op in stream:
+            assert serde.encode(port_op(op)) == ref_serde.encode(op)
+            assert serde.decode(ref_serde.encode(op)) == port_op(op)
+
+
+@pytest.mark.parametrize("seed", [1, 2, 3])
+def test_maps_registers_and_their_ops_encode_as_in_jax(seed):
+    for ref in _site_run(random.Random(seed), mv_map):
+        port = port_map(ref)
+        assert serde.to_bytes(port) == ref_serde.to_bytes(ref)
+        assert serde.decode(ref_serde.encode(ref)) == port
+        for reg in ref.entries.values():
+            assert serde.encode(port_mvreg(reg)) == ref_serde.encode(reg)
+            assert serde.decode(ref_serde.encode(reg)) == port_mvreg(reg)
+    site = mv_map()
+    up = put(site, "A", "p", 3)
+    assert serde.encode(port_map_op(up)) == ref_serde.encode(up)
+    assert serde.encode(port_map_op(up).op) == ref_serde.encode(up.op)
+    assert serde.decode(ref_serde.encode(up)) == port_map_op(up)
+    rm = site.rm("p", site.get("p").derive_rm_ctx())
+    assert serde.encode(port_map_op(rm)) == ref_serde.encode(rm)
+    assert serde.decode(ref_serde.encode(rm)) == port_map_op(rm)
+    assert serde.encode(Nop()) == ["Nop"] and serde.decode(["Nop"]) == Nop()
+
+
+def test_unported_types_name_their_item():
+    for ref in (RefGCounter(), RefLWWReg()):
+        with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
+            serde.decode(ref_serde.encode(ref))
+    with pytest.raises(TypeError, match="ROADMAP item 14"):
+        serde.encode(RefGCounter())
+    with pytest.raises(ValueError, match="cannot decode tag"):
+        serde.decode(["NoSuchTag"])

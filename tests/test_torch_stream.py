@@ -212,8 +212,10 @@ def test_a_source_that_dies_before_the_first_block():
 @pytest.mark.parametrize("mode,item", [
     ({"telemetry": True}, "item 15)"), ({"frontier": np.zeros(4)}, "item 15)"),
     ({"compact_every": 2}, "item 15)"), ({"widen_policy": object()}, "item 15.3"),
-    ({"faults": object()}, "item 15.4"), ({"wal": object()}, "item 9)"),
-    ({"wal_every": 2}, "item 9)"),
+    ({"faults": object()}, "item 15.4"),
+    # wal= runs (ROADMAP item 9): in its company the unported modes still raise.
+    ({"wal": object(), "telemetry": True}, "item 15)"),
+    ({"wal_every": 2, "faults": object()}, "item 15.4"),
 ])
 @pytest.mark.parametrize("entry", ["sparse", "dense"])
 def test_unported_modes_name_their_item(mode, item, entry):
