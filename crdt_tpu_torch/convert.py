@@ -13,7 +13,12 @@ both directions copy:
 - ``SparseOrswotState``: ``top``/``ctr``/``dcl`` u32, ``eid``/``act``/
   ``didx`` i32, ``valid``/``dvalid`` bool;
 - δ tracking (``tracking_from_numpy``): ``dirty`` bool, ``fctx`` u32 or
-  u64.
+  u64;
+- a serving superblock (``superblock_from_numpy``): the ``orswot`` or
+  ``sparse_orswot`` leaves above with the lane axis leading;
+- an ``OpSlab`` (``opslab_from_numpy``): ``kind`` u8, ``actor`` i32,
+  ``ctr``/``clock`` u32, ``member`` bool (dense masks) or i32 (sparse id
+  lists).
 
 :func:`leaf_to_numpy` / :func:`leaf_from_numpy` carry one leaf of any
 dtype (the durability files' leaves: u32 stays ``<u4``, u64 ``<u8``, bool
@@ -124,6 +129,44 @@ def map_to_numpy(state: MapState) -> dict:
     out = _leaves_to_numpy(state, _MAP_DTYPES)
     out["child"] = _leaves_to_numpy(state.child, _CHILD_DTYPES)
     return out
+
+
+_SLAB_DTYPES = {"kind": np.uint8, "actor": np.int32, "ctr": np.uint32, "clock": np.uint32}
+
+
+def superblock_from_numpy(kind: str, arrays, device="cuda"):
+    """A superblock of serving ``kind`` (``"orswot"`` or
+    ``"sparse_orswot"``) from the JAX package's numpy leaves, lane axis
+    leading, onto ``device``."""
+    if kind == "orswot":
+        return orswot_from_numpy(arrays, device)
+    if kind == "sparse_orswot":
+        return sparse_orswot_from_numpy(arrays, device)
+    raise KeyError(f"no superblock kind {kind!r}")
+
+
+def superblock_to_numpy(state) -> Dict[str, np.ndarray]:
+    """A port superblock (either kind) → a dict of numpy arrays."""
+    dtypes = _SPARSE_DTYPES if isinstance(state, SparseOrswotState) else _DTYPES
+    return _leaves_to_numpy(state, dtypes)
+
+
+def opslab_from_numpy(arrays, device="cuda"):
+    """``{"kind", "actor", "ctr", "clock", "member"}`` numpy arrays (the JAX
+    ``OpSlab``'s leaves) → the port's ``OpSlab`` on ``device``. Raises on
+    a dtype other than the leaf's; ``member`` is bool or int32."""
+    from .ops.superblock import OpSlab
+
+    leaves = _leaves_from_numpy("op slab", arrays, _SLAB_DTYPES, device)
+    member = np.asarray(arrays["member"])
+    if member.dtype not in (np.bool_, np.int32):
+        raise TypeError(f"op slab leaf 'member' must be bool or int32, got {member.dtype}")
+    return OpSlab(member=leaf_from_numpy(member, device), **leaves)
+
+
+def opslab_to_numpy(slab) -> Dict[str, np.ndarray]:
+    """A port ``OpSlab`` → a dict of numpy arrays."""
+    return {name: leaf_to_numpy(getattr(slab, name)) for name in (*_SLAB_DTYPES, "member")}
 
 
 def tracking_from_numpy(dirty: np.ndarray, fctx: np.ndarray, device="cuda"):

@@ -358,22 +358,49 @@ def fold(states: OrswotState):
     return tree_fold(states, identity, join)
 
 
+def _add_lanes(top, ctr, actor: torch.Tensor, counter: torch.Tensor, mask):
+    """The add's stamp with one actor and counter per batch lane
+    (``actor``/``counter`` shaped like the batch axes): the actor column
+    is a one-hot over A, so no lane index leaves the device. Wide view."""
+    c = to_wide(counter.to(top.device))
+    if counter.dtype != DTYPE:
+        c = c & 0xFFFFFFFF  # astype(uint32) wraps
+    lanes = torch.arange(top.shape[-1], device=top.device)
+    col = actor.to(device=top.device, dtype=torch.int64)[..., None] == lanes
+    seen = torch.sum(torch.where(col, top, 0), dim=-1) >= c
+    stamp = torch.where(mask, c[..., None], 0)
+    new_ctr = torch.where(col[..., None, :], torch.maximum(ctr, stamp[..., None]), ctr)
+    ctr = torch.where(seen[..., None, None], ctr, new_ctr)
+    top = torch.where(seen[..., None] | ~col, top, torch.maximum(top, c[..., None]))
+    return top, ctr
+
+
 def apply_add(state: OrswotState, actor, counter, member_mask) -> OrswotState:
     """CmRDT add-op application (reference: src/orswot.rs apply, Op::Add):
     drop already-seen dots, else record the birth dot on every member in
     ``member_mask`` and advance the top; then replay parked removes (the
-    oracle's ``apply_deferred``)."""
-    actor = int(actor)
-    c = wide_scalar(int(counter), DTYPE)
+    oracle's ``apply_deferred``).
+
+    ``actor``/``counter`` are Python ints (one op for every batch lane)
+    or tensors shaped like the state's batch axes (one op per lane — the
+    serving tier's lane-batched apply, which waits for nothing on the
+    host)."""
     mask = _mask(member_mask, state.ctr)
     top, ctr = to_wide(state.top), to_wide(state.ctr)
-    seen = top[..., actor] >= c
-    new_ctr = ctr.clone()
-    new_ctr[..., actor] = torch.maximum(ctr[..., actor], torch.where(mask, c, 0))
-    ctr = torch.where(seen[..., None, None], ctr, new_ctr)
-    new_top = top.clone()
-    new_top[..., actor] = torch.clamp_min(top[..., actor], c)
-    top = torch.where(seen[..., None], top, new_top)
+    if isinstance(actor, torch.Tensor) or isinstance(counter, torch.Tensor):
+        batch = state.top.shape[:-1]
+        top, ctr = _add_lanes(top, ctr, torch.as_tensor(actor).expand(batch),
+                              torch.as_tensor(counter).expand(batch), mask)
+    else:
+        actor = int(actor)
+        c = wide_scalar(int(counter), DTYPE)
+        seen = top[..., actor] >= c
+        new_ctr = ctr.clone()
+        new_ctr[..., actor] = torch.maximum(ctr[..., actor], torch.where(mask, c, 0))
+        ctr = torch.where(seen[..., None, None], ctr, new_ctr)
+        new_top = top.clone()
+        new_top[..., actor] = torch.clamp_min(top[..., actor], c)
+        top = torch.where(seen[..., None], top, new_top)
     dcl = to_wide(state.dcl)
     ctr = _apply_parked(ctr, dcl, state.dmask, state.dvalid)
     still_ahead = ~torch.all(dcl <= top[..., None, :], dim=-1)

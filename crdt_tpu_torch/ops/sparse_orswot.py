@@ -350,7 +350,7 @@ def reset_remove(state: SparseOrswotState, clock) -> SparseOrswotState:
     )
 
 
-# ---- op application (CmRDT), one unbatched replica -----------------------
+# ---- op application (CmRDT) ------------------------------------------------
 
 def _ids(eids, like: torch.Tensor) -> torch.Tensor:
     """An element-id list (tensor, numpy array or list) as int32 on
@@ -361,10 +361,10 @@ def _ids(eids, like: torch.Tensor) -> torch.Tensor:
 
 
 def _put(x: torch.Tensor, lane: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
-    """``x.at[lane].set(src, mode="drop")`` for ``lane`` in ``[0, C]``:
-    lane C (one past the end) means no write."""
-    ext = torch.cat([x, x[:1]])
-    return ext.scatter_(0, lane, src)[:-1]
+    """``x.at[..., lane].set(src, mode="drop")`` along the last axis, for
+    ``lane`` in ``[0, C]``: lane C (one past the end) means no write."""
+    ext = torch.cat([x, x[..., :1]], dim=-1)
+    return ext.scatter_(-1, lane, src)[..., :-1]
 
 
 def apply_add(state: SparseOrswotState, actor, counter, eids):
@@ -372,45 +372,67 @@ def apply_add(state: SparseOrswotState, actor, counter, eids):
     apply, Op::Add): drop already-seen dots, else stamp the birth dot on
     every listed element — updating existing (element, actor) cells in
     place and inserting new cells into free lanes — advance the top, and
-    replay parked removes. ``eids [W]`` int32 member ids (-1 = pad).
-    Returns ``(state, overflow)``; overflow = too few free lanes."""
+    replay parked removes. ``eids [..., W]`` int32 member ids (-1 = pad).
+    Returns ``(state, overflow)``; overflow = too few free lanes.
+
+    Over any leading lane axes, each lane its own replica and its own op:
+    ``actor``/``counter`` are Python ints (one op for every lane) or
+    tensors shaped like the lane axes (the serving tier's lane-batched
+    apply: binary searches, free-lane ranks and the drop scatter all run
+    along the last axis, with no wait on the host). Unbatched, it is the
+    JAX package's one-replica ``apply_add``."""
     c, n_act = state.eid.shape[-1], state.top.shape[-1]
-    actor = int(actor)
-    cnt = int(counter) & 0xFFFFFFFF
     eids = _ids(eids, state.eid)
     top, ctr = to_wide(state.top), to_wide(state.ctr)
-    seen = top[actor] >= cnt
+    per_lane = isinstance(actor, torch.Tensor) or isinstance(counter, torch.Tensor)
+    if per_lane:
+        batch = state.top.shape[:-1]
+        actor = torch.as_tensor(actor).to(device=top.device, dtype=torch.int64).expand(batch)
+        cnt = torch.as_tensor(counter).to(top.device).expand(batch)
+        cnt = to_wide(cnt) & 0xFFFFFFFF
+        col = actor[..., None] == torch.arange(n_act, device=top.device)
+        seen = torch.sum(torch.where(col, top, 0), dim=-1) >= cnt
+        a_w, c_w = actor[..., None], cnt[..., None]  # against the [..., W] targets
+    else:
+        actor = int(actor)
+        cnt = int(counter) & 0xFFFFFFFF
+        seen = top[..., actor] >= cnt
+        a_w, c_w = actor, cnt
     want = eids >= 0
 
     # Existing (eid, actor) cells among the targets.
     okey = _keys(state.eid, state.act, state.valid, n_act)
-    tkey = torch.where(want, eids.to(torch.int64) * n_act + actor, _BIG)
+    tkey = torch.where(want, eids.to(torch.int64) * n_act + a_w, _BIG)
     pos = torch.searchsorted(okey, tkey).clamp_(0, c - 1)
-    hit = want & (okey.gather(0, pos) == tkey)
-    ext = torch.cat([ctr, ctr[:1]])
-    ext.scatter_reduce_(0, torch.where(hit & ~seen, pos, c), torch.full_like(pos, cnt), "amax")
-    ctr = ext[:-1]
+    hit = want & (okey.gather(-1, pos) == tkey)
+    ext = torch.cat([ctr, ctr[..., :1]], dim=-1)
+    ext.scatter_reduce_(-1, torch.where(hit & ~seen[..., None], pos, c),
+                        torch.zeros_like(pos) + c_w, "amax")
+    ctr = ext[..., :-1]
 
     # New cells into free lanes, one per missing target; every other
     # target writes lane C, which is dropped (put ranks are unique).
-    miss = want & ~hit & ~seen
-    free_order = torch.argsort(state.valid.to(torch.uint8), stable=True)  # free lanes first
-    n_free = (~state.valid).sum()
-    slot_rank = torch.cumsum(miss.to(torch.int64), 0) - 1
+    miss = want & ~hit & ~seen[..., None]
+    free_order = torch.argsort(state.valid.to(torch.uint8), dim=-1, stable=True)  # free first
+    n_free = (~state.valid).sum(dim=-1, keepdim=True)
+    slot_rank = torch.cumsum(miss.to(torch.int64), dim=-1) - 1
     put = miss & (slot_rank < n_free)
-    overflow = torch.any(miss & (slot_rank >= n_free))
-    lane = torch.where(put, free_order.gather(0, slot_rank.clamp(0, c - 1)), c)
+    overflow = torch.any(miss & (slot_rank >= n_free), dim=-1)
+    lane = torch.where(put, free_order.gather(-1, slot_rank.clamp(0, c - 1)), c)
     eid = _put(state.eid, lane, eids)
-    act = _put(state.act, lane, torch.full_like(eids, actor))
-    ctr = _put(ctr, lane, torch.full_like(lane, cnt))
+    act = _put(state.act, lane, (torch.zeros_like(lane) + a_w).to(torch.int32))
+    ctr = _put(ctr, lane, torch.zeros_like(lane) + c_w)
     valid = _put(state.valid.to(torch.uint8), lane, torch.ones_like(lane, dtype=torch.uint8))
 
-    bumped = top.clone()
-    bumped[actor] = torch.clamp_min(top[actor], cnt)
-    top = torch.where(seen, top, bumped)
+    if per_lane:
+        top = torch.where(col & ~seen[..., None], torch.maximum(top, cnt[..., None]), top)
+    else:
+        bumped = top.clone()
+        bumped[..., actor] = torch.clamp_min(top[..., actor], cnt)
+        top = torch.where(seen[..., None], top, bumped)
     dcl = to_wide(state.dcl)
     valid = _replay_parked(eid, act, ctr, valid.to(torch.bool), dcl, state.didx, state.dvalid)
-    still = ~torch.all(dcl <= top[None, :], dim=-1)
+    still = ~torch.all(dcl <= top[..., None, :], dim=-1)
     eid, act, ctr, valid, _ = _canon(eid, act, ctr, valid, c, n_act)
     return (
         state._replace(top=from_wide(top, DTYPE), eid=eid, act=act, ctr=ctr, valid=valid,
@@ -425,36 +447,40 @@ def apply_rm(state: SparseOrswotState, rm_clock, eids):
     counter the rm clock covers); park the (clock, element list) if the
     clock runs ahead of the top — union onto an equal-clock slot when the
     combined list fits, else claim a free slot. Returns ``(state,
-    overflow)``."""
+    overflow)``. Over any leading lane axes, ``rm_clock [..., A]`` and
+    ``eids [..., W]`` one op per lane (the slot pick is per lane)."""
     d, q = state.didx.shape[-2:]
     eids = _ids(eids, state.eid)
     w = eids.shape[-1]
     if w > q:
         raise ValueError(f"rm op element-list width {w} must fit rm_width {q}")
     rc = to_wide(_clock(rm_clock, state.top))
-    listed = torch.any((state.eid[:, None] == eids[None, :]) & (eids[None, :] >= 0), dim=-1)
+    listed = torch.any((state.eid[..., :, None] == eids[..., None, :])
+                       & (eids[..., None, :] >= 0), dim=-1)
     covered = (state.valid & listed
-               & (to_wide(state.ctr) <= rc.gather(0, state.act.to(torch.int64))))
+               & (to_wide(state.ctr) <= rc.gather(-1, state.act.to(torch.int64))))
     valid = state.valid & ~covered
 
-    ahead = ~torch.all(rc <= to_wide(state.top))
+    ahead = ~torch.all(rc <= to_wide(state.top), dim=-1)
     dcl = to_wide(state.dcl)
-    same = state.dvalid & torch.all(dcl == rc[None, :], dim=-1)
-    merged = _canon_rmlist(torch.cat([state.didx, eids.expand(d, w)], dim=-1))
+    same = state.dvalid & torch.all(dcl == rc[..., None, :], dim=-1)
+    lists = eids[..., None, :].expand(*eids.shape[:-1], d, w)
+    merged = _canon_rmlist(torch.cat([state.didx, lists], dim=-1))
     fits = (merged >= 0).sum(dim=-1) <= q
     use_same = same & fits
-    has_same = torch.any(use_same)
+    has_same = torch.any(use_same, dim=-1)
     free = ~state.dvalid
-    has_free = torch.any(free)
-    slot = torch.where(has_same, torch.argmax(use_same.to(torch.uint8)),
-                       torch.argmax(free.to(torch.uint8)))
+    has_free = torch.any(free, dim=-1)
+    slot = torch.where(has_same, torch.argmax(use_same.to(torch.uint8), dim=-1),
+                       torch.argmax(free.to(torch.uint8), dim=-1))
     park = ahead & (has_same | has_free)
     overflow = ahead & ~has_same & ~has_free
-    onehot = (torch.arange(d, device=slot.device) == slot) & park
+    onehot = (torch.arange(d, device=slot.device) == slot[..., None]) & park[..., None]
     fresh = _canon_rmlist(F.pad(eids, (0, q - w), value=-1))
-    new_list = torch.where(has_same, merged.index_select(0, slot.reshape(1))[0, :q], fresh)
-    dcl = torch.where(onehot[:, None], rc[None, :], dcl)
-    didx = torch.where(onehot[:, None], new_list[None, :], state.didx)
+    picked = torch.take_along_dim(merged, slot[..., None, None], dim=-2)[..., 0, :q]
+    new_list = torch.where(has_same[..., None], picked, fresh)
+    dcl = torch.where(onehot[..., None], rc[..., None, :], dcl)
+    didx = torch.where(onehot[..., None], new_list[..., None, :], state.didx)
 
     c, a = state.eid.shape[-1], state.top.shape[-1]
     eid, act, ctr, valid, _ = _canon(state.eid, state.act, to_wide(state.ctr), valid, c, a)

@@ -12,7 +12,8 @@ reduction along it (``collectives``). Entries: ``mesh_fold`` and
 ``gossip_elastic`` and ``delta_gossip_elastic`` (the overflow → widen →
 re-enter loops of ``elastic``); ``mesh_stream_fold_sparse`` and
 ``mesh_stream_fold`` (a population streamed through the mesh in replica
-blocks, ``stream``).
+blocks, ``stream``); ``mesh_serve_apply`` (one coalesced op slab applied to
+a tenant superblock, ``serve_apply``).
 """
 
 from .anti_entropy import (
@@ -25,13 +26,14 @@ from .delta_ring import delta_gossip_elastic
 from .mesh import (
     VirtualMesh, pad_elements, pad_keys, pad_replicas, pad_replicas_map, pad_replicas_sparse,
 )
+from .serve_apply import mesh_serve_apply
 from .stream import StreamInterrupted, iter_blocks, mesh_stream_fold, mesh_stream_fold_sparse
 
 __all__ = [
     "DeltaPacket", "MapDeltaPacket", "StreamInterrupted", "VirtualMesh", "delta_gossip_elastic",
     "gossip_elastic", "interval_accumulate", "interval_accumulate_map", "iter_blocks",
     "mesh_delta_gossip", "mesh_delta_gossip_map", "mesh_fold", "mesh_fold_map",
-    "mesh_fold_sparse", "mesh_gossip", "mesh_gossip_map", "mesh_gossip_sparse",
+    "mesh_fold_sparse", "mesh_gossip", "mesh_gossip_map", "mesh_gossip_sparse", "mesh_serve_apply",
     "mesh_stream_fold", "mesh_stream_fold_sparse", "pad_elements", "pad_keys", "pad_replicas",
     "pad_replicas_map", "pad_replicas_sparse",
 ]

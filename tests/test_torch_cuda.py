@@ -6,7 +6,9 @@ acked Map round with no host sync) and donation (outputs in the inputs'
 storage), and the replica stream from pinned host blocks against the
 stream from blocks on the card and on the CPU; the durability core on the
 card (a logged ring and its recovery, a stream resumed from its log, the
-crashpoint diagonal and a checkpoint round trip).
+crashpoint diagonal and a checkpoint round trip); the serving tier's slab
+apply on the card against the CPU, and one dispatch under sync debug
+"error".
 
 Marked ``cuda``; every test skips without a device. It imports neither
 JAX nor the JAX package, so it also runs where JAX is not installed:
@@ -437,3 +439,59 @@ def test_the_durability_phase_on_the_card(card):
     checkpoint round trip (``chip_smoke.phase_durability``, small K)."""
     res = chip_smoke.phase_durability(card, 1, k=3000, chunk=1000)
     assert res["crashpoint_diagonal"]["crashpoints"] == 15
+
+
+# ---- the serving tier (ROADMAP item 10) -----------------------------------------
+
+SERVE_KINDS = {"orswot": dict(n_elems=8, n_actors=2, deferred_cap=2),
+               "sparse_orswot": dict(dot_cap=12, n_actors=2, deferred_cap=2, rm_width=4)}
+
+
+def _served(kind, device, lanes=64, tenants=256, n_ops=900, seed=5):
+    from crdt_tpu_torch import serve
+    from crdt_tpu_torch.parallel import VirtualMesh
+
+    caps = SERVE_KINDS[kind]
+    sb = serve.Superblock(tenants, VirtualMesh(8, device), kind=kind, caps=dict(caps))
+    q = serve.IngestQueue(sb, lanes=lanes, depth=3)
+    chip_smoke.serve_submit(q, chip_smoke.serve_streams(kind, caps, tenants, n_ops, seed))
+    return sb, q
+
+
+@pytest.mark.parametrize("kind", sorted(SERVE_KINDS))
+def test_the_slab_apply_on_the_card_matches_the_cpu(card, kind):
+    """The coalesced ingest (pinned slab copies, mesh_serve_apply on 8
+    virtual ranks, overflow → widen → retry) on the card lands on the
+    bits the CPU lands on."""
+    import numpy as np
+
+    on_card, q_card = _served(kind, card)
+    on_cpu, q_cpu = _served(kind, torch.device("cpu"))
+    assert chip_smoke.serve_drain(q_card) == chip_smoke.serve_drain(q_cpu)
+    assert on_card.caps == on_cpu.caps and on_card.widen_events == on_cpu.widen_events
+    assert chip_smoke.same_leaves(
+        type(on_cpu.state)(*(x.cpu() for x in on_card.state)), on_cpu.state)
+    assert np.array_equal(on_card.lane_of, on_cpu.lane_of)
+
+
+@pytest.mark.parametrize("kind", sorted(SERVE_KINDS))
+def test_an_apply_async_holds_no_host_sync(card, kind):
+    """The slab's pinned copy and the dispatch run under sync debug
+    "error"; only ``finish`` reads the overflow flags."""
+    sb, q = _served(kind, card)
+    chip_smoke.serve_drain(q)  # warm: first slab's allocations
+    chip_smoke.serve_submit(q, chip_smoke.serve_streams(kind, SERVE_KINDS[kind], 256, 300, 6))
+    built = q._assemble()
+    torch.cuda.synchronize(card)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pend = q._issue(built)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    q._finish(built, pend, None)
+
+
+def test_the_serve_scenarios_phase_on_the_card(card):
+    out = chip_smoke.phase_serve_scenarios(card, 7)
+    assert out["orswot"]["held"] == out["sparse_orswot"]["held"] == 16
+    assert out["apply_async_under_sync_debug_error"]
