@@ -213,6 +213,38 @@ at first use), then runs, printing one JSON line per phase:
                         oracles; ``recover_serve`` into a fresh superblock
                         lands there too; both walls, WAL bytes and fsyncs,
                         evictions, the filesystem.
+22. ``fanout_scenarios`` — the fan-out plane's lockstep probes on the card,
+                        small: 12 tenants on 6 lanes (restores under lane
+                        pressure), split watermark buckets under a lossy
+                        link, churn, a dead subscriber's resync, evict →
+                        re-warm, a stale duplicate ack; the run on the card
+                        == the same run on the CPU (every push's report and
+                        wire, the registry, the clients) and every client
+                        == its served row; ``fanout_covers_cohorts`` passes
+                        the honest push and fails ``push(_skip_versions=
+                        (0,))``; K3's fan-out instance (LC = A, per-row base,
+                        one ``[8, N, A]`` stack) == its plain version on the
+                        same card tensors at A in {1, 2, 3, 4, 8} with rows
+                        outside the ±32 Ki window and empty lanes, bare and
+                        through ``mesh_fanout_push`` (one launch; == the
+                        dispatch on the CPU).
+23. ``fanout``         — ``BENCH_CONFIGS.json`` "fanout" at its committed
+                        shape, as ``bench.py``'s ``bench_fanout`` drives it:
+                        1,048,576 subscribers over 1,048,576 tenants on
+                        131,072 lanes (E = 256, A = 4, D = 2) on 8 virtual
+                        ranks, 8 cycles of 8,192 ops through the serve ingest,
+                        one ``FanoutPlane.push`` a cycle (4,096 dispatch
+                        lanes), churn, killed subscribers forced to resync,
+                        32 subscribed tenants evicted mid-window; gates: the
+                        first dispatch's wire == K3's plain version, K3 once
+                        per dispatch, 32 sampled clients and the revived dead
+                        one == their served rows, every watermark current,
+                        1M+ live subscribers, a resync, the re-warm, δ +
+                        bootstrap bytes ≥ 10× below full rows; δ deliveries
+                        per second, push walls and dispatches per cycle, the
+                        push's host time by part, one profiled push (busy
+                        share, launches), K3 at the fan-out layout (replayed
+                        graph and profiler, bytes, bound, share).
 
 Then the ``nvidia-smi`` name/power-limit line, a ``kernels`` JSON line, and
 as the last line ``{"ok": true, "device": {...}}``. Any failed check raises
@@ -4545,10 +4577,620 @@ def phase_serve_zipf(device, seed: int, cfg=None, cycles: int = ZIPF_CYCLES) -> 
     return out
 
 
+# ---- fan-out (ROADMAP item 11) ---------------------------------------------------
+
+def fanout_cohort_case(rng, b: int, e: int, a: int, d: int = 2) -> tuple:
+    """Numpy ``OrswotState`` leaves of ``b`` cohorts: live ``rows`` and
+    acked ``bases`` (dicts, leading axis b, E elements, A actors, D parked
+    slots). Base clocks lie below 2^20; a live element lane is the base's
+    (40%), a change inside the ±32 Ki window (35%), a change outside it
+    (15%: the defer → ``raw`` path, wrapping u32) or absent (10%); parked
+    removes with random member bitmaps on both sides; cohort 0 is
+    unchanged when b > 1."""
+    import numpy as np
+
+    base = rng.integers(0, 1 << 20, (b, e, a)).astype(np.uint32)
+    pick = rng.random((b, e, 1))
+    near = rng.integers(-32768, 32768, (b, e, a))
+    far = rng.integers(32768, 1 << 24, (b, e, a)) * rng.choice([-1, 1], (b, e, a))
+    wide = base.astype(np.int64)
+    live = np.where(pick < 0.4, wide, np.where(pick < 0.75, wide + near,
+                                               np.where(pick < 0.9, wide + far, 0)))
+    live = (live % (1 << 32)).astype(np.uint32)
+    if b > 1:
+        live[0] = base[0]
+
+    def state(ctr):
+        return {"top": ctr.max(axis=1) + rng.integers(0, 4, (b, a)).astype(np.uint32),
+                "ctr": ctr, "dcl": rng.integers(0, 1 << 20, (b, d, a)).astype(np.uint32),
+                "dmask": rng.random((b, d, e)) < 0.3, "dvalid": rng.random((b, d)) < 0.6}
+
+    rows, bases = state(live), state(base)
+    if b > 1:
+        for k in ("top", "dcl", "dmask", "dvalid"):
+            rows[k][0] = bases[k][0]
+    return rows, bases
+
+
+def fanout_dispatch_case(p: int, seed: int, e: int = 33, a: int = 4, lanes_per_rank: int = 3,
+                         cohorts_per_rank: int = 4) -> tuple:
+    """One ``mesh_fanout_push`` dispatch as numpy: a superblock of
+    ``p·lanes_per_rank`` rows, ``p·cohorts_per_rank`` cohort bases (each the
+    acked base of the row its lane gathers, so most lanes fit the window),
+    rank-local indices with one empty (-1) lane per rank block, and cohort
+    weights: ``(state, bases, idx, weights)``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    t, b = p * lanes_per_rank, p * cohorts_per_rank
+    state, acked = fanout_cohort_case(rng, t, e, a)
+    idx = rng.integers(0, lanes_per_rank, b).astype(np.int32)
+    idx[1::cohorts_per_rank] = -1
+    rows = np.arange(b) // cohorts_per_rank * lanes_per_rank + np.maximum(idx, 0)
+    bases = {k: v[rows] for k, v in acked.items()}
+    return state, bases, idx, rng.integers(1, 9, b).astype(np.float32)
+
+
+def fanout_config() -> dict:
+    """``BENCH_CONFIGS.json`` "fanout", as committed (this checkout's copy)."""
+    with open(os.path.join(HERE, "BENCH_CONFIGS.json")) as f:
+        return json.load(f)["fanout"]
+
+
+def fanout_wire_diff(x, y) -> int:
+    """:func:`wire_diff` over the leaves of two ``CohortWire`` (on any
+    devices): 0 when every leaf is equal."""
+    from crdt_tpu_torch.ops.lattice import tree_leaves
+
+    return wire_diff([u.cpu() for u in tree_leaves(tuple(x))],
+                     [v.cpu() for v in tree_leaves(tuple(y))])
+
+
+def fanout_k3_args(state, bases, idx, p: int, kind: str = "orswot") -> dict:
+    """K3's arguments for one ``mesh_fanout_push`` dispatch, computed on
+    the dispatch's own tensors: the fan-out instance over ``[P, (B/P)·E,
+    A]``, per-row base."""
+    from crdt_tpu_torch.ops.fanout_kernels import cohort_pack_args
+    from crdt_tpu_torch.parallel.fanout_push import by_rank, fanout_deltas
+
+    d, base_ctr, _ = fanout_deltas(kind, state, bases, idx, p)
+    return cohort_pack_args(*by_rank(d, base_ctr, p))
+
+
+def fanout_vs_plain(wire, args) -> int:
+    """One dispatch's wire (K3 inside ``mesh_fanout_push``) against K3's
+    plain version on the same card tensors: words, keep, defer and the
+    rank-summed ``nnz``/``chk``, and ``raw`` from the plain deferrals.
+    Returns the max |difference| (0)."""
+    import torch
+
+    from crdt_tpu_torch._dtypes import bits, to_wide
+    from crdt_tpu_torch.ops.wire_kernels import wire_pack_plain
+
+    plain = wire_pack_plain(**args)
+    raw = torch.where(plain.defer[..., None], bits(args["clocks"]), 0).view(args["clocks"].dtype)
+    worst = max(max_abs_diff(wire.words.reshape(plain.words.shape), plain.words),
+                int((wire.keep.reshape(plain.keep.shape) != plain.keep).sum()),
+                int((wire.defer.reshape(plain.defer.shape) != plain.defer).sum()),
+                max_abs_diff(wire.raw.reshape(raw.shape), raw))
+    for k in ("nnz", "chk"):
+        want = int(to_wide(getattr(plain, k)).sum()) & 0xFFFFFFFF
+        worst = max(worst, abs(int(to_wide(getattr(wire, k))) - want))
+    return worst
+
+
+def fanout_probe(device, root: str, p: int = 2) -> dict:
+    """The CPU lockstep probes of ``tests/test_torch_fanout.py`` on one
+    stack: 12 tenants on 6 lanes (fewer lanes than tenants) over ``p``
+    virtual ranks with an evictor, 10 subscribers (split watermark buckets
+    under a lossy link, a dead one), churn, an evict → re-warm, a stale
+    duplicate ack; then the dead subscriber revives and everything
+    converges. Returns a digest of every push (reports, wires as numpy,
+    resync reports), the registry, the clients' rows and the gates."""
+    import numpy as np
+
+    from crdt_tpu_torch import fanout, serve
+    from crdt_tpu_torch.convert import leaf_to_numpy
+    from crdt_tpu_torch.ops import superblock as sb_ops
+    from crdt_tpu_torch.parallel import VirtualMesh
+    from crdt_tpu_torch.utils.metrics import metrics
+
+    caps = dict(n_elems=8, n_actors=2, deferred_cap=2)
+    sb = serve.Superblock(12, VirtualMesh(p, device), kind="orswot", caps=caps, n_lanes=6)
+    ev = serve.Evictor(sb, root, pressure_batch=2)
+    plane = fanout.FanoutPlane(sb, evictor=ev, window_cap=2, dispatch_lanes=2 * p)
+    clients = {}
+
+    def subscribe(tenants):
+        ids = [int(s) for s in plane.subscribe(tenants)]
+        for s in ids:
+            clients[s] = fanout.ClientReplica("orswot", sb.empty_row(), device=device)
+        return ids
+
+    def touch(t, a, c, m):
+        if not sb.is_resident(t):
+            ev.restore(t)
+        lane = sb.ensure_resident(t)
+        row, _ = sb.tk.apply_add(sb_ops.unpack(sb.state, lane), a, c, m)
+        sb_ops.write_rows_(sb.state, [lane], type(row)(*(x[None] for x in row)))
+        sb.dirty[t] = True
+        plane.note_dirty([t])
+
+    digest = []
+
+    def push(drop=(), ack=True):
+        rep = plane.push()
+        digest.append((rep.cohorts, rep.subscribers,
+                       [(c.tenant, c.base_ver, c.to_ver, c.members.tolist(),
+                         [x.tolist() for x in c.wire[:5]])
+                        for c in rep.pushes],
+                       [(r.tenant, r.to_ver, r.members.tolist(), tuple(r.report))
+                        for r in rep.resyncs]))
+        for cp in rep.pushes:
+            for s in cp.members:
+                if int(s) in clients and int(s) not in drop:
+                    clients[int(s)].apply_wire(cp.wire, cp.to_ver)
+        for rs in rep.resyncs:
+            for s in rs.members:
+                if int(s) in clients and int(s) not in drop:
+                    clients[int(s)].adopt(rs.state, rs.to_ver)
+        live = [s for s in clients if s not in drop]
+        for s in live:
+            clients[s].ack()
+        if ack:
+            plane.ack(live, versions=[clients[s].ver for s in live])
+        return rep
+
+    evictions0 = metrics.snapshot()["counters"].get("serve.evict.evictions", 0)
+    ids = subscribe([0, 0, 1, 1, 2, 5, 7, 9, 11, 11])
+    dead, lossy = ids[1], ids[2]
+    rng = np.random.default_rng(91)
+    ctr = np.zeros((12, 2), np.int64)
+    evicted = rewarmed = 0
+    for cycle in range(8):
+        for _ in range(7):
+            t, a = int(rng.choice([0, 1, 2, 5, 7, 9, 11])), int(rng.integers(0, 2))
+            ctr[t, a] += 1
+            touch(t, a, int(ctr[t, a]), rng.random(8) < 0.4)
+        if cycle == 4:
+            evicted = ev.evict([0, 1])
+        push(drop={dead} | ({lossy} if cycle % 2 else set()))
+        if cycle == 4:
+            rewarmed = int(sb.is_resident(0) and sb.is_resident(1))
+        if cycle == 3:  # churn: one leaves, one joins mid-stream
+            gone = ids.pop(4)
+            plane.unsubscribe([gone])
+            del clients[gone]
+            ids += subscribe([2])
+    # A stale duplicate ack, reordered before the genuine one: neither
+    # the watermark nor the pending mark of the newer ship moves.
+    touch(0, 0, int(ctr[0, 0]) + 1, rng.random(8) < 0.4)
+    push(drop={dead}, ack=False)
+    s0 = ids[0]
+    held = (int(plane.sub_ver[s0]), int(plane.sub_pend[s0]))
+    plane.ack([s0], versions=[0])
+    stale_clamped = (int(plane.sub_ver[s0]), int(plane.sub_pend[s0])) == held and held[1] > 0
+    live = [s for s in clients if s != dead]
+    plane.ack(live, versions=[clients[s].ver for s in live])
+    resyncs = plane.resyncs_total
+    for _ in range(6):  # the dead subscriber revives; converge
+        rep = push()
+        if rep.cohorts == 0 and not rep.resyncs:
+            break
+    # Seven written tenants on six lanes: restores evicted under pressure
+    # (the two explicit evictions aside).
+    pressure = metrics.snapshot()["counters"].get("serve.evict.evictions", 0) - evictions0 - 2
+    equal = 0
+    for s, c in clients.items():
+        t = int(plane.sub_tenant[s])
+        if not sb.is_resident(t):
+            ev.restore(t)
+        equal += int(c.equals(sb.row(t)))
+    return {"digest": digest, "clients_equal": equal, "clients": len(clients),
+            "resyncs": resyncs, "evicted": evicted, "rewarmed": rewarmed,
+            "pressure_evictions": pressure,
+            "stale_ack_clamped": stale_clamped, "pushes": len(digest),
+            "registry": [getattr(plane, k)[:plane._top].tolist() for k in
+                         ("sub_tenant", "sub_ver", "sub_pend")] + [plane.ver.tolist()],
+            "client_rows": {s: [leaf_to_numpy(x).tolist() for x in c.state]
+                            for s, c in clients.items()}}
+
+
+def phase_fanout_scenarios(device, seed: int) -> dict:
+    """The fan-out plane's CPU lockstep probes on the card, small: the probe
+    run (:func:`fanout_probe`) on the card == the same run on the CPU (every
+    push's report and wire, the registry, the clients), every client == its
+    served row; the detector passes the honest push and fails the
+    bucket-skipping twin; and K3's fan-out instance against its plain
+    version on the same card tensors at A in {1, 2, 3, 4, 8}, with rows
+    outside the ±32 Ki window and empty lanes, both as a bare launch and
+    through ``mesh_fanout_push`` (one launch a dispatch; == the dispatch on
+    the CPU on every leaf)."""
+    import torch
+
+    from crdt_tpu_torch.convert import orswot_from_numpy
+    from crdt_tpu_torch.fanout import fanout_covers_cohorts
+    from crdt_tpu_torch.ops.wire_kernels import wire_pack, wire_pack_plain
+    from crdt_tpu_torch.parallel import VirtualMesh, mesh_fanout_push
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    out = {"phase": "fanout_scenarios"}
+    k3 = []
+    for a in (1, 2, 3, 4, 8):
+        state, bases, idx, wts = fanout_dispatch_case(8, seed + a, e=33, a=a)
+        runs = {}
+        for dev in (device, cpu):
+            args = (orswot_from_numpy(state, dev), orswot_from_numpy(bases, dev),
+                    torch.as_tensor(idx).to(dev), VirtualMesh(8, dev))
+            before = wire_pack.launches
+            runs[dev.type] = mesh_fanout_push(*args, weights=torch.as_tensor(wts))
+            launches = wire_pack.launches - before
+            if dev.type == "cuda":
+                check(launches == 1, f"A={a}: mesh_fanout_push launched K3 {launches} times")
+                kargs = fanout_k3_args(*args[:3], 8)
+                bare = wire_diff(wire_pack(**kargs), wire_pack_plain(**kargs))
+                through = fanout_vs_plain(runs[dev.type][0], kargs)
+        cross = fanout_wire_diff(runs[device.type][0], runs["cpu"][0])
+        pb = max_abs_diff(runs[device.type][1].cpu().view(torch.int32),
+                          runs["cpu"][1].view(torch.int32))
+        if device.type == "cuda":
+            check(bare == 0 and through == 0, f"A={a}: K3 != its plain version ({bare}, {through})")
+        check(cross == 0 and pb == 0, f"A={a}: the card's dispatch != the CPU's")
+        defer = int(runs["cpu"][0].defer.sum())
+        check(defer > 0 and int((torch.as_tensor(idx) < 0).sum()) > 0,
+              "the cases hold deferred rows and empty lanes")
+        k3.append({"A": a, "rows": int(runs["cpu"][0].keep.numel()), "deferred": defer,
+                   "max_abs_err": max(cross, pb, bare if device.type == "cuda" else 0,
+                                      through if device.type == "cuda" else 0)})
+    out["k3_fanout_instance"] = k3
+    out["k3_max_abs_err"] = max(r["max_abs_err"] for r in k3)
+
+    def probes(root):
+        card = fanout_probe(device, os.path.join(root, "card"))
+        host = fanout_probe(cpu, os.path.join(root, "cpu"))
+        check(card == host, "the fan-out probes on the card != the same on the CPU")
+        check(card["clients_equal"] == card["clients"], "a client != its served row")
+        check(card["resyncs"] >= 1 and card["evicted"] == 2 and card["rewarmed"] == 1,
+              "no resync, or no evict → re-warm, in the probes")
+        check(card["stale_ack_clamped"], "a stale duplicate ack moved a watermark")
+        check(card["pressure_evictions"] >= 1, "no eviction under lane pressure in the probes")
+        return {k: card[k] for k in ("pushes", "clients_equal", "clients", "resyncs", "evicted",
+                                     "rewarmed", "pressure_evictions", "stale_ack_clamped")}
+
+    out["probes"] = with_scratch_dir(probes)
+    honest = fanout_covers_cohorts(lambda plane: plane.push(), device=device)
+    twin = fanout_covers_cohorts(lambda plane: plane.push(_skip_versions=(0,)), device=device)
+    check(honest and not twin, f"detector: honest {honest}, bucket-skipping twin {twin}")
+    out["detector"] = {"honest_push": honest, "skipping_twin": twin}
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return out
+
+
+def fanout_price(wire) -> float:
+    """:func:`cohort_push_bytes` of one cohort's host wire (numpy leaves,
+    viewed as tensors without a copy): the bytes its payload costs."""
+    import numpy as np
+    import torch
+
+    from crdt_tpu_torch.ops.fanout_kernels import CohortWire, cohort_push_bytes
+
+    t = lambda x: torch.from_numpy(x.view(np.int32) if x.dtype == np.uint32 else x)  # noqa: E731
+    return float(cohort_push_bytes(CohortWire(
+        words=t(wire.words), keep=t(wire.keep), defer=t(wire.defer), valid=None,
+        raw=t(wire.raw), residual=tuple(t(x) for x in wire.residual), nnz=None, chk=None))[0])
+
+
+class FirstDispatch:
+    """Wraps ``mesh_fanout_push`` where the plane calls it: every call goes
+    through, and the first one's wire is held against K3's plain version
+    on the same card tensors at once (:func:`fanout_vs_plain`); its K3
+    arguments are kept for timing after the window."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.args = None
+        self.err = None
+        self.check_s = 0.0  # host seconds of the check, inside the caller's push
+
+    def __call__(self, state, bases, idx, mesh, **kw):
+        out = self.fn(state, bases, idx, mesh, **kw)
+        if self.args is None:
+            t0 = time.perf_counter()
+            self.args = fanout_k3_args(state, bases, idx, mesh.p, kw.get("kind", "orswot"))
+            self.err = fanout_vs_plain(out[0], self.args)
+            self.check_s = time.perf_counter() - t0
+        return out
+
+
+def k3_at_fanout_layout(args: dict, device, repeats: int = 5, per_sample: int = 20) -> dict:
+    """K3 on the first dispatch's own inputs (the fan-out instance, ``[P,
+    (B/P)·E, A]``, per-row base): per launch over a replayed graph, alone
+    under the profiler, the plain version's time, the distinct bytes, the
+    bound and the share. Its launches here are not the main path's: the
+    caller restores the counter."""
+    import torch
+
+    from crdt_tpu_torch.ops.wire_kernels import wire_pack, wire_pack_plain
+
+    out = wire_pack(**args)
+    err = wire_diff(out, wire_pack_plain(**args))
+    check(err == 0, "K3 at the fan-out layout disagrees with its plain version")
+    times = [graph_ms(lambda: wire_pack(**args), device, per_sample) for _ in range(repeats)]
+    ms = statistics.median(times)
+    dev_ms = kernel_device_ms(lambda: wire_pack(**args), device, "wire_kernel", per_sample)
+    plain_ms = statistics.median(time_ms(lambda: wire_pack_plain(**args), device)
+                                 for _ in range(3))
+    nbytes = k3_bytes(args, out)
+    bound = {"bytes_ms": nbytes / PEAK_BYTES_PER_S * 1e3,
+             "ops_ms": 12 * args["clocks"].numel() / PEAK_SCALAR_OPS_PER_S * 1e3}
+    bound_ms = max(bound.values())
+    del out
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return {"shape": list(args["clocks"].shape), "ms_median": ms, "ms_runs": times,
+            "ms_device_profiler": dev_ms, "plain_ms": plain_ms, "bytes": nbytes,
+            "bound_ms": bound_ms,
+            "bound_by": "bytes" if bound["bytes_ms"] >= bound["ops_ms"] else "operations",
+            "bound_share": bound_ms / ms,
+            "bound_share_device_profiler": bound_ms / dev_ms if dev_ms else None,
+            "max_abs_err": err}
+
+
+def phase_fanout(device, seed: int, cfg=None) -> dict:
+    """``BENCH_CONFIGS.json`` "fanout" at its committed shape, driven as
+    ``bench.py``'s ``bench_fanout`` drives it: 1,048,576 subscribers (one
+    per tenant) over 1,048,576 tenants on 131,072 lanes (E = 256, A = 4,
+    D = 2) on 8 virtual ranks, the serve ingest (slabs 4,096 × 4) feeding
+    a ``FanoutPlane`` (4,096 dispatch lanes, window 4); ``cycles`` of
+    ``ops_per_cycle`` ops (an ``hot_set`` hot set shifting ``hot_shift`` a
+    cycle, the pinned head of sampled and killed subscribers every cycle),
+    one push a cycle, ``churn`` subscribers replaced a cycle, killed
+    subscribers never acking (resyncs), an ``evict_cohort`` of subscribed
+    tenants evicted mid-window and re-warmed by the next push. Gates: the
+    first dispatch's wire == K3's plain version on every leaf, K3 once per
+    dispatch, the sampled clients and the revived dead one == their served
+    rows, every watermark current, 1M+ live subscribers, a resync and the
+    re-warm, δ + bootstrap bytes ≥ 10× below the full-state push."""
+    import numpy as np
+    import torch
+
+    from crdt_tpu_torch import serve
+    from crdt_tpu_torch.fanout import ClientReplica, FanoutPlane
+    from crdt_tpu_torch.fanout import plane as plane_mod
+    from crdt_tpu_torch.ops.wire_kernels import wire_pack
+    from crdt_tpu_torch.parallel import VirtualMesh
+
+    committed = cfg is None
+    cfg = dict(fanout_config() if committed else cfg)
+    tenants, lanes, subscribers = cfg["tenants"], cfg["lanes"], cfg["subscribers"]
+    caps = dict(n_elems=cfg["elems"], n_actors=cfg["actors"], deferred_cap=cfg["deferred_cap"])
+    e, a = caps["n_elems"], caps["n_actors"]
+    hot_set, hot_shift, cycles = cfg["hot_set"], cfg["hot_shift"], cfg["cycles"]
+    client_sample, kill = cfg["client_sample"], cfg["kill_subscribers"]
+    t_phase = time.perf_counter()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+
+    def runs(root):
+        sb = serve.Superblock(tenants, VirtualMesh(cfg["mesh"][0], device), kind="orswot",
+                              caps=caps, n_lanes=lanes)
+        ev = serve.Evictor(sb, os.path.join(root, "tier"), pressure_batch=256)
+        q = serve.IngestQueue(sb, lanes=cfg["slab_lanes"], depth=cfg["slab_depth"],
+                              max_pending=1 << 20, evictor=ev)
+        plane = FanoutPlane(sb, evictor=ev, window_cap=cfg["window_cap"],
+                            dispatch_lanes=cfg["dispatch_lanes"], capacity=subscribers)
+        t0 = time.perf_counter()
+        plane.subscribe(np.arange(subscribers, dtype=np.int64) % tenants)
+        subscribe_s = time.perf_counter() - t0
+        pinned = client_sample + kill
+        clients = {s: ClientReplica("orswot", sb.empty_row(), device=device)
+                   for s in range(client_sample)}
+        killed = np.arange(client_sample, pinned)
+        dead_sub = client_sample  # revived and verified at the end
+        dead_client = ClientReplica("orswot", sb.empty_row(), device=device)
+        rng = np.random.default_rng(163)
+        next_ctr = np.zeros(tenants, np.uint32)
+        priced = {"delta_bytes": 0.0, "bootstrap_bytes": 0.0, "delta_deliveries": 0,
+                  "deliveries": 0}
+
+        def submit_cycle(cycle, n_ops):
+            off = (cycle * hot_shift) % max(tenants - hot_set, 1)
+            hot = rng.integers(off, off + hot_set, n_ops)
+            uni = rng.integers(0, tenants, n_ops)
+            ts = np.where(rng.random(n_ops) < 0.85, hot, uni)
+            ts[:pinned] = np.arange(pinned)
+            masks = rng.random((n_ops, e)) < (6.0 / e)
+            for i in range(n_ops):
+                t = int(ts[i])
+                c = int(next_ctr[t]) + 1
+                next_ctr[t] = c
+                q.add(t, t % a, c, masks[i])
+            return np.unique(ts)
+
+        def deliver_and_ack(rep, revive=False, price=False):
+            for cp in rep.pushes:
+                for s in cp.members:
+                    s = int(s)
+                    if s in clients:
+                        clients[s].apply_wire(cp.wire, cp.to_ver)
+                    elif revive and s == dead_sub:
+                        dead_client.apply_wire(cp.wire, cp.to_ver)
+                if price:
+                    priced["delta_bytes"] += fanout_price(cp.wire) * len(cp.members)
+                    priced["delta_deliveries"] += len(cp.members)
+            for rs in rep.resyncs:
+                for s in rs.members:
+                    s = int(s)
+                    if s in clients:
+                        clients[s].adopt(rs.state, rs.to_ver)
+                    elif revive and s == dead_sub:
+                        dead_client.adopt(rs.state, rs.to_ver)
+                if price:
+                    priced["bootstrap_bytes"] += rs.report.bytes_shipped * len(rs.members)
+            if price:
+                priced["deliveries"] += rep.subscribers
+            for c in clients.values():
+                c.ack()
+            if revive:
+                dead_client.ack()
+            members = [cp.members for cp in rep.pushes + rep.resyncs]
+            if members:
+                allm = np.concatenate(members)
+                if not revive:  # the killed set never acks in the window
+                    allm = allm[~np.isin(allm, killed)]
+                plane.ack(allm)
+
+        # Warmup, outside the window: the first slabs' allocations and
+        # graph capture, the first dispatch's.
+        touched = submit_cycle(0, 512)
+        q.drain()
+        plane.note_dirty(touched)
+        deliver_and_ack(plane.push())
+
+        first = FirstDispatch(plane_mod.mesh_fanout_push)
+        walls, per_cycle_disp = [], []
+        n_evicted, rewarmed, submit_s = 0, False, 0.0
+        plane.seconds = dict.fromkeys(plane.seconds, 0.0)
+        wire_pack.launches = 0
+        disp0 = plane.dispatches
+        resync0 = plane.resyncs_total
+        for cycle in range(1, cycles + 1):
+            ts0 = time.perf_counter()
+            touched = submit_cycle(cycle, cfg["ops_per_cycle"])
+            q.drain()
+            submit_s += time.perf_counter() - ts0
+            plane.note_dirty(touched)
+            if cycle == cycles // 2:
+                n_evicted = ev.evict(list(range(cfg["evict_cohort"])))
+            d0 = plane.dispatches
+            plane_mod.mesh_fanout_push = first if cycle == 1 else first.fn
+            try:
+                t0 = time.perf_counter()
+                rep = plane.push()
+                # Cycle 1's first dispatch is held against the plain pack
+                # inside its push: that check's time is not the push's.
+                walls.append(time.perf_counter() - t0 - (first.check_s if cycle == 1 else 0.0))
+            finally:
+                plane_mod.mesh_fanout_push = first.fn
+            per_cycle_disp.append(plane.dispatches - d0)
+            if cycle == cycles // 2:
+                rewarmed = all(sb.is_resident(t) for t in range(cfg["evict_cohort"]))
+            deliver_and_ack(rep, price=True)
+            if cfg["churn"]:
+                drop = np.unique(rng.integers(pinned, subscribers, cfg["churn"]))
+                plane.unsubscribe(drop)
+                plane.subscribe(rng.integers(0, tenants, len(drop)))
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        k3_launches = wire_pack.launches
+        window_dispatches = plane.dispatches - disp0
+        resyncs_in_window = plane.resyncs_total - resync0
+        window_seconds = dict(plane.seconds)
+        push_s = sum(walls)
+        check(first.err == 0, f"the first dispatch's wire != K3's plain version ({first.err})")
+        on_card = device.type == "cuda"
+        check(window_dispatches >= 1 and (not on_card or k3_launches == window_dispatches),
+              f"K3 launched {k3_launches} times for {window_dispatches} dispatches")
+
+        # One more cycle, outside the window, its push profiled: the host /
+        # device split.
+        touched = submit_cycle(cycles + 1, cfg["ops_per_cycle"])
+        q.drain()
+        plane.note_dirty(touched)
+        got = []
+        secs0, d0 = dict(plane.seconds), plane.dispatches
+        prof = profile_busy(lambda: got.append(plane.push()), device, host_top=8)
+        if prof is None:
+            got.append(plane.push())
+        deliver_and_ack(got[0])
+        prof_secs = {k: plane.seconds[k] - secs0[k] for k in secs0}
+
+        # K3 on the first dispatch's own inputs, timed; not the main path's
+        # launches.
+        saved = wire_pack.launches
+        k3 = k3_at_fanout_layout(first.args, device) if device.type == "cuda" else None
+        wire_pack.launches = saved
+
+        # Verification: revive the dead subscriber (its catch-up must come
+        # as a resync), converge.
+        for _ in range(cfg["window_cap"] + 2):
+            rep = plane.push()
+            if rep.cohorts == 0 and not rep.resyncs:
+                break
+            deliver_and_ack(rep, revive=True)
+        st = plane.sub_tenant[:plane._top]
+        alive = st >= 0
+        current = bool(np.all(plane.sub_ver[:plane._top][alive]
+                              == plane.ver[np.where(alive, st, 0)][alive]))
+
+        def served(t):
+            if not sb.is_resident(t):
+                ev.restore(t)
+            return sb.row(t)
+
+        mismatches = sum(0 if c.equals(served(s)) else 1 for s, c in clients.items())
+        mismatches += 0 if dead_client.equals(served(dead_sub)) else 1
+        check(mismatches == 0 and current,
+              f"{mismatches} sampled clients diverged (watermarks current: {current})")
+        check(plane.n_live >= 1_000_000 or not committed,
+              f"only {plane.n_live} live subscribers; the gate is 1M+")
+        check(resyncs_in_window >= 1, "no dead-subscriber resync in the window")
+        check(n_evicted >= 1 and rewarmed, "no subscribed-tenant evict → re-warm in the window")
+        row_b = sb.row_nbytes()
+        total = priced["delta_bytes"] + priced["bootstrap_bytes"]
+        per_delta = priced["delta_bytes"] / max(priced["delta_deliveries"], 1)
+        ratio_overall = priced["deliveries"] * row_b / max(total, 1e-9)
+        check(ratio_overall >= 10, f"δ + bootstrap moved 1/{ratio_overall:.2f} of the "
+                                   "full-state push; the gate is 10×")
+        out = {
+            "config": "fanout", "tenants": tenants, "lanes": lanes,
+            "subscribers_live": plane.n_live,
+            "elems": e, "actors": a, "deferred_cap": caps["deferred_cap"],
+            "mesh_virtual_ranks": cfg["mesh"][0], "dispatch_lanes": cfg["dispatch_lanes"],
+            "cycles": cycles, "ops_per_cycle": cfg["ops_per_cycle"],
+            "deliveries": priced["deliveries"], "delta_deliveries": priced["delta_deliveries"],
+            "push_window_s": push_s, "deliveries_per_s": priced["deliveries"] / push_s,
+            "push_wall_s_per_cycle": walls, "dispatches_per_cycle": per_cycle_disp,
+            "k3_launches_in_window": k3_launches, "window_dispatches": window_dispatches,
+            "window_host_seconds_by_part": window_seconds, "submit_and_drain_s": submit_s,
+            "subscribe_1m_s": subscribe_s, "resyncs_in_window": resyncs_in_window,
+            "evicted": n_evicted, "rewarmed": rewarmed,
+            "delta_bytes": priced["delta_bytes"], "bootstrap_bytes": priced["bootstrap_bytes"],
+            "bytes_per_delta_delivery": per_delta, "full_row_bytes": row_b,
+            "delta_vs_full_ratio": row_b / max(per_delta, 1e-9),
+            "overall_vs_full_ratio": ratio_overall,
+            "clients_verified": len(clients) + 1, "watermarks_current": current,
+            "first_dispatch_max_abs_err": first.err,
+            "superblock_bytes": sb.nbytes(),
+            "reduced": "none of the shape; left out: telemetry (15.1), "
+                       "trace/flight/freshness (15.6)",
+        }
+        if prof is not None:
+            out["profiled_cycle"] = {
+                "push_wall_ms": prof["wall_ms"], "device_ms": prof["device_ms"],
+                "busy_share": prof["busy_share"], "dispatches": plane.dispatches - d0,
+                "launch_kernel_calls": prof["launch_kernel_calls"],
+                "host_seconds_by_part": prof_secs, "top": prof["top"][:4],
+                "host_top": prof.get("host_top")}
+        if k3 is not None:
+            out["k3_fanout_layout"] = k3
+        return out
+
+    out = {"phase": "fanout", **with_scratch_dir(runs)}
+    if device.type == "cuda":
+        out["peak_bytes"] = torch.cuda.max_memory_allocated(device)
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return out
+
+
 PHASES = ("k1", "scenarios", "full_width", "k2", "map_scenarios", "full_width_map", "k3",
           "delta_scenarios", "full_width_delta", "map_delta_scenarios", "full_width_delta_map",
           "sparse_scenarios", "flagship", "elastic", "resync", "donate", "durability",
-          "serve_scenarios", "serve", "serve_zipf")
+          "serve_scenarios", "serve", "serve_zipf", "fanout_scenarios", "fanout")
 
 
 def main(argv=None) -> int:
@@ -4620,6 +5262,10 @@ def main(argv=None) -> int:
         phase_serve(device, args.seed)
     if run("serve_zipf"):
         phase_serve_zipf(device, args.seed)
+    if run("fanout_scenarios"):
+        res["fanout_scenarios"] = phase_fanout_scenarios(device, args.seed)
+    if run("fanout"):
+        res["fanout"] = phase_fanout(device, args.seed)
     if only:
         print(f"chip_smoke: partial run of {only}; no kernels line", flush=True)
         return 0
@@ -4648,7 +5294,10 @@ def main(argv=None) -> int:
         **K3,
         "launches": delta["k3_launches_in_ring"],
         "max_abs_err": max(res["k3"], delta["k3_max_abs_err"],
-                           res["delta_map"]["k3_max_abs_err"]),
+                           res["delta_map"]["k3_max_abs_err"],
+                           res["fanout_scenarios"]["k3_max_abs_err"],
+                           res["fanout"]["first_dispatch_max_abs_err"],
+                           res["fanout"]["k3_fanout_layout"]["max_abs_err"]),
         "ms": delta["k3_ms_median"],
         "plain_ms": delta["k3_plain_ms"],
         "bound_ms": delta["k3_bound_ms"],

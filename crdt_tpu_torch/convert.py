@@ -18,7 +18,11 @@ both directions copy:
   ``sparse_orswot`` leaves above with the lane axis leading;
 - an ``OpSlab`` (``opslab_from_numpy``): ``kind`` u8, ``actor`` i32,
   ``ctr``/``clock`` u32, ``member`` bool (dense masks) or i32 (sparse id
-  lists).
+  lists);
+- a fan-out ``CohortWire`` (``cohort_wire_from_numpy``): ``words``/``raw``
+  /``nnz``/``chk`` u32, ``keep``/``defer``/``valid`` bool, ``residual``
+  the tuple of the kind's residual planes with bool planes bit-packed
+  (u32), so either package's client decodes the other's payload.
 
 :func:`leaf_to_numpy` / :func:`leaf_from_numpy` carry one leaf of any
 dtype (the durability files' leaves: u32 stays ``<u4``, u64 ``<u8``, bool
@@ -180,3 +184,29 @@ def tracking_from_numpy(dirty: np.ndarray, fctx: np.ndarray, device="cuda"):
     if fctx.dtype not in (np.uint32, np.uint64):
         raise TypeError(f"tracking leaf 'fctx' must be uint32 or uint64, got {fctx.dtype}")
     return leaf_from_numpy(dirty, device), leaf_from_numpy(fctx, device)
+
+
+def cohort_wire_to_numpy(wire):
+    """A fan-out ``CohortWire`` with tensor (or numpy) leaves → the same
+    ``CohortWire`` with numpy leaves, one read-back per leaf; the JAX
+    package's ``CohortWire(*...)`` takes its fields in this order."""
+    from .ops.lattice import tree_map
+
+    return tree_map(lambda x: leaf_to_numpy(x) if isinstance(x, torch.Tensor)
+                    else np.asarray(x), wire)
+
+
+def cohort_wire_from_numpy(wire, device="cuda"):
+    """A fan-out wire — the port's or the JAX package's ``CohortWire``,
+    leaves numpy, tensors or anything ``np.asarray`` takes — as the
+    port's ``CohortWire`` of tensors on ``device`` (tensors already there
+    are used as they are)."""
+    from .ops.fanout_kernels import CohortWire
+    from .ops.lattice import tree_map
+
+    def leaf(x):
+        if isinstance(x, torch.Tensor):
+            return x.to(device)
+        return leaf_from_numpy(np.asarray(x), device)
+
+    return CohortWire(*(tree_map(leaf, f) for f in wire))

@@ -8,7 +8,9 @@ stream from blocks on the card and on the CPU; the durability core on the
 card (a logged ring and its recovery, a stream resumed from its log, the
 crashpoint diagonal and a checkpoint round trip); the serving tier's slab
 apply on the card against the CPU, and one dispatch under sync debug
-"error".
+"error"; the fan-out plane's K3 instance through ``mesh_fanout_push``
+(once a dispatch, == its plain version and the CPU), a resync through
+``bootstrap`` on card tensors, and the fan-out probes.
 
 Marked ``cuda``; every test skips without a device. It imports neither
 JAX nor the JAX package, so it also runs where JAX is not installed:
@@ -495,3 +497,57 @@ def test_the_serve_scenarios_phase_on_the_card(card):
     out = chip_smoke.phase_serve_scenarios(card, 7)
     assert out["orswot"]["held"] == out["sparse_orswot"]["held"] == 16
     assert out["apply_async_under_sync_debug_error"]
+
+
+# ---- fan-out (ROADMAP item 11) ----------------------------------------------------
+
+@pytest.mark.parametrize("a", [1, 2, 3, 4, 8])
+def test_k3_fanout_instance_through_mesh_fanout_push(card, a):
+    """One dispatch on 8 virtual ranks (rows outside the ±32 Ki window,
+    empty lanes) launches K3 exactly once; its wire == K3's plain version
+    on the same card tensors and == the dispatch on the CPU, every leaf."""
+    from crdt_tpu_torch.convert import orswot_from_numpy
+    from crdt_tpu_torch.parallel import VirtualMesh, mesh_fanout_push
+
+    state, bases, idx, _ = chip_smoke.fanout_dispatch_case(8, 50 + a, e=33, a=a)
+    runs = {}
+    for dev in (card, torch.device("cpu")):
+        args = (orswot_from_numpy(state, dev), orswot_from_numpy(bases, dev),
+                torch.as_tensor(idx).to(dev), VirtualMesh(8, dev))
+        before = wire_pack.launches
+        runs[dev.type] = mesh_fanout_push(*args)
+        assert wire_pack.launches == before + (dev.type == "cuda")
+        if dev.type == "cuda":
+            assert chip_smoke.fanout_vs_plain(runs["cuda"][0],
+                                              chip_smoke.fanout_k3_args(*args[:3], 8)) == 0
+    torch.cuda.synchronize(card)
+    assert chip_smoke.fanout_wire_diff(runs["cuda"][0], runs["cpu"][0]) == 0
+    assert torch.equal(runs["cuda"][1].cpu(), runs["cpu"][1])
+
+
+@pytest.mark.parametrize("with_base", [False, True], ids=["cold", "warm"])
+def test_a_resync_through_bootstrap_on_card_tensors(card, with_base):
+    """``bootstrap`` of a fan-out row on card tensors: the landed state
+    and the report equal the same bootstrap on the CPU."""
+    import numpy as np
+
+    from crdt_tpu_torch.convert import orswot_from_numpy
+    from crdt_tpu_torch.scaleout import bootstrap
+
+    rows, bases = chip_smoke.fanout_cohort_case(np.random.default_rng(12), 1, 256, 4)
+    one = lambda arrays, dev: orswot_from_numpy(  # noqa: E731
+        {k: v[0] for k, v in arrays.items()}, dev)
+    got = {}
+    for dev in (card, torch.device("cpu")):
+        got[dev.type] = bootstrap("orswot", one(rows, dev),
+                                  one(bases, dev) if with_base else None, segment_cap=64)
+    assert tuple(got["cuda"][1]) == tuple(got["cpu"][1])
+    assert chip_smoke.same_leaves(type(got["cpu"][0])(*(x.cpu() for x in got["cuda"][0])),
+                                  got["cpu"][0])
+
+
+def test_the_fanout_scenarios_phase_on_the_card(card):
+    out = chip_smoke.phase_fanout_scenarios(card, 3)
+    assert out["k3_max_abs_err"] == 0
+    assert out["probes"]["clients_equal"] == out["probes"]["clients"]
+    assert out["detector"] == {"honest_push": True, "skipping_twin": False}
