@@ -100,7 +100,15 @@ at first use), then runs, printing one JSON line per phase:
                         second append truncated on reopen, a corrupt newest
                         generation fallen back; record and snapshot bytes,
                         the append's wall by part, recovery's by part, and
-                        the logged and unlogged walls alternating.
+                        the logged and unlogged walls alternating. Then the
+                        rings with ``telemetry=True`` (key ``telemetry``,
+                        ``telemetry_ring_leg``): == the plain ring bit for
+                        bit, K3 once per round, the JAX merge count, the
+                        wire bytes, K3's nonzero words (×4, with the id,
+                        raw and bitmap leaves') as ``wire_packed_bytes``,
+                        the histograms; the acked ring's skipped bytes; the
+                        launches a round and walls with the sidecar off and
+                        on, alternating.
 11. ``map_delta_scenarios`` — small oracle-minted Map<K, MVReg> rings on 4
                         virtual ranks, ``pipeline`` × cap 16 / 1: fused ==
                         layered on every leaf, equal residue, and the
@@ -120,8 +128,11 @@ at first use), then runs, printing one JSON line per phase:
                         the wire's window leaves the fused ring uncertified.
                         Then the acked rings as in phase 10 (3 walls of each
                         kind), one acked round under sync debug "error", and
-                        K3's acked instance at LC 14; and the ring with
-                        ``wal=`` as in phase 10 (2 walls of each kind).
+                        K3's acked instance at LC 14; the ring with
+                        ``wal=`` as in phase 10 (2 walls of each kind); the
+                        telemetry rings as in phase 10 (2 walls of each), and
+                        one round with the sidecar's work under sync debug
+                        "error".
 13. ``sparse_scenarios`` — the probe set through ``BatchedSparseOrswot`` (the
                         segment-encoded ORSWOT) on the card against the
                         oracle and a dense ``BatchedOrswot`` twin (through
@@ -149,7 +160,12 @@ at first use), then runs, printing one JSON line per phase:
                         20 raises ``StreamInterrupted`` with resume records
                         at blocks 8, 16 and 20; the stream resumed from the
                         reopened log == the uninterrupted pass; logged
-                        (``wal_every=8``) and unlogged walls alternating.
+                        (``wal_every=8``) and unlogged walls alternating;
+                        three passes with ``telemetry=True`` alternating with
+                        plain ones (== the plain pass, 40 blocks, the staged
+                        bytes, the JAX merge count; merges/s off and on), and
+                        one step with the sidecar's work (the changed slots)
+                        under sync debug "error".
 15. ``elastic``        — the overflow → widen → re-enter loops: at config
                         3's widths (R=5120 on 8 virtual ranks) a
                         ``BatchedOrswot`` born with ``deferred_cap`` 2 under
@@ -203,7 +219,11 @@ at first use), then runs, printing one JSON line per phase:
                         oracles; ops/s, dispatch walls (issue → finish,
                         p50/p99), dispatches, launches and device time per
                         dispatch (graph replay; one eager dispatch beside it),
-                        busy share, superblock and peak bytes.
+                        busy share, superblock and peak bytes; two more cycles
+                        drained with ``telemetry=True`` (the sidecar's own
+                        replayed graph, captured in the first), each one's
+                        annotated Telemetry against the queue's counts, and
+                        the second's dispatch walls.
 21. ``serve_zipf``     — its zipf leg (65,536 tenants on 16,384 lanes, slabs
                         1,024 × 4, 8,000 zipf ops a cycle, a ×10 hot shard
                         answered by ``rebalance``) at ``ZIPF_CYCLES`` of its
@@ -244,7 +264,17 @@ at first use), then runs, printing one JSON line per phase:
                         per second, push walls and dispatches per cycle, the
                         push's host time by part, one profiled push (busy
                         share, launches), K3 at the fan-out layout (replayed
-                        graph and profiler, bytes, bound, share).
+                        graph and profiler, bytes, bound, share); one more
+                        cycle's ``push(telemetry=True)``: live subscribers,
+                        cohorts, δ bytes against the host's pricing, resync
+                        fallbacks and bootstrap bytes.
+24. ``telemetry_scenarios`` — the same seeded small inputs through every
+                        telemetry path (``mesh_fold``, ``mesh_gossip``,
+                        ``mesh_fold_map``, the dense and Map δ rings fused,
+                        layered and acked, a dense stream, a serving flush,
+                        a fan-out dispatch) on the card and on the CPU: the
+                        card's ``to_dict`` == the CPU's on every counted
+                        field (``HOST_TIMED`` left out by name).
 
 Then the ``nvidia-smi`` name/power-limit line, a ``kernels`` JSON line, and
 as the last line ``{"ok": true, "device": {...}}``. Any failed check raises
@@ -2101,6 +2131,12 @@ def phase_full_width_delta(device, seed: int, r: int = 5120, e: int = 102400, a:
         (wire_pack, fold_entries), rounds, sync, ring_samples, root))
     check(not on_card or durable["launches_in_logged_ring"] == [rounds, p],
           f"the ring with wal= launched K3 and K1 {durable['launches_in_logged_ring']} times")
+    # The rings with the telemetry sidecar (ROADMAP 15.1), on the same inputs.
+    telemetry = telemetry_ring_leg(
+        lambda on, ack, st: mesh_delta_gossip(state, dirty, fctx, mesh, rounds=rounds, cap=cap,
+                                              ack_window=ack, telemetry=on, stats=st),
+        fused, stats, rounds, p, rl, a, (wire_pack, fold_entries), p, busy, sync, ring_samples,
+        device, acked, acked["slot_bytes"])
     links = stats["rounds"] * stats["links"]
     out = {
         "phase": "full_width_delta",
@@ -2125,7 +2161,7 @@ def phase_full_width_delta(device, seed: int, r: int = 5120, e: int = 102400, a:
         "converged_members": int(bits(folded.ctr).ne(0).any(-1).sum()),
         "converged_parked": int(folded.dvalid.sum()),
         "peak_mem_gb": torch.cuda.max_memory_allocated(device) / 1e9 if on_card else None,
-        "ack_window": acked, "durable": durable,
+        "ack_window": acked, "durable": durable, "telemetry": telemetry,
     }
     emit(out)
     return out
@@ -2539,6 +2575,8 @@ def phase_full_width_delta_map(device, seed: int, r: int = 64, k: int = 1_000_00
     from crdt_tpu_torch.parallel.delta_map import (
         apply_delta_map, extract_delta_map, packet_template_map,
     )
+    from crdt_tpu_torch.parallel.delta_ring import RingTelemetry
+    from crdt_tpu_torch.telemetry import shipped_bytes
 
     on_card = device.type == "cuda"
     sync = (lambda: torch.cuda.synchronize(device)) if on_card else (lambda: None)
@@ -2621,13 +2659,33 @@ def phase_full_width_delta_map(device, seed: int, r: int = 64, k: int = 1_000_00
                            own_top=ranks.top)
         return apply_delta_map(ranks, got, dd, ff)
 
+    rt = RingTelemetry(p, device, map_ops.changed_keys)
+
+    def one_tel_round():
+        """The same round with the telemetry sidecar's per-round work
+        (``delta_ring.RingTelemetry``, as the ring calls it)."""
+        rt.begin()
+        pk, dd, ff = extract_delta_map(ranks, d0, f0, cap, start=0)
+        wired, aux = codec.pack(pk, rtop=rtop)
+        dd = wire_mod.remark_deferred(dd, wire_mod.core_idx(pk), aux.defer)
+        rt.sent(dd.sum(dim=-1), shipped_bytes(wired, batch_dims=1),
+                codec.useful_bytes(pk, aux.keep), packed_words=aux.packed_words)
+        got = codec.unpack(ppermute(wired, [(i, (i + 1) % p) for i in range(p)]),
+                           own_top=ranks.top)
+        st = apply_delta_map(ranks, got, dd, ff)[0]
+        rt.applied(ranks, st)
+        rt.end(True)
+
     # No operation of a Map round waits for the device (a CUDA graph of
     # the round could capture it): torch raises on any synchronising call.
+    # The same holds with the telemetry sidecar's work in the round.
     one_round()
+    one_tel_round()
     if on_card:
         torch.cuda.set_sync_debug_mode("error")
     try:
         one_round()
+        one_tel_round()
     finally:
         if on_card:
             torch.cuda.set_sync_debug_mode("default")
@@ -2649,6 +2707,14 @@ def phase_full_width_delta_map(device, seed: int, r: int = 64, k: int = 1_000_00
         (wire_pack, fold_cells), rounds, sync, durable_samples, root))
     check(not on_card or durable["launches_in_logged_ring"] == [rounds, p],
           f"the map ring with wal= launched K3 and K2 {durable['launches_in_logged_ring']} times")
+    # The rings with the telemetry sidecar (ROADMAP 15.1), 2 walls of each.
+    telemetry = telemetry_ring_leg(
+        lambda on, ack, st: mesh_delta_gossip_map(state, dirty, fctx, mesh, rounds=rounds,
+                                                  cap=cap, ack_window=ack, telemetry=on,
+                                                  stats=st),
+        fused, stats, rounds, p, rl, a, (wire_pack, fold_cells), p, busy, sync,
+        durable_samples, device, acked, acked["slot_bytes"])
+    telemetry["round_syncs_with_host"] = False if on_card else None
     links = stats["rounds"] * stats["links"]
     peak_gb = torch.cuda.max_memory_allocated(device) / 1e9 if on_card else None
     residue = int(fused[3])
@@ -2697,7 +2763,7 @@ def phase_full_width_delta_map(device, seed: int, r: int = 64, k: int = 1_000_00
         "launch_kernel_calls_per_round_layered":
             busy_layered["launch_kernel_calls"] / rounds if busy_layered else None,
         **converged, "every_key_written": all_written, "peak_mem_gb": peak_gb,
-        "ack_window": acked, "durable": durable,
+        "ack_window": acked, "durable": durable, "telemetry": telemetry,
     }
     emit(out)
     return out
@@ -2995,8 +3061,10 @@ def phase_flagship(device, seed: int, r: int = 10240, universe: int = 1_000_000,
     "flagship"): merges/s across R replicas of the segment-encoded ORSWOT over
     a 1M-element universe, streamed through P virtual ranks in replica
     blocks. Gates first; then the stream's wall from both block sources."""
+    import numpy as np
     import torch
 
+    from crdt_tpu_torch import telemetry as tele
     from crdt_tpu_torch.ops import sparse_orswot as sp
     from crdt_tpu_torch.ops.lattice import tree_map
     from crdt_tpu_torch.parallel import VirtualMesh, mesh_fold_sparse, mesh_stream_fold_sparse
@@ -3052,16 +3120,18 @@ def phase_flagship(device, seed: int, r: int = 10240, universe: int = 1_000_000,
     plan = stream_mod._plan_sparse()
     block0 = gen(torch.arange(block_rows, device=device))
     acc0 = sp.empty(cap, a, device=device)
-    stream_mod._step(plan, acc0, block0, p)
+    acc1, _ = stream_mod._step(plan, acc0, block0, p)
+    plan.slots_fn(acc0, acc1)
     if on_card:
         torch.cuda.set_sync_debug_mode("error")
     try:
-        stream_mod._step(plan, acc0, block0, p)
+        acc1, _ = stream_mod._step(plan, acc0, block0, p)
+        plan.slots_fn(acc0, acc1)  # the step's one piece of telemetry work
     finally:
         if on_card:
             torch.cuda.set_sync_debug_mode("default")
     sync()
-    del block0, acc0
+    del block0, acc0, acc1
 
     # The same blocks from pinned host memory (set-up, untimed).
     host_blocks = []
@@ -3109,6 +3179,40 @@ def phase_flagship(device, seed: int, r: int = 10240, universe: int = 1_000_000,
             "launch_kernel_calls_per_block":
                 busy["launch_kernel_calls"] / profile_blocks if busy else None,
         }
+    # Passes with the telemetry sidecar (ROADMAP 15.1), alternating with
+    # plain ones from device blocks: the stream's counts, and merges/s on.
+    tel_runs = {False: [], True: []}
+    for _ in range(3):
+        for on in (False, True):
+            t0 = time.perf_counter()
+            res_t = mesh_stream_fold_sparse(device_blocks(), mesh, telemetry=on)
+            sync()
+            tel_runs[on].append((time.perf_counter() - t0) * 1e3)
+            check(same_leaves(res_t[0], acc) and torch.equal(res_t[1], of),
+                  "a stream pass with telemetry= differs from the plain pass")
+            if on:
+                tel_d = tele.to_dict(res_t[2])
+            del res_t
+    staged = n_blocks * block_rows * per_replica
+    tel_gates = {
+        "stream_blocks": tel_d["stream_blocks"] == n_blocks,
+        "stream_staged_bytes": tel_d["stream_staged_bytes"] == float(np.float32(staged)),
+        # Each step: a rank's B/P − 1 fold joins, log2(P) exchanges, the
+        # accumulator join (JAX stream.py's count).
+        "merges": tel_d["merges"] == n_blocks * p * (block_rows // p - 1 + (p.bit_length() - 1)
+                                                     + 1),
+    }
+    check(all(tel_gates.values()), f"flagship telemetry gates failed: {tel_gates}")
+    tel_med = {on: statistics.median(v) for on, v in tel_runs.items()}
+    telemetry = {
+        "gates": tel_gates, "stream_blocks": tel_d["stream_blocks"],
+        "stream_staged_bytes": tel_d["stream_staged_bytes"], "staged_bytes_exact": staged,
+        "slots_changed": tel_d["slots_changed"], "merges": tel_d["merges"],
+        "stream_ms_off": tel_med[False], "stream_ms_on": tel_med[True],
+        "merges_per_s_off": (r_run - 1) / (tel_med[False] * 1e-3),
+        "merges_per_s_on": (r_run - 1) / (tel_med[True] * 1e-3),
+        "runs": {"off": tel_runs[False], "on": tel_runs[True]},
+    }
     durable = with_scratch_dir(lambda root: durable_stream(
         device_blocks, acc, mesh, sp.empty(cap, a, device=device), n_blocks, sync, durable_passes,
         root))
@@ -3124,7 +3228,7 @@ def phase_flagship(device, seed: int, r: int = 10240, universe: int = 1_000_000,
         "first_stream_ms_cold": first_ms, "step_syncs_with_host": False if on_card else None,
         "merges_per_s_device_blocks": per_source["device"]["merges_per_s"],
         "merges_per_s_pinned_host_blocks": per_source["pinned_host"]["merges_per_s"],
-        "sources": per_source, "durable": durable,
+        "sources": per_source, "durable": durable, "telemetry": telemetry,
         "phase_s": time.perf_counter() - t_phase,
     }
     emit(out)
@@ -4024,6 +4128,54 @@ def serve_drain(q, walls=None):
     return ops, dispatches, restored
 
 
+def serve_telemetry_cycle(q, submit, tenants: int, committed: bool) -> dict:
+    """One serving cycle drained with the telemetry sidecar (ROADMAP 15.1):
+    every flush's Telemetry combined, its gates against the queue's own
+    counts (the served population, coalesced ops, flushes and ops in the
+    batch histogram, dispatches in ``hist_dispatch_us``, the slabs' bytes)
+    and the dispatch walls (the sidecar's own replayed graph; its first
+    dispatch captures it)."""
+    from crdt_tpu_torch import telemetry as tele
+    from crdt_tpu_torch.obs import hist
+    from crdt_tpu_torch.ops import superblock as sb_ops
+
+    submit()
+    sb = q.sb
+    tel, walls = None, []
+    ops = dispatches = coalesced = flushes = 0
+    while q.n_pending:
+        rep, t = q.flush(telemetry=True)
+        if rep.ops_applied == 0 and rep.restored == 0:
+            break
+        tel = t if tel is None else tele.combine(tel, t)
+        ops, dispatches = ops + rep.ops_applied, dispatches + rep.dispatches
+        coalesced, flushes = coalesced + rep.coalesced, flushes + 1
+        walls.append(sb.last_dispatch_s)
+    d = tele.to_dict(tel)
+    slab = sb_ops.empty_slab(sb.tk, sb.caps, q.lanes, q.depth, device=sb.device)
+    slab_bytes = tele.shipped_bytes(slab)
+    n_evicted = int((sb.was_evicted & (sb.lane_of < 0)).sum())
+    gates = {
+        "live_tenants": d["live_tenants"] == tenants and (tenants >= 1_000_000 or not committed),
+        "evicted_tenants": d["evicted_tenants"] == n_evicted,
+        "ingest_coalesced_ops": d["ingest_coalesced_ops"] == coalesced,
+        "hist_ingest_batch": (sum(d["hist_ingest_batch"]["counts"]) == flushes
+                              and d["hist_ingest_batch"]["total"] == ops),
+        "hist_dispatch_us": sum(d["hist_dispatch_us"]["counts"]) == dispatches,
+        "bytes_exchanged": f32_close(d["bytes_exchanged"], dispatches * slab_bytes,
+                                     dispatches * sb.p),
+        "slots_changed": d["slots_changed"] > 0,
+    }
+    check(all(gates.values()), f"serve telemetry gates failed: {gates}")
+    keep = ("slots_changed", "bytes_exchanged", "bytes_useful", "deferred_depth",
+            "widen_pressure", "live_tenants", "evicted_tenants", "ingest_coalesced_ops")
+    return {"gates": gates, "ops": ops, "dispatches": dispatches, "flushes": flushes,
+            "telemetry": {k: d[k] for k in keep},
+            "hist_dispatch_us_p50_p99": [hist.summary(d["hist_dispatch_us"])[k]
+                                         for k in ("p50", "p99")],
+            "dispatch_wall_with_telemetry": serve_percentiles(walls)}
+
+
 def phase_serve_scenarios(device, seed: int) -> dict:
     """Small oracle probes of the serving tier on the card, both kinds."""
     import numpy as np
@@ -4294,7 +4446,15 @@ def phase_serve(device, seed: int, cfg=None) -> dict:
         d, w = [], []
         prof = profile_busy(lambda: d.append(serve_drain(q, w)), device)
         if prof is None:  # off a card: drain unprofiled
-            d.append(serve_drain(q, w))        # Oracle bit-identity on a sample, re-touched evictees first.
+            d.append(serve_drain(q, w))
+        # Two cycles with the sidecar: the first captures its graph, the
+        # second's dispatch walls are the steady state.
+        first_tel = serve_telemetry_cycle(
+            q, lambda: submit_cycle(cfg["cycles"] + 2, cfg["ops_per_cycle"]), tenants, committed)
+        telemetry = serve_telemetry_cycle(
+            q, lambda: submit_cycle(cfg["cycles"] + 3, cfg["ops_per_cycle"]), tenants, committed)
+        telemetry["first_cycle_dispatch_wall"] = first_tel["dispatch_wall_with_telemetry"]
+        # Oracle bit-identity on a sample, re-touched evictees first.
         touched = np.asarray(sorted(history))
         sample = list(retouch[: cfg["oracle_sample"] // 3])
         rest = rng.choice(touched, min(cfg["oracle_sample"] - len(sample), len(touched)),
@@ -4315,9 +4475,9 @@ def phase_serve(device, seed: int, cfg=None) -> dict:
             "touched_tenants": len(history),
             "superblock_bytes": sb.nbytes(), "row_bytes": sb.row_nbytes(),
             "all_resident_equiv_bytes": sb.row_nbytes() * tenants,
-            "oracle_held": held, "bit_identical": True,
-            "reduced": "none of the shape; left out: the fan-out trace plane (ROADMAP item 11) "
-                       "and telemetry (15.1), so no freshness or hist_dispatch_us",
+            "oracle_held": held, "bit_identical": True, "telemetry": telemetry,
+            "reduced": "none of the shape; left out: the trace plane (ROADMAP item 15.6), so "
+                       "no freshness",
         }
         out["eager_dispatch_ms"] = eager_ms
         if prof is not None:
@@ -4904,6 +5064,36 @@ class FirstDispatch:
         return out
 
 
+def fanout_telemetry_gates(rep, plane, dispatches: int, committed: bool) -> dict:
+    """A push's annotated Telemetry against the plane and the host: the
+    live subscribers (1M+ at the committed shape), its cohorts, the δ
+    bytes it pushed priced on the host per delivery (``fanout_price`` ×
+    members), its resync fallbacks and their bootstrap bytes, one
+    histogram entry per cohort and per dispatch."""
+    from crdt_tpu_torch import telemetry as tele
+
+    d = tele.to_dict(rep.telemetry)
+    host_bytes = sum(fanout_price(cp.wire) * len(cp.members) for cp in rep.pushes)
+    resynced = sum(len(rs.members) for rs in rep.resyncs)
+    boot = sum(rs.report.bytes_shipped * len(rs.members) for rs in rep.resyncs)
+    gates = {
+        "subscribers_live": (d["subscribers_live"] == plane.n_live
+                             and (plane.n_live >= 1_000_000 or not committed)),
+        "cohorts_per_dispatch": d["cohorts_per_dispatch"] == rep.cohorts,
+        "delta_push_bytes": f32_close(d["delta_push_bytes"], host_bytes, rep.cohorts),
+        "resync_fallbacks": d["resync_fallbacks"] == resynced,
+        "bootstrap_bytes": f32_close(d["bootstrap_bytes"], boot, 1),
+        "hist_push_bytes": sum(d["hist_push_bytes"]["counts"]) == rep.cohorts,
+        "hist_dispatch_us": sum(d["hist_dispatch_us"]["counts"]) == dispatches,
+    }
+    check(all(gates.values()), f"fan-out telemetry gates failed: {gates}")
+    return {"gates": gates, "dispatches": dispatches, "cohorts": rep.cohorts,
+            "host_priced_delta_bytes": host_bytes,
+            "telemetry": {k: d[k] for k in ("subscribers_live", "cohorts_per_dispatch",
+                                            "delta_push_bytes", "resync_fallbacks",
+                                            "bootstrap_bytes")}}
+
+
 def k3_at_fanout_layout(args: dict, device, repeats: int = 5, per_sample: int = 20) -> dict:
     """K3 on the first dispatch's own inputs (the fan-out instance, ``[P,
     (B/P)·E, A]``, per-row base): per launch over a replayed graph, alone
@@ -5108,6 +5298,19 @@ def phase_fanout(device, seed: int, cfg=None) -> dict:
         deliver_and_ack(got[0])
         prof_secs = {k: plane.seconds[k] - secs0[k] for k in secs0}
 
+        # One more cycle's push with the telemetry sidecar (ROADMAP 15.1),
+        # its annotated Telemetry against the plane's and the host's counts.
+        touched = submit_cycle(cycles + 2, cfg["ops_per_cycle"])
+        q.drain()
+        plane.note_dirty(touched)
+        d0 = plane.dispatches
+        t0 = time.perf_counter()
+        rep_t = plane.push(telemetry=True)
+        tel_push_s = time.perf_counter() - t0
+        telemetry = fanout_telemetry_gates(rep_t, plane, plane.dispatches - d0, committed)
+        telemetry["push_wall_s"] = tel_push_s
+        deliver_and_ack(rep_t)
+
         # K3 on the first dispatch's own inputs, timed; not the main path's
         # launches.
         saved = wire_pack.launches
@@ -5164,9 +5367,8 @@ def phase_fanout(device, seed: int, cfg=None) -> dict:
             "overall_vs_full_ratio": ratio_overall,
             "clients_verified": len(clients) + 1, "watermarks_current": current,
             "first_dispatch_max_abs_err": first.err,
-            "superblock_bytes": sb.nbytes(),
-            "reduced": "none of the shape; left out: telemetry (15.1), "
-                       "trace/flight/freshness (15.6)",
+            "superblock_bytes": sb.nbytes(), "telemetry": telemetry,
+            "reduced": "none of the shape; left out: trace/flight/freshness (15.6)",
         }
         if prof is not None:
             out["profiled_cycle"] = {
@@ -5187,10 +5389,246 @@ def phase_fanout(device, seed: int, cfg=None) -> dict:
     return out
 
 
+# ---- telemetry (ROADMAP 15.1) ----------------------------------------------
+
+# Telemetry fields whose value depends on the host's clock or on timing,
+# never held equal across two runs: the host-timed dispatch and persist
+# walls, the trace plane's stage walls, and the stream's overlap count.
+HOST_TIMED = frozenset({
+    "hist_dispatch_us", "hist_persist_us", "hist_queue_wait_us", "hist_dispatch_gap_us",
+    "hist_durable_lag_us", "hist_push_lag_us", "hist_ack_lag_us", "hist_freshness_us",
+    "stream_overlap_hit",
+})
+
+
+def f32_close(x: float, want: float, terms: int) -> bool:
+    """``x``, a float32 sum of ``terms`` rounded adds, within float32
+    rounding of the exact ``want``: |x − want| ≤ terms · 2⁻²⁴ · |want|."""
+    return abs(x - want) <= max(terms, 1) * 2.0 ** -24 * abs(want)
+
+
+class PackedProbe:
+    """While installed, records on the device what the fused wire put on
+    the links: K3's own nonzero-word counts (``nnz`` of every instance of
+    every launch), the nonzero words of those instances' outputs, and the
+    nonzero words of every leaf of every packed wire tree (the K3 words
+    and the id, raw and bitmap leaves packed beside them)."""
+
+    def __init__(self, device):
+        import torch
+
+        z = lambda: torch.zeros((), dtype=torch.int64, device=device)  # noqa: E731
+        self.k3_nnz, self.k3_words_nonzero, self.wire_nonzero = z(), z(), z()
+
+    def __enter__(self):
+        from crdt_tpu_torch._dtypes import bits, to_wide
+        from crdt_tpu_torch.ops import wire_kernels as wk
+        from crdt_tpu_torch.ops.lattice import tree_leaves
+        from crdt_tpu_torch.parallel import wire as wire_mod
+
+        self._saved = (wk, wk.wire_pack_many, wire_mod.WireCodec, wire_mod.WireCodec.pack)
+        many, pack = self._saved[1], self._saved[3]
+
+        def counted_many(items):
+            outs = many(items)
+            for o in outs:
+                self.k3_nnz += to_wide(o.nnz).sum()
+                self.k3_words_nonzero += (bits(o.words) != 0).sum()
+            return outs
+
+        def counted_pack(codec, pkt, rtop=None, win=None):
+            wired, aux = pack(codec, pkt, rtop=rtop, win=win)
+            for leaf in tree_leaves(wired):
+                self.wire_nonzero += (bits(leaf) != 0).sum()
+            return wired, aux
+
+        wk.wire_pack_many, wire_mod.WireCodec.pack = counted_many, counted_pack
+        return self
+
+    def __exit__(self, *exc):
+        wk, many, codec_cls, pack = self._saved
+        wk.wire_pack_many, codec_cls.pack = many, pack
+        return False
+
+
+def telemetry_ring_leg(ring, off, stats: dict, rounds: int, p: int, rl: int, a: int, counters,
+                       local_launches: int, off_profile, sync, samples: int, device,
+                       acked_stats: dict, slot_bytes: int) -> dict:
+    """A full-width δ ring with ``telemetry=True`` (``ring(telemetry, ack,
+    stats)``): the fused ring counted and probed, then gated against the
+    ``telemetry=False`` ring ``off`` (states, dirty, overflow and residue
+    bit for bit), the JAX merge count, the static wire bytes (one link's
+    ``stats["wire_bytes"]`` a round plus the digest exchange), K3's
+    nonzero words as ``wire_packed_bytes``, the histograms' counts and
+    totals; the acked ring's skipped bytes against its slot count; then
+    launches a round and the median wall with the sidecar off and on,
+    alternating."""
+    import torch
+
+    from crdt_tpu_torch import telemetry as tele
+
+    on_card = device.type == "cuda"
+    for counted in counters:
+        counted.launches = 0
+    with PackedProbe(device) as probe:
+        on = ring(True, False, None)
+        sync()
+    launches = [counted.launches for counted in counters]
+    check(not on_card or launches == [rounds, local_launches],
+          f"the telemetry ring launched {launches}, not K3 {rounds} and {local_launches} "
+          "local folds")
+    check(same_leaves(on[0], off[0]) and torch.equal(on[1], off[1])
+          and torch.equal(on[2], off[2]) and int(on[3]) == int(off[3]) == 0,
+          "the telemetry ring's states, dirty, overflow or residue differ from the plain ring's")
+    d = tele.to_dict(on[4])
+    k3_nnz, k3_words = int(probe.k3_nnz), int(probe.k3_words_nonzero)
+    wire_nonzero = int(probe.wire_nonzero)
+    digest = a * 4  # the frozen receiver tops cross one hop once (u32 [A])
+    want = {
+        "merges": p * (rl - 1) + p * rounds,
+        "bytes_exchanged": p * (rounds * stats["wire_bytes"] + digest),
+        # The unit (JAX parallel/wire.py:433-443): K3's nonzero u32 words
+        # plus the nonzero words of the id, raw and bitmap leaves, ×4 bytes.
+        "wire_packed_bytes": 4 * (k3_nnz + wire_nonzero - k3_words),
+        "hist_residue_count": p * rounds,
+    }
+    gates = {
+        "merges": d["merges"] == want["merges"],
+        "bytes_exchanged": f32_close(d["bytes_exchanged"], want["bytes_exchanged"], rounds + p),
+        "k3_nnz_is_its_nonzero_words": k3_nnz == k3_words,
+        "wire_packed_bytes": f32_close(d["wire_packed_bytes"], want["wire_packed_bytes"],
+                                       rounds + p),
+        "hist_residue_count": sum(d["hist_residue"]["counts"]) == want["hist_residue_count"],
+        "hist_useful_total": f32_close(d["hist_useful_bytes"]["total"],
+                                       d["bytes_useful"] - p * digest, rounds + p),
+        "hist_packed_total": f32_close(d["hist_packed_bytes"]["total"], d["wire_packed_bytes"],
+                                       rounds + p),
+        "residue": d["residue"] == int(on[3]) == 0,
+    }
+    check(all(gates.values()), f"telemetry ring gates failed: {gates} (want {want}, got "
+                               f"{ {k: d[k] for k in ('merges', 'bytes_exchanged', 'wire_packed_bytes')} })")
+    del on
+    acked = ring(True, True, None)
+    sync()
+    da = tele.to_dict(acked[4])
+    want_skip = acked_stats["slots_acked_skipped"] * slot_bytes
+    acked_gates = {
+        "states": same_leaves(acked[0], off[0]) and int(acked[3]) == 0,
+        "bytes_acked_skipped": f32_close(da["bytes_acked_skipped"], want_skip, rounds + p),
+        "ack_window_depth": da["ack_window_depth"] > 0,
+        # The pipelined ring acks in every round but the last (the
+        # epilogue's packet is applied, never acked).
+        "hist_ack_depth_count": sum(da["hist_ack_depth"]["counts"]) == p * (rounds - 1),
+    }
+    check(all(acked_gates.values()), f"acked telemetry ring gates failed: {acked_gates}")
+    del acked
+    on_profile = profile_busy(lambda: ring(True, False, None), device)
+    runs = alternate_rings(lambda kind: ring(kind, False, None), samples, sync,
+                           kinds=(False, True))
+    med = {k: statistics.median(runs[k]) for k in runs}
+    per_round = lambda prof: prof["launch_kernel_calls"] / rounds if prof else None  # noqa: E731
+    keep = ("merges", "slots_changed", "bytes_exchanged", "bytes_useful", "wire_packed_bytes",
+            "deferred_depth", "widen_pressure", "residue")
+    return {
+        "gates": gates, "acked_gates": acked_gates, "k3_launches": launches[0],
+        "local_fold_launches": launches[1], "k3_nnz_words": k3_nnz,
+        "id_raw_bitmap_nonzero_words": wire_nonzero - k3_words,
+        "telemetry": {k: d[k] for k in keep},
+        "acked_telemetry": {k: da[k] for k in ("bytes_acked_skipped", "ack_window_depth",
+                                                "bytes_useful", "wire_packed_bytes")},
+        "packed_over_exchanged": d["wire_packed_bytes"] / d["bytes_exchanged"],
+        "launch_kernel_calls_per_round_off": per_round(off_profile),
+        "launch_kernel_calls_per_round_on": per_round(on_profile),
+        "device_ms_off": off_profile["device_ms"] if off_profile else None,
+        "device_ms_on": on_profile["device_ms"] if on_profile else None,
+        "ring_ms_off": med[False], "ring_ms_on": med[True],
+        "on_over_off": med[True] / med[False],
+        "ring_ms_runs": {"off": runs[False], "on": runs[True]},
+    }
+
+
+def phase_telemetry_scenarios(device, seed: int) -> dict:
+    """The same seeded inputs through the port's telemetry paths on the CPU
+    and on the card: ``mesh_fold`` / ``mesh_gossip``, the dense and Map δ
+    rings (fused, layered, acked), a dense stream, one serving flush and
+    one fan-out dispatch; the card's ``to_dict`` == the CPU's on every
+    counted field (``HOST_TIMED`` left out by name)."""
+    import torch
+
+    from crdt_tpu_torch import serve, telemetry as tele
+    from crdt_tpu_torch.convert import orswot_from_numpy
+    from crdt_tpu_torch.ops.lattice import tree_map
+    from crdt_tpu_torch.parallel import (
+        VirtualMesh, iter_blocks, mesh_delta_gossip, mesh_delta_gossip_map, mesh_fanout_push,
+        mesh_fold, mesh_fold_map, mesh_gossip, mesh_stream_fold,
+    )
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    dense = fill_delta_config3(32, 600, 8, 4, 4, seed, cpu, chunk=8)[:3]
+    cfg4 = fill_delta_config4(32, 1200, 2, 4, 4, 4, seed, cpu, chunk=8)[:3]
+    fan = fanout_dispatch_case(2, seed)
+    caps = dict(n_elems=8, n_actors=4, deferred_cap=2)
+    streams = serve_streams("orswot", caps, 16, 160, seed)
+    on = lambda x, dev: tree_map(lambda t: t.to(dev), x)  # noqa: E731
+
+    def ring_case(fn, inputs, **kw):
+        return lambda dev: fn(*on(inputs, dev), VirtualMesh(4, dev), telemetry=True, **kw)[4]
+
+    def serve_case(dev):
+        sb = serve.Superblock(16, VirtualMesh(4, dev), caps=dict(caps))
+        q = serve.IngestQueue(sb, lanes=8, depth=3)
+        serve_submit(q, streams)
+        return q.drain(telemetry=True)[1]
+
+    cases = {
+        "mesh_fold": lambda dev: mesh_fold(on(dense[0], dev), VirtualMesh(4, dev),
+                                           telemetry=True)[2],
+        "mesh_gossip": lambda dev: mesh_gossip(on(dense[0], dev), VirtualMesh(4, dev),
+                                               telemetry=True)[2],
+        "mesh_fold_map": lambda dev: mesh_fold_map(on(cfg4[0], dev), VirtualMesh(4, dev),
+                                                   telemetry=True)[2],
+        "dense_ring_fused": ring_case(mesh_delta_gossip, dense, rounds=30, cap=8),
+        "dense_ring_layered": ring_case(mesh_delta_gossip, dense, rounds=30, cap=8, fused=False),
+        "dense_ring_acked": ring_case(mesh_delta_gossip, dense, rounds=30, cap=8,
+                                      ack_window=True, pipeline=False),
+        "map_ring_fused": ring_case(mesh_delta_gossip_map, cfg4, rounds=12, cap=48),
+        "map_ring_layered": ring_case(mesh_delta_gossip_map, cfg4, rounds=12, cap=48,
+                                      fused=False),
+        "map_ring_acked": ring_case(mesh_delta_gossip_map, cfg4, rounds=12, cap=48,
+                                    ack_window=True),
+        "dense_stream": lambda dev: mesh_stream_fold(iter_blocks(on(dense[0], dev), 8),
+                                                     VirtualMesh(4, dev), telemetry=True)[2],
+        "serve_flush": serve_case,
+        "fanout_dispatch": lambda dev: mesh_fanout_push(
+            orswot_from_numpy(fan[0], dev), orswot_from_numpy(fan[1], dev),
+            torch.as_tensor(fan[2]).to(dev), VirtualMesh(2, dev),
+            weights=torch.as_tensor(fan[3]).to(dev), telemetry=True)[2],
+    }
+    out = {}
+    for name, fn in cases.items():
+        got, want = tele.to_dict(fn(device)), tele.to_dict(fn(cpu))
+        diff = sorted(k for k in got if k not in HOST_TIMED and got[k] != want[k])
+        check(not diff, f"telemetry_scenarios {name}: card != CPU on {diff}")
+        out[name] = {k: got[k] for k in ("merges", "slots_changed", "bytes_exchanged",
+                                         "bytes_useful", "wire_packed_bytes",
+                                         "bytes_acked_skipped", "cohorts_per_dispatch",
+                                         "delta_push_bytes", "stream_blocks", "live_tenants")
+                     if got[k]}
+    check(out["dense_ring_fused"]["wire_packed_bytes"] > 0
+          and out["map_ring_acked"]["bytes_acked_skipped"] > 0,
+          "telemetry_scenarios: the fused and acked rings counted nothing")
+    res = {"phase": "telemetry_scenarios", "cases": out, "left_out": sorted(HOST_TIMED),
+           "phase_s": time.perf_counter() - t_phase}
+    emit(res)
+    return res
+
+
 PHASES = ("k1", "scenarios", "full_width", "k2", "map_scenarios", "full_width_map", "k3",
           "delta_scenarios", "full_width_delta", "map_delta_scenarios", "full_width_delta_map",
           "sparse_scenarios", "flagship", "elastic", "resync", "donate", "durability",
-          "serve_scenarios", "serve", "serve_zipf", "fanout_scenarios", "fanout")
+          "serve_scenarios", "serve", "serve_zipf", "fanout_scenarios", "fanout",
+          "telemetry_scenarios")
 
 
 def main(argv=None) -> int:
@@ -5266,6 +5704,8 @@ def main(argv=None) -> int:
         res["fanout_scenarios"] = phase_fanout_scenarios(device, args.seed)
     if run("fanout"):
         res["fanout"] = phase_fanout(device, args.seed)
+    if run("telemetry_scenarios"):
+        phase_telemetry_scenarios(device, args.seed)
     if only:
         print(f"chip_smoke: partial run of {only}; no kernels line", flush=True)
         return 0

@@ -26,10 +26,10 @@ Migrations are administrative: apply them identically on every host
 holding the replica set. The ring entries' elastic wrappers
 (``parallel/anti_entropy.gossip_elastic``,
 ``parallel/delta_ring.delta_gossip_elastic``) pause, migrate and rejoin.
-The JAX module's ``telemetry.span`` around widen/shrink waits for
-``telemetry.py`` (ROADMAP item 15.1), and its ``elastic_vote`` event for
-``obs`` (item 15.6); the sparse Map and nested kinds' axis tables come
-with those kinds (items 12b and 13).
+:func:`widen` runs inside the ``elastic.widen`` span (``telemetry.span``);
+the JAX module's ``elastic.shrink`` span comes with ROADMAP item 15.2,
+its ``elastic_vote`` event with ``obs`` (item 15.6); the sparse Map and
+nested kinds' axis tables come with those kinds (items 12b and 13).
 """
 
 from __future__ import annotations
@@ -189,7 +189,10 @@ def widen(model, axes: Optional[Tuple[str, ...]] = None, policy: ElasticPolicy =
     for axis in new:
         if axis not in current:
             raise ValueError(f"{kind} has no elastic axis {axis!r}")
-    model.widen_capacity(**new)
+    from .telemetry import span
+
+    with span("elastic.widen", kind=kind, axes=sorted(new)):
+        model.widen_capacity(**new)
     metrics.count("elastic.widen_events")
     metrics.count(f"elastic.widen_events.{kind}")
     metrics.count("elastic.migrated_bytes", state_nbytes(model.state))

@@ -46,10 +46,12 @@ reference's design); :attr:`FanoutPlane.seconds` times those parts.
 skips a watermark bucket (``push(_skip_versions=(0,))``) starves that
 cohort forever and MUST fail it.
 
-Left out, raising or absent: ``push(telemetry=True)`` and
-:meth:`FanoutPlane.annotate` (ROADMAP item 15.1); the trace stamps and
-flight-recorder events (15.6); the ``boundary`` hooks of the
-host-concurrency plane (16).
+``push(telemetry=True)`` puts the cycle's Telemetry on its report: the
+dispatches' (combined), plus ``resync_fallbacks`` and ``bootstrap_bytes``
+for the resynced subscribers, :meth:`FanoutPlane.annotate`d with the live
+subscriber count. Left out: the trace stamps and flight-recorder events
+(ROADMAP item 15.6); the ``boundary`` hooks of the host-concurrency plane
+(16).
 """
 
 from __future__ import annotations
@@ -60,6 +62,7 @@ from typing import Any, Dict, List, NamedTuple, Optional
 import numpy as np
 import torch
 
+from .. import telemetry as tele
 from ..convert import cohort_wire_to_numpy, leaf_from_numpy
 from ..durability import crashpoints
 from ..ops import superblock as sb_ops
@@ -92,12 +95,6 @@ _STAGE = {
 }
 
 
-def _unported_telemetry(what: str):
-    raise NotImplementedError(
-        f"{what}: telemetry (ROADMAP item 15.1) not ported yet; call without it"
-    )
-
-
 class CohortPush(NamedTuple):
     """One cohort's shipped δ payload: ``wire`` is the lane-sliced host
     :class:`~crdt_tpu_torch.ops.fanout_kernels.CohortWire` (numpy leaves,
@@ -121,8 +118,8 @@ class CohortResync(NamedTuple):
 
 
 class PushReport(NamedTuple):
-    """One push cycle's accounting. ``telemetry`` stays None: the
-    sidecar is ROADMAP item 15.1."""
+    """One push cycle's accounting; ``telemetry`` is the cycle's
+    Telemetry with ``push(telemetry=True)``, else None."""
 
     pushes: List[CohortPush]
     resyncs: List[CohortResync]
@@ -343,8 +340,6 @@ class FanoutPlane:
         ``_skip_versions`` is the broken-twin seam
         (:func:`fanout_covers_cohorts` must catch it): production callers
         never pass it."""
-        if telemetry:
-            _unported_telemetry("FanoutPlane.push")
         top = self._top
         st = self.sub_tenant[:top]
         alive = st >= 0
@@ -358,7 +353,8 @@ class FanoutPlane:
         sel = alive & (dirty[safe_t] | lag)
         ids = np.where(sel)[0]
         if len(ids) == 0:
-            return PushReport([], [], 0, 0, None)
+            tel = self.annotate(tele.zeros(self.sb.device)) if telemetry else None
+            return PushReport([], [], 0, 0, tel)
 
         # Residency + version bump for the dirty tenants being pushed
         # (lag-only tenants keep their version: their stored newest base
@@ -376,6 +372,8 @@ class FanoutPlane:
         pushes: List[CohortPush] = []
         resyncs: List[CohortResync] = []
         n_cohorts = n_subs = n_resync_subs = 0
+        resync_bytes = 0.0
+        tel = None
         chunk_cap = max(self.sb.n_lanes, 1)
         for lo in range(0, len(pushed_tenants), chunk_cap):
             chunk = pushed_tenants[lo:lo + chunk_cap]
@@ -409,16 +407,25 @@ class FanoutPlane:
                     resyncs.append(self._resync(t, target, base, members))
                     self.sub_pend[members] = target
                     n_resync_subs += len(members)
+                    resync_bytes += resyncs[-1].report.bytes_shipped * len(members)
                 else:
                     wire_cohorts.append((t, v, target, members, base))
 
-            pushes.extend(self._dispatch(wire_cohorts))
+            chunk_pushes, chunk_tel = self._dispatch(wire_cohorts, telemetry)
+            pushes.extend(chunk_pushes)
             n_cohorts += len(wire_cohorts)
             n_subs += int(sum(len(m) for *_x, m, _b in wire_cohorts))
+            if chunk_tel is not None:
+                tel = chunk_tel if tel is None else tele.combine(tel, chunk_tel)
 
         self.resyncs_total += n_resync_subs
+        if telemetry:
+            tel = tele.zeros(self.sb.device) if tel is None else tel
+            resynced = tele.fill(tele.zeros(self.sb.device), resync_fallbacks=n_resync_subs,
+                                 bootstrap_bytes=resync_bytes)
+            tel = self.annotate(tele.combine(tel, resynced))
         return PushReport(pushes=pushes, resyncs=resyncs, cohorts=n_cohorts,
-                          subscribers=n_subs + n_resync_subs, telemetry=None)
+                          subscribers=n_subs + n_resync_subs, telemetry=tel)
 
     def _resync(self, tenant: int, target: int, base, members) -> CohortResync:
         """A cohort out of the ack window: bootstrap the live row (on the
@@ -454,14 +461,16 @@ class FanoutPlane:
             out.append(x.view(view) if view is not None else x)
         return type(rows[0])(*out)
 
-    def _dispatch(self, cohorts) -> List[CohortPush]:
+    def _dispatch(self, cohorts, telemetry: bool = False):
         """Pack wire cohorts into ``dispatch_lanes``-wide
         ``mesh_fanout_push`` calls: each cohort lands in the lane block of
         the virtual rank owning its tenant's superblock lane (the
-        serve_apply index convention)."""
+        serve_apply index convention). Returns the pushes and the
+        dispatches' combined Telemetry (None without ``telemetry``)."""
         pushes: List[CohortPush] = []
+        tel = None
         if not cohorts:
-            return pushes
+            return pushes, tel
         lpr_disp = self.dispatch_lanes // self.p
         per_rank: List[List[tuple]] = [[] for _ in range(self.p)]
         for co in cohorts:
@@ -478,6 +487,7 @@ class FanoutPlane:
         for dnum in range(n_disp):
             t0 = time.perf_counter()
             idx = np.full(self.dispatch_lanes, -1, np.int32)
+            wts = np.zeros(self.dispatch_lanes, np.float32)
             rows = [empty] * self.dispatch_lanes
             slots: List[tuple] = []
             for r in range(self.p):
@@ -485,13 +495,20 @@ class FanoutPlane:
                 for j, (lane, (t, v, target, members, base)) in enumerate(chunk):
                     dl = r * lpr_disp + j
                     idx[dl] = lane % self.sb.lanes_per_rank
+                    wts[dl] = len(members)
                     rows[dl] = base
                     slots.append((dl, t, v, target, members))
             bases_dev = self._stage(rows)
             idx_dev = torch.as_tensor(idx).to(self.sb.device, non_blocking=True)
             t1 = time.perf_counter()
-            out, _pb = mesh_fanout_push(self.sb.state, bases_dev, idx_dev, self.mesh,
-                                        kind=self.kind)
+            if telemetry:
+                out, _pb, t_disp = mesh_fanout_push(
+                    self.sb.state, bases_dev, idx_dev, self.mesh, kind=self.kind,
+                    weights=torch.from_numpy(wts).to(self.sb.device), telemetry=True)
+                tel = t_disp if tel is None else tele.combine(tel, t_disp)
+            else:
+                out, _pb = mesh_fanout_push(self.sb.state, bases_dev, idx_dev, self.mesh,
+                                            kind=self.kind)
             t2 = time.perf_counter()
             wire = cohort_wire_to_numpy(out)
             t3 = time.perf_counter()
@@ -505,13 +522,15 @@ class FanoutPlane:
             sec["read_back"] += t3 - t2
             sec["slice"] += t4 - t3
             self.dispatches += 1
-        return pushes
+        return pushes, tel
 
     # ---- telemetry -------------------------------------------------------
     def annotate(self, tel):
-        """Fill the host-owned fan-out gauge on a Telemetry record — the
-        telemetry sidecar is ROADMAP item 15.1."""
-        _unported_telemetry("FanoutPlane.annotate")
+        """Fill the host-owned fan-out gauge: ``subscribers_live`` = the
+        registered population the plane answers for."""
+        if not tele.is_concrete(tel):
+            return tel
+        return tele.fill(tel, subscribers_live=self.n_live)
 
 
 def fanout_covers_cohorts(push_fn, device="cuda") -> bool:

@@ -205,13 +205,15 @@ class BatchedOrswot:
         states, the plain log2 tree for CPU states (bit-identical either
         way; ops/fold_kernels.py ``fold_auto``)."""
         from ..ops.fold_kernels import fold_auto
+        from ..telemetry import span
 
         metrics.count("orswot.merges", max(self.n_replicas - 1, 0))
         metrics.observe(
             "orswot.deferred_depth",
             float(self.state.dvalid.sum()) / max(self.n_replicas, 1),
         )
-        folded, overflow = fold_auto(self.state)
+        with span("model.orswot.fold", replicas=self.n_replicas):
+            folded, overflow = fold_auto(self.state)
         if bool(overflow):
             raise DeferredOverflow(
                 f"fold: deferred buffer full (cap {self.state.dvalid.shape[-1]})"

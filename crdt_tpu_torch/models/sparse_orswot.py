@@ -237,12 +237,15 @@ class BatchedSparseOrswot:
         """Full-mesh anti-entropy: join all replicas (the log-tree fold of
         ``ops.sparse_orswot.fold``) and return the converged oracle-form
         state."""
+        from ..telemetry import span
+
         metrics.count("sparse_orswot.merges", max(self.n_replicas - 1, 0))
         metrics.observe(
             "sparse_orswot.deferred_depth",
             float(self.state.dvalid.sum()) / max(self.n_replicas, 1),
         )
-        folded, flags = ops.fold(self.state)
+        with span("model.sparse_orswot.fold", replicas=self.n_replicas):
+            folded, flags = ops.fold(self.state)
         self._check(flags, "fold")
         return self._pure_of(folded)
 

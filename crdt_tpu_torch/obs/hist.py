@@ -40,14 +40,23 @@ class Hist(NamedTuple):
     total: torch.Tensor   # float32 — sum of observed values
 
 
-def zeros(device="cuda") -> Hist:
-    """The accumulation identity."""
-    return Hist(counts=_zeros((NBUCKETS,), torch.uint32, device),
-                total=torch.zeros((), dtype=torch.float32, device=device))
+def zeros(device="cuda", batch=()) -> Hist:
+    """The accumulation identity; ``batch`` leading axes hold one
+    histogram per lane (a ring's per-rank histograms, ``[P]``)."""
+    return Hist(counts=_zeros((*batch, NBUCKETS), torch.uint32, device),
+                total=torch.zeros(batch, dtype=torch.float32, device=device))
+
+
+_EDGES_ON: Dict[Any, torch.Tensor] = {}
 
 
 def _edges(device) -> torch.Tensor:
-    return torch.tensor(EDGES, dtype=torch.float32, device=device)
+    """The edge vector on ``device``, copied there once: later
+    observations wait for no host copy (a ring observes every round)."""
+    edges = _EDGES_ON.get(device)
+    if edges is None:
+        edges = _EDGES_ON[device] = torch.tensor(EDGES, dtype=torch.float32, device=device)
+    return edges
 
 
 def _values(value, device) -> torch.Tensor:
@@ -77,6 +86,21 @@ def observe_vec(h: Hist, values, mask=None) -> Hist:
     counts = to_wide(h.counts).index_add(0, bucket_index(v), m.to(torch.int64))
     return Hist(counts=from_wide(counts, torch.uint32),
                 total=h.total + torch.sum(torch.where(m, v, 0.0)))
+
+
+def observe_lanes(h: Hist, values) -> Hist:
+    """Count one observation per lane of a batched histogram (``values``
+    shaped like ``h.total``): each lane's own ``observe``, in one
+    scatter-add. ``h.counts`` may be an int64 plane (a loop that observes
+    every round keeps its counts wide and narrows them once at the end);
+    the result keeps its dtype."""
+    dev = h.counts.device
+    v = torch.clamp_min(_values(values, dev), 0.0)
+    idx = bucket_index(v)[..., None]
+    if h.counts.dtype == torch.int64:
+        return Hist(counts=h.counts.scatter_add(-1, idx, torch.ones_like(idx)), total=h.total + v)
+    counts = to_wide(h.counts).scatter_add(-1, idx, torch.ones_like(idx))
+    return Hist(counts=from_wide(counts, torch.uint32), total=h.total + v)
 
 
 def merge(a: Hist, b: Hist) -> Hist:
@@ -148,5 +172,5 @@ def summary(d: Dict[str, Any]) -> Dict[str, float]:
 
 __all__ = [
     "EDGES", "Hist", "NBUCKETS", "bucket_index", "is_hist_field", "merge", "observe",
-    "observe_vec", "psum", "quantile", "summary", "to_dict", "zeros",
+    "observe_lanes", "observe_vec", "psum", "quantile", "summary", "to_dict", "zeros",
 ]

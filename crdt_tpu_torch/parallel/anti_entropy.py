@@ -21,18 +21,30 @@ tensors and returned in them: one copy of the state outlives the call.
 Any other batch counts ``anti_entropy.donate_unaliasable``. A fold entry
 reduces the replica axis away, so no output can take the input's place.
 Every input the outputs do not live in is freed after the run
-(:func:`_consume`). The JAX entries' ``telemetry=`` (ROADMAP item 15),
-``stability=`` and ``lag_threshold=`` (15.2) and ``faults=`` (15.4) modes
-are still to port and raise, naming their items.
+(:func:`_consume`).
+
+``telemetry=True`` returns the JAX entries' :class:`~crdt_tpu_torch.telemetry.Telemetry`
+as the third element of the tuple: ``merges`` counts the JAX package's
+joins (each rank's ``R/P - 1`` local-fold joins plus log2(P) or P-1
+exchange joins for an all-reduce, plus one per ring round), whatever the
+port's ``collectives`` run inside; ``slots_changed`` the kind's changed
+lanes (``changed_members``, ``changed_keys``, ``changed_dots``);
+``bytes_exchanged`` one rank's shipped state per exchange, over all
+ranks. The mesh has no element axis, so the JAX sums over
+``(REPLICA_AXIS, ELEMENT_AXIS)`` are sums over the P ranks. The
+``stability=`` and ``lag_threshold=`` (ROADMAP item 15.2) and ``faults=``
+(15.4) modes are still to port and raise, naming their items.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Optional, Tuple
 
 import torch
 
-from .._dtypes import bits
+from .. import telemetry as tele
+from .._dtypes import bits, to_wide
 from ..utils.metrics import metrics
 from ..ops import map as map_ops
 from ..ops import orswot as ops
@@ -47,7 +59,7 @@ from .mesh import VirtualMesh, pad_replicas, pad_replicas_map, pad_replicas_spar
 
 
 # The ROADMAP item that ports each mode of the JAX entries still missing.
-_UNPORTED = {"telemetry": "15", "frontier": "15", "compact_every": "15", "stability": "15.2",
+_UNPORTED = {"frontier": "15.2", "compact_every": "15.2", "stability": "15.2",
              "lag_threshold": "15.2", "reclaim": "15.2", "widen_policy": "15.3",
              "faults": "15.4"}
 
@@ -58,6 +70,52 @@ def _refuse(fn: str, **modes) -> None:
     on = [f"{name}= (ROADMAP item {_UNPORTED[name]})" for name, value in modes.items() if value]
     if on:
         raise NotImplementedError(f"{fn}: {', '.join(on)} not ported yet; call without it")
+
+
+def _exchange_count(p: int) -> int:
+    """The JAX all-reduce's exchanges per rank: log2(P) recursive-doubling
+    hops on a power-of-two axis, P-1 shards otherwise (the telemetry's
+    merge and byte count, whatever the port's all-reduce runs)."""
+    if p <= 1:
+        return 0
+    if p & (p - 1) == 0:
+        return p.bit_length() - 1
+    return p - 1
+
+
+def _tel_reduced(folded, slots, merges_per_rank: int, bytes_per_rank, p: int, residue=None,
+                 useful_per_rank=None) -> tele.Telemetry:
+    """The JAX ``_tel_reduced`` on the virtual mesh: ``slots`` (0-d,
+    already summed over the ranks), ``merges`` P times the per-rank count,
+    the wire bytes (a Python count, the same on every rank, or a ``[P]``
+    float32 tensor) summed over the ranks, the gauges of ``folded`` (the
+    ``[P, ...]`` rank rows) maxed. ``useful_per_rank`` None = no mask,
+    wire == useful."""
+    dev = slots.device
+
+    def per_rank(x):
+        if isinstance(x, torch.Tensor):
+            return x
+        return torch.full((p,), float(x), dtype=torch.float32, device=dev)
+
+    wire = per_rank(bytes_per_rank).sum()
+    return tele.fill(
+        tele.zeros(dev), merges=p * merges_per_rank, slots_changed=slots,
+        deferred_depth=tele.device_depth(folded), bytes_exchanged=wire,
+        bytes_useful=wire if useful_per_rank is None else per_rank(useful_per_rank).sum(),
+        residue=0 if residue is None else residue, widen_pressure=tele.device_pressure(folded),
+    )
+
+
+def _fold_tel(kind: str, folded, joined, blocks, slots_fn, p: int, t0: float):
+    """The telemetry of an all-reduce fold entry (JAX ``mesh_fold`` /
+    ``_mesh_fold_lattice``): the kind's changed lanes between each rank's
+    local fold and the joined state, recorded under ``kind``."""
+    n_ex = _exchange_count(p)
+    rl = tree_leaves(blocks)[0].shape[1]
+    tel = _tel_reduced(joined, slots_fn(folded, joined), max(rl - 1, 0) + n_ex,
+                       tele.shipped_bytes(folded, batch_dims=1) * n_ex, p)
+    return tele.finish_dispatch(kind, tel, t0)
 
 
 def _donation(state, mesh: VirtualMesh, donate: bool) -> bool:
@@ -170,14 +228,19 @@ def mesh_fold(
     """Full-mesh anti-entropy: every replica's state joined into one
     converged state — each rank folds its block, then one lattice-join
     all-reduce over the ranks, on ``mesh.device``. Returns ``(converged
-    state, overflow)``."""
-    _refuse("mesh_fold", telemetry=telemetry)
-    folded, of_local = local_folds(rank_blocks(state, mesh), _fold_fn(local_fold))
+    state, overflow)``, with the Telemetry third when ``telemetry=True``."""
+    t0 = time.perf_counter()
+    blocks = rank_blocks(state, mesh)
+    folded, of_local = local_folds(blocks, _fold_fn(local_fold))
     joined, of_cross = all_reduce_join(folded)
     out = tree_map(lambda x: x[0], joined)
     if donate:
         _consume(state, keep=out)
-    return out, torch.any(of_local) | of_cross
+    of = torch.any(of_local) | of_cross
+    if telemetry:
+        return out, of, _fold_tel("orswot_fold", folded, joined, blocks, ops.changed_members,
+                                  mesh.p, t0)
+    return out, of
 
 
 def mesh_gossip(
@@ -195,24 +258,40 @@ def mesh_gossip(
     (default P-1) unit-shift ring rounds, each shipping one state per
     link. Returns ``(states [P, ...], overflow)``; with P-1 rounds every
     row is the full join. ``donate=True``: see the module docstring."""
-    _refuse("mesh_gossip", telemetry=telemetry, stability=stability,
-            faults=faults is not None, lag_threshold=lag_threshold is not None)
-    return _gossip(state, mesh, rounds, donate, _fold_fn(local_fold), ops.join)
+    _refuse("mesh_gossip", stability=stability, faults=faults is not None,
+            lag_threshold=lag_threshold is not None)
+    return _gossip("orswot_gossip", state, mesh, rounds, donate, _fold_fn(local_fold), ops.join,
+                   telemetry, ops.changed_members)
 
 
-def _gossip(state, mesh: VirtualMesh, rounds: Optional[int], donate: bool, fold_fn, join_fn):
+def _gossip(kind: str, state, mesh: VirtualMesh, rounds: Optional[int], donate: bool, fold_fn,
+            join_fn, telemetry: bool = False, slots_fn=None):
     """The ring scaffold of the ``mesh_gossip*`` entries: each rank folds
     its block, then ``rounds`` (default P-1) unit-shift ring rounds.
     Returns ``(states [P, ...], overflow)`` with the flags OR-reduced over
-    the ranks."""
+    the ranks; ``telemetry=True`` adds the Telemetry (``slots_fn``'s
+    changed lanes summed over the rounds)."""
+    t0 = time.perf_counter()
     aliasable = _donation(state, mesh, donate)
     if rounds is None:
         rounds = mesh.p - 1
-    folded, of = local_folds(rank_blocks(state, mesh), fold_fn)
+    blocks = rank_blocks(state, mesh)
+    folded, of = local_folds(blocks, fold_fn)
+    slots = 0
     for _ in range(rounds):
-        folded, of_r = ring_round(folded, reduce_overflow=False, join_fn=join_fn)
-        of = of | of_r
-    return _donate_ring(donate, aliasable, state, folded), torch.any(of, dim=0)
+        new, of_r = ring_round(folded, reduce_overflow=False, join_fn=join_fn)
+        if telemetry:
+            slots = slots + to_wide(slots_fn(folded, new))
+        folded, of = new, of | of_r
+    if telemetry:
+        rl = tree_leaves(blocks)[0].shape[1]
+        slots = tele.scalar("slots_changed", slots, mesh.device)
+        tel = _tel_reduced(folded, slots, max(rl - 1, 0) + rounds,
+                           tele.shipped_bytes(folded, batch_dims=1) * rounds, mesh.p)
+    out = _donate_ring(donate, aliasable, state, folded), torch.any(of, dim=0)
+    if telemetry:
+        return (*out, tele.finish_dispatch(kind, tel, t0))
+    return out
 
 
 def mesh_fold_map(
@@ -222,14 +301,20 @@ def mesh_fold_map(
     rank folds its block (``ops.map.fold``: K2 and its epilogue on a
     card), then one lattice-join all-reduce over the ranks, on
     ``mesh.device``. Returns ``(converged state, overflow [2])`` —
-    [sibling slab, deferred buffer] as in ``ops.map.join``."""
-    _refuse("mesh_fold_map", telemetry=telemetry)
-    folded, of_local = local_folds(rank_blocks(state, mesh), map_ops.fold)
+    [sibling slab, deferred buffer] as in ``ops.map.join``; the Telemetry
+    third with ``telemetry=True``."""
+    t0 = time.perf_counter()
+    blocks = rank_blocks(state, mesh)
+    folded, of_local = local_folds(blocks, map_ops.fold)
     joined, of_cross = all_reduce_lattice(folded, map_ops.join, map_ops.fold)
     out = tree_map(lambda x: x[0], joined)
     if donate:
         _consume(state, keep=out)
-    return out, torch.any(of_local, dim=0) | of_cross
+    of = torch.any(of_local, dim=0) | of_cross
+    if telemetry:
+        return out, of, _fold_tel("map_fold", folded, joined, blocks, map_ops.changed_keys,
+                                  mesh.p, t0)
+    return out, of
 
 
 def mesh_gossip_map(
@@ -246,9 +331,10 @@ def mesh_gossip_map(
     then ``rounds`` (default P-1) unit-shift ring rounds, each shipping
     one state per link. Returns ``(states [P, ...], overflow [2])``; with
     P-1 rounds every row is the full join."""
-    _refuse("mesh_gossip_map", telemetry=telemetry, stability=stability,
-            faults=faults is not None, lag_threshold=lag_threshold is not None)
-    return _gossip(state, mesh, rounds, donate, map_ops.fold, map_ops.join)
+    _refuse("mesh_gossip_map", stability=stability, faults=faults is not None,
+            lag_threshold=lag_threshold is not None)
+    return _gossip("map_gossip", state, mesh, rounds, donate, map_ops.fold, map_ops.join,
+                   telemetry, map_ops.changed_keys)
 
 
 def mesh_fold_sparse(
@@ -260,14 +346,20 @@ def mesh_fold_sparse(
     is 1): each rank folds its block (one batched log tree, see
     :func:`local_folds`), then one lattice-join all-reduce over the ranks,
     on ``mesh.device``. Returns ``(converged state, overflow [2])`` —
-    [dot capacity, deferred capacity]."""
-    _refuse("mesh_fold_sparse", telemetry=telemetry)
-    folded, of_local = local_folds(rank_blocks(states, mesh), sp.fold)
+    [dot capacity, deferred capacity]; the Telemetry third with
+    ``telemetry=True``."""
+    t0 = time.perf_counter()
+    blocks = rank_blocks(states, mesh)
+    folded, of_local = local_folds(blocks, sp.fold)
     joined, of_cross = all_reduce_lattice(folded, sp.join, sp.fold)
     out = tree_map(lambda x: x[0], joined)
     if donate:
         _consume(states, keep=out)
-    return out, torch.any(of_local, dim=0) | of_cross
+    of = torch.any(of_local, dim=0) | of_cross
+    if telemetry:
+        return out, of, _fold_tel("sparse_orswot_fold", folded, joined, blocks, sp.changed_dots,
+                                  mesh.p, t0)
+    return out, of
 
 
 def mesh_gossip_sparse(
@@ -286,9 +378,10 @@ def mesh_gossip_sparse(
     ring rounds of ``ops.sparse_orswot.join``, one segment table per link
     per round (traffic proportional to live dots, not the universe).
     Returns ``(states [P, ...], overflow [2])``."""
-    _refuse("mesh_gossip_sparse", telemetry=telemetry, stability=stability,
-            faults=faults is not None, lag_threshold=lag_threshold is not None)
-    return _gossip(states, mesh, rounds, donate, sp.fold, sp.join)
+    _refuse("mesh_gossip_sparse", stability=stability, faults=faults is not None,
+            lag_threshold=lag_threshold is not None)
+    return _gossip("sparse_gossip", states, mesh, rounds, donate, sp.fold, sp.join, telemetry,
+                   sp.changed_dots)
 
 
 def gossip_elastic(model, mesh: VirtualMesh, rounds: Optional[int] = None, policy=None,
@@ -309,16 +402,18 @@ def gossip_elastic(model, mesh: VirtualMesh, rounds: Optional[int] = None, polic
     lanes). ``donate=True`` donates each attempt's state into the ring and
     restores ``model.state`` from a pre-round copy afterwards (a failed
     attempt needs the pre-round state). Returns ``(rows, widened)``: the
-    ``[P, ...]`` rows and the axes grown (empty when capacity sufficed).
-    ``telemetry=`` (ROADMAP item 15), ``stability=``, ``lag_threshold=``
-    and ``reclaim=`` (item 15.2) and ``faults=`` (item 15.4) raise."""
+    ``[P, ...]`` rows and the axes grown (empty when capacity sufficed);
+    ``telemetry=True`` appends a Telemetry folded across every attempt
+    (``telemetry.combine``: a discarded attempt's counters were real work
+    and count, the gauges are the last attempt's). ``stability=``,
+    ``lag_threshold=`` and ``reclaim=`` (item 15.2) and ``faults=`` (item
+    15.4) raise."""
     from .. import elastic
     from ..models.map import BatchedMap
     from ..models.orswot import BatchedOrswot
     from ..models.sparse_orswot import BatchedSparseOrswot
-    _refuse("gossip_elastic", telemetry=telemetry, stability=stability,
-            lag_threshold=lag_threshold is not None, reclaim=reclaim is not None,
-            faults=faults is not None)
+    _refuse("gossip_elastic", stability=stability, lag_threshold=lag_threshold is not None,
+            reclaim=reclaim is not None, faults=faults is not None)
     policy = policy or elastic.DEFAULT_POLICY
     plans = ((BatchedOrswot, mesh_gossip, ("deferred_cap",)),
              (BatchedSparseOrswot, mesh_gossip_sparse, ("dot_cap", "deferred_cap")),
@@ -331,16 +426,20 @@ def gossip_elastic(model, mesh: VirtualMesh, rounds: Optional[int] = None, polic
     run, lanes = plan
     widened: dict = {}
     migrations = 0
+    tel = None
     while True:
         if donate:
             snap = tree_map(torch.clone, model.state)
-        rows, flags = run(model.state, mesh, rounds, donate=donate)
+        out = run(model.state, mesh, rounds, donate=donate, telemetry=telemetry)
+        rows, flags = out[:2]
+        if telemetry:
+            tel = out[2] if tel is None else tele.combine(tel, out[2])
         if donate:
             model.state = snap
         flags = torch.atleast_1d(flags).tolist()
         hot = tuple(axis for lane, axis in enumerate(lanes) if flags[lane])
         if not hot:
-            return rows, widened
+            return (rows, widened, tel) if telemetry else (rows, widened)
         if migrations >= policy.max_migrations:
             raise RuntimeError(
                 f"gossip still overflowing after {migrations} migrations (axes grown: "

@@ -38,6 +38,7 @@ from ..ops.orswot import (
     _apply_parked,
     _compact_deferred,
     _dedupe_deferred,
+    changed_members,
 )
 from .mesh import VirtualMesh
 
@@ -227,8 +228,9 @@ def mesh_delta_gossip(
     tensors. ``wal=`` (a ``durability.Wal``) logs the run's converged rows
     as one δ record of kind ``orswot`` + a round barrier. ``stats``, when a
     dict, receives the run's counts (``delta_ring.run_delta_ring``
-    documents the modes and the counts). ``telemetry=`` (ROADMAP item 15)
-    and ``faults=`` (item 15.4) are still to port and raise.
+    documents the modes and the counts). ``telemetry=True`` appends the
+    run's Telemetry (slots counted by ``ops.orswot.changed_members``);
+    ``faults=`` (item 15.4) is still to port and raises.
 
     Returns ``(states [P, ...], dirty [P, E], overflow, residue)``."""
     from ..ops.fold_kernels import fold_auto
@@ -240,7 +242,7 @@ def mesh_delta_gossip(
         extract=extract_delta, apply_fn=apply_delta, close_top=close_top_orswot,
         telemetry=telemetry, pipeline=pipeline, digest=digest, gate=gate_delta,
         donate=donate, faults=faults, ack_window=ack_window, wal=wal, wal_kind="orswot",
-        fused=fused, stats=stats,
+        fused=fused, stats=stats, slots_fn=changed_members,
     )
 
 

@@ -277,9 +277,10 @@ def mesh_delta_gossip_map(
     ``delta.mesh_delta_gossip`` for the modes, the ROUNDS BUDGET and
     ``stats``, ``ack_window=`` (the Map ring ships removal-carrying
     slots, which only the ack window can mask), ``donate=`` and ``wal=``
-    (δ records of kind ``map``); ``telemetry=`` (ROADMAP item 15) and
-    ``faults=`` (item 15.4) are still to port and raise. Returns
-    ``(states [P, ...], dirty [P, K], overflow [2], residue)``."""
+    (δ records of kind ``map``); ``telemetry=True`` appends the run's
+    Telemetry (slots counted by ``ops.map.changed_keys``); ``faults=``
+    (item 15.4) is still to port and raises. Returns ``(states [P, ...],
+    dirty [P, K], overflow [2], residue)``."""
     from .delta_ring import run_delta_ring
 
     return run_delta_ring(
@@ -288,7 +289,7 @@ def mesh_delta_gossip_map(
         extract=extract_delta_map, apply_fn=apply_delta_map, close_top=close_top_map,
         telemetry=telemetry, pipeline=pipeline, digest=digest, gate=gate_delta_map,
         donate=donate, faults=faults, ack_window=ack_window, wal=wal, wal_kind="map",
-        fused=fused, stats=stats, template=packet_template_map,
+        fused=fused, stats=stats, template=packet_template_map, slots_fn=map_ops.changed_keys,
     )
 
 

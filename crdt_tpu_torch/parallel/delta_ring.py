@@ -54,25 +54,37 @@ Modes ported (the JAX module docstring gives their soundness):
   (``Wal.mark_round``, the ``on_round`` policy's one fsync). A crash then
   recovers to the last durable run through ``durability.recover``.
 
+- ``telemetry=True`` — the in-loop sidecar (:class:`RingTelemetry`): per
+  round, each rank's wire bytes, post-mask useful bytes and (fused) K3's
+  nonzero-word count ×4 accumulate in float32, its backlog, useful bytes,
+  packed bytes and ack-window depth are observed into per-rank
+  histograms, and the kind's changed slots add up; all on the device,
+  summed over the ranks once after the ring (the JAX ring's ``psum`` of
+  its per-device carries). The Telemetry comes back as a fifth output.
+
 The residue certificate, the overflow OR, the narrow-lost parked count and
-the guarded top adoption follow the JAX ring exactly. ``telemetry=``
-(ROADMAP item 15) and ``faults=`` with its delay mode (item 15.4) are
-still to port and raise, naming their items.
+the guarded top adoption follow the JAX ring exactly. ``faults=`` with its
+delay mode (item 15.4) is still to port and raises, naming its item.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Callable, Optional
 
 import torch
 
-from .._dtypes import bits, umax
+from .. import telemetry as tele
+from .._dtypes import bits, from_wide, to_wide, umax
 from ..delta_opt import ackwin as _ackwin
+from ..obs import hist as _hist
 from ..ops import wire_kernels as _wk
 from ..ops.lattice import tree_map
 from ..utils.metrics import metrics
 from . import wire as _wire
-from .anti_entropy import _consume, _donation, _refuse, _write_back, local_folds, rank_blocks
+from .anti_entropy import (
+    _consume, _donation, _refuse, _tel_reduced, _write_back, local_folds, rank_blocks,
+)
 from .collectives import pmax, ppermute, psum
 from .delta import DeltaPacket
 from .mesh import VirtualMesh
@@ -101,6 +113,88 @@ def _nbytes(tree) -> int:
     return sum(_nbytes(x) for x in tree)
 
 
+class RingTelemetry:
+    """The δ ring's in-loop sidecar, the JAX ring's telemetry carry: per
+    rank (``[P]``) float32 wire, useful and packed byte counters and
+    histograms, plus the changed-slot count, all device tensors. A round
+    calls :meth:`begin`, :meth:`sent`, :meth:`acked` (ack window only),
+    :meth:`applied` and :meth:`end`, in the JAX body's order, so each
+    float32 sum runs in the JAX order; :meth:`telemetry` reduces over the
+    ranks once, after the ring. The histograms count in int64 while the
+    ring runs (one scatter-add an observation) and narrow to the u32
+    planes at the end."""
+
+    def __init__(self, p: int, device, slots_fn: Callable, slot_price: float = 0.0):
+        f32 = lambda: torch.zeros((p,), dtype=torch.float32, device=device)  # noqa: E731
+        h = lambda: _hist.Hist(torch.zeros((p, _hist.NBUCKETS), dtype=torch.int64,  # noqa: E731
+                                           device=device), f32())
+        self.p, self.slots_fn, self.slot_price = p, slots_fn, slot_price
+        self.slots = torch.zeros((), dtype=torch.int64, device=device)
+        self.shipped, self.useful, self.packed, self.skip = f32(), f32(), f32(), f32()
+        self.hresid, self.huseful, self.hpacked, self.hack = h(), h(), h(), h()
+        self._u0 = self._w0 = None
+        _hist.bucket_index(torch.zeros((), device=device))  # the edges' one copy, before a round
+
+    def begin(self) -> None:
+        self._u0, self._w0 = self.useful, self.packed
+
+    def sent(self, backlog, wire_bytes: int, useful, packed_words=None, covered=None) -> None:
+        """One round's packet on the wire: the backlog after the extract
+        (``[P]``), one link's static wire bytes, each rank's useful bytes,
+        and (fused) K3's nonzero-word counts; ``covered`` the slots the
+        ack window masked."""
+        self.hresid = _hist.observe_lanes(self.hresid, backlog)
+        if covered is not None:
+            self.skip = self.skip + covered.sum(dim=-1, dtype=torch.float32) * self.slot_price
+        self.shipped = self.shipped + float(wire_bytes)
+        self.useful = self.useful + useful
+        if packed_words is not None:
+            self.packed = self.packed + 4.0 * to_wide(packed_words).to(torch.float32)
+
+    def acked(self, ack_bytes: int, words, depth) -> None:
+        """The ack lane of one round: its static bytes per link, the
+        received ack words (fused: their nonzero words go on the packed
+        count; None on the layered wire) and each rank's window depth."""
+        self.shipped = self.shipped + float(ack_bytes)
+        self.useful = self.useful + float(ack_bytes)
+        if words is not None:
+            self.packed = self.packed + 4.0 * (bits(words) != 0).sum(dim=-1).to(torch.float32)
+        self.hack = _hist.observe_lanes(self.hack, depth)
+
+    def applied(self, before, after) -> None:
+        self.slots = self.slots + to_wide(self.slots_fn(before, after))
+
+    def end(self, fused: bool) -> None:
+        self.huseful = _hist.observe_lanes(self.huseful, self.useful - self._u0)
+        if fused:
+            self.hpacked = _hist.observe_lanes(self.hpacked, self.packed - self._w0)
+
+    def digest(self, dig_bytes: int) -> None:
+        """The digest exchange rides the wire once."""
+        self.shipped = self.shipped + float(dig_bytes)
+        self.useful = self.useful + float(dig_bytes)
+
+    def telemetry(self, folded, merges_per_rank: int, residue, fused: bool, awin=None):
+        """The mesh-wide Telemetry of the run (``folded``: the closed
+        ``[P, ...]`` rows)."""
+        tel = _tel_reduced(folded, tele.scalar("slots_changed", self.slots, self.slots.device),
+                           merges_per_rank, self.shipped, self.p, residue=residue,
+                           useful_per_rank=self.useful)
+        psum = lambda h: _hist.psum(h._replace(  # noqa: E731
+            counts=from_wide(h.counts, torch.uint32)))
+        tel = tel._replace(hist_residue=psum(self.hresid), hist_useful_bytes=psum(self.huseful))
+        if fused:
+            tel = tel._replace(wire_packed_bytes=self.packed.sum(),
+                               hist_packed_bytes=psum(self.hpacked))
+        if awin is not None:
+            tel = tel._replace(
+                bytes_acked_skipped=self.skip.sum(),
+                ack_window_depth=tele.scalar("ack_window_depth",
+                                             _ackwin.window_depth(awin).max(), self.slots.device),
+                hist_ack_depth=psum(self.hack))
+        return tel
+
+
 def run_delta_ring(
     kind: str,
     state,
@@ -125,6 +219,7 @@ def run_delta_ring(
     fused: bool = True,
     stats: Optional[dict] = None,
     template: Callable = _packet_template,  # (folded [P, ...], cap, fctx dtype) -> packet
+    slots_fn: Optional[Callable] = None,    # (before, after) -> u32 changed lanes
 ):
     """Run the δ ring; returns ``(states [P, ...], dirty [P, E], overflow,
     residue)``. ``residue`` is the mesh-wide count of slot-starved
@@ -141,8 +236,14 @@ def run_delta_ring(
     with ``ack_window=``, ``slots_acked_skipped`` (slots the window
     masked, all links and rounds; times ``ackwin.slot_bytes`` it is the
     JAX ring's ``bytes_acked_skipped``) and ``ack_bytes`` (one link's ack
-    lane per round). The counts stay on the device until this read."""
-    _refuse("run_delta_ring", telemetry=telemetry, faults=faults is not None)
+    lane per round). The counts stay on the device until this read.
+
+    ``telemetry=True`` appends the run's Telemetry as a fifth output
+    (:class:`RingTelemetry`; ``slots_fn`` counts a round's changed
+    lanes, ``telemetry.generic_slots_changed`` by default), recorded under
+    ``kind``."""
+    _refuse("run_delta_ring", faults=faults is not None)
+    t0 = time.perf_counter()
     if wal is not None and wal_kind is None:
         raise ValueError("wal= needs wal_kind= (the merge kind δ records decompose under)")
     if fused and kind not in _wire.WIRE_SURFACES:
@@ -189,6 +290,8 @@ def run_delta_ring(
               "skipped": torch.zeros((), dtype=torch.int64, device=mesh.device)}
     tmpl = template(folded, cap, fctx.dtype)
     n_rows = d.shape[-1]
+    rt = RingTelemetry(p, mesh.device, slots_fn or tele.generic_slots_changed,
+                       _ackwin.slot_bytes(tmpl) if acked else 0.0) if telemetry else None
     if acked:
         awin = _ackwin.init_window(tmpl, n_rows, batch=(p,), device=mesh.device)
     if fused:
@@ -205,12 +308,14 @@ def run_delta_ring(
             if acked:
                 counts["skipped"] += aux.covered.sum()
             sent = codec.mask(pkt, aux.keep) if acked else None
-            return ppermute(wired, perm), aux, sent
+            useful = codec.useful_bytes(pkt, aux.keep) if telemetry else None
+            return ppermute(wired, perm), aux, sent, useful, aux.covered if acked else None
 
         def receive(wired, st, mirror):
             return codec.unpack(wired, own_top=st.top if gated else None, mirror_ctx=mirror)
     else:
         def send(pkt, aw):
+            covered = None
             if gated:
                 pkt = gate(pkt, rtop)
             if aw is not None:
@@ -219,7 +324,10 @@ def run_delta_ring(
                 pkt, covered = _ackwin.gate_window(pkt, aw)
                 counts["skipped"] += covered.sum()
             counts["shipped"] += pkt.valid.sum()
-            return ppermute(pkt, perm), None, pkt
+            wired = ppermute(pkt, perm)
+            # The JAX layered ring prices the packet each rank receives.
+            useful = tele.packet_useful_bytes(wired, batch_dims=1) if telemetry else None
+            return wired, None, pkt, useful, covered
 
         def receive(wired, st, mirror):
             return wired
@@ -229,6 +337,7 @@ def run_delta_ring(
         inverse hop (a u32 bitmap on the fused wire) and promote the
         sender's own shipped copy into its window."""
         acks = _ackwin.ack_bits(rcvd)
+        words = None
         if fused:
             words = ppermute(_wk.pack_bits(acks), inv_perm)
             counts.setdefault("ack_bytes", _nbytes(words))
@@ -237,18 +346,23 @@ def run_delta_ring(
             acks = ppermute(acks, inv_perm)
             counts.setdefault("ack_bytes", _nbytes(acks))
         _ackwin.update_window(awin, sent, acks)
+        if telemetry:
+            rt.acked(counts["ack_bytes"], words, _ackwin.window_depth(awin))
 
     def out_step(pkt, d, aw):
         """Put one extracted packet on the wire: re-mark its deferred
         slots (fused) before the backlog count. Returns the wire, the
         tracking, the parked loss and the sender's shipped copy."""
-        wired, aux, sent = send(pkt, aw)
+        wired, aux, sent, useful, covered = send(pkt, aw)
         if "packet_bytes" not in counts:
             counts["packet_bytes"], counts["wire_bytes"] = _nbytes(pkt), _nbytes(wired)
         lost = torch.zeros((p,), dtype=torch.int32, device=mesh.device)
         if fused:
             d = _wire.remark_deferred(d, _wire.core_idx(pkt), aux.defer)
             lost = aux.parked_lost
+        if telemetry:
+            rt.sent(d.sum(dim=-1), _nbytes(wired), useful,
+                    packed_words=aux.packed_words if fused else None, covered=covered)
         return wired, d, lost, sent
 
     starved = torch.zeros((p,), dtype=torch.int64, device=mesh.device)
@@ -257,8 +371,12 @@ def run_delta_ring(
         # Prologue: round 0's packet goes in flight before the loop; the
         # round-0 window is empty, so nothing is masked and the receiver's
         # round-0 mirror matches by construction.
+        if telemetry:
+            rt.begin()
         pkt, d, f = extract(folded, d, f, cap, start=0)
         flight, d, nlost, sent = out_step(pkt, d, awin if acked else None)
+        if telemetry:
+            rt.end(fused)
         if 0 >= rounds - win:
             starved = starved + d.sum(dim=-1)
         for r in range(rounds - 1):
@@ -266,12 +384,15 @@ def run_delta_ring(
             # it in flight (against the current window), then merge round
             # r's in-flight packet, decoded with the mirror from before the
             # last promotion.
+            if telemetry:
+                rt.begin()
             pkt, d, f = extract(folded, d, f, cap, start=(r + 1) * cap)
             nxt, d, lost, sent_nxt = out_step(pkt, d, awin if acked else None)
             nlost = nlost + lost
             if (r + 1) >= rounds - win:
                 starved = starved + d.sum(dim=-1)
             rcvd = receive(flight, folded, mctx_prev if fused and acked else None)
+            before = folded
             folded, d, f, of_r = apply_fn(folded, rcvd, d, f)
             of = of | of_r
             if acked:
@@ -283,12 +404,20 @@ def run_delta_ring(
                         mctx, rcvd, _ackwin.ack_bits(rcvd))
                 ack_exchange(sent, rcvd)
                 sent = sent_nxt
+            if telemetry:
+                rt.applied(before, folded)
+                rt.end(fused)
             flight = nxt
         rcvd = receive(flight, folded, mctx_prev if fused and acked else None)
+        before = folded
         folded, d, f, of_r = apply_fn(folded, rcvd, d, f)
         of = of | of_r
+        if telemetry:
+            rt.applied(before, folded)
     else:
         for r in range(rounds):
+            if telemetry:
+                rt.begin()
             pkt, d, f = extract(folded, d, f, cap, start=r * cap)
             wired, d, lost, sent = out_step(pkt, d, awin if acked else None)
             nlost = nlost + lost
@@ -297,13 +426,19 @@ def run_delta_ring(
             # The mirror before this round's promotion matches the
             # sender's encode state.
             rcvd = receive(wired, folded, mctx if fused and acked else None)
+            before = folded
             folded, d, f, of_r = apply_fn(folded, rcvd, d, f)
             of = of | of_r
             if acked:
                 if fused:
                     mctx = _wire.mirror_promote(mctx, rcvd, _ackwin.ack_bits(rcvd))
                 ack_exchange(sent, rcvd)
+            if telemetry:
+                rt.applied(before, folded)
+                rt.end(fused)
 
+    if telemetry and gated:
+        rt.digest(_nbytes(rtop))
     own_top = folded.top
     top_all = bits(pmax(own_top)).expand(own_top.shape).view(own_top.dtype)
     if fused:
@@ -320,6 +455,9 @@ def run_delta_ring(
         residue = torch.maximum(residue, (nlost_tot > 0).to(residue.dtype))
     if rounds < win:
         residue = torch.clamp_min(residue, 1)
+    if telemetry:
+        tel = rt.telemetry(folded, max(rl - 1, 0) + rounds, residue, fused,
+                           awin if acked else None)
     if acked:
         metrics.count("delta_opt.ack_window_runs")
     if donate:
@@ -328,8 +466,11 @@ def run_delta_ring(
         _consume(caller, keep=(folded, d))
     if wal is not None:
         # The host-side durability append, after the run.
+        b0, f0 = wal.bytes_appended, wal.fsyncs
         wal.append_state(wal_kind, folded)
         wal.mark_round()
+        if telemetry:
+            tel = tele.fill(tel, wal_bytes=wal.bytes_appended - b0, wal_fsyncs=wal.fsyncs - f0)
     if stats is not None:
         stats.update(
             rounds=rounds, links=p, slots_shipped=int(counts["shipped"]),
@@ -341,7 +482,18 @@ def run_delta_ring(
         if acked:
             stats["slots_acked_skipped"] = int(counts["skipped"])
             stats["ack_bytes"] = counts.get("ack_bytes", 0)
-    return folded, d, overflow, residue.to(torch.int32)
+    out = (folded, d, overflow, residue.to(torch.int32))
+    if not telemetry:
+        return out
+    d_tel = tele.to_dict(tel)
+    if acked:
+        metrics.count("delta_opt.acked_skipped", int(d_tel["bytes_acked_skipped"]))
+        metrics.count(f"delta_opt.acked_skipped.{kind}", int(d_tel["bytes_acked_skipped"]))
+    if fused:
+        # The registry twins of the packed-bytes counter.
+        metrics.count("wire.packed_bytes", int(d_tel["wire_packed_bytes"]))
+        metrics.count(f"wire.packed_bytes.{kind}", int(d_tel["wire_packed_bytes"]))
+    return (*out, tele.finish_dispatch(kind, tel, t0))
 
 
 def delta_gossip_elastic(
@@ -389,26 +541,30 @@ def delta_gossip_elastic(
 
     Returns ``(states, dirty, overflow, residue, widened)``: the
     ``mesh_delta_gossip`` tuple plus the axes grown (empty when capacity
-    sufficed). ``telemetry=`` (ROADMAP item 15), ``reclaim=`` (item 15.2)
-    and ``faults=`` (item 15.4) raise."""
+    sufficed); ``telemetry=True`` appends a Telemetry folded across every
+    attempt (``telemetry.combine``). ``reclaim=`` (item 15.2) and
+    ``faults=`` (item 15.4) raise."""
     from .. import elastic
     from .delta import mesh_delta_gossip
 
-    _refuse("delta_gossip_elastic", telemetry=telemetry, reclaim=reclaim is not None,
-            faults=faults is not None)
+    _refuse("delta_gossip_elastic", reclaim=reclaim is not None, faults=faults is not None)
     if wal is not None and wal.tail is None:
         wal.attach(model.state)
     policy = policy or elastic.DEFAULT_POLICY
     widened: dict = {}
     migrations = 0
+    tel = None
     while True:
         if donate:
             snap = tree_map(torch.clone, model.state)
             snap_dirty = dirty.clone()
         out = mesh_delta_gossip(
-            model.state, dirty, fctx, mesh, rounds, cap, local_fold, pipeline=pipeline,
-            digest=digest, donate=donate, ack_window=ack_window, fused=fused, stats=stats,
+            model.state, dirty, fctx, mesh, rounds, cap, local_fold, telemetry=telemetry,
+            pipeline=pipeline, digest=digest, donate=donate, ack_window=ack_window, fused=fused,
+            stats=stats,
         )
+        if telemetry:
+            tel = out[4] if tel is None else tele.combine(tel, out[4])
         if donate:
             model.state, dirty = snap, snap_dirty
         if not bool(torch.any(out[2])):
@@ -416,7 +572,7 @@ def delta_gossip_elastic(
                 # The committed attempt is the durable transition.
                 wal.append_state("orswot", out[0])
                 wal.mark_round()
-            return (*out, widened)
+            return (*out[:4], widened, tel) if telemetry else (*out, widened)
         if migrations >= policy.max_migrations:
             raise RuntimeError(
                 f"δ ring still overflowing after {migrations} migrations (axes grown: "

@@ -24,15 +24,23 @@ price drops, while its residual is that row's, as in the JAX package.
 promote-on-ack copy).
 
 The dispatch only READS the superblock; nothing is donated.
-``telemetry=`` (ROADMAP item 15.1) raises.
+``telemetry=True`` adds the JAX dispatch's Telemetry: the cohorts it
+decomposed (``cohorts_per_dispatch``), each cohort's push bytes times its
+weight, the subscribers it fans out to (``delta_push_bytes``), and the
+per-cohort push-bytes histogram (``hist_push_bytes``), each summed per
+rank and then over the ranks.
 """
 
 from __future__ import annotations
 
+import time
+
 import torch
 
+from .. import telemetry as tele
 from .._dtypes import from_wide, to_wide
 from ..delta_opt.decompose import Decomposition, get_decomposer
+from ..obs import hist as obs_hist
 from ..ops import superblock as sb_ops
 from ..ops.fanout_kernels import CohortWire, cohort_deltas, cohort_push_bytes, cohort_wire_encode
 from ..ops.lattice import mask_slots, tree_leaves, tree_map
@@ -94,13 +102,11 @@ def mesh_fanout_push(
     """Compute one dispatch of cohort δ pushes against a tenant superblock
     split over the mesh's virtual ranks. Returns ``(wire, push_bytes[B])``
     (module docstring). ``bases`` lie on the superblock's device; CUDA
-    tensors launch K3 once or raise. ``weights[B]`` (cohort sizes) are
-    accepted for the JAX signature: they price subscriber deliveries in
-    the telemetry sidecar, which is ROADMAP item 15.1."""
-    if telemetry:
-        raise NotImplementedError(
-            "mesh_fanout_push: telemetry= (ROADMAP item 15.1) not ported yet; call without it"
-        )
+    tensors launch K3 once or raise. ``weights[B]`` (cohort sizes, 1 by
+    default) price subscriber deliveries in the telemetry sidecar:
+    ``telemetry=True`` returns ``(wire, push_bytes, Telemetry)``, after
+    waiting for the card (``hist_dispatch_us``)."""
+    t0 = time.perf_counter()
     sb_ops.tenant_kind(kind)  # fail fast on a kind with no superblock adapter
     p = mesh.p
     idx = idx if isinstance(idx, torch.Tensor) else torch.as_tensor(idx)
@@ -115,7 +121,20 @@ def mesh_fanout_push(
         valid=flat(wire.valid), raw=flat(wire.raw), residual=tree_map(flat, wire.residual),
         nnz=_sum32(wire.nnz), chk=_sum32(wire.chk),
     )
-    return wire, torch.where(lane_ok, cohort_push_bytes(wire), 0.0)
+    pb = torch.where(lane_ok, cohort_push_bytes(wire), 0.0)
+    if not telemetry:
+        return wire, pb
+    wts = (torch.ones(b, dtype=torch.float32, device=pb.device) if weights is None
+           else torch.as_tensor(weights, dtype=torch.float32).to(pb.device))
+    # Per rank, then over the ranks: the JAX body's sums and psum.
+    h = obs_hist.observe_vec(obs_hist.zeros(pb.device), pb, lane_ok)
+    h = h._replace(total=torch.where(lane_ok, pb, 0.0).reshape(p, -1).sum(dim=-1).sum())
+    tel = tele.fill(tele.zeros(pb.device), cohorts_per_dispatch=lane_ok.sum(),
+                    delta_push_bytes=(pb * wts).reshape(p, -1).sum(dim=-1).sum())
+    tel = tel._replace(hist_push_bytes=h)
+    if pb.device.type == "cuda":
+        torch.cuda.synchronize(pb.device)
+    return wire, pb, tele.time_dispatch(tel, time.perf_counter() - t0)
 
 
 __all__ = ["by_rank", "fanout_deltas", "mesh_fanout_push"]

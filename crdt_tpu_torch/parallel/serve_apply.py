@@ -19,13 +19,19 @@ tenant contract that makes the scatter conflict-free.
 ``donate=True`` (the JAX buffer donation) writes the new rows into the
 caller's tensors in place and returns them; ``donate=False`` leaves the
 caller's state untouched. Nothing in a call waits for the host.
-``telemetry=`` (ROADMAP item 15.1) raises.
+``telemetry=True`` adds the JAX dispatch's Telemetry: the lanes the slab
+changed, the slab as the serving tier's wire (``bytes_exchanged``), its
+non-NOOP slots at one slot's price (``bytes_useful``), the touched rows'
+parked depth and pressure.
 """
 
 from __future__ import annotations
 
+import time
+
 import torch
 
+from .. import telemetry as tele
 from ..ops import superblock as sb_ops
 from .mesh import VirtualMesh
 
@@ -67,12 +73,12 @@ def mesh_serve_apply(
     flags tenants whose bounded buffers could not take an op (deferred
     parking / sparse dot capacity) — the serve layer's widen-before-retry
     signal (``serve/superblock.py``). Every input must lie on the mesh's
-    device; ``sync`` is accepted for the JAX signature (the call never
-    waits either way)."""
-    if telemetry:
-        raise NotImplementedError(
-            "mesh_serve_apply: telemetry= (ROADMAP item 15.1) not ported yet; call without it"
-        )
+    device. ``telemetry=True`` returns ``(state, overflow, Telemetry)``;
+    with ``sync=True`` the call then waits for the card and folds its
+    wall-clock into ``hist_dispatch_us``, with ``sync=False`` (the
+    pipelined serving loop's issue half) it returns at once and the
+    caller times the dispatch."""
+    t0 = time.perf_counter()
     tk = sb_ops.tenant_kind(kind)
     p = mesh.p
     idx = idx if isinstance(idx, torch.Tensor) else torch.as_tensor(idx)
@@ -86,7 +92,30 @@ def mesh_serve_apply(
     tgt = torch.where(valid & (idx < lanes // p), global_rows(idx, lanes, b, p), -1)
     out = state if donate else type(state)(*(x.clone() for x in state))
     sb_ops.write_rows_(out, tgt, new_rows)
-    return out, of & valid
+    if not telemetry:
+        return out, of & valid
+    tel = _dispatch_tel(tk, slab, rows, new_rows, p)
+    if sync:
+        if state[0].device.type == "cuda":
+            torch.cuda.synchronize(state[0].device)
+        tel = tele.time_dispatch(tel, time.perf_counter() - t0)
+    return out, of & valid, tel
+
+
+def _dispatch_tel(tk, slab: sb_ops.OpSlab, rows, new_rows, p: int) -> tele.Telemetry:
+    """The JAX dispatch's Telemetry: changed lanes, the slab's bytes (each
+    rank receives its shard), its non-NOOP slots priced at one slot's
+    bytes, the touched rows' depth and pressure."""
+    b, s = slab.kind.shape
+    slot_bytes = tele.shipped_bytes(slab) // max(b * s, 1)
+    per_rank = torch.full((p,), float(tele.shipped_bytes(slab) // p), dtype=torch.float32,
+                          device=slab.kind.device)
+    n_ops = (slab.kind != sb_ops.NOOP).reshape(p, -1).sum(dim=-1, dtype=torch.float32)
+    return tele.fill(
+        tele.zeros(slab.kind.device), slots_changed=tk.changed(rows, new_rows),
+        bytes_exchanged=per_rank.sum(), bytes_useful=(n_ops * slot_bytes).sum(),
+        deferred_depth=tele.device_depth(new_rows), widen_pressure=tele.device_pressure(new_rows),
+    )
 
 
 __all__ = ["global_rows", "mesh_serve_apply"]

@@ -57,10 +57,23 @@ rounded up to a multiple of P). A later block may be SMALLER
 arrival), both counted in ``stream.repacked_blocks``; a larger one
 refuses (re-chunk the source).
 
+- ``telemetry=True`` returns the JAX stream's Telemetry third: its steps'
+  Telemetry folded over the blocks (``telemetry.combine``), then
+  ``stream_blocks``, ``stream_staged_bytes``, ``stream_overlap_hit`` and,
+  with ``wal=``, the ``wal_*`` fields filled on the host, the whole
+  recorded under the plan's kind. Every block has the template's shape,
+  so a step's counts are static but one: the kind's changed slots
+  between the accumulator before and after it, summed on the device
+  (the only work a step adds). ``merges`` is the JAX count of each rank's
+  ``B/P - 1`` fold joins, the all-reduce's exchanges and the accumulator
+  join; the wire is one rank's folded state per exchange, summed in
+  float32 step by step as ``combine`` sums it; the gauges are the last
+  step's.
+
 Modes of the JAX entries still to port raise ``NotImplementedError``
-naming their ROADMAP item: ``telemetry=``, ``frontier=``/``compact_every=``
-(item 15), ``widen_policy=`` (15.3), ``faults=`` (15.4). The sparse Map
-and element-sharded plans are item 12b.
+naming their ROADMAP item: ``frontier=``/``compact_every=`` (item 15.2),
+``widen_policy=`` (15.3), ``faults=`` (15.4). The sparse Map and
+element-sharded plans are item 12b.
 """
 
 from __future__ import annotations
@@ -68,15 +81,17 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Iterable, Tuple
 
+import numpy as np
 import torch
 
-from .._dtypes import bits
+from .. import telemetry as tele
+from .._dtypes import bits, to_wide
 from ..ops import orswot as ops
 from ..ops import sparse_orswot as sp
 from ..ops.fold_kernels import fold_auto
 from ..ops.lattice import tree_map
 from ..utils.metrics import metrics
-from .anti_entropy import _refuse, local_folds
+from .anti_entropy import _exchange_count, _refuse, local_folds
 from .collectives import all_reduce_lattice
 from .mesh import VirtualMesh
 
@@ -109,6 +124,7 @@ class _StreamPlan:
     caps_of: Callable        # state -> {axis: cap}
     empty: Callable          # (caps, batch, device) -> identity batch
     widen_state: Callable    # (state, {axis: cap}) -> state
+    slots_fn: Callable       # (a, b) -> u32 changed lanes (the telemetry's)
 
 
 def _plan_sparse() -> _StreamPlan:
@@ -126,6 +142,7 @@ def _plan_sparse() -> _StreamPlan:
             batch=batch, device=device,
         ),
         widen_state=lambda s, caps: sp.widen(s, **caps),
+        slots_fn=sp.changed_dots,
     )
 
 
@@ -143,6 +160,7 @@ def _plan_dense() -> _StreamPlan:
             caps["n_elems"], caps["n_actors"], caps["deferred_cap"], batch=batch, device=device,
         ),
         widen_state=lambda s, caps: ops.widen(s, **caps),
+        slots_fn=ops.changed_members,
     )
 
 
@@ -175,6 +193,29 @@ def _step(plan: _StreamPlan, acc, block, p: int):
     joined, of_cross = all_reduce_lattice(folded, plan.join_fn, plan.fold_fn)
     acc, of_join = plan.join_fn(acc, tree_map(lambda x: x[0], joined))
     return acc, torch.any(of_local, dim=0) | of_join | of_cross
+
+
+def _stream_tel(acc, slots, steps: int, rows: int, p: int) -> tele.Telemetry:
+    """The JAX stream's per-step Telemetry folded over ``steps`` steps of
+    ``rows``-row blocks (``slots``: the changed slots summed over them;
+    ``acc``: the accumulator after the last)."""
+    if steps == 0:
+        return tele.zeros(acc[0].device)
+    n_ex = _exchange_count(p)
+    # One step's wire: each rank's folded state (the accumulator's shape)
+    # per exchange, summed over the ranks; then step after step.
+    per_rank = np.float32(tele.shipped_bytes(acc) * n_ex)
+    step = wire = np.float32(0)
+    for _ in range(p):
+        step = np.float32(step + per_rank)
+    for _ in range(steps):
+        wire = np.float32(wire + step)
+    # Each step: every rank's fold joins, its exchanges, the accumulator join.
+    merges = steps * p * (max(rows // p - 1, 0) + n_ex + 1)
+    return tele.fill(tele.zeros(acc[0].device), merges=merges,
+                     slots_changed=tele.scalar("slots_changed", slots, acc[0].device),
+                     deferred_depth=tele.device_depth(acc), bytes_exchanged=float(wire),
+                     bytes_useful=float(wire), widen_pressure=tele.device_pressure(acc))
 
 
 def _upload(raw, device: torch.device, side):
@@ -214,9 +255,8 @@ def _stream_fold(
     """The shared scaffold: template derivation, upload and repack of each
     block, the double-buffered step loop and the interrupt protocol (see
     the module docstring)."""
-    _refuse("mesh_stream_fold", telemetry=telemetry, frontier=frontier is not None,
-            compact_every=compact_every, widen_policy=widen_policy is not None,
-            faults=faults is not None)
+    _refuse("mesh_stream_fold", frontier=frontier is not None, compact_every=compact_every,
+            widen_policy=widen_policy is not None, faults=faults is not None)
     device, p = mesh.device, mesh.p
     on_card = device.type == "cuda"
     it = iter(blocks)
@@ -310,10 +350,16 @@ def _stream_fold(
 
     overflow = None
     blocks_done = staged_bytes = overlap_hits = 0
+    slots = 0
+    if wal is not None:
+        wal_b0, wal_f0 = wal.bytes_appended, wal.fsyncs
     while staged is not None:
         block = arrive(staged)
         staged_bytes += _nbytes(block)
-        acc, of = _step(plan, acc, block, p)
+        new, of = _step(plan, acc, block, p)
+        if telemetry:
+            slots = slots + to_wide(plan.slots_fn(acc, new))
+        acc = new
         overflow = of if overflow is None else overflow | of
         blocks_done += 1
         del block, staged
@@ -346,7 +392,16 @@ def _stream_fold(
     metrics.count("stream.staged_bytes", staged_bytes)
     metrics.count("stream.overlap_hit", overlap_hits)
     metrics.observe("stream.acc_bytes", _nbytes(acc))
-    return acc, overflow
+    if not telemetry:
+        return acc, overflow
+    tel = tele.fill(_stream_tel(acc, slots, blocks_done, template_rows, p),
+                    stream_blocks=blocks_done, stream_staged_bytes=staged_bytes,
+                    stream_overlap_hit=overlap_hits)
+    if wal is not None:
+        tel = tele.fill(tel, wal_bytes=wal.bytes_appended - wal_b0,
+                        wal_fsyncs=wal.fsyncs - wal_f0)
+    tele.record(plan.kind, tel)
+    return acc, overflow, tel
 
 
 # ---- public entry points --------------------------------------------------
@@ -360,7 +415,8 @@ def mesh_stream_fold_sparse(
     ``[B, ...]`` into one converged state on ``mesh.device`` — the
     arbitrary-N fold the flagship shape (10,240 replicas × a 1M-element
     universe) runs through. Returns ``(state, overflow [2])``: [dot
-    capacity, deferred capacity]."""
+    capacity, deferred capacity]; the Telemetry third with
+    ``telemetry=True``."""
     return _stream_fold(
         _plan_sparse(), blocks, mesh, init=init, telemetry=telemetry, donate=donate,
         pipeline=pipeline, widen_policy=widen_policy, frontier=frontier,
@@ -376,7 +432,8 @@ def mesh_stream_fold(
 ) -> Tuple[Any, torch.Tensor]:
     """Stream-fold DENSE ORSWOT replica blocks ``[B, E, A]`` on
     ``mesh.device``; each rank's local fold is ``fold_auto`` (kernel K1
-    and its epilogue on a card). Returns ``(state, overflow)``."""
+    and its epilogue on a card). Returns ``(state, overflow)``; the
+    Telemetry third with ``telemetry=True``."""
     return _stream_fold(
         _plan_dense(), blocks, mesh, init=init, telemetry=telemetry, donate=donate,
         pipeline=pipeline, widen_policy=widen_policy, frontier=frontier,

@@ -23,8 +23,9 @@ from one card.
   while slab N's apply is queued on the card; :class:`BackgroundPersister`
   drains cold-tenant persists off the dispatch latency path.
 
-Left out, each raising and naming its ROADMAP item: the telemetry
-sidecar and ``annotate`` (15.1), ``compact_tenants`` (15.2),
+Every ``telemetry=True`` path returns the JAX package's Telemetry, and
+the ``annotate`` methods fill its serving fields. Left out, each raising
+and naming its ROADMAP item: ``compact_tenants`` (15.2),
 ``sync_tenant_shards`` (5), ``wal_order_violations`` /
 ``wal_precedes_dispatch`` and :func:`static_checks` (16).
 """

@@ -31,8 +31,9 @@ its last copy has completed — so the pipelined loop can assemble slab
 N+1 while slab N's copy and apply are still queued. The JAX queue's
 trace stamps (ROADMAP item 15.6) and interleaving boundaries (item 16)
 are left out: both are no-ops there unless a tracer or explorer is
-installed. ``telemetry=True`` and :meth:`IngestQueue.annotate` raise
-(item 15.1).
+installed. ``telemetry=True`` returns each flush's Telemetry (the
+dispatch's, :meth:`IngestQueue.annotate`d with the flush's coalesced ops,
+batch size and WAL bytes and the superblock's residency gauges).
 """
 
 from __future__ import annotations
@@ -43,11 +44,12 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from .. import telemetry as tele
 from ..durability import crashpoints
 from ..obs import hist as obs_hist
 from ..ops import superblock as sb_ops
 from ..utils.metrics import metrics
-from .superblock import Superblock, _unported_telemetry
+from .superblock import Superblock
 from .wal import CP_POST_DISPATCH_PRE_ACK, CP_POST_LOG_PRE_DISPATCH
 
 
@@ -175,19 +177,17 @@ class IngestQueue:
     # ---- the flush (assemble → log → issue → finish) --------------------
     def flush(self, *, telemetry: bool = False):
         """Coalesce queued ops into one slab and apply it. Returns
-        ``(FlushReport, None)`` (the JAX package's second element, a
-        Telemetry record, is ROADMAP item 15.1). One flush issues ONE
+        ``(FlushReport, Telemetry-or-None)``. One flush issues ONE
         coalesced dispatch (plus widen retries), leaving rank-block
         overspill queued. The WAL append comes strictly BEFORE the
         dispatch is issued."""
-        if telemetry:
-            _unported_telemetry("IngestQueue.flush")
         built = self._assemble()
         if built.applied == 0:
-            return FlushReport(0, 0, 0, self.n_pending, built.restored, 0), None
+            report = FlushReport(0, 0, 0, self.n_pending, built.restored, 0)
+            return report, (tele.zeros(self.sb.device) if telemetry else None)
         try:
             seq = self._log(built)
-            pending = self._issue(built)
+            pending = self._issue(built, telemetry=telemetry)
         except BaseException as exc:
             self._unwind(built, exc)
             raise
@@ -309,7 +309,7 @@ class IngestQueue:
         crashpoints.hit(CP_POST_LOG_PRE_DISPATCH)
         return seq
 
-    def _issue(self, built: _Built):
+    def _issue(self, built: _Built, *, telemetry: bool = False):
         """Stage 3: copy the slab to the card without blocking the host
         and launch the coalesced dispatch without waiting for it
         (``Superblock.apply_async``)."""
@@ -325,7 +325,7 @@ class IngestQueue:
             st.event.record(torch.cuda.current_stream(dev))
         slab = sb_ops.OpSlab(*planes[:5])
         self._widens_before = self.sb.widen_events
-        return self.sb.apply_async(slab, planes[5], built.tenants)
+        return self.sb.apply_async(slab, planes[5], built.tenants, telemetry=telemetry)
 
     def _unwind(self, built: _Built, exc, requeue_seq=None) -> None:
         """The loss-free contract survives failure: every accepted op that
@@ -352,9 +352,11 @@ class IngestQueue:
         inside ``Superblock.finish``) and settle the queue ledger. Failure
         unwinds through :meth:`_unwind`; ``on_fail`` runs FIRST (the
         pipelined loop requeues the already-assembled NEXT slab's ops
-        ahead of this slab's rolled ones)."""
+        ahead of this slab's rolled ones). Returns ``(FlushReport,
+        Telemetry-or-None)``: the dispatch's Telemetry when it was issued
+        with one."""
         try:
-            self.sb.finish(pending)
+            tel = self.sb.finish(pending)
         except BaseException as exc:
             if on_fail is not None:
                 on_fail(exc)
@@ -376,10 +378,12 @@ class IngestQueue:
         metrics.count("serve.ingest.flushes")
         metrics.count("serve.ingest.ops", applied)
         metrics.count("serve.ingest.coalesced_ops", coalesced)
+        if tel is not None:
+            tel = self.annotate(tel, coalesced=coalesced, batch=applied)
         lanes_used = int((built.tenants >= 0).sum())
         report = FlushReport(applied, lanes_used, coalesced, self.n_pending, built.restored,
                              dispatches)
-        return report, None
+        return report, tel
 
     def _member(self, m: np.ndarray, mshape, mfill):
         m = np.asarray(m)
@@ -391,12 +395,11 @@ class IngestQueue:
 
     def drain(self, *, telemetry: bool = False):
         """Flush until the queue is empty; returns the combined
-        ``(FlushReport, None)`` totals."""
-        if telemetry:
-            _unported_telemetry("IngestQueue.drain")
+        ``(FlushReport, Telemetry-or-None)`` totals."""
         tot = FlushReport(0, 0, 0, 0, 0, 0)
+        tel = None
         while self.n_pending:
-            rep, _ = self.flush()
+            rep, t = self.flush(telemetry=telemetry)
             if rep.ops_applied == 0 and rep.restored == 0:
                 break  # nothing placeable (should not happen)
             tot = FlushReport(
@@ -404,12 +407,24 @@ class IngestQueue:
                 tot.coalesced + rep.coalesced, rep.pending_after, tot.restored + rep.restored,
                 tot.dispatches + rep.dispatches,
             )
-        return tot, None
+            if t is not None:
+                tel = t if tel is None else tele.combine(tel, t)
+        return tot, tel
 
     def annotate(self, tel, *, coalesced: int, batch: int):
-        """Fill the host-owned ingest telemetry for one flush — ROADMAP
-        item 15.1."""
-        _unported_telemetry("IngestQueue.annotate")
+        """Fill the host-owned ingest telemetry for ONE flush (per-record
+        values, so ``telemetry.combine`` folds flushes exactly): the
+        flush's coalesced-op count, one batch-size observation, the WAL
+        bytes its group commit appended (0 without a WAL), plus the
+        superblock's residency gauges."""
+        if not tele.is_concrete(tel):
+            return tel
+        tel = tele.fill(tel, ingest_coalesced_ops=coalesced,
+                        serve_wal_bytes=self._last_wal_bytes)
+        tel = tel._replace(hist_ingest_batch=obs_hist.observe(
+            obs_hist.zeros(tel.merges.device), batch))
+        self._last_wal_bytes = 0
+        return self.sb.annotate(tel)
 
 
 __all__ = ["AddOp", "FlushReport", "IngestBackpressure", "IngestQueue", "RmOp"]

@@ -22,8 +22,9 @@ drain on a bounded background ledger off the dispatch latency path.
   flight), each timed into ``hist`` (µs) and crossed by the
   ``serve.persist.background_drain`` crashpoint.
 
-``telemetry=True`` and :meth:`ServeLoop.annotate` raise (ROADMAP item
-15.1).
+``telemetry=True`` returns each finished dispatch's Telemetry,
+:meth:`ServeLoop.annotate`d with the overlap hits, rebalance moves and
+persist latencies since the last one.
 """
 
 from __future__ import annotations
@@ -32,11 +33,11 @@ import time
 from collections import deque
 from typing import Optional
 
+from .. import telemetry as tele
 from ..durability import crashpoints
 from ..obs import hist as obs_hist
 from ..utils.metrics import metrics
 from .ingest import FlushReport, IngestQueue
-from .superblock import _unported_telemetry
 from .wal import CP_BG_PERSIST
 
 
@@ -120,14 +121,15 @@ class ServeLoop:
         self.steps = 0
         self.overlap_hits = 0
         self.rebalance_moves = 0
+        self._annotated_overlap = 0
+        self._annotated_moves = 0
 
     # ---- the pipelined round --------------------------------------------
     def step(self, *, telemetry: bool = False):
-        """One pipelined round. Returns ``(FlushReport-or-None, None)`` for
-        the dispatch this round FINISHED (round N — one step behind the
-        submit stream; :meth:`flush_inflight` settles the tail)."""
-        if telemetry:
-            _unported_telemetry("ServeLoop.step")
+        """One pipelined round. Returns ``(FlushReport-or-None,
+        Telemetry-or-None)`` for the dispatch this round FINISHED (round N
+        — one step behind the submit stream; :meth:`flush_inflight`
+        settles the tail)."""
         self.steps += 1
         pin = ()
         if self.inflight is not None:
@@ -140,7 +142,7 @@ class ServeLoop:
             except BaseException as exc:
                 self.q._unwind(built, exc)
                 raise
-        report = None
+        report = tel = None
         if self.inflight is not None:
             n_built, n_pending, n_seq = self.inflight
             if not n_pending.ready():
@@ -153,7 +155,7 @@ class ServeLoop:
                 if _b.applied:
                     self.q._unwind(_b, RuntimeError("pipeline unwind"), requeue_seq=_s)
 
-            report, _ = self.q._finish(n_built, n_pending, n_seq, on_fail=_requeue_next)
+            report, tel = self.q._finish(n_built, n_pending, n_seq, on_fail=_requeue_next)
         # Background persists run in the settled window between finish(N)
         # and issue(N+1): no dispatch is in flight.
         if self.persister is not None:
@@ -163,55 +165,74 @@ class ServeLoop:
             self.persister.drain()
         if built.applied:
             try:
-                pend = self.q._issue(built)
+                pend = self.q._issue(built, telemetry=telemetry)
             except BaseException as exc:
                 self.q._unwind(built, exc, requeue_seq=seq)
                 raise
             self.inflight = (built, pend, seq)
-        return report, None
+        if tel is not None:
+            tel = self.annotate(tel)
+        return report, tel
 
     def flush_inflight(self, *, telemetry: bool = False):
         """Finish the in-flight dispatch without assembling a new slab (the
         loop's drain/shutdown barrier)."""
-        if telemetry:
-            _unported_telemetry("ServeLoop.flush_inflight")
         if self.inflight is None:
             return None, None
         n_built, n_pending, n_seq = self.inflight
         self.inflight = None
-        return self.q._finish(n_built, n_pending, n_seq)
+        report, tel = self.q._finish(n_built, n_pending, n_seq)
+        if tel is not None:
+            tel = self.annotate(tel)
+        return report, tel
 
     def drain(self, *, telemetry: bool = False):
         """Step until the queue AND the pipeline are empty; returns the
-        combined ``(FlushReport, None)`` totals."""
-        if telemetry:
-            _unported_telemetry("ServeLoop.drain")
+        combined ``(FlushReport, Telemetry-or-None)`` totals."""
         tot = FlushReport(0, 0, 0, 0, 0, 0)
+        tel = None
 
-        def fold(rep):
-            nonlocal tot
+        def fold(rep, t):
+            nonlocal tot, tel
             if rep is not None:
                 tot = FlushReport(
                     tot.ops_applied + rep.ops_applied, max(tot.lanes_used, rep.lanes_used),
                     tot.coalesced + rep.coalesced, rep.pending_after,
                     tot.restored + rep.restored, tot.dispatches + rep.dispatches,
                 )
+            if t is not None:
+                tel = t if tel is None else tele.combine(tel, t)
 
         while self.q.n_pending or self.inflight is not None:
             before = self.q.n_pending
-            fold(self.step()[0])
+            fold(*self.step(telemetry=telemetry))
             if self.q.n_pending >= before and self.inflight is None and before:
                 break  # nothing placeable (should not happen)
-        fold(self.flush_inflight()[0])
-        return tot, None
+        fold(*self.flush_inflight(telemetry=telemetry))
+        return tot, tel
 
     def note_rebalance(self, moves: int) -> None:
         """Record shard-map moves an ``apply_rebalance`` made."""
         self.rebalance_moves += int(moves)
 
     def annotate(self, tel):
-        """Fill the loop-owned serving telemetry — ROADMAP item 15.1."""
-        _unported_telemetry("ServeLoop.annotate")
+        """Fill the loop-owned serving fields on a Telemetry (per-record
+        deltas, so ``telemetry.combine`` folds steps exactly): overlap
+        hits and rebalance moves since the last annotate, plus the
+        background persister's latency histogram."""
+        if not tele.is_concrete(tel):
+            return tel
+        d_overlap = self.overlap_hits - self._annotated_overlap
+        d_moves = self.rebalance_moves - self._annotated_moves
+        self._annotated_overlap = self.overlap_hits
+        self._annotated_moves = self.rebalance_moves
+        tel = tele.fill(tel, serve_overlap_hit=d_overlap, rebalance_moves=d_moves)
+        if self.persister is not None:
+            persisted = self.persister.take_hist()
+            tel = tel._replace(hist_persist_us=obs_hist.merge(
+                tel.hist_persist_us, type(persisted)(*(x.to(tel.merges.device)
+                                                       for x in persisted))))
+        return tel
 
 
 __all__ = ["BackgroundPersister", "ServeLoop"]

@@ -37,6 +37,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from .. import telemetry as tele
 from ..convert import leaf_to_numpy
 from ..elastic import DEFAULT_POLICY, ElasticPolicy, Hysteresis
 from ..ops import superblock as sb_ops
@@ -61,24 +62,19 @@ class LanePressure(RuntimeError):
     tenant first (the evictor does this automatically)."""
 
 
-def _unported_telemetry(what: str):
-    raise NotImplementedError(
-        f"{what}: telemetry (ROADMAP item 15.1) not ported yet; call without it"
-    )
-
-
 class PendingApply:
     """One in-flight coalesced dispatch: the issued (not yet
     overflow-checked) ``mesh_serve_apply`` plus everything
     :meth:`Superblock.finish` needs for the overflow→widen→retry loop —
     the rollback base (``pre``), the slab and idx for retries, the issue
-    time, and a CUDA event recorded after the dispatch (None on the
-    CPU)."""
+    time, a CUDA event recorded after the dispatch (None on the CPU) and
+    the dispatch's unfinished Telemetry (None without ``telemetry=``)."""
 
     __slots__ = ("slab", "idx_local", "tenants", "valid", "glanes", "pre", "of", "donate",
-                 "t0", "event")
+                 "t0", "event", "tel", "telemetry")
 
-    def __init__(self, slab, idx_local, tenants, valid, glanes, pre, of, donate, t0, event):
+    def __init__(self, slab, idx_local, tenants, valid, glanes, pre, of, donate, t0, event,
+                 tel=None, telemetry=False):
         self.slab = slab
         self.idx_local = idx_local
         self.tenants = tenants
@@ -89,6 +85,8 @@ class PendingApply:
         self.donate = donate
         self.t0 = t0
         self.event = event
+        self.tel = tel
+        self.telemetry = telemetry
 
     def ready(self) -> bool:
         """Has the dispatch's work finished on the card (a query of its
@@ -105,11 +103,13 @@ def _layout(state, slab, idx):
 class _SlabGraph:
     """``mesh_serve_apply`` (donated: rows scattered into the superblock's
     own tensors) captured once as a CUDA graph over static slab and index
-    buffers, and replayed per dispatch. Valid while the superblock's
-    tensors keep their storage (a widen replaces them: the layout key
-    changes and the graph is captured again)."""
+    buffers, and replayed per dispatch; with ``telemetry`` the dispatch's
+    sidecar is captured too, into static outputs copied out per replay.
+    Valid while the superblock's tensors keep their storage (a widen
+    replaces them: the layout key changes and the graph is captured
+    again)."""
 
-    def __init__(self, sb: "Superblock", slab, idx):
+    def __init__(self, sb: "Superblock", slab, idx, telemetry: bool = False):
         self.key = _layout(sb.state, slab, idx)
         dev = sb.device
         self.slab = type(slab)(*(torch.empty_like(x) for x in slab))
@@ -118,13 +118,16 @@ class _SlabGraph:
             x.zero_()  # an all-NOOP slab with no valid lane: the identity
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
+        run = lambda: mesh_serve_apply(sb.state, self.slab, self.idx, sb.mesh,  # noqa: E731
+                                       kind=sb.kind, donate=True, telemetry=telemetry,
+                                       sync=False)
         with torch.cuda.stream(side):  # warm-up outside the capture
-            mesh_serve_apply(sb.state, self.slab, self.idx, sb.mesh, kind=sb.kind, donate=True)
+            run()
         torch.cuda.current_stream(dev).wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph, stream=side):
-            _, self.of = mesh_serve_apply(sb.state, self.slab, self.idx, sb.mesh, kind=sb.kind,
-                                          donate=True)
+            out = run()
+        self.of, self.tel = out[1], (out[2] if telemetry else None)
 
     def fits(self, state, slab, idx) -> bool:
         return _layout(state, slab, idx) == self.key
@@ -134,7 +137,8 @@ class _SlabGraph:
             dst.copy_(src)
         self.idx.copy_(idx)
         self.graph.replay()
-        return self.of.clone()  # the graph's output is rewritten by the next replay
+        # The graph's outputs are rewritten by the next replay.
+        return self.of.clone(), (tele.copy(self.tel) if self.tel is not None else None)
 
 
 class Superblock:
@@ -155,9 +159,10 @@ class Superblock:
     ):
         self.kind = kind
         # On the card a donated dispatch replays one CUDA graph of
-        # mesh_serve_apply (captured per state layout and slab shape): the
-        # JAX dispatch is one compiled program, an eager one ~480 launches.
-        self._graph = None
+        # mesh_serve_apply (captured per state layout, slab shape and
+        # telemetry flag): the JAX dispatch is one compiled program, an
+        # eager one ~480 launches.
+        self._graphs: Dict[bool, _SlabGraph] = {}
         self.tk = sb_ops.tenant_kind(kind)
         self.mesh = mesh
         self.p = mesh.p
@@ -189,8 +194,8 @@ class Superblock:
         self.was_evicted = np.zeros(n_tenants, bool)
         self.widen_events = 0
         self.last_pressure = 0.0
-        # Issue → finish wall of the newest dispatch, retries included (the
-        # JAX package folds it into its telemetry's hist_dispatch_us).
+        # Issue → finish wall of the newest dispatch, retries included
+        # (a telemetry=True dispatch also folds it into hist_dispatch_us).
         self.last_dispatch_s = 0.0
 
     @staticmethod
@@ -259,20 +264,24 @@ class Superblock:
         """Apply one coalesced slab (``idx_local`` per ``mesh_serve_apply``'s
         lane convention; ``tenants[B]`` the tenant per slab lane, -1 =
         empty — every listed tenant must be resident). ``apply`` ==
-        ``finish(apply_async(...))``. Returns None (the JAX package's
-        telemetry sidecar is ROADMAP item 15.1)."""
+        ``finish(apply_async(...))``. Returns the Telemetry sidecar with
+        ``telemetry=True``, else None."""
         return self.finish(self.apply_async(slab, idx_local, tenants, telemetry=telemetry,
                                             donate=donate))
 
-    def _dispatch(self, slab, idx_local, donate: bool):
+    def _dispatch(self, slab, idx_local, donate: bool, telemetry: bool = False):
+        """One dispatch: ``(overflow, Telemetry or None)``. A donated one
+        on the card replays the layout's graph (the sidecar's own graph
+        with ``telemetry=True``)."""
         if donate and self.device.type == "cuda":
-            g = self._graph
+            g = self._graphs.get(telemetry)
             if g is None or not g.fits(self.state, slab, idx_local):
-                g = self._graph = _SlabGraph(self, slab, idx_local)
+                g = self._graphs[telemetry] = _SlabGraph(self, slab, idx_local, telemetry)
             return g.replay(slab, idx_local)
-        self.state, of = mesh_serve_apply(self.state, slab, idx_local, self.mesh,
-                                          kind=self.kind, donate=donate, sync=False)
-        return of
+        out = mesh_serve_apply(self.state, slab, idx_local, self.mesh, kind=self.kind,
+                               donate=donate, telemetry=telemetry, sync=False)
+        self.state = out[0]
+        return out[1], (out[2] if telemetry else None)
 
     def apply_async(self, slab: sb_ops.OpSlab, idx_local, tenants, *, telemetry: bool = False,
                     donate: bool = True) -> PendingApply:
@@ -284,8 +293,6 @@ class Superblock:
         waits for the card, but for the one-time capture of a new
         layout's graph. No new dispatch may be issued before
         :meth:`finish` (a widen retry changes every lane's shape)."""
-        if telemetry:
-            _unported_telemetry("Superblock.apply_async")
         tenants = np.asarray(tenants)
         valid = tenants >= 0
         glanes = np.where(valid, self.lane_of[np.where(valid, tenants, 0)], 0)
@@ -300,25 +307,34 @@ class Superblock:
                                     global_rows(idx_dev, self.n_lanes, idx_dev.shape[0], self.p),
                                     0))
         t0 = time.perf_counter()
-        of = self._dispatch(slab, idx_dev, donate)
+        of, t_raw = self._dispatch(slab, idx_dev, donate, telemetry)
         event = None
         if self.device.type == "cuda":
             event = torch.cuda.Event()
             event.record(torch.cuda.current_stream(self.device))
-        return PendingApply(slab, idx_dev, tenants, valid, glanes, pre, of, donate, t0, event)
+        return PendingApply(slab, idx_dev, tenants, valid, glanes, pre, of, donate, t0, event,
+                            t_raw, telemetry)
 
     def finish(self, p: PendingApply):
         """Complete an in-flight dispatch: read its overflow flags (the
         dispatch's one wait for the card), run the overflow→widen→retry
         loop (identical to the serial :meth:`apply`; retries are issued
-        and read inline), and mark applied tenants dirty."""
+        and read inline), and mark applied tenants dirty. Returns the
+        attempts' combined Telemetry (each with its issue→completion
+        wall-clock in ``hist_dispatch_us``), or None."""
         slab, idx_local = p.slab, p.idx_local
         tenants, valid, glanes, pre = p.tenants, p.valid, p.glanes, p.pre
-        of = p.of
+        of, t_raw, t0 = p.of, p.tel, p.t0
+        tel = None
         for attempt in range(self.policy.max_migrations + 1):
             if attempt:
-                of = self._dispatch(slab, idx_local, p.donate)
+                t0 = time.perf_counter()
+                of, t_raw = self._dispatch(slab, idx_local, p.donate, p.telemetry)
             of_host = of.cpu().numpy() & valid
+            if p.telemetry:
+                t = tele.time_dispatch(t_raw, time.perf_counter() - t0)
+                tel = t if tel is None else tele.combine(tel, t)
+                self.last_pressure = float(t.widen_pressure)
             if not of_host.any():
                 break
             ovr = np.where(of_host)[0]
@@ -346,7 +362,7 @@ class Superblock:
             idx_local = torch.where(keep, idx_local, -1)
         self.dirty[tenants[valid]] = True
         self.last_dispatch_s = time.perf_counter() - p.t0
-        return None
+        return tel
 
     def _widen_step(self) -> Dict[str, int]:
         grow = {"deferred_cap": max(int(np.ceil(self.caps["deferred_cap"] * self.policy.factor)),
@@ -379,9 +395,9 @@ class Superblock:
         through ``elastic.Hysteresis.vote``. Returns the fired decision
         (``"widen"`` / ``"shrink"`` / None); shrink steps the deferred cap
         down by ``policy.factor`` to ``policy.shrink_floor`` and no-ops
-        when lanes are live. (The default signal, the telemetry
-        ``widen_pressure``, comes with ROADMAP item 15.1; until then it
-        stays 0.0 unless passed.)"""
+        when lanes are live. The default signal is the newest telemetry
+        dispatch's ``widen_pressure`` (0.0 until a ``telemetry=True``
+        dispatch ran)."""
         p = self.last_pressure if pressure is None else pressure
         vote = self.hysteresis.vote("serve.capacity", p)
         if vote == "widen":
@@ -435,9 +451,13 @@ class Superblock:
         return tuple(leaf_to_numpy(x) for x in obs)
 
     def annotate(self, tel):
-        """Fill the host-owned serving gauges on a Telemetry record — the
-        telemetry sidecar is ROADMAP item 15.1."""
-        _unported_telemetry("Superblock.annotate")
+        """Fill the host-owned serving gauges on a Telemetry:
+        ``live_tenants`` = the served population, ``evicted_tenants`` =
+        tenants currently parked in the durable tier."""
+        if not tele.is_concrete(tel):
+            return tel
+        n_evicted = int((self.was_evicted & (self.lane_of < 0)).sum())
+        return tele.fill(tel, live_tenants=self.n_tenants, evicted_tenants=n_evicted)
 
 
 __all__ = ["CapacityOverflow", "LanePressure", "PendingApply", "Superblock"]

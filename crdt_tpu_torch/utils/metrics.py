@@ -3,14 +3,17 @@
 The part of the JAX package's ``utils/metrics.py`` that the dense ORSWOT
 model feeds: ``metrics.count(name, n)`` for monotonic counters (e.g.
 ``orswot.merges``), ``metrics.observe(name, value)`` for last/min/max/
-sum/n gauges (e.g. ``orswot.deferred_depth``), and ``snapshot()`` to
-read them (``reset()`` clears them); ``state_nbytes`` prices a state. Host-side only; no kernel
-touches it.
+sum/n gauges (e.g. ``orswot.deferred_depth``), ``metrics.time(name)``
+for the ``<name>_seconds`` wall-clock gauge of a block, and
+``snapshot()`` to read them (``reset()`` clears them); ``state_nbytes``
+prices a state. Host-side only; no kernel touches it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
+import time
 from typing import Any, Dict
 
 
@@ -35,6 +38,15 @@ class Metrics:
             g["max"] = max(g["max"], value)
             g["sum"] += value
             g["n"] += 1
+
+    @contextlib.contextmanager
+    def time(self, name: str):
+        """Observe the block's wall-clock seconds as ``<name>_seconds``."""
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.observe(f"{name}_seconds", time.perf_counter() - t0)
 
     def reset(self) -> None:
         with self._lock:

@@ -101,10 +101,15 @@ def test_entries_refuse_unported_modes_and_default_to_the_card():
     state = orswot_from_numpy(arrays, device="cpu")
     for kw in (dict(telemetry=True), dict(donate=True, telemetry=True), dict(stability=True),
                dict(faults=object()), dict(lag_threshold=3)):
+        if kw.get("telemetry"):  # ROADMAP item 15.1: the Telemetry comes back third
+            out = mesh_gossip(orswot_from_numpy(arrays, device="cpu"), VirtualMesh(4, "cpu"),
+                              **kw)
+            assert len(out) == 3 and int(out[2].merges.view(torch.int32)) == 4 * (2 - 1 + 3)
+            continue
         with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
             mesh_gossip(state, VirtualMesh(4, "cpu"), **kw)
-    with pytest.raises(NotImplementedError):
-        mesh_fold(state, VirtualMesh(4, "cpu"), telemetry=True)
+    out = mesh_fold(state, VirtualMesh(4, "cpu"), telemetry=True)
+    assert len(out) == 3 and int(out[2].merges.view(torch.int32)) == 4 * (2 - 1 + 2)
     assert inspect.signature(VirtualMesh).parameters["device"].default == "cuda"
     with pytest.raises(ValueError):
         VirtualMesh(0, "cpu")

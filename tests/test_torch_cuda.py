@@ -10,7 +10,9 @@ crashpoint diagonal and a checkpoint round trip); the serving tier's slab
 apply on the card against the CPU, and one dispatch under sync debug
 "error"; the fan-out plane's K3 instance through ``mesh_fanout_push``
 (once a dispatch, == its plain version and the CPU), a resync through
-``bootstrap`` on card tensors, and the fan-out probes.
+``bootstrap`` on card tensors, and the fan-out probes; the telemetry
+sidecar of a small δ ring and of one fan-out dispatch on the card equal
+to the same calls on the CPU.
 
 Marked ``cuda``; every test skips without a device. It imports neither
 JAX nor the JAX package, so it also runs where JAX is not installed:
@@ -551,3 +553,46 @@ def test_the_fanout_scenarios_phase_on_the_card(card):
     assert out["k3_max_abs_err"] == 0
     assert out["probes"]["clients_equal"] == out["probes"]["clients"]
     assert out["detector"] == {"honest_push": True, "skipping_twin": False}
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "layered"])
+def test_a_telemetry_ring_on_the_card_counts_like_the_cpu(card, fused):
+    """A small dense δ ring with ``telemetry=True``, acked: every counted
+    field on the card == the same ring on the CPU (the host-timed fields
+    left out by name), K3 once per fused round."""
+    from crdt_tpu_torch import telemetry as tele
+    from crdt_tpu_torch.ops.lattice import tree_map
+    from crdt_tpu_torch.parallel import VirtualMesh, mesh_delta_gossip
+
+    inputs = chip_smoke.fill_delta_config3(32, 600, 8, 4, 4, 3, torch.device("cpu"), chunk=8)[:3]
+    got = {}
+    for dev in (card, torch.device("cpu")):
+        before = wire_pack.launches
+        out = mesh_delta_gossip(*tree_map(lambda t: t.to(dev), inputs), VirtualMesh(4, dev),
+                                rounds=30, cap=8, fused=fused, ack_window=True, telemetry=True)
+        if dev.type == "cuda":
+            assert wire_pack.launches - before == (30 if fused else 0)
+        got[dev.type] = tele.to_dict(out[4])
+    for k, v in got["cpu"].items():
+        if k not in chip_smoke.HOST_TIMED:
+            assert got["cuda"][k] == v, k
+    assert got["cuda"]["bytes_acked_skipped"] > 0
+    assert (got["cuda"]["wire_packed_bytes"] > 0) == fused
+
+
+def test_a_telemetry_fanout_dispatch_on_the_card_counts_like_the_cpu(card):
+    from crdt_tpu_torch import telemetry as tele
+    from crdt_tpu_torch.convert import orswot_from_numpy
+    from crdt_tpu_torch.parallel import VirtualMesh, mesh_fanout_push
+
+    state, bases, idx, weights = chip_smoke.fanout_dispatch_case(8, 5)
+    got = {}
+    for dev in (card, torch.device("cpu")):
+        out = mesh_fanout_push(orswot_from_numpy(state, dev), orswot_from_numpy(bases, dev),
+                               torch.as_tensor(idx).to(dev), VirtualMesh(8, dev),
+                               weights=torch.as_tensor(weights).to(dev), telemetry=True)
+        got[dev.type] = tele.to_dict(out[2])
+    for k, v in got["cpu"].items():
+        if k not in chip_smoke.HOST_TIMED:
+            assert got["cuda"][k] == v, k
+    assert got["cuda"]["cohorts_per_dispatch"] == int((idx >= 0).sum())

@@ -657,27 +657,41 @@ def _small_ring_inputs():
 
 
 # The ROADMAP item each ring mode still to port names when it raises.
-UNPORTED_ITEMS = {"telemetry": "15", "faults": "15.4"}
+UNPORTED_ITEMS = {"faults": "15.4"}
 
 
 @pytest.mark.parametrize("flag", [dict(telemetry=True), dict(donate=True, telemetry=True),
                                   dict(faults=object()),
-                                  dict(ack_window=True, wal=object(), telemetry=True),
+                                  dict(ack_window=True, wal=True, telemetry=True),
                                   dict(wal=object(), faults=object())])
-def test_an_unported_map_ring_mode_raises(flag):
-    """``donate=``, ``ack_window=`` and ``wal=`` run; each mode still to
-    port raises, naming its ROADMAP item, in their company too."""
-    item = next(UNPORTED_ITEMS[k] for k in flag if k in UNPORTED_ITEMS)
+def test_an_unported_map_ring_mode_raises(flag, tmp_path):
+    """``donate=``, ``ack_window=``, ``wal=`` and ``telemetry=`` run (the
+    sidecar comes back fifth, ``wal_*`` filled); each mode still to port
+    raises, naming its ROADMAP item, in their company too."""
+    from crdt_tpu_torch.durability.wal import Wal
+
     state, dirty, fctx, m = _small_ring_inputs()
-    with pytest.raises(NotImplementedError, match=rf"ROADMAP item {item}\)"):
-        delta_map.mesh_delta_gossip_map(state, dirty, fctx, m, **flag)
+    item = next((UNPORTED_ITEMS[k] for k in flag if k in UNPORTED_ITEMS), None)
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=rf"ROADMAP item {item}\)"):
+            delta_map.mesh_delta_gossip_map(state, dirty, fctx, m, **flag)
+        return
+    with Wal(tmp_path / "wal") as wal:
+        if flag.get("wal"):
+            flag = dict(flag, wal=wal)
+        out = delta_map.mesh_delta_gossip_map(state, dirty, fctx, m, **flag)
+    assert len(out) == 5 and int(out[4].residue) == int(out[3])
+    assert (float(out[4].wal_bytes) > 0) == ("wal" in flag)
 
 
 @pytest.mark.parametrize("flag", [dict(telemetry=True), dict(donate=True, telemetry=True)])
 def test_an_unported_full_state_map_mode_raises(flag):
+    """``telemetry=`` (ROADMAP item 15.1) now runs on both full-state Map
+    entries, donating or not: the Telemetry comes back third."""
     state, _, _, m = _small_ring_inputs()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-        mesh_fold_map(state, m, **flag)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-        mesh_gossip_map(state, m, **flag)
+    clone = lambda: type(state)(*(x.clone() if isinstance(x, torch.Tensor)  # noqa: E731
+                                  else type(x)(*(y.clone() for y in x)) for x in state))
+    for fn in (mesh_fold_map, mesh_gossip_map):
+        out = fn(clone(), m, **flag)
+        assert len(out) == 3 and int(out[2].merges.view(torch.int32)) > 0
 

@@ -187,19 +187,28 @@ def test_an_elastic_wrapper_gives_up_after_max_migrations():
         gossip_elastic(object(), port_mesh)
 
 
-@pytest.mark.parametrize("flag,item", [(dict(telemetry=True), "15"),
+@pytest.mark.parametrize("flag,item", [(dict(telemetry=True), None),
                                        (dict(stability=True), "15.2"),
                                        (dict(reclaim=object()), "15.2"),
                                        (dict(faults=object()), "15.4")])
 def test_elastic_wrappers_refuse_unported_modes(flag, item):
+    """Each mode still to port raises naming its item; ``telemetry=`` runs
+    (ROADMAP item 15.1) and appends the attempts' Telemetry."""
     _, port_mesh = mesh()
     port = BatchedOrswot.from_pure([port_orswot(r) for r in _orswot_pures(P, 1)], device="cpu")
+    dirty = torch.ones((P, port.state.ctr.shape[-2]), dtype=torch.bool)
+    if item is None:
+        rows, widened, tel = gossip_elastic(port, port_mesh, **flag)
+        assert tel.merges.dtype == torch.uint32 and int(tel.residue) == 0
+        out = delta_gossip_elastic(port, dirty, torch.zeros_like(port.state.ctr), port_mesh,
+                                   **flag)
+        assert len(out) == 6 and out[5].wire_packed_bytes.item() > 0
+        return
     with pytest.raises(NotImplementedError, match=rf"ROADMAP item {item}\)"):
         gossip_elastic(port, port_mesh, **flag)
     # delta_gossip_elastic has no stability=; it refuses reclaim= (the same
     # item) in the company of the ported wal=.
     flag = dict(reclaim=object(), wal=object()) if "stability" in flag else flag
-    dirty = torch.ones((P, port.state.ctr.shape[-2]), dtype=torch.bool)
     with pytest.raises(NotImplementedError, match=rf"ROADMAP item {item}\)"):
         delta_gossip_elastic(port, dirty, torch.zeros_like(port.state.ctr), port_mesh, **flag)
 

@@ -443,12 +443,14 @@ def test_lost_residency_raises_like_jax():
 
 
 def test_left_out_modes_raise_naming_their_items():
+    from crdt_tpu_torch import telemetry as tele
+
     tw = Twin(2, dispatch_lanes=2)
     plane = tw.port["plane"]
-    with pytest.raises(NotImplementedError, match="15.1"):
-        plane.push(telemetry=True)
-    with pytest.raises(NotImplementedError, match="15.1"):
-        plane.annotate(None)
+    # ROADMAP item 15.1 is ported: push(telemetry=True) and annotate run.
+    tw.subscribe([0, 1])
+    assert plane.push(telemetry=True).telemetry is not None
+    assert tele.to_dict(plane.annotate(tele.zeros("cpu")))["subscribers_live"] == 2
     assert not hasattr(fanout, "static_checks")
     with pytest.raises(ValueError) as got:
         fanout.FanoutPlane(serve.Superblock(4, VirtualMesh(2, "cpu"), caps=CAPS),

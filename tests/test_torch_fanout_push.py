@@ -6,8 +6,8 @@ every wire leaf, the push bytes and the rank-summed ``nnz``/``chk`` equal,
 bit for bit — the checksum's row weights restart on every rank, so a
 flattened B·E batch would not match. Empty lanes price 0 bytes and stay
 off the wire while their residual is the rank's local row 0, as in JAX.
-The validation errors equal the JAX ones; ``telemetry=True`` raises
-naming ROADMAP item 15.1."""
+The validation errors equal the JAX ones; ``telemetry=True`` (ROADMAP
+item 15.1) returns the dispatch's Telemetry third."""
 
 import jax
 import jax.numpy as jnp
@@ -93,10 +93,15 @@ def test_validation_errors_match_jax(what, cut):
 
 
 def test_telemetry_raises_naming_item_15_1():
+    """Item 15.1 is ported: ``telemetry=True`` runs, counts the dispatch's
+    cohorts and prices its pushes (the JAX comparison is in
+    ``test_torch_telemetry.py``)."""
     state, bases, idx, _ = dispatch(1, 2)
-    with pytest.raises(NotImplementedError, match="15.1"):
-        mesh_fanout_push(orswot_from_numpy(state, "cpu"), orswot_from_numpy(bases, "cpu"),
-                         torch.as_tensor(idx), VirtualMesh(1, "cpu"), telemetry=True)
+    wire, pb, tel = mesh_fanout_push(orswot_from_numpy(state, "cpu"),
+                                     orswot_from_numpy(bases, "cpu"), torch.as_tensor(idx),
+                                     VirtualMesh(1, "cpu"), telemetry=True)
+    assert int(tel.cohorts_per_dispatch.view(torch.int32)) == int((idx >= 0).sum())
+    assert float(tel.delta_push_bytes) == float(pb.sum())
 
 
 def test_unknown_kind_raises_like_jax():

@@ -426,12 +426,19 @@ def test_unported_modes_raise_naming_their_items():
     sb = serve.Superblock(4, VirtualMesh(1, "cpu"), caps=dict(DENSE_CAPS))
     q = serve.IngestQueue(sb, lanes=2, depth=2)
     loop = serve.ServeLoop(q)
-    for call in (lambda: q.flush(telemetry=True), lambda: q.drain(telemetry=True),
-                 lambda: q.annotate(None, coalesced=0, batch=0), lambda: sb.annotate(None),
-                 lambda: loop.step(telemetry=True), lambda: loop.annotate(None),
-                 lambda: sb.apply(None, None, [], telemetry=True)):
-        with pytest.raises(NotImplementedError, match="15.1"):
-            call()
+    from crdt_tpu_torch import telemetry as tele
+
+    # ROADMAP item 15.1 is ported: every telemetry path runs and returns a
+    # Telemetry (an idle queue's flush gives the identity, annotated).
+    zeros = tele.zeros("cpu")
+    slab = sb_ops.empty_slab(sb.tk, sb.caps, 2, 2, device="cpu")
+    for call in (lambda: q.flush(telemetry=True)[1], lambda: q.drain(telemetry=True)[1] or zeros,
+                 lambda: q.annotate(zeros, coalesced=0, batch=0), lambda: sb.annotate(zeros),
+                 lambda: loop.step(telemetry=True)[1] or zeros, lambda: loop.annotate(zeros),
+                 lambda: sb.apply(slab, torch.full((2,), -1, dtype=torch.int32), [-1, -1],
+                                  telemetry=True)):
+        assert isinstance(call(), tele.Telemetry)
+    assert tele.to_dict(sb.annotate(zeros))["live_tenants"] == 4
     with pytest.raises(NotImplementedError, match="item 5"):
         serve.sync_tenant_shards(sb, serve.TenantShardMap(1), 0, [0])
     for call in (serve.static_checks, lambda: serve.wal_order_violations(q),

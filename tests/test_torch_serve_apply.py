@@ -103,5 +103,7 @@ def test_validation_errors_match_jax():
                              ref_sb.empty_slab(ref_sb.tenant_kind("orswot"), caps,
                                                P * B_PER_RANK, DEPTH),
                              jnp.asarray(idx), make_mesh(P, 1))
-    with pytest.raises(NotImplementedError, match="15.1"):
-        mesh_serve_apply(state, slab, idx, mesh, telemetry=True)
+    # telemetry= (ROADMAP item 15.1) runs: an all-NOOP slab changes nothing.
+    out = mesh_serve_apply(state, slab, idx, mesh, telemetry=True)
+    assert len(out) == 3 and int(out[2].slots_changed.view(torch.int32)) == 0
+    assert float(out[2].bytes_useful) == 0.0 and float(out[2].bytes_exchanged) > 0

@@ -418,5 +418,9 @@ def test_mesh_fold_sparse_matches_reference(p, seed, n):
     got, got_of = mesh_fold_sparse(to_port(states), VirtualMesh(p, "cpu"))
     assert_same(want, got, f"P={p}")
     assert_flags(want_of, got_of, f"P={p}")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        mesh_fold_sparse(to_port(states), VirtualMesh(p, "cpu"), telemetry=True)
+    # telemetry= (ROADMAP item 15.1) runs: the same state, the JAX sidecar.
+    tel_out = mesh_fold_sparse(to_port(states), VirtualMesh(p, "cpu"), telemetry=True)
+    want_tel = ref_mesh_fold_sparse(states, make_mesh(p, 1), telemetry=True)[2]
+    assert_same(want, tel_out[0], f"P={p} telemetry")
+    assert int(tel_out[2].slots_changed.view(torch.int32)) == int(want_tel.slots_changed)
+    assert int(tel_out[2].merges.view(torch.int32)) == int(want_tel.merges)

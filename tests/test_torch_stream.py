@@ -12,6 +12,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from crdt_tpu.ops import orswot as ref_dense
 from crdt_tpu.ops import sparse_orswot as ref
@@ -210,15 +211,33 @@ def test_a_source_that_dies_before_the_first_block():
 
 
 @pytest.mark.parametrize("mode,item", [
-    ({"telemetry": True}, "item 15)"), ({"frontier": np.zeros(4)}, "item 15)"),
-    ({"compact_every": 2}, "item 15)"), ({"widen_policy": object()}, "item 15.3"),
+    # telemetry= runs (ROADMAP item 15.1), with wal= (item 9) too.
+    ({"telemetry": True}, None), ({"frontier": np.zeros(4)}, "item 15.2)"),
+    ({"compact_every": 2}, "item 15.2)"), ({"widen_policy": object()}, "item 15.3"),
     ({"faults": object()}, "item 15.4"),
     # wal= runs (ROADMAP item 9): in its company the unported modes still raise.
-    ({"wal": object(), "telemetry": True}, "item 15)"),
+    ({"wal": True, "telemetry": True}, None),
     ({"wal_every": 2, "faults": object()}, "item 15.4"),
 ])
 @pytest.mark.parametrize("entry", ["sparse", "dense"])
-def test_unported_modes_name_their_item(mode, item, entry):
+def test_unported_modes_name_their_item(mode, item, entry, tmp_path):
+    from crdt_tpu_torch.durability.wal import Wal
+
     fn = mesh_stream_fold_sparse if entry == "sparse" else mesh_stream_fold
-    with pytest.raises(NotImplementedError, match=item.replace(".", r"\.").replace(")", r"\)")):
-        fn([], mesh(), **mode)
+    if item is not None:
+        with pytest.raises(NotImplementedError,
+                           match=item.replace(".", r"\.").replace(")", r"\)")):
+            fn([], mesh(), **mode)
+        return
+    if entry == "sparse":
+        state = to_port(ref_states(1, n=8))
+    else:
+        from test_torch_collectives import replicas
+
+        state = orswot_from_numpy(replicas(4, n=8), "cpu")
+    with Wal(tmp_path / "wal") as wal:
+        if mode.get("wal"):
+            mode = dict(mode, wal=wal)
+        acc, of, tel = fn(iter_blocks(state, 4), mesh(), **mode)
+    assert int(tel.stream_blocks.view(torch.int32)) == 2
+    assert (float(tel.wal_bytes) > 0) == ("wal" in mode)
