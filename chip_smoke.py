@@ -276,6 +276,32 @@ at first use), then runs, printing one JSON line per phase:
                         card's ``to_dict`` == the CPU's on every counted
                         field (``HOST_TIMED`` left out by name).
 
+25. ``sparse_map_scenarios`` — oracle-minted op streams through
+                        ``BatchedSparseMap`` and ``BatchedSparseMapOrswot`` on the
+                        card and on the CPU side by side (card == CPU on every
+                        leaf, ``to_pure`` == the pure ``Map`` oracle, removes
+                        parked ahead at both levels), merges, folds — the sparse
+                        Map's fold == a dense ``BatchedMap`` twin's (K2, counted)
+                        — reset_remove and the capacity errors.
+26. ``full_width_sparse_map`` — (a) ``BENCH_CONFIGS.json`` "sparse_map" uncut
+                        (R = 256, cell cap 2,048, a 100M-key universe, sibling
+                        cap 8, A = 8) through ``mesh_fold_sparse_mvmap`` on P = 8
+                        and ``BatchedSparseMap.fold()``; gates: == a left chain
+                        of joins, ``split_cells`` of it == the key-sharded fold on
+                        ``VirtualMesh(8, s=2)``, == the master union, K1–K3
+                        launched 0 times; fold ms, merges/s, live cells, bytes,
+                        busy share, peak memory. (b) the same widths at the
+                        flagship's population (10,240 replicas, 40 blocks of
+                        256) through ``mesh_stream_fold_sparse_mvmap``. (c)
+                        ``BatchedSparseMapOrswot`` at the "sparse" config's
+                        widths (R = 256, dot cap 4,096; 65,536 keys × span 16,
+                        16 parked keyset-removes): ``mesh_fold_sparse_nested``
+                        and ``mesh_fold_sparse_map`` on ``VirtualMesh(8, s=2)``
+                        == ``split_nested`` of it == the join chain. (d) the
+                        flagship population through
+                        ``mesh_stream_fold_sparse_sharded`` at S = 2 ==
+                        ``split_segments`` of the unsharded stream.
+
 Then the ``nvidia-smi`` name/power-limit line, a ``kernels`` JSON line, and
 as the last line ``{"ok": true, "device": {...}}``. Any failed check raises
 and the script exits non-zero without that line. It needs one CUDA device
@@ -3726,17 +3752,30 @@ def kind_arrays(kind: str, rng) -> dict:
         return {k: v[0] for k, v in child.items()}
     if kind == "vclock":
         return dict(clock=u32((5,)))
-    check(kind == "sparse_orswot", f"no random state for kind {kind!r}")
-    return dict(top=u32((3,)), eid=rng.integers(-1, 30, 8).astype(np.int32),
-                act=rng.integers(0, 3, 8).astype(np.int32), ctr=u32((8,)),
-                valid=rng.random(8) < 0.6, dcl=u32((2, 3)),
-                didx=rng.integers(-1, 30, (2, 4)).astype(np.int32), dvalid=rng.random(2) < 0.5)
+    segments = dict(top=u32((3,)), eid=rng.integers(-1, 30, 8).astype(np.int32),
+                    act=rng.integers(0, 3, 8).astype(np.int32), ctr=u32((8,)),
+                    valid=rng.random(8) < 0.6, dcl=u32((2, 3)),
+                    didx=rng.integers(-1, 30, (2, 4)).astype(np.int32),
+                    dvalid=rng.random(2) < 0.5)
+    if kind == "sparse_orswot":
+        return segments
+    if kind == "sparse_mvmap":
+        return dict(top=u32((3,)), kid=rng.integers(-1, 30, 8).astype(np.int32),
+                    act=rng.integers(0, 3, 8).astype(np.int32), ctr=u32((8,)),
+                    val=rng.integers(0, 9, 8).astype(np.int32), clk=u32((8, 3)),
+                    valid=rng.random(8) < 0.6, dcl=u32((2, 3)),
+                    kidx=rng.integers(-1, 30, (2, 4)).astype(np.int32),
+                    dvalid=rng.random(2) < 0.5)
+    check(kind in ("sparse_nest", "sparse_nested_map"), f"no random state for kind {kind!r}")
+    return dict(core=segments, kcl=u32((2, 3)),
+                kidx=rng.integers(-1, 8, (2, 4)).astype(np.int32), kdvalid=rng.random(2) < 0.5)
 
 
 def kind_state(kind: str, arrays: dict, device):
     """:func:`kind_arrays`'s leaves as the port's state on ``device``."""
     from crdt_tpu_torch.convert import (
-        leaf_from_numpy, map_from_numpy, orswot_from_numpy, sparse_orswot_from_numpy,
+        leaf_from_numpy, map_from_numpy, orswot_from_numpy, sparse_mvmap_from_numpy,
+        sparse_nest_from_numpy, sparse_orswot_from_numpy,
     )
     from crdt_tpu_torch.ops.mvreg import MVRegState
 
@@ -3746,6 +3785,10 @@ def kind_state(kind: str, arrays: dict, device):
         return map_from_numpy(arrays, device)
     if kind == "sparse_orswot":
         return sparse_orswot_from_numpy(arrays, device)
+    if kind == "sparse_mvmap":
+        return sparse_mvmap_from_numpy(arrays, device)
+    if kind in ("sparse_nest", "sparse_nested_map"):
+        return sparse_nest_from_numpy(arrays, device)
     if kind == "mvreg":
         return MVRegState(**{k: leaf_from_numpy(v, device) for k, v in arrays.items()})
     return leaf_from_numpy(arrays["clock"], device)
@@ -5624,11 +5667,564 @@ def phase_telemetry_scenarios(device, seed: int) -> dict:
     return res
 
 
+# ---- phases 25-26: the sparse Map kinds (ROADMAP item 12b) ---------------
+
+def mint_set_map_sites(rng, n_sites, n_cmds):
+    """Map<K, Orswot> sites: each adds members to keys under its own actor,
+    removes members inside a child and whole keys, and merges another
+    site's state now and then, so later remove clocks cover other actors'
+    dots (their delivery ahead of those adds parks them at either level)."""
+    from crdt_tpu_torch.pure import Map, Orswot
+    from crdt_tpu_torch.ctx import RmCtx
+    from crdt_tpu_torch.vclock import VClock
+
+    sites = [Map(Orswot) for _ in range(n_sites)]
+    streams = [[] for _ in range(n_sites)]
+    for _ in range(n_cmds):
+        i = rng.randrange(n_sites)
+        s = sites[i]
+        roll = rng.random()
+        key, member = rng.choice(MAP_KEYS), rng.choice(MEMBERS)
+        if roll < 0.4 or not s.keys():
+            op = s.update(key, s.len().derive_add_ctx(f"s{i}"),
+                          lambda child, c: child.add(member, c))
+        elif roll < 0.55:
+            key = rng.choice(sorted(s.keys()))
+            child = s.entries[key]
+            rm_ctx = (child.contains(member).derive_rm_ctx() if member in child.entries
+                      else RmCtx(clock=VClock()))
+            op = s.update(key, s.len().derive_add_ctx(f"s{i}"),
+                          lambda child, c: child.rm(member, rm_ctx))
+        elif roll < 0.72:
+            victim = rng.choice(sorted(s.keys()))
+            op = s.rm(victim, s.get(victim).derive_rm_ctx())
+        else:
+            s.merge(sites[rng.randrange(n_sites)].clone())
+            continue
+        s.apply(op)
+        streams[i].append(op)
+    return sites, streams
+
+
+def on_cpu(tree):
+    from crdt_tpu_torch.ops.lattice import tree_map
+
+    return tree_map(lambda x: x.cpu(), tree)
+
+
+def phase_sparse_map_scenarios(device, seed: int, rounds: int = 4) -> dict:
+    """Oracle-minted op streams through ``BatchedSparseMap`` and
+    ``BatchedSparseMapOrswot`` on the card and on the CPU side by side:
+    card == CPU on every leaf after every replica's ops, merges and
+    folds; ``to_pure`` == the pure ``Map`` oracle; the sparse Map's fold ==
+    a dense ``BatchedMap`` twin's fold (K2, counted) through ``to_pure``;
+    the capacity errors."""
+    import torch
+
+    from crdt_tpu_torch.ctx import RmCtx
+    from crdt_tpu_torch.dot import Dot
+    from crdt_tpu_torch.models import (
+        BatchedMap, BatchedSparseMap, BatchedSparseMapOrswot, DeferredOverflow,
+        DotCapacityOverflow, SlotOverflow,
+    )
+    from crdt_tpu_torch.ops.fold_kernels import fold_cells, fold_entries
+    from crdt_tpu_torch.ops.wire_kernels import wire_pack
+    from crdt_tpu_torch.pure import Map, MVReg, Orswot
+    from crdt_tpu_torch.pure.map import MapRm, Up
+    from crdt_tpu_torch.pure.mvreg import Put
+    from crdt_tpu_torch.utils import Interner
+    from crdt_tpu_torch.vclock import VClock
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    rng = random.Random(seed + 25)
+    counts = {"ops": 0, "merges": 0, "folds": 0, "resets": 0, "parked_seen": 0,
+              "nested_ops": 0, "nested_parked_seen": 0}
+    fold_entries.launches = fold_cells.launches = wire_pack.launches = 0
+
+    def both(make):
+        return make(device), make(cpu)
+
+    def same_card_cpu(card, host, what):
+        check(same_leaves(on_cpu(card.state), host.state), f"card != CPU: {what}")
+
+    for _ in range(rounds):
+        # ---- Map<K, MVReg>: the sparse model, its CPU twin, a dense twin.
+        n = rng.randint(3, 5)
+        sites, streams = mint_map_sites(rng, n, 24)
+        names = dict(keys=Interner(MAP_KEYS), actors=Interner([f"s{i}" for i in range(n)]),
+                     values=Interner(range(5)))
+        clone = lambda: {k: v.clone() for k, v in names.items()}  # noqa: E731
+        card, host = both(lambda dev: BatchedSparseMap(n, len(MAP_KEYS), n, cell_cap=32,
+                                                       sibling_cap=n, deferred_cap=8,
+                                                       device=dev, **clone()))
+        dense = BatchedMap(n, len(MAP_KEYS), n, sibling_cap=n, deferred_cap=8, device=device,
+                           **clone())
+        replicas = [Map(MVReg) for _ in range(n)]
+        for j in range(n):
+            cut = [q[: rng.choice((0, len(q), rng.randint(0, len(q))))] for q in streams]
+            for op in interleave(rng, cut):
+                for m in (card, host, dense):
+                    m.apply(j, op)
+                replicas[j].apply(op)
+                counts["ops"] += 1
+            check(card.to_pure(j) == replicas[j] == dense.to_pure(j),
+                  f"sparse map op path, replica {j}")
+        # A remove ahead of every top parks on replica 0 (and replays in no
+        # merge: nothing ever catches up with it).
+        probe = MapRm(clock=VClock({"s0": 99}), keyset=(MAP_KEYS[0],))
+        for m in (card, host, dense):
+            m.apply(0, probe)
+        replicas[0].apply(probe)
+        counts["parked_seen"] += sum(len(x.deferred) for x in replicas)
+        same_card_cpu(card, host, "sparse map op path")
+        for _ in range(n):
+            dst, src = rng.randrange(n), rng.randrange(n)
+            replicas[dst].merge(replicas[src].clone())
+            for m in (card, host, dense):
+                m.merge_from(dst, src)
+            counts["merges"] += 1
+            check(card.to_pure(dst) == replicas[dst], "sparse map merge_from vs the oracle")
+        same_card_cpu(card, host, "sparse map merges")
+        clock = VClock({"s0": 2, f"s{n - 1}": 1})
+        for m in (card, host, dense):
+            m.reset_remove(1, clock)
+        replicas[1].reset_remove(clock)
+        check(card.to_pure(1) == replicas[1] == dense.to_pure(1), "sparse map reset_remove")
+        counts["resets"] += 1
+        expect = Map(MVReg)
+        for s in replicas:
+            expect.merge(s.clone())
+        k2 = fold_cells.launches
+        check(card.fold() == expect == dense.fold() == host.fold(),
+              "sparse map fold vs the oracle, the dense fold and the CPU")
+        check(device.type != "cuda" or fold_cells.launches == k2 + 1,
+              "the dense twin's fold did not launch K2")
+        counts["folds"] += 1
+
+        # ---- Map<K, Orswot>: the nested sparse model and its CPU twin.
+        sites, streams = mint_set_map_sites(rng, n, 24)
+        names = dict(keys=Interner(MAP_KEYS), members=Interner(MEMBERS),
+                     actors=Interner([f"s{i}" for i in range(n + 1)]))
+        card, host = both(lambda dev: BatchedSparseMapOrswot(
+            n, 8, 48, n + 1, deferred_cap=8, rm_width=8, key_deferred_cap=8, key_rm_width=4,
+            device=dev, **{k: v.clone() for k, v in names.items()}))
+        replicas = [Map(Orswot) for _ in range(n)]
+        for j in range(n):
+            cut = [q[: rng.choice((0, len(q), rng.randint(0, len(q))))] for q in streams]
+            for op in interleave(rng, cut):
+                card.apply(j, op)
+                host.apply(j, op)
+                replicas[j].apply(op)
+                counts["nested_ops"] += 1
+            check(card.to_pure(j) == replicas[j], f"sparse Map<K, Orswot> op path, replica {j}")
+        # Removes ahead of every top park at both levels: a key remove on
+        # replica 0, a member remove inside a child on replica 1 (witnessed
+        # by an actor of its own, so its dot meets no other op).
+        ahead = VClock({"s0": 99})
+        probes = [(0, MapRm(clock=ahead, keyset=(MAP_KEYS[0],))),
+                  (1, replicas[1].update(MAP_KEYS[1], replicas[1].len().derive_add_ctx(f"s{n}"),
+                                         lambda child, c: child.rm(MEMBERS[0],
+                                                                   RmCtx(clock=ahead))))]
+        for j, probe in probes:
+            card.apply(j, probe)
+            host.apply(j, probe)
+            replicas[j].apply(probe)
+        counts["nested_parked_seen"] += sum(
+            len(x.deferred) + sum(len(c.deferred) for c in x.entries.values()) for x in replicas)
+        same_card_cpu(card, host, "sparse Map<K, Orswot> op path")
+        for _ in range(n):
+            dst, src = rng.randrange(n), rng.randrange(n)
+            replicas[dst].merge(replicas[src].clone())
+            card.merge_from(dst, src)
+            host.merge_from(dst, src)
+            check(card.to_pure(dst) == replicas[dst], "sparse Map<K, Orswot> merge_from")
+        same_card_cpu(card, host, "sparse Map<K, Orswot> merges")
+        expect = Map(Orswot)
+        for s in replicas:
+            expect.merge(s.clone())
+        check(card.fold() == expect == host.fold(), "sparse Map<K, Orswot> fold vs the oracle")
+
+    # Capacity: a full cell table, a key past the sibling cap, a full
+    # parked buffer.
+    small = BatchedSparseMap(1, 4, 2, cell_cap=1, device=device)
+    small.apply(0, Up(dot=Dot("a", 1), key="p", op=Put(dot=Dot("a", 1),
+                                                      clock=VClock({"a": 1}), val=1)))
+    with expect_raises(DotCapacityOverflow):
+        small.apply(0, Up(dot=Dot("b", 1), key="q", op=Put(dot=Dot("b", 1),
+                                                          clock=VClock({"b": 1}), val=2)))
+    pair = BatchedSparseMap(2, 4, 2, sibling_cap=1, device=device)
+    for i, a in enumerate("ab"):
+        pair.apply(i, Up(dot=Dot(a, 1), key="p", op=Put(dot=Dot(a, 1), clock=VClock({a: 1}),
+                                                       val=i)))
+    with expect_raises(SlotOverflow):
+        pair.merge_from(0, 1)
+    parked = BatchedSparseMap(1, 4, 2, deferred_cap=1, device=device)
+    parked.apply(0, MapRm(clock=VClock({"a": 3}), keyset=("p",)))
+    with expect_raises(DeferredOverflow):
+        parked.apply(0, MapRm(clock=VClock({"a": 4}), keyset=("q",)))
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    check(counts["parked_seen"] > 0 and counts["nested_parked_seen"] > 0,
+          "no sparse Map scenario parked an ahead remove")
+    out = {"phase": "sparse_map_scenarios", **counts, "k1_launches": fold_entries.launches,
+           "k2_launches": fold_cells.launches, "k3_launches": wire_pack.launches,
+           "phase_s": time.perf_counter() - t_phase}
+    emit(out)
+    return out
+
+
+def sparse_map_population(c: int, universe: int, n_actors: int, device, seed: int = 11):
+    """``bench.py`` ``bench_sparse_map``'s cells (a key uniform over
+    ``universe``, an actor uniform over ``n_actors``, unique (key, actor)
+    cells, a value uniform below 2^20, the write clock holding only the
+    cell's own dot) as ONE master table of ``c`` cells in canonical (key,
+    actor) order, cut per replica as ``bench.py`` ``_flagship_population``
+    cuts: replica ``r`` holds the first ``L_r ∈ [c/2, c]`` lanes (a hash of
+    r). A cell's counter is its rank among its actor's cells, so every
+    replica holds a per-actor prefix of one write history, a dot carries
+    the same payload on every replica, and the join is a true lattice.
+    Returns ``(gen, master)``: ``gen(row_ids)`` makes a canonical
+    ``SparseMVMapState [B, ...]`` on the device; ``master`` holds the
+    table and the per-lane running top."""
+    import numpy as np
+    import torch
+
+    from crdt_tpu_torch._dtypes import bits
+    from crdt_tpu_torch.convert import leaf_from_numpy
+    from crdt_tpu_torch.ops import sparse_mvmap as smv
+    from crdt_tpu_torch.ops.lattice import tree_map
+
+    rng = np.random.default_rng(seed)
+    packed = np.sort(rng.choice(universe * n_actors, size=c, replace=False).astype(np.int64))
+    kids, acts = (packed // n_actors).astype(np.int32), (packed % n_actors).astype(np.int32)
+    ctrs = np.zeros(c, np.uint32)
+    tops = np.zeros((c, n_actors), np.uint32)
+    run = np.zeros(n_actors, np.uint32)
+    for i in range(c):
+        run[acts[i]] += 1
+        ctrs[i] = run[acts[i]]
+        tops[i] = run
+    vals = rng.integers(0, 1 << 20, c).astype(np.int32)
+    clk = np.zeros((c, n_actors), np.uint32)
+    clk[np.arange(c), acts] = ctrs
+    master = {k: leaf_from_numpy(v, device) for k, v in dict(
+        kid=kids, act=acts, ctr=ctrs, val=vals, clk=clk, tops=tops).items()}
+    half = c // 2
+    lanes = torch.arange(c, device=device)
+
+    def cut_of(row_ids):
+        return half + ((row_ids * 2654435761) & 0xFFFFFFFF) % max(c - half + 1, 1)
+
+    def gen(row_ids):
+        cut = cut_of(row_ids)
+        valid = lanes[None, :] < cut[:, None]
+        state = smv.empty(c, n_actors, batch=(row_ids.shape[0],), device=device)
+        keep = lambda x, fill=0: torch.where(valid, bits(x), fill).view(x.dtype)  # noqa: E731
+        return state._replace(
+            top=bits(master["tops"])[cut - 1].view(torch.uint32),
+            kid=keep(master["kid"], -1), act=keep(master["act"]), ctr=keep(master["ctr"]),
+            val=keep(master["val"]),
+            clk=torch.where(valid[..., None], bits(master["clk"]), 0).view(torch.uint32),
+            valid=valid,
+        )
+
+    def union(n_rows: int):
+        """The join of rows ``[0, n_rows)``: the row with the longest cut
+        holds every other row's prefix, so it IS the union (unbatched)."""
+        longest = torch.argmax(cut_of(torch.arange(n_rows, device=device)))
+        return tree_map(lambda x: x[0], gen(longest[None]))
+
+    return gen, master, union
+
+
+class IdNames:
+    """A name table whose every id is its own name: ``to_pure`` of a state
+    over a 100M-key universe without interning 100M names."""
+
+    def __getitem__(self, i):
+        return i
+
+
+def nested_population(r: int, c: int, universe: int, n_keys: int, span: int, n_actors: int,
+                      device, n_parked: int = 16, n_clocks: int = 4, rm_width: int = 256,
+                      key_deferred_cap: int = 4, seed: int = 13):
+    """A ``Map<K, Orswot>`` population at the "sparse" config's widths:
+    the flagship construction's cells (``flagship_population``) over
+    ``universe`` elements laid out as ``n_keys`` keys × ``span`` members
+    (element id = key · span + member), plus ``n_parked`` keyset-removes drawn as
+    ``fill_config4`` draws them — parked on rows ``pos·r/n_parked``, slot
+    ``pos mod 2``, over ``n_clocks`` clocks whose lane 0 runs ahead of
+    every top while the others cover every dot, together listing ≈ 1% of
+    the keys (a clock's four lists union within ``rm_width``). Returns
+    the ``[r, ...]`` state."""
+    import numpy as np
+    import torch
+
+    from crdt_tpu_torch._dtypes import bits, to_wide
+    from crdt_tpu_torch.ops import sparse_nest as nest
+
+    check(n_keys * span >= universe, "the key space does not hold the element universe")
+    gen, master = flagship_population(c, universe, n_actors, device, seed=seed)
+    core = gen(torch.arange(r, device=device))
+    state = nest.level_map_orswot(span).empty(core, n_actors, key_deferred_cap, rm_width,
+                                              batch=(r,))
+    rng = np.random.default_rng(seed + 4)
+    end = int(to_wide(master["ctr"]).max())
+    per_list = max(1, int(0.01 * n_keys / n_parked))
+    for pos in range(n_parked):
+        row, slot = pos * r // n_parked, pos % min(key_deferred_cap, 2)
+        clock = [end] * n_actors
+        clock[0] = end + 1 + pos % n_clocks
+        keys = np.sort(rng.choice(n_keys, size=per_list, replace=False)).astype(np.int32)
+        bits(state.kcl)[row, slot] = torch.tensor(clock, dtype=torch.int64,
+                                                  device=device).to(torch.int32)
+        state.kidx[row, slot, :per_list] = torch.tensor(keys, device=device)
+        state.kdvalid[row, slot] = True
+    return state
+
+
+def phase_full_width_sparse_map(device, seed: int, r: int = 256, cells: int = 2048,
+                                universe: int = 100_000_000, a: int = 8, siblings: int = 8,
+                                p: int = 8, stream_r: int = 10240, block_rows: int = 256,
+                                passes: int = 5, sp_r: int = 256, sp_cap: int = 4096,
+                                sp_universe: int = 1_000_000, sp_keys: int = 65536,
+                                sp_span: int = 16, profile_blocks: int = 10) -> dict:
+    """The sparse Map kinds at full width (ROADMAP item 12b). (a)
+    ``BENCH_CONFIGS.json`` "sparse_map" uncut — R = 256, cell cap 2,048, a
+    100M-key universe, sibling cap 8, A = 8, D = 4, rm width 8 — through
+    ``mesh_fold_sparse_mvmap`` on P = 8 and ``BatchedSparseMap.fold()``;
+    gates before any number: the mesh fold == a left chain of joins on
+    every leaf, ``split_cells`` of it == the key-sharded fold on
+    ``VirtualMesh(8, s=2)``, == the master table's union, K1–K3 launched
+    0 times. (b) the same widths at the flagship's population, 10,240
+    replicas in 40 blocks of 256, through ``mesh_stream_fold_sparse_mvmap``
+    (gate: == the union). (c) ``BatchedSparseMapOrswot`` at the "sparse"
+    config's widths (R = 256, dot cap 4,096, A = 8; 1M elements as 65,536
+    keys × span 16, 16 parked keyset-removes): ``mesh_fold_sparse_nested``
+    on P = 8 and ``mesh_fold_sparse_map`` on ``VirtualMesh(8, s=2)``; gate:
+    sharded == ``split_nested`` of unsharded, both == the join chain
+    (cells bit for bit, parked removes as sets: their slot order follows
+    the join order). (d) the flagship population through
+    ``mesh_stream_fold_sparse_sharded`` at S = 2; gate: ==
+    ``split_segments`` of the unsharded stream's result."""
+    import numpy as np
+    import torch
+
+    from crdt_tpu_torch.models import BatchedSparseMap
+    from crdt_tpu_torch.ops import sparse_mvmap as smv
+    from crdt_tpu_torch.ops import sparse_nest as nest
+    from crdt_tpu_torch.ops.fold_kernels import fold_cells, fold_entries
+    from crdt_tpu_torch.ops.lattice import tree_leaves, tree_map
+    from crdt_tpu_torch.ops.wire_kernels import wire_pack
+    from crdt_tpu_torch.parallel import (
+        VirtualMesh, mesh_fold_sparse_map, mesh_fold_sparse_mvmap,
+        mesh_fold_sparse_mvmap_sharded, mesh_fold_sparse_nested, mesh_stream_fold_sparse,
+        mesh_stream_fold_sparse_mvmap, mesh_stream_fold_sparse_sharded, split_cells,
+        split_nested, split_segments,
+    )
+    from crdt_tpu_torch.utils.metrics import metrics
+
+    del seed  # the populations carry their own seeds (11, 13), as bench.py's do
+    t_phase = time.perf_counter()
+    on_card = device.type == "cuda"
+    sync = (lambda: torch.cuda.synchronize(device)) if on_card else (lambda: None)
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    mesh, smesh = VirtualMesh(p, device), VirtualMesh(p, device, s=2)
+    row = lambda st, i: tree_map(lambda x: x[i], st)  # noqa: E731
+    one = lambda st: tree_map(lambda x: x[None], st)  # noqa: E731
+
+    def chain(states, join):
+        acc, flagged = row(states, 0), False
+        for i in range(1, tree_leaves(states)[0].shape[0]):
+            acc, f = join(acc, row(states, i))
+            flagged = flagged or bool(f.any())
+        return acc, flagged
+
+    # ---- (a) "sparse_map" uncut ------------------------------------------
+    gen, master, union = sparse_map_population(cells, universe, a, device)
+    states = gen(torch.arange(r, device=device))
+    state_bytes = smv.nbytes(states)
+    fold_entries.launches = fold_cells.launches = wire_pack.launches = 0
+    folded, of = mesh_fold_sparse_mvmap(states, mesh, sibling_cap=siblings)
+    launches = {"k1": fold_entries.launches, "k2": fold_cells.launches, "k3": wire_pack.launches}
+    sync()
+    join = lambda x, y: smv.join(x, y, sibling_cap=siblings)  # noqa: E731
+    t0 = time.perf_counter()
+    chained, chain_of = chain(states, join)
+    sync()
+    chain_ms = (time.perf_counter() - t0) * 1e3
+    sharded, sh_of = mesh_fold_sparse_mvmap_sharded(split_cells(states, 2), smesh,
+                                                    sibling_cap=siblings)
+    model = BatchedSparseMap(r, universe, a, cells, siblings, 4, 8, keys=IdNames(),
+                             actors=IdNames(), values=IdNames(), device=device)
+    model.state = states
+    want = union(r)
+    gates = {
+        "no_overflow": not bool(of.any()) and not chain_of and not bool(sh_of.any()),
+        "mesh_fold_equals_join_chain": same_leaves(folded, chained),
+        "split_cells_equals_sharded_fold": same_leaves(row(split_cells(one(folded), 2), 0),
+                                                       sharded),
+        "equals_master_union": same_leaves(folded, want),
+        "model_fold_equals_master_union": model.fold() == model._pure_of(want),
+        "k1_k2_k3_launched_0": launches == {"k1": 0, "k2": 0, "k3": 0},
+    }
+    check(all(gates.values()), f"sparse_map gates failed: {gates}")
+    fold_runs = [time_ms(lambda: mesh_fold_sparse_mvmap(states, mesh, sibling_cap=siblings),
+                         device) for _ in range(passes)]
+    ops_runs = [time_ms(lambda: smv.fold(states, sibling_cap=siblings), device)
+                for _ in range(passes)]
+    model_runs = [time_ms(model.fold, device) for _ in range(3)]
+    busy = profile_busy(lambda: mesh_fold_sparse_mvmap(states, mesh, sibling_cap=siblings),
+                        device)
+    med = statistics.median(fold_runs)
+    sparse_map = {
+        "R": r, "cell_cap": cells, "universe": universe, "A": a, "sibling_cap": siblings,
+        "D": 4, "Q": 8, "P": p, "gates": gates, "live_cells": int(folded.valid.sum()),
+        "state_bytes": state_bytes, "per_replica_bytes": state_bytes // r,
+        "launches": launches,
+        "mesh_fold_ms_median": med, "mesh_fold_ms_runs": fold_runs,
+        "merges_per_s": (r - 1) / (med * 1e-3),
+        "ops_fold_ms_median": statistics.median(ops_runs),
+        "model_fold_ms_median": statistics.median(model_runs),
+        "join_chain_ms": chain_ms, "profile": busy,
+        "busy_share": busy["busy_share"] if busy else None,
+        "peak_mem_gb": torch.cuda.max_memory_allocated(device) / 1e9 if on_card else None,
+    }
+    del states, folded, chained, sharded, model
+
+    # ---- (b) the same widths at the flagship's population ---------------
+    n_blocks = -(-stream_r // block_rows)
+    r_run = n_blocks * block_rows
+
+    def blocks():
+        for b in range(n_blocks):
+            yield gen(torch.arange(b * block_rows, (b + 1) * block_rows, device=device))
+
+    staged0 = metrics.snapshot()["counters"].get("stream.staged_bytes", 0)
+    acc, acc_of = mesh_stream_fold_sparse_mvmap(blocks(), mesh, sibling_cap=siblings)
+    staged = metrics.snapshot()["counters"].get("stream.staged_bytes", 0) - staged0
+    check(not bool(acc_of.any()) and same_leaves(acc, union(r_run)),
+          "the sparse_map stream did not converge to the master union")
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
+    stream_runs = [time_ms(lambda: mesh_stream_fold_sparse_mvmap(blocks(), mesh,
+                                                                 sibling_cap=siblings), device)
+                   for _ in range(passes)]
+    stream_busy = profile_busy(lambda: mesh_stream_fold_sparse_mvmap(
+        itertools.islice(blocks(), profile_blocks), mesh, sibling_cap=siblings), device)
+    smed = statistics.median(stream_runs)
+    stream = {
+        "R": r_run, "block_rows": block_rows, "blocks": n_blocks, "staged_bytes": staged,
+        "stream_ms_median": smed, "stream_ms_runs": stream_runs,
+        "merges_per_s": (r_run - 1) / (smed * 1e-3), "live_cells": int(acc.valid.sum()),
+        "profiled_blocks": profile_blocks, "profile": stream_busy,
+        "busy_share": stream_busy["busy_share"] if stream_busy else None,
+        "launch_kernel_calls_per_block":
+            stream_busy["launch_kernel_calls"] / profile_blocks if stream_busy else None,
+        "peak_mem_gb": torch.cuda.max_memory_allocated(device) / 1e9 if on_card else None,
+    }
+    del acc
+
+    # ---- (c) Map<K, Orswot> at the "sparse" config's widths --------------
+    nstates = nested_population(sp_r, sp_cap, sp_universe, sp_keys, sp_span, a, device)
+    level = nest.level_map_orswot(sp_span)
+    t0 = time.perf_counter()
+    unsharded, u_of = mesh_fold_sparse_nested(nstates, mesh, level)
+    sync()
+    nested_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    nsharded, s_of = mesh_fold_sparse_map(split_nested(nstates, 2), smesh, sp_span)
+    sync()
+    map_ms = (time.perf_counter() - t0) * 1e3
+    nchained, n_chain_of = chain(nstates, level.join)
+    ngates = {
+        "no_overflow": not bool(u_of.any()) and not bool(s_of.any()) and not n_chain_of,
+        "sharded_equals_split_of_unsharded": same_leaves(
+            row(split_nested(one(unsharded), 2), 0), nsharded),
+        "cells_equal_join_chain": same_leaves(unsharded.core, nchained.core),
+        "parked_removes_equal_join_chain": nested_parked(unsharded) == nested_parked(nchained),
+        "parked_removes_survive": bool(unsharded.kdvalid.any()),
+    }
+    check(all(ngates.values()), f"sparse Map<K, Orswot> gates failed: {ngates}")
+    nested = {
+        "R": sp_r, "dot_cap": sp_cap, "universe": sp_universe, "keys": sp_keys,
+        "span": sp_span, "A": a, "key_deferred_cap": 4, "key_rm_width": 256,
+        "parked_keyset_removes": 16, "gates": ngates,
+        "live_cells": int(unsharded.core.valid.sum()),
+        "parked_slots": int(unsharded.kdvalid.sum()),
+        "state_bytes": sum(x.numel() * x.element_size() for x in tree_leaves(nstates)),
+        "mesh_fold_sparse_nested_ms_first": nested_ms,
+        "mesh_fold_sparse_map_ms_first": map_ms,
+        "mesh_fold_sparse_nested_ms_median": statistics.median(
+            [time_ms(lambda: mesh_fold_sparse_nested(nstates, mesh, level), device)
+             for _ in range(3)]),
+        "mesh_fold_sparse_map_ms_median": statistics.median(
+            [time_ms(lambda: mesh_fold_sparse_map(split_nested(nstates, 2), smesh, sp_span),
+                     device) for _ in range(3)]),
+    }
+    del nstates, unsharded, nsharded, nchained
+
+    # ---- (d) the flagship population, element-sharded at S = 2 -----------
+    fgen, _ = flagship_population(sp_cap, sp_universe, a, device)
+    f_blocks = -(-stream_r // block_rows)
+
+    def flat_blocks():
+        for b in range(f_blocks):
+            yield fgen(torch.arange(b * block_rows, (b + 1) * block_rows, device=device))
+
+    def sharded_blocks():
+        for block in flat_blocks():
+            yield split_segments(block, 2)
+
+    flat, f_of = mesh_stream_fold_sparse(flat_blocks(), mesh)
+    t0 = time.perf_counter()
+    acc_sh, sh_of = mesh_stream_fold_sparse_sharded(sharded_blocks(), smesh)
+    sync()
+    sh_ms = (time.perf_counter() - t0) * 1e3
+    check(not bool(f_of.any()) and not bool(sh_of.any())
+          and same_leaves(acc_sh, row(split_segments(one(flat), 2), 0)),
+          "the sharded flagship stream differs from split_segments of the unsharded one")
+    flagship_sharded = {
+        "R": f_blocks * block_rows, "S": 2, "blocks": f_blocks, "stream_ms": sh_ms,
+        "live_cells_per_shard": acc_sh.valid.sum(dim=-1).tolist(),
+        "note": "one pass, its blocks split by split_segments on the card as they arrive",
+    }
+    out = {
+        "phase": "full_width_sparse_map", "sparse_map": sparse_map, "stream": stream,
+        "nested": nested, "flagship_sharded": flagship_sharded,
+        "reduced": "uncut widths; (a)/(b) cells: bench.py bench_sparse_map's key, actor and "
+                   "value draws as one master table cut per replica (the flagship rule), "
+                   "counters the per-actor rank (bench draws 1..99 per replica), so one dot "
+                   "carries one payload on every replica and the join is a true lattice; (c) "
+                   "key lists 256 wide so a clock's four fill_config4 lists union in one slot",
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    emit(out)
+    return out
+
+
+def nested_parked(state) -> set:
+    """A nest's parked keyset-removes as a set of (clock, key set) pairs,
+    equal-clock slots unioned (one oracle entry): the slot order follows
+    the join order, the set does not."""
+    from crdt_tpu_torch._dtypes import to_wide
+
+    rows = {}
+    for cl, ids, ok in zip(to_wide(state.kcl).tolist(), state.kidx.tolist(),
+                           state.kdvalid.tolist()):
+        if ok:
+            rows.setdefault(tuple(cl), set()).update(k for k in ids if k >= 0)
+    return {(c, frozenset(k)) for c, k in rows.items()}
+
+
 PHASES = ("k1", "scenarios", "full_width", "k2", "map_scenarios", "full_width_map", "k3",
           "delta_scenarios", "full_width_delta", "map_delta_scenarios", "full_width_delta_map",
           "sparse_scenarios", "flagship", "elastic", "resync", "donate", "durability",
           "serve_scenarios", "serve", "serve_zipf", "fanout_scenarios", "fanout",
-          "telemetry_scenarios")
+          "telemetry_scenarios", "sparse_map_scenarios", "full_width_sparse_map")
 
 
 def main(argv=None) -> int:
@@ -5706,6 +6302,10 @@ def main(argv=None) -> int:
         res["fanout"] = phase_fanout(device, args.seed)
     if run("telemetry_scenarios"):
         phase_telemetry_scenarios(device, args.seed)
+    if run("sparse_map_scenarios"):
+        phase_sparse_map_scenarios(device, args.seed)
+    if run("full_width_sparse_map"):
+        phase_full_width_sparse_map(device, args.seed)
     if only:
         print(f"chip_smoke: partial run of {only}; no kernels line", flush=True)
         return 0

@@ -13,7 +13,9 @@ Layers of the dense ORSWOT slice: ``pure`` (the sequential oracle) →
 (``BatchedOrswot``). ``convert`` carries states across packages as numpy.
 Later slices add the Map<K, MVReg> (``ops.map``, ``models.map``), the δ
 rings (``parallel``), the segment-encoded ORSWOT (``ops.sparse_orswot``,
-``models.sparse_orswot``) and the replica stream (``parallel.stream``).
+``models.sparse_orswot``), the replica stream (``parallel.stream``) and
+the sparse Map kinds (``ops.sparse_mvmap``, ``ops.sparse_nest``,
+``models.sparse_mvmap``, ``models.sparse_map``, ``parallel.sparse_shard``).
 """
 
 from .traits import CvRDT, CmRDT, ResetRemove, Causal, ValidationError, DotRange

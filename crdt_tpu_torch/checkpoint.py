@@ -12,10 +12,11 @@ resuming is then ordinary anti-entropy (``merge``/``fold`` with the live
 replicas).
 
 Ported kinds: ``BatchedOrswot`` (``orswot``), ``BatchedSparseOrswot``
-(``sparse_orswot``) and ``BatchedMap`` (``map``). The JAX package's other
-kinds raise naming the ROADMAP item that ports them: the nested maps
-(13), the sparse maps (12b), lists and counters (14). ``compact=True``
-needs the ``reclaim/`` plane (item 15.2) and raises.
+(``sparse_orswot``), ``BatchedMap`` (``map``), ``BatchedSparseMapOrswot``
+(``sparse_map_orswot``) and ``BatchedSparseMap`` (``sparse_map``). The JAX
+package's other kinds raise naming the ROADMAP item that ports them: the
+nested maps (13), lists and counters (14). ``compact=True`` needs the
+``reclaim/`` plane (item 15.2) and raises.
 """
 
 from __future__ import annotations
@@ -33,10 +34,14 @@ from . import serde
 from .convert import leaf_from_numpy, leaf_to_numpy
 from .models.map import BatchedMap
 from .models.orswot import BatchedOrswot
+from .models.sparse_map import BatchedSparseMapOrswot
+from .models.sparse_mvmap import BatchedSparseMap
 from .models.sparse_orswot import BatchedSparseOrswot
 from .ops.map import MapState
 from .ops.mvreg import MVRegState
 from .ops.orswot import OrswotState
+from .ops.sparse_mvmap import SparseMVMapState
+from .ops.sparse_nest import SparseNestState
 from .ops.sparse_orswot import SparseOrswotState
 from .utils import Interner
 from .utils.metrics import metrics
@@ -44,8 +49,8 @@ from .utils.metrics import metrics
 #: The JAX package's checkpoint kinds the port does not have yet, with the
 #: ROADMAP item that ports each.
 _UNPORTED_KINDS = {
-    "map_orswot": "13", "map_map": "13", "map3": "13", "sparse_map_orswot": "12b",
-    "sparse_map_map": "12b", "sparse_map": "12b", "list": "14", "glist": "14",
+    "map_orswot": "13", "map_map": "13", "map3": "13", "sparse_map_map": "13", "list": "14",
+    "glist": "14",
 }
 
 
@@ -130,11 +135,23 @@ def _dump(model) -> tuple:
         arrays = {f"s_{k}": leaf_to_numpy(v) for k, v in model.state._asdict().items()
                   if k != "child"}
         arrays.update(_fields("c_", model.state.child))
+    elif isinstance(model, BatchedSparseMapOrswot):
+        meta = {"kind": "sparse_map_orswot", "span": model.span,
+                "keys": _interner_items(model.keys), "members": _interner_items(model.members),
+                "actors": _interner_items(model.actors)}
+        arrays = _fields("c_", model.state.core)
+        arrays.update({f"s_{k}": leaf_to_numpy(v) for k, v in model.state._asdict().items()
+                       if k != "core"})
+    elif isinstance(model, BatchedSparseMap):
+        meta = {"kind": "sparse_map", "n_keys": model.n_keys, "sibling_cap": model.sibling_cap,
+                "keys": _interner_items(model.keys), "actors": _interner_items(model.actors),
+                "values": _interner_items(model.values)}
+        arrays = _fields("s_", model.state)
     else:
         raise TypeError(
             f"cannot checkpoint {type(model).__name__}: the port checkpoints BatchedOrswot, "
-            f"BatchedSparseOrswot and BatchedMap (the nested maps come with ROADMAP item 13, "
-            f"the sparse maps with 12b, lists and counters with 14)"
+            f"BatchedSparseOrswot, BatchedMap, BatchedSparseMapOrswot and BatchedSparseMap "
+            f"(the nested maps come with ROADMAP item 13, lists and counters with 14)"
         )
     return meta, arrays
 
@@ -254,6 +271,23 @@ def _restore(meta: dict, arrays: dict, device="cuda"):
         model = BatchedMap(
             state.top.shape[0], state.dkeys.shape[-1], state.top.shape[-1],
             state.child.wact.shape[-1], state.dcl.shape[-2],
+            keys=_interner_from(meta["keys"]), actors=_interner_from(meta["actors"]),
+            values=_interner_from(meta["values"]), device="meta",
+        )
+    elif kind == "sparse_map_orswot":
+        core = SparseOrswotState(**_prefixed(arrays, "c_", device))
+        state = SparseNestState(core=core, **_prefixed(arrays, "s_", device))
+        model = BatchedSparseMapOrswot(
+            core.top.shape[0], int(meta["span"]), core.eid.shape[-1], core.top.shape[-1],
+            core.dcl.shape[-2], core.didx.shape[-1], state.kcl.shape[-2], state.kidx.shape[-1],
+            keys=_interner_from(meta["keys"]), members=_interner_from(meta["members"]),
+            actors=_interner_from(meta["actors"]), device="meta",
+        )
+    elif kind == "sparse_map":
+        state = SparseMVMapState(**_prefixed(arrays, "s_", device))
+        model = BatchedSparseMap(
+            state.top.shape[0], int(meta["n_keys"]), state.top.shape[-1], state.kid.shape[-1],
+            int(meta["sibling_cap"]), state.dcl.shape[-2], state.kidx.shape[-1],
             keys=_interner_from(meta["keys"]), actors=_interner_from(meta["actors"]),
             values=_interner_from(meta["values"]), device="meta",
         )

@@ -12,6 +12,12 @@ both directions copy:
   u32, ``clk`` u32, ``val`` i32, ``valid`` bool;
 - ``SparseOrswotState``: ``top``/``ctr``/``dcl`` u32, ``eid``/``act``/
   ``didx`` i32, ``valid``/``dvalid`` bool;
+- ``SparseMVMapState``: ``top``/``ctr``/``clk``/``dcl`` u32, ``kid``/
+  ``act``/``val``/``kidx`` i32, ``valid``/``dvalid`` bool;
+- ``SparseNestState`` (any depth): ``core``, a dict of the level inside
+  (itself nested, or the leaf's — an ORSWOT segment table has ``eid``, a
+  register-map cell table ``kid``), and ``kcl`` u32, ``kidx`` i32,
+  ``kdvalid`` bool;
 - δ tracking (``tracking_from_numpy``): ``dirty`` bool, ``fctx`` u32 or
   u64;
 - a serving superblock (``superblock_from_numpy``): the ``orswot`` or
@@ -39,6 +45,8 @@ import torch
 from .ops.map import MapState
 from .ops.mvreg import MVRegState
 from .ops.orswot import OrswotState
+from .ops.sparse_mvmap import SparseMVMapState
+from .ops.sparse_nest import SparseNestState
 from .ops.sparse_orswot import SparseOrswotState
 
 _DTYPES = {
@@ -50,6 +58,11 @@ _SPARSE_DTYPES = {
     "top": np.uint32, "eid": np.int32, "act": np.int32, "ctr": np.uint32, "valid": np.bool_,
     "dcl": np.uint32, "didx": np.int32, "dvalid": np.bool_,
 }
+_SPARSE_MVMAP_DTYPES = {
+    "top": np.uint32, "kid": np.int32, "act": np.int32, "ctr": np.uint32, "val": np.int32,
+    "clk": np.uint32, "valid": np.bool_, "dcl": np.uint32, "kidx": np.int32, "dvalid": np.bool_,
+}
+_NEST_DTYPES = {"kcl": np.uint32, "kidx": np.int32, "kdvalid": np.bool_}
 _CHILD_DTYPES = {
     "wact": np.int32, "wctr": np.uint32, "clk": np.uint32, "val": np.int32, "valid": np.bool_,
 }
@@ -118,6 +131,49 @@ def sparse_orswot_to_numpy(state: SparseOrswotState) -> Dict[str, np.ndarray]:
     """A port ``SparseOrswotState`` → a dict of numpy arrays (u32 / i32 /
     bool)."""
     return _leaves_to_numpy(state, _SPARSE_DTYPES)
+
+
+def sparse_mvmap_from_numpy(arrays: Dict[str, np.ndarray], device="cuda") -> SparseMVMapState:
+    """``{"top", "kid", "act", "ctr", "val", "clk", "valid", "dcl", "kidx",
+    "dvalid"}`` numpy arrays → a ``SparseMVMapState`` on ``device``.
+    Raises on a missing leaf or a dtype other than the leaf's."""
+    return SparseMVMapState(**_leaves_from_numpy("sparse mvmap", arrays, _SPARSE_MVMAP_DTYPES,
+                                                 device))
+
+
+def sparse_mvmap_to_numpy(state: SparseMVMapState) -> Dict[str, np.ndarray]:
+    """A port ``SparseMVMapState`` → a dict of numpy arrays."""
+    return _leaves_to_numpy(state, _SPARSE_MVMAP_DTYPES)
+
+
+def sparse_nest_from_numpy(arrays: dict, device="cuda") -> SparseNestState:
+    """``{"core": {...}, "kcl", "kidx", "kdvalid"}`` numpy arrays → a
+    ``SparseNestState`` on ``device``, at any depth: ``core`` is the next
+    level's dict (it has a ``core`` of its own) or the leaf's (``eid``:
+    the ORSWOT segment table; ``kid``: the register-map cell table).
+    Raises on a missing leaf or a dtype other than the leaf's."""
+    core = arrays["core"]
+    if "core" in core:
+        inner = sparse_nest_from_numpy(core, device)
+    elif "eid" in core:
+        inner = sparse_orswot_from_numpy(core, device)
+    else:
+        inner = sparse_mvmap_from_numpy(core, device)
+    return SparseNestState(core=inner, **_leaves_from_numpy("sparse nest", arrays, _NEST_DTYPES,
+                                                             device))
+
+
+def sparse_nest_to_numpy(state: SparseNestState) -> dict:
+    """A port ``SparseNestState`` (any depth) → the nested dict of numpy
+    arrays :func:`sparse_nest_from_numpy` takes."""
+    core = state.core
+    if isinstance(core, SparseNestState):
+        inner = sparse_nest_to_numpy(core)
+    elif isinstance(core, SparseOrswotState):
+        inner = sparse_orswot_to_numpy(core)
+    else:
+        inner = sparse_mvmap_to_numpy(core)
+    return {"core": inner, **_leaves_to_numpy(state, _NEST_DTYPES)}
 
 
 def map_from_numpy(arrays: dict, device="cuda") -> MapState:

@@ -109,8 +109,10 @@ def drop_lane(d: Decomposition, lane: int) -> Decomposition:
 
 def _table() -> dict:
     from ..ops import map as map_ops
-    from ..ops import mvreg, orswot, sparse_orswot, vclock
+    from ..ops import mvreg, orswot, sparse_mvmap, sparse_nest, sparse_orswot, vclock
 
+    nest = Decomposer(sparse_nest.level_map_orswot(2).join, sparse_nest._decomp_split,
+                      sparse_nest._decomp_unsplit)
     return {
         "orswot": Decomposer(orswot.join, orswot._decomp_split, orswot._decomp_unsplit),
         "map": Decomposer(map_ops.join, map_ops._decomp_split, map_ops._decomp_unsplit),
@@ -118,6 +120,16 @@ def _table() -> dict:
         "vclock": Decomposer(vclock.merge, vclock._decomp_split, vclock._decomp_unsplit),
         "sparse_orswot": Decomposer(sparse_orswot.join, sparse_orswot._decomp_split,
                                     sparse_orswot._decomp_unsplit),
+        "sparse_mvmap": Decomposer(sparse_mvmap.join, sparse_mvmap._decomp_split,
+                                   sparse_mvmap._decomp_unsplit),
+        # Any sparse nest, either leaf, under the module's name and under
+        # the JAX registry's ("sparse_nested_map", the name its logs
+        # record, so either package replays the other's). Its join is the
+        # JAX registration's, ``level_map_orswot(2).join`` (span 2): a nest
+        # of another span resyncs through a Decomposer holding its own
+        # level's join.
+        "sparse_nest": nest,
+        "sparse_nested_map": nest,
     }
 
 

@@ -1,6 +1,7 @@
 """Elastic capacity manager: live overflow → widen → resume migration —
 counterpart of the JAX package's ``elastic.py`` for the kinds the port
-has (``BatchedOrswot``, ``BatchedSparseOrswot``, ``BatchedMap``).
+has (``BatchedOrswot``, ``BatchedSparseOrswot``, ``BatchedMap``,
+``BatchedSparseMap``).
 
 Every bounded device structure surfaces overflow (``DeferredOverflow``,
 ``DotCapacityOverflow``, ``SlotOverflow``, a full interned universe's
@@ -28,8 +29,9 @@ holding the replica set. The ring entries' elastic wrappers
 ``parallel/delta_ring.delta_gossip_elastic``) pause, migrate and rejoin.
 :func:`widen` runs inside the ``elastic.widen`` span (``telemetry.span``);
 the JAX module's ``elastic.shrink`` span comes with ROADMAP item 15.2,
-its ``elastic_vote`` event with ``obs`` (item 15.6); the sparse Map and
-nested kinds' axis tables come with those kinds (items 12b and 13).
+its ``elastic_vote`` event with ``obs`` (item 15.6); the sparse nested
+map's axis table comes with its model (item 13). The JAX table has no
+``BatchedSparseMapOrswot`` row, nor has this one.
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ from ._dtypes import to_wide
 from .models.map import BatchedMap
 from .models.orswot import BatchedOrswot, DeferredOverflow
 from .models.registers import SlotOverflow
+from .models.sparse_mvmap import BatchedSparseMap
 from .models.sparse_orswot import BatchedSparseOrswot, DotCapacityOverflow
 from .ops.lattice import tree_map
 from .utils.interner import UniverseFull
@@ -118,10 +121,36 @@ def _axes_map(m) -> Dict[str, Tuple[int, Callable[[], int]]]:
     }
 
 
+def _axes_sparse_map(m) -> Dict[str, Tuple[int, Callable[[], int]]]:
+    return {
+        "cell_cap": (m.state.kid.shape[-1], lambda: _max_count(m.state.valid)),
+        "n_keys": (m.n_keys, lambda: len(m.keys)),
+        "n_actors": (m.state.top.shape[-1], lambda: len(m.actors)),
+        "sibling_cap": (m.sibling_cap, lambda: _max_siblings(m.state)),
+        "deferred_cap": (m.state.dvalid.shape[-1], lambda: _max_count(m.state.dvalid)),
+        "rm_width": (m.state.kidx.shape[-1], lambda: _max_listed(m.state.kidx)),
+    }
+
+
+def _max_siblings(core) -> int:
+    """Max live cells sharing one (replica, key) — the ``sibling_cap``
+    occupancy: one unique over the packed (row, kid) pairs of the live
+    cells, O(live cells), no per-replica loop and no count over the
+    virtual key universe."""
+    kid = core.kid.reshape(-1, core.kid.shape[-1])
+    valid = core.valid.reshape(kid.shape)
+    rows = torch.nonzero(valid)[:, 0]
+    if not rows.numel():
+        return 0
+    packed = rows.to(torch.int64) << 31 | kid[valid].to(torch.int64)
+    return int(torch.unique(packed, return_counts=True)[1].max())
+
+
 _KINDS = (
     (BatchedOrswot, "orswot", _axes_orswot),
     (BatchedSparseOrswot, "sparse_orswot", _axes_sparse_orswot),
     (BatchedMap, "map", _axes_map),
+    (BatchedSparseMap, "sparse_map", _axes_sparse_map),
 )
 
 
@@ -130,14 +159,14 @@ def _lookup(model):
         if isinstance(model, cls):
             return kind, table
     raise TypeError(
-        f"elastic migrations cover BatchedOrswot, BatchedSparseOrswot and BatchedMap, got "
-        f"{type(model).__name__}"
+        f"elastic migrations cover BatchedOrswot, BatchedSparseOrswot, BatchedMap and "
+        f"BatchedSparseMap, got {type(model).__name__}"
     )
 
 
 def kind_of(model) -> str:
     """The metrics namespace of a model (``orswot``, ``sparse_orswot``,
-    ``map``)."""
+    ``map``, ``sparse_map``)."""
     return _lookup(model)[0]
 
 

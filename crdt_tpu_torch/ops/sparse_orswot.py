@@ -317,6 +317,42 @@ def _compact_parked(dcl, didx, dvalid, cap: int):
     return dcl, didx, dvalid, overflow
 
 
+def _park_list(dcl, didx, dvalid, rm_clock, ids, ahead):
+    """Park (clock, id list) into the bounded slot table: union onto an
+    equal-clock slot when the canonical union fits the Q lanes, else claim
+    the first free slot (the list flavour of the dense ``_park_remove``;
+    the JAX package's ``sparse_nest._park_list``, shared by the segment
+    ORSWOT's and the sparse maps' removes). Over any leading lane axes, one
+    op per lane. ``dcl``/``rm_clock`` wide. Returns ``(dcl, didx, dvalid,
+    overflow)``."""
+    d, q = didx.shape[-2:]
+    w = ids.shape[-1]
+    if w > q:
+        raise ValueError(f"rm op element-list width {w} must fit rm_width {q}")
+    lead = dvalid.shape[:-1]
+    rm_clock = rm_clock.expand(*lead, rm_clock.shape[-1])
+    ids = ids.expand(*lead, w)
+    same = dvalid & torch.all(dcl == rm_clock[..., None, :], dim=-1)
+    merged = _canon_rmlist(torch.cat([didx, ids[..., None, :].expand(*lead, d, w)], dim=-1))
+    fits = (merged >= 0).sum(dim=-1) <= q
+    use_same = same & fits
+    has_same = torch.any(use_same, dim=-1)
+    free = ~dvalid
+    has_free = torch.any(free, dim=-1)
+    # argmax over 0/1 picks the first maximal slot, as jnp.argmax does.
+    slot = torch.where(has_same, torch.argmax(use_same.to(torch.uint8), dim=-1),
+                       torch.argmax(free.to(torch.uint8), dim=-1))
+    park = ahead & (has_same | has_free)
+    overflow = ahead & ~has_same & ~has_free
+    onehot = (torch.arange(d, device=slot.device) == slot[..., None]) & park[..., None]
+    fresh = _canon_rmlist(F.pad(ids, (0, q - w), value=-1))
+    picked = torch.take_along_dim(merged, slot[..., None, None], dim=-2)[..., 0, :q]
+    new_list = torch.where(has_same[..., None], picked, fresh)
+    dcl = torch.where(onehot[..., None], rm_clock[..., None, :], dcl)
+    didx = torch.where(onehot[..., None], new_list[..., None, :], didx)
+    return dcl, didx, dvalid | onehot, overflow
+
+
 def _clock(clock, like: torch.Tensor) -> torch.Tensor:
     """A clock argument (tensor, numpy array or list) as u32 lanes on
     ``like``'s device (values wrap like ``astype(uint32)``)."""
@@ -449,11 +485,7 @@ def apply_rm(state: SparseOrswotState, rm_clock, eids):
     combined list fits, else claim a free slot. Returns ``(state,
     overflow)``. Over any leading lane axes, ``rm_clock [..., A]`` and
     ``eids [..., W]`` one op per lane (the slot pick is per lane)."""
-    d, q = state.didx.shape[-2:]
     eids = _ids(eids, state.eid)
-    w = eids.shape[-1]
-    if w > q:
-        raise ValueError(f"rm op element-list width {w} must fit rm_width {q}")
     rc = to_wide(_clock(rm_clock, state.top))
     listed = torch.any((state.eid[..., :, None] == eids[..., None, :])
                        & (eids[..., None, :] >= 0), dim=-1)
@@ -462,31 +494,14 @@ def apply_rm(state: SparseOrswotState, rm_clock, eids):
     valid = state.valid & ~covered
 
     ahead = ~torch.all(rc <= to_wide(state.top), dim=-1)
-    dcl = to_wide(state.dcl)
-    same = state.dvalid & torch.all(dcl == rc[..., None, :], dim=-1)
-    lists = eids[..., None, :].expand(*eids.shape[:-1], d, w)
-    merged = _canon_rmlist(torch.cat([state.didx, lists], dim=-1))
-    fits = (merged >= 0).sum(dim=-1) <= q
-    use_same = same & fits
-    has_same = torch.any(use_same, dim=-1)
-    free = ~state.dvalid
-    has_free = torch.any(free, dim=-1)
-    slot = torch.where(has_same, torch.argmax(use_same.to(torch.uint8), dim=-1),
-                       torch.argmax(free.to(torch.uint8), dim=-1))
-    park = ahead & (has_same | has_free)
-    overflow = ahead & ~has_same & ~has_free
-    onehot = (torch.arange(d, device=slot.device) == slot[..., None]) & park[..., None]
-    fresh = _canon_rmlist(F.pad(eids, (0, q - w), value=-1))
-    picked = torch.take_along_dim(merged, slot[..., None, None], dim=-2)[..., 0, :q]
-    new_list = torch.where(has_same[..., None], picked, fresh)
-    dcl = torch.where(onehot[..., None], rc[..., None, :], dcl)
-    didx = torch.where(onehot[..., None], new_list[..., None, :], state.didx)
+    dcl, didx, dvalid, overflow = _park_list(to_wide(state.dcl), state.didx, state.dvalid, rc,
+                                             eids, ahead)
 
     c, a = state.eid.shape[-1], state.top.shape[-1]
     eid, act, ctr, valid, _ = _canon(state.eid, state.act, to_wide(state.ctr), valid, c, a)
     return (
         state._replace(eid=eid, act=act, ctr=ctr, valid=valid, dcl=from_wide(dcl, DTYPE),
-                       didx=didx, dvalid=state.dvalid | onehot),
+                       didx=didx, dvalid=dvalid),
         overflow,
     )
 

@@ -9,18 +9,27 @@ reduction along it (``collectives``). Entries: ``mesh_fold`` and
 ``delta`` / ``delta_map`` + ``delta_ring``, with the bit-packed wire of
 ``wire``, kernel K3 and the ack window); ``mesh_fold_sparse`` and
 ``mesh_gossip_sparse`` (full-state, the segment-encoded ORSWOT);
+``mesh_fold_sparse_mvmap``, ``mesh_gossip_sparse_mvmap``,
+``mesh_fold_sparse_nested`` and ``mesh_gossip_sparse_nested`` (full-state,
+the sparse Map kinds); ``split_segments``, ``split_cells``,
+``split_nested`` and the element-sharded folds ``mesh_fold_sparse_sharded``,
+``mesh_fold_sparse_mvmap_sharded``, ``mesh_fold_sparse_map`` and
+``mesh_fold_sparse_nested_sharded`` (``sparse_shard``, ``[R, S, ...]``
+states on a ``VirtualMesh(p, s=S)``);
 ``gossip_elastic`` and ``delta_gossip_elastic`` (the overflow → widen →
 re-enter loops of ``elastic``); ``mesh_stream_fold_sparse`` and
-``mesh_stream_fold`` (a population streamed through the mesh in replica
-blocks, ``stream``); ``mesh_serve_apply`` (one coalesced op slab applied to
+``mesh_stream_fold``, ``mesh_stream_fold_sparse_mvmap`` and
+``mesh_stream_fold_sparse_sharded`` (a population streamed through the
+mesh in replica blocks, ``stream``); ``mesh_serve_apply`` (one coalesced op slab applied to
 a tenant superblock, ``serve_apply``); ``mesh_fanout_push`` (one dispatch
 of cohort δ payloads against a superblock, K3 over B·E client lanes,
 ``fanout_push``).
 """
 
 from .anti_entropy import (
-    gossip_elastic, mesh_fold, mesh_fold_map, mesh_fold_sparse, mesh_gossip, mesh_gossip_map,
-    mesh_gossip_sparse,
+    gossip_elastic, mesh_fold, mesh_fold_map, mesh_fold_sparse, mesh_fold_sparse_mvmap,
+    mesh_fold_sparse_nested, mesh_gossip, mesh_gossip_map, mesh_gossip_sparse,
+    mesh_gossip_sparse_mvmap, mesh_gossip_sparse_nested,
 )
 from .delta import DeltaPacket, interval_accumulate, mesh_delta_gossip
 from .delta_map import MapDeltaPacket, interval_accumulate_map, mesh_delta_gossip_map
@@ -30,13 +39,24 @@ from .mesh import (
     VirtualMesh, pad_elements, pad_keys, pad_replicas, pad_replicas_map, pad_replicas_sparse,
 )
 from .serve_apply import mesh_serve_apply
-from .stream import StreamInterrupted, iter_blocks, mesh_stream_fold, mesh_stream_fold_sparse
+from .sparse_shard import (
+    mesh_fold_sparse_map, mesh_fold_sparse_mvmap_sharded, mesh_fold_sparse_nested_sharded,
+    mesh_fold_sparse_sharded, split_cells, split_nested, split_segments,
+)
+from .stream import (
+    StreamInterrupted, iter_blocks, mesh_stream_fold, mesh_stream_fold_sparse,
+    mesh_stream_fold_sparse_mvmap, mesh_stream_fold_sparse_sharded,
+)
 
 __all__ = [
     "DeltaPacket", "MapDeltaPacket", "StreamInterrupted", "VirtualMesh", "delta_gossip_elastic",
     "gossip_elastic", "interval_accumulate", "interval_accumulate_map", "iter_blocks",
     "mesh_delta_gossip", "mesh_delta_gossip_map", "mesh_fanout_push", "mesh_fold", "mesh_fold_map",
-    "mesh_fold_sparse", "mesh_gossip", "mesh_gossip_map", "mesh_gossip_sparse", "mesh_serve_apply",
-    "mesh_stream_fold", "mesh_stream_fold_sparse", "pad_elements", "pad_keys", "pad_replicas",
-    "pad_replicas_map", "pad_replicas_sparse",
+    "mesh_fold_sparse", "mesh_fold_sparse_map", "mesh_fold_sparse_mvmap",
+    "mesh_fold_sparse_mvmap_sharded", "mesh_fold_sparse_nested", "mesh_fold_sparse_nested_sharded",
+    "mesh_fold_sparse_sharded", "mesh_gossip", "mesh_gossip_map", "mesh_gossip_sparse",
+    "mesh_gossip_sparse_mvmap", "mesh_gossip_sparse_nested", "mesh_serve_apply",
+    "mesh_stream_fold", "mesh_stream_fold_sparse", "mesh_stream_fold_sparse_mvmap",
+    "mesh_stream_fold_sparse_sharded", "pad_elements", "pad_keys", "pad_replicas",
+    "pad_replicas_map", "pad_replicas_sparse", "split_cells", "split_nested", "split_segments",
 ]

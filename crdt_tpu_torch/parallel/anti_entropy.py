@@ -10,8 +10,13 @@ kernel, in one batched tree for all ranks); then one lattice all-reduce
 (``mesh_fold*``) or ``rounds`` ring rounds (``mesh_gossip*``) join the
 ranks. K1 and K2 have no rank axis, so the local fold is one launch per
 rank, each streaming that rank's contiguous replica block.
-``mesh_gossip_sparse`` is the ring for the segment-encoded ORSWOT, and
-``gossip_elastic`` the ring entries' overflow → widen → re-enter loop
+``mesh_gossip_sparse`` is the ring for the segment-encoded ORSWOT;
+``mesh_fold_sparse_mvmap`` / ``mesh_gossip_sparse_mvmap`` (the sparse
+``Map<K, MVReg>``) and ``mesh_fold_sparse_nested`` /
+``mesh_gossip_sparse_nested`` (any sparse nest, e.g. ``Map<K, Orswot>``)
+are the sparse Map kinds' pair, the state replicated over the element
+axis (their element-sharded folds are ``sparse_shard.py``'s); and
+``gossip_elastic`` is the ring entries' overflow → widen → re-enter loop
 (``elastic.py``).
 
 ``donate=True`` (the JAX entries' zero-copy mode) says the caller yields
@@ -28,12 +33,14 @@ as the third element of the tuple: ``merges`` counts the JAX package's
 joins (each rank's ``R/P - 1`` local-fold joins plus log2(P) or P-1
 exchange joins for an all-reduce, plus one per ring round), whatever the
 port's ``collectives`` run inside; ``slots_changed`` the kind's changed
-lanes (``changed_members``, ``changed_keys``, ``changed_dots``);
+lanes (``changed_members``, ``changed_keys``, ``changed_dots``,
+``changed_cells``, every plane's changed entries for a nest);
 ``bytes_exchanged`` one rank's shipped state per exchange, over all
-ranks. The mesh has no element axis, so the JAX sums over
-``(REPLICA_AXIS, ELEMENT_AXIS)`` are sums over the P ranks. The
-``stability=`` and ``lag_threshold=`` (ROADMAP item 15.2) and ``faults=``
-(15.4) modes are still to port and raise, naming their items.
+ranks — and, for the sparse kinds, over the mesh's ``s`` element shards,
+each of which holds and ships a replicated copy (the JAX sums over
+``(REPLICA_AXIS, ELEMENT_AXIS)``). The ``stability=`` and
+``lag_threshold=`` (ROADMAP item 15.2) and ``faults=`` (15.4) modes are
+still to port and raise, naming their items.
 """
 
 from __future__ import annotations
@@ -48,14 +55,21 @@ from .._dtypes import bits, to_wide
 from ..utils.metrics import metrics
 from ..ops import map as map_ops
 from ..ops import orswot as ops
+from ..ops import sparse_mvmap as smv
 from ..ops import sparse_orswot as sp
 from ..ops.fold_kernels import fold_auto
 from ..ops.lattice import tree_leaves, tree_map
 from ..ops.map import MapState
 from ..ops.orswot import OrswotState
+from ..ops.sparse_mvmap import SparseMVMapState
+from ..ops.sparse_nest import SparseNestState
 from ..ops.sparse_orswot import SparseOrswotState
 from .collectives import all_reduce_join, all_reduce_lattice, ring_round
 from .mesh import VirtualMesh, pad_replicas, pad_replicas_map, pad_replicas_sparse
+
+#: The kinds whose join takes any leading batch: a rank block folds in one
+#: tree with the P ranks as a batch (:func:`local_folds`).
+_BATCHED_JOINS = (SparseOrswotState, SparseMVMapState, SparseNestState)
 
 
 # The ROADMAP item that ports each mode of the JAX entries still missing.
@@ -84,19 +98,20 @@ def _exchange_count(p: int) -> int:
 
 
 def _tel_reduced(folded, slots, merges_per_rank: int, bytes_per_rank, p: int, residue=None,
-                 useful_per_rank=None) -> tele.Telemetry:
+                 useful_per_rank=None, copies: int = 1) -> tele.Telemetry:
     """The JAX ``_tel_reduced`` on the virtual mesh: ``slots`` (0-d,
     already summed over the ranks), ``merges`` P times the per-rank count,
     the wire bytes (a Python count, the same on every rank, or a ``[P]``
-    float32 tensor) summed over the ranks, the gauges of ``folded`` (the
-    ``[P, ...]`` rank rows) maxed. ``useful_per_rank`` None = no mask,
-    wire == useful."""
+    float32 tensor) summed over the ranks and the ``copies`` element
+    shards that hold a replicated state (each ships its copy), the gauges
+    of ``folded`` (the ``[P, ...]`` rank rows) maxed. ``useful_per_rank``
+    None = no mask, wire == useful."""
     dev = slots.device
 
     def per_rank(x):
-        if isinstance(x, torch.Tensor):
-            return x
-        return torch.full((p,), float(x), dtype=torch.float32, device=dev)
+        if not isinstance(x, torch.Tensor):
+            x = torch.full((p,), float(x), dtype=torch.float32, device=dev)
+        return x.repeat(copies) if copies > 1 else x
 
     wire = per_rank(bytes_per_rank).sum()
     return tele.fill(
@@ -107,14 +122,15 @@ def _tel_reduced(folded, slots, merges_per_rank: int, bytes_per_rank, p: int, re
     )
 
 
-def _fold_tel(kind: str, folded, joined, blocks, slots_fn, p: int, t0: float):
+def _fold_tel(kind: str, folded, joined, blocks, slots_fn, p: int, t0: float,
+              copies: int = 1):
     """The telemetry of an all-reduce fold entry (JAX ``mesh_fold`` /
     ``_mesh_fold_lattice``): the kind's changed lanes between each rank's
     local fold and the joined state, recorded under ``kind``."""
     n_ex = _exchange_count(p)
     rl = tree_leaves(blocks)[0].shape[1]
     tel = _tel_reduced(joined, slots_fn(folded, joined), max(rl - 1, 0) + n_ex,
-                       tele.shipped_bytes(folded, batch_dims=1) * n_ex, p)
+                       tele.shipped_bytes(folded, batch_dims=1) * n_ex, p, copies=copies)
     return tele.finish_dispatch(kind, tel, t0)
 
 
@@ -178,12 +194,12 @@ def _donate_ring(donate: bool, aliasable: bool, state, out):
 
 
 def rank_blocks(state, mesh: VirtualMesh):
-    """``state [R, ...]`` (an ``OrswotState``, ``MapState`` or
-    ``SparseOrswotState``) on the mesh's device, padded with identities of
-    its kind to a multiple of P and viewed as ``[P, R/P, ...]`` rank
-    blocks."""
+    """``state [R, ...]`` (an ``OrswotState``, ``MapState``,
+    ``SparseOrswotState``, ``SparseMVMapState`` or ``SparseNestState``) on
+    the mesh's device, padded with identities of its kind to a multiple of
+    P and viewed as ``[P, R/P, ...]`` rank blocks."""
     pad = (pad_replicas_map if isinstance(state, MapState)
-           else pad_replicas_sparse if isinstance(state, SparseOrswotState)
+           else pad_replicas_sparse if isinstance(state, _BATCHED_JOINS)
            else pad_replicas)
     state = pad(tree_map(lambda x: x.to(mesh.device), state), mesh.p)
     return tree_map(lambda x: x.reshape(mesh.p, -1, *x.shape[1:]), state)
@@ -203,10 +219,9 @@ def local_folds(blocks: OrswotState, fold_fn) -> Tuple[OrswotState, torch.Tensor
     the per-rank overflow flags ``[P]`` (``[P, 2]`` for two-lane flags).
 
     A sparse block folds in ONE tree over the row axis with the P ranks
-    as a batch (``fold_fn`` is ``ops.sparse_orswot.fold``, whose join takes
-    any leading batch): the same pairs as P separate folds, so the same
-    bits, in 1/P of the launches."""
-    if isinstance(blocks, SparseOrswotState):
+    as a batch (the sparse kinds' joins take any leading batch): the same
+    pairs as P separate folds, so the same bits, in 1/P of the launches."""
+    if isinstance(blocks, _BATCHED_JOINS):
         return fold_fn(tree_map(lambda x: x.transpose(0, 1).contiguous(), blocks))
     p = blocks.top.shape[0]
     outs = [fold_fn(tree_map(lambda x: x[q], blocks)) for q in range(p)]
@@ -265,7 +280,7 @@ def mesh_gossip(
 
 
 def _gossip(kind: str, state, mesh: VirtualMesh, rounds: Optional[int], donate: bool, fold_fn,
-            join_fn, telemetry: bool = False, slots_fn=None):
+            join_fn, telemetry: bool = False, slots_fn=None, copies: int = 1):
     """The ring scaffold of the ``mesh_gossip*`` entries: each rank folds
     its block, then ``rounds`` (default P-1) unit-shift ring rounds.
     Returns ``(states [P, ...], overflow)`` with the flags OR-reduced over
@@ -287,7 +302,8 @@ def _gossip(kind: str, state, mesh: VirtualMesh, rounds: Optional[int], donate: 
         rl = tree_leaves(blocks)[0].shape[1]
         slots = tele.scalar("slots_changed", slots, mesh.device)
         tel = _tel_reduced(folded, slots, max(rl - 1, 0) + rounds,
-                           tele.shipped_bytes(folded, batch_dims=1) * rounds, mesh.p)
+                           tele.shipped_bytes(folded, batch_dims=1) * rounds, mesh.p,
+                           copies=copies)
     out = _donate_ring(donate, aliasable, state, folded), torch.any(of, dim=0)
     if telemetry:
         return (*out, tele.finish_dispatch(kind, tel, t0))
@@ -358,7 +374,7 @@ def mesh_fold_sparse(
     of = torch.any(of_local, dim=0) | of_cross
     if telemetry:
         return out, of, _fold_tel("sparse_orswot_fold", folded, joined, blocks, sp.changed_dots,
-                                  mesh.p, t0)
+                                  mesh.p, t0, copies=mesh.s)
     return out, of
 
 
@@ -381,7 +397,114 @@ def mesh_gossip_sparse(
     _refuse("mesh_gossip_sparse", stability=stability, faults=faults is not None,
             lag_threshold=lag_threshold is not None)
     return _gossip("sparse_gossip", states, mesh, rounds, donate, sp.fold, sp.join, telemetry,
-                   sp.changed_dots)
+                   sp.changed_dots, copies=mesh.s)
+
+
+def _mesh_fold_replicated(kind: str, states, mesh: VirtualMesh, join_fn, fold_fn, slots_fn,
+                          telemetry: bool, donate: bool):
+    """The all-reduce fold of a sparse kind whose state the element axis
+    replicates: each rank folds its block (one batched tree), one lattice
+    all-reduce joins the ranks. Returns ``(state, flags)`` — the flags
+    OR-reduced over the ranks — and the Telemetry third when asked."""
+    t0 = time.perf_counter()
+    blocks = rank_blocks(states, mesh)
+    folded, of_local = local_folds(blocks, fold_fn)
+    joined, of_cross = all_reduce_lattice(folded, join_fn, fold_fn)
+    out = tree_map(lambda x: x[0], joined)
+    if donate:
+        _consume(states, keep=out)
+    of = torch.any(of_local, dim=0) | of_cross
+    if telemetry:
+        return out, of, _fold_tel(kind, folded, joined, blocks, slots_fn, mesh.p, t0,
+                                  copies=mesh.s)
+    return out, of
+
+
+def mesh_fold_sparse_mvmap(
+    states: SparseMVMapState, mesh: VirtualMesh, sibling_cap: int = 4, telemetry: bool = False,
+    donate: bool = False,
+) -> Tuple[SparseMVMapState, torch.Tensor]:
+    """Converge a SPARSE ``Map<K, MVReg>`` replica batch
+    (``ops.sparse_mvmap``) over the mesh's replica axis, the cell table
+    replicated over the element axis: each rank folds its block (one
+    batched tree), then one lattice all-reduce, on ``mesh.device``.
+    Returns ``(state, flags [3])`` — [cell capacity, deferred capacity,
+    sibling capacity]; the Telemetry third with ``telemetry=True``
+    (``slots_changed``: ``changed_cells``)."""
+    return _mesh_fold_replicated(
+        f"sparse_mvmap_fold_s{sibling_cap}", states, mesh,
+        lambda a, b: smv.join(a, b, sibling_cap=sibling_cap),
+        lambda x: smv.fold(x, sibling_cap=sibling_cap), smv.changed_cells, telemetry, donate)
+
+
+def mesh_gossip_sparse_mvmap(
+    states: SparseMVMapState,
+    mesh: VirtualMesh,
+    rounds: Optional[int] = None,
+    sibling_cap: int = 4,
+    telemetry: bool = False,
+    donate: bool = False,
+    stability: bool = False,
+    faults=None,
+    lag_threshold=None,
+) -> Tuple[SparseMVMapState, torch.Tensor]:
+    """Ring anti-entropy for SPARSE ``Map<K, MVReg>`` replica batches:
+    each rank folds its block, then ``rounds`` (default P-1) unit-shift
+    ring rounds, one cell table per link per round (traffic proportional
+    to live cells, not the key universe). Returns ``(states [P, ...],
+    flags [3])``."""
+    _refuse("mesh_gossip_sparse_mvmap", stability=stability, faults=faults is not None,
+            lag_threshold=lag_threshold is not None)
+    return _gossip(f"sparse_mvmap_gossip_s{sibling_cap}", states, mesh, rounds, donate,
+                   lambda x: smv.fold(x, sibling_cap=sibling_cap),
+                   lambda a, b: smv.join(a, b, sibling_cap=sibling_cap), telemetry,
+                   smv.changed_cells, copies=mesh.s)
+
+
+def _nested_kind(level, op: str) -> str:
+    """The JAX entries' kind key of a nested sparse level: its spans from
+    the outside in, and the leaf's sibling cap (0 for an ORSWOT leaf)."""
+    spans, core = [], level
+    while hasattr(core, "core"):
+        spans.append(str(core.span))
+        core = core.core
+    return f"sparse_nested_{op}_{'x'.join(spans)}_s{getattr(core, 'sibling_cap', 0)}"
+
+
+def mesh_fold_sparse_nested(
+    states: SparseNestState, mesh: VirtualMesh, level, telemetry: bool = False,
+    donate: bool = False,
+) -> Tuple[SparseNestState, torch.Tensor]:
+    """Converge a SPARSE nested-map replica batch (any
+    ``sparse_nest.SparseNestLevel`` composition, e.g.
+    ``level_map_orswot(span)``) over the mesh's replica axis, the state
+    replicated over the element axis; ``level`` carries the join and fold.
+    Returns ``(state, flags [L+1])``; the Telemetry third with
+    ``telemetry=True`` (``slots_changed``: every plane's changed
+    entries)."""
+    return _mesh_fold_replicated(_nested_kind(level, "fold"), states, mesh, level.join,
+                                 level.fold, tele.generic_slots_changed, telemetry, donate)
+
+
+def mesh_gossip_sparse_nested(
+    states: SparseNestState,
+    mesh: VirtualMesh,
+    level,
+    rounds: Optional[int] = None,
+    telemetry: bool = False,
+    donate: bool = False,
+    stability: bool = False,
+    faults=None,
+    lag_threshold=None,
+) -> Tuple[SparseNestState, torch.Tensor]:
+    """Ring anti-entropy for SPARSE nested-map replica batches (any
+    ``SparseNestLevel`` composition): each rank folds its block, then
+    ``rounds`` (default P-1) unit-shift ring rounds of ``level.join``.
+    Returns ``(states [P, ...], flags [L+1])``."""
+    _refuse("mesh_gossip_sparse_nested", stability=stability, faults=faults is not None,
+            lag_threshold=lag_threshold is not None)
+    return _gossip(_nested_kind(level, "gossip"), states, mesh, rounds, donate, level.fold,
+                   level.join, telemetry, tele.generic_slots_changed, copies=mesh.s)
 
 
 def gossip_elastic(model, mesh: VirtualMesh, rounds: Optional[int] = None, policy=None,
@@ -398,8 +521,10 @@ def gossip_elastic(model, mesh: VirtualMesh, rounds: Optional[int] = None, polic
 
     Covers ``BatchedOrswot`` (``mesh_gossip``; the deferred lane),
     ``BatchedSparseOrswot`` (``mesh_gossip_sparse``; dot and deferred
-    lanes) and ``BatchedMap`` (``mesh_gossip_map``; sibling and deferred
-    lanes). ``donate=True`` donates each attempt's state into the ring and
+    lanes), ``BatchedMap`` (``mesh_gossip_map``; sibling and deferred
+    lanes) and ``BatchedSparseMap`` (``mesh_gossip_sparse_mvmap`` at the
+    model's ``sibling_cap``; cell, deferred and sibling lanes).
+    ``donate=True`` donates each attempt's state into the ring and
     restores ``model.state`` from a pre-round copy afterwards (a failed
     attempt needs the pre-round state). Returns ``(rows, widened)``: the
     ``[P, ...]`` rows and the axes grown (empty when capacity sufficed);
@@ -411,23 +536,34 @@ def gossip_elastic(model, mesh: VirtualMesh, rounds: Optional[int] = None, polic
     from .. import elastic
     from ..models.map import BatchedMap
     from ..models.orswot import BatchedOrswot
+    from ..models.sparse_mvmap import BatchedSparseMap
     from ..models.sparse_orswot import BatchedSparseOrswot
     _refuse("gossip_elastic", stability=stability, lag_threshold=lag_threshold is not None,
             reclaim=reclaim is not None, faults=faults is not None)
     policy = policy or elastic.DEFAULT_POLICY
-    plans = ((BatchedOrswot, mesh_gossip, ("deferred_cap",)),
-             (BatchedSparseOrswot, mesh_gossip_sparse, ("dot_cap", "deferred_cap")),
-             (BatchedMap, mesh_gossip_map, ("sibling_cap", "deferred_cap")))
-    plan = next(((run, lanes) for cls, run, lanes in plans if isinstance(model, cls)), None)
-    if plan is None:
+
+    def plan(m):
+        """The ring of ``m``'s family (read afresh each attempt: a widen
+        may have grown the sibling cap) and its overflow lanes' axes."""
+        if isinstance(m, BatchedOrswot):
+            return mesh_gossip, ("deferred_cap",)
+        if isinstance(m, BatchedSparseOrswot):
+            return mesh_gossip_sparse, ("dot_cap", "deferred_cap")
+        if isinstance(m, BatchedMap):
+            return mesh_gossip_map, ("sibling_cap", "deferred_cap")
+        if isinstance(m, BatchedSparseMap):
+            cap = m.sibling_cap
+            return ((lambda *a, **k: mesh_gossip_sparse_mvmap(*a, sibling_cap=cap, **k)),
+                    ("cell_cap", "deferred_cap", "sibling_cap"))
         raise TypeError(
-            f"gossip_elastic covers BatchedOrswot, BatchedSparseOrswot and BatchedMap, got "
-            f"{type(model).__name__}")
-    run, lanes = plan
+            f"gossip_elastic covers BatchedOrswot, BatchedSparseOrswot, BatchedMap and "
+            f"BatchedSparseMap, got {type(m).__name__}")
+
     widened: dict = {}
     migrations = 0
     tel = None
     while True:
+        run, lanes = plan(model)
         if donate:
             snap = tree_map(torch.clone, model.state)
         out = run(model.state, mesh, rounds, donate=donate, telemetry=telemetry)
@@ -450,4 +586,6 @@ def gossip_elastic(model, mesh: VirtualMesh, rounds: Optional[int] = None, polic
 
 
 __all__ = ["gossip_elastic", "local_folds", "mesh_fold", "mesh_fold_map", "mesh_fold_sparse",
-           "mesh_gossip", "mesh_gossip_map", "mesh_gossip_sparse", "rank_blocks"]
+           "mesh_fold_sparse_mvmap", "mesh_fold_sparse_nested", "mesh_gossip", "mesh_gossip_map",
+           "mesh_gossip_sparse", "mesh_gossip_sparse_mvmap", "mesh_gossip_sparse_nested",
+           "rank_blocks"]

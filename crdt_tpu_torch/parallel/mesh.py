@@ -7,8 +7,11 @@ replica axis is a leading tensor axis of length P — **P virtual ranks on
 one device**: rank q owns replica rows ``[q·R/P, (q+1)·R/P)``, exactly
 the block a ``P(REPLICA_AXIS)`` sharding gives device q, and a collective
 is a gather or a reduction along that axis (``collectives.py``). The
-element axis is 1: element shards never communicate (the join is
-element-wise), so nothing of the program is lost.
+element axis has ``s`` shards (1 unless a sharded entry asks for more):
+the element-sharded sparse entries (``sparse_shard.py``) hold them as a
+tensor axis ``[R, S, ...]`` of the state, and every other entry keeps
+the element axis replicated, as the JAX package does on a ``(P, S)``
+mesh.
 """
 
 from __future__ import annotations
@@ -17,21 +20,20 @@ import torch
 
 from .._dtypes import bits
 from ..ops import map as map_ops
-from ..ops.lattice import tree_map
+from ..ops.lattice import tree_leaves, tree_map
 from ..ops.map import MapState
-from ..ops import sparse_orswot as sp
 from ..ops.orswot import OrswotState, empty
-from ..ops.sparse_orswot import SparseOrswotState
 
 
 class VirtualMesh:
-    """P virtual replica ranks on one device — where the JAX package's
-    ``make_mesh(P, 1)`` stands."""
+    """P virtual replica ranks on one device, ``s`` element shards — where
+    the JAX package's ``make_mesh(P, S)`` stands."""
 
-    def __init__(self, p: int, device="cuda"):
-        if p < 1:
-            raise ValueError(f"a mesh needs at least one rank, got {p}")
+    def __init__(self, p: int, device="cuda", s: int = 1):
+        if p < 1 or s < 1:
+            raise ValueError(f"a mesh needs at least one rank and one shard, got ({p}, {s})")
         self.p = int(p)
+        self.s = int(s)
         self.device = torch.device(device)
 
 
@@ -77,15 +79,19 @@ def pad_replicas_map(state: MapState, multiple: int) -> MapState:
                     state, ident)
 
 
-def pad_replicas_sparse(state: SparseOrswotState, multiple: int) -> SparseOrswotState:
-    """Pad a sparse ORSWOT batch's replica axis with join identities (see
-    :func:`pad_replicas`; the JAX package's ``_sparse_pad_and_template``)."""
-    pad = (-state.top.shape[0]) % multiple
+def pad_replicas_sparse(state, multiple: int):
+    """Pad the replica axis of a sparse state — the segment-encoded
+    ORSWOT, the sparse ``Map<K, MVReg>`` or any sparse nest, sharded
+    ``[R, S, ...]`` or not — up to a multiple with join identities built
+    like one row of ``state`` (the JAX package's identity pads of
+    ``_sparse_pad_and_template`` and ``_pad_replica_axis``)."""
+    from ..ops.sparse_nest import identity_batch
+
+    pad = (-tree_leaves(state)[0].shape[0]) % multiple
     if pad == 0:
         return state
-    ident = sp.empty(state.eid.shape[-1], state.top.shape[-1], *state.didx.shape[-2:],
-                     batch=(pad,), device=state.top.device)
-    return tree_map(lambda x, p: torch.cat([bits(x), bits(p)]).view(x.dtype), state, ident)
+    return tree_map(lambda x, p: torch.cat([bits(x), bits(p)]).view(x.dtype), state,
+                    identity_batch(state, pad))
 
 
 def pad_keys(state: MapState, multiple: int) -> MapState:

@@ -1,6 +1,7 @@
 """Replica-streaming fold — anti-entropy for populations that do not fit
 on the card. Counterpart of the JAX package's ``parallel/stream.py``: its
-sparse (segment-encoded ORSWOT) and dense ORSWOT plans.
+sparse (segment-encoded ORSWOT), dense ORSWOT, sparse ``Map<K, MVReg>``
+and element-sharded sparse plans.
 
     acc = identity (or init)
     for block in blocks:              # [B, ...] replica blocks
@@ -16,6 +17,13 @@ accumulator. Rank q folds block rows ``[q·B/P, (q+1)·B/P)``, the rows a
 folds pair the same rows, so the bits are the JAX stream's. The JAX
 package keeps the accumulator on every device (``shard_map``'s layout);
 the port keeps ONE, rank 0's, which is what the JAX package reads back.
+The sparse ``Map<K, MVReg>`` plan folds like the sparse ORSWOT's (its
+sibling lane is a join argument, not a state axis: a sibling overflow is
+re-entered with a larger ``sibling_cap``, never widened mid-stream). The
+element-sharded plan takes ``[B, S, ...]`` blocks (``sparse_shard.
+split_segments``, S == ``mesh.s``) into an ``[S, ...]`` accumulator:
+shard-local joins are exact, so each shard streams on its own batch lane
+and the flags OR over the shards.
 A sparse step waits for nothing on the host (overflow flags stay device
 tensors until the caller reads them); the dense join's parked-slot dedupe
 (``ops.orswot._dedupe_deferred``) does.
@@ -72,13 +80,12 @@ refuses (re-chunk the source).
 
 Modes of the JAX entries still to port raise ``NotImplementedError``
 naming their ROADMAP item: ``frontier=``/``compact_every=`` (item 15.2),
-``widen_policy=`` (15.3), ``faults=`` (15.4). The sparse Map and
-element-sharded plans are item 12b.
+``widen_policy=`` (15.3), ``faults=`` (15.4).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any, Callable, Dict, Iterable, Tuple
 
 import numpy as np
@@ -87,6 +94,7 @@ import torch
 from .. import telemetry as tele
 from .._dtypes import bits, to_wide
 from ..ops import orswot as ops
+from ..ops import sparse_mvmap as smv
 from ..ops import sparse_orswot as sp
 from ..ops.fold_kernels import fold_auto
 from ..ops.lattice import tree_map
@@ -125,6 +133,10 @@ class _StreamPlan:
     empty: Callable          # (caps, batch, device) -> identity batch
     widen_state: Callable    # (state, {axis: cap}) -> state
     slots_fn: Callable       # (a, b) -> u32 changed lanes (the telemetry's)
+    # overflow lane -> the elastic axis that widening recovers ("" = the
+    # lane is not a state axis); read by widen_policy= (ROADMAP item 15.3).
+    flag_axes: Tuple[str, ...] = ()
+    sharded: bool = False    # blocks [B, S, ...], accumulator [S, ...]
 
 
 def _plan_sparse() -> _StreamPlan:
@@ -143,7 +155,36 @@ def _plan_sparse() -> _StreamPlan:
         ),
         widen_state=lambda s, caps: sp.widen(s, **caps),
         slots_fn=sp.changed_dots,
+        flag_axes=("dot_cap", "deferred_cap"),
     )
+
+
+def _plan_sparse_mvmap(sibling_cap: int) -> _StreamPlan:
+    return _StreamPlan(
+        kind=f"sparse_mvmap_stream_fold_s{sibling_cap}",
+        join_fn=lambda a, b: smv.join(a, b, sibling_cap=sibling_cap),
+        fold_fn=lambda x: smv.fold(x, sibling_cap=sibling_cap),
+        local_fold=lambda blocks: local_folds(blocks, lambda x: smv.fold(x, sibling_cap)),
+        caps_of=lambda s: {
+            "cell_cap": s.kid.shape[-1], "n_actors": s.top.shape[-1],
+            "deferred_cap": s.kidx.shape[-2], "rm_width": s.kidx.shape[-1],
+        },
+        empty=lambda caps, batch, device: smv.empty(
+            caps["cell_cap"], caps["n_actors"], caps["deferred_cap"], caps["rm_width"],
+            batch=batch, device=device,
+        ),
+        widen_state=lambda s, caps: smv.widen(s, **caps),
+        slots_fn=smv.changed_cells,
+        # The sibling lane is a join argument, not a state axis.
+        flag_axes=("cell_cap", "deferred_cap", ""),
+    )
+
+
+def _plan_sparse_sharded() -> _StreamPlan:
+    # Widening a sharded stream would have to repack every shard
+    # consistently: the shard caps are sized up front (no flag axes).
+    return replace(_plan_sparse(), kind="sparse_sharded_stream_fold", flag_axes=(),
+                   sharded=True)
 
 
 def _plan_dense() -> _StreamPlan:
@@ -161,6 +202,7 @@ def _plan_dense() -> _StreamPlan:
         ),
         widen_state=lambda s, caps: ops.widen(s, **caps),
         slots_fn=ops.changed_members,
+        flag_axes=("deferred_cap",),
     )
 
 
@@ -187,26 +229,30 @@ def _widen_to(plan: _StreamPlan, state, caps: Dict[str, int]):
 def _step(plan: _StreamPlan, acc, block, p: int):
     """One block on P virtual ranks: rank-local folds, the lattice
     all-reduce, the join into the accumulator. ``block`` has a multiple
-    of P rows on the accumulator's device. Returns ``(acc, overflow)``."""
+    of P rows on the accumulator's device. Returns ``(acc, overflow)``;
+    a sharded plan's flags are ORed over the shards too."""
     ranks = tree_map(lambda x: x.reshape(p, -1, *x.shape[1:]), block)
     folded, of_local = plan.local_fold(ranks)
     joined, of_cross = all_reduce_lattice(folded, plan.join_fn, plan.fold_fn)
     acc, of_join = plan.join_fn(acc, tree_map(lambda x: x[0], joined))
-    return acc, torch.any(of_local, dim=0) | of_join | of_cross
+    of = torch.any(of_local, dim=0) | of_join | of_cross
+    return acc, torch.any(of, dim=0) if plan.sharded else of
 
 
-def _stream_tel(acc, slots, steps: int, rows: int, p: int) -> tele.Telemetry:
+def _stream_tel(acc, slots, steps: int, rows: int, p: int, shards: int = 0) -> tele.Telemetry:
     """The JAX stream's per-step Telemetry folded over ``steps`` steps of
     ``rows``-row blocks (``slots``: the changed slots summed over them;
-    ``acc``: the accumulator after the last)."""
+    ``acc``: the accumulator after the last; ``shards``: a sharded plan's
+    S, its ``[S, ...]`` accumulator one shard per device)."""
     if steps == 0:
         return tele.zeros(acc[0].device)
     n_ex = _exchange_count(p)
-    # One step's wire: each rank's folded state (the accumulator's shape)
-    # per exchange, summed over the ranks; then step after step.
-    per_rank = np.float32(tele.shipped_bytes(acc) * n_ex)
+    # One step's wire: each device's folded state (the accumulator's shape,
+    # one shard of it when sharded) per exchange, summed over the devices;
+    # then step after step.
+    per_rank = np.float32(tele.shipped_bytes(acc, batch_dims=1 if shards else 0) * n_ex)
     step = wire = np.float32(0)
-    for _ in range(p):
+    for _ in range(p * max(shards, 1)):
         step = np.float32(step + per_rank)
     for _ in range(steps):
         wire = np.float32(wire + step)
@@ -290,6 +336,12 @@ def _stream_fold(
         template_rows = p
     if init is not None:
         caps = {k: max(v, plan.caps_of(init)[k]) for k, v in caps.items()}
+    shard_batch = ()
+    if plan.sharded:
+        got = _leaves(first)[0].shape[1] if first is not None else _rows_of(init)
+        if got != mesh.s:
+            raise ValueError(f"stream blocks carry {got} element shards, mesh axis is {mesh.s}")
+        shard_batch = (mesh.s,)
 
     side = torch.cuda.Stream(device) if on_card and pipeline else None
 
@@ -321,7 +373,7 @@ def _stream_fold(
         widened = _widen_to(plan, block, caps)
         rows = _rows_of(widened)
         if rows < template_rows:
-            pad = plan.empty(caps, (template_rows - rows,), device)
+            pad = plan.empty(caps, (template_rows - rows, *shard_batch), device)
             widened = tree_map(
                 lambda x, e: torch.cat([bits(x), bits(e).to(bits(x).dtype)]).view(x.dtype),
                 widened, pad,
@@ -336,7 +388,7 @@ def _stream_fold(
         if donate:
             acc = tree_map(torch.clone, acc)  # never consume the caller's buffers
     else:
-        acc = plan.empty(caps, (), device)
+        acc = plan.empty(caps, shard_batch, device)
 
     metrics.count(f"stream.{plan.kind}_rounds")
     try:
@@ -394,7 +446,8 @@ def _stream_fold(
     metrics.observe("stream.acc_bytes", _nbytes(acc))
     if not telemetry:
         return acc, overflow
-    tel = tele.fill(_stream_tel(acc, slots, blocks_done, template_rows, p),
+    tel = tele.fill(_stream_tel(acc, slots, blocks_done, template_rows, p,
+                                shards=mesh.s if plan.sharded else 0),
                     stream_blocks=blocks_done, stream_staged_bytes=staged_bytes,
                     stream_overlap_hit=overlap_hits)
     if wal is not None:
@@ -442,6 +495,45 @@ def mesh_stream_fold(
     )
 
 
+def mesh_stream_fold_sparse_mvmap(
+    blocks: Iterable, mesh: VirtualMesh, *, sibling_cap: int = 4, init=None,
+    telemetry: bool = False, donate: bool = True, pipeline: bool = True, widen_policy=None,
+    frontier=None, compact_every: int = 0, faults=None, wal=None, wal_every: int = 0,
+    wal_base: int = 0,
+) -> Tuple[Any, torch.Tensor]:
+    """Stream-fold SPARSE ``Map<K, MVReg>`` replica blocks ``[B, ...]``
+    (``ops.sparse_mvmap``) into one converged state on ``mesh.device``.
+    Returns ``(state, flags [3])``: [cell capacity, deferred capacity,
+    sibling capacity]; the Telemetry third with ``telemetry=True``. A
+    sibling overflow is not recoverable mid-stream (``sibling_cap`` is a
+    join argument): re-enter with a larger one."""
+    return _stream_fold(
+        _plan_sparse_mvmap(sibling_cap), blocks, mesh, init=init, telemetry=telemetry,
+        donate=donate, pipeline=pipeline, widen_policy=widen_policy, frontier=frontier,
+        compact_every=compact_every, faults=faults, wal=wal, wal_every=wal_every,
+        wal_base=wal_base,
+    )
+
+
+def mesh_stream_fold_sparse_sharded(
+    blocks: Iterable, mesh: VirtualMesh, *, init=None, telemetry: bool = False,
+    donate: bool = True, pipeline: bool = True, frontier=None, compact_every: int = 0,
+    faults=None, wal=None, wal_every: int = 0, wal_base: int = 0,
+) -> Tuple[Any, torch.Tensor]:
+    """Stream-fold element-SHARDED sparse ORSWOT blocks ``[B, S, ...]``
+    (``sparse_shard.split_segments``; S must equal ``mesh.s``) into an
+    ``[S, ...]`` accumulator on ``mesh.device``: shard-local joins are
+    exact, so streaming composes with element sharding at no extra
+    collective. Size the shard caps up front (no mid-stream widening).
+    Returns ``(state [S, ...], flags [2])``; the Telemetry third with
+    ``telemetry=True`` (the changed slots summed over the shards)."""
+    return _stream_fold(
+        _plan_sparse_sharded(), blocks, mesh, init=init, telemetry=telemetry, donate=donate,
+        pipeline=pipeline, frontier=frontier, compact_every=compact_every, faults=faults,
+        wal=wal, wal_every=wal_every, wal_base=wal_base,
+    )
+
+
 def iter_blocks(states, block_rows: int):
     """Slice a co-resident ``[N, ...]`` batch into ``[block_rows, ...]``
     stream blocks (views) — the bridge for populations that do fit (tests,
@@ -451,4 +543,5 @@ def iter_blocks(states, block_rows: int):
         yield tree_map(lambda x: x[lo: lo + block_rows], states)
 
 
-__all__ = ["StreamInterrupted", "iter_blocks", "mesh_stream_fold", "mesh_stream_fold_sparse"]
+__all__ = ["StreamInterrupted", "iter_blocks", "mesh_stream_fold", "mesh_stream_fold_sparse",
+           "mesh_stream_fold_sparse_mvmap", "mesh_stream_fold_sparse_sharded"]

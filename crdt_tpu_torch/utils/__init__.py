@@ -4,11 +4,12 @@ from .interner import (
     Interner,
     UniverseFull,
     clock_lanes,
+    pad_id_list,
     transactional,
     transactional_apply,
 )
 
 __all__ = [
-    "Interner", "UniverseFull", "clock_lanes",
+    "Interner", "UniverseFull", "clock_lanes", "pad_id_list",
     "transactional", "transactional_apply",
 ]

@@ -130,3 +130,24 @@ def clock_lanes(clock, actors: Interner, n_actors: int, what: str = "actor",
     for actor, c in clock.dots.items():
         lanes[actors.bounded_intern(actor, n_actors, what)] = c
     return lanes
+
+
+def pad_id_list(items, width=None):
+    """Sorted id list padded with -1 to a fixed lane width (the parked
+    keylist encoding of the sparse Map kinds). ``width=None`` picks a
+    power-of-two bucket >= 8 (the JAX package's retrace bound, kept so
+    both packages build the same lists); an explicit width is the buffer
+    lane size and overflow raises."""
+    ids = sorted(items)
+    if width is None:
+        width = 8
+        while width < len(ids):
+            width *= 2
+    if len(ids) > width:
+        raise ValueError(
+            f"op lists {len(ids)} targets; the buffer lane is {width} "
+            f"— rebuild with a larger rm_width or split the op"
+        )
+    out = np.full(width, -1, np.int32)
+    out[: len(ids)] = ids
+    return out

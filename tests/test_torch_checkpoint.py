@@ -1,7 +1,8 @@
 """The port's checkpoints and snapshot generations
 (``crdt_tpu_torch.checkpoint``, ``crdt_tpu_torch.durability.snapshot``)
 against the JAX package's, on the kinds the port has (``BatchedOrswot``,
-``BatchedSparseOrswot``, ``BatchedMap``): a checkpoint or a generation
+``BatchedSparseOrswot``, ``BatchedMap``, ``BatchedSparseMapOrswot``,
+``BatchedSparseMap``): a checkpoint or a generation
 written by either package loads in the other with equal leaves (dtypes and
 checksums included) and equal interners, and the meta each package writes
 for the same model is the same JSON. Also the cases of
@@ -36,16 +37,24 @@ from crdt_tpu_torch.utils import Interner
 from strategies import ACTORS
 from test_map import _site_run, mv_map
 from test_torch_convert import leaf_numpy, leaf_tensor, port_map, port_orswot
+from test_torch_sparse_mvmap import pair as sparse_mvmap_pair, \
+    population as sparse_mvmap_population
+from test_torch_sparse_nest import pair as sparse_nest_pair, \
+    population as sparse_nest_population
 from test_torch_sparse_orswot import population
 
 # Interned items of every payload type the serde tags cover.
 MEMBERS = list(range(6)) + ["x", ("t", 1), b"\x00b", 2**70, None]
 MAP_KEYS = ["p", "q", ("k", 2)]
-KINDS = ("orswot", "sparse_orswot", "map")
+KINDS = ("orswot", "sparse_orswot", "map", "sparse_map_orswot", "sparse_map")
 
 
 def _models(kind: str, seed: int):
     """The same oracle replicas in the JAX package's model and the port's."""
+    if kind == "sparse_map":
+        return sparse_mvmap_pair(sparse_mvmap_population(seed)[0])
+    if kind == "sparse_map_orswot":
+        return sparse_nest_pair(sparse_nest_population(seed)[0])
     if kind == "map":
         states = _site_run(random.Random(seed), mv_map)
         ref = RefMap.from_pure(states, keys=RefInterner(MAP_KEYS), actors=RefInterner(ACTORS),
@@ -176,7 +185,7 @@ def test_unported_checkpoint_modes_name_their_item(tmp_path):
         checkpoint.save(tmp_path / "ck.npz", port, compact=True)
     with pytest.raises(NotImplementedError, match=r"ROADMAP item 15\.2"):
         snap.save(tmp_path / "snap", port, compact=True)
-    for kind, item in (("map_map", "13"), ("sparse_map", "12b"), ("list", "14")):
+    for kind, item in (("map_map", "13"), ("sparse_map_map", "13"), ("list", "14")):
         with pytest.raises(NotImplementedError, match=rf"ROADMAP item {item}\)"):
             checkpoint._restore({"kind": kind}, {}, "cpu")
     with pytest.raises(TypeError, match="cannot checkpoint"):

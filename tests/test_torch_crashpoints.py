@@ -1,8 +1,10 @@
 """The port's crashpoint registry and the kill-then-recover diagonal
 (``crdt_tpu_torch.durability.crashpoints``): every one of the 15
 crashpoints (``wal.*`` ×6, ``snapshot.*`` ×9, the JAX package's names and
-descriptions) once, the port's five decomposition kinds cycled — the
-diagonal of ``tests/test_durability.py``. Each workload
+descriptions) once, the port's first five decomposition kinds cycled —
+the diagonal of ``tests/test_durability.py`` — and once more with the
+sparse Map kinds (``sparse_mvmap`` and the nest under the JAX registry's
+name, ``sparse_nested_map``) cycled. Each workload
 (``chip_smoke.fuzz_workload``, which the card runs too) logs δ records of
 a same-shape state sequence (numpy seeds through ``convert``) into a
 rotating log with two retain-1 snapshots, is killed at its crashpoint,
@@ -21,6 +23,8 @@ from crdt_tpu.durability.wal import Wal as RefWal
 from crdt_tpu.ops.map import MapState as RefMapState
 from crdt_tpu.ops.mvreg import MVRegState as RefMVRegState
 from crdt_tpu.ops.orswot import OrswotState as RefOrswotState
+from crdt_tpu.ops.sparse_mvmap import SparseMVMapState as RefSparseMVMapState
+from crdt_tpu.ops.sparse_nest import SparseNestState as RefSparseNestState
 from crdt_tpu.ops.sparse_orswot import SparseOrswotState as RefSparseState
 from crdt_tpu_torch.delta_opt.decompose import KINDS
 from crdt_tpu_torch.durability import SimulatedCrash, crashpoints as cp, recover_state
@@ -30,16 +34,22 @@ from chip_smoke import fuzz_workload, kind_arrays, kind_state
 from test_torch_recover import assert_tree
 
 ALL_KINDS = tuple(sorted(KINDS))
+# The first diagonal's kinds; the sparse Map kinds cross every point again
+# ("sparse_nest" is the same decomposer as "sparse_nested_map", the name a
+# log must carry for the JAX package to replay it).
+DENSE_KINDS = ("map", "mvreg", "orswot", "sparse_orswot", "vclock")
+SPARSE_MAP_KINDS = ("sparse_mvmap", "sparse_nested_map")
 # The durability core's points: the serving tier registers seven more
 # (``serve.*``) when it is imported, and crosses them in its own workloads
 # (tests/test_torch_serve_durable.py), so the diagonal cannot depend on
 # whether another test file imported it first.
 ALL_CRASHPOINTS = tuple(p for p in cp.registered() if p.startswith(("wal.", "snapshot.")))
-DIAGONAL = [(point, ALL_KINDS[i % len(ALL_KINDS)]) for i, point in enumerate(ALL_CRASHPOINTS)]
+DIAGONAL = ([(point, DENSE_KINDS[i % len(DENSE_KINDS)]) for i, point in enumerate(ALL_CRASHPOINTS)]
+            + [(point, SPARSE_MAP_KINDS[i % 2]) for i, point in enumerate(ALL_CRASHPOINTS)])
 
 
 def _ref(kind: str, raw: dict):
-    j = {k: jnp.asarray(v) for k, v in raw.items() if k != "child"}
+    j = {k: jnp.asarray(v) for k, v in raw.items() if k not in ("child", "core")}
     if kind == "orswot":
         return RefOrswotState(**j)
     if kind == "map":
@@ -47,6 +57,10 @@ def _ref(kind: str, raw: dict):
                                                   for k, v in raw["child"].items()}), **j)
     if kind == "sparse_orswot":
         return RefSparseState(**j)
+    if kind == "sparse_mvmap":
+        return RefSparseMVMapState(**j)
+    if kind == "sparse_nested_map":
+        return RefSparseNestState(core=_ref("sparse_orswot", raw["core"]), **j)
     if kind == "mvreg":
         return RefMVRegState(**j)
     return j["clock"]
@@ -100,8 +114,9 @@ def test_crashpoint_fuzz_diagonal(tmp_path, point, kind):
 
 
 def test_the_diagonal_covers_every_kind_and_the_jax_points():
-    assert len(ALL_CRASHPOINTS) == 15 and len(ALL_KINDS) == 5
-    assert {k for _, k in DIAGONAL} == set(ALL_KINDS)
+    assert len(ALL_CRASHPOINTS) == 15 and len(ALL_KINDS) == 8
+    assert {k for _, k in DIAGONAL} | {"sparse_nest"} == set(ALL_KINDS)
+    assert KINDS["sparse_nest"] is KINDS["sparse_nested_map"]
     ours = {n: cp.describe(n) for n in ALL_CRASHPOINTS}
     theirs = {n: ref_cp.describe(n) for n in ref_cp.registered()
               if n.startswith(("wal.", "snapshot."))}

@@ -1,10 +1,12 @@
 """The port's join decomposition (``crdt_tpu_torch.delta_opt.decompose``)
 and decomposition resync (``delta_opt.heal.resync``) vs the JAX
 package's, bit for bit, for every kind the port has (orswot, map, mvreg,
-vclock, sparse_orswot): ``decompose`` / ``reconstruct`` / ``drop_lane`` /
-``decomposition_bytes`` on the JAX registry's law states, and ``resync``
-over ranks that diverged from one snapshot — healed rows and every
-``ResyncReport`` field. Tolerance 0, dtypes included."""
+vclock, sparse_orswot, sparse_mvmap, and the sparse nest under its two
+names, sparse_nest and the JAX registry's sparse_nested_map):
+``decompose`` / ``reconstruct`` / ``drop_lane`` / ``decomposition_bytes``
+on the JAX registry's law states, and ``resync`` over ranks that diverged
+from one snapshot — healed rows and every ``ResyncReport`` field — and
+over a ``BatchedSparseMap`` ring. Tolerance 0, dtypes included."""
 
 import importlib
 
@@ -30,7 +32,10 @@ from test_torch_convert import leaf_numpy, leaf_tensor
 ref_dec = importlib.import_module("crdt_tpu.delta_opt.decompose")
 dec = importlib.import_module("crdt_tpu_torch.delta_opt.decompose")
 
-KINDS = ["orswot", "map", "mvreg", "vclock", "sparse_orswot"]
+KINDS = ["orswot", "map", "mvreg", "vclock", "sparse_orswot", "sparse_mvmap", "sparse_nest",
+         "sparse_nested_map"]
+# The port's module name of the nest's decomposition -> the JAX registry's.
+REF_KIND = {"sparse_nest": "sparse_nested_map"}
 PORT_TYPES = {"orswot": OrswotState, "map": MapState, "mvreg": MVRegState,
               "sparse_orswot": SparseOrswotState}
 NESTED = {"child": MVRegState}
@@ -40,6 +45,10 @@ def to_port(kind, ref):
     """A JAX-package state of ``kind`` → the port's, on the CPU."""
     if kind == "vclock":
         return leaf_tensor(np.asarray(ref))
+    if kind not in PORT_TYPES:  # the sparse Map kinds, nested or not
+        from test_torch_sparse_mvmap import to_port as sparse_to_port
+
+        return sparse_to_port(ref)
     return _convert(PORT_TYPES[kind], ref)
 
 
@@ -67,7 +76,7 @@ def _leaves(tree):
 def diverged(kind):
     """The JAX resync test's shape: ``since`` the first law state, four
     ranks each ``since`` joined with another state."""
-    mk = get_merge_kind(kind)
+    mk = get_merge_kind(REF_KIND.get(kind, kind))
 
     def join(a, b):
         out = mk.join(a, b)
@@ -83,8 +92,9 @@ def diverged(kind):
 def test_decompose_reconstruct_drop_lane_and_bytes_match(kind):
     since, ranks = diverged(kind)
     p_since = to_port(kind, since)
+    ref_kind = REF_KIND.get(kind, kind)
     for i, rank in enumerate(ranks):
-        want = ref_dec.decompose(kind, rank, since)
+        want = ref_dec.decompose(ref_kind, rank, since)
         got = dec.decompose(kind, to_port(kind, rank), p_since)
         assert_leaves(got.lanes, want.lanes, f"{kind} lanes {i}")
         assert_leaves(got.valid, want.valid, f"{kind} valid {i}")
@@ -95,7 +105,8 @@ def test_decompose_reconstruct_drop_lane_and_bytes_match(kind):
         assert g_bytes.dtype == torch.float32 and float(g_bytes) == float(w_bytes)
         # Reconstruction reproduces the rank bit-exactly.
         back = dec.reconstruct(kind, p_since, got)
-        assert_leaves(back, ref_dec.reconstruct(kind, since, want), f"{kind} reconstruct {i}")
+        assert_leaves(back, ref_dec.reconstruct(ref_kind, since, want),
+                      f"{kind} reconstruct {i}")
         assert_leaves(back, rank, f"{kind} reconstruct == rank {i}")
         valid = np.asarray(want.valid)
         if valid.any():
@@ -119,7 +130,7 @@ def test_decompose_takes_a_decomposer_and_refuses_unknown_kinds():
 def test_resync_matches_the_jax_resync(kind):
     since, ranks = diverged(kind)
     stacked = jax.tree.map(lambda *xs: jnp.stack(xs), *ranks)
-    want, want_report = ref_heal.resync(kind, stacked, since)
+    want, want_report = ref_heal.resync(REF_KIND.get(kind, kind), stacked, since)
     before = metrics.snapshot()["counters"].get("delta_opt.resync_runs", 0)
     got, report = heal.resync(kind, to_port(kind, stacked), to_port(kind, since))
     assert_leaves(got, want, f"{kind} healed")
@@ -152,3 +163,23 @@ def test_resync_ships_only_the_divergence_set():
     got, report = heal.resync("orswot", to_port("orswot", states), to_port("orswot", since))
     assert report == want_report and report.lanes_shipped == 8 and report.ratio < 0.25
     assert_leaves(got, want, "healed")
+
+
+def test_resync_of_a_sparse_map_ring_matches_the_jax_resync():
+    """Ranks of a ``BatchedSparseMap`` ring that diverged from one
+    snapshot (each the snapshot joined with one replica of a population
+    with parked removes): the decomposition resync heals to the JAX
+    package's rows, report for report."""
+    from crdt_tpu.ops import sparse_mvmap as ref_smv
+    from test_torch_sparse_mvmap import pair, population
+
+    ref_model, port_model = pair(population(31, n=5)[0])
+    since = jax.tree.map(lambda x: x[0], ref_model.state)
+    ranks = [ref_smv.join(since, jax.tree.map(lambda x, i=i: x[i], ref_model.state))[0]
+             for i in range(1, 5)]
+    stacked = jax.tree.map(lambda *xs: jnp.stack(xs), *ranks)
+    want, want_report = ref_heal.resync("sparse_mvmap", stacked, since)
+    got, report = heal.resync("sparse_mvmap", to_port("sparse_mvmap", stacked),
+                              to_port("sparse_mvmap", since))
+    assert_leaves(got, want, "healed sparse map ring")
+    assert report == want_report and 0 < report.lanes_shipped

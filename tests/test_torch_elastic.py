@@ -2,7 +2,7 @@
 ring entries' overflow → widen → re-enter loops
 (``parallel.gossip_elastic``, ``parallel.delta_gossip_elastic``) vs the
 JAX package's, on the kinds the port has (``BatchedOrswot``,
-``BatchedSparseOrswot``, ``BatchedMap``) — the cases of
+``BatchedSparseOrswot``, ``BatchedMap``, ``BatchedSparseMap``) — the cases of
 ``tests/test_elastic.py`` that cover them. Rows and ``widened`` equal the
 JAX wrappers' on ``make_mesh(4, 1)``, bit for bit, and a model born at the
 widened capacity; converged rows read back as the oracle fold."""
@@ -18,6 +18,7 @@ import jax.numpy as jnp
 
 from crdt_tpu import elastic as ref_elastic
 from crdt_tpu.models import BatchedMap as RefMap
+from crdt_tpu.models import BatchedSparseMap as RefSparseMap
 from crdt_tpu.models.orswot import BatchedOrswot as RefOrswot
 from crdt_tpu.models.sparse_orswot import BatchedSparseOrswot as RefSparse
 from crdt_tpu.parallel import delta_gossip_elastic as ref_delta_elastic
@@ -27,8 +28,8 @@ from crdt_tpu.pure.orswot import Orswot as RefPure
 from crdt_tpu_torch import elastic
 from crdt_tpu_torch.config import configured
 from crdt_tpu_torch.models import (
-    BatchedMap, BatchedOrswot, BatchedSparseOrswot, DeferredOverflow, DotCapacityOverflow,
-    SlotOverflow,
+    BatchedMap, BatchedOrswot, BatchedSparseMap, BatchedSparseOrswot, DeferredOverflow,
+    DotCapacityOverflow, SlotOverflow,
 )
 from crdt_tpu_torch.parallel import (
     VirtualMesh, delta_gossip_elastic, gossip_elastic, mesh_delta_gossip, mesh_gossip,
@@ -149,6 +150,61 @@ def test_map_overflow_widen_converge_matches():
     assert fresh_widened == {} and same(rows, fresh_rows)
 
 
+def _sparse_map_pures():
+    """P replicas, each writing three keys of its own and one shared key
+    ``z`` (P concurrent siblings), ``z`` interned last: a ring at cell cap
+    8 and sibling cap 2 first truncates the table (``z``'s cells go, so
+    only the cell lane overflows), then, widened, holds the P siblings of
+    ``z`` (the sibling lane overflows)."""
+    pures = []
+    for i in range(P):
+        m = mv_map()
+        for j in range(3):
+            put(m, f"s{i}", f"k{i}{j}", 10 * i + j)
+        put(m, f"s{i}", "z", i)
+        pures.append(m)
+    keys = [f"k{i}{j}" for i in range(P) for j in range(3)] + ["z"]
+    return pures, keys
+
+
+def test_sparse_map_overflow_widen_converge_matches():
+    from crdt_tpu.utils import Interner as RefInterner
+    from crdt_tpu_torch.utils import Interner
+
+    ref_mesh, port_mesh = mesh()
+    pures, keys = _sparse_map_pures()
+    caps = dict(cell_cap=8, sibling_cap=2)
+    ref = RefSparseMap.from_pure(pures, keys=RefInterner(keys), **caps)
+    port = BatchedSparseMap.from_pure([port_map(m) for m in pures], keys=Interner(keys),
+                                      device="cpu", **caps)
+    first_of = elastic.capacities(port)
+    want, want_widened = ref_gossip_elastic(ref, ref_mesh)
+    before = metrics.snapshot()["counters"].get("elastic.gossip_migrations", 0)
+    rows, widened = gossip_elastic(port, port_mesh)
+    assert widened == want_widened
+    assert widened["cell_cap"] >= 16 and widened["sibling_cap"] >= P
+    assert metrics.snapshot()["counters"]["elastic.gossip_migrations"] - before == 2
+    assert first_of["cell_cap"] == 8 and port.sibling_cap == ref.sibling_cap
+    assert_rows(rows, want, "rows")
+    assert_rows(port.state, ref.state, "widened model")
+    fresh = BatchedSparseMap.from_pure([port_map(m) for m in pures], keys=Interner(keys),
+                                       device="cpu", cell_cap=widened["cell_cap"],
+                                       sibling_cap=widened["sibling_cap"])
+    fresh_rows, fresh_widened = gossip_elastic(fresh, port_mesh)
+    assert fresh_widened == {} and same(rows, fresh_rows)
+    oracle = port_map(oracle_of(pures))
+    out = BatchedSparseMap(1, port.n_keys, rows.top.shape[-1], rows.kid.shape[-1],
+                           port.sibling_cap, keys=port.keys, actors=port.actors,
+                           values=port.values, device="cpu")
+    for i in range(P):
+        out.state = type(rows)(*(x[i][None] for x in rows))
+        assert out.to_pure(0) == oracle
+    assert elastic.kind_of(port) == "sparse_map"
+    assert elastic.axes_for(port, DotCapacityOverflow("x")) == ("cell_cap",)
+    assert elastic.axes_for(port, SlotOverflow("x")) == ("sibling_cap",)
+    assert elastic.axes_for(port, DeferredOverflow("x")) == ("deferred_cap", "rm_width")
+
+
 @pytest.mark.parametrize("ack_window", [False, True])
 def test_delta_gossip_elastic_recovers_parked_overflow(ack_window):
     ref_mesh, port_mesh = mesh()
@@ -262,7 +318,7 @@ def test_widen_refuses_shrink_and_unknown_axes():
         elastic.widen(model)
 
 
-@pytest.mark.parametrize("kind", ["orswot", "sparse_orswot", "map"])
+@pytest.mark.parametrize("kind", ["orswot", "sparse_orswot", "map", "sparse_map"])
 def test_widen_matches_and_emits_metrics(kind):
     reps = _orswot_pures(2, 1)
     if kind == "orswot":
@@ -275,12 +331,20 @@ def test_widen_matches_and_emits_metrics(kind):
         port = BatchedSparseOrswot.from_pure([port_orswot(r) for r in reps], dot_cap=8,
                                              device="cpu")
         axes = ("dot_cap", "rm_width")
-    else:
+    elif kind == "map":
         pures = [mv_map() for _ in range(2)]
         put(pures[0], "s0", "k0", 1)
         ref = RefMap.from_pure(pures)
         port = BatchedMap.from_pure([port_map(m) for m in pures], device="cpu")
         axes = ("n_keys", "sibling_cap", "deferred_cap")
+    else:
+        pures = [mv_map() for _ in range(2)]
+        put(pures[0], "s0", "k0", 1)
+        put(pures[1], "s1", "k0", 2)
+        ref = RefSparseMap.from_pure(pures, cell_cap=4, n_keys=50)
+        port = BatchedSparseMap.from_pure([port_map(m) for m in pures], cell_cap=4, n_keys=50,
+                                          device="cpu")
+        axes = ("cell_cap", "sibling_cap", "rm_width")
     assert elastic.capacities(port) == ref_elastic.capacities(ref)
     assert elastic.utilization(port) == ref_elastic.utilization(ref)
     metrics.reset()

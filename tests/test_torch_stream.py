@@ -4,7 +4,10 @@
 every leaf at tolerance 0, flags included: block-count invariance, the
 ragged tail, narrower blocks widened on arrival, the refusals,
 ``pipeline``/``donate`` off, ``init=``, the empty stream and the
-interrupt/resume protocol."""
+interrupt/resume protocol. The sparse ``Map<K, MVReg>`` plan and the
+element-sharded plan (``mesh_stream_fold_sparse_mvmap`` /
+``_sharded``) against the JAX package's, the latter at ``VirtualMesh(4,
+s=2)`` against ``make_mesh(4, 2)``."""
 
 import random
 
@@ -19,8 +22,12 @@ from crdt_tpu.ops import sparse_orswot as ref
 from crdt_tpu.parallel import (
     iter_blocks as ref_iter_blocks,
     make_mesh,
+    mesh_fold_sparse_sharded as ref_fold_sharded,
     mesh_stream_fold as ref_stream_dense,
     mesh_stream_fold_sparse as ref_stream,
+    mesh_stream_fold_sparse_mvmap as ref_stream_mvmap,
+    mesh_stream_fold_sparse_sharded as ref_stream_sharded,
+    split_segments as ref_split_segments,
 )
 
 from crdt_tpu_torch.convert import orswot_from_numpy
@@ -29,8 +36,12 @@ from crdt_tpu_torch.parallel import (
     StreamInterrupted,
     VirtualMesh,
     iter_blocks,
+    mesh_fold_sparse_sharded,
     mesh_stream_fold,
     mesh_stream_fold_sparse,
+    mesh_stream_fold_sparse_mvmap,
+    mesh_stream_fold_sparse_sharded,
+    split_segments,
 )
 from crdt_tpu_torch.utils.metrics import metrics
 
@@ -241,3 +252,56 @@ def test_unported_modes_name_their_item(mode, item, entry, tmp_path):
         acc, of, tel = fn(iter_blocks(state, 4), mesh(), **mode)
     assert int(tel.stream_blocks.view(torch.int32)) == 2
     assert (float(tel.wal_bytes) > 0) == ("wal" in mode)
+
+
+# ---- the sparse Map and element-sharded plans (ROADMAP item 12b) -----------
+
+@pytest.mark.parametrize("seed,n,rows", [(21, 8, 4), (22, 10, 4), (23, 7, 3)])
+def test_sparse_mvmap_stream_matches_reference(seed, n, rows):
+    """Populations with parked key removes, ragged tails included: the
+    stream == the JAX stream, flags [cell, deferred, sibling] too, and the
+    block-size-invariant fold of the same rows when nothing parks."""
+    from test_torch_sparse_mvmap import assert_flags as mv_flags, assert_same as mv_same, \
+        pair, population
+
+    r, p = pair(population(seed, n=n)[0])
+    want, want_of = ref_stream_mvmap(ref_iter_blocks(r.state, rows), make_mesh(P, 1),
+                                     sibling_cap=6)
+    got, got_of = mesh_stream_fold_sparse_mvmap(iter_blocks(p.state, rows), mesh(),
+                                                sibling_cap=6)
+    mv_same(want, got, f"mvmap stream rows={rows}")
+    mv_flags(want_of, got_of)
+    # A sibling cap of 1 overflows the sibling lane, which no widening
+    # recovers: the flag comes back, the stream does not refuse.
+    want, want_of = ref_stream_mvmap(ref_iter_blocks(r.state, rows), make_mesh(P, 1),
+                                     sibling_cap=1)
+    got, got_of = mesh_stream_fold_sparse_mvmap(iter_blocks(p.state, rows), mesh(),
+                                                sibling_cap=1)
+    mv_same(want, got, "mvmap stream, sibling cap 1")
+    mv_flags(want_of, got_of)
+
+
+@pytest.mark.parametrize("seed,rows", [(24, 4), (25, 3)])
+def test_sharded_stream_matches_reference_and_the_sharded_fold(seed, rows):
+    states = ref_states(seed, n=8)
+    sharded = ref_split_segments(states, 2)
+    want, want_of = ref_stream_sharded(ref_iter_blocks(sharded, rows), make_mesh(P, 2))
+    smesh = VirtualMesh(P, "cpu", s=2)
+    port = split_segments(to_port(states), 2)
+    got, got_of = mesh_stream_fold_sparse_sharded(iter_blocks(port, rows), smesh)
+    assert_same(want, got, f"sharded stream rows={rows}")
+    assert_flags(want_of, got_of)
+    folded, _ = mesh_fold_sparse_sharded(port, smesh)
+    want_f, _ = ref_fold_sharded(sharded, make_mesh(P, 2))
+    assert_same(want_f, folded, "sharded fold")
+    # init= an [S, ...] accumulator resumes the stream bit-identically.
+    head = tree_slice(port, 0, 4)
+    acc, _ = mesh_stream_fold_sparse_sharded(iter_blocks(head, rows), smesh)
+    rest, _ = mesh_stream_fold_sparse_sharded(iter_blocks(tree_slice(port, 4, 8), rows), smesh,
+                                              init=acc)
+    full, _ = mesh_stream_fold_sparse_sharded([head, tree_slice(port, 4, 8)], smesh)
+    assert all(torch.equal(x.view(torch.uint8), y.view(torch.uint8)) for x, y in zip(rest, full))
+
+
+def tree_slice(state, lo, hi):
+    return type(state)(*(x[lo:hi] for x in state))

@@ -304,6 +304,100 @@ def test_sparse_full_state_telemetry_matches(entry, p):
     assert_same_tree(got[0], fn(to_port(states), VirtualMesh(p, "cpu"))[0])
 
 
+SPARSE_MAP_ENTRIES = ["mvmap_fold", "mvmap_gossip", "nested_fold", "nested_gossip"]
+
+
+@pytest.mark.parametrize("entry", SPARSE_MAP_ENTRIES)
+@pytest.mark.parametrize("p", [4, 3])
+def test_sparse_map_full_state_telemetry_matches(entry, p):
+    """The sparse Map kinds' fold and gossip (``changed_cells`` and, for a
+    nest, every plane's changed entries as ``slots_changed``), on the
+    replicated element axis of ``make_mesh(P, 1)``."""
+    from crdt_tpu.ops import sparse_nest as ref_nest
+    from crdt_tpu.parallel import (
+        mesh_fold_sparse_mvmap as rf_mv, mesh_fold_sparse_nested as rf_nest,
+        mesh_gossip_sparse_mvmap as rg_mv, mesh_gossip_sparse_nested as rg_nest,
+    )
+    from crdt_tpu_torch.ops import sparse_nest as nest
+    from crdt_tpu_torch.parallel import (
+        mesh_fold_sparse_mvmap, mesh_fold_sparse_nested, mesh_gossip_sparse_mvmap,
+        mesh_gossip_sparse_nested,
+    )
+    from test_torch_sparse_mvmap import pair as mv_pair, population as mv_population
+    from test_torch_sparse_nest import pair as nest_pair, population as nest_population
+
+    if entry.startswith("mvmap"):
+        ref, port = mv_pair(mv_population(41, n=8)[0])
+        ref_fn, fn = {"mvmap_fold": (rf_mv, mesh_fold_sparse_mvmap),
+                      "mvmap_gossip": (rg_mv, mesh_gossip_sparse_mvmap)}[entry]
+        kw = dict(sibling_cap=6)
+        want = ref_fn(ref.state, make_mesh(p, 1), telemetry=True, **kw)
+        got = fn(port.state, VirtualMesh(p, "cpu"), telemetry=True, **kw)
+        off = fn(port.state, VirtualMesh(p, "cpu"), **kw)
+    else:
+        ref, port = nest_pair(nest_population(41, n=8)[0])
+        ref_fn, fn = {"nested_fold": (rf_nest, mesh_fold_sparse_nested),
+                      "nested_gossip": (rg_nest, mesh_gossip_sparse_nested)}[entry]
+        want = ref_fn(ref.state, make_mesh(p, 1), ref_nest.level_map_orswot(4), telemetry=True)
+        got = fn(port.state, VirtualMesh(p, "cpu"), nest.level_map_orswot(4), telemetry=True)
+        off = fn(port.state, VirtualMesh(p, "cpu"), nest.level_map_orswot(4))
+    assert_tel(got[2], want[2], f"{entry} P={p}")
+    assert tele.to_dict(got[2])["merges"] > 0
+    assert_same_tree(got[0], off[0])
+
+
+def test_a_replicated_element_axis_ships_a_copy_per_shard_like_jax():
+    """On ``make_mesh(4, 2)`` the sparse Map entries keep their state
+    replicated over the element axis, so each shard ships its copy: the
+    wire bytes count both, the merges do not."""
+    from crdt_tpu.parallel import mesh_gossip_sparse_mvmap as ref_gossip
+    from crdt_tpu_torch.parallel import mesh_gossip_sparse_mvmap
+    from test_torch_sparse_mvmap import pair, population
+
+    ref, port = pair(population(44, n=8)[0])
+    want = ref_gossip(ref.state, make_mesh(4, 2), sibling_cap=6, telemetry=True)
+    got = mesh_gossip_sparse_mvmap(port.state, VirtualMesh(4, "cpu", s=2), sibling_cap=6,
+                                   telemetry=True)
+    assert_tel(got[2], want[2], "gossip on a (4, 2) mesh")
+    one = mesh_gossip_sparse_mvmap(port.state, VirtualMesh(4, "cpu"), sibling_cap=6,
+                                   telemetry=True)
+    assert float(got[2].bytes_exchanged) == 2 * float(one[2].bytes_exchanged)
+
+
+def test_sparse_map_stream_telemetry_matches():
+    from crdt_tpu.parallel import iter_blocks as ref_iter_blocks
+    from crdt_tpu.parallel import mesh_stream_fold_sparse_mvmap as ref_stream
+    from crdt_tpu_torch.parallel import iter_blocks, mesh_stream_fold_sparse_mvmap
+    from test_torch_sparse_mvmap import pair, population
+
+    ref, port = pair(population(42, n=10)[0])
+    want = ref_stream(ref_iter_blocks(ref.state, 4), make_mesh(4, 1), sibling_cap=6,
+                      telemetry=True)
+    got = mesh_stream_fold_sparse_mvmap(iter_blocks(port.state, 4), VirtualMesh(4, "cpu"),
+                                        sibling_cap=6, telemetry=True)
+    assert_tel(got[2], want[2], "sparse mvmap stream")
+    assert tele.to_dict(got[2])["stream_blocks"] == 3
+
+
+def test_sharded_stream_telemetry_matches():
+    """The element-sharded stream on ``make_mesh(4, 2)``: the changed
+    slots summed over the shards, the wire over ranks and shards."""
+    from crdt_tpu.parallel import iter_blocks as ref_iter_blocks
+    from crdt_tpu.parallel import mesh_stream_fold_sparse_sharded as ref_stream
+    from crdt_tpu.parallel import split_segments as ref_split
+    from crdt_tpu_torch.parallel import (
+        iter_blocks, mesh_stream_fold_sparse_sharded, split_segments,
+    )
+    from test_torch_sparse_orswot import ref_states, to_port
+
+    states = ref_states(43, n=8)
+    want = ref_stream(ref_iter_blocks(ref_split(states, 2), 4), make_mesh(4, 2), telemetry=True)
+    got = mesh_stream_fold_sparse_sharded(iter_blocks(split_segments(to_port(states), 2), 4),
+                                          VirtualMesh(4, "cpu", s=2), telemetry=True)
+    assert_tel(got[2], want[2], "sharded stream")
+    assert tele.to_dict(got[2])["slots_changed"] > 0
+
+
 def test_gossip_elastic_telemetry_combines_the_attempts_like_jax():
     from crdt_tpu.models.orswot import BatchedOrswot as RefOrswot
     from crdt_tpu.parallel import gossip_elastic as ref_gossip_elastic
