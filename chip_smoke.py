@@ -301,6 +301,44 @@ at first use), then runs, printing one JSON line per phase:
                         flagship population through
                         ``mesh_stream_fold_sparse_sharded`` at S = 2 ==
                         ``split_segments`` of the unsharded stream.
+27. ``nested_scenarios`` — seeded op streams of ``Map<K, Orswot>``, ``Map<K1,
+                        Map<K2, MVReg>>`` and ``Map<K1, Map<K2, Orswot>>``
+                        with removes parked at every level, through the
+                        models on the card and on the CPU side by side (card
+                        == CPU on every leaf, ``to_pure`` == the oracle),
+                        merges and ``fold()`` (the fused level fold: K1 or K2
+                        on the leaf, counted; == the oracle's merge); the
+                        fused fold on the card == its plain route on the CPU
+                        == the tree fold with every level's parked slots in
+                        clock order; then depth 4, one generic level around
+                        ``Map3``.
+28. ``full_width_nested`` — (a) ``Map<K, Orswot>`` at config 3's widths (K 400
+                        × M 256 = E 102,400, A = 8, D = 4, 4 outer keyset
+                        clocks) at R = 10,240 through ``BatchedMapOrswot.fold()``
+                        (K1 once); == the plain route (K1's plain version in
+                        512-replica chunks + the same epilogue); a 6-replica
+                        subsample's fold == the oracle's merge. (b) ``Map3`` at
+                        the same widths (K1 16 × K2 25 × M 256) at R = 2,048,
+                        two ``settle_outer`` levels, == the plain route. (c)
+                        ``Map<K1, Map<K2, MVReg>>`` at config 4's widths (1,000
+                        × 1,000 keys, S = 2, A = 4, D = 4) at R = 8 and 64 (K2
+                        once a fold; replicas settled first), ==
+                        ``fold_cells_plain`` + the epilogue; the flat
+                        ``BatchedMap``'s K2 fold + the outer level == the
+                        nest's tree fold. Leaf kernel ms, epilogue ms by
+                        level, fold walls, peak.
+29. ``full_width_delta_nested`` — the ``Map<K, Orswot>`` δ ring at
+                        ``full_width_delta``'s widths and cut (R = 5,120 on P =
+                        8, cap 4,096) and the ``Map3`` ring at R = 1,024, outer
+                        keyset removes of live keys parked at every level (the
+                        K1 one kills a live K1 key): certified fused (K3 once
+                        a round, every launch == K3's plain version) ==
+                        layered == ``mesh_fold_map_orswot`` /
+                        ``mesh_fold_map3``, residue 0; acked (residue 0) and
+                        logged once (replayed); walls (median of 5,
+                        alternating fused, layered and acked), busy
+                        share, launches a round, wire bytes, K3 at the nested
+                        instance (slot + every parked level in one launch).
 
 Then the ``nvidia-smi`` name/power-limit line, a ``kernels`` JSON line, and
 as the last line ``{"ok": true, "device": {...}}``. Any failed check raises
@@ -1687,27 +1725,33 @@ def op_tracking(model, applied, device):
     return tracking_from_numpy(dirty, fctx, device=device)
 
 
+def slots_in_clock_order(dcl, mask, dvalid):
+    """One parked buffer ``[..., D, ...]`` with each row's slots reordered:
+    valid slots first, by clock (fold orders park the same removes in
+    different slots)."""
+    import torch
+
+    from crdt_tpu_torch._dtypes import bits, to_wide
+
+    lead, d = dvalid.shape[:-1], dvalid.shape[-1]
+    valid = dvalid.reshape(-1, d).tolist()
+    clocks = to_wide(dcl).reshape(-1, d, dcl.shape[-1]).tolist()
+    idx = torch.tensor([sorted(range(d), key=lambda i: (not v[i], c[i]))
+                        for v, c in zip(valid, clocks)], device=dvalid.device).reshape(*lead, d)
+    take = lambda x: torch.take_along_dim(  # noqa: E731
+        bits(x), idx.reshape(*idx.shape, *([1] * (x.dim() - idx.dim()))),
+        dim=idx.dim() - 1).view(x.dtype)
+    return take(dcl), take(mask), take(dvalid)
+
+
 def parked_in_clock_order(state):
     """``state`` (an OrswotState or MapState, with any leading batch axes)
     with each row's parked slots reordered: valid slots first, by clock.
     Fold orders may park the same removes in different slots (the JAX
     package's fused and tree folds differ the same way)."""
-    import torch
-
-    from crdt_tpu_torch._dtypes import bits, to_wide
-
     mask = "dmask" if hasattr(state, "dmask") else "dkeys"
-    lead, d = state.dvalid.shape[:-1], state.dvalid.shape[-1]
-    valid = state.dvalid.reshape(-1, d).tolist()
-    clocks = to_wide(state.dcl).reshape(-1, d, state.dcl.shape[-1]).tolist()
-    idx = torch.tensor([sorted(range(d), key=lambda i: (not v[i], c[i]))
-                        for v, c in zip(valid, clocks)], device=state.dvalid.device)
-    idx = idx.reshape(*lead, d)
-    take = lambda x: torch.take_along_dim(  # noqa: E731
-        bits(x), idx.reshape(*idx.shape, *([1] * (x.dim() - idx.dim()))),
-        dim=idx.dim() - 1).view(x.dtype)
-    return state._replace(dcl=take(state.dcl), dvalid=take(state.dvalid),
-                          **{mask: take(getattr(state, mask))})
+    dcl, m, dvalid = slots_in_clock_order(state.dcl, getattr(state, mask), state.dvalid)
+    return state._replace(dcl=dcl, dvalid=dvalid, **{mask: m})
 
 
 def same_leaves(x, y) -> bool:
@@ -3752,6 +3796,21 @@ def kind_arrays(kind: str, rng) -> dict:
         return {k: v[0] for k, v in child.items()}
     if kind == "vclock":
         return dict(clock=u32((5,)))
+    orswot = dict(top=u32((3,)), ctr=u32((8, 3)), dcl=u32((2, 3)),
+                  dmask=rng.random((2, 8)) < 0.4, dvalid=rng.random(2) < 0.5)
+
+    def level(prefix: str, n_keys: int) -> dict:  # one nest level's buffer
+        return {f"{prefix}dcl": u32((2, 3)), f"{prefix}dkeys": rng.random((2, n_keys)) < 0.4,
+                f"{prefix}dvalid": rng.random(2) < 0.5}
+
+    if kind == "map_orswot":  # 4 keys x 2 members
+        return dict(core=orswot, **level("k", 4))
+    if kind == "map3":  # 2 x 2 keys x 2 members
+        return dict(mo=dict(core=orswot, **level("k", 4)), **level("o", 2))
+    if kind == "map_map":  # 2 x 2 keys
+        m = dict(top=u32((3,)), child=child, dcl=u32((2, 3)),
+                 dkeys=rng.random((2, 4)) < 0.4, dvalid=rng.random(2) < 0.5)
+        return dict(m=m, **level("o", 2))
     segments = dict(top=u32((3,)), eid=rng.integers(-1, 30, 8).astype(np.int32),
                     act=rng.integers(0, 3, 8).astype(np.int32), ctr=u32((8,)),
                     valid=rng.random(8) < 0.6, dcl=u32((2, 3)),
@@ -3774,8 +3833,8 @@ def kind_arrays(kind: str, rng) -> dict:
 def kind_state(kind: str, arrays: dict, device):
     """:func:`kind_arrays`'s leaves as the port's state on ``device``."""
     from crdt_tpu_torch.convert import (
-        leaf_from_numpy, map_from_numpy, orswot_from_numpy, sparse_mvmap_from_numpy,
-        sparse_nest_from_numpy, sparse_orswot_from_numpy,
+        leaf_from_numpy, map_from_numpy, nest_from_numpy, orswot_from_numpy,
+        sparse_mvmap_from_numpy, sparse_nest_from_numpy, sparse_orswot_from_numpy,
     )
     from crdt_tpu_torch.ops.mvreg import MVRegState
 
@@ -3789,6 +3848,8 @@ def kind_state(kind: str, arrays: dict, device):
         return sparse_mvmap_from_numpy(arrays, device)
     if kind in ("sparse_nest", "sparse_nested_map"):
         return sparse_nest_from_numpy(arrays, device)
+    if kind in ("map_orswot", "map3", "map_map"):
+        return nest_from_numpy(arrays, device)
     if kind == "mvreg":
         return MVRegState(**{k: leaf_from_numpy(v, device) for k, v in arrays.items()})
     return leaf_from_numpy(arrays["clock"], device)
@@ -6206,6 +6267,848 @@ def phase_full_width_sparse_map(device, seed: int, r: int = 256, cells: int = 20
     return out
 
 
+# ---- phases 27-29: nested composition (ROADMAP item 13) -------------------
+
+NEST_KINDS = ("map_orswot", "map_map", "map3")
+NEST_KEYS1, NEST_KEYS2, NEST_MEMBERS = list("pqr"), list("uv"), list("xyz")
+NEST_ACTORS = ["s0", "s1", "s2", "A", "B", "C"]
+NEST_D = 6  # parked slots at every level
+
+
+def nest_factory(kind: str):
+    """The pure oracle's empty value of a nested ``kind``."""
+    from crdt_tpu_torch.pure import Map, MVReg, Orswot
+
+    return {"map_orswot": lambda: Map(Orswot), "map_map": lambda: Map(lambda: Map(MVReg)),
+            "map3": lambda: Map(lambda: Map(Orswot))}[kind]()
+
+
+def nest_update(m, actor, path, leaf):
+    """``Op::Up`` through every key of ``path`` with ONE AddCtx (one dot at
+    every level), ``leaf(child, ctx)`` minting the op at the bottom;
+    applied at ``m`` and returned."""
+    ctx = m.len().derive_add_ctx(actor)
+
+    def down(i):
+        if i == len(path) - 1:
+            return leaf
+        return lambda child, c: child.update(path[i + 1], c, down(i + 1))
+
+    op = m.update(path[0], ctx, down(0))
+    m.apply(op)
+    return op
+
+
+def nest_rm_ctx(m, path, member=None):
+    """The remove context of ``member`` (or of the last key of ``path``)
+    as site ``m`` sees it — empty where the target does not exist."""
+    from crdt_tpu_torch.ctx import RmCtx
+    from crdt_tpu_torch.vclock import VClock
+
+    node = m
+    for k in path[:-1] if member is None else path:
+        node = node.entries.get(k)
+        if node is None:
+            return RmCtx(clock=VClock())
+    if member is None:
+        return node.get(path[-1]).derive_rm_ctx()
+    if member not in node.entries:
+        return RmCtx(clock=VClock())
+    return node.contains(member).derive_rm_ctx()
+
+
+def nest_add(kind, m, actor, k1, k2, x):
+    """The kind's add or put at (k1[, k2]) of member or value ``x``."""
+    if kind == "map_map":
+        return nest_update(m, actor, [k1, k2], lambda reg, c: reg.write(x, c))
+    path = [k1] if kind == "map_orswot" else [k1, k2]
+    return nest_update(m, actor, path, lambda s, c: s.add(x, c))
+
+
+def nest_inner_rm(kind, m, actor, k1, k2, member):
+    """A remove one level down (a member remove inside a child; an inner
+    keyset remove)."""
+    if kind == "map_map":
+        ctx = nest_rm_ctx(m, [k1, k2])
+        return nest_update(m, actor, [k1], lambda child, c: child.rm(k2, ctx))
+    path = [k1] if kind == "map_orswot" else [k1, k2]
+    ctx = nest_rm_ctx(m, path, member)
+    return nest_update(m, actor, path, lambda s, c: s.rm(member, ctx))
+
+
+def nest_drop2(m, actor, k1, k2):
+    """``Map3``'s middle keyset remove of k2 inside the k1 child."""
+    ctx = nest_rm_ctx(m, [k1, k2])
+    return nest_update(m, actor, [k1], lambda child, c: child.rm(k2, ctx))
+
+
+def nest_drop1(m, k1):
+    op = m.rm(k1, m.get(k1).derive_rm_ctx())
+    m.apply(op)
+    return op
+
+
+def mint_nest_sites(kind: str, rng, n_cmds: int, n_sites: int = 3):
+    """Per-site op streams of a nested ``kind`` (adds or puts, removes one
+    level down, middle and outer keyset removes), each site minting under
+    its own actor and often merging another site's state first, so its
+    remove clocks cover other actors' dots."""
+    sites = [nest_factory(kind) for _ in range(n_sites)]
+    streams = [[] for _ in range(n_sites)]
+    for step in range(n_cmds):
+        i = rng.randrange(n_sites)
+        s, actor = sites[i], NEST_ACTORS[i]
+        k1, k2, m = rng.choice(NEST_KEYS1), rng.choice(NEST_KEYS2), rng.choice(NEST_MEMBERS)
+        live = sorted(s.entries)
+        if live:
+            k1 = rng.choice(live)
+            k2 = rng.choice(sorted(s.entries[k1].entries) or NEST_KEYS2)
+        x = step % 6 if kind == "map_map" else m
+        roll = rng.random()
+        if roll < 0.4 or not live:
+            op = nest_add(kind, s, actor, rng.choice(NEST_KEYS1) if not live else k1, k2, x)
+        elif roll < 0.55:
+            op = nest_inner_rm(kind, s, actor, k1, k2, m)
+        elif roll < 0.62 and kind == "map3":
+            op = nest_drop2(s, actor, k1, k2)
+        elif roll < 0.72:
+            op = nest_drop1(s, k1)
+        else:
+            s.merge(sites[rng.randrange(n_sites)].clone())
+            continue
+        streams[i].append(op)
+    return streams
+
+
+def nest_parked_streams(kind: str):
+    """Streams of sites "A", "B", "C" that park a remove at EVERY level of
+    ``kind`` on a replica that takes A's and B's ops but not C's: B merges
+    C and removes C's content one level down (and, in ``map3``, two) and
+    at the outer level, while A's add keeps the enclosing children alive
+    (a parked remove inside a bottomed child is scrubbed with it).
+    Returns ``(streams, replica)``."""
+    a, b, c = (nest_factory(kind) for _ in range(3))
+    sc = [nest_add(kind, c, "C", "r", "u", 1 if kind == "map_map" else "z"),
+          nest_add(kind, c, "C", "q", "v", 2 if kind == "map_map" else "y")]
+    if kind == "map3":
+        sc.append(nest_add(kind, c, "C", "r", "v", "x"))
+    sa = [nest_add(kind, a, "A", "r", "v" if kind == "map_map" else "u",
+                   3 if kind == "map_map" else "x")]
+    b.merge(c.clone())
+    sb = [nest_inner_rm(kind, b, "B", "r", "u", "z")]
+    if kind == "map3":
+        sb.append(nest_drop2(b, "B", "r", "v"))
+    sb.append(nest_drop1(b, "q"))
+    rep = nest_factory(kind)
+    for op in sa + sb:
+        rep.apply(op)
+    return [sa, sb, sc], rep
+
+
+def nest_population(kind: str, rng, n: int, n_cmds: int = 24):
+    """``n`` oracle replicas: ``n - 1`` hold random per-site prefixes of
+    minted streams in their own interleavings (ahead removes park), one
+    (at a random position) parks a remove at every level. Returns
+    ``(replicas, streams)``."""
+    streams = mint_nest_sites(kind, rng, n_cmds)
+    reps = []
+    for _ in range(n - 1):
+        rep = nest_factory(kind)
+        cut = [q[: rng.choice((0, len(q), rng.randint(0, len(q))))] for q in streams]
+        for op in interleave(rng, cut):
+            rep.apply(op)
+        reps.append(rep)
+    scripted, parked = nest_parked_streams(kind)
+    reps.insert(rng.randrange(n), parked)
+    return reps, streams + scripted
+
+
+def nest_model(kind: str, pures, device, **caps):
+    """The nested ``kind``'s batched model of ``pures`` on ``device``, with
+    fixed interners."""
+    from crdt_tpu_torch.models import BatchedMap3, BatchedMapOrswot, BatchedNestedMap
+    from crdt_tpu_torch.utils import Interner
+
+    kw = dict(deferred_cap=NEST_D, actors=Interner(NEST_ACTORS), device=device, **caps)
+    if kind == "map_orswot":
+        return BatchedMapOrswot.from_pure(pures, keys=Interner(NEST_KEYS1),
+                                          members=Interner(NEST_MEMBERS), **kw)
+    if kind == "map_map":
+        return BatchedNestedMap.from_pure(pures, sibling_cap=6, keys1=Interner(NEST_KEYS1),
+                                          keys2=Interner(NEST_KEYS2), values=Interner(range(6)),
+                                          **kw)
+    return BatchedMap3.from_pure(pures, keys1=Interner(NEST_KEYS1), keys2=Interner(NEST_KEYS2),
+                                 members=Interner(NEST_MEMBERS), **kw)
+
+
+def nest_ops(kind: str):
+    from crdt_tpu_torch.ops import map3, map_map, map_orswot
+
+    return {"map_orswot": map_orswot, "map_map": map_map, "map3": map3}[kind]
+
+
+def nest_parked_levels(state) -> list:
+    """Valid parked slots of a dense nest per level, innermost first."""
+    if not hasattr(state, "_fields"):
+        return []
+    if not hasattr(state[0], "_fields"):  # the leaf: its first field is a tensor
+        return [int(state.dvalid.sum())]
+    return nest_parked_levels(state[0]) + [int(state[3].sum())]
+
+
+def nest_in_clock_order(state):
+    """A dense nest (any depth, any leading axes) with every level's
+    parked slots in clock order."""
+    if not hasattr(state[0], "_fields"):  # the leaf
+        return parked_in_clock_order(state)
+    return type(state)(nest_in_clock_order(state[0]), *slots_in_clock_order(*state[1:]))
+
+
+def nest_rows_equal_fold(rows, folded) -> bool:
+    """Every rank's converged row of a nest equals the folded state, every
+    level's parked slots in clock order."""
+    from crdt_tpu_torch.ops.lattice import tree_leaves, tree_map
+
+    one = nest_in_clock_order(tree_map(lambda x: x[None], folded))
+    rows = nest_in_clock_order(rows)
+    p = tree_leaves(rows)[0].shape[0]
+    return all(same_leaves(tree_map(lambda x: x[q], rows), tree_map(lambda x: x[0], one))
+               for q in range(p))
+
+
+def _leaf_counter(kind: str):
+    from crdt_tpu_torch.ops.fold_kernels import fold_cells, fold_entries
+
+    return fold_cells if kind == "map_map" else fold_entries
+
+
+def phase_nested_scenarios(device, seed: int, n: int = 6, rounds: int = 2) -> dict:
+    """Small probes of every nested kind, on the card and on the CPU side
+    by side: seeded op streams with removes parked at every level, through
+    ``apply`` (card == CPU on every leaf; ``to_pure`` == the oracle),
+    ``merge_from`` and ``fold()`` (the fused level fold: K1 on the leaf of
+    ``Map<K, Orswot>`` and ``Map3``, K2 on the leaf of ``Map<K1, Map<K2,
+    MVReg>>``, counted; == the oracle's merge); the fused fold on the card
+    == its plain route on the CPU bit for bit == the tree fold with every
+    level's parked slots in clock order. Then depth 4, a level around
+    ``Map3`` built from the generic step alone, the same gates."""
+    import torch
+
+    from crdt_tpu_torch.ops import fold_kernels as fk
+    from crdt_tpu_torch.ops import map3 as m3_ops
+    from crdt_tpu_torch.ops.lattice import tree_map
+    from crdt_tpu_torch.ops.nest import NestLevel
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    rng = random.Random(seed + 27)
+    out = {"phase": "nested_scenarios"}
+    for kind in NEST_KINDS:
+        ops_mod, counter = nest_ops(kind), _leaf_counter(kind)
+        counts = {"ops": 0, "merges": 0, "folds": 0, "launches": 0,
+                  "parked_per_level": None}
+        for _ in range(rounds):
+            pures, streams = nest_population(kind, rng, n)
+            card, host = nest_model(kind, pures, device), nest_model(kind, pures, cpu)
+            check(same_leaves(on_cpu(card.state), host.state), f"{kind}: from_pure card != CPU")
+            levels = nest_parked_levels(host.state)
+            counts["parked_per_level"] = (levels if counts["parked_per_level"] is None else
+                                          [x + y for x, y in zip(counts["parked_per_level"],
+                                                                 levels)])
+            # The op path: fresh replicas, each a random cut of the streams.
+            fresh = [nest_factory(kind) for _ in range(n)]
+            cards, hosts = nest_model(kind, fresh, device), nest_model(kind, fresh, cpu)
+            oracles = [nest_factory(kind) for _ in range(n)]
+            for j in range(n):
+                cut = [q[: rng.choice((0, len(q), rng.randint(0, len(q))))] for q in streams]
+                for op in interleave(rng, cut):
+                    cards.apply(j, op)
+                    hosts.apply(j, op)
+                    oracles[j].apply(op)
+                    counts["ops"] += 1
+                check(cards.to_pure(j) == oracles[j], f"{kind} op path, replica {j}")
+            check(same_leaves(on_cpu(cards.state), hosts.state), f"{kind} op path: card != CPU")
+            # Merges, then folds of the populated batch.
+            for _ in range(n):
+                dst, src = rng.randrange(n), rng.randrange(n)
+                pures[dst] = pures[dst].clone()
+                pures[dst].merge(pures[src].clone())
+                card.merge_from(dst, src)
+                host.merge_from(dst, src)
+                counts["merges"] += 1
+                check(card.to_pure(dst) == pures[dst], f"{kind} merge_from vs the oracle")
+            check(same_leaves(on_cpu(card.state), host.state), f"{kind} merges: card != CPU")
+            expect = nest_factory(kind)
+            for x in pures:
+                expect.merge(x.clone())
+            before = counter.launches
+            got = card.fold()
+            check(device.type != "cuda" or counter.launches == before + 1,
+                  f"{kind}: fold() launched its leaf kernel {counter.launches - before} times")
+            counts["launches"] += counter.launches - before
+            check(got == expect == host.fold(), f"{kind} fold() vs the oracle and the CPU")
+            fused, fflags = ops_mod.fold(card.state)
+            plain, pflags = fk.fold_fused_level(ops_mod.LEVEL, host.state)
+            tree, tflags = ops_mod.fold(host.state, prefer="tree")
+            check(same_leaves(on_cpu(fused), plain), f"{kind}: fused fold card != plain route")
+            check(same_leaves(nest_in_clock_order(plain), nest_in_clock_order(tree)),
+                  f"{kind}: fused fold != tree fold (parked slots in clock order)")
+            check(torch.equal(fflags.cpu(), pflags) and torch.equal(pflags, tflags),
+                  f"{kind}: fold flags differ")
+            counts["folds"] += 2
+        check(all(x > 0 for x in counts["parked_per_level"]),
+              f"{kind}: no parked remove at some level {counts['parked_per_level']}")
+        out[kind] = counts
+
+    # Depth 4: one more generic level around Map3 (outer keys = K1's, one
+    # each), with removes parked at the new level on every replica.
+    level4 = NestLevel(m3_ops.LEVEL)
+    pures, _ = nest_population("map3", rng, n)
+    counter = _leaf_counter("map3")
+    states = {}
+    for dev in (device, cpu):
+        inner = nest_model("map3", pures, dev).state
+        st = level4.empty(inner, len(NEST_KEYS1), len(NEST_ACTORS), NEST_D, batch=(n,))
+        for k, lane in enumerate((0, 3)):
+            clock = [0] * len(NEST_ACTORS)
+            clock[lane] = 99 + k
+            mask = torch.tensor([j == k for j in range(len(NEST_KEYS1))])
+            st, of = level4.rm_parked(st, clock, mask)
+            check(not bool(of.any()), "depth 4: the outer buffer overflowed")
+        states[dev.type] = st
+    check(same_leaves(on_cpu(states[device.type]), states["cpu"]), "depth 4: card != CPU")
+    before = counter.launches
+    fused, fflags = fk.fold_auto_level(level4, states[device.type])
+    check(device.type != "cuda" or counter.launches == before + 1,
+          "depth 4: the fused level fold did not launch K1 once")
+    tree, tflags = level4.fold(states["cpu"])
+    check(same_leaves(nest_in_clock_order(on_cpu(fused)), nest_in_clock_order(tree)),
+          "depth 4: fused fold != tree fold")
+    check(torch.equal(fflags.cpu(), tflags) and fflags.shape == (4,), "depth 4: flags differ")
+    check(int(tree[3].sum()) == 2, "depth 4: the outer removes vanished")
+    out["depth4"] = {"replicas": n, "levels": 4, "parked_per_level": nest_parked_levels(tree)}
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return out
+
+
+# ---- full-width nests ---------------------------------------------------------------
+
+def fill_outer_level(level_state, n_keys: int, seed: int, n_parked: int = 16,
+                     n_clocks: int = 4, p_key: float = 0.01, ahead: int = 1_000_000,
+                     keys=None):
+    """Outer parked keyset-removes into one nest level's buffer, in place:
+    ``n_parked`` replicas (spread over the batch) each park one of
+    ``n_clocks`` distinct clocks — lane 0 ahead of every top, the other
+    lanes zero — over ~``p_key`` of the level's keys (or, with ``keys``,
+    the one key ``keys[i % len(keys)]`` each). The fold's epilogue
+    dedupes, replays (killing lane 0's covered dots on the masked keys)
+    and keeps ``n_clocks`` slots."""
+    import torch
+
+    from crdt_tpu_torch._dtypes import bits
+
+    dcl, dkeys, dvalid = level_state[1], level_state[2], level_state[3]
+    r, d = dvalid.shape
+    dev = dvalid.device
+    gen = torch.Generator(device=dev).manual_seed(seed + 13)
+    pos = torch.arange(n_parked, device=dev)
+    rows, slots = pos * r // n_parked, pos % min(d, 2)
+    clocks = torch.zeros((n_clocks, dcl.shape[-1]), dtype=torch.int32, device=dev)
+    clocks[:, 0] = ahead + torch.arange(n_clocks, device=dev, dtype=torch.int32)
+    bits(dcl)[rows, slots] = clocks[pos % n_clocks]
+    dvalid[rows, slots] = True
+    if keys is None:
+        dkeys[rows, slots] = torch.rand((n_parked, n_keys), generator=gen, device=dev) < p_key
+    else:
+        pick = torch.tensor(keys, device=dev)[pos % len(keys)]
+        dkeys[rows, slots] = torch.arange(n_keys, device=dev) == pick[:, None]
+
+
+def nest_plain_fold(level, states, chunk: int):
+    """The plain route of the fused level fold on the same device: the
+    leaf kernel's plain version (K1's in ``chunk``-replica chunks joined
+    in turn, or K2's on the decoded cells), then the same epilogue."""
+    from crdt_tpu_torch._dtypes import from_wide, to_wide
+    from crdt_tpu_torch.ops import fold_kernels as fk
+    from crdt_tpu_torch.ops.orswot import DTYPE, OrswotState, _join_entries
+
+    _, leaf = fk._level_chain(level, states)
+    if isinstance(leaf, OrswotState):
+        r = leaf.top.shape[0]
+        acc = None
+        for lo in range(0, r, chunk):
+            pt, pc = fk.fold_entries_plain(leaf.top[lo:lo + chunk], leaf.ctr[lo:lo + chunk])
+            part = (to_wide(pt), to_wide(pc))
+            acc = part if acc is None else _join_entries(*acc, *part)
+        top, ctr = from_wide(acc[0], DTYPE), from_wide(acc[1], DTYPE)
+        folded, of = fk.settle_folded(top, ctr, leaf)
+        kernel = (top, ctr)
+    else:
+        top, w = fk.fold_cells_plain(leaf.top, fk.decode_cells(leaf))
+        folded, of = fk.settle_folded_map(top, w, leaf)
+        kernel = (top, w)
+    return fk.settle_levels(level, states, folded, of), kernel
+
+
+def full_width_nest_leg(kind: str, model, level, device, chunk: int, repeats: int,
+                        oracle_rows=None) -> dict:
+    """One full-width nest, filled: the main path counted (``fold()`` for
+    the orswot-leaf kinds, which reads the converged state back through
+    ``to_pure``; ``ops.map_map.fold`` for the MVReg leaf at 1M keys), the
+    gate (the fused fold == the plain route on the card, every leaf), the
+    leaf kernel alone (CUDA events, median), the epilogue by level, the
+    oracle on a replica subsample (``oracle_rows``) and peak memory."""
+    import torch
+
+    from crdt_tpu_torch._dtypes import bits
+    from crdt_tpu_torch.ops import fold_kernels as fk
+    from crdt_tpu_torch.ops.lattice import tree_map
+    from crdt_tpu_torch.ops.orswot import OrswotState
+
+    on_card = device.type == "cuda"
+    sync = (lambda: torch.cuda.synchronize(device)) if on_card else (lambda: None)
+    ops_mod, counter = nest_ops(kind), _leaf_counter(kind)
+    st = model.state
+    _, leaf = fk._level_chain(level, st)
+    orswot_leaf = isinstance(leaf, OrswotState)
+    counter.launches = 0
+    t0 = time.perf_counter()
+    if orswot_leaf:
+        converged = model.fold()
+    else:
+        ops_mod.fold(st)
+    sync()
+    fold_e2e_ms = (time.perf_counter() - t0) * 1e3
+    launches = counter.launches
+    check(not on_card or launches == 1, f"{kind}: the fold launched its leaf kernel {launches} "
+                                        f"times")
+    fused, fflags = ops_mod.fold(st, prefer="fused")
+    plain = {}
+    plain_ms = time_ms(lambda: plain.update(zip(("state", "kernel"), nest_plain_fold(level, st,
+                                                                                    chunk))),
+                       device)
+    (want, wflags), kernel_plain = plain["state"], plain["kernel"]
+    check(same_leaves(fused, want) and torch.equal(fflags, wflags),
+          f"{kind}: the fused level fold differs from its plain route")
+    check(not bool(fflags.any()), f"{kind}: unexpected overflow at full width {fflags.tolist()}")
+    levels = nest_parked_levels(tree_map(lambda x: x[None], fused))
+    if orswot_leaf:
+        ktimes = [time_ms(lambda: fk.fold_entries(leaf.top, leaf.ctr), device)
+                  for _ in range(repeats)]
+        k_out = fk.fold_entries(leaf.top, leaf.ctr)
+        cells = None
+    else:
+        cells = fk.decode_cells(leaf)
+        ktimes = [time_each(lambda: fk.fold_cells(leaf.top, cells), device, 20)
+                  for _ in range(repeats)]
+        k_out = fk.fold_cells(leaf.top, cells)
+    diff = max(max_abs_diff(k_out[0], kernel_plain[0]), max_abs_diff(k_out[1], kernel_plain[1]))
+    check(diff == 0, f"{kind}: the leaf kernel disagrees with its plain version (max {diff})")
+    # The epilogue by level: the leaf's settle, then the wrapper levels'.
+    if orswot_leaf:
+        leaf_ms = time_ms(lambda: fk.settle_folded(k_out[0], k_out[1], leaf), device)
+        settled, of = fk.settle_folded(k_out[0], k_out[1], leaf)
+    else:
+        leaf_ms = time_ms(lambda: fk.settle_folded_map(k_out[0], k_out[1], leaf), device)
+        settled, of = fk.settle_folded_map(k_out[0], k_out[1], leaf)
+    outer_ms = time_ms(lambda: fk.settle_levels(level, st, settled, of), device)
+    fused_ms = time_ms(lambda: ops_mod.fold(st, prefer="fused"), device)
+    out = {
+        "leaf_kernel": "K1" if orswot_leaf else "K2",
+        "leaf_kernel_ms_median": statistics.median(ktimes), "leaf_kernel_ms_runs": ktimes,
+        "leaf_kernel_launches_in_fold": launches, "max_abs_err": diff,
+        "plain_route_ms": plain_ms,
+        "epilogue_leaf_ms": leaf_ms, "epilogue_outer_levels_ms": outer_ms,
+        "fold_fused_level_ms": fused_ms,
+        "fold_e2e_ms": fold_e2e_ms,
+        "fold_e2e_includes_to_pure": orswot_leaf,
+        "converged_parked_per_level": levels,
+        "gates": {"fused_equals_plain_route": True, "no_overflow": True},
+    }
+    if orswot_leaf:
+        out["converged_keys"] = len(converged.entries)
+        check(len(converged.deferred) > 0, f"{kind}: the outer parked removes did not survive")
+    if oracle_rows is not None:
+        # The oracle on a replica subsample: the fused fold of those rows
+        # (one more counted launch) == the pure merge of their to_pure.
+        sub = tree_map(lambda x: bits(x)[oracle_rows].view(x.dtype), st)
+        t0 = time.perf_counter()
+        expect = None
+        for i in oracle_rows.tolist():
+            p = model.to_pure(i)
+            if expect is None:
+                expect = p
+            else:
+                expect.merge(p)
+        got, gof = ops_mod.fold(sub, prefer="fused")
+        check(not bool(gof.any()) and model._pure_of(got) == expect,
+              f"{kind}: the subsample's fused fold differs from the oracle's merge")
+        out["oracle_subsample_rows"] = len(oracle_rows)
+        out["oracle_subsample_s"] = time.perf_counter() - t0
+        out["gates"]["subsample_equals_oracle"] = True
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated(device) / 1e9 if on_card else None
+    del fused, want, k_out, cells
+    return out
+
+
+def phase_full_width_nested(device, seed: int, r: int = 10240, k: int = 400, m: int = 256,
+                            a: int = 8, d: int = 4, r3: int = 2048, k1: int = 16, k2: int = 25,
+                            map_r=(8, 64), map_k1: int = 1000, map_k2: int = 1000,
+                            map_s: int = 2, map_a: int = 4, chunk: int = 512,
+                            map_chunk: int = 1 << 17, repeats: int = 5,
+                            oracle_rows: int = 6) -> dict:
+    """The nested kinds at full width. (a) ``Map<K, Orswot>`` at config 3's
+    widths factored into keys × members (K = 400 × M = 256 = E 102,400,
+    A = 8, D = 4 leaf slots, 4 outer keyset slots) at R = 10,240 through
+    ``BatchedMapOrswot.fold()``: K1 once, the fused fold == the plain
+    route (K1's plain version in 512-replica chunks + the same epilogue),
+    the subsample oracle. (b) ``Map3`` at the same widths (K1 16 × K2 25 ×
+    M 256) at R = 2,048: two ``settle_outer`` levels. (c) ``Map<K1, Map<K2,
+    MVReg>>`` at config 4's widths (1,000 × 1,000 keys, S = 2, A = 4, D =
+    4) at R = 8 and 64, every replica settled: K2 once a fold, ==
+    ``fold_cells_plain`` + the epilogue, and a dense ``BatchedMap`` twin's
+    K2 fold + the outer level == the nest's tree fold."""
+    import types
+
+    import torch
+
+    from crdt_tpu_torch.models import BatchedMap3, BatchedMapOrswot, BatchedNestedMap
+    from crdt_tpu_torch.ops import fold_kernels as fk
+    from crdt_tpu_torch.ops import map as map_ops
+    from crdt_tpu_torch.ops import map3 as m3_ops
+    from crdt_tpu_torch.ops import map_map as mm_ops
+    from crdt_tpu_torch.ops import map_orswot as mo_ops
+    from crdt_tpu_torch.utils import Interner
+
+    t_phase = time.perf_counter()
+    on_card = device.type == "cuda"
+    sync = (lambda: torch.cuda.synchronize(device)) if on_card else (lambda: None)
+    names = dict(actors=Interner(f"a{i}" for i in range(a)))
+    out = {"phase": "full_width_nested"}
+
+    def fresh():
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(device)
+
+    # (a) Map<K, Orswot>.
+    fresh()
+    t0 = time.perf_counter()
+    model = BatchedMapOrswot(r, k, m, a, d, keys=Interner(range(k)), members=Interner(range(m)),
+                             device=device, **names)
+    fill_config3(types.SimpleNamespace(state=model.state.core), seed, chunk)
+    fill_outer_level(model.state, k, seed)
+    sync()
+    setup_s = time.perf_counter() - t0
+    rows = torch.linspace(0, r - 1, oracle_rows, device=device).long()
+    leg = full_width_nest_leg("map_orswot", model, mo_ops.LEVEL, device, chunk, repeats, rows)
+    bound = fold_bound_ms(r, k * m, a)
+    leg.update(R=r, K=k, M=m, E=k * m, A=a, D=d, setup_s=setup_s,
+               ctr_gb=r * k * m * a * 4 / 1e9, bound_ms=bound["bound_ms"],
+               bound_by=bound["bound_by"],
+               bound_share=bound["bound_ms"] / leg["leaf_kernel_ms_median"],
+               merges_per_s=(r - 1) / (leg["leaf_kernel_ms_median"] * 1e-3))
+    out["map_orswot"] = leg
+    del model
+    # (b) Map3 at the same widths, a cut depth.
+    fresh()
+    t0 = time.perf_counter()
+    model = BatchedMap3(r3, k1, k2, m, a, d, keys1=Interner(range(k1)),
+                        keys2=Interner(range(k2)), members=Interner(range(m)), device=device,
+                        **names)
+    fill_config3(types.SimpleNamespace(state=model.state.mo.core), seed + 1, chunk)
+    fill_outer_level(model.state.mo, k1 * k2, seed + 1)
+    fill_outer_level(model.state, k1, seed + 2, p_key=0.1)
+    sync()
+    setup_s = time.perf_counter() - t0
+    leg = full_width_nest_leg("map3", model, m3_ops.LEVEL, device, chunk, repeats)
+    bound = fold_bound_ms(r3, k1 * k2 * m, a)
+    leg.update(R=r3, K1=k1, K2=k2, M=m, E=k1 * k2 * m, A=a, D=d, setup_s=setup_s,
+               bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
+               bound_share=bound["bound_ms"] / leg["leaf_kernel_ms_median"])
+    check(len(leg["converged_parked_per_level"]) == 3, "map3: not three parked levels")
+    out["map3"] = leg
+    del model
+    # (c) Map<K1, Map<K2, MVReg>> at config 4's widths, R = 8 and 64.
+    out["map_map"] = []
+    for rr in map_r:
+        fresh()
+        t0 = time.perf_counter()
+        model = BatchedNestedMap(rr, map_k1, map_k2, map_a, map_s, d,
+                                 keys1=Interner(range(map_k1)), keys2=Interner(range(map_k2)),
+                                 actors=Interner(f"a{i}" for i in range(map_a)),
+                                 values=Interner(range(5)), device=device)
+        fill_config4(types.SimpleNamespace(state=model.state.m), seed, map_chunk)
+        fill_outer_level(model.state, map_k1, seed + 3, ahead=1 << 30)
+        # The fill parks leaf removes inside K1 children a replica holds no
+        # cell of, which no op history reaches (each join scrubs them), so
+        # the tree fold (a scrub a pair) and the fused one (one scrub) would
+        # differ: settle every replica first.
+        model.state = mm_ops.LEVEL.settle_self(model.state)
+        sync()
+        setup_s = time.perf_counter() - t0
+        leg = full_width_nest_leg("map_map", model, mm_ops.LEVEL, device, chunk, repeats)
+        # A dense BatchedMap's fold of the flat K1·K2 map (ops.map.fold: K2
+        # once) with the outer level settled on it equals the nest's tree
+        # fold (no kernel; parked slots in clock order).
+        before = fk.fold_cells.launches
+        leaf, leaf_of = map_ops.fold(model.state.m, prefer="fused")
+        check(not on_card or fk.fold_cells.launches == before + 1,
+              "the dense twin's fold did not launch K2")
+        nested, nof = fk.settle_levels(mm_ops.LEVEL, model.state, leaf, leaf_of)
+        tree, tof = mm_ops.fold(model.state, prefer="tree")
+        check(same_leaves(nest_in_clock_order(nested), nest_in_clock_order(tree))
+              and not bool(nof.any()) and not bool(tof.any()),
+              "map_map: the dense twin's K2 fold + the outer level != the nest's tree fold")
+        leg["gates"]["dense_twin_equals_tree_fold"] = True
+        bound = fold_bound_ms(rr, map_k1 * map_k2, map_a, OPS_PER_CELL)
+        leg.update(R=rr, K1=map_k1, K2=map_k2, S=map_s, A=map_a, D=d, setup_s=setup_s,
+                   bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
+                   bound_share=bound["bound_ms"] / leg["leaf_kernel_ms_median"])
+        out["map_map"].append(leg)
+        del model, leaf, nested, tree
+    out["reduced"] = {"map3_R": [10240, r3, "widths unchanged; a depth cut for the time limit"]}
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return out
+
+
+# ---- the nested δ rings -------------------------------------------------------------
+
+def fill_delta_nest(kind: str, r: int, p: int, seed: int, device, chunk: int = 128,
+                    k: int = 400, m: int = 256, k1: int = 16, k2: int = 25, a: int = 8,
+                    d: int = 4):
+    """A nested δ workload at config 3's widths: ``fill_delta_config3``'s
+    replicas as the leaf (E = K·M, or K1·K2·M), wrapped in the kind's
+    levels with outer keyset-removes parked ahead of every top
+    (``fill_outer_level``). Returns ``(state, dirty, fctx, info)``."""
+    from crdt_tpu_torch.ops import map3 as m3_ops
+    from crdt_tpu_torch.ops import map_orswot as mo_ops
+
+    import torch
+
+    from crdt_tpu_torch._dtypes import bits
+
+    e = (k if kind == "map_orswot" else k1 * k2) * m
+    core, dirty, fctx, info = fill_delta_config3(r, e, a, d, p, seed, device, chunk)
+    # Ahead of every top (counters stay below ~100 + E/100), and inside the
+    # wire's ±32 Ki window of the digest watermark: the parked clocks ride
+    # the fused wire, an unencodable one would be wire loss. One key a
+    # slot, each a live key: the K1 level's remove kills every lane-0 dot
+    # of one K1 key (K2·M rows) on every replica.
+    ahead, kk = 20_000, (k if kind == "map_orswot" else k1 * k2)
+    gen = torch.Generator(device=device).manual_seed(seed + 14)
+    one_each = torch.randperm(kk, generator=gen, device=device)[:4].tolist()
+    if kind == "map_orswot":
+        state = mo_ops.LEVEL.empty(core, k, a, d, batch=(r,))
+        fill_outer_level(state, k, seed, n_parked=8, ahead=ahead, keys=one_each)
+    else:
+        mo = mo_ops.LEVEL.empty(core, k1 * k2, a, d, batch=(r,))
+        fill_outer_level(mo, k1 * k2, seed, n_parked=8, ahead=ahead, keys=one_each)
+        state = m3_ops.LEVEL.empty(mo, k1, a, d, batch=(r,))
+        fill_outer_level(state, k1, seed + 1, n_parked=8, ahead=ahead, keys=[k1 - 1])
+        live = bits(core.ctr)[:, (k1 - 1) * k2 * m:, 0] != 0
+        info = {**info, "k1_remove_kills_rows_per_rank_max":
+                int(live.view(p, r // p, -1).any(1).sum(-1).max())}
+    return state, dirty, fctx, info
+
+
+class K3Checked:
+    """Every K3 launch of the rings run inside it held against K3's plain
+    version on the same inputs (``wire_pack_plain``, which launches no
+    kernel and counts nothing): the running max |diff| and the launches
+    checked."""
+
+    def __enter__(self):
+        from crdt_tpu_torch.ops import wire_kernels as wk
+
+        self._wk, self._many = wk, wk.wire_pack_many
+        self.max_abs_err, self.calls = 0, 0
+
+        def checked(group, *args, **kw):
+            outs = self._many(group, *args, **kw)
+            for x, g in zip(outs, group):
+                self.max_abs_err = max(self.max_abs_err, wire_diff(x, wk.wire_pack_plain(**g)))
+            self.calls += 1
+            return outs
+
+        wk.wire_pack_many = checked
+        return self
+
+    def __exit__(self, *exc):
+        self._wk.wire_pack_many = self._many
+        return False
+
+
+def delta_nest_leg(kind: str, r: int, p: int, cap: int, seed: int, device, ring_samples: int,
+                   repeats: int, per_sample: int, widths=None) -> dict:
+    """One nested δ ring at full width: certified fused (K3 once per round,
+    every launch checked against K3's plain version), == the layered ring
+    == the mesh fold (K1) with residue 0; acked (K3's acked instance every
+    round, residue 0, == the unacked rows) and logged once (one δ record of
+    the kind, replayed onto the rows); walls alternating fused, layered and
+    acked; busy share; K3 at the round's nested instance (slot + every
+    parked level in one launch)."""
+    import torch
+
+    from crdt_tpu_torch._dtypes import bits, umax
+    from crdt_tpu_torch.durability import Wal, recover
+    from crdt_tpu_torch.ops.fold_kernels import fold_entries
+    from crdt_tpu_torch.ops.lattice import tree_leaves, tree_map
+    from crdt_tpu_torch.ops.wire_kernels import wire_pack
+    from crdt_tpu_torch.parallel import (
+        VirtualMesh, delta_map3, delta_map_orswot, mesh_fold_map3, mesh_fold_map_orswot,
+    )
+    from crdt_tpu_torch.parallel import wire as wire_mod
+    from crdt_tpu_torch.parallel.anti_entropy import local_folds, rank_blocks
+    from crdt_tpu_torch.parallel.collectives import ppermute
+
+    on_card = device.type == "cuda"
+    sync = (lambda: torch.cuda.synchronize(device)) if on_card else (lambda: None)
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    state, dirty, fctx, info = fill_delta_nest(kind, r, p, seed, device, **(widths or {}))
+    sync()
+    setup_s = time.perf_counter() - t0
+    flavor = delta_map_orswot if kind == "map_orswot" else delta_map3
+    ring_fn = (flavor.mesh_delta_gossip_map_orswot if kind == "map_orswot"
+               else flavor.mesh_delta_gossip_map3)
+    fold_fn = mesh_fold_map_orswot if kind == "map_orswot" else mesh_fold_map3
+    mesh = VirtualMesh(p, device)
+    e, rl = dirty.shape[-1], r // p
+    backlog = int(dirty.view(p, rl, e).any(1).sum(-1).max())
+    fused, rounds, stats, attempts, (k3_launches, k1_launches) = certify_ring(
+        lambda rounds, stats: ring_fn(state, dirty, fctx, mesh, rounds=rounds, cap=cap,
+                                      stats=stats),
+        backlog, p, cap, (wire_pack, fold_entries), sync)
+    check(not bool(fused[2].any()), f"{kind}: the fused ring overflowed")
+    check(not on_card or (k3_launches == rounds and k1_launches == p),
+          f"{kind}: the fused ring launched K3 {k3_launches} times in {rounds} rounds, K1 "
+          f"{k1_launches} times")
+    with K3Checked() as k3c:
+        checked = ring_fn(state, dirty, fctx, mesh, rounds=rounds, cap=cap)
+    check(k3c.max_abs_err == 0 and (not on_card or k3c.calls == rounds),
+          f"{kind}: a ring launch of K3 disagrees with its plain version ({k3c.max_abs_err})")
+    check(same_leaves(checked[0], fused[0]), f"{kind}: the checked ring differs")
+    layered = ring_fn(state, dirty, fctx, mesh, rounds=rounds, cap=cap, fused=False)
+    check(same_leaves(fused[0], layered[0]) and same_leaves(fused[1], layered[1])
+          and int(layered[3]) == 0, f"{kind}: fused ring != layered ring")
+    t0 = time.perf_counter()
+    folded, of_f = fold_fn(state, mesh)
+    sync()
+    mesh_fold_ms = (time.perf_counter() - t0) * 1e3
+    check(not bool(of_f.any()), f"{kind}: the mesh fold overflowed")
+    check(nest_rows_equal_fold(fused[0], folded), f"{kind}: certified ring rows != mesh fold")
+    del checked, layered
+    # Acked once: K3's acked instance every round, the rows unchanged.
+    wire_pack.launches = wire_pack.acked_launches = 0
+    acked = ring_fn(state, dirty, fctx, mesh, rounds=rounds, cap=cap, ack_window=True,
+                    stats=(acked_stats := {}))
+    sync()
+    acked_launches = (wire_pack.launches, wire_pack.acked_launches)
+    check(int(acked[3]) == 0 and same_leaves(acked[0], fused[0]),
+          f"{kind}: the acked ring differs from the unacked one")
+    check(not on_card or acked_launches == (rounds, rounds),
+          f"{kind}: the acked ring launched K3 {acked_launches} (all, acked)")
+    del acked
+    # Logged once: the ring attaches its padded input as the log's base and
+    # appends its converged rows as one record of the kind; replayed.
+    def logged(root):
+        with Wal(os.path.join(root, "wal"), fsync="on_round") as w:
+            out = ring_fn(state, dirty, fctx, mesh, rounds=rounds, cap=cap, wal=w)
+            records = [meta for _, meta, _ in w.records()]
+            nbytes = w.bytes_appended
+        with Wal(os.path.join(root, "wal")) as w:
+            back, n_rec, _ = recover.replay(w, fused[0], kind, 0)
+        check(same_leaves(out[0], fused[0]) and records[0]["kind"] == kind and n_rec == 1
+              and same_leaves(back, fused[0]), f"{kind}: the logged ring or its replay differs")
+        return {"records": records, "record_bytes": nbytes}
+
+    durable = with_scratch_dir(logged)
+    # Walls, alternating fused, layered and acked (fused).
+    runs = alternate_rings(lambda kind_: ring_fn(state, dirty, fctx, mesh, rounds=rounds,
+                                                 cap=cap, fused=kind_ is not False,
+                                                 ack_window=kind_ == "acked"),
+                           ring_samples, sync, kinds=(True, False, "acked"))
+    busy = profile_busy(lambda: ring_fn(state, dirty, fctx, mesh, rounds=rounds, cap=cap),
+                        device)
+    # K3 at the round's nested instance: round 0's packet of the rank folds.
+    blocks = rank_blocks(state, mesh)
+    ranks, _ = local_folds(blocks, lambda b: nest_ops(kind).fold(b))
+    d0 = dirty.view(p, rl, e).any(1)
+    f0 = torch.stack([bits(umax(fctx.view(p, rl, e, -1)[q], 0))
+                      for q in range(p)]).view(fctx.dtype)
+    extract = flavor.extract_delta_mo if kind == "map_orswot" else flavor.extract_delta_m3
+    template = (flavor.packet_template_mo if kind == "map_orswot"
+                else flavor.packet_template_m3)(ranks, cap, fctx.dtype)
+    pkt, _, _ = extract(ranks, d0, f0, cap, start=0)
+    top = ranks.core.top if kind == "map_orswot" else ranks.mo.core.top
+    rtop = ppermute(top, [(i, (i - 1) % p) for i in range(p)])
+    codec = wire_mod.WireCodec(template, e, wire_mod.know_dense, gated=True, acked=False)
+    pargs = codec.parked_inputs(pkt, rtop=rtop)
+    k3 = k3_at_ring_shape(codec.slot_inputs(pkt, rtop=rtop), pargs, device, repeats, per_sample)
+    links = stats["rounds"] * stats["links"]
+    out = {
+        "R": r, "P": p, "cap": cap, "E": e, "setup_s": setup_s, **info,
+        "parked_levels": len(codec.parked_recs), "parked_rows_in_k3_group": codec.pd,
+        "backlog_max_per_rank": backlog, "attempts": attempts, "rounds": rounds,
+        "residue": int(fused[3]),
+        "gates": {"fused_equals_layered": True, "equals_mesh_fold": True,
+                  "k3_launches_checked_against_plain": k3c.calls, "acked": True, "logged": True},
+        "k3_launches_in_ring": k3_launches, "k1_launches_in_ring": k1_launches,
+        "k3_launches_per_round": k3_launches / rounds,
+        "k3_max_abs_err": max(k3c.max_abs_err, k3["k3_max_abs_err"]),
+        "ring_ms_fused": statistics.median(runs[True]),
+        "ring_ms_layered": statistics.median(runs[False]),
+        "ring_ms_fused_runs": runs[True], "ring_ms_layered_runs": runs[False],
+        "mesh_fold_ms": mesh_fold_ms,
+        "wire_bytes_per_link_round": stats["wire_bytes"],
+        "layered_packet_bytes_per_link_round": stats["packet_bytes"],
+        "slots_shipped_per_link_round": stats["slots_shipped"] / links,
+        "ring_profile": busy,
+        "launches_per_round": (busy["launch_kernel_calls"] / rounds) if busy else None,
+        "acked": {"k3_launches": acked_launches[0], "k3_acked_launches": acked_launches[1],
+                  "slots_acked_skipped": acked_stats["slots_acked_skipped"],
+                  "residue": 0, "ring_ms": statistics.median(runs["acked"]),
+                  "ring_ms_runs": runs["acked"]},
+        "durable": durable,
+        "converged_parked_per_level": nest_parked_levels(tree_map(lambda x: x[None], folded)),
+        **{key: k3[key] for key in ("k3_lc", "k3_ms_median", "k3_ms_device_profiler",
+                                    "k3_ms_per_call_incl_wrapper", "k3_bytes", "k3_bound_ms",
+                                    "k3_bound_by", "k3_bound_share", "k3_plain_ms",
+                                    "k3_group_ms_median", "k3_group_bytes",
+                                    "k3_group_bound_share")},
+        "peak_mem_gb": torch.cuda.max_memory_allocated(device) / 1e9 if on_card else None,
+    }
+    del state, dirty, fctx, fused, folded, ranks, blocks
+    return out
+
+
+def phase_full_width_delta_nested(device, seed: int, r: int = 5120, r3: int = 1024, p: int = 8,
+                                  cap: int = 4096, ring_samples: int = 5, repeats: int = 5,
+                                  per_sample: int = 50, widths=None) -> dict:
+    """The nested δ rings at config 3's widths: ``Map<K, Orswot>`` (K 400 ×
+    M 256, A = 8, D = 4) at ``full_width_delta``'s cut (R = 5,120 on P = 8
+    virtual ranks, cap 4,096) and ``Map3`` (K1 16 × K2 25 × M 256) at R =
+    1,024; the leaf is ``fill_delta_config3``'s δ workload, with outer
+    keyset-removes of live keys parked ahead of every top at each level."""
+    t_phase = time.perf_counter()
+    out = {"phase": "full_width_delta_nested"}
+    out["map_orswot"] = delta_nest_leg("map_orswot", r, p, cap, seed, device, ring_samples,
+                                       repeats, per_sample, widths)
+    out["map3"] = delta_nest_leg("map3", r3, p, cap, seed + 1, device, ring_samples, repeats,
+                                 per_sample, widths)
+    out["reduced"] = {"map_orswot_R": [10240, r, "full_width_delta's cut: fctx is as large as "
+                                                 "ctr"],
+                      "map3_R": [10240, r3, "widths unchanged; a depth cut for the time limit"]}
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return out
+
+
 def nested_parked(state) -> set:
     """A nest's parked keyset-removes as a set of (clock, key set) pairs,
     equal-clock slots unioned (one oracle entry): the slot order follows
@@ -6224,7 +7127,8 @@ PHASES = ("k1", "scenarios", "full_width", "k2", "map_scenarios", "full_width_ma
           "delta_scenarios", "full_width_delta", "map_delta_scenarios", "full_width_delta_map",
           "sparse_scenarios", "flagship", "elastic", "resync", "donate", "durability",
           "serve_scenarios", "serve", "serve_zipf", "fanout_scenarios", "fanout",
-          "telemetry_scenarios", "sparse_map_scenarios", "full_width_sparse_map")
+          "telemetry_scenarios", "sparse_map_scenarios", "full_width_sparse_map",
+          "nested_scenarios", "full_width_nested", "full_width_delta_nested")
 
 
 def main(argv=None) -> int:
@@ -6306,16 +7210,24 @@ def main(argv=None) -> int:
         phase_sparse_map_scenarios(device, args.seed)
     if run("full_width_sparse_map"):
         phase_full_width_sparse_map(device, args.seed)
+    if run("nested_scenarios"):
+        phase_nested_scenarios(device, args.seed)
+    if run("full_width_nested"):
+        res["nested"] = phase_full_width_nested(device, args.seed)
+    if run("full_width_delta_nested"):
+        res["delta_nested"] = phase_full_width_delta_nested(device, args.seed)
     if only:
         print(f"chip_smoke: partial run of {only}; no kernels line", flush=True)
         return 0
 
     full, full_map, wide_map, delta = res["full"], res["map"], res["map64"], res["delta"]
+    nested, delta_nested = res["nested"], res["delta_nested"]
     print(dev["nvidia_smi"], flush=True)
     emit({"kernels": [{
         **K1,
         "launches": full["k1_launches_in_fold"],
-        "max_abs_err": max(res["k1"], full["max_abs_err"]),
+        "max_abs_err": max(res["k1"], full["max_abs_err"], nested["map_orswot"]["max_abs_err"],
+                           nested["map3"]["max_abs_err"]),
         "ms": full["k1_ms_median"],
         "plain_ms": full["plain_chunked_ms_check_not_a_yardstick"],
         "bound_ms": full["bound_ms"],
@@ -6324,7 +7236,8 @@ def main(argv=None) -> int:
     }, {
         **K2,
         "launches": full_map["k2_launches_in_fold"],
-        "max_abs_err": max(res["k2"], full_map["max_abs_err"], wide_map["max_abs_err"]),
+        "max_abs_err": max(res["k2"], full_map["max_abs_err"], wide_map["max_abs_err"],
+                           *(leg["max_abs_err"] for leg in nested["map_map"])),
         "ms": full_map["k2_ms_median"],
         "plain_ms": full_map["k2_plain_ms"],
         "bound_ms": full_map["bound_ms"],
@@ -6337,7 +7250,9 @@ def main(argv=None) -> int:
                            res["delta_map"]["k3_max_abs_err"],
                            res["fanout_scenarios"]["k3_max_abs_err"],
                            res["fanout"]["first_dispatch_max_abs_err"],
-                           res["fanout"]["k3_fanout_layout"]["max_abs_err"]),
+                           res["fanout"]["k3_fanout_layout"]["max_abs_err"],
+                           delta_nested["map_orswot"]["k3_max_abs_err"],
+                           delta_nested["map3"]["k3_max_abs_err"]),
         "ms": delta["k3_ms_median"],
         "plain_ms": delta["k3_plain_ms"],
         "bound_ms": delta["k3_bound_ms"],

@@ -15,7 +15,10 @@ Later slices add the Map<K, MVReg> (``ops.map``, ``models.map``), the δ
 rings (``parallel``), the segment-encoded ORSWOT (``ops.sparse_orswot``,
 ``models.sparse_orswot``), the replica stream (``parallel.stream``) and
 the sparse Map kinds (``ops.sparse_mvmap``, ``ops.sparse_nest``,
-``models.sparse_mvmap``, ``models.sparse_map``, ``parallel.sparse_shard``).
+``models.sparse_mvmap``, ``models.sparse_map``, ``parallel.sparse_shard``)
+and nested composition (``ops.nest`` with ``ops.map_orswot``,
+``ops.map3``, ``ops.map_map``; ``models.map_nested``, ``models.map3``,
+``models.sparse_nested_map``; ``parallel.delta_nest``).
 """
 
 from .traits import CvRDT, CmRDT, ResetRemove, Causal, ValidationError, DotRange

@@ -13,10 +13,14 @@ replicas).
 
 Ported kinds: ``BatchedOrswot`` (``orswot``), ``BatchedSparseOrswot``
 (``sparse_orswot``), ``BatchedMap`` (``map``), ``BatchedSparseMapOrswot``
-(``sparse_map_orswot``) and ``BatchedSparseMap`` (``sparse_map``). The JAX
-package's other kinds raise naming the ROADMAP item that ports them: the
-nested maps (13), lists and counters (14). ``compact=True`` needs the
-``reclaim/`` plane (item 15.2) and raises.
+(``sparse_map_orswot``), ``BatchedSparseMap`` (``sparse_map``), the dense
+nests ``BatchedMapOrswot`` (``map_orswot``), ``BatchedNestedMap``
+(``map_map``) and ``BatchedMap3`` (``map3``) — their leaves numbered
+``a_0, a_1, ...`` in the JAX package's pytree order, the model's widths
+under ``dims`` — and ``BatchedSparseNestedMap`` (``sparse_map_map``). The
+JAX package's list kinds raise naming the ROADMAP item that ports them
+(14). ``compact=True`` needs the ``reclaim/`` plane (item 15.2) and
+raises.
 """
 
 from __future__ import annotations
@@ -33,12 +37,16 @@ import numpy as np
 from . import serde
 from .convert import leaf_from_numpy, leaf_to_numpy
 from .models.map import BatchedMap
+from .models.map3 import BatchedMap3
+from .models.map_nested import BatchedMapOrswot, BatchedNestedMap
 from .models.orswot import BatchedOrswot
 from .models.sparse_map import BatchedSparseMapOrswot
 from .models.sparse_mvmap import BatchedSparseMap
+from .models.sparse_nested_map import BatchedSparseNestedMap
 from .models.sparse_orswot import BatchedSparseOrswot
 from .ops.map import MapState
 from .ops.mvreg import MVRegState
+from .ops.lattice import tree_leaves, tree_unflatten
 from .ops.orswot import OrswotState
 from .ops.sparse_mvmap import SparseMVMapState
 from .ops.sparse_nest import SparseNestState
@@ -48,10 +56,7 @@ from .utils.metrics import metrics
 
 #: The JAX package's checkpoint kinds the port does not have yet, with the
 #: ROADMAP item that ports each.
-_UNPORTED_KINDS = {
-    "map_orswot": "13", "map_map": "13", "map3": "13", "sparse_map_map": "13", "list": "14",
-    "glist": "14",
-}
+_UNPORTED_KINDS = {"list": "14", "glist": "14"}
 
 
 class CheckpointCorrupt(RuntimeError):
@@ -116,6 +121,20 @@ def _fields(prefix: str, state) -> dict:
     return {f"{prefix}{k}": leaf_to_numpy(v) for k, v in state._asdict().items()}
 
 
+def _state_arrays(state) -> dict:
+    """A state's leaves as numbered host arrays ``a_0, a_1, ...`` in the
+    JAX package's pytree order (NamedTuple fields, depth first)."""
+    return {f"a_{i}": leaf_to_numpy(x) for i, x in enumerate(tree_leaves(state))}
+
+
+def _state_from_arrays(template, arrays: dict, device):
+    """The inverse of :func:`_state_arrays` through a template state of
+    the same structure."""
+    n = sum(1 for k in arrays if k.startswith("a_"))
+    return tree_unflatten(template, [leaf_from_numpy(arrays[f"a_{i}"], device)
+                                     for i in range(n)])
+
+
 def _dump(model) -> tuple:
     """``(meta, arrays)`` for a checkpointable model — the type dispatch
     :func:`save` serializes and ``durability.snapshot`` layers generations
@@ -147,11 +166,44 @@ def _dump(model) -> tuple:
                 "keys": _interner_items(model.keys), "actors": _interner_items(model.actors),
                 "values": _interner_items(model.values)}
         arrays = _fields("s_", model.state)
+    elif isinstance(model, BatchedMapOrswot):
+        meta = {"kind": "map_orswot", "keys": _interner_items(model.keys),
+                "members": _interner_items(model.members),
+                "actors": _interner_items(model.actors),
+                "dims": [model.n_replicas, model.n_keys, model.n_members,
+                         int(model.state.core.top.shape[-1]), int(model.state.kdcl.shape[-2])]}
+        arrays = _state_arrays(model.state)
+    elif isinstance(model, BatchedNestedMap):
+        meta = {"kind": "map_map", "keys1": _interner_items(model.keys1),
+                "keys2": _interner_items(model.keys2), "actors": _interner_items(model.actors),
+                "values": _interner_items(model.values),
+                "dims": [model.n_replicas, model.n_keys1, model.n_keys2,
+                         int(model.state.m.top.shape[-1]),
+                         int(model.state.m.child.wact.shape[-1]),
+                         int(model.state.odcl.shape[-2])]}
+        arrays = _state_arrays(model.state)
+    elif isinstance(model, BatchedMap3):
+        meta = {"kind": "map3", "keys1": _interner_items(model.keys1),
+                "keys2": _interner_items(model.keys2), "members": _interner_items(model.members),
+                "actors": _interner_items(model.actors),
+                "dims": [model.n_replicas, model.n_keys1, model.n_keys2, model.n_members,
+                         int(model.state.mo.core.top.shape[-1]),
+                         int(model.state.odcl.shape[-2])]}
+        arrays = _state_arrays(model.state)
+    elif isinstance(model, BatchedSparseNestedMap):
+        meta = {"kind": "sparse_map_map", "span": model.span, "sibling_cap": model.sibling_cap,
+                "n_keys1": model.n_keys1, "keys1": _interner_items(model.keys1),
+                "keys2": _interner_items(model.keys2), "actors": _interner_items(model.actors),
+                "values": _interner_items(model.values)}
+        arrays = _fields("c_", model.state.core)
+        arrays.update({f"s_{k}": leaf_to_numpy(v) for k, v in model.state._asdict().items()
+                       if k != "core"})
     else:
         raise TypeError(
             f"cannot checkpoint {type(model).__name__}: the port checkpoints BatchedOrswot, "
-            f"BatchedSparseOrswot, BatchedMap, BatchedSparseMapOrswot and BatchedSparseMap "
-            f"(the nested maps come with ROADMAP item 13, lists and counters with 14)"
+            f"BatchedSparseOrswot, BatchedMap, BatchedSparseMapOrswot, BatchedSparseMap, "
+            f"BatchedMapOrswot, BatchedNestedMap, BatchedMap3 and BatchedSparseNestedMap "
+            f"(lists and counters come with ROADMAP item 14)"
         )
     return meta, arrays
 
@@ -291,6 +343,39 @@ def _restore(meta: dict, arrays: dict, device="cuda"):
             keys=_interner_from(meta["keys"]), actors=_interner_from(meta["actors"]),
             values=_interner_from(meta["values"]), device="meta",
         )
+    elif kind == "map_orswot":
+        r, nk, nm, na, d = meta["dims"]
+        model = BatchedMapOrswot(
+            r, nk, nm, na, d, keys=_interner_from(meta["keys"]),
+            members=_interner_from(meta["members"]), actors=_interner_from(meta["actors"]),
+            device="meta")
+        state = _state_from_arrays(model.state, arrays, device)
+    elif kind == "map_map":
+        r, nk1, nk2, na, s, d = meta["dims"]
+        model = BatchedNestedMap(
+            r, nk1, nk2, na, s, d, keys1=_interner_from(meta["keys1"]),
+            keys2=_interner_from(meta["keys2"]), actors=_interner_from(meta["actors"]),
+            values=_interner_from(meta["values"]), device="meta")
+        state = _state_from_arrays(model.state, arrays, device)
+    elif kind == "map3":
+        r, nk1, nk2, nm, na, d = meta["dims"]
+        model = BatchedMap3(
+            r, nk1, nk2, nm, na, d, keys1=_interner_from(meta["keys1"]),
+            keys2=_interner_from(meta["keys2"]), members=_interner_from(meta["members"]),
+            actors=_interner_from(meta["actors"]), device="meta")
+        state = _state_from_arrays(model.state, arrays, device)
+    elif kind == "sparse_map_map":
+        core = SparseMVMapState(**_prefixed(arrays, "c_", device))
+        state = SparseNestState(core=core, **_prefixed(arrays, "s_", device))
+        model = BatchedSparseNestedMap(
+            core.top.shape[0], int(meta["span"]), core.kid.shape[-1], core.top.shape[-1],
+            int(meta["sibling_cap"]), core.dcl.shape[-2], core.kidx.shape[-1],
+            state.kcl.shape[-2], state.kidx.shape[-1],
+            # Older files predate the persisted bound: 0 is the packing's
+            # widest universe, their save-time value.
+            n_keys1=int(meta.get("n_keys1", 0)), keys1=_interner_from(meta["keys1"]),
+            keys2=_interner_from(meta["keys2"]), actors=_interner_from(meta["actors"]),
+            values=_interner_from(meta["values"]), device="meta")
     elif kind in _UNPORTED_KINDS:
         raise NotImplementedError(
             f"checkpoint kind {kind!r} is not ported yet (ROADMAP item {_UNPORTED_KINDS[kind]})"

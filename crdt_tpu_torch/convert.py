@@ -18,6 +18,12 @@ both directions copy:
   (itself nested, or the leaf's — an ORSWOT segment table has ``eid``, a
   register-map cell table ``kid``), and ``kcl`` u32, ``kidx`` i32,
   ``kdvalid`` bool;
+- the dense nests (``nest_from_numpy``: ``MapOrswotState``, ``Map3State``,
+  ``NestedMapState``, ``ops.nest.NestedState`` at any depth): a dict
+  with the core's dict under its field name (``core``, ``mo`` or ``m``)
+  and the level's buffer — ``*dcl`` u32, ``*dkeys`` bool, ``*dvalid``
+  bool — under the level's field names; the leaf dict is an
+  ``OrswotState``'s or a ``MapState``'s above;
 - δ tracking (``tracking_from_numpy``): ``dirty`` bool, ``fctx`` u32 or
   u64;
 - a serving superblock (``superblock_from_numpy``): the ``orswot`` or
@@ -189,6 +195,48 @@ def map_to_numpy(state: MapState) -> dict:
     out = _leaves_to_numpy(state, _MAP_DTYPES)
     out["child"] = _leaves_to_numpy(state.child, _CHILD_DTYPES)
     return out
+
+
+def _nest_classes() -> dict:
+    """Each dense nest class by its field names."""
+    from .ops.map3 import Map3State
+    from .ops.map_map import NestedMapState
+    from .ops.map_orswot import MapOrswotState
+    from .ops.nest import NestedState
+
+    return {cls._fields: cls for cls in (MapOrswotState, Map3State, NestedMapState, NestedState)}
+
+
+def nest_from_numpy(arrays: dict, device="cuda"):
+    """A dense nest's numpy dict (module docstring) → the port's state on
+    ``device``: the class whose field names the dict's keys are
+    (``MapOrswotState``, ``Map3State``, ``NestedMapState`` or the generic
+    ``NestedState``), its core decoded the same way down to the leaf (an
+    ``OrswotState`` dict has ``ctr``, a ``MapState`` dict ``child``).
+    Raises on a missing leaf or a dtype other than the leaf's."""
+    if "ctr" in arrays:
+        return orswot_from_numpy(arrays, device)
+    if "child" in arrays:
+        return map_from_numpy(arrays, device)
+    for fields, cls in _nest_classes().items():
+        if set(fields) == set(arrays):
+            core, dcl, dkeys, dvalid = fields
+            bufs = _leaves_from_numpy(cls.__name__, arrays,
+                                      {dcl: np.uint32, dkeys: np.bool_, dvalid: np.bool_}, device)
+            return cls(nest_from_numpy(arrays[core], device), bufs[dcl], bufs[dkeys], bufs[dvalid])
+    raise ValueError(f"no dense nest has the fields {sorted(arrays)}")
+
+
+def nest_to_numpy(state) -> dict:
+    """A port dense nest (any depth) → the dict :func:`nest_from_numpy`
+    takes."""
+    if isinstance(state, OrswotState):
+        return orswot_to_numpy(state)
+    if isinstance(state, MapState):
+        return map_to_numpy(state)
+    core, *bufs = state._fields
+    return {core: nest_to_numpy(state[0]),
+            **{name: leaf_to_numpy(getattr(state, name)) for name in bufs}}
 
 
 _SLAB_DTYPES = {"kind": np.uint8, "actor": np.int32, "ctr": np.uint32, "clock": np.uint32}

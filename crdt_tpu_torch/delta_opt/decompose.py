@@ -109,13 +109,22 @@ def drop_lane(d: Decomposition, lane: int) -> Decomposition:
 
 def _table() -> dict:
     from ..ops import map as map_ops
-    from ..ops import mvreg, orswot, sparse_mvmap, sparse_nest, sparse_orswot, vclock
+    from ..ops import (
+        map3, map_map, map_orswot, mvreg, orswot, sparse_mvmap, sparse_nest, sparse_orswot,
+        vclock,
+    )
 
     nest = Decomposer(sparse_nest.level_map_orswot(2).join, sparse_nest._decomp_split,
                       sparse_nest._decomp_unsplit)
     return {
         "orswot": Decomposer(orswot.join, orswot._decomp_split, orswot._decomp_unsplit),
         "map": Decomposer(map_ops.join, map_ops._decomp_split, map_ops._decomp_unsplit),
+        # The dense nests, under the JAX registry's names (their rings'
+        # ``wal_kind``s).
+        "map_orswot": Decomposer(map_orswot.join, map_orswot._decomp_split,
+                                 map_orswot._decomp_unsplit),
+        "map_map": Decomposer(map_map.join, map_map._decomp_split, map_map._decomp_unsplit),
+        "map3": Decomposer(map3.join, map3._decomp_split, map3._decomp_unsplit),
         "mvreg": Decomposer(mvreg.join, mvreg._decomp_split, mvreg._decomp_unsplit),
         "vclock": Decomposer(vclock.merge, vclock._decomp_split, vclock._decomp_unsplit),
         "sparse_orswot": Decomposer(sparse_orswot.join, sparse_orswot._decomp_split,

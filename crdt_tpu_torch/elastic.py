@@ -29,9 +29,9 @@ holding the replica set. The ring entries' elastic wrappers
 ``parallel/delta_ring.delta_gossip_elastic``) pause, migrate and rejoin.
 :func:`widen` runs inside the ``elastic.widen`` span (``telemetry.span``);
 the JAX module's ``elastic.shrink`` span comes with ROADMAP item 15.2,
-its ``elastic_vote`` event with ``obs`` (item 15.6); the sparse nested
-map's axis table comes with its model (item 13). The JAX table has no
-``BatchedSparseMapOrswot`` row, nor has this one.
+its ``elastic_vote`` event with ``obs`` (item 15.6). The JAX table has
+no ``BatchedSparseMapOrswot`` row nor rows for the dense nests, nor has
+this one.
 """
 
 from __future__ import annotations
@@ -48,6 +48,7 @@ from .models.map import BatchedMap
 from .models.orswot import BatchedOrswot, DeferredOverflow
 from .models.registers import SlotOverflow
 from .models.sparse_mvmap import BatchedSparseMap
+from .models.sparse_nested_map import BatchedSparseNestedMap
 from .models.sparse_orswot import BatchedSparseOrswot, DotCapacityOverflow
 from .ops.lattice import tree_map
 from .utils.interner import UniverseFull
@@ -132,6 +133,21 @@ def _axes_sparse_map(m) -> Dict[str, Tuple[int, Callable[[], int]]]:
     }
 
 
+def _axes_sparse_nested(m) -> Dict[str, Tuple[int, Callable[[], int]]]:
+    core = m.state.core
+    return {
+        "cell_cap": (core.kid.shape[-1], lambda: _max_count(core.valid)),
+        "span": (m.span, lambda: len(m.keys2)),
+        "n_keys1": (m.n_keys1, lambda: len(m.keys1)),
+        "n_actors": (core.top.shape[-1], lambda: len(m.actors)),
+        "sibling_cap": (m.sibling_cap, lambda: _max_siblings(core)),
+        "deferred_cap": (core.dvalid.shape[-1], lambda: _max_count(core.dvalid)),
+        "rm_width": (core.kidx.shape[-1], lambda: _max_listed(core.kidx)),
+        "key_deferred_cap": (m.state.kdvalid.shape[-1], lambda: _max_count(m.state.kdvalid)),
+        "key_rm_width": (m.state.kidx.shape[-1], lambda: _max_listed(m.state.kidx)),
+    }
+
+
 def _max_siblings(core) -> int:
     """Max live cells sharing one (replica, key) — the ``sibling_cap``
     occupancy: one unique over the packed (row, kid) pairs of the live
@@ -151,6 +167,7 @@ _KINDS = (
     (BatchedSparseOrswot, "sparse_orswot", _axes_sparse_orswot),
     (BatchedMap, "map", _axes_map),
     (BatchedSparseMap, "sparse_map", _axes_sparse_map),
+    (BatchedSparseNestedMap, "sparse_nested_map", _axes_sparse_nested),
 )
 
 
@@ -159,14 +176,14 @@ def _lookup(model):
         if isinstance(model, cls):
             return kind, table
     raise TypeError(
-        f"elastic migrations cover BatchedOrswot, BatchedSparseOrswot, BatchedMap and "
-        f"BatchedSparseMap, got {type(model).__name__}"
+        f"elastic migrations cover BatchedOrswot, BatchedSparseOrswot, BatchedMap, "
+        f"BatchedSparseMap and BatchedSparseNestedMap, got {type(model).__name__}"
     )
 
 
 def kind_of(model) -> str:
     """The metrics namespace of a model (``orswot``, ``sparse_orswot``,
-    ``map``, ``sparse_map``)."""
+    ``map``, ``sparse_map``, ``sparse_nested_map``)."""
     return _lookup(model)[0]
 
 

@@ -14,7 +14,13 @@ and settle the small deferred-removal buffers in a plain-torch epilogue:
   counters ``[R, K, A]`` (``_decode_wide``), kernel K2 (``fold_cells``,
   the cell rule) folds them, the surviving counter's replica supplies the
   payload (winner select), the parked keyset-removes replay once, and the
-  cells go back to canonical slot tables (``_wide_to_slots``).
+  cells go back to canonical slot tables (``_wide_to_slots``);
+- the nested kinds (``ops.nest`` levels: ``Map<K, Orswot>``, ``Map3``,
+  ``Map<K1, Map<K2, MVReg>>``, any depth): the leaf folds as above (K1
+  for an ORSWOT leaf, K2 for a ``Map<K, MVReg>`` leaf), then each wrapper
+  level, innermost first, settles its flattened ``R·D`` parked keyset
+  slots once through the level's own ``settle_outer``
+  (``fold_fused_level``).
 
 Replaying once at the end equals the pairwise join's replay at every
 node because replay is idempotent, monotone zeroing, and a slot is always
@@ -421,3 +427,77 @@ def fold_auto_map(states, prefer: str = "auto"):
     if _pick(prefer, states.top.is_cuda):
         return fold_fused_map(states)
     return _tree_fold(states)
+
+
+# ---- nested levels (ops.nest) ------------------------------------------------
+
+def _level_chain(level, states):
+    """``(outermost-first [(level, state)], leaf state)`` of a nested
+    state."""
+    from .nest import NestLevel
+
+    chain, st, lv = [], states, level
+    while isinstance(lv, NestLevel):
+        chain.append((lv, st))
+        lv, st = lv.core, st[0]
+    return chain, st
+
+
+def fold_fused_level(level, states, element_axis=None):
+    """Drop-in fused replacement for ``NestLevel.fold`` (the JAX package's
+    ``fold_fused_level``) on any nested level (``map_orswot``, ``map3``,
+    ``map_map``, deeper compositions): the leaf folds in one streamed pass
+    (an ORSWOT leaf through ``fold_fused``: K1, then ``settle_folded``; a
+    ``Map<K, MVReg>`` leaf through ``fold_fused_map``: ``decode_cells`` →
+    K2 → ``settle_folded_map``), then every wrapper level, innermost
+    first, flattens its ``[R, D, …]`` buffers to ``R·D`` slots and settles
+    them once through its own ``settle_outer`` (dedupe → replay → compact
+    → scrub). Only the valid slots are gathered, in their original order:
+    an invalid slot keys no dedupe group, replays nothing and compacts
+    away, so the bits are those of settling all ``R·D``. Replaying once at
+    the end equals the tree's replay at every node (monotone, idempotent
+    zeroing, always before the catch-up drop); parked slots come out in
+    another order than the tree fold's, the same set.
+
+    ``states`` carry the replica axis first and no element-shard axis
+    (``element_axis`` is passed through to the levels' scrubs, for
+    shard axes inside the state's own leading axes). Returns ``(state,
+    flags [L])``, innermost level first (``NestLevel.fold``'s order)."""
+    from .orswot import OrswotState
+
+    _, leaf = _level_chain(level, states)
+    if isinstance(leaf, OrswotState):
+        folded, leaf_of = fold_fused(leaf)
+    else:
+        folded, leaf_of = fold_fused_map(leaf)
+    return settle_levels(level, states, folded, leaf_of, element_axis)
+
+
+def settle_levels(level, states, folded_leaf, leaf_of, element_axis=None):
+    """The fused level fold's wrapper epilogue: the folded leaf (and its
+    flags) plus every wrapper level's ``[R, D, …]`` parked buffers → the
+    converged nest and its flags, innermost level first. Each level,
+    innermost first, settles its valid slots (flattened, in their
+    original order) once through ``settle_outer``."""
+    chain, _ = _level_chain(level, states)
+    folded = folded_leaf
+    flags = [torch.atleast_1d(leaf_of)]
+    for lv, bst in reversed(chain):  # innermost wrapper first
+        dcl, dkeys, dvalid = _valid_slots(bst[1], bst[2], bst[3])
+        wrapped = lv._make(folded, from_wide(dcl, DTYPE), dkeys, dvalid)
+        folded, of = lv.settle_outer(wrapped, bst[1].shape[-2], element_axis)
+        flags.append(torch.atleast_1d(of))
+    return folded, torch.cat(flags)
+
+
+def fold_auto_level(level, states, prefer: str = "auto", element_axis=None):
+    """Replica-batch fold dispatch for the nested kinds — the
+    ``fold_auto`` of composed slabs: the fused level fold for CUDA states,
+    the plain log-tree fold (``level.fold``) for CPU states; "fused" on
+    the CPU runs K1's / K2's plain version + the same epilogue. Same
+    ``(state, flags)`` contract as ``NestLevel.fold``."""
+    from .lattice import tree_leaves
+
+    if _pick(prefer, tree_leaves(states)[0].is_cuda):
+        return fold_fused_level(level, states, element_axis)
+    return level.fold(states, element_axis)

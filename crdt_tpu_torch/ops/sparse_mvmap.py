@@ -430,8 +430,7 @@ class SparseMVMapLeaf:
     are FLAT key ids (outer key · span + inner key) and its own ``kidx``
     buffer holds the inner map level's parked keyset-removes, so
     ``SparseNestLevel(SparseMVMapLeaf(s), K2)`` is the sparse
-    ``Map<K1, Map<K2, MVReg>>`` (ROADMAP item 13 builds its model on
-    it)."""
+    ``Map<K1, Map<K2, MVReg>>`` (``models.BatchedSparseNestedMap``)."""
 
     span = 1
 

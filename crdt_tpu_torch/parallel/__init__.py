@@ -11,7 +11,11 @@ reduction along it (``collectives``). Entries: ``mesh_fold`` and
 ``mesh_gossip_sparse`` (full-state, the segment-encoded ORSWOT);
 ``mesh_fold_sparse_mvmap``, ``mesh_gossip_sparse_mvmap``,
 ``mesh_fold_sparse_nested`` and ``mesh_gossip_sparse_nested`` (full-state,
-the sparse Map kinds); ``split_segments``, ``split_cells``,
+the sparse Map kinds); ``mesh_fold_map_orswot``, ``mesh_fold_map3``,
+``mesh_fold_nested_map`` and their ``mesh_gossip_*`` rings (full-state,
+the dense nests) and ``mesh_delta_gossip_map_orswot`` /
+``mesh_delta_gossip_map3`` (their δ rings, ``delta_map_orswot`` /
+``delta_map3`` over ``delta_nest``); ``split_segments``, ``split_cells``,
 ``split_nested`` and the element-sharded folds ``mesh_fold_sparse_sharded``,
 ``mesh_fold_sparse_mvmap_sharded``, ``mesh_fold_sparse_map`` and
 ``mesh_fold_sparse_nested_sharded`` (``sparse_shard``, ``[R, S, ...]``
@@ -27,12 +31,18 @@ of cohort δ payloads against a superblock, K3 over B·E client lanes,
 """
 
 from .anti_entropy import (
-    gossip_elastic, mesh_fold, mesh_fold_map, mesh_fold_sparse, mesh_fold_sparse_mvmap,
-    mesh_fold_sparse_nested, mesh_gossip, mesh_gossip_map, mesh_gossip_sparse,
-    mesh_gossip_sparse_mvmap, mesh_gossip_sparse_nested,
+    gossip_elastic, mesh_fold, mesh_fold_map, mesh_fold_map3, mesh_fold_map_orswot,
+    mesh_fold_nested_map, mesh_fold_sparse, mesh_fold_sparse_mvmap, mesh_fold_sparse_nested,
+    mesh_gossip, mesh_gossip_map, mesh_gossip_map3, mesh_gossip_map_orswot,
+    mesh_gossip_nested_map, mesh_gossip_sparse, mesh_gossip_sparse_mvmap,
+    mesh_gossip_sparse_nested,
 )
 from .delta import DeltaPacket, interval_accumulate, mesh_delta_gossip
 from .delta_map import MapDeltaPacket, interval_accumulate_map, mesh_delta_gossip_map
+from .delta_map3 import Map3DeltaPacket, interval_accumulate_m3, mesh_delta_gossip_map3
+from .delta_map_orswot import (
+    MapOrswotDeltaPacket, interval_accumulate_mo, mesh_delta_gossip_map_orswot,
+)
 from .delta_ring import delta_gossip_elastic
 from .fanout_push import mesh_fanout_push
 from .mesh import (
@@ -49,7 +59,11 @@ from .stream import (
 )
 
 __all__ = [
-    "DeltaPacket", "MapDeltaPacket", "StreamInterrupted", "VirtualMesh", "delta_gossip_elastic",
+    "DeltaPacket", "Map3DeltaPacket", "MapDeltaPacket", "MapOrswotDeltaPacket",
+    "interval_accumulate_m3", "interval_accumulate_mo", "mesh_delta_gossip_map3",
+    "mesh_delta_gossip_map_orswot", "mesh_fold_map3", "mesh_fold_map_orswot",
+    "mesh_fold_nested_map", "mesh_gossip_map3", "mesh_gossip_map_orswot",
+    "mesh_gossip_nested_map", "StreamInterrupted", "VirtualMesh", "delta_gossip_elastic",
     "gossip_elastic", "interval_accumulate", "interval_accumulate_map", "iter_blocks",
     "mesh_delta_gossip", "mesh_delta_gossip_map", "mesh_fanout_push", "mesh_fold", "mesh_fold_map",
     "mesh_fold_sparse", "mesh_fold_sparse_map", "mesh_fold_sparse_mvmap",

@@ -15,7 +15,11 @@ rank, each streaming that rank's contiguous replica block.
 ``Map<K, MVReg>``) and ``mesh_fold_sparse_nested`` /
 ``mesh_gossip_sparse_nested`` (any sparse nest, e.g. ``Map<K, Orswot>``)
 are the sparse Map kinds' pair, the state replicated over the element
-axis (their element-sharded folds are ``sparse_shard.py``'s); and
+axis (their element-sharded folds are ``sparse_shard.py``'s);
+``mesh_fold_map_orswot`` / ``mesh_gossip_map_orswot``,
+``mesh_fold_map3`` / ``mesh_gossip_map3`` and ``mesh_fold_nested_map`` /
+``mesh_gossip_nested_map`` are the dense nests' (``ops.nest``; each rank's
+local fold is the fused level fold, K1 or K2 on the leaf, on a card); and
 ``gossip_elastic`` is the ring entries' overflow → widen → re-enter loop
 (``elastic.py``).
 
@@ -54,6 +58,10 @@ from .. import telemetry as tele
 from .._dtypes import bits, to_wide
 from ..utils.metrics import metrics
 from ..ops import map as map_ops
+from ..ops import map3 as m3_ops
+from ..ops import map_map as mm_ops
+from ..ops import map_orswot as mo_ops
+from ..ops import nest as nest_ops
 from ..ops import orswot as ops
 from ..ops import sparse_mvmap as smv
 from ..ops import sparse_orswot as sp
@@ -195,12 +203,14 @@ def _donate_ring(donate: bool, aliasable: bool, state, out):
 
 def rank_blocks(state, mesh: VirtualMesh):
     """``state [R, ...]`` (an ``OrswotState``, ``MapState``,
-    ``SparseOrswotState``, ``SparseMVMapState`` or ``SparseNestState``) on
+    ``SparseOrswotState``, ``SparseMVMapState``, ``SparseNestState`` or a
+    dense nest of ``ops.nest``) on
     the mesh's device, padded with identities of its kind to a multiple of
     P and viewed as ``[P, R/P, ...]`` rank blocks."""
     pad = (pad_replicas_map if isinstance(state, MapState)
            else pad_replicas_sparse if isinstance(state, _BATCHED_JOINS)
-           else pad_replicas)
+           else pad_replicas if isinstance(state, OrswotState)
+           else nest_ops.pad_replicas)
     state = pad(tree_map(lambda x: x.to(mesh.device), state), mesh.p)
     return tree_map(lambda x: x.reshape(mesh.p, -1, *x.shape[1:]), state)
 
@@ -223,7 +233,7 @@ def local_folds(blocks: OrswotState, fold_fn) -> Tuple[OrswotState, torch.Tensor
     pairs as P separate folds, so the same bits, in 1/P of the launches."""
     if isinstance(blocks, _BATCHED_JOINS):
         return fold_fn(tree_map(lambda x: x.transpose(0, 1).contiguous(), blocks))
-    p = blocks.top.shape[0]
+    p = tree_leaves(blocks)[0].shape[0]
     outs = [fold_fn(tree_map(lambda x: x[q], blocks)) for q in range(p)]
     folded = stack([s for s, _ in outs], outs[0][0])
     flags = [torch.as_tensor(of) for _, of in outs]
@@ -507,6 +517,99 @@ def mesh_gossip_sparse_nested(
                    level.join, telemetry, tele.generic_slots_changed, copies=mesh.s)
 
 
+# ---- the dense nests (ops.nest) ------------------------------------------------
+
+def _mesh_fold_nest(kind: str, state, mesh: VirtualMesh, join_fn, fold_fn, slots_fn,
+                    telemetry: bool, donate: bool):
+    """The all-reduce fold of a dense nest (the JAX ``_mesh_fold_lattice``
+    on a ``(P, 1)`` mesh): each rank folds its block (the fused level fold
+    on a card), one lattice all-reduce joins the ranks. Returns ``(state,
+    flags [L])`` and, with ``telemetry=True``, the Telemetry third."""
+    t0 = time.perf_counter()
+    blocks = rank_blocks(state, mesh)
+    folded, of_local = local_folds(blocks, fold_fn)
+    joined, of_cross = all_reduce_lattice(folded, join_fn, fold_fn)
+    out = tree_map(lambda x: x[0], joined)
+    if donate:
+        _consume(state, keep=out)
+    of = torch.any(of_local, dim=0) | of_cross
+    if telemetry:
+        return out, of, _fold_tel(kind, folded, joined, blocks, slots_fn, mesh.p, t0)
+    return out, of
+
+
+def _leaf_members_changed(core_of):
+    """The nest's ``slots_fn``: ``changed_members`` of the ORSWOT leaf."""
+    return lambda a, b: ops.changed_members(core_of(a), core_of(b))
+
+
+def mesh_fold_map_orswot(state, mesh: VirtualMesh, telemetry: bool = False,
+                         donate: bool = False):
+    """Full-mesh anti-entropy for ``Map<K, Orswot>`` (``ops.map_orswot``):
+    each rank folds its block (the fused level fold: K1 on the K·M leaf,
+    then the outer keyset level, on a card), then one lattice-join
+    all-reduce over the ranks. Returns ``(state, flags [2])``; the
+    Telemetry third with ``telemetry=True`` (``slots_changed``: the leaf's
+    ``changed_members``)."""
+    return _mesh_fold_nest("map_orswot_fold", state, mesh, mo_ops.join, mo_ops.fold,
+                           _leaf_members_changed(lambda s: s.core), telemetry, donate)
+
+
+def mesh_gossip_map_orswot(state, mesh: VirtualMesh, rounds: Optional[int] = None,
+                           telemetry: bool = False, donate: bool = False,
+                           stability: bool = False, faults=None, lag_threshold=None):
+    """Ring anti-entropy for ``Map<K, Orswot>`` replica blocks: each rank
+    folds its block, then ``rounds`` (default P-1) unit-shift ring rounds
+    of ``map_orswot.join``. Returns ``(states [P, ...], flags [2])``."""
+    _refuse("mesh_gossip_map_orswot", stability=stability, faults=faults is not None,
+            lag_threshold=lag_threshold is not None)
+    return _gossip("map_orswot_gossip", state, mesh, rounds, donate, mo_ops.fold, mo_ops.join,
+                   telemetry, _leaf_members_changed(lambda s: s.core))
+
+
+def mesh_fold_map3(state, mesh: VirtualMesh, telemetry: bool = False, donate: bool = False):
+    """Full-mesh anti-entropy for ``Map<K1, Map<K2, Orswot>>``
+    (``ops.map3``): each rank's fused level fold (K1 on the leaf, two
+    ``settle_outer`` levels), then one lattice-join all-reduce. Returns
+    ``(state, flags [3])``; the Telemetry third with ``telemetry=True``."""
+    return _mesh_fold_nest("map3_fold", state, mesh, m3_ops.join, m3_ops.fold,
+                           _leaf_members_changed(lambda s: s.mo.core), telemetry, donate)
+
+
+def mesh_gossip_map3(state, mesh: VirtualMesh, rounds: Optional[int] = None,
+                     telemetry: bool = False, donate: bool = False, stability: bool = False,
+                     faults=None, lag_threshold=None):
+    """Ring anti-entropy for ``Map<K1, Map<K2, Orswot>>`` replica blocks.
+    Returns ``(states [P, ...], flags [3])``."""
+    _refuse("mesh_gossip_map3", stability=stability, faults=faults is not None,
+            lag_threshold=lag_threshold is not None)
+    return _gossip("map3_gossip", state, mesh, rounds, donate, m3_ops.fold, m3_ops.join,
+                   telemetry, _leaf_members_changed(lambda s: s.mo.core))
+
+
+def mesh_fold_nested_map(state, mesh: VirtualMesh, telemetry: bool = False,
+                         donate: bool = False):
+    """Full-mesh anti-entropy for ``Map<K1, Map<K2, MVReg>>``
+    (``ops.map_map``): each rank's fused level fold (``decode_cells`` → K2
+    → the Map epilogue, then the outer keyset level), then one
+    lattice-join all-reduce. Returns ``(state, flags [3])``; the Telemetry
+    third with ``telemetry=True`` (``slots_changed``: the flat map's
+    ``changed_keys``)."""
+    return _mesh_fold_nest("nested_map_fold", state, mesh, mm_ops.join, mm_ops.fold,
+                           lambda a, b: map_ops.changed_keys(a.m, b.m), telemetry, donate)
+
+
+def mesh_gossip_nested_map(state, mesh: VirtualMesh, rounds: Optional[int] = None,
+                           telemetry: bool = False, donate: bool = False,
+                           stability: bool = False, faults=None, lag_threshold=None):
+    """Ring anti-entropy for ``Map<K1, Map<K2, MVReg>>`` replica blocks.
+    Returns ``(states [P, ...], flags [3])``."""
+    _refuse("mesh_gossip_nested_map", stability=stability, faults=faults is not None,
+            lag_threshold=lag_threshold is not None)
+    return _gossip("nested_map_gossip", state, mesh, rounds, donate, mm_ops.fold, mm_ops.join,
+                   telemetry, lambda a, b: map_ops.changed_keys(a.m, b.m))
+
+
 def gossip_elastic(model, mesh: VirtualMesh, rounds: Optional[int] = None, policy=None,
                    telemetry: bool = False, donate: bool = False, stability: bool = False,
                    reclaim=None, faults=None, lag_threshold=None):
@@ -522,8 +625,11 @@ def gossip_elastic(model, mesh: VirtualMesh, rounds: Optional[int] = None, polic
     Covers ``BatchedOrswot`` (``mesh_gossip``; the deferred lane),
     ``BatchedSparseOrswot`` (``mesh_gossip_sparse``; dot and deferred
     lanes), ``BatchedMap`` (``mesh_gossip_map``; sibling and deferred
-    lanes) and ``BatchedSparseMap`` (``mesh_gossip_sparse_mvmap`` at the
-    model's ``sibling_cap``; cell, deferred and sibling lanes).
+    lanes), ``BatchedSparseMap`` (``mesh_gossip_sparse_mvmap`` at the
+    model's ``sibling_cap``; cell, deferred and sibling lanes) and
+    ``BatchedSparseNestedMap`` (``mesh_gossip_sparse_nested`` with the
+    model's level; cell, inner deferred, sibling and outer deferred
+    lanes).
     ``donate=True`` donates each attempt's state into the ring and
     restores ``model.state`` from a pre-round copy afterwards (a failed
     attempt needs the pre-round state). Returns ``(rows, widened)``: the
@@ -537,6 +643,7 @@ def gossip_elastic(model, mesh: VirtualMesh, rounds: Optional[int] = None, polic
     from ..models.map import BatchedMap
     from ..models.orswot import BatchedOrswot
     from ..models.sparse_mvmap import BatchedSparseMap
+    from ..models.sparse_nested_map import BatchedSparseNestedMap
     from ..models.sparse_orswot import BatchedSparseOrswot
     _refuse("gossip_elastic", stability=stability, lag_threshold=lag_threshold is not None,
             reclaim=reclaim is not None, faults=faults is not None)
@@ -555,9 +662,14 @@ def gossip_elastic(model, mesh: VirtualMesh, rounds: Optional[int] = None, polic
             cap = m.sibling_cap
             return ((lambda *a, **k: mesh_gossip_sparse_mvmap(*a, sibling_cap=cap, **k)),
                     ("cell_cap", "deferred_cap", "sibling_cap"))
+        if isinstance(m, BatchedSparseNestedMap):
+            level = m.level
+            return ((lambda st, msh, rnd, **k: mesh_gossip_sparse_nested(st, msh, level, rnd,
+                                                                        **k)),
+                    ("cell_cap", "deferred_cap", "sibling_cap", "key_deferred_cap"))
         raise TypeError(
-            f"gossip_elastic covers BatchedOrswot, BatchedSparseOrswot, BatchedMap and "
-            f"BatchedSparseMap, got {type(m).__name__}")
+            f"gossip_elastic covers BatchedOrswot, BatchedSparseOrswot, BatchedMap, "
+            f"BatchedSparseMap and BatchedSparseNestedMap, got {type(m).__name__}")
 
     widened: dict = {}
     migrations = 0
@@ -585,7 +697,9 @@ def gossip_elastic(model, mesh: VirtualMesh, rounds: Optional[int] = None, polic
         migrations += 1
 
 
-__all__ = ["gossip_elastic", "local_folds", "mesh_fold", "mesh_fold_map", "mesh_fold_sparse",
+__all__ = ["gossip_elastic", "local_folds", "mesh_fold", "mesh_fold_map", "mesh_fold_map3",
+           "mesh_fold_map_orswot", "mesh_fold_nested_map", "mesh_fold_sparse",
            "mesh_fold_sparse_mvmap", "mesh_fold_sparse_nested", "mesh_gossip", "mesh_gossip_map",
+           "mesh_gossip_map3", "mesh_gossip_map_orswot", "mesh_gossip_nested_map",
            "mesh_gossip_sparse", "mesh_gossip_sparse_mvmap", "mesh_gossip_sparse_nested",
            "rank_blocks"]

@@ -79,7 +79,7 @@ from .._dtypes import bits, from_wide, to_wide, umax
 from ..delta_opt import ackwin as _ackwin
 from ..obs import hist as _hist
 from ..ops import wire_kernels as _wk
-from ..ops.lattice import tree_map
+from ..ops.lattice import tree_leaves, tree_map
 from ..utils.metrics import metrics
 from . import wire as _wire
 from .anti_entropy import (
@@ -220,6 +220,7 @@ def run_delta_ring(
     stats: Optional[dict] = None,
     template: Callable = _packet_template,  # (folded [P, ...], cap, fctx dtype) -> packet
     slots_fn: Optional[Callable] = None,    # (before, after) -> u32 changed lanes
+    top_of: Callable = lambda s: s.top,     # state -> its top clock (a nest's is its leaf's)
 ):
     """Run the δ ring; returns ``(states [P, ...], dirty [P, E], overflow,
     residue)``. ``residue`` is the mesh-wide count of slot-starved
@@ -248,8 +249,8 @@ def run_delta_ring(
         raise ValueError("wal= needs wal_kind= (the merge kind δ records decompose under)")
     if fused and kind not in _wire.WIRE_SURFACES:
         raise NotImplementedError(
-            f"run_delta_ring: fused=True needs a wire codec for {kind!r}; only "
-            f"{sorted(_wire.WIRE_SURFACES)} are ported (ROADMAP item 13)"
+            f"run_delta_ring: fused=True needs a wire codec for {kind!r}; the registered "
+            f"codecs are {sorted(_wire.WIRE_SURFACES)}"
         )
     p = mesh.p
     gated = digest and gate is not None
@@ -268,7 +269,7 @@ def run_delta_ring(
     if wal is not None and wal.tail is None:
         # The diff base, before the run: a donating run consumes the input.
         wal.attach(tree_map(lambda x: x.reshape(-1, *x.shape[2:]), blocks))
-    rl = blocks.top.shape[1]
+    rl = tree_leaves(blocks)[0].shape[1]
     pad_r = p * rl - dirty.shape[0]
     dirty = dirty.to(mesh.device)
     fctx = fctx.to(mesh.device)
@@ -283,7 +284,7 @@ def run_delta_ring(
     # One rank at a time: the max-fold's signed temporary stays one
     # rank block.
     f = torch.stack([bits(umax(fctx[q], 0)) for q in range(p)]).view(fctx.dtype)
-    rtop = ppermute(folded.top, inv_perm) if gated else None
+    rtop = ppermute(top_of(folded), inv_perm) if gated else None
 
     counts = {"shipped": torch.zeros((), dtype=torch.int64, device=mesh.device),
               "deferred": torch.zeros((), dtype=torch.int64, device=mesh.device),
@@ -312,7 +313,7 @@ def run_delta_ring(
             return ppermute(wired, perm), aux, sent, useful, aux.covered if acked else None
 
         def receive(wired, st, mirror):
-            return codec.unpack(wired, own_top=st.top if gated else None, mirror_ctx=mirror)
+            return codec.unpack(wired, own_top=top_of(st) if gated else None, mirror_ctx=mirror)
     else:
         def send(pkt, aw):
             covered = None
@@ -323,7 +324,7 @@ def run_delta_ring(
                 # what the peer has positively confirmed, removals too.
                 pkt, covered = _ackwin.gate_window(pkt, aw)
                 counts["skipped"] += covered.sum()
-            counts["shipped"] += pkt.valid.sum()
+            counts["shipped"] += _ackwin._core(pkt).valid.sum()
             wired = ppermute(pkt, perm)
             # The JAX layered ring prices the packet each rank receives.
             useful = tele.packet_useful_bytes(wired, batch_dims=1) if telemetry else None
@@ -439,7 +440,7 @@ def run_delta_ring(
 
     if telemetry and gated:
         rt.digest(_nbytes(rtop))
-    own_top = folded.top
+    own_top = top_of(folded)
     top_all = bits(pmax(own_top)).expand(own_top.shape).view(own_top.dtype)
     if fused:
         # Unencodable parked removes never reached the wire: count them as

@@ -1,6 +1,6 @@
 """The bit-packed δ wire format and the fused send path — counterpart of
-the JAX package's ``parallel/wire.py`` for the dense ORSWOT and the
-Map<K, MVReg> flavors.
+the JAX package's ``parallel/wire.py`` for the dense ORSWOT, the
+Map<K, MVReg> and the nested (``Map<K, Orswot>``, ``Map3``) flavors.
 
 :class:`WireCodec` lowers a flavor's packet (``delta.DeltaPacket``,
 ``delta_map.MapDeltaPacket``) onto an all-u32 wire tree in one fused pass
@@ -12,7 +12,9 @@ K3 on a card), and the receiver inverts it with plain torch. Wire layout
     slots  [C, Ws]   slot clock lanes (dense: rows; map: wctr, clk) and
                      the ctxs last, as biased-u16 deltas against the link
                      watermark, two per word
-    parked [D, Wp]   parked-remove clocks, same encoding
+    parked [D, Wp]   parked-remove clocks, same encoding (a nested packet:
+                     every level's buffer, innermost first, in one
+                     matrix)
     ids    [..]      slot indices and actor ids (map: wact) as u16 pairs
                      when the key universe and A are <= 2^16, else raw
     raws   [..]      unbounded non-clock lanes (map: the payload ``val``),
@@ -314,7 +316,7 @@ class WireCodec:
         parked clock planes concatenated over the levels, against the
         digest watermark, and their validity."""
         leaves = [leaf for _, leaf in _named_leaves(pkt)]
-        b = pkt.idx.shape[0]
+        b = _core(pkt).idx.shape[0]
         pcl = torch.cat([bits(leaves[r.i]).reshape(b, -1, self.a) for r in self.parked_recs],
                         dim=1).view(self.ct)
         pvalid = torch.cat([leaves[r.i] for r in self.pvalid_recs], dim=-1)
@@ -326,7 +328,7 @@ class WireCodec:
         ``rtop`` is the receiver's frozen digest top ``[.., A]``
         (``digest=``), ``win`` the link's ack window. Returns
         ``(WirePacket, WireAux)``."""
-        batched = pkt.idx.dim() == 2
+        batched = _core(pkt).idx.dim() == 2
         if not batched:
             pkt, rtop, win = _add_batch(pkt), _add_batch(rtop), _add_batch(win)
         wire, aux = self._pack(pkt, rtop, win)
@@ -336,7 +338,7 @@ class WireCodec:
 
     def _pack(self, pkt, rtop, win):
         leaves = [leaf for _, leaf in _named_leaves(pkt)]
-        b = pkt.idx.shape[0]
+        b = _core(pkt).idx.shape[0]
         # The slot and parked instances in one launch; an unencodable
         # valid parked slot is wire loss.
         parked = self.parked_inputs(pkt, rtop)
@@ -583,10 +585,14 @@ def know_map(pkt):
 
 
 # One registered codec per δ flavor; a fused ring of a kind missing here
-# raises (the nested flavors are ROADMAP item 13).
+# raises. The nested flavors' packets wrap the dense one: their slot
+# instance is the dense slot spec, and each level's parked buffer joins
+# the parked instance of the same grouped launch.
 WIRE_SURFACES = {
     "delta_gossip": know_dense,
     "map_delta_gossip": know_map,
+    "map_orswot_delta_gossip": know_dense,
+    "map3_delta_gossip": know_dense,
 }
 
 

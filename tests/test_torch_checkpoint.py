@@ -2,7 +2,8 @@
 (``crdt_tpu_torch.checkpoint``, ``crdt_tpu_torch.durability.snapshot``)
 against the JAX package's, on the kinds the port has (``BatchedOrswot``,
 ``BatchedSparseOrswot``, ``BatchedMap``, ``BatchedSparseMapOrswot``,
-``BatchedSparseMap``): a checkpoint or a generation
+``BatchedSparseMap``, ``BatchedMapOrswot``, ``BatchedNestedMap``,
+``BatchedMap3``, ``BatchedSparseNestedMap``): a checkpoint or a generation
 written by either package loads in the other with equal leaves (dtypes and
 checksums included) and equal interners, and the meta each package writes
 for the same model is the same JSON. Also the cases of
@@ -46,11 +47,18 @@ from test_torch_sparse_orswot import population
 # Interned items of every payload type the serde tags cover.
 MEMBERS = list(range(6)) + ["x", ("t", 1), b"\x00b", 2**70, None]
 MAP_KEYS = ["p", "q", ("k", 2)]
-KINDS = ("orswot", "sparse_orswot", "map", "sparse_map_orswot", "sparse_map")
+KINDS = ("orswot", "sparse_orswot", "map", "sparse_map_orswot", "sparse_map", "map_orswot",
+         "map_map", "map3", "sparse_map_map")
+NESTED_KINDS = ("map_orswot", "map_map", "map3", "sparse_map_map")
 
 
 def _models(kind: str, seed: int):
     """The same oracle replicas in the JAX package's model and the port's."""
+    if kind in NESTED_KINDS:
+        from test_torch_map_nested import pair as nested_pair, population as nested_population
+
+        source = "map_map" if kind == "sparse_map_map" else kind
+        return nested_pair(kind, nested_population(source, seed)[0])
     if kind == "sparse_map":
         return sparse_mvmap_pair(sparse_mvmap_population(seed)[0])
     if kind == "sparse_map_orswot":
@@ -185,7 +193,7 @@ def test_unported_checkpoint_modes_name_their_item(tmp_path):
         checkpoint.save(tmp_path / "ck.npz", port, compact=True)
     with pytest.raises(NotImplementedError, match=r"ROADMAP item 15\.2"):
         snap.save(tmp_path / "snap", port, compact=True)
-    for kind, item in (("map_map", "13"), ("sparse_map_map", "13"), ("list", "14")):
+    for kind, item in (("list", "14"), ("glist", "14")):
         with pytest.raises(NotImplementedError, match=rf"ROADMAP item {item}\)"):
             checkpoint._restore({"kind": kind}, {}, "cpu")
     with pytest.raises(TypeError, match="cannot checkpoint"):

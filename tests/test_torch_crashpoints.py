@@ -36,20 +36,23 @@ from test_torch_recover import assert_tree
 ALL_KINDS = tuple(sorted(KINDS))
 # The first diagonal's kinds; the sparse Map kinds cross every point again
 # ("sparse_nest" is the same decomposer as "sparse_nested_map", the name a
-# log must carry for the JAX package to replay it).
+# log must carry for the JAX package to replay it), and so do the dense
+# nests.
 DENSE_KINDS = ("map", "mvreg", "orswot", "sparse_orswot", "vclock")
 SPARSE_MAP_KINDS = ("sparse_mvmap", "sparse_nested_map")
+NESTED_KINDS = ("map_orswot", "map_map", "map3")
 # The durability core's points: the serving tier registers seven more
 # (``serve.*``) when it is imported, and crosses them in its own workloads
 # (tests/test_torch_serve_durable.py), so the diagonal cannot depend on
 # whether another test file imported it first.
 ALL_CRASHPOINTS = tuple(p for p in cp.registered() if p.startswith(("wal.", "snapshot.")))
 DIAGONAL = ([(point, DENSE_KINDS[i % len(DENSE_KINDS)]) for i, point in enumerate(ALL_CRASHPOINTS)]
-            + [(point, SPARSE_MAP_KINDS[i % 2]) for i, point in enumerate(ALL_CRASHPOINTS)])
+            + [(point, SPARSE_MAP_KINDS[i % 2]) for i, point in enumerate(ALL_CRASHPOINTS)]
+            + [(point, NESTED_KINDS[i % 3]) for i, point in enumerate(ALL_CRASHPOINTS)])
 
 
 def _ref(kind: str, raw: dict):
-    j = {k: jnp.asarray(v) for k, v in raw.items() if k not in ("child", "core")}
+    j = {k: jnp.asarray(v) for k, v in raw.items() if not isinstance(v, dict)}
     if kind == "orswot":
         return RefOrswotState(**j)
     if kind == "map":
@@ -63,6 +66,10 @@ def _ref(kind: str, raw: dict):
         return RefSparseNestState(core=_ref("sparse_orswot", raw["core"]), **j)
     if kind == "mvreg":
         return RefMVRegState(**j)
+    if kind in NESTED_KINDS:
+        from test_torch_nest import _to_ref_nest
+
+        return _to_ref_nest(kind, raw)
     return j["clock"]
 
 
@@ -114,7 +121,7 @@ def test_crashpoint_fuzz_diagonal(tmp_path, point, kind):
 
 
 def test_the_diagonal_covers_every_kind_and_the_jax_points():
-    assert len(ALL_CRASHPOINTS) == 15 and len(ALL_KINDS) == 8
+    assert len(ALL_CRASHPOINTS) == 15 and len(ALL_KINDS) == 11
     assert {k for _, k in DIAGONAL} | {"sparse_nest"} == set(ALL_KINDS)
     assert KINDS["sparse_nest"] is KINDS["sparse_nested_map"]
     ours = {n: cp.describe(n) for n in ALL_CRASHPOINTS}

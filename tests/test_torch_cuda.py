@@ -12,7 +12,9 @@ apply on the card against the CPU, and one dispatch under sync debug
 (once a dispatch, == its plain version and the CPU), a resync through
 ``bootstrap`` on card tensors, and the fan-out probes; the telemetry
 sidecar of a small δ ring and of one fan-out dispatch on the card equal
-to the same calls on the CPU.
+to the same calls on the CPU; the nested kinds' fused level fold (K1 or
+K2 on the leaf) and K3's nested instance against their plain routes, the
+nested scenarios and a nested ring on the card equal to the CPU's.
 
 Marked ``cuda``; every test skips without a device. It imports neither
 JAX nor the JAX package, so it also runs where JAX is not installed:
@@ -596,3 +598,75 @@ def test_a_telemetry_fanout_dispatch_on_the_card_counts_like_the_cpu(card):
         if k not in chip_smoke.HOST_TIMED:
             assert got["cuda"][k] == v, k
     assert got["cuda"]["cohorts_per_dispatch"] == int((idx >= 0).sum())
+
+
+# ---- the nested kinds ---------------------------------------------------------
+
+@pytest.mark.parametrize("kind", chip_smoke.NEST_KINDS)
+def test_the_fused_level_fold_on_the_card_matches_its_plain_route(card, kind):
+    """``fold_fused_level`` on the card (K1, or K2 for the MVReg leaf, once)
+    == the same fold's plain route on the CPU, every leaf."""
+    from crdt_tpu_torch.ops import fold_kernels as fk
+
+    pures, _ = chip_smoke.nest_population(kind, random.Random(5), 6)
+    level = chip_smoke.nest_ops(kind).LEVEL
+    on_card = chip_smoke.nest_model(kind, pures, card).state
+    on_host = chip_smoke.nest_model(kind, pures, torch.device("cpu")).state
+    counter = chip_smoke._leaf_counter(kind)
+    before = counter.launches
+    got, got_of = fk.fold_fused_level(level, on_card)
+    torch.cuda.synchronize(card)
+    assert counter.launches == before + 1
+    want, want_of = fk.fold_fused_level(level, on_host)
+    assert chip_smoke.same_leaves(chip_smoke.on_cpu(got), want)
+    assert torch.equal(got_of.cpu(), want_of)
+
+
+@pytest.mark.parametrize("kind", ["map_orswot", "map3"])
+def test_the_nested_k3_pack_matches_its_plain_version(card, kind):
+    """K3's nested instance (the dense slot spec; every level's parked
+    buffer in the parked instance of one grouped launch) on card tensors
+    == the codec's plain pack on the CPU: wire, aux, checksum."""
+    from crdt_tpu_torch.ops.lattice import tree_map
+    from crdt_tpu_torch.ops.wire_kernels import wire_pack
+    from crdt_tpu_torch.parallel import delta_map3, delta_map_orswot, wire
+
+    flavor = delta_map_orswot if kind == "map_orswot" else delta_map3
+    extract = flavor.extract_delta_mo if kind == "map_orswot" else flavor.extract_delta_m3
+    template_fn = (flavor.packet_template_mo if kind == "map_orswot"
+                   else flavor.packet_template_m3)
+    state, dirty, fctx, _ = chip_smoke.fill_delta_nest(kind, 16, 4, 3, torch.device("cpu"),
+                                                       k=40, m=25, k1=4, k2=10)
+    rows = tree_map(lambda x: x[:4].contiguous(), state)
+    pkt, _, _ = extract(rows, dirty[:4], fctx[:4], 64)
+    top = rows.core.top if kind == "map_orswot" else rows.mo.core.top
+    rtop = torch.roll(top, -1, 0)
+    out = {}
+    for dev in (torch.device("cpu"), card):
+        codec = wire.WireCodec(template_fn(tree_map(lambda x: x.to(dev), rows), 64, fctx.dtype),
+                               dirty.shape[-1], wire.know_dense, gated=True, acked=False)
+        before = wire_pack.launches
+        out[dev.type] = codec.pack(tree_map(lambda x: x.to(dev), pkt), rtop=rtop.to(dev))
+        assert wire_pack.launches == before + (dev.type == "cuda")
+    torch.cuda.synchronize(card)
+    assert chip_smoke.same_leaves(chip_smoke.on_cpu(out["cuda"]), out["cpu"])
+
+
+def test_the_nested_scenarios_phase_on_the_card(card):
+    chip_smoke.phase_nested_scenarios(card, 3)
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "layered"])
+def test_a_nested_ring_on_the_card_equals_the_cpu_ring(card, fused):
+    from crdt_tpu_torch.ops.lattice import tree_map
+    from crdt_tpu_torch.parallel import VirtualMesh, delta_map3
+
+    state, dirty, fctx, _ = chip_smoke.fill_delta_nest("map3", 32, 4, 4, torch.device("cpu"),
+                                                       k1=4, k2=10, m=25)
+    outs = {}
+    for dev in (torch.device("cpu"), card):
+        outs[dev.type] = delta_map3.mesh_delta_gossip_map3(
+            tree_map(lambda x: x.to(dev), state), dirty.to(dev), fctx.to(dev),
+            VirtualMesh(4, dev), rounds=24, cap=256, fused=fused)
+    assert chip_smoke.same_leaves(chip_smoke.on_cpu(outs["cuda"]), outs["cpu"])
+    assert int(outs["cpu"][3]) == 0

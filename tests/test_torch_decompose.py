@@ -33,7 +33,8 @@ ref_dec = importlib.import_module("crdt_tpu.delta_opt.decompose")
 dec = importlib.import_module("crdt_tpu_torch.delta_opt.decompose")
 
 KINDS = ["orswot", "map", "mvreg", "vclock", "sparse_orswot", "sparse_mvmap", "sparse_nest",
-         "sparse_nested_map"]
+         "sparse_nested_map", "map_orswot", "map_map", "map3"]
+DENSE_NESTS = ("map_orswot", "map_map", "map3")
 # The port's module name of the nest's decomposition -> the JAX registry's.
 REF_KIND = {"sparse_nest": "sparse_nested_map"}
 PORT_TYPES = {"orswot": OrswotState, "map": MapState, "mvreg": MVRegState,
@@ -45,6 +46,10 @@ def to_port(kind, ref):
     """A JAX-package state of ``kind`` → the port's, on the CPU."""
     if kind == "vclock":
         return leaf_tensor(np.asarray(ref))
+    if kind in DENSE_NESTS:
+        from test_torch_map_nested import to_port as nest_to_port
+
+        return nest_to_port(ref)
     if kind not in PORT_TYPES:  # the sparse Map kinds, nested or not
         from test_torch_sparse_mvmap import to_port as sparse_to_port
 

@@ -272,7 +272,7 @@ def test_a_fused_ring_of_a_kind_without_a_codec_raises():
     from crdt_tpu_torch.ops.fold_kernels import fold_auto
 
     state, dirty, fctx, mesh = _small_ring_inputs()
-    args = ("map_orswot_delta_gossip", state, dirty, fctx, mesh, None, 8)
+    args = ("unregistered_delta_gossip", state, dirty, fctx, mesh, None, 8)
     kw = dict(local_fold=fold_auto, extract=delta.extract_delta, apply_fn=delta.apply_delta,
               close_top=delta.close_top_orswot, gate=delta.gate_delta)
     with pytest.raises(NotImplementedError, match="wire codec"):

@@ -148,8 +148,9 @@ def test_fill_invalid_idx_and_remark_deferred_match(seed):
 
 
 def test_only_the_dense_codec_is_registered():
-    """Of the flat flavors' codecs: the dense one and (since the Map δ
-    slice) the Map one; the nested flavors' are still to port."""
-    assert set(wire.WIRE_SURFACES) == {"delta_gossip", "map_delta_gossip"}
-    assert wire.WIRE_SURFACES["delta_gossip"] is wire.know_dense
-    assert set(wire.WIRE_SURFACES) < set(ref_wire.WIRE_SURFACES)
+    """The dense codec, and since the Map δ slice and the nested slice the
+    JAX package's other flavors: every one of its codecs is registered,
+    the dense one and both nested ones with the dense gate subject."""
+    assert set(wire.WIRE_SURFACES) == set(ref_wire.WIRE_SURFACES)
+    for kind in ("delta_gossip", "map_orswot_delta_gossip", "map3_delta_gossip"):
+        assert wire.WIRE_SURFACES[kind] is wire.know_dense
