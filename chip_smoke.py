@@ -190,7 +190,7 @@ at first use), then runs, printing one JSON line per phase:
                         (config 4's): == the copying runs, outputs in the
                         inputs' storage, peak and resident memory of both.
 18. ``durability``     — the crashpoint diagonal on the card (each of the
-                        15 crashpoints once, the five decomposition kinds
+                        15 crashpoints once, the decomposition kinds
                         cycled: recovery == the last durable record), and
                         ``checkpoint.save`` / ``load`` of a ``BatchedMap``
                         at config 4's widths, R = 8, == what was saved.
@@ -339,6 +339,29 @@ at first use), then runs, printing one JSON line per phase:
                         alternating fused, layered and acked), busy
                         share, launches a round, wire bytes, K3 at the nested
                         instance (slot + every parked level in one launch).
+30. ``kinds_scenarios`` — small probes of every kind of ROADMAP item 14 on the
+                        card == the CPU == the pure oracles: PN and G
+                        counters (2^32-1 + 1 raises on strict, wraps off it;
+                        a u64 lane near 2^64), VClock gap and duplicate dots,
+                        GSet, LWWReg's equal-marker conflict, MVReg's
+                        SlotOverflow and reset_remove, List front inserts and
+                        a remote ingest that grows the universe, a GList
+                        union, a serde round trip of every new tag; no K1-K3.
+31. ``full_width_clocks`` — BASELINE configs 1 and 2 at ``bench.py``'s draws
+                        (``default_rng(1)``): 64 replicas × 10,000
+                        increments through ``BatchedGCounter`` (read exactly
+                        10,000), the 1,000 × 1,000 × 8 pairwise merge matrix
+                        (== numpy on 64 rows) and PNCounter's p − n; then
+                        ``mesh_fold_clocks`` and ``mesh_fold_gset`` (10,240 ×
+                        102,400 members) on P = 8 == the single-rank folds.
+32. ``full_width_list`` — BASELINE config 5: the synthetic 100k-op trace
+                        through ``BatchedList`` at 1,024 replicas, 49 epochs
+                        of 2,048 ops; every row == row 0 == the pure ``List``
+                        == the native engine; ``to_pure`` of 4 rows; a model
+                        fed the last 50,000 ops by ``export_ops`` /
+                        ``ingest_remote_ops`` == the first; replica-ops/s,
+                        busy share, a checkpoint at R = 64, a ``BatchedGList``
+                        of the trace's inserts at R = 1,024.
 
 Then the ``nvidia-smi`` name/power-limit line, a ``kernels`` JSON line, and
 as the last line ``{"ok": true, "device": {...}}``. Any failed check raises
@@ -490,10 +513,7 @@ def phase_device(device) -> dict:
 
     from crdt_tpu_torch.ops import _build
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = card_label(device)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(SOURCES)) as pool:  # one nvcc per source, started together
         list(pool.map(_build.library, SOURCES))
@@ -3775,7 +3795,8 @@ def with_scratch_dir(fn):
 
 def kind_arrays(kind: str, rng) -> dict:
     """One random unbatched state of decomposition ``kind`` as numpy leaves
-    (``convert``'s names and dtypes; a vclock is ``{"clock": [A] u32}``).
+    (``convert``'s names and dtypes; a vclock is ``{"clock": [A] u32}``, a
+    gset ``{"present": [E] bool}``, an lwwreg four 0-d leaves).
     The WAL's positional diff is exact on any bits, so any state is a fair
     crash-recovery input."""
     import numpy as np
@@ -3796,6 +3817,11 @@ def kind_arrays(kind: str, rng) -> dict:
         return {k: v[0] for k, v in child.items()}
     if kind == "vclock":
         return dict(clock=u32((5,)))
+    if kind == "gset":
+        return dict(present=rng.random(9) < 0.4)
+    if kind == "lwwreg":
+        return dict(hi=u32(()), lo=u32(()), val=np.asarray(rng.integers(0, 9), np.int32),
+                    has=np.asarray(rng.random() < 0.7))
     orswot = dict(top=u32((3,)), ctr=u32((8, 3)), dcl=u32((2, 3)),
                   dmask=rng.random((2, 8)) < 0.4, dvalid=rng.random(2) < 0.5)
 
@@ -3833,11 +3859,16 @@ def kind_arrays(kind: str, rng) -> dict:
 def kind_state(kind: str, arrays: dict, device):
     """:func:`kind_arrays`'s leaves as the port's state on ``device``."""
     from crdt_tpu_torch.convert import (
-        leaf_from_numpy, map_from_numpy, nest_from_numpy, orswot_from_numpy,
-        sparse_mvmap_from_numpy, sparse_nest_from_numpy, sparse_orswot_from_numpy,
+        gset_from_numpy, leaf_from_numpy, lww_from_numpy, map_from_numpy, nest_from_numpy,
+        orswot_from_numpy, sparse_mvmap_from_numpy, sparse_nest_from_numpy,
+        sparse_orswot_from_numpy,
     )
     from crdt_tpu_torch.ops.mvreg import MVRegState
 
+    if kind == "gset":
+        return gset_from_numpy(arrays["present"], device)
+    if kind == "lwwreg":
+        return lww_from_numpy(arrays, device)
     if kind == "orswot":
         return orswot_from_numpy(arrays, device)
     if kind == "map":
@@ -4039,7 +4070,7 @@ def durable_ring(kind: str, ring, base, out, counters, rounds: int, sync, sample
 def phase_durability(device, seed: int, r: int = 8, k: int = 1_000_000, s: int = 2, a: int = 4,
                      d: int = 4, chunk: int = 1 << 17) -> dict:
     """The durability core on the card: the crashpoint diagonal (each of
-    the 15 crashpoints once, the five decomposition kinds cycled, small
+    the 15 crashpoints once, the decomposition kinds cycled, small
     states on the card), then ``checkpoint.save`` / ``load`` of a
     ``BatchedMap`` at config 4's widths (R = 8, bench.py's state rule),
     equal to what was saved, leaf for leaf and interner for interner."""
@@ -7123,12 +7154,701 @@ def nested_parked(state) -> set:
     return {(c, frozenset(k)) for c, k in rows.items()}
 
 
+# ---- phases 30-32: the remaining kinds (clocks, counters, sets, registers, lists)
+
+LIST_INSERT, LIST_DELETE = 0, 1  # the engine's op kinds (crdt_tpu_torch.native)
+
+
+def make_edit_trace(n_ops: int, n_actors: int = 4, seed: int = 3):
+    """BASELINE config 5's synthetic trace, ``bench.py``'s
+    ``make_edit_trace`` draw for draw: mostly typing at a moving cursor,
+    occasional jumps and backspaces."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    kinds, idxs, vals, actors = [], [], [], []
+    length, cursor = 0, 0
+    for _ in range(n_ops):
+        roll = rng.random()
+        if length == 0 or roll < 0.72:       # type at cursor
+            kinds.append(LIST_INSERT)
+            idxs.append(cursor)
+            cursor = min(cursor + 1, length + 1)
+            length += 1
+        elif roll < 0.87:                     # jump cursor
+            cursor = int(rng.integers(0, length + 1))
+            kinds.append(LIST_INSERT)
+            idxs.append(cursor)
+            cursor += 1
+            length += 1
+        else:                                 # backspace
+            kinds.append(LIST_DELETE)
+            victim = max(0, min(cursor - 1, length - 1))
+            idxs.append(victim)
+            cursor = victim
+            length -= 1
+        vals.append(int(rng.integers(0, 128)))
+        actors.append(int(rng.integers(0, n_actors)))
+    return kinds, idxs, vals, actors
+
+
+def card_label(device) -> str:
+    """The card's ``nvidia-smi`` name and power limit, printed beside a
+    phase's numbers (``cpu`` in a CPU rehearsal)."""
+    if device.type != "cuda":
+        return "cpu"
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def kernel_launches() -> dict:
+    """The launch counts of K1, K2 and K3 so far (a phase that runs none
+    of them checks that its delta is 0)."""
+    from crdt_tpu_torch.ops.fold_kernels import fold_cells, fold_entries
+    from crdt_tpu_torch.ops.wire_kernels import wire_pack
+
+    return {"k1": fold_entries.launches, "k2": fold_cells.launches, "k3": wire_pack.launches}
+
+
+def check_no_kernel(before: dict, phase: str) -> dict:
+    after = kernel_launches()
+    delta = {k: after[k] - before[k] for k in after}
+    check(not any(delta.values()), f"{phase} launched a kernel of K1-K3: {delta}")
+    return delta
+
+
+def new_kind_objects():
+    """One oracle object of every serde tag this slice adds (MerkleReg with
+    an orphan)."""
+    from crdt_tpu_torch.pure import GList, GSet, List, LWWReg, MerkleReg, PNCounter
+
+    pn = PNCounter()
+    for actor, up in (("a", True), ("b", False), ("a", True)):
+        op = pn.inc(actor) if up else pn.dec(actor)
+        pn.apply(op)
+    gs = GSet()
+    for x in ("z", 3, ("t", b"\x01")):
+        gs.apply(gs.insert(x))
+    reg = LWWReg()
+    lww_op = reg.update({"v": [1, 2]}, (1 << 63) + 5)
+    lst = List()
+    list_ops = []
+    for i, (ix, actor) in enumerate(((0, "a"), (0, "b"), (1, "a"), (0, "c"))):
+        list_ops.append(lst.insert_index(ix, f"x{i}", actor))
+        lst.apply(list_ops[-1])
+    list_ops.append(lst.delete_index(1, "a"))
+    lst.apply(list_ops[-1])
+    gl = GList()
+    g_op = None
+    for x in ("p", "q", "r"):
+        g_op = gl.insert_after(gl.last(), x)
+        gl.apply(g_op)
+    mr = MerkleReg()
+    root = mr.write("root")
+    mr.apply(root)
+    child = mr.write(("child", 1), frozenset({root.hash()}))
+    mr.apply(child)
+    mr.apply(MerkleReg().write(2.5, frozenset({MerkleReg().write(b"parent").hash()})))
+    return {"GCounter": pn.p, "PNCounter": pn, "PNOp": op, "GSet": gs, "LWWReg": reg,
+            "LWWReg-unset": LWWReg(), "LWWOp": lww_op, "Identifier": list_ops[0].id,
+            "List": lst, "Insert": list_ops[0], "Delete": list_ops[-1], "GList": gl,
+            "GInsert": g_op, "Node": child, "MerkleReg": mr}
+
+
+def phase_kinds_scenarios(device, seed: int) -> dict:
+    """Small probes of every kind of ROADMAP item 14, each op on a model on
+    the card, the same model on the CPU and the port's pure oracle: card
+    == CPU bit for bit, both == the oracle. G/PN counters (a u32 counter
+    at 2^32-1 + 1 raises under strict and wraps off it; a u64 lane near
+    2^64), VClock (gap and duplicate dots raise DotRange), GSet (a full
+    universe, a garbage member: TypeError), LWWReg (an equal-marker
+    conflict: ConflictingMarker; a garbage marker: TypeError), MVReg
+    (SlotOverflow, reset_remove), List (adversarial front inserts: the
+    identifiers deepen; a remote ingest that grows the universe
+    mid-stream), GList (a union), and a serde round trip of every tag of
+    the slice, MerkleReg included. None of K1-K3 launches."""
+    import numpy as np
+    import torch
+
+    from crdt_tpu_torch import serde
+    from crdt_tpu_torch.config import configured
+    from crdt_tpu_torch.dot import Dot
+    from crdt_tpu_torch.models import (
+        BatchedGCounter, BatchedGList, BatchedGSet, BatchedList, BatchedLWWReg, BatchedMVReg,
+        BatchedPNCounter, BatchedVClock, SlotOverflow,
+    )
+    from crdt_tpu_torch.pure import GList, GSet, List, LWWReg, MVReg, PNCounter
+    from crdt_tpu_torch.pure.glist import Insert as GInsert
+    from crdt_tpu_torch.traits import ConflictingMarker, CounterSaturation, DotRange
+    from crdt_tpu_torch.utils import Interner
+    from crdt_tpu_torch.vclock import VClock
+
+    t_phase = time.perf_counter()
+    before = kernel_launches()
+    rng = random.Random(seed)
+    devs = (device, torch.device("cpu"))
+    counts = {}
+
+    def twin(build):
+        return {d.type: build(d) for d in devs}
+
+    def both_equal(models, *planes):
+        for plane in planes:
+            x, y = (plane(models[d.type]) for d in devs)
+            check(same_leaves(on_cpu(x), on_cpu(y)), f"card != CPU: {plane}")
+
+    # ---- PN and G counters -------------------------------------------------
+    pures = [PNCounter() for _ in range(4)]
+    pn = twin(lambda d: BatchedPNCounter(4, actors=Interner(), n_actors=4, device=d))
+    for _ in range(80):
+        i, actor, up = rng.randrange(4), rng.choice("abcd"), rng.random() < 0.6
+        pures[i].apply(pures[i].inc(actor) if up else pures[i].dec(actor))
+        for m in pn.values():
+            (m.inc if up else m.dec)(i, actor)
+    merged = PNCounter()
+    for p in pures:
+        merged.merge(p.clone())
+    for m in pn.values():
+        check(all(m.to_pure(i) == pures[i] and m.read(i) == pures[i].read() for i in range(4)),
+              "PNCounter != oracle")
+        check(m.fold_read() == merged.read(), "PNCounter fold != oracle merge")
+    both_equal(pn, lambda m: m.p.clocks, lambda m: m.n.clocks)
+    for strict in (False, True):
+        with configured(strict=strict):
+            for d in devs:
+                g = BatchedGCounter(1, actors=Interner(["a"]), device=d)
+                g.inc(0, "a", steps=(1 << 32) - 1)
+                if strict:
+                    with expect_raises(CounterSaturation):
+                        g.inc(0, "a")
+                    check(g.read(0) == (1 << 32) - 1, "a trapped increment changed the lane")
+                else:
+                    g.inc(0, "a")
+                    check(g.read(0) == 0, "an unchecked u32 increment past 2^32-1 must wrap")
+    top = (1 << 64) - 1
+    with configured(counter_dtype="uint64"):
+        oracle = [VClock({"a": top - 2, "b": 5}), VClock({"a": 7})]
+        vc = twin(lambda d: BatchedVClock.from_pure([c.clone() for c in oracle], n_actors=3,
+                                                    device=d))
+        for m in vc.values():
+            m.apply(0, Dot("a", top - 1))
+            m.inc(0, "a")
+            m.inc(1, "c")
+            m.merge_from(1, 0)
+        oracle[0].apply(Dot("a", top - 1))
+        oracle[0].apply(oracle[0].inc("a"))
+        oracle[1].apply(oracle[1].inc("c"))
+        oracle[1].merge(oracle[0].clone())
+        for m in vc.values():
+            check(m.clocks.dtype == torch.uint64, "u64 config did not widen the lanes")
+            check([m.to_pure(i) for i in range(2)] == oracle, "u64 VClock != oracle")
+            check(m.fold().get("a") == top, "u64 lane lost its top")
+        both_equal(vc, lambda m: m.clocks)
+        big = twin(lambda d: BatchedGCounter(1, actors=Interner(["a"]), device=d))
+        for m in big.values():
+            m.inc(0, "a", steps=top - 1)
+            m.inc(0, "a")
+            check(m.fold_read() == top, "u64 counter read is not exact")
+    with configured(strict=True):
+        for d in devs:
+            m = BatchedVClock(1, n_actors=2, device=d)
+            m.apply(0, Dot("a", 1))
+            with expect_raises(DotRange):
+                m.apply(0, Dot("a", 1))  # duplicate
+            with expect_raises(DotRange):
+                m.apply(0, Dot("a", 3))  # gap
+            check("z" not in m.actors, "a rejected dot interned its actor")
+
+    # ---- GSet -------------------------------------------------------------------
+    gsets = [GSet() for _ in range(4)]
+    gm = twin(lambda d: BatchedGSet(4, 16, members=Interner(), device=d))
+    for _ in range(50):
+        if rng.random() < 0.7:
+            i, x = rng.randrange(4), f"m{rng.randrange(12)}"
+            gsets[i].apply(gsets[i].insert(x))
+            for m in gm.values():
+                m.insert(i, x)
+        else:
+            dst, src = rng.randrange(4), rng.randrange(4)
+            gsets[dst].merge(gsets[src].clone())
+            for m in gm.values():
+                m.merge_from(dst, src)
+    union = GSet()
+    for g in gsets:
+        union.merge(g.clone())
+    for m in gm.values():
+        check([m.to_pure(i) for i in range(4)] == gsets and m.fold() == union, "GSet != oracle")
+        with expect_raises(TypeError):
+            m.insert(0, ["unhashable"])
+    both_equal(gm, lambda m: m.present)
+    for d in devs:
+        full = BatchedGSet(1, 2, device=d)
+        full.insert(0, "x")
+        full.insert(0, "y")
+        with expect_raises(IndexError):
+            full.insert(0, "z")
+
+    # ---- LWWReg ------------------------------------------------------------
+    regs = [LWWReg() for _ in range(4)]
+    lm = twin(lambda d: BatchedLWWReg(4, values=Interner(), device=d))
+    for _ in range(60):
+        if rng.random() < 0.7:
+            i = rng.randrange(4)
+            marker = rng.randrange(1, 6) + (1 << 40) * (rng.random() < 0.3)
+            regs[i].apply(regs[i].update(f"v{marker}", marker))
+            for m in lm.values():
+                m.update(i, f"v{marker}", marker)
+        else:
+            dst, src = rng.randrange(4), rng.randrange(4)
+            regs[dst].merge(regs[src].clone())
+            for m in lm.values():
+                m.merge_from(dst, src)
+    best = LWWReg()
+    for r in regs:
+        best.merge(r.clone())
+    for m in lm.values():
+        check([m.to_pure(i) for i in range(4)] == regs and m.fold() == best, "LWWReg != oracle")
+        with expect_raises(ConflictingMarker):
+            m.update(0, "another value", regs[0].marker)
+        with expect_raises(TypeError):
+            m.update(0, "v", "not a marker")
+    with expect_raises(ConflictingMarker):
+        regs[0].validate_update("another value", regs[0].marker)
+    both_equal(lm, *(lambda m, f=f: getattr(m.state, f) for f in ("hi", "lo", "val", "has")))
+
+    # ---- MVReg ---------------------------------------------------------------
+    sites = [MVReg() for _ in range(4)]
+    mm = twin(lambda d: BatchedMVReg(4, 4, n_slots=4, actors=Interner(), values=Interner(),
+                                     device=d))
+    for _ in range(40):
+        i = rng.randrange(4)
+        if rng.random() < 0.6:
+            op = sites[i].write(f"v{rng.randrange(9)}", sites[i].read().derive_add_ctx("abcd"[i]))
+            targets = {i, rng.randrange(4)}
+            for j in targets:
+                sites[j].apply(op)
+                for m in mm.values():
+                    m.apply(j, op)
+        else:
+            src = rng.randrange(4)
+            sites[i].merge(sites[src].clone())
+            for m in mm.values():
+                m.merge_from(i, src)
+    clock = sites[1].clock()
+    sites[1].reset_remove(clock)
+    for m in mm.values():
+        m.reset_remove(1, clock)
+    joined = MVReg()
+    for s in sites:
+        joined.merge(s.clone())
+    for m in mm.values():
+        check([m.to_pure(i) for i in range(4)] == sites and m.fold() == joined, "MVReg != oracle")
+    check(mm[device.type].to_pure(1) == MVReg(), "reset_remove kept a dominated sibling")
+    both_equal(mm, *(lambda m, f=f: getattr(m.state, f)
+                     for f in ("wact", "wctr", "clk", "val", "valid")))
+    for d in devs:
+        narrow = BatchedMVReg(1, 3, n_slots=2, device=d)
+        for k, actor in enumerate("xyz"):
+            w = MVReg()
+            put = w.write(k, w.read().derive_add_ctx(actor))
+            if k < 2:
+                narrow.apply(0, put)
+            else:
+                with expect_raises(SlotOverflow):
+                    narrow.apply(0, put)
+        check(len(narrow.to_pure(0).vals) == 2, "an overflowing put changed the register")
+
+    # ---- List: front inserts, and a remote ingest that grows the universe ---
+    n = 300
+    front = ([LIST_INSERT] * n, [0] * n, list(range(n)), [i % 3 for i in range(n)])
+    oracle = List()
+    for _, ix, v, a in zip(*front):
+        oracle.apply(oracle.insert_index(ix, v, a))
+    lists = twin(lambda d: BatchedList.from_trace(*front, n_replicas=2, device=d))
+    for m in lists.values():
+        m.apply_trace_to_all(chunk=64)
+        check(m.read(1) == oracle.read() and m.to_pure(1) == oracle, "front inserts != oracle")
+    depth = max(len(lists[device.type].engine.identifier_path(h)) for h in range(n))
+    check(depth > 1 and depth == max(len(i.path) for i in oracle.seq),
+          f"front-insert identifier depth {depth}")
+    both_equal(lists, lambda m: m.vals, lambda m: m.alive)
+    ta = make_edit_trace(400, n_actors=2, seed=seed % 997)
+    tb = make_edit_trace(300, n_actors=2, seed=seed % 991 + 1)
+    tb = (tb[0], tb[1], tb[2], [a + 2 for a in tb[3]])  # another site's actors
+    part = lambda t, lo, hi: tuple(x[lo:hi] for x in t)  # noqa: E731
+    reads = {}
+    for d in devs:
+        a = BatchedList.from_trace(*part(ta, 0, 200), n_replicas=2, device=d)
+        b = BatchedList.from_trace(*tb, n_replicas=2, device=d)
+        a.apply_trace_to_all(chunk=64)
+        b.apply_trace_to_all(chunk=64)
+        grown = len(a.slots)
+        a.ingest_remote_ops(b.export_ops())  # the universe grows mid-stream
+        check(len(a.slots) > grown, "the ingest did not grow the universe")
+        a.extend_trace(*part(ta, 200, 400))
+        a.apply_trace_to_all(chunk=64)
+        b.ingest_remote_ops(a.export_ops())
+        b.apply_trace_to_all(chunk=64)
+        check(a.read(0) == a.read(1) == b.read(0) == b.read(1), "ingest did not converge")
+        check(a.to_pure(0) == b.to_pure(1), "ingested replicas differ as oracle objects")
+        reads[d.type] = (a.read(0), a.vals, a.alive)
+    check(reads[device.type][0] == reads["cpu"][0], "ingest: card != CPU")
+    check(same_leaves(on_cpu(reads[device.type][2]), reads["cpu"][2]),
+          "ingest: card != CPU (alive)")
+    counts["list_identifier_depth"] = depth
+
+    # ---- GList union ---------------------------------------------------------
+    gl = twin(lambda d: BatchedGList(3, device=d))
+    idx = [rng.randrange(k + 1) for k in range(40)]
+    vals = [rng.randrange(100) for _ in range(40)]
+    acts = [rng.randrange(3) for _ in range(40)]
+    epoch = np.full((3, 40), -1, np.int64)
+    for m in gl.values():
+        handles = m.mint_inserts(idx, vals, acts)
+    for r in range(3):
+        pick = [h for h in handles if rng.random() < 0.5]
+        epoch[r, :len(pick)] = pick
+    glists = [GList() for _ in range(3)]
+    g0 = gl[device.type]
+    for r in range(3):
+        for h in epoch[r][epoch[r] >= 0]:
+            glists[r].apply(GInsert(id=g0.identifier(h)))
+    for m in gl.values():
+        m.apply_inserts(epoch)
+        m.union_from(0, 1)
+    glists[0].merge(glists[1].clone())
+    everything = glists[0].clone()
+    everything.merge(glists[2].clone())
+    for m in gl.values():
+        check([m.to_pure(r) for r in range(3)] == glists, "GList != oracle")
+        check(m.to_pure(None) == everything, "GList fold != oracle union")
+    both_equal(gl, lambda m: m.alive)
+
+    # ---- serde: every tag of the slice ---------------------------------------------
+    objs = new_kind_objects()
+    for kind, obj in objs.items():
+        check(serde.from_bytes(serde.to_bytes(obj)) == obj, f"serde round trip of {kind}")
+    check(serde.decode(serde.encode(objs["MerkleReg"])).num_orphans() == 1,
+          "the MerkleReg orphan was lost")
+    counts["serde_tags"] = len(objs)
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    out = {"phase": "kinds_scenarios", **counts, "launches": check_no_kernel(before, "kinds"),
+           "phase_s": time.perf_counter() - t_phase}
+    emit(out)
+    return out
+
+
+def phase_full_width_clocks(device, seed: int, r1: int = 64, incs: int = 10_000,
+                            r2: int = 1000, a: int = 8, p: int = 8, gset_r: int = 10240,
+                            gset_m: int = 102400, gset_density: float = 0.05,
+                            repeats: int = 50) -> dict:
+    """BASELINE configs 1 and 2 at ``bench.py``'s shapes and draws
+    (``default_rng(1)`` in its order), then the clock and set mesh folds.
+    Config 1: 64 replicas, 10,000 increments drawn by ``multinomial``,
+    each replica in its own actor lane, through ``BatchedGCounter.inc``;
+    the converged read is exactly 10,000; ``ops.vclock.fold`` per call.
+    Config 2: the 1,000 × 1,000 × A = 8 pairwise merge matrix of the
+    VClock, gated against a numpy per-pair max on 64 sampled rows, then
+    PNCounter's p and n matrices and the converged p − n read as an exact
+    int. Then ``mesh_fold_clocks`` on P = 8 (== the single-rank fold) and
+    ``mesh_fold_gset`` at config 3's widths, R = 10,240 × 102,400 members
+    (1.05 GB of bool, made on the device; half the members written), ==
+    ``ops.gset.fold`` == the written members. Reports
+    fold µs, merges/s and pair-merges/s, with the card's name and power
+    limit. None of K1-K3 launches."""
+    import numpy as np
+    import torch
+
+    from crdt_tpu_torch._dtypes import bits
+    from crdt_tpu_torch.convert import clocks_from_numpy, leaf_to_numpy
+    from crdt_tpu_torch.models import BatchedGCounter, BatchedPNCounter
+    from crdt_tpu_torch.ops import gset as gset_ops
+    from crdt_tpu_torch.ops import vclock
+    from crdt_tpu_torch.parallel import VirtualMesh, mesh_fold_clocks, mesh_fold_gset
+    from crdt_tpu_torch.utils import Interner
+
+    t_phase = time.perf_counter()
+    before = kernel_launches()
+    on_card = device.type == "cuda"
+    sync = (lambda: torch.cuda.synchronize(device)) if on_card else (lambda: None)
+    mesh = VirtualMesh(p, device)
+    rng = np.random.default_rng(1)  # bench.py's generator; seed picks the gate rows only
+    pick = np.random.default_rng(seed).choice(r2, 64, replace=False)
+
+    # ---- config 1 ----------------------------------------------------------------
+    counts = rng.multinomial(incs, np.ones(r1) / r1)
+    g = BatchedGCounter(r1, actors=Interner(range(r1)), n_actors=r1, device=device)
+    t0 = time.perf_counter()
+    for i, c in enumerate(counts):
+        g.inc(i, i, steps=int(c))
+    sync()
+    inc_s = time.perf_counter() - t0
+    clocks1 = g.inner.clocks
+    check(np.array_equal(leaf_to_numpy(clocks1), np.diag(counts).astype(np.uint32)),
+          "config 1 clocks != bench.py's diag(counts)")
+    read1 = g.fold_read()
+    check(read1 == incs, f"converged gcounter read {read1} != {incs}")
+    fold_ms = time_each(lambda: vclock.fold(clocks1), device, repeats)
+    t0 = time.perf_counter()
+    for _ in range(repeats):
+        read_again = g.fold_read()
+    read_ms = (time.perf_counter() - t0) * 1e3 / repeats
+    check(read_again == incs, "fold_read drifted")
+    mesh1 = mesh_fold_clocks(clocks1, mesh)
+    check(same_leaves(mesh1, vclock.fold(clocks1)), "config 1: mesh fold != single-rank fold")
+
+    # ---- config 2 ----------------------------------------------------------------
+    c2 = rng.integers(0, 1000, (r2, a)).astype(np.uint32)
+    x2 = clocks_from_numpy(c2, device)
+    matrix = vclock.pairwise_merge_matrix(x2)
+    sub = leaf_to_numpy(bits(matrix)[torch.as_tensor(pick, device=device)].view(matrix.dtype))
+    check(np.array_equal(sub, np.maximum(c2[pick][:, None, :], c2[None, :, :])),
+          "config 2: the pairwise matrix != numpy's per-pair max on 64 sampled rows")
+    del matrix
+    pair_ms = time_each(lambda: vclock.pairwise_merge_matrix(x2), device, 10)
+    p2 = rng.integers(0, 1000, (r2, a)).astype(np.uint32)
+    n2 = rng.integers(0, 1000, (r2, a)).astype(np.uint32)
+    pn = BatchedPNCounter(r2, actors=Interner(range(a)), n_actors=a, device=device)
+    pn.p.clocks, pn.n.clocks = clocks_from_numpy(p2, device), clocks_from_numpy(n2, device)
+    pn_ms = time_each(lambda: (vclock.pairwise_merge_matrix(pn.p.clocks),
+                               vclock.pairwise_merge_matrix(pn.n.clocks)), device, 10)
+    read2 = pn.fold_read()
+    want2 = int(p2.max(0).astype(np.int64).sum()) - int(n2.max(0).astype(np.int64).sum())
+    check(read2 == want2, f"config 2: converged p - n {read2} != {want2}")
+    mesh2 = mesh_fold_clocks(x2, mesh)
+    check(same_leaves(mesh2, vclock.fold(x2)), "config 2: mesh fold != single-rank fold")
+    mesh_clock_ms = time_each(lambda: mesh_fold_clocks(x2, mesh), device, repeats)
+
+    # ---- GSet at config 3's widths --------------------------------------------
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    # Half the members were ever written; a replica holds each written
+    # member with probability ``gset_density``.
+    gen = torch.Generator(device=device).manual_seed(seed)
+    written = torch.rand(gset_m, generator=gen, device=device) < 0.5
+    present = torch.empty((gset_r, gset_m), dtype=torch.bool, device=device)
+    for lo in range(0, gset_r, 1024):
+        hi = min(lo + 1024, gset_r)
+        present[lo:hi] = (torch.rand((hi - lo, gset_m), generator=gen, device=device)
+                          < gset_density) & written
+    want = gset_ops.fold(present)
+    got = mesh_fold_gset(present, mesh)
+    check(torch.equal(got, want), "mesh_fold_gset != the single-rank fold")
+    check(torch.equal(got, written), "the converged GSet != the written members")
+    gset_ms = time_each(lambda: mesh_fold_gset(present, mesh), device, 5)
+    gset_single_ms = time_each(lambda: gset_ops.fold(present), device, 5)
+    busy = profile_busy(lambda: mesh_fold_gset(present, mesh), device)
+    nbytes = present.numel()
+    out = {
+        "phase": "full_width_clocks", "card": card_label(device),
+        "config1": {"replicas": r1, "increments": incs, "read": read1,
+                    "inc_host_s": inc_s, "fold_us": fold_ms * 1e3,
+                    "merges_per_s": (r1 - 1) / (fold_ms / 1e3),
+                    "fold_read_host_ms": read_ms, "mesh_p": p},
+        "config2": {"shape": f"{r2}x{r2}x{a}", "pair_ms": pair_ms,
+                    "pair_merges_per_s": r2 * r2 / (pair_ms / 1e3),
+                    "pn_pair_ms": pn_ms, "pn_pair_merges_per_s": r2 * r2 / (pn_ms / 1e3),
+                    "pn_read": read2, "gate_rows": 64,
+                    "mesh_fold_clocks_us": mesh_clock_ms * 1e3},
+        "gset": {"shape": f"{gset_r}x{gset_m}", "bytes": nbytes, "p": p,
+                 "members_converged": int(got.sum()), "mesh_fold_ms": gset_ms,
+                 "single_fold_ms": gset_single_ms, "gbps": nbytes / (gset_ms / 1e3) / 1e9,
+                 "merges_per_s": (gset_r - 1) / (gset_ms / 1e3),
+                 "busy": busy,
+                 "peak_bytes": torch.cuda.max_memory_allocated(device) if on_card else None},
+        "launches": check_no_kernel(before, "full_width_clocks"),
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    emit(out)
+    return out
+
+
+def phase_full_width_list(device, seed: int, r: int = 1024, n_ops: int = 100_000,
+                          chunk: int = 2048, ckpt_r: int = 64, sample_rows: int = 4,
+                          split: int = 50_000) -> dict:
+    """BASELINE config 5 as ``bench.py`` runs it when no automerge-perf
+    trace is present: the synthetic ``make_edit_trace(100_000)`` (4 actors,
+    seed 3) through ``BatchedList.from_trace(n_replicas=1024)`` and
+    ``apply_trace_to_all(chunk=2048)``. Gates before any number: every
+    row equals row 0 on the card; row 0's read == the pure ``List``
+    oracle's over the trace == the engine's read; ``to_pure`` of 4 sampled
+    rows == the oracle object; a second model that holds the first 50,000
+    ops and takes the rest through ``export_ops`` / ``ingest_remote_ops``
+    ends with the same live elements. Reports replica-ops/s, the oracle's
+    and the engine's ops/s, epochs, launches and host-to-device bytes per
+    epoch, the busy share, the converged-read latency (``read`` and
+    ``to_pure`` of one row), a ``list`` checkpoint round trip at R = 64,
+    and a ``BatchedGList`` over the trace's inserts at R = 1,024 against
+    the pure ``GList``. None of K1-K3 launches."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from crdt_tpu_torch import checkpoint
+    from crdt_tpu_torch.models import BatchedGList, BatchedList
+    from crdt_tpu_torch.native import ListEngine
+    from crdt_tpu_torch.pure import GList, List
+    from crdt_tpu_torch.pure.glist import Insert as GInsert
+
+    del seed  # the trace carries bench.py's seed (3)
+    t_phase = time.perf_counter()
+    before = kernel_launches()
+    on_card = device.type == "cuda"
+    sync = (lambda: torch.cuda.synchronize(device)) if on_card else (lambda: None)
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    trace = make_edit_trace(n_ops)
+    n_ins = sum(1 for k in trace[0] if k == LIST_INSERT)
+
+    t0 = time.perf_counter()
+    oracle = List()
+    for k, ix, v, actor in zip(*trace):
+        oracle.apply(oracle.insert_index(ix, v, actor) if k == LIST_INSERT
+                     else oracle.delete_index(ix, actor))
+    oracle_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    engine = ListEngine()
+    engine.apply_trace(*trace)
+    native_s = time.perf_counter() - t0
+    check(engine.is_native, "the list engine is not the compiled one")
+    want = oracle.read()
+    check(engine.read()[1].tolist() == want, "the engine's read != the oracle's")
+
+    t0 = time.perf_counter()
+    model = BatchedList.from_trace(*trace, n_replicas=r, device=device)
+    sync()
+    universe_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    epochs = model.apply_trace_to_all(chunk=chunk)
+    sync()
+    apply_s = time.perf_counter() - t0
+    up_bytes = model.uploaded_bytes
+    check(model.vals.shape == (r, n_ins), f"state shape {tuple(model.vals.shape)}")
+    rows_equal = bool((model.vals == model.vals[:1]).all() & (model.alive == model.alive[:1]).all())
+    check(rows_equal, "a replica row differs from row 0")
+    check(model.read(0) == want, "row 0's read != the oracle's")
+    samples = [0, *random.Random(n_ops).sample(range(1, r), sample_rows - 1)]
+    t0 = time.perf_counter()
+    pure0 = model.to_pure(samples[0])
+    to_pure_s = time.perf_counter() - t0
+    check(pure0 == oracle and all(model.to_pure(i) == oracle for i in samples[1:]),
+          "to_pure of a sampled row != the oracle object")
+    t0 = time.perf_counter()
+    read_rows = [model.read(0) for _ in range(5)]
+    read_ms = (time.perf_counter() - t0) * 1e3 / 5
+    check(read_rows[-1] == want, "read drifted")
+
+    # The applied log again, from its start: the same final state (each
+    # epoch's last write per slot is the trace's), now timed warm and
+    # profiled.
+    vals0, alive0 = model.vals.clone(), model.alive.clone()
+    model._applied = 0
+    t0 = time.perf_counter()
+    model.apply_trace_to_all(chunk=chunk)
+    sync()
+    warm_s = time.perf_counter() - t0
+    model._applied = 0
+    busy = profile_busy(lambda: model.apply_trace_to_all(chunk=chunk), device)
+    check(torch.equal(model.vals, vals0) and torch.equal(model.alive, alive0),
+          "re-applying the log changed the state")
+
+    second = BatchedList.from_trace(*(x[:split] for x in trace), n_replicas=r, device=device)
+    second.apply_trace_to_all(chunk=chunk)
+    t0 = time.perf_counter()
+    wire = model.export_ops(split)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    second.ingest_remote_ops(wire)
+    second.apply_trace_to_all(chunk=chunk)
+    sync()
+    ingest_s = time.perf_counter() - t0
+    check(torch.equal(second.alive, model.alive), "ingested model: alive != the minting model's")
+    # A dead slot keeps the value of its last insert inside its epoch
+    # window, and the windows differ: the live elements must agree.
+    check(torch.equal(torch.where(second.alive, second.vals, 0),
+                      torch.where(model.alive, model.vals, 0)),
+          "ingested model: live values != the minting model's")
+    check(second.read(r - 1) == want, "ingested model's read != the oracle's")
+    del second, wire
+
+    small = BatchedList.from_trace(*trace, n_replicas=ckpt_r, device=device)
+    small.apply_trace_to_all(chunk=chunk)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_list_") as root:
+        path = os.path.join(root, "list.npz")
+        t0 = time.perf_counter()
+        checkpoint.save(path, small)
+        save_s = time.perf_counter() - t0
+        file_bytes = os.path.getsize(path)
+        fs = fs_info(root)
+        t0 = time.perf_counter()
+        back = checkpoint.load(path, device=device)
+        load_s = time.perf_counter() - t0
+    check(torch.equal(back.vals, small.vals) and torch.equal(back.alive, small.alive)
+          and np.array_equal(back.slots, small.slots) and back.read(ckpt_r - 1) == want,
+          "the list checkpoint did not round-trip")
+    del small, back
+
+    ins = [i for i, k in enumerate(trace[0]) if k == LIST_INSERT]
+    idx, gvals, gacts = ([trace[j][i] for i in ins] for j in (1, 2, 3))
+    glist = BatchedGList(r, device=device)
+    t0 = time.perf_counter()
+    handles = glist.mint_inserts(idx, gvals, gacts)
+    for lo in range(0, len(handles), chunk):
+        hs = handles[lo:lo + chunk]
+        glist.apply_inserts(np.broadcast_to(hs, (r, len(hs))))
+    sync()
+    glist_s = time.perf_counter() - t0
+    check(bool((glist.alive == glist.alive[:1]).all()) and bool(glist.alive.all()),
+          "a GList row misses an insert")
+    g_oracle = GList()
+    val_of = {}
+    for h, v in zip(handles, gvals):
+        ident = glist.identifier(h)
+        val_of[ident] = v
+        g_oracle.apply(GInsert(id=ident))
+    check(glist.read(0) == [val_of[i] for i in g_oracle.list], "GList read != the oracle's")
+    check(glist.to_pure(r - 1) == g_oracle and glist.to_pure(None) == g_oracle,
+          "GList to_pure != the oracle")
+
+    out = {
+        "phase": "full_width_list", "card": card_label(device), "trace": "synthetic",
+        "engine_native": engine.is_native,
+        "ops": n_ops, "inserts": n_ins, "deletes": n_ops - n_ins, "replicas": r,
+        "slots": int(model.vals.shape[1]), "live": len(want),
+        "state_bytes": model.vals.numel() * 4 + model.alive.numel(),
+        "oracle_ops_per_s": n_ops / oracle_s, "native_ops_per_s": n_ops / native_s,
+        "universe_s": universe_s, "apply_s": apply_s,
+        "replica_ops_per_s": n_ops * r / apply_s, "warm_apply_s": warm_s,
+        "warm_replica_ops_per_s": n_ops * r / warm_s,
+        "epochs": epochs, "h2d_bytes_per_epoch": up_bytes / epochs,
+        "launches_per_epoch": (busy["launch_kernel_calls"] / epochs) if busy else None,
+        "busy": busy, "read_ms": read_ms, "to_pure_s": to_pure_s,
+        "export_s": export_s, "ingest_s": ingest_s,
+        "checkpoint": {"replicas": ckpt_r, "save_s": save_s, "load_s": load_s,
+                       "file_bytes": file_bytes, "fs": fs},
+        "glist": {"replicas": r, "inserts": len(handles), "mint_and_apply_s": glist_s},
+        "peak_bytes": torch.cuda.max_memory_allocated(device) if on_card else None,
+        "launches": check_no_kernel(before, "full_width_list"),
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    emit(out)
+    return out
+
+
 PHASES = ("k1", "scenarios", "full_width", "k2", "map_scenarios", "full_width_map", "k3",
           "delta_scenarios", "full_width_delta", "map_delta_scenarios", "full_width_delta_map",
           "sparse_scenarios", "flagship", "elastic", "resync", "donate", "durability",
           "serve_scenarios", "serve", "serve_zipf", "fanout_scenarios", "fanout",
           "telemetry_scenarios", "sparse_map_scenarios", "full_width_sparse_map",
-          "nested_scenarios", "full_width_nested", "full_width_delta_nested")
+          "nested_scenarios", "full_width_nested", "full_width_delta_nested",
+          "kinds_scenarios", "full_width_clocks", "full_width_list")
 
 
 def main(argv=None) -> int:
@@ -7216,6 +7936,12 @@ def main(argv=None) -> int:
         res["nested"] = phase_full_width_nested(device, args.seed)
     if run("full_width_delta_nested"):
         res["delta_nested"] = phase_full_width_delta_nested(device, args.seed)
+    if run("kinds_scenarios"):
+        phase_kinds_scenarios(device, args.seed)
+    if run("full_width_clocks"):
+        phase_full_width_clocks(device, args.seed)
+    if run("full_width_list"):
+        phase_full_width_list(device, args.seed)
     if only:
         print(f"chip_smoke: partial run of {only}; no kernels line", flush=True)
         return 0

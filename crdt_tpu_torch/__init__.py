@@ -18,16 +18,25 @@ the sparse Map kinds (``ops.sparse_mvmap``, ``ops.sparse_nest``,
 ``models.sparse_mvmap``, ``models.sparse_map``, ``parallel.sparse_shard``)
 and nested composition (``ops.nest`` with ``ops.map_orswot``,
 ``ops.map3``, ``ops.map_map``; ``models.map_nested``, ``models.map3``,
-``models.sparse_nested_map``; ``parallel.delta_nest``).
+``models.sparse_nested_map``; ``parallel.delta_nest``) and the remaining
+kinds: clocks and counters (``ops.vclock``, ``models.vclock``,
+``models.counters``), ``ops.gset``/``models.gset``, the registers
+(``ops.lwwreg``, ``models.registers``) and the sequences
+(``models.list``, ``models.glist`` over the host engine of ``native``).
 """
 
 from .traits import CvRDT, CmRDT, ResetRemove, Causal, ValidationError, DotRange
-from .dot import Dot
+from .dot import Dot, OrdDot
 from .vclock import VClock
 from .ctx import ReadCtx, AddCtx, RmCtx
-from .pure.orswot import Orswot
+from .pure import (
+    Dir, GCounter, GList, GSet, Identifier, List, LWWReg, Map, MerkleReg, MVReg, Orswot,
+    PNCounter,
+)
 
 __all__ = [
     "CvRDT", "CmRDT", "ResetRemove", "Causal", "ValidationError", "DotRange",
-    "Dot", "VClock", "ReadCtx", "AddCtx", "RmCtx", "Orswot",
+    "Dot", "OrdDot", "VClock", "ReadCtx", "AddCtx", "RmCtx",
+    "GCounter", "PNCounter", "Dir", "GSet", "LWWReg", "MVReg", "Orswot", "Map", "Identifier",
+    "List", "GList", "MerkleReg",
 ]

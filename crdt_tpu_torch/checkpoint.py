@@ -17,10 +17,11 @@ Ported kinds: ``BatchedOrswot`` (``orswot``), ``BatchedSparseOrswot``
 nests ``BatchedMapOrswot`` (``map_orswot``), ``BatchedNestedMap``
 (``map_map``) and ``BatchedMap3`` (``map3``) — their leaves numbered
 ``a_0, a_1, ...`` in the JAX package's pytree order, the model's widths
-under ``dims`` — and ``BatchedSparseNestedMap`` (``sparse_map_map``). The
-JAX package's list kinds raise naming the ROADMAP item that ports them
-(14). ``compact=True`` needs the ``reclaim/`` plane (item 15.2) and
-raises.
+under ``dims`` — ``BatchedSparseNestedMap`` (``sparse_map_map``), and the
+sequences ``BatchedList`` (``list``) and ``BatchedGList`` (``glist``),
+whose host engine rides along as every identifier's path, the live
+handles and the mint clock (``_engine_dump``), re-ingested on load.
+``compact=True`` needs the ``reclaim/`` plane (item 15.2) and raises.
 """
 
 from __future__ import annotations
@@ -36,6 +37,8 @@ import numpy as np
 
 from . import serde
 from .convert import leaf_from_numpy, leaf_to_numpy
+from .models.glist import BatchedGList
+from .models.list import BatchedList
 from .models.map import BatchedMap
 from .models.map3 import BatchedMap3
 from .models.map_nested import BatchedMapOrswot, BatchedNestedMap
@@ -51,12 +54,9 @@ from .ops.orswot import OrswotState
 from .ops.sparse_mvmap import SparseMVMapState
 from .ops.sparse_nest import SparseNestState
 from .ops.sparse_orswot import SparseOrswotState
+from .native import DELETE, INSERT
 from .utils import Interner
 from .utils.metrics import metrics
-
-#: The JAX package's checkpoint kinds the port does not have yet, with the
-#: ROADMAP item that ports each.
-_UNPORTED_KINDS = {"list": "14", "glist": "14"}
 
 
 class CheckpointCorrupt(RuntimeError):
@@ -135,6 +135,64 @@ def _state_from_arrays(template, arrays: dict, device):
                                      for i in range(n)])
 
 
+def _engine_dump(engine) -> dict:
+    """Host-side identifier-tree state: every minted identifier's path
+    (ragged, as counts + flat components) plus the live handle set —
+    enough to re-ingest into a fresh engine via ``apply_remote``."""
+    counts, cidx, cactor, cctr = [], [], [], []
+    for h in range(engine.total_ids()):
+        path = engine.identifier_path(h)
+        counts.append(len(path))
+        for ix, a, c in path:
+            cidx.append(ix)
+            cactor.append(a)
+            cctr.append(c)
+    live, _ = engine.read()
+    clk_actors, clk_ctrs = engine.clock_dump()
+    return {
+        "e_counts": np.asarray(counts, np.int64),
+        "e_cidx": np.asarray(cidx, np.int64),
+        "e_cactor": np.asarray(cactor, np.int32),
+        "e_cctr": np.asarray(cctr, np.uint64),
+        "e_live": np.asarray(live, np.int64),
+        # The mint clock rides separately: deletes consume counters no
+        # surviving identifier path records, and a resumed engine must
+        # not re-mint spent dots.
+        "e_clk_actors": clk_actors,
+        "e_clk_ctrs": clk_ctrs,
+    }
+
+
+def _engine_restore(engine, arrays, values: np.ndarray) -> None:
+    """Re-ingest a dumped identifier tree: INSERT every identifier by
+    path (in mint order, reproducing handle numbering), then DELETE the
+    ones that were dead. ``values[h]`` is identifier ``h``'s payload."""
+    for actor, ctr in zip(arrays["e_clk_actors"], arrays["e_clk_ctrs"]):
+        engine.clock_seed(int(actor), int(ctr))
+    paths, pos = [], 0
+    for c in arrays["e_counts"]:
+        c = int(c)
+        paths.append([(int(arrays["e_cidx"][i]), int(arrays["e_cactor"][i]),
+                       int(arrays["e_cctr"][i])) for i in range(pos, pos + c)])
+        pos += c
+    if not paths:
+        return
+    handles = engine.apply_remote(np.full(len(paths), INSERT, np.uint8), paths,
+                                  np.asarray(values, np.int32))
+    if not (handles == np.arange(len(paths))).all():
+        raise ValueError("restored identifier handles drifted from the checkpoint's")
+    live = set(int(h) for h in arrays["e_live"])
+    dead = [h for h in range(len(paths)) if h not in live]
+    if dead:
+        engine.apply_remote(np.full(len(dead), DELETE, np.uint8), [paths[h] for h in dead],
+                            np.zeros(len(dead), np.int32))
+
+
+def _check_order(engine, slots) -> None:
+    if not (engine.total_order() == slots).all():
+        raise ValueError("restored identifier order drifted from the checkpoint")
+
+
 def _dump(model) -> tuple:
     """``(meta, arrays)`` for a checkpointable model — the type dispatch
     :func:`save` serializes and ``durability.snapshot`` layers generations
@@ -198,14 +256,30 @@ def _dump(model) -> tuple:
         arrays = _fields("c_", model.state.core)
         arrays.update({f"s_{k}": leaf_to_numpy(v) for k, v in model.state._asdict().items()
                        if k != "core"})
+    elif isinstance(model, BatchedList):
+        ins = model.op_kinds == INSERT
+        values = np.zeros(model.engine.total_ids(), np.int32)
+        values[model.op_handles[ins]] = model.op_vals[ins]
+        # Placement is not persisted (it names a live mesh); ``placed``
+        # records that the caller should re-``place`` after load.
+        meta = {"kind": "list", "n_replicas": model.n_replicas, "applied": model._applied,
+                "placed": model._mesh is not None}
+        arrays = {"slots": model.slots, "vals": leaf_to_numpy(model.vals),
+                  "alive": leaf_to_numpy(model.alive), "op_handles": model.op_handles,
+                  "op_kinds": model.op_kinds, "op_vals": model.op_vals, "id_values": values,
+                  **_engine_dump(model.engine)}
+    elif isinstance(model, BatchedGList):
+        meta = {"kind": "glist", "n_replicas": model.n_replicas}
+        arrays = {"slots": model.slots, "uvals": model.uvals,
+                  "alive": leaf_to_numpy(model.alive), **_engine_dump(model.engine)}
     else:
         raise TypeError(
             f"cannot checkpoint {type(model).__name__}: the port checkpoints BatchedOrswot, "
             f"BatchedSparseOrswot, BatchedMap, BatchedSparseMapOrswot, BatchedSparseMap, "
-            f"BatchedMapOrswot, BatchedNestedMap, BatchedMap3 and BatchedSparseNestedMap "
-            f"(lists and counters come with ROADMAP item 14)"
+            f"BatchedMapOrswot, BatchedNestedMap, BatchedMap3, BatchedSparseNestedMap, "
+            f"BatchedList and BatchedGList"
         )
-    return meta, arrays
+    return meta, {k: np.asarray(v) for k, v in arrays.items()}
 
 
 def to_npz_bytes(meta: dict, arrays: dict) -> bytes:
@@ -376,10 +450,32 @@ def _restore(meta: dict, arrays: dict, device="cuda"):
             n_keys1=int(meta.get("n_keys1", 0)), keys1=_interner_from(meta["keys1"]),
             keys2=_interner_from(meta["keys2"]), actors=_interner_from(meta["actors"]),
             values=_interner_from(meta["values"]), device="meta")
-    elif kind in _UNPORTED_KINDS:
-        raise NotImplementedError(
-            f"checkpoint kind {kind!r} is not ported yet (ROADMAP item {_UNPORTED_KINDS[kind]})"
-        )
+    elif kind == "list":
+        model = BatchedList(int(meta["n_replicas"]), device=device)
+        if meta.get("placed"):
+            warnings.warn(
+                "checkpointed BatchedList was mesh-placed; placement is not persisted — call "
+                "place(mesh) again on the restored model before large-scale use",
+                stacklevel=2,
+            )
+        _engine_restore(model.engine, arrays, arrays["id_values"])
+        _check_order(model.engine, arrays["slots"])
+        model.slots = arrays["slots"]
+        model.vals = leaf_from_numpy(arrays["vals"], device)
+        model.alive = leaf_from_numpy(arrays["alive"], device)
+        model.op_handles = arrays["op_handles"]
+        model.op_kinds = arrays["op_kinds"]
+        model.op_vals = arrays["op_vals"]
+        model._applied = int(meta["applied"])
+        return model
+    elif kind == "glist":
+        model = BatchedGList(int(meta["n_replicas"]), device=device)
+        _engine_restore(model.engine, arrays, arrays["uvals"])
+        _check_order(model.engine, arrays["slots"])
+        model.slots = arrays["slots"]
+        model.uvals = arrays["uvals"]
+        model.alive = leaf_from_numpy(arrays["alive"], device)
+        return model
     else:
         raise ValueError(f"unknown checkpoint kind {kind!r}")
     model.state = state

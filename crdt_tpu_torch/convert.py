@@ -31,6 +31,15 @@ both directions copy:
 - an ``OpSlab`` (``opslab_from_numpy``): ``kind`` u8, ``actor`` i32,
   ``ctr``/``clock`` u32, ``member`` bool (dense masks) or i32 (sparse id
   lists);
+- a clock batch (``clocks_from_numpy``): ``counters`` u32 or u64 (the
+  configured lane width, kept as given);
+- ``LWWState`` (``lww_from_numpy``): ``hi``/``lo`` u32, ``val`` i32,
+  ``has`` bool;
+- G-Set membership (``gset_from_numpy``): ``present`` bool;
+- ``MVRegState`` (``mvreg_from_numpy``): the ``child`` leaves above;
+- a ``BatchedList``'s replicas (``list_from_numpy``): ``vals`` i32,
+  ``alive`` bool, and the host ``slots`` i64 (the rank of each
+  identifier handle), which stays numpy;
 - a fan-out ``CohortWire`` (``cohort_wire_from_numpy``): ``words``/``raw``
   /``nnz``/``chk`` u32, ``keep``/``defer``/``valid`` bool, ``residual``
   the tuple of the kind's residual planes with bool planes bit-packed
@@ -48,6 +57,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from .ops.lwwreg import LWWState
 from .ops.map import MapState
 from .ops.mvreg import MVRegState
 from .ops.orswot import OrswotState
@@ -72,6 +82,8 @@ _NEST_DTYPES = {"kcl": np.uint32, "kidx": np.int32, "kdvalid": np.bool_}
 _CHILD_DTYPES = {
     "wact": np.int32, "wctr": np.uint32, "clk": np.uint32, "val": np.int32, "valid": np.bool_,
 }
+_LWW_DTYPES = {"hi": np.uint32, "lo": np.uint32, "val": np.int32, "has": np.bool_}
+_LIST_DTYPES = {"vals": np.int32, "alive": np.bool_}
 
 
 _UNSIGNED = {torch.uint32: (torch.int32, np.uint32), torch.uint64: (torch.int64, np.uint64)}
@@ -89,8 +101,8 @@ def leaf_to_numpy(x: torch.Tensor) -> np.ndarray:
 
 def leaf_from_numpy(x: np.ndarray, device="cuda") -> torch.Tensor:
     """One numpy array → a tensor on ``device`` with the same dtype and
-    bytes (inverse of :func:`leaf_to_numpy`)."""
-    x = np.ascontiguousarray(x)
+    bytes (inverse of :func:`leaf_to_numpy`); a 0-d array stays 0-d."""
+    x = np.asarray(x, order="C")
     if x.dtype in _SIGNED_VIEW:
         signed, unsigned = _SIGNED_VIEW[x.dtype]
         return torch.tensor(x.view(signed), device=device).view(unsigned)
@@ -195,6 +207,70 @@ def map_to_numpy(state: MapState) -> dict:
     out = _leaves_to_numpy(state, _MAP_DTYPES)
     out["child"] = _leaves_to_numpy(state.child, _CHILD_DTYPES)
     return out
+
+
+def clocks_from_numpy(counters: np.ndarray, device="cuda") -> torch.Tensor:
+    """A clock batch ``[..., A]`` (u32 or u64) → a tensor on ``device``;
+    any other dtype raises (no silent casts)."""
+    counters = np.asarray(counters)
+    if counters.dtype not in (np.uint32, np.uint64):
+        raise TypeError(f"clock lanes must be uint32 or uint64, got {counters.dtype}")
+    return leaf_from_numpy(counters, device)
+
+
+def clocks_to_numpy(clocks: torch.Tensor) -> np.ndarray:
+    return leaf_to_numpy(clocks)
+
+
+def lww_from_numpy(arrays: Dict[str, np.ndarray], device="cuda") -> LWWState:
+    """``{"hi", "lo", "val", "has"}`` numpy arrays → an ``LWWState`` on
+    ``device``. Raises on a missing leaf or a dtype other than the
+    leaf's."""
+    return LWWState(**_leaves_from_numpy("lwwreg", arrays, _LWW_DTYPES, device))
+
+
+def lww_to_numpy(state: LWWState) -> Dict[str, np.ndarray]:
+    return _leaves_to_numpy(state, _LWW_DTYPES)
+
+
+def gset_from_numpy(present: np.ndarray, device="cuda") -> torch.Tensor:
+    """G-Set membership ``present[..., E]`` (bool) → a tensor on
+    ``device``."""
+    return _leaves_from_numpy("gset", {"present": present}, {"present": np.bool_},
+                              device)["present"]
+
+
+def gset_to_numpy(present: torch.Tensor) -> np.ndarray:
+    return leaf_to_numpy(present)
+
+
+def mvreg_from_numpy(arrays: Dict[str, np.ndarray], device="cuda") -> MVRegState:
+    """``{"wact", "wctr", "clk", "val", "valid"}`` numpy arrays → an
+    ``MVRegState`` on ``device``. Raises on a missing leaf or a dtype
+    other than the leaf's."""
+    return MVRegState(**_leaves_from_numpy("mvreg", arrays, _CHILD_DTYPES, device))
+
+
+def mvreg_to_numpy(state: MVRegState) -> Dict[str, np.ndarray]:
+    return _leaves_to_numpy(state, _CHILD_DTYPES)
+
+
+def list_from_numpy(arrays: Dict[str, np.ndarray], device="cuda") -> dict:
+    """``{"vals", "alive", "slots"}`` numpy arrays (a ``BatchedList``'s
+    replicas and its identifiers' ranks) → ``vals``/``alive`` tensors on
+    ``device`` and ``slots`` as an int64 numpy copy."""
+    out = _leaves_from_numpy("list", arrays, _LIST_DTYPES, device)
+    slots = np.asarray(arrays["slots"])
+    if slots.dtype != np.int64:
+        raise TypeError(f"list leaf 'slots' must be int64, got {slots.dtype}")
+    out["slots"] = slots.copy()
+    return out
+
+
+def list_to_numpy(model) -> Dict[str, np.ndarray]:
+    """A ``BatchedList``'s ``vals``/``alive`` (host copies) and ``slots``."""
+    return {"vals": leaf_to_numpy(model.vals), "alive": leaf_to_numpy(model.alive),
+            "slots": np.array(model.slots, dtype=np.int64)}
 
 
 def _nest_classes() -> dict:

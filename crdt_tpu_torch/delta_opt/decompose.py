@@ -5,8 +5,9 @@ counterpart of the JAX package's ``delta_opt/decompose.py``.
 A state's inflation over a known lower bound ``since`` splits into
 **row planes** (the per-unit lanes of its content — dense ORSWOT element
 rows, Map key cells, MVReg sibling slots, clock actor lanes, sparse
-segment lanes) and a **residual** (the top clock and the bounded parked
-buffers, which ride whole). A :class:`Decomposition` is the row planes
+segment lanes, G-Set presence bits, the LWW register's one write) and a
+**residual** (the top clock and the bounded parked buffers, which ride
+whole). A :class:`Decomposition` is the row planes
 masked down to the lanes that differ from ``since``:
 
 - ``lanes``    — the row planes, leading lane axis ``L``, zeroed outside
@@ -110,8 +111,8 @@ def drop_lane(d: Decomposition, lane: int) -> Decomposition:
 def _table() -> dict:
     from ..ops import map as map_ops
     from ..ops import (
-        map3, map_map, map_orswot, mvreg, orswot, sparse_mvmap, sparse_nest, sparse_orswot,
-        vclock,
+        gset, lwwreg, map3, map_map, map_orswot, mvreg, orswot, sparse_mvmap, sparse_nest,
+        sparse_orswot, vclock,
     )
 
     nest = Decomposer(sparse_nest.level_map_orswot(2).join, sparse_nest._decomp_split,
@@ -127,6 +128,8 @@ def _table() -> dict:
         "map3": Decomposer(map3.join, map3._decomp_split, map3._decomp_unsplit),
         "mvreg": Decomposer(mvreg.join, mvreg._decomp_split, mvreg._decomp_unsplit),
         "vclock": Decomposer(vclock.merge, vclock._decomp_split, vclock._decomp_unsplit),
+        "gset": Decomposer(gset.join, gset._decomp_split, gset._decomp_unsplit),
+        "lwwreg": Decomposer(lwwreg.join, lwwreg._decomp_split, lwwreg._decomp_unsplit),
         "sparse_orswot": Decomposer(sparse_orswot.join, sparse_orswot._decomp_split,
                                     sparse_orswot._decomp_unsplit),
         "sparse_mvmap": Decomposer(sparse_mvmap.join, sparse_mvmap._decomp_split,

@@ -5,7 +5,9 @@ Reference: src/traits.rs v7 ``CmRDT::validate_op`` + src/dot.rs
 actor's next contiguous event for the receiving replica — a duplicate
 or gapped dot raises ``DotRange`` instead of being silently dropped or
 misapplied. Costs one device→host read of the replica's top clock per
-apply, which is the point of it being a strict/debug mode."""
+apply, which is the point of it being a strict/debug mode. The counters
+share one more rule: an increment that would pass the lane dtype's
+maximum raises ``CounterSaturation`` (``strict_check_headroom``)."""
 
 from __future__ import annotations
 
@@ -41,3 +43,17 @@ def strict_validate_dot(top_row, actors, actor, counter: int) -> None:
         raise CounterSaturation(actor, seen, limit)
     if int(counter) != seen + 1:
         raise DotRange(actor, int(counter), seen + 1)
+
+
+def strict_check_headroom(lane_value: int, actor, steps: int, dtype) -> None:
+    """Counter-increment headroom trap: raise CounterSaturation when a
+    ``steps``-sized add would exceed the lane dtype's maximum (``dtype``
+    a numpy dtype). No-op unless ``config.strict`` (the unchecked path
+    wraps, as the JAX package's ``.at[].add`` does)."""
+    from ..config import config
+
+    if not config.strict:
+        return
+    limit = int(np.iinfo(dtype).max)
+    if int(lane_value) + int(steps) > limit:
+        raise CounterSaturation(actor, int(lane_value), limit)

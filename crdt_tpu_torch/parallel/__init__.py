@@ -13,7 +13,9 @@ reduction along it (``collectives``). Entries: ``mesh_fold`` and
 ``mesh_fold_sparse_nested`` and ``mesh_gossip_sparse_nested`` (full-state,
 the sparse Map kinds); ``mesh_fold_map_orswot``, ``mesh_fold_map3``,
 ``mesh_fold_nested_map`` and their ``mesh_gossip_*`` rings (full-state,
-the dense nests) and ``mesh_delta_gossip_map_orswot`` /
+the dense nests); ``mesh_fold_clocks``, ``mesh_fold_gset``,
+``mesh_fold_lww`` and ``mesh_fold_mvreg`` (the clock, set and register
+kinds) and ``mesh_delta_gossip_map_orswot`` /
 ``mesh_delta_gossip_map3`` (their δ rings, ``delta_map_orswot`` /
 ``delta_map3`` over ``delta_nest``); ``split_segments``, ``split_cells``,
 ``split_nested`` and the element-sharded folds ``mesh_fold_sparse_sharded``,
@@ -31,8 +33,8 @@ of cohort δ payloads against a superblock, K3 over B·E client lanes,
 """
 
 from .anti_entropy import (
-    gossip_elastic, mesh_fold, mesh_fold_map, mesh_fold_map3, mesh_fold_map_orswot,
-    mesh_fold_nested_map, mesh_fold_sparse, mesh_fold_sparse_mvmap, mesh_fold_sparse_nested,
+    gossip_elastic, mesh_fold, mesh_fold_clocks, mesh_fold_gset, mesh_fold_lww, mesh_fold_map,
+    mesh_fold_map3, mesh_fold_map_orswot, mesh_fold_mvreg, mesh_fold_nested_map, mesh_fold_sparse, mesh_fold_sparse_mvmap, mesh_fold_sparse_nested,
     mesh_gossip, mesh_gossip_map, mesh_gossip_map3, mesh_gossip_map_orswot,
     mesh_gossip_nested_map, mesh_gossip_sparse, mesh_gossip_sparse_mvmap,
     mesh_gossip_sparse_nested,
@@ -61,7 +63,8 @@ from .stream import (
 __all__ = [
     "DeltaPacket", "Map3DeltaPacket", "MapDeltaPacket", "MapOrswotDeltaPacket",
     "interval_accumulate_m3", "interval_accumulate_mo", "mesh_delta_gossip_map3",
-    "mesh_delta_gossip_map_orswot", "mesh_fold_map3", "mesh_fold_map_orswot",
+    "mesh_delta_gossip_map_orswot", "mesh_fold_clocks", "mesh_fold_gset", "mesh_fold_lww",
+    "mesh_fold_map3", "mesh_fold_map_orswot", "mesh_fold_mvreg",
     "mesh_fold_nested_map", "mesh_gossip_map3", "mesh_gossip_map_orswot",
     "mesh_gossip_nested_map", "StreamInterrupted", "VirtualMesh", "delta_gossip_elastic",
     "gossip_elastic", "interval_accumulate", "interval_accumulate_map", "iter_blocks",

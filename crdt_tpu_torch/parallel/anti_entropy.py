@@ -19,7 +19,10 @@ axis (their element-sharded folds are ``sparse_shard.py``'s);
 ``mesh_fold_map_orswot`` / ``mesh_gossip_map_orswot``,
 ``mesh_fold_map3`` / ``mesh_gossip_map3`` and ``mesh_fold_nested_map`` /
 ``mesh_gossip_nested_map`` are the dense nests' (``ops.nest``; each rank's
-local fold is the fused level fold, K1 or K2 on the leaf, on a card); and
+local fold is the fused level fold, K1 or K2 on the leaf, on a card);
+``mesh_fold_clocks``, ``mesh_fold_gset``, ``mesh_fold_lww`` and
+``mesh_fold_mvreg`` converge the clock, set and register kinds (no
+kernel: a max, an ``any``, the kinds' tree folds); and
 ``gossip_elastic`` is the ring entries' overflow → widen → re-enter loop
 (``elastic.py``).
 
@@ -55,24 +58,28 @@ from typing import Optional, Tuple
 import torch
 
 from .. import telemetry as tele
-from .._dtypes import bits, to_wide
+from .._dtypes import bits, to_wide, umax
 from ..utils.metrics import metrics
 from ..ops import map as map_ops
 from ..ops import map3 as m3_ops
 from ..ops import map_map as mm_ops
+from ..ops import lwwreg as lww_ops
 from ..ops import map_orswot as mo_ops
+from ..ops import mvreg as mv_ops
 from ..ops import nest as nest_ops
 from ..ops import orswot as ops
 from ..ops import sparse_mvmap as smv
 from ..ops import sparse_orswot as sp
 from ..ops.fold_kernels import fold_auto
 from ..ops.lattice import tree_leaves, tree_map
+from ..ops.lwwreg import LWWState
 from ..ops.map import MapState
+from ..ops.mvreg import MVRegState
 from ..ops.orswot import OrswotState
 from ..ops.sparse_mvmap import SparseMVMapState
 from ..ops.sparse_nest import SparseNestState
 from ..ops.sparse_orswot import SparseOrswotState
-from .collectives import all_reduce_join, all_reduce_lattice, ring_round
+from .collectives import all_reduce_clock, all_reduce_join, all_reduce_lattice, psum, ring_round
 from .mesh import VirtualMesh, pad_replicas, pad_replicas_map, pad_replicas_sparse
 
 #: The kinds whose join takes any leading batch: a rank block folds in one
@@ -203,10 +210,11 @@ def _donate_ring(donate: bool, aliasable: bool, state, out):
 
 def rank_blocks(state, mesh: VirtualMesh):
     """``state [R, ...]`` (an ``OrswotState``, ``MapState``,
-    ``SparseOrswotState``, ``SparseMVMapState``, ``SparseNestState`` or a
-    dense nest of ``ops.nest``) on
-    the mesh's device, padded with identities of its kind to a multiple of
-    P and viewed as ``[P, R/P, ...]`` rank blocks."""
+    ``SparseOrswotState``, ``SparseMVMapState``, ``SparseNestState``, or
+    any state whose join identity is all zeros: a dense nest of
+    ``ops.nest``, ``LWWState``, ``MVRegState``) on the mesh's device,
+    padded with identities of its kind to a multiple of P and viewed as
+    ``[P, R/P, ...]`` rank blocks."""
     pad = (pad_replicas_map if isinstance(state, MapState)
            else pad_replicas_sparse if isinstance(state, _BATCHED_JOINS)
            else pad_replicas if isinstance(state, OrswotState)
@@ -320,6 +328,30 @@ def _gossip(kind: str, state, mesh: VirtualMesh, rounds: Optional[int], donate: 
     return out
 
 
+def _mesh_fold_replicated(kind: str, states, mesh: VirtualMesh, join_fn, fold_fn, slots_fn,
+                          telemetry: bool, donate: bool, copies: int = 1):
+    """The all-reduce fold of a kind whose state the element axis
+    replicates (the JAX ``_mesh_fold_lattice``): each rank folds its block
+    (one batched tree for a sparse kind, the fused level fold for a dense
+    nest on a card, the kind's tree fold otherwise), one lattice
+    all-reduce joins the ranks. Returns ``(state, flags)`` — the flags
+    OR-reduced over the ranks — and the Telemetry third when asked, its
+    wire bytes summed over ``copies`` replicated element shards (the
+    sparse kinds': ``mesh.s``)."""
+    t0 = time.perf_counter()
+    blocks = rank_blocks(states, mesh)
+    folded, of_local = local_folds(blocks, fold_fn)
+    joined, of_cross = all_reduce_lattice(folded, join_fn, fold_fn)
+    out = tree_map(lambda x: x[0], joined)
+    if donate:
+        _consume(states, keep=out)
+    of = torch.any(of_local, dim=0) | of_cross
+    if telemetry:
+        return out, of, _fold_tel(kind, folded, joined, blocks, slots_fn, mesh.p, t0,
+                                  copies=copies)
+    return out, of
+
+
 def mesh_fold_map(
     state: MapState, mesh: VirtualMesh, telemetry: bool = False, donate: bool = False,
 ) -> Tuple[MapState, torch.Tensor]:
@@ -329,18 +361,8 @@ def mesh_fold_map(
     ``mesh.device``. Returns ``(converged state, overflow [2])`` —
     [sibling slab, deferred buffer] as in ``ops.map.join``; the Telemetry
     third with ``telemetry=True``."""
-    t0 = time.perf_counter()
-    blocks = rank_blocks(state, mesh)
-    folded, of_local = local_folds(blocks, map_ops.fold)
-    joined, of_cross = all_reduce_lattice(folded, map_ops.join, map_ops.fold)
-    out = tree_map(lambda x: x[0], joined)
-    if donate:
-        _consume(state, keep=out)
-    of = torch.any(of_local, dim=0) | of_cross
-    if telemetry:
-        return out, of, _fold_tel("map_fold", folded, joined, blocks, map_ops.changed_keys,
-                                  mesh.p, t0)
-    return out, of
+    return _mesh_fold_replicated("map_fold", state, mesh, map_ops.join, map_ops.fold,
+                                 map_ops.changed_keys, telemetry, donate)
 
 
 def mesh_gossip_map(
@@ -374,18 +396,8 @@ def mesh_fold_sparse(
     on ``mesh.device``. Returns ``(converged state, overflow [2])`` —
     [dot capacity, deferred capacity]; the Telemetry third with
     ``telemetry=True``."""
-    t0 = time.perf_counter()
-    blocks = rank_blocks(states, mesh)
-    folded, of_local = local_folds(blocks, sp.fold)
-    joined, of_cross = all_reduce_lattice(folded, sp.join, sp.fold)
-    out = tree_map(lambda x: x[0], joined)
-    if donate:
-        _consume(states, keep=out)
-    of = torch.any(of_local, dim=0) | of_cross
-    if telemetry:
-        return out, of, _fold_tel("sparse_orswot_fold", folded, joined, blocks, sp.changed_dots,
-                                  mesh.p, t0, copies=mesh.s)
-    return out, of
+    return _mesh_fold_replicated("sparse_orswot_fold", states, mesh, sp.join, sp.fold,
+                                 sp.changed_dots, telemetry, donate, copies=mesh.s)
 
 
 def mesh_gossip_sparse(
@@ -410,26 +422,6 @@ def mesh_gossip_sparse(
                    sp.changed_dots, copies=mesh.s)
 
 
-def _mesh_fold_replicated(kind: str, states, mesh: VirtualMesh, join_fn, fold_fn, slots_fn,
-                          telemetry: bool, donate: bool):
-    """The all-reduce fold of a sparse kind whose state the element axis
-    replicates: each rank folds its block (one batched tree), one lattice
-    all-reduce joins the ranks. Returns ``(state, flags)`` — the flags
-    OR-reduced over the ranks — and the Telemetry third when asked."""
-    t0 = time.perf_counter()
-    blocks = rank_blocks(states, mesh)
-    folded, of_local = local_folds(blocks, fold_fn)
-    joined, of_cross = all_reduce_lattice(folded, join_fn, fold_fn)
-    out = tree_map(lambda x: x[0], joined)
-    if donate:
-        _consume(states, keep=out)
-    of = torch.any(of_local, dim=0) | of_cross
-    if telemetry:
-        return out, of, _fold_tel(kind, folded, joined, blocks, slots_fn, mesh.p, t0,
-                                  copies=mesh.s)
-    return out, of
-
-
 def mesh_fold_sparse_mvmap(
     states: SparseMVMapState, mesh: VirtualMesh, sibling_cap: int = 4, telemetry: bool = False,
     donate: bool = False,
@@ -444,7 +436,8 @@ def mesh_fold_sparse_mvmap(
     return _mesh_fold_replicated(
         f"sparse_mvmap_fold_s{sibling_cap}", states, mesh,
         lambda a, b: smv.join(a, b, sibling_cap=sibling_cap),
-        lambda x: smv.fold(x, sibling_cap=sibling_cap), smv.changed_cells, telemetry, donate)
+        lambda x: smv.fold(x, sibling_cap=sibling_cap), smv.changed_cells, telemetry, donate,
+        copies=mesh.s)
 
 
 def mesh_gossip_sparse_mvmap(
@@ -493,7 +486,8 @@ def mesh_fold_sparse_nested(
     ``telemetry=True`` (``slots_changed``: every plane's changed
     entries)."""
     return _mesh_fold_replicated(_nested_kind(level, "fold"), states, mesh, level.join,
-                                 level.fold, tele.generic_slots_changed, telemetry, donate)
+                                 level.fold, tele.generic_slots_changed, telemetry, donate,
+                                 copies=mesh.s)
 
 
 def mesh_gossip_sparse_nested(
@@ -519,25 +513,6 @@ def mesh_gossip_sparse_nested(
 
 # ---- the dense nests (ops.nest) ------------------------------------------------
 
-def _mesh_fold_nest(kind: str, state, mesh: VirtualMesh, join_fn, fold_fn, slots_fn,
-                    telemetry: bool, donate: bool):
-    """The all-reduce fold of a dense nest (the JAX ``_mesh_fold_lattice``
-    on a ``(P, 1)`` mesh): each rank folds its block (the fused level fold
-    on a card), one lattice all-reduce joins the ranks. Returns ``(state,
-    flags [L])`` and, with ``telemetry=True``, the Telemetry third."""
-    t0 = time.perf_counter()
-    blocks = rank_blocks(state, mesh)
-    folded, of_local = local_folds(blocks, fold_fn)
-    joined, of_cross = all_reduce_lattice(folded, join_fn, fold_fn)
-    out = tree_map(lambda x: x[0], joined)
-    if donate:
-        _consume(state, keep=out)
-    of = torch.any(of_local, dim=0) | of_cross
-    if telemetry:
-        return out, of, _fold_tel(kind, folded, joined, blocks, slots_fn, mesh.p, t0)
-    return out, of
-
-
 def _leaf_members_changed(core_of):
     """The nest's ``slots_fn``: ``changed_members`` of the ORSWOT leaf."""
     return lambda a, b: ops.changed_members(core_of(a), core_of(b))
@@ -551,8 +526,8 @@ def mesh_fold_map_orswot(state, mesh: VirtualMesh, telemetry: bool = False,
     all-reduce over the ranks. Returns ``(state, flags [2])``; the
     Telemetry third with ``telemetry=True`` (``slots_changed``: the leaf's
     ``changed_members``)."""
-    return _mesh_fold_nest("map_orswot_fold", state, mesh, mo_ops.join, mo_ops.fold,
-                           _leaf_members_changed(lambda s: s.core), telemetry, donate)
+    return _mesh_fold_replicated("map_orswot_fold", state, mesh, mo_ops.join, mo_ops.fold,
+                                 _leaf_members_changed(lambda s: s.core), telemetry, donate)
 
 
 def mesh_gossip_map_orswot(state, mesh: VirtualMesh, rounds: Optional[int] = None,
@@ -572,8 +547,8 @@ def mesh_fold_map3(state, mesh: VirtualMesh, telemetry: bool = False, donate: bo
     (``ops.map3``): each rank's fused level fold (K1 on the leaf, two
     ``settle_outer`` levels), then one lattice-join all-reduce. Returns
     ``(state, flags [3])``; the Telemetry third with ``telemetry=True``."""
-    return _mesh_fold_nest("map3_fold", state, mesh, m3_ops.join, m3_ops.fold,
-                           _leaf_members_changed(lambda s: s.mo.core), telemetry, donate)
+    return _mesh_fold_replicated("map3_fold", state, mesh, m3_ops.join, m3_ops.fold,
+                                 _leaf_members_changed(lambda s: s.mo.core), telemetry, donate)
 
 
 def mesh_gossip_map3(state, mesh: VirtualMesh, rounds: Optional[int] = None,
@@ -595,8 +570,8 @@ def mesh_fold_nested_map(state, mesh: VirtualMesh, telemetry: bool = False,
     lattice-join all-reduce. Returns ``(state, flags [3])``; the Telemetry
     third with ``telemetry=True`` (``slots_changed``: the flat map's
     ``changed_keys``)."""
-    return _mesh_fold_nest("nested_map_fold", state, mesh, mm_ops.join, mm_ops.fold,
-                           lambda a, b: map_ops.changed_keys(a.m, b.m), telemetry, donate)
+    return _mesh_fold_replicated("nested_map_fold", state, mesh, mm_ops.join, mm_ops.fold,
+                                 lambda a, b: map_ops.changed_keys(a.m, b.m), telemetry, donate)
 
 
 def mesh_gossip_nested_map(state, mesh: VirtualMesh, rounds: Optional[int] = None,
@@ -608,6 +583,67 @@ def mesh_gossip_nested_map(state, mesh: VirtualMesh, rounds: Optional[int] = Non
             lag_threshold=lag_threshold is not None)
     return _gossip("nested_map_gossip", state, mesh, rounds, donate, mm_ops.fold, mm_ops.join,
                    telemetry, lambda a, b: map_ops.changed_keys(a.m, b.m))
+
+
+# ---- the clock, set and register kinds ----------------------------------------
+
+def mesh_fold_clocks(clocks: torch.Tensor, mesh: VirtualMesh) -> torch.Tensor:
+    """Converge a batch of vector clocks ``[R, A]`` (VClock / GCounter /
+    PNCounter states) over the mesh: each rank's max over its block, then
+    the clock all-reduce over the ranks, on ``mesh.device``. BASELINE
+    configs 1–2 at mesh scale. Returns the converged clock ``[A]``."""
+    pad = (-clocks.shape[0]) % mesh.p
+    x = bits(clocks.to(mesh.device))
+    if pad:
+        x = torch.cat([x, x.new_zeros((pad, x.shape[1]))])
+    blocks = x.view(clocks.dtype).reshape(mesh.p, -1, clocks.shape[1])
+    return all_reduce_clock(umax(blocks, 1))[0]
+
+
+def mesh_fold_gset(present: torch.Tensor, mesh: VirtualMesh) -> torch.Tensor:
+    """Converge a GSet replica batch ``present[R, M]`` over the mesh: set
+    union (logical OR), each rank's ``any`` over its block, then an int32
+    sum over the ranks, ``> 0`` — the simplest lattice (reference:
+    src/gset.rs ``CvRDT::merge``). Both axes are padded as the JAX entry
+    pads them (the member axis to the mesh's ``s`` shards). Returns the
+    converged membership ``[M]``. Counts ``anti_entropy.gset_fold_rounds``,
+    observes ``anti_entropy.state_bytes`` and times
+    ``anti_entropy.gset_fold`` (device work included)."""
+    m = present.shape[1]
+    x = present.to(mesh.device)
+    pad_r, pad_m = (-x.shape[0]) % mesh.p, (-m) % mesh.s
+    if pad_r or pad_m:
+        x = torch.nn.functional.pad(x, (0, pad_m, 0, pad_r))
+    metrics.count("anti_entropy.gset_fold_rounds")
+    metrics.observe("anti_entropy.state_bytes", float(x.numel() * x.element_size()))
+    with metrics.time("anti_entropy.gset_fold"):
+        local = torch.any(x.reshape(mesh.p, -1, x.shape[1]), dim=1)
+        out = psum(local.to(torch.int32)) > 0
+        if out.is_cuda:
+            torch.cuda.synchronize(out.device)
+    return out[:m]
+
+
+def mesh_fold_lww(states: LWWState, mesh: VirtualMesh, telemetry: bool = False,
+                  donate: bool = False):
+    """Converge an LWWReg replica batch (``LWWState`` with leading axis R)
+    over the mesh's replica axis: each rank folds its block, one lattice
+    all-reduce joins the ranks. Returns ``(state, conflict)``; conflict
+    marks an equal-marker/different-value merge anywhere (reference:
+    src/lwwreg.rs validate_merge); the Telemetry third with
+    ``telemetry=True``."""
+    return _mesh_fold_replicated("lww_fold", states, mesh, lww_ops.join, lww_ops.fold,
+                                 tele.generic_slots_changed, telemetry, donate)
+
+
+def mesh_fold_mvreg(states: MVRegState, mesh: VirtualMesh, telemetry: bool = False,
+                    donate: bool = False):
+    """Converge an MVReg replica batch (``MVRegState`` with leading axis R)
+    over the mesh's replica axis: dominated contents die, concurrent
+    siblings survive (reference: src/mvreg.rs ``CvRDT::merge``). Returns
+    ``(state, overflow)``; the Telemetry third with ``telemetry=True``."""
+    return _mesh_fold_replicated("mvreg_fold", states, mesh, mv_ops.join, mv_ops.fold,
+                                 tele.generic_slots_changed, telemetry, donate)
 
 
 def gossip_elastic(model, mesh: VirtualMesh, rounds: Optional[int] = None, policy=None,

@@ -18,11 +18,13 @@ exactly (plain JSON would flatten them).
 encoding of one empty child. Decoding rebuilds the factory as "decode the
 prototype again", which round-trips any Val type without naming classes.
 
-Ported: the primitives, ``Dot``/``OrdDot``, ``VClock``, and the pure
-``Orswot`` (``Add``, ``Rm``), ``Map`` (``Up``, ``MapRm``, ``Nop``) and
-``MVReg`` (``Put``). The JAX package's other tags (counters, sets, lists,
-registers) decode to types the port does not have yet and raise, naming
-ROADMAP item 14.
+Every tag of the JAX package is here: the primitives, ``Dot``/``OrdDot``,
+``VClock``, the counters (``GCounter``, ``PNCounter``, ``PNOp``), ``GSet``,
+the registers (``LWWReg``/``LWWOp``, ``MVReg``/``Put``), ``Orswot``
+(``Add``, ``Rm``), ``Map`` (``Up``, ``MapRm``, ``Nop``), the sequences
+(``Identifier``, ``List`` with ``Insert``/``Delete``, ``GList`` with
+``GInsert``) and ``MerkleReg`` (``Node``). A blob either package writes
+decodes in the other to an equal object.
 """
 
 from __future__ import annotations
@@ -32,16 +34,19 @@ import json
 from typing import Any
 
 from .dot import Dot, OrdDot
+from .pure.gcounter import GCounter
+from .pure.glist import GList
+from .pure.glist import Insert as GInsert
+from .pure.gset import GSet
+from .pure.identifier import Identifier
+from .pure.list import Delete, Insert, List
+from .pure.lwwreg import UNSET, LWWOp, LWWReg
 from .pure.map import Map, MapRm, Nop, Up
+from .pure.merkle_reg import MerkleReg, Node
 from .pure.mvreg import MVReg, Put
 from .pure.orswot import Add, Orswot, Rm
+from .pure.pncounter import Dir, PNCounter, PNOp
 from .vclock import VClock
-
-#: The JAX package's tags for the types the port has not ported yet.
-_UNPORTED = (
-    "GCounter", "PNCounter", "PNOp", "GSet", "LWWReg", "LWWOp", "Identifier", "List", "Insert",
-    "Delete", "GList", "GInsert", "Node", "MerkleReg",
-)
 
 
 def _key(data) -> str:
@@ -82,6 +87,20 @@ def encode(obj: Any):
         return ["Dot", encode(obj.actor), str(obj.counter)]
     if isinstance(obj, VClock):
         return ["VClock", _sorted([encode(a), str(c)] for a, c in obj.dots.items())]
+    if isinstance(obj, GCounter):
+        return ["GCounter", encode(obj.inner)]
+    if isinstance(obj, PNCounter):
+        return ["PNCounter", encode(obj.p), encode(obj.n)]
+    if isinstance(obj, PNOp):
+        return ["PNOp", encode(obj.dot), obj.dir.value]
+    if isinstance(obj, GSet):
+        return ["GSet", _sorted(encode(m) for m in obj.value)]
+    if isinstance(obj, LWWReg):
+        if obj.val is UNSET:
+            return ["LWWReg"]
+        return ["LWWReg", encode(obj.val), encode(obj.marker)]
+    if isinstance(obj, LWWOp):
+        return ["LWWOp", encode(obj.val), encode(obj.marker)]
     if isinstance(obj, MVReg):
         return ["MVReg", _sorted([encode(d), encode(c), encode(v)]
                                  for d, (c, v) in obj.vals.items())]
@@ -112,10 +131,27 @@ def encode(obj: Any):
         return ["MapRm", encode(obj.clock), [encode(k) for k in obj.keyset]]
     if isinstance(obj, Nop):
         return ["Nop"]
-    raise TypeError(
-        f"crdt_tpu_torch.serde cannot encode {type(obj).__name__} (the port's other CRDT "
-        f"types come with ROADMAP item 14)"
-    )
+    if isinstance(obj, Identifier):
+        return ["Identifier", [[str(ix), encode(m)] for ix, m in obj.path]]
+    if isinstance(obj, List):
+        return ["List", [[encode(i), encode(obj.vals[i])] for i in obj.seq], encode(obj.clock)]
+    if isinstance(obj, Insert):
+        return ["Insert", encode(obj.id), encode(obj.val)]
+    if isinstance(obj, Delete):
+        return ["Delete", encode(obj.id), encode(obj.dot)]
+    if isinstance(obj, GList):
+        return ["GList", [encode(i) for i in obj.list]]
+    if isinstance(obj, GInsert):
+        return ["GInsert", encode(obj.id)]
+    if isinstance(obj, Node):
+        return ["Node", encode(obj.value),
+                sorted(base64.b64encode(p).decode("ascii") for p in obj.parents)]
+    if isinstance(obj, MerkleReg):
+        dag = sorted(obj.dag.values(), key=lambda n: n.hash())
+        orphans = sorted((n for waiting in obj.orphans.values() for n in waiting),
+                         key=lambda n: n.hash())
+        return ["MerkleReg", [encode(n) for n in dag], [encode(n) for n in orphans]]
+    raise TypeError(f"crdt_tpu_torch.serde cannot encode {type(obj).__name__}")
 
 
 def decode(data) -> Any:
@@ -148,6 +184,22 @@ def decode(data) -> Any:
         return OrdDot(decode(data[1]), int(data[2]))
     if tag == "VClock":
         return VClock({decode(a): int(c) for a, c in data[1]})
+    if tag == "GCounter":
+        out = GCounter()
+        out.inner = decode(data[1])
+        return out
+    if tag == "PNCounter":
+        return PNCounter(decode(data[1]), decode(data[2]))
+    if tag == "PNOp":
+        return PNOp(dot=decode(data[1]), dir=Dir(data[2]))
+    if tag == "GSet":
+        return GSet(decode(m) for m in data[1])
+    if tag == "LWWReg":
+        if len(data) == 1:
+            return LWWReg()
+        return LWWReg(decode(data[1]), decode(data[2]))
+    if tag == "LWWOp":
+        return LWWOp(val=decode(data[1]), marker=decode(data[2]))
     if tag == "MVReg":
         return MVReg({decode(d): (decode(c), decode(v)) for d, c, v in data[1]})
     if tag == "Put":
@@ -175,10 +227,34 @@ def decode(data) -> Any:
         return MapRm(clock=decode(data[1]), keyset=tuple(decode(k) for k in data[2]))
     if tag == "Nop":
         return Nop()
-    if tag in _UNPORTED:
-        raise NotImplementedError(
-            f"crdt_tpu_torch.serde: {tag} is not ported yet (ROADMAP item 14)"
-        )
+    if tag == "Identifier":
+        return Identifier(tuple((int(ix), decode(m)) for ix, m in data[1]))
+    if tag == "List":
+        out = List()
+        for ident_data, val_data in data[1]:
+            ident = decode(ident_data)
+            out.seq.append(ident)
+            out.vals[ident] = decode(val_data)
+        out.clock = decode(data[2])
+        return out
+    if tag == "Insert":
+        return Insert(id=decode(data[1]), val=decode(data[2]))
+    if tag == "Delete":
+        return Delete(id=decode(data[1]), dot=decode(data[2]))
+    if tag == "GList":
+        out = GList()
+        out.list = [decode(i) for i in data[1]]
+        return out
+    if tag == "GInsert":
+        return GInsert(id=decode(data[1]))
+    if tag == "Node":
+        return Node(value=decode(data[1]),
+                    parents=frozenset(base64.b64decode(p) for p in data[2]))
+    if tag == "MerkleReg":
+        out = MerkleReg()
+        for node_data in (*data[1], *data[2]):
+            out.apply(decode(node_data))
+        return out
     raise ValueError(f"crdt_tpu_torch.serde cannot decode tag {tag!r}")
 
 

@@ -1,8 +1,9 @@
 """The port's crashpoint registry and the kill-then-recover diagonal
 (``crdt_tpu_torch.durability.crashpoints``): every one of the 15
 crashpoints (``wal.*`` ×6, ``snapshot.*`` ×9, the JAX package's names and
-descriptions) once, the port's first five decomposition kinds cycled —
-the diagonal of ``tests/test_durability.py`` — and once more with the
+descriptions) once, the port's first seven decomposition kinds cycled
+(the five of ``tests/test_durability.py``'s diagonal, then ``gset`` and
+``lwwreg``) — and once more with the
 sparse Map kinds (``sparse_mvmap`` and the nest under the JAX registry's
 name, ``sparse_nested_map``) cycled. Each workload
 (``chip_smoke.fuzz_workload``, which the card runs too) logs δ records of
@@ -20,6 +21,7 @@ import pytest
 from crdt_tpu import durability as ref_du
 from crdt_tpu.durability import crashpoints as ref_cp
 from crdt_tpu.durability.wal import Wal as RefWal
+from crdt_tpu.ops.lwwreg import LWWState as RefLWWState
 from crdt_tpu.ops.map import MapState as RefMapState
 from crdt_tpu.ops.mvreg import MVRegState as RefMVRegState
 from crdt_tpu.ops.orswot import OrswotState as RefOrswotState
@@ -38,7 +40,7 @@ ALL_KINDS = tuple(sorted(KINDS))
 # ("sparse_nest" is the same decomposer as "sparse_nested_map", the name a
 # log must carry for the JAX package to replay it), and so do the dense
 # nests.
-DENSE_KINDS = ("map", "mvreg", "orswot", "sparse_orswot", "vclock")
+DENSE_KINDS = ("map", "mvreg", "orswot", "sparse_orswot", "vclock", "gset", "lwwreg")
 SPARSE_MAP_KINDS = ("sparse_mvmap", "sparse_nested_map")
 NESTED_KINDS = ("map_orswot", "map_map", "map3")
 # The durability core's points: the serving tier registers seven more
@@ -70,7 +72,9 @@ def _ref(kind: str, raw: dict):
         from test_torch_nest import _to_ref_nest
 
         return _to_ref_nest(kind, raw)
-    return j["clock"]
+    if kind == "lwwreg":
+        return RefLWWState(**j)
+    return j["present"] if kind == "gset" else j["clock"]
 
 
 def _kind_states(kind: str, n: int = 6):
@@ -121,7 +125,7 @@ def test_crashpoint_fuzz_diagonal(tmp_path, point, kind):
 
 
 def test_the_diagonal_covers_every_kind_and_the_jax_points():
-    assert len(ALL_CRASHPOINTS) == 15 and len(ALL_KINDS) == 11
+    assert len(ALL_CRASHPOINTS) == 15 and len(ALL_KINDS) == 13
     assert {k for _, k in DIAGONAL} | {"sparse_nest"} == set(ALL_KINDS)
     assert KINDS["sparse_nest"] is KINDS["sparse_nested_map"]
     ours = {n: cp.describe(n) for n in ALL_CRASHPOINTS}

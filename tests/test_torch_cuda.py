@@ -670,3 +670,48 @@ def test_a_nested_ring_on_the_card_equals_the_cpu_ring(card, fused):
             VirtualMesh(4, dev), rounds=24, cap=256, fused=fused)
     assert chip_smoke.same_leaves(chip_smoke.on_cpu(outs["cuda"]), outs["cpu"])
     assert int(outs["cpu"][3]) == 0
+
+
+def test_the_list_epoch_scatter_on_the_card_equals_the_cpu(card):
+    """A 2,000-op trace through ``BatchedList`` on the card and on the CPU:
+    the broadcast epochs of ``apply_trace_to_all``, per-replica epochs of
+    ``apply_ops`` and a streamed growth in between land on the same bits."""
+    import numpy as np
+
+    from crdt_tpu_torch.models import BatchedList
+
+    trace = chip_smoke.make_edit_trace(2000, seed=5)
+    part = lambda lo, hi: tuple(x[lo:hi] for x in trace)  # noqa: E731
+    rng = np.random.default_rng(0)
+    models = {d: BatchedList.from_trace(*part(0, 1200), n_replicas=8, device=d)
+              for d in ("cpu", card)}
+    epoch = np.full((8, 64), -1, np.int64)
+    for r in range(8):
+        take = rng.choice(1200, size=64, replace=False)
+        _, first = np.unique(models["cpu"].op_slots[take], return_index=True)
+        epoch[r, :len(first)] = take[np.sort(first)]
+    for m in models.values():
+        m.apply_ops(epoch)
+        m.extend_trace(*part(1200, 2000))
+        m.apply_trace_to_all(chunk=256)
+    torch.cuda.synchronize(card)
+    cpu, gpu = models["cpu"], models[card]
+    assert torch.equal(gpu.vals.cpu(), cpu.vals) and torch.equal(gpu.alive.cpu(), cpu.alive)
+    assert gpu.uploaded_bytes == cpu.uploaded_bytes
+    assert gpu.read(3) == cpu.read(3)
+
+
+@pytest.mark.parametrize("dtype", ["uint32", "uint64"])
+def test_the_pairwise_merge_matrix_on_the_card_equals_the_cpu(card, dtype):
+    from crdt_tpu_torch._dtypes import from_wide
+    from crdt_tpu_torch.ops import vclock
+
+    gen = torch.Generator().manual_seed(256)
+    wide = torch.randint(0, 1000, (256, 8), generator=gen, dtype=torch.int64)
+    if dtype == "uint64":
+        wide = (1 << 63) - 1 - wide  # the sign-flipped view: lanes within 1,000 of 2^64
+    clocks = from_wide(wide, getattr(torch, dtype))
+    want = vclock.pairwise_merge_matrix(clocks)
+    got = vclock.pairwise_merge_matrix(clocks.to(card))
+    assert got.shape == (256, 256, 8) and got.dtype == clocks.dtype
+    assert torch.equal(bits(got).cpu(), bits(want))

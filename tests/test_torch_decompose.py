@@ -1,8 +1,9 @@
 """The port's join decomposition (``crdt_tpu_torch.delta_opt.decompose``)
 and decomposition resync (``delta_opt.heal.resync``) vs the JAX
 package's, bit for bit, for every kind the port has (orswot, map, mvreg,
-vclock, sparse_orswot, sparse_mvmap, and the sparse nest under its two
-names, sparse_nest and the JAX registry's sparse_nested_map):
+vclock, gset, lwwreg, sparse_orswot, sparse_mvmap, the dense nests, and
+the sparse nest under its two names, sparse_nest and the JAX registry's
+sparse_nested_map):
 ``decompose`` / ``reconstruct`` / ``drop_lane`` / ``decomposition_bytes``
 on the JAX registry's law states, and ``resync`` over ranks that diverged
 from one snapshot — healed rows and every ``ResyncReport`` field — and
@@ -19,6 +20,7 @@ import jax.numpy as jnp
 
 from crdt_tpu.analysis.registry import get_merge_kind
 from crdt_tpu.delta_opt import heal as ref_heal
+from crdt_tpu_torch.convert import lww_from_numpy
 from crdt_tpu_torch.delta_opt import heal
 from crdt_tpu_torch.ops.map import MapState
 from crdt_tpu_torch.ops.mvreg import MVRegState
@@ -32,8 +34,8 @@ from test_torch_convert import leaf_numpy, leaf_tensor
 ref_dec = importlib.import_module("crdt_tpu.delta_opt.decompose")
 dec = importlib.import_module("crdt_tpu_torch.delta_opt.decompose")
 
-KINDS = ["orswot", "map", "mvreg", "vclock", "sparse_orswot", "sparse_mvmap", "sparse_nest",
-         "sparse_nested_map", "map_orswot", "map_map", "map3"]
+KINDS = ["orswot", "map", "mvreg", "vclock", "gset", "lwwreg", "sparse_orswot", "sparse_mvmap",
+         "sparse_nest", "sparse_nested_map", "map_orswot", "map_map", "map3"]
 DENSE_NESTS = ("map_orswot", "map_map", "map3")
 # The port's module name of the nest's decomposition -> the JAX registry's.
 REF_KIND = {"sparse_nest": "sparse_nested_map"}
@@ -44,8 +46,10 @@ NESTED = {"child": MVRegState}
 
 def to_port(kind, ref):
     """A JAX-package state of ``kind`` → the port's, on the CPU."""
-    if kind == "vclock":
+    if kind in ("vclock", "gset"):
         return leaf_tensor(np.asarray(ref))
+    if kind == "lwwreg":  # a 0-d leaf stays 0-d (an unbatched register)
+        return lww_from_numpy({k: np.asarray(v) for k, v in ref._asdict().items()}, "cpu")
     if kind in DENSE_NESTS:
         from test_torch_map_nested import to_port as nest_to_port
 
@@ -127,7 +131,7 @@ def test_decompose_takes_a_decomposer_and_refuses_unknown_kinds():
     d = dec.decompose(dec.KINDS["orswot"], to_port("orswot", ranks[0]), to_port("orswot", since))
     assert_leaves(d.lanes, ref_dec.decompose("orswot", ranks[0], since).lanes)
     with pytest.raises(KeyError, match="no decomposition"):
-        dec.decompose("lwwreg", to_port("orswot", ranks[0]), to_port("orswot", since))
+        dec.decompose("no_such_kind", to_port("orswot", ranks[0]), to_port("orswot", since))
     assert sorted(dec.KINDS) == sorted(KINDS)
 
 

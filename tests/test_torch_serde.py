@@ -1,10 +1,11 @@
 """The port's ``serde`` against the JAX package's: the same value encodes
 to the same tagged tree (and the same canonical bytes) in both packages,
-and the port decodes the JAX encoding back to its own types — primitives,
-``Dot``/``OrdDot``, ``VClock`` and the pure ``Orswot``, ``Map`` and
-``MVReg`` with their ops. The JAX package's tags for types the port does
-not have yet decode to ``NotImplementedError`` naming ROADMAP item 14."""
+and each package decodes the other's encoding back to its own types —
+primitives, ``Dot``/``OrdDot``, ``VClock``, the pure ``Orswot``, ``Map``
+and ``MVReg`` with their ops, and every other tag: the counters, ``GSet``,
+``LWWReg``, the sequences and ``MerkleReg`` (orphans included)."""
 
+import importlib
 import random
 
 import pytest
@@ -80,10 +81,86 @@ def test_maps_registers_and_their_ops_encode_as_in_jax(seed):
 
 
 def test_unported_types_name_their_item():
+    """Every JAX tag now decodes to the port's own type; what stays
+    refused is a type that is not the port's (an object of the JAX
+    package) and a tag neither package knows."""
     for ref in (RefGCounter(), RefLWWReg()):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
-            serde.decode(ref_serde.encode(ref))
-    with pytest.raises(TypeError, match="ROADMAP item 14"):
+        back = serde.decode(ref_serde.encode(ref))
+        assert type(back).__module__.startswith("crdt_tpu_torch.")
+        assert serde.encode(back) == ref_serde.encode(ref)
+    with pytest.raises(TypeError, match="cannot encode GCounter"):
         serde.encode(RefGCounter())
     with pytest.raises(ValueError, match="cannot decode tag"):
         serde.decode(["NoSuchTag"])
+
+
+def _pure(pkg: str, name: str):
+    return importlib.import_module(f"{pkg}.pure.{name}")
+
+
+def _build(pkg: str, kind: str):
+    """The same object of ``kind``, minted by the same ops in package
+    ``pkg`` (``crdt_tpu`` or ``crdt_tpu_torch``)."""
+    if kind in ("GCounter", "PNCounter", "PNOp"):
+        m = _pure(pkg, "pncounter")
+        pn = m.PNCounter()
+        for actor, up in (("a", True), ("b", False), ("a", True), (("t", 2), False)):
+            op = pn.inc(actor) if up else pn.dec(actor)
+            pn.apply(op)
+        return {"GCounter": pn.p, "PNCounter": pn, "PNOp": op}[kind]
+    if kind == "GSet":
+        g = _pure(pkg, "gset").GSet()
+        for x in ("z", 3, ("t", b"\x01"), frozenset({1})):
+            g.apply(g.insert(x))
+        return g
+    if kind in ("LWWReg", "LWWReg-unset", "LWWOp"):
+        m = _pure(pkg, "lwwreg")
+        if kind == "LWWReg-unset":
+            return m.LWWReg()
+        r = m.LWWReg()
+        op = r.update({"v": [1, 2]}, (1 << 63) + 5)
+        return r if kind == "LWWReg" else op
+    if kind in ("List", "Insert", "Delete", "Identifier"):
+        lst = _pure(pkg, "list").List()
+        ops = []
+        for i, (ix, actor) in enumerate(((0, "a"), (0, "b"), (1, "a"), (0, "c"), (2, "b"))):
+            ops.append(lst.insert_index(ix, f"x{i}", actor))
+            lst.apply(ops[-1])
+        ops.append(lst.delete_index(1, "a"))
+        lst.apply(ops[-1])
+        return {"List": lst, "Insert": ops[0], "Delete": ops[-1], "Identifier": ops[2].id}[kind]
+    if kind in ("GList", "GInsert"):
+        g = _pure(pkg, "glist").GList()
+        op = None
+        for x in ("p", "q", "r"):
+            op = g.insert_after(g.last(), x)
+            g.apply(op)
+        g.apply(g.insert_before(g.first(), "s"))
+        return g if kind == "GList" else op
+    m = _pure(pkg, "merkle_reg")
+    reg = m.MerkleReg()
+    root = reg.write("root")
+    reg.apply(root)
+    child = reg.write(("child", 1), frozenset({root.hash()}))
+    reg.apply(child)
+    late = m.MerkleReg()
+    orphan_parent = late.write(b"parent")
+    orphan = late.write(2.5, frozenset({orphan_parent.hash()}))
+    reg.apply(orphan)  # its parent has not arrived: an orphan
+    return reg if kind == "MerkleReg" else child
+
+
+NEW_TAGS = ["GCounter", "PNCounter", "PNOp", "GSet", "LWWReg", "LWWReg-unset", "LWWOp",
+            "Identifier", "List", "Insert", "Delete", "GList", "GInsert", "Node", "MerkleReg"]
+
+
+@pytest.mark.parametrize("kind", NEW_TAGS)
+def test_every_other_tag_encodes_as_in_jax_and_decodes_across(kind):
+    ref, port = _build("crdt_tpu", kind), _build("crdt_tpu_torch", kind)
+    assert type(port).__module__.startswith("crdt_tpu_torch.")
+    assert serde.encode(port) == ref_serde.encode(ref)
+    assert serde.to_bytes(port) == ref_serde.to_bytes(ref)
+    assert serde.from_bytes(ref_serde.to_bytes(ref)) == port
+    assert ref_serde.from_bytes(serde.to_bytes(port)) == ref
+    if kind == "MerkleReg":
+        assert port.num_orphans() == 1 and serde.decode(serde.encode(port)).num_orphans() == 1
