@@ -362,6 +362,21 @@ at first use), then runs, printing one JSON line per phase:
                         ``ingest_remote_ops`` == the first; replica-ops/s,
                         busy share, a checkpoint at R = 64, a ``BatchedGList``
                         of the trace's inserts at R = 1,024.
+33. ``reclaim_scenarios`` — causal-stability reclamation (ROADMAP 15.2, 15.8)
+                        on the card == the CPU on every leaf: every kind's
+                        ``compact`` and ``_observe``, the frontier with a
+                        straggler, the eight ring entries with
+                        ``stability=True`` (K1 and K2 counted), the stream's
+                        ``compact_every``, compact-on-save,
+                        ``compact_tenants``, the three ``lifecycle`` calls.
+34. ``full_width_reclaim`` — (a) ``mesh_gossip(stability=True)`` at config
+                        3's widths, R = 5,120 on P = 8 with a straggler and
+                        injected covered, pinned and stale parked slots:
+                        reads unchanged, frontier == the numpy min,
+                        ``reclaimed_slots`` == the host count, K1 8 times ==
+                        its plain fold; walls on and off. (b) the sparse
+                        churn (``bench_reclaim``) at the "sparse" widths:
+                        reads == the flags-off twin's, a widen and a shrink.
 
 Then the ``nvidia-smi`` name/power-limit line, a ``kernels`` JSON line, and
 as the last line ``{"ok": true, "device": {...}}``. Any failed check raises
@@ -7842,13 +7857,638 @@ def phase_full_width_list(device, seed: int, r: int = 1024, n_ops: int = 100_000
     return out
 
 
+# ---- phases 33-34: causal-stability reclamation (ROADMAP items 15.2, 15.8) ----
+
+RECLAIM_CLOCKS = ("dcl", "kcl", "kdcl", "odcl", "top")
+RECLAIM_MASKS = ("dmask", "dkeys", "kdkeys", "odkeys")
+RECLAIM_LISTS = ("didx", "kidx")
+
+
+def redraw_parked(state, rng):
+    """``state`` with every parked buffer, top and validity lane redrawn
+    from ``rng`` (clocks in [0, 3]: a frontier of 1 or 2 covers some slots
+    and not others; dead slots with nonzero clocks are stale lanes)."""
+    import numpy as np
+
+    from crdt_tpu_torch.convert import leaf_from_numpy, leaf_to_numpy
+
+    if not hasattr(state, "_fields"):
+        return state
+    out = {}
+    for name in state._fields:
+        x = getattr(state, name)
+        if hasattr(x, "_fields"):
+            out[name] = redraw_parked(x, rng)
+        elif name in RECLAIM_CLOCKS:
+            out[name] = leaf_from_numpy(rng.integers(0, 4, x.shape).astype(np.uint32), x.device)
+        elif name.endswith("dvalid"):
+            out[name] = leaf_from_numpy(rng.random(x.shape) < 0.6, x.device)
+        elif name in RECLAIM_MASKS:
+            out[name] = leaf_from_numpy(rng.random(x.shape) < 0.4, x.device)
+        elif name in RECLAIM_LISTS:
+            hi = max(int(leaf_to_numpy(x).max()) + 1, 4)
+            out[name] = leaf_from_numpy(rng.integers(-1, hi, x.shape).astype(np.int32),
+                                        x.device)
+        else:
+            out[name] = x
+    return type(state)(**out)
+
+
+def reclaim_models(seed: int, device):
+    """One small seeded model of every compactable family on ``device``
+    (oracle-minted op streams, parked removes at every level) and the
+    raw states of the register, clock and set kinds. Returns ``(models,
+    states)``: models by ring entry, states by compactor kind."""
+    import numpy as np
+    import torch
+
+    from crdt_tpu_torch.convert import leaf_from_numpy
+    from crdt_tpu_torch.models import (
+        BatchedMap, BatchedOrswot, BatchedSparseMap, BatchedSparseMapOrswot,
+        BatchedSparseOrswot,
+    )
+    from crdt_tpu_torch.ops import lwwreg, mvreg
+
+    rng = random.Random(seed + 41)
+    sites, _ = mint_sites(rng, 6, 40)
+    map_sites, _ = mint_map_sites(rng, 6, 40)
+    set_sites, _ = mint_set_map_sites(rng, 6, 40)
+    models = {
+        "orswot": BatchedOrswot.from_pure(sites, device=device),
+        "sparse": BatchedSparseOrswot.from_pure(sites, dot_cap=32, device=device),
+        "map": BatchedMap.from_pure(map_sites, device=device),
+        "sparse_mvmap": BatchedSparseMap.from_pure(map_sites, cell_cap=32, device=device),
+        "sparse_nested": BatchedSparseMapOrswot.from_pure(set_sites, span=8, dot_cap=64,
+                                                          device=device),
+    }
+    for kind in NEST_KINDS:
+        models[kind] = nest_model(kind, nest_population(kind, rng, 6)[0], device)
+    gen = np.random.default_rng(seed + 42)
+
+    def drawn(like):
+        """Random lanes of ``like``'s shape and dtype (values 0..3)."""
+        if like.dtype == torch.bool:
+            return leaf_from_numpy(gen.random(like.shape) < 0.5, device)
+        dt = np.uint32 if like.dtype == torch.uint32 else np.int32
+        return leaf_from_numpy(gen.integers(0, 4, like.shape).astype(dt), device)
+
+    mv = mvreg.empty(4, 4, batch=(6,), device=device)
+    lww = lwwreg.empty(batch=(6,), device=device)
+    states = {
+        "mvreg": type(mv)(*map(drawn, mv)), "lwwreg": type(lww)(*map(drawn, lww)),
+        "vclock": leaf_from_numpy(gen.integers(0, 9, (6, 4)).astype(np.uint32), device),
+        "gset": leaf_from_numpy(gen.random((6, 16)) < 0.3, device),
+    }
+    kinds = {"orswot": "orswot", "sparse": "sparse_orswot", "map": "map",
+             "sparse_mvmap": "sparse_mvmap", "sparse_nested": "sparse_nested_map",
+             "map_orswot": "map_orswot", "map_map": "map_map", "map3": "map3"}
+    for entry, kind in kinds.items():
+        states[kind] = models[entry].state
+    return models, states
+
+
+def gossip_entry(entry: str, model):
+    """The ring entry of ``entry`` as ``fn(state, mesh, **kw)``."""
+    from crdt_tpu_torch.parallel import anti_entropy as ae
+
+    if entry == "sparse_mvmap":
+        return lambda s, m, **k: ae.mesh_gossip_sparse_mvmap(s, m, sibling_cap=model.sibling_cap,
+                                                             **k)
+    if entry == "sparse_nested":
+        return lambda s, m, **k: ae.mesh_gossip_sparse_nested(s, m, model.level, **k)
+    return {"orswot": ae.mesh_gossip, "map": ae.mesh_gossip_map,
+            "sparse": ae.mesh_gossip_sparse, "map_orswot": ae.mesh_gossip_map_orswot,
+            "map_map": ae.mesh_gossip_nested_map, "map3": ae.mesh_gossip_map3}[entry]
+
+
+def max_leaf_diff(x, y) -> int:
+    """The largest absolute difference over every leaf of two trees (the
+    wide view; bool leaves as 0/1)."""
+    import torch
+
+    xs = [x] if isinstance(x, torch.Tensor) else list(x)
+    ys = [y] if isinstance(y, torch.Tensor) else list(y)
+    out = 0
+    for a, b in zip(xs, ys):
+        if not isinstance(a, torch.Tensor):
+            out = max(out, max_leaf_diff(a, b))
+        elif a.dtype == torch.bool:
+            out = max(out, int((a.cpu() != b.cpu()).any()))
+        else:
+            out = max(out, max_abs_diff(a.cpu(), b.cpu()))
+    return out
+
+
+def phase_reclaim_scenarios(device, seed: int) -> dict:
+    """Small probes of causal-stability reclamation on the card == the CPU
+    on every leaf: every kind's ``compact`` (settled states and redrawn
+    parked buffers, five frontiers) and ``_observe``; the stable frontier
+    with a straggler row pinning it, and ``frontier_lag``; the eight ring
+    entries with ``stability=True, telemetry=True`` (rows, flags, the
+    frontier, every counted Telemetry field; K1 over each rank of the
+    dense ring, K2 over each rank of the Map ring, counted); the sparse
+    stream with ``compact_every``; compact-on-save (a covered parked slot
+    retired, the file loads on the CPU); ``compact_tenants``; and the three
+    ``lifecycle`` functions."""
+    import numpy as np
+    import torch
+
+    from crdt_tpu_torch import checkpoint, lifecycle, reclaim, telemetry as tele
+    from crdt_tpu_torch.config import configured
+    from crdt_tpu_torch.delta_opt.decompose import compactors
+    from crdt_tpu_torch.models import BatchedGCounter, BatchedOrswot, BatchedPNCounter
+    from crdt_tpu_torch.ops import superblock as sb
+    from crdt_tpu_torch.ops.lattice import tree_map
+    from crdt_tpu_torch.parallel import VirtualMesh, iter_blocks, mesh_stream_fold_sparse
+    from crdt_tpu_torch.pure import Orswot
+    from crdt_tpu_torch.utils import Interner
+    from crdt_tpu_torch.vclock import VClock
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    on = lambda x, dev: tree_map(lambda t: t.to(dev), x)  # noqa: E731
+    models, states = reclaim_models(seed, cpu)
+    gen = np.random.default_rng(seed + 43)
+    out = {"phase": "reclaim_scenarios", "card": card_label(device)}
+
+    # ---- every kind's compact and _observe ---------------------------------
+    compacted = {}
+    for kind, comp in compactors().items():
+        freed = 0
+        for s in (states[kind], redraw_parked(states[kind], gen)):
+            top = comp.top_of(s) if comp.top_of else None
+            a = top.shape[-1] if top is not None else 1
+            own = (reclaim.stable_frontier(top) if top is not None and top.dim() > 1 else top)
+            frontiers = [None, torch.zeros(a, dtype=torch.int32).view(torch.uint32),
+                         torch.ones(a, dtype=torch.int32).view(torch.uint32), own]
+            check(same_leaves(on_cpu(comp.observe(on(s, device))), comp.observe(s)),
+                  f"{kind}: observe card != CPU")
+            for f in frontiers:
+                got = comp.compact(on(s, device), None if f is None else f.to(device))
+                want = comp.compact(s, f)
+                check(same_leaves(on_cpu(got[0]), want[0]), f"{kind}: compact card != CPU")
+                check(int(got[1]) == int(want[1]) and float(got[2]) == float(want[2]),
+                      f"{kind}: freed counts card != CPU")
+                freed += int(want[1])
+        compacted[kind] = freed
+    out["freed_slots_by_kind"] = compacted
+    check(sum(compacted.values()) > 0, "reclaim_scenarios: no compaction freed a slot")
+
+    # ---- the frontier: a straggler row pins it -----------------------------
+    tops = gen.integers(5, 40, (16, 8)).astype(np.uint32)
+    tops[11] = gen.integers(0, 5, 8)
+    t_card = on(leaf(tops), device)
+    f_card = reclaim.stable_frontier(t_card)
+    check(np.array_equal(np_of(f_card), tops.min(0)) and np.array_equal(tops.min(0), tops[11]),
+          "the stable frontier != the numpy min (the straggler row)")
+    check(int(reclaim.frontier_lag(t_card, f_card)) == int((tops - tops.min(0)).max())
+          == int(reclaim.frontier_lag(leaf(tops), tops.min(0))), "frontier_lag card != CPU")
+
+    # ---- the eight ring entries --------------------------------------------
+    from crdt_tpu_torch.ops.fold_kernels import fold_cells, fold_entries
+
+    rings = {}
+    k1_err = k2_err = 0
+    for entry, model in models.items():
+        fn = gossip_entry(entry, model)
+        b1, b2 = fold_entries.launches, fold_cells.launches
+        got = fn(on(model.state, device), VirtualMesh(4, device), stability=True,
+                 telemetry=True)
+        l1, l2 = fold_entries.launches - b1, fold_cells.launches - b2
+        want = fn(model.state, VirtualMesh(4, cpu), stability=True, telemetry=True)
+        err = max_leaf_diff(got[0], want[0])
+        check(err == 0 and same_leaves(on_cpu(got[0]), want[0]), f"{entry}: rows card != CPU")
+        check(torch.equal(got[1].cpu(), want[1]) and same_leaves(got[3].cpu(), want[3]),
+              f"{entry}: flags or frontier card != CPU")
+        g, w = tele.to_dict(got[2]), tele.to_dict(want[2])
+        diff = sorted(k for k in g if k not in HOST_TIMED and g[k] != w[k])
+        check(not diff, f"{entry}: telemetry card != CPU on {diff}")
+        if entry == "orswot":
+            check(device.type != "cuda" or l1 == 4, f"the dense ring launched K1 {l1} times")
+            k1_err = max(k1_err, err)
+        if entry == "map":
+            check(device.type != "cuda" or l2 == 4, f"the Map ring launched K2 {l2} times")
+            k2_err = max(k2_err, err)
+        rings[entry] = {"k1": l1, "k2": l2, "reclaimed_slots": g["reclaimed_slots"],
+                        "frontier_lag": g["frontier_lag"]}
+    out["rings"] = rings
+    out["k1_max_abs_err"], out["k2_max_abs_err"] = k1_err, k2_err
+
+    # ---- the stream with compact_every -----------------------------------
+    sparse = redraw_parked(models["sparse"].state, gen)
+    got = mesh_stream_fold_sparse(iter_blocks(on(sparse, device), 2), VirtualMesh(4, device),
+                                  compact_every=1, telemetry=True)
+    want = mesh_stream_fold_sparse(iter_blocks(sparse, 2), VirtualMesh(4, cpu),
+                                   compact_every=1, telemetry=True)
+    check(same_leaves(on_cpu(got[0]), want[0]) and torch.equal(got[1].cpu(), want[1]),
+          "stream compact_every: card != CPU")
+    check(int(got[2].reclaimed_slots) == int(want[2].reclaimed_slots),
+          "stream compact_every: reclaimed slots card != CPU")
+    out["stream_reclaimed_slots"] = int(want[2].reclaimed_slots)
+
+    # ---- compact-on-save -------------------------------------------------
+    site = Orswot()
+    add = site.add("m", site.read().derive_add_ctx("s0"))
+    reps = []
+    for _ in range(3):
+        r = Orswot()
+        r.apply(add)
+        reps.append(r)
+    reps[0].deferred[VClock({"s0": 1})] = {"dead"}
+
+    def saved(dev, root, name):
+        model = BatchedOrswot.from_pure(reps, members=Interner(["m", "dead"]),
+                                        actors=Interner(["s0"]), device=dev)
+        checkpoint.save(os.path.join(root, name), model, compact=True)
+        return checkpoint.load(os.path.join(root, name), device="cpu")
+
+    loaded = with_scratch_dir(lambda root: {
+        "card": saved(device, root, "card.npz"), "cpu": saved(cpu, root, "cpu.npz")})
+    check(same_leaves(loaded["card"].state, loaded["cpu"].state)
+          and int(loaded["card"].state.dvalid.sum()) == 0,
+          "compact-on-save: the card's file != the CPU's, or the covered slot survived")
+
+    # ---- compact_tenants -------------------------------------------------
+    for kind, caps in (("orswot", dict(n_elems=8, n_actors=4, deferred_cap=2)),
+                       ("sparse_orswot", dict(dot_cap=12, n_actors=4, deferred_cap=2,
+                                              rm_width=4))):
+        tk = sb.tenant_kind(kind)
+        rows = sb.pack([sb.sequential_oracle(tk, tk.empty(**caps, device="cpu"), s)
+                        for s in serve_streams(kind, caps, 8, 64, seed)])
+        f = rows.top
+        got = sb.compact_tenants(tk, on(rows, device), f.to(device))
+        want = sb.compact_tenants(tk, rows, f)
+        check(same_leaves(on_cpu(got[0]), want[0]) and int(got[1]) == int(want[1])
+              and float(got[2]) == float(want[2]), f"compact_tenants {kind}: card != CPU")
+
+    # ---- lifecycle -------------------------------------------------------
+    def counters(dev):
+        g = BatchedGCounter(2, actors=Interner(["a", "b", "c"]), n_actors=8, device=dev)
+        pn = BatchedPNCounter(2, actors=Interner(["a", "b", "c"]), n_actors=8, device=dev)
+        for row in range(2):
+            g.inc(row, "a", 2**32 - 1)
+            g.inc(row, "b", 5)
+            pn.inc(row, "a", 10)
+            pn.dec(row, "a", 3)
+            pn.inc(row, "b", 5)
+        lifecycle.retire_actor(g, "a")
+        lifecycle.retire_actor(pn, "a")
+        lifecycle.compact_actors(g)
+        lifecycle.compact_actors(pn)
+        with configured(counter_dtype="uint64"):
+            lifecycle.widen_counters(g)
+        g.inc(0, "b", 7)
+        return g, pn
+
+    (gc, pc), (gh, ph) = counters(device), counters(cpu)
+    check(same_leaves(gc.inner.clocks.cpu(), gh.inner.clocks)
+          and same_leaves((pc.p.clocks.cpu(), pc.n.clocks.cpu()), (ph.p.clocks, ph.n.clocks))
+          and gc.read(0) == gh.read(0) == 2**32 - 1 + 12 and pc.read(1) == ph.read(1) == 12
+          and list(gc.actors.items()) == list(gh.actors.items()),
+          "lifecycle: the card's counters != the CPU's")
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return out
+
+
+def leaf(x):
+    """A numpy array as a CPU tensor of the same dtype."""
+    from crdt_tpu_torch.convert import leaf_from_numpy
+
+    return leaf_from_numpy(x, "cpu")
+
+
+def np_of(t):
+    from crdt_tpu_torch.convert import leaf_to_numpy
+
+    return leaf_to_numpy(t)
+
+
+def reclaim_host_count(dcl, dvalid, top, frontier) -> int:
+    """The slots compaction must free, counted in numpy: valid slots whose
+    clock the frontier and the row's own top both cover, plus dead slots
+    with a nonzero clock."""
+    import numpy as np
+
+    dcl, dvalid, top = np_of(dcl).astype(np.int64), np_of(dvalid), np_of(top).astype(np.int64)
+    f = np.asarray(frontier).astype(np.int64)
+    covered = dvalid & np.all(dcl <= f, -1) & np.all(dcl <= top[..., None, :], -1)
+    stale = ~dvalid & np.any(dcl != 0, -1)
+    return int(covered.sum() + stale.sum())
+
+
+def phase_full_width_reclaim(device, seed: int, r: int = 5120, e: int = 102400, a: int = 8,
+                             d: int = 4, p: int = 8, chunk: int = 128, repeats: int = 5,
+                             sp_r: int = 256, sp_cap: int = 4096, sp_universe: int = 1_000_000,
+                             sp_start_cap: int = 1024, waves=(12, 1, 1), rounds: int = 3,
+                             inject: int = 16) -> dict:
+    """Causal-stability reclamation at full width.
+
+    (a) Dense ORSWOT at config 3's widths (E = 102,400, A = 8, D = 4) on P
+    = 8 ranks, ``full_width_delta``'s fill and cut (R = 5,120: the fill
+    also builds the 16.8 GB ``fctx`` a second state would double). Every
+    rank parks removes ahead of its tops; one replica is the synced
+    straggler (its top pins the frontier at the synced top); slots covered
+    by every top are injected into free parked slots (the restore shape,
+    over members dead everywhere), with stale dead lanes and slots only
+    the own top covers (pinned). Gates: ``mesh_gossip(stability=True)``'s
+    rows read the same as ``stability=False``'s and equal their
+    compaction; the frontier == the numpy min of the input tops;
+    ``reclaimed_slots`` == the host count of covered and stale slots in
+    the converged rows; K1 launched ``p`` times, each rank's launch ==
+    the plain fold of its block; ``ops.compact`` of the input frees
+    exactly the host count of its covered and stale slots, reads kept.
+    Walls with stability on and off (median of ``repeats``, alternating,
+    CUDA events), the compactions' own ms, K1's ms on one rank block.
+
+    (b) Sparse ORSWOT churn at ``BENCH_CONFIGS.json`` "sparse" widths
+    (``sp_r`` replicas, ``dot_cap`` ``sp_cap``, a ``sp_universe`` member
+    universe) on P = 8: ``bench.py``'s ``bench_reclaim`` loop with the ops
+    built as arrays (one lane-batched add a wave, each replica its own
+    actor; the removing replica's observe-removes in ``rm_width`` lists):
+    ``waves`` gives each wave's adds per replica; then ``rounds``
+    ``gossip_elastic(stability=True, reclaim=Hysteresis(0.25, 2, 4))``
+    against a flags-off twin that commits its rows. The model starts at
+    ``sp_start_cap`` so the first wave widens. Gates: the membership of
+    every replica == the twin's after every round; at least one widen and
+    one ``dot_cap`` shrink."""
+    import numpy as np
+    import torch
+
+    from crdt_tpu_torch import elastic, reclaim
+    from crdt_tpu_torch.models import BatchedSparseOrswot
+    from crdt_tpu_torch.ops import orswot as ops
+    from crdt_tpu_torch.ops import sparse_orswot as sp
+    from crdt_tpu_torch.ops.fold_kernels import fold_entries, fold_entries_plain
+    from crdt_tpu_torch.ops.orswot import _join_entries
+    from crdt_tpu_torch.parallel import VirtualMesh, gossip_elastic, mesh_gossip
+    from crdt_tpu_torch.parallel.anti_entropy import _compact_ranks, rank_blocks
+    from crdt_tpu_torch.utils import Interner
+    from crdt_tpu_torch.utils.metrics import metrics, state_nbytes
+    from crdt_tpu_torch._dtypes import bits, from_wide, to_wide
+
+    t_phase = time.perf_counter()
+    on_card = device.type == "cuda"
+    sync = (lambda: torch.cuda.synchronize(device)) if on_card else (lambda: None)
+    if on_card:
+        torch.cuda.empty_cache()
+    mesh = VirtualMesh(p, device)
+    rl = r // p
+    t0 = time.perf_counter()
+    synced = []
+    state, dirty, fctx, info = fill_delta_config3(r, e, a, d, p, seed, device, chunk,
+                                                  synced_out=synced)
+    del dirty, fctx
+    if on_card:
+        torch.cuda.empty_cache()
+    top0 = synced[0].top
+    # The straggler: rank 5's replica 1 holds the synced state alone.
+    strag = 5 * rl + 1
+    bits(state.top)[strag] = bits(top0)
+    bits(state.ctr)[strag] = bits(synced[0].ctr)
+    bits(state.dcl)[strag] = 0
+    state.dmask[strag] = False
+    state.dvalid[strag] = False
+    # Members dead in every replica carry the injected slots' masks.
+    dead = ~torch.any((bits(state.ctr) != 0).any(-1), 0)
+    dead_ids = torch.nonzero(dead)[:inject, 0]
+    check(dead_ids.numel() == inject, "too few members dead everywhere to inject")
+    rows = torch.arange(r, device=device)
+    rank = rows // rl
+    free_last = ~state.dvalid[:, d - 1]
+    cover = free_last & (rank % 2 == 0) & (rows != strag)
+    stale = free_last & (rank % 2 == 1) & (rows != strag)
+    pinned = ~state.dvalid[:, d - 2] & (rank < 2) & (rows != strag)
+    pin_clock = to_wide(top0).clone()
+    pin_clock[0] += 1
+    dcl_w = to_wide(state.dcl)
+    dcl_w[:, d - 1] = torch.where((cover | stale)[:, None], to_wide(top0), dcl_w[:, d - 1])
+    dcl_w[:, d - 2] = torch.where(pinned[:, None], pin_clock, dcl_w[:, d - 2])
+    bits(state.dcl).copy_(bits(from_wide(dcl_w, torch.uint32)))
+    for slot, sel in ((d - 1, cover), (d - 2, pinned)):
+        state.dmask[sel, slot] = False
+        state.dmask[sel.nonzero()[:, :1], slot, dead_ids[None, :]] = True
+        state.dvalid[:, slot] |= sel
+    sync()
+    setup_s = time.perf_counter() - t0
+    tops_np = np_of(state.top)
+    frontier_np = tops_np.min(0)
+    check(np.array_equal(frontier_np, np_of(top0)), "the straggler does not pin the frontier")
+
+    # The input's compaction: frees exactly its covered and stale slots.
+    want_in = reclaim_host_count(state.dcl, state.dvalid, state.top, frontier_np)
+    comp, freed_in, bytes_in = ops.compact(state, leaf(frontier_np).to(device))
+    check(int(freed_in) == want_in and want_in > 0,
+          f"compacting the input freed {int(freed_in)} slots, the host counts {want_in}")
+    check(torch.equal(ops._observe(comp), ops._observe(state)),
+          "compacting the input changed a read")
+    del comp
+    compact_in_ms = statistics.median(
+        time_ms(lambda: ops.compact(state, leaf(frontier_np).to(device)), device)
+        for _ in range(repeats))
+
+    # The ring, counted: stability=True launches K1 once per rank.
+    b1 = fold_entries.launches
+    on_out = mesh_gossip(state, mesh, stability=True, telemetry=True)
+    k1_launches = fold_entries.launches - b1
+    check(not on_card or k1_launches == p, f"mesh_gossip launched K1 {k1_launches} times")
+    off_out = mesh_gossip(state, mesh)
+    check(np.array_equal(np_of(on_out[3]), frontier_np), "the ring's frontier != the numpy min")
+    check(torch.equal(ops._observe(on_out[0]), ops._observe(off_out[0])),
+          "stability=True changed a converged read")
+    ring_comp, freed_r, bytes_r = _compact_ranks(ops.compact, off_out[0], on_out[3])
+    check(same_leaves(on_out[0], ring_comp), "the stability rows != the compacted flags-off rows")
+    want_ring = reclaim_host_count(off_out[0].dcl, off_out[0].dvalid, off_out[0].top,
+                                   frontier_np)
+    tel = on_out[2]
+    check(int(tel.reclaimed_slots) == want_ring == int(freed_r),
+          f"reclaimed_slots {int(tel.reclaimed_slots)} != the host count {want_ring}")
+    compact_ring_ms = statistics.median(
+        time_ms(lambda: _compact_ranks(ops.compact, off_out[0], on_out[3]), device)
+        for _ in range(repeats))
+    # Each rank's K1 launch == the plain fold of its block.
+    blocks = rank_blocks(state, mesh)
+    k1_err = 0
+    for q in range(p):
+        kt, kc = fold_entries(blocks.top[q], blocks.ctr[q])
+        acc = None
+        for lo in range(0, rl, chunk):
+            pt, pc = fold_entries_plain(blocks.top[q, lo:lo + chunk], blocks.ctr[q, lo:lo + chunk])
+            part = (to_wide(pt), to_wide(pc))
+            acc = part if acc is None else _join_entries(*acc, *part)
+        k1_err = max(k1_err, max_abs_diff(kt, from_wide(acc[0], torch.uint32)),
+                     max_abs_diff(kc, from_wide(acc[1], torch.uint32)))
+        del kt, kc, acc
+    check(k1_err == 0, f"a rank's K1 launch != its plain fold (max {k1_err})")
+    k1_ms = statistics.median(time_ms(lambda: fold_entries(blocks.top[0], blocks.ctr[0]), device)
+                              for _ in range(repeats))
+    walls = {True: [], False: []}
+    for _ in range(repeats):
+        for flag in (False, True):
+            walls[flag].append(time_ms(lambda: mesh_gossip(state, mesh, stability=flag), device))
+    dense = {
+        "R": r, "E": e, "A": a, "D": d, "P": p, "setup_s": setup_s,
+        "injected": {"covered": int(cover.sum()), "stale": int(stale.sum()),
+                     "pinned": int(pinned.sum()), "straggler_row": strag},
+        "frontier": frontier_np.tolist(),
+        "input_compaction": {"freed_slots": int(freed_in), "freed_bytes": float(bytes_in),
+                             "host_count": want_in, "ms": compact_in_ms},
+        "ring": {"reclaimed_slots": int(tel.reclaimed_slots),
+                 "reclaimed_bytes": float(tel.reclaimed_bytes),
+                 "frontier_lag": int(tel.frontier_lag), "host_count": want_ring,
+                 "compaction_ms": compact_ring_ms,
+                 "wall_ms_stability_on": statistics.median(walls[True]),
+                 "wall_ms_stability_off": statistics.median(walls[False]),
+                 "walls_on": walls[True], "walls_off": walls[False]},
+        "k1_launches": k1_launches, "k1_max_abs_err": k1_err, "k1_ms_rank_block": k1_ms,
+    }
+    del state, blocks, on_out, off_out, ring_comp
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # ---- (b) the sparse churn ----------------------------------------------
+    t0 = time.perf_counter()
+    before = kernel_launches()
+    mk = lambda: BatchedSparseOrswot(sp_r, sp_start_cap, sp_r, deferred_cap=4, rm_width=4,  # noqa: E731
+                                     members=Interner(), actors=Interner(range(sp_r)),
+                                     device=device)
+    model, twin = mk(), mk()
+    policy = elastic.ElasticPolicy(low_water=0.25, shrink_rounds=2, shrink_floor=4)
+    hyst = elastic.Hysteresis(policy)
+    snap0 = metrics.snapshot()["counters"]
+    actors = torch.arange(sp_r, device=device)
+    base = 0
+    widened, peak_bytes, peak_twin, lag, read_checks = {}, 0, 0, None, 0
+    cap_trace = []
+    for w, adds in enumerate(waves):
+        eids = (base + torch.arange(sp_r * adds, device=device, dtype=torch.int32)).view(sp_r,
+                                                                                       adds)
+        base += sp_r * adds
+        check(base <= sp_universe, "the churn ran past the member universe")
+        counter = torch.full((sp_r,), w + 1, dtype=torch.int32, device=device).view(torch.uint32)
+        for m in (model, twin):
+            def add(m=m):
+                st, of = sp.apply_add(m.state, actors, counter, eids)
+                if bool(of.any()):
+                    raise elastic.DotCapacityOverflow("churn add")
+                m.state = st
+            elastic.elastic_call(add, m, policy)
+        # One replica observe-removes 3/4 of its view, rm_width ids an op.
+        j = w % sp_r
+        row = model.state.eid[j][model.state.valid[j]]
+        view = torch.unique(row)
+        victims = view[: (view.numel() * 3) // 4]
+        width = model.state.didx.shape[-1]
+        for m in (model, twin):
+            for lo in range(0, victims.numel(), width):
+                ids = torch.full((width,), -1, dtype=torch.int32, device=device)
+                chunk_ids = victims[lo:lo + width]
+                ids[:chunk_ids.numel()] = chunk_ids
+                st = tree_row(m.state, j)
+                st, of = sp.apply_rm(st, m.state.top[j], ids)
+                check(not bool(of), "the churn's observed remove parked")
+                m.state = tree_set_row(m.state, j, st)
+        for _ in range(rounds):
+            # R > P: the rows cannot be committed into the model (each rank
+            # folded 32 replicas), so every replica adopts the converged row
+            # after the call, at the model's capacity (a shrink inside the
+            # call narrowed the model, not the returned rows).
+            got = gossip_elastic(model, mesh, policy=policy, telemetry=True, stability=True,
+                                 reclaim=hyst)
+            widened.update(got[1])
+            lag = int(got[2].frontier_lag)
+            deliver(model, got[0], sp_r)
+            deliver(twin, gossip_elastic(twin, mesh, policy=policy)[0], sp_r)
+            check(same_members(sp._observe(model.state), sp._observe(twin.state)),
+                  f"churn wave {w}: a read differs from the flags-off twin's")
+            read_checks += 1
+            peak_bytes = max(peak_bytes, state_nbytes(model.state))
+            peak_twin = max(peak_twin, state_nbytes(twin.state))
+            cap_trace.append(elastic.capacities(model)["dot_cap"])
+    snap1 = metrics.snapshot()["counters"]
+    delta = lambda k: snap1.get(k, 0) - snap0.get(k, 0)  # noqa: E731
+    shrinks = delta("reclaim.shrink_events.sparse_orswot")
+    check(widened.get("dot_cap") and delta("elastic.widen_events.sparse_orswot") >= 1,
+          "the churn never widened")
+    check(shrinks >= 1 and min(cap_trace[cap_trace.index(max(cap_trace)):]) < max(cap_trace),
+          f"the churn never shrank dot_cap: {cap_trace}")
+    churn = {
+        "replicas": sp_r, "universe": sp_universe, "dot_cap_config": sp_cap,
+        "dot_cap_start": sp_start_cap, "waves": list(waves), "rounds_per_wave": rounds,
+        "dot_cap_trace": cap_trace, "widened": widened, "shrink_events": shrinks,
+        "reclaimed_bytes": delta("reclaim.reclaimed_bytes"),
+        "peak_state_bytes": peak_bytes, "peak_state_bytes_twin": peak_twin,
+        "end_state_bytes": state_nbytes(model.state),
+        "end_state_bytes_twin": state_nbytes(twin.state),
+        "frontier_lag_final": lag, "read_checks": read_checks,
+        "launches": check_no_kernel(before, "full_width_reclaim (b)"),
+        "s": time.perf_counter() - t0,
+    }
+    out = {"phase": "full_width_reclaim", "card": card_label(device), "dense": dense,
+           "churn": churn,
+           "reduced": {"R": f"{r} of config 3's 10,240 (full_width_delta's cut: the fill "
+                             f"builds fctx too)",
+                       "dot_cap_start": f"{sp_start_cap} (grows to the config's {sp_cap})"},
+           "phase_s": time.perf_counter() - t_phase}
+    emit(out)
+    return out
+
+
+def deliver(model, rows, n: int) -> None:
+    """Every one of the model's ``n`` replicas adopts the converged row of
+    a ring (every rank's row equal: checked), narrowed to the model's
+    current capacities."""
+    from crdt_tpu_torch import elastic
+    from crdt_tpu_torch.ops import sparse_orswot as sp
+    from crdt_tpu_torch.ops.lattice import tree_map
+
+    row = tree_row(rows, 0)
+    check(same_leaves(rows, tree_map(lambda x: x.expand(rows.top.shape[0], *x.shape), row)),
+          "the ring's rows are not converged")
+    state = tree_map(lambda x: x.expand(n, *x.shape).clone(), row)
+    caps = elastic.capacities(model)
+    if state.eid.shape[-1] > caps["dot_cap"]:
+        state = sp.narrow(state, dot_cap=caps["dot_cap"])
+    model.state = state
+
+
+def tree_row(state, j: int):
+    from crdt_tpu_torch.ops.lattice import tree_map
+
+    return tree_map(lambda x: x[j], state)
+
+
+def tree_set_row(state, j: int, row):
+    """``state`` with row ``j`` replaced by ``row`` (new tensors)."""
+    from crdt_tpu_torch._dtypes import bits
+    from crdt_tpu_torch.ops.lattice import tree_map
+
+    def put(x, y):
+        x = x.clone()
+        bits(x)[j] = bits(y)
+        return x
+
+    return tree_map(put, state, row)
+
+
+def same_members(a, b) -> bool:
+    """Two ``sparse_orswot._observe`` reads equal: the same sorted member
+    ids per replica, the wider one's extra lanes all -1."""
+    import torch
+
+    w = min(a.shape[-1], b.shape[-1])
+    return (torch.equal(a[..., :w], b[..., :w]) and bool((a[..., w:] == -1).all())
+            and bool((b[..., w:] == -1).all()))
+
+
 PHASES = ("k1", "scenarios", "full_width", "k2", "map_scenarios", "full_width_map", "k3",
           "delta_scenarios", "full_width_delta", "map_delta_scenarios", "full_width_delta_map",
           "sparse_scenarios", "flagship", "elastic", "resync", "donate", "durability",
           "serve_scenarios", "serve", "serve_zipf", "fanout_scenarios", "fanout",
           "telemetry_scenarios", "sparse_map_scenarios", "full_width_sparse_map",
           "nested_scenarios", "full_width_nested", "full_width_delta_nested",
-          "kinds_scenarios", "full_width_clocks", "full_width_list")
+          "kinds_scenarios", "full_width_clocks", "full_width_list", "reclaim_scenarios",
+          "full_width_reclaim")
 
 
 def main(argv=None) -> int:
@@ -7942,6 +8582,10 @@ def main(argv=None) -> int:
         phase_full_width_clocks(device, args.seed)
     if run("full_width_list"):
         phase_full_width_list(device, args.seed)
+    if run("reclaim_scenarios"):
+        res["reclaim_scenarios"] = phase_reclaim_scenarios(device, args.seed)
+    if run("full_width_reclaim"):
+        res["reclaim"] = phase_full_width_reclaim(device, args.seed)
     if only:
         print(f"chip_smoke: partial run of {only}; no kernels line", flush=True)
         return 0
@@ -7953,7 +8597,9 @@ def main(argv=None) -> int:
         **K1,
         "launches": full["k1_launches_in_fold"],
         "max_abs_err": max(res["k1"], full["max_abs_err"], nested["map_orswot"]["max_abs_err"],
-                           nested["map3"]["max_abs_err"]),
+                           nested["map3"]["max_abs_err"],
+                           res["reclaim_scenarios"]["k1_max_abs_err"],
+                           res["reclaim"]["dense"]["k1_max_abs_err"]),
         "ms": full["k1_ms_median"],
         "plain_ms": full["plain_chunked_ms_check_not_a_yardstick"],
         "bound_ms": full["bound_ms"],
@@ -7963,7 +8609,8 @@ def main(argv=None) -> int:
         **K2,
         "launches": full_map["k2_launches_in_fold"],
         "max_abs_err": max(res["k2"], full_map["max_abs_err"], wide_map["max_abs_err"],
-                           *(leg["max_abs_err"] for leg in nested["map_map"])),
+                           *(leg["max_abs_err"] for leg in nested["map_map"]),
+                           res["reclaim_scenarios"]["k2_max_abs_err"]),
         "ms": full_map["k2_ms_median"],
         "plain_ms": full_map["k2_plain_ms"],
         "bound_ms": full_map["bound_ms"],

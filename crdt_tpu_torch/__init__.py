@@ -22,7 +22,11 @@ and nested composition (``ops.nest`` with ``ops.map_orswot``,
 kinds: clocks and counters (``ops.vclock``, ``models.vclock``,
 ``models.counters``), ``ops.gset``/``models.gset``, the registers
 (``ops.lwwreg``, ``models.registers``) and the sequences
-(``models.list``, ``models.glist`` over the host engine of ``native``).
+(``models.list``, ``models.glist`` over the host engine of ``native``),
+causal-stability reclamation (``reclaim``, each kind's ``compact``) and
+the actor lifecycle (``lifecycle``). The host metrics registry
+(``metrics``), the Telemetry sidecar and its spans (``telemetry``) and the
+wire encoding (``serde``) ride at the root, as in the JAX package.
 """
 
 from .traits import CvRDT, CmRDT, ResetRemove, Causal, ValidationError, DotRange
@@ -34,9 +38,16 @@ from .pure import (
     PNCounter,
 )
 
+# Wire and storage encoding, the actor lifecycle, the host registry, and
+# the Telemetry sidecar with its span tracing.
+from . import lifecycle, serde, telemetry
+from .telemetry import Telemetry, span
+from .utils.metrics import metrics
+
 __all__ = [
     "CvRDT", "CmRDT", "ResetRemove", "Causal", "ValidationError", "DotRange",
     "Dot", "OrdDot", "VClock", "ReadCtx", "AddCtx", "RmCtx",
     "GCounter", "PNCounter", "Dir", "GSet", "LWWReg", "MVReg", "Orswot", "Map", "Identifier",
     "List", "GList", "MerkleReg",
+    "serde", "lifecycle", "metrics", "Telemetry", "span", "telemetry",
 ]

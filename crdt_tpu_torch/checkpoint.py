@@ -21,7 +21,10 @@ under ``dims`` — ``BatchedSparseNestedMap`` (``sparse_map_map``), and the
 sequences ``BatchedList`` (``list``) and ``BatchedGList`` (``glist``),
 whose host engine rides along as every identifier's path, the live
 handles and the mint clock (``_engine_dump``), re-ingested on load.
-``compact=True`` needs the ``reclaim/`` plane (item 15.2) and raises.
+``compact=True`` compacts the model against its own rows' frontier
+before the dump (``reclaim.compact_model``); a model outside the
+compactable family saves as it is and counts
+``reclaim.compact_on_save_unsupported``.
 """
 
 from __future__ import annotations
@@ -336,17 +339,36 @@ def from_npz_bytes(path, raw) -> tuple:
     return meta, arrays
 
 
+def compact_on_save(model) -> None:
+    """``save(compact=True)``'s compaction, shared with
+    ``durability.snapshot.save``. Only the family check softens to a
+    counter: an error raised inside a compaction surfaces."""
+    from . import elastic
+    from .reclaim import compact_model
+
+    try:
+        elastic.kind_of(model)
+    except TypeError:
+        metrics.count("reclaim.compact_on_save_unsupported")
+    else:
+        compact_model(model)
+
+
 def save(path: Union[str, os.PathLike], model, compact: bool = False) -> None:
     """Checkpoint a device model to ``path`` (one .npz file) with
     per-array content checksums, atomically AND durably: the tmp file
     (and its directory) is fsynced BEFORE the rename — write-then-rename
     without the fsync orders nothing across power loss, so a crash
-    could leave the renamed file empty. ``compact=True`` (compact-on-save)
-    raises: it needs the ``reclaim/`` plane, ROADMAP item 15.2."""
+    could leave the renamed file empty.
+
+    ``compact=True`` runs causal-stability compaction against the model's
+    OWN replica rows first (``reclaim.compact_model`` — sound because the
+    checkpointed batch is the replica set the frontier is taken over):
+    retired parked slots and stale dead payload never reach disk. Models
+    outside the compactable family (lists, counters) save as they are,
+    counting ``reclaim.compact_on_save_unsupported``."""
     if compact:
-        raise NotImplementedError(
-            "checkpoint.save: compact=True (ROADMAP item 15.2) not ported yet; call without it"
-        )
+        compact_on_save(model)
     meta, arrays = _dump(model)
     tmp = f"{os.fspath(path)}.tmp"
     with open(tmp, "wb") as f:

@@ -149,6 +149,61 @@ def _table() -> dict:
 KINDS = _table()
 
 
+class Compactor(NamedTuple):
+    """One kind's causal-stability compaction (``reclaim/``): its compact,
+    the observable read compaction must leave unchanged, and the top
+    clock the frontier is taken over (None for a clockless kind)."""
+
+    compact: Callable   # (state, frontier) -> (state, freed_slots u32, freed_bytes f32)
+    observe: Callable   # state -> observable read tree
+    top_of: Any         # state -> top [..., A], or None
+
+
+def _compactor_table() -> dict:
+    from ..ops import map as map_ops
+    from ..ops import map3, map_map, map_orswot, mvreg, orswot, sparse_mvmap, sparse_nest
+    from ..ops import sparse_orswot
+    from ..reclaim.compaction import _noop_compact
+    from ..reclaim.frontier import top_of
+
+    ident = lambda s: s  # noqa: E731
+    return {
+        "orswot": Compactor(orswot.compact, orswot._observe, lambda s: s.top),
+        "map": Compactor(map_ops.compact, map_ops._observe, lambda s: s.top),
+        "mvreg": Compactor(mvreg.compact, mvreg._observe, None),
+        "sparse_orswot": Compactor(sparse_orswot.compact, sparse_orswot._observe,
+                                   lambda s: s.top),
+        "sparse_mvmap": Compactor(sparse_mvmap.compact, sparse_mvmap._observe, lambda s: s.top),
+        # Any sparse nest, under the JAX registry's name.
+        "sparse_nested_map": Compactor(sparse_nest.compact, sparse_nest._observe, top_of),
+        "map_orswot": Compactor(map_orswot.compact, map_orswot._observe, lambda s: s.core.top),
+        "map_map": Compactor(map_map.compact, map_map._observe, lambda s: s.m.top),
+        "map3": Compactor(map3.compact, map3._observe, lambda s: s.mo.core.top),
+        "vclock": Compactor(_noop_compact, ident, None),
+        "gset": Compactor(_noop_compact, ident, None),
+        "lwwreg": Compactor(_noop_compact, ident, None),
+    }
+
+
+_COMPACTORS: dict = {}
+
+
+def compactors() -> dict:
+    """kind name -> :class:`Compactor`, for every kind the port has (the
+    JAX package's ``register_compactor`` rows). Built on first use: the
+    compactors import ``reclaim``, which this module must not import at
+    load time."""
+    if not _COMPACTORS:
+        _COMPACTORS.update(_compactor_table())
+    return _COMPACTORS
+
+
+def get_compactor(kind: str) -> Compactor:
+    """A kind's :class:`Compactor` by name (KeyError for a kind without
+    one, as the JAX registry's lookup raises)."""
+    return compactors()[kind]
+
+
 def get_decomposer(dec_or_kind) -> Decomposer:
     """A kind's :class:`Decomposer` by name (or a Decomposer itself)."""
     if isinstance(dec_or_kind, str):
@@ -196,7 +251,9 @@ def decomposition_bytes(d: Decomposition) -> torch.Tensor:
 
 
 __all__ = [
-    "Decomposer", "Decomposition", "KINDS", "decompose", "decompose_rows",
-    "decomposition_bytes", "drop_lane", "get_decomposer", "lane_bytes", "reconstruct",
+    "Compactor", "Decomposer", "Decomposition", "KINDS", "compactors", "decompose",
+    "decompose_rows",
+    "decomposition_bytes", "drop_lane", "get_compactor", "get_decomposer", "lane_bytes",
+    "reconstruct",
     "reconstruct_rows", "residual_bytes",
 ]

@@ -188,12 +188,12 @@ def save(path, model, *, wal_seq: int = 0, retain: int = 3, compact: bool = Fals
     """Commit a new generation holding a checkpointable MODEL; returns its
     generation number. ``wal_seq`` is the WAL watermark the payload
     includes (replay starts after it); ``retain`` keeps the newest K
-    generations (older ones prune after commit). ``compact=True`` needs
-    the ``reclaim/`` plane (ROADMAP item 15.2) and raises."""
+    generations (older ones prune after commit). ``compact=True`` composes
+    ``checkpoint.save``'s compact-on-save."""
     if compact:
-        raise NotImplementedError(
-            "snapshot.save: compact=True (ROADMAP item 15.2) not ported yet; call without it"
-        )
+        from ..checkpoint import compact_on_save
+
+        compact_on_save(model)
     meta, arrays = _dump(model)
     raw = to_npz_bytes(meta, arrays)
     gen = (generations(path) or [0])[-1] + 1

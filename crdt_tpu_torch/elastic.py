@@ -27,9 +27,9 @@ Migrations are administrative: apply them identically on every host
 holding the replica set. The ring entries' elastic wrappers
 (``parallel/anti_entropy.gossip_elastic``,
 ``parallel/delta_ring.delta_gossip_elastic``) pause, migrate and rejoin.
-:func:`widen` runs inside the ``elastic.widen`` span (``telemetry.span``);
-the JAX module's ``elastic.shrink`` span comes with ROADMAP item 15.2,
-its ``elastic_vote`` event with ``obs`` (item 15.6). The JAX table has
+:func:`widen` and :func:`shrink` run inside the ``elastic.widen`` and
+``elastic.shrink`` spans (``telemetry.span``); the JAX module's
+``elastic_vote`` event comes with ``obs`` (item 15.6). The JAX table has
 no ``BatchedSparseMapOrswot`` row nor rows for the dense nests, nor has
 this one.
 """
@@ -287,8 +287,11 @@ def shrink(model, axes: Optional[Tuple[str, ...]] = None,
             new[axis] = target
     if not new:
         return {}
+    from .telemetry import span
+
     before = state_nbytes(model.state)
-    model.narrow_capacity(**new)
+    with span("elastic.shrink", kind=kind, axes=sorted(new)):
+        model.narrow_capacity(**new)
     metrics.count("reclaim.shrink_events")
     metrics.count(f"reclaim.shrink_events.{kind}")
     metrics.count("reclaim.reclaimed_bytes", max(before - state_nbytes(model.state), 0))

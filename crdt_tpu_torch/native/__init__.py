@@ -119,6 +119,15 @@ def library():
         return _lib
 
 
+def native_available() -> bool:
+    """Whether the engine library builds and loads here (never raises)."""
+    try:
+        library()
+    except Exception:
+        return False
+    return True
+
+
 class ListEngine:
     """The sequence engine: the host half of the device List.
 
@@ -370,4 +379,4 @@ class _PyEngine:
             self.clock[actor] = ctr
 
 
-__all__ = ["DELETE", "INSERT", "ListEngine", "library"]
+__all__ = ["DELETE", "INSERT", "ListEngine", "library", "native_available"]

@@ -433,6 +433,25 @@ def apply_rm(state: MapState, rm_clock, key_mask):
         overflow,
     )
 
+def compact(state: MapState, frontier):
+    """Causal-stability compaction (``reclaim/``): retire the parked keyset
+    removes the stable frontier covers, scrub stale parked payload and
+    re-canonicalise the child slab (the dead-key scrub). Live values per
+    key are untouched. Returns ``(state, freed_slots, freed_bytes)``."""
+    from ..reclaim.compaction import retire_epochs
+
+    dcl, dkeys, dvalid, freed, freed_b = retire_epochs(
+        state.dcl, state.dkeys, state.dvalid, state.top, frontier)
+    child = mvreg._narrow(_canon_child(mvreg._wide(state.child)))
+    return state._replace(child=child, dcl=dcl, dkeys=dkeys, dvalid=dvalid), freed, freed_b
+
+
+def _observe(s: MapState):
+    """The observable read: per-key live value sets, content-ordered."""
+    cc = _canon_child(mvreg._wide(s.child))
+    return (cc.val, cc.valid)
+
+
 
 def _decomp_split(s: MapState):
     """Decomposition granularity (``delta_opt/``): one δ lane per key's

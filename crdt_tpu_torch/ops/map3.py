@@ -109,6 +109,26 @@ def apply_key1_rm(state: Map3State, rm_clock, key1_mask):
     clock is ahead. Returns ``(state, overflow)``."""
     return LEVEL.rm_parked(state, rm_clock, key1_mask)
 
+def compact(state: Map3State, frontier):
+    """Causal-stability compaction (``reclaim/``): compact the flat
+    ``map_orswot`` core (its K2 buffer, the leaf buffer and the dead-slot
+    scrub), then retire the stable parked K1 removes: three buffer levels,
+    one frontier. Returns ``(state, freed_slots, freed_bytes)``."""
+    from .._dtypes import from_raw, raw
+    from ..reclaim.compaction import retire_epochs
+
+    mo, n0, b0 = mo_ops.compact(state.mo, frontier)
+    odcl, odkeys, odvalid, n1, b1 = retire_epochs(
+        state.odcl, state.odkeys, state.odvalid, state.mo.core.top, frontier)
+    return (Map3State(mo=mo, odcl=odcl, odkeys=odkeys, odvalid=odvalid),
+            from_raw(raw(n0) + raw(n1), torch.uint32), b0 + b1)
+
+
+def _observe(s: Map3State) -> torch.Tensor:
+    """The observable read: the K1·K2·M membership mask."""
+    return mo_ops._observe(s.mo)
+
+
 
 def _decomp_split(s: Map3State):
     """Decomposition granularity: one δ lane per flat (k1, k2, member)

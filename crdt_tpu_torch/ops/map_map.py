@@ -99,6 +99,25 @@ def apply_key1_rm(state: NestedMapState, rm_clock, key1_mask):
     is ahead. Returns ``(state, overflow)``."""
     return LEVEL.rm_parked(state, rm_clock, key1_mask)
 
+def compact(state: NestedMapState, frontier):
+    """Causal-stability compaction (``reclaim/``): compact the flat map core
+    (inner parked buffer and child-slab scrub), then retire the stable
+    parked K1 removes. Returns ``(state, freed_slots, freed_bytes)``."""
+    from .._dtypes import from_raw, raw
+    from ..reclaim.compaction import retire_epochs
+
+    m, n0, b0 = core_ops.compact(state.m, frontier)
+    odcl, odkeys, odvalid, n1, b1 = retire_epochs(
+        state.odcl, state.odkeys, state.odvalid, state.m.top, frontier)
+    return (NestedMapState(m=m, odcl=odcl, odkeys=odkeys, odvalid=odvalid),
+            from_raw(raw(n0) + raw(n1), torch.uint32), b0 + b1)
+
+
+def _observe(s: NestedMapState):
+    """The observable read: the flat map's per-key live value sets."""
+    return core_ops._observe(s.m)
+
+
 
 def _decomp_split(s: NestedMapState):
     """Decomposition granularity: one δ lane per flat (k1, k2) content

@@ -106,6 +106,26 @@ def apply_key_rm(state: MapOrswotState, rm_clock, key_mask):
     ``(state, overflow)``."""
     return LEVEL.rm_parked(state, rm_clock, key_mask)
 
+def compact(state: MapOrswotState, frontier):
+    """Causal-stability compaction (``reclaim/``): compact the flat ORSWOT
+    core (its parked buffer and dead-slot scrub), then retire the stable
+    parked keyset removes of the outer level. Returns ``(state,
+    freed_slots, freed_bytes)``."""
+    from .._dtypes import from_raw, raw
+    from ..reclaim.compaction import retire_epochs
+
+    core, n0, b0 = core_ops.compact(state.core, frontier)
+    kdcl, kdkeys, kdvalid, n1, b1 = retire_epochs(
+        state.kdcl, state.kdkeys, state.kdvalid, state.core.top, frontier)
+    return (MapOrswotState(core=core, kdcl=kdcl, kdkeys=kdkeys, kdvalid=kdvalid),
+            from_raw(raw(n0) + raw(n1), torch.uint32), b0 + b1)
+
+
+def _observe(s: MapOrswotState) -> torch.Tensor:
+    """The observable read: the K·M membership mask."""
+    return core_ops._observe(s.core)
+
+
 
 def _decomp_split(s: MapOrswotState):
     """Decomposition granularity (``delta_opt/``): one δ lane per flat

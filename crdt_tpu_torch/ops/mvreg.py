@@ -29,7 +29,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from .._dtypes import from_wide, to_wide, wide_scalar, zeros
+from .._dtypes import bits, from_raw, from_wide, to_wide, wide_scalar, zeros
 from .orswot import _any, _lanes, _pad_tail
 
 DTYPE = torch.uint32
@@ -238,6 +238,34 @@ def apply_put(state: MVRegState, wact, wctr, clock, val):
         valid=valid | onehot,
     )
     return _narrow(out), overflow
+
+def compact(state: MVRegState, frontier):
+    """Causal-stability compaction (``reclaim/``): a register has no parked
+    buffer, so only the stale payload evicted slots leave behind (``apply_put``
+    flips ``valid`` without scrubbing) is reclaimed: zeroed and repacked
+    valid-first. The frontier is unused; reads are untouched. Returns
+    ``(state, freed_slots, freed_bytes)``."""
+    stale = ~state.valid & ((state.wact != 0) | (bits(state.wctr) != 0) | (state.val != 0)
+                            | torch.any(bits(state.clk) != 0, dim=-1))
+    out, _ = _compact(_wide(state), state.wact.shape[-1])
+    return (_narrow(out), from_raw(stale.sum(), torch.uint32),
+            torch.zeros((), dtype=torch.float32, device=stale.device))
+
+
+def canon(state: MVRegState) -> MVRegState:
+    """Content order of a slot table: valid first, then by witness dot
+    (actor, counter), dead payload zeroed (the JAX package's
+    ``analysis/canon.canon_mvreg``)."""
+    from .map import _canon_child
+
+    return _narrow(_canon_child(_wide(state)))
+
+
+def _observe(s: MVRegState):
+    """The observable read: the live sibling value set, content-ordered."""
+    c = canon(s)
+    return (c.val, c.valid)
+
 
 
 def _decomp_split(s: MVRegState):

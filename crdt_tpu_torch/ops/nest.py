@@ -51,8 +51,9 @@ batch axes, counted from the last (-1 = the batch axis right before the
 state's own axes), and the psum is an any-reduction over that axis.
 
 States broadcast over any leading batch axes (the JAX package's
-``jax.vmap``). Not ported here: the static checks' ``_law_*`` (ROADMAP
-item 16), ``compact`` (15.2) and ``_observe`` (15.6).
+``jax.vmap``). The kinds' ``compact`` and ``_observe`` live in
+``map_orswot.py``, ``map_map.py`` and ``map3.py``. Not ported here: the
+static checks' ``_law_*`` (ROADMAP item 16).
 """
 
 from __future__ import annotations

@@ -464,6 +464,25 @@ def apply_rm(state: OrswotState, rm_clock, member_mask):
         overflow,
     )
 
+def compact(state: OrswotState, frontier):
+    """Causal-stability compaction (``reclaim/``): retire the parked removes
+    the stable frontier covers (every replica's top covers them: they can
+    never kill another dot) and scrub the stale dead-slot payload
+    ``apply_add`` leaves behind, valid slots repacked to the front. The
+    present mask is untouched. Returns ``(state, freed_slots,
+    freed_bytes)``."""
+    from ..reclaim.compaction import retire_epochs
+
+    dcl, dmask, dvalid, freed, freed_b = retire_epochs(
+        state.dcl, state.dmask, state.dvalid, state.top, frontier)
+    return state._replace(dcl=dcl, dmask=dmask, dvalid=dvalid), freed, freed_b
+
+
+def _observe(s: OrswotState) -> torch.Tensor:
+    """The observable read: the membership mask."""
+    return torch.any(bits(s.ctr) != 0, dim=-1)
+
+
 
 def _decomp_split(s: OrswotState):
     """Join-irreducible decomposition granularity (``delta_opt/``): one δ

@@ -31,8 +31,7 @@ Sibling capacity is a PER-KEY live-cell bound checked after the replay.
 States broadcast over leading batch axes; a join's flags come per lane,
 ``[..., 3]``: [cell capacity, deferred capacity, sibling capacity]. No
 kernel: sorts, searches, gathers and scatters, as in the JAX package.
-Not ported here: ``_law_*`` (ROADMAP item 16), ``compact`` (15.2) and
-``_observe`` (15.6).
+Not ported here: ``_law_*`` (ROADMAP item 16).
 """
 
 from __future__ import annotations
@@ -518,6 +517,31 @@ def nest_apply_up_put(level, s, wact: int, wctr: int, kid_flat: int, clock, val:
     new_leaf, overflow = apply_up(level.leaf(s), wact, wctr, kid_flat, clock, val)
     out = level.settle_self(_graft_leaf(level, s, new_leaf))
     return _keep_where(seen, s, out), overflow & ~seen
+
+def compact(state: SparseMVMapState, frontier):
+    """Causal-stability compaction (``reclaim/``): replay the parked keyset
+    removes against the cell table, retire the slots the stable frontier
+    dominates, scrub stale parked payload and re-canonicalise, so freed
+    lanes pack to the tail. Live values per key are untouched. Returns
+    ``(state, freed_slots, freed_bytes)``."""
+    from ..reclaim.compaction import retire_epochs
+
+    valid = _replay_parked(state.kid, state.act, to_wide(state.ctr), state.valid,
+                           to_wide(state.dcl), state.kidx, state.dvalid)
+    kid, act, ctr, val, clk, valid, _ = _canon(
+        state.kid, state.act, to_wide(state.ctr), state.val, state.clk, valid,
+        state.kid.shape[-1], state.top.shape[-1])
+    dcl, kidx, dvalid, freed, freed_b = retire_epochs(
+        state.dcl, state.kidx, state.dvalid, state.top, frontier, payload_fill=-1)
+    return (SparseMVMapState(top=state.top, kid=kid, act=act, ctr=ctr, val=val, clk=clk,
+                             valid=valid, dcl=dcl, kidx=kidx, dvalid=dvalid), freed, freed_b)
+
+
+def _observe(s: SparseMVMapState):
+    """The observable read: the live ``(key, value)`` cell set in canonical
+    (kid, act) order."""
+    return (torch.where(s.valid, s.kid, -1), torch.where(s.valid, s.val, 0), s.valid)
+
 
 
 def _decomp_split(s: SparseMVMapState):

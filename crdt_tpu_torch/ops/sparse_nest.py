@@ -35,8 +35,7 @@ States broadcast over any leading batch axes (the JAX package's
 ``jax.vmap``); a join's flags come per batch lane, ``[..., L+1]``. The
 ops of this module have no kernel (sorts, binary searches, gathers and
 scatters), as in the JAX package, where no ``pallas_call`` reaches them.
-Not ported here: the static checks' ``_law_*`` (ROADMAP item 16),
-``compact`` (15.2) and ``_observe`` (15.6).
+Not ported here: the static checks' ``_law_*`` (ROADMAP item 16).
 """
 
 from __future__ import annotations
@@ -45,7 +44,7 @@ from typing import Any, NamedTuple
 
 import torch
 
-from .._dtypes import bits, from_wide, to_wide
+from .._dtypes import bits, from_raw, from_wide, raw, to_wide
 from . import sparse_orswot as sp
 from .lattice import tree_fold, tree_leaves, tree_map
 from .sparse_orswot import (
@@ -574,6 +573,43 @@ def empty_map_orswot(span: int, dot_cap: int, n_actors: int, deferred_cap: int =
         sp.empty(dot_cap, n_actors, deferred_cap, rm_width, batch=batch, device=device),
         n_actors, key_deferred_cap, key_rm_width, batch=batch,
     )
+
+def compact(state: SparseNestState, frontier):
+    """Causal-stability compaction (``reclaim/``) of any sparse nest:
+    compact the core slab (recursing through inner levels down to the
+    ORSWOT segment table or the register-map cell table), then retire this
+    level's stable parked keylist slots and scrub their stale payload.
+    Returns ``(state, freed_slots, freed_bytes)``."""
+    from ..reclaim.compaction import retire_epochs
+    from ..reclaim.frontier import top_of
+
+    core = state.core
+    if isinstance(core, SparseNestState):
+        core, n0, b0 = compact(core, frontier)
+    elif hasattr(core, "eid"):
+        core, n0, b0 = sp.compact(core, frontier)
+    else:
+        from .sparse_mvmap import compact as leaf_compact
+
+        core, n0, b0 = leaf_compact(core, frontier)
+    kcl, kidx, kdvalid, n1, b1 = retire_epochs(
+        state.kcl, state.kidx, state.kdvalid, top_of(state), frontier, payload_fill=-1)
+    return (SparseNestState(core, kcl, kidx, kdvalid),
+            from_raw(raw(n0) + raw(n1), torch.uint32), b0 + b1)
+
+
+def _observe(s: SparseNestState):
+    """The observable read: the LEAF slab's read (member ids for an ORSWOT
+    leaf, ``(key, value)`` cells for a register-map leaf)."""
+    leaf = s
+    while isinstance(leaf, SparseNestState):
+        leaf = leaf.core
+    if hasattr(leaf, "eid"):
+        return sp._observe(leaf)
+    from .sparse_mvmap import _observe as leaf_observe
+
+    return leaf_observe(leaf)
+
 
 
 def _decomp_split(s: SparseNestState):

@@ -614,6 +614,36 @@ def nbytes(state: SparseOrswotState) -> int:
     lead = state.eid.shape[:-1]
     return total // (int(np.prod(lead)) if lead else 1)
 
+def compact(state: SparseOrswotState, frontier):
+    """Causal-stability compaction (``reclaim/``): replay the parked removes
+    against the segment table (kills the dots their clocks still cover),
+    retire the slots the stable frontier dominates, scrub stale parked
+    payload and re-canonicalise, so dead lanes pack to the tail. The
+    membership read is untouched. Returns ``(state, freed_slots,
+    freed_bytes)``."""
+    from ..reclaim.compaction import retire_epochs
+
+    ctr = to_wide(state.ctr)
+    valid = _replay_parked(state.eid, state.act, ctr, state.valid, to_wide(state.dcl),
+                           state.didx, state.dvalid)
+    eid, act, ctr, valid, _ = _canon(state.eid, state.act, torch.where(valid, ctr, 0), valid,
+                                     state.eid.shape[-1], state.top.shape[-1])
+    dcl, didx, dvalid, freed, freed_b = retire_epochs(
+        state.dcl, state.didx, state.dvalid, state.top, frontier, payload_fill=-1)
+    return (SparseOrswotState(top=state.top, eid=eid, act=act, ctr=ctr, valid=valid,
+                              dcl=dcl, didx=didx, dvalid=dvalid), freed, freed_b)
+
+
+def _observe(s: SparseOrswotState) -> torch.Tensor:
+    """The observable read: the live member-id set, deduped across witness
+    actors and sorted, dead lanes -1."""
+    first = torch.cat([torch.ones_like(s.valid[..., :1]), s.eid[..., 1:] != s.eid[..., :-1]],
+                      dim=-1)
+    member = torch.where(s.valid & first, s.eid, _I32_MAX)
+    member = torch.sort(member, dim=-1).values
+    return torch.where(member == _I32_MAX, -1, member)
+
+
 
 def _decomp_split(s: SparseOrswotState):
     """Decomposition granularity (``delta_opt/``): one δ lane per segment-

@@ -82,14 +82,6 @@ def _dense_add(state, actor, ctr, member):
             torch.zeros(state.top.shape[:-1], dtype=torch.bool, device=state.top.device))
 
 
-def _no_compact(kind: str, site: str):
-    def compact(state, frontier):
-        raise NotImplementedError(
-            f"{kind} compact ({site}) not ported yet: ROADMAP item 15.2 ports the "
-            "compact functions with reclaim/"
-        )
-    return compact
-
 
 TENANT_KINDS: Dict[str, TenantKind] = {
     "orswot": TenantKind(
@@ -100,7 +92,7 @@ TENANT_KINDS: Dict[str, TenantKind] = {
         member_plane=lambda caps: ((caps["n_elems"],), np.bool_, False),
         changed=dense_ops.changed_members,
         join=dense_ops.join,
-        compact=_no_compact("orswot", "crdt_tpu/ops/orswot.py:490"),
+        compact=dense_ops.compact,
         widen=dense_ops.widen,
         narrow=dense_ops.narrow,
         observe=lambda s: torch.any(bits(s.ctr) != 0, dim=-1),
@@ -119,7 +111,7 @@ TENANT_KINDS: Dict[str, TenantKind] = {
         member_plane=lambda caps: ((caps["rm_width"],), np.int32, -1),
         changed=sparse_ops.changed_dots,
         join=sparse_ops.join,
-        compact=_no_compact("sparse_orswot", "crdt_tpu/ops/sparse_orswot.py:709"),
+        compact=sparse_ops.compact,
         widen=sparse_ops.widen,
         narrow=sparse_ops.narrow,
         observe=lambda s: (s.eid, s.act, s.ctr, s.valid),
@@ -263,12 +255,12 @@ def apply_slab_rows(tk: TenantKind, rows, slab: OpSlab):
 
 
 def compact_tenants(tk: TenantKind, superblock, frontier):
-    """Causal-stability compaction lifted over the tenant axis. Not ported
-    yet: it needs the ``compact`` functions (ROADMAP item 15.2)."""
-    raise NotImplementedError(
-        "compact_tenants not ported yet: ROADMAP item 15.2 ports ops/orswot.compact "
-        "(crdt_tpu/ops/orswot.py:490) and ops/sparse_orswot.compact (:709)"
-    )
+    """Causal-stability compaction lifted over the tenant axis: the kind's
+    compact over every tenant in one batched pass. ``frontier [T, A]`` is
+    per tenant (each tenant is its own causal domain: a single-replica
+    tenant's own top IS its stable frontier). Returns ``(superblock,
+    freed_slots, freed_bytes)`` summed over the tenants."""
+    return tk.compact(superblock, frontier)
 
 
 def sequential_oracle(tk: TenantKind, state, ops_list):

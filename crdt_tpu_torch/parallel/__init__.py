@@ -39,11 +39,22 @@ from .anti_entropy import (
     mesh_gossip_nested_map, mesh_gossip_sparse, mesh_gossip_sparse_mvmap,
     mesh_gossip_sparse_nested,
 )
-from .delta import DeltaPacket, interval_accumulate, mesh_delta_gossip
-from .delta_map import MapDeltaPacket, interval_accumulate_map, mesh_delta_gossip_map
-from .delta_map3 import Map3DeltaPacket, interval_accumulate_m3, mesh_delta_gossip_map3
+from .collectives import all_reduce_clock, all_reduce_join, all_reduce_lattice, ring_round
+from .delta import (
+    DeltaPacket, apply_delta, dirty_between, extract_delta, interval_accumulate,
+    mesh_delta_gossip,
+)
+from .delta_map import (
+    MapDeltaPacket, apply_delta_map, extract_delta_map, interval_accumulate_map,
+    mesh_delta_gossip_map,
+)
+from .delta_map3 import (
+    Map3DeltaPacket, apply_delta_m3, extract_delta_m3, interval_accumulate_m3,
+    mesh_delta_gossip_map3,
+)
 from .delta_map_orswot import (
-    MapOrswotDeltaPacket, interval_accumulate_mo, mesh_delta_gossip_map_orswot,
+    MapOrswotDeltaPacket, apply_delta_mo, extract_delta_mo, interval_accumulate_mo,
+    mesh_delta_gossip_map_orswot,
 )
 from .delta_ring import delta_gossip_elastic
 from .fanout_push import mesh_fanout_push
@@ -76,4 +87,7 @@ __all__ = [
     "mesh_stream_fold", "mesh_stream_fold_sparse", "mesh_stream_fold_sparse_mvmap",
     "mesh_stream_fold_sparse_sharded", "pad_elements", "pad_keys", "pad_replicas",
     "pad_replicas_map", "pad_replicas_sparse", "split_cells", "split_nested", "split_segments",
+    "all_reduce_clock", "all_reduce_join", "all_reduce_lattice", "apply_delta", "apply_delta_m3",
+    "apply_delta_map", "apply_delta_mo", "dirty_between", "extract_delta", "extract_delta_m3",
+    "extract_delta_map", "extract_delta_mo", "ring_round",
 ]

@@ -45,21 +45,38 @@ lanes (``changed_members``, ``changed_keys``, ``changed_dots``,
 ``bytes_exchanged`` one rank's shipped state per exchange, over all
 ranks — and, for the sparse kinds, over the mesh's ``s`` element shards,
 each of which holds and ships a replicated copy (the JAX sums over
-``(REPLICA_AXIS, ELEMENT_AXIS)``). The ``stability=`` and
-``lag_threshold=`` (ROADMAP item 15.2) and ``faults=`` (15.4) modes are
-still to port and raise, naming their items.
+``(REPLICA_AXIS, ELEMENT_AXIS)``).
+
+``stability=True`` on the ring entries (``reclaim/``) takes the mesh-wide
+stable frontier — one ``amin`` over every rank's PRE-fold input tops, the
+knowledge each replica entered with, so a straggler row pins it — runs
+the kind's ``compact`` on the converged rows before they are returned,
+and appends the frontier as the last tuple element. With
+``telemetry=True`` too, the Telemetry's ``reclaimed_slots`` /
+``reclaimed_bytes`` are the ranks' sums and ``frontier_lag`` their max.
+``lag_threshold=`` (it needs ``stability=``) watches the lag once per
+call from one host read (``reclaim.watch_lag``).
+
+Every entry feeds the host metrics registry at the JAX entries' points:
+a rounds counter, ``anti_entropy.merges`` (the folds),
+``anti_entropy.state_bytes`` and the ``<kind>.deferred_depth`` gauge of
+the padded input, and the ``anti_entropy.<kind>`` timer around the
+device work (the card is synchronised before it stops). The
+``faults=`` mode (ROADMAP item 15.4) is still to port and raises, naming
+its item.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Optional, Tuple
 
 import torch
 
 from .. import telemetry as tele
-from .._dtypes import bits, to_wide, umax
-from ..utils.metrics import metrics
+from .._dtypes import bits, from_raw, from_wide, raw, to_wide, umax
+from ..utils.metrics import metrics, observe_depth, state_nbytes
 from ..ops import map as map_ops
 from ..ops import map3 as m3_ops
 from ..ops import map_map as mm_ops
@@ -69,6 +86,7 @@ from ..ops import mvreg as mv_ops
 from ..ops import nest as nest_ops
 from ..ops import orswot as ops
 from ..ops import sparse_mvmap as smv
+from ..ops import sparse_nest as sparse_nest_ops
 from ..ops import sparse_orswot as sp
 from ..ops.fold_kernels import fold_auto
 from ..ops.lattice import tree_leaves, tree_map
@@ -79,6 +97,7 @@ from ..ops.orswot import OrswotState
 from ..ops.sparse_mvmap import SparseMVMapState
 from ..ops.sparse_nest import SparseNestState
 from ..ops.sparse_orswot import SparseOrswotState
+from ..reclaim.frontier import frontier_lag, top_of, watch_lag
 from .collectives import all_reduce_clock, all_reduce_join, all_reduce_lattice, psum, ring_round
 from .mesh import VirtualMesh, pad_replicas, pad_replicas_map, pad_replicas_sparse
 
@@ -88,9 +107,7 @@ _BATCHED_JOINS = (SparseOrswotState, SparseMVMapState, SparseNestState)
 
 
 # The ROADMAP item that ports each mode of the JAX entries still missing.
-_UNPORTED = {"frontier": "15.2", "compact_every": "15.2", "stability": "15.2",
-             "lag_threshold": "15.2", "reclaim": "15.2", "widen_policy": "15.3",
-             "faults": "15.4"}
+_UNPORTED = {"widen_policy": "15.3", "faults": "15.4"}
 
 
 def _refuse(fn: str, **modes) -> None:
@@ -99,6 +116,29 @@ def _refuse(fn: str, **modes) -> None:
     on = [f"{name}= (ROADMAP item {_UNPORTED[name]})" for name, value in modes.items() if value]
     if on:
         raise NotImplementedError(f"{fn}: {', '.join(on)} not ported yet; call without it")
+
+
+def _record(counter: str, n: int, blocks, depth_name: str, merges: bool = True) -> None:
+    """An entry's registry counts before its run (the JAX entries'): the
+    rounds ``counter`` by ``n``, ``anti_entropy.merges`` (a fold's
+    padded rows - 1), and the padded input's bytes and parked depth."""
+    metrics.count(counter, n)
+    if merges:
+        rows = tree_leaves(blocks)[0].shape[:2].numel()
+        metrics.count("anti_entropy.merges", max(rows - 1, 0))
+    metrics.observe("anti_entropy.state_bytes", state_nbytes(blocks))
+    observe_depth(depth_name, blocks)
+
+
+@contextlib.contextmanager
+def _timed(name: str, device):
+    """The entry's ``<name>_seconds`` timer around its device work (the
+    card is synchronised before the clock stops, as the JAX entries block
+    until ready)."""
+    with metrics.time(name):
+        yield
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
 
 
 def _exchange_count(p: int) -> int:
@@ -264,8 +304,10 @@ def mesh_fold(
     state, overflow)``, with the Telemetry third when ``telemetry=True``."""
     t0 = time.perf_counter()
     blocks = rank_blocks(state, mesh)
-    folded, of_local = local_folds(blocks, _fold_fn(local_fold))
-    joined, of_cross = all_reduce_join(folded)
+    _record("anti_entropy.fold_rounds", 1, blocks, "anti_entropy.orswot_fold")
+    with _timed("anti_entropy.fold", mesh.device):
+        folded, of_local = local_folds(blocks, _fold_fn(local_fold))
+        joined, of_cross = all_reduce_join(folded)
     out = tree_map(lambda x: x[0], joined)
     if donate:
         _consume(state, keep=out)
@@ -291,41 +333,78 @@ def mesh_gossip(
     (default P-1) unit-shift ring rounds, each shipping one state per
     link. Returns ``(states [P, ...], overflow)``; with P-1 rounds every
     row is the full join. ``donate=True``: see the module docstring."""
-    _refuse("mesh_gossip", stability=stability, faults=faults is not None,
-            lag_threshold=lag_threshold is not None)
+    _refuse("mesh_gossip", faults=faults is not None)
     return _gossip("orswot_gossip", state, mesh, rounds, donate, _fold_fn(local_fold), ops.join,
-                   telemetry, ops.changed_members)
+                   telemetry, ops.changed_members, stability=stability, compact_fn=ops.compact,
+                   lag_threshold=lag_threshold)
 
 
 def _gossip(kind: str, state, mesh: VirtualMesh, rounds: Optional[int], donate: bool, fold_fn,
-            join_fn, telemetry: bool = False, slots_fn=None, copies: int = 1):
+            join_fn, telemetry: bool = False, slots_fn=None, copies: int = 1,
+            stability: bool = False, compact_fn=None, lag_threshold=None):
     """The ring scaffold of the ``mesh_gossip*`` entries: each rank folds
     its block, then ``rounds`` (default P-1) unit-shift ring rounds.
     Returns ``(states [P, ...], overflow)`` with the flags OR-reduced over
     the ranks; ``telemetry=True`` adds the Telemetry (``slots_fn``'s
-    changed lanes summed over the rounds)."""
+    changed lanes summed over the rounds); ``stability=True`` compacts the
+    converged rows with ``compact_fn`` against the frontier of the input
+    tops and appends the frontier (module docstring)."""
+    if lag_threshold is not None and not stability:
+        raise ValueError(
+            "lag_threshold= needs stability=True: the stall alert watches the stable "
+            "frontier, which only exists on the stability path — without it the alert "
+            "would silently never arm")
     t0 = time.perf_counter()
     aliasable = _donation(state, mesh, donate)
     if rounds is None:
         rounds = mesh.p - 1
     blocks = rank_blocks(state, mesh)
-    folded, of = local_folds(blocks, fold_fn)
-    slots = 0
-    for _ in range(rounds):
-        new, of_r = ring_round(folded, reduce_overflow=False, join_fn=join_fn)
+    _record(f"anti_entropy.{kind}_rounds", rounds, blocks, f"anti_entropy.{kind}", merges=False)
+    with _timed(f"anti_entropy.{kind}", mesh.device):
+        if stability:
+            # The frontier over the PRE-fold input tops of every rank:
+            # the knowledge each replica entered with (a straggler pins it).
+            top = top_of(blocks)
+            frontier = from_wide(to_wide(top).reshape(-1, top.shape[-1]).amin(dim=0), top.dtype)
+        folded, of = local_folds(blocks, fold_fn)
+        slots = 0
+        for _ in range(rounds):
+            new, of_r = ring_round(folded, reduce_overflow=False, join_fn=join_fn)
+            if telemetry:
+                slots = slots + to_wide(slots_fn(folded, new))
+            folded, of = new, of | of_r
+        if stability:
+            folded, freed, freed_b = _compact_ranks(compact_fn, folded, frontier)
         if telemetry:
-            slots = slots + to_wide(slots_fn(folded, new))
-        folded, of = new, of | of_r
+            rl = tree_leaves(blocks)[0].shape[1]
+            slots = tele.scalar("slots_changed", slots, mesh.device)
+            tel = _tel_reduced(folded, slots, max(rl - 1, 0) + rounds,
+                               tele.shipped_bytes(folded, batch_dims=1) * rounds, mesh.p,
+                               copies=copies)
+            if stability:
+                tel = tel._replace(reclaimed_slots=freed, reclaimed_bytes=freed_b,
+                                   frontier_lag=frontier_lag(top_of(folded), frontier))
+        out = _donate_ring(donate, aliasable, state, folded), torch.any(of, dim=0)
     if telemetry:
-        rl = tree_leaves(blocks)[0].shape[1]
-        slots = tele.scalar("slots_changed", slots, mesh.device)
-        tel = _tel_reduced(folded, slots, max(rl - 1, 0) + rounds,
-                           tele.shipped_bytes(folded, batch_dims=1) * rounds, mesh.p,
-                           copies=copies)
-    out = _donate_ring(donate, aliasable, state, folded), torch.any(of, dim=0)
-    if telemetry:
-        return (*out, tele.finish_dispatch(kind, tel, t0))
+        out = (*out, tele.finish_dispatch(kind, tel, t0))
+    if stability:
+        out = (*out, frontier)
+        if lag_threshold is not None:
+            watch_lag(kind, int(frontier_lag(top_of(out[0]), frontier)), lag_threshold)
     return out
+
+
+def _compact_ranks(compact_fn, folded, frontier):
+    """Each rank's compaction of its converged row (the JAX per-device
+    ``compact_fn``): the ``[P, ...]`` rows compacted, and the freed slots
+    and bytes summed over the ranks once (the ``psum``; ``float32``
+    bytes)."""
+    p = tree_leaves(folded)[0].shape[0]
+    outs = [compact_fn(tree_map(lambda x: x[q], folded), frontier) for q in range(p)]
+    rows = stack([o[0] for o in outs], outs[0][0])
+    freed = from_raw(torch.stack([raw(o[1]) for o in outs]).sum(), torch.uint32)
+    freed_b = torch.stack([o[2] for o in outs]).sum()
+    return rows, freed, freed_b
 
 
 def _mesh_fold_replicated(kind: str, states, mesh: VirtualMesh, join_fn, fold_fn, slots_fn,
@@ -340,8 +419,10 @@ def _mesh_fold_replicated(kind: str, states, mesh: VirtualMesh, join_fn, fold_fn
     sparse kinds': ``mesh.s``)."""
     t0 = time.perf_counter()
     blocks = rank_blocks(states, mesh)
-    folded, of_local = local_folds(blocks, fold_fn)
-    joined, of_cross = all_reduce_lattice(folded, join_fn, fold_fn)
+    _record(f"anti_entropy.{kind}_rounds", 1, blocks, f"anti_entropy.{kind}")
+    with _timed(f"anti_entropy.{kind}", mesh.device):
+        folded, of_local = local_folds(blocks, fold_fn)
+        joined, of_cross = all_reduce_lattice(folded, join_fn, fold_fn)
     out = tree_map(lambda x: x[0], joined)
     if donate:
         _consume(states, keep=out)
@@ -379,10 +460,10 @@ def mesh_gossip_map(
     then ``rounds`` (default P-1) unit-shift ring rounds, each shipping
     one state per link. Returns ``(states [P, ...], overflow [2])``; with
     P-1 rounds every row is the full join."""
-    _refuse("mesh_gossip_map", stability=stability, faults=faults is not None,
-            lag_threshold=lag_threshold is not None)
+    _refuse("mesh_gossip_map", faults=faults is not None)
     return _gossip("map_gossip", state, mesh, rounds, donate, map_ops.fold, map_ops.join,
-                   telemetry, map_ops.changed_keys)
+                   telemetry, map_ops.changed_keys, stability=stability,
+                   compact_fn=map_ops.compact, lag_threshold=lag_threshold)
 
 
 def mesh_fold_sparse(
@@ -416,10 +497,10 @@ def mesh_gossip_sparse(
     ring rounds of ``ops.sparse_orswot.join``, one segment table per link
     per round (traffic proportional to live dots, not the universe).
     Returns ``(states [P, ...], overflow [2])``."""
-    _refuse("mesh_gossip_sparse", stability=stability, faults=faults is not None,
-            lag_threshold=lag_threshold is not None)
+    _refuse("mesh_gossip_sparse", faults=faults is not None)
     return _gossip("sparse_gossip", states, mesh, rounds, donate, sp.fold, sp.join, telemetry,
-                   sp.changed_dots, copies=mesh.s)
+                   sp.changed_dots, copies=mesh.s, stability=stability, compact_fn=sp.compact,
+                   lag_threshold=lag_threshold)
 
 
 def mesh_fold_sparse_mvmap(
@@ -456,12 +537,12 @@ def mesh_gossip_sparse_mvmap(
     ring rounds, one cell table per link per round (traffic proportional
     to live cells, not the key universe). Returns ``(states [P, ...],
     flags [3])``."""
-    _refuse("mesh_gossip_sparse_mvmap", stability=stability, faults=faults is not None,
-            lag_threshold=lag_threshold is not None)
+    _refuse("mesh_gossip_sparse_mvmap", faults=faults is not None)
     return _gossip(f"sparse_mvmap_gossip_s{sibling_cap}", states, mesh, rounds, donate,
                    lambda x: smv.fold(x, sibling_cap=sibling_cap),
                    lambda a, b: smv.join(a, b, sibling_cap=sibling_cap), telemetry,
-                   smv.changed_cells, copies=mesh.s)
+                   smv.changed_cells, copies=mesh.s, stability=stability,
+                   compact_fn=smv.compact, lag_threshold=lag_threshold)
 
 
 def _nested_kind(level, op: str) -> str:
@@ -505,10 +586,11 @@ def mesh_gossip_sparse_nested(
     ``SparseNestLevel`` composition): each rank folds its block, then
     ``rounds`` (default P-1) unit-shift ring rounds of ``level.join``.
     Returns ``(states [P, ...], flags [L+1])``."""
-    _refuse("mesh_gossip_sparse_nested", stability=stability, faults=faults is not None,
-            lag_threshold=lag_threshold is not None)
+    _refuse("mesh_gossip_sparse_nested", faults=faults is not None)
     return _gossip(_nested_kind(level, "gossip"), states, mesh, rounds, donate, level.fold,
-                   level.join, telemetry, tele.generic_slots_changed, copies=mesh.s)
+                   level.join, telemetry, tele.generic_slots_changed, copies=mesh.s,
+                   stability=stability, compact_fn=sparse_nest_ops.compact,
+                   lag_threshold=lag_threshold)
 
 
 # ---- the dense nests (ops.nest) ------------------------------------------------
@@ -536,10 +618,10 @@ def mesh_gossip_map_orswot(state, mesh: VirtualMesh, rounds: Optional[int] = Non
     """Ring anti-entropy for ``Map<K, Orswot>`` replica blocks: each rank
     folds its block, then ``rounds`` (default P-1) unit-shift ring rounds
     of ``map_orswot.join``. Returns ``(states [P, ...], flags [2])``."""
-    _refuse("mesh_gossip_map_orswot", stability=stability, faults=faults is not None,
-            lag_threshold=lag_threshold is not None)
+    _refuse("mesh_gossip_map_orswot", faults=faults is not None)
     return _gossip("map_orswot_gossip", state, mesh, rounds, donate, mo_ops.fold, mo_ops.join,
-                   telemetry, _leaf_members_changed(lambda s: s.core))
+                   telemetry, _leaf_members_changed(lambda s: s.core), stability=stability,
+                   compact_fn=mo_ops.compact, lag_threshold=lag_threshold)
 
 
 def mesh_fold_map3(state, mesh: VirtualMesh, telemetry: bool = False, donate: bool = False):
@@ -556,10 +638,10 @@ def mesh_gossip_map3(state, mesh: VirtualMesh, rounds: Optional[int] = None,
                      faults=None, lag_threshold=None):
     """Ring anti-entropy for ``Map<K1, Map<K2, Orswot>>`` replica blocks.
     Returns ``(states [P, ...], flags [3])``."""
-    _refuse("mesh_gossip_map3", stability=stability, faults=faults is not None,
-            lag_threshold=lag_threshold is not None)
+    _refuse("mesh_gossip_map3", faults=faults is not None)
     return _gossip("map3_gossip", state, mesh, rounds, donate, m3_ops.fold, m3_ops.join,
-                   telemetry, _leaf_members_changed(lambda s: s.mo.core))
+                   telemetry, _leaf_members_changed(lambda s: s.mo.core), stability=stability,
+                   compact_fn=m3_ops.compact, lag_threshold=lag_threshold)
 
 
 def mesh_fold_nested_map(state, mesh: VirtualMesh, telemetry: bool = False,
@@ -579,10 +661,10 @@ def mesh_gossip_nested_map(state, mesh: VirtualMesh, rounds: Optional[int] = Non
                            stability: bool = False, faults=None, lag_threshold=None):
     """Ring anti-entropy for ``Map<K1, Map<K2, MVReg>>`` replica blocks.
     Returns ``(states [P, ...], flags [3])``."""
-    _refuse("mesh_gossip_nested_map", stability=stability, faults=faults is not None,
-            lag_threshold=lag_threshold is not None)
+    _refuse("mesh_gossip_nested_map", faults=faults is not None)
     return _gossip("nested_map_gossip", state, mesh, rounds, donate, mm_ops.fold, mm_ops.join,
-                   telemetry, lambda a, b: map_ops.changed_keys(a.m, b.m))
+                   telemetry, lambda a, b: map_ops.changed_keys(a.m, b.m), stability=stability,
+                   compact_fn=mm_ops.compact, lag_threshold=lag_threshold)
 
 
 # ---- the clock, set and register kinds ----------------------------------------
@@ -672,17 +754,24 @@ def gossip_elastic(model, mesh: VirtualMesh, rounds: Optional[int] = None, polic
     ``[P, ...]`` rows and the axes grown (empty when capacity sufficed);
     ``telemetry=True`` appends a Telemetry folded across every attempt
     (``telemetry.combine``: a discarded attempt's counters were real work
-    and count, the gauges are the last attempt's). ``stability=``,
-    ``lag_threshold=`` and ``reclaim=`` (item 15.2) and ``faults=`` (item
-    15.4) raise."""
+    and count, the gauges are the last attempt's).
+
+    ``stability=True`` threads into the ring: the rows come back
+    compacted and the frontier rides as the LAST tuple element.
+    ``reclaim=`` takes an ``elastic.Hysteresis``, the shrink half of the
+    loop: after the attempt that succeeds, the converged rows are
+    committed into the model (:func:`_commit_rows`) and the tracker
+    observes it, narrowing cleared axes in place — after a reclaim round,
+    read the model, not the returned rows. ``lag_threshold=`` is the
+    frontier-stall alert (it needs ``stability=``). ``faults=`` (item
+    15.4) raises."""
     from .. import elastic
     from ..models.map import BatchedMap
     from ..models.orswot import BatchedOrswot
     from ..models.sparse_mvmap import BatchedSparseMap
     from ..models.sparse_nested_map import BatchedSparseNestedMap
     from ..models.sparse_orswot import BatchedSparseOrswot
-    _refuse("gossip_elastic", stability=stability, lag_threshold=lag_threshold is not None,
-            reclaim=reclaim is not None, faults=faults is not None)
+    _refuse("gossip_elastic", faults=faults is not None)
     policy = policy or elastic.DEFAULT_POLICY
 
     def plan(m):
@@ -714,7 +803,8 @@ def gossip_elastic(model, mesh: VirtualMesh, rounds: Optional[int] = None, polic
         run, lanes = plan(model)
         if donate:
             snap = tree_map(torch.clone, model.state)
-        out = run(model.state, mesh, rounds, donate=donate, telemetry=telemetry)
+        out = run(model.state, mesh, rounds, donate=donate, telemetry=telemetry,
+                  stability=stability, lag_threshold=lag_threshold)
         rows, flags = out[:2]
         if telemetry:
             tel = out[2] if tel is None else tele.combine(tel, out[2])
@@ -723,7 +813,18 @@ def gossip_elastic(model, mesh: VirtualMesh, rounds: Optional[int] = None, polic
         flags = torch.atleast_1d(flags).tolist()
         hot = tuple(axis for lane, axis in enumerate(lanes) if flags[lane])
         if not hot:
-            return (rows, widened, tel) if telemetry else (rows, widened)
+            if reclaim is not None:
+                # The shrink half: commit the converged rows (the shrink
+                # must narrow the state the model carries into its next
+                # round), then let the hysteresis decide.
+                _commit_rows(model, rows)
+                reclaim.observe(model)
+            ret = (rows, widened)
+            if telemetry:
+                ret = (*ret, tel)
+            if stability:
+                ret = (*ret, out[-1])
+            return ret
         if migrations >= policy.max_migrations:
             raise RuntimeError(
                 f"gossip still overflowing after {migrations} migrations (axes grown: "
@@ -733,8 +834,21 @@ def gossip_elastic(model, mesh: VirtualMesh, rounds: Optional[int] = None, polic
         migrations += 1
 
 
-__all__ = ["gossip_elastic", "local_folds", "mesh_fold", "mesh_fold_map", "mesh_fold_map3",
-           "mesh_fold_map_orswot", "mesh_fold_nested_map", "mesh_fold_sparse",
+def _commit_rows(model, rows) -> None:
+    """Commit gossip rows into a model for the reclaim path: slice the
+    identity-padded tail off and assign — the model is left as it was when
+    the shapes cannot line up (shrinking the pre-round state is still
+    sound; narrowing refuses anything unfit)."""
+    lead = tree_leaves(model.state)[0].shape[0]
+    sliced = tree_map(lambda x: x[:lead], rows)
+    if all(a.shape == b.shape and a.dtype == b.dtype
+           for a, b in zip(tree_leaves(sliced), tree_leaves(model.state))):
+        model.state = sliced
+
+
+__all__ = ["gossip_elastic", "local_folds", "mesh_fold", "mesh_fold_clocks", "mesh_fold_gset",
+           "mesh_fold_lww", "mesh_fold_map", "mesh_fold_map3", "mesh_fold_map_orswot",
+           "mesh_fold_mvreg", "mesh_fold_nested_map", "mesh_fold_sparse",
            "mesh_fold_sparse_mvmap", "mesh_fold_sparse_nested", "mesh_gossip", "mesh_gossip_map",
            "mesh_gossip_map3", "mesh_gossip_map_orswot", "mesh_gossip_nested_map",
            "mesh_gossip_sparse", "mesh_gossip_sparse_mvmap", "mesh_gossip_sparse_nested",

@@ -63,7 +63,14 @@ Modes ported (the JAX module docstring gives their soundness):
   its per-device carries). The Telemetry comes back as a fifth output.
 
 The residue certificate, the overflow OR, the narrow-lost parked count and
-the guarded top adoption follow the JAX ring exactly. ``faults=`` with its
+the guarded top adoption follow the JAX ring exactly. The ring feeds the
+host registry as the JAX ring does: ``anti_entropy.<kind>_rounds``, the
+padded input's ``anti_entropy.state_bytes``, the ``anti_entropy.<kind>``
+timer, ``wire.fused_runs``, the ``durability.wal_append`` timer, and — from
+one host read of the residue at the ring's end, never inside a round —
+the ``anti_entropy.<kind>.residue`` gauge, ``residue_runs`` and a
+once-per-kind warning that an under-budgeted ring is not converged
+(:func:`reset_residue_warnings` re-arms it). ``faults=`` with its
 delay mode (item 15.4) is still to port and raises, naming its item.
 """
 
@@ -80,7 +87,7 @@ from ..delta_opt import ackwin as _ackwin
 from ..obs import hist as _hist
 from ..ops import wire_kernels as _wk
 from ..ops.lattice import tree_leaves, tree_map
-from ..utils.metrics import metrics
+from ..utils.metrics import metrics, state_nbytes
 from . import wire as _wire
 from .anti_entropy import (
     _consume, _donation, _refuse, _tel_reduced, _write_back, local_folds, rank_blocks,
@@ -269,6 +276,9 @@ def run_delta_ring(
     if wal is not None and wal.tail is None:
         # The diff base, before the run: a donating run consumes the input.
         wal.attach(tree_map(lambda x: x.reshape(-1, *x.shape[2:]), blocks))
+    metrics.count(f"anti_entropy.{kind}_rounds", rounds)
+    metrics.observe("anti_entropy.state_bytes", state_nbytes(blocks))
+    t_run = time.perf_counter()
     rl = tree_leaves(blocks)[0].shape[1]
     pad_r = p * rl - dirty.shape[0]
     dirty = dirty.to(mesh.device)
@@ -459,17 +469,21 @@ def run_delta_ring(
     if telemetry:
         tel = rt.telemetry(folded, max(rl - 1, 0) + rounds, residue, fused,
                            awin if acked else None)
-    if acked:
-        metrics.count("delta_opt.ack_window_runs")
     if donate:
         if aliasable:
             folded, d = _write_back(caller, (folded, d))
         _consume(caller, keep=(folded, d))
+    if mesh.device.type == "cuda":
+        torch.cuda.synchronize(mesh.device)
+    metrics.observe(f"anti_entropy.{kind}_seconds", time.perf_counter() - t_run)
+    # The one host read of the run's counts (never inside a round).
+    _warn_residue(kind, int(residue))
     if wal is not None:
         # The host-side durability append, after the run.
         b0, f0 = wal.bytes_appended, wal.fsyncs
-        wal.append_state(wal_kind, folded)
-        wal.mark_round()
+        with metrics.time("durability.wal_append"):
+            wal.append_state(wal_kind, folded)
+            wal.mark_round()
         if telemetry:
             tel = tele.fill(tel, wal_bytes=wal.bytes_appended - b0, wal_fsyncs=wal.fsyncs - f0)
     if stats is not None:
@@ -483,6 +497,10 @@ def run_delta_ring(
         if acked:
             stats["slots_acked_skipped"] = int(counts["skipped"])
             stats["ack_bytes"] = counts.get("ack_bytes", 0)
+    if acked:
+        metrics.count("delta_opt.ack_window_runs")
+    if fused:
+        metrics.count("wire.fused_runs")
     out = (folded, d, overflow, residue.to(torch.int32))
     if not telemetry:
         return out
@@ -495,6 +513,44 @@ def run_delta_ring(
         metrics.count("wire.packed_bytes", int(d_tel["wire_packed_bytes"]))
         metrics.count(f"wire.packed_bytes.{kind}", int(d_tel["wire_packed_bytes"]))
     return (*out, tele.finish_dispatch(kind, tel, t0))
+
+
+# Kinds whose residue warning already fired this process; repeats only
+# count in the registry (see _warn_residue).
+_RESIDUE_WARNED: set = set()
+
+
+def reset_residue_warnings() -> None:
+    """Re-arm the once-per-kind residue warning (tests; or after an
+    operator fixed the budget and wants fresh signal)."""
+    _RESIDUE_WARNED.clear()
+
+
+def _warn_residue(kind: str, residue) -> None:
+    """The ring's residue accounting on the host: the
+    ``anti_entropy.<kind>.residue`` gauge on every run; a run with residue
+    counts ``anti_entropy.<kind>.residue_runs`` and warns once per kind per
+    process that the ring is not guaranteed converged. ``residue`` is an
+    int, or a ring's result tuple (its fourth element)."""
+    if isinstance(residue, tuple):
+        residue = residue[3]
+    residue = int(residue)
+    metrics.observe(f"anti_entropy.{kind}.residue", float(residue))
+    if not residue:
+        return
+    metrics.count(f"anti_entropy.{kind}.residue_runs")
+    if kind in _RESIDUE_WARNED:
+        return
+    _RESIDUE_WARNED.add(kind)
+    import warnings
+
+    warnings.warn(
+        f"{kind}: round budget left residue ({residue} slot-starved row-rounds) — the "
+        f"ring is NOT guaranteed converged; raise `rounds` (see the ROUNDS BUDGET note in "
+        f"parallel/delta.py; pipeline=True budgets are ~2x) or `cap`. Warned once per "
+        f"kind; repeats count in anti_entropy.{kind}.residue_runs",
+        stacklevel=4,
+    )
 
 
 def delta_gossip_elastic(
@@ -543,12 +599,19 @@ def delta_gossip_elastic(
     Returns ``(states, dirty, overflow, residue, widened)``: the
     ``mesh_delta_gossip`` tuple plus the axes grown (empty when capacity
     sufficed); ``telemetry=True`` appends a Telemetry folded across every
-    attempt (``telemetry.combine``). ``reclaim=`` (item 15.2) and
-    ``faults=`` (item 15.4) raise."""
+    attempt (``telemetry.combine``).
+
+    ``reclaim=`` takes an ``elastic.Hysteresis``, composing as in
+    ``anti_entropy.gossip_elastic``: after the attempt that succeeds the
+    rows are committed into the model, compacted on the host side against
+    the committed rows' own frontier (``reclaim.compact_model``: the
+    certified ring has no spare output for a frontier, and the batch is
+    the replica set), and the tracker observes the model and narrows
+    cleared axes in place. ``faults=`` (item 15.4) raises."""
     from .. import elastic
     from .delta import mesh_delta_gossip
 
-    _refuse("delta_gossip_elastic", reclaim=reclaim is not None, faults=faults is not None)
+    _refuse("delta_gossip_elastic", faults=faults is not None)
     if wal is not None and wal.tail is None:
         wal.attach(model.state)
     policy = policy or elastic.DEFAULT_POLICY
@@ -569,6 +632,13 @@ def delta_gossip_elastic(
         if donate:
             model.state, dirty = snap, snap_dirty
         if not bool(torch.any(out[2])):
+            if reclaim is not None:
+                from ..reclaim import compact_model
+                from .anti_entropy import _commit_rows
+
+                _commit_rows(model, out[0])
+                compact_model(model)
+                reclaim.observe(model)
             if wal is not None:
                 # The committed attempt is the durable transition.
                 wal.append_state("orswot", out[0])
@@ -584,4 +654,4 @@ def delta_gossip_elastic(
         migrations += 1
 
 
-__all__ = ["delta_gossip_elastic", "run_delta_ring"]
+__all__ = ["delta_gossip_elastic", "reset_residue_warnings", "run_delta_ring"]

@@ -78,13 +78,24 @@ refuses (re-chunk the source).
   float32 step by step as ``combine`` sums it; the gauges are the last
   step's.
 
-Modes of the JAX entries still to port raise ``NotImplementedError``
-naming their ROADMAP item: ``frontier=``/``compact_every=`` (item 15.2),
-``widen_policy=`` (15.3), ``faults=`` (15.4).
+- ``compact_every=N`` compacts the accumulator after every N-th block
+  against ``frontier`` (the all-zeros frontier when None: a scrub and
+  repack that retires nothing), through the plan's kind ``compact``; the
+  freed counts add up on the device (no host sync inside a step) and feed
+  ``reclaim.reclaimed_*.stream.<kind>`` and, with ``telemetry=True``, the
+  Telemetry's ``reclaimed_slots`` / ``reclaimed_bytes`` once at the end.
+
+The stream feeds the ``stream.<kind>.deferred_depth`` gauge (of the first
+block) and the ``stream.<kind>`` timer around the block loop, and counts
+``stream.unaliasable_blocks`` for a repacked block of a donating stream,
+as the JAX stream does. Modes of the JAX entries still to port raise
+``NotImplementedError`` naming their ROADMAP item: ``widen_policy=``
+(15.3), ``faults=`` (15.4).
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, replace
 from typing import Any, Callable, Dict, Iterable, Tuple
 
@@ -92,13 +103,13 @@ import numpy as np
 import torch
 
 from .. import telemetry as tele
-from .._dtypes import bits, to_wide
+from .._dtypes import bits, from_raw, raw, to_wide
 from ..ops import orswot as ops
 from ..ops import sparse_mvmap as smv
 from ..ops import sparse_orswot as sp
 from ..ops.fold_kernels import fold_auto
 from ..ops.lattice import tree_map
-from ..utils.metrics import metrics
+from ..utils.metrics import metrics, observe_depth
 from .anti_entropy import _exchange_count, _refuse, local_folds
 from .collectives import all_reduce_lattice
 from .mesh import VirtualMesh
@@ -137,6 +148,7 @@ class _StreamPlan:
     # lane is not a state axis); read by widen_policy= (ROADMAP item 15.3).
     flag_axes: Tuple[str, ...] = ()
     sharded: bool = False    # blocks [B, S, ...], accumulator [S, ...]
+    compact_fn: Callable = None  # (state, frontier) -> (state, freed_slots, freed_bytes)
 
 
 def _plan_sparse() -> _StreamPlan:
@@ -156,6 +168,7 @@ def _plan_sparse() -> _StreamPlan:
         widen_state=lambda s, caps: sp.widen(s, **caps),
         slots_fn=sp.changed_dots,
         flag_axes=("dot_cap", "deferred_cap"),
+        compact_fn=sp.compact,
     )
 
 
@@ -177,6 +190,7 @@ def _plan_sparse_mvmap(sibling_cap: int) -> _StreamPlan:
         slots_fn=smv.changed_cells,
         # The sibling lane is a join argument, not a state axis.
         flag_axes=("cell_cap", "deferred_cap", ""),
+        compact_fn=smv.compact,
     )
 
 
@@ -203,6 +217,7 @@ def _plan_dense() -> _StreamPlan:
         widen_state=lambda s, caps: ops.widen(s, **caps),
         slots_fn=ops.changed_members,
         flag_axes=("deferred_cap",),
+        compact_fn=ops.compact,
     )
 
 
@@ -301,8 +316,8 @@ def _stream_fold(
     """The shared scaffold: template derivation, upload and repack of each
     block, the double-buffered step loop and the interrupt protocol (see
     the module docstring)."""
-    _refuse("mesh_stream_fold", frontier=frontier is not None, compact_every=compact_every,
-            widen_policy=widen_policy is not None, faults=faults is not None)
+    _refuse("mesh_stream_fold", widen_policy=widen_policy is not None,
+            faults=faults is not None)
     device, p = mesh.device, mesh.p
     on_card = device.type == "cuda"
     it = iter(blocks)
@@ -380,6 +395,8 @@ def _stream_fold(
             )
         if widened is not block:
             metrics.count("stream.repacked_blocks")
+            if donate:
+                metrics.count("stream.unaliasable_blocks")
         return widened
 
     # ---- accumulator -------------------------------------------------
@@ -389,6 +406,15 @@ def _stream_fold(
             acc = tree_map(torch.clone, acc)  # never consume the caller's buffers
     else:
         acc = plan.empty(caps, shard_batch, device)
+
+    reclaimed = None
+    if compact_every:
+        if plan.compact_fn is None:
+            raise ValueError(f"{plan.kind}: no compaction kernel")
+        top = acc.top[0] if plan.sharded else acc.top
+        frontier_t = torch.zeros_like(top) if frontier is None else frontier
+        reclaimed = (torch.zeros((), dtype=torch.int64, device=device),
+                     torch.zeros((), dtype=torch.float32, device=device))
 
     metrics.count(f"stream.{plan.kind}_rounds")
     try:
@@ -405,6 +431,8 @@ def _stream_fold(
     slots = 0
     if wal is not None:
         wal_b0, wal_f0 = wal.bytes_appended, wal.fsyncs
+    observe_depth(f"stream.{plan.kind}", first if first is not None else acc)
+    t_loop = time.perf_counter()
     while staged is not None:
         block = arrive(staged)
         staged_bytes += _nbytes(block)
@@ -415,6 +443,9 @@ def _stream_fold(
         overflow = of if overflow is None else overflow | of
         blocks_done += 1
         del block, staged
+        if compact_every and blocks_done % compact_every == 0:
+            acc, freed, freed_b = plan.compact_fn(acc, frontier_t)
+            reclaimed = (reclaimed[0] + raw(freed), reclaimed[1] + freed_b)
         if wal_every and blocks_done % wal_every == 0:
             persist_resume(acc, blocks_done)
         if not pipeline:
@@ -437,6 +468,9 @@ def _stream_fold(
             persist_resume(acc, blocks_done)
             raise StreamInterrupted(exc, acc, blocks_done) from exc
     persist_resume(acc, blocks_done)
+    if on_card:
+        torch.cuda.synchronize(device)
+    metrics.observe(f"stream.{plan.kind}_seconds", time.perf_counter() - t_loop)
 
     if overflow is None:
         overflow = torch.zeros((), dtype=torch.bool, device=device)
@@ -444,12 +478,19 @@ def _stream_fold(
     metrics.count("stream.staged_bytes", staged_bytes)
     metrics.count("stream.overlap_hit", overlap_hits)
     metrics.observe("stream.acc_bytes", _nbytes(acc))
+    if compact_every:
+        from ..reclaim import record_reclaim
+
+        reclaimed = (from_raw(reclaimed[0], torch.uint32), reclaimed[1])
+        record_reclaim(f"stream.{plan.kind}", int(reclaimed[0]), float(reclaimed[1]))
     if not telemetry:
         return acc, overflow
     tel = tele.fill(_stream_tel(acc, slots, blocks_done, template_rows, p,
                                 shards=mesh.s if plan.sharded else 0),
                     stream_blocks=blocks_done, stream_staged_bytes=staged_bytes,
                     stream_overlap_hit=overlap_hits)
+    if compact_every:
+        tel = tel._replace(reclaimed_slots=reclaimed[0], reclaimed_bytes=reclaimed[1])
     if wal is not None:
         tel = tele.fill(tel, wal_bytes=wal.bytes_appended - wal_b0,
                         wal_fsyncs=wal.fsyncs - wal_f0)

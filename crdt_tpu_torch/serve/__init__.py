@@ -25,8 +25,7 @@ from one card.
 
 Every ``telemetry=True`` path returns the JAX package's Telemetry, and
 the ``annotate`` methods fill its serving fields. Left out, each raising
-and naming its ROADMAP item: ``compact_tenants`` (15.2),
-``sync_tenant_shards`` (5), ``wal_order_violations`` /
+and naming its ROADMAP item: ``sync_tenant_shards`` (5), ``wal_order_violations`` /
 ``wal_precedes_dispatch`` and :func:`static_checks` (16).
 """
 

@@ -23,9 +23,11 @@ module's (its docstring lists them all): ``merges``, ``slots_changed``,
 ``deferred_depth``, ``bytes_exchanged`` (the static wire bytes),
 ``bytes_useful`` (post-mask payload bytes), ``residue``,
 ``widen_pressure``, the stream, ack-window, durability, packed-wire,
-serving and fan-out fields, and the in-loop histograms. The reclaim,
-fault, scale-out and geo fields stay 0 until their slices port the modes
-that fill them.
+serving and fan-out fields, the reclaim fields (``stability=`` on the
+ring entries and the streams' ``compact_every=``), and the in-loop
+histograms. The fault, scale-out and geo fields stay 0 until their
+slices port the modes that fill them. :func:`reset_residue_warnings`
+re-exports the δ ring's once-per-kind residue warning reset.
 
 :func:`span` is the host-side half: a context manager that emits one
 structured event per span (``configure_tracing`` points them at a JSONL
@@ -521,9 +523,18 @@ def span(name: str, **attrs):
                "dur_s": time.perf_counter() - t0, "parent": parent, "attrs": attrs})
 
 
+def reset_residue_warnings() -> None:
+    """Re-arm the δ ring's once-per-kind residue warning (the re-export of
+    ``parallel.delta_ring.reset_residue_warnings``: one dedupe state)."""
+    from .parallel.delta_ring import reset_residue_warnings as _reset
+
+    _reset()
+
+
 __all__ = [
     "GAUGE_FIELDS", "HIST_FIELDS", "Telemetry", "combine", "configure_tracing",
     "copy", "counter_increments", "device_depth", "device_pressure", "drain_events", "field_dtype",
-    "fill", "finish_dispatch", "generic_slots_changed", "is_concrete", "packet_useful_bytes", "record", "scalar",
+    "fill", "finish_dispatch", "generic_slots_changed", "is_concrete", "packet_useful_bytes", "record",
+    "reset_residue_warnings", "scalar",
     "shipped_bytes", "span", "time_dispatch", "to_dict", "zeros",
 ]

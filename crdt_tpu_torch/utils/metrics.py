@@ -6,7 +6,9 @@ model feeds: ``metrics.count(name, n)`` for monotonic counters (e.g.
 sum/n gauges (e.g. ``orswot.deferred_depth``), ``metrics.time(name)``
 for the ``<name>_seconds`` wall-clock gauge of a block, and
 ``snapshot()`` to read them (``reset()`` clears them); ``state_nbytes``
-prices a state. Host-side only; no kernel touches it.
+prices a state, and ``deferred_depth`` / ``observe_depth`` read the live
+parked-slot depth the mesh entries and streams record. Host-side only;
+no kernel touches it.
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ import contextlib
 import threading
 import time
 from typing import Any, Dict
+
+import torch
 
 
 class Metrics:
@@ -71,4 +75,34 @@ def state_nbytes(state) -> int:
     return sum(state_nbytes(x) for x in state)
 
 
-__all__ = ["Metrics", "metrics", "state_nbytes"]
+def deferred_depth(state) -> float:
+    """Live deferred-buffer depth of a (possibly batched) state tree: the
+    MAX over replicas of valid parked slots summed across every buffer
+    level (fields named ``*dvalid``, the masked-epoch convention of the
+    dense, sparse and nested kinds). The BASELINE §6.5 "deferred-buffer
+    depth" gauge. One host read of the summed depths."""
+    total = None
+
+    def walk(node):
+        nonlocal total
+        if hasattr(node, "_fields"):
+            for name in node._fields:
+                child = getattr(node, name)
+                if name.endswith("dvalid"):
+                    d = child.sum(dim=-1, dtype=torch.int64)
+                    total = d if total is None else total + d
+                elif hasattr(child, "_fields"):
+                    walk(child)
+
+    walk(state)
+    if total is None:
+        return 0.0
+    return float(total.max())
+
+
+def observe_depth(name: str, state) -> None:
+    """Record ``deferred_depth(state)`` under ``<name>.deferred_depth``."""
+    metrics.observe(f"{name}.deferred_depth", deferred_depth(state))
+
+
+__all__ = ["Metrics", "deferred_depth", "metrics", "observe_depth", "state_nbytes"]

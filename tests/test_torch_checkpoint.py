@@ -189,10 +189,12 @@ def test_checkpoint_checksumless_loads_with_one_shot_warning(tmp_path):
 
 def test_unported_checkpoint_modes_name_their_item(tmp_path):
     _, port = _models("orswot", 1)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP item 15\.2"):
-        checkpoint.save(tmp_path / "ck.npz", port, compact=True)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP item 15\.2"):
-        snap.save(tmp_path / "snap", port, compact=True)
+    # compact=True runs since ROADMAP item 15.2 (parity across packages:
+    # tests/test_torch_reclaim.py); the read is kept.
+    before = port.to_pure(0)
+    checkpoint.save(tmp_path / "ck.npz", port, compact=True)
+    assert checkpoint.load(tmp_path / "ck.npz", device="cpu").to_pure(0) == before
+    assert snap.save(tmp_path / "snap", port, compact=True) == 1
     # The list kinds are ported (tests/test_torch_lists.py); what stays
     # refused is a kind neither package writes.
     with pytest.raises(ValueError, match="unknown checkpoint kind"):

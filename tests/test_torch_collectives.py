@@ -106,6 +106,14 @@ def test_entries_refuse_unported_modes_and_default_to_the_card():
                               **kw)
             assert len(out) == 3 and int(out[2].merges.view(torch.int32)) == 4 * (2 - 1 + 3)
             continue
+        if kw.get("stability"):  # ROADMAP item 15.2: the frontier comes back last
+            out = mesh_gossip(state, VirtualMesh(4, "cpu"), **kw)
+            assert len(out) == 3 and out[2].shape == state.top.shape[1:]
+            continue
+        if "lag_threshold" in kw:  # the stall alert needs stability=True
+            with pytest.raises(ValueError, match="lag_threshold= needs stability=True"):
+                mesh_gossip(state, VirtualMesh(4, "cpu"), **kw)
+            continue
         with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
             mesh_gossip(state, VirtualMesh(4, "cpu"), **kw)
     out = mesh_fold(state, VirtualMesh(4, "cpu"), telemetry=True)

@@ -244,15 +244,26 @@ def test_an_elastic_wrapper_gives_up_after_max_migrations():
 
 
 @pytest.mark.parametrize("flag,item", [(dict(telemetry=True), None),
-                                       (dict(stability=True), "15.2"),
-                                       (dict(reclaim=object()), "15.2"),
+                                       (dict(stability=True), None),
+                                       (dict(reclaim="hysteresis"), None),
                                        (dict(faults=object()), "15.4")])
 def test_elastic_wrappers_refuse_unported_modes(flag, item):
     """Each mode still to port raises naming its item; ``telemetry=`` runs
-    (ROADMAP item 15.1) and appends the attempts' Telemetry."""
+    (ROADMAP item 15.1) and appends the attempts' Telemetry; ``stability=``
+    and ``reclaim=`` run (15.2; parity in tests/test_torch_reclaim.py)."""
     _, port_mesh = mesh()
     port = BatchedOrswot.from_pure([port_orswot(r) for r in _orswot_pures(P, 1)], device="cpu")
     dirty = torch.ones((P, port.state.ctr.shape[-2]), dtype=torch.bool)
+    if "stability" in flag:
+        rows, widened, frontier = gossip_elastic(port, port_mesh, **flag)
+        assert frontier.shape == port.state.top.shape[1:]
+        return
+    if "reclaim" in flag:
+        hyst = elastic.Hysteresis()
+        assert len(gossip_elastic(port, port_mesh, reclaim=hyst)) == 2
+        assert len(delta_gossip_elastic(port, dirty, torch.zeros_like(port.state.ctr),
+                                        port_mesh, reclaim=hyst)) == 5
+        return
     if item is None:
         rows, widened, tel = gossip_elastic(port, port_mesh, **flag)
         assert tel.merges.dtype == torch.uint32 and int(tel.residue) == 0
@@ -262,9 +273,6 @@ def test_elastic_wrappers_refuse_unported_modes(flag, item):
         return
     with pytest.raises(NotImplementedError, match=rf"ROADMAP item {item}\)"):
         gossip_elastic(port, port_mesh, **flag)
-    # delta_gossip_elastic has no stability=; it refuses reclaim= (the same
-    # item) in the company of the ported wal=.
-    flag = dict(reclaim=object(), wal=object()) if "stability" in flag else flag
     with pytest.raises(NotImplementedError, match=rf"ROADMAP item {item}\)"):
         delta_gossip_elastic(port, dirty, torch.zeros_like(port.state.ctr), port_mesh, **flag)
 

@@ -1,0 +1,146 @@
+"""Every name the JAX package exports (each module's ``__all__``) exists
+at the same path in the port, but for an explicit list: the names that
+are JAX-only (mesh specs, sharding and padding helpers, the jit cache
+keys, the JAX profiler), and the names of open ROADMAP items, each listed
+with its item. Modules the port does not have yet are listed the same
+way."""
+
+import importlib
+import pkgutil
+
+import pytest
+
+import crdt_tpu
+
+# Names that belong to the JAX runtime and have no counterpart by design.
+JAX_ONLY = {
+    "make_mesh", "REPLICA_AXIS", "ELEMENT_AXIS", "AckWindowKey", "WireKey", "profile_trace",
+    "map_specs", "map_out_specs", "orswot_specs", "orswot_out_specs", "map3_specs",
+    "map_orswot_specs", "nested_map_specs", "shard_map3", "shard_map_orswot",
+    "shard_nested_map", "shard_map_state", "shard_orswot",
+    ("crdt_tpu.telemetry", "specs"),
+}
+
+# Names and modules of open ROADMAP items: name (or (module, name), or a
+# module path) -> the item that ports it.
+OPEN_ITEMS = {
+    "crdt_tpu.exporter": "15.6", "exporter": "15.6",
+    "crdt_tpu.obs.recorder": "15.6", "crdt_tpu.obs.trace": "15.6",
+    "crdt_tpu.analysis.slo": "15.6",
+    "crdt_tpu.faults.inject": "15.4", "crdt_tpu.faults.membership": "15.4",
+    "crdt_tpu.faults.retry": "15.4", "crdt_tpu.faults.scenarios": "15.4",
+    "crdt_tpu.scaleout.mesh_scale": "15.5", "crdt_tpu.scaleout.autoscaler": "15.5",
+    "crdt_tpu.geo": "15.7",
+    "crdt_tpu.analysis.concur": "16", "crdt_tpu.analysis.interleave": "16",
+    "crdt_tpu.parallel.wire_checks": "16",
+    "static_checks": "16", "checksum_detects": "16",
+    "multihost": "5",
+    "StreamFaultReport": "15.4",
+    "replicaset": "26",
+}
+for _name in ("DcnExchangeFailed", "FaultCounters", "FaultPlan", "Membership", "ResyncReport",
+              "RetryPolicy", "accumulate_counters", "block_wire", "combine_counters",
+              "corrupt_tree", "counters_specs", "evicted_mask", "inv_ring_perm", "receive_wire",
+              "record", "resync", "ring_perm", "round_faults", "scenarios", "sender_of",
+              "tick_counters", "tree_select", "validate_perm", "with_retries"):
+    OPEN_ITEMS[("crdt_tpu.faults", _name)] = "15.4"
+for _name in ("FlightRecorder", "Tracer", "advance_round", "auto_dump", "configure_auto_dump",
+              "current_key", "dump_dir", "emit", "get_recorder", "get_tracer",
+              "histogram_conformant", "install", "install_tracer", "recorder_conformant",
+              "skew_report", "trace", "tracer_conformant"):
+    OPEN_ITEMS[("crdt_tpu.obs", _name)] = "15.6"
+for _name in ("AdmitReport", "AutoscaleDecision", "Autoscaler", "DrainCertificate",
+              "DrainRefused", "RingGeneration", "ScaleoutMesh", "certify_drain",
+              "drain_refuses_unflushed", "park_row"):
+    OPEN_ITEMS[("crdt_tpu.scaleout", _name)] = "15.5"
+OPEN_ITEMS["bootstrap_rejects_corruption"] = "15.4"
+# Open names the port already defines as a stub that raises naming its item.
+STUBS = {("crdt_tpu.serve", "static_checks")}
+
+
+def _modules():
+    yield crdt_tpu.__name__
+    for info in pkgutil.walk_packages(crdt_tpu.__path__, crdt_tpu.__name__ + "."):
+        yield info.name
+
+
+def _excused(module: str, name: str) -> bool:
+    return (name in JAX_ONLY or (module, name) in JAX_ONLY or name in OPEN_ITEMS
+            or (module, name) in OPEN_ITEMS)
+
+
+def _exports():
+    out = []
+    for module in _modules():
+        try:
+            ref = importlib.import_module(module)
+        except Exception:  # a reference module that does not import here
+            continue
+        if getattr(ref, "__all__", None):
+            out.append((module, ref))
+    return out
+
+
+EXPORTS = _exports()
+
+
+def test_every_jax_export_is_in_the_port_or_listed():
+    missing = []
+    for module, ref in EXPORTS:
+        port_name = "crdt_tpu_torch" + module[len("crdt_tpu"):]
+        if module in OPEN_ITEMS:
+            continue
+        try:
+            port = importlib.import_module(port_name)
+        except ModuleNotFoundError:
+            missing.append(module)
+            continue
+        missing += [f"{module}.{n}" for n in ref.__all__
+                    if not hasattr(port, n) and not _excused(module, n)]
+    assert not missing, missing
+
+
+def test_every_listed_open_name_is_still_missing():
+    """The lists stay honest: a listed name that the port now has must
+    come off its list (and its item be closed)."""
+    ported = []
+    for module, ref in EXPORTS:
+        port_name = "crdt_tpu_torch" + module[len("crdt_tpu"):]
+        try:
+            port = importlib.import_module(port_name)
+        except ModuleNotFoundError:
+            continue
+        ported += [f"{module}.{n}" for n in ref.__all__
+                   if (n in OPEN_ITEMS or (module, n) in OPEN_ITEMS) and hasattr(port, n)
+                   and (module, n) not in STUBS]
+    assert not ported, ported
+
+
+@pytest.mark.parametrize("module,names", [
+    ("crdt_tpu_torch", ["serde", "metrics", "telemetry", "Telemetry", "span", "lifecycle"]),
+    ("crdt_tpu_torch.parallel", ["all_reduce_clock", "all_reduce_join", "all_reduce_lattice",
+                                 "ring_round", "apply_delta", "extract_delta", "dirty_between",
+                                 "apply_delta_map", "extract_delta_map", "apply_delta_mo",
+                                 "extract_delta_mo", "apply_delta_m3", "extract_delta_m3"]),
+    ("crdt_tpu_torch.faults", ["checksum", "verify"]),
+    ("crdt_tpu_torch.native", ["native_available"]),
+    ("crdt_tpu_torch.parallel.anti_entropy", ["mesh_fold_clocks", "mesh_fold_gset",
+                                              "mesh_fold_lww", "mesh_fold_mvreg"]),
+    ("crdt_tpu_torch.reclaim", ["Hysteresis", "shrink", "compact_model", "stable_frontier"]),
+])
+def test_the_repaired_exports_are_in_all(module, names):
+    mod = importlib.import_module(module)
+    for name in names:
+        assert name in mod.__all__ and getattr(mod, name) is not None, (module, name)
+
+
+def test_native_available_reports_without_raising(monkeypatch):
+    from crdt_tpu_torch import native
+
+    assert isinstance(native.native_available(), bool)
+
+    def broken():
+        raise RuntimeError("no compiler")
+
+    monkeypatch.setattr(native, "library", broken)
+    assert native.native_available() is False

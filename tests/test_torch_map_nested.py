@@ -508,10 +508,17 @@ def test_mesh_entries_match_the_jax_mesh_with_telemetry(kind, entry, p_):
 def test_unported_gossip_modes_name_their_item(mode):
     reps, _ = population("map3", 1)
     _, p = pair("map3", reps)
-    item = {"stability": "15.2", "faults": "15.4", "lag_threshold": "15.2"}[mode]
-    for fn in (mesh_gossip_map_orswot, mesh_gossip_map3, mesh_gossip_nested_map):
-        with pytest.raises(NotImplementedError, match=rf"ROADMAP item {item}\)"):
-            fn(p.state, VirtualMesh(2, "cpu"), **{mode: True if mode == "stability" else 1})
+    for kind, fn in (("map_orswot", mesh_gossip_map_orswot), ("map3", mesh_gossip_map3),
+                     ("map_map", mesh_gossip_nested_map)):
+        if mode == "stability":  # ROADMAP item 15.2: the frontier comes back last
+            _, own = pair(kind, population(kind, 1)[0])
+            assert len(fn(own.state, VirtualMesh(2, "cpu"), stability=True)) == 3
+        elif mode == "lag_threshold":  # the stall alert needs stability=True
+            with pytest.raises(ValueError, match="needs stability=True"):
+                fn(p.state, VirtualMesh(2, "cpu"), lag_threshold=1)
+        else:
+            with pytest.raises(NotImplementedError, match=r"ROADMAP item 15\.4\)"):
+                fn(p.state, VirtualMesh(2, "cpu"), faults=1)
 
 
 # ---- the sparse Map<K1, Map<K2, MVReg>> -------------------------------------------------

@@ -266,7 +266,10 @@ def test_observe_and_caps_match_jax(kind, caps):
 def test_compact_tenants_raises_naming_its_item():
     rows = rows_after("orswot", DENSE_CAPS, rand_streams("orswot", DENSE_CAPS, 3, 10, 1))
     tk = sb.tenant_kind("orswot")
-    with pytest.raises(NotImplementedError, match="15.2"):
-        sb.compact_tenants(tk, rows, rows.top)
-    with pytest.raises(NotImplementedError, match="15.2"):
-        tk.compact(rows, rows.top)
+    # Ported with ROADMAP item 15.2 (parity: tests/test_torch_reclaim.py):
+    # the tenant kind's compact lifted over the tenant axis.
+    got, want = sb.compact_tenants(tk, rows, rows.top), tk.compact(rows, rows.top)
+    for g, w in zip(got[0], want[0]):
+        assert torch.equal(g.view(torch.int32) if g.dtype == torch.uint32 else g,
+                           w.view(torch.int32) if w.dtype == torch.uint32 else w)
+    assert int(got[1]) == int(want[1]) and float(got[2]) == float(want[2])
