@@ -8481,6 +8481,593 @@ def same_members(a, b) -> bool:
             and bool((b[..., w:] == -1).all()))
 
 
+# ---- the fault plane (ROADMAP 15.4, 15.3) ------------------------------------
+
+FAULT_PLANS = {
+    "zero": dict(seed=1),
+    "chaos": dict(seed=42, corrupt=0.6, drop=0.2, delay=0.2, evicted=(2,)),
+    "dead": dict(seed=9, drop=0.1, delay=0.3, dead=(1,)),
+    "evicted": dict(seed=3, evicted=(1,)),
+    "corrupt_all": dict(seed=2, corrupt=1.0),
+}
+
+
+def local_fold_of(kind: str):
+    """The local fold of a rank block of one δ ring kind."""
+    from crdt_tpu_torch.ops import map as map_ops
+    from crdt_tpu_torch.ops import map3 as m3_ops
+    from crdt_tpu_torch.ops import map_orswot as mo_ops
+    from crdt_tpu_torch.ops.fold_kernels import fold_auto
+
+    return {"orswot": fold_auto, "map": map_ops.fold, "map_orswot": mo_ops.fold,
+            "map3": m3_ops.fold}[kind]
+
+
+def genesis_ring_inputs(kind: str, state, device):
+    """``(ring, state, dirty, fctx)`` of one δ ring kind on ``device``:
+    the tracking of replicas last synced at genesis (every live row dirty
+    with its own dots, ``interval_accumulate`` from the zero state)."""
+    import torch
+
+    from crdt_tpu_torch.ops.lattice import tree_map
+    from crdt_tpu_torch.parallel import (
+        interval_accumulate, interval_accumulate_m3, interval_accumulate_map,
+        interval_accumulate_mo, mesh_delta_gossip, mesh_delta_gossip_map,
+        mesh_delta_gossip_map3, mesh_delta_gossip_map_orswot,
+    )
+
+    state = tree_map(lambda x: x.to(device), state)
+    zero = tree_map(torch.zeros_like, state)
+    if kind == "map":
+        valid = state.child.valid
+        dirty = torch.zeros(valid.shape[:2], dtype=torch.bool, device=device)
+        fctx = torch.zeros((*valid.shape[:2], state.top.shape[-1]), dtype=torch.int32,
+                           device=device).view(torch.uint32)
+        return (mesh_delta_gossip_map, state,
+                *interval_accumulate_map(dirty, fctx, zero, state))
+    core = {"orswot": lambda s: s, "map_orswot": lambda s: s.core,
+            "map3": lambda s: s.mo.core}[kind]
+    track = {"orswot": interval_accumulate, "map_orswot": interval_accumulate_mo,
+             "map3": interval_accumulate_m3}[kind]
+    ring = {"orswot": mesh_delta_gossip, "map_orswot": mesh_delta_gossip_map_orswot,
+            "map3": mesh_delta_gossip_map3}[kind]
+    c = core(state)
+    dirty = torch.zeros(c.ctr.shape[:-1], dtype=torch.bool, device=device)
+    return ring, state, *track(dirty, torch.zeros_like(c.ctr), zero, state)
+
+
+def assert_fault_parity(got, want, what: str) -> None:
+    """A faulted run on the card == the same run on the CPU: every output
+    leaf, the counters and every counted Telemetry field."""
+    import torch
+
+    from crdt_tpu_torch import telemetry as tele
+
+    for i, (g, w) in enumerate(zip(got, want)):
+        if isinstance(g, tele.Telemetry):
+            gd, wd = tele.to_dict(g), tele.to_dict(w)
+            diff = sorted(k for k in gd if k not in HOST_TIMED and gd[k] != wd[k])
+            check(not diff, f"{what}: telemetry card != CPU on {diff}")
+        elif isinstance(g, tuple):
+            check(same_leaves(on_cpu(g), w), f"{what}: output {i} card != CPU")
+        elif isinstance(g, torch.Tensor):
+            check(same_leaves(g.cpu(), w), f"{what}: output {i} card != CPU")
+        else:
+            check(g == w, f"{what}: output {i} card != CPU ({g} vs {w})")
+
+
+def parked_pures(n: int, parked_each: int):
+    """Oracle replicas with one add each and ``parked_each`` parked removes
+    no add ever covers (phantom actors), distinct across replicas: a ring
+    must hold their union, so a small ``deferred_cap`` overflows mid-ring
+    (the JAX elastic tests' population)."""
+    from crdt_tpu_torch.pure.orswot import Orswot
+    from crdt_tpu_torch.vclock import VClock
+
+    reps = [Orswot() for _ in range(n)]
+    for i, rep in enumerate(reps):
+        rep.apply(rep.add(f"m{i}_0", rep.read().derive_add_ctx(f"s{i}")))
+        for j in range(parked_each):
+            rep.deferred[VClock({f"ghost{i}_{j}": 1})] = {f"m{i}_0"}
+    return reps
+
+
+def disjoint_sparse_blocks(n_blocks: int, rows: int, cap: int, n_actors: int, device):
+    """Blocks whose join outgrows any one block's ``dot_cap``: row ``i`` of
+    block ``b`` holds one dot of its own actor on its own element (the
+    JAX stream tests' ``_disjoint_blocks``)."""
+    import torch
+
+    from crdt_tpu_torch.ops import sparse_orswot as sp
+
+    blocks = []
+    for b in range(n_blocks):
+        st = sp.empty(cap, n_actors, batch=(rows,), device=device)
+        actors = torch.arange(b * rows, (b + 1) * rows, device=device)
+        top = torch.zeros((rows, n_actors), dtype=torch.int32, device=device)
+        top[torch.arange(rows, device=device), actors] = 1
+        eid, act, ctr, valid = st.eid.clone(), st.act.clone(), st.ctr.view(torch.int32).clone(), \
+            st.valid.clone()
+        eid[:, 0] = 1000 * b + torch.arange(rows, device=device, dtype=eid.dtype)
+        act[:, 0] = actors.to(act.dtype)
+        ctr[:, 0] = 1
+        valid[:, 0] = True
+        blocks.append(st._replace(top=top.view(torch.uint32), eid=eid, act=act,
+                                  ctr=ctr.view(torch.uint32), valid=valid))
+    return blocks
+
+
+def phase_faults_scenarios(device, seed: int, p: int = 4, rounds: int = 12, cap: int = 8) -> dict:
+    """Small probes of the fault plane on the card == the CPU on every
+    leaf, the ``FaultCounters`` and the Telemetry's ``faults_*`` fields:
+    the four δ ring kinds, fused and layered, under the zero-rate, chaos,
+    dead-sender, eviction-only and total-corruption plans (K3 once per
+    fused round, each launch held against its plain version); the eight
+    ``mesh_gossip*`` entries and both elastic wrappers; the four stream
+    plans with ``faults=`` and one with ``widen_policy=``; the faulted
+    ``bootstrap`` and ``bootstrap_rejects_corruption``; the ``Membership``
+    protocol over a card ring's streaks. Gates: a zero-rate plan is
+    bit-identical to ``faults=None``; with ``corrupt=0`` no packet is
+    rejected on the card (K3's chained ``chk`` == the receiver's plain
+    checksum); ``corrupt=1.0`` rejects every live link and keeps each
+    rank's local state."""
+    import functools
+
+    import numpy as np
+    import torch
+
+    from crdt_tpu_torch.elastic import ElasticPolicy
+    from crdt_tpu_torch.faults import FaultPlan, Membership
+    from crdt_tpu_torch.models import BatchedOrswot
+    from crdt_tpu_torch.ops.fold_kernels import fold_entries
+    from crdt_tpu_torch.ops.lattice import tree_map
+    from crdt_tpu_torch.ops.wire_kernels import wire_pack
+    from crdt_tpu_torch.parallel import (
+        VirtualMesh, delta_gossip_elastic, gossip_elastic, iter_blocks, mesh_stream_fold,
+        mesh_stream_fold_sparse, mesh_stream_fold_sparse_mvmap, mesh_stream_fold_sparse_sharded,
+        split_segments,
+    )
+    from crdt_tpu_torch.parallel.anti_entropy import local_folds, rank_blocks
+    from crdt_tpu_torch.scaleout import bootstrap, bootstrap_rejects_corruption
+    from crdt_tpu_torch.utils.metrics import metrics
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    on_card = device.type == "cuda"
+    on = lambda x, dev: tree_map(lambda t: t.to(dev), x)  # noqa: E731
+    models, _ = reclaim_models(seed, cpu)
+    out = {"phase": "faults_scenarios", "card": card_label(device), "P": p, "rounds": rounds}
+
+    # ---- the four δ ring kinds -------------------------------------------
+    rings, k3_err, k1_err = {}, 0, 0
+    for kind in ("orswot", "map", "map_orswot", "map3"):
+        ring, st_h, d_h, f_h = genesis_ring_inputs(kind, models[kind].state, cpu)
+        st_c, d_c, f_c = on(st_h, device), d_h.to(device), f_h.to(device)
+        for fused in (True, False):
+            kw = dict(rounds=rounds, cap=cap, fused=fused, telemetry=True)
+            clean = ring(st_c, d_c, f_c, VirtualMesh(p, device), **kw)
+            for name, plan in FAULT_PLANS.items():
+                what = f"{kind} fused={fused} {name}"
+                fp = FaultPlan(**plan)
+                l3, l1 = wire_pack.launches, fold_entries.launches
+                with K3Checked() as k3:
+                    got = ring(st_c, d_c, f_c, VirtualMesh(p, device), faults=fp, **kw)
+                l3, l1 = wire_pack.launches - l3, fold_entries.launches - l1
+                want = ring(st_h, d_h, f_h, VirtualMesh(p, cpu), faults=fp, **kw)
+                assert_fault_parity(got, want, what)
+                fc = got[-1]
+                counts = [int(x.view(torch.int32)) for x in fc[:3]]
+                k3_err = max(k3_err, k3.max_abs_err)
+                if kind == "orswot":
+                    k1_err = max(k1_err, max_leaf_diff(got[0], want[0]))
+                if on_card and fused:
+                    check(l3 == rounds and k3.calls == rounds,
+                          f"{what}: K3 launched {l3} times in {rounds} rounds")
+                if on_card and kind in ("orswot", "map_orswot", "map3"):
+                    check(l1 == p, f"{what}: K1 launched {l1} times on {p} ranks")
+                if plan.get("corrupt", 0) == 0:
+                    check(counts[1] == 0, f"{what}: {counts[1]} packets rejected at corrupt=0")
+                if name == "zero":
+                    check(counts == [0, 0, 0] and same_leaves(got[:4], clean[:4]),
+                          f"{what}: a zero-rate plan differs from faults=None")
+                if name == "corrupt_all":
+                    local, _ = local_folds(rank_blocks(st_c, VirtualMesh(p, device)),
+                                           local_fold_of(kind))
+                    check(counts[1] == p * rounds and counts[0] == 0,
+                          f"{what}: rejected {counts[1]} of {p * rounds} live links")
+                    check(fc.miss_streak.tolist() == [rounds] * p and int(got[3]) >= 1,
+                          f"{what}: the streaks or the residue of total corruption")
+                    check(same_leaves(got[0], local), f"{what}: a rank lost its local state")
+                if name == "evicted":
+                    check(counts == [0, 0, 0], f"{what}: an eviction-only plan lost packets")
+                rings[what] = {"dropped": counts[0], "rejected": counts[1],
+                               "delayed": counts[2], "residue": int(got[3]),
+                               "k3": l3, "k1": l1}
+    out["rings"] = len(rings)
+    out["packets_absorbed"] = sum(v["dropped"] + v["rejected"] + v["delayed"]
+                                  for v in rings.values())
+    out["k3_max_abs_err"], out["k1_max_abs_err"] = k3_err, k1_err
+
+    # ---- the eight gossip entries and the elastic wrappers ---------------
+    gossip_plan = FaultPlan(seed=7, corrupt=0.3, drop=0.2, delay=0.3, evicted=(1,))
+    lost = 0
+    for entry, model in models.items():
+        fn = gossip_entry(entry, model)
+        got = fn(on(model.state, device), VirtualMesh(p, device), stability=True,
+                 telemetry=True, faults=gossip_plan)
+        want = fn(model.state, VirtualMesh(p, cpu), stability=True, telemetry=True,
+                  faults=gossip_plan)
+        assert_fault_parity(got, want, f"gossip {entry}")
+        lost += int(got[-1].packets_dropped) + int(got[-1].packets_rejected)
+    check(lost > 0, "the faulted gossip entries lost no packet")
+    out["gossip_entries"], out["gossip_packets_lost"] = len(models), lost
+    sites = parked_pures(p, 2)
+    elastic_plan = FaultPlan(**FAULT_PLANS["chaos"])
+    for name, run in (
+            ("gossip_elastic", lambda m, dev: gossip_elastic(m, VirtualMesh(p, dev),
+                                                             faults=elastic_plan)),
+            ("delta_gossip_elastic", lambda m, dev: delta_gossip_elastic(
+                m, *genesis_ring_inputs("orswot", m.state, dev)[2:], VirtualMesh(p, dev),
+                faults=elastic_plan))):
+        got = run(BatchedOrswot.from_pure(sites, deferred_cap=2, n_members=8, n_actors=16,
+                                          device=device), device)
+        want = run(BatchedOrswot.from_pure(sites, deferred_cap=2, n_members=8, n_actors=16,
+                                           device=cpu), cpu)
+        assert_fault_parity(got, want, name)
+        check(bool(got[-2 if name == "gossip_elastic" else 4]),
+              f"{name}: the parked overflow did not widen")
+        out[name] = {"widened": got[-2 if name == "gossip_elastic" else 4],
+                     "rejected": int(got[-1].packets_rejected)}
+
+    # ---- the four stream plans under faults= -------------------------------
+    lossy = FaultPlan(seed=5, drop=0.4, corrupt=0.4)
+    sparse, dense, mvmap = (models[k].state for k in ("sparse", "orswot", "sparse_mvmap"))
+    cap_mv = models["sparse_mvmap"].sibling_cap
+    streams = {
+        "sparse": lambda st, dev: mesh_stream_fold_sparse(
+            iter_blocks(st, 1), VirtualMesh(p, dev), faults=lossy, telemetry=True),
+        "dense": lambda st, dev: mesh_stream_fold(
+            iter_blocks(st, 1), VirtualMesh(p, dev), faults=lossy, telemetry=True),
+        "mvmap": lambda st, dev: mesh_stream_fold_sparse_mvmap(
+            iter_blocks(st, 1), VirtualMesh(p, dev), sibling_cap=cap_mv, faults=lossy,
+            telemetry=True),
+        "sharded": lambda st, dev: mesh_stream_fold_sparse_sharded(
+            iter_blocks(split_segments(st, 2), 1), VirtualMesh(p, dev, s=2), faults=lossy,
+            telemetry=True),
+    }
+    sources = {"sparse": sparse, "dense": dense, "mvmap": mvmap, "sharded": sparse}
+    stream_lost = {}
+    for name, run in streams.items():
+        got = run(on(sources[name], device), device)
+        want = run(sources[name], cpu)
+        assert_fault_parity(got[:3], want[:3], f"stream {name}")
+        check((got[3].dropped_blocks, got[3].rejected_blocks)
+              == (want[3].dropped_blocks, want[3].rejected_blocks),
+              f"stream {name}: the fault report card != CPU")
+        stream_lost[name] = got[3].lost_blocks
+    check(any(stream_lost.values()), "no faulted stream lost a block")
+    out["stream_lost_blocks"] = stream_lost
+
+    # ---- widen_policy= (15.3) ----------------------------------------------
+    retries0 = metrics.snapshot()["counters"].get("stream.widen_retries", 0)
+    got = mesh_stream_fold_sparse(iter(disjoint_sparse_blocks(4, p, 4, 16, device)),
+                                  VirtualMesh(p, device), widen_policy=ElasticPolicy(),
+                                  telemetry=True)
+    retries = metrics.snapshot()["counters"].get("stream.widen_retries", 0) - retries0
+    want = mesh_stream_fold_sparse(iter(disjoint_sparse_blocks(4, p, 4, 16, cpu)),
+                                   VirtualMesh(p, cpu), widen_policy=ElasticPolicy(),
+                                   telemetry=True)
+    assert_fault_parity(got, want, "stream widen_policy")
+    check(retries >= 1 and not bool(got[1].any()) and int(got[0].valid.sum()) == 4 * p,
+          f"widen_policy: {retries} retries, flags {got[1].tolist()}")
+    out["widen"] = {"retries": retries, "dot_cap": got[0].eid.shape[-1]}
+
+    # ---- the faulted bootstrap ---------------------------------------------
+    boot = {}
+    for kind in ("orswot", "sparse_orswot", "map", "mvreg"):
+        arrays = kind_arrays(kind, np.random.default_rng(seed + 45))
+        runs = [bootstrap(kind, kind_state(kind, arrays, dev), faults=FaultPlan(seed=23,
+                          corrupt=0.7), segment_cap=3, max_attempts=256) for dev in (device, cpu)]
+        check(same_leaves(on_cpu(runs[0][0]), runs[1][0]) and runs[0][1] == runs[1][1]
+              and same_leaves(runs[1][0], kind_state(kind, arrays, cpu)),
+              f"bootstrap {kind}: card != CPU, or the landing != live")
+        boot[kind] = runs[0][1].rejected
+    check(bootstrap_rejects_corruption(bootstrap, device=device),
+          "bootstrap_rejects_corruption failed the honest receiver")
+    check(not bootstrap_rejects_corruption(functools.partial(bootstrap, verify_checksums=False),
+                                           device=device),
+          "bootstrap_rejects_corruption passed the corrupt-blind receiver")
+    out["bootstrap_rejected"] = boot
+
+    # ---- the membership protocol over a card ring ------------------------
+    ring, st_c, d_c, f_c = genesis_ring_inputs("orswot", models["orswot"].state, device)
+    tracker = Membership(p, k_suspect=rounds + 1)
+    base = FaultPlan(seed=9, dead=(1,))
+    suspects = []
+    for _ in range(2):
+        fc = ring(st_c, d_c, f_c, VirtualMesh(p, device), rounds=rounds, cap=cap,
+                  faults=tracker.plan(base))[-1]
+        suspects.append(tracker.observe(fc, rounds=rounds))
+    check(suspects == [(), (1,)], f"membership: suspects {suspects}, expected rank 1 second")
+    tracker.evict(1)
+    fc = ring(st_c, d_c, f_c, VirtualMesh(p, device), rounds=rounds, cap=cap,
+              faults=tracker.plan(base))[-1]
+    check(int(fc.packets_dropped) == 0 and tracker.observe(fc, rounds=rounds) == (),
+          "membership: the evicted dead rank still cost packets")
+    tracker.rejoin(1)
+    out["membership"] = {"suspected": list(suspects[-1]), "evicted_then_rejoined": [1]}
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return out
+
+
+def one_faulted_dense_round(state, dirty, fctx, mesh, cap: int, plan):
+    """The dense fused faulted round, spelled out as the ring runs it at
+    round 0 (extract, K3's pack with its checksum lane, the shift, the
+    fates, corruption, verify, unpack, apply, deselect, counters): the
+    piece a sync-debug run holds to no host sync."""
+    import torch
+
+    from crdt_tpu_torch._dtypes import bits, umax
+    from crdt_tpu_torch.faults import inject as flt
+    from crdt_tpu_torch.ops.fold_kernels import fold_auto
+    from crdt_tpu_torch.parallel import wire as wire_mod
+    from crdt_tpu_torch.parallel.anti_entropy import local_folds, rank_blocks
+    from crdt_tpu_torch.parallel.collectives import permuter
+    from crdt_tpu_torch.parallel.delta import apply_delta, extract_delta
+    from crdt_tpu_torch.parallel.delta_ring import _packet_template, _select_apply
+
+    p = mesh.p
+    ranks, of = local_folds(rank_blocks(state, mesh), fold_auto)
+    rl = dirty.shape[0] // p
+    e, a = ranks.ctr.shape[-2:]
+    d0 = dirty.view(p, rl, e).any(1)
+    f0 = torch.stack([bits(umax(fctx.view(p, rl, e, a)[q], 0)) for q in range(p)]).view(
+        fctx.dtype)
+    shift = permuter(flt.ring_perm(p, plan.evicted), p, mesh.device)
+    rtop = permuter(flt.inv_ring_perm(p, plan.evicted), p, mesh.device)(ranks.top)
+    codec = wire_mod.WireCodec(_packet_template(ranks, cap, fctx.dtype), e,
+                               wire_mod.know_dense, gated=True, acked=False)
+    fates = flt.LinkFates(plan, 1, p, mesh.device)
+    fc = flt.zero_counters(p, mesh.device)
+
+    def round_():
+        pkt, d, f = extract_delta(ranks, d0, f0, cap, start=0)
+        wired, aux = codec.pack(pkt, rtop=rtop)
+        d = wire_mod.remark_deferred(d, wire_mod.core_idx(pkt), aux.defer)
+        wired, chk = shift((wired, aux.checksum))
+        wired, keep, fts = flt.receive_wire(fates, 0, wired, chk, delay_ok=plan.delay > 0)
+        rcvd = codec.unpack(wired, own_top=ranks.top)
+        st, d, f, of_r = _select_apply(apply_delta(ranks, rcvd, d, f), (ranks, d, f), of, keep)
+        return st, flt.tick_counters(fc, fts)
+
+    return round_
+
+
+def phase_full_width_chaos(device, seed: int, r: int = 5120, e: int = 102400, a: int = 8,
+                           d: int = 4, p: int = 8, cap: int = 4096, chunk: int = 128,
+                           runs: int = 3, stream_r: int = 10240, universe: int = 1_000_000,
+                           segment_cap: int = 4096, block_rows: int = 256, sp_r: int = 256,
+                           sp_cells: int = 4096, sp_universe: int = 1_000_000,
+                           sp_born: int = 1024, sp_block_rows: int = 32) -> dict:
+    """The fault plane at full width. (a) ``full_width_delta``'s shape and
+    cut under ``bench.py:817``'s plan (``FaultPlan(seed=17, corrupt=0.6,
+    drop=0.2, evicted=(5,))``), ``runs`` degraded fused rings (the first
+    over the fill, each later one over the previous rows with genesis
+    tracking): residue >= 1 and packets lost in each; the same runs over
+    the layered ring give the same rows; the heal by ``mesh_gossip``
+    lands every rank on the fault-free fixpoint; a delay-only ring at a
+    doubled budget loses nothing, certifies and equals ``mesh_fold``; one
+    dense fused faulted round under sync debug "error". (b) the
+    ``flagship`` stream under ``FaultPlan(seed=17, drop=0.05,
+    corrupt=0.05)``: re-streaming the report's blocks with ``init=`` the
+    faulted accumulator equals the unfaulted pass (the master table).
+    (c) ROADMAP 15.3: the sparse stream at "sparse" widths born at
+    ``dot_cap`` ``sp_born`` with ``widen_policy=`` equals the stream born
+    at the final cap, with ``stream.widen_retries`` >= 1."""
+    import torch
+
+    from crdt_tpu_torch.elastic import ElasticPolicy
+    from crdt_tpu_torch.faults import FaultPlan
+    from crdt_tpu_torch.faults.scenarios import genesis_tracking
+    from crdt_tpu_torch.ops.fold_kernels import fold_entries
+    from crdt_tpu_torch.ops.wire_kernels import wire_pack
+    from crdt_tpu_torch.parallel import (
+        VirtualMesh, mesh_delta_gossip, mesh_fold, mesh_gossip, mesh_stream_fold_sparse,
+    )
+    from crdt_tpu_torch.parallel import stream as stream_mod
+    from crdt_tpu_torch.utils.metrics import metrics
+
+    t_phase = time.perf_counter()
+    on_card = device.type == "cuda"
+    sync = (lambda: torch.cuda.synchronize(device)) if on_card else (lambda: None)
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    out = {"phase": "full_width_chaos", "card": card_label(device)}
+
+    # ---- (a) the ring -------------------------------------------------------
+    state, dirty, fctx, info = fill_delta_config3(r, e, a, d, p, seed, device, chunk)
+    sync()
+    mesh = VirtualMesh(p, device)
+    rl = r // p
+    backlog = int(dirty.view(p, rl, e).any(1).sum(-1).max())
+    plan = FaultPlan(seed=17, corrupt=0.6, drop=0.2, evicted=(p - 3,))
+    # The fault-free ring's certified budget (full_width_delta's search).
+    clean, rounds, _, _, _ = certify_ring(
+        lambda rounds, stats: mesh_delta_gossip(state, dirty, fctx, mesh, rounds=rounds,
+                                                cap=cap), backlog, p, cap, (), sync)
+    t0 = time.perf_counter()
+    clean = mesh_delta_gossip(state, dirty, fctx, mesh, rounds=rounds, cap=cap)
+    sync()
+    clean_ms = (time.perf_counter() - t0) * 1e3
+    check(int(clean[3]) == 0, "the fault-free ring did not certify at its budget")
+    degraded, fused_runs, k3_checked = [], [], 0
+    cur = dcur = fcur = None
+    for i in range(runs):
+        l3, l1 = wire_pack.launches, fold_entries.launches
+        t0 = time.perf_counter()
+        with K3Checked() as k3:
+            if i == 0:
+                res = mesh_delta_gossip(state, dirty, fctx, mesh, rounds=rounds, cap=cap,
+                                        faults=plan, telemetry=True)
+            else:
+                res = mesh_delta_gossip(cur, dcur, fcur, mesh, rounds=rounds, cap=cap,
+                                        faults=plan, telemetry=True)
+            sync()
+        wall = (time.perf_counter() - t0) * 1e3
+        l3, l1 = wire_pack.launches - l3, fold_entries.launches - l1
+        fc = res[-1]
+        lost = int(fc.packets_dropped) + int(fc.packets_rejected)
+        check(int(res[3]) >= 1 and lost > 0, f"chaos run {i}: residue {int(res[3])}, lost {lost}")
+        check(not on_card or (l3 == rounds and k3.calls == rounds and k3.max_abs_err == 0),
+              f"chaos run {i}: K3 {l3} launches in {rounds} rounds, max err {k3.max_abs_err}")
+        check(not on_card or l1 == p, f"chaos run {i}: K1 launched {l1} times on {p} ranks")
+        k3_checked = max(k3_checked, k3.max_abs_err)
+        fused_runs.append({"wall_ms": wall, "residue": int(res[3]),
+                           "dropped": int(fc.packets_dropped),
+                           "rejected": int(fc.packets_rejected),
+                           "delayed": int(fc.packets_delayed),
+                           "miss_streak": fc.miss_streak.tolist(), "k3": l3, "k1": l1,
+                           "wire_packed_bytes": float(res[4].wire_packed_bytes)})
+        cur = res[0]
+        dcur, fcur = genesis_tracking(cur)
+        degraded.append(cur)
+        del res
+    # The faulted ring's wall without the per-launch check (warm: run 0
+    # above was its warm-up).
+    t0 = time.perf_counter()
+    res = mesh_delta_gossip(state, dirty, fctx, mesh, rounds=rounds, cap=cap, faults=plan)
+    sync()
+    faulted_ms = (time.perf_counter() - t0) * 1e3
+    check(same_leaves(res[0], degraded[0]), "the unchecked faulted ring != the checked one")
+    del res
+    # The layered ring absorbs the same damage packet for packet.
+    lcur = None
+    t0 = time.perf_counter()
+    for i in range(runs):
+        if i == 0:
+            lres = mesh_delta_gossip(state, dirty, fctx, mesh, rounds=rounds, cap=cap,
+                                     faults=plan, fused=False)
+        else:
+            dl, fl = genesis_tracking(lcur)
+            lres = mesh_delta_gossip(lcur, dl, fl, mesh, rounds=rounds, cap=cap, faults=plan,
+                                     fused=False)
+        lcur = lres[0]
+        check(same_leaves(lcur, degraded[i]), f"chaos run {i}: fused rows != layered rows")
+    sync()
+    layered_ms = (time.perf_counter() - t0) * 1e3
+    del lres, lcur
+    # The heal (full-state gossip, also the evicted rank's rejoin).
+    folded, _ = mesh_fold(state, mesh)
+    t0 = time.perf_counter()
+    healed, _ = mesh_gossip(cur, mesh)
+    sync()
+    heal_ms = (time.perf_counter() - t0) * 1e3
+    check(rows_equal_fold(healed, folded), "the heal did not land on the fault-free fixpoint")
+    del healed, degraded, cur
+    # Delay only, at a doubled budget (more if it does not certify there,
+    # recorded): nothing lost, certified, == the fault-free ring and the fold.
+    delay_budgets = []
+    for times in (2, 3, 4):
+        t0 = time.perf_counter()
+        late = mesh_delta_gossip(state, dirty, fctx, mesh, rounds=times * rounds, cap=cap,
+                                 faults=FaultPlan(seed=17, delay=0.3))
+        sync()
+        late_ms = (time.perf_counter() - t0) * 1e3
+        delay_budgets.append({"rounds": times * rounds, "residue": int(late[3]),
+                              "wall_ms": late_ms})
+        if int(late[3]) == 0:
+            break
+    lfc = late[-1]
+    check(int(lfc.packets_dropped) == int(lfc.packets_rejected) == 0
+          and int(lfc.packets_delayed) > 0 and int(late[3]) == 0,
+          f"the delay-only ring: budgets {delay_budgets}, counters {[int(x) for x in lfc[:3]]}")
+    check(rows_equal_fold(late[0], folded) and rows_equal_fold(clean[0], folded),
+          "the delay-only ring != the fault-free ring")
+    del late, clean
+    # One dense fused faulted round under sync debug "error": no host read.
+    round_ = one_faulted_dense_round(state, dirty, fctx, mesh, cap, plan)
+    round_()
+    sync()
+    if on_card:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        round_()
+    finally:
+        if on_card:
+            torch.cuda.set_sync_debug_mode("default")
+    sync()
+    del state, dirty, fctx, folded, round_
+    out["ring"] = {
+        "R": r, "E": e, "A": a, "D": d, "P": p, "cap": cap, "rounds": rounds,
+        "plan": {"seed": 17, "corrupt": 0.6, "drop": 0.2, "evicted": [p - 3]},
+        "reduced": {"R": [10240, r, "full_width_delta's cut: at R=10240 the inputs alone are "
+                                    "72.3 GB"]},
+        "fill": info, "ring_ms_unfaulted": clean_ms, "ring_ms_faulted": faulted_ms,
+        "chaos_runs": fused_runs,
+        "layered_replay_ms_all_runs": layered_ms, "heal_ms": heal_ms,
+        "delay_only": {"budgets": delay_budgets, "delayed": int(lfc.packets_delayed)},
+        "packets_absorbed": sum(x["dropped"] + x["rejected"] for x in fused_runs),
+        "k3_max_abs_err": k3_checked, "faulted_round_syncs_with_host": False if on_card else None,
+        "peak_mem_gb": torch.cuda.max_memory_allocated(device) / 1e9 if on_card else None,
+    }
+    out["k3_max_abs_err"] = k3_checked
+
+    # ---- (b) the flagship stream --------------------------------------------
+    gen, master = flagship_population(segment_cap, universe, a, device)
+    n_blocks = -(-stream_r // block_rows)
+
+    def blocks(ids=None):
+        for b in (range(n_blocks) if ids is None else ids):
+            yield gen(torch.arange(b * block_rows, (b + 1) * block_rows, device=device))
+
+    t0 = time.perf_counter()
+    acc, of, report = mesh_stream_fold_sparse(blocks(), mesh,
+                                              faults=FaultPlan(seed=17, drop=0.05, corrupt=0.05))
+    sync()
+    faulted_ms = (time.perf_counter() - t0) * 1e3
+    check(report.lost_blocks and not bool(of.any()), f"the faulted flagship lost "
+          f"{report.lost_blocks} with flags {of.tolist()}")
+    healed, hof = mesh_stream_fold_sparse(blocks(report.lost_blocks), mesh, init=acc)
+    t0 = time.perf_counter()
+    clean, cof = mesh_stream_fold_sparse(blocks(), mesh)
+    sync()
+    clean_ms = (time.perf_counter() - t0) * 1e3
+    check(same_leaves(healed, clean) and not bool(hof.any()) and not bool(cof.any()),
+          "the re-streamed faulted flagship != the unfaulted pass")
+    check(bool(clean.valid.all()) and torch.equal(clean.eid, master["eid"])
+          and same_leaves(clean.ctr, master["ctr"]), "the unfaulted flagship != the master table")
+    out["stream"] = {"R": n_blocks * block_rows, "blocks": n_blocks, "block_rows": block_rows,
+                     "universe": universe, "segment_cap": segment_cap,
+                     "dropped_blocks": report.dropped_blocks,
+                     "rejected_blocks": report.rejected_blocks,
+                     "faulted_ms": faulted_ms, "unfaulted_ms": clean_ms}
+    del acc, healed, clean, master
+
+    # ---- (c) widen_policy= (15.3) -------------------------------------------
+    narrow = sparse_actor_population(sp_r, sp_cells, sp_universe, a, sp_born, device)
+    wide = sparse_actor_population(sp_r, sp_cells, sp_universe, a, sp_cells, device)
+    retries0 = metrics.snapshot()["counters"].get("stream.widen_retries", 0)
+    t0 = time.perf_counter()
+    grown, gof = mesh_stream_fold_sparse(stream_mod.iter_blocks(narrow, sp_block_rows), mesh,
+                                         widen_policy=ElasticPolicy())
+    sync()
+    widen_ms = (time.perf_counter() - t0) * 1e3
+    retries = metrics.snapshot()["counters"].get("stream.widen_retries", 0) - retries0
+    born, bof = mesh_stream_fold_sparse(stream_mod.iter_blocks(wide, sp_block_rows), mesh)
+    check(retries >= 1 and not bool(gof.any()) and not bool(bof.any())
+          and same_leaves(grown, born),
+          f"the widened stream ({retries} retries) != the stream born at the final cap")
+    out["widen"] = {"R": sp_r, "cells": sp_cells, "universe": sp_universe, "born": sp_born,
+                    "final_dot_cap": grown.eid.shape[-1], "widen_retries": retries,
+                    "block_rows": sp_block_rows, "wall_ms": widen_ms}
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return out
+
+
+
 PHASES = ("k1", "scenarios", "full_width", "k2", "map_scenarios", "full_width_map", "k3",
           "delta_scenarios", "full_width_delta", "map_delta_scenarios", "full_width_delta_map",
           "sparse_scenarios", "flagship", "elastic", "resync", "donate", "durability",
@@ -8488,7 +9075,7 @@ PHASES = ("k1", "scenarios", "full_width", "k2", "map_scenarios", "full_width_ma
           "telemetry_scenarios", "sparse_map_scenarios", "full_width_sparse_map",
           "nested_scenarios", "full_width_nested", "full_width_delta_nested",
           "kinds_scenarios", "full_width_clocks", "full_width_list", "reclaim_scenarios",
-          "full_width_reclaim")
+          "full_width_reclaim", "faults_scenarios", "full_width_chaos")
 
 
 def main(argv=None) -> int:
@@ -8586,6 +9173,10 @@ def main(argv=None) -> int:
         res["reclaim_scenarios"] = phase_reclaim_scenarios(device, args.seed)
     if run("full_width_reclaim"):
         res["reclaim"] = phase_full_width_reclaim(device, args.seed)
+    if run("faults_scenarios"):
+        res["faults_scenarios"] = phase_faults_scenarios(device, args.seed)
+    if run("full_width_chaos"):
+        res["chaos"] = phase_full_width_chaos(device, args.seed)
     if only:
         print(f"chip_smoke: partial run of {only}; no kernels line", flush=True)
         return 0
@@ -8599,7 +9190,8 @@ def main(argv=None) -> int:
         "max_abs_err": max(res["k1"], full["max_abs_err"], nested["map_orswot"]["max_abs_err"],
                            nested["map3"]["max_abs_err"],
                            res["reclaim_scenarios"]["k1_max_abs_err"],
-                           res["reclaim"]["dense"]["k1_max_abs_err"]),
+                           res["reclaim"]["dense"]["k1_max_abs_err"],
+                           res["faults_scenarios"]["k1_max_abs_err"]),
         "ms": full["k1_ms_median"],
         "plain_ms": full["plain_chunked_ms_check_not_a_yardstick"],
         "bound_ms": full["bound_ms"],
@@ -8625,7 +9217,9 @@ def main(argv=None) -> int:
                            res["fanout"]["first_dispatch_max_abs_err"],
                            res["fanout"]["k3_fanout_layout"]["max_abs_err"],
                            delta_nested["map_orswot"]["k3_max_abs_err"],
-                           delta_nested["map3"]["k3_max_abs_err"]),
+                           delta_nested["map3"]["k3_max_abs_err"],
+                           res["faults_scenarios"]["k3_max_abs_err"],
+                           res["chaos"]["k3_max_abs_err"]),
         "ms": delta["k3_ms_median"],
         "plain_ms": delta["k3_plain_ms"],
         "bound_ms": delta["k3_bound_ms"],

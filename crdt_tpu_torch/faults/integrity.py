@@ -69,22 +69,25 @@ def chain(total: torch.Tensor, part: torch.Tensor) -> torch.Tensor:
     return (mul32(total, torch.full_like(total, _MIX)) + part) & _MASK32
 
 
-def checksum(tree) -> torch.Tensor:
+def checksum(tree, batch_dims: int = 0) -> torch.Tensor:
     """The u32 digest of a shipped tree (packet or whole state):
-    deterministic in content and leaf order. Returns a 0-d ``int64``
-    tensor holding the u32 value."""
+    deterministic in content and leaf order. Returns an ``int64`` tensor
+    holding the u32 value: 0-d, or one per lane of the first
+    ``batch_dims`` axes (a ring's ``[P, ...]`` links)."""
     leaves = _leaves(tree)
     dev = leaves[0].device if leaves else "cpu"
-    total = torch.zeros((), dtype=torch.int64, device=dev)
+    lead = leaves[0].shape[:batch_dims] if leaves else ()
+    total = torch.zeros(lead, dtype=torch.int64, device=dev)
     for leaf in leaves:
-        total = chain(total, leaf_sum(leaf))
+        total = chain(total, leaf_sum(leaf, batch_dims))
     return total
 
 
-def verify(tree, shipped_digest) -> torch.Tensor:
+def verify(tree, shipped_digest, batch_dims: int = 0) -> torch.Tensor:
     """Receiver-side check: recompute over what arrived and compare with
-    the digest that rode the wire. A 0-d bool tensor (True = intact)."""
-    got = checksum(tree)
+    the digest that rode the wire. A bool tensor (True = intact), 0-d or
+    one per batch lane."""
+    got = checksum(tree, batch_dims)
     if isinstance(shipped_digest, torch.Tensor):
         want = to_wide(shipped_digest.to(got.device))
     else:

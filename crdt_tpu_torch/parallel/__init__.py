@@ -67,7 +67,7 @@ from .sparse_shard import (
     mesh_fold_sparse_sharded, split_cells, split_nested, split_segments,
 )
 from .stream import (
-    StreamInterrupted, iter_blocks, mesh_stream_fold, mesh_stream_fold_sparse,
+    StreamFaultReport, StreamInterrupted, iter_blocks, mesh_stream_fold, mesh_stream_fold_sparse,
     mesh_stream_fold_sparse_mvmap, mesh_stream_fold_sparse_sharded,
 )
 
@@ -77,7 +77,8 @@ __all__ = [
     "mesh_delta_gossip_map_orswot", "mesh_fold_clocks", "mesh_fold_gset", "mesh_fold_lww",
     "mesh_fold_map3", "mesh_fold_map_orswot", "mesh_fold_mvreg",
     "mesh_fold_nested_map", "mesh_gossip_map3", "mesh_gossip_map_orswot",
-    "mesh_gossip_nested_map", "StreamInterrupted", "VirtualMesh", "delta_gossip_elastic",
+    "mesh_gossip_nested_map", "StreamFaultReport", "StreamInterrupted", "VirtualMesh",
+    "delta_gossip_elastic",
     "gossip_elastic", "interval_accumulate", "interval_accumulate_map", "iter_blocks",
     "mesh_delta_gossip", "mesh_delta_gossip_map", "mesh_fanout_push", "mesh_fold", "mesh_fold_map",
     "mesh_fold_sparse", "mesh_fold_sparse_map", "mesh_fold_sparse_mvmap",

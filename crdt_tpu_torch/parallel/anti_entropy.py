@@ -61,9 +61,18 @@ Every entry feeds the host metrics registry at the JAX entries' points:
 a rounds counter, ``anti_entropy.merges`` (the folds),
 ``anti_entropy.state_bytes`` and the ``<kind>.deferred_depth`` gauge of
 the padded input, and the ``anti_entropy.<kind>`` timer around the
-device work (the card is synchronised before it stops). The
-``faults=`` mode (ROADMAP item 15.4) is still to port and raises, naming
-its item.
+device work (the card is synchronised before it stops).
+
+``faults=`` (a ``faults.FaultPlan``) on the ring entries and
+``gossip_elastic`` injects the plan's link faults into every exchange:
+each shipped state carries a checksum lane, corrupted arrivals are
+rejected (local state kept), dropped ones missed, delayed ones joined a
+round late; the ring runs over the plan's live ranks, and with
+``stability=`` the frontier leaves out evicted ranks' tops while their
+own rows stay uncompacted. The fates come from a table built and
+uploaded before the first round. The ``FaultCounters`` come back as the
+LAST element. Full-state loss is never unsound: a missed round only
+slows convergence.
 """
 
 from __future__ import annotations
@@ -97,25 +106,17 @@ from ..ops.orswot import OrswotState
 from ..ops.sparse_mvmap import SparseMVMapState
 from ..ops.sparse_nest import SparseNestState
 from ..ops.sparse_orswot import SparseOrswotState
+from ..faults import inject as flt
+from ..faults.integrity import checksum
 from ..reclaim.frontier import frontier_lag, top_of, watch_lag
-from .collectives import all_reduce_clock, all_reduce_join, all_reduce_lattice, psum, ring_round
+from .collectives import (
+    all_reduce_clock, all_reduce_join, all_reduce_lattice, permuter, psum, ring_round,
+)
 from .mesh import VirtualMesh, pad_replicas, pad_replicas_map, pad_replicas_sparse
 
 #: The kinds whose join takes any leading batch: a rank block folds in one
 #: tree with the P ranks as a batch (:func:`local_folds`).
 _BATCHED_JOINS = (SparseOrswotState, SparseMVMapState, SparseNestState)
-
-
-# The ROADMAP item that ports each mode of the JAX entries still missing.
-_UNPORTED = {"widen_policy": "15.3", "faults": "15.4"}
-
-
-def _refuse(fn: str, **modes) -> None:
-    """Raise for the modes of a JAX entry that the port does not run yet,
-    each naming the ROADMAP item that ports it."""
-    on = [f"{name}= (ROADMAP item {_UNPORTED[name]})" for name, value in modes.items() if value]
-    if on:
-        raise NotImplementedError(f"{fn}: {', '.join(on)} not ported yet; call without it")
 
 
 def _record(counter: str, n: int, blocks, depth_name: str, merges: bool = True) -> None:
@@ -333,22 +334,22 @@ def mesh_gossip(
     (default P-1) unit-shift ring rounds, each shipping one state per
     link. Returns ``(states [P, ...], overflow)``; with P-1 rounds every
     row is the full join. ``donate=True``: see the module docstring."""
-    _refuse("mesh_gossip", faults=faults is not None)
     return _gossip("orswot_gossip", state, mesh, rounds, donate, _fold_fn(local_fold), ops.join,
                    telemetry, ops.changed_members, stability=stability, compact_fn=ops.compact,
-                   lag_threshold=lag_threshold)
+                   lag_threshold=lag_threshold, faults=faults)
 
 
 def _gossip(kind: str, state, mesh: VirtualMesh, rounds: Optional[int], donate: bool, fold_fn,
             join_fn, telemetry: bool = False, slots_fn=None, copies: int = 1,
-            stability: bool = False, compact_fn=None, lag_threshold=None):
+            stability: bool = False, compact_fn=None, lag_threshold=None, faults=None):
     """The ring scaffold of the ``mesh_gossip*`` entries: each rank folds
     its block, then ``rounds`` (default P-1) unit-shift ring rounds.
     Returns ``(states [P, ...], overflow)`` with the flags OR-reduced over
     the ranks; ``telemetry=True`` adds the Telemetry (``slots_fn``'s
     changed lanes summed over the rounds); ``stability=True`` compacts the
     converged rows with ``compact_fn`` against the frontier of the input
-    tops and appends the frontier (module docstring)."""
+    tops and appends the frontier; ``faults=`` runs the faulted exchange
+    and appends the ``FaultCounters`` last (module docstring)."""
     if lag_threshold is not None and not stability:
         raise ValueError(
             "lag_threshold= needs stability=True: the stall alert watches the stable "
@@ -358,23 +359,34 @@ def _gossip(kind: str, state, mesh: VirtualMesh, rounds: Optional[int], donate: 
     aliasable = _donation(state, mesh, donate)
     if rounds is None:
         rounds = mesh.p - 1
+    faulted = faults is not None
+    evicted = set(faults.evicted) if faulted else set()
     blocks = rank_blocks(state, mesh)
     _record(f"anti_entropy.{kind}_rounds", rounds, blocks, f"anti_entropy.{kind}", merges=False)
     with _timed(f"anti_entropy.{kind}", mesh.device):
         if stability:
             # The frontier over the PRE-fold input tops of every rank:
-            # the knowledge each replica entered with (a straggler pins it).
+            # the knowledge each replica entered with (a straggler pins
+            # it); an evicted rank's tops leave the minimum (eviction
+            # unpins it).
             top = top_of(blocks)
-            frontier = from_wide(to_wide(top).reshape(-1, top.shape[-1]).amin(dim=0), top.dtype)
+            tmin = to_wide(top).reshape(mesh.p, -1, top.shape[-1]).amin(dim=1)
+            if evicted:
+                ev = flt.evicted_mask(faults, mesh.p, mesh.device)
+                tmin = tmin.masked_fill(ev[:, None], torch.iinfo(torch.int64).max)
+            frontier = from_wide(tmin.amin(dim=0), top.dtype)
         folded, of = local_folds(blocks, fold_fn)
         slots = 0
-        for _ in range(rounds):
+        if faulted:
+            folded, of, slots, fc = _faulted_rounds(folded, of, rounds, join_fn, faults, mesh,
+                                                    slots_fn if telemetry else None)
+        for _ in range(0 if faulted else rounds):
             new, of_r = ring_round(folded, reduce_overflow=False, join_fn=join_fn)
             if telemetry:
                 slots = slots + to_wide(slots_fn(folded, new))
             folded, of = new, of | of_r
         if stability:
-            folded, freed, freed_b = _compact_ranks(compact_fn, folded, frontier)
+            folded, freed, freed_b = _compact_ranks(compact_fn, folded, frontier, skip=evicted)
         if telemetry:
             rl = tree_leaves(blocks)[0].shape[1]
             slots = tele.scalar("slots_changed", slots, mesh.device)
@@ -384,6 +396,10 @@ def _gossip(kind: str, state, mesh: VirtualMesh, rounds: Optional[int], donate: 
             if stability:
                 tel = tel._replace(reclaimed_slots=freed, reclaimed_bytes=freed_b,
                                    frontier_lag=frontier_lag(top_of(folded), frontier))
+            if faulted:
+                tel = tel._replace(faults_dropped=fc.packets_dropped,
+                                   faults_rejected=fc.packets_rejected,
+                                   faults_delayed=fc.packets_delayed)
         out = _donate_ring(donate, aliasable, state, folded), torch.any(of, dim=0)
     if telemetry:
         out = (*out, tele.finish_dispatch(kind, tel, t0))
@@ -391,19 +407,66 @@ def _gossip(kind: str, state, mesh: VirtualMesh, rounds: Optional[int], donate: 
         out = (*out, frontier)
         if lag_threshold is not None:
             watch_lag(kind, int(frontier_lag(top_of(out[0]), frontier)), lag_threshold)
+    if faulted:
+        flt.record(fc)
+        out = (*out, fc)
     return out
 
 
-def _compact_ranks(compact_fn, folded, frontier):
+def _faulted_rounds(folded, of, rounds: int, join_fn, faults, mesh: VirtualMesh, slots_fn):
+    """The faulted exchange of the gossip ring (JAX ``_mesh_gossip_lattice``
+    under ``faults=``): every round each rank ships its state with a
+    checksum lane over the live ring, each receiver takes the round's
+    fates from a table built before the first round, corrupts, verifies,
+    joins and deselects the join where the state was dropped, rejected or
+    held; a delayed state joins the next round (the last round delivers
+    it at once). Full-state loss is never unsound: a missed round only
+    slows convergence. Returns ``(rows, overflow, changed slots,
+    FaultCounters)``."""
+    p = mesh.p
+    shift = permuter(flt.ring_perm(p, faults.evicted), p, mesh.device)
+    fates = flt.LinkFates(faults, rounds, p, mesh.device)
+    fc = flt.zero_counters(p, mesh.device)[:4]
+    delay_mode = faults.delay > 0
+    held = heldv = None
+    slots = 0
+
+    def flag(x, keep):
+        return x & keep.reshape(-1, *([1] * (x.dim() - 1)))
+
+    for r in range(rounds):
+        other, chk = shift((folded, checksum(folded, batch_dims=1)))
+        other, keep, fts = flt.receive_wire(fates, r, other, chk,
+                                            delay_ok=delay_mode and r < rounds - 1)
+        base = folded
+        if held is not None:
+            joined, of_h = join_fn(folded, held)
+            folded = flt.tree_select(heldv, joined, folded)
+            of = of | flag(of_h, heldv)
+        joined, of_r = join_fn(folded, other)
+        new = flt.tree_select(keep, joined, folded)
+        if delay_mode:
+            held, heldv = other, fts[2]
+        fc = flt.tick_counters(fc, fts)
+        if slots_fn is not None:
+            slots = slots + to_wide(slots_fn(base, new))
+        folded, of = new, of | flag(of_r, keep)
+    return folded, of, slots, flt.finish_counters(fc)
+
+
+def _compact_ranks(compact_fn, folded, frontier, skip=()):
     """Each rank's compaction of its converged row (the JAX per-device
     ``compact_fn``): the ``[P, ...]`` rows compacted, and the freed slots
     and bytes summed over the ranks once (the ``psum``; ``float32``
-    bytes)."""
+    bytes). The ranks in ``skip`` (evicted: the frontier may exceed
+    their knowledge) keep their rows and free nothing."""
     p = tree_leaves(folded)[0].shape[0]
     outs = [compact_fn(tree_map(lambda x: x[q], folded), frontier) for q in range(p)]
-    rows = stack([o[0] for o in outs], outs[0][0])
-    freed = from_raw(torch.stack([raw(o[1]) for o in outs]).sum(), torch.uint32)
-    freed_b = torch.stack([o[2] for o in outs]).sum()
+    rows = stack([tree_map(lambda x: x[q], folded) if q in skip else o[0]
+                  for q, o in enumerate(outs)], outs[0][0])
+    kept = [o for q, o in enumerate(outs) if q not in skip]
+    freed = from_raw(torch.stack([raw(o[1]) for o in kept]).sum(), torch.uint32)
+    freed_b = torch.stack([o[2] for o in kept]).sum()
     return rows, freed, freed_b
 
 
@@ -460,10 +523,9 @@ def mesh_gossip_map(
     then ``rounds`` (default P-1) unit-shift ring rounds, each shipping
     one state per link. Returns ``(states [P, ...], overflow [2])``; with
     P-1 rounds every row is the full join."""
-    _refuse("mesh_gossip_map", faults=faults is not None)
     return _gossip("map_gossip", state, mesh, rounds, donate, map_ops.fold, map_ops.join,
                    telemetry, map_ops.changed_keys, stability=stability,
-                   compact_fn=map_ops.compact, lag_threshold=lag_threshold)
+                   compact_fn=map_ops.compact, lag_threshold=lag_threshold, faults=faults)
 
 
 def mesh_fold_sparse(
@@ -497,10 +559,9 @@ def mesh_gossip_sparse(
     ring rounds of ``ops.sparse_orswot.join``, one segment table per link
     per round (traffic proportional to live dots, not the universe).
     Returns ``(states [P, ...], overflow [2])``."""
-    _refuse("mesh_gossip_sparse", faults=faults is not None)
     return _gossip("sparse_gossip", states, mesh, rounds, donate, sp.fold, sp.join, telemetry,
                    sp.changed_dots, copies=mesh.s, stability=stability, compact_fn=sp.compact,
-                   lag_threshold=lag_threshold)
+                   lag_threshold=lag_threshold, faults=faults)
 
 
 def mesh_fold_sparse_mvmap(
@@ -537,12 +598,11 @@ def mesh_gossip_sparse_mvmap(
     ring rounds, one cell table per link per round (traffic proportional
     to live cells, not the key universe). Returns ``(states [P, ...],
     flags [3])``."""
-    _refuse("mesh_gossip_sparse_mvmap", faults=faults is not None)
     return _gossip(f"sparse_mvmap_gossip_s{sibling_cap}", states, mesh, rounds, donate,
                    lambda x: smv.fold(x, sibling_cap=sibling_cap),
                    lambda a, b: smv.join(a, b, sibling_cap=sibling_cap), telemetry,
                    smv.changed_cells, copies=mesh.s, stability=stability,
-                   compact_fn=smv.compact, lag_threshold=lag_threshold)
+                   compact_fn=smv.compact, lag_threshold=lag_threshold, faults=faults)
 
 
 def _nested_kind(level, op: str) -> str:
@@ -586,11 +646,10 @@ def mesh_gossip_sparse_nested(
     ``SparseNestLevel`` composition): each rank folds its block, then
     ``rounds`` (default P-1) unit-shift ring rounds of ``level.join``.
     Returns ``(states [P, ...], flags [L+1])``."""
-    _refuse("mesh_gossip_sparse_nested", faults=faults is not None)
     return _gossip(_nested_kind(level, "gossip"), states, mesh, rounds, donate, level.fold,
                    level.join, telemetry, tele.generic_slots_changed, copies=mesh.s,
                    stability=stability, compact_fn=sparse_nest_ops.compact,
-                   lag_threshold=lag_threshold)
+                   lag_threshold=lag_threshold, faults=faults)
 
 
 # ---- the dense nests (ops.nest) ------------------------------------------------
@@ -618,10 +677,9 @@ def mesh_gossip_map_orswot(state, mesh: VirtualMesh, rounds: Optional[int] = Non
     """Ring anti-entropy for ``Map<K, Orswot>`` replica blocks: each rank
     folds its block, then ``rounds`` (default P-1) unit-shift ring rounds
     of ``map_orswot.join``. Returns ``(states [P, ...], flags [2])``."""
-    _refuse("mesh_gossip_map_orswot", faults=faults is not None)
     return _gossip("map_orswot_gossip", state, mesh, rounds, donate, mo_ops.fold, mo_ops.join,
                    telemetry, _leaf_members_changed(lambda s: s.core), stability=stability,
-                   compact_fn=mo_ops.compact, lag_threshold=lag_threshold)
+                   compact_fn=mo_ops.compact, lag_threshold=lag_threshold, faults=faults)
 
 
 def mesh_fold_map3(state, mesh: VirtualMesh, telemetry: bool = False, donate: bool = False):
@@ -638,10 +696,9 @@ def mesh_gossip_map3(state, mesh: VirtualMesh, rounds: Optional[int] = None,
                      faults=None, lag_threshold=None):
     """Ring anti-entropy for ``Map<K1, Map<K2, Orswot>>`` replica blocks.
     Returns ``(states [P, ...], flags [3])``."""
-    _refuse("mesh_gossip_map3", faults=faults is not None)
     return _gossip("map3_gossip", state, mesh, rounds, donate, m3_ops.fold, m3_ops.join,
                    telemetry, _leaf_members_changed(lambda s: s.mo.core), stability=stability,
-                   compact_fn=m3_ops.compact, lag_threshold=lag_threshold)
+                   compact_fn=m3_ops.compact, lag_threshold=lag_threshold, faults=faults)
 
 
 def mesh_fold_nested_map(state, mesh: VirtualMesh, telemetry: bool = False,
@@ -661,10 +718,9 @@ def mesh_gossip_nested_map(state, mesh: VirtualMesh, rounds: Optional[int] = Non
                            stability: bool = False, faults=None, lag_threshold=None):
     """Ring anti-entropy for ``Map<K1, Map<K2, MVReg>>`` replica blocks.
     Returns ``(states [P, ...], flags [3])``."""
-    _refuse("mesh_gossip_nested_map", faults=faults is not None)
     return _gossip("nested_map_gossip", state, mesh, rounds, donate, mm_ops.fold, mm_ops.join,
                    telemetry, lambda a, b: map_ops.changed_keys(a.m, b.m), stability=stability,
-                   compact_fn=mm_ops.compact, lag_threshold=lag_threshold)
+                   compact_fn=mm_ops.compact, lag_threshold=lag_threshold, faults=faults)
 
 
 # ---- the clock, set and register kinds ----------------------------------------
@@ -763,15 +819,15 @@ def gossip_elastic(model, mesh: VirtualMesh, rounds: Optional[int] = None, polic
     committed into the model (:func:`_commit_rows`) and the tracker
     observes it, narrowing cleared axes in place — after a reclaim round,
     read the model, not the returned rows. ``lag_threshold=`` is the
-    frontier-stall alert (it needs ``stability=``). ``faults=`` (item
-    15.4) raises."""
+    frontier-stall alert (it needs ``stability=``). ``faults=`` threads a
+    ``FaultPlan`` into every attempt; the LAST element is then the
+    ``FaultCounters`` with the packet counts summed over the attempts."""
     from .. import elastic
     from ..models.map import BatchedMap
     from ..models.orswot import BatchedOrswot
     from ..models.sparse_mvmap import BatchedSparseMap
     from ..models.sparse_nested_map import BatchedSparseNestedMap
     from ..models.sparse_orswot import BatchedSparseOrswot
-    _refuse("gossip_elastic", faults=faults is not None)
     policy = policy or elastic.DEFAULT_POLICY
 
     def plan(m):
@@ -798,13 +854,16 @@ def gossip_elastic(model, mesh: VirtualMesh, rounds: Optional[int] = None, polic
 
     widened: dict = {}
     migrations = 0
-    tel = None
+    tel = fcs = None
     while True:
         run, lanes = plan(model)
         if donate:
             snap = tree_map(torch.clone, model.state)
         out = run(model.state, mesh, rounds, donate=donate, telemetry=telemetry,
-                  stability=stability, lag_threshold=lag_threshold)
+                  stability=stability, lag_threshold=lag_threshold, faults=faults)
+        if faults is not None:
+            fcs = flt.accumulate_counters(fcs, out[-1])
+            out = out[:-1]
         rows, flags = out[:2]
         if telemetry:
             tel = out[2] if tel is None else tele.combine(tel, out[2])
@@ -824,6 +883,8 @@ def gossip_elastic(model, mesh: VirtualMesh, rounds: Optional[int] = None, polic
                 ret = (*ret, tel)
             if stability:
                 ret = (*ret, out[-1])
+            if fcs is not None:
+                ret = (*ret, fcs)
             return ret
         if migrations >= policy.max_migrations:
             raise RuntimeError(

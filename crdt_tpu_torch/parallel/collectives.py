@@ -40,22 +40,29 @@ def ppermute(tree, perm: Sequence[Tuple[int, int]]):
     targets receives zeros. A ring shift (every ring round) is a roll,
     recursive doubling's exchange ``i <-> i ^ k`` a swap of halves; any
     other permutation gathers through an index table."""
-    p = _size(tree)
+    leaf = _leaf(tree)
+    return permuter(perm, leaf.shape[0], leaf.device)(tree)
+
+
+def permuter(perm: Sequence[Tuple[int, int]], p: int, device):
+    """:func:`ppermute` over ``p`` ranks as a function of the tree, its
+    index table (when the permutation is neither a roll nor a swap of
+    halves: a ring over the live ranks of a faulted run) copied to the
+    device once, here, so a round that calls it reads no host value."""
     src = [-1] * p
     for s, d in perm:
         src[d] = s
     shift = -src[0] % p
     if all(s == (d - shift) % p for d, s in enumerate(src)):
-        return tree_map(lambda x: torch.roll(bits(x), shift, 0).view(x.dtype), tree)
+        return lambda tree: tree_map(lambda x: torch.roll(bits(x), shift, 0).view(x.dtype), tree)
     k = src[0]
     if k > 0 and k & (k - 1) == 0 and p % (2 * k) == 0 and all(
             s == d ^ k for d, s in enumerate(src)):
         # Recursive doubling's exchange i <-> i ^ k: swap the two halves of
         # every group of 2k ranks (no index table to copy to the device).
-        return tree_map(
+        return lambda tree: tree_map(
             lambda x: bits(x).reshape(p // (2 * k), 2, k, *x.shape[1:]).flip(1)
             .reshape(x.shape).view(x.dtype), tree)
-    device = _leaf(tree).device
     table = torch.tensor([max(s, 0) for s in src], device=device)
     hole = torch.tensor([s < 0 for s in src], device=device)
 
@@ -63,7 +70,7 @@ def ppermute(tree, perm: Sequence[Tuple[int, int]]):
         out = bits(x).index_select(0, table)
         return out.masked_fill(hole.reshape(-1, *([1] * (x.dim() - 1))), 0).view(x.dtype)
 
-    return tree_map(move, tree)
+    return lambda tree: tree_map(move, tree)
 
 
 def psum(x: torch.Tensor) -> torch.Tensor:
@@ -137,6 +144,6 @@ def ring_round(
 
 
 __all__ = [
-    "all_reduce_clock", "all_reduce_join", "all_reduce_lattice", "pmax", "ppermute",
-    "psum", "ring_round",
+    "all_reduce_clock", "all_reduce_join", "all_reduce_lattice", "permuter", "pmax",
+    "ppermute", "psum", "ring_round",
 ]

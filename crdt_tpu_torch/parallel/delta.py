@@ -37,7 +37,7 @@ from ..ops.orswot import (
     OrswotState,
     _apply_parked,
     _compact_deferred,
-    _dedupe_deferred,
+    _dedupe_deferred_fixed,
     changed_members,
 )
 from .mesh import VirtualMesh
@@ -128,7 +128,7 @@ def apply_delta(
     dcl = torch.cat([to_wide(state.dcl), to_wide(pkt.dcl)], dim=-2)
     dmask = torch.cat([state.dmask, pkt.dmask], dim=-2)
     dvalid = torch.cat([state.dvalid, pkt.dvalid], dim=-1)
-    dcl, dmask, dvalid = _dedupe_deferred(dcl, dmask, dvalid)
+    dcl, dmask, dvalid = _dedupe_deferred_fixed(dcl, dmask, dvalid)
     before = ctr
     ctr = _apply_parked(ctr, dcl, dmask, dvalid)
     dvalid = dvalid & ~torch.all(dcl <= top[..., None, :], dim=-1)
@@ -230,7 +230,8 @@ def mesh_delta_gossip(
     dict, receives the run's counts (``delta_ring.run_delta_ring``
     documents the modes and the counts). ``telemetry=True`` appends the
     run's Telemetry (slots counted by ``ops.orswot.changed_members``);
-    ``faults=`` (item 15.4) is still to port and raises.
+    ``faults=`` (a ``faults.FaultPlan``) injects the plan's link faults
+    and appends the ``FaultCounters`` last.
 
     Returns ``(states [P, ...], dirty [P, E], overflow, residue)``."""
     from ..ops.fold_kernels import fold_auto

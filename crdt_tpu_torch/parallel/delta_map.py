@@ -279,7 +279,7 @@ def mesh_delta_gossip_map(
     slots, which only the ack window can mask), ``donate=`` and ``wal=``
     (δ records of kind ``map``); ``telemetry=True`` appends the run's
     Telemetry (slots counted by ``ops.map.changed_keys``); ``faults=``
-    (item 15.4) is still to port and raises. Returns ``(states [P, ...],
+    appends the ``FaultCounters`` last. Returns ``(states [P, ...],
     dirty [P, K], overflow [2], residue)``."""
     from .delta_ring import run_delta_ring
 

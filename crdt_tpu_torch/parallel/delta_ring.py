@@ -70,8 +70,14 @@ timer, ``wire.fused_runs``, the ``durability.wal_append`` timer, and — from
 one host read of the residue at the ring's end, never inside a round —
 the ``anti_entropy.<kind>.residue`` gauge, ``residue_runs`` and a
 once-per-kind warning that an under-budgeted ring is not converged
-(:func:`reset_residue_warnings` re-arms it). ``faults=`` with its
-delay mode (item 15.4) is still to port and raises, naming its item.
+(:func:`reset_residue_warnings` re-arms it; a faulted run records the
+gauge and never warns: its residue is injected loss).
+
+- ``faults=`` (a ``faults.FaultPlan``) — the fault plane
+  (:func:`run_delta_ring`'s docstring): the ring over the live ranks, a
+  checksum lane on every packet (K3's chained ``chk`` on the fused wire),
+  the fates of a table built before the first round, the held packet of a
+  delayed link, and the ``FaultCounters`` as the last output.
 """
 
 from __future__ import annotations
@@ -84,15 +90,17 @@ import torch
 from .. import telemetry as tele
 from .._dtypes import bits, from_wide, to_wide, umax
 from ..delta_opt import ackwin as _ackwin
+from ..faults import inject as flt
+from ..faults.integrity import checksum
 from ..obs import hist as _hist
 from ..ops import wire_kernels as _wk
 from ..ops.lattice import tree_leaves, tree_map
 from ..utils.metrics import metrics, state_nbytes
 from . import wire as _wire
 from .anti_entropy import (
-    _consume, _donation, _refuse, _tel_reduced, _write_back, local_folds, rank_blocks,
+    _consume, _donation, _tel_reduced, _write_back, local_folds, rank_blocks,
 )
-from .collectives import pmax, ppermute, psum
+from .collectives import permuter, pmax, psum
 from .delta import DeltaPacket
 from .mesh import VirtualMesh
 
@@ -145,18 +153,23 @@ class RingTelemetry:
     def begin(self) -> None:
         self._u0, self._w0 = self.useful, self.packed
 
-    def sent(self, backlog, wire_bytes: int, useful, packed_words=None, covered=None) -> None:
+    def sent(self, backlog, wire_bytes: int, useful, packed_words=None, covered=None,
+             chk_bytes: int = 0) -> None:
         """One round's packet on the wire: the backlog after the extract
         (``[P]``), one link's static wire bytes, each rank's useful bytes,
         and (fused) K3's nonzero-word counts; ``covered`` the slots the
-        ack window masked."""
+        ack window masked; ``chk_bytes`` the checksum lane of a faulted
+        run (4: useful, and one packed word)."""
         self.hresid = _hist.observe_lanes(self.hresid, backlog)
         if covered is not None:
             self.skip = self.skip + covered.sum(dim=-1, dtype=torch.float32) * self.slot_price
         self.shipped = self.shipped + float(wire_bytes)
         self.useful = self.useful + useful
+        if chk_bytes:
+            self.useful = self.useful + float(chk_bytes)
         if packed_words is not None:
-            self.packed = self.packed + 4.0 * to_wide(packed_words).to(torch.float32)
+            words = to_wide(packed_words) + (chk_bytes // 4)
+            self.packed = self.packed + 4.0 * words.to(torch.float32)
 
     def acked(self, ack_bytes: int, words, depth) -> None:
         """The ack lane of one round: its static bytes per link, the
@@ -249,8 +262,21 @@ def run_delta_ring(
     ``telemetry=True`` appends the run's Telemetry as a fifth output
     (:class:`RingTelemetry`; ``slots_fn`` counts a round's changed
     lanes, ``telemetry.generic_slots_changed`` by default), recorded under
-    ``kind``."""
-    _refuse("run_delta_ring", faults=faults is not None)
+    ``kind``.
+
+    ``faults=`` (a ``faults.FaultPlan``) runs the ring over the plan's
+    live ranks with a checksum lane on every packet (fused: the digest
+    chained from K3's in-pass partials; layered: ``integrity.checksum`` of
+    the packet) and the plan's fates, looked up in a table built and
+    uploaded before the first round: each receiver corrupts what its link
+    corrupts, verifies, applies and deselects the apply where the packet
+    was dropped, rejected or held (``torch.where``, no host branch); a
+    delayed packet lands the next round, or in the epilogue. Lost packets
+    force ``residue >= 1`` and keep each rank's own top (evicted ranks
+    never adopt, and their tops stay out of the live maximum). The
+    :class:`~crdt_tpu_torch.faults.FaultCounters` come back as the LAST
+    output, recorded under the ``faults.*`` names; the Telemetry's
+    ``faults_*`` fields carry them too."""
     t0 = time.perf_counter()
     if wal is not None and wal_kind is None:
         raise ValueError("wal= needs wal_kind= (the merge kind δ records decompose under)")
@@ -262,13 +288,17 @@ def run_delta_ring(
     p = mesh.p
     gated = digest and gate is not None
     acked = bool(ack_window)
+    faulted = faults is not None
+    delay_mode = faulted and faults.delay > 0
     win = (p - 1) if not pipeline else max(2 * (p - 1) - 1, 0)
     if rounds is None:
         rounds = win
-    perm = [(i, (i + 1) % p) for i in range(p)]
+    evicted = faults.evicted if faulted else ()
     # Digest exchange and acks run against the ring: rank i's packets land
-    # on i+1, so i needs i+1's frozen top and i+1's acks.
-    inv_perm = [(i, (i - 1) % p) for i in range(p)]
+    # on i+1, so i needs i+1's frozen top and i+1's acks. A faulted ring
+    # runs over the live ranks (evicted ranks self-loop).
+    shift = permuter(flt.ring_perm(p, evicted), p, mesh.device)
+    unshift = permuter(flt.inv_ring_perm(p, evicted), p, mesh.device)
     aliasable = _donation(state, mesh, donate)
     caller = (state, dirty)
 
@@ -294,7 +324,15 @@ def run_delta_ring(
     # One rank at a time: the max-fold's signed temporary stays one
     # rank block.
     f = torch.stack([bits(umax(fctx[q], 0)) for q in range(p)]).view(fctx.dtype)
-    rtop = ppermute(top_of(folded), inv_perm) if gated else None
+    rtop = unshift(top_of(folded)) if gated else None
+    if faulted:
+        # The whole run's fates, drawn and uploaded before the first round.
+        fates = flt.LinkFates(faults, rounds, p, mesh.device)
+        fc = flt.zero_counters(p, mesh.device)
+        # The checksum word rides every packet (one u32 per link).
+        chk_bytes = 4
+    else:
+        chk_bytes = 0
 
     counts = {"shipped": torch.zeros((), dtype=torch.int64, device=mesh.device),
               "deferred": torch.zeros((), dtype=torch.int64, device=mesh.device),
@@ -320,7 +358,9 @@ def run_delta_ring(
                 counts["skipped"] += aux.covered.sum()
             sent = codec.mask(pkt, aux.keep) if acked else None
             useful = codec.useful_bytes(pkt, aux.keep) if telemetry else None
-            return ppermute(wired, perm), aux, sent, useful, aux.covered if acked else None
+            # K3's chained checksum is the integrity lane of a faulted run.
+            chk = shift(aux.checksum) if faulted else None
+            return shift(wired), chk, aux, sent, useful, aux.covered if acked else None
 
         def receive(wired, st, mirror):
             return codec.unpack(wired, own_top=top_of(st) if gated else None, mirror_ctx=mirror)
@@ -335,26 +375,28 @@ def run_delta_ring(
                 pkt, covered = _ackwin.gate_window(pkt, aw)
                 counts["skipped"] += covered.sum()
             counts["shipped"] += _ackwin._core(pkt).valid.sum()
-            wired = ppermute(pkt, perm)
+            chk = shift(checksum(pkt, batch_dims=1)) if faulted else None
+            wired = shift(pkt)
             # The JAX layered ring prices the packet each rank receives.
             useful = tele.packet_useful_bytes(wired, batch_dims=1) if telemetry else None
-            return wired, None, pkt, useful, covered
+            return wired, chk, None, pkt, useful, covered
 
         def receive(wired, st, mirror):
             return wired
 
-    def ack_exchange(sent, rcvd):
+    def ack_exchange(sent, rcvd, keep):
         """Back-propagate the applied packet's per-slot confirmation one
         inverse hop (a u32 bitmap on the fused wire) and promote the
-        sender's own shipped copy into its window."""
-        acks = _ackwin.ack_bits(rcvd)
+        sender's own shipped copy into its window (a faulted run acks
+        only what it joined)."""
+        acks = _ackwin.ack_bits(rcvd, keep)
         words = None
         if fused:
-            words = ppermute(_wk.pack_bits(acks), inv_perm)
+            words = unshift(_wk.pack_bits(acks))
             counts.setdefault("ack_bytes", _nbytes(words))
             acks = _wk.unpack_bits(words, acks.shape[-1])
         else:
-            acks = ppermute(acks, inv_perm)
+            acks = unshift(acks)
             counts.setdefault("ack_bytes", _nbytes(acks))
         _ackwin.update_window(awin, sent, acks)
         if telemetry:
@@ -362,9 +404,10 @@ def run_delta_ring(
 
     def out_step(pkt, d, aw):
         """Put one extracted packet on the wire: re-mark its deferred
-        slots (fused) before the backlog count. Returns the wire, the
-        tracking, the parked loss and the sender's shipped copy."""
-        wired, aux, sent, useful, covered = send(pkt, aw)
+        slots (fused) before the backlog count. Returns the wire (with its
+        checksum lane when faulted), the tracking, the parked loss and
+        the sender's shipped copy."""
+        wired, chk, aux, sent, useful, covered = send(pkt, aw)
         if "packet_bytes" not in counts:
             counts["packet_bytes"], counts["wire_bytes"] = _nbytes(pkt), _nbytes(wired)
         lost = torch.zeros((p,), dtype=torch.int32, device=mesh.device)
@@ -372,9 +415,40 @@ def run_delta_ring(
             d = _wire.remark_deferred(d, _wire.core_idx(pkt), aux.defer)
             lost = aux.parked_lost
         if telemetry:
-            rt.sent(d.sum(dim=-1), _nbytes(wired), useful,
-                    packed_words=aux.packed_words if fused else None, covered=covered)
-        return wired, d, lost, sent
+            rt.sent(d.sum(dim=-1), _nbytes(wired) + chk_bytes, useful,
+                    packed_words=aux.packed_words if fused else None, covered=covered,
+                    chk_bytes=chk_bytes)
+        return (wired, chk), d, lost, sent
+
+    held = heldv = None
+
+    def merge(r, flight, st, d, f, of, mirror, final=False):
+        """Round ``r``'s delivery at each receiver: the faulted wire (fates,
+        corruption, verify), the decode, the held packet of a delayed
+        link, then the apply — deselected where the packet did not land.
+        Returns the new rows, tracking, overflow, the decoded packet and
+        its keep mask (None on a reliable ring)."""
+        nonlocal fc, held, heldv
+        wired, chk = flight
+        keep = fts = None
+        if faulted:
+            wired, keep, fts = flt.receive_wire(fates, r, wired, chk,
+                                                delay_ok=delay_mode and not final)
+        rcvd = receive(wired, st, mirror)
+        if held is not None:
+            # The one-round-late link buffer lands (delay faults).
+            st, d, f, of = _select_apply(apply_fn(st, held, d, f), (st, d, f), of, heldv)
+        if not faulted:
+            st, d, f, of_r = apply_fn(st, rcvd, d, f)
+            return st, d, f, of | of_r, rcvd, None
+        st, d, f, of = _select_apply(apply_fn(st, rcvd, d, f), (st, d, f), of, keep)
+        fc = flt.tick_counters(fc, fts)
+        fc = fc[:4] + (fc[4] + (fts[0] | fts[1]),)
+        if delay_mode and not final:
+            # The held packet of a delayed link (only a rank whose link
+            # delayed it applies it next round; the rest is deselected).
+            held, heldv = rcvd, fts[2]
+        return st, d, f, of, rcvd, keep[:, None]
 
     starved = torch.zeros((p,), dtype=torch.int64, device=mesh.device)
     nlost = torch.zeros((p,), dtype=torch.int32, device=mesh.device)
@@ -402,27 +476,25 @@ def run_delta_ring(
             nlost = nlost + lost
             if (r + 1) >= rounds - win:
                 starved = starved + d.sum(dim=-1)
-            rcvd = receive(flight, folded, mctx_prev if fused and acked else None)
             before = folded
-            folded, d, f, of_r = apply_fn(folded, rcvd, d, f)
-            of = of | of_r
+            folded, d, f, of, rcvd, keep = merge(
+                r, flight, folded, d, f, of, mctx_prev if fused and acked else None)
             if acked:
                 # The ack is for the packet applied this round, shipped
                 # last round: the window lags one round more, like
                 # knowledge itself.
                 if fused:
                     mctx_prev, mctx = mctx, _wire.mirror_promote(
-                        mctx, rcvd, _ackwin.ack_bits(rcvd))
-                ack_exchange(sent, rcvd)
+                        mctx, rcvd, _ackwin.ack_bits(rcvd, keep))
+                ack_exchange(sent, rcvd, keep)
                 sent = sent_nxt
             if telemetry:
                 rt.applied(before, folded)
                 rt.end(fused)
             flight = nxt
-        rcvd = receive(flight, folded, mctx_prev if fused and acked else None)
         before = folded
-        folded, d, f, of_r = apply_fn(folded, rcvd, d, f)
-        of = of | of_r
+        folded, d, f, of, _, _ = merge(rounds - 1, flight, folded, d, f, of,
+                                       mctx_prev if fused and acked else None, final=True)
         if telemetry:
             rt.applied(before, folded)
     else:
@@ -436,39 +508,68 @@ def run_delta_ring(
                 starved = starved + d.sum(dim=-1)
             # The mirror before this round's promotion matches the
             # sender's encode state.
-            rcvd = receive(wired, folded, mctx if fused and acked else None)
             before = folded
-            folded, d, f, of_r = apply_fn(folded, rcvd, d, f)
-            of = of | of_r
+            folded, d, f, of, rcvd, keep = merge(r, wired, folded, d, f, of,
+                                                 mctx if fused and acked else None)
             if acked:
                 if fused:
-                    mctx = _wire.mirror_promote(mctx, rcvd, _ackwin.ack_bits(rcvd))
-                ack_exchange(sent, rcvd)
+                    mctx = _wire.mirror_promote(mctx, rcvd, _ackwin.ack_bits(rcvd, keep))
+                ack_exchange(sent, rcvd, keep)
             if telemetry:
                 rt.applied(before, folded)
                 rt.end(fused)
+        if held is not None:
+            # A packet still held when the loop ends arrives now (one round
+            # late past the ring's edge, not lost).
+            folded, d, f, of = _select_apply(apply_fn(folded, held, d, f), (folded, d, f), of,
+                                             heldv)
 
     if telemetry and gated:
         rt.digest(_nbytes(rtop))
     own_top = top_of(folded)
-    top_all = bits(pmax(own_top)).expand(own_top.shape).view(own_top.dtype)
     if fused:
         # Unencodable parked removes never reached the wire: count them as
         # loss mesh-wide and keep each rank's own top if any was lost.
         nlost_tot = psum(nlost)
-        top = torch.where(nlost_tot == 0, bits(top_all), bits(own_top)).view(own_top.dtype)
+    if faulted:
+        # Adopt the live ranks' top only when the run lost nothing:
+        # adoption after loss would claim observed-and-removed for dots a
+        # receiver never got. Evicted ranks never adopt and stay out of
+        # the live maximum.
+        ev = fates.evicted.reshape(p, *([1] * (own_top.dim() - 1)))
+        live_top = pmax(from_wide(torch.where(ev, 0, to_wide(own_top)), own_top.dtype))
+        lost_tot = psum(fc[4])
+        adopt = (lost_tot == 0) & ~fates.evicted
+        if fused:
+            adopt = adopt & (nlost_tot == 0)
+        top = flt.tree_select(adopt, bits(live_top).expand(own_top.shape).view(own_top.dtype),
+                              own_top)
     else:
-        top = top_all.contiguous()
+        top_all = bits(pmax(own_top)).expand(own_top.shape).view(own_top.dtype)
+        if fused:
+            top = torch.where(nlost_tot == 0, bits(top_all), bits(own_top)).view(own_top.dtype)
+        else:
+            top = top_all.contiguous()
     folded = close_top(folded, top)
     overflow = torch.any(of, dim=0)
     residue = psum(starved)
+    if faulted:
+        # Lost packets void the certificate: a degraded run must never
+        # read as certified.
+        residue = torch.maximum(residue, (lost_tot > 0).to(residue.dtype))
     if fused:
         residue = torch.maximum(residue, (nlost_tot > 0).to(residue.dtype))
     if rounds < win:
         residue = torch.clamp_min(residue, 1)
+    if faulted:
+        counters = flt.finish_counters(fc)
     if telemetry:
         tel = rt.telemetry(folded, max(rl - 1, 0) + rounds, residue, fused,
                            awin if acked else None)
+        if faulted:
+            tel = tel._replace(faults_dropped=counters.packets_dropped,
+                               faults_rejected=counters.packets_rejected,
+                               faults_delayed=counters.packets_delayed)
     if donate:
         if aliasable:
             folded, d = _write_back(caller, (folded, d))
@@ -476,8 +577,10 @@ def run_delta_ring(
     if mesh.device.type == "cuda":
         torch.cuda.synchronize(mesh.device)
     metrics.observe(f"anti_entropy.{kind}_seconds", time.perf_counter() - t_run)
-    # The one host read of the run's counts (never inside a round).
-    _warn_residue(kind, int(residue))
+    # The one host read of the run's counts (never inside a round). A
+    # faulted run's residue is forced by design: it records the gauge
+    # but never warns about the budget.
+    _warn_residue(kind, int(residue), warn=not faulted)
     if wal is not None:
         # The host-side durability append, after the run.
         b0, f0 = wal.bytes_appended, wal.fsyncs
@@ -502,17 +605,29 @@ def run_delta_ring(
     if fused:
         metrics.count("wire.fused_runs")
     out = (folded, d, overflow, residue.to(torch.int32))
-    if not telemetry:
-        return out
-    d_tel = tele.to_dict(tel)
-    if acked:
-        metrics.count("delta_opt.acked_skipped", int(d_tel["bytes_acked_skipped"]))
-        metrics.count(f"delta_opt.acked_skipped.{kind}", int(d_tel["bytes_acked_skipped"]))
-    if fused:
-        # The registry twins of the packed-bytes counter.
-        metrics.count("wire.packed_bytes", int(d_tel["wire_packed_bytes"]))
-        metrics.count(f"wire.packed_bytes.{kind}", int(d_tel["wire_packed_bytes"]))
-    return (*out, tele.finish_dispatch(kind, tel, t0))
+    if telemetry:
+        d_tel = tele.to_dict(tel)
+        if acked:
+            metrics.count("delta_opt.acked_skipped", int(d_tel["bytes_acked_skipped"]))
+            metrics.count(f"delta_opt.acked_skipped.{kind}", int(d_tel["bytes_acked_skipped"]))
+        if fused:
+            # The registry twins of the packed-bytes counter.
+            metrics.count("wire.packed_bytes", int(d_tel["wire_packed_bytes"]))
+            metrics.count(f"wire.packed_bytes.{kind}", int(d_tel["wire_packed_bytes"]))
+        out = (*out, tele.finish_dispatch(kind, tel, t0))
+    if faulted:
+        flt.record(counters)
+        out = (*out, counters)
+    return out
+
+
+def _select_apply(applied, prior, of, keep):
+    """Keep an apply's outputs only on the ranks where ``keep`` holds (the
+    packet landed): the rows, dirty marks and contexts of the others stay
+    as they were, and their overflow does not count."""
+    st2, d2, f2, of_r = applied
+    st, d, f = flt.tree_select(keep, (st2, d2, f2), prior)
+    return st, d, f, of | (of_r & keep.reshape(-1, *([1] * (of_r.dim() - 1))))
 
 
 # Kinds whose residue warning already fired this process; repeats only
@@ -526,17 +641,18 @@ def reset_residue_warnings() -> None:
     _RESIDUE_WARNED.clear()
 
 
-def _warn_residue(kind: str, residue) -> None:
+def _warn_residue(kind: str, residue, warn: bool = True) -> None:
     """The ring's residue accounting on the host: the
     ``anti_entropy.<kind>.residue`` gauge on every run; a run with residue
     counts ``anti_entropy.<kind>.residue_runs`` and warns once per kind per
     process that the ring is not guaranteed converged. ``residue`` is an
-    int, or a ring's result tuple (its fourth element)."""
+    int, or a ring's result tuple (its fourth element). ``warn=False`` (a
+    faulted run, whose residue is injected loss) records the gauge only."""
     if isinstance(residue, tuple):
         residue = residue[3]
     residue = int(residue)
     metrics.observe(f"anti_entropy.{kind}.residue", float(residue))
-    if not residue:
+    if not residue or not warn:
         return
     metrics.count(f"anti_entropy.{kind}.residue_runs")
     if kind in _RESIDUE_WARNED:
@@ -607,26 +723,30 @@ def delta_gossip_elastic(
     the committed rows' own frontier (``reclaim.compact_model``: the
     certified ring has no spare output for a frontier, and the batch is
     the replica set), and the tracker observes the model and narrows
-    cleared axes in place. ``faults=`` (item 15.4) raises."""
+    cleared axes in place. ``faults=`` threads a ``FaultPlan`` into every
+    attempt; the LAST element is then the ``FaultCounters`` with the
+    packet counts summed over the attempts (``faults.combine_counters``)."""
     from .. import elastic
     from .delta import mesh_delta_gossip
 
-    _refuse("delta_gossip_elastic", faults=faults is not None)
     if wal is not None and wal.tail is None:
         wal.attach(model.state)
     policy = policy or elastic.DEFAULT_POLICY
     widened: dict = {}
     migrations = 0
-    tel = None
+    tel = fcs = None
     while True:
         if donate:
             snap = tree_map(torch.clone, model.state)
             snap_dirty = dirty.clone()
         out = mesh_delta_gossip(
             model.state, dirty, fctx, mesh, rounds, cap, local_fold, telemetry=telemetry,
-            pipeline=pipeline, digest=digest, donate=donate, ack_window=ack_window, fused=fused,
-            stats=stats,
+            pipeline=pipeline, digest=digest, donate=donate, faults=faults,
+            ack_window=ack_window, fused=fused, stats=stats,
         )
+        if faults is not None:
+            fcs = flt.accumulate_counters(fcs, out[-1])
+            out = out[:-1]
         if telemetry:
             tel = out[4] if tel is None else tele.combine(tel, out[4])
         if donate:
@@ -643,7 +763,8 @@ def delta_gossip_elastic(
                 # The committed attempt is the durable transition.
                 wal.append_state("orswot", out[0])
                 wal.mark_round()
-            return (*out[:4], widened, tel) if telemetry else (*out, widened)
+            ret = (*out[:4], widened) + ((tel,) if telemetry else ())
+            return ret + ((fcs,) if fcs is not None else ())
         if migrations >= policy.max_migrations:
             raise RuntimeError(
                 f"δ ring still overflowing after {migrations} migrations (axes grown: "

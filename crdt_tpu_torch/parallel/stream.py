@@ -85,12 +85,26 @@ refuses (re-chunk the source).
   ``reclaim.reclaimed_*.stream.<kind>`` and, with ``telemetry=True``, the
   Telemetry's ``reclaimed_slots`` / ``reclaimed_bytes`` once at the end.
 
+- ``widen_policy=`` (an ``elastic.ElasticPolicy``) — elastic retry, one
+  block at a time: after each step the overflow flags are read (a host
+  sync), the implicated axes of the accumulator and the block widen by
+  ``policy.factor`` and the step re-enters, counting
+  ``stream.widen_retries``; later blocks widen on arrival. A plan with no
+  recoverable lane (the sharded one) refuses the policy.
+- ``faults=`` (a ``faults.FaultPlan``) — every block crosses the upload
+  wire (``faults.block_wire``: one drop/corrupt draw keyed on the block's
+  index in this call, the checksum verify over what arrived); a lost
+  block's join is deselected and its flags do not count. One host read
+  per block records its fate. The entry returns a
+  :class:`StreamFaultReport` last (the Telemetry's ``faults_dropped`` /
+  ``faults_rejected`` carry it too, and ``faults.packets_*`` count it);
+  an interrupt carries the partial report. Healing is a re-stream of the
+  lost blocks with ``init=`` the faulted accumulator.
+
 The stream feeds the ``stream.<kind>.deferred_depth`` gauge (of the first
 block) and the ``stream.<kind>`` timer around the block loop, and counts
 ``stream.unaliasable_blocks`` for a repacked block of a donating stream,
-as the JAX stream does. Modes of the JAX entries still to port raise
-``NotImplementedError`` naming their ROADMAP item: ``widen_policy=``
-(15.3), ``faults=`` (15.4).
+as the JAX stream does.
 """
 
 from __future__ import annotations
@@ -102,26 +116,48 @@ from typing import Any, Callable, Dict, Iterable, Tuple
 import numpy as np
 import torch
 
+from .. import elastic
 from .. import telemetry as tele
 from .._dtypes import bits, from_raw, raw, to_wide
+from ..faults import inject as flt
 from ..ops import orswot as ops
 from ..ops import sparse_mvmap as smv
 from ..ops import sparse_orswot as sp
 from ..ops.fold_kernels import fold_auto
 from ..ops.lattice import tree_map
 from ..utils.metrics import metrics, observe_depth
-from .anti_entropy import _exchange_count, _refuse, local_folds
+from .anti_entropy import _exchange_count, local_folds
 from .collectives import all_reduce_lattice
 from .mesh import VirtualMesh
 
 
+@dataclass
+class StreamFaultReport:
+    """One faulted stream run's accounting (``faults=``): the block
+    indices (in this call's delivery order) lost to an injected upload
+    drop, and those that arrived corrupted and were REJECTED by the
+    checksum verify (corrupted content is never joined). The accumulator
+    is the exact join of the blocks not lost, so healing is a re-stream of
+    ``lost_blocks`` with ``init=acc`` and the faults off."""
+
+    dropped_blocks: list
+    rejected_blocks: list
+
+    @property
+    def lost_blocks(self) -> list:
+        return sorted(set(self.dropped_blocks) | set(self.rejected_blocks))
+
+
 class StreamInterrupted(RuntimeError):
     """A block failed to fetch or stage mid-stream. ``acc`` is the
-    accumulator — the exact lattice join of the blocks already applied, a
-    valid joinable state — and the stream resumes from block
-    ``blocks_done`` via ``init=exc.acc`` on a fresh call."""
+    accumulator — the exact lattice join of the blocks already applied
+    and not lost, a valid joinable state — and the stream resumes from
+    block ``blocks_done`` via ``init=exc.acc`` on a fresh call.
+    ``fault_report`` is the partial :class:`StreamFaultReport` of a
+    faulted run: the blocks lost before the interrupt, which the resume
+    must re-stream too."""
 
-    def __init__(self, cause: BaseException, acc, blocks_done: int):
+    def __init__(self, cause: BaseException, acc, blocks_done: int, fault_report=None):
         super().__init__(
             f"replica stream interrupted at block {blocks_done} "
             f"({type(cause).__name__}: {cause}); .acc holds the join of "
@@ -130,6 +166,7 @@ class StreamInterrupted(RuntimeError):
         self.cause = cause
         self.acc = acc
         self.blocks_done = blocks_done
+        self.fault_report = fault_report
 
 
 @dataclass(frozen=True)
@@ -145,7 +182,7 @@ class _StreamPlan:
     widen_state: Callable    # (state, {axis: cap}) -> state
     slots_fn: Callable       # (a, b) -> u32 changed lanes (the telemetry's)
     # overflow lane -> the elastic axis that widening recovers ("" = the
-    # lane is not a state axis); read by widen_policy= (ROADMAP item 15.3).
+    # lane is not a state axis); read by widen_policy=.
     flag_axes: Tuple[str, ...] = ()
     sharded: bool = False    # blocks [B, S, ...], accumulator [S, ...]
     compact_fn: Callable = None  # (state, frontier) -> (state, freed_slots, freed_bytes)
@@ -254,23 +291,26 @@ def _step(plan: _StreamPlan, acc, block, p: int):
     return acc, torch.any(of, dim=0) if plan.sharded else of
 
 
-def _stream_tel(acc, slots, steps: int, rows: int, p: int, shards: int = 0) -> tele.Telemetry:
+def _step_wire(acc, p: int, shards: int = 0) -> np.float32:
+    """One step's wire bytes in the JAX stream's Telemetry: each device's
+    folded state (the accumulator's shape, one shard of it when sharded)
+    per exchange, summed over the devices in float32."""
+    per_rank = np.float32(tele.shipped_bytes(acc, batch_dims=1 if shards else 0)
+                          * _exchange_count(p))
+    step = np.float32(0)
+    for _ in range(p * max(shards, 1)):
+        step = np.float32(step + per_rank)
+    return step
+
+
+def _stream_tel(acc, slots, steps: int, rows: int, p: int, wire: np.float32) -> tele.Telemetry:
     """The JAX stream's per-step Telemetry folded over ``steps`` steps of
     ``rows``-row blocks (``slots``: the changed slots summed over them;
-    ``acc``: the accumulator after the last; ``shards``: a sharded plan's
-    S, its ``[S, ...]`` accumulator one shard per device)."""
+    ``acc``: the accumulator after the last; ``wire``: the steps'
+    :func:`_step_wire` summed step after step, as ``combine`` sums them)."""
     if steps == 0:
         return tele.zeros(acc[0].device)
     n_ex = _exchange_count(p)
-    # One step's wire: each device's folded state (the accumulator's shape,
-    # one shard of it when sharded) per exchange, summed over the devices;
-    # then step after step.
-    per_rank = np.float32(tele.shipped_bytes(acc, batch_dims=1 if shards else 0) * n_ex)
-    step = wire = np.float32(0)
-    for _ in range(p * max(shards, 1)):
-        step = np.float32(step + per_rank)
-    for _ in range(steps):
-        wire = np.float32(wire + step)
     # Each step: every rank's fold joins, its exchanges, the accumulator join.
     merges = steps * p * (max(rows // p - 1, 0) + n_ex + 1)
     return tele.fill(tele.zeros(acc[0].device), merges=merges,
@@ -316,9 +356,16 @@ def _stream_fold(
     """The shared scaffold: template derivation, upload and repack of each
     block, the double-buffered step loop and the interrupt protocol (see
     the module docstring)."""
-    _refuse("mesh_stream_fold", widen_policy=widen_policy is not None,
-            faults=faults is not None)
     device, p = mesh.device, mesh.p
+    faulted = faults is not None
+    dropped_blocks: list = []
+    rejected_blocks: list = []
+
+    def partial_report():
+        """The lost-so-far snapshot an interrupt carries (copies: the
+        exception's view must not change afterwards)."""
+        return StreamFaultReport(list(dropped_blocks), list(rejected_blocks)) if faulted else None
+
     on_card = device.type == "cuda"
     it = iter(blocks)
 
@@ -337,7 +384,7 @@ def _stream_fold(
     except Exception as exc:
         metrics.count("stream.interrupted")
         persist_resume(init, 0)
-        raise StreamInterrupted(exc, init, 0) from exc
+        raise StreamInterrupted(exc, init, 0, fault_report=partial_report()) from exc
     if first is None and init is None:
         raise ValueError("empty block stream and no init accumulator")
 
@@ -416,6 +463,27 @@ def _stream_fold(
         reclaimed = (torch.zeros((), dtype=torch.int64, device=device),
                      torch.zeros((), dtype=torch.float32, device=device))
 
+    if widen_policy is not None and not plan.flag_axes:
+        raise ValueError(
+            f"{plan.kind}: mid-stream widening is not supported for this kind (size "
+            f"capacities up front)")
+
+    def step(acc, block, bix: int):
+        """One step; a faulted run first sends the block over the upload
+        wire (``faults.block_wire``: the draw keyed on the block index,
+        the checksum verify over what arrived) and deselects the join of
+        a lost block, whose flags then do not count. Returns the
+        accumulator, the flags and the fate code (None unfaulted)."""
+        code = None
+        if faulted:
+            block, code = flt.block_wire(faults, bix, block)
+        new, of = _step(plan, acc, block, p)
+        if faulted:
+            landed = code == 0
+            new = flt.tree_select(landed, new, acc)
+            of = of & landed
+        return new, of, code
+
     metrics.count(f"stream.{plan.kind}_rounds")
     try:
         staged = stage(first) if first is not None else None
@@ -424,11 +492,12 @@ def _stream_fold(
     except Exception as exc:
         metrics.count("stream.interrupted")
         persist_resume(acc, 0)
-        raise StreamInterrupted(exc, acc, 0) from exc
+        raise StreamInterrupted(exc, acc, 0, fault_report=partial_report()) from exc
 
     overflow = None
     blocks_done = staged_bytes = overlap_hits = 0
     slots = 0
+    wire = np.float32(0)
     if wal is not None:
         wal_b0, wal_f0 = wal.bytes_appended, wal.fsyncs
     observe_depth(f"stream.{plan.kind}", first if first is not None else acc)
@@ -436,9 +505,42 @@ def _stream_fold(
     while staged is not None:
         block = arrive(staged)
         staged_bytes += _nbytes(block)
-        new, of = _step(plan, acc, block, p)
+        new, of, code = step(acc, block, blocks_done)
+        attempts = 0
+        while widen_policy is not None:
+            # Elastic retry, one block at a time (gossip_elastic's
+            # overflow → widen → resume loop): read the flags (a host
+            # sync), widen the implicated axes of the accumulator and the
+            # block, re-enter. The step consumed nothing, so the old
+            # accumulator is the snapshot; the join is idempotent.
+            flags = torch.atleast_1d(of).tolist()
+            if not any(flags):
+                break
+            hot = tuple(axis for lane, axis in enumerate(plan.flag_axes)
+                        if lane < len(flags) and flags[lane] and axis)
+            if not hot:
+                raise RuntimeError(
+                    f"{plan.kind}: overflow lane not recoverable by widening (flags={flags})")
+            if attempts >= widen_policy.max_migrations:
+                raise RuntimeError(
+                    f"stream still overflowing after {attempts} migrations (caps: {caps}) — "
+                    f"raise policy.factor or max_migrations")
+            caps.update({ax: elastic._grown(caps[ax], widen_policy.factor) for ax in hot})
+            metrics.count("stream.widen_retries")
+            acc, block = _widen_to(plan, acc, caps), _widen_to(plan, block, caps)
+            new, of, code = step(acc, block, blocks_done)
+            attempts += 1
+        if faulted:
+            # One host read per block — the faults mode's price; the fate
+            # feeds the report the caller re-streams from.
+            fate = int(code)
+            if fate == 1:
+                dropped_blocks.append(blocks_done)
+            elif fate == 2:
+                rejected_blocks.append(blocks_done)
         if telemetry:
             slots = slots + to_wide(plan.slots_fn(acc, new))
+            wire = np.float32(wire + _step_wire(new, p, shards=mesh.s if plan.sharded else 0))
         acc = new
         overflow = of if overflow is None else overflow | of
         blocks_done += 1
@@ -466,7 +568,8 @@ def _stream_fold(
         except Exception as exc:
             metrics.count("stream.interrupted")
             persist_resume(acc, blocks_done)
-            raise StreamInterrupted(exc, acc, blocks_done) from exc
+            raise StreamInterrupted(exc, acc, blocks_done,
+                                    fault_report=partial_report()) from exc
     persist_resume(acc, blocks_done)
     if on_card:
         torch.cuda.synchronize(device)
@@ -483,10 +586,15 @@ def _stream_fold(
 
         reclaimed = (from_raw(reclaimed[0], torch.uint32), reclaimed[1])
         record_reclaim(f"stream.{plan.kind}", int(reclaimed[0]), float(reclaimed[1]))
+    report = partial_report()
+    if faulted:
+        if dropped_blocks:
+            metrics.count("faults.packets_dropped", len(dropped_blocks))
+        if rejected_blocks:
+            metrics.count("faults.packets_rejected", len(rejected_blocks))
     if not telemetry:
-        return acc, overflow
-    tel = tele.fill(_stream_tel(acc, slots, blocks_done, template_rows, p,
-                                shards=mesh.s if plan.sharded else 0),
+        return (acc, overflow, report) if faulted else (acc, overflow)
+    tel = tele.fill(_stream_tel(acc, slots, blocks_done, template_rows, p, wire),
                     stream_blocks=blocks_done, stream_staged_bytes=staged_bytes,
                     stream_overlap_hit=overlap_hits)
     if compact_every:
@@ -494,8 +602,11 @@ def _stream_fold(
     if wal is not None:
         tel = tele.fill(tel, wal_bytes=wal.bytes_appended - wal_b0,
                         wal_fsyncs=wal.fsyncs - wal_f0)
+    if faulted:
+        tel = tele.fill(tel, faults_dropped=len(dropped_blocks),
+                        faults_rejected=len(rejected_blocks))
     tele.record(plan.kind, tel)
-    return acc, overflow, tel
+    return (acc, overflow, tel, report) if faulted else (acc, overflow, tel)
 
 
 # ---- public entry points --------------------------------------------------
@@ -584,5 +695,6 @@ def iter_blocks(states, block_rows: int):
         yield tree_map(lambda x: x[lo: lo + block_rows], states)
 
 
-__all__ = ["StreamInterrupted", "iter_blocks", "mesh_stream_fold", "mesh_stream_fold_sparse",
-           "mesh_stream_fold_sparse_mvmap", "mesh_stream_fold_sparse_sharded"]
+__all__ = ["StreamFaultReport", "StreamInterrupted", "iter_blocks", "mesh_stream_fold",
+           "mesh_stream_fold_sparse", "mesh_stream_fold_sparse_mvmap",
+           "mesh_stream_fold_sparse_sharded"]

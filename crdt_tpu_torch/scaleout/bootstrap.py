@@ -22,10 +22,13 @@ non-lower-bound ``base`` reconstructs exactly; it just stops being
 minimal). The report and the ``scaleout.bootstrap_lanes`` /
 ``scaleout.bootstrap_reships`` counters are the JAX package's.
 
-Left out: the faulted wire. ``faults=`` (a ``FaultPlan``, whose drop and
-corrupt fates are drawn from ``jax.random``) and the corruption detector
-``bootstrap_rejects_corruption`` belong to ROADMAP item 15.4; ``faults=``
-raises.
+``faults=`` (a ``faults.FaultPlan``) sends every segment over the
+faulted upload wire (``faults.block_wire``, the draw keyed on the absolute
+wire index ``attempt·(n_segs+1) + seg + 1``, as in the JAX package): a
+dropped or checksum-rejected segment re-ships on the next attempt, so the
+landing stays bit-exact. ``verify_checksums=False`` is the corrupt-blind
+twin's seam (a receiver that joins a rejected segment anyway), which
+:func:`bootstrap_rejects_corruption` catches.
 """
 
 from __future__ import annotations
@@ -71,63 +74,118 @@ def bootstrap(
     faults=None,
     segment_cap: int = 64,
     max_attempts: int = 64,
+    verify_checksums: bool = True,
 ) -> Tuple[object, BootstrapReport]:
     """Bootstrap one newcomer to ``live`` (a single unbatched state of a
     decomposable ``kind``, tensors on any device; the work runs there) by
     shipping ``decompose(live, base-or-⊥)`` in ``segment_cap``-lane
-    segments (module docstring). Returns ``(state, BootstrapReport)`` with
-    ``state`` bit-identical to ``live``. Without a faulted wire
-    (``faults=`` raises, ROADMAP item 15.4) every segment lands in the
-    first ship round, so only ``max_attempts < 1`` raises
-    :class:`BootstrapFailed`."""
+    segments over an optionally faulted wire (module docstring). Returns
+    ``(state, BootstrapReport)`` with ``state`` bit-identical to ``live``.
+    Segments still pending after ``max_attempts`` ship rounds raise
+    :class:`BootstrapFailed`. ``verify_checksums=False`` is the
+    corrupt-blind twin's seam: production callers never pass it. A
+    faulted segment costs one host read of its fate."""
     from ..delta_opt.decompose import decompose, decomposition_bytes, reconstruct
+    from ..faults.inject import block_wire
 
-    if faults is not None:
-        raise NotImplementedError(
-            "bootstrap: faults= (a FaultPlan's faulted wire, ROADMAP item 15.4) not ported "
-            "yet; call without it"
-        )
     if segment_cap < 1:
         raise ValueError("segment_cap must be >= 1")
     ident = base if base is not None else tree_map(torch.zeros_like, live)
     d = decompose(kind, live, ident)
     n_lanes = int(d.valid.shape[-1])
     n_segs = max((n_lanes + segment_cap - 1) // segment_cap, 1)
-    if max_attempts < 1:
-        raise BootstrapFailed(
-            f"{n_segs + 1} bootstrap segments still pending after {max_attempts} attempts "
-            f"(dropped=0, rejected=0) — raise max_attempts or heal the links first"
-        )
-
     # Receive-side assembly buffers: lanes land positionally (absolute
     # lane indices), the residual rides whole as its own segment.
     lanes_rx = tree_map(torch.zeros_like, d.lanes)
     residual_rx = None
+
+    # Pending queue: segment -1 is the residual (+ validity mask),
+    # 0..n_segs-1 the lane slices.
+    pending = [-1] + list(range(n_segs))
+    dropped = rejected = reshipped = 0
     bytes_shipped = 0.0
-    for seg in [-1] + list(range(n_segs)):
-        if seg < 0:
-            payload = (d.residual, d.valid)
+    attempt = 0
+    while pending:
+        if attempt >= max_attempts:
+            raise BootstrapFailed(
+                f"{len(pending)} bootstrap segments still pending after {max_attempts} "
+                f"attempts (dropped={dropped}, rejected={rejected}) — raise max_attempts or "
+                f"heal the links first"
+            )
+        still = []
+        for seg in pending:
+            sl = slice(seg * segment_cap, (seg + 1) * segment_cap)
+            payload = (d.residual, d.valid) if seg < 0 else tree_map(lambda x: x[sl], d.lanes)
             bytes_shipped += _seg_bytes(payload)
-            residual_rx = payload
-            continue
-        sl = slice(seg * segment_cap, (seg + 1) * segment_cap)
-        payload = tree_map(lambda x: x[sl], d.lanes)
-        bytes_shipped += _seg_bytes(payload)
-        for rx, p in zip(tree_leaves(lanes_rx), tree_leaves(payload)):
-            bits(rx)[sl] = bits(p)
+            if faults is not None:
+                # Absolute wire index (attempt, segment): replayable under
+                # the plan's seed like every other draw.
+                payload, code = block_wire(faults, attempt * (n_segs + 1) + (seg + 1), payload)
+                code = int(code)
+                if code == 1 or (code == 2 and verify_checksums):
+                    dropped += code == 1
+                    rejected += code == 2
+                    reshipped += 1
+                    still.append(seg)
+                    continue
+                # code == 0, or the corrupt-blind seam joining a rejected
+                # payload anyway (what the detector catches).
+            if seg < 0:
+                residual_rx = payload
+            else:
+                for rx, part in zip(tree_leaves(lanes_rx), tree_leaves(payload)):
+                    bits(rx)[sl] = bits(part)
+        pending = still
+        attempt += 1
 
     res_rx, valid_rx = residual_rx
     got = reconstruct(kind, ident, type(d)(lanes=lanes_rx, valid=valid_rx, residual=res_rx))
     payload_bytes = float(decomposition_bytes(d))
     full = float(state_nbytes(live))
     report = BootstrapReport(
-        lanes=int(d.valid.sum()), segments=n_segs + 1, reshipped=0, dropped=0, rejected=0,
-        bytes_shipped=bytes_shipped, bytes_payload=payload_bytes, bytes_full_state=full,
-        ratio=payload_bytes / full if full else 0.0,
+        lanes=int(d.valid.sum()), segments=n_segs + 1, reshipped=reshipped, dropped=dropped,
+        rejected=rejected, bytes_shipped=bytes_shipped, bytes_payload=payload_bytes,
+        bytes_full_state=full, ratio=payload_bytes / full if full else 0.0,
     )
     metrics.count("scaleout.bootstrap_lanes", report.lanes)
-    metrics.count("scaleout.bootstrap_reships", 0)
+    metrics.count("scaleout.bootstrap_reships", reshipped)
     return got, report
 
 
-__all__ = ["BootstrapFailed", "BootstrapReport", "bootstrap"]
+def parked_orswot(device="cpu"):
+    """The dense ORSWOT with two remove clocks parked ahead of an empty
+    top (a 2×2 universe, D = 4): the last of the JAX merge-kind registry's
+    ``orswot`` example states, the live peer of the corruption detector."""
+    from ..ops import orswot as ops
+
+    e = ops.empty(2, 2, 4, device=device)
+    clock = torch.tensor([1, 1], dtype=torch.int64, device=device).to(torch.int32).view(
+        torch.uint32)
+    st, _ = ops.apply_rm(e, clock, torch.tensor([True, True], device=device))
+    return st
+
+
+def bootstrap_rejects_corruption(bootstrap_fn, device="cpu") -> bool:
+    """The detector for bootstrap implementations: run ``bootstrap_fn``
+    over a corrupt-heavy wire (``FaultPlan(seed=23, corrupt=0.7)``,
+    segment cap 2) and return True iff the newcomer lands BIT-IDENTICAL to
+    the live peer AND at least one segment was checksum-rejected (the
+    wire really fired). The honest :func:`bootstrap` passes; a
+    corrupt-blind receiver (``verify_checksums=False``) joins a flipped
+    lane and fails. The live state is :func:`parked_orswot`, decomposed
+    under the kind table's ``orswot`` (``delta_opt.decompose.KINDS``,
+    where the JAX detector asks its merge-kind registry)."""
+    from ..faults.inject import FaultPlan
+
+    live = parked_orswot(device)
+    plan = FaultPlan(seed=23, corrupt=0.7)
+    try:
+        got, rep = bootstrap_fn("orswot", live, faults=plan, segment_cap=2, max_attempts=256)
+    except BootstrapFailed:
+        return False
+    identical = all(torch.equal(bits(a), bits(b))
+                    for a, b in zip(tree_leaves(got), tree_leaves(live)))
+    return identical and rep.rejected > 0
+
+
+__all__ = ["BootstrapFailed", "BootstrapReport", "bootstrap", "bootstrap_rejects_corruption"]

@@ -6,8 +6,9 @@ of the same shape) and with nothing to ship (``base == live``), at
 segment caps 1, 3 and 64: the landed state == live == the JAX landing on
 every leaf, the ``BootstrapReport`` equal field for field, and the
 ``scaleout.bootstrap_lanes`` / ``_reships`` counters advanced alike.
-``faults=`` (the faulted wire, item 15.4) raises naming it;
-``segment_cap < 1`` raises the JAX ValueError."""
+``faults=`` (the faulted wire, item 15.4) runs (its parity:
+tests/test_torch_faults_stream.py); ``segment_cap < 1`` raises the JAX
+ValueError."""
 
 import numpy as np
 import pytest
@@ -58,9 +59,20 @@ def test_bootstrap_matches_jax(kind, base, cap):
 
 
 def test_faults_raise_naming_item_15_4():
-    live = kind_state("orswot", kind_arrays("orswot", np.random.default_rng(1)), "cpu")
-    with pytest.raises(NotImplementedError, match="15.4"):
-        bootstrap("orswot", live, faults=object())
+    """ROADMAP item 15.4 ported the faulted wire: a corrupt-heavy plan
+    re-ships the rejected segments and still lands the live state."""
+    from crdt_tpu.faults import FaultPlan as RefPlan
+
+    from crdt_tpu_torch.faults import FaultPlan
+
+    arrays = kind_arrays("orswot", np.random.default_rng(1))
+    got, rep = bootstrap("orswot", kind_state("orswot", arrays, "cpu"),
+                         faults=FaultPlan(seed=23, corrupt=0.7), segment_cap=2, max_attempts=256)
+    want, ref_rep = ref_bootstrap("orswot", _ref("orswot", arrays),
+                                  faults=RefPlan(seed=23, corrupt=0.7), segment_cap=2,
+                                  max_attempts=256)
+    assert tuple(rep) == tuple(ref_rep) and rep.rejected > 0
+    assert_tree(got, want)
 
 
 def test_segment_cap_below_one_raises_like_jax():

@@ -100,7 +100,7 @@ def test_entries_refuse_unported_modes_and_default_to_the_card():
     arrays = replicas(1)
     state = orswot_from_numpy(arrays, device="cpu")
     for kw in (dict(telemetry=True), dict(donate=True, telemetry=True), dict(stability=True),
-               dict(faults=object()), dict(lag_threshold=3)):
+               dict(faults=True), dict(lag_threshold=3)):
         if kw.get("telemetry"):  # ROADMAP item 15.1: the Telemetry comes back third
             out = mesh_gossip(orswot_from_numpy(arrays, device="cpu"), VirtualMesh(4, "cpu"),
                               **kw)
@@ -114,8 +114,11 @@ def test_entries_refuse_unported_modes_and_default_to_the_card():
             with pytest.raises(ValueError, match="lag_threshold= needs stability=True"):
                 mesh_gossip(state, VirtualMesh(4, "cpu"), **kw)
             continue
-        with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-            mesh_gossip(state, VirtualMesh(4, "cpu"), **kw)
+        # ROADMAP item 15.4: the FaultCounters come back last.
+        from crdt_tpu_torch.faults import FaultCounters, FaultPlan
+
+        out = mesh_gossip(state, VirtualMesh(4, "cpu"), faults=FaultPlan(seed=1))
+        assert len(out) == 3 and isinstance(out[2], FaultCounters)
     out = mesh_fold(state, VirtualMesh(4, "cpu"), telemetry=True)
     assert len(out) == 3 and int(out[2].merges.view(torch.int32)) == 4 * (2 - 1 + 2)
     assert inspect.signature(VirtualMesh).parameters["device"].default == "cuda"

@@ -240,32 +240,31 @@ def _small_ring_inputs():
     return orswot_from_numpy(arrays, device="cpu"), pd, pf, VirtualMesh(4, "cpu")
 
 
-# The ROADMAP item each ring mode still to port names when it raises.
-UNPORTED_ITEMS = {"faults": "15.4"}
-
-
 @pytest.mark.parametrize("flag", [dict(telemetry=True), dict(donate=True, telemetry=True),
-                                  dict(faults=object()),
+                                  dict(faults=True),
                                   dict(ack_window=True, wal=True, telemetry=True),
-                                  dict(wal=object(), faults=object())])
+                                  dict(wal=True, faults=True, telemetry=True)])
 def test_an_unported_ring_mode_raises(flag, tmp_path):
-    """``donate=``, ``ack_window=``, ``wal=`` and ``telemetry=`` run (the
-    sidecar comes back fifth, ``wal_*`` filled); each mode still to port
-    raises, naming its ROADMAP item, in their company too."""
+    """Every ring mode runs now: ``donate=``, ``ack_window=``, ``wal=`` and
+    ``telemetry=`` (the sidecar comes back fifth, ``wal_*`` filled) and
+    ``faults=`` (ROADMAP item 15.4: the ``FaultCounters`` come back last,
+    in the company of the others too; parity in
+    tests/test_torch_faults_ring.py)."""
     from crdt_tpu_torch.durability.wal import Wal
+    from crdt_tpu_torch.faults import FaultCounters, FaultPlan
 
     state, dirty, fctx, mesh = _small_ring_inputs()
-    item = next((UNPORTED_ITEMS[k] for k in flag if k in UNPORTED_ITEMS), None)
-    if item is not None:
-        with pytest.raises(NotImplementedError, match=rf"ROADMAP item {item}\)"):
-            delta.mesh_delta_gossip(state, dirty, fctx, mesh, **flag)
-        return
+    if flag.get("faults"):
+        flag = dict(flag, faults=FaultPlan(seed=3, drop=0.3))
     with Wal(tmp_path / "wal") as wal:
         if flag.get("wal"):
             flag = dict(flag, wal=wal)
         out = delta.mesh_delta_gossip(state, dirty, fctx, mesh, **flag)
-    assert len(out) == 5 and int(out[4].residue) == int(out[3])
-    assert (float(out[4].wal_bytes) > 0) == ("wal" in flag)
+    assert len(out) == 4 + ("telemetry" in flag) + ("faults" in flag)
+    assert isinstance(out[-1], FaultCounters) == ("faults" in flag)
+    if "telemetry" in flag:
+        assert int(out[4].residue) == int(out[3])
+        assert (float(out[4].wal_bytes) > 0) == ("wal" in flag)
 
 
 def test_a_fused_ring_of_a_kind_without_a_codec_raises():

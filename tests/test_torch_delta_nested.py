@@ -465,12 +465,16 @@ def test_logged_rings_recover_across_packages(kind, tmp_path):
 
 
 def test_unported_ring_modes_name_their_item():
-    state, dirty, fctx = workload("map3", 4)
-    pd, pf = tracking_from_numpy(dirty, fctx, device="cpu")
-    for ring in RING.values():
-        st = to_port(state) if ring is RING["map3"] else to_port(workload("map_orswot", 4)[0])
-        with pytest.raises(NotImplementedError, match=r"ROADMAP item 15\.4\)"):
-            ring(st, pd, pf, VirtualMesh(4, "cpu"), faults=object())
+    """``faults=`` (ROADMAP item 15.4) runs on both nested rings: the
+    ``FaultCounters`` come back last (parity in
+    tests/test_torch_faults_ring.py)."""
+    from crdt_tpu_torch.faults import FaultCounters, FaultPlan
+
+    for kind, ring in RING.items():
+        state, dirty, fctx = workload(kind, 4)
+        pd, pf = tracking_from_numpy(dirty, fctx, device="cpu")
+        out = ring(to_port(state), pd, pf, VirtualMesh(4, "cpu"), faults=FaultPlan(seed=1))
+        assert len(out) == 5 and isinstance(out[4], FaultCounters)
 
 
 # ---- depth 4: the δ induction composes -------------------------------------------------

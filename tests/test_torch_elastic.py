@@ -246,11 +246,13 @@ def test_an_elastic_wrapper_gives_up_after_max_migrations():
 @pytest.mark.parametrize("flag,item", [(dict(telemetry=True), None),
                                        (dict(stability=True), None),
                                        (dict(reclaim="hysteresis"), None),
-                                       (dict(faults=object()), "15.4")])
+                                       (dict(faults=True), "15.4")])
 def test_elastic_wrappers_refuse_unported_modes(flag, item):
-    """Each mode still to port raises naming its item; ``telemetry=`` runs
-    (ROADMAP item 15.1) and appends the attempts' Telemetry; ``stability=``
-    and ``reclaim=`` run (15.2; parity in tests/test_torch_reclaim.py)."""
+    """Every mode runs now: ``telemetry=`` (ROADMAP item 15.1) appends the
+    attempts' Telemetry; ``stability=`` and ``reclaim=`` run (15.2; parity
+    in tests/test_torch_reclaim.py); ``faults=`` (15.4) appends the
+    attempts' summed ``FaultCounters`` (parity in
+    tests/test_torch_faults_gossip.py)."""
     _, port_mesh = mesh()
     port = BatchedOrswot.from_pure([port_orswot(r) for r in _orswot_pures(P, 1)], device="cpu")
     dirty = torch.ones((P, port.state.ctr.shape[-2]), dtype=torch.bool)
@@ -271,10 +273,14 @@ def test_elastic_wrappers_refuse_unported_modes(flag, item):
                                    **flag)
         assert len(out) == 6 and out[5].wire_packed_bytes.item() > 0
         return
-    with pytest.raises(NotImplementedError, match=rf"ROADMAP item {item}\)"):
-        gossip_elastic(port, port_mesh, **flag)
-    with pytest.raises(NotImplementedError, match=rf"ROADMAP item {item}\)"):
-        delta_gossip_elastic(port, dirty, torch.zeros_like(port.state.ctr), port_mesh, **flag)
+    from crdt_tpu_torch.faults import FaultCounters, FaultPlan
+
+    plan = FaultPlan(seed=2, drop=0.4)
+    rows, widened, fc = gossip_elastic(port, port_mesh, faults=plan)
+    assert isinstance(fc, FaultCounters) and widened == {}
+    out = delta_gossip_elastic(port, dirty, torch.zeros_like(port.state.ctr), port_mesh,
+                               faults=plan)
+    assert len(out) == 6 and isinstance(out[5], FaultCounters) and int(out[3]) >= 1
 
 
 # ---- the migration itself ---------------------------------------------------

@@ -516,9 +516,12 @@ def test_unported_gossip_modes_name_their_item(mode):
         elif mode == "lag_threshold":  # the stall alert needs stability=True
             with pytest.raises(ValueError, match="needs stability=True"):
                 fn(p.state, VirtualMesh(2, "cpu"), lag_threshold=1)
-        else:
-            with pytest.raises(NotImplementedError, match=r"ROADMAP item 15\.4\)"):
-                fn(p.state, VirtualMesh(2, "cpu"), faults=1)
+        else:  # ROADMAP item 15.4: the FaultCounters come back last
+            from crdt_tpu_torch.faults import FaultCounters, FaultPlan
+
+            _, own = pair(kind, population(kind, 1)[0])
+            out = fn(own.state, VirtualMesh(2, "cpu"), faults=FaultPlan(seed=1, drop=0.5))
+            assert len(out) == 3 and isinstance(out[2], FaultCounters)
 
 
 # ---- the sparse Map<K1, Map<K2, MVReg>> -------------------------------------------------

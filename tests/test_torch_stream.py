@@ -226,22 +226,28 @@ def test_a_source_that_dies_before_the_first_block():
     ({"telemetry": True}, None),
     # compact_every= runs (ROADMAP item 15.2), against frontier= or zeros.
     ({"compact_every": 1, "frontier": None, "telemetry": True}, None),
-    ({"compact_every": 2, "telemetry": True}, None), ({"widen_policy": object()}, "item 15.3"),
-    ({"faults": object()}, "item 15.4"),
-    # wal= runs (ROADMAP item 9): in its company the unported modes still raise.
+    ({"compact_every": 2, "telemetry": True}, None),
+    # widen_policy= (ROADMAP item 15.3) and faults= (15.4) run too; parity
+    # in tests/test_torch_faults_stream.py.
+    ({"widen_policy": True, "telemetry": True}, "item 15.3"),
+    ({"faults": True, "telemetry": True}, "item 15.4"),
+    # wal= runs (ROADMAP item 9), in the company of the others too.
     ({"wal": True, "telemetry": True}, None),
-    ({"wal_every": 2, "faults": object()}, "item 15.4"),
+    ({"wal_every": 2, "faults": True, "telemetry": True}, "item 15.4"),
 ])
 @pytest.mark.parametrize("entry", ["sparse", "dense"])
 def test_unported_modes_name_their_item(mode, item, entry, tmp_path):
+    """Every stream mode runs now; ``item`` names the ROADMAP item that
+    ported it (a faulted stream returns its ``StreamFaultReport`` last)."""
     from crdt_tpu_torch.durability.wal import Wal
+    from crdt_tpu_torch.elastic import ElasticPolicy
+    from crdt_tpu_torch.faults import FaultPlan
 
     fn = mesh_stream_fold_sparse if entry == "sparse" else mesh_stream_fold
-    if item is not None:
-        with pytest.raises(NotImplementedError,
-                           match=item.replace(".", r"\.").replace(")", r"\)")):
-            fn([], mesh(), **mode)
-        return
+    if mode.get("widen_policy"):
+        mode = dict(mode, widen_policy=ElasticPolicy())
+    if mode.get("faults"):
+        mode = dict(mode, faults=FaultPlan(seed=1))
     if entry == "sparse":
         state = to_port(ref_states(1, n=8))
     else:
@@ -251,7 +257,11 @@ def test_unported_modes_name_their_item(mode, item, entry, tmp_path):
     with Wal(tmp_path / "wal") as wal:
         if mode.get("wal"):
             mode = dict(mode, wal=wal)
-        acc, of, tel = fn(iter_blocks(state, 4), mesh(), **mode)
+        out = fn(iter_blocks(state, 4), mesh(), **mode)
+    acc, of, tel = out[:3]
+    assert len(out) == 3 + ("faults" in mode)
+    if "faults" in mode:
+        assert out[3].lost_blocks == [] and item == "item 15.4"
     assert int(tel.stream_blocks.view(torch.int32)) == 2
     assert (float(tel.wal_bytes) > 0) == ("wal" in mode)
 
