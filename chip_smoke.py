@@ -223,7 +223,18 @@ at first use), then runs, printing one JSON line per phase:
                         drained with ``telemetry=True`` (the sidecar's own
                         replayed graph, captured in the first), each one's
                         annotated Telemetry against the queue's counts, and
-                        the second's dispatch walls.
+                        the second's dispatch walls. Then the window again
+                        with the trace plane on, as ``bench.py`` runs it: a
+                        ``FlightRecorder`` (32,768) and a ``Tracer`` at
+                        ``trace_sample`` 1,024, every sampled tenant
+                        subscribed to a ``FanoutPlane`` whose push → ack
+                        closes each cycle's journeys; ops/s and dispatch
+                        walls beside the untraced window's, completed
+                        journeys, freshness p50/p95/p99 and each stage's p99
+                        (µs), the top of ``skew_report``, events and drops by
+                        type; the dump passes ``obs.report`` with the trace
+                        replay run; ``prometheus_text()`` all valid lines,
+                        ``health()`` all its fields.
 21. ``serve_zipf``     — its zipf leg (65,536 tenants on 16,384 lanes, slabs
                         1,024 × 4, 8,000 zipf ops a cycle, a ×10 hot shard
                         answered by ``rebalance``) at ``ZIPF_CYCLES`` of its
@@ -267,7 +278,13 @@ at first use), then runs, printing one JSON line per phase:
                         graph and profiler, bytes, bound, share); one more
                         cycle's ``push(telemetry=True)``: live subscribers,
                         cohorts, δ bytes against the host's pricing, resync
-                        fallbacks and bootstrap bytes.
+                        fallbacks and bootstrap bytes. Then 8 cycles again
+                        with a ``FlightRecorder`` (32,768) and a ``Tracer``
+                        at ``trace_sample`` 256, each push with the sidecar
+                        annotated by the tracer and recorded: push walls
+                        beside the untraced window's, journeys, freshness and
+                        stage p99s, skew, events; the dump passes
+                        ``obs.report`` with the trace replay run.
 24. ``telemetry_scenarios`` — the same seeded small inputs through every
                         telemetry path (``mesh_fold``, ``mesh_gossip``,
                         ``mesh_fold_map``, the dense and Map δ rings fused,
@@ -377,6 +394,33 @@ at first use), then runs, printing one JSON line per phase:
                         its plain fold; walls on and off. (b) the sparse
                         churn (``bench_reclaim``) at the "sparse" widths:
                         reads == the flags-off twin's, a widen and a shrink.
+35. ``faults_scenarios`` — the fault plane (ROADMAP 15.4, 15.3) on small
+                        rings, gossip entries, streams and bootstraps: card
+                        == CPU on every leaf and counter.
+36. ``full_width_chaos`` — the faulted dense ring at config 3's widths, the
+                        faulted flagship stream, the widening stream.
+37. ``obs_scenarios``  — the observability plane (ROADMAP 15.6) on small
+                        probes, card == CPU on every flight event (every field
+                        but ``ts``) and every leaf: faulted dense and Map
+                        rings with ``Membership`` auto-evict, ``with_retries``
+                        giving up, a stream losing blocks, a logged ring
+                        recovered past a corrupt generation, the elastic
+                        votes, a ``ScaleoutMesh`` trajectory with a refused
+                        drain and a stale certificate; every dump passes
+                        ``obs.report``; ``drain_refuses_unflushed``;
+                        ``measure_slo`` card == CPU == the committed
+                        budgets. Flags off: a dense ring's launches and a
+                        serve dispatch's graph nodes unchanged by installing
+                        the recorder and the tracer; a faulted round with a
+                        recorder under sync debug "error".
+38. ``full_width_scaleout`` — live scale-out (ROADMAP 15.5), ``bench.py``'s
+                        trajectory at config 3's widths on P = 8 ranks of one
+                        replica each: plateau on 6, the ``Autoscaler``'s
+                        admits (cold bootstraps), the warm-start gate at
+                        E = 102,400, a certified drain, a refused one; joins/s
+                        at each width, the admit's wall by part, bootstrap
+                        bytes, ``certify_drain``'s ms, the ring with and
+                        without the recorder; the trajectory's dump audited.
 
 Then the ``nvidia-smi`` name/power-limit line, a ``kernels`` JSON line, and
 as the last line ``{"ok": true, "device": {...}}``. Any failed check raises
@@ -387,10 +431,12 @@ and exits non-zero without one. It imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import itertools
 import json
 import os
 import random
+import re
 import statistics
 import subprocess
 import sys
@@ -1381,7 +1427,11 @@ def time_each(fn, device, n: int) -> float:
 
 def phase_full_width_map(device, seed: int, r: int = 8, k: int = 1_000_000, s: int = 2,
                          a: int = 4, d: int = 4, chunk: int = 1 << 17, repeats: int = 7,
-                         per_sample: int = 20) -> dict:
+                         per_sample: int = 20, e2e: bool = True) -> dict:
+    """Config 4 at ``r`` replicas (module docstring, phase 7). ``e2e=False``
+    leaves out ``BatchedMap.fold()`` end to end, its profile and the
+    ``to_pure`` check: each reads the same 1M-key map back to the host
+    (≈ 24 s each on the card), which the R = 8 leg already times."""
     import torch
 
     from crdt_tpu_torch.models import BatchedMap
@@ -1409,12 +1459,13 @@ def phase_full_width_map(device, seed: int, r: int = 8, k: int = 1_000_000, s: i
 
     # The main path, counted: BatchedMap.fold() must go through K2.
     fold_cells.launches = 0
-    t0 = time.perf_counter()
-    converged = model.fold()
-    sync()
-    fold_e2e_ms = (time.perf_counter() - t0) * 1e3
-    launches = fold_cells.launches
-    check(not on_card or launches >= 1, "BatchedMap.fold() did not launch K2")
+    if e2e:
+        t0 = time.perf_counter()
+        converged = model.fold()
+        sync()
+        fold_e2e_ms = (time.perf_counter() - t0) * 1e3
+        launches = fold_cells.launches
+        check(not on_card or launches >= 1, "BatchedMap.fold() did not launch K2")
 
     # The gate, before any number: the fused fold against the plain tree
     # fold on the same device, leaf for leaf, tolerance 0. The parked
@@ -1431,12 +1482,13 @@ def phase_full_width_map(device, seed: int, r: int = 8, k: int = 1_000_000, s: i
               f"fused map fold differs from the tree fold in {name}")
     check(torch.equal(fused_flags, tree_flags), "fused and tree overflow flags differ")
     check(not bool(fused_flags.any()), "unexpected overflow at full width")
-    t0 = time.perf_counter()
-    expect = _to_pure(fused, model.keys, model.actors, model.values)
-    to_pure_ms = (time.perf_counter() - t0) * 1e3
-    check(expect == converged, "BatchedMap.fold() differs from the gated fused fold")
-    check(len(converged.entries) > k * 9 // 10, "the fold lost more keys than were removed")
-    check(len(converged.deferred) == 4, "the parked ahead-removes did not survive")
+    if e2e:
+        t0 = time.perf_counter()
+        expect = _to_pure(fused, model.keys, model.actors, model.values)
+        to_pure_ms = (time.perf_counter() - t0) * 1e3
+        check(expect == converged, "BatchedMap.fold() differs from the gated fused fold")
+        check(len(converged.entries) > k * 9 // 10, "the fold lost more keys than were removed")
+        check(len(converged.deferred) == 4, "the parked ahead-removes did not survive")
 
     # K2 alone on the decoded cells, CUDA events (each sample is
     # ``per_sample`` back-to-back launches: at R=8 one launch is tens of µs).
@@ -1458,7 +1510,6 @@ def phase_full_width_map(device, seed: int, r: int = 8, k: int = 1_000_000, s: i
     settle_ms = statistics.median(
         time_ms(lambda: settle_folded_map(k_top, k_w, st), device) for _ in range(3))
     fused_ms = statistics.median(time_ms(lambda: fold_fused_map(st), device) for _ in range(3))
-    busy = profile_busy(model.fold, device)
 
     bound = fold_bound_ms(r, k, a, OPS_PER_CELL)
     out = {
@@ -1475,16 +1526,21 @@ def phase_full_width_map(device, seed: int, r: int = 8, k: int = 1_000_000, s: i
         "decode_ms": decode_ms,
         "settle_ms_winner_select_and_epilogue": settle_ms,
         "fold_fused_map_ms": fused_ms,
-        "fold_e2e_ms_incl_to_pure": fold_e2e_ms,
-        "to_pure_ms": to_pure_ms,
-        "to_pure_share_of_fold_e2e": to_pure_ms / fold_e2e_ms,
-        "fold_profile": busy,
-        "k2_launches_in_fold": launches,
         "max_abs_err": diff,
-        "converged_keys": len(converged.entries),
-        "converged_parked": len(converged.deferred),
         "peak_mem_gb": torch.cuda.max_memory_allocated(device) / 1e9 if on_card else None,
     }
+    if e2e:
+        out.update({
+            "fold_e2e_ms_incl_to_pure": fold_e2e_ms,
+            "to_pure_ms": to_pure_ms,
+            "to_pure_share_of_fold_e2e": to_pure_ms / fold_e2e_ms,
+            "fold_profile": profile_busy(model.fold, device),
+            "k2_launches_in_fold": launches,
+            "converged_keys": len(converged.entries),
+            "converged_parked": len(converged.deferred),
+        })
+    else:
+        out["reduced"] = "fold() end to end, its profile and the to_pure check: the R = 8 leg's"
     emit(out)
     return out
 
@@ -4478,6 +4534,57 @@ def serve_percentiles(walls) -> dict:
             "p99_us": float(np.percentile(w, 99)), "max_us": float(w.max())}
 
 
+# One Prometheus text-format TYPE line or sample line.
+PROM_LINE = re.compile(
+    r'^(# TYPE [a-zA-Z_:][a-zA-Z0-9_:]* (counter|gauge|histogram)'
+    r'|[a-zA-Z_:][a-zA-Z0-9_:]*(\{([a-zA-Z_][a-zA-Z0-9_]*="(\\.|[^"\\])*",?)*\})? '
+    r'(-?[0-9.]+(e[+-]?[0-9]+)?|[+-]?Inf|NaN))$')
+
+
+def exporter_gates() -> dict:
+    """``prometheus_text()`` of the live registry: every line valid
+    exposition; ``health()``: every field there."""
+    from crdt_tpu_torch import exporter
+
+    lines = exporter.prometheus_text().splitlines()
+    bad = [ln for ln in lines if not PROM_LINE.match(ln)]
+    check(lines and not bad, f"{len(bad)} invalid exposition lines, e.g. {bad[:2]}")
+    h = exporter.health()
+    want = {"ts", "live_ranks", "generation", "frontier_lag", "residue",
+            "last_durable_watermark", "faults_gave_up", "snapshot_fallbacks", "serving",
+            "federation", "flight"}
+    check(set(h) == want and h["serving"]["freshness_p99_us"] > 0,
+          f"health() fields {sorted(h)}")
+    return {"exposition_lines": len(lines), "health": {k: v for k, v in h.items() if k != "ts"}}
+
+
+def trace_summary(tr, rep, walls, untraced_walls) -> dict:
+    """A traced window's journeys: freshness and each stage's p99 (the
+    replay's exact quantiles, µs of the host clock), the tracer's
+    histogram quantiles, and the dispatch walls against the untraced
+    window's."""
+    from crdt_tpu_torch.obs import hist as obs_hist
+
+    rp = rep["slo"]
+    return {
+        "minted": tr.minted, "completed": tr.completed, "requeued": tr.requeued,
+        "open_at_end": tr.n_open, "replayed": rp["traces_completed"],
+        "freshness_us": rp["freshness"],
+        "stage_p99_us": {k: v["p99"] for k, v in rp["stage_waterfall"].items()},
+        "freshness_hist_us": {k: v for k, v in obs_hist.summary(tr.freshness_dict()).items()
+                              if k in ("p50", "p95", "p99", "count")},
+        "dispatch_wall": serve_percentiles(walls) if walls else None,
+        "untraced_dispatch_wall": serve_percentiles(untraced_walls) if untraced_walls else None,
+    }
+
+
+def flight_summary(o, rep) -> dict:
+    return {"events": len(o.rec), "dropped": o.rec.dropped,
+            "by_type": by_type(o.rec.events()), "dropped_by_type": dict(o.rec.dropped_by_type),
+            "folded_counters": len(rep["folded_counters"]),
+            "audit": [f["check"] for f in rep["audit"]], "ok": rep["ok"]}
+
+
 def phase_serve(device, seed: int, cfg=None) -> dict:
     """``BENCH_CONFIGS.json`` "serve" at its committed shape, driven as
     ``bench.py``'s ``bench_serve`` drives it: 1,048,576 tenants on 262,144
@@ -4611,6 +4718,9 @@ def phase_serve(device, seed: int, cfg=None) -> dict:
                           replace=False)
         sample += [int(x) for x in rest if int(x) not in set(sample)]
         held = serve_oracle_gate(sb, ev, sample, history, device, "serve")
+        traced = serve_traced_window(sb, ev, q, submit_cycle, touch_one, cfg, device, root,
+                                     first_cycle=cfg["cycles"] + 4, untraced_walls=walls,
+                                     untraced_ops_per_s=total_ops / window_s)
         out = {
             "config": "serve", "tenants": tenants, "lanes": lanes,
             "mesh_virtual_ranks": cfg["mesh"][0], "slab": [cfg["slab_lanes"], cfg["slab_depth"]],
@@ -4626,8 +4736,7 @@ def phase_serve(device, seed: int, cfg=None) -> dict:
             "superblock_bytes": sb.nbytes(), "row_bytes": sb.row_nbytes(),
             "all_resident_equiv_bytes": sb.row_nbytes() * tenants,
             "oracle_held": held, "bit_identical": True, "telemetry": telemetry,
-            "reduced": "none of the shape; left out: the trace plane (ROADMAP item 15.6), so "
-                       "no freshness",
+            "traced": traced, "reduced": "none",
         }
         out["eager_dispatch_ms"] = eager_ms
         if prof is not None:
@@ -4652,13 +4761,83 @@ def phase_serve(device, seed: int, cfg=None) -> dict:
     return out
 
 
-# The zipf leg's depth in the full run: 9 of its committed 24 cycles (the
+# The zipf leg's depth in the full run: 7 of its committed 24 cycles (the
 # per-cycle shape, tenants, lanes, slabs, skew and rebalance unchanged).
 # At 24 cycles the leg took 739-824 s on an H100 machine whose /tmp is a 9p
 # mount — 17,344 per-tenant snapshot persists a run as the working set
 # pages through the lane pool — more than the script's time limit allows
-# beside the other phases.
-ZIPF_CYCLES = 9
+# beside the other phases; at 9 it took 49-84 s, and the whole script up to
+# 1,149 s of its 1,200 on a slow host.
+ZIPF_CYCLES = 7
+
+
+def serve_traced_window(sb, ev, q, submit_cycle, touch_one, cfg, device, root, first_cycle: int,
+                        untraced_walls, untraced_ops_per_s: float) -> dict:
+    """The serve window again with the trace plane on, as ``bench.py``'s
+    serve leg runs it: every tenant the sampling picks (``trace_sample``)
+    subscribed to a ``FanoutPlane`` whose push → ack closes each cycle's
+    journeys (freshness is submit → client ack), a ``FlightRecorder``
+    (32,768) and a ``Tracer`` installed after a warm-up push, the window's
+    cycles, evict cohort and re-touch as the untraced window's. The dump,
+    with the window's trace-histogram Telemetry recorded at its end,
+    passes ``obs.report`` with the trace replay run; then the exporter's
+    exposition and health."""
+    import numpy as np
+    import torch
+
+    from crdt_tpu_torch import telemetry as tele
+    from crdt_tpu_torch.fanout import FanoutPlane
+    from crdt_tpu_torch.obs import trace as obs_trace
+
+    sample = cfg["trace_sample"]
+    traced = np.nonzero(obs_trace.sampled_mask(sb.n_tenants, sample))[0]
+    fan = FanoutPlane(sb, evictor=ev, window_cap=4, dispatch_lanes=256,
+                      capacity=max(len(traced), 1))
+    sub_ids = fan.subscribe(traced)
+    touch_one(int(traced[0]))  # warm-up: the push dispatch's first call
+    serve_drain(q)
+    fan.push(tenants=traced[:1])
+    fan.ack(sub_ids)
+    sync = (lambda: torch.cuda.synchronize(device)) if device.type == "cuda" else (lambda: None)
+    tr = obs_trace.Tracer(sample=sample)
+    walls, total_ops, drain_s, push_s = [], 0, 0.0, 0.0
+    with Observed(os.path.join(root, "flight-serve"), capacity=32768, tracer=tr) as o:
+        sync()
+        t0 = time.perf_counter()
+        for cycle in range(first_cycle, first_cycle + cfg["cycles"]):
+            submit_cycle(cycle, cfg["ops_per_cycle"])
+            td = time.perf_counter()
+            n, _, _ = serve_drain(q, walls)
+            total_ops += n
+            if cycle == first_cycle + cfg["cycles"] // 2:
+                cold = ev.select_cold(cfg["evict_cohort"])
+                ev.evict(cold)
+                for t in cold[:cfg["retouch"]]:
+                    touch_one(t)
+                total_ops += serve_drain(q, walls)[0]
+            tp = time.perf_counter()
+            drain_s += tp - td
+            open_t = list(tr.open_traces())
+            if open_t:
+                fan.push(tenants=open_t)
+                fan.ack(sub_ids)
+            push_s += time.perf_counter() - tp
+        sync()
+        window_s = time.perf_counter() - t0
+        skew = obs_trace.skew_report(evictor=ev, queue=q, tracer=tr, k=8)
+        tele.record("serve", tr.annotate(tele.zeros(device)))
+        path = o.rec.dump(os.path.join(root, "serve-flight.jsonl"), reason="serve")
+        rep = audited(path, snapshot=o.since(), slo=True)
+        exported = exporter_gates()
+    check(tr.completed >= 1, "no sampled journey completed in the traced serve window")
+    return {
+        "trace_sample": sample, "traced_tenants": len(traced), "cycles": cfg["cycles"],
+        "ops_applied": total_ops, "window_s": window_s, "ops_per_s": total_ops / window_s,
+        "drain_s": drain_s, "push_ack_s": push_s,
+        "untraced_ops_per_s": untraced_ops_per_s,
+        **trace_summary(tr, rep, walls, untraced_walls),
+        "skew_top": skew["tenants"][:3], "flight": flight_summary(o, rep), **exported,
+    }
 
 
 def phase_serve_zipf(device, seed: int, cfg=None, cycles: int = ZIPF_CYCLES) -> dict:
@@ -5461,6 +5640,15 @@ def phase_fanout(device, seed: int, cfg=None) -> dict:
         telemetry["push_wall_s"] = tel_push_s
         deliver_and_ack(rep_t)
 
+        # The trace plane (ROADMAP 15.6), as bench.py's fan-out leg runs
+        # it: a FlightRecorder (32,768) and a Tracer at trace_sample,
+        # installed after the window above; the window's cycles again, each
+        # push with the sidecar, annotated after its acks and recorded.
+        traced = fanout_traced_window(
+            lambda cycle: submit_cycle(cycle, cfg["ops_per_cycle"]), q, plane, ev, sb,
+            deliver_and_ack, cfg, device, root, first_cycle=cycles + 3, untraced_walls=walls,
+            pinned=pinned, rng=rng)
+
         # K3 on the first dispatch's own inputs, timed; not the main path's
         # launches.
         saved = wire_pack.launches
@@ -5517,8 +5705,8 @@ def phase_fanout(device, seed: int, cfg=None) -> dict:
             "overall_vs_full_ratio": ratio_overall,
             "clients_verified": len(clients) + 1, "watermarks_current": current,
             "first_dispatch_max_abs_err": first.err,
-            "superblock_bytes": sb.nbytes(), "telemetry": telemetry,
-            "reduced": "none of the shape; left out: trace/flight/freshness (15.6)",
+            "superblock_bytes": sb.nbytes(), "telemetry": telemetry, "traced": traced,
+            "reduced": "none",
         }
         if prof is not None:
             out["profiled_cycle"] = {
@@ -5537,6 +5725,58 @@ def phase_fanout(device, seed: int, cfg=None) -> dict:
     out["phase_s"] = time.perf_counter() - t_phase
     emit(out)
     return out
+
+
+def fanout_traced_window(submit, q, plane, ev, sb, deliver_and_ack, cfg, device, root,
+                         first_cycle: int, untraced_walls, pinned: int, rng) -> dict:
+    """The fan-out window again with the trace plane on: a
+    ``FlightRecorder`` (32,768) and a ``Tracer`` at ``trace_sample``; each
+    cycle's writes, one push with the sidecar (a mid-window evict of
+    subscribed tenants re-warmed by it), the deliveries and acks — which
+    complete the sampled journeys — then the push's Telemetry annotated
+    with the cycle's trace histograms and recorded, and the churn. The
+    dump passes ``obs.report`` with the trace replay run."""
+    import numpy as np
+
+    from crdt_tpu_torch import telemetry as tele
+    from crdt_tpu_torch.obs import trace as obs_trace
+
+    tr = obs_trace.Tracer(sample=cfg["trace_sample"])
+    walls, deliveries, n_evicted = [], 0, 0
+    with Observed(os.path.join(root, "flight-fanout"), capacity=32768, tracer=tr) as o:
+        t_window = time.perf_counter()
+        for cycle in range(first_cycle, first_cycle + cfg["cycles"]):
+            touched = submit(cycle)
+            q.drain()
+            plane.note_dirty(touched)
+            if cycle == first_cycle + cfg["cycles"] // 2:
+                n_evicted = ev.evict(list(range(cfg["evict_cohort"])))
+            t0 = time.perf_counter()
+            rep = plane.push(telemetry=True)
+            walls.append(time.perf_counter() - t0)
+            deliveries += rep.subscribers
+            deliver_and_ack(rep)
+            tele.record("fanout", tr.annotate(rep.telemetry))
+            if cfg["churn"]:
+                drop = np.unique(rng.integers(pinned, cfg["subscribers"], cfg["churn"]))
+                plane.unsubscribe(drop)
+                plane.subscribe(rng.integers(0, cfg["tenants"], len(drop)))
+        window_s = time.perf_counter() - t_window
+        skew = obs_trace.skew_report(evictor=ev, queue=q, tracer=tr, k=8)
+        path = o.rec.dump(os.path.join(root, "fanout-flight.jsonl"), reason="fanout")
+        rep_all = audited(path, snapshot=o.since(), slo=True)
+    check(tr.completed >= 1, "no sampled journey completed in the traced fan-out window")
+    check(n_evicted >= 1, "no subscribed tenant evicted in the traced window")
+    return {
+        "trace_sample": cfg["trace_sample"], "cycles": cfg["cycles"], "window_s": window_s,
+        "deliveries": deliveries, "push_window_s": sum(walls),
+        "deliveries_per_s": deliveries / sum(walls),
+        "push_wall_s_per_cycle": walls, "untraced_push_wall_s_per_cycle": untraced_walls,
+        "push_wall_p50_s": statistics.median(walls),
+        "untraced_push_wall_p50_s": statistics.median(untraced_walls),
+        **trace_summary(tr, rep_all, None, None),
+        "skew_top": skew["tenants"][:3], "flight": flight_summary(o, rep_all),
+    }
 
 
 # ---- telemetry (ROADMAP 15.1) ----------------------------------------------
@@ -9067,6 +9307,603 @@ def phase_full_width_chaos(device, seed: int, r: int = 5120, e: int = 102400, a:
     return out
 
 
+# ---- the observability plane and live scale-out (ROADMAP 15.6, 15.5) -------
+
+OBS_CHAOS = dict(seed=42, corrupt=0.6, drop=0.2, delay=0.2, evicted=(2,))
+
+# Kernel launches per fused round at full_width_delta's and
+# full_width_delta_map's shapes (the telemetry legs' sidecar-off readings)
+# and per profiled serve dispatch, as measured on an H100 80GB HBM3 at
+# 700 W before the observability plane was wired in (PERF.md §6): with
+# nothing installed, the plane must leave all three where they were.
+BASE_DENSE_ROUND_LAUNCHES = 390.1463414634146
+BASE_MAP_ROUND_LAUNCHES = 920.1851851851852
+BASE_SERVE_DISPATCH_LAUNCHES = 37.5
+
+
+def stripped(events) -> list:
+    """Flight events without their wall-clock stamps and the host-timed
+    Telemetry fields: what two runs of the same work agree on."""
+    return [{k: v for k, v in ev.items() if k != "ts" and k not in HOST_TIMED} for ev in events]
+
+
+def by_type(events) -> dict:
+    out = {}
+    for ev in events:
+        out[ev["type"]] = out.get(ev["type"], 0) + 1
+    return dict(sorted(out.items()))
+
+
+class Observed:
+    """A fresh flight recorder (``capacity``, ``clock``) and optionally a
+    tracer installed for the block, auto-dumps into ``root``; the previous
+    ones come back on exit. :meth:`since` is the registry's counters since
+    the block began (the audit's cross-check target)."""
+
+    def __init__(self, root=None, capacity: int = 4096, clock=None, tracer=None):
+        self.root, self.capacity, self.clock, self.tracer = root, capacity, clock, tracer
+
+    def __enter__(self):
+        from crdt_tpu_torch import obs
+        from crdt_tpu_torch.utils.metrics import metrics
+
+        self.base = metrics.snapshot()["counters"]
+        kw = {} if self.clock is None else {"clock": self.clock}
+        self.rec = obs.FlightRecorder(capacity=self.capacity, **kw)
+        self.prev = obs.install(self.rec)
+        if self.root is not None:
+            os.makedirs(self.root, exist_ok=True)
+            obs.configure_auto_dump(self.root)
+        if self.tracer is not None:
+            self.prev_tracer = obs.install_tracer(self.tracer)
+        return self
+
+    def __exit__(self, *exc):
+        from crdt_tpu_torch import obs
+
+        obs.install(self.prev)
+        obs.configure_auto_dump(None)
+        if self.tracer is not None:
+            obs.install_tracer(self.prev_tracer)
+        return False
+
+    def since(self) -> dict:
+        from crdt_tpu_torch.utils.metrics import metrics
+
+        live = metrics.snapshot()["counters"]
+        return {"counters": {k: v - self.base.get(k, 0) for k, v in live.items()}}
+
+    def dumps(self) -> list:
+        return sorted(os.path.join(self.root, f) for f in os.listdir(self.root))
+
+
+def audited(path: str, snapshot=None, slo: bool = False) -> dict:
+    """``obs.report.build_report`` of one dump, which must be ok (and, with
+    ``slo``, its trace replay must have run)."""
+    from crdt_tpu_torch.obs import report
+
+    rep = report.build_report(path, snapshot=snapshot, slo=slo)
+    errors = [f for f in rep["audit"] if f["severity"] == "error"]
+    check(rep["ok"], f"dump {os.path.basename(path)} failed the audit: parse "
+                     f"{rep['parse_errors'][:2]} mismatches {rep['counter_mismatches'][:3]} "
+                     f"audit {errors[:2]}"
+                     + (f" replay {rep['slo']['mismatches'][:2]}" if slo else ""))
+    if slo:
+        check(rep["slo"]["skipped"] is None, f"trace replay skipped: {rep['slo']['skipped']}")
+    return rep
+
+
+def obs_probes(device, seed: int, root: str, p: int = 4, rounds: int = 12, cap: int = 8) -> dict:
+    """The observability probes on ``device``, each under its own recorder
+    (clock 0): ``{probe: (events, leaves, dumps)}``."""
+    import numpy as np
+    import torch
+
+    from crdt_tpu_torch.analysis import slo
+    from crdt_tpu_torch.durability import Wal, recover_state, snapshot
+    from crdt_tpu_torch.elastic import ElasticPolicy, Hysteresis
+    from crdt_tpu_torch.faults import FaultPlan, Membership
+    from crdt_tpu_torch.faults.retry import DcnExchangeFailed, RetryPolicy, with_retries
+    from crdt_tpu_torch.ops.lattice import tree_map
+    from crdt_tpu_torch.parallel import VirtualMesh, iter_blocks, mesh_stream_fold
+    from crdt_tpu_torch.scaleout import (
+        DrainCertificate, DrainRefused, ScaleoutMesh, certify_drain, drain_refuses_unflushed,
+        park_row,
+    )
+
+    cpu = torch.device("cpu")
+    models, _ = reclaim_models(seed, cpu)
+    mesh = VirtualMesh(p, device)
+    zero = lambda: 0.0  # noqa: E731
+    out = {}
+
+    def probe(name, fn):
+        with Observed(os.path.join(root, name), clock=zero) as o:
+            leaves = fn()
+        out[name] = (stripped(o.rec.events()), on_cpu(tuple(leaves)), o.dumps())
+
+    # (1) the faulted dense and Map rings with auto-evict.
+    def rings():
+        leaves = []
+        for kind in ("orswot", "map"):
+            ring, st, d, f = genesis_ring_inputs(kind, models[kind].state, device)
+            got = ring(st, d, f, mesh, rounds=rounds, cap=cap, telemetry=True,
+                       faults=FaultPlan(**OBS_CHAOS))
+            Membership(p, k_suspect=1).observe(got[-1], rounds, auto_evict=True)
+            leaves += [got[0], got[1], got[3], tuple(got[-1])]
+        return leaves
+
+    probe("rings", rings)
+
+    # (2) an exchange that gives up.
+    def retries():
+        def down():
+            raise RuntimeError("link down")
+        with expect_raises(DcnExchangeFailed):
+            with_retries(down, RetryPolicy(attempts=3, base_delay=0.0, jitter=0.0),
+                         op="obs-probe", sleep=lambda _s: None)
+        return []
+
+    probe("retries", retries)
+
+    # (3) a stream that loses blocks.
+    def stream():
+        st = tree_map(lambda x: x.to(device), models["orswot"].state)
+        acc, of, tel, rep = mesh_stream_fold(iter_blocks(st, 1), mesh, telemetry=True,
+                                             faults=FaultPlan(seed=5, drop=0.4, corrupt=0.4))
+        check(len(rep.lost_blocks) >= 1, "the lossy stream lost no block")
+        return [acc, of]
+
+    probe("stream", stream)
+
+    # (4) a logged ring, recovered past a corrupt newest generation.
+    def durable():
+        ring, st, d, f = genesis_ring_inputs("orswot", models["orswot"].state, device)
+        base = tree_map(lambda x: torch.zeros_like(x[:p]), st)
+        snap_dir, wal_dir = os.path.join(root, "durable-snap"), os.path.join(root, "durable-wal")
+        snapshot.save_state(snap_dir, "orswot", base, wal_seq=0)
+        w = Wal(wal_dir, fsync="on_round")
+        w.attach(base)
+        got = ring(st, d, f, mesh, rounds=rounds, cap=cap, wal=w)
+        gen = snapshot.save_state(snap_dir, "orswot", got[0], wal_seq=w.last_seq)
+        w.close()
+        with open(os.path.join(snap_dir, f"gen-{gen:08d}.npz"), "r+b") as fh:
+            fh.seek(40)
+            fh.write(b"\xff" * 16)
+        w = Wal(wal_dir, fsync="on_round")
+        rec, rep = recover_state(snap_dir, w, base, kind="orswot")
+        w.close()
+        check(same_leaves(on_cpu(rec), on_cpu(got[0])) and rep.snapshot_fallbacks == 1,
+              f"recovery past the corrupt generation != the logged ring ({rep})")
+        return [got[0], rec]
+
+    probe("durable", durable)
+
+    # (5) the elastic votes.
+    def votes():
+        h = Hysteresis(ElasticPolicy(low_water=0.2, shrink_rounds=2, high_water=0.8,
+                                     widen_rounds=2))
+        got = [h.vote("probe", x) for x in (0.9, 0.95, 0.5, 0.1, 0.05, 0.0, 0.85, 0.9)]
+        check(got.count("widen") == 2 and got.count("shrink") == 1, f"votes {got}")
+        return []
+
+    probe("votes", votes)
+
+    # (6) a scale-out trajectory on P ranks, one rank parked.
+    def trajectory():
+        st4 = tree_map(lambda x: torch.cat([x[: p - 1], torch.zeros_like(x[:1])]),
+                       models["orswot"].state)
+        ring, st, d, f = genesis_ring_inputs("orswot", st4, device)
+        sm = ScaleoutMesh(p, live=range(p - 1))
+        flush = ring(st, d, f, mesh, rounds=rounds, cap=cap, faults=sm.plan())
+        check(int(flush[3]) == 0, "the scale-out flush ring kept a residue")
+        stale = certify_drain("orswot", 1, flush[0], int(flush[3]), generation=sm.generation,
+                              live=sm.live())
+        rows, rep = sm.admit(1, kind="orswot", rows=flush[0])
+        check(same_leaves(tree_map(lambda x: x[p - 1], rows), tree_map(lambda x: x[0], rows)),
+              "the newcomer's row != its peer's")
+        cert = sm.drain(p - 1, kind="orswot", rows=rows, residue=0)
+        parked = park_row(rows, p - 1)
+        for c, r in ((stale, None), (None, 1)):
+            with expect_raises(DrainRefused):
+                if c is not None:
+                    sm.drain(1, certificate=c)
+                else:
+                    sm.drain(1, kind="orswot", rows=parked, residue=r)
+        check(sm.generation == 2 and cert.ok(), f"generation {sm.generation}, {cert}")
+        check(isinstance(cert, DrainCertificate) and rep.generation == 1, "admit report")
+        return [rows, parked]
+
+    probe("trajectory", trajectory)
+
+    # (7) the drain detector; (8) the SLO gate's measurement.
+    detector = drain_refuses_unflushed(certify_drain, device=device)
+    return out, detector, slo.measure_slo(device=device)
+
+
+def phase_obs_scenarios(device, seed: int, p: int = 4, rounds: int = 12, cap: int = 8) -> dict:
+    """The observability plane's probes (``obs_probes``) on the card == the
+    CPU on every event (every field but ``ts``; the telemetry events
+    without the host-timed fields) and every leaf: a faulted dense ring
+    and a Map ring (K3 once per fused round, each launch held against its
+    plain version; K1 and K2 as the local folds) with ``Membership``
+    auto-evict; ``with_retries`` giving up; a stream losing blocks; a
+    logged ring recovered past a corrupt generation; the elastic votes; a
+    small ``ScaleoutMesh`` trajectory (admit, drain, a refused drain and a
+    stale certificate, each refusal dumped). Every dump passes
+    ``obs.report``; ``drain_refuses_unflushed(certify_drain)`` holds;
+    ``measure_slo`` on the card == on the CPU == the committed
+    ``tools/slo_budgets.json``. Flags off: a dense fused ring launches as
+    many kernels, and a serve dispatch's graph holds as many nodes, with
+    nothing installed as with a recorder and a tracer installed; a dense
+    fused faulted round with a recorder installed runs under sync debug
+    "error"."""
+    import torch
+
+    from crdt_tpu_torch import obs, serve
+    from crdt_tpu_torch.analysis import slo
+    from crdt_tpu_torch.convert import opslab_from_numpy
+    from crdt_tpu_torch.faults import FaultPlan
+    from crdt_tpu_torch.ops.fold_kernels import fold_cells, fold_entries
+    from crdt_tpu_torch.ops.lattice import tree_map
+    from crdt_tpu_torch.ops.wire_kernels import wire_pack
+    from crdt_tpu_torch.parallel import VirtualMesh, mesh_serve_apply
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    on_card = device.type == "cuda"
+    out = {"phase": "obs_scenarios", "card": card_label(device), "P": p, "rounds": rounds}
+
+    def both(root):
+        l3, l1, l2 = wire_pack.launches, fold_entries.launches, fold_cells.launches
+        with K3Checked() as k3:
+            card = obs_probes(device, seed, os.path.join(root, "card"), p, rounds, cap)
+        launches = {"k3": wire_pack.launches - l3, "k1": fold_entries.launches - l1,
+                    "k2": fold_cells.launches - l2, "k3_checked": k3.calls}
+        host = obs_probes(cpu, seed, os.path.join(root, "cpu"), p, rounds, cap)
+        probes = {}
+        for name, (events, leaves, dumps) in card[0].items():
+            h_events, h_leaves, h_dumps = host[0][name]
+            check(events == h_events, f"obs probe {name}: card events != CPU events")
+            check(same_leaves(leaves, h_leaves), f"obs probe {name}: card leaves != CPU leaves")
+            check(len(dumps) == len(h_dumps), f"obs probe {name}: {len(dumps)} dumps on the "
+                                              f"card, {len(h_dumps)} on the CPU")
+            reports = [audited(path) for path in dumps + h_dumps]
+            probes[name] = {"events": by_type(events), "dumps": len(dumps),
+                            "dump_reasons": [r["reason"] for r in reports[:len(dumps)]]}
+        check(card[1] and host[1], "drain_refuses_unflushed(certify_drain) failed")
+        committed = slo.load_budgets()["entries"]
+        check(card[2] == host[2] == committed, f"measure_slo: card {card[2]} / CPU {host[2]} / "
+                                              f"committed {committed}")
+        check(slo.check_budgets(card[2]) == [], "check_budgets found drift")
+        check(not on_card or (launches["k3"] >= 1 and launches["k3"] == launches["k3_checked"]
+                              and launches["k1"] >= 1 and launches["k2"] >= 1),
+              f"obs probes: kernel launches {launches}")
+        return {"probes": probes, "launches": launches, "k3_max_abs_err": k3.max_abs_err,
+                "slo": card[2]}
+
+    out.update(with_scratch_dir(both))
+
+    # ---- flags off: nothing installed vs the recorder and the tracer -----
+    models, _ = reclaim_models(seed, cpu)
+    ring, st, d, f = genesis_ring_inputs("orswot", models["orswot"].state, device)
+    mesh = VirtualMesh(p, device)
+    run = lambda: ring(st, d, f, mesh, rounds=rounds, cap=cap)  # noqa: E731
+    run()
+    sb = serve.Superblock(256, VirtualMesh(2, device), kind="orswot",
+                          caps=dict(n_elems=4, n_actors=2, deferred_cap=2), n_lanes=64)
+    q = serve.IngestQueue(sb, lanes=16, depth=2)
+    for t in range(24):
+        q.add(t, t % 2, 1, [t % 2 == 0, True, False, t % 3 == 0])
+    built = q._assemble()
+    slab = opslab_from_numpy(dict(kind=built.kind, actor=built.actor, ctr=built.ctr,
+                                  clock=built.clock, member=built.member), device)
+    idx = torch.as_tensor(built.idx, device=device)
+    lanes = type(sb.state)(*(x.clone() for x in sb.state))
+    dispatch = lambda: mesh_serve_apply(lanes, slab, idx, sb.mesh, donate=True)  # noqa: E731
+    flags = {}
+    for label in ("off", "on", "off_again"):
+        with contextlib.ExitStack() as es:
+            if label == "on":
+                es.enter_context(Observed(tracer=obs.Tracer(sample=1)))
+            prof = profile_busy(run, device)
+            flags[label] = {
+                "ring_launch_kernel_calls": None if prof is None else prof["launch_kernel_calls"],
+                "serve_graph_nodes": graph_nodes(dispatch, device, 1) if on_card else None,
+            }
+    check(flags["off"] == flags["on"] == flags["off_again"],
+          f"installing the recorder and the tracer changed the device work: {flags}")
+    out["flags_off"] = flags
+
+    # ---- no host sync: a faulted dense round with a recorder installed ---
+    st4 = tree_map(lambda x: torch.cat([x[:p - 1], torch.zeros_like(x[:1])]),
+                   models["orswot"].state)
+    _, st4, d4, f4 = genesis_ring_inputs("orswot", st4, device)
+    round_ = one_faulted_dense_round(st4, d4, f4, mesh, cap, FaultPlan(**OBS_CHAOS))
+    with Observed() as o:
+        round_()
+        if on_card:
+            torch.cuda.synchronize(device)
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            round_()
+        finally:
+            if on_card:
+                torch.cuda.set_sync_debug_mode("default")
+        events = len(o.rec)
+    out["faulted_round_syncs_with_host"] = False if on_card else None
+    out["faulted_round_events"] = events
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return out
+
+
+def scaleout_rows(state, dirty, fctx, parked):
+    """The ring inputs with the ``parked`` ranks' rows back at the join
+    identity and clean (R == P: a rank's row is its replica)."""
+    from crdt_tpu_torch._dtypes import bits
+    from crdt_tpu_torch.scaleout import park_row
+
+    dirty, fctx = dirty.clone(), fctx.clone()
+    for rank in parked:
+        state = park_row(state, rank)
+        dirty[rank] = False
+        bits(fctx)[rank] = 0
+    return state, dirty, fctx
+
+
+def phase_full_width_scaleout(device, seed: int, e: int = 102400, a: int = 8, d: int = 4,
+                              p: int = 8, cap: int = 4096, chunk: int = 128, runs: int = 4,
+                              warm_e: int = 102400, samples: int = 3) -> dict:
+    """``bench.py``'s scale-out trajectory at config 3's widths: P = 8
+    ranks of one replica each (the rows are absolute rank rows, R = P),
+    E = 102,400, A = 8, D = 4, the live rows filled as
+    ``full_width_delta`` fills its ranks (``fill_delta_config3``), a
+    ``FlightRecorder(capacity=8192)`` installed first. Plateau on 6 live
+    ranks (2 parked): timed ``mesh_delta_gossip(faults=smesh.plan())``
+    runs, residue 0, every live row == the ``mesh_gossip`` fixpoint (K1,
+    held against the plain tree fold). The spike: the ``Autoscaler``
+    (``load=1.0``) votes until both parked ranks are admitted with a cold
+    bootstrap, each newcomer == its peer; the δ workload re-measured on the
+    widened ring. The warm-start gate at E = 102,400 (ratio < 0.25). Quiet
+    traffic until a drain vote: a flush ring, ``drain`` under its
+    certificate, ``park_row``, the narrowed ring == the fixpoint. A
+    refused drain (one unflushed row, ``residue=0``) keeps the generation
+    and dumps a ``drain_refused`` artifact that passes ``obs.report``.
+    The trajectory's own dump, with ``scaleout`` telemetry at the end,
+    passes the audit against the registry's counters since the start.
+    Every K3 launch is held against its plain version."""
+    import torch
+
+    from crdt_tpu_torch import obs
+    from crdt_tpu_torch import telemetry as tele
+    from crdt_tpu_torch._dtypes import bits, from_wide, to_wide, umax
+    from crdt_tpu_torch.elastic import ElasticPolicy
+    from crdt_tpu_torch.ops import orswot as ops
+    from crdt_tpu_torch.ops.fold_kernels import fold_entries
+    from crdt_tpu_torch.ops.lattice import tree_map
+    from crdt_tpu_torch.ops.wire_kernels import wire_pack
+    from crdt_tpu_torch.parallel import VirtualMesh, mesh_delta_gossip, mesh_gossip
+    from crdt_tpu_torch.scaleout import (
+        Autoscaler, DrainRefused, ScaleoutMesh, bootstrap, certify_drain, mesh_scale, park_row,
+    )
+
+    on_card = device.type == "cuda"
+    sync = (lambda: torch.cuda.synchronize(device)) if on_card else (lambda: None)
+    t_phase = time.perf_counter()
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    out = {"phase": "full_width_scaleout", "card": card_label(device), "P": p, "E": e, "A": a,
+           "D": d, "cap": cap, "runs": runs}
+    mesh = VirtualMesh(p, device)
+    live0 = p - 2
+    # One replica a rank: no rank holds a second replica to designate as a
+    # parker (n_des = 0); the home ranks' full streams still park removes.
+    state, dirty, fctx, info = fill_delta_config3(p, e, a, d, p, seed, device, chunk, n_des=0)
+    state, dirty, fctx = scaleout_rows(state, dirty, fctx, range(live0, p))
+    sync()
+    bench_rounds = 2 * (p - 1) - 1  # bench.py's rate formula: the pipelined window
+    out["fill"] = {k: v for k, v in info.items() if isinstance(v, (int, float, str))}
+
+    def budget(dty) -> int:
+        """The capped drain's round budget for this tracking's backlog."""
+        return 2 * (p - 1) * (1 + -(-int(dty.sum(-1).max()) // cap)) - 1
+
+    def body(root):
+        res = {}
+        with Observed(os.path.join(root, "flight"), capacity=8192) as o:
+            sm = ScaleoutMesh(p, live=range(live0))
+            asc = Autoscaler(sm, ElasticPolicy(low_water=0.2, shrink_rounds=2, high_water=0.8,
+                                               widen_rounds=2), min_live=2)
+            fix_rows, of = mesh_gossip(state, mesh)
+            plain_rows, _ = mesh_gossip(state, mesh, local_fold="tree")
+            check(same_leaves(fix_rows, plain_rows) and not bool(of),
+                  "mesh_gossip's fused fold (K1) != the plain tree fold")
+            fix = tree_map(lambda x: x[0], fix_rows)
+            del plain_rows
+
+            def identical(rows) -> bool:
+                return all(same_leaves(tree_map(lambda x: x[i], rows), fix) for i in sm.live())
+
+            def ring(rows, dty, ctx, **kw):
+                return mesh_delta_gossip(rows, dty, ctx, mesh, rounds=budget(dty), cap=cap,
+                                         faults=sm.plan(), **kw)
+
+            def measure(rows, dty, ctx, what):
+                rounds = budget(dty)
+                with K3Checked() as k3:
+                    l3, l1 = wire_pack.launches, fold_entries.launches
+                    warm = ring(rows, dty, ctx)
+                    sync()
+                    launches = {"k3": wire_pack.launches - l3, "k1": fold_entries.launches - l1}
+                check(int(warm[3]) == 0 and identical(warm[0]),
+                      f"{what}: residue {int(warm[3])} or a live row != the fixpoint")
+                check(not on_card or launches["k3"] == rounds == k3.calls,
+                      f"{what}: K3 {launches} in {rounds} rounds")
+                t0 = time.perf_counter()
+                for _ in range(runs):
+                    last = ring(rows, dty, ctx)
+                sync()
+                dt = time.perf_counter() - t0
+                check(int(last[3]) == 0, f"{what}: a timed run kept a residue")
+                # One telemetry'd run off the clock: the dump's telemetry event.
+                ring(rows, dty, ctx, telemetry=True)
+                o.rec.snapshot_delta()
+                return warm[0], {
+                    "live": len(sm.live()), "generation": sm.generation, "rounds": rounds,
+                    "backlog": int(dty.sum(-1).max()),
+                    "joins_per_s": len(sm.live()) * bench_rounds * runs / dt,
+                    "ring_ms": dt / runs * 1e3, "launches": launches,
+                    "k3_max_abs_err": k3.max_abs_err}
+
+            # 1. plateau.
+            conv, res["plateau"] = measure(state, dirty, fctx, "plateau")
+
+            # 2. spike → debounced admits (cold bootstraps).
+            boot_s, boots = [0.0], []
+            real_bootstrap = mesh_scale.bootstrap
+
+            def timed_bootstrap(*args, **kw):
+                t = time.perf_counter()
+                got = real_bootstrap(*args, **kw)
+                sync()
+                boot_s[0] += time.perf_counter() - t
+                return got
+
+            votes, admitted = 0, conv
+            mesh_scale.bootstrap = timed_bootstrap
+            try:
+                t0 = time.perf_counter()
+                while sm.parked:
+                    votes += 1
+                    dec = asc.observe(load=1.0)
+                    if dec is None:
+                        continue
+                    check(dec.action == "admit", f"a spike voted {dec}")
+                    admitted, rep = sm.admit(1, kind="orswot", rows=admitted)
+                    boots += rep.bootstraps
+                sync()
+                admit_s = time.perf_counter() - t0
+            finally:
+                mesh_scale.bootstrap = real_bootstrap
+            for rank in range(live0, p):
+                check(same_leaves(tree_map(lambda x: x[rank], admitted),
+                                  tree_map(lambda x: x[0], admitted)),
+                      f"newcomer {rank} != its peer")
+            res["admit"] = {"votes": votes, "ranks": list(range(live0, p)),
+                            "wall_s": admit_s, "bootstrap_s": boot_s[0],
+                            "write_s": admit_s - boot_s[0],
+                            "cold_bytes": [b.bytes_shipped for b in boots],
+                            "cold_ratio": [b.ratio for b in boots],
+                            "generation": sm.generation}
+            # The widened ring runs the same δ workload: the newcomers hold
+            # the fixpoint, tracked since the same sync as the union of the
+            # live ranks' δ (their dirty rows, their contexts' max).
+            wide = tree_map(lambda x, y: torch.cat([x[:live0], y[live0:]]), state, admitted)
+            w_dirty, w_fctx = dirty.clone(), fctx.clone()
+            w_dirty[live0:] = dirty[:live0].any(0)
+            bits(w_fctx)[live0:] = bits(umax(fctx[:live0], 0))
+            conv, res["widened"] = measure(wide, w_dirty, w_fctx, "widened")
+            res["rate_ratio_widened_over_plateau"] = (res["widened"]["joins_per_s"]
+                                                      / res["plateau"]["joins_per_s"])
+
+            # 3. the warm-start gate at config 3's E.
+            u32 = lambda y: from_wide(y, torch.uint32)  # noqa: E731
+            snap = ops.empty(warm_e, a, 2, device=device)
+            ctr = to_wide(snap.ctr)
+            ctr[: warm_e // 3, 0] = 1
+            snap = snap._replace(ctr=u32(ctr))
+            ctr[: warm_e // 25, 1] = 2
+            top = to_wide(snap.top)
+            top[0], top[1] = 1, 2
+            live_w = snap._replace(ctr=u32(ctr), top=u32(top))
+            got_w, warm_rep = bootstrap("orswot", live_w, base=snap)
+            _, cold_rep = bootstrap("orswot", live_w)
+            check(same_leaves(got_w, live_w) and warm_rep.ratio < 0.25,
+                  f"warm bootstrap ratio {warm_rep.ratio}")
+            res["warm"] = {"E": warm_e, "ratio": warm_rep.ratio,
+                           "bytes_shipped": warm_rep.bytes_shipped,
+                           "cold_ratio": cold_rep.ratio, "cold_bytes": cold_rep.bytes_shipped}
+
+            # 4. quiet → debounced drain → certified scale-in.
+            dec, quiet = None, 0
+            while dec is None:
+                quiet += 1
+                dec = asc.observe(load=0.0)
+            check(dec.action == "drain" and dec.rank == p - 1, f"quiet traffic voted {dec}")
+            flush = ring(wide, w_dirty, w_fctx)
+            t0 = time.perf_counter()
+            cert = certify_drain("orswot", dec.rank, flush[0], int(flush[3]),
+                                 generation=sm.generation, live=sm.live())
+            certify_ms = (time.perf_counter() - t0) * 1e3
+            check(cert.ok(), f"the drain certificate did not hold: {cert}")
+            sm.drain(dec.rank, certificate=cert)
+            narrow, n_dirty, n_fctx = scaleout_rows(wide, w_dirty, w_fctx, (dec.rank,))
+            conv, res["narrowed"] = measure(narrow, n_dirty, n_fctx, "narrowed")
+            res["drain"] = {"rank": dec.rank, "quiet_votes": quiet, "certify_ms": certify_ms,
+                            "certificate": vars(cert), "generation": sm.generation}
+
+            # 5. a refused drain: one unflushed row on a live rank.
+            gen = sm.generation
+            ahead = tree_map(lambda x: x.clone(), conv)
+            ctr, top = to_wide(ahead.ctr[1]), to_wide(ahead.top[1])
+            row = int(torch.nonzero(ctr.amax(-1) == 0)[0])
+            top[1] += 1
+            ctr[row, 1] = top[1]
+            bits(ahead.ctr)[1] = bits(u32(ctr))
+            bits(ahead.top)[1] = bits(u32(top))
+            before = set(o.dumps())
+            with expect_raises(DrainRefused):
+                sm.drain(1, kind="orswot", rows=ahead, residue=0)
+            check(sm.generation == gen and 1 in sm.live(), "a refused drain moved the mesh")
+            refused = [x for x in o.dumps() if x not in before]
+            check(len(refused) == 1 and "drain_refused" in refused[0],
+                  f"the refused drain dumped {refused}")
+            rep_refused = audited(refused[0], snapshot=o.since())
+            res["refused"] = {"generation": gen, "audit": [f["check"] for f in rep_refused["audit"]]}
+
+            # 6. the recorder's cost on the ring, alternating.
+            off, on = [], []
+            for _ in range(samples):
+                for installed, walls in ((False, off), (True, on)):
+                    prev = obs.install(o.rec if installed else None)
+                    try:
+                        sync()
+                        t0 = time.perf_counter()
+                        ring(narrow, n_dirty, n_fctx)
+                        sync()
+                        walls.append((time.perf_counter() - t0) * 1e3)
+                    finally:
+                        obs.install(prev)
+            res["ring_ms_recorder_off"], res["ring_ms_recorder_on"] = off, on
+
+            tele.record("scaleout", sm.annotate(tele.zeros(device)))
+            path = o.rec.dump(os.path.join(root, "scaleout.jsonl"), reason="scaleout")
+            rep_all = audited(path, snapshot=o.since())
+            res["flight"] = {"events": len(o.rec), "dropped": o.rec.dropped,
+                             "by_type": by_type(o.rec.events()),
+                             "dropped_by_type": dict(o.rec.dropped_by_type),
+                             "folded_counters": len(rep_all["folded_counters"]),
+                             "audit": [f["check"] for f in rep_all["audit"]]}
+            res["generations"] = sm.generation
+            res["bootstrap_bytes_total"] = sm.bootstrap_bytes
+        return res
+
+    out.update(with_scratch_dir(body))
+    out["k3_max_abs_err"] = max(out[k]["k3_max_abs_err"] for k in ("plateau", "widened",
+                                                                    "narrowed"))
+    out["reduced"] = {
+        "rate_gate": "bench.py asserts the joins/s rise after the admit: there the ranks are "
+                     "chips; here the P virtual ranks share one card, so the ratio is reported, "
+                     "not gated",
+        "R": [p, "one replica per rank: the rows are absolute rank rows (R = P)"]}
+    if on_card:
+        out["peak_mem_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return out
+
 
 PHASES = ("k1", "scenarios", "full_width", "k2", "map_scenarios", "full_width_map", "k3",
           "delta_scenarios", "full_width_delta", "map_delta_scenarios", "full_width_delta_map",
@@ -9075,7 +9912,8 @@ PHASES = ("k1", "scenarios", "full_width", "k2", "map_scenarios", "full_width_ma
           "telemetry_scenarios", "sparse_map_scenarios", "full_width_sparse_map",
           "nested_scenarios", "full_width_nested", "full_width_delta_nested",
           "kinds_scenarios", "full_width_clocks", "full_width_list", "reclaim_scenarios",
-          "full_width_reclaim", "faults_scenarios", "full_width_chaos")
+          "full_width_reclaim", "faults_scenarios", "full_width_chaos", "obs_scenarios",
+          "full_width_scaleout")
 
 
 def main(argv=None) -> int:
@@ -9118,7 +9956,7 @@ def main(argv=None) -> int:
     if run("full_width_map"):
         # Config 4 as bench.py commits it (R = 8), then at R = 64.
         res["map"] = phase_full_width_map(device, args.seed, r=8)
-        res["map64"] = phase_full_width_map(device, args.seed, r=64)
+        res["map64"] = phase_full_width_map(device, args.seed, r=64, e2e=False)
     if run("k3"):
         res["k3"] = phase_k3_shapes(device, args.seed)
     if run("delta_scenarios"):
@@ -9128,7 +9966,7 @@ def main(argv=None) -> int:
     if run("map_delta_scenarios"):
         phase_map_delta_scenarios(device, args.seed)
     if run("full_width_delta_map"):
-        res["delta_map"] = phase_full_width_delta_map(device, args.seed)
+        res["delta_map"] = phase_full_width_delta_map(device, args.seed, ring_samples=3)
     if run("sparse_scenarios"):
         phase_sparse_scenarios(device, args.seed)
     if run("flagship"):
@@ -9144,7 +9982,7 @@ def main(argv=None) -> int:
     if run("serve_scenarios"):
         phase_serve_scenarios(device, args.seed)
     if run("serve"):
-        phase_serve(device, args.seed)
+        res["serve"] = phase_serve(device, args.seed)
     if run("serve_zipf"):
         phase_serve_zipf(device, args.seed)
     if run("fanout_scenarios"):
@@ -9162,7 +10000,7 @@ def main(argv=None) -> int:
     if run("full_width_nested"):
         res["nested"] = phase_full_width_nested(device, args.seed)
     if run("full_width_delta_nested"):
-        res["delta_nested"] = phase_full_width_delta_nested(device, args.seed)
+        res["delta_nested"] = phase_full_width_delta_nested(device, args.seed, ring_samples=3)
     if run("kinds_scenarios"):
         phase_kinds_scenarios(device, args.seed)
     if run("full_width_clocks"):
@@ -9177,12 +10015,25 @@ def main(argv=None) -> int:
         res["faults_scenarios"] = phase_faults_scenarios(device, args.seed)
     if run("full_width_chaos"):
         res["chaos"] = phase_full_width_chaos(device, args.seed)
+    if run("obs_scenarios"):
+        res["obs_scenarios"] = phase_obs_scenarios(device, args.seed)
+    if run("full_width_scaleout"):
+        res["scaleout"] = phase_full_width_scaleout(device, args.seed)
     if only:
         print(f"chip_smoke: partial run of {only}; no kernels line", flush=True)
         return 0
 
     full, full_map, wide_map, delta = res["full"], res["map"], res["map64"], res["delta"]
     nested, delta_nested = res["nested"], res["delta_nested"]
+    # Flags off, nothing installed: the launch counts from before the
+    # observability plane.
+    check(delta["telemetry"]["launch_kernel_calls_per_round_off"] == BASE_DENSE_ROUND_LAUNCHES
+          and res["delta_map"]["telemetry"]["launch_kernel_calls_per_round_off"]
+          == BASE_MAP_ROUND_LAUNCHES
+          and res["serve"]["profiled_cycle"]["launch_kernel_calls_per_dispatch"]
+          == BASE_SERVE_DISPATCH_LAUNCHES,
+          "a δ round or a serve dispatch launches another count of kernels than before the "
+          "observability plane")
     print(dev["nvidia_smi"], flush=True)
     emit({"kernels": [{
         **K1,
@@ -9219,7 +10070,9 @@ def main(argv=None) -> int:
                            delta_nested["map_orswot"]["k3_max_abs_err"],
                            delta_nested["map3"]["k3_max_abs_err"],
                            res["faults_scenarios"]["k3_max_abs_err"],
-                           res["chaos"]["k3_max_abs_err"]),
+                           res["chaos"]["k3_max_abs_err"],
+                           res["obs_scenarios"]["k3_max_abs_err"],
+                           res["scaleout"]["k3_max_abs_err"]),
         "ms": delta["k3_ms_median"],
         "plain_ms": delta["k3_plain_ms"],
         "bound_ms": delta["k3_bound_ms"],

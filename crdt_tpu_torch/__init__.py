@@ -24,9 +24,13 @@ kinds: clocks and counters (``ops.vclock``, ``models.vclock``,
 (``ops.lwwreg``, ``models.registers``) and the sequences
 (``models.list``, ``models.glist`` over the host engine of ``native``),
 causal-stability reclamation (``reclaim``, each kind's ``compact``) and
-the actor lifecycle (``lifecycle``). The host metrics registry
-(``metrics``), the Telemetry sidecar and its spans (``telemetry``) and the
-wire encoding (``serde``) ride at the root, as in the JAX package.
+the actor lifecycle (``lifecycle``), the fault plane (``faults``), the
+observability plane (``obs``: flight recorder, op tracing, dump audit;
+``analysis.slo``, the freshness SLO gate) and live scale-out
+(``scaleout``). The host metrics registry (``metrics``), the Telemetry
+sidecar and its spans (``telemetry``), the Prometheus/JSONL drain
+(``exporter``) and the wire encoding (``serde``) ride at the root, as in
+the JAX package.
 """
 
 from .traits import CvRDT, CmRDT, ResetRemove, Causal, ValidationError, DotRange
@@ -38,9 +42,9 @@ from .pure import (
     PNCounter,
 )
 
-# Wire and storage encoding, the actor lifecycle, the host registry, and
-# the Telemetry sidecar with its span tracing.
-from . import lifecycle, serde, telemetry
+# Wire and storage encoding, the actor lifecycle, the host registry, the
+# Telemetry sidecar with its span tracing, and the Prometheus/JSONL drain.
+from . import exporter, lifecycle, serde, telemetry
 from .telemetry import Telemetry, span
 from .utils.metrics import metrics
 
@@ -49,5 +53,5 @@ __all__ = [
     "Dot", "OrdDot", "VClock", "ReadCtx", "AddCtx", "RmCtx",
     "GCounter", "PNCounter", "Dir", "GSet", "LWWReg", "MVReg", "Orswot", "Map", "Identifier",
     "List", "GList", "MerkleReg",
-    "serde", "lifecycle", "metrics", "Telemetry", "span", "telemetry",
+    "serde", "lifecycle", "metrics", "Telemetry", "exporter", "span", "telemetry",
 ]

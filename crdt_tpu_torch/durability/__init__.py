@@ -23,8 +23,10 @@ read by the other.
   kills at each one, recovers, and asserts bit-identity.
 
 The JAX package's ``static_checks`` and its ``_probe_*`` workloads need
-the law engine, serving and fan-out (ROADMAP item 16); the ``obs`` events
-come with item 15.6.
+the law engine, serving and fan-out (ROADMAP item 16). The modules emit
+the JAX package's flight events (``wal_fsync``, ``wal_torn_tail``,
+``snapshot_commit``, ``snapshot_fallback``, ``recovery``, the last with
+its auto-dump).
 """
 
 from __future__ import annotations

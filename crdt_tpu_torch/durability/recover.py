@@ -34,6 +34,7 @@ from typing import Any, NamedTuple, Optional, Tuple
 
 import numpy as np
 
+from .. import obs
 from ..convert import leaf_from_numpy
 from ..delta_opt.decompose import (
     Decomposition, decompose, decomposition_bytes, get_decomposer, reconstruct,
@@ -43,6 +44,15 @@ from ..utils.metrics import metrics, state_nbytes
 from . import snapshot as snap
 from .snapshot import SnapshotCorrupt
 from .wal import Wal, _sync
+
+
+def _record_recovery(report: "RecoveryReport") -> None:
+    """A completed recovery is a postmortem boundary by definition —
+    something died to need one: record the ``recovery`` event and
+    auto-dump the flight artifact (no-ops with no recorder installed)."""
+    obs.emit("recovery", generation=report.generation, wal_seq_start=report.wal_seq_start,
+             replayed=report.replayed_records, fallbacks=report.snapshot_fallbacks)
+    obs.auto_dump("recovery", generation=report.generation)
 
 
 class RecoveryReport(NamedTuple):
@@ -161,11 +171,13 @@ def recover_state(snap_dir, wal: Wal, template, kind: Optional[str] = None, defa
     state, n_replayed, n_full = replay(wal, state, kind, since)
     t2 = time.perf_counter()
     metrics.count("durability.recovery_rounds")
-    return state, RecoveryReport(
+    report = RecoveryReport(
         generation=gen, wal_seq_start=since, replayed_records=n_replayed,
         full_state_records=n_full, snapshot_fallbacks=fallbacks, seconds=t2 - t0,
         load_seconds=t1 - t0, replay_seconds=t2 - t1,
     )
+    _record_recovery(report)
+    return state, report
 
 
 def recover_model(snap_dir, wal: Wal, kind: Optional[str] = None, device="cuda"):
@@ -184,11 +196,13 @@ def recover_model(snap_dir, wal: Wal, kind: Optional[str] = None, device="cuda")
     model.state, n_replayed, n_full = replay(wal, model.state, kind, info.wal_seq)
     t2 = time.perf_counter()
     metrics.count("durability.recovery_rounds")
-    return model, RecoveryReport(
+    report = RecoveryReport(
         generation=info.gen, wal_seq_start=info.wal_seq, replayed_records=n_replayed,
         full_state_records=n_full, snapshot_fallbacks=fallbacks, seconds=t2 - t0,
         load_seconds=t1 - t0, replay_seconds=t2 - t1,
     )
+    _record_recovery(report)
+    return model, report
 
 
 def load_stream_resume(wal: Wal, template):

@@ -45,6 +45,7 @@ from typing import List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import obs
 from ..checkpoint import _dump, _restore, array_checksum, from_npz_bytes, fsync_dir, to_npz_bytes
 from ..convert import leaf_from_numpy, leaf_to_numpy
 from ..ops.lattice import tree_leaves, tree_unflatten
@@ -150,6 +151,7 @@ def _write_payload_and_manifest(path, gen: int, raw: bytes, manifest: dict, reta
     os.replace(tmp_manifest, manifest_path)  # THE commit point
     fsync_dir(d)
     metrics.count("durability.snapshots_written")
+    obs.emit("snapshot_commit", gen=gen, wal_seq=manifest.get("wal_seq", 0))
     cp.hit(CP_POST_COMMIT_PRE_PRUNE)
 
     gens = generations(path)
@@ -269,6 +271,7 @@ def load_newest(path, template=None, device="cuda"):
             # CheckpointCorrupt, a truncated zip) is that generation's
             # corruption: count it and fall back to the next older one.
             metrics.count("durability.snapshot_fallback")
+            obs.emit("snapshot_fallback", gen=gen)
             last_err = exc
     raise SnapshotCorrupt(
         f"no valid generation in {os.fspath(path)!r} "

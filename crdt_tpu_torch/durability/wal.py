@@ -65,8 +65,10 @@ from typing import Iterator, Tuple
 import numpy as np
 import torch
 
+from .. import obs
 from ..checkpoint import fsync_dir
 from ..convert import leaf_to_numpy
+from ..obs import trace as obs_trace
 from ..ops.lattice import tree_leaves, tree_map
 from ..utils.metrics import metrics
 from . import crashpoints as cp
@@ -197,6 +199,7 @@ class Wal:
         self.torn_tails += 1
         metrics.count("durability.torn_tail_truncated")
         metrics.count(f"durability.torn_tail.{why}")
+        obs.emit("wal_torn_tail", why=why, at=pos)
 
     def _scan_and_open(self) -> None:
         """Validate every segment, truncate at the first damage, drop
@@ -283,13 +286,18 @@ class Wal:
         """The power-loss barrier — one overridable seam, so the
         fsync-policy detector can prove the calls happen. Each barrier
         advances the DURABLE watermark: records up to ``last_seq`` now
-        survive power loss (the ``durability.wal.watermark`` gauge)."""
+        survive power loss: the ``durability.wal.watermark`` gauge and the
+        ``wal_fsync`` flight event both carry it."""
         t0 = time.perf_counter()
         os.fsync(f.fileno())
         self.seconds["fsync"] += time.perf_counter() - t0
         self.fsyncs += 1
         metrics.count("durability.fsyncs")
         metrics.observe("durability.wal.watermark", float(self.last_seq))
+        # Group commit IS the durable point for every dispatched op of the
+        # round: stamp every dispatched, not yet durable trace at once.
+        obs_trace.stamp("durable")
+        obs.emit("wal_fsync", watermark=self.last_seq, bytes=self.bytes_appended)
 
     def append(self, meta: dict, leaves) -> int:
         """Append one record (``meta`` + numpy leaves); returns its seq.

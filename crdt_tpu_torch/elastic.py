@@ -28,8 +28,8 @@ holding the replica set. The ring entries' elastic wrappers
 (``parallel/anti_entropy.gossip_elastic``,
 ``parallel/delta_ring.delta_gossip_elastic``) pause, migrate and rejoin.
 :func:`widen` and :func:`shrink` run inside the ``elastic.widen`` and
-``elastic.shrink`` spans (``telemetry.span``); the JAX module's
-``elastic_vote`` event comes with ``obs`` (item 15.6). The JAX table has
+``elastic.shrink`` spans (``telemetry.span``), and a fired
+:meth:`Hysteresis.vote` emits the ``elastic_vote`` flight event. The JAX table has
 no ``BatchedSparseMapOrswot`` row nor rows for the dense nests, nor has
 this one.
 """
@@ -361,6 +361,10 @@ class Hysteresis:
         elif cold >= policy.shrink_rounds:
             decision, cold = "shrink", 0
         self._hot[name], self._cold[name] = hot, cold
+        if decision is not None:
+            from . import obs
+
+            obs.emit("elastic_vote", name=name, decision=decision, pressure=float(pressure))
         return decision
 
 

@@ -49,9 +49,11 @@ cohort forever and MUST fail it.
 ``push(telemetry=True)`` puts the cycle's Telemetry on its report: the
 dispatches' (combined), plus ``resync_fallbacks`` and ``bootstrap_bytes``
 for the resynced subscribers, :meth:`FanoutPlane.annotate`d with the live
-subscriber count. Left out: the trace stamps and flight-recorder events
-(ROADMAP item 15.6); the ``boundary`` hooks of the host-concurrency plane
-(16).
+subscriber count. The plane stamps the op-journey tracer where the JAX
+plane does (``push`` per shipped or resynced cohort, ``ack`` per promoted
+tenant) and emits the ``fanout_push`` and ``subscriber_resync`` flight
+events. Left out: the ``boundary`` hooks of the host-concurrency plane
+(ROADMAP item 16).
 """
 
 from __future__ import annotations
@@ -65,6 +67,8 @@ import torch
 from .. import telemetry as tele
 from ..convert import cohort_wire_to_numpy, leaf_from_numpy
 from ..durability import crashpoints
+from ..obs import recorder as _rec
+from ..obs import trace as obs_trace
 from ..ops import superblock as sb_ops
 from ..ops.fanout_kernels import CohortWire, wire_lane
 from ..parallel.fanout_push import mesh_fanout_push
@@ -256,6 +260,13 @@ class FanoutPlane:
         # An ack BELOW the pending ship confirms an older payload only:
         # keep the pend mark of the still-outstanding latest ship.
         self.sub_pend[sel[v[ok] >= pend[ok]]] = -1
+        # Close the freshness loop: each promoted tenant's highest acked
+        # watermark completes every open trace pushed at or below it.
+        if obs_trace.get_tracer() is not None and len(sel):
+            t_sel = self.sub_tenant[sel]
+            v_sel = self.sub_ver[sel]
+            for t in np.unique(t_sel):
+                obs_trace.stamp("ack", tenant=int(t), version=int(v_sel[t_sel == t].max()))
 
     def note_dirty(self, tenants) -> None:
         """Mark tenants changed since their last push (the ingest path's
@@ -408,6 +419,8 @@ class FanoutPlane:
                     self.sub_pend[members] = target
                     n_resync_subs += len(members)
                     resync_bytes += resyncs[-1].report.bytes_shipped * len(members)
+                    obs_trace.stamp("push", tenant=t, version=target)
+                    _rec.emit("subscriber_resync", tenant=t, subscribers=len(members))
                 else:
                     wire_cohorts.append((t, v, target, members, base))
 
@@ -516,6 +529,8 @@ class FanoutPlane:
                 pushes.append(CohortPush(tenant=t, base_ver=v, to_ver=target,
                                          wire=wire_lane(wire, dl), members=members))
                 self.sub_pend[members] = target
+                obs_trace.stamp("push", tenant=t, version=target)
+            _rec.emit("fanout_push", cohorts=len(slots), subscribers=int(wts.sum()))
             t4 = time.perf_counter()
             sec["stage"] += t1 - t0
             sec["dispatch"] += t2 - t1

@@ -28,8 +28,8 @@ the top adoption, so a faulted run is never read as certified.
 
 Every per-rank quantity is a ``[P]`` tensor over the virtual ranks (the
 JAX per-device scalar); the counters stay on the device until the run's
-end read. ``record``'s ``fault_counters`` flight event waits for the
-flight recorder (ROADMAP item 15.6).
+end read, where ``record`` also emits the ``fault_counters`` flight
+event.
 """
 
 from __future__ import annotations
@@ -121,14 +121,23 @@ def is_concrete(fc: FaultCounters) -> bool:
 def record(fc: FaultCounters) -> None:
     """Drain the counters into the host registry under the JAX names:
     ``faults.packets_dropped`` / ``_rejected`` / ``_delayed`` counts and
-    the ``faults.miss_streak`` gauge (the longest streak). One host read,
-    after the run; a no-op during a graph capture."""
+    the ``faults.miss_streak`` gauge (the longest streak), and one
+    ``fault_counters`` flight event when anything was lost, rejected or
+    delayed and a recorder is installed. One host read, after the run; a
+    no-op during a graph capture."""
     if not is_concrete(fc):
         return
-    metrics.count("faults.packets_dropped", int(to_wide(fc.packets_dropped)))
-    metrics.count("faults.packets_rejected", int(to_wide(fc.packets_rejected)))
-    metrics.count("faults.packets_delayed", int(to_wide(fc.packets_delayed)))
+    dropped = int(to_wide(fc.packets_dropped))
+    rejected = int(to_wide(fc.packets_rejected))
+    delayed = int(to_wide(fc.packets_delayed))
+    metrics.count("faults.packets_dropped", dropped)
+    metrics.count("faults.packets_rejected", rejected)
+    metrics.count("faults.packets_delayed", delayed)
     metrics.observe("faults.miss_streak", float(fc.miss_streak.max()))
+    if dropped or rejected or delayed:
+        from .. import obs
+
+        obs.emit("fault_counters", dropped=dropped, rejected=rejected, delayed=delayed)
 
 
 # ---- ring permutations over live ranks ------------------------------------
@@ -183,7 +192,7 @@ def round_faults(fates: LinkFates, r: int):
     return row[:, 0], row[:, 1], row[:, 2]
 
 
-def evicted_mask(plan: Optional[FaultPlan], p: int, device="cpu") -> torch.Tensor:
+def evicted_mask(plan: Optional[FaultPlan], p: int, device="cuda") -> torch.Tensor:
     """``[P]`` bool: which ranks are evicted (all False without a plan)."""
     ev = () if plan is None else plan.evicted
     return torch.as_tensor(np.isin(np.arange(p), ev), device=device)

@@ -25,8 +25,8 @@ the same ``sender_of`` table the ring used. Streaks that span runs
 accumulate (a run fully missed extends the streak by its round count);
 any delivery resets. The host counters keep the JAX names
 (``faults.rank_suspected``, ``faults.rank_evicted``,
-``faults.rank_rejoined``); the transitions' flight events wait for the
-flight recorder (ROADMAP item 15.6).
+``faults.rank_rejoined``) and so do the transitions' flight events
+(``rank_suspected``, ``rank_evicted``, ``rank_rejoined``).
 """
 
 from __future__ import annotations
@@ -36,6 +36,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import obs
 from ..utils.metrics import metrics
 from .inject import FaultPlan, ring_perm, sender_of
 
@@ -124,8 +125,9 @@ class Membership:
             else:
                 self.streaks[src] = s
         hot = self.suspects()
-        for _ in hot:
+        for r in hot:
             metrics.count("faults.rank_suspected")
+            obs.emit("rank_suspected", suspect=r, streak=self.streaks[r])
         if auto_evict:
             for r in hot:
                 self.evict(r)
@@ -143,6 +145,7 @@ class Membership:
                 f"{self.n_ranks}-rank axis")
         self._evicted.add(rank)
         metrics.count("faults.rank_evicted")
+        obs.emit("rank_evicted", evicted=rank, live=self.n_ranks - len(self._evicted))
 
     def rejoin(self, rank: int) -> None:
         """Re-admit ``rank``. PRECONDITION (the caller's contract): its
@@ -153,6 +156,7 @@ class Membership:
         self._evicted.discard(rank)
         self.streaks[rank] = 0
         metrics.count("faults.rank_rejoined")
+        obs.emit("rank_rejoined", rejoined=rank, live=self.n_ranks - len(self._evicted))
 
     def _check_rank(self, rank: int) -> None:
         if not 0 <= rank < self.n_ranks:

@@ -16,8 +16,9 @@ fetch), never around a collective.
 
 The port has no multi-host exchange yet: wrapping
 ``multihost.sync_list`` and the host all-gather waits for the
-``torch.distributed`` collectives (ROADMAP item 5). The retry and
-give-up flight events wait for the flight recorder (item 15.6).
+``torch.distributed`` collectives (ROADMAP item 5). Each retry emits a
+``dcn_retry`` flight event; the give-up emits ``dcn_exchange_failed``
+and auto-dumps the recorder before it raises.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import time
 from dataclasses import dataclass
 from typing import Any, Callable, Optional
 
+from .. import obs
 from ..utils.metrics import metrics
 
 
@@ -119,6 +121,7 @@ def with_retries(
     for attempt in range(policy.attempts):
         if attempt:
             metrics.count("faults.retries")
+            obs.emit("dcn_retry", op=op, attempt=attempt, error=type(last_exc).__name__)
             pause = min(delay, policy.max_delay)
             pause *= 1.0 + policy.jitter * rng.random()
             sleep(pause)
@@ -133,6 +136,11 @@ def with_retries(
             last_exc = exc
     metrics.count("faults.gave_up")
     assert last_exc is not None
+    # The postmortem boundary: record the exhaustion and write the flight
+    # artifact BEFORE raising (auto_dump never masks the exception).
+    obs.emit("dcn_exchange_failed", op=op, attempts=policy.attempts,
+             error=type(last_exc).__name__)
+    obs.auto_dump("dcn_exchange_failed", op=op)
     raise DcnExchangeFailed(op, policy.attempts, last_exc, last_good=last_good) from last_exc
 
 

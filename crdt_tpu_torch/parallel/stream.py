@@ -153,11 +153,13 @@ class StreamInterrupted(RuntimeError):
     accumulator — the exact lattice join of the blocks already applied
     and not lost, a valid joinable state — and the stream resumes from
     block ``blocks_done`` via ``init=exc.acc`` on a fresh call.
-    ``fault_report`` is the partial :class:`StreamFaultReport` of a
+    ``telemetry`` carries the partial Telemetry when the run asked for
+    one; ``fault_report`` is the partial :class:`StreamFaultReport` of a
     faulted run: the blocks lost before the interrupt, which the resume
     must re-stream too."""
 
-    def __init__(self, cause: BaseException, acc, blocks_done: int, fault_report=None):
+    def __init__(self, cause: BaseException, acc, blocks_done: int, telemetry=None,
+                 fault_report=None):
         super().__init__(
             f"replica stream interrupted at block {blocks_done} "
             f"({type(cause).__name__}: {cause}); .acc holds the join of "
@@ -166,6 +168,7 @@ class StreamInterrupted(RuntimeError):
         self.cause = cause
         self.acc = acc
         self.blocks_done = blocks_done
+        self.telemetry = telemetry
         self.fault_report = fault_report
 
 
@@ -492,7 +495,8 @@ def _stream_fold(
     except Exception as exc:
         metrics.count("stream.interrupted")
         persist_resume(acc, 0)
-        raise StreamInterrupted(exc, acc, 0, fault_report=partial_report()) from exc
+        raise StreamInterrupted(exc, acc, 0, tele.zeros(device) if telemetry else None,
+                                fault_report=partial_report()) from exc
 
     overflow = None
     blocks_done = staged_bytes = overlap_hits = 0
@@ -568,7 +572,9 @@ def _stream_fold(
         except Exception as exc:
             metrics.count("stream.interrupted")
             persist_resume(acc, blocks_done)
-            raise StreamInterrupted(exc, acc, blocks_done,
+            part = (_stream_tel(acc, slots, blocks_done, template_rows, p, wire)
+                    if telemetry else None)
+            raise StreamInterrupted(exc, acc, blocks_done, part,
                                     fault_report=partial_report()) from exc
     persist_resume(acc, blocks_done)
     if on_card:
@@ -592,6 +598,16 @@ def _stream_fold(
             metrics.count("faults.packets_dropped", len(dropped_blocks))
         if rejected_blocks:
             metrics.count("faults.packets_rejected", len(rejected_blocks))
+        if dropped_blocks or rejected_blocks:
+            # A non-empty fault report is a postmortem boundary: the
+            # caller must re-stream these blocks — record which, and
+            # write the flight artifact (no-ops with no recorder).
+            from .. import obs
+
+            obs.emit("stream_fault_report", dropped=list(dropped_blocks),
+                     rejected=list(rejected_blocks))
+            obs.auto_dump("stream_fault_report", dropped=len(dropped_blocks),
+                          rejected=len(rejected_blocks))
     if not telemetry:
         return (acc, overflow, report) if faulted else (acc, overflow)
     tel = tele.fill(_stream_tel(acc, slots, blocks_done, template_rows, p, wire),

@@ -152,20 +152,31 @@ def bootstrap(
     return got, report
 
 
-def parked_orswot(device="cpu"):
-    """The dense ORSWOT with two remove clocks parked ahead of an empty
-    top (a 2×2 universe, D = 4): the last of the JAX merge-kind registry's
-    ``orswot`` example states, the live peer of the corruption detector."""
+def empty_orswot(device="cuda"):
+    """The empty dense ORSWOT of a 2×2 universe with D = 4 parked slots:
+    the first of the JAX merge-kind registry's ``orswot`` example states,
+    the survivor of the drain detector
+    (``mesh_scale.drain_refuses_unflushed``)."""
     from ..ops import orswot as ops
 
-    e = ops.empty(2, 2, 4, device=device)
+    return ops.empty(2, 2, 4, device=device)
+
+
+def parked_orswot(device="cuda"):
+    """The dense ORSWOT with two remove clocks parked ahead of an empty
+    top (a 2×2 universe, D = 4): the last of the JAX merge-kind registry's
+    ``orswot`` example states, the live peer of the corruption detector
+    and the unflushed rank of the drain detector."""
+    from ..ops import orswot as ops
+
+    e = empty_orswot(device)
     clock = torch.tensor([1, 1], dtype=torch.int64, device=device).to(torch.int32).view(
         torch.uint32)
     st, _ = ops.apply_rm(e, clock, torch.tensor([True, True], device=device))
     return st
 
 
-def bootstrap_rejects_corruption(bootstrap_fn, device="cpu") -> bool:
+def bootstrap_rejects_corruption(bootstrap_fn, device="cuda") -> bool:
     """The detector for bootstrap implementations: run ``bootstrap_fn``
     over a corrupt-heavy wire (``FaultPlan(seed=23, corrupt=0.7)``,
     segment cap 2) and return True iff the newcomer lands BIT-IDENTICAL to

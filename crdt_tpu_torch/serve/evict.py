@@ -28,6 +28,8 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from ..durability import crashpoints, snapshot
+from ..obs import recorder as _rec
+from ..obs import trace as obs_trace
 from ..ops import superblock as sb_ops
 from ..utils.metrics import metrics
 from .superblock import Superblock
@@ -128,6 +130,7 @@ class Evictor:
                 continue
             persist_tenant(self.root, self.sb.kind, t, self.sb.row(t), retain=self.retain)
             self.sb.dirty[t] = False
+            obs_trace.stamp("durable", tenant=int(t))
             n += 1
         metrics.count("serve.evict.persisted", n)
         return n
@@ -146,6 +149,8 @@ class Evictor:
             self.sb.dirty[t] = False
             self.sb.was_evicted[t] = True
             lanes.append(self.sb.release_lane(t))
+            obs_trace.stamp("evict", tenant=int(t))
+            _rec.emit("tenant_evicted", tenant=int(t))
         self.sb.clear_lanes(lanes)
         metrics.count("serve.evict.evictions", len(lanes))
         return len(lanes)
@@ -163,7 +168,8 @@ class Evictor:
             self.evict(self.select_cold(self.pressure_batch, exclude=_exclude))
         if not self.sb.was_evicted[tenant]:
             # First admission: no durable record exists and the freed
-            # lane is already ⊥ — allocate and stop.
+            # lane is already ⊥ — allocate and stop (no flight event: a
+            # million admissions would flood the recorder's ring).
             self.sb.ensure_resident(tenant)
             metrics.count("serve.evict.admissions")
             return False
@@ -173,6 +179,8 @@ class Evictor:
         self.sb.was_evicted[tenant] = False
         self.sb.dirty[tenant] = False
         metrics.count("serve.evict.restores")
+        obs_trace.stamp("restore", tenant=int(tenant))
+        _rec.emit("tenant_restored", tenant=int(tenant))
         return True
 
     def _fit_capacity(self, row):

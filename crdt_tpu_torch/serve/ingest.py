@@ -28,10 +28,12 @@ card they are numpy views of PINNED host buffers, two of them used in
 turn: each slab goes to the card by a copy that does not block the host,
 and a buffer is written again only after the CUDA event recorded behind
 its last copy has completed — so the pipelined loop can assemble slab
-N+1 while slab N's copy and apply are still queued. The JAX queue's
-trace stamps (ROADMAP item 15.6) and interleaving boundaries (item 16)
-are left out: both are no-ops there unless a tracer or explorer is
-installed. ``telemetry=True`` returns each flush's Telemetry (the
+N+1 while slab N's copy and apply are still queued. The queue stamps the
+op-journey tracer (``obs.trace``) where the JAX queue does — ``submit``,
+``coalesce``, ``dispatch`` and ``durable``, and rolls traces back on a
+requeue — and emits the ``ingest_flush`` flight event; every hook is a
+no-op with no tracer or recorder installed. The JAX queue's interleaving
+boundaries (ROADMAP item 16) are left out. ``telemetry=True`` returns each flush's Telemetry (the
 dispatch's, :meth:`IngestQueue.annotate`d with the flush's coalesced ops,
 batch size and WAL bytes and the superblock's residency gauges).
 """
@@ -47,6 +49,8 @@ import torch
 from .. import telemetry as tele
 from ..durability import crashpoints
 from ..obs import hist as obs_hist
+from ..obs import recorder as _rec
+from ..obs import trace as obs_trace
 from ..ops import superblock as sb_ops
 from ..utils.metrics import metrics
 from .superblock import Superblock
@@ -165,6 +169,7 @@ class IngestQueue:
             )
         self.pending.setdefault(tenant, deque()).append(op)
         self.n_pending += 1
+        obs_trace.stamp("submit", tenant=tenant)
         if self.evictor is not None:
             self.evictor.note_touch(tenant)
 
@@ -266,6 +271,7 @@ class IngestQueue:
                 take = min(len(q), self.depth)
                 ops_l = [q.popleft() for _ in range(take)]
                 taken.append((t, ops_l))
+                obs_trace.stamp("coalesce", tenant=t, count=take)
                 for s, op in enumerate(ops_l):
                     if isinstance(op, AddOp):
                         kind[lane, s] = sb_ops.ADD
@@ -286,11 +292,14 @@ class IngestQueue:
                     break
         except BaseException:
             # Nothing logged, nothing dispatched: every popped op returns
-            # to the FRONT of its queue in original order.
+            # to the FRONT of its queue in original order, and the traces
+            # roll back to submit-only.
             for t, ops_l in taken:
                 dq = self.pending.setdefault(t, deque())
                 for op in reversed(ops_l):
                     dq.appendleft(op)
+            if taken:
+                obs_trace.requeue([t for t, _ in taken])
             raise
         return _Built(kind, actor, ctr, clock, member, idx, tenants,
                       applied, coalesced, restored, picked, taken, stage)
@@ -332,16 +341,32 @@ class IngestQueue:
         did NOT land goes back to the FRONT of its tenant's queue in
         original order. A CapacityOverflow names exactly the tenants whose
         rows were rolled back (everyone else's ops DID apply); any earlier
-        failure applied nothing, so everything returns."""
+        failure applied nothing, so everything returns. ``requeue_seq`` is
+        the slab's durable WAL seq when it was logged before the failure:
+        rolled-back traces keep it, so the op's re-dispatch reuses the id
+        its durable record already carries."""
         lost = getattr(exc, "tenants", None)
         requeued = 0
+        rolled = []
+        landed = []
         for t, ops_l in built.taken:
             if lost is not None and t not in lost:
+                landed.append(t)
                 continue
             dq = self.pending.setdefault(t, deque())
             for op in reversed(ops_l):
                 dq.appendleft(op)
             requeued += len(ops_l)
+            rolled.append(t)
+        # Landed tenants' ops DID reach the device (their traces advance to
+        # `dispatch`, and to `durable` when the slab was logged); rolled
+        # tenants' traces fall back to submit-only but keep their seq.
+        if landed:
+            obs_trace.stamp("dispatch", tenants=landed)
+            if requeue_seq is not None:
+                obs_trace.stamp("durable", tenants=landed, seq=requeue_seq)
+        if rolled:
+            obs_trace.requeue(rolled, seq=requeue_seq)
         self.n_pending -= built.applied - requeued
         for t in built.picked:
             if t in self.pending and not self.pending[t]:
@@ -371,6 +396,10 @@ class IngestQueue:
                 del self.pending[t]
         applied, coalesced = built.applied, built.coalesced
         self.n_pending -= applied
+        done = [t for t, _ in built.taken]
+        obs_trace.stamp("dispatch", tenants=done)
+        if seq is not None:
+            obs_trace.stamp("durable", tenants=done, seq=seq)
         dispatches = 1 + (self.sb.widen_events - self._widens_before)
         self.total_ops += applied
         self.total_coalesced += coalesced
@@ -381,6 +410,8 @@ class IngestQueue:
         if tel is not None:
             tel = self.annotate(tel, coalesced=coalesced, batch=applied)
         lanes_used = int((built.tenants >= 0).sum())
+        _rec.emit("ingest_flush", lanes=lanes_used, ops=applied, coalesced=coalesced,
+                  restored=built.restored, pending_after=self.n_pending)
         report = FlushReport(applied, lanes_used, coalesced, self.n_pending, built.restored,
                              dispatches)
         return report, tel

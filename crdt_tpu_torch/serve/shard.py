@@ -149,7 +149,11 @@ def rebalance_plan(shard_map: TenantShardMap, tenants: Sequence[int], weights, *
 
 
 def apply_rebalance(shard_map: TenantShardMap, plan: Sequence[RebalanceMove]) -> int:
-    """Land a plan as placement overrides. Returns moves applied."""
+    """Land a plan as placement overrides. Returns moves applied; each is
+    one ``rebalance_moves`` count, and the applied plan one
+    ``shard_rebalance`` flight event."""
+    from .. import obs
+
     n = 0
     for mv in plan:
         if mv.dst not in shard_map.live:
@@ -158,6 +162,8 @@ def apply_rebalance(shard_map: TenantShardMap, plan: Sequence[RebalanceMove]) ->
         n += 1
     if n:
         metrics.count("serve.shard.rebalance_moves", n)
+        obs.emit("shard_rebalance", moves=n, tenants=[int(m.tenant) for m in plan][:32],
+                 srcs=[int(m.src) for m in plan][:32], dsts=[int(m.dst) for m in plan][:32])
     return n
 
 

@@ -28,6 +28,7 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 
+from .. import obs
 from ..durability import crashpoints
 from ..durability.wal import Wal
 from ..utils.metrics import metrics
@@ -104,6 +105,8 @@ class ServeWal:
         self.wal.mark_round()  # THE group commit: one fsync per dispatch
         metrics.count("serve.wal.slabs")
         metrics.count("serve.wal.ops", n_ops)
+        obs.emit("serve_wal_round", seq=seq, lanes=int(len(used)), ops=n_ops,
+                 bytes=self.wal.bytes_appended)
         return seq
 
     def records(self, since_seq: int = 0):

@@ -34,9 +34,10 @@ structured event per span (``configure_tracing`` points them at a JSONL
 file; :func:`drain_events` empties the in-memory ring), feeds the
 registry's ``<name>_seconds`` gauge, and nests
 ``torch.profiler.record_function`` so the span shows in a profiler
-trace. The flight recorder is ROADMAP item 15.6: :func:`record` emits
-no ``telemetry`` event and spans carry no ``gen``/``round``/``rank``
-stamp until it lands.
+trace. With a flight recorder installed (``obs.install``), :func:`record`
+emits one ``telemetry`` event and then advances the recorder's round,
+and every span event carries the recorder's ``gen``/``round``/``rank``
+key, so spans and flight events line up on one timeline.
 """
 
 from __future__ import annotations
@@ -443,8 +444,8 @@ def record(kind: str, tel: Telemetry) -> None:
     ``telemetry.<kind>.*``: counters for the monotone fields
     (:func:`counter_increments`), gauges for the final-state ones and the
     histogram p50/p95/p99 summaries. A no-op under CUDA-graph capture.
-    The JAX ``record`` also emits a flight-recorder ``telemetry`` event;
-    the recorder is ROADMAP item 15.6."""
+    With a flight recorder installed it emits the ``telemetry`` event
+    (every field) and then advances the recorder's round."""
     if not is_concrete(tel):
         return
     d = to_dict(tel)
@@ -460,6 +461,14 @@ def record(kind: str, tel: Telemetry) -> None:
         s = obs_hist.summary(hd)
         for q in ("p50", "p95", "p99"):
             metrics.observe(f"{base}.{q}", s[q])
+    from .obs import recorder as _rec
+
+    if _rec.get_recorder() is not None:
+        # Emit FIRST, advance AFTER: the telemetry drain is the last
+        # event of its dispatch, so everything the dispatch emitted
+        # earlier (WAL fsyncs, fault counters) shares its round.
+        _rec.emit("telemetry", kind=kind, **d)
+        _rec.advance_round()
 
 
 # ---- span tracing ---------------------------------------------------------
@@ -487,6 +496,15 @@ def drain_events() -> list:
 
 
 def _emit(event: Dict[str, Any]) -> None:
+    # Stamp the flight recorder's (generation, round, rank) key when one
+    # is installed, so spans and flight events share one timeline.
+    from .obs import recorder as _rec
+
+    k = _rec.current_key()
+    if k is not None:
+        event.setdefault("gen", k[0])
+        event.setdefault("round", k[1])
+        event.setdefault("rank", k[2])
     with _trace_lock:
         _trace_events.append(event)
         del _trace_events[:-_MAX_BUFFERED_EVENTS]

@@ -19,33 +19,24 @@ JAX_ONLY = {
     "map_orswot_specs", "nested_map_specs", "shard_map3", "shard_map_orswot",
     "shard_nested_map", "shard_map_state", "shard_orswot",
     ("crdt_tpu.telemetry", "specs"), "counters_specs",
+    # Prints a jaxpr: the port's findings carry no program slice.
+    ("crdt_tpu.analysis.report", "slice_jaxpr"),
 }
 
 # Names and modules of open ROADMAP items: name (or (module, name), or a
 # module path) -> the item that ports it.
 OPEN_ITEMS = {
-    "crdt_tpu.exporter": "15.6", "exporter": "15.6",
-    "crdt_tpu.obs.recorder": "15.6", "crdt_tpu.obs.trace": "15.6",
-    "crdt_tpu.analysis.slo": "15.6",
-    "crdt_tpu.scaleout.mesh_scale": "15.5", "crdt_tpu.scaleout.autoscaler": "15.5",
     "crdt_tpu.geo": "15.7",
     "crdt_tpu.analysis.concur": "16", "crdt_tpu.analysis.interleave": "16",
     "crdt_tpu.parallel.wire_checks": "16",
     "static_checks": "16", "checksum_detects": "16",
-    # The fault plane's static checks walk the analysis registry and its
-    # broken fixtures: they come with the analysis engine.
+    # The static checks walk the analysis registry and its broken
+    # fixtures: they come with the analysis engine.
     ("crdt_tpu.faults", "static_checks"): "16",
+    ("crdt_tpu.obs", "static_checks"): "16",
+    ("crdt_tpu.scaleout", "static_checks"): "16",
     "multihost": "5",
 }
-for _name in ("FlightRecorder", "Tracer", "advance_round", "auto_dump", "configure_auto_dump",
-              "current_key", "dump_dir", "emit", "get_recorder", "get_tracer",
-              "histogram_conformant", "install", "install_tracer", "recorder_conformant",
-              "skew_report", "trace", "tracer_conformant"):
-    OPEN_ITEMS[("crdt_tpu.obs", _name)] = "15.6"
-for _name in ("AdmitReport", "AutoscaleDecision", "Autoscaler", "DrainCertificate",
-              "DrainRefused", "RingGeneration", "ScaleoutMesh", "certify_drain",
-              "drain_refuses_unflushed", "park_row"):
-    OPEN_ITEMS[("crdt_tpu.scaleout", _name)] = "15.5"
 # Open names the port already defines as a stub that raises naming its item.
 STUBS = {("crdt_tpu.serve", "static_checks")}
 

@@ -145,9 +145,9 @@ def test_fault_plan_validates_sorts_and_hashes_like_jax():
         with pytest.raises(ValueError) as w:
             ref.FaultPlan(**bad)
         assert str(g.value) == str(w.value)
-    mask = inject.evicted_mask(got, 8)
+    mask = inject.evicted_mask(got, 8, device="cpu")
     assert mask.tolist() == [i in (2, 5) for i in range(8)]
-    assert not inject.evicted_mask(None, 4).any()
+    assert not inject.evicted_mask(None, 4, device="cpu").any()
 
 
 # ---- corruption, checksums, the block wire ----------------------------------

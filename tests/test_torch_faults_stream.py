@@ -244,11 +244,11 @@ def test_bootstrap_rejects_corruption_passes_the_honest_receiver_only():
 
     from crdt_tpu_torch.scaleout.bootstrap import parked_orswot
 
-    assert_tree(parked_orswot(), get_merge_kind("orswot").states()[-1])
-    assert bootstrap_rejects_corruption(bootstrap) is ref_rejects(ref_bootstrap) is True
+    assert_tree(parked_orswot(device="cpu"), get_merge_kind("orswot").states()[-1])
+    assert bootstrap_rejects_corruption(bootstrap, device="cpu") is ref_rejects(ref_bootstrap) is True
     blind = functools.partial(bootstrap, verify_checksums=False)
     ref_blind = functools.partial(ref_bootstrap, verify_checksums=False)
-    assert bootstrap_rejects_corruption(blind) is ref_rejects(ref_blind) is False
+    assert bootstrap_rejects_corruption(blind, device="cpu") is ref_rejects(ref_blind) is False
 
 
 def test_a_bootstrap_out_of_attempts_fails_like_jax():
