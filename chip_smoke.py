@@ -421,6 +421,19 @@ at first use), then runs, printing one JSON line per phase:
                         at each width, the admit's wall by part, bootstrap
                         bytes, ``certify_drain``'s ms, the ring with and
                         without the recorder; the trajectory's dump audited.
+39. ``full_width_geo`` — the geo-federation plane (ROADMAP 15.7):
+                        ``BENCH_CONFIGS.json`` "geo" uncut (3 regions ×
+                        1,024 tenants, E = 256, A = 8, a region killed
+                        mid-traffic at cycle 5) run as ``bench.py``'s geo leg,
+                        with its four gates (acked-op oracle, interest
+                        mirrors, δ ≤ 25% of full mirroring, partial
+                        residency); acked ops/s, the failover, δ bytes, stale
+                        reads, the watermark lag; the same run on the CPU,
+                        card == CPU; ``geo.static_checks`` clean. No kernel.
+40. ``laws_scenarios`` — the lattice-law engine and the SEC schedule
+                        checker (ROADMAP 16) over the twelve merge kinds on
+                        the card, clean; every broken twin card == CPU; every
+                        domain and pair table card == CPU. No kernel.
 
 Then the ``nvidia-smi`` name/power-limit line, a ``kernels`` JSON line, and
 as the last line ``{"ok": true, "device": {...}}``. Any failed check raises
@@ -482,6 +495,12 @@ SOURCES = ("fold.cu", "wire.cu")
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def note(what: str) -> None:
+    """A progress line on standard error (the phases' JSON lines and the
+    last line stay on standard output)."""
+    print(f"chip_smoke: {what}", file=sys.stderr, flush=True)
 
 
 def check(cond: bool, what: str) -> None:
@@ -9905,6 +9924,405 @@ def phase_full_width_scaleout(device, seed: int, e: int = 102400, a: int = 8, d:
     return out
 
 
+# ---- the geo-federation plane and the law engine (ROADMAP 15.7, 16) --------
+
+def geo_config() -> dict:
+    """``BENCH_CONFIGS.json`` "geo", as committed (this checkout's copy)."""
+    with open(os.path.join(HERE, "BENCH_CONFIGS.json")) as f:
+        return json.load(f)["geo"]
+
+
+# ``bench.py``'s geo leg draws from this fixed seed, not from ``--seed``.
+GEO_SEED = 211
+
+
+def geo_run(cfg: dict, device, root: str) -> dict:
+    """One run of ``bench.py``'s geo leg (``bench_geo``) on ``device``,
+    draws from ``default_rng(GEO_SEED)`` in bench's order: ``regions`` serving
+    stacks (superblock of ``lanes`` lanes, evictor, WAL-attached ingest
+    queue, fan-out interest) federated by rendezvous homing; a 64-op warm
+    cycle, then ``cycles`` cycles of ``ops_per_cycle`` adds from
+    round-robin origins (60% on a hot set shifting each cycle), a labeled
+    pre-sweep mirror read, the drains (the WAL group commits: the acks),
+    one full anti-entropy sweep; a cohort of the doomed region's tenants
+    spilled the cycle before ``kill_cycle``, the region killed at it with
+    the cycle's ops pending (unacked, lost) and re-homed from its durable
+    tier; two quiesce sweeps. Asserts bench's four gates and returns its
+    numbers, the ``FailoverReport``, the δ byte totals and every live
+    region's resident rows (host)."""
+    import numpy as np
+    import torch
+
+    from crdt_tpu_torch import obs
+    from crdt_tpu_torch import telemetry as tele
+    from crdt_tpu_torch.fanout import FanoutPlane
+    from crdt_tpu_torch.geo import (
+        Federation, RegionPlane, exchange_all, fail_over_region, read_local,
+    )
+    from crdt_tpu_torch.obs import hist as obs_hist
+    from crdt_tpu_torch.ops import superblock as sb_ops
+    from crdt_tpu_torch.parallel import VirtualMesh
+    from crdt_tpu_torch.serve import Evictor, IngestQueue, Superblock
+    from crdt_tpu_torch.serve.wal import ServeWal
+
+    on_card = device.type == "cuda"
+    sync = (lambda: torch.cuda.synchronize(device)) if on_card else (lambda: None)
+    regions, tenants, lanes = cfg["regions"], cfg["tenants"], cfg["lanes"]
+    cycles, ops_per_cycle, hot_set = cfg["cycles"], cfg["ops_per_cycle"], cfg["hot_set"]
+    subscribers, kill_cycle = cfg["subscribers"], cfg["kill_cycle"]
+    hot_shift, evict_cohort, oracle_sample = (cfg["hot_shift"], cfg["evict_cohort"],
+                                              cfg["oracle_sample"])
+    check(regions >= 2 and 2 <= kill_cycle <= cycles, f"bad geo config {cfg}")
+    mesh = VirtualMesh(cfg["mesh"][0], device)
+    caps = dict(n_elems=cfg["elems"], n_actors=cfg["actors"], deferred_cap=cfg["deferred_cap"])
+    e, a = caps["n_elems"], caps["n_actors"]
+
+    rng = np.random.default_rng(GEO_SEED)
+    planes = {}
+    for r in range(regions):
+        sb = Superblock(tenants, mesh, kind="orswot", caps=caps, n_lanes=lanes)
+        rroot = os.path.join(root, f"region-{r}")
+        os.makedirs(rroot)
+        ev = Evictor(sb, rroot, pressure_batch=64)
+        wal = ServeWal(os.path.join(rroot, "serve.wal"))
+        q = IngestQueue(sb, lanes=cfg["slab_lanes"], depth=cfg["slab_depth"],
+                        max_pending=1 << 18, evictor=ev, wal=wal)
+        fan = FanoutPlane(sb, evictor=ev, capacity=max(subscribers, 64))
+        planes[r] = RegionPlane(r, sb, q, evictor=ev, wal=wal, fanout=fan)
+    fed = Federation(planes)
+    for r in range(regions):
+        planes[r].fanout.subscribe(rng.integers(0, tenants, max(subscribers // regions, 1)))
+
+    dead = regions - 1
+    pre_home = np.asarray([fed.rmap.home(t) for t in range(tenants)])
+    next_ctr = np.zeros(tenants, np.uint32)
+    history = {}  # tenant -> ACKED ops only (the sequential oracle's form)
+
+    def submit_cycle(cycle, n_ops, live):
+        off = (cycle * hot_shift) % max(tenants - hot_set, 1)
+        hot = rng.integers(off, off + hot_set, n_ops)
+        uni = rng.integers(0, tenants, n_ops)
+        ts = np.where(rng.random(n_ops) < 0.6, hot, uni)
+        masks = rng.random((n_ops, e)) < (4.0 / e)
+        tent = []
+        for i in range(n_ops):
+            t = int(ts[i])
+            act = t % a
+            c = int(next_ctr[t]) + 1
+            next_ctr[t] = c
+            home = fed.add(int(live[i % len(live)]), t, actor=act, counter=c, member=masks[i])
+            tent.append((home, t, (sb_ops.ADD, act, c, None, masks[i])))
+        return tent
+
+    def drain_live(tel):
+        for p_ in fed.planes.values():
+            if p_.alive:
+                _rep, t_ = p_.queue.drain(telemetry=True)
+                if t_ is not None:
+                    tel = t_ if tel is None else tele.combine(tel, t_)
+        return tel
+
+    def ack(tent):
+        for _home, t, op in tent:
+            history.setdefault(t, []).append(op)
+
+    parts = dict.fromkeys(("submit", "read", "drain", "exchange"), 0.0)
+
+    def timed(part, fn, *args):
+        """``fn(*args)``, its wall (the device drained) added to ``parts``."""
+        t0 = time.perf_counter()
+        res = fn(*args)
+        sync()
+        parts[part] += time.perf_counter() - t0
+        return res
+
+    rec = obs.FlightRecorder(capacity=16384)
+    prev_rec = obs.install(rec)
+    failover_rep, kill_s, ops_lost_unacked, n_spilled = None, 0.0, 0, 0
+    reads = stale_reads = exchanged_tenants = 0
+    try:
+        # Warm cycle: its ops are real and stay in the oracle histories;
+        # only the timing leaves it out.
+        tent = submit_cycle(0, 64, list(range(regions)))
+        tel = drain_live(None)
+        ack(tent)
+        exchange_all(fed)
+        sync()
+        note(f"geo on {device}: warm cycle done")
+        t_start = time.perf_counter()
+        for cycle in range(1, cycles + 1):
+            live = sorted(r for r, p_ in fed.planes.items() if p_.alive)
+            tent = timed("submit", submit_cycle, cycle, ops_per_cycle, live)
+            if cycle == kill_cycle:
+                lost = [x for x in tent if x[0] == dead]
+                tent = [x for x in tent if x[0] != dead]
+                ops_lost_unacked = len(lost)
+                sync()
+                t0 = time.perf_counter()
+                failover_rep = fail_over_region(fed, dead)
+                sync()
+                kill_s = time.perf_counter() - t0
+            if history:
+                t_r = int(rng.choice(np.asarray(sorted(history))))
+                home = fed.rmap.home(t_r)
+                others = [r for r, p_ in fed.planes.items() if p_.alive and r != home]
+                if others:
+                    _, cert = timed("read", read_local, fed, int(rng.choice(others)), t_r)
+                    reads += 1
+                    stale_reads += 0 if cert.fresh else 1
+            tel = timed("drain", drain_live, tel)
+            ack(tent)
+            if cycle == kill_cycle - 1:
+                cohort = [t for t in sorted(history) if int(pre_home[t]) == dead][:evict_cohort]
+                n_spilled = fed.planes[dead].evictor.evict(cohort)
+            for xr in timed("exchange", exchange_all, fed):
+                exchanged_tenants += xr.tenants_shipped
+            note(f"geo on {device}: cycle {cycle} at {time.perf_counter() - t_start:.1f} s")
+        sync()
+        window_s = time.perf_counter() - t_start
+
+        tel = drain_live(tel)
+        for _ in range(2):
+            for xr in exchange_all(fed):
+                exchanged_tenants += xr.tenants_shipped
+        total_ops = sum(len(v) for v in history.values())
+        check(tel is not None, "the geo window drained no telemetry")
+        d = tele.to_dict(fed.annotate(tel))
+        wm = obs_hist.summary(d["hist_geo_watermark_lag"])
+
+        # ---- bench's gates --------------------------------------------------
+        live = sorted(r for r, p_ in fed.planes.items() if p_.alive)
+        written = sorted(history)
+        rehomed_written = [t for t in written if int(pre_home[t]) == dead]
+        sample = list(rehomed_written[:oracle_sample])
+        others = [t for t in written if t not in set(sample)]
+        if others:
+            pick = rng.choice(len(others), min(max(oracle_sample - len(sample), 16),
+                                               len(others)), replace=False)
+            sample += [others[i] for i in pick]
+        tk = fed.plane(live[0]).sb.tk
+        oracle_mm = recovered_mm = acked_ops_lost = 0
+        for t in sample:
+            hp = fed.plane(fed.rmap.home(t))
+            if not hp.sb.is_resident(t) and hp.evictor is not None:
+                hp.evictor.restore(t)
+            want = sb_ops.to_host(sb_ops.sequential_oracle(
+                tk, tk.empty(**hp.sb.caps, device=device), history[t]))
+            if not rows_equal_host(hp.sb.row(t), want):
+                oracle_mm += 1
+                if int(pre_home[t]) == dead:
+                    recovered_mm += 1
+                    acked_ops_lost += len(history[t])
+        mirror_mm = mirrors_checked = 0
+        for r in live:
+            pl = fed.plane(r)
+            interest = pl.interest_tenants()
+            for t in sample:
+                home = fed.rmap.home(t)
+                if r == home or t not in interest:
+                    continue
+                mirrors_checked += 1
+                if not pl.sb.is_resident(t) or not rows_equal_host(
+                        pl.sb.row(t), fed.plane(home).sb.row(t)):
+                    mirror_mm += 1
+        check(recovered_mm == 0 and acked_ops_lost == 0,
+              f"region-kill failover lost acked ops: {recovered_mm} re-homed tenants diverged "
+              "from their acked-op oracle")
+        check(oracle_mm == 0 and mirror_mm == 0 and mirrors_checked >= 1,
+              f"{oracle_mm} home rows diverged from the sequential oracle, "
+              f"{mirror_mm}/{mirrors_checked} interest mirrors diverged from their home rows")
+        check(failover_rep is not None and fed.failovers >= 1, "no failover ran")
+        check(n_spilled >= 1 and failover_rep.rows_recovered >= 1,
+              f"the failover never touched the durable snapshot tier: {n_spilled} rows spilled, "
+              f"{failover_rep.rows_recovered} recovered")
+        wire_pct = 100.0 * fed.exchange_bytes / max(fed.full_mirror_bytes, 1.0)
+        check(fed.full_mirror_bytes > 0 and wire_pct <= 25.0,
+              f"cross-region δ lanes moved {wire_pct:.1f}% of full-state mirroring (gate ≤ 25%)")
+        rehomed_all = {t for t in range(tenants) if int(pre_home[t]) == dead}
+        resident, resident_bound_ok = {}, True
+        for r in live:
+            pl = fed.plane(r)
+            allowed = set(pl.interest_tenants()) | {t for t in written
+                                                    if fed.rmap.home(t) == r}
+            allowed |= rehomed_all
+            resident[r] = pl.resident_lanes()
+            resident_bound_ok &= resident[r] <= len(allowed)
+        total_resident = sum(resident.values())
+        naive_resident = len(written) * len(live)
+        check(resident_bound_ok and total_resident < naive_resident,
+              f"partial replication violated: resident={resident}, {total_resident} total vs "
+              f"{naive_resident} for full mirroring of {len(written)} written tenants")
+        events = [ev["type"] for ev in rec.events()]
+        rows = {}
+        for r in live:
+            sb = fed.plane(r).sb
+            for t in sorted(int(x) for x in sb.resident_tenants()):
+                rows[(r, t)] = list(sb.row(t))
+    finally:
+        obs.install(prev_rec)
+        for p_ in planes.values():
+            p_.wal.close()
+    return {
+        "acked_ops": total_ops, "window_s": window_s,
+        "acked_ops_per_s": total_ops / window_s,
+        "window_s_by_part": dict(parts, failover=kill_s, rest=window_s - kill_s - sum(
+            parts.values())),
+        "failover_ms": kill_s * 1e3, "failover": failover_rep,
+        "rows_spilled": n_spilled, "unacked_ops_dropped": ops_lost_unacked,
+        "exchanges": fed.exchanges, "exchanged_tenants": exchanged_tenants,
+        "exchange_bytes": fed.exchange_bytes, "full_mirror_bytes": fed.full_mirror_bytes,
+        "wire_vs_mirror_pct": wire_pct, "reads": reads, "stale_reads": stale_reads,
+        "watermark_lag_p99": wm["p99"], "resident": resident,
+        "total_resident": total_resident, "naive_resident": naive_resident,
+        "oracle_checked": len(sample), "mirrors_checked": mirrors_checked,
+        "geo_exchange_events": events.count("geo_exchange"),
+        "region_failover_events": events.count("region_failover"),
+        "rows": rows,
+    }
+
+
+def rows_equal_host(x, y) -> bool:
+    """Two host rows (numpy leaves) equal leaf for leaf, dtype included."""
+    import numpy as np
+
+    return all(u.dtype == v.dtype and np.array_equal(u, v) for u, v in zip(x, y))
+
+
+def phase_full_width_geo(device, **over) -> dict:
+    """``BENCH_CONFIGS.json`` "geo" uncut (3 regions × 1,024 tenants on
+    768 lanes, E = 256, A = 8, D = 2, 10 cycles of 256 ops, the kill at
+    cycle 5), run as ``bench.py``'s geo leg runs it (:func:`geo_run`), with
+    bench's four gates. Reports acked ops/s, the failover's ms, rows
+    recovered and ops replayed, δ bytes against full-mirror bytes, stale
+    reads, the watermark lag p99 from ``hist_geo_watermark_lag``. Then the
+    same seeded run on the CPU: every live region's rows,
+    ``exchange_bytes`` and the ``FailoverReport`` card == CPU. Then
+    ``geo.static_checks(device) == []``. K1-K3 launch 0 times. The draws
+    are bench's (``GEO_SEED``); ``--seed`` does not apply. ``over`` shrinks
+    the config for a CPU rehearsal."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from crdt_tpu_torch import geo
+
+    t_phase = time.perf_counter()
+    cfg = dict(geo_config(), **over)
+    before = kernel_launches()
+    out = {"phase": "full_width_geo", "card": card_label(device),
+           **{k: cfg[k] for k in ("regions", "tenants", "lanes", "elems", "actors",
+                                  "deferred_cap", "cycles", "ops_per_cycle", "kill_cycle")},
+           "reduced": {k: v for k, v in over.items()}}
+    root = tempfile.mkdtemp(prefix="chip_smoke_geo_")
+    try:
+        got = geo_run(cfg, device, os.path.join(root, "card"))
+        out.update({k: v for k, v in got.items() if k not in ("rows", "failover")})
+        note(f"full_width_geo: the card run took {time.perf_counter() - t_phase:.1f} s")
+        rep = got["failover"]
+        out["failover"] = rep._asdict()
+        t0 = time.perf_counter()
+        want = geo_run(cfg, torch.device("cpu"), os.path.join(root, "cpu"))
+        out["cpu_twin_s"] = time.perf_counter() - t0
+        check(want["failover"] == rep, f"failover card {rep} != CPU {want['failover']}")
+        check((got["exchange_bytes"], got["full_mirror_bytes"])
+              == (want["exchange_bytes"], want["full_mirror_bytes"]),
+              "the card's δ byte totals differ from the CPU run's")
+        check(sorted(got["rows"]) == sorted(want["rows"]),
+              "the card's resident tenants differ from the CPU run's")
+        bad = [k for k, v in want["rows"].items() if not rows_equal_host(got["rows"][k], v)]
+        check(not bad, f"{len(bad)} rows differ card vs CPU, e.g. {bad[:3]}")
+        out["rows_card_eq_cpu"] = len(want["rows"])
+        t0 = time.perf_counter()
+        findings = geo.static_checks(device=device)
+        check(findings == [], f"geo.static_checks: {[str(f) for f in findings]}")
+        out["static_checks_s"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["kernel_launches"] = check_no_kernel(before, "full_width_geo")
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return out
+
+
+def _finding_rows(findings) -> list:
+    return [(f.check, f.subject, f.detail, f.severity) for f in findings]
+
+
+def phase_laws_scenarios(device) -> dict:
+    """The lattice-law engine and the SEC schedule checker (ROADMAP 16) on
+    the card: ``laws.check_all``, ``check_decomposition_all`` and
+    ``schedules.check_all_schedules`` each return ``[]``; every broken twin
+    (the law, compaction, decomposition, schedule and degeneracy twins, and
+    the always-fresh geo read) fires with the same findings on the card as
+    on the CPU; every kind's small domain and canonicalised pair table are
+    card == CPU leaf for leaf. K1-K3 launch 0 times.
+    The domains draw from their own fixed seeds; ``--seed`` does not apply."""
+    import torch
+
+    from crdt_tpu_torch.analysis import fixtures as fx
+    from crdt_tpu_torch.analysis import laws, schedules
+    from crdt_tpu_torch.analysis.registry import get_merge_kind, merge_kinds
+    from crdt_tpu_torch.geo import read_local, watermark_reads_sound
+    from crdt_tpu_torch.ops.lattice import tree_leaves
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    before = kernel_launches()
+    out = {"phase": "laws_scenarios", "card": card_label(device)}
+    for name, fn in (("check_all", laws.check_all),
+                     ("check_decomposition_all", laws.check_decomposition_all),
+                     ("check_all_schedules", schedules.check_all_schedules)):
+        t0 = time.perf_counter()
+        found = fn(device=device)
+        check(found == [], f"{name} on {device}: {[str(f) for f in found]}")
+        out[f"{name}_s"] = time.perf_counter() - t0
+        note(f"laws_scenarios: {name} {out[f'{name}_s']:.1f} s")
+
+    cells = 0
+    for kind in merge_kinds():
+        card, host = kind.states(device=device), kind.states(device=cpu)
+        tables = [laws.pair_table(kind, card)[0], laws.pair_table(kind, host)[0]]
+        for x, y in zip(tree_leaves(card) + tree_leaves(tables[0]),
+                        tree_leaves(host) + tree_leaves(tables[1])):
+            check(x.dtype == y.dtype and x.shape == y.shape and np_of(x).tobytes()
+                  == np_of(y).tobytes(), f"{kind.name}: a domain or pair-table leaf differs")
+            cells += x.numel()
+    out["kinds"] = len(merge_kinds())
+    out["domain_and_table_cells_card_eq_cpu"] = cells
+
+    orswot = get_merge_kind("orswot")
+    twins = {
+        **{f"laws:{n}": (lambda k: lambda dev: laws._check_domain(
+            k, k.states(device=dev), "small"))(getattr(fx, n))
+           for n in ("NOT_COMMUTATIVE", "NOT_IDEMPOTENT", "NOT_ASSOCIATIVE")},
+        "LOSSY_COMPACTOR": lambda dev: laws.check_compaction_kind(
+            fx.GOOD_MAX, comp=fx.LOSSY_COMPACTOR, device=dev),
+        **{n: (lambda dec: lambda dev: laws.check_decomposition_kind(
+            orswot, dec=dec, device=dev))(getattr(fx, n))
+           for n in ("LOSSY_DECOMPOSER", "REDUNDANT_DECOMPOSER")},
+        **{f"schedules:{n}": (lambda k: lambda dev: schedules.check_kind_schedules(
+            k, device=dev))(getattr(fx, n))
+           for n in ("NOT_IDEMPOTENT", "DELTA_NOT_INFLATION", "NON_COMMUTING_APPLY")},
+        "DEGENERATE_GENERATOR": lambda dev: schedules.generator_degeneracy(
+            fx.DEGENERATE_GENERATOR, device=dev),
+    }
+    fired = {}
+    for name, run in twins.items():
+        got, want = _finding_rows(run(device)), _finding_rows(run(cpu))
+        check(got == want and got, f"twin {name}: card {got} != CPU {want}")
+        fired[name] = sorted({f[0] for f in got})
+    for dev in (device, cpu):
+        check(watermark_reads_sound(read_local, device=dev)
+              and not watermark_reads_sound(fx.region_serves_unwatermarked_read, device=dev),
+              f"the watermark detector or its broken twin misbehaves on {dev}")
+    out["twins_fired"] = fired
+    out["kernel_launches"] = check_no_kernel(before, "laws_scenarios")
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return out
+
+
 PHASES = ("k1", "scenarios", "full_width", "k2", "map_scenarios", "full_width_map", "k3",
           "delta_scenarios", "full_width_delta", "map_delta_scenarios", "full_width_delta_map",
           "sparse_scenarios", "flagship", "elastic", "resync", "donate", "durability",
@@ -9913,7 +10331,7 @@ PHASES = ("k1", "scenarios", "full_width", "k2", "map_scenarios", "full_width_ma
           "nested_scenarios", "full_width_nested", "full_width_delta_nested",
           "kinds_scenarios", "full_width_clocks", "full_width_list", "reclaim_scenarios",
           "full_width_reclaim", "faults_scenarios", "full_width_chaos", "obs_scenarios",
-          "full_width_scaleout")
+          "full_width_scaleout", "full_width_geo", "laws_scenarios")
 
 
 def main(argv=None) -> int:
@@ -10019,6 +10437,10 @@ def main(argv=None) -> int:
         res["obs_scenarios"] = phase_obs_scenarios(device, args.seed)
     if run("full_width_scaleout"):
         res["scaleout"] = phase_full_width_scaleout(device, args.seed)
+    if run("full_width_geo"):
+        res["geo"] = phase_full_width_geo(device)
+    if run("laws_scenarios"):
+        res["laws"] = phase_laws_scenarios(device)
     if only:
         print(f"chip_smoke: partial run of {only}; no kernels line", flush=True)
         return 0

@@ -96,7 +96,7 @@ def measure_slo(device="cuda") -> Dict[str, Dict[str, float]]:
         fs = obs_hist.summary(tr.freshness_dict())
         for qn in ("p50", "p95", "p99"):
             met[f"freshness_{qn}_us"] = round(float(fs[qn]), 3)
-        hists = tr.drain_hists()
+        hists = tr.drain_hists(device)
         for lname, _a, _b in obs_trace.LATENCIES:
             if lname == "freshness_us":
                 continue  # covered by the headline quantiles above

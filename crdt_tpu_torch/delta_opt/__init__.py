@@ -12,8 +12,9 @@ State-based CRDTs", arXiv 1803.02750) — the port of the JAX package's
   decomposition instead of full states, bit-identical to full-state
   gossip.
 
-The JAX package's ``static_checks`` (the decomposition coverage and law
-gates) belongs to the law engine, ROADMAP item 16.
+The decomposition laws run in ``analysis.laws.check_decomposition_*``;
+the JAX package's ``static_checks`` section around them is ROADMAP
+item 16's.
 """
 
 from .ackwin import (

@@ -23,9 +23,9 @@ the whole-state top are the finest decomposition a clock-compressed
 context can express soundly (the JAX module docstring gives the argument).
 
 The JAX package finds each kind's split/unsplit pair through its
-registry (``analysis.registry.register_decomposition``); the port has no
-registry yet (ROADMAP item 16), so :data:`KINDS` below is the one table
-mapping each ported kind to its ``(join, split, unsplit)``, the pairs
+registry (``analysis.registry.register_decomposition``); the port keeps
+tables, not import-time registrations: :data:`KINDS` below is the one table
+(``analysis.registry`` reads it) mapping each ported kind to its ``(join, split, unsplit)``, the pairs
 living beside each kind's ops (``ops/<kind>.py`` ``_decomp_split`` /
 ``_decomp_unsplit``). States are unbatched, as the JAX functions take
 them (the JAX resync vmaps them; ``heal.resync`` calls them per rank), or
@@ -101,9 +101,10 @@ def reconstruct_rows(since, d: Decomposition, split, unsplit):
 
 def drop_lane(d: Decomposition, lane: int) -> Decomposition:
     """The decomposition minus one lane (the irredundancy law's probe):
-    invalidate and zero lane ``lane``."""
+    invalidate and zero lane ``lane`` (of every rank, for a ``[P, L]``
+    decomposition)."""
     valid = d.valid.clone()
-    valid[lane] = False
+    valid[..., lane] = False
     return Decomposition(lanes=tree_map(lambda x: mask_slots(valid, x), d.lanes), valid=valid,
                          residual=d.residual)
 

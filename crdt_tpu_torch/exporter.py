@@ -19,8 +19,8 @@ events buffered by ``telemetry.span``. Three sinks:
 - :func:`health` — one at-a-glance JSON snapshot (live ranks, generation,
   frontier lag, residue, the durable WAL watermark, the loud-failure
   counters, the serving vitals, the geo-federation block — all ``-1``
-  until the geo plane, ROADMAP item 15.7, lands its first exchange — and
-  the flight recorder's key).
+  until the geo plane (``geo/``) lands its first cross-region exchange —
+  and the flight recorder's key).
 
 The flight recorder's dump is its own sink (``obs.FlightRecorder.dump``,
 audited by ``obs.report``).
@@ -176,9 +176,10 @@ def _federation_block(counters, gauges, worst) -> Dict[str, Any]:
     """The geo-federation vitals: every field is the ``-1`` sentinel
     until the FIRST cross-region exchange lands — a dashboard can tell
     "single-mesh deployment" apart from "federated but silent" at a
-    glance. The registry's ``geo.*`` names stay empty until the geo
-    plane (ROADMAP item 15.7) is ported, as in a JAX deployment without
-    a federation."""
+    glance. ``geo.exchanges``, ``geo.exchange_bytes`` and
+    ``geo.failovers`` are counted by ``geo/antientropy.py`` and
+    ``geo/failover.py``; the gauges come from a record annotated by
+    ``geo.Federation.annotate``."""
     exchanges = int(counters.get("geo.exchanges", 0)) or int(sum(
         v for name, v in counters.items()
         if name.endswith(".geo.exchanges")

@@ -2,15 +2,15 @@
 with its subsystem, its fields and the module that emits it.
 
 The JAX package registers each event schema next to its emit site
-(``analysis.registry.register_obs_event``); the port has no analysis
-registry yet (ROADMAP item 16), so it keeps the schemas in this one
-table, as ``delta_opt.decompose.KINDS`` keeps the decomposers. A dump's
+(``analysis.registry.register_obs_event``); the port keeps the schemas in
+this one table, as ``delta_opt.decompose.KINDS`` keeps the decomposers,
+and its ``analysis.registry`` reads it. A dump's
 header carries it (``FlightRecorder.dump``'s ``event_types``), so a
 reader of the dump knows every event type, also those of subsystems the
 run never touched. The names, subsystems and fields are the JAX
 package's, event for event; ``module`` names the port module that
-emits it, or the ROADMAP item that will (``geo`` is item 15.7, the
-concurrency explorer item 16).
+emits it, or the ROADMAP item that will (the concurrency explorer, item
+16).
 """
 
 from __future__ import annotations
@@ -45,7 +45,7 @@ EVENTS: Dict[str, ObsEvent] = {e.name: e for e in (
              _P + "faults.inject"),
     ObsEvent("generation", "scaleout", ("generation", "live"), _P + "scaleout.mesh_scale"),
     ObsEvent("geo_exchange", "geo", ("src", "dst", "tenants", "bytes", "rejected", "round"),
-             "ROADMAP item 15.7"),
+             _P + "geo.antientropy"),
     ObsEvent("ingest_flush", "serve.ingest",
              ("lanes", "ops", "coalesced", "restored", "pending_after"), _P + "serve.ingest"),
     ObsEvent("probe", "obs", ("seq",), _P + "obs.recorder"),
@@ -59,7 +59,7 @@ EVENTS: Dict[str, ObsEvent] = {e.name: e for e in (
              ("generation", "wal_seq_start", "replayed", "fallbacks"),
              _P + "durability.recover"),
     ObsEvent("region_failover", "geo",
-             ("region", "generation", "tenants", "recovered", "replayed"), "ROADMAP item 15.7"),
+             ("region", "generation", "tenants", "recovered", "replayed"), _P + "geo.failover"),
     ObsEvent("scaleout_admit", "scaleout", ("ranks", "generation", "bootstrap_bytes"),
              _P + "scaleout.mesh_scale"),
     ObsEvent("scaleout_drain", "scaleout", ("rank", "generation", "residue"),

@@ -377,7 +377,7 @@ class Tracer:
         return obs_hist.summary(d)
 
     # ---- the Telemetry fill (per-record increments) ----------------------
-    def drain_hists(self, device="cpu") -> Dict[str, obs_hist.Hist]:
+    def drain_hists(self, device="cuda") -> Dict[str, obs_hist.Hist]:
         """The per-stage latency Hist INCREMENTS since the last drain,
         as Telemetry subtrees on ``device`` — and reset, so every drained
         record carries exactly its own completions and

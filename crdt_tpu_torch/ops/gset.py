@@ -47,3 +47,13 @@ def _decomp_split(s: torch.Tensor):
 def _decomp_unsplit(rows, res) -> torch.Tensor:
     (present,) = rows
     return present
+
+
+# ---- the law engine's domains (``analysis/``) ------------------------------
+
+def _law_states(device="cuda"):
+    """Exhaustive: every subset of a 3-member universe (identity first)."""
+    return [
+        torch.tensor([bool(bits >> i & 1) for i in range(3)], device=device)
+        for bits in range(8)
+    ]

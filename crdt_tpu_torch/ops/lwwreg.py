@@ -97,9 +97,24 @@ def apply_update(state: LWWState, hi, lo, val):
 
 def _decomp_split(s: LWWState):
     """Decomposition granularity (``delta_opt/``): ONE lane — a register's
-    single surviving write is itself join-irreducible; no residual."""
-    return LWWState(*(x[None] for x in s)), ()
+    single surviving write is itself join-irreducible; no residual. The
+    lane axis comes after any batch axes (``[..., 1]``)."""
+    return LWWState(*(x[..., None] for x in s)), ()
 
 
 def _decomp_unsplit(rows, res) -> LWWState:
-    return LWWState(*(x[0] for x in rows))
+    return LWWState(*(x[..., 0] for x in rows))
+
+
+# ---- the law engine's domains (``analysis/``) ------------------------------
+
+def _law_states(device="cuda"):
+    """Exhaustive over 2-bit markers, conflict-free by construction: the
+    value is a function of the marker (equal markers guarding different
+    values are the documented validation error)."""
+    states = [empty(device=device)]
+    for hi in range(2):
+        for lo in range(2):
+            s, _ = apply_update(empty(device=device), hi, lo, hi * 2 + lo + 1)
+            states.append(s)
+    return states

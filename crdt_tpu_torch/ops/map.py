@@ -462,3 +462,32 @@ def _decomp_split(s: MapState):
 def _decomp_unsplit(rows, res) -> MapState:
     top, dcl, dkeys, dvalid = res
     return MapState(top=top, child=rows, dcl=dcl, dkeys=dkeys, dvalid=dvalid)
+
+
+# ---- the law engine's domains (``analysis/``) ------------------------------
+
+def _law_states(device="cuda"):
+    """Concurrent puts, a covered key-remove, and parked (ahead) removes
+    over 2 keys × 2 actors with sibling/deferred headroom."""
+    import numpy as np
+
+    cl = lambda x, y: np.array([x, y], np.uint32)  # noqa: E731
+    k0 = np.array([True, False])
+    k1 = np.array([False, True])
+    kb = np.array([True, True])
+    e = empty(2, 2, sibling_cap=4, deferred_cap=4, device=device)
+    u1, _ = apply_up(e, 0, 1, 0, cl(1, 0), 5)
+    u2, _ = apply_up(u1, 0, 2, 1, cl(2, 0), 6)
+    v1, _ = apply_up(e, 1, 1, 0, cl(0, 1), 7)
+    uv, _ = join(u2, v1)
+    r1, _ = apply_rm(uv, cl(2, 1), k0)   # covered: kills key 0 now
+    r2, _ = apply_rm(u1, cl(0, 2), k1)   # ahead: parks
+    r3, _ = apply_rm(e, cl(1, 1), kb)    # ahead on empty: parks
+    return [e, u1, u2, v1, r1, r2, r3]
+
+
+def _law_canon(s: MapState) -> MapState:
+    from ..analysis.canon import canon_epochs, canon_mvreg
+
+    dcl, dkeys, dvalid = canon_epochs(s.dcl, s.dkeys, s.dvalid)
+    return MapState(top=s.top, child=canon_mvreg(s.child), dcl=dcl, dkeys=dkeys, dvalid=dvalid)

@@ -151,3 +151,31 @@ __all__ = [
     "LEVEL", "Map3State", "apply_key1_rm", "apply_key2_rm", "apply_member_add",
     "apply_member_rm", "empty", "fold", "join",
 ]
+
+
+# ---- the law engine's domains (``analysis/``) ------------------------------
+
+def _law_states(device="cuda"):
+    """Depth-3 adds, routed K2 keyset-removes, and covered/ahead K1
+    removes over a 2×2×2 universe with headroom."""
+    import numpy as np
+
+    cl = lambda x, y: np.array([x, y], np.uint32)  # noqa: E731
+    mask = lambda *xs: torch.tensor(xs, dtype=torch.bool, device=device)  # noqa: E731
+    m0, mb = mask(True, False), mask(True, True)
+    k0, kb = mask(True, False), mask(True, True)
+    e = empty(2, 2, 2, 2, deferred_cap=4, device=device)
+    a1 = apply_member_add(e, 0, 1, 0, 0, m0)
+    a2 = apply_member_add(a1, 0, 2, 1, 1, mb)
+    b1 = apply_member_add(e, 1, 1, 0, 1, mb)
+    k2r, _ = apply_key2_rm(a2, 0, 3, 0, cl(1, 0), kb)
+    k1r1, _ = apply_key1_rm(b1, cl(0, 1), k0)  # covered K1 rm
+    k1r2, _ = apply_key1_rm(a1, cl(0, 2), kb)  # ahead: parks in the K1 buffer
+    return [e, a1, a2, b1, k2r, k1r1, k1r2]
+
+
+def _law_canon(s: Map3State) -> Map3State:
+    from ..analysis.canon import canon_epochs
+
+    odcl, odkeys, odvalid = canon_epochs(s.odcl, s.odkeys, s.odvalid)
+    return Map3State(mo=mo_ops._law_canon(s.mo), odcl=odcl, odkeys=odkeys, odvalid=odvalid)

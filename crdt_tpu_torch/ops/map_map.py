@@ -135,3 +135,31 @@ __all__ = [
     "LEVEL", "NestedMapState", "apply_inner_rm", "apply_key1_rm", "apply_put", "empty",
     "fold", "join",
 ]
+
+
+# ---- the law engine's domains (``analysis/``) ------------------------------
+
+def _law_states(device="cuda"):
+    """Nested puts, routed inner keyset-removes, and covered/ahead outer
+    removes over 2×2 keys × 2 actors with headroom."""
+    import numpy as np
+
+    cl = lambda x, y: np.array([x, y], np.uint32)  # noqa: E731
+    k0 = torch.tensor([True, False], device=device)
+    kb = torch.tensor([True, True], device=device)
+    e = empty(2, 2, 2, sibling_cap=3, deferred_cap=4, device=device)
+    u1, _ = apply_put(e, 0, 1, 0, 0, cl(1, 0), 5)
+    u2, _ = apply_put(u1, 0, 2, 1, 1, cl(2, 0), 6)
+    v1, _ = apply_put(e, 1, 1, 0, 1, cl(0, 1), 7)
+    ir, _ = apply_inner_rm(u2, 0, 3, 0, cl(1, 0), kb)
+    or1, _ = apply_key1_rm(v1, cl(0, 1), k0)  # covered outer rm
+    or2, _ = apply_key1_rm(u1, cl(0, 2), kb)  # ahead: parks in the outer buffer
+    return [e, u1, u2, v1, ir, or1, or2]
+
+
+def _law_canon(s: NestedMapState) -> NestedMapState:
+    from ..analysis.canon import canon_epochs
+
+    odcl, odkeys, odvalid = canon_epochs(s.odcl, s.odkeys, s.odvalid)
+    return NestedMapState(m=core_ops._law_canon(s.m), odcl=odcl, odkeys=odkeys,
+                          odvalid=odvalid)

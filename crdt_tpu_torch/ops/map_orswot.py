@@ -146,3 +146,32 @@ __all__ = [
     "LEVEL", "MapOrswotState", "apply_key_rm", "apply_member_add", "apply_member_rm", "empty",
     "flat_mask", "fold", "join",
 ]
+
+
+# ---- the law engine's domains (``analysis/``) ------------------------------
+
+def _law_states(device="cuda"):
+    """Member adds, routed member-removes, and covered/ahead key-removes
+    over 2 keys × 2 members × 2 actors with deferred headroom."""
+    import numpy as np
+
+    cl = lambda x, y: np.array([x, y], np.uint32)  # noqa: E731
+    mask = lambda *xs: torch.tensor(xs, dtype=torch.bool, device=device)  # noqa: E731
+    m0, mb = mask(True, False), mask(True, True)
+    k0, kb = mask(True, False), mask(True, True)
+    e = empty(2, 2, 2, deferred_cap=4, device=device)
+    a1 = apply_member_add(e, 0, 1, 0, m0)
+    a2 = apply_member_add(a1, 0, 2, 1, mb)
+    b1 = apply_member_add(e, 1, 1, 0, mb)
+    mr, _ = apply_member_rm(a2, 0, 3, 0, cl(1, 0), m0)
+    kr1, _ = apply_key_rm(b1, cl(0, 1), k0)   # covered key rm
+    kr2, _ = apply_key_rm(a1, cl(0, 2), kb)   # ahead: parks in the outer buffer
+    return [e, a1, a2, b1, mr, kr1, kr2]
+
+
+def _law_canon(s: MapOrswotState) -> MapOrswotState:
+    from ..analysis.canon import canon_epochs
+
+    kdcl, kdkeys, kdvalid = canon_epochs(s.kdcl, s.kdkeys, s.kdvalid)
+    return MapOrswotState(core=core_ops._law_canon(s.core), kdcl=kdcl, kdkeys=kdkeys,
+                          kdvalid=kdvalid)

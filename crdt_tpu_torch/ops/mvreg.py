@@ -277,3 +277,27 @@ def _decomp_split(s: MVRegState):
 
 def _decomp_unsplit(rows, res) -> MVRegState:
     return rows
+
+
+# ---- the law engine's domains (``analysis/``) ------------------------------
+
+def _law_states(device="cuda"):
+    """Concurrent / dominating / duplicate puts over 2 actors with slot
+    headroom (S = 6, far above the 2-3 live siblings any state holds)."""
+    import numpy as np
+
+    cl = lambda x, y: np.array([x, y], np.uint32)  # noqa: E731
+    e = empty(6, 2, device=device)
+    p0, _ = apply_put(e, 0, 1, cl(1, 0), 5)         # actor-0 write
+    p1, _ = apply_put(e, 1, 1, cl(0, 1), 6)         # concurrent actor-1 write
+    both, _ = apply_put(p0, 1, 1, cl(0, 1), 6)      # two live siblings
+    dom, _ = apply_put(both, 0, 2, cl(2, 1), 7)     # dominates both
+    seen, _ = apply_put(dom, 0, 2, cl(2, 1), 7)     # duplicate dot no-op
+    p2, _ = apply_put(p1, 1, 2, cl(0, 2), 8)        # actor-1 advances alone
+    return [e, p0, p1, both, dom, seen, p2]
+
+
+def _law_canon(s: MVRegState) -> MVRegState:
+    """Sibling slot order depends on join operand order: compare
+    content-ordered."""
+    return canon(s)

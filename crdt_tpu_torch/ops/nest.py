@@ -52,8 +52,9 @@ state's own axes), and the psum is an any-reduction over that axis.
 
 States broadcast over any leading batch axes (the JAX package's
 ``jax.vmap``). The kinds' ``compact`` and ``_observe`` live in
-``map_orswot.py``, ``map_map.py`` and ``map3.py``. Not ported here: the
-static checks' ``_law_*`` (ROADMAP item 16).
+``map_orswot.py``, ``map_map.py`` and ``map3.py``, with the law
+engine's domains (``_law_states``, ``_law_canon``), as in the JAX
+package.
 """
 
 from __future__ import annotations

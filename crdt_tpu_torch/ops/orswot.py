@@ -495,3 +495,83 @@ def _decomp_unsplit(rows, res) -> OrswotState:
     (ctr,) = rows
     top, dcl, dmask, dvalid = res
     return OrswotState(top=top, ctr=ctr, dcl=dcl, dmask=dmask, dvalid=dvalid)
+
+
+# ---- the law engine's domains (``analysis/``) ------------------------------
+
+def _law_apply(s: OrswotState, op):
+    if op[0] == "add":
+        _, actor, ctr, mask = op
+        return apply_add(s, actor, ctr, mask)
+    _, clock, mask = op
+    return apply_rm(s, clock, mask)[0]
+
+
+def _law_states(device="cuda"):
+    """Adds, covered removes, and parked (ahead) removes over a 2×2
+    universe with deferred headroom (D = 4)."""
+    m0 = np.array([True, False])
+    m1 = np.array([False, True])
+    mb = np.array([True, True])
+    cl = lambda x, y: np.array([x, y], np.uint32)  # noqa: E731
+    e = empty(2, 2, 4, device=device)
+    a1 = apply_add(e, 0, 1, m0)
+    a2 = apply_add(a1, 0, 2, m1)
+    b1 = apply_add(e, 1, 1, mb)
+    ab, _ = join(a2, b1)
+    r1, _ = apply_rm(ab, cl(2, 1), m0)   # covered: kills elem 0 now
+    r2, _ = apply_rm(a1, cl(0, 2), m1)   # ahead: parks in the buffer
+    r3, _ = apply_rm(e, cl(1, 1), mb)    # ahead on empty: parks
+    return [e, a1, a2, b1, r1, r2, r3]
+
+
+def _law_states_big(device="cuda"):
+    """Property-sampled larger domain: replicas applying ordered subsets
+    of one shared 10-op history (the JAX package's draws from
+    ``default_rng(20260803)``, in the same order)."""
+    rng = np.random.default_rng(20260803)
+    e_n, a_n, d_n = 4, 3, 6
+    site = empty(e_n, a_n, d_n, device=device)
+    history = []
+    next_ctr = [0] * a_n
+    for _ in range(10):
+        actor = int(rng.integers(a_n))
+        if rng.random() < 0.7 or not history:
+            next_ctr[actor] += 1
+            mask = rng.random(e_n) < 0.5
+            op = ("add", actor, next_ctr[actor], mask)
+        else:
+            top = to_wide(site.top).cpu().numpy().astype(np.uint64)
+            if rng.random() < 0.3:
+                top[actor] += 1  # ahead -> parks
+            mask = rng.random(e_n) < 0.5
+            op = ("rm", top.astype(np.uint32), mask)
+        site = _law_apply(site, op)
+        history.append(op)
+    states = [empty(e_n, a_n, d_n, device=device)]
+    for _ in range(6):
+        take = rng.random(len(history)) < 0.6
+        s = empty(e_n, a_n, d_n, device=device)
+        for keep, op in zip(take, history):
+            if keep:
+                s = _law_apply(s, op)
+        states.append(s)
+    return states
+
+
+def _law_deltas(device="cuda"):
+    """The SEC schedule checker's δ set: four δ-states minted by three
+    origins — an add then a remove observed from it at origin 0, a
+    concurrent both-element add at origin 1, and an ahead remove parked
+    at origin 2."""
+    e, a1, _, b1, _, r2, r3 = _law_states(device)
+    return [(0, a1), (0, r2), (1, b1), (2, r3)]
+
+
+def _law_canon(s: OrswotState) -> OrswotState:
+    """Deferred slot order depends on join operand order: compare
+    content-ordered (clocks are unique among valid slots after dedupe)."""
+    from ..analysis.canon import canon_epochs
+
+    dcl, dmask, dvalid = canon_epochs(s.dcl, s.dmask, s.dvalid)
+    return s._replace(dcl=dcl, dmask=dmask, dvalid=dvalid)

@@ -31,7 +31,8 @@ Sibling capacity is a PER-KEY live-cell bound checked after the replay.
 States broadcast over leading batch axes; a join's flags come per lane,
 ``[..., 3]``: [cell capacity, deferred capacity, sibling capacity]. No
 kernel: sorts, searches, gathers and scatters, as in the JAX package.
-Not ported here: ``_law_*`` (ROADMAP item 16).
+The law engine's domain and canonical form (``_law_states``,
+``_law_canon``) sit at the end of the module.
 """
 
 from __future__ import annotations
@@ -563,3 +564,34 @@ __all__ = [
     "empty_map_mvreg", "fold", "join", "level_map_mvreg", "narrow", "nbytes",
     "nest_apply_up_put", "reset_remove", "widen",
 ]
+
+
+# ---- the law engine's domains (``analysis/``) ------------------------------
+
+def _law_states(device="cuda"):
+    """Cell puts (concurrent / dominating / duplicate) and covered/ahead
+    key-removes over 3 keys × 2 actors with cell headroom."""
+    import numpy as np
+
+    cl = lambda x, y: np.array([x, y], np.uint32)  # noqa: E731
+    ids = lambda *xs: torch.tensor(list(xs) + [-1] * (4 - len(xs)), dtype=torch.int32,  # noqa: E731
+                                   device=device)
+    e = empty(8, 2, deferred_cap=3, rm_width=4, device=device)
+    u1, _ = apply_up(e, 0, 1, 0, cl(1, 0), 5)
+    u2, _ = apply_up(u1, 0, 2, 1, cl(2, 0), 6)
+    v1, _ = apply_up(e, 1, 1, 0, cl(0, 1), 7)
+    # Actor 1's second write after observing both branches: a fresh dot
+    # whose clock dominates u1's and v1's key-0 siblings.
+    uv, _ = join(u2, v1)
+    dom, _ = apply_up(uv, 1, 2, 0, cl(2, 2), 8)
+    r1, _ = apply_rm(dom, cl(2, 1), ids(0))   # covered key rm
+    r2, _ = apply_rm(u1, cl(0, 2), ids(1))    # ahead: parks
+    r3, _ = apply_rm(e, cl(1, 1), ids(0, 2))  # ahead on empty
+    return [e, u1, u2, v1, dom, r1, r2, r3]
+
+
+def _law_canon(s: SparseMVMapState) -> SparseMVMapState:
+    from ..analysis.canon import canon_epochs
+
+    dcl, kidx, dvalid = canon_epochs(s.dcl, s.kidx, s.dvalid, payload_fill=-1)
+    return s._replace(dcl=dcl, kidx=kidx, dvalid=dvalid)

@@ -35,7 +35,9 @@ States broadcast over any leading batch axes (the JAX package's
 ``jax.vmap``); a join's flags come per batch lane, ``[..., L+1]``. The
 ops of this module have no kernel (sorts, binary searches, gathers and
 scatters), as in the JAX package, where no ``pallas_call`` reaches them.
-Not ported here: the static checks' ``_law_*`` (ROADMAP item 16).
+The law engine's domain, canonical form and join (``_law_states``,
+``_law_canon``, ``_law_join``: the span-2 ``Map<K, Orswot>``) sit at the
+end of the module.
 """
 
 from __future__ import annotations
@@ -651,3 +653,38 @@ __all__ = [
     "identity_batch", "level_map_orswot", "narrow_level", "narrow_span", "rekey_flat",
     "widen_level", "widen_span",
 ]
+
+
+# ---- the law engine's domains (``analysis/``) ------------------------------
+
+def _law_states(device="cuda"):
+    """Sparse ``Map<K, Orswot>`` (span 2): member adds, leaf-routed
+    member-removes, and covered/ahead key-removes with headroom."""
+    import numpy as np
+
+    lvl = level_map_orswot(2)
+    cl = lambda x, y: np.array([x, y], np.uint32)  # noqa: E731
+    ids = lambda *xs: torch.tensor(list(xs) + [-1] * (4 - len(xs)), dtype=torch.int32,  # noqa: E731
+                                   device=device)
+    mk = lambda: empty_map_orswot(2, 8, 2, deferred_cap=3, rm_width=4,  # noqa: E731
+                                  key_deferred_cap=3, key_rm_width=4, device=device)
+    e = mk()
+    a1, _ = lvl.apply_up_add(e, 0, 1, ids(0))        # key 0, member 0
+    a2, _ = lvl.apply_up_add(a1, 0, 2, ids(2, 3))    # key 1, both members
+    b1, _ = lvl.apply_up_add(e, 1, 1, ids(1, 2))
+    mr, _ = lvl.apply_up_rm(a2, 0, 3, cl(1, 0), ids(0), levels_down=1)
+    kr1, _ = lvl.rm_parked(b1, cl(0, 1), ids(0))   # covered key rm
+    kr2, _ = lvl.rm_parked(a1, cl(0, 2), ids(1))   # ahead: parks
+    return [e, a1, a2, b1, mr, kr1, kr2]
+
+
+def _law_canon(s: SparseNestState) -> SparseNestState:
+    from ..analysis.canon import canon_epochs
+    from .sparse_orswot import _law_canon as _canon_leaf
+
+    kcl, kidx, kdvalid = canon_epochs(s.kcl, s.kidx, s.kdvalid, payload_fill=-1)
+    return SparseNestState(core=_canon_leaf(s.core), kcl=kcl, kidx=kidx, kdvalid=kdvalid)
+
+
+def _law_join(a, b):
+    return level_map_orswot(2).join(a, b)

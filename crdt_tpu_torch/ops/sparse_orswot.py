@@ -663,3 +663,73 @@ __all__ = [
     "SparseOrswotState", "apply_add", "apply_rm", "changed_dots", "empty", "fold",
     "from_dense", "join", "narrow", "nbytes", "reset_remove", "to_dense", "widen",
 ]
+
+
+# ---- the law engine's domains (``analysis/``) ------------------------------
+
+def _law_ids(*xs, w: int = 4, device="cuda"):
+    return torch.tensor(list(xs) + [-1] * (w - len(xs)), dtype=torch.int32, device=device)
+
+
+def _law_states(device="cuda"):
+    """Segment adds, covered removes, and parked (ahead) removes over a
+    small element universe with dot/deferred headroom."""
+    cl = lambda x, y: np.array([x, y], np.uint32)  # noqa: E731
+    ids = lambda *xs: _law_ids(*xs, device=device)  # noqa: E731
+    e = empty(8, 2, deferred_cap=3, rm_width=4, device=device)
+    a1, _ = apply_add(e, 0, 1, ids(0))
+    a2, _ = apply_add(a1, 0, 2, ids(1, 2))
+    b1, _ = apply_add(e, 1, 1, ids(0, 3))
+    ab, _ = join(a2, b1)
+    r1, _ = apply_rm(ab, cl(2, 1), ids(0))     # covered
+    r2, _ = apply_rm(a1, cl(0, 2), ids(1))     # ahead: parks
+    r3, _ = apply_rm(e, cl(1, 1), ids(0, 2))   # ahead on empty
+    return [e, a1, a2, b1, r1, r2, r3]
+
+
+def _law_states_big(device="cuda"):
+    """Property-sampled: replicas applying ordered subsets of one shared
+    op history over a 6-element universe, 3 actors (the JAX package's
+    draws from ``default_rng(20260803)``, in the same order)."""
+    rng = np.random.default_rng(20260803)
+    e_n, a_n = 6, 3
+    mk = lambda: empty(16, a_n, deferred_cap=4, rm_width=6, device=device)  # noqa: E731
+    site = mk()
+    history = []
+    next_ctr = [0] * a_n
+
+    def apply_op(s, op):
+        if op[0] == "add":
+            return apply_add(s, op[1], op[2], op[3])[0]
+        return apply_rm(s, op[1], op[2])[0]
+
+    for _ in range(10):
+        actor = int(rng.integers(a_n))
+        eids = np.flatnonzero(rng.random(e_n) < 0.4)[:6]
+        lst = np.pad(eids, (0, 6 - len(eids)), constant_values=-1).astype(np.int32)
+        if rng.random() < 0.7 or not history:
+            next_ctr[actor] += 1
+            op = ("add", actor, next_ctr[actor], lst)
+        else:
+            top = to_wide(site.top).cpu().numpy().astype(np.uint64)
+            if rng.random() < 0.3:
+                top[actor] += 1  # ahead -> parks
+            op = ("rm", top.astype(np.uint32), lst)
+        site = apply_op(site, op)
+        history.append(op)
+    states = [mk()]
+    for _ in range(6):
+        take = rng.random(len(history)) < 0.6
+        s = mk()
+        for keep, op in zip(take, history):
+            if keep:
+                s = apply_op(s, op)
+        states.append(s)
+    return states
+
+
+def _law_canon(s: SparseOrswotState) -> SparseOrswotState:
+    from ..analysis.canon import canon_epochs
+
+    dcl, didx, dvalid = canon_epochs(s.dcl, s.didx, s.dvalid, payload_fill=-1)
+    return s._replace(dcl=dcl, didx=didx, dvalid=dvalid)

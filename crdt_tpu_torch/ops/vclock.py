@@ -118,3 +118,14 @@ def _decomp_split(s: torch.Tensor):
 def _decomp_unsplit(rows, res) -> torch.Tensor:
     (counters,) = rows
     return counters
+
+
+# ---- the law engine's domains (``analysis/``) ------------------------------
+
+def _law_states(device="cuda"):
+    """Exhaustive: 2-actor clocks with counters in {0, 1, 2} (identity
+    first)."""
+    return [
+        from_wide(torch.tensor([i, j], dtype=torch.int64, device=device), counter_dtype())
+        for i in range(3) for j in range(3)
+    ]

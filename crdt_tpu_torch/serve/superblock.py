@@ -423,6 +423,11 @@ class Superblock:
         as ``<u4``) — the durable form the evictor persists."""
         return sb_ops.to_host(sb_ops.unpack(self.state, self._lane(tenant)))
 
+    def device_row(self, tenant: int):
+        """A copy of one resident tenant's state, left on the device."""
+        return type(self.state)(*(x.clone() for x in sb_ops.unpack(self.state,
+                                                                    self._lane(tenant))))
+
     def write_row(self, tenant: int, row) -> None:
         """Land a full row (numpy or tensor leaves) for a tenant,
         allocating a lane on first touch — writing IS touching."""

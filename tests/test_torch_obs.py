@@ -98,8 +98,7 @@ def test_the_event_table_is_the_jax_registry():
     assert [e.name for e in obs_events()] == sorted(EVENTS)
     # Events whose emitter is not ported yet name the item that ports it.
     later = {e.name: e.module for e in obs_events() if not e.module.startswith("crdt_tpu_torch")}
-    assert later == {"geo_exchange": "ROADMAP item 15.7", "region_failover": "ROADMAP item 15.7",
-                     "concur_counterexample": "ROADMAP item 16"}
+    assert later == {"concur_counterexample": "ROADMAP item 16"}
 
 
 # ---- the recorder ---------------------------------------------------------

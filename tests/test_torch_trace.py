@@ -207,3 +207,25 @@ def test_the_findings_report_is_the_jax_one(tmp_path):
     assert report.write_summary(secs, str(tmp_path / "s.json")) == report.summarize(secs)
     assert len(report.errors(fs)) == 1
     assert hist.NBUCKETS == 32
+
+
+def test_drain_hists_defaults_to_the_card_and_measure_slo_drains_on_its_device(monkeypatch):
+    """Repair 28: ``Tracer.drain_hists`` is an entry point and defaults to
+    the card; ``measure_slo(device="cpu")`` drains its histograms on the
+    CPU, the device it was given."""
+    import inspect
+
+    assert inspect.signature(trace.Tracer.drain_hists).parameters["device"].default == "cuda"
+    seen = []
+    drain = trace.Tracer.drain_hists
+
+    def spy(self, device="cuda"):
+        out = drain(self, device)
+        seen.append((str(device), {str(h.counts.device) for h in out.values()}
+                     | {str(h.total.device) for h in out.values()}))
+        return out
+
+    monkeypatch.setattr(trace.Tracer, "drain_hists", spy)
+    got = slo.measure_slo(device="cpu")
+    assert seen == [("cpu", {"cpu"})]
+    assert got == slo.load_budgets()["entries"]
