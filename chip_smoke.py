@@ -434,6 +434,16 @@ at first use), then runs, printing one JSON line per phase:
                         checker (ROADMAP 16) over the twelve merge kinds on
                         the card, clean; every broken twin card == CPU; every
                         domain and pair table card == CPU. No kernel.
+41. ``static_scenarios`` — the port's static-check runner
+                        (``crdt_tpu_torch.analysis.run``, ROADMAP 16) on the
+                        card: every section clean, section by section with
+                        its wall and its K1-K3 launches (K3 in ``wire`` and
+                        ``fanout`` > 0, each launch == the plain pack; K1
+                        and K2 0); every broken twin's findings card == CPU;
+                        the interleaving explorer's counts (21/10, 51/5) and
+                        the racy twin's counterexample card == CPU; the wire
+                        fixture's words, keep verdicts and checksum and the
+                        micro cohort's wire card == CPU.
 
 Then the ``nvidia-smi`` name/power-limit line, a ``kernels`` JSON line, and
 as the last line ``{"ok": true, "device": {...}}``. Any failed check raises
@@ -10323,6 +10333,168 @@ def phase_laws_scenarios(device) -> dict:
     return out
 
 
+def _twin_rows(found):
+    """A twin run's result in a comparable form: findings as ``(check,
+    subject, detail)``, anything else as it is."""
+    if isinstance(found, list) and found and hasattr(found[0], "check"):
+        return [(f.check, f.subject, f.detail) for f in found]
+    return found
+
+
+def static_twins(device) -> dict:
+    """Every broken twin the static-check sections run, each on
+    ``device``: ``{name: result}`` (a finding list, a violation list, or
+    the detector's verdict), each of which must show the twin caught."""
+    from crdt_tpu_torch import fanout, faults, obs, scaleout, serve
+    from crdt_tpu_torch.analysis import concur, effects, laws
+    from crdt_tpu_torch.analysis import fixtures as fx
+    from crdt_tpu_torch.analysis.registry import get_merge_kind
+    from crdt_tpu_torch.durability import fsync_honored, loader_detects_corruption
+    from crdt_tpu_torch.geo import watermark_reads_sound
+    from crdt_tpu_torch.obs import trace
+    from crdt_tpu_torch.parallel import wire_checks
+
+    import tempfile
+
+    orswot = get_merge_kind("orswot")
+    with tempfile.TemporaryDirectory() as d:
+        fsync = fsync_honored(fx.wal_skips_fsync, d)
+    return {
+        "checksum_ignores_corruption": faults.checksum_detects(
+            fx.checksum_ignores_corruption, device),
+        "eviction_drops_ranks": faults.validate_perm(fx.eviction_drops_ranks(8, (3,)), 8),
+        "LOSSY_DECOMPOSER": laws.check_decomposition_kind(
+            orswot, dec=fx.LOSSY_DECOMPOSER, device=device),
+        "REDUNDANT_DECOMPOSER": laws.check_decomposition_kind(
+            orswot, dec=fx.REDUNDANT_DECOMPOSER, device=device),
+        "wal_skips_fsync": fsync,
+        "snapshot_load_unchecked": loader_detects_corruption(fx.snapshot_load_unchecked),
+        "fused_mask_drops_removals": wire_checks.check_fused_gate(
+            know_fn=fx.fused_mask_drops_removals, label="fixtures.fused_mask_drops_removals",
+            device=device),
+        "bitmap_truncates_lanes": wire_checks.check_bitmaps(
+            packer=fx.bitmap_truncates_lanes, label="fixtures.bitmap_truncates_lanes",
+            device=device),
+        "recorder_drops_events": obs.recorder_conformant(fx.recorder_drops_events),
+        "histogram_miscounts": obs.histogram_conformant(fx.histogram_miscounts, device),
+        "bootstrap_skips_checksum": scaleout.bootstrap_rejects_corruption(
+            fx.bootstrap_skips_checksum, device),
+        "drain_ignores_unacked": scaleout.drain_refuses_unflushed(
+            fx.drain_ignores_unacked, device),
+        "evictor_drops_dirt": serve.evictor_preserves_dirt(fx.evictor_drops_dirt, device),
+        "serve_dispatch_before_wal": serve.wal_order_violations(fx.serve_dispatch_before_wal),
+        "fanout_skips_watermark_bucket": fanout.fanout_covers_cohorts(
+            fx.fanout_skips_watermark_bucket, device),
+        "region_serves_unwatermarked_read": watermark_reads_sound(
+            fx.region_serves_unwatermarked_read, device=device),
+        "RogueCounterMutator": effects.unregistered_shared_mutations(
+            extra=(fx.RogueCounterMutator,)),
+        "UnorderedWalLoop": concur.call_order_violations(
+            fx.UnorderedWalLoop, ("_log",), ("_issue",)),
+        "regressing_ack_promoter": concur.ack_window_probe(
+            fx.regressing_ack_promoter_cls(), device=device),
+        "PersistFreesLanes": concur.uncovered_conflicts(
+            extra=(fx.PersistFreesLanes,), extra_threads={"PersistFreesLanes": ("persist",)}),
+        "tracer_skips_stage": trace.tracer_conformant(fx.tracer_skips_stage),
+        "tracer_clock_regresses": trace.tracer_conformant(fx.tracer_clock_regresses),
+    }
+
+
+def explored_rows(explored: dict) -> dict:
+    """The explorer's results, comparable across devices."""
+    return {name: (r.schedules, r.events, r.ok, None if r.ok else (
+        r.counterexample.schedule, r.counterexample.trace, r.counterexample.reasons))
+        for name, r in explored.items()}
+
+
+def static_wire_probes(device) -> dict:
+    """The ``wire`` section's fixture packet and the ``fanout`` section's
+    micro cohort packed on ``device``: host copies of the wire tree, the
+    keep verdicts and the checksum, and of the cohort wire's words, keep,
+    defer and checksum partial."""
+    from crdt_tpu_torch.fanout import _micro_cohort
+    from crdt_tpu_torch.ops.lattice import tree_leaves
+    from crdt_tpu_torch.parallel import wire
+    from crdt_tpu_torch.parallel.wire_checks import _codec, _fixture_packet
+
+    pkt, digest = _fixture_packet(device)
+    w, aux = _codec(pkt, wire.know_dense).pack(pkt, rtop=digest)
+    _d, cw, _rt = _micro_cohort(device)
+    host = lambda x: np_of(x).tolist()  # noqa: E731
+    return {"fixture_wire": [host(x) for x in tree_leaves(w)], "fixture_keep": host(aux.keep),
+            "fixture_checksum": host(aux.checksum),
+            "cohort": {k: host(getattr(cw, k)) for k in ("words", "keep", "defer", "chk")}}
+
+
+def phase_static_scenarios(device) -> dict:
+    """The port's static-check runner on the card (ROADMAP 16): each
+    section of ``analysis.run`` clean, timed, with its K1-K3 launches —
+    every K3 launch held against the plain pack (``K3Checked``); K3 above
+    0 in ``wire`` and ``fanout``, K1 and K2 at 0 everywhere. The
+    ``concurrency`` section reads the explorer's worlds explored once on
+    the card. Then every broken twin, the explorer's results and the wire
+    and cohort probes, each card == CPU."""
+    import torch
+
+    from crdt_tpu_torch.analysis import run as static_run
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    out = {"phase": "static_scenarios", "card": card_label(device), "sections": {}}
+    explored = None
+    with K3Checked() as k3:
+        for section in static_run.SECTIONS:
+            before = kernel_launches()
+            t0 = time.perf_counter()
+            if section == "concurrency":
+                explored = static_run.explore_worlds(device)
+                found = static_run.run_concurrency(device, explored=explored)
+            else:
+                found = static_run.run_static_checks([section], device=device)[section]
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            wall = time.perf_counter() - t0
+            launches = {k: v - before[k] for k, v in kernel_launches().items()}
+            check(found == [], f"section {section} on {device}: {[str(f) for f in found]}")
+            check(launches["k1"] == 0 and launches["k2"] == 0,
+                  f"section {section} launched K1/K2: {launches}")
+            out["sections"][section] = {"s": wall, "launches": launches}
+            note(f"static_scenarios: {section} {wall:.1f} s, launches {launches}")
+    for section in ("wire", "fanout"):  # a CPU rehearsal runs K3's plain version
+        check(out["sections"][section]["launches"]["k3"] > 0 or device.type != "cuda",
+              f"the {section} section launched no K3")
+    out["k3_checked_groups"] = k3.calls
+    out["k3_max_abs_err"] = k3.max_abs_err
+    check(k3.max_abs_err == 0, f"K3 differs from its plain version: {k3.max_abs_err}")
+
+    card, host = ({k: _twin_rows(v) for k, v in static_twins(dev).items()}
+                  for dev in (device, cpu))
+    check(card == host, f"twin results differ card vs CPU: "
+                        f"{[k for k in host if card[k] != host[k]]}")
+    uncaught = [k for k, v in host.items() if v is True or v == []]
+    check(not uncaught, f"broken twins not caught: {uncaught}")
+    out["twins_caught"] = sorted(host)
+
+    card_ex = explored_rows(explored)
+    cpu_ex = explored_rows(static_run.explore_worlds(cpu))
+    check(card_ex == cpu_ex, f"explorer card {card_ex} != CPU {cpu_ex}")
+    check([card_ex[k][:3] for k in ("serve", "fanout")] == [(21, 10, True), (51, 5, True)]
+          and card_ex["racy"][2] is False,
+          f"explorer counts {card_ex} are not the JAX package's 21/10, 51/5 and a race")
+    out["explorer"] = {k: {"schedules": v[0], "events": v[1], "ok": v[2]}
+                       for k, v in card_ex.items()}
+    out["racy_schedule"] = [list(x) for x in card_ex["racy"][3][0]]
+
+    probes = static_wire_probes(device)
+    check(probes == static_wire_probes(cpu), "the wire fixture or the micro cohort: card != CPU")
+    check(probes["fixture_keep"] == [True, False, True],
+          f"fixture keep verdicts {probes['fixture_keep']}")
+    out["fixture_keep"] = probes["fixture_keep"]
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return out
+
+
 PHASES = ("k1", "scenarios", "full_width", "k2", "map_scenarios", "full_width_map", "k3",
           "delta_scenarios", "full_width_delta", "map_delta_scenarios", "full_width_delta_map",
           "sparse_scenarios", "flagship", "elastic", "resync", "donate", "durability",
@@ -10331,7 +10503,7 @@ PHASES = ("k1", "scenarios", "full_width", "k2", "map_scenarios", "full_width_ma
           "nested_scenarios", "full_width_nested", "full_width_delta_nested",
           "kinds_scenarios", "full_width_clocks", "full_width_list", "reclaim_scenarios",
           "full_width_reclaim", "faults_scenarios", "full_width_chaos", "obs_scenarios",
-          "full_width_scaleout", "full_width_geo", "laws_scenarios")
+          "full_width_scaleout", "full_width_geo", "laws_scenarios", "static_scenarios")
 
 
 def main(argv=None) -> int:
@@ -10441,6 +10613,8 @@ def main(argv=None) -> int:
         res["geo"] = phase_full_width_geo(device)
     if run("laws_scenarios"):
         res["laws"] = phase_laws_scenarios(device)
+    if run("static_scenarios"):
+        res["static"] = phase_static_scenarios(device)
     if only:
         print(f"chip_smoke: partial run of {only}; no kernels line", flush=True)
         return 0
@@ -10494,7 +10668,8 @@ def main(argv=None) -> int:
                            res["faults_scenarios"]["k3_max_abs_err"],
                            res["chaos"]["k3_max_abs_err"],
                            res["obs_scenarios"]["k3_max_abs_err"],
-                           res["scaleout"]["k3_max_abs_err"]),
+                           res["scaleout"]["k3_max_abs_err"],
+                           res["static"]["k3_max_abs_err"]),
         "ms": delta["k3_ms_median"],
         "plain_ms": delta["k3_plain_ms"],
         "bound_ms": delta["k3_bound_ms"],

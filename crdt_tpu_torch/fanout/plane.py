@@ -52,8 +52,9 @@ for the resynced subscribers, :meth:`FanoutPlane.annotate`d with the live
 subscriber count. The plane stamps the op-journey tracer where the JAX
 plane does (``push`` per shipped or resynced cohort, ``ack`` per promoted
 tenant) and emits the ``fanout_push`` and ``subscriber_resync`` flight
-events. Left out: the ``boundary`` hooks of the host-concurrency plane
-(ROADMAP item 16).
+events, and crosses the host-concurrency plane's interleaving boundaries
+(``analysis.interleave.boundary``: ``ack.promote``, ``push.warm``,
+``push.snapshot``, ``push.dispatch``).
 """
 
 from __future__ import annotations
@@ -65,6 +66,7 @@ import numpy as np
 import torch
 
 from .. import telemetry as tele
+from ..analysis.interleave import boundary
 from ..convert import cohort_wire_to_numpy, leaf_from_numpy
 from ..durability import crashpoints
 from ..obs import recorder as _rec
@@ -244,6 +246,7 @@ class FanoutPlane:
         crashpoints: a kill between promote and clear re-acks to the SAME
         version, and an un-promoted kill leaves the pending mark for the
         re-ack."""
+        boundary("ack.promote")
         ids = np.atleast_1d(np.asarray(ids, np.int64))
         crashpoints.hit(CP_ACK_PRE)
         pend = self.sub_pend[ids]
@@ -391,8 +394,10 @@ class FanoutPlane:
             pinned = set(map(int, chunk))
             for t in chunk:
                 self._ensure_resident(int(t), _exclude=pinned)
+            boundary("push.warm")
             bumped = chunk[dirty[chunk]]
             self._snapshot(bumped)
+            boundary("push.snapshot")
             self.dirt[bumped] = False
 
             # Cohorts: subscribers sharing (tenant, acked version).
@@ -480,6 +485,7 @@ class FanoutPlane:
         the virtual rank owning its tenant's superblock lane (the
         serve_apply index convention). Returns the pushes and the
         dispatches' combined Telemetry (None without ``telemetry``)."""
+        boundary("push.dispatch")
         pushes: List[CohortPush] = []
         tel = None
         if not cohorts:

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from .._dtypes import mul32, to_wide
+from .._dtypes import from_wide, mul32, to_wide
 
 # Invertible-mod-2^32 leaf chaining constant (odd; the golden-ratio
 # mixing constant).
@@ -95,4 +95,48 @@ def verify(tree, shipped_digest, batch_dims: int = 0) -> torch.Tensor:
     return got == (want & _MASK32)
 
 
-__all__ = ["checksum", "verify"]
+def checksum_detects(fn=checksum, device="cuda") -> bool:
+    """The DETECTOR for checksum implementations (run by the ``faults``
+    static-check section): mint a small multi-leaf packet on ``device``,
+    perturb one lane at a time the way ``inject.corrupt_tree`` does, and
+    require the digest to change every time. One leaf per
+    :func:`_lanes_u32` branch — u32 and i32 pass-through, bool widen, f32
+    and bf16 by their bits — and an 8-byte leaf whose HIGH word is
+    perturbed separately, so a digest that truncates 8-byte lanes to their
+    low words fails here. The broken twin
+    ``analysis.fixtures.checksum_ignores_corruption`` (a constant digest)
+    fails this."""
+
+    def u32(*v):
+        return torch.tensor(v, dtype=torch.int64, device=device).to(torch.int32).view(torch.uint32)
+
+    sample = (
+        u32(*range(6)).reshape(2, 3),
+        torch.tensor([1, 0, 3], dtype=torch.int32, device=device),
+        torch.tensor([True, False], device=device),
+        torch.tensor([1.5, -2.0], dtype=torch.float32, device=device),
+        torch.tensor([0.5, 3.0], dtype=torch.bfloat16, device=device),
+        torch.tensor([5, 9], dtype=torch.int64, device=device),
+    )
+
+    def bumped(leaf, amount=1):
+        flat = to_wide(leaf).reshape(-1) if leaf.dtype == torch.uint32 else leaf.reshape(-1).clone()
+        if leaf.dtype == torch.bool:
+            flat[0] = ~flat[0]
+        else:
+            flat[0] += amount
+        return (from_wide(flat, torch.uint32) if leaf.dtype == torch.uint32 else flat).reshape(
+            leaf.shape)
+
+    def digest(tree) -> int:
+        return int(fn(tree))
+
+    base = digest(sample)
+    for i in range(len(sample)):
+        if digest(tuple(bumped(x) if j == i else x for j, x in enumerate(sample))) == base:
+            return False
+    hi = bumped(sample[-1], 1 << 32)
+    return digest(sample[:-1] + (hi,)) != base
+
+
+__all__ = ["checksum", "checksum_detects", "verify"]

@@ -32,7 +32,7 @@ _P = "crdt_tpu_torch."
 EVENTS: Dict[str, ObsEvent] = {e.name: e for e in (
     ObsEvent("auto_dump", "obs", ("reason",), _P + "obs.recorder"),
     ObsEvent("concur_counterexample", "analysis.concur", ("world", "schedule", "reasons"),
-             "ROADMAP item 16"),
+             _P + "analysis.interleave"),
     ObsEvent("dcn_exchange_failed", "faults.retry", ("op", "attempts", "error"),
              _P + "faults.retry"),
     ObsEvent("dcn_retry", "faults.retry", ("op", "attempt", "error"), _P + "faults.retry"),

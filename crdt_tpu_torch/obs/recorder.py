@@ -332,8 +332,7 @@ def recorder_conformant(recorder_cls) -> bool:
     the LAST C in order and counts the K - C drops — in total AND per
     event type (the postmortem what-was-lost contract). The committed
     broken twin (``analysis.fixtures.recorder_drops_events``) silently
-    discards events and must FAIL here — proving the detector fires
-    (the twin is ROADMAP item 16's)."""
+    discards events and must FAIL here — proving the detector fires."""
     cap, k = 8, 21
     try:
         rec = recorder_cls(capacity=cap)

@@ -25,9 +25,10 @@ end to end:
   key, which ``obs.report.trace_replay`` replays bit-exactly;
 - :func:`skew_report` is the hot-tenant attribution view.
 
-The stage table and the ``slo`` static check that scans stamp sites are
-ROADMAP item 16's (the JAX package keeps them in its analysis registry);
-:func:`tracer_conformant` is that check's detector.
+The stage table (``analysis.registry.trace_stages``) is
+``CHAIN_STAGES`` then ``BOUNDARY_STAGES``; the ``slo`` static-check
+section scans every ``stamp("...")`` site against it, and
+:func:`tracer_conformant` is that section's detector.
 """
 
 from __future__ import annotations
@@ -502,9 +503,9 @@ def tracer_conformant(tracer_cls) -> bool:
     each, stamp times monotonic non-decreasing in stamp order, the
     recorded latencies bit-equal to :func:`derive_latencies` of the
     stamps, non-negative freshness, and the requeue rolled exactly one
-    trace back. The JAX package's broken twins (a tracer that skips the
-    durable stamp, one with a regressing clock; ROADMAP item 16) must
-    FAIL here — proving the detector has teeth."""
+    trace back. The broken twins (``analysis.fixtures``: a tracer that
+    skips the durable stamp, one with a regressing clock) must FAIL here —
+    proving the detector has teeth."""
     ticks = [0]
 
     def clock():

@@ -152,28 +152,16 @@ def bootstrap(
     return got, report
 
 
-def empty_orswot(device="cuda"):
-    """The empty dense ORSWOT of a 2×2 universe with D = 4 parked slots:
-    the first of the JAX merge-kind registry's ``orswot`` example states,
-    the survivor of the drain detector
-    (``mesh_scale.drain_refuses_unflushed``)."""
-    from ..ops import orswot as ops
+def _orswot_examples(device="cuda"):
+    """The first and last of the merge-kind table's ``orswot`` example
+    states on ``device``: the empty dense ORSWOT of a 2×2 universe with D =
+    4 parked slots, and the same with two remove clocks parked ahead of
+    its empty top — the fixtures of the corruption and drain detectors,
+    as the JAX detectors take them from their merge-kind registry."""
+    from ..analysis.registry import get_merge_kind
 
-    return ops.empty(2, 2, 4, device=device)
-
-
-def parked_orswot(device="cuda"):
-    """The dense ORSWOT with two remove clocks parked ahead of an empty
-    top (a 2×2 universe, D = 4): the last of the JAX merge-kind registry's
-    ``orswot`` example states, the live peer of the corruption detector
-    and the unflushed rank of the drain detector."""
-    from ..ops import orswot as ops
-
-    e = empty_orswot(device)
-    clock = torch.tensor([1, 1], dtype=torch.int64, device=device).to(torch.int32).view(
-        torch.uint32)
-    st, _ = ops.apply_rm(e, clock, torch.tensor([True, True], device=device))
-    return st
+    states = get_merge_kind("orswot").states(device=device)
+    return states[0], states[-1]
 
 
 def bootstrap_rejects_corruption(bootstrap_fn, device="cuda") -> bool:
@@ -183,12 +171,11 @@ def bootstrap_rejects_corruption(bootstrap_fn, device="cuda") -> bool:
     the live peer AND at least one segment was checksum-rejected (the
     wire really fired). The honest :func:`bootstrap` passes; a
     corrupt-blind receiver (``verify_checksums=False``) joins a flipped
-    lane and fails. The live state is :func:`parked_orswot`, decomposed
-    under the kind table's ``orswot`` (``delta_opt.decompose.KINDS``,
-    where the JAX detector asks its merge-kind registry)."""
+    lane and fails. The live state is the last of
+    :func:`_orswot_examples`."""
     from ..faults.inject import FaultPlan
 
-    live = parked_orswot(device)
+    live = _orswot_examples(device)[1]
     plan = FaultPlan(seed=23, corrupt=0.7)
     try:
         got, rep = bootstrap_fn("orswot", live, faults=plan, segment_cap=2, max_attempts=256)

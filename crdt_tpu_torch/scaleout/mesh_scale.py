@@ -53,7 +53,7 @@ from ..faults.inject import FaultPlan, inv_ring_perm, ring_perm
 from ..faults.membership import validate_perm
 from ..ops.lattice import tree_leaves, tree_map
 from ..utils.metrics import metrics
-from .bootstrap import BootstrapReport, bootstrap, empty_orswot, parked_orswot
+from .bootstrap import BootstrapReport, bootstrap, _orswot_examples
 
 
 class RingGeneration(NamedTuple):
@@ -405,13 +405,12 @@ class ScaleoutMesh:
 def drain_refuses_unflushed(certify_fn, device="cuda") -> bool:
     """The detector for drain certifiers: a sound certifier must REFUSE a
     drain whose rank still holds content a survivor lacks. Builds a 2-rank
-    ORSWOT batch on ``device`` — rank 0 the empty state
-    (``bootstrap.empty_orswot``), rank 1 two parked remove clocks
-    (``bootstrap.parked_orswot``): the first and last of the JAX merge-kind
-    registry's ``orswot`` examples — and asks ``certify_fn`` for rank 1's
+    ORSWOT batch on ``device`` — rank 0 the empty state, rank 1 two parked
+    remove clocks: the first and last of the merge-kind table's ``orswot``
+    examples — and asks ``certify_fn`` for rank 1's
     certificate with a deceptive ``residue=0``. True iff it does NOT hold.
     A certifier that zeroes the unacked count must fail it."""
-    base, ahead = empty_orswot(device), parked_orswot(device)
+    base, ahead = _orswot_examples(device)
     rows = tree_map(lambda a, b: torch.stack([bits(a), bits(_cast(b, a.dtype))]).view(a.dtype),
                     base, ahead)
     cert = certify_fn("orswot", 1, rows, 0, None, generation=0, live=(0, 1))

@@ -24,12 +24,15 @@ from one card.
   drains cold-tenant persists off the dispatch latency path.
 
 Every ``telemetry=True`` path returns the JAX package's Telemetry, and
-the ``annotate`` methods fill its serving fields. Left out, each raising
-and naming its ROADMAP item: ``sync_tenant_shards`` (5), ``wal_order_violations`` /
-``wal_precedes_dispatch`` and :func:`static_checks` (16).
+the ``annotate`` methods fill its serving fields. :func:`static_checks` is
+the ``serve`` section of the port's static-check runner
+(``analysis/run.py``). Left out, raising and naming its ROADMAP item:
+``sync_tenant_shards`` (5).
 """
 
 from __future__ import annotations
+
+from typing import List
 
 from .evict import (
     Evictor,
@@ -64,13 +67,117 @@ from .wal import (
 )
 
 
-def static_checks():
-    """The JAX package's ``serve`` static-check section needs the
-    analysis registry and the law engine (ROADMAP item 16)."""
-    raise NotImplementedError(
-        "serve.static_checks needs the analysis registry and law engine, not ported yet "
-        "(ROADMAP item 16)"
-    )
+def static_checks(device="cuda") -> List:
+    """The ``serve`` static-check section (Finding list, empty = clean),
+    on ``device``:
+
+    1. **surface coverage** — every public operational symbol of this
+       package is in ``analysis.registry.SERVE_SURFACES``;
+    2. **coalesced == sequential** — a micro ingest (two tenants, mixed
+       add/rm streams) through the coalesced slab apply lands bit-identical
+       to the per-tenant sequential oracle, and pack/unpack round-trips;
+    3. **rendezvous minimal remap** — failing over one host remaps ONLY
+       that host's tenants;
+    4. **broken twin fires** — the dirt-dropping evictor twin
+       (``analysis.fixtures.evictor_drops_dirt``) fails
+       :func:`evictor_preserves_dirt`; the honest evictor passes.
+    """
+    import numpy as np
+    import torch
+
+    from .._dtypes import bits
+    from ..analysis import fixtures
+    from ..analysis.registry import unregistered_serve_surfaces
+    from ..analysis.report import Finding
+    from ..ops import superblock as sb_ops
+    from ..parallel.mesh import VirtualMesh
+
+    findings: List[Finding] = []
+
+    def same(a, b) -> bool:
+        return all(x.dtype == y.dtype and torch.equal(bits(x), bits(y)) for x, y in zip(a, b))
+
+    for name in unregistered_serve_surfaces():
+        findings.append(Finding(
+            "serve-surface-coverage", name,
+            "public serve symbol never called register_serve_surface — "
+            "the serve gate cannot see it",
+        ))
+
+    # 2. coalesced == sequential micro A/B + pack/unpack round-trip.
+    try:
+        caps = dict(n_elems=4, n_actors=2, deferred_cap=2)
+        sb = Superblock(2, VirtualMesh(1, device), kind="orswot", caps=caps)
+        q = IngestQueue(sb, lanes=2, depth=4)
+        m = lambda *on: np.isin(np.arange(4), on)  # noqa: E731
+        streams = {
+            0: [(sb_ops.ADD, 0, 1, None, m(0, 1)),
+                (sb_ops.RM, 0, 0, np.asarray([1, 0], np.uint32), m(0)),
+                (sb_ops.ADD, 1, 1, None, m(2))],
+            1: [(sb_ops.ADD, 1, 1, None, m(3)),
+                (sb_ops.RM, 0, 0, np.asarray([0, 2], np.uint32), m(3))],
+        }
+        for t, ops_l in streams.items():
+            for k, actor, ctr, clock, member in ops_l:
+                if k == sb_ops.ADD:
+                    q.add(t, actor, ctr, member)
+                else:
+                    q.rm(t, clock, member)
+        q.drain()
+        tk = sb.tk
+        for t, ops_l in streams.items():
+            want = sb_ops.sequential_oracle(tk, tk.empty(**caps, device=device), ops_l)
+            if not same(sb_ops.unpack(sb.state, t), want):
+                findings.append(Finding(
+                    "serve-coalesce-oracle", f"tenant {t}",
+                    "coalesced ingest diverged from the per-tenant "
+                    "sequential oracle",
+                ))
+        rt = sb_ops.pack([sb_ops.unpack(sb.state, t) for t in (0, 1)])
+        if not same(rt, sb_ops.pack([sb_ops.unpack(rt, 0), sb_ops.unpack(rt, 1)])):
+            findings.append(Finding(
+                "serve-pack-roundtrip", "pack/unpack",
+                "pack(unpack) is not the identity",
+            ))
+    except Exception as exc:
+        findings.append(Finding(
+            "serve-coalesce-oracle", "micro-workload",
+            f"coalesced micro A/B crashed: {type(exc).__name__}: {exc}",
+        ))
+
+    # 3. rendezvous minimal remap.
+    sm = TenantShardMap(4)
+    before = {t: sm.owner(t) for t in range(64)}
+    sm.fail_over(2)
+    for t, h in before.items():
+        now = sm.owner(t)
+        if h != 2 and now != h:
+            findings.append(Finding(
+                "serve-shard-remap", f"tenant {t}",
+                f"failover of host 2 remapped tenant owned by host {h} "
+                f"to {now} — rendezvous minimality broken",
+            ))
+        if h == 2 and now == 2:
+            findings.append(Finding(
+                "serve-shard-remap", f"tenant {t}",
+                "failed-over host still owns a tenant",
+            ))
+
+    # 4. broken twin.
+    if not evictor_preserves_dirt(lambda ev, ts: ev.evict(ts), device):
+        findings.append(Finding(
+            "evict-durability", "Evictor.evict",
+            "the honest evictor lost dirty tenant state across an "
+            "evict/restore cycle",
+        ))
+    if evictor_preserves_dirt(fixtures.evictor_drops_dirt, device):
+        findings.append(Finding(
+            "broken-fixture-missed", "evictor_drops_dirt",
+            "the dirt-dropping evictor twin PASSED the preservation "
+            "detector — the serve durability gate is not actually "
+            "firing",
+        ))
+    return findings
 
 
 __all__ = [

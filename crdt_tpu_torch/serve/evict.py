@@ -27,6 +27,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from ..analysis.interleave import boundary
 from ..durability import crashpoints, snapshot
 from ..obs import recorder as _rec
 from ..obs import trace as obs_trace
@@ -124,6 +125,7 @@ class Evictor:
     def persist(self, tenants: Sequence[int]) -> int:
         """Flush dirty tenants' rows to the durable tier (no lane change).
         Returns rows written."""
+        boundary("evict.persist")
         n = 0
         for t in tenants:
             if not self.sb.dirty[t]:
@@ -151,6 +153,7 @@ class Evictor:
             lanes.append(self.sb.release_lane(t))
             obs_trace.stamp("evict", tenant=int(t))
             _rec.emit("tenant_evicted", tenant=int(t))
+        boundary("evict.clear")
         self.sb.clear_lanes(lanes)
         metrics.count("serve.evict.evictions", len(lanes))
         return len(lanes)
@@ -164,6 +167,7 @@ class Evictor:
         durable-tier restore."""
         if self.sb.is_resident(tenant):
             return False
+        boundary("evict.pick")
         if self.sb.free_lanes == 0:
             self.evict(self.select_cold(self.pressure_batch, exclude=_exclude))
         if not self.sb.was_evicted[tenant]:

@@ -32,8 +32,10 @@ N+1 while slab N's copy and apply are still queued. The queue stamps the
 op-journey tracer (``obs.trace``) where the JAX queue does — ``submit``,
 ``coalesce``, ``dispatch`` and ``durable``, and rolls traces back on a
 requeue — and emits the ``ingest_flush`` flight event; every hook is a
-no-op with no tracer or recorder installed. The JAX queue's interleaving
-boundaries (ROADMAP item 16) are left out. ``telemetry=True`` returns each flush's Telemetry (the
+no-op with no tracer or recorder installed, as are its interleaving
+boundaries (``analysis.interleave.boundary``: ``wal.group_commit``,
+``dispatch.issue``, ``dispatch.finish``). ``telemetry=True`` returns each
+flush's Telemetry (the
 dispatch's, :meth:`IngestQueue.annotate`d with the flush's coalesced ops,
 batch size and WAL bytes and the superblock's residency gauges).
 """
@@ -47,6 +49,7 @@ import numpy as np
 import torch
 
 from .. import telemetry as tele
+from ..analysis.interleave import boundary
 from ..durability import crashpoints
 from ..obs import hist as obs_hist
 from ..obs import recorder as _rec
@@ -316,12 +319,14 @@ class IngestQueue:
         self._last_wal_bytes = self.wal.bytes_appended - before
         self.last_wal_seq = seq
         crashpoints.hit(CP_POST_LOG_PRE_DISPATCH)
+        boundary("wal.group_commit")
         return seq
 
     def _issue(self, built: _Built, *, telemetry: bool = False):
         """Stage 3: copy the slab to the card without blocking the host
         and launch the coalesced dispatch without waiting for it
         (``Superblock.apply_async``)."""
+        boundary("dispatch.issue")
         dev = self.sb.device
         if built.stage is None:  # fresh host planes, off the card
             planes = [torch.from_numpy(x) for x in (built.kind, built.actor, built.ctr,
@@ -380,6 +385,7 @@ class IngestQueue:
         ahead of this slab's rolled ones). Returns ``(FlushReport,
         Telemetry-or-None)``: the dispatch's Telemetry when it was issued
         with one."""
+        boundary("dispatch.finish")
         try:
             tel = self.sb.finish(pending)
         except BaseException as exc:

@@ -34,6 +34,7 @@ from collections import deque
 from typing import Optional
 
 from .. import telemetry as tele
+from ..analysis.interleave import boundary
 from ..durability import crashpoints
 from ..obs import hist as obs_hist
 from ..utils.metrics import metrics
@@ -158,6 +159,7 @@ class ServeLoop:
             report, tel = self.q._finish(n_built, n_pending, n_seq, on_fail=_requeue_next)
         # Background persists run in the settled window between finish(N)
         # and issue(N+1): no dispatch is in flight.
+        boundary("persist.window")
         if self.persister is not None:
             if self.persist_ahead:
                 self.persister.enqueue_cold(self.persist_ahead,

@@ -17,9 +17,9 @@ the other's serve log).
 - **crashpoints** — the four ``serve.*`` boundaries below, under the JAX
   names, ride the port's fuzz loop.
 
-The JAX package's AST ordering detector (``wal_order_violations`` /
-``wal_precedes_dispatch``) needs its ``analysis.concur`` walk and comes
-with ROADMAP item 16; both raise here.
+:func:`wal_order_violations` / :func:`wal_precedes_dispatch` are the
+WAL-before-dispatch AST detector, over ``analysis.concur``'s call-order
+walk.
 """
 
 from __future__ import annotations
@@ -197,19 +197,33 @@ def recover_serve(snap_root: str, queue, serve_wal: Optional[ServeWal] = None, *
     return replay_into(queue, serve_wal, since_seq=since_seq)
 
 
+# ---- the WAL-before-dispatch ordering detector ---------------------------
+
+_WAL_CALLS = frozenset({"log_slab", "mark_round", "append_slab", "_log"})
+_DISPATCH_CALLS = frozenset({"apply_async", "mesh_serve_apply", "dispatch_slab", "_issue"})
+
+
 def wal_order_violations(obj) -> list:
-    """The JAX package's WAL-before-dispatch AST detector — it needs the
-    ``analysis.concur`` walk (ROADMAP item 16)."""
-    raise NotImplementedError(
-        "wal_order_violations needs analysis.concur, not ported yet (ROADMAP item 16)"
-    )
+    """AST-scan ``obj`` (a function, class, or module) for functions that
+    both WAL-log a slab and dispatch it, and return a violation string per
+    function whose FIRST dispatch site precedes its FIRST WAL call — the
+    ordering that would ack ops the log never saw. Empty list = every
+    logging dispatcher logs first. The walk is
+    ``analysis.concur.call_order_violations`` (this detector is the
+    ``wal_commit_precedes_dispatch`` contract of ``concur.HB_CONTRACTS``)."""
+    from ..analysis.concur import call_order_violations
+
+    return [
+        f"{v} — an op could be acked that the log never saw"
+        for v in call_order_violations(obj, _WAL_CALLS, _DISPATCH_CALLS)
+    ]
 
 
 def wal_precedes_dispatch(obj) -> bool:
-    """See :func:`wal_order_violations` (ROADMAP item 16)."""
-    raise NotImplementedError(
-        "wal_precedes_dispatch needs analysis.concur, not ported yet (ROADMAP item 16)"
-    )
+    """True iff ``obj`` contains no WAL-ordering violation (the honest
+    ingest flush must pass; ``analysis.fixtures.serve_dispatch_before_wal``
+    must fail)."""
+    return not wal_order_violations(obj)
 
 
 __all__ = [

@@ -26,21 +26,17 @@ JAX_ONLY = {
 # Names and modules of open ROADMAP items: name (or (module, name), or a
 # module path) -> the item that ports it.
 OPEN_ITEMS = {
-    "crdt_tpu.analysis.concur": "16", "crdt_tpu.analysis.interleave": "16",
-    "crdt_tpu.parallel.wire_checks": "16",
-    "static_checks": "16", "checksum_detects": "16",
-    # The static checks walk the analysis registry and its broken
-    # fixtures: they come with the analysis engine.
-    ("crdt_tpu.faults", "static_checks"): "16",
-    ("crdt_tpu.obs", "static_checks"): "16",
-    ("crdt_tpu.scaleout", "static_checks"): "16",
     "multihost": "5",
 }
 # Open names the port already defines as a stub that raises naming its item.
-STUBS = {("crdt_tpu.serve", "static_checks")}
-# Names the port must have although a blanket entry above lists them open:
-# the geo plane's static checks are ported with the law engine.
-HELD = {("crdt_tpu.geo", "static_checks")}
+STUBS = set()
+# Names the port must have and call: every package's static-check section
+# and the checksum detector (the analysis engine, ported whole but the
+# jaxpr walks).
+HELD = {(m, "static_checks") for m in (
+    "crdt_tpu.geo", "crdt_tpu.faults", "crdt_tpu.delta_opt", "crdt_tpu.durability",
+    "crdt_tpu.obs", "crdt_tpu.scaleout", "crdt_tpu.serve", "crdt_tpu.fanout",
+    "crdt_tpu.parallel.wire_checks")} | {("crdt_tpu.faults", "checksum_detects")}
 
 
 def _modules():
@@ -146,3 +142,23 @@ def test_native_available_reports_without_raising(monkeypatch):
 
     monkeypatch.setattr(native, "library", broken)
     assert native.native_available() is False
+
+
+def test_the_runner_sections_are_the_jax_runner_s_less_the_jaxpr_and_lint_ones():
+    """The port's runner carries every section of the JAX package's
+    ``tools/run_static_checks.py`` but the repository lint and the three
+    jaxpr / compiled-HLO walks, in the same order."""
+    import os
+    import sys
+
+    from crdt_tpu_torch.analysis.run import SECTIONS
+
+    tools = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tools")
+    sys.path.insert(0, tools)
+    try:
+        import run_static_checks as ref
+    finally:
+        sys.path.remove(tools)
+    left_out = {"lint", "jit-lint", "cost", "aliasing"}
+    assert left_out <= set(ref.SECTIONS)
+    assert list(SECTIONS) == [s for s in ref.SECTIONS if s not in left_out]

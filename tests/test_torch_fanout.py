@@ -451,7 +451,8 @@ def test_left_out_modes_raise_naming_their_items():
     tw.subscribe([0, 1])
     assert plane.push(telemetry=True).telemetry is not None
     assert tele.to_dict(plane.annotate(tele.zeros("cpu")))["subscribers_live"] == 2
-    assert not hasattr(fanout, "static_checks")
+    # ROADMAP item 16 is ported: the fanout static-check section runs clean.
+    assert fanout.static_checks(device="cpu") == []
     with pytest.raises(ValueError) as got:
         fanout.FanoutPlane(serve.Superblock(4, VirtualMesh(2, "cpu"), caps=CAPS),
                            dispatch_lanes=3)

@@ -455,5 +455,5 @@ def test_the_package_exports_the_jax_names_and_the_heal():
 
     assert faults.resync is resync and faults.ResyncReport is ResyncReport
     for name in ref.__all__:
-        if name not in ("counters_specs", "static_checks", "checksum_detects"):
+        if name != "counters_specs":
             assert name in faults.__all__ and hasattr(faults, name), name

@@ -242,9 +242,9 @@ def test_bootstrap_rejects_corruption_passes_the_honest_receiver_only():
     ``orswot`` example, and it passes the honest receiver only."""
     from crdt_tpu.analysis.registry import get_merge_kind
 
-    from crdt_tpu_torch.scaleout.bootstrap import parked_orswot
+    from crdt_tpu_torch.scaleout.bootstrap import _orswot_examples
 
-    assert_tree(parked_orswot(device="cpu"), get_merge_kind("orswot").states()[-1])
+    assert_tree(_orswot_examples(device="cpu")[1], get_merge_kind("orswot").states()[-1])
     assert bootstrap_rejects_corruption(bootstrap, device="cpu") is ref_rejects(ref_bootstrap) is True
     blind = functools.partial(bootstrap, verify_checksums=False)
     ref_blind = functools.partial(ref_bootstrap, verify_checksums=False)

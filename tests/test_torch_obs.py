@@ -96,9 +96,9 @@ def test_the_event_table_is_the_jax_registry():
     got = {e.name: (e.subsystem, tuple(e.fields)) for e in obs_events()}
     assert got == want
     assert [e.name for e in obs_events()] == sorted(EVENTS)
-    # Events whose emitter is not ported yet name the item that ports it.
+    # Every event's emitter is ported: each row names a module of the port.
     later = {e.name: e.module for e in obs_events() if not e.module.startswith("crdt_tpu_torch")}
-    assert later == {"concur_counterexample": "ROADMAP item 16"}
+    assert later == {}
 
 
 # ---- the recorder ---------------------------------------------------------
@@ -215,9 +215,9 @@ def test_recorder_conformance_and_its_teeth():
     from crdt_tpu.analysis import fixtures
 
     assert not obs.recorder_conformant(fixtures.recorder_drops_events)
-    assert obs.histogram_conformant(obs.hist.observe)
+    assert obs.histogram_conformant(obs.hist.observe, device="cpu")
     assert not obs.histogram_conformant(
-        lambda h, v: obs.hist.observe(h, v / 2 if v in obs.hist.EDGES else v))
+        lambda h, v: obs.hist.observe(h, v / 2 if v in obs.hist.EDGES else v), device="cpu")
 
 
 # ---- the ported modules' events -------------------------------------------

@@ -179,11 +179,11 @@ def _ref_orswot_examples():
 def test_faulted_flush_counters_refuse_the_drain():
     from crdt_tpu.faults.inject import FaultCounters as RefCounters
     from crdt_tpu_torch.faults.inject import FaultCounters
-    from crdt_tpu_torch.scaleout.bootstrap import empty_orswot
+    from crdt_tpu_torch.scaleout.bootstrap import _orswot_examples
 
     u32 = lambda *v: torch.tensor(v, dtype=torch.int32).view(torch.uint32)  # noqa: E731
     rows = so.mesh_scale.tree_map(lambda x: torch.stack([bits(x)] * 2).view(x.dtype),
-                                  empty_orswot("cpu"))
+                                  _orswot_examples("cpu")[0])
     fc = FaultCounters(u32(1)[0], u32(1)[0], u32(0)[0], u32(0, 0))
     cert = so.certify_drain("orswot", 1, rows, 0, fc)
     ref_fc = RefCounters(jnp.uint32(1), jnp.uint32(1), jnp.uint32(0), jnp.zeros(2, jnp.uint32))
@@ -194,12 +194,12 @@ def test_faulted_flush_counters_refuse_the_drain():
 
 
 def test_unflushed_and_stale_drains_are_refused_like_jax():
-    from crdt_tpu_torch.scaleout.bootstrap import empty_orswot, parked_orswot
+    from crdt_tpu_torch.scaleout.bootstrap import _orswot_examples
 
     base, ahead = _ref_orswot_examples()
     rows = jax.tree.map(lambda a, b: jnp.stack([a, b.astype(a.dtype)]), base, ahead)
     prows = so.mesh_scale.tree_map(lambda a, b: torch.stack([bits(a), bits(b)]).view(a.dtype),
-                                   empty_orswot("cpu"), parked_orswot("cpu"))
+                                   *_orswot_examples("cpu"))
     assert_same(rows, prows, "fixture rows")
     errs = []
     for mod, r, exc in ((ref_so, rows, ref_so.DrainRefused), (so, prows, so.DrainRefused)):
