@@ -444,6 +444,20 @@ at first use), then runs, printing one JSON line per phase:
                         the racy twin's counterexample card == CPU; the wire
                         fixture's words, keep verdicts and checksum and the
                         micro cohort's wire card == CPU.
+42. ``multihost``     — ``parallel/multihost.py`` (ROADMAP 5a): two worker
+                        processes of this script (``--multihost-worker``) on
+                        the one card, 4 local ranks each, joined over gloo
+                        at 127.0.0.1: the dense ``mesh_fold`` and every
+                        ``mesh_gossip`` row at config 3's widths (R = 2,048,
+                        each process drawing its own 1,024 rows block by
+                        block from ``--seed``), ``mesh_fold_map`` at config
+                        4's (R = 8), ``mesh_fold_sparse_mvmap``, the two
+                        ``sync_list`` rounds and the tenant-shard handoff,
+                        each equal to the single-process run (P = 8, one
+                        process) leaf for leaf; every worker's K1 (8) and K2
+                        (4) launches held against their plain versions;
+                        per-process fold walls, exchange bytes and ms, local
+                        fold ms, against the single-process fold's wall.
 
 Then the ``nvidia-smi`` name/power-limit line, a ``kernels`` JSON line, and
 as the last line ``{"ok": true, "device": {...}}``. Any failed check raises
@@ -10495,6 +10509,448 @@ def phase_static_scenarios(device) -> dict:
     return out
 
 
+# ---- phase 42: multihost (ROADMAP 5a) ---------------------------------------
+
+MH_PROCESSES = 2
+MH_LOCAL_RANKS = 4
+MH_BLOCK = 128  # dense rows drawn from one generator
+MH_TIMEOUT = 240  # seconds a worker pair may take before both are killed
+
+
+def mh_dense_rows(seed: int, lo: int, hi: int, r: int, e: int, a: int, d: int, device):
+    """Rows ``[lo, hi)`` of the multihost phase's dense ORSWOT batch of
+    ``r`` rows at ``e`` × ``a``: one add history from ``seed`` (``project``,
+    ``fill_config3``'s draws), each ``MH_BLOCK``-row block's tops and
+    removals from a generator of its own, so a process that draws its own
+    rows draws the bits the whole batch holds there. No parked removes."""
+    import torch
+
+    from crdt_tpu_torch._dtypes import bits
+    from crdt_tpu_torch.ops import orswot
+
+    def drawer(gen):
+        return lambda lo_, hi_, shape: torch.randint(lo_, hi_, shape, generator=gen,
+                                                      device=device, dtype=torch.int32)
+
+    history = config3_history(drawer(torch.Generator(device=device).manual_seed(seed)), e, a)
+    st = orswot.empty(e, a, deferred_cap=d, batch=(hi - lo,), device=device)
+    for b in range(lo // MH_BLOCK, -(-hi // MH_BLOCK)):
+        gen = torch.Generator(device=device).manual_seed(seed * 1_000_003 + b)
+        tops = config3_tops(drawer(gen), MH_BLOCK, a)
+        ctr = project(history, tops, gen, 0.05 / r)
+        rows = slice(max(lo, b * MH_BLOCK), min(hi, (b + 1) * MH_BLOCK))
+        local = slice(rows.start - lo, rows.stop - lo)
+        part = slice(rows.start - b * MH_BLOCK, rows.stop - b * MH_BLOCK)
+        bits(st.ctr)[local] = ctr[part]
+        bits(st.top)[local] = tops[part]
+    return st
+
+
+def mh_map_rows(seed: int, rows, r: int, k: int, s: int, a: int, d: int, device,
+                max_lag: float = 0.02, p_remove: float = 0.01):
+    """The given rows of the multihost phase's Map batch of ``r`` rows at
+    config 4's widths, in ``fill_config4``'s layout: one write history
+    from ``seed`` (counter key·S + j + 1 by actor (key + j) % A, slot 0
+    always written, later slots with probability 1/2), each row's lag and
+    removals from a generator of its own. No parked removes."""
+    import torch
+
+    from crdt_tpu_torch._dtypes import bits, from_wide
+    from crdt_tpu_torch.ops import map as map_ops
+
+    st = map_ops.empty(k, a, s, d, batch=(len(rows),), device=device)
+    c = st.child
+    hist = torch.Generator(device=device).manual_seed(seed + 4)
+    slot = torch.arange(s, device=device)
+    keys = torch.arange(k, device=device)[:, None]
+    written = (slot == 0) | (torch.rand((k, s), generator=hist, device=device) < 0.5)
+    ctr, act = keys * s + slot + 1, (keys + slot) % a
+    end = k * s
+    for i, row in enumerate(rows):
+        gen = torch.Generator(device=device).manual_seed(seed * 1_000_003 + row)
+        top = (end - torch.rand(a, generator=gen, device=device) * max_lag * end).long()
+        kept = torch.rand((k, 1), generator=gen, device=device) >= p_remove / r
+        held = written & kept & (ctr <= top[act])
+        order = torch.argsort((~held).long() * a + act, dim=-1, stable=True)
+        h, w, n = (torch.gather(x, 1, order) for x in (held, act, ctr))
+        clk = torch.zeros((k, s, a), dtype=torch.int64, device=device)
+        clk.scatter_(-1, w[..., None], n[..., None])
+        c.wact[i] = torch.where(h, w, 0).to(torch.int32)
+        bits(c.wctr)[i] = bits(from_wide(torch.where(h, n, 0), torch.uint32))
+        bits(c.clk)[i] = bits(from_wide(torch.where(h[..., None], clk, 0), torch.uint32))
+        c.val[i] = torch.where(h, (n - 1) % 5, 0).to(torch.int32)
+        c.valid[i] = h
+        bits(st.top)[i] = bits(from_wide(top, torch.uint32))
+    return st
+
+
+def mh_sparse_rows(rows, device, cells: int = 16, a: int = 4):
+    """``tests/multihost_worker.py``'s sparse ``Map<K, MVReg>`` rows: row i
+    is actor i % A's (i // A + 1)-th write of key 40 + i % 3."""
+    import torch
+
+    from crdt_tpu_torch.ops import sparse_mvmap as smv
+    from crdt_tpu_torch.parallel.anti_entropy import stack
+
+    out = []
+    for i in rows:
+        wct = i // a + 1
+        clock = torch.zeros(a, dtype=torch.int32, device=device)
+        clock[i % a] = wct
+        row, of = smv.apply_up(smv.empty(cells, a, device=device), i % a, wct, 40 + i % 3,
+                               clock.view(torch.uint32), 900 + i)
+        check(not bool(torch.any(of)), f"sparse row {i} overflowed")
+        out.append(row)
+    return stack(out, out[0])
+
+
+def mh_list_edits(pid: int, rnd: int) -> tuple:
+    """``tests/multihost_list_worker.py``'s edits, ``(kinds, indices,
+    values, actors)``: before round 0 process 0 types "ab" and deletes one
+    character and process 1 types "XY" at the front; before round 1
+    process 0 types "z" at the front and process 1 deletes its first."""
+    from crdt_tpu_torch.native import DELETE, INSERT
+
+    return {(0, 0): ([INSERT, INSERT, DELETE], [0, 1, 0], [ord("a"), ord("b"), 0], [0, 0, 0]),
+            (1, 0): ([INSERT, INSERT], [0, 0], [ord("X"), ord("Y")], [1, 1]),
+            (0, 1): ([INSERT], [0], [ord("z")], [0]),
+            (1, 1): ([DELETE], [0], [0], [1])}[pid, rnd]
+
+
+def mh_list_rounds(pid: int, device) -> list:
+    """This process's two ``multihost.sync_list`` rounds of
+    :func:`mh_list_edits`: ``(read, watermark)`` after each, every replica
+    read the same and every process's read gathered equal."""
+    import numpy as np
+
+    from crdt_tpu_torch.models import BatchedList
+    from crdt_tpu_torch.parallel import multihost
+
+    model = BatchedList(4, device=device)
+    out, watermark = [], 0
+    for rnd in (0, 1):
+        model.extend_trace(*mh_list_edits(pid, rnd))
+        watermark = multihost.sync_list(model, since=watermark)
+        model.apply_trace_to_all()
+        reads = [model.read(r) for r in range(4)]
+        check(all(x == reads[0] for x in reads), f"process {pid}'s replicas differ: {reads}")
+        seq = np.asarray(reads[0], np.int64)
+        check(all(np.array_equal(o, seq) for o in multihost._allgather_host(seq)),
+              f"round {rnd}: the processes read different sequences")
+        out.append((reads[0], watermark))
+    return out
+
+
+def mh_list_reference(device) -> list:
+    """:func:`mh_list_rounds` of both processes in one process: two models
+    swap their exports each round; per process, ``(read, watermark)``
+    after each round."""
+    from crdt_tpu_torch.models import BatchedList
+
+    models = [BatchedList(4, device=device) for _ in (0, 1)]
+    marks, out = [0, 0], [[], []]
+    for rnd in (0, 1):
+        for pid, m in enumerate(models):
+            m.extend_trace(*mh_list_edits(pid, rnd))
+        wires = [m.export_ops(w) for m, w in zip(models, marks)]
+        for pid, m in enumerate(models):
+            m.ingest_remote_ops(wires[1 - pid])
+            marks[pid] = len(m.op_handles)
+            m.apply_trace_to_all()
+            out[pid].append((m.read(0), marks[pid]))
+    return out
+
+
+def mh_handoff(pid: int, device) -> dict:
+    """``examples/04_multihost_dcn.py``'s tenant-shard handoff: each of two
+    hosts serves the tenants it owns on 4 local ranks and holds a stale
+    row of one tenant the other owns; one ``sync_tenant_shards`` round
+    under ``retry=`` hands it off. Returns the report and the members of
+    the tenant this host received, and the bytes this host exported."""
+    import numpy as np
+
+    from crdt_tpu_torch.faults import RetryPolicy
+    from crdt_tpu_torch.parallel import VirtualMesh
+    from crdt_tpu_torch.serve import IngestQueue, Superblock, TenantShardMap, sync_tenant_shards
+
+    sb = Superblock(8, VirtualMesh(4, device), kind="orswot",
+                    caps=dict(n_elems=8, n_actors=2, deferred_cap=2))
+    smap = TenantShardMap(2)
+    q = IngestQueue(sb, lanes=4, depth=2)
+
+    def mask(*on):
+        return np.isin(np.arange(8), on)
+
+    for t in smap.owned(pid, range(8)):
+        q.add(t, pid, 1, mask(t % 8))
+    foreign = next(t for t in range(8) if smap.owner(t) != pid)
+    q.add(foreign, pid, 1, mask(7 - (foreign % 8)))  # stale foreign residue
+    q.drain()
+    rep = sync_tenant_shards(sb, smap, pid, handoff=[foreign], retry=RetryPolicy(attempts=3))
+    mine = next(t for t in range(8) if smap.owner(t) != 1 - pid)
+    return {"shipped": rep.tenants_shipped, "joined": rep.tenants_joined,
+            "bytes": rep.bytes_shipped, "tenant": mine,
+            "members": np.flatnonzero(np.asarray(sb.read(mine))).tolist()}
+
+
+def leaf_digests(state) -> list:
+    """SHA-256 of every leaf's bytes (and dtype and shape), in leaf
+    order: two states are equal leaf for leaf when their lists are."""
+    import hashlib
+
+    from crdt_tpu_torch.convert import leaf_to_numpy
+    from crdt_tpu_torch.ops.lattice import tree_leaves
+
+    out = []
+    for x in tree_leaves(state):
+        h = leaf_to_numpy(x)
+        out.append(hashlib.sha256(f"{h.dtype}{h.shape}".encode() + h.tobytes()).hexdigest())
+    return out
+
+
+class FoldChecked:
+    """Every K1 and K2 launch made inside it held against the kernel's
+    plain version on the same inputs (``fold_entries_plain`` /
+    ``fold_cells_plain``, which launch nothing and count nothing): the
+    running max |diff| and the launches checked, per kernel. A wrapper
+    counts its launches on the module's name for it, so while the check
+    is in place the count rides the check, and it goes back on exit."""
+
+    def __enter__(self):
+        from crdt_tpu_torch.ops import fold_kernels as fk
+
+        self._fk, self._k1, self._k2 = fk, fk.fold_entries, fk.fold_cells
+        self.max_abs_err, self.calls = {"k1": 0, "k2": 0}, {"k1": 0, "k2": 0}
+
+        def held(name, kernel, plain):
+            def run(*args):
+                got, want = kernel(*args), plain(*args)
+                err = max(max_abs_diff(g, w) for g, w in zip(got, want))
+                self.max_abs_err[name] = max(self.max_abs_err[name], err)
+                self.calls[name] += 1
+                return got
+            run.launches = kernel.launches
+            return run
+
+        fk.fold_entries = held("k1", self._k1, fk.fold_entries_plain)
+        fk.fold_cells = held("k2", self._k2, fk.fold_cells_plain)
+        return self
+
+    def __exit__(self, *exc):
+        fk = self._fk
+        self._k1.launches, self._k2.launches = fk.fold_entries.launches, fk.fold_cells.launches
+        fk.fold_entries, fk.fold_cells = self._k1, self._k2
+        return False
+
+
+def mh_exchange() -> tuple:
+    """The multihost exchange's wall seconds and bytes sent so far in this
+    process (the metrics registry)."""
+    from crdt_tpu_torch.utils.metrics import metrics
+
+    snap = metrics.snapshot()
+    return (snap["gauges"].get("multihost.exchange_seconds", {}).get("sum", 0.0),
+            snap["counters"].get("multihost.bytes_sent", 0))
+
+
+def multihost_worker(spec: str, seed: int) -> int:
+    """One process of the ``multihost`` phase: ``spec`` is
+    ``port,process,n_processes,device,root,r,e,a,d,map_r,k,s,map_a``. It
+    joins the group at 127.0.0.1:port, draws its own rows, and runs the
+    cross-process ``mesh_fold``, ``mesh_gossip``, ``mesh_fold_map`` and
+    ``mesh_fold_sparse_mvmap`` on ``global_mesh(local_ranks=4)`` (every K1
+    and K2 launch held against its plain version, the counts reset just
+    before and read just after), the list rounds and the tenant handoff;
+    then times the dense fold. Writes ``root/worker<process>.json``."""
+    import torch
+    import torch.distributed as dist
+
+    from crdt_tpu_torch.ops import fold_kernels as fk
+    from crdt_tpu_torch.ops.fold_kernels import fold_auto
+    from crdt_tpu_torch.parallel import (
+        mesh_fold, mesh_fold_map, mesh_fold_sparse_mvmap, mesh_gossip, multihost,
+    )
+    from crdt_tpu_torch.parallel.anti_entropy import local_folds, rank_blocks
+
+    port, pid, n, dev, root, r, e, a, d, map_r, k, s, map_a = spec.split(",")
+    pid, n, r, e, a, d, map_r, k, s, map_a = map(int, (pid, n, r, e, a, d, map_r, k, s, map_a))
+    device = torch.device(dev)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    multihost.initialize(f"127.0.0.1:{port}", num_processes=n, process_id=pid)
+    try:
+        mesh = multihost.global_mesh(local_ranks=MH_LOCAL_RANKS, device=device)
+        lo, hi = pid * r // n, (pid + 1) * r // n
+        dense = mh_dense_rows(seed, lo, hi, r, e, a, d, device)
+        map_rows = range(pid * map_r // n, (pid + 1) * map_r // n)
+        mstate = mh_map_rows(seed, map_rows, map_r, k, s, map_a, 4, device)
+        sstate = mh_sparse_rows(range(pid * 8 // n, (pid + 1) * 8 // n), device)
+        sync(device)
+        fk.fold_entries.launches = fk.fold_cells.launches = 0
+        with FoldChecked() as held:
+            joined, of = mesh_fold(dense, mesh)
+            rows, g_of = mesh_gossip(dense, mesh)
+            mjoined, m_of = mesh_fold_map(mstate, mesh)
+            sjoined, s_of = mesh_fold_sparse_mvmap(sstate, mesh, sibling_cap=4)
+            sync(device)
+        out = {"k1": fk.fold_entries.launches, "k2": fk.fold_cells.launches,
+               "checked": held.calls, "max_abs_err": held.max_abs_err,
+               "overflow": [bool(torch.any(f)) for f in (of, g_of, m_of, s_of)],
+               "fold": leaf_digests(joined),
+               "gossip": [leaf_digests(tuple(x[q] for x in rows)) for q in range(rows.top.shape[0])],
+               "map": leaf_digests(mjoined), "sparse": leaf_digests(sjoined),
+               "list": mh_list_rounds(pid, device), "handoff": mh_handoff(pid, device)}
+        del rows, mjoined, mstate, sjoined, sstate
+        # The figures: the dense fold end to end, its exchange, and this
+        # process's local folds alone (both processes share the card).
+        walls, exchange = [], []
+        for _ in range(3):
+            sync(device)
+            dist.barrier()
+            x0, t0 = mh_exchange(), time.perf_counter()
+            mesh_fold(dense, mesh)
+            sync(device)
+            walls.append((time.perf_counter() - t0) * 1e3)
+            x1 = mh_exchange()
+            exchange.append(((x1[0] - x0[0]) * 1e3, x1[1] - x0[1]))
+        blocks = rank_blocks(dense, mesh.local)
+        local = [time_ms(lambda: local_folds(blocks, fold_auto), device) for _ in range(3)]
+        out.update(rows=hi - lo, wall_ms=walls, exchange_ms=[x for x, _ in exchange],
+                   exchange_bytes=[b for _, b in exchange], local_fold_ms=local)
+        with open(os.path.join(root, f"worker{pid}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def sync(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def phase_multihost(device, seed: int, r: int = 2048, e: int = 102400, a: int = 8, d: int = 4,
+                    map_r: int = 8, k: int = 1_000_000, s: int = 2, map_a: int = 4) -> dict:
+    """ROADMAP 5a on one card (module docstring, phase 42): the
+    single-process folds of the whole batches on P = 8 virtual ranks
+    first (the dense one timed), then two worker processes of this script
+    (:func:`multihost_worker`), each on 4 local ranks of the same card,
+    exchanging host copies over gloo. Every cross-process result must
+    equal the single-process one leaf for leaf."""
+    import socket
+    import statistics as st
+    import tempfile
+
+    import torch
+
+    from crdt_tpu_torch.parallel import (
+        VirtualMesh, mesh_fold, mesh_fold_map, mesh_fold_sparse_mvmap,
+    )
+
+    t_phase = time.perf_counter()
+    out = {"phase": "multihost", "nvidia_smi": card_label(device), "processes": MH_PROCESSES,
+           "local_ranks": MH_LOCAL_RANKS, "R": r, "E": e, "A": a, "map_R": map_r, "K": k}
+    if device.type == "cuda":
+        mode = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+                              capture_output=True, text=True, check=True).stdout.strip()
+        out["compute_mode"] = mode
+        check("exclusive" not in mode.lower(),
+              f"compute mode {mode!r}: the card refuses a second process's context, and the "
+              f"phase needs two")
+    mesh = VirtualMesh(MH_PROCESSES * MH_LOCAL_RANKS, device)
+    dense = mh_dense_rows(seed, 0, r, r, e, a, d, device)
+    want, of = mesh_fold(dense, mesh)
+    check(not bool(of), "the single-process dense fold overflowed")
+    walls = []
+    for _ in range(3):
+        sync(device)
+        t0 = time.perf_counter()
+        mesh_fold(dense, mesh)
+        sync(device)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    ref = {"fold": leaf_digests(want)}
+    del dense, want
+    mwant, m_of = mesh_fold_map(mh_map_rows(seed, range(map_r), map_r, k, s, map_a, 4, device),
+                                mesh)
+    swant, s_of = mesh_fold_sparse_mvmap(mh_sparse_rows(range(8), device), mesh, sibling_cap=4)
+    check(not bool(torch.any(m_of)) and not bool(torch.any(s_of)),
+          "a single-process Map fold overflowed")
+    ref.update(map=leaf_digests(mwant), sparse=leaf_digests(swant))
+    lists = mh_list_reference(device)
+    del mwant, swant
+    if device.type == "cuda":
+        torch.cuda.empty_cache()  # the workers need the card's memory
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    root = tempfile.mkdtemp(prefix="chip-smoke-multihost-")
+    spec = lambda pid: ",".join(map(str, (port, pid, MH_PROCESSES, device, root, r, e, a,  # noqa: E731
+                                           d, map_r, k, s, map_a)))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--multihost-worker",
+                               spec(pid), "--seed", str(seed)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for pid in range(MH_PROCESSES)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=max(1.0, MH_TIMEOUT - (time.perf_counter() - t0)))[0])
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.communicate()
+        raise AssertionError(f"multihost workers outlived {MH_TIMEOUT} s")
+    out["workers_wall_s"] = time.perf_counter() - t0
+    for pid, (p, log) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0, f"multihost worker {pid} exited {p.returncode}:\n{log[-4000:]}")
+    workers = []
+    for pid in range(MH_PROCESSES):
+        with open(os.path.join(root, f"worker{pid}.json")) as f:
+            workers.append(json.load(f))
+
+    on_card = device.type == "cuda"
+    for pid, w in enumerate(workers):
+        check(not any(w["overflow"]), f"worker {pid}: a cross-process fold overflowed")
+        check(w["fold"] == ref["fold"], f"worker {pid}: the cross-process fold != the "
+              f"single-process mesh_fold")
+        check(all(g == ref["fold"] for g in w["gossip"]) and len(w["gossip"]) == MH_LOCAL_RANKS,
+              f"worker {pid}: a gossip row != the single-process mesh_fold")
+        check(w["map"] == ref["map"], f"worker {pid}: the cross-process Map fold != mesh_fold_map")
+        check(w["sparse"] == ref["sparse"],
+              f"worker {pid}: the sparse Map fold != mesh_fold_sparse_mvmap")
+        check([tuple(x) for x in w["list"]] == [tuple(x) for x in lists[pid]],
+              f"worker {pid}: list rounds {w['list']} != {lists[pid]}")
+        t = w["handoff"]["tenant"]
+        check(w["handoff"]["shipped"] == w["handoff"]["joined"] == 1
+              and sorted(w["handoff"]["members"]) == sorted({t % 8, 7 - t % 8}),
+              f"worker {pid}: the handoff {w['handoff']}")
+        if on_card:
+            check(w["k1"] == 2 * MH_LOCAL_RANKS and w["k2"] == MH_LOCAL_RANKS
+                  and w["checked"] == {"k1": w["k1"], "k2": w["k2"]},
+                  f"worker {pid}: K1 {w['k1']}, K2 {w['k2']} launches, {w['checked']} checked")
+        check(max(w["max_abs_err"].values()) == 0,
+              f"worker {pid}: a K1/K2 launch != its plain version: {w['max_abs_err']}")
+    check(lists[0][-1][0] == lists[1][-1][0], "the two list models read differently")
+    med = st.median
+    out.update(
+        single_process_fold_ms=walls, single_process_fold_ms_median=med(walls),
+        workers=[{"process": pid, "rows": w["rows"], "k1_launches": w["k1"],
+                  "k2_launches": w["k2"], "fold_wall_ms": w["wall_ms"],
+                  "fold_wall_ms_median": med(w["wall_ms"]), "exchange_ms": w["exchange_ms"],
+                  "exchange_bytes": w["exchange_bytes"], "local_fold_ms": w["local_fold_ms"],
+                  "list": w["list"], "handoff": w["handoff"]} for pid, w in enumerate(workers)],
+        cross_over_single=(max(med(w["wall_ms"]) for w in workers) / med(walls)),
+        k1_max_abs_err=max(w["max_abs_err"]["k1"] for w in workers),
+        k2_max_abs_err=max(w["max_abs_err"]["k2"] for w in workers),
+        phase_s=time.perf_counter() - t_phase,
+    )
+    emit(out)
+    return out
+
+
 PHASES = ("k1", "scenarios", "full_width", "k2", "map_scenarios", "full_width_map", "k3",
           "delta_scenarios", "full_width_delta", "map_delta_scenarios", "full_width_delta_map",
           "sparse_scenarios", "flagship", "elastic", "resync", "donate", "durability",
@@ -10503,12 +10959,14 @@ PHASES = ("k1", "scenarios", "full_width", "k2", "map_scenarios", "full_width_ma
           "nested_scenarios", "full_width_nested", "full_width_delta_nested",
           "kinds_scenarios", "full_width_clocks", "full_width_list", "reclaim_scenarios",
           "full_width_reclaim", "faults_scenarios", "full_width_chaos", "obs_scenarios",
-          "full_width_scaleout", "full_width_geo", "laws_scenarios", "static_scenarios")
+          "full_width_scaleout", "full_width_geo", "laws_scenarios", "static_scenarios",
+          "multihost")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=20261016)
+    ap.add_argument("--multihost-worker", default="", help=argparse.SUPPRESS)
     ap.add_argument("--only", default="",
                     help="comma-separated phases to run (a partial run prints no kernels "
                          f"line and no ok line); phases: {', '.join(PHASES)}")
@@ -10520,6 +10978,9 @@ def main(argv=None) -> int:
 
     import torch
 
+    if args.multihost_worker:  # one process of the multihost phase (its rehearsal: the CPU)
+        sys.path.insert(0, HERE)
+        return multihost_worker(args.multihost_worker, args.seed)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one GPU", file=sys.stderr)
         return 2
@@ -10615,6 +11076,8 @@ def main(argv=None) -> int:
         res["laws"] = phase_laws_scenarios(device)
     if run("static_scenarios"):
         res["static"] = phase_static_scenarios(device)
+    if run("multihost"):
+        res["multihost"] = phase_multihost(device, args.seed)
     if only:
         print(f"chip_smoke: partial run of {only}; no kernels line", flush=True)
         return 0
@@ -10638,7 +11101,8 @@ def main(argv=None) -> int:
                            nested["map3"]["max_abs_err"],
                            res["reclaim_scenarios"]["k1_max_abs_err"],
                            res["reclaim"]["dense"]["k1_max_abs_err"],
-                           res["faults_scenarios"]["k1_max_abs_err"]),
+                           res["faults_scenarios"]["k1_max_abs_err"],
+                           res["multihost"]["k1_max_abs_err"]),
         "ms": full["k1_ms_median"],
         "plain_ms": full["plain_chunked_ms_check_not_a_yardstick"],
         "bound_ms": full["bound_ms"],
@@ -10649,7 +11113,8 @@ def main(argv=None) -> int:
         "launches": full_map["k2_launches_in_fold"],
         "max_abs_err": max(res["k2"], full_map["max_abs_err"], wide_map["max_abs_err"],
                            *(leg["max_abs_err"] for leg in nested["map_map"]),
-                           res["reclaim_scenarios"]["k2_max_abs_err"]),
+                           res["reclaim_scenarios"]["k2_max_abs_err"],
+                           res["multihost"]["k2_max_abs_err"]),
         "ms": full_map["k2_ms_median"],
         "plain_ms": full_map["k2_plain_ms"],
         "bound_ms": full_map["bound_ms"],

@@ -469,13 +469,22 @@ def uncovered_conflicts(
 # ---- retry/thread lints (the faults satellite) ---------------------------
 
 
+#: The multihost exchanges (the JAX ``_COLLECTIVE_CALLS`` names the port
+#: has) and the ``torch.distributed`` calls ``parallel/multihost.py``
+#: makes: a peer process waits inside each.
+_MULTIHOST_CALLS = frozenset({
+    "_allgather_host", "allgather_host", "sync_tenant_rows", "sync_list", "all_gather",
+    "_all_gather", "_sendrecv", "isend", "recv",
+})
+
+
 def _collective_calls() -> frozenset:
     """The port's collectives: every public function of
     ``parallel/collectives.py`` (the ring shifts and reductions a rank's
-    peers wait inside)."""
+    peers wait inside) and the multihost exchanges."""
     from ..parallel import collectives
 
-    return frozenset(collectives.__all__)
+    return frozenset(collectives.__all__) | _MULTIHOST_CALLS
 
 
 def _collective_reachers(tree: ast.AST) -> set:

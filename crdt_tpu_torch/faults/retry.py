@@ -14,11 +14,11 @@ per-attempt ``timeout`` is therefore only safe around exchanges whose
 late completion cannot interleave with the retry (a plain RPC, a blob
 fetch), never around a collective.
 
-The port has no multi-host exchange yet: wrapping
-``multihost.sync_list`` and the host all-gather waits for the
-``torch.distributed`` collectives (ROADMAP item 5). Each retry emits a
-``dcn_retry`` flight event; the give-up emits ``dcn_exchange_failed``
-and auto-dumps the recorder before it raises.
+``parallel.multihost``'s host all-gather, ``sync_tenant_rows`` and
+``sync_list`` take ``retry=`` through :func:`with_retries` (their
+``torch.distributed`` gathers refuse a per-attempt timeout). Each retry
+emits a ``dcn_retry`` flight event; the give-up emits
+``dcn_exchange_failed`` and auto-dumps the recorder before it raises.
 """
 
 from __future__ import annotations

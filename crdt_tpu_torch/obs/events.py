@@ -9,8 +9,7 @@ header carries it (``FlightRecorder.dump``'s ``event_types``), so a
 reader of the dump knows every event type, also those of subsystems the
 run never touched. The names, subsystems and fields are the JAX
 package's, event for event; ``module`` names the port module that
-emits it, or the ROADMAP item that will (the concurrency explorer, item
-16).
+emits it.
 """
 
 from __future__ import annotations

@@ -29,7 +29,11 @@ re-enter loops of ``elastic``); ``mesh_stream_fold_sparse`` and
 mesh in replica blocks, ``stream``); ``mesh_serve_apply`` (one coalesced op slab applied to
 a tenant superblock, ``serve_apply``); ``mesh_fanout_push`` (one dispatch
 of cohort δ payloads against a superblock, K3 over B·E client lanes,
-``fanout_push``).
+``fanout_push``). ``multihost`` joins processes (gloo): ``global_mesh``
+gives ``mesh_fold``, ``mesh_gossip``, ``mesh_fold_map`` and
+``mesh_fold_sparse_mvmap`` a replica axis across processes, and
+``sync_tenant_rows`` / ``sync_list`` are the serving tier's and the
+list's host exchanges.
 """
 
 from .anti_entropy import (
@@ -70,9 +74,10 @@ from .stream import (
     StreamFaultReport, StreamInterrupted, iter_blocks, mesh_stream_fold, mesh_stream_fold_sparse,
     mesh_stream_fold_sparse_mvmap, mesh_stream_fold_sparse_sharded,
 )
+from . import multihost
 
 __all__ = [
-    "DeltaPacket", "Map3DeltaPacket", "MapDeltaPacket", "MapOrswotDeltaPacket",
+    "multihost", "DeltaPacket", "Map3DeltaPacket", "MapDeltaPacket", "MapOrswotDeltaPacket",
     "interval_accumulate_m3", "interval_accumulate_mo", "mesh_delta_gossip_map3",
     "mesh_delta_gossip_map_orswot", "mesh_fold_clocks", "mesh_fold_gset", "mesh_fold_lww",
     "mesh_fold_map3", "mesh_fold_map_orswot", "mesh_fold_mvreg",

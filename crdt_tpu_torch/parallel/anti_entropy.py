@@ -63,6 +63,16 @@ a rounds counter, ``anti_entropy.merges`` (the folds),
 the padded input, and the ``anti_entropy.<kind>`` timer around the
 device work (the card is synchronised before it stops).
 
+``mesh_fold``, ``mesh_gossip``, ``mesh_fold_map`` and
+``mesh_fold_sparse_mvmap`` also take a cross-process mesh
+(``multihost.global_mesh``): the state is this process's rows, each
+process folds them on its own ranks, the all-reduce adds a process step
+and the gossip ring runs over every process's ranks
+(``collectives``); the fold returns the global join on every process,
+the ring this process's rows, and the flags are OR-reduced over every
+process. ``telemetry=``, ``stability=``, ``faults=`` and
+``lag_threshold=`` are not taken there (ROADMAP item 32).
+
 ``faults=`` (a ``faults.FaultPlan``) on the ring entries and
 ``gossip_elastic`` injects the plan's link faults into every exchange:
 each shipped state carries a checksum lane, corrupted arrivals are
@@ -112,6 +122,7 @@ from ..reclaim.frontier import frontier_lag, top_of, watch_lag
 from .collectives import (
     all_reduce_clock, all_reduce_join, all_reduce_lattice, permuter, psum, ring_round,
 )
+from . import multihost
 from .mesh import VirtualMesh, pad_replicas, pad_replicas_map, pad_replicas_sparse
 
 #: The kinds whose join takes any leading batch: a rank block folds in one
@@ -140,6 +151,21 @@ def _timed(name: str, device):
         yield
         if device.type == "cuda":
             torch.cuda.synchronize(device)
+
+
+def _split_mesh(mesh, entry: str, **options):
+    """``(procs, local mesh)`` of a mesh entry: ``(None, mesh)`` for a
+    :class:`~.mesh.VirtualMesh`; for a cross-process
+    :class:`~.multihost.GlobalMesh`, the mesh itself (the process step's
+    group) and its local ranks, after refusing the ``options`` set that
+    the cross-process entries do not take."""
+    if not isinstance(mesh, multihost.GlobalMesh):
+        return None, mesh
+    used = sorted(k for k, v in options.items() if v not in (None, False))
+    if used:
+        raise NotImplementedError(
+            f"{entry} on a cross-process mesh does not take {', '.join(used)} (ROADMAP item 32)")
+    return mesh, mesh.local
 
 
 def _exchange_count(p: int) -> int:
@@ -302,17 +328,19 @@ def mesh_fold(
     """Full-mesh anti-entropy: every replica's state joined into one
     converged state — each rank folds its block, then one lattice-join
     all-reduce over the ranks, on ``mesh.device``. Returns ``(converged
-    state, overflow)``, with the Telemetry third when ``telemetry=True``."""
+    state, overflow)``, with the Telemetry third when ``telemetry=True``.
+    On a cross-process mesh ``state`` is this process's rows (module
+    docstring)."""
     t0 = time.perf_counter()
+    procs, mesh = _split_mesh(mesh, "mesh_fold", telemetry=telemetry)
     blocks = rank_blocks(state, mesh)
     _record("anti_entropy.fold_rounds", 1, blocks, "anti_entropy.orswot_fold")
     with _timed("anti_entropy.fold", mesh.device):
         folded, of_local = local_folds(blocks, _fold_fn(local_fold))
-        joined, of_cross = all_reduce_join(folded)
+        joined, of = all_reduce_join(folded, procs, flags=torch.any(of_local))
     out = tree_map(lambda x: x[0], joined)
     if donate:
         _consume(state, keep=out)
-    of = torch.any(of_local) | of_cross
     if telemetry:
         return out, of, _fold_tel("orswot_fold", folded, joined, blocks, ops.changed_members,
                                   mesh.p, t0)
@@ -333,17 +361,23 @@ def mesh_gossip(
     """Ring anti-entropy: each rank folds its block, then ``rounds``
     (default P-1) unit-shift ring rounds, each shipping one state per
     link. Returns ``(states [P, ...], overflow)``; with P-1 rounds every
-    row is the full join. ``donate=True``: see the module docstring."""
+    row is the full join. ``donate=True``: see the module docstring. On a
+    cross-process mesh the ring spans every process's ranks (P is the
+    global count) and the rows returned are this process's."""
+    procs, mesh = _split_mesh(mesh, "mesh_gossip", telemetry=telemetry, stability=stability,
+                              faults=faults, lag_threshold=lag_threshold)
     return _gossip("orswot_gossip", state, mesh, rounds, donate, _fold_fn(local_fold), ops.join,
                    telemetry, ops.changed_members, stability=stability, compact_fn=ops.compact,
-                   lag_threshold=lag_threshold, faults=faults)
+                   lag_threshold=lag_threshold, faults=faults, procs=procs)
 
 
 def _gossip(kind: str, state, mesh: VirtualMesh, rounds: Optional[int], donate: bool, fold_fn,
             join_fn, telemetry: bool = False, slots_fn=None, copies: int = 1,
-            stability: bool = False, compact_fn=None, lag_threshold=None, faults=None):
+            stability: bool = False, compact_fn=None, lag_threshold=None, faults=None,
+            procs=None):
     """The ring scaffold of the ``mesh_gossip*`` entries: each rank folds
-    its block, then ``rounds`` (default P-1) unit-shift ring rounds.
+    its block, then ``rounds`` (default P-1) unit-shift ring rounds, over
+    every process's ranks with ``procs`` (a ``GlobalMesh``).
     Returns ``(states [P, ...], overflow)`` with the flags OR-reduced over
     the ranks; ``telemetry=True`` adds the Telemetry (``slots_fn``'s
     changed lanes summed over the rounds); ``stability=True`` compacts the
@@ -358,7 +392,7 @@ def _gossip(kind: str, state, mesh: VirtualMesh, rounds: Optional[int], donate: 
     t0 = time.perf_counter()
     aliasable = _donation(state, mesh, donate)
     if rounds is None:
-        rounds = mesh.p - 1
+        rounds = mesh.p * (1 if procs is None else procs.process_count) - 1
     faulted = faults is not None
     evicted = set(faults.evicted) if faulted else set()
     blocks = rank_blocks(state, mesh)
@@ -381,7 +415,7 @@ def _gossip(kind: str, state, mesh: VirtualMesh, rounds: Optional[int], donate: 
             folded, of, slots, fc = _faulted_rounds(folded, of, rounds, join_fn, faults, mesh,
                                                     slots_fn if telemetry else None)
         for _ in range(0 if faulted else rounds):
-            new, of_r = ring_round(folded, reduce_overflow=False, join_fn=join_fn)
+            new, of_r = ring_round(folded, reduce_overflow=False, join_fn=join_fn, procs=procs)
             if telemetry:
                 slots = slots + to_wide(slots_fn(folded, new))
             folded, of = new, of | of_r
@@ -400,7 +434,10 @@ def _gossip(kind: str, state, mesh: VirtualMesh, rounds: Optional[int], donate: 
                 tel = tel._replace(faults_dropped=fc.packets_dropped,
                                    faults_rejected=fc.packets_rejected,
                                    faults_delayed=fc.packets_delayed)
-        out = _donate_ring(donate, aliasable, state, folded), torch.any(of, dim=0)
+        of = torch.any(of, dim=0)
+        if procs is not None:
+            of = multihost.any_across(of, procs)
+        out = _donate_ring(donate, aliasable, state, folded), of
     if telemetry:
         out = (*out, tele.finish_dispatch(kind, tel, t0))
     if stability:
@@ -471,7 +508,7 @@ def _compact_ranks(compact_fn, folded, frontier, skip=()):
 
 
 def _mesh_fold_replicated(kind: str, states, mesh: VirtualMesh, join_fn, fold_fn, slots_fn,
-                          telemetry: bool, donate: bool, copies: int = 1):
+                          telemetry: bool, donate: bool, copies: int = 1, procs=None):
     """The all-reduce fold of a kind whose state the element axis
     replicates (the JAX ``_mesh_fold_lattice``): each rank folds its block
     (one batched tree for a sparse kind, the fused level fold for a dense
@@ -479,17 +516,18 @@ def _mesh_fold_replicated(kind: str, states, mesh: VirtualMesh, join_fn, fold_fn
     all-reduce joins the ranks. Returns ``(state, flags)`` — the flags
     OR-reduced over the ranks — and the Telemetry third when asked, its
     wire bytes summed over ``copies`` replicated element shards (the
-    sparse kinds': ``mesh.s``)."""
+    sparse kinds': ``mesh.s``). ``procs`` (a ``GlobalMesh``) adds the
+    process step and ORs the flags over every process."""
     t0 = time.perf_counter()
     blocks = rank_blocks(states, mesh)
     _record(f"anti_entropy.{kind}_rounds", 1, blocks, f"anti_entropy.{kind}")
     with _timed(f"anti_entropy.{kind}", mesh.device):
         folded, of_local = local_folds(blocks, fold_fn)
-        joined, of_cross = all_reduce_lattice(folded, join_fn, fold_fn)
+        joined, of = all_reduce_lattice(folded, join_fn, fold_fn, procs,
+                                        flags=torch.any(of_local, dim=0))
     out = tree_map(lambda x: x[0], joined)
     if donate:
         _consume(states, keep=out)
-    of = torch.any(of_local, dim=0) | of_cross
     if telemetry:
         return out, of, _fold_tel(kind, folded, joined, blocks, slots_fn, mesh.p, t0,
                                   copies=copies)
@@ -504,9 +542,11 @@ def mesh_fold_map(
     card), then one lattice-join all-reduce over the ranks, on
     ``mesh.device``. Returns ``(converged state, overflow [2])`` —
     [sibling slab, deferred buffer] as in ``ops.map.join``; the Telemetry
-    third with ``telemetry=True``."""
+    third with ``telemetry=True``. Takes a cross-process mesh (module
+    docstring)."""
+    procs, mesh = _split_mesh(mesh, "mesh_fold_map", telemetry=telemetry)
     return _mesh_fold_replicated("map_fold", state, mesh, map_ops.join, map_ops.fold,
-                                 map_ops.changed_keys, telemetry, donate)
+                                 map_ops.changed_keys, telemetry, donate, procs=procs)
 
 
 def mesh_gossip_map(
@@ -574,12 +614,14 @@ def mesh_fold_sparse_mvmap(
     batched tree), then one lattice all-reduce, on ``mesh.device``.
     Returns ``(state, flags [3])`` — [cell capacity, deferred capacity,
     sibling capacity]; the Telemetry third with ``telemetry=True``
-    (``slots_changed``: ``changed_cells``)."""
+    (``slots_changed``: ``changed_cells``). Takes a cross-process mesh
+    (module docstring)."""
+    procs, mesh = _split_mesh(mesh, "mesh_fold_sparse_mvmap", telemetry=telemetry)
     return _mesh_fold_replicated(
         f"sparse_mvmap_fold_s{sibling_cap}", states, mesh,
         lambda a, b: smv.join(a, b, sibling_cap=sibling_cap),
         lambda x: smv.fold(x, sibling_cap=sibling_cap), smv.changed_cells, telemetry, donate,
-        copies=mesh.s)
+        copies=mesh.s, procs=procs)
 
 
 def mesh_gossip_sparse_mvmap(

@@ -11,11 +11,18 @@ rank would hold). The reductions of the JAX package follow:
   harmless, and every rank ends with the global join;
 - any other P: all-gather, then every rank folds the gathered stack (one
   fold here, replicated).
+
+Handed a cross-process mesh (``multihost.GlobalMesh`` as ``procs``), the
+all-reduce adds a process step after the rank step — rank 0's join
+through ``multihost.all_reduce_processes`` (recursive doubling over the
+processes, or gather and fold) — and a ring round replaces the state its
+first rank receives with the previous process's last rank's
+(``multihost.ring_hop``).
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Sequence, Tuple
+from typing import Any, Callable, Optional, Sequence, Tuple
 
 import torch
 
@@ -89,12 +96,16 @@ def all_reduce_lattice(
     local: Any,
     join_fn: Callable[[Any, Any], Tuple[Any, torch.Tensor]],
     fold_fn: Callable[[Any], Tuple[Any, torch.Tensor]],
+    procs=None,
+    flags: Optional[torch.Tensor] = None,
 ) -> Tuple[Any, torch.Tensor]:
     """All-reduce with a lattice-join monoid over the rank axis of
     ``local`` (``[P, ...]`` leaves). Returns every rank's global join
     (``[P, ...]``) and the overflow flags OR-reduced over the ranks (one
     per flag of ``join_fn``: a scalar for ORSWOT, ``[2]`` for the Map and
-    the sparse ORSWOT)."""
+    the sparse ORSWOT), ORed with ``flags`` (the ranks' own, e.g. their
+    local folds') — and over every process of ``procs`` (a
+    ``multihost.GlobalMesh``) when given."""
     size = _size(local)
     overflow = torch.zeros((), dtype=torch.bool, device=_leaf(local).device)
     if size & (size - 1) == 0 and size > 1:
@@ -109,6 +120,15 @@ def all_reduce_lattice(
         local = tree_map(lambda x: bits(x).expand(size, *x.shape).contiguous().view(x.dtype),
                          folded)
         overflow = torch.as_tensor(overflow, device=_leaf(local).device).to(torch.bool)
+    if flags is not None:
+        overflow = overflow | flags
+    if procs is not None and procs.process_count > 1:
+        from .multihost import all_reduce_processes
+
+        one, overflow = all_reduce_processes(tree_map(lambda x: x[:1], local), overflow,
+                                             join_fn, fold_fn, procs)
+        local = tree_map(lambda x: bits(x).expand(size, *x.shape[1:]).contiguous().view(x.dtype),
+                         one)
     return local, overflow
 
 
@@ -119,11 +139,13 @@ def all_reduce_clock(clock: torch.Tensor) -> torch.Tensor:
     return bits(top).expand(clock.shape).contiguous().view(clock.dtype)
 
 
-def all_reduce_join(local: ops.OrswotState) -> Tuple[ops.OrswotState, torch.Tensor]:
-    """All-reduce with the ORSWOT lattice join over the rank axis: every
-    rank's global join and the overflow flag (True if a deferred buffer
-    overflowed anywhere)."""
-    return all_reduce_lattice(local, ops.join, ops.fold)
+def all_reduce_join(local: ops.OrswotState, procs=None,
+                    flags: Optional[torch.Tensor] = None) -> Tuple[ops.OrswotState, torch.Tensor]:
+    """All-reduce with the ORSWOT lattice join over the rank axis (and the
+    processes of ``procs``): every rank's global join and the overflow
+    flag (True if a deferred buffer overflowed anywhere, ``flags``
+    included)."""
+    return all_reduce_lattice(local, ops.join, ops.fold, procs, flags)
 
 
 def ring_round(
@@ -131,12 +153,23 @@ def ring_round(
     shift: int = 1,
     reduce_overflow: bool = True,
     join_fn: Callable[[Any, Any], Tuple[Any, torch.Tensor]] = ops.join,
+    procs=None,
 ):
     """One gossip round: every rank joins in the state of the rank
     ``shift`` positions up-ring. P-1 unit-shift rounds converge all
-    ranks. ``reduce_overflow=False`` keeps the per-rank flags."""
+    ranks. ``reduce_overflow=False`` keeps the per-rank flags. With
+    ``procs`` (a ``multihost.GlobalMesh``) the ring runs over every
+    process's ranks, process-major, one unit shift a round."""
     size = _size(local)
     other = ppermute(local, [(i, (i + shift) % size) for i in range(size)])
+    if procs is not None and procs.process_count > 1:
+        if shift != 1:
+            raise ValueError(f"a cross-process ring round shifts by 1, got {shift}")
+        from .multihost import ring_hop
+
+        first = ring_hop(tree_map(lambda x: x[-1:], local), procs)
+        other = tree_map(lambda o, f: torch.cat([bits(f), bits(o[1:])]).view(o.dtype), other,
+                         first)
     joined, of = join_fn(local, other)
     if reduce_overflow:
         of = torch.any(of)

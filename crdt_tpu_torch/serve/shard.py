@@ -16,9 +16,9 @@
   into the tenants a host owns (joining, not overwriting, makes a racy
   handoff safe).
 
-:func:`sync_tenant_shards` gathers every host's export over the
-multi-host collectives, which the port has not yet (ROADMAP item 5): it
-raises.
+- :func:`sync_tenant_shards` — one anti-entropy round across hosts:
+  every host's export gathered over ``parallel.multihost.sync_tenant_rows``
+  (gloo), the rows this host owns joined in.
 """
 
 from __future__ import annotations
@@ -230,13 +230,27 @@ def ingest_rows(sb: Superblock, shard_map: TenantShardMap, host: int,
 
 def sync_tenant_shards(sb: Superblock, shard_map: TenantShardMap, host: int,
                        handoff: Sequence[int], retry=None, evictor=None) -> ShardSyncReport:
-    """One DCN anti-entropy round for the serving tier. It gathers every
-    host's export over the multi-host collectives, which the port has not
-    yet: ROADMAP item 5."""
-    raise NotImplementedError(
-        "sync_tenant_shards needs parallel/multihost, not ported yet (ROADMAP item 5); "
-        "export_rows + ingest_rows move rows by hand"
-    )
+    """One anti-entropy round for the serving tier across hosts: export
+    ``handoff`` rows (typically tenants this host holds but no longer
+    owns — post-failover, post-rebalance), gather every host's export
+    over ``multihost.sync_tenant_rows`` under ``retry=``, and join what
+    this host owns. Single-process runs degenerate to a self-gather (the
+    same code path the two-process runs drive)."""
+    from ..parallel import multihost
+
+    wire = export_rows(sb, handoff)
+    bytes_shipped = sum(a.nbytes for a in wire.values())
+    gathered = multihost.sync_tenant_rows(wire, retry=retry)
+    joined = 0
+    me = multihost.process_index()
+    for p, remote in enumerate(gathered):
+        if p == me and len(gathered) > 1:
+            continue  # own export: nothing new to join
+        joined += ingest_rows(sb, shard_map, host, remote, evictor=evictor)
+    metrics.count("serve.shard.rows_shipped", len(handoff))
+    metrics.count("serve.shard.rows_joined", joined)
+    return ShardSyncReport(tenants_shipped=len(handoff), tenants_joined=joined,
+                           bytes_shipped=bytes_shipped)
 
 
 __all__ = [

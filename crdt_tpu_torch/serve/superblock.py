@@ -30,6 +30,9 @@ dispatch's one host sync — and runs the retry loop.
 
 from __future__ import annotations
 
+import contextlib
+import gc
+import threading
 import time
 from collections import deque
 from typing import Dict, Optional
@@ -100,6 +103,46 @@ def _layout(state, slab, idx):
             tuple((x.shape, x.dtype) for x in slab), idx.shape)
 
 
+class _Captures:
+    """The dispatch captures in flight in this process, and what was
+    dropped during them. A CUDA graph destroyed while another graph
+    captures invalidates that capture (``cudaErrorStreamCaptureInvalidated``):
+    the last reference to a ``Superblock`` can go from any thread, or
+    through the collector inside the capture itself. So a dropped
+    :class:`_SlabGraph` releases its graph at once only when no capture
+    is in flight; otherwise the graph (and the static tensors of its
+    private pool) waits here until the last capture ends. The lock
+    serialises releases against capture starts; it is never held across
+    a capture, so a release from the capturing thread itself (the
+    collector) cannot deadlock. Automatic collection is off while any
+    capture is in flight."""
+
+    lock = threading.RLock()
+    active = 0
+    collect = False  # the collector's state when the first capture began
+    dropped: list = []
+
+    @staticmethod
+    @contextlib.contextmanager
+    def span():
+        with _Captures.lock:
+            if _Captures.active == 0:
+                _Captures.collect = gc.isenabled()
+                gc.disable()
+            _Captures.active += 1
+        try:
+            yield
+        finally:
+            with _Captures.lock:
+                _Captures.active -= 1
+                if _Captures.active == 0:
+                    for graph, *_ in _Captures.dropped:
+                        graph.reset()
+                    _Captures.dropped = []
+                    if _Captures.collect:
+                        gc.enable()
+
+
 class _SlabGraph:
     """``mesh_serve_apply`` (donated: rows scattered into the superblock's
     own tensors) captured once as a CUDA graph over static slab and index
@@ -125,9 +168,27 @@ class _SlabGraph:
             run()
         torch.cuda.current_stream(dev).wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, stream=side):
+        # "thread_local": an unsafe call (a cudaMalloc, say) from ANOTHER
+        # thread while this one captures is allowed and leaves this
+        # capture whole — the serving loop's persister and the explorer's
+        # tasks issue card work from their own threads. The capturing
+        # thread's own calls stay checked: nothing in the dispatch makes
+        # one, and a graph released in a capture waits (_Captures).
+        with _Captures.span(), torch.cuda.graph(self.graph, stream=side,
+                                                capture_error_mode="thread_local"):
             out = run()
         self.of, self.tel = out[1], (out[2] if telemetry else None)
+
+    def __del__(self):
+        graph = getattr(self, "graph", None)
+        if graph is None:
+            return
+        with _Captures.lock:
+            if _Captures.active:
+                # The graph and the static tensors of its private pool.
+                _Captures.dropped.append((graph, dict(vars(self))))
+            else:
+                graph.reset()
 
     def fits(self, state, slab, idx) -> bool:
         return _layout(state, slab, idx) == self.key

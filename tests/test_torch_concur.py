@@ -220,8 +220,9 @@ def test_retry_timeout_lint_fires_on_twin():
 
 
 def test_retry_timeout_lint_looks_for_the_port_s_collectives():
-    """A timed retry reaching ``parallel.collectives.ppermute`` fires; one
-    reaching only a JAX multihost name (absent from the port) does not."""
+    """A timed retry reaching ``parallel.collectives.ppermute`` fires, and
+    so does one reaching the multihost exchange ``_allgather_host`` (the
+    JAX lint's name, which the port's ``parallel/multihost.py`` has)."""
     from crdt_tpu_torch.parallel import collectives
 
     assert {"ppermute", "psum", "pmax", "all_reduce_join"} <= set(collectives.__all__)
@@ -240,7 +241,7 @@ def test_retry_timeout_lint_looks_for_the_port_s_collectives():
         def exchange(self, tree, perm):
             return with_retries(self.hop, timeout=2.0)  # noqa: F821
 
-    assert concur.retry_timeout_collective_violations(objs=(_Jaxish,)) == []
+    assert len(concur.retry_timeout_collective_violations(objs=(_Jaxish,))) == 1
     assert len(concur.retry_timeout_collective_violations(objs=(_Ring,))) == 1
 
 

@@ -8,8 +8,10 @@ stream from blocks on the card and on the CPU; the durability core on the
 card (a logged ring and its recovery, a stream resumed from its log, the
 crashpoint diagonal and a checkpoint round trip); the serving tier's slab
 apply on the card against the CPU, and one dispatch under sync debug
-"error"; the fan-out plane's K3 instance through ``mesh_fanout_push``
-(once a dispatch, == its plain version and the CPU), a resync through
+"error", and a dispatch capture that survives a superblock dropped (or a
+block allocated) during it; the fan-out plane's K3 instance through
+``mesh_fanout_push`` (once a dispatch, == its plain version and the CPU),
+a resync through
 ``bootstrap`` on card tensors, and the fan-out probes; the telemetry
 sidecar of a small δ ring and of one fan-out dispatch on the card equal
 to the same calls on the CPU; the nested kinds' fused level fold (K1 or
@@ -495,6 +497,68 @@ def test_an_apply_async_holds_no_host_sync(card, kind):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     q._finish(built, pend, None)
+
+
+@pytest.mark.parametrize("how", ["dropping thread", "collector", "allocating thread"])
+def test_a_superblock_dropped_mid_capture_leaves_the_capture_whole(card, how, monkeypatch):
+    """While a second ``Superblock`` captures its first dispatch, the last
+    reference to a first one, which holds a captured dispatch graph,
+    goes: from another thread, or through the collector (a reference
+    cycle collected from a hook inside the capture). Or another thread
+    allocates a fresh block on the card (the capture's error mode). The
+    capture completes, and the second superblock's rows equal the
+    CPU's."""
+    import gc
+    import threading
+
+    from crdt_tpu_torch.serve import superblock as sbm
+
+    collecting = gc.isenabled()
+    gc.disable()  # the cycle below goes only when the hook collects it
+    try:
+        first, q1 = _served("orswot", card)
+        chip_smoke.serve_drain(q1)
+        assert first._graphs, "the first superblock holds no captured graph"
+        first.cycle = first
+        holder = [(first, q1)]
+        del first, q1
+        junk, errors, fired = [], [], []
+
+        def drop():
+            try:
+                if how == "allocating thread":
+                    junk.append(torch.empty((1 << 30) + 4096, dtype=torch.uint8, device=card))
+                    return
+                holder.clear()
+                gc.collect()
+            except Exception as exc:  # reported below, on the test's thread
+                errors.append(exc)
+
+        real = sbm.mesh_serve_apply
+
+        def hooked(*args, **kw):
+            if torch.cuda.is_current_stream_capturing() and not fired:
+                fired.append(True)
+                if how == "collector":
+                    drop()
+                else:
+                    t = threading.Thread(target=drop, name="drop-superblock", daemon=True)
+                    t.start()
+                    t.join(60)
+                    assert not t.is_alive()
+            return real(*args, **kw)
+
+        monkeypatch.setattr(sbm, "mesh_serve_apply", hooked)
+        on_card, q_card = _served("orswot", card, seed=6)
+        on_cpu, q_cpu = _served("orswot", torch.device("cpu"), seed=6)
+        assert chip_smoke.serve_drain(q_card) == chip_smoke.serve_drain(q_cpu)
+        torch.cuda.synchronize(card)
+    finally:
+        if collecting:
+            gc.enable()
+    assert fired and not errors and bool(holder) == (how == "allocating thread"), (fired, errors)
+    assert chip_smoke.same_leaves(
+        type(on_cpu.state)(*(x.cpu() for x in on_card.state)), on_cpu.state)
 
 
 def test_the_serve_scenarios_phase_on_the_card(card):

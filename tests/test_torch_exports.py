@@ -25,9 +25,7 @@ JAX_ONLY = {
 
 # Names and modules of open ROADMAP items: name (or (module, name), or a
 # module path) -> the item that ports it.
-OPEN_ITEMS = {
-    "multihost": "5",
-}
+OPEN_ITEMS = {}
 # Open names the port already defines as a stub that raises naming its item.
 STUBS = set()
 # Names the port must have and call: every package's static-check section

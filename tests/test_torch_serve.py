@@ -439,8 +439,13 @@ def test_unported_modes_raise_naming_their_items():
                                   telemetry=True)):
         assert isinstance(call(), tele.Telemetry)
     assert tele.to_dict(sb.annotate(zeros))["live_tenants"] == 4
-    with pytest.raises(NotImplementedError, match="item 5"):
-        serve.sync_tenant_shards(sb, serve.TenantShardMap(1), 0, [0])
+    # ROADMAP item 5a is ported: one process's round is a self-gather that
+    # ships the handed-off row and joins it back into the tenant it owns.
+    q.add(0, 0, 1, mask(3))
+    q.drain()
+    rep = serve.sync_tenant_shards(sb, serve.TenantShardMap(1), 0, [0])
+    assert (rep.tenants_shipped, rep.tenants_joined) == (1, 1) and rep.bytes_shipped > 0
+    assert list(np.flatnonzero(np.asarray(sb.read(0)))) == [3]
     # ROADMAP item 16 is ported: the serve section runs clean, and the WAL
     # ordering detector passes the honest queue and loop.
     assert serve.static_checks(device="cpu") == []
