@@ -458,6 +458,18 @@ at first use), then runs, printing one JSON line per phase:
                         (4) launches held against their plain versions;
                         per-process fold walls, exchange bytes and ms, local
                         fold ms, against the single-process fold's wall.
+                        Then the δ rings across the processes (ROADMAP 32):
+                        the dense ring at config 3's cut (R = 2,048, cap
+                        4,096, ``full_width_delta``'s fill), the Map ring at
+                        R = 8 (``full_width_delta_map``'s fill; keys cut to
+                        250,000) and both nested rings at the tests' sizes,
+                        each fused (K3 counted: once a round on each process;
+                        then every launch held against the plain pack),
+                        layered and (dense, Map) acked, == the single-process
+                        ring on P = 8 (rows, dirty, flags, residue 0, stats)
+                        == the mesh fold; every other fold and gossip kind
+                        at the tests' sizes == the single-process entry;
+                        ring walls both ways, exchange ms and bytes a round.
 
 Then the ``nvidia-smi`` name/power-limit line, a ``kernels`` JSON line, and
 as the last line ``{"ok": true, "device": {...}}``. Any failed check raises
@@ -10753,6 +10765,296 @@ def mh_exchange() -> tuple:
             snap["counters"].get("multihost.bytes_sent", 0))
 
 
+# The δ rings and the other fold and gossip kinds across processes
+# (ROADMAP item 32): each ring's whole batch is drawn on P = 8 global
+# ranks by its fill, and a process keeps its rows.
+MH_CAP = 4096          # the dense and Map rings' cap (full_width_delta's)
+MH_MAP_R = 8           # the Map ring's rows: config 4's R (bench.py), one a rank
+# The Map ring's keys: config 4's 1M cut 4× for the phase's time (its
+# rounds are device-bound sorts over the key axis); each actor's 1,024
+# ops are the uncut fill's, the parked key masks on the wire shrink with K.
+MH_DELTA_MAP_K = 250_000
+MH_NEST_R = 32         # the nested rings' rows (their fill parks on 3 replicas a rank)
+MH_NEST_WIDTHS = dict(k=100, m=20, k1=10, k2=10)   # the nested rings at the tests' sizes
+MH_NEST_CAP = 512
+MH_SMALL_R = 8         # the other kinds' rows: one a global rank
+# Timed fused rings of each kind on both sides (a Map ring at K = 1M takes
+# ≈ 2.6 s of sorts; the nested rings are gates only).
+MH_RING_SAMPLES = {"dense": 3, "map": 1, "map_orswot": 0, "map3": 0}
+MH_RINGS = {"dense": ("mesh_delta_gossip", MH_CAP), "map": ("mesh_delta_gossip_map", MH_CAP),
+            "map_orswot": ("mesh_delta_gossip_map_orswot", MH_NEST_CAP),
+            "map3": ("mesh_delta_gossip_map3", MH_NEST_CAP)}
+
+
+def mh_ring_inputs(kind: str, seed: int, device, r: int, e: int, a: int, d: int, k: int,
+                   s: int, map_a: int) -> tuple:
+    """One δ ring's whole batch ``(state, dirty, fctx)`` on P = 8 global
+    ranks: config 3's dense fill at ``r`` × ``e`` × ``a``
+    (``full_width_delta``'s), config 4's Map fill at R = 8 × ``k`` keys, at
+    most ``MH_DELTA_MAP_K`` (``full_width_delta_map``'s: K/20 keys written
+    with dense counters, inside the wire's ±32 Ki window; with one replica
+    a rank none parks ahead of its top), or a nested fill at the tests'
+    sizes."""
+    p = MH_PROCESSES * MH_LOCAL_RANKS
+    if kind == "dense":
+        out = fill_delta_config3(r, e, a, d, p, seed, device)
+    elif kind == "map":
+        out = fill_delta_config4(MH_MAP_R, min(k, MH_DELTA_MAP_K), s, map_a, 4, p, seed, device,
+                                 n_des=0)
+    else:
+        out = fill_delta_nest(kind, MH_NEST_R, p, seed, device, chunk=MH_NEST_R,
+                              **MH_NEST_WIDTHS)
+    return out[:3]
+
+
+def mh_ring_digest(out) -> dict:
+    """A δ ring's result, rank by rank: every leaf's digest of each rank's
+    row and dirty row, the flags and the residue."""
+    import torch
+
+    from crdt_tpu_torch.ops.lattice import tree_map
+
+    rows, dirty, of, residue = out[:4]
+    return {"rows": [leaf_digests(tree_map(lambda x: x[q], rows)) for q in range(dirty.shape[0])],
+            "dirty": [leaf_digests(dirty[q]) for q in range(dirty.shape[0])],
+            "overflow": torch.atleast_1d(of).tolist(), "residue": int(residue)}
+
+
+def mh_rows_equal_fold(kind: str, rows, folded) -> bool:
+    return (rows_equal_fold if kind in ("dense", "map") else nest_rows_equal_fold)(rows, folded)
+
+
+def mh_fold_of(kind: str):
+    from crdt_tpu_torch import parallel
+
+    return {"dense": parallel.mesh_fold, "map": parallel.mesh_fold_map,
+            "map_orswot": parallel.mesh_fold_map_orswot, "map3": parallel.mesh_fold_map3}[kind]
+
+
+def mh_leaf_counter(kind: str):
+    """The local fold's kernel of a ring: K2 for the Map, K1 otherwise."""
+    from crdt_tpu_torch.ops import fold_kernels as fk
+
+    return fk.fold_cells if kind == "map" else fk.fold_entries
+
+
+def mh_single_ring(kind: str, inputs: tuple, device, samples: int) -> dict:
+    """The single-process ring on P = 8 virtual ranks: certified fused
+    (its budget, the one the processes run), == layered (== acked for the
+    dense and Map rings) == the mesh fold, and the fused ring's walls."""
+    from crdt_tpu_torch import parallel
+
+    name, cap = MH_RINGS[kind]
+    ring = getattr(parallel, name)
+    st, dirty, fctx = inputs
+    p = MH_PROCESSES * MH_LOCAL_RANKS
+    mesh = parallel.VirtualMesh(p, device)
+    backlog = int(dirty.view(p, dirty.shape[0] // p, -1).any(1).sum(-1).max())
+    fused, rounds, stats, attempts, _ = certify_ring(
+        lambda rounds, stats: ring(st, dirty, fctx, mesh, rounds=rounds, cap=cap, stats=stats),
+        backlog, p, cap, (), lambda: sync(device))
+    check(not any(mh_ring_digest(fused)["overflow"]), f"{kind}: the single-process ring overflowed")
+    layered = ring(st, dirty, fctx, mesh, rounds=rounds, cap=cap, fused=False)
+    check(same_leaves(fused[:2], layered[:2]) and int(layered[3]) == 0,
+          f"{kind}: the single-process fused ring != the layered ring")
+    del layered
+    if kind in ("dense", "map"):
+        acked = ring(st, dirty, fctx, mesh, rounds=rounds, cap=cap, ack_window=True)
+        check(same_leaves(fused[0], acked[0]) and int(acked[3]) == 0,
+              f"{kind}: the single-process acked ring != the unacked ring")
+        del acked
+    folded, of = mh_fold_of(kind)(st, mesh)
+    check(not bool(of.any()) and mh_rows_equal_fold(kind, fused[0], folded),
+          f"{kind}: the single-process ring rows != the mesh fold")
+    walls = []
+    for _ in range(samples):
+        sync(device)
+        t0 = time.perf_counter()
+        ring(st, dirty, fctx, mesh, rounds=rounds, cap=cap)
+        sync(device)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return {"rounds": rounds, "backlog": backlog, "attempts": attempts, "stats": stats,
+            "digest": mh_ring_digest(fused), "wall_ms": walls}
+
+
+def mh_cross_ring(kind: str, inputs: tuple, rounds: int, mesh, device, samples: int) -> dict:
+    """One δ ring across the processes, this process's rows: fused with
+    the launches counted (K3 set to 0 just before and read just after,
+    the local fold's kernel with it), again with every K3 launch held
+    against the plain pack, layered and (dense, Map) acked, all equal;
+    == the cross-process mesh fold; then the fused ring's walls, its
+    exchange ms and bytes."""
+    import torch.distributed as dist
+
+    from crdt_tpu_torch import parallel
+    from crdt_tpu_torch.ops.wire_kernels import wire_pack
+
+    name, cap = MH_RINGS[kind]
+    ring = getattr(parallel, name)
+    st, dirty, fctx = inputs
+    leaf = mh_leaf_counter(kind)
+    stats = {}
+    sync(device)
+    wire_pack.launches = wire_pack.acked_launches = leaf.launches = 0
+    fused = ring(st, dirty, fctx, mesh, rounds=rounds, cap=cap, stats=stats)
+    sync(device)
+    out = {"k3_launches": wire_pack.launches, "leaf_launches": leaf.launches, "stats": stats,
+           "digest": mh_ring_digest(fused)}
+    with K3Checked() as k3c:
+        checked = ring(st, dirty, fctx, mesh, rounds=rounds, cap=cap)
+    out.update(k3_checked=k3c.calls, k3_max_abs_err=k3c.max_abs_err,
+               checked_same=same_leaves(checked[:2], fused[:2]))
+    del checked
+    layered = ring(st, dirty, fctx, mesh, rounds=rounds, cap=cap, fused=False)
+    out["layered_same"] = same_leaves(layered[:2], fused[:2]) and int(layered[3]) == 0
+    del layered
+    if kind in ("dense", "map"):
+        wire_pack.launches = wire_pack.acked_launches = 0
+        acked = ring(st, dirty, fctx, mesh, rounds=rounds, cap=cap, ack_window=True)
+        sync(device)
+        out.update(acked_launches=[wire_pack.launches, wire_pack.acked_launches],
+                   acked_same=same_leaves(acked[0], fused[0]) and int(acked[3]) == 0)
+        del acked
+    folded, of = mh_fold_of(kind)(st, mesh)
+    out["equals_fold"] = not bool(of.any()) and mh_rows_equal_fold(kind, fused[0], folded)
+    del folded, fused
+    walls, exchange = [], []
+    for _ in range(samples):
+        sync(device)
+        dist.barrier()
+        x0, t0 = mh_exchange(), time.perf_counter()
+        ring(st, dirty, fctx, mesh, rounds=rounds, cap=cap)
+        sync(device)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        x1 = mh_exchange()
+        exchange.append(((x1[0] - x0[0]) * 1e3, x1[1] - x0[1]))
+    out.update(wall_ms=walls, exchange_ms=[x for x, _ in exchange],
+               exchange_bytes=[b for _, b in exchange])
+    return out
+
+
+def mh_small_kinds(seed: int, device) -> dict:
+    """Every other fold and gossip entry at the tests' sizes, each on a
+    batch of ``MH_SMALL_R`` rows: ``name → (entry, state, extra
+    arguments)``."""
+    import torch
+
+    from crdt_tpu_torch._dtypes import from_wide
+    from crdt_tpu_torch.models import BatchedMVReg
+    from crdt_tpu_torch.ops import sparse_nest
+    from crdt_tpu_torch.ops.lwwreg import LWWState
+    from crdt_tpu_torch.pure import MVReg
+    from crdt_tpu_torch.utils import Interner
+
+    r = MH_SMALL_R
+    rng = random.Random(seed + 32)
+    gen = torch.Generator(device=device).manual_seed(seed + 32)
+
+    def draw(hi, shape):
+        return torch.randint(0, hi, shape, generator=gen, device=device, dtype=torch.int64)
+
+    mp = mh_map_rows(seed, range(r), r, 64, 2, 4, 4, device)
+    sparse = sparse_actor_population(r, 256, 4096, 4, 256, device, seed=seed)
+    smv = mh_sparse_rows(range(r), device)
+    snest = nested_population(r, 256, 1024, 256, 4, 4, device, n_parked=4, rm_width=16,
+                              seed=seed)
+    level = sparse_nest.level_map_orswot(4)
+    nests = {kind: nest_model(kind, nest_population(kind, rng, r)[0], device).state
+             for kind in ("map_orswot", "map_map", "map3")}
+    has = draw(10, (r,)) < 7
+    lww = LWWState(hi=from_wide(draw(2, (r,)) * 0xFFFFFFFF, torch.uint32),
+                   lo=from_wide(draw(4, (r,)), torch.uint32),
+                   val=torch.where(has, draw(12, (r,)), 0).to(torch.int32), has=has)
+    sites = [MVReg() for _ in range(r)]
+    for _ in range(30):
+        i = rng.randrange(r)
+        op = sites[i].write(f"v{rng.randrange(5)}", sites[i].read().derive_add_ctx(
+            rng.choice("abcd")))
+        sites[i].apply(op)
+        if rng.random() < 0.4:
+            sites[rng.randrange(r)].merge(sites[i].clone())
+    mv = BatchedMVReg.from_pure(sites, actors=Interner(sorted("abcd")), values=Interner(),
+                                device=device).state
+    return {
+        "mesh_gossip_map": ("mesh_gossip_map", mp, ()),
+        "mesh_fold_sparse": ("mesh_fold_sparse", sparse, ()),
+        "mesh_gossip_sparse": ("mesh_gossip_sparse", sparse, ()),
+        "mesh_gossip_sparse_mvmap": ("mesh_gossip_sparse_mvmap", smv, (None, 4)),
+        "mesh_fold_sparse_nested": ("mesh_fold_sparse_nested", snest, (level,)),
+        "mesh_gossip_sparse_nested": ("mesh_gossip_sparse_nested", snest, (level,)),
+        "mesh_fold_map_orswot": ("mesh_fold_map_orswot", nests["map_orswot"], ()),
+        "mesh_gossip_map_orswot": ("mesh_gossip_map_orswot", nests["map_orswot"], ()),
+        "mesh_fold_map3": ("mesh_fold_map3", nests["map3"], ()),
+        "mesh_gossip_map3": ("mesh_gossip_map3", nests["map3"], ()),
+        "mesh_fold_nested_map": ("mesh_fold_nested_map", nests["map_map"], ()),
+        "mesh_gossip_nested_map": ("mesh_gossip_nested_map", nests["map_map"], ()),
+        "mesh_fold_lww": ("mesh_fold_lww", lww, ()),
+        "mesh_fold_mvreg": ("mesh_fold_mvreg", mv, ()),
+        "mesh_fold_clocks": ("mesh_fold_clocks", from_wide(draw(1 << 32, (r, 6)), torch.uint32),
+                             ()),
+        "mesh_fold_clocks_u64": ("mesh_fold_clocks",
+                                 from_wide(draw(1 << 62, (r, 6)), torch.uint64), ()),
+        "mesh_fold_gset": ("mesh_fold_gset", draw(10, (r, 33)) == 0, ()),
+    }
+
+
+def mh_small_digests(cases: dict, mesh, rows=None) -> dict:
+    """Each small case's entry on ``mesh`` (this process's ``rows`` of its
+    batch across processes): a fold's state digests, a gossip's per rank,
+    and the flags."""
+    import torch
+
+    from crdt_tpu_torch import parallel
+    from crdt_tpu_torch.ops.lattice import tree_leaves, tree_map
+
+    out = {}
+    for name, (entry, state, args) in cases.items():
+        if rows is not None:
+            state = tree_map(lambda x: x[rows], state)
+        got = getattr(parallel, entry)(state, mesh, *args)
+        if not isinstance(got, tuple):  # the clock and set folds: the state alone
+            out[name] = {"state": leaf_digests(got)}
+            continue
+        flags = torch.atleast_1d(got[1]).tolist()
+        if "gossip" in entry:
+            ranks = tree_leaves(got[0])[0].shape[0]
+            out[name] = {"rows": [leaf_digests(tree_map(lambda x: x[q], got[0]))
+                                  for q in range(ranks)], "flags": flags}
+        else:
+            out[name] = {"state": leaf_digests(got[0]), "flags": flags}
+    return out
+
+
+def mh_ring_report(kind: str, single: dict, cross: list) -> dict:
+    """One ring's figures: the budget, the single-process and per-process
+    walls, exchange ms per round and bytes per round across the process
+    boundary (each process's one outgoing boundary link), and the launch
+    counts."""
+    med = statistics.median
+    rounds = single["rounds"]
+    out = {"rounds": rounds, "backlog_max_per_rank": single["backlog"],
+           "attempts": single["attempts"],
+           "wire_bytes_per_link_round": single["stats"].get("wire_bytes"),
+           "layered_packet_bytes_per_link_round": single["stats"].get("packet_bytes"),
+           "slots_shipped": single["stats"]["slots_shipped"]}
+    if not single["wall_ms"]:
+        return out
+    out.update(
+        single_process_wall_ms=single["wall_ms"],
+        single_process_wall_ms_median=med(single["wall_ms"]),
+        workers=[{"process": pid, "k3_launches": x["k3_launches"],
+                  "leaf_kernel_launches": x["leaf_launches"],
+                  "acked_launches": x.get("acked_launches"), "wall_ms": x["wall_ms"],
+                  "wall_ms_median": med(x["wall_ms"]),
+                  "exchange_ms_per_round": [t / rounds for t in x["exchange_ms"]],
+                  "exchange_bytes_per_round": [b / rounds for b in x["exchange_bytes"]]}
+                 for pid, x in enumerate(cross)],
+    )
+    out["cross_over_single"] = (max(w["wall_ms_median"] for w in out["workers"])
+                                / out["single_process_wall_ms_median"])
+    return out
+
+
 def multihost_worker(spec: str, seed: int) -> int:
     """One process of the ``multihost`` phase: ``spec`` is
     ``port,process,n_processes,device,root,r,e,a,d,map_r,k,s,map_a``. It
@@ -10761,12 +11063,17 @@ def multihost_worker(spec: str, seed: int) -> int:
     ``mesh_fold_sparse_mvmap`` on ``global_mesh(local_ranks=4)`` (every K1
     and K2 launch held against its plain version, the counts reset just
     before and read just after), the list rounds and the tenant handoff;
-    then times the dense fold. Writes ``root/worker<process>.json``."""
+    then times the dense fold; then runs the four δ rings on its rows of
+    their batches at the budgets of ``root/rounds.json``
+    (:func:`mh_cross_ring`) and every other fold and gossip kind
+    (:func:`mh_small_kinds`). Writes ``root/worker<process>.json``."""
     import torch
     import torch.distributed as dist
 
+    from crdt_tpu_torch._dtypes import bits
     from crdt_tpu_torch.ops import fold_kernels as fk
     from crdt_tpu_torch.ops.fold_kernels import fold_auto
+    from crdt_tpu_torch.ops.lattice import tree_map
     from crdt_tpu_torch.parallel import (
         mesh_fold, mesh_fold_map, mesh_fold_sparse_mvmap, mesh_gossip, multihost,
     )
@@ -10817,6 +11124,25 @@ def multihost_worker(spec: str, seed: int) -> int:
         local = [time_ms(lambda: local_folds(blocks, fold_auto), device) for _ in range(3)]
         out.update(rows=hi - lo, wall_ms=walls, exchange_ms=[x for x, _ in exchange],
                    exchange_bytes=[b for _, b in exchange], local_fold_ms=local)
+        del blocks, dense
+        # The δ rings across processes at the single-process ring's budget,
+        # then every other fold and gossip kind at the tests' sizes.
+        with open(os.path.join(root, "rounds.json")) as f:
+            rounds = json.load(f)
+        out["rings"] = {}
+        for kind in MH_RINGS:
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+            batch = mh_ring_inputs(kind, seed, device, r, e, a, d, k, s, map_a)
+            mine = slice(pid * batch[1].shape[0] // n, (pid + 1) * batch[1].shape[0] // n)
+            inputs = tuple(tree_map(lambda x: bits(x[mine]).clone().view(x.dtype), t)
+                           for t in batch)
+            del batch
+            out["rings"][kind] = mh_cross_ring(kind, inputs, rounds[kind], mesh, device,
+                                               MH_RING_SAMPLES[kind])
+            del inputs
+        out["small"] = mh_small_digests(mh_small_kinds(seed, device), mesh,
+                                        slice(pid * MH_SMALL_R // n, (pid + 1) * MH_SMALL_R // n))
         with open(os.path.join(root, f"worker{pid}.json"), "w") as f:
             json.dump(out, f)
     finally:
@@ -10837,8 +11163,10 @@ def phase_multihost(device, seed: int, r: int = 2048, e: int = 102400, a: int = 
     single-process folds of the whole batches on P = 8 virtual ranks
     first (the dense one timed), then two worker processes of this script
     (:func:`multihost_worker`), each on 4 local ranks of the same card,
-    exchanging host copies over gloo. Every cross-process result must
-    equal the single-process one leaf for leaf."""
+    exchanging host copies over gloo; then the δ rings and every other
+    fold and gossip kind across them (module docstring, phase 42). Every
+    cross-process result must equal the single-process one leaf for
+    leaf."""
     import socket
     import statistics as st
     import tempfile
@@ -10851,7 +11179,8 @@ def phase_multihost(device, seed: int, r: int = 2048, e: int = 102400, a: int = 
 
     t_phase = time.perf_counter()
     out = {"phase": "multihost", "nvidia_smi": card_label(device), "processes": MH_PROCESSES,
-           "local_ranks": MH_LOCAL_RANKS, "R": r, "E": e, "A": a, "map_R": map_r, "K": k}
+           "local_ranks": MH_LOCAL_RANKS, "R": r, "E": e, "A": a, "map_R": map_r, "K": k,
+           "delta_map_K": min(k, MH_DELTA_MAP_K)}
     if device.type == "cuda":
         mode = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
                               capture_output=True, text=True, check=True).stdout.strip()
@@ -10880,6 +11209,16 @@ def phase_multihost(device, seed: int, r: int = 2048, e: int = 102400, a: int = 
     ref.update(map=leaf_digests(mwant), sparse=leaf_digests(swant))
     lists = mh_list_reference(device)
     del mwant, swant
+    # The δ rings on P = 8 virtual ranks (their budgets go to the
+    # workers), then the other kinds at the tests' sizes.
+    rings = {}
+    for kind in MH_RINGS:
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        inputs = mh_ring_inputs(kind, seed, device, r, e, a, d, k, s, map_a)
+        rings[kind] = mh_single_ring(kind, inputs, device, MH_RING_SAMPLES[kind])
+        del inputs
+    small = mh_small_digests(mh_small_kinds(seed, device), mesh)
     if device.type == "cuda":
         torch.cuda.empty_cache()  # the workers need the card's memory
 
@@ -10887,6 +11226,8 @@ def phase_multihost(device, seed: int, r: int = 2048, e: int = 102400, a: int = 
         sk.bind(("127.0.0.1", 0))
         port = sk.getsockname()[1]
     root = tempfile.mkdtemp(prefix="chip-smoke-multihost-")
+    with open(os.path.join(root, "rounds.json"), "w") as f:
+        json.dump({kind: ring["rounds"] for kind, ring in rings.items()}, f)
     spec = lambda pid: ",".join(map(str, (port, pid, MH_PROCESSES, device, root, r, e, a,  # noqa: E731
                                            d, map_r, k, s, map_a)))
     t0 = time.perf_counter()
@@ -10934,6 +11275,38 @@ def phase_multihost(device, seed: int, r: int = 2048, e: int = 102400, a: int = 
         check(max(w["max_abs_err"].values()) == 0,
               f"worker {pid}: a K1/K2 launch != its plain version: {w['max_abs_err']}")
     check(lists[0][-1][0] == lists[1][-1][0], "the two list models read differently")
+    for pid, w in enumerate(workers):
+        ranks = slice(pid * MH_LOCAL_RANKS, (pid + 1) * MH_LOCAL_RANKS)
+        for kind, x in w["rings"].items():
+            ref, dig = rings[kind], x["digest"]
+            rounds = ref["rounds"]
+            check(dig["rows"] == ref["digest"]["rows"][ranks]
+                  and dig["dirty"] == ref["digest"]["dirty"][ranks]
+                  and dig["overflow"] == ref["digest"]["overflow"]
+                  and dig["residue"] == ref["digest"]["residue"] == 0,
+                  f"worker {pid}: the cross-process {kind} ring != the single-process ring")
+            check(x["stats"] == ref["stats"],
+                  f"worker {pid}: {kind} ring stats {x['stats']} != {ref['stats']}")
+            check(x["equals_fold"] and x["layered_same"] and x["checked_same"]
+                  and x.get("acked_same", True),
+                  f"worker {pid}: the {kind} ring's fused, layered, acked rows and the mesh fold "
+                  f"disagree: {x}")
+            check(x["k3_max_abs_err"] == 0,
+                  f"worker {pid}: a {kind} ring launch of K3 != the plain pack "
+                  f"({x['k3_max_abs_err']})")
+            if on_card:
+                check(x["k3_launches"] == x["k3_checked"] == rounds
+                      and x["leaf_launches"] == MH_LOCAL_RANKS
+                      and x.get("acked_launches", [rounds, rounds]) == [rounds, rounds],
+                      f"worker {pid}: the {kind} ring launched K3 {x['k3_launches']} times "
+                      f"({x['k3_checked']} checked, acked {x.get('acked_launches')}) in {rounds} "
+                      f"rounds and its local fold's kernel {x['leaf_launches']} times")
+        for name, got in w["small"].items():
+            want = small[name]
+            if "rows" in want:
+                want = {"rows": want["rows"][ranks], "flags": want["flags"]}
+            check(got == want, f"worker {pid}: the cross-process {name} != the single-process "
+                               f"entry")
     med = st.median
     out.update(
         single_process_fold_ms=walls, single_process_fold_ms_median=med(walls),
@@ -10945,6 +11318,10 @@ def phase_multihost(device, seed: int, r: int = 2048, e: int = 102400, a: int = 
         cross_over_single=(max(med(w["wall_ms"]) for w in workers) / med(walls)),
         k1_max_abs_err=max(w["max_abs_err"]["k1"] for w in workers),
         k2_max_abs_err=max(w["max_abs_err"]["k2"] for w in workers),
+        k3_max_abs_err=max(x["k3_max_abs_err"] for w in workers for x in w["rings"].values()),
+        rings={kind: mh_ring_report(kind, ring, [w["rings"][kind] for w in workers])
+               for kind, ring in rings.items()},
+        small_kinds=sorted(small),
         phase_s=time.perf_counter() - t_phase,
     )
     emit(out)
@@ -11134,7 +11511,8 @@ def main(argv=None) -> int:
                            res["chaos"]["k3_max_abs_err"],
                            res["obs_scenarios"]["k3_max_abs_err"],
                            res["scaleout"]["k3_max_abs_err"],
-                           res["static"]["k3_max_abs_err"]),
+                           res["static"]["k3_max_abs_err"],
+                           res["multihost"]["k3_max_abs_err"]),
         "ms": delta["k3_ms_median"],
         "plain_ms": delta["k3_plain_ms"],
         "bound_ms": delta["k3_bound_ms"],

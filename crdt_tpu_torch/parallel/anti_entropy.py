@@ -63,15 +63,16 @@ a rounds counter, ``anti_entropy.merges`` (the folds),
 the padded input, and the ``anti_entropy.<kind>`` timer around the
 device work (the card is synchronised before it stops).
 
-``mesh_fold``, ``mesh_gossip``, ``mesh_fold_map`` and
-``mesh_fold_sparse_mvmap`` also take a cross-process mesh
+Every fold and gossip entry here also takes a cross-process mesh
 (``multihost.global_mesh``): the state is this process's rows, each
 process folds them on its own ranks, the all-reduce adds a process step
-and the gossip ring runs over every process's ranks
-(``collectives``); the fold returns the global join on every process,
-the ring this process's rows, and the flags are OR-reduced over every
-process. ``telemetry=``, ``stability=``, ``faults=`` and
-``lag_threshold=`` are not taken there (ROADMAP item 32).
+(``mesh_fold_clocks`` a process max, ``mesh_fold_gset`` a process sum)
+and the gossip ring runs over every process's ranks (``collectives``),
+P-1 rounds by default with P the global rank count; the fold returns the
+global join on every process, the ring this process's rows, and the
+flags are OR-reduced over every process. ``telemetry=``, ``stability=``,
+``faults=`` and ``lag_threshold=`` are not taken there, nor is
+``gossip_elastic`` (ROADMAP item 32).
 
 ``faults=`` (a ``faults.FaultPlan``) on the ring entries and
 ``gossip_elastic`` injects the plan's link faults into every exchange:
@@ -364,8 +365,8 @@ def mesh_gossip(
     row is the full join. ``donate=True``: see the module docstring. On a
     cross-process mesh the ring spans every process's ranks (P is the
     global count) and the rows returned are this process's."""
-    procs, mesh = _split_mesh(mesh, "mesh_gossip", telemetry=telemetry, stability=stability,
-                              faults=faults, lag_threshold=lag_threshold)
+    procs, mesh = _split_mesh(mesh, "mesh_gossip", telemetry=telemetry,
+                              stability=stability, faults=faults, lag_threshold=lag_threshold)
     return _gossip("orswot_gossip", state, mesh, rounds, donate, _fold_fn(local_fold), ops.join,
                    telemetry, ops.changed_members, stability=stability, compact_fn=ops.compact,
                    lag_threshold=lag_threshold, faults=faults, procs=procs)
@@ -434,9 +435,7 @@ def _gossip(kind: str, state, mesh: VirtualMesh, rounds: Optional[int], donate: 
                 tel = tel._replace(faults_dropped=fc.packets_dropped,
                                    faults_rejected=fc.packets_rejected,
                                    faults_delayed=fc.packets_delayed)
-        of = torch.any(of, dim=0)
-        if procs is not None:
-            of = multihost.any_across(of, procs)
+        of = torch.any(of, dim=0) if procs is None else psum(of, procs) > 0
         out = _donate_ring(donate, aliasable, state, folded), of
     if telemetry:
         out = (*out, tele.finish_dispatch(kind, tel, t0))
@@ -563,9 +562,12 @@ def mesh_gossip_map(
     then ``rounds`` (default P-1) unit-shift ring rounds, each shipping
     one state per link. Returns ``(states [P, ...], overflow [2])``; with
     P-1 rounds every row is the full join."""
+    procs, mesh = _split_mesh(mesh, "mesh_gossip_map", telemetry=telemetry,
+                              stability=stability, faults=faults, lag_threshold=lag_threshold)
     return _gossip("map_gossip", state, mesh, rounds, donate, map_ops.fold, map_ops.join,
                    telemetry, map_ops.changed_keys, stability=stability,
-                   compact_fn=map_ops.compact, lag_threshold=lag_threshold, faults=faults)
+                   compact_fn=map_ops.compact, lag_threshold=lag_threshold, faults=faults,
+                   procs=procs)
 
 
 def mesh_fold_sparse(
@@ -579,8 +581,9 @@ def mesh_fold_sparse(
     on ``mesh.device``. Returns ``(converged state, overflow [2])`` —
     [dot capacity, deferred capacity]; the Telemetry third with
     ``telemetry=True``."""
+    procs, mesh = _split_mesh(mesh, "mesh_fold_sparse", telemetry=telemetry)
     return _mesh_fold_replicated("sparse_orswot_fold", states, mesh, sp.join, sp.fold,
-                                 sp.changed_dots, telemetry, donate, copies=mesh.s)
+                                 sp.changed_dots, telemetry, donate, copies=mesh.s, procs=procs)
 
 
 def mesh_gossip_sparse(
@@ -599,9 +602,11 @@ def mesh_gossip_sparse(
     ring rounds of ``ops.sparse_orswot.join``, one segment table per link
     per round (traffic proportional to live dots, not the universe).
     Returns ``(states [P, ...], overflow [2])``."""
+    procs, mesh = _split_mesh(mesh, "mesh_gossip_sparse", telemetry=telemetry,
+                              stability=stability, faults=faults, lag_threshold=lag_threshold)
     return _gossip("sparse_gossip", states, mesh, rounds, donate, sp.fold, sp.join, telemetry,
                    sp.changed_dots, copies=mesh.s, stability=stability, compact_fn=sp.compact,
-                   lag_threshold=lag_threshold, faults=faults)
+                   lag_threshold=lag_threshold, faults=faults, procs=procs)
 
 
 def mesh_fold_sparse_mvmap(
@@ -640,11 +645,14 @@ def mesh_gossip_sparse_mvmap(
     ring rounds, one cell table per link per round (traffic proportional
     to live cells, not the key universe). Returns ``(states [P, ...],
     flags [3])``."""
+    procs, mesh = _split_mesh(mesh, "mesh_gossip_sparse_mvmap", telemetry=telemetry,
+                              stability=stability, faults=faults, lag_threshold=lag_threshold)
     return _gossip(f"sparse_mvmap_gossip_s{sibling_cap}", states, mesh, rounds, donate,
                    lambda x: smv.fold(x, sibling_cap=sibling_cap),
                    lambda a, b: smv.join(a, b, sibling_cap=sibling_cap), telemetry,
                    smv.changed_cells, copies=mesh.s, stability=stability,
-                   compact_fn=smv.compact, lag_threshold=lag_threshold, faults=faults)
+                   compact_fn=smv.compact, lag_threshold=lag_threshold, faults=faults,
+                   procs=procs)
 
 
 def _nested_kind(level, op: str) -> str:
@@ -668,9 +676,10 @@ def mesh_fold_sparse_nested(
     Returns ``(state, flags [L+1])``; the Telemetry third with
     ``telemetry=True`` (``slots_changed``: every plane's changed
     entries)."""
+    procs, mesh = _split_mesh(mesh, "mesh_fold_sparse_nested", telemetry=telemetry)
     return _mesh_fold_replicated(_nested_kind(level, "fold"), states, mesh, level.join,
                                  level.fold, tele.generic_slots_changed, telemetry, donate,
-                                 copies=mesh.s)
+                                 copies=mesh.s, procs=procs)
 
 
 def mesh_gossip_sparse_nested(
@@ -688,10 +697,12 @@ def mesh_gossip_sparse_nested(
     ``SparseNestLevel`` composition): each rank folds its block, then
     ``rounds`` (default P-1) unit-shift ring rounds of ``level.join``.
     Returns ``(states [P, ...], flags [L+1])``."""
+    procs, mesh = _split_mesh(mesh, "mesh_gossip_sparse_nested", telemetry=telemetry,
+                              stability=stability, faults=faults, lag_threshold=lag_threshold)
     return _gossip(_nested_kind(level, "gossip"), states, mesh, rounds, donate, level.fold,
                    level.join, telemetry, tele.generic_slots_changed, copies=mesh.s,
                    stability=stability, compact_fn=sparse_nest_ops.compact,
-                   lag_threshold=lag_threshold, faults=faults)
+                   lag_threshold=lag_threshold, faults=faults, procs=procs)
 
 
 # ---- the dense nests (ops.nest) ------------------------------------------------
@@ -709,8 +720,10 @@ def mesh_fold_map_orswot(state, mesh: VirtualMesh, telemetry: bool = False,
     all-reduce over the ranks. Returns ``(state, flags [2])``; the
     Telemetry third with ``telemetry=True`` (``slots_changed``: the leaf's
     ``changed_members``)."""
+    procs, mesh = _split_mesh(mesh, "mesh_fold_map_orswot", telemetry=telemetry)
     return _mesh_fold_replicated("map_orswot_fold", state, mesh, mo_ops.join, mo_ops.fold,
-                                 _leaf_members_changed(lambda s: s.core), telemetry, donate)
+                                 _leaf_members_changed(lambda s: s.core), telemetry, donate,
+                                 procs=procs)
 
 
 def mesh_gossip_map_orswot(state, mesh: VirtualMesh, rounds: Optional[int] = None,
@@ -719,9 +732,12 @@ def mesh_gossip_map_orswot(state, mesh: VirtualMesh, rounds: Optional[int] = Non
     """Ring anti-entropy for ``Map<K, Orswot>`` replica blocks: each rank
     folds its block, then ``rounds`` (default P-1) unit-shift ring rounds
     of ``map_orswot.join``. Returns ``(states [P, ...], flags [2])``."""
+    procs, mesh = _split_mesh(mesh, "mesh_gossip_map_orswot", telemetry=telemetry,
+                              stability=stability, faults=faults, lag_threshold=lag_threshold)
     return _gossip("map_orswot_gossip", state, mesh, rounds, donate, mo_ops.fold, mo_ops.join,
                    telemetry, _leaf_members_changed(lambda s: s.core), stability=stability,
-                   compact_fn=mo_ops.compact, lag_threshold=lag_threshold, faults=faults)
+                   compact_fn=mo_ops.compact, lag_threshold=lag_threshold, faults=faults,
+                   procs=procs)
 
 
 def mesh_fold_map3(state, mesh: VirtualMesh, telemetry: bool = False, donate: bool = False):
@@ -729,8 +745,10 @@ def mesh_fold_map3(state, mesh: VirtualMesh, telemetry: bool = False, donate: bo
     (``ops.map3``): each rank's fused level fold (K1 on the leaf, two
     ``settle_outer`` levels), then one lattice-join all-reduce. Returns
     ``(state, flags [3])``; the Telemetry third with ``telemetry=True``."""
+    procs, mesh = _split_mesh(mesh, "mesh_fold_map3", telemetry=telemetry)
     return _mesh_fold_replicated("map3_fold", state, mesh, m3_ops.join, m3_ops.fold,
-                                 _leaf_members_changed(lambda s: s.mo.core), telemetry, donate)
+                                 _leaf_members_changed(lambda s: s.mo.core), telemetry, donate,
+                                 procs=procs)
 
 
 def mesh_gossip_map3(state, mesh: VirtualMesh, rounds: Optional[int] = None,
@@ -738,9 +756,12 @@ def mesh_gossip_map3(state, mesh: VirtualMesh, rounds: Optional[int] = None,
                      faults=None, lag_threshold=None):
     """Ring anti-entropy for ``Map<K1, Map<K2, Orswot>>`` replica blocks.
     Returns ``(states [P, ...], flags [3])``."""
+    procs, mesh = _split_mesh(mesh, "mesh_gossip_map3", telemetry=telemetry,
+                              stability=stability, faults=faults, lag_threshold=lag_threshold)
     return _gossip("map3_gossip", state, mesh, rounds, donate, m3_ops.fold, m3_ops.join,
                    telemetry, _leaf_members_changed(lambda s: s.mo.core), stability=stability,
-                   compact_fn=m3_ops.compact, lag_threshold=lag_threshold, faults=faults)
+                   compact_fn=m3_ops.compact, lag_threshold=lag_threshold, faults=faults,
+                   procs=procs)
 
 
 def mesh_fold_nested_map(state, mesh: VirtualMesh, telemetry: bool = False,
@@ -751,8 +772,10 @@ def mesh_fold_nested_map(state, mesh: VirtualMesh, telemetry: bool = False,
     lattice-join all-reduce. Returns ``(state, flags [3])``; the Telemetry
     third with ``telemetry=True`` (``slots_changed``: the flat map's
     ``changed_keys``)."""
+    procs, mesh = _split_mesh(mesh, "mesh_fold_nested_map", telemetry=telemetry)
     return _mesh_fold_replicated("nested_map_fold", state, mesh, mm_ops.join, mm_ops.fold,
-                                 lambda a, b: map_ops.changed_keys(a.m, b.m), telemetry, donate)
+                                 lambda a, b: map_ops.changed_keys(a.m, b.m), telemetry, donate,
+                                 procs=procs)
 
 
 def mesh_gossip_nested_map(state, mesh: VirtualMesh, rounds: Optional[int] = None,
@@ -760,9 +783,12 @@ def mesh_gossip_nested_map(state, mesh: VirtualMesh, rounds: Optional[int] = Non
                            stability: bool = False, faults=None, lag_threshold=None):
     """Ring anti-entropy for ``Map<K1, Map<K2, MVReg>>`` replica blocks.
     Returns ``(states [P, ...], flags [3])``."""
+    procs, mesh = _split_mesh(mesh, "mesh_gossip_nested_map", telemetry=telemetry,
+                              stability=stability, faults=faults, lag_threshold=lag_threshold)
     return _gossip("nested_map_gossip", state, mesh, rounds, donate, mm_ops.fold, mm_ops.join,
                    telemetry, lambda a, b: map_ops.changed_keys(a.m, b.m), stability=stability,
-                   compact_fn=mm_ops.compact, lag_threshold=lag_threshold, faults=faults)
+                   compact_fn=mm_ops.compact, lag_threshold=lag_threshold, faults=faults,
+                   procs=procs)
 
 
 # ---- the clock, set and register kinds ----------------------------------------
@@ -771,13 +797,16 @@ def mesh_fold_clocks(clocks: torch.Tensor, mesh: VirtualMesh) -> torch.Tensor:
     """Converge a batch of vector clocks ``[R, A]`` (VClock / GCounter /
     PNCounter states) over the mesh: each rank's max over its block, then
     the clock all-reduce over the ranks, on ``mesh.device``. BASELINE
-    configs 1–2 at mesh scale. Returns the converged clock ``[A]``."""
+    configs 1–2 at mesh scale. Returns the converged clock ``[A]``.
+    Across processes the ranks' max is maxed over every process (the
+    clocks ride the exchange as bytes)."""
+    procs, mesh = _split_mesh(mesh, "mesh_fold_clocks")
     pad = (-clocks.shape[0]) % mesh.p
     x = bits(clocks.to(mesh.device))
     if pad:
         x = torch.cat([x, x.new_zeros((pad, x.shape[1]))])
     blocks = x.view(clocks.dtype).reshape(mesh.p, -1, clocks.shape[1])
-    return all_reduce_clock(umax(blocks, 1))[0]
+    return all_reduce_clock(umax(blocks, 1), procs)[0]
 
 
 def mesh_fold_gset(present: torch.Tensor, mesh: VirtualMesh) -> torch.Tensor:
@@ -788,7 +817,9 @@ def mesh_fold_gset(present: torch.Tensor, mesh: VirtualMesh) -> torch.Tensor:
     pads them (the member axis to the mesh's ``s`` shards). Returns the
     converged membership ``[M]``. Counts ``anti_entropy.gset_fold_rounds``,
     observes ``anti_entropy.state_bytes`` and times
-    ``anti_entropy.gset_fold`` (device work included)."""
+    ``anti_entropy.gset_fold`` (device work included). Across processes
+    the sum adds every process's ranks."""
+    procs, mesh = _split_mesh(mesh, "mesh_fold_gset")
     m = present.shape[1]
     x = present.to(mesh.device)
     pad_r, pad_m = (-x.shape[0]) % mesh.p, (-m) % mesh.s
@@ -798,7 +829,7 @@ def mesh_fold_gset(present: torch.Tensor, mesh: VirtualMesh) -> torch.Tensor:
     metrics.observe("anti_entropy.state_bytes", float(x.numel() * x.element_size()))
     with metrics.time("anti_entropy.gset_fold"):
         local = torch.any(x.reshape(mesh.p, -1, x.shape[1]), dim=1)
-        out = psum(local.to(torch.int32)) > 0
+        out = psum(local.to(torch.int32), procs) > 0
         if out.is_cuda:
             torch.cuda.synchronize(out.device)
     return out[:m]
@@ -812,8 +843,9 @@ def mesh_fold_lww(states: LWWState, mesh: VirtualMesh, telemetry: bool = False,
     marks an equal-marker/different-value merge anywhere (reference:
     src/lwwreg.rs validate_merge); the Telemetry third with
     ``telemetry=True``."""
+    procs, mesh = _split_mesh(mesh, "mesh_fold_lww", telemetry=telemetry)
     return _mesh_fold_replicated("lww_fold", states, mesh, lww_ops.join, lww_ops.fold,
-                                 tele.generic_slots_changed, telemetry, donate)
+                                 tele.generic_slots_changed, telemetry, donate, procs=procs)
 
 
 def mesh_fold_mvreg(states: MVRegState, mesh: VirtualMesh, telemetry: bool = False,
@@ -822,8 +854,9 @@ def mesh_fold_mvreg(states: MVRegState, mesh: VirtualMesh, telemetry: bool = Fal
     over the mesh's replica axis: dominated contents die, concurrent
     siblings survive (reference: src/mvreg.rs ``CvRDT::merge``). Returns
     ``(state, overflow)``; the Telemetry third with ``telemetry=True``."""
+    procs, mesh = _split_mesh(mesh, "mesh_fold_mvreg", telemetry=telemetry)
     return _mesh_fold_replicated("mvreg_fold", states, mesh, mv_ops.join, mv_ops.fold,
-                                 tele.generic_slots_changed, telemetry, donate)
+                                 tele.generic_slots_changed, telemetry, donate, procs=procs)
 
 
 def gossip_elastic(model, mesh: VirtualMesh, rounds: Optional[int] = None, policy=None,
@@ -864,6 +897,8 @@ def gossip_elastic(model, mesh: VirtualMesh, rounds: Optional[int] = None, polic
     frontier-stall alert (it needs ``stability=``). ``faults=`` threads a
     ``FaultPlan`` into every attempt; the LAST element is then the
     ``FaultCounters`` with the packet counts summed over the attempts."""
+    if isinstance(mesh, multihost.GlobalMesh):
+        multihost.refuse("gossip_elastic")
     from .. import elastic
     from ..models.map import BatchedMap
     from ..models.orswot import BatchedOrswot

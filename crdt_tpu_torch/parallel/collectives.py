@@ -15,9 +15,13 @@ rank would hold). The reductions of the JAX package follow:
 Handed a cross-process mesh (``multihost.GlobalMesh`` as ``procs``), the
 all-reduce adds a process step after the rank step — rank 0's join
 through ``multihost.all_reduce_processes`` (recursive doubling over the
-processes, or gather and fold) — and a ring round replaces the state its
-first rank receives with the previous process's last rank's
-(``multihost.ring_hop``).
+processes, or gather and fold) —, ``psum``/``pmax`` add the processes'
+sums and maxima (``multihost.gather_processes``), and a unit ring shift
+(:func:`across_processes`: the gossip round, the δ ring's packet shift)
+replaces the row its first rank receives with the previous process's
+last rank's (``multihost.ring_hop``); the inverse shift (the δ ring's
+digest and acks) replaces its last rank's with the next process's first
+rank's (``multihost.ring_hop_back``).
 """
 
 from __future__ import annotations
@@ -80,16 +84,65 @@ def permuter(perm: Sequence[Tuple[int, int]], p: int, device):
     return lambda tree: tree_map(move, tree)
 
 
-def psum(x: torch.Tensor) -> torch.Tensor:
-    """``lax.psum`` over the rank axis (integer or bool lanes)."""
+def across_processes(move: Callable, procs=None, back: bool = False) -> Callable:
+    """A unit ring shift over the local ranks (``move``: rank i's row to
+    rank i+1, a roll; ``back=True``: rank i+1's to rank i) made to span
+    the processes of ``procs`` (a ``multihost.GlobalMesh``), process-major:
+    after the local roll the first rank's row is replaced by the previous
+    process's last row (``multihost.ring_hop``), or, going back, the last
+    rank's row by the next process's first row
+    (``multihost.ring_hop_back``). Only that one row of every leaf
+    crosses. Without processes to cross, ``move`` itself."""
+    if procs is None or procs.process_count == 1:
+        return move
+    from .multihost import ring_hop, ring_hop_back
+
+    def shifted(tree):
+        moved = move(tree)
+        if back:
+            came = ring_hop_back(tree_map(lambda x: x[:1], tree), procs)
+            return tree_map(lambda m, c: torch.cat([bits(m[:-1]), bits(c)]).view(m.dtype),
+                            moved, came)
+        came = ring_hop(tree_map(lambda x: x[-1:], tree), procs)
+        return tree_map(lambda m, c: torch.cat([bits(c), bits(m[1:])]).view(m.dtype), moved, came)
+
+    return shifted
+
+
+def _psum(x: torch.Tensor) -> torch.Tensor:
     return x.sum(dim=0) if x.dtype != torch.bool else x.to(torch.int64).sum(dim=0)
 
 
-def pmax(x: torch.Tensor) -> torch.Tensor:
-    """``lax.pmax`` over the rank axis; unsigned lanes keep their order."""
+def _pmax(x: torch.Tensor) -> torch.Tensor:
     if x.dtype in (torch.uint32, torch.uint64):
         return umax(x, 0)
     return x.amax(dim=0)
+
+
+def preduce(sums: Sequence[torch.Tensor] = (), maxes: Sequence[torch.Tensor] = (), procs=None):
+    """:func:`psum` of each of ``sums`` and :func:`pmax` of each of
+    ``maxes``, over the rank axis and then the processes of ``procs`` in
+    ONE exchange (``multihost.gather_processes``). Returns the two
+    lists."""
+    s, m = [_psum(x) for x in sums], [_pmax(x) for x in maxes]
+    if procs is None or procs.process_count == 1:
+        return s, m
+    from .multihost import gather_processes
+
+    rows = gather_processes(s + m, procs)
+    return [_psum(x) for x in rows[:len(s)]], [_pmax(x) for x in rows[len(s):]]
+
+
+def psum(x: torch.Tensor, procs=None) -> torch.Tensor:
+    """``lax.psum`` over the rank axis (integer or bool lanes), and over
+    the processes of ``procs``."""
+    return preduce((x,), (), procs)[0][0]
+
+
+def pmax(x: torch.Tensor, procs=None) -> torch.Tensor:
+    """``lax.pmax`` over the rank axis, and over the processes of
+    ``procs``; unsigned lanes keep their order."""
+    return preduce((), (x,), procs)[1][0]
 
 
 def all_reduce_lattice(
@@ -132,10 +185,10 @@ def all_reduce_lattice(
     return local, overflow
 
 
-def all_reduce_clock(clock: torch.Tensor) -> torch.Tensor:
+def all_reduce_clock(clock: torch.Tensor, procs=None) -> torch.Tensor:
     """All-reduce with the VClock join (lane-wise max): ``[P, A]`` →
-    every rank's ``[P, A]`` max."""
-    top = pmax(clock)
+    every rank's ``[P, A]`` max, over the processes of ``procs`` too."""
+    top = pmax(clock, procs)
     return bits(top).expand(clock.shape).contiguous().view(clock.dtype)
 
 
@@ -161,15 +214,11 @@ def ring_round(
     ``procs`` (a ``multihost.GlobalMesh``) the ring runs over every
     process's ranks, process-major, one unit shift a round."""
     size = _size(local)
-    other = ppermute(local, [(i, (i + shift) % size) for i in range(size)])
-    if procs is not None and procs.process_count > 1:
-        if shift != 1:
-            raise ValueError(f"a cross-process ring round shifts by 1, got {shift}")
-        from .multihost import ring_hop
-
-        first = ring_hop(tree_map(lambda x: x[-1:], local), procs)
-        other = tree_map(lambda o, f: torch.cat([bits(f), bits(o[1:])]).view(o.dtype), other,
-                         first)
+    if procs is not None and procs.process_count > 1 and shift != 1:
+        raise ValueError(f"a cross-process ring round shifts by 1, got {shift}")
+    move = across_processes(
+        lambda t: ppermute(t, [(i, (i + shift) % size) for i in range(size)]), procs)
+    other = move(local)
     joined, of = join_fn(local, other)
     if reduce_overflow:
         of = torch.any(of)
@@ -177,6 +226,6 @@ def ring_round(
 
 
 __all__ = [
-    "all_reduce_clock", "all_reduce_join", "all_reduce_lattice", "permuter", "pmax",
-    "ppermute", "psum", "ring_round",
+    "across_processes", "all_reduce_clock", "all_reduce_join", "all_reduce_lattice", "permuter",
+    "pmax", "ppermute", "preduce", "psum", "ring_round",
 ]

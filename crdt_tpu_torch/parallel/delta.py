@@ -231,7 +231,9 @@ def mesh_delta_gossip(
     documents the modes and the counts). ``telemetry=True`` appends the
     run's Telemetry (slots counted by ``ops.orswot.changed_members``);
     ``faults=`` (a ``faults.FaultPlan``) injects the plan's link faults
-    and appends the ``FaultCounters`` last.
+    and appends the ``FaultCounters`` last. ``mesh`` may be a
+    ``multihost.GlobalMesh``: the ring then spans every process and
+    returns this process's rows (``delta_ring``'s module docstring).
 
     Returns ``(states [P, ...], dirty [P, E], overflow, residue)``."""
     from ..ops.fold_kernels import fold_auto

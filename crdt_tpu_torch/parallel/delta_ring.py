@@ -78,6 +78,27 @@ gauge and never warns: its residue is injected loss).
   checksum lane on every packet (K3's chained ``chk`` on the fused wire),
   the fates of a table built before the first round, the held packet of a
   delayed link, and the ``FaultCounters`` as the last output.
+
+Across processes (``mesh`` a ``multihost.GlobalMesh``) the ring spans
+every process's local ranks, global rank ``process · P_local + local
+rank``, as the JAX ring spans a multi-process mesh. Each process holds
+its own rows (``state``, ``dirty`` and ``fctx``; the same count on every
+process, a multiple of its local ranks, or ``ValueError``) and runs every
+extract, pack (one K3 launch a fused round over its local links), apply
+and fold on its card. The ring's length — the certificate window, the
+default budget, ``stats["links"]`` — is the global rank count; tensor
+shapes and donation are the local one. Per round, the packet shift sends
+one row (the last rank's wire or packet) to the next process, and under
+``ack_window=`` the ack bitmap's inverse shift one row to the previous
+(``collectives.across_processes``); the digest's inverse shift crosses
+once before the loop. After the loop one all-gather sums the parked loss,
+the starved rows, the overflow flags and the slot counts and maxes the
+top over every process (``multihost.gather_processes``), so every
+process closes with the mesh top and reads the mesh-wide residue and
+``stats``. ``pipeline=``, ``digest=``, ``fused=``, ``ack_window=``,
+``donate=``, ``stats=``, ``rounds=`` and ``cap=`` run across processes;
+``telemetry=``, ``faults=`` and ``wal=`` raise ``NotImplementedError``
+(ROADMAP item 32).
 """
 
 from __future__ import annotations
@@ -85,6 +106,7 @@ from __future__ import annotations
 import time
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from .. import telemetry as tele
@@ -98,9 +120,9 @@ from ..ops.lattice import tree_leaves, tree_map
 from ..utils.metrics import metrics, state_nbytes
 from . import wire as _wire
 from .anti_entropy import (
-    _consume, _donation, _tel_reduced, _write_back, local_folds, rank_blocks,
+    _consume, _donation, _split_mesh, _tel_reduced, _write_back, local_folds, rank_blocks,
 )
-from .collectives import permuter, pmax, psum
+from .collectives import across_processes, permuter, pmax, preduce, psum
 from .delta import DeltaPacket
 from .mesh import VirtualMesh
 
@@ -264,6 +286,9 @@ def run_delta_ring(
     lanes, ``telemetry.generic_slots_changed`` by default), recorded under
     ``kind``.
 
+    ``mesh`` may be a ``multihost.GlobalMesh``: the ring then spans every
+    process (module docstring) and returns this process's rows.
+
     ``faults=`` (a ``faults.FaultPlan``) runs the ring over the plan's
     live ranks with a checksum lane on every packet (fused: the digest
     chained from K3's in-pass partials; layered: ``integrity.checksum`` of
@@ -285,20 +310,31 @@ def run_delta_ring(
             f"run_delta_ring: fused=True needs a wire codec for {kind!r}; the registered "
             f"codecs are {sorted(_wire.WIRE_SURFACES)}"
         )
+    procs, mesh = _split_mesh(mesh, f"the {kind} ring", telemetry=telemetry, faults=faults,
+                              wal=wal)
+    cross = procs is not None and procs.process_count > 1
+    # Tensors hold this process's P local ranks; the ring's length (the
+    # certificate window, the default budget, the links) is the global
+    # rank count.
     p = mesh.p
+    ring_p = p if procs is None else p * procs.process_count
+    if cross:
+        _even_rows(state, p, procs)
     gated = digest and gate is not None
     acked = bool(ack_window)
     faulted = faults is not None
     delay_mode = faulted and faults.delay > 0
-    win = (p - 1) if not pipeline else max(2 * (p - 1) - 1, 0)
+    win = (ring_p - 1) if not pipeline else max(2 * (ring_p - 1) - 1, 0)
     if rounds is None:
         rounds = win
     evicted = faults.evicted if faulted else ()
     # Digest exchange and acks run against the ring: rank i's packets land
     # on i+1, so i needs i+1's frozen top and i+1's acks. A faulted ring
-    # runs over the live ranks (evicted ranks self-loop).
-    shift = permuter(flt.ring_perm(p, evicted), p, mesh.device)
-    unshift = permuter(flt.inv_ring_perm(p, evicted), p, mesh.device)
+    # runs over the live ranks (evicted ranks self-loop). Across processes
+    # one row of each crosses a process boundary (collectives.across_processes).
+    shift = across_processes(permuter(flt.ring_perm(p, evicted), p, mesh.device), procs)
+    unshift = across_processes(permuter(flt.inv_ring_perm(p, evicted), p, mesh.device), procs,
+                               back=True)
     aliasable = _donation(state, mesh, donate)
     caller = (state, dirty)
 
@@ -527,7 +563,16 @@ def run_delta_ring(
     if telemetry and gated:
         rt.digest(_nbytes(rtop))
     own_top = top_of(folded)
-    if fused:
+    if cross:
+        # The run's sums and the top's maximum over every process, in one
+        # exchange; the counts ride it too, so every process reads the
+        # mesh-wide stats and residue.
+        names = ("shipped", "deferred", "skipped")
+        sums, (top_max,) = preduce(
+            (nlost, starved, of, *(counts[k].reshape(1) for k in names)), (own_top,), procs)
+        nlost_tot, starved_tot, of_tot = sums[:3]
+        counts.update(zip(names, sums[3:]))
+    elif fused:
         # Unencodable parked removes never reached the wire: count them as
         # loss mesh-wide and keep each rank's own top if any was lost.
         nlost_tot = psum(nlost)
@@ -545,14 +590,15 @@ def run_delta_ring(
         top = flt.tree_select(adopt, bits(live_top).expand(own_top.shape).view(own_top.dtype),
                               own_top)
     else:
-        top_all = bits(pmax(own_top)).expand(own_top.shape).view(own_top.dtype)
+        top_all = bits(top_max if cross else pmax(own_top)).expand(own_top.shape).view(
+            own_top.dtype)
         if fused:
             top = torch.where(nlost_tot == 0, bits(top_all), bits(own_top)).view(own_top.dtype)
         else:
             top = top_all.contiguous()
     folded = close_top(folded, top)
-    overflow = torch.any(of, dim=0)
-    residue = psum(starved)
+    overflow = of_tot > 0 if cross else torch.any(of, dim=0)
+    residue = starved_tot if cross else psum(starved)
     if faulted:
         # Lost packets void the certificate: a degraded run must never
         # read as certified.
@@ -591,8 +637,9 @@ def run_delta_ring(
             tel = tele.fill(tel, wal_bytes=wal.bytes_appended - b0, wal_fsyncs=wal.fsyncs - f0)
     if stats is not None:
         stats.update(
-            rounds=rounds, links=p, slots_shipped=int(counts["shipped"]),
-            slots_deferred=int(counts["deferred"]), parked_lost=int(nlost.sum()),
+            rounds=rounds, links=ring_p, slots_shipped=int(counts["shipped"]),
+            slots_deferred=int(counts["deferred"]),
+            parked_lost=int(nlost_tot if cross else nlost.sum()),
             packet_bytes=counts.get("packet_bytes", 0),
         )
         if fused:
@@ -619,6 +666,22 @@ def run_delta_ring(
         flt.record(counters)
         out = (*out, counters)
     return out
+
+
+def _even_rows(state, p: int, procs) -> None:
+    """A cross-process ring's rows: every process must hold the same
+    number, a multiple of its ``p`` local ranks — padding cannot reach
+    across processes (the JAX multi-process mesh cannot pad its global
+    arrays either). One small all-gather, so every process raises
+    alike."""
+    from .multihost import _allgather_host
+
+    r = tree_leaves(state)[0].shape[0]
+    rows = [int(x[0]) for x in _allgather_host(np.asarray([r], np.int64))]
+    if len(set(rows)) != 1 or r % p:
+        raise ValueError(
+            f"a cross-process δ ring needs the same number of rows on every process, a "
+            f"multiple of its {p} local ranks; the processes hold {rows}")
 
 
 def _select_apply(applied, prior, of, keep):
@@ -727,8 +790,11 @@ def delta_gossip_elastic(
     attempt; the LAST element is then the ``FaultCounters`` with the
     packet counts summed over the attempts (``faults.combine_counters``)."""
     from .. import elastic
+    from . import multihost
     from .delta import mesh_delta_gossip
 
+    if isinstance(mesh, multihost.GlobalMesh):
+        multihost.refuse("delta_gossip_elastic")
     if wal is not None and wal.tail is None:
         wal.attach(model.state)
     policy = policy or elastic.DEFAULT_POLICY

@@ -10,17 +10,24 @@ ranks on its card) and the processes meet in a process group:
   address, or torch's ``env://`` rendezvous (``MASTER_ADDR``,
   ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``, as ``torchrun`` sets them);
 - ``global_mesh`` — a :class:`GlobalMesh`: this process's local ranks
-  plus the group, the replica axis ``local ranks × processes`` long.
-  ``mesh_fold``, ``mesh_gossip``, ``mesh_fold_map`` and
-  ``mesh_fold_sparse_mvmap`` take it: each process folds its rows on its
-  card (K1, K2), then the fold's lattice all-reduce
-  (``collectives.all_reduce_lattice``) gains a process step — recursive
-  doubling with partner ``process ^ 2^k`` over ``send``/``recv``, since
-  gloo takes no user-defined reduce op — and the gossip ring's hop from a
-  process's last rank to the next process's first is one ``send``/
-  ``recv`` of one state. The exchange runs over host memory; every join
-  stays on the card. Any other mesh entry handed a ``GlobalMesh``
-  raises ``NotImplementedError`` (ROADMAP item 32);
+  plus the group, the replica axis ``local ranks × processes`` long,
+  global rank ``process · local ranks + local rank`` (process-major, the
+  JAX ``global_mesh`` order). The entries of ``CROSS_PROCESS_ENTRIES``
+  take it — every fold and gossip of ``anti_entropy`` and the four δ
+  rings: each process folds its rows on its card (K1, K2), then the
+  fold's lattice all-reduce (``collectives.all_reduce_lattice``) gains a
+  process step — recursive doubling with partner ``process ^ 2^k`` over
+  ``send``/``recv``, since gloo takes no user-defined reduce op — and a
+  ring's hop from a process's last rank to the next process's first is
+  one ``send``/``recv`` of that rank's row (``ring_hop``; the δ ring's
+  inverse hop, the digest and the acks, is ``ring_hop_back``). The δ
+  ring's end-of-run sums and top maximum ride one all-gather
+  (``gather_processes``). The exchange runs over host memory; every join
+  and every K3 pack stays on the card. The streams, the element-sharded
+  folds, the elastic loops, ``mesh_serve_apply`` and ``mesh_fanout_push``
+  handed a ``GlobalMesh`` raise ``NotImplementedError`` (ROADMAP item
+  32), as do ``telemetry=``, ``stability=``, ``faults=``,
+  ``lag_threshold=`` and ``wal=`` on a cross-process entry;
 - ``host_to_global`` / ``global_to_host`` — this process's rows onto the
   mesh's device, a result back to numpy;
 - ``_allgather_host``, ``sync_tenant_rows``, ``sync_list`` — the host
@@ -51,7 +58,15 @@ from .mesh import VirtualMesh
 TIMEOUT = datetime.timedelta(seconds=300)
 
 #: The mesh entries that take a :class:`GlobalMesh`.
-CROSS_PROCESS_ENTRIES = ("mesh_fold", "mesh_gossip", "mesh_fold_map", "mesh_fold_sparse_mvmap")
+CROSS_PROCESS_ENTRIES = (
+    "mesh_fold", "mesh_gossip", "mesh_fold_map", "mesh_gossip_map", "mesh_fold_sparse",
+    "mesh_gossip_sparse", "mesh_fold_sparse_mvmap", "mesh_gossip_sparse_mvmap",
+    "mesh_fold_sparse_nested", "mesh_gossip_sparse_nested", "mesh_fold_map_orswot",
+    "mesh_gossip_map_orswot", "mesh_fold_map3", "mesh_gossip_map3", "mesh_fold_nested_map",
+    "mesh_gossip_nested_map", "mesh_fold_clocks", "mesh_fold_gset", "mesh_fold_lww",
+    "mesh_fold_mvreg", "mesh_delta_gossip", "mesh_delta_gossip_map",
+    "mesh_delta_gossip_map_orswot", "mesh_delta_gossip_map3",
+)
 
 
 def initialize(
@@ -96,10 +111,16 @@ def process_count() -> int:
     return dist.get_world_size() if _group_up() else 1
 
 
-def _cross_process(*_):
+def refuse(entry: Optional[str] = None):
+    """The refusal of an entry that does not run across processes."""
     raise NotImplementedError(
-        f"a cross-process mesh (multihost.global_mesh) runs {', '.join(CROSS_PROCESS_ENTRIES)} "
-        f"only; the other mesh entries across processes are ROADMAP item 32")
+        f"{entry + ': ' if entry else ''}a cross-process mesh (multihost.global_mesh) runs "
+        f"the entries of multihost.CROSS_PROCESS_ENTRIES only; the other mesh entries across "
+        f"processes are ROADMAP item 32")
+
+
+def _cross_process(*_):
+    refuse()
 
 
 class GlobalMesh:
@@ -108,7 +129,8 @@ class GlobalMesh:
     process group. ``shape`` is the JAX mesh's: ``replica`` = local ranks
     × processes, ``element`` = the local element shards. The entries of
     ``CROSS_PROCESS_ENTRIES`` take it; any other entry reaches for the
-    virtual mesh's ``p``, ``s`` or ``device`` and is refused."""
+    virtual mesh's ``p``, ``s`` or ``device``, or calls :func:`refuse`,
+    and is refused."""
 
     p = property(_cross_process)
     s = property(_cross_process)
@@ -237,7 +259,18 @@ def _gather_rows(arr: np.ndarray) -> list:
 #
 # The ``multihost.exchange`` span of a process step covers the copy off
 # the card, the gloo transfer (with any wait for a peer still folding)
-# and the upload; the host exchanges' span covers their gather.
+# and the upload; the host exchanges' span covers their gather. The card
+# is synchronised just before the span opens (the copy off the card would
+# wait for it anyway), so the span does not hold this process's queued
+# device work.
+
+def _settle(tree) -> None:
+    """Wait for the card that holds ``tree``: the queued work the copy off
+    the card waits for, outside the exchange span."""
+    leaf = tree_leaves(tree)[0]
+    if leaf.is_cuda:
+        torch.cuda.synchronize(leaf.device)
+
 
 def _to_bytes(tree) -> torch.Tensor:
     """Every leaf's bytes, in ``tree_leaves`` order, as one ``uint8`` host
@@ -285,20 +318,25 @@ def all_reduce_processes(state, flags: torch.Tensor, join_fn, fold_fn, mesh: Glo
     its OR-reduced overflow flags. A power-of-two process count runs
     recursive doubling — log2(n) rounds, each swapping states and flags
     with process ``index ^ 2^k`` and joining on the card with the kind's
-    ``join_fn``; any other count all-gathers the states and folds them
-    with ``fold_fn``. Returns every process's global join (``[1, ...]``)
-    and the flags OR-reduced over the processes."""
+    ``join_fn``, the lower process's state first — so every process joins
+    in rank 0's order and holds rank 0's bits, where a join's
+    representation depends on its order (an LWW tie, a sibling or parked
+    slot order); any other count all-gathers the states and folds them in
+    process order with ``fold_fn``. Returns every process's global join
+    (``[1, ...]``) and the flags OR-reduced over the processes."""
     n, me = mesh.process_count, mesh.process_index
     if n & (n - 1) == 0:
         k = 1
         while k < n:
+            _settle(state)
             with metrics.time("multihost.exchange"):
                 theirs, their_flags = _from_bytes(
                     _sendrecv(_to_bytes((state, flags)), me ^ k, me ^ k), (state, flags))
-            state, of = join_fn(state, theirs)
+            state, of = join_fn(*((state, theirs) if me < me ^ k else (theirs, state)))
             flags = flags | their_flags | torch.any(of, dim=0)
             k *= 2
         return state, flags
+    _settle(state)
     with metrics.time("multihost.exchange"):
         rows = [_from_bytes(torch.from_numpy(b[0]), (state, flags))
                 for b in _gather_rows(_to_bytes((state, flags)).numpy()[None])]
@@ -312,19 +350,40 @@ def all_reduce_processes(state, flags: torch.Tensor, join_fn, fold_fn, mesh: Glo
 
 
 def ring_hop(last, mesh: GlobalMesh):
-    """The gossip ring's hop across processes: this process's last rank's
-    state (leaves ``[1, ...]``) goes to the next process, and the previous
-    process's last state arrives for this process's first rank."""
+    """A ring's hop across processes: this process's last rank's row
+    (leaves ``[1, ...]``: a state, or a δ packet) goes to the next
+    process, and the previous process's last row arrives for this
+    process's first rank."""
     n, me = mesh.process_count, mesh.process_index
+    _settle(last)
     with metrics.time("multihost.exchange"):
         return _from_bytes(_sendrecv(_to_bytes(last), (me + 1) % n, (me - 1) % n), last)
 
 
-def any_across(flags: torch.Tensor, mesh: GlobalMesh) -> torch.Tensor:
-    """``flags`` OR-reduced over the processes of ``mesh``."""
-    host = flags.to(torch.bool).cpu().numpy().reshape(1, -1)
-    out = np.logical_or.reduce(np.concatenate(_allgather_host(host)), axis=0)
-    return torch.from_numpy(out).reshape(flags.shape).to(flags.device)
+def ring_hop_back(first, mesh: GlobalMesh):
+    """The inverse hop (the δ ring's digest and acks, which run against
+    the ring): this process's first rank's row (leaves ``[1, ...]``) goes
+    to the previous process, and the next process's first row arrives
+    for this process's last rank."""
+    n, me = mesh.process_count, mesh.process_index
+    _settle(first)
+    with metrics.time("multihost.exchange"):
+        return _from_bytes(_sendrecv(_to_bytes(first), (me - 1) % n, (me + 1) % n), first)
+
+
+def gather_processes(tensors, mesh: GlobalMesh) -> list:
+    """Every process's ``tensors`` (small tensors on the card) over the
+    processes of ``mesh``, in ONE exchange: they ride an all-gather as
+    ``uint8`` bytes, since gloo carries no ``uint32``/``uint64``/``bool``
+    lanes. Returns, for each tensor, its values stacked ``[processes,
+    ...]`` in process order on the card, for the caller's reduction
+    (``collectives.preduce``)."""
+    tree = tuple(tensors)
+    _settle(tree)
+    with metrics.time("multihost.exchange"):
+        rows = [_from_bytes(torch.from_numpy(b[0]), tree)
+                for b in _gather_rows(_to_bytes(tree).numpy()[None])]
+    return [torch.stack([bits(x) for x in xs]).view(xs[0].dtype) for xs in zip(*rows)]
 
 
 # ---- the serving tier's and the list's host exchanges ----------------------
@@ -446,7 +505,8 @@ def sync_list(model, since: int = 0, retry=None) -> int:
 
 
 __all__ = [
-    "CROSS_PROCESS_ENTRIES", "GlobalMesh", "TIMEOUT", "all_reduce_processes", "any_across",
+    "CROSS_PROCESS_ENTRIES", "GlobalMesh", "TIMEOUT", "all_reduce_processes",
     "global_mesh", "global_to_host", "host_to_global", "initialize", "process_count",
-    "process_index", "ring_hop", "sync_list", "sync_tenant_rows",
+    "process_index", "gather_processes", "refuse", "ring_hop", "ring_hop_back", "sync_list",
+    "sync_tenant_rows",
 ]

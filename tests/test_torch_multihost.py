@@ -593,28 +593,38 @@ def test_sync_tenant_shards_joins_handoff_rows():
 
 
 def test_a_cross_process_mesh_is_refused_where_it_is_not_ported():
-    """Every mesh entry but the four of CROSS_PROCESS_ENTRIES refuses a
-    GlobalMesh naming ROADMAP item 32, as do the four's options that
-    the process step does not carry; element shards may not straddle
-    processes."""
+    """The entries that do not run across processes — a stream, an
+    element-sharded fold, both elastic loops, ``mesh_serve_apply``,
+    ``mesh_fanout_push`` — refuse a GlobalMesh naming ROADMAP item 32, as
+    do the options of the ported entries that the process step does not
+    carry; element shards may not straddle processes."""
     import torch
 
     from crdt_tpu_torch.faults import FaultPlan
     from crdt_tpu_torch.ops import orswot
     from crdt_tpu_torch.parallel import (
-        mesh_delta_gossip, mesh_fold, mesh_fold_sparse, mesh_gossip, mesh_gossip_map, multihost,
+        delta_gossip_elastic, gossip_elastic, mesh_delta_gossip, mesh_fanout_push, mesh_fold,
+        mesh_fold_sparse_sharded, mesh_gossip, mesh_gossip_map, mesh_serve_apply,
+        mesh_stream_fold, multihost,
     )
 
     assert multihost.process_count() == 1 and multihost.process_index() == 0
     mesh = multihost.global_mesh(local_ranks=2, device="cpu")
     state = orswot.empty(4, 2, deferred_cap=1, batch=(4,), device="cpu")
     dirty = torch.zeros((4, 4), dtype=torch.bool)
-    for call in (lambda: mesh_gossip_map(state, mesh),
-                 lambda: mesh_fold_sparse(state, mesh),
-                 lambda: mesh_delta_gossip(state, dirty, state.top, mesh),
+    for call in (lambda: mesh_stream_fold(iter([state]), mesh),
+                 lambda: mesh_fold_sparse_sharded((torch.zeros((4, 1, 2)),), mesh),
+                 lambda: gossip_elastic(None, mesh),
+                 lambda: delta_gossip_elastic(None, dirty, state.ctr, mesh),
+                 lambda: mesh_serve_apply(None, None, None, mesh),
+                 lambda: mesh_fanout_push(None, None, None, mesh),
+                 lambda: mesh_delta_gossip(state, dirty, state.ctr, mesh, faults=FaultPlan(seed=1)),
+                 lambda: mesh_delta_gossip(state, dirty, state.ctr, mesh, telemetry=True),
+                 lambda: mesh_delta_gossip(state, dirty, state.ctr, mesh, wal=object()),
                  lambda: mesh_fold(state, mesh, telemetry=True),
                  lambda: mesh_gossip(state, mesh, faults=FaultPlan(seed=1)),
-                 lambda: mesh_gossip(state, mesh, stability=True)):
+                 lambda: mesh_gossip(state, mesh, stability=True),
+                 lambda: mesh_gossip_map(state, mesh, lag_threshold=1)):
         with pytest.raises(NotImplementedError, match="item 32"):
             call()
     with pytest.raises(ValueError, match="straddle"):
@@ -623,17 +633,30 @@ def test_a_cross_process_mesh_is_refused_where_it_is_not_ported():
 
 def test_one_process_runs_the_cross_process_entries_as_its_local_mesh():
     """Without a group a GlobalMesh is its local mesh: the same bits as
-    the VirtualMesh entries, the gossip ring of one process included."""
+    the VirtualMesh entries, the gossip ring and the δ ring (its dirty
+    rows, flags, residue and stats too) of one process included."""
     import torch
 
     from crdt_tpu_torch._dtypes import bits
-    from crdt_tpu_torch.convert import orswot_from_numpy
+    from crdt_tpu_torch.convert import orswot_from_numpy, tracking_from_numpy
     from crdt_tpu_torch.ops.lattice import tree_leaves
-    from crdt_tpu_torch.parallel import VirtualMesh, mesh_fold, mesh_gossip, multihost
+    from crdt_tpu_torch.parallel import (
+        VirtualMesh, mesh_delta_gossip, mesh_fold, mesh_gossip, multihost,
+    )
 
-    state = orswot_from_numpy(_dense_inputs(), device="cpu")
+    dense = _dense_inputs()
+    state = orswot_from_numpy(dense, device="cpu")
     mesh = multihost.global_mesh(local_ranks=4, device="cpu")
     for entry in (mesh_fold, mesh_gossip):
         got, want = entry(state, mesh), entry(state, VirtualMesh(4, "cpu"))
         for x, y in zip(tree_leaves(got), tree_leaves(want)):
             assert x.dtype == y.dtype and torch.equal(bits(x), bits(y))
+    rng = np.random.default_rng(3)
+    dirty, fctx = tracking_from_numpy(rng.random((R, E)) < 0.5, dense["ctr"], device="cpu")
+    for kw in (dict(cap=4), dict(cap=2, rounds=3, fused=False, ack_window=True)):
+        stats = ({}, {})
+        got = mesh_delta_gossip(state, dirty, fctx, mesh, stats=stats[0], **kw)
+        want = mesh_delta_gossip(state, dirty, fctx, VirtualMesh(4, "cpu"), stats=stats[1], **kw)
+        for x, y in zip(tree_leaves(got), tree_leaves(want)):
+            assert x.dtype == y.dtype and torch.equal(bits(x), bits(y)), kw
+        assert stats[0] == stats[1] and stats[0]["links"] == 4, kw
