@@ -470,6 +470,24 @@ at first use), then runs, printing one JSON line per phase:
                         == the mesh fold; every other fold and gossip kind
                         at the tests' sizes == the single-process entry;
                         ring walls both ways, exchange ms and bytes a round.
+                        Then the streams, element-sharded folds and elastic
+                        loops across the processes (ROADMAP 32, second
+                        part), each process streaming its own half of every
+                        block: ``mesh_stream_fold_sparse`` at the flagship's
+                        widths (10,240 × a 1M universe, cap 4,096, 40
+                        global blocks of 256), ``mesh_stream_fold`` at
+                        config 3's (R = 2,048, blocks of 512; K1 counted and
+                        held), the sharded flagship stream (S = 2, 10 of the
+                        40 blocks) and the four sharded folds at the tests'
+                        sizes, dense ``gossip_elastic`` (R = 2,048, born D =
+                        2, only one process's rows parking) and Map
+                        ``gossip_elastic`` (R = 64, K = 250,000, born D = 1;
+                        K2 counted and held), fused ``delta_gossip_elastic``
+                        (R = 2,048; K3 counted and held): each == the
+                        single-process entry on P = 8 (sharded: 4 × 2)
+                        leaf for leaf, the same axes widened; the flagship
+                        stream's walls both ways, its merges/s across the
+                        processes, exchange ms and bytes a block.
 
 Then the ``nvidia-smi`` name/power-limit line, a ``kernels`` JSON line, and
 as the last line ``{"ok": true, "device": {...}}``. Any failed check raises
@@ -11055,6 +11073,321 @@ def mh_ring_report(kind: str, single: dict, cross: list) -> dict:
     return out
 
 
+# The streams, element-sharded folds and elastic loops across processes
+# (ROADMAP item 32, second part): the single-process entry on P = 8 (4 × 2
+# sharded) draws each global block whole, a process its own half of it.
+# BENCH_CONFIGS.json "flagship" (phase_flagship's defaults): replicas, universe,
+# actors, dot cap, global block rows.
+MH_FLAGSHIP = (10240, 1_000_000, 8, 4096, 256)
+MH_SHARDED_BLOCKS = 10       # the sharded flagship stream's blocks: 10 of the 40, for the time
+MH_FLAGSHIP_PASSES = 2       # timed passes each way (the first includes warm-up)
+MH_DENSE_BLOCKS = 4          # the dense stream's global blocks (R = 2,048: 512 rows each)
+MH_ELASTIC_CAP = 4096        # the δ elastic loop's cap (phase_elastic's)
+MH_MAP_ELASTIC_R = 64        # the Map elastic loop's rows (phase_elastic's map_r)
+
+
+def mh_half(b: int, rows: int, pid: int, n: int, device):
+    """Process ``pid``'s row ids of global block ``b`` of ``rows`` rows: its
+    ``rows / n`` in process order (global rank ``pid · P_local + q``)."""
+    import torch
+
+    lo = b * rows + pid * rows // n
+    return torch.arange(lo, lo + rows // n, device=device)
+
+
+def mh_sharded_cases(seed: int, device) -> dict:
+    """The four element-sharded folds at the tests' sizes (R = 8, S = 2):
+    ``name → (state [R, S, ...], extra arguments)``."""
+    from crdt_tpu_torch.ops import sparse_nest
+    from crdt_tpu_torch.parallel import split_cells, split_nested, split_segments
+
+    r = MH_SMALL_R
+    nested = split_nested(nested_population(r, 256, 1024, 256, 4, 4, device, n_parked=4,
+                                            rm_width=16, seed=seed), 2)
+    return {
+        "mesh_fold_sparse_sharded": (
+            split_segments(sparse_actor_population(r, 256, 4096, 4, 256, device, seed=seed), 2),
+            ()),
+        "mesh_fold_sparse_mvmap_sharded": (split_cells(mh_sparse_rows(range(r), device), 2), (4,)),
+        "mesh_fold_sparse_nested_sharded": (nested, (sparse_nest.level_map_orswot(4),)),
+        "mesh_fold_sparse_map": (nested, (4,)),
+    }
+
+
+def mh_elastic_inputs(seed: int, device, r: int, e: int, a: int, parking=None) -> tuple:
+    """The elastic loops' dense batch at config 3's widths, born at D = 2
+    (``phase_elastic``'s fill, ``max_parked=2``: a rank's fold meets three
+    parked cross removes): ``(quiet, state, dirty, fctx, parking)`` —
+    ``quiet`` the state with the parked buffers emptied on every process's
+    rows but those of process ``parking`` (by default the process of the
+    first rank whose local fold overflows), so only that process's rows
+    fill the capacity."""
+    from crdt_tpu_torch._dtypes import bits
+    from crdt_tpu_torch.ops.fold_kernels import fold_auto
+    from crdt_tpu_torch.parallel import VirtualMesh
+    from crdt_tpu_torch.parallel.anti_entropy import local_folds, rank_blocks
+
+    p = MH_PROCESSES * MH_LOCAL_RANKS
+    st, dd, ff, _ = fill_delta_config3(r, e, a, 2, p, seed, device, chunk=min(128, r // 4),
+                                       max_parked=2)
+    if parking is None:
+        _, of = local_folds(rank_blocks(st, VirtualMesh(p, device)), fold_auto)
+        parking = of.tolist().index(True) // MH_LOCAL_RANKS
+    keep = slice(parking * r // MH_PROCESSES, (parking + 1) * r // MH_PROCESSES)
+    dcl, dmask, dvalid = bits(st.dcl).clone(), st.dmask.clone(), st.dvalid.clone()
+    for x in (dcl, dmask, dvalid):
+        kept = x[keep].clone()
+        x.zero_()
+        x[keep] = kept
+    quiet = st._replace(dcl=dcl.view(st.dcl.dtype), dmask=dmask, dvalid=dvalid)
+    return quiet, st, dd, ff, parking
+
+
+def mh_map_elastic_state(seed: int, device, k: int, s: int, map_a: int):
+    """The Map elastic loop's batch: ``phase_elastic``'s Map fill at
+    ``MH_MAP_ELASTIC_R`` rows, K cut to ``MH_DELTA_MAP_K``, born at D = 1."""
+    st, _, _, _ = fill_delta_config4(MH_MAP_ELASTIC_R, min(k, MH_DELTA_MAP_K), s, map_a, 1,
+                                     MH_PROCESSES * MH_LOCAL_RANKS, seed, device, 8, max_parked=1)
+    return st
+
+
+def mh_stream_legs(seed: int, device, mesh, smesh, r: int, e: int, a: int, d: int, k: int,
+                   s: int, map_a: int, flagship=MH_FLAGSHIP, pid: int = 0, n: int = 1,
+                   delta_rounds=None, parking=None) -> dict:
+    """The streams, the element-sharded folds and the elastic loops on
+    ``mesh`` (``smesh`` the sharded one): the single-process entries on P
+    = 8 (``n`` = 1) or this process's part across ``n`` processes. Every
+    result as leaf digests (a gossip's and a ring's rank by rank); the
+    kernels' launches counted from 0 around each leg that runs them, every
+    launch held against its plain version; walls, and across processes the
+    exchange ms and bytes a block. ``flagship`` is ``MH_FLAGSHIP``'s tuple.
+    Returns the legs (the δ elastic loop's round budget and the parking
+    process of the dense gossip among them: the single-process run sets
+    them, the processes take them)."""
+    import torch
+    import torch.distributed as dist
+
+    from crdt_tpu_torch.models import BatchedMap, BatchedOrswot
+    from crdt_tpu_torch.ops import fold_kernels as fk
+    from crdt_tpu_torch.ops.lattice import tree_map
+    from crdt_tpu_torch.ops.wire_kernels import wire_pack
+    from crdt_tpu_torch import parallel
+    from crdt_tpu_torch.parallel import split_segments
+
+    cross = n > 1
+    local = slice(pid * r // n, (pid + 1) * r // n)
+
+    def barrier():
+        sync(device)
+        if cross:
+            dist.barrier()
+
+    def rank_digests(rows):
+        return [leaf_digests(tree_map(lambda x: x[q], rows))
+                for q in range(rows.top.shape[0])]
+
+    out = {}
+    fl_r, universe, fl_a, cap, block_rows = flagship
+    gen, _ = flagship_population(cap, universe, fl_a, device)
+    n_blocks = fl_r // block_rows
+
+    def flagship_blocks(m, split=False):
+        for b in range(m):
+            block = gen(mh_half(b, block_rows, pid, n, device))
+            yield split_segments(block, 2) if split else block
+
+    walls, exchange = [], []
+    for _ in range(MH_FLAGSHIP_PASSES):
+        barrier()
+        x0, t0 = mh_exchange(), time.perf_counter()
+        acc, of = parallel.mesh_stream_fold_sparse(flagship_blocks(n_blocks), mesh)
+        sync(device)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        x1 = mh_exchange()
+        exchange.append(((x1[0] - x0[0]) * 1e3 / n_blocks, (x1[1] - x0[1]) / n_blocks))
+    out["flagship"] = {"digest": leaf_digests(acc), "overflow": torch.atleast_1d(of).tolist(),
+                       "R": fl_r, "blocks": n_blocks, "block_rows": block_rows, "wall_ms": walls,
+                       "exchange_ms_per_block": [x for x, _ in exchange],
+                       "exchange_bytes_per_block": [b for _, b in exchange]}
+    del acc
+    acc, of = parallel.mesh_stream_fold_sparse_sharded(
+        flagship_blocks(MH_SHARDED_BLOCKS, split=True), smesh)
+    out["flagship_sharded"] = {"digest": leaf_digests(acc),
+                               "overflow": torch.atleast_1d(of).tolist()}
+    del acc, gen
+
+    # The dense stream at config 3's widths: K1 in every rank's local fold.
+    def dense_blocks():
+        for b in range(MH_DENSE_BLOCKS):
+            rows = mh_half(b, r // MH_DENSE_BLOCKS, pid, n, device)
+            yield mh_dense_rows(seed, int(rows[0]), int(rows[-1]) + 1, r, e, a, d, device)
+
+    barrier()
+    fk.fold_entries.launches = 0
+    with FoldChecked() as held:
+        acc, of = parallel.mesh_stream_fold(dense_blocks(), mesh)
+        sync(device)
+    k1 = fk.fold_entries.launches
+    barrier()
+    t0 = time.perf_counter()
+    parallel.mesh_stream_fold(dense_blocks(), mesh)
+    sync(device)
+    out["dense_stream"] = {"digest": leaf_digests(acc), "overflow": [bool(of)],
+                           "blocks": MH_DENSE_BLOCKS, "k1": k1, "checked": held.calls["k1"],
+                           "max_abs_err": held.max_abs_err["k1"],
+                           "wall_ms": (time.perf_counter() - t0) * 1e3}
+    del acc
+
+    out["sharded_folds"] = {}
+    for name, (state, args) in mh_sharded_cases(seed, device).items():
+        rows = slice(pid * MH_SMALL_R // n, (pid + 1) * MH_SMALL_R // n)
+        got, flags = getattr(parallel, name)(tree_map(lambda x: x[rows], state), smesh, *args)
+        out["sharded_folds"][name] = {"state": leaf_digests(got),
+                                      "flags": torch.atleast_1d(flags).tolist()}
+
+    # The elastic loops: dense gossip over the quiet batch (only process
+    # 0's rows park), the fused δ loop over the whole fill, the Map gossip.
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    quiet, st, dd, ff, parking = mh_elastic_inputs(seed, device, r, e, a, parking)
+    if not cross:
+        p = MH_PROCESSES * MH_LOCAL_RANKS
+        backlog = int(dd.view(p, r // p, e).any(1).sum(-1).max())
+        delta_rounds = 2 * (p - 1) * (1 + -(-backlog // MH_ELASTIC_CAP)) - 1
+    if cross:
+        quiet, st, dd, ff = (tree_map(lambda x: x[local].clone(), t) for t in (quiet, st, dd, ff))
+    model = BatchedOrswot(1, e, a, 2, device=device)
+    model.state = quiet
+    barrier()
+    fk.fold_entries.launches = 0
+    with FoldChecked() as held:
+        t0 = time.perf_counter()
+        rows, widened = parallel.gossip_elastic(model, mesh)
+        sync(device)
+        ms = (time.perf_counter() - t0) * 1e3
+    out["gossip_elastic"] = {"rows": rank_digests(rows), "widened": widened, "parking": parking,
+                             "k1": fk.fold_entries.launches, "checked": held.calls["k1"],
+                             "max_abs_err": held.max_abs_err["k1"], "wall_ms": ms}
+    del model, rows, quiet
+    model = BatchedOrswot(1, e, a, 2, device=device)
+    model.state = st
+    barrier()
+    fk.fold_entries.launches = wire_pack.launches = 0
+    stats = {}
+    with FoldChecked() as held, K3Checked() as k3c:
+        t0 = time.perf_counter()
+        res = parallel.delta_gossip_elastic(model, dd, ff, mesh, rounds=delta_rounds,
+                                            cap=MH_ELASTIC_CAP, stats=stats)
+        sync(device)
+        ms = (time.perf_counter() - t0) * 1e3
+    out["delta_gossip_elastic"] = {
+        **mh_ring_digest(res[:4]), "widened": res[4], "stats": stats, "rounds": delta_rounds,
+        "k1": fk.fold_entries.launches, "k3": wire_pack.launches, "k3_checked": k3c.calls,
+        "k1_max_abs_err": held.max_abs_err["k1"], "k3_max_abs_err": k3c.max_abs_err,
+        "wall_ms": ms}
+    del model, res, st, dd, ff
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    mstate = mh_map_elastic_state(seed, device, k, s, map_a)
+    if cross:
+        mrows = slice(pid * MH_MAP_ELASTIC_R // n, (pid + 1) * MH_MAP_ELASTIC_R // n)
+        mstate = tree_map(lambda x: x[mrows].clone(), mstate)
+    model = BatchedMap(1, min(k, MH_DELTA_MAP_K), map_a, s, 1, device=device)
+    model.state = mstate
+    barrier()
+    fk.fold_cells.launches = 0
+    with FoldChecked() as held:
+        t0 = time.perf_counter()
+        rows, widened = parallel.gossip_elastic(model, mesh)
+        sync(device)
+        ms = (time.perf_counter() - t0) * 1e3
+    out["map_gossip_elastic"] = {
+        "rows": rank_digests(rows), "widened": widened, "k2": fk.fold_cells.launches,
+        "checked": held.calls["k2"],
+        "max_abs_err": held.max_abs_err["k2"], "wall_ms": ms}
+    return out
+
+
+def mh_check_legs(pid: int, got: dict, want: dict, ranks: slice, on_card: bool) -> None:
+    """Worker ``pid``'s streams, sharded folds and elastic loops against the
+    single-process ones (``ranks``: the worker's global ranks), and their
+    kernels' launches on the card."""
+    for name in ("flagship", "flagship_sharded", "dense_stream"):
+        check(got[name]["digest"] == want[name]["digest"]
+              and got[name]["overflow"] == want[name]["overflow"]
+              and not any(got[name]["overflow"]),
+              f"worker {pid}: the cross-process {name} stream != the single-process stream")
+    check(got["sharded_folds"] == want["sharded_folds"],
+          f"worker {pid}: a cross-process sharded fold != the single-process fold")
+    for name, widened in (("gossip_elastic", {"deferred_cap": 4}),
+                          ("map_gossip_elastic", {"deferred_cap": 2}),
+                          ("delta_gossip_elastic", {"deferred_cap": 4})):
+        check(got[name]["rows"] == want[name]["rows"][ranks]
+              and got[name]["widened"] == want[name]["widened"] == widened,
+              f"worker {pid}: the cross-process {name} (widened {got[name]['widened']}) != the "
+              f"single-process loop (widened {want[name]['widened']})")
+    dg, dw = got["delta_gossip_elastic"], want["delta_gossip_elastic"]
+    check(dg["dirty"] == dw["dirty"][ranks] and dg["overflow"] == dw["overflow"]
+          and dg["residue"] == dw["residue"] == 0 and dg["stats"] == dw["stats"],
+          f"worker {pid}: the cross-process delta_gossip_elastic's dirty rows, flags, residue or "
+          f"stats != the single-process loop's")
+    check(max(got["dense_stream"]["max_abs_err"], got["gossip_elastic"]["max_abs_err"],
+              got["map_gossip_elastic"]["max_abs_err"], dg["k1_max_abs_err"],
+              dg["k3_max_abs_err"]) == 0,
+          f"worker {pid}: a K1/K2/K3 launch of the streams or elastic loops != its plain version")
+    if on_card:
+        launches = {"dense_stream k1": (got["dense_stream"]["k1"], got["dense_stream"]["checked"],
+                                        got["dense_stream"]["blocks"] * MH_LOCAL_RANKS),
+                    "gossip_elastic k1": (got["gossip_elastic"]["k1"],
+                                          got["gossip_elastic"]["checked"], 2 * MH_LOCAL_RANKS),
+                    "map_gossip_elastic k2": (got["map_gossip_elastic"]["k2"],
+                                              got["map_gossip_elastic"]["checked"],
+                                              2 * MH_LOCAL_RANKS),
+                    "delta_gossip_elastic k1": (dg["k1"], dg["k1"], 2 * MH_LOCAL_RANKS),
+                    "delta_gossip_elastic k3": (dg["k3"], dg["k3_checked"], 2 * dg["rounds"])}
+        check(all(n == c == want_n for n, c, want_n in launches.values()),
+              f"worker {pid}: launches (counted, checked, expected) {launches}")
+
+
+def mh_legs_report(single: dict, cross: list) -> dict:
+    """The streams' and elastic loops' figures: the single-process and
+    per-process walls, the flagship stream's merges/s across the
+    processes ((R − 1) / its slowest process's wall), exchange ms and bytes
+    a block, and the kernels' launches per process."""
+    f = single["flagship"]
+    r = f["R"]
+    out = {"flagship": {
+        "R": r, "blocks": f["blocks"], "block_rows": f["block_rows"],
+        "single_process_wall_ms": f["wall_ms"],
+        "single_process_merges_per_s": [(r - 1) / (w / 1e3) for w in f["wall_ms"]],
+        "workers": [{"process": pid, "wall_ms": x["flagship"]["wall_ms"],
+                     "exchange_ms_per_block": x["flagship"]["exchange_ms_per_block"],
+                     "exchange_bytes_per_block": x["flagship"]["exchange_bytes_per_block"]}
+                    for pid, x in enumerate(cross)]}}
+    walls = [max(x["flagship"]["wall_ms"][i] for x in cross) for i in range(MH_FLAGSHIP_PASSES)]
+    out["flagship"].update(cross_process_wall_ms=walls,
+                           cross_process_merges_per_s=[(r - 1) / (w / 1e3) for w in walls],
+                           cross_over_single=walls[-1] / f["wall_ms"][-1])
+    out["sharded_stream_blocks"] = MH_SHARDED_BLOCKS
+    for name in ("dense_stream", "gossip_elastic", "map_gossip_elastic", "delta_gossip_elastic"):
+        out[name] = {"single_process_wall_ms": single[name]["wall_ms"],
+                     "workers_wall_ms": [x[name]["wall_ms"] for x in cross],
+                     "widened": single[name].get("widened")}
+    out["launches_per_process"] = [
+        {"dense_stream_k1": x["dense_stream"]["k1"], "gossip_elastic_k1": x["gossip_elastic"]["k1"],
+         "map_gossip_elastic_k2": x["map_gossip_elastic"]["k2"],
+         "delta_gossip_elastic_k1": x["delta_gossip_elastic"]["k1"],
+         "delta_gossip_elastic_k3": x["delta_gossip_elastic"]["k3"]} for x in cross]
+    out["delta_gossip_elastic"]["rounds"] = single["delta_gossip_elastic"]["rounds"]
+    out["reduced"] = {
+        "flagship_sharded": f"{MH_SHARDED_BLOCKS} of the flagship's {f['blocks']} blocks",
+        "dense_stream_and_elastic_R": "config 3's 10,240 cut to the phase's R",
+        "map_gossip_elastic": f"R = {MH_MAP_ELASTIC_R} (phase_elastic's), K cut to "
+                              f"{MH_DELTA_MAP_K:,}",
+        "sharded_folds": f"the tests' sizes (R = {MH_SMALL_R})"}
+    return out
+
+
 def multihost_worker(spec: str, seed: int) -> int:
     """One process of the ``multihost`` phase: ``spec`` is
     ``port,process,n_processes,device,root,r,e,a,d,map_r,k,s,map_a``. It
@@ -11065,8 +11398,9 @@ def multihost_worker(spec: str, seed: int) -> int:
     before and read just after), the list rounds and the tenant handoff;
     then times the dense fold; then runs the four δ rings on its rows of
     their batches at the budgets of ``root/rounds.json``
-    (:func:`mh_cross_ring`) and every other fold and gossip kind
-    (:func:`mh_small_kinds`). Writes ``root/worker<process>.json``."""
+    (:func:`mh_cross_ring`), every other fold and gossip kind
+    (:func:`mh_small_kinds`), and the streams, sharded folds and elastic
+    loops (:func:`mh_stream_legs`). Writes ``root/worker<process>.json``."""
     import torch
     import torch.distributed as dist
 
@@ -11079,8 +11413,9 @@ def multihost_worker(spec: str, seed: int) -> int:
     )
     from crdt_tpu_torch.parallel.anti_entropy import local_folds, rank_blocks
 
-    port, pid, n, dev, root, r, e, a, d, map_r, k, s, map_a = spec.split(",")
+    port, pid, n, dev, root, r, e, a, d, map_r, k, s, map_a, *flagship = spec.split(",")
     pid, n, r, e, a, d, map_r, k, s, map_a = map(int, (pid, n, r, e, a, d, map_r, k, s, map_a))
+    flagship = tuple(map(int, flagship))
     device = torch.device(dev)
     if device.type == "cuda":
         torch.cuda.set_device(device)
@@ -11143,6 +11478,15 @@ def multihost_worker(spec: str, seed: int) -> int:
             del inputs
         out["small"] = mh_small_digests(mh_small_kinds(seed, device), mesh,
                                         slice(pid * MH_SMALL_R // n, (pid + 1) * MH_SMALL_R // n))
+        # The streams, the element-sharded folds and the elastic loops.
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        smesh = multihost.global_mesh(n_element_shards=2, local_ranks=MH_LOCAL_RANKS,
+                                      device=device)
+        out["legs"] = mh_stream_legs(seed, device, mesh, smesh, r, e, a, d, k, s, map_a,
+                                     flagship, pid=pid, n=n,
+                                     delta_rounds=rounds["elastic_delta"],
+                                     parking=rounds["elastic_parking"])
         with open(os.path.join(root, f"worker{pid}.json"), "w") as f:
             json.dump(out, f)
     finally:
@@ -11158,7 +11502,8 @@ def sync(device) -> None:
 
 
 def phase_multihost(device, seed: int, r: int = 2048, e: int = 102400, a: int = 8, d: int = 4,
-                    map_r: int = 8, k: int = 1_000_000, s: int = 2, map_a: int = 4) -> dict:
+                    map_r: int = 8, k: int = 1_000_000, s: int = 2, map_a: int = 4,
+                    flagship=MH_FLAGSHIP) -> dict:
     """ROADMAP 5a on one card (module docstring, phase 42): the
     single-process folds of the whole batches on P = 8 virtual ranks
     first (the dense one timed), then two worker processes of this script
@@ -11220,6 +11565,11 @@ def phase_multihost(device, seed: int, r: int = 2048, e: int = 102400, a: int = 
         del inputs
     small = mh_small_digests(mh_small_kinds(seed, device), mesh)
     if device.type == "cuda":
+        torch.cuda.empty_cache()
+    legs = mh_stream_legs(seed, device, mesh, VirtualMesh(MH_PROCESSES * MH_LOCAL_RANKS // 2,
+                                                          device, s=2), r, e, a, d, k, s, map_a,
+                          flagship)
+    if device.type == "cuda":
         torch.cuda.empty_cache()  # the workers need the card's memory
 
     with socket.socket() as sk:
@@ -11227,9 +11577,11 @@ def phase_multihost(device, seed: int, r: int = 2048, e: int = 102400, a: int = 
         port = sk.getsockname()[1]
     root = tempfile.mkdtemp(prefix="chip-smoke-multihost-")
     with open(os.path.join(root, "rounds.json"), "w") as f:
-        json.dump({kind: ring["rounds"] for kind, ring in rings.items()}, f)
+        json.dump({**{kind: ring["rounds"] for kind, ring in rings.items()},
+                   "elastic_delta": legs["delta_gossip_elastic"]["rounds"],
+                   "elastic_parking": legs["gossip_elastic"]["parking"]}, f)
     spec = lambda pid: ",".join(map(str, (port, pid, MH_PROCESSES, device, root, r, e, a,  # noqa: E731
-                                           d, map_r, k, s, map_a)))
+                                           d, map_r, k, s, map_a, *flagship)))
     t0 = time.perf_counter()
     procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--multihost-worker",
                                spec(pid), "--seed", str(seed)], stdout=subprocess.PIPE,
@@ -11307,6 +11659,7 @@ def phase_multihost(device, seed: int, r: int = 2048, e: int = 102400, a: int = 
                 want = {"rows": want["rows"][ranks], "flags": want["flags"]}
             check(got == want, f"worker {pid}: the cross-process {name} != the single-process "
                                f"entry")
+        mh_check_legs(pid, w["legs"], legs, ranks, on_card)
     med = st.median
     out.update(
         single_process_fold_ms=walls, single_process_fold_ms_median=med(walls),
@@ -11316,9 +11669,16 @@ def phase_multihost(device, seed: int, r: int = 2048, e: int = 102400, a: int = 
                   "exchange_bytes": w["exchange_bytes"], "local_fold_ms": w["local_fold_ms"],
                   "list": w["list"], "handoff": w["handoff"]} for pid, w in enumerate(workers)],
         cross_over_single=(max(med(w["wall_ms"]) for w in workers) / med(walls)),
-        k1_max_abs_err=max(w["max_abs_err"]["k1"] for w in workers),
-        k2_max_abs_err=max(w["max_abs_err"]["k2"] for w in workers),
-        k3_max_abs_err=max(x["k3_max_abs_err"] for w in workers for x in w["rings"].values()),
+        k1_max_abs_err=max(max(w["max_abs_err"]["k1"], w["legs"]["dense_stream"]["max_abs_err"],
+                               w["legs"]["gossip_elastic"]["max_abs_err"],
+                               w["legs"]["delta_gossip_elastic"]["k1_max_abs_err"])
+                           for w in workers),
+        k2_max_abs_err=max(max(w["max_abs_err"]["k2"],
+                               w["legs"]["map_gossip_elastic"]["max_abs_err"]) for w in workers),
+        k3_max_abs_err=max(max(max(x["k3_max_abs_err"] for x in w["rings"].values()),
+                               w["legs"]["delta_gossip_elastic"]["k3_max_abs_err"])
+                           for w in workers),
+        legs=mh_legs_report(legs, [w["legs"] for w in workers]),
         rings={kind: mh_ring_report(kind, ring, [w["rings"][kind] for w in workers])
                for kind, ring in rings.items()},
         small_kinds=sorted(small),

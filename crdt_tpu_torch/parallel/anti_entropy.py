@@ -71,8 +71,9 @@ and the gossip ring runs over every process's ranks (``collectives``),
 P-1 rounds by default with P the global rank count; the fold returns the
 global join on every process, the ring this process's rows, and the
 flags are OR-reduced over every process. ``telemetry=``, ``stability=``,
-``faults=`` and ``lag_threshold=`` are not taken there, nor is
-``gossip_elastic`` (ROADMAP item 32).
+``faults=`` and ``lag_threshold=`` are not taken there (ROADMAP item
+32). ``gossip_elastic`` takes it too, re-entering the cross-process
+rings (its docstring).
 
 ``faults=`` (a ``faults.FaultPlan``) on the ring entries and
 ``gossip_elastic`` injects the plan's link faults into every exchange:
@@ -896,9 +897,19 @@ def gossip_elastic(model, mesh: VirtualMesh, rounds: Optional[int] = None, polic
     read the model, not the returned rows. ``lag_threshold=`` is the
     frontier-stall alert (it needs ``stability=``). ``faults=`` threads a
     ``FaultPlan`` into every attempt; the LAST element is then the
-    ``FaultCounters`` with the packet counts summed over the attempts."""
-    if isinstance(mesh, multihost.GlobalMesh):
-        multihost.refuse("gossip_elastic")
+    ``FaultCounters`` with the packet counts summed over the attempts.
+
+    On a cross-process mesh ``model`` holds this process's rows: every
+    attempt runs a cross-process ring, whose flags are global, so every
+    process widens the same axes and re-enters as often, and
+    ``max_migrations`` fails on every process together. One gather at
+    entry checks that every process's model has the same kind, rows and
+    capacities (``ValueError`` on every process otherwise). ``reclaim=``
+    (the hysteresis decides per process), ``telemetry=``,
+    ``stability=``, ``faults=`` and ``lag_threshold=`` are refused there
+    (ROADMAP item 32)."""
+    procs, _ = _split_mesh(mesh, "gossip_elastic", telemetry=telemetry, stability=stability,
+                           reclaim=reclaim, faults=faults, lag_threshold=lag_threshold)
     from .. import elastic
     from ..models.map import BatchedMap
     from ..models.orswot import BatchedOrswot
@@ -929,6 +940,8 @@ def gossip_elastic(model, mesh: VirtualMesh, rounds: Optional[int] = None, polic
             f"gossip_elastic covers BatchedOrswot, BatchedSparseOrswot, BatchedMap, "
             f"BatchedSparseMap and BatchedSparseNestedMap, got {type(m).__name__}")
 
+    if procs is not None:
+        _same_models("gossip_elastic", model, procs)
     widened: dict = {}
     migrations = 0
     tel = fcs = None
@@ -970,6 +983,26 @@ def gossip_elastic(model, mesh: VirtualMesh, rounds: Optional[int] = None, polic
         metrics.count("elastic.gossip_migrations")
         widened.update(elastic.widen(model, hot, policy))
         migrations += 1
+
+
+def _same_models(entry: str, model, procs) -> None:
+    """An elastic loop's check at entry across processes: one gather of
+    the model's kind, rows and capacities, which must agree; a model of
+    no elastic kind is refused. Every process raises alike
+    (``multihost.require_same``)."""
+    import zlib
+
+    from .. import elastic
+
+    try:
+        caps = elastic.capacities(model)
+        values = (zlib.crc32(elastic.kind_of(model).encode()),
+                  tree_leaves(model.state)[0].shape[0], *caps.values())
+        refused = None
+    except (TypeError, ValueError) as exc:
+        values, refused = (), exc
+    multihost.require_same(f"{entry}: the models' kind, rows and capacities", values, procs,
+                           refused)
 
 
 def _commit_rows(model, rows) -> None:

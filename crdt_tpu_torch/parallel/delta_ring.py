@@ -106,7 +106,6 @@ from __future__ import annotations
 import time
 from typing import Callable, Optional
 
-import numpy as np
 import torch
 
 from .. import telemetry as tele
@@ -672,12 +671,12 @@ def _even_rows(state, p: int, procs) -> None:
     """A cross-process ring's rows: every process must hold the same
     number, a multiple of its ``p`` local ranks — padding cannot reach
     across processes (the JAX multi-process mesh cannot pad its global
-    arrays either). One small all-gather, so every process raises
-    alike."""
-    from .multihost import _allgather_host
+    arrays either). One small all-gather (``multihost.agree``), so every
+    process raises alike."""
+    from .multihost import agree
 
     r = tree_leaves(state)[0].shape[0]
-    rows = [int(x[0]) for x in _allgather_host(np.asarray([r], np.int64))]
+    rows = [x[0] for x in agree((r,), procs)]
     if len(set(rows)) != 1 or r % p:
         raise ValueError(
             f"a cross-process δ ring needs the same number of rows on every process, a "
@@ -788,13 +787,24 @@ def delta_gossip_elastic(
     the replica set), and the tracker observes the model and narrows
     cleared axes in place. ``faults=`` threads a ``FaultPlan`` into every
     attempt; the LAST element is then the ``FaultCounters`` with the
-    packet counts summed over the attempts (``faults.combine_counters``)."""
+    packet counts summed over the attempts (``faults.combine_counters``).
+
+    On a cross-process mesh ``model``, ``dirty`` and ``fctx`` hold this
+    process's rows: every attempt runs the cross-process ring, whose
+    overflow is global, so every process widens alike and re-enters as
+    often, and ``max_migrations`` fails on every process together. One
+    gather at entry checks that every process's model has the same rows
+    and capacities (``ValueError`` on every process otherwise).
+    ``reclaim=``, ``telemetry=``, ``faults=`` and ``wal=`` are refused
+    there (ROADMAP item 32)."""
     from .. import elastic
-    from . import multihost
+    from .anti_entropy import _same_models
     from .delta import mesh_delta_gossip
 
-    if isinstance(mesh, multihost.GlobalMesh):
-        multihost.refuse("delta_gossip_elastic")
+    procs, _ = _split_mesh(mesh, "delta_gossip_elastic", telemetry=telemetry, reclaim=reclaim,
+                           faults=faults, wal=wal)
+    if procs is not None:
+        _same_models("delta_gossip_elastic", model, procs)
     if wal is not None and wal.tail is None:
         wal.attach(model.state)
     policy = policy or elastic.DEFAULT_POLICY

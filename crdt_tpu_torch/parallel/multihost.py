@@ -13,21 +13,33 @@ ranks on its card) and the processes meet in a process group:
   plus the group, the replica axis ``local ranks × processes`` long,
   global rank ``process · local ranks + local rank`` (process-major, the
   JAX ``global_mesh`` order). The entries of ``CROSS_PROCESS_ENTRIES``
-  take it — every fold and gossip of ``anti_entropy`` and the four δ
-  rings: each process folds its rows on its card (K1, K2), then the
-  fold's lattice all-reduce (``collectives.all_reduce_lattice``) gains a
-  process step — recursive doubling with partner ``process ^ 2^k`` over
-  ``send``/``recv``, since gloo takes no user-defined reduce op — and a
-  ring's hop from a process's last rank to the next process's first is
-  one ``send``/``recv`` of that rank's row (``ring_hop``; the δ ring's
-  inverse hop, the digest and the acks, is ``ring_hop_back``). The δ
-  ring's end-of-run sums and top maximum ride one all-gather
-  (``gather_processes``). The exchange runs over host memory; every join
-  and every K3 pack stays on the card. The streams, the element-sharded
-  folds, the elastic loops, ``mesh_serve_apply`` and ``mesh_fanout_push``
-  handed a ``GlobalMesh`` raise ``NotImplementedError`` (ROADMAP item
-  32), as do ``telemetry=``, ``stability=``, ``faults=``,
-  ``lag_threshold=`` and ``wal=`` on a cross-process entry;
+  take it — every fold and gossip of ``anti_entropy``, the four δ
+  rings, the four replica streams, the four element-sharded folds and
+  both elastic loops: each process folds its rows on its card (K1, K2),
+  then the fold's lattice all-reduce (``collectives.all_reduce_lattice``)
+  gains a process step — recursive doubling with partner ``process ^
+  2^k`` over ``send``/``recv``, since gloo takes no user-defined reduce
+  op — and a ring's hop from a process's last rank to the next
+  process's first is one ``send``/``recv`` of that rank's row
+  (``ring_hop``; the δ ring's inverse hop, the digest and the acks, is
+  ``ring_hop_back``). The δ ring's end-of-run sums and top maximum ride
+  one all-gather (``gather_processes``). A stream runs that process step
+  once a block, after one :func:`agree` gather of every process's block
+  status (staged, source ended, failed, refused); an element-sharded
+  fold exchanges rank 0's ``[1, S, ...]`` row (element shards never
+  straddle processes); an elastic loop re-enters cross-process entries,
+  whose flags are global, so every process widens alike. The exchange
+  runs over host memory; every join and every K3 pack stays on the
+  card. ``mesh_serve_apply`` and ``mesh_fanout_push`` handed a
+  ``GlobalMesh`` raise ``NotImplementedError`` (ROADMAP item 32), as do
+  ``telemetry=``, ``stability=``, ``faults=``, ``lag_threshold=``,
+  ``wal=`` and the elastic loops' ``reclaim=`` on a cross-process
+  entry;
+- ``agree`` / ``require_same`` — a few integers of every process in ONE
+  small all-gather: the entries' checks at entry (caps, rows, shard
+  counts and ``init=`` shapes that differ across processes raise
+  ``ValueError`` on every process, never a hang until ``TIMEOUT``) and
+  the stream's per-block status;
 - ``host_to_global`` / ``global_to_host`` — this process's rows onto the
   mesh's device, a result back to numpy;
 - ``_allgather_host``, ``sync_tenant_rows``, ``sync_list`` — the host
@@ -65,8 +77,15 @@ CROSS_PROCESS_ENTRIES = (
     "mesh_gossip_map_orswot", "mesh_fold_map3", "mesh_gossip_map3", "mesh_fold_nested_map",
     "mesh_gossip_nested_map", "mesh_fold_clocks", "mesh_fold_gset", "mesh_fold_lww",
     "mesh_fold_mvreg", "mesh_delta_gossip", "mesh_delta_gossip_map",
-    "mesh_delta_gossip_map_orswot", "mesh_delta_gossip_map3",
+    "mesh_delta_gossip_map_orswot", "mesh_delta_gossip_map3", "mesh_stream_fold_sparse",
+    "mesh_stream_fold", "mesh_stream_fold_sparse_mvmap", "mesh_stream_fold_sparse_sharded",
+    "mesh_fold_sparse_sharded", "mesh_fold_sparse_mvmap_sharded",
+    "mesh_fold_sparse_nested_sharded", "mesh_fold_sparse_map", "gossip_elastic",
+    "delta_gossip_elastic",
 )
+
+#: The integers a process may put on the table of one :func:`agree`.
+AGREE_WIDTH = 32
 
 
 def initialize(
@@ -253,6 +272,56 @@ def _gather_rows(arr: np.ndarray) -> list:
     for o, g, m in zip(out, got, lens):
         o.reshape(-1).view(np.uint8)[:] = g[: m * row].numpy()
     return out
+
+
+# ---- the agreement: a few integers of every process -------------------------
+
+def agree(values, mesh: Optional["GlobalMesh"]) -> list:
+    """Every process's ``values`` (fewer than ``AGREE_WIDTH`` integers), in
+    process order, over the processes of ``mesh``: ONE all-gather of a
+    fixed-width ``int64`` row a process, its count first, so a process
+    that put down another count disagrees. Without processes to cross
+    (``mesh`` None or one process), ``[values]``."""
+    vals = tuple(int(v) for v in values)
+    if mesh is None or mesh.process_count == 1:
+        return [vals]
+    if len(vals) >= AGREE_WIDTH:
+        raise ValueError(f"agree takes fewer than {AGREE_WIDTH} integers, got {len(vals)}")
+    row = torch.zeros(AGREE_WIDTH, dtype=torch.int64)
+    row[0] = len(vals)
+    row[1:1 + len(vals)] = torch.tensor(vals, dtype=torch.int64)
+    got = [torch.empty_like(row) for _ in range(mesh.process_count)]
+    with metrics.time("multihost.exchange"):
+        _all_gather(got, row)
+    metrics.count("multihost.bytes_sent", row.numel() * row.element_size())
+    return [tuple(int(v) for v in g[1:1 + int(g[0])]) for g in got]
+
+
+def require_same(what: str, values, mesh: Optional["GlobalMesh"], error=None) -> None:
+    """An entry's check across processes, raised on EVERY process alike:
+    :func:`agree` on ``values``; ``error`` is this process's own refusal
+    (the exception its local check raised, or None). Every process then
+    raises — this one ``error``, the others a ``ValueError`` naming the
+    refusing process — or, when the values differ, a ``ValueError``
+    listing them."""
+    rows = agree((int(error is not None), *values), mesh)
+    if error is not None:
+        raise error
+    refused = [i for i, r in enumerate(rows) if r[0]]
+    if refused:
+        raise ValueError(f"{what}: process {refused[0]} refused its input")
+    if len(set(rows)) != 1:
+        raise ValueError(f"{what} differ across processes: {[r[1:] for r in rows]}")
+
+
+def shape_digest(tree, skip: int = 1) -> int:
+    """A digest of every leaf's dtype and shape past its first ``skip``
+    axes (the replica rows): equal across processes when their states
+    line up, for :func:`require_same`."""
+    import zlib
+
+    return zlib.crc32(repr([(str(x.dtype), tuple(x.shape[skip:]))
+                            for x in tree_leaves(tree)]).encode())
 
 
 # ---- the process step of the cross-process entries -------------------------
@@ -505,8 +574,8 @@ def sync_list(model, since: int = 0, retry=None) -> int:
 
 
 __all__ = [
-    "CROSS_PROCESS_ENTRIES", "GlobalMesh", "TIMEOUT", "all_reduce_processes",
-    "global_mesh", "global_to_host", "host_to_global", "initialize", "process_count",
-    "process_index", "gather_processes", "refuse", "ring_hop", "ring_hop_back", "sync_list",
-    "sync_tenant_rows",
+    "AGREE_WIDTH", "CROSS_PROCESS_ENTRIES", "GlobalMesh", "TIMEOUT", "agree",
+    "all_reduce_processes", "gather_processes", "global_mesh", "global_to_host",
+    "host_to_global", "initialize", "process_count", "process_index", "refuse", "require_same",
+    "ring_hop", "ring_hop_back", "shape_digest", "sync_list", "sync_tenant_rows",
 ]

@@ -25,6 +25,18 @@ all-reduces the lattice over the P ranks per shard
 (``collectives.all_reduce_lattice``) and ORs the overflow flags over both
 axes; the result keeps the shard axis, ``[S, ...]``. The split functions
 read the occupancy back to the host, as the JAX package's do.
+
+Every sharded fold also takes a cross-process mesh
+(``multihost.global_mesh(n_element_shards=S, ...)``): the state is this
+process's rows ``[R, S, ...]`` on its local ``VirtualMesh(p, s=S)``; each
+process folds them, the all-reduce's process step exchanges rank 0's
+``[1, S, ...]`` row, and every process returns the global join and the
+flags ORed over every process. Element shards never straddle processes
+(``global_mesh`` refuses that), so the nest's key liveness, which sums
+over the shard axis, stays a local sum. One small gather at entry
+(``multihost.require_same``) checks that every process holds the mesh's
+shard count and the same per-shard shapes, or raises ``ValueError`` on
+every process.
 """
 
 from __future__ import annotations
@@ -42,7 +54,8 @@ from ..ops.sparse_mvmap import SparseMVMapState
 from ..ops.sparse_nest import SparseNestState
 from ..ops.sparse_orswot import SparseOrswotState, _canon, _canon_rmlist
 from ..utils.metrics import metrics, state_nbytes
-from .anti_entropy import local_folds
+from . import multihost
+from .anti_entropy import _split_mesh, local_folds
 from .collectives import all_reduce_lattice
 from .mesh import VirtualMesh, pad_replicas_sparse
 
@@ -138,26 +151,34 @@ def split_nested(state: SparseNestState, n_shards: int,
                            kdvalid=rep(state.kdvalid))
 
 
-def _sharded_fold(kind: str, states, mesh: VirtualMesh, join_fn, fold_fn):
+def _sharded_fold(kind: str, entry: str, states, mesh: VirtualMesh, join_fn, fold_fn):
     """The scaffold of every element-sharded fold: the shard-count check,
     the replica axis padded with identities, each rank's block folded per
     shard (one batched tree, ranks and shards as batch axes), the lattice
-    all-reduce over the ranks per shard, and the flags ORed over ranks
-    and shards. ``join_fn``/``fold_fn`` may name the shard axis (-1) for
-    the nest's cross-shard scrub. Returns ``(state [S, ...], flags)``."""
+    all-reduce over the ranks per shard (and the processes of a
+    cross-process mesh), and the flags ORed over ranks and shards.
+    ``join_fn``/``fold_fn`` may name the shard axis (-1) for the nest's
+    cross-shard scrub. Returns ``(state [S, ...], flags)``."""
+    procs, mesh = _split_mesh(mesh, entry)
     leaf = tree_leaves(states)[0]
+    refused = None
     if leaf.dim() < 2 or leaf.shape[1] != mesh.s:
         got = leaf.shape[1] if leaf.dim() > 1 else None
-        raise ValueError(f"state has {got} element shards, mesh axis is {mesh.s}")
+        refused = ValueError(f"state has {got} element shards, mesh axis is {mesh.s}")
+    if procs is not None:
+        multihost.require_same(f"{entry}: the per-shard state shapes",
+                               (multihost.shape_digest(states),), procs, refused)
+    elif refused is not None:
+        raise refused
     metrics.count(f"anti_entropy.{kind}_rounds")
     metrics.observe("anti_entropy.state_bytes", state_nbytes(states))
     with metrics.time(f"anti_entropy.{kind}"):
         states = pad_replicas_sparse(tree_map(lambda x: x.to(mesh.device), states), mesh.p)
         blocks = tree_map(lambda x: x.reshape(mesh.p, -1, *x.shape[1:]), states)
         folded, of_local = local_folds(blocks, fold_fn)        # [P, S, ...], [P, S, L]
-        joined, of_cross = all_reduce_lattice(folded, join_fn, fold_fn)  # [S, L]
-        of = torch.any(of_local.flatten(0, 1), dim=0) | torch.any(of_cross, dim=0)
-    return tree_map(lambda x: x[0], joined), of
+        joined, of = all_reduce_lattice(folded, join_fn, fold_fn, procs,
+                                        flags=torch.any(of_local, dim=0))  # [S, L]
+    return tree_map(lambda x: x[0], joined), torch.any(of, dim=0)
 
 
 def mesh_fold_sparse_sharded(states: SparseOrswotState,
@@ -166,7 +187,8 @@ def mesh_fold_sparse_sharded(states: SparseOrswotState,
     (from :func:`split_segments`; S == ``mesh.s``) over the mesh.
     Shard-local joins are exact, so the only collective is the replica
     axis's lattice all-reduce. Returns ``(state [S, ...], flags [2])``."""
-    return _sharded_fold("sparse_sharded_fold", states, mesh, sp.join, sp.fold)
+    return _sharded_fold("sparse_sharded_fold", "mesh_fold_sparse_sharded", states, mesh, sp.join,
+                         sp.fold)
 
 
 def mesh_fold_sparse_mvmap_sharded(states: SparseMVMapState, mesh: VirtualMesh,
@@ -174,7 +196,8 @@ def mesh_fold_sparse_mvmap_sharded(states: SparseMVMapState, mesh: VirtualMesh,
     """Converge a key-SHARDED sparse ``Map<K, MVReg>`` batch ``[R, S, ...]``
     (from :func:`split_cells`) over the mesh. Returns ``(state [S, ...],
     flags [3])``."""
-    return _sharded_fold(f"sparse_mvmap_sharded_fold_s{sibling_cap}", states, mesh,
+    return _sharded_fold(f"sparse_mvmap_sharded_fold_s{sibling_cap}",
+                         "mesh_fold_sparse_mvmap_sharded", states, mesh,
                          lambda a, b: smv.join(a, b, sibling_cap=sibling_cap),
                          lambda x: smv.fold(x, sibling_cap=sibling_cap))
 
@@ -187,7 +210,8 @@ def mesh_fold_sparse_nested_sharded(states: SparseNestState, mesh: VirtualMesh, 
     [L+1])``."""
     from .anti_entropy import _nested_kind
 
-    return _sharded_fold(_nested_kind(level, "sharded"), states, mesh,
+    return _sharded_fold(_nested_kind(level, "sharded"), "mesh_fold_sparse_nested_sharded",
+                         states, mesh,
                          lambda a, b: level.join(a, b, element_axis=_ELEMENT_AXIS),
                          lambda x: level.fold(x, element_axis=_ELEMENT_AXIS))
 
@@ -200,7 +224,7 @@ def mesh_fold_sparse_map(states: SparseNestState, mesh: VirtualMesh,
     join and fold take the shard axis as their ``element_axis``. Returns
     ``(state [S, ...], flags [3])``."""
     level = nest.level_map_orswot(span)
-    return _sharded_fold("sparse_map_fold", states, mesh,
+    return _sharded_fold("sparse_map_fold", "mesh_fold_sparse_map", states, mesh,
                          lambda a, b: level.join(a, b, element_axis=_ELEMENT_AXIS),
                          lambda x: level.fold(x, element_axis=_ELEMENT_AXIS))
 

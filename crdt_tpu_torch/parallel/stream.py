@@ -101,6 +101,35 @@ refuses (re-chunk the source).
   an interrupt carries the partial report. Healing is a re-stream of the
   lost blocks with ``init=`` the faulted accumulator.
 
+Across processes (``mesh`` a ``multihost.GlobalMesh``) each process
+streams its own rows of each block: global block k is the process-order
+concatenation of every process's block k, global rank ``process ·
+P_local + local rank`` — the layout of ``multihost.host_to_global`` and
+every cross-process entry, and what a stream is for: each host reads
+only its own replicas. (The JAX stream instead stages each whole block
+onto the global block sharding with ``jax.device_put``.) Each process
+pads its own first block to a multiple of its local ranks; the
+template's caps and padded rows are the maxima over the processes,
+agreed in one gather at entry, where ``init=`` shapes, ``compact_every=``
+and ``widen_policy=`` that differ across processes raise ``ValueError``
+on every process. Before every step one small gather
+(``multihost.agree``) shares each process's status — staged, source
+ended, failed or refused: a process whose source has ended steps an
+identity block while another still has blocks; the stream ends when
+every source has; a refusal (a ``ValueError`` of the source or of the
+staging checks) raises ``ValueError`` on every process; a failure raises
+:class:`StreamInterrupted` on every process with the same
+``blocks_done`` and the same (replicated) accumulator, so ``init=exc.acc``
+plus each process's remaining blocks resumes it. The step's all-reduce
+gains the process step with the local flags riding it, so the flags are
+global and ``widen_policy=`` widens the same axes on every process.
+``frontier=`` must be stable over the whole population (the caller's
+promise, as in the JAX package). The process step synchronises the card
+before its exchange, so less of a step overlaps the next block's upload:
+``stream.overlap_hit`` counts what each process saw. ``telemetry=``,
+``faults=`` and ``wal=`` raise ``NotImplementedError`` there (ROADMAP
+item 32).
+
 The stream feeds the ``stream.<kind>.deferred_depth`` gauge (of the first
 block) and the ``stream.<kind>`` timer around the block loop, and counts
 ``stream.unaliasable_blocks`` for a repacked block of a donating stream,
@@ -126,9 +155,13 @@ from ..ops import sparse_orswot as sp
 from ..ops.fold_kernels import fold_auto
 from ..ops.lattice import tree_map
 from ..utils.metrics import metrics, observe_depth
-from .anti_entropy import _exchange_count, local_folds
+from . import multihost
+from .anti_entropy import _exchange_count, _split_mesh, local_folds
 from .collectives import all_reduce_lattice
 from .mesh import VirtualMesh
+
+# A process's block status, agreed before every step (``multihost.agree``).
+_STAGED, _ENDED, _FAILED, _REFUSED = 0, 1, 2, 3
 
 
 @dataclass
@@ -184,6 +217,7 @@ class _StreamPlan:
     empty: Callable          # (caps, batch, device) -> identity batch
     widen_state: Callable    # (state, {axis: cap}) -> state
     slots_fn: Callable       # (a, b) -> u32 changed lanes (the telemetry's)
+    axes: Tuple[str, ...]    # the keys of caps_of, in its order
     # overflow lane -> the elastic axis that widening recovers ("" = the
     # lane is not a state axis); read by widen_policy=.
     flag_axes: Tuple[str, ...] = ()
@@ -207,6 +241,7 @@ def _plan_sparse() -> _StreamPlan:
         ),
         widen_state=lambda s, caps: sp.widen(s, **caps),
         slots_fn=sp.changed_dots,
+        axes=("dot_cap", "n_actors", "deferred_cap", "rm_width"),
         flag_axes=("dot_cap", "deferred_cap"),
         compact_fn=sp.compact,
     )
@@ -228,6 +263,7 @@ def _plan_sparse_mvmap(sibling_cap: int) -> _StreamPlan:
         ),
         widen_state=lambda s, caps: smv.widen(s, **caps),
         slots_fn=smv.changed_cells,
+        axes=("cell_cap", "n_actors", "deferred_cap", "rm_width"),
         # The sibling lane is a join argument, not a state axis.
         flag_axes=("cell_cap", "deferred_cap", ""),
         compact_fn=smv.compact,
@@ -256,6 +292,7 @@ def _plan_dense() -> _StreamPlan:
         ),
         widen_state=lambda s, caps: ops.widen(s, **caps),
         slots_fn=ops.changed_members,
+        axes=("n_elems", "n_actors", "deferred_cap"),
         flag_axes=("deferred_cap",),
         compact_fn=ops.compact,
     )
@@ -281,16 +318,18 @@ def _widen_to(plan: _StreamPlan, state, caps: Dict[str, int]):
     return plan.widen_state(state, grow) if grow else state
 
 
-def _step(plan: _StreamPlan, acc, block, p: int):
+def _step(plan: _StreamPlan, acc, block, p: int, procs=None):
     """One block on P virtual ranks: rank-local folds, the lattice
-    all-reduce, the join into the accumulator. ``block`` has a multiple
-    of P rows on the accumulator's device. Returns ``(acc, overflow)``;
-    a sharded plan's flags are ORed over the shards too."""
+    all-reduce (over the processes of ``procs`` too, the local flags
+    riding its process step), the join into the accumulator. ``block``
+    has a multiple of P rows on the accumulator's device. Returns ``(acc,
+    overflow)``; a sharded plan's flags are ORed over the shards too."""
     ranks = tree_map(lambda x: x.reshape(p, -1, *x.shape[1:]), block)
     folded, of_local = plan.local_fold(ranks)
-    joined, of_cross = all_reduce_lattice(folded, plan.join_fn, plan.fold_fn)
+    joined, of = all_reduce_lattice(folded, plan.join_fn, plan.fold_fn, procs,
+                                    flags=torch.any(of_local, dim=0))
     acc, of_join = plan.join_fn(acc, tree_map(lambda x: x[0], joined))
-    of = torch.any(of_local, dim=0) | of_join | of_cross
+    of = of | of_join
     return acc, torch.any(of, dim=0) if plan.sharded else of
 
 
@@ -344,6 +383,7 @@ def _stream_fold(
     blocks: Iterable,
     mesh: VirtualMesh,
     *,
+    entry: str,
     init=None,
     telemetry: bool = False,
     donate: bool = True,
@@ -357,8 +397,11 @@ def _stream_fold(
     wal_base: int = 0,
 ):
     """The shared scaffold: template derivation, upload and repack of each
-    block, the double-buffered step loop and the interrupt protocol (see
-    the module docstring)."""
+    block, the double-buffered step loop and the interrupt protocol, on
+    one process or across the processes of a cross-process mesh (see the
+    module docstring)."""
+    procs, mesh = _split_mesh(mesh, entry, telemetry=telemetry, faults=faults, wal=wal)
+    me = 0 if procs is None else procs.process_index
     device, p = mesh.device, mesh.p
     faulted = faults is not None
     dropped_blocks: list = []
@@ -380,50 +423,104 @@ def _stream_fold(
         wal.append_resume(plan.kind, acc_now, wal_base + done)
         wal.sync()
 
-    try:
-        first = next(it, None)
-    except ValueError:
-        raise  # caller bugs propagate as they are
-    except Exception as exc:
-        metrics.count("stream.interrupted")
-        persist_resume(init, 0)
-        raise StreamInterrupted(exc, init, 0, fault_report=partial_report()) from exc
-    if first is None and init is None:
-        raise ValueError("empty block stream and no init accumulator")
+    def fetch():
+        """The source's next block as ``(status, block, error)``: a
+        ``ValueError`` (a caller bug) refuses it, any other exception
+        fails it, and the end of the source is ``_ENDED``."""
+        try:
+            raw_block = next(it, None)
+        except ValueError as exc:
+            return _REFUSED, None, exc
+        except Exception as exc:
+            return _FAILED, None, exc
+        return (_ENDED, None, None) if raw_block is None else (_STAGED, raw_block, None)
 
-    # ---- template: caps and padded row count from the first block -----
-    if first is not None:
-        caps = plan.caps_of(first)
-        rows = _rows_of(first)
-        template_rows = rows + (-rows) % p
-    else:
-        caps = plan.caps_of(init)
-        template_rows = p
+    def halt(codes, error, acc_now, done: int, part=lambda: None) -> None:
+        """Act on every process's agreed status ``codes`` before block
+        ``done``: a refusal raises ``ValueError`` on every process (this
+        process's own where it refused), a failure ``StreamInterrupted``
+        carrying ``acc_now`` (and the partial Telemetry ``part()``)."""
+        if _REFUSED in codes:
+            if codes[me] == _REFUSED:
+                raise error
+            raise ValueError(f"process {codes.index(_REFUSED)} refused its stream block {done}")
+        if _FAILED in codes:
+            cause = error if codes[me] == _FAILED else RuntimeError(
+                f"process {codes.index(_FAILED)} failed to fetch or stage its stream block {done}")
+            metrics.count("stream.interrupted")
+            persist_resume(acc_now, done)
+            raise StreamInterrupted(cause, acc_now, done, part(),
+                                    fault_report=partial_report()) from cause
+
+    status, first, error = fetch()
+
+    # ---- template: caps and padded row count from the first blocks -----
+    # One agreement of every process's first block (its status, padded
+    # rows, caps and shard count) and init= shape: the caps and rows are
+    # the maxima over the processes; init= and the options must agree.
+    first_caps = plan.caps_of(first) if first is not None else {}
+    rows = _rows_of(first) if first is not None else 0
+    shards = 0
+    if plan.sharded and first is not None:
+        shards = _leaves(first)[0].shape[1]
+    elif plan.sharded and init is not None:
+        shards = _rows_of(init)
+    table = multihost.agree(
+        (status, rows + (-rows) % p if first is not None else p,
+         *(first_caps.get(a, 0) for a in plan.axes), shards, init is not None,
+         multihost.shape_digest(init, skip=0) if procs is not None and init is not None else 0,
+         compact_every, widen_policy is not None), procs)
+    halt([t[0] for t in table], error, init, 0)
+    if len({t[-4:] for t in table}) != 1:
+        raise ValueError(
+            f"{entry}: init= shapes, compact_every= or widen_policy= differ across processes: "
+            f"{[t[-4:] for t in table]}")
+    if all(t[0] == _ENDED for t in table) and init is None:
+        raise ValueError("empty block stream and no init accumulator")
+    staged_firsts = [t for t in table if t[0] == _STAGED]
+    caps = {a: max((t[2 + i] for t in staged_firsts), default=0)
+            for i, a in enumerate(plan.axes)}
+    template_rows = max(t[1] for t in table)
     if init is not None:
         caps = {k: max(v, plan.caps_of(init)[k]) for k, v in caps.items()}
     shard_batch = ()
     if plan.sharded:
-        got = _leaves(first)[0].shape[1] if first is not None else _rows_of(init)
-        if got != mesh.s:
-            raise ValueError(f"stream blocks carry {got} element shards, mesh axis is {mesh.s}")
+        for got in (t[2 + len(plan.axes)] for t in table):
+            if got and got != mesh.s:
+                raise ValueError(f"stream blocks carry {got} element shards, mesh axis is "
+                                 f"{mesh.s}")
         shard_batch = (mesh.s,)
 
     side = torch.cuda.Stream(device) if on_card and pipeline else None
 
-    def stage(raw):
-        """Check ``raw`` against the template and start its upload."""
-        raw_caps = plan.caps_of(raw)
+    def stage(raw_block):
+        """Check ``raw_block`` against the template and start its upload."""
+        raw_caps = plan.caps_of(raw_block)
         if any(raw_caps[k] > v for k, v in caps.items()):
             raise ValueError(
                 f"block caps {raw_caps} exceed the stream template {caps} — widen the "
                 f"template (stream from the widest block first) or re-chunk"
             )
-        if _rows_of(raw) > template_rows:
+        if _rows_of(raw_block) > template_rows:
             raise ValueError(
-                f"block has {_rows_of(raw)} rows > stream template {template_rows} "
+                f"block has {_rows_of(raw_block)} rows > stream template {template_rows} "
                 f"— re-chunk the source"
             )
-        return _upload(raw, device, side)
+        return _upload(raw_block, device, side)
+
+    def put(fetched):
+        """Start the upload of a fetched block: ``(status, staged,
+        error)``, a staging ``ValueError`` refusing it and any other
+        exception failing it."""
+        status, raw_block, error = fetched
+        if status != _STAGED:
+            return status, None, error
+        try:
+            return _STAGED, stage(raw_block), None
+        except ValueError as exc:
+            return _REFUSED, None, exc
+        except Exception as exc:
+            return _FAILED, None, exc
 
     def arrive(staged):
         """The staged block, ready for its step: the step's stream waits
@@ -480,7 +577,7 @@ def _stream_fold(
         code = None
         if faulted:
             block, code = flt.block_wire(faults, bix, block)
-        new, of = _step(plan, acc, block, p)
+        new, of = _step(plan, acc, block, p, procs)
         if faulted:
             landed = code == 0
             new = flt.tree_select(landed, new, acc)
@@ -488,15 +585,7 @@ def _stream_fold(
         return new, of, code
 
     metrics.count(f"stream.{plan.kind}_rounds")
-    try:
-        staged = stage(first) if first is not None else None
-    except ValueError:
-        raise
-    except Exception as exc:
-        metrics.count("stream.interrupted")
-        persist_resume(acc, 0)
-        raise StreamInterrupted(exc, acc, 0, tele.zeros(device) if telemetry else None,
-                                fault_report=partial_report()) from exc
+    status, staged, error = put((status, first, error))
 
     overflow = None
     blocks_done = staged_bytes = overlap_hits = 0
@@ -506,9 +595,22 @@ def _stream_fold(
         wal_b0, wal_f0 = wal.bytes_appended, wal.fsyncs
     observe_depth(f"stream.{plan.kind}", first if first is not None else acc)
     t_loop = time.perf_counter()
-    while staged is not None:
-        block = arrive(staged)
-        staged_bytes += _nbytes(block)
+    while True:
+        # Every process's status of this block (one small gather across
+        # processes): a refusal or a failure anywhere stops every process
+        # at the same block; a process whose source has ended steps an
+        # identity block while another still has blocks.
+        codes = [t[0] for t in multihost.agree((status,), procs)]
+        halt(codes, error, acc, blocks_done,
+             lambda: (_stream_tel(acc, slots, blocks_done, template_rows, p, wire)
+                      if telemetry else None))
+        if all(c == _ENDED for c in codes):
+            break
+        if status == _STAGED:
+            block = arrive(staged)
+            staged_bytes += _nbytes(block)
+        else:
+            block = plan.empty(caps, (template_rows, *shard_batch), device)
         new, of, code = step(acc, block, blocks_done)
         attempts = 0
         while widen_policy is not None:
@@ -564,18 +666,7 @@ def _stream_fold(
                 # The next staging is issued while this step is still in
                 # flight: its upload overlaps the step's kernels.
                 overlap_hits += 1
-        try:
-            nxt = next(it, None)
-            staged = stage(nxt) if nxt is not None else None
-        except ValueError:
-            raise
-        except Exception as exc:
-            metrics.count("stream.interrupted")
-            persist_resume(acc, blocks_done)
-            part = (_stream_tel(acc, slots, blocks_done, template_rows, p, wire)
-                    if telemetry else None)
-            raise StreamInterrupted(exc, acc, blocks_done, part,
-                                    fault_report=partial_report()) from exc
+        status, staged, error = put(fetch())
     persist_resume(acc, blocks_done)
     if on_card:
         torch.cuda.synchronize(device)
@@ -639,10 +730,10 @@ def mesh_stream_fold_sparse(
     capacity, deferred capacity]; the Telemetry third with
     ``telemetry=True``."""
     return _stream_fold(
-        _plan_sparse(), blocks, mesh, init=init, telemetry=telemetry, donate=donate,
-        pipeline=pipeline, widen_policy=widen_policy, frontier=frontier,
-        compact_every=compact_every, faults=faults, wal=wal, wal_every=wal_every,
-        wal_base=wal_base,
+        _plan_sparse(), blocks, mesh, entry="mesh_stream_fold_sparse", init=init,
+        telemetry=telemetry, donate=donate, pipeline=pipeline, widen_policy=widen_policy,
+        frontier=frontier, compact_every=compact_every, faults=faults, wal=wal,
+        wal_every=wal_every, wal_base=wal_base,
     )
 
 
@@ -656,8 +747,8 @@ def mesh_stream_fold(
     and its epilogue on a card). Returns ``(state, overflow)``; the
     Telemetry third with ``telemetry=True``."""
     return _stream_fold(
-        _plan_dense(), blocks, mesh, init=init, telemetry=telemetry, donate=donate,
-        pipeline=pipeline, widen_policy=widen_policy, frontier=frontier,
+        _plan_dense(), blocks, mesh, entry="mesh_stream_fold", init=init, telemetry=telemetry,
+        donate=donate, pipeline=pipeline, widen_policy=widen_policy, frontier=frontier,
         compact_every=compact_every, faults=faults, wal=wal, wal_every=wal_every,
         wal_base=wal_base,
     )
@@ -676,8 +767,8 @@ def mesh_stream_fold_sparse_mvmap(
     sibling overflow is not recoverable mid-stream (``sibling_cap`` is a
     join argument): re-enter with a larger one."""
     return _stream_fold(
-        _plan_sparse_mvmap(sibling_cap), blocks, mesh, init=init, telemetry=telemetry,
-        donate=donate, pipeline=pipeline, widen_policy=widen_policy, frontier=frontier,
+        _plan_sparse_mvmap(sibling_cap), blocks, mesh, entry="mesh_stream_fold_sparse_mvmap",
+        init=init, telemetry=telemetry, donate=donate, pipeline=pipeline, widen_policy=widen_policy, frontier=frontier,
         compact_every=compact_every, faults=faults, wal=wal, wal_every=wal_every,
         wal_base=wal_base,
     )
@@ -696,8 +787,8 @@ def mesh_stream_fold_sparse_sharded(
     Returns ``(state [S, ...], flags [2])``; the Telemetry third with
     ``telemetry=True`` (the changed slots summed over the shards)."""
     return _stream_fold(
-        _plan_sparse_sharded(), blocks, mesh, init=init, telemetry=telemetry, donate=donate,
-        pipeline=pipeline, frontier=frontier, compact_every=compact_every, faults=faults,
+        _plan_sparse_sharded(), blocks, mesh, entry="mesh_stream_fold_sparse_sharded",
+        init=init, telemetry=telemetry, donate=donate, pipeline=pipeline, frontier=frontier, compact_every=compact_every, faults=faults,
         wal=wal, wal_every=wal_every, wal_base=wal_base,
     )
 

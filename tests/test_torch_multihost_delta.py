@@ -513,13 +513,18 @@ def test_rows_that_do_not_line_up_across_processes_are_refused(run):
 
 def test_the_cross_process_entries_are_the_ones_run_here():
     """``multihost.CROSS_PROCESS_ENTRIES`` names exactly the entries that
-    run across processes: this file's rings and other kinds, and the four
-    of ``tests/test_torch_multihost.py``."""
+    run across processes: this file's rings and other kinds, the four of
+    ``tests/test_torch_multihost.py``, and the streams, element-sharded
+    folds and elastic loops of ``tests/test_torch_multihost_stream.py``."""
+    import test_torch_multihost_stream as tms
+
     from crdt_tpu_torch import parallel
     from crdt_tpu_torch.parallel import multihost
 
     ported = ({name.split()[0] for name in OTHER_CASES} | set(RINGS.values())
-              | {"mesh_fold", "mesh_gossip", "mesh_fold_map", "mesh_fold_sparse_mvmap"})
+              | {"mesh_fold", "mesh_gossip", "mesh_fold_map", "mesh_fold_sparse_mvmap"}
+              | set(tms.STREAMS.values()) | set(tms.SHARDED_FOLDS)
+              | {"gossip_elastic", "delta_gossip_elastic"})
     assert set(multihost.CROSS_PROCESS_ENTRIES) == ported
     assert len(multihost.CROSS_PROCESS_ENTRIES) == len(ported)
     assert all(callable(getattr(parallel, name)) for name in ported)
