@@ -487,7 +487,21 @@ at first use), then runs, printing one JSON line per phase:
                         single-process entry on P = 8 (sharded: 4 × 2)
                         leaf for leaf, the same axes widened; the flagship
                         stream's walls both ways, its merges/s across the
-                        processes, exchange ms and bytes a block.
+                        processes, exchange ms and bytes a block. Then
+                        (ROADMAP 32, third part) ``mesh_serve_apply`` at
+                        bench serve's width (262,144 lanes, 20 donated
+                        slabs of 4,096 × 4) ± ``telemetry=``,
+                        ``mesh_fanout_push`` at ``phase_fanout``'s layout
+                        (131,072 lanes, E 256, A 4, 4,096 lanes a dispatch;
+                        K3 counted, once a dispatch, and held), the dense
+                        fold, gossip and fused ring and the flagship stream
+                        with ``telemetry=True``, ``mesh_gossip(stability=
+                        True, lag_threshold=1)`` and both dense elastic
+                        loops with ``reclaim=``: rows, flags, wire lanes,
+                        ``nnz``/``chk``, every sidecar field but the
+                        host-timed ones, frontiers, capacities and shrinks
+                        == the single-process entries'; dispatch p50/p99,
+                        push walls and each sidecar's wall on against off.
 
 Then the ``nvidia-smi`` name/power-limit line, a ``kernels`` JSON line, and
 as the last line ``{"ok": true, "device": {...}}``. Any failed check raises
@@ -4834,14 +4848,16 @@ def phase_serve(device, seed: int, cfg=None) -> dict:
     return out
 
 
-# The zipf leg's depth in the full run: 7 of its committed 24 cycles (the
-# per-cycle shape, tenants, lanes, slabs, skew and rebalance unchanged).
-# At 24 cycles the leg took 739-824 s on an H100 machine whose /tmp is a 9p
-# mount — 17,344 per-tenant snapshot persists a run as the working set
-# pages through the lane pool — more than the script's time limit allows
-# beside the other phases; at 9 it took 49-84 s, and the whole script up to
-# 1,149 s of its 1,200 on a slow host.
-ZIPF_CYCLES = 7
+# The zipf leg's depth in the full run: 6 of its committed 24 cycles (the
+# per-cycle shape, tenants, lanes, slabs, skew and rebalance unchanged; two
+# cycles before, during and after the hot shard). At 24 cycles the leg
+# took 739-824 s on an H100 machine whose /tmp is a 9p mount — 17,344
+# per-tenant snapshot persists a run as the working set pages through the
+# lane pool — more than the script's time limit allows beside the other
+# phases; at 9 it took 49-84 s, and the whole script up to 1,149 s of its
+# 1,200 on a slow host; at 7, with the multihost phase's serving and
+# sidecar legs, 1,139 s on another.
+ZIPF_CYCLES = 6
 
 
 def serve_traced_window(sb, ev, q, submit_cycle, touch_one, cfg, device, root, first_cycle: int,
@@ -5219,11 +5235,12 @@ def fanout_k3_args(state, bases, idx, p: int, kind: str = "orswot") -> dict:
     return cohort_pack_args(*by_rank(d, base_ctr, p))
 
 
-def fanout_vs_plain(wire, args) -> int:
+def fanout_vs_plain(wire, args, sums: bool = True) -> int:
     """One dispatch's wire (K3 inside ``mesh_fanout_push``) against K3's
     plain version on the same card tensors: words, keep, defer and the
-    rank-summed ``nnz``/``chk``, and ``raw`` from the plain deferrals.
-    Returns the max |difference| (0)."""
+    rank-summed ``nnz``/``chk`` (``sums=False``: not those, which a
+    cross-process dispatch sums over every process), and ``raw`` from the
+    plain deferrals. Returns the max |difference| (0)."""
     import torch
 
     from crdt_tpu_torch._dtypes import bits, to_wide
@@ -5235,7 +5252,7 @@ def fanout_vs_plain(wire, args) -> int:
                 int((wire.keep.reshape(plain.keep.shape) != plain.keep).sum()),
                 int((wire.defer.reshape(plain.defer.shape) != plain.defer).sum()),
                 max_abs_diff(wire.raw.reshape(raw.shape), raw))
-    for k in ("nnz", "chk"):
+    for k in ("nnz", "chk") if sums else ():
         want = int(to_wide(getattr(plain, k)).sum()) & 0xFFFFFFFF
         worst = max(worst, abs(int(to_wide(getattr(wire, k))) - want))
     return worst
@@ -10798,7 +10815,7 @@ MH_NEST_CAP = 512
 MH_SMALL_R = 8         # the other kinds' rows: one a global rank
 # Timed fused rings of each kind on both sides (a Map ring at K = 1M takes
 # ≈ 2.6 s of sorts; the nested rings are gates only).
-MH_RING_SAMPLES = {"dense": 3, "map": 1, "map_orswot": 0, "map3": 0}
+MH_RING_SAMPLES = {"dense": 2, "map": 1, "map_orswot": 0, "map3": 0}
 MH_RINGS = {"dense": ("mesh_delta_gossip", MH_CAP), "map": ("mesh_delta_gossip_map", MH_CAP),
             "map_orswot": ("mesh_delta_gossip_map_orswot", MH_NEST_CAP),
             "map3": ("mesh_delta_gossip_map3", MH_NEST_CAP)}
@@ -10891,8 +10908,12 @@ def mh_single_ring(kind: str, inputs: tuple, device, samples: int) -> dict:
         ring(st, dirty, fctx, mesh, rounds=rounds, cap=cap)
         sync(device)
         walls.append((time.perf_counter() - t0) * 1e3)
-    return {"rounds": rounds, "backlog": backlog, "attempts": attempts, "stats": stats,
-            "digest": mh_ring_digest(fused), "wall_ms": walls}
+    out = {"rounds": rounds, "backlog": backlog, "attempts": attempts, "stats": stats,
+           "digest": mh_ring_digest(fused), "wall_ms": walls}
+    if kind == "dense":
+        out["telemetry"] = dict(mh_ring_telemetry(ring, inputs, mesh, rounds, cap, device, False),
+                                wall_ms_off=walls[-1])
+    return out
 
 
 def mh_cross_ring(kind: str, inputs: tuple, rounds: int, mesh, device, samples: int) -> dict:
@@ -10948,6 +10969,9 @@ def mh_cross_ring(kind: str, inputs: tuple, rounds: int, mesh, device, samples: 
         exchange.append(((x1[0] - x0[0]) * 1e3, x1[1] - x0[1]))
     out.update(wall_ms=walls, exchange_ms=[x for x, _ in exchange],
                exchange_bytes=[b for _, b in exchange])
+    if kind == "dense":
+        out["telemetry"] = dict(mh_ring_telemetry(ring, inputs, mesh, rounds, cap, device, True),
+                                wall_ms_off=walls[-1])
     return out
 
 
@@ -11210,6 +11234,14 @@ def mh_stream_legs(seed: int, device, mesh, smesh, r: int, e: int, a: int, d: in
                        "exchange_ms_per_block": [x for x, _ in exchange],
                        "exchange_bytes_per_block": [b for _, b in exchange]}
     del acc
+    # The sidecar over the sharded leg's first blocks (ROADMAP 32, third
+    # part), off and on.
+    (_, off_ms), (res, on_ms) = (mh_timed(lambda: parallel.mesh_stream_fold_sparse(
+        flagship_blocks(MH_SHARDED_BLOCKS), mesh, telemetry=on), device, cross)
+        for on in (False, True))
+    out["flagship"]["telemetry"] = {"telemetry": mh_tel(res[2]), "blocks": MH_SHARDED_BLOCKS,
+                                    "wall_ms_off": off_ms, "wall_ms_on": on_ms}
+    del res
     acc, of = parallel.mesh_stream_fold_sparse_sharded(
         flagship_blocks(MH_SHARDED_BLOCKS, split=True), smesh)
     out["flagship_sharded"] = {"digest": leaf_digests(acc),
@@ -11268,7 +11300,11 @@ def mh_stream_legs(seed: int, device, mesh, smesh, r: int, e: int, a: int, d: in
     out["gossip_elastic"] = {"rows": rank_digests(rows), "widened": widened, "parking": parking,
                              "k1": fk.fold_entries.launches, "checked": held.calls["k1"],
                              "max_abs_err": held.max_abs_err["k1"], "wall_ms": ms}
-    del model, rows, quiet
+    del model, rows
+    # The reclaim half over the same rows (ROADMAP 32, third part).
+    out["reclaim"] = {"gossip_elastic": mh_reclaim_loop("gossip_elastic", quiet, mesh, device,
+                                                        cross, e, a)}
+    del quiet
     model = BatchedOrswot(1, e, a, 2, device=device)
     model.state = st
     barrier()
@@ -11285,7 +11321,11 @@ def mh_stream_legs(seed: int, device, mesh, smesh, r: int, e: int, a: int, d: in
         "k1": fk.fold_entries.launches, "k3": wire_pack.launches, "k3_checked": k3c.calls,
         "k1_max_abs_err": held.max_abs_err["k1"], "k3_max_abs_err": k3c.max_abs_err,
         "wall_ms": ms}
-    del model, res, st, dd, ff
+    del model, res
+    out["reclaim"]["delta_gossip_elastic"] = mh_reclaim_loop(
+        "delta_gossip_elastic", st, mesh, device, cross, e, a, tracking=(dd, ff),
+        rounds=delta_rounds)
+    del st, dd, ff
     if device.type == "cuda":
         torch.cuda.empty_cache()
     mstate = mh_map_elastic_state(seed, device, k, s, map_a)
@@ -11388,6 +11428,451 @@ def mh_legs_report(single: dict, cross: list) -> dict:
     return out
 
 
+# The serving dispatches, the sidecar and the reclamation options across
+# processes (ROADMAP item 32, third part).
+MH_SERVE = (262_144, 4096, 4, 20)   # lanes, slab lanes, slab depth, dispatches (bench serve)
+MH_FANOUT = (131_072, 256, 4, 4096)  # lanes, E, A, dispatch lanes (phase_fanout's layout)
+MH_FANOUT_DISPATCHES = 5             # timed fan-out dispatches each way
+MH_STALL = 1                         # the stability leg's lag threshold: it warns
+
+
+def mh_serve_slabs(seed: int, lanes: int, b: int, depth: int, dispatches: int, caps: dict,
+                   p: int) -> list:
+    """Every dispatch's GLOBAL op slab of the serve leg as numpy ``(planes,
+    idx)``: rank r's ``b/p`` lanes touch distinct rows of its ``lanes/p``
+    block (every 16th lane empty), each lane two adds, a remove of what
+    they made (one in ten a counter ahead on actor 0: it parks) and one
+    more add; per-tenant counters rise across the dispatches."""
+    import numpy as np
+
+    from crdt_tpu_torch.ops.superblock import ADD, NOOP, RM
+
+    rng = np.random.default_rng(seed)
+    a, e = caps["n_actors"], caps["n_elems"]
+    lpr, bpr = lanes // p, b // p
+    nxt = np.zeros((lanes, a), np.int64)
+    out = []
+    for _ in range(dispatches):
+        idx = np.concatenate([rng.choice(lpr, bpr, replace=False) for _ in range(p)]).astype(
+            np.int32)
+        idx[::16] = -1
+        ok = idx >= 0
+        g = np.arange(b) // bpr * lpr + np.maximum(idx, 0)
+        c0, c1 = nxt[g, 0], nxt[g, 1]
+        kind = np.where(ok[:, None], np.array([ADD, ADD, RM, ADD][:depth], np.uint8), NOOP)
+        actor = np.broadcast_to(np.array([0, 1, 0, 0][:depth], np.int32), (b, depth)).copy()
+        ctr = np.stack([c0 + 1, c1 + 1, np.zeros(b, np.int64), c0 + 2][:depth], 1)
+        clock = np.zeros((b, depth, a), np.uint32)
+        clock[:, 2, 0] = c0 + 1 + (rng.random(b) < 0.1)
+        clock[:, 2, 1] = c1 + 1
+        planes = dict(kind=kind.astype(np.uint8), actor=actor,
+                      ctr=np.where(ok[:, None], ctr, 0).astype(np.uint32),
+                      clock=np.where(ok[:, None, None], clock, 0).astype(np.uint32),
+                      member=rng.random((b, depth, e)) < 0.5)
+        nxt[g[ok], 0] += 2
+        nxt[g[ok], 1] += 1
+        out.append((planes, idx))
+    return out
+
+
+def mh_fanout_rank(seed: int, rank: int, rows: int, e: int, a: int, d: int, lanes: int, device):
+    """Global rank ``rank``'s share of the fan-out leg, drawn on the card
+    from its own generator: its ``rows`` superblock rows (a quarter of the
+    members live, counters 1..3), its ``lanes`` dispatch lanes' local
+    indices (every 8th empty) and their acked bases (each its row with a
+    tenth of the counters one behind), cohort weights 1..8."""
+    import torch
+
+    from crdt_tpu_torch.ops.orswot import OrswotState
+
+    g = torch.Generator(device=device)
+    g.manual_seed(seed * 1009 + rank)
+    u32 = torch.uint32
+    ctr = torch.randint(1, 4, (rows, e, a), generator=g, device=device, dtype=torch.int32)
+    ctr = ctr * (torch.rand((rows, e, 1), generator=g, device=device) < 0.25)
+    idx = torch.randperm(rows, generator=g, device=device)[:lanes].to(torch.int32)
+    idx[::8] = -1
+    base = ctr[idx.clamp_min(0).long()]
+    base = (base - (torch.rand(base.shape, generator=g, device=device) < 0.1).to(torch.int32)
+            ).clamp_min(0)
+
+    def state(c):
+        n = c.shape[0]
+        return OrswotState(
+            top=c.amax(dim=1).view(u32), ctr=c.view(u32),
+            dcl=torch.zeros((n, d, a), dtype=torch.int32, device=device).view(u32),
+            dmask=torch.zeros((n, d, e), dtype=torch.bool, device=device),
+            dvalid=torch.zeros((n, d), dtype=torch.bool, device=device))
+
+    weights = torch.randint(1, 9, (lanes,), generator=g, device=device).to(torch.float32)
+    return state(ctr), state(base), idx, weights
+
+
+def mh_tel(tel) -> dict:
+    """A Telemetry's fields but the host-timed ones (``HOST_TIMED``)."""
+    from crdt_tpu_torch import telemetry as tele
+
+    return {k: v for k, v in tele.to_dict(tel).items() if k not in HOST_TIMED}
+
+
+def mh_dispatch_legs(seed: int, device, mesh, pid: int = 0, n: int = 1, serve=MH_SERVE,
+                     fan=MH_FANOUT) -> dict:
+    """The serving dispatches on ``mesh``: the single-process entries on P =
+    8 (``n`` = 1; every result cut into each process's share) or this
+    process's part across ``n`` processes. ``serve``: ``mesh_serve_apply``
+    at bench serve's width, donated, ± ``telemetry=``; ``fanout``:
+    ``mesh_fanout_push`` at ``phase_fanout``'s layout, one K3 launch a
+    dispatch held against its plain version, ± ``telemetry=``. Results as
+    digests. The sidecar and reclamation legs run where their inputs are
+    drawn anyway (:func:`mh_dense_options`, :func:`mh_ring_telemetry`,
+    :func:`mh_stream_legs`) and :func:`mh_options` gathers them."""
+    import statistics as st
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from crdt_tpu_torch import parallel
+    from crdt_tpu_torch.convert import opslab_from_numpy
+    from crdt_tpu_torch.ops import orswot
+    from crdt_tpu_torch.ops.lattice import tree_map
+    from crdt_tpu_torch.ops.wire_kernels import wire_pack
+
+    cross = n > 1
+
+    def barrier():
+        sync(device)
+        if cross:
+            dist.barrier()
+
+    def shares(tree):
+        return mh_shares(tree, cross)
+
+    out = {}
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    # ---- serve: 20 donated dispatches, the sidecar off and on -----------
+    lanes, b, depth, dispatches = serve
+    cfg = serve_config()
+    caps = dict(n_elems=cfg["elems"], n_actors=cfg["actors"], deferred_cap=cfg["deferred_cap"])
+    p_all = MH_PROCESSES * MH_LOCAL_RANKS
+    slabs = []
+    for planes, idx in mh_serve_slabs(seed, lanes, b, depth, dispatches, caps, p_all):
+        if cross:
+            lo, hi = pid * b // n, (pid + 1) * b // n
+            planes, idx = {k: v[lo:hi] for k, v in planes.items()}, idx[lo:hi]
+        slabs.append((opslab_from_numpy(planes, device), torch.as_tensor(idx, device=device)))
+    out["serve"] = {"lanes": lanes, "slab": [b, depth], "dispatches": dispatches}
+    for on in (False, True):
+        state = orswot.empty(caps["n_elems"], caps["n_actors"], caps["deferred_cap"],
+                             batch=(lanes // n,), device=device)
+        flags, tels, walls = [], [], []
+        barrier()
+        for slab, idx in slabs:
+            t0 = time.perf_counter()
+            res = parallel.mesh_serve_apply(state, slab, idx, mesh, kind="orswot", donate=True,
+                                            telemetry=on)
+            sync(device)
+            walls.append((time.perf_counter() - t0) * 1e3)
+            state, of = res[:2]
+            flags.append(of)
+            if on:
+                tels.append(mh_tel(res[2]))
+        of = torch.stack(flags, 1)
+        leg = {"rows": shares(state), "overflow": shares(of), "any_overflow": bool(of.any()),
+               "dispatch_ms": walls}
+        if on:
+            leg["telemetry"] = tels
+        out["serve"]["telemetry" if on else "plain"] = leg
+        del state, flags
+    del slabs
+
+    # ---- fanout: one K3 launch a dispatch, nnz/chk over every process ---
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    t, fe, fa, fb = fan
+    dcap = 2
+    parts = [mh_fanout_rank(seed, q, t // p_all, fe, fa, dcap, fb // p_all, device)
+             for q in (range(pid * MH_LOCAL_RANKS, (pid + 1) * MH_LOCAL_RANKS) if cross
+                       else range(p_all))]
+    cat = lambda *xs: torch.cat([x.view(torch.int32) if x.dtype == torch.uint32 else x  # noqa: E731
+                                 for x in xs]).view(xs[0].dtype)
+    fstate = tree_map(cat, *[x[0] for x in parts])
+    bases = tree_map(cat, *[x[1] for x in parts])
+    fidx, weights = torch.cat([x[2] for x in parts]), torch.cat([x[3] for x in parts])
+    del parts
+    p_loc = mesh.local.p if cross else mesh.p
+    barrier()
+    wire_pack.launches = 0
+    wire, pb = parallel.mesh_fanout_push(fstate, bases, fidx, mesh, weights=weights)
+    sync(device)
+    k3 = wire_pack.launches
+    k3_err = fanout_vs_plain(wire, fanout_k3_args(fstate, bases, fidx, p_loc), sums=not cross)
+    walls = {}
+    for on in (False, True):
+        barrier()
+        walls[on] = []
+        for _ in range(MH_FANOUT_DISPATCHES):
+            t0 = time.perf_counter()
+            res = parallel.mesh_fanout_push(fstate, bases, fidx, mesh, weights=weights,
+                                            telemetry=on)
+            sync(device)
+            walls[on].append((time.perf_counter() - t0) * 1e3)
+    out["fanout"] = {
+        "lanes": t, "E": fe, "A": fa, "dispatch_lanes": fb, "k3": k3, "k3_max_abs_err": k3_err,
+        "wire": {k: shares(getattr(wire, k)) for k in ("words", "keep", "defer", "valid")},
+        "nnz": int(wire.nnz.view(torch.int32)) & 0xFFFFFFFF,
+        "chk": int(wire.chk.view(torch.int32)) & 0xFFFFFFFF, "push_bytes": shares(pb),
+        "telemetry": mh_tel(res[2]), "wall_ms": walls[False], "wall_ms_telemetry": walls[True]}
+    del fstate, bases, wire, pb, res
+
+    out["serve"]["dispatch_ms_p50_p99"] = {
+        k: [st.median(v["dispatch_ms"]), float(np.percentile(v["dispatch_ms"], 99))]
+        for k, v in out["serve"].items() if isinstance(v, dict) and "dispatch_ms" in v}
+    return out
+
+
+def mh_shares(tree, cross: bool, digest=None) -> list:
+    """Every process's share of a result's leading axis as digests
+    (``digest``, :func:`leaf_digests` by default): this process's rows as
+    they are across processes, each of the ``MH_PROCESSES`` shares of a
+    single-process result."""
+    from crdt_tpu_torch.ops.lattice import tree_map
+
+    digest = digest or leaf_digests
+    if cross:
+        return [digest(tree)]
+    return [digest(tree_map(lambda x: x[q * x.shape[0] // MH_PROCESSES:
+                                        (q + 1) * x.shape[0] // MH_PROCESSES], tree))
+            for q in range(MH_PROCESSES)]
+
+
+def device_sums(tree) -> list:
+    """Two wrapping int64 sums of every leaf's bits on its own device —
+    plain and weighted by a multiplicative hash of the position — with its
+    dtype and shape: equal trees give equal lists, and a state of
+    gigabytes is compared without a copy to the host."""
+    import torch
+
+    from crdt_tpu_torch._dtypes import bits
+    from crdt_tpu_torch.ops.lattice import tree_leaves
+
+    out = []
+    for x in tree_leaves(tree):
+        flat = bits(x).reshape(-1)
+        plain = weighted = 0
+        for lo in range(0, flat.numel(), 1 << 26):  # 512 MiB of int64 a chunk
+            v = flat[lo:lo + (1 << 26)].to(torch.int64)
+            w = (torch.arange(lo, lo + v.numel(), device=v.device, dtype=torch.int64)
+                 * 2654435761 + 1) % 2**31
+            plain, weighted = plain + int(v.sum()), weighted + int((v * w).sum())
+        out.append([str(x.dtype), list(x.shape), plain, weighted])
+    return out
+
+
+def mh_timed(fn, device, cross: bool):
+    """``fn()``'s result and wall ms, the processes lined up first."""
+    import torch.distributed as dist
+
+    sync(device)
+    if cross:
+        dist.barrier()
+    t0 = time.perf_counter()
+    res = fn()
+    sync(device)
+    return res, (time.perf_counter() - t0) * 1e3
+
+
+def mh_counter(name: str) -> int:
+    from crdt_tpu_torch.utils.metrics import metrics
+
+    return metrics.snapshot()["counters"].get(name, 0)
+
+
+def mh_dense_options(dense, mesh, device, cross: bool) -> dict:
+    """The dense fold and gossip on the phase's R rows with
+    ``telemetry=True`` (K1 counted and every launch held against its plain
+    version; then walls on and off, unchecked) and ``mesh_gossip(
+    stability=True, lag_threshold=MH_STALL)``: its rows rank by rank, its
+    frontier, the stalls it counted."""
+    from crdt_tpu_torch import parallel
+    from crdt_tpu_torch.ops import fold_kernels as fk
+    from crdt_tpu_torch.ops.lattice import tree_map
+
+    entries = (("fold", parallel.mesh_fold), ("gossip", parallel.mesh_gossip))
+    tel = {}
+    sync(device)
+    fk.fold_entries.launches = 0
+    with FoldChecked() as held:
+        for name, entry in entries:
+            tel[name] = {"telemetry": mh_tel(entry(dense, mesh, telemetry=True)[2])}
+        sync(device)
+    tel["k1"], tel["k1_checked"], tel["k1_max_abs_err"] = (fk.fold_entries.launches,
+                                                           held.calls["k1"], held.max_abs_err["k1"])
+    for name, entry in entries:
+        tel[name]["wall_ms_off"] = mh_timed(lambda: entry(dense, mesh), device, cross)[1]
+        tel[name]["wall_ms_on"] = mh_timed(lambda: entry(dense, mesh, telemetry=True), device,
+                                           cross)[1]
+    stalls = mh_counter("reclaim.frontier_stalled")
+    res = parallel.mesh_gossip(dense, mesh, stability=True, lag_threshold=MH_STALL)
+    gossip = {"rows": [leaf_digests(tree_map(lambda x: x[q], res[0]))
+                       for q in range(res[0].top.shape[0])],
+              "frontier": leaf_digests(res[2]),
+              "stalls": mh_counter("reclaim.frontier_stalled") - stalls}
+    return {"telemetry": tel, "gossip": gossip}
+
+
+def mh_ring_telemetry(ring, inputs: tuple, mesh, rounds: int, cap: int, device,
+                      cross: bool) -> dict:
+    """The fused dense δ ring with ``telemetry=True`` at its certified
+    budget, every K3 launch counted and held against the plain pack; then
+    its wall, unchecked."""
+    from crdt_tpu_torch.ops.wire_kernels import wire_pack
+
+    st, dirty, fctx = inputs
+    run = lambda: ring(st, dirty, fctx, mesh, rounds=rounds, cap=cap, telemetry=True)  # noqa: E731
+    sync(device)
+    wire_pack.launches = 0
+    with K3Checked() as k3c:
+        res = run()
+        sync(device)
+    k3 = wire_pack.launches
+    _, ms = mh_timed(run, device, cross)
+    return {"telemetry": mh_tel(res[4]), "wall_ms_on": ms, "k3": k3,
+            "k3_checked": k3c.calls, "k3_max_abs_err": k3c.max_abs_err,
+            "residue": int(res[3]), "rounds": rounds}
+
+
+def mh_reclaim_loop(loop: str, state, mesh, device, cross: bool, e: int, a: int,
+                    tracking=None, rounds=None) -> dict:
+    """One dense elastic loop with ``reclaim=Hysteresis(shrink_rounds=1)``
+    over ``state`` born at 16 parked slots (its members and actors
+    interned, so those axes stay): rows rank by rank, widened axes, the
+    capacities after, the model's rows and the shrinks counted."""
+    from crdt_tpu_torch import parallel
+    from crdt_tpu_torch.elastic import ElasticPolicy, Hysteresis, capacities
+    from crdt_tpu_torch.models import BatchedOrswot
+    from crdt_tpu_torch.ops.lattice import tree_map
+    from crdt_tpu_torch.utils import Interner
+
+    model = BatchedOrswot(1, e, a, 2, device=device)
+    model.members, model.actors = Interner(range(e)), Interner(range(a))
+    model.state = state
+    model.widen_capacity(deferred_cap=16)
+    reclaim = Hysteresis(ElasticPolicy(shrink_rounds=1))
+    events = mh_counter("reclaim.shrink_events")
+    if loop == "gossip_elastic":
+        (rows, widened), ms = mh_timed(lambda: parallel.gossip_elastic(model, mesh,
+                                                                       reclaim=reclaim),
+                                       device, cross)
+    else:
+        got, ms = mh_timed(lambda: parallel.delta_gossip_elastic(
+            model, *tracking, mesh, rounds=rounds, cap=MH_ELASTIC_CAP, reclaim=reclaim),
+            device, cross)
+        rows, widened = got[0], got[4]
+    return {"rows": [leaf_digests(tree_map(lambda x: x[q], rows))
+                     for q in range(rows.top.shape[0])],
+            "widened": widened, "caps": capacities(model),
+            "model": mh_shares(model.state, cross, device_sums),
+            "shrink_events": mh_counter("reclaim.shrink_events") - events, "wall_ms": ms}
+
+
+def mh_options(dispatch: dict, dense: dict, ring: dict, legs: dict) -> dict:
+    """The option legs of one process (or the single-process run) in one
+    dict: the dispatches, the sidecars and the reclamation legs."""
+    return {**dispatch,
+            "telemetry": {**dense["telemetry"], "ring": ring.pop("telemetry"),
+                          "stream": legs["flagship"].pop("telemetry")},
+            "reclaim": {"gossip": dense["gossip"], **legs.pop("reclaim")}}
+
+
+def mh_check_options(pid: int, got: dict, want: dict, ranks: slice, on_card: bool) -> None:
+    """Worker ``pid``'s serving dispatches, sidecars and reclamation
+    options against the single-process ones (``ranks``: its global ranks)."""
+    for on in ("plain", "telemetry"):
+        g, w = got["serve"][on], want["serve"][on]
+        check(g["rows"] == w["rows"][pid:pid + 1] and g["overflow"] == w["overflow"][pid:pid + 1],
+              f"worker {pid}: the cross-process serve dispatches ({on}) != the single-process rows")
+    check(got["serve"]["telemetry"]["telemetry"] == want["serve"]["telemetry"]["telemetry"],
+          f"worker {pid}: a serve dispatch's sidecar != the single-process sidecar")
+    gf, wf = got["fanout"], want["fanout"]
+    check(all(gf["wire"][k] == wf["wire"][k][pid:pid + 1] for k in gf["wire"])
+          and gf["push_bytes"] == wf["push_bytes"][pid:pid + 1]
+          and (gf["nnz"], gf["chk"]) == (wf["nnz"], wf["chk"])
+          and gf["telemetry"] == wf["telemetry"],
+          f"worker {pid}: the cross-process fan-out dispatch != the single-process dispatch")
+    check(gf["k3_max_abs_err"] == 0, f"worker {pid}: the fan-out K3 launch != its plain version")
+    for name in ("fold", "gossip", "ring", "stream"):
+        check(got["telemetry"][name]["telemetry"] == want["telemetry"][name]["telemetry"],
+              f"worker {pid}: the cross-process {name}'s sidecar != the single-process sidecar")
+    tg = got["telemetry"]
+    check(tg["k1_max_abs_err"] == tg["ring"]["k3_max_abs_err"] == 0
+          and tg["ring"]["residue"] == 0,
+          f"worker {pid}: a K1/K3 launch of the telemetry legs != its plain version")
+    rg, rw = got["reclaim"], want["reclaim"]
+    check(rg["gossip"]["rows"] == rw["gossip"]["rows"][ranks]
+          and rg["gossip"]["frontier"] == rw["gossip"]["frontier"]
+          and rg["gossip"]["stalls"] == rw["gossip"]["stalls"] == 1,
+          f"worker {pid}: the cross-process stability gossip (rows, frontier, stalls "
+          f"{rg['gossip']['stalls']}) != the single-process gossip")
+    for loop in ("gossip_elastic", "delta_gossip_elastic"):
+        g, w = rg[loop], rw[loop]
+        check(g["rows"] == w["rows"][ranks] and g["widened"] == w["widened"]
+              and g["caps"] == w["caps"] and g["model"] == w["model"][pid:pid + 1]
+              and g["shrink_events"] == w["shrink_events"],
+              f"worker {pid}: the cross-process {loop}(reclaim=) (caps {g['caps']}, shrinks "
+              f"{g['shrink_events']}) != the single-process loop (caps {w['caps']}, shrinks "
+              f"{w['shrink_events']})")
+    if on_card:
+        launches = {"fanout k3": (gf["k3"], 1),
+                    "telemetry k1": (tg["k1"], 2 * MH_LOCAL_RANKS),
+                    "telemetry k1 checked": (tg["k1_checked"], 2 * MH_LOCAL_RANKS),
+                    "ring k3": (tg["ring"]["k3"], tg["ring"]["rounds"]),
+                    "ring k3 checked": (tg["ring"]["k3_checked"], tg["ring"]["rounds"])}
+        check(all(x == y for x, y in launches.values()),
+              f"worker {pid}: launches (counted, expected) {launches}")
+
+
+def mh_options_report(single: dict, cross: list) -> dict:
+    """The option legs' figures: serve dispatch p50/p99 and fan-out push
+    walls across against single, each sidecar's wall on against off, the
+    shrinks, and the launches per process."""
+    import statistics as st
+
+    s = single["serve"]["dispatch_ms_p50_p99"]
+    out = {"serve": {"single_process_p50_p99_ms": s,
+                     "workers_p50_p99_ms": [x["serve"]["dispatch_ms_p50_p99"] for x in cross],
+                     "any_overflow": single["serve"]["plain"]["any_overflow"],
+                     "lanes": single["serve"]["lanes"], "slab": single["serve"]["slab"],
+                     "dispatches": single["serve"]["dispatches"]}}
+    f = single["fanout"]
+    out["fanout"] = {"single_process_wall_ms": f["wall_ms"],
+                     "single_process_wall_ms_telemetry": f["wall_ms_telemetry"],
+                     "workers_wall_ms": [x["fanout"]["wall_ms"] for x in cross],
+                     "workers_wall_ms_telemetry": [x["fanout"]["wall_ms_telemetry"] for x in cross],
+                     "cross_over_single": max(st.median(x["fanout"]["wall_ms"]) for x in cross)
+                     / st.median(f["wall_ms"]), "nnz": f["nnz"],
+                     "k3_per_dispatch": [x["fanout"]["k3"] for x in cross]}
+    out["telemetry"] = {
+        name: {"single_process_ms_off_on": [single["telemetry"][name]["wall_ms_off"],
+                                            single["telemetry"][name]["wall_ms_on"]],
+               "workers_ms_off_on": [[x["telemetry"][name]["wall_ms_off"],
+                                      x["telemetry"][name]["wall_ms_on"]] for x in cross]}
+        for name in ("fold", "gossip", "ring", "stream")}
+    out["telemetry"]["bytes_exchanged"] = {
+        name: single["telemetry"][name]["telemetry"]["bytes_exchanged"]
+        for name in ("fold", "gossip", "ring", "stream")}
+    out["reclaim"] = {loop: {"caps": single["reclaim"][loop]["caps"],
+                             "shrink_events": single["reclaim"][loop]["shrink_events"],
+                             "single_process_wall_ms": single["reclaim"][loop]["wall_ms"],
+                             "workers_wall_ms": [x["reclaim"][loop]["wall_ms"] for x in cross]}
+                      for loop in ("gossip_elastic", "delta_gossip_elastic")}
+    out["launches_per_process"] = [
+        {"fanout_k3": x["fanout"]["k3"], "telemetry_k1": x["telemetry"]["k1"],
+         "ring_k3": x["telemetry"]["ring"]["k3"]} for x in cross]
+    return out
+
+
 def multihost_worker(spec: str, seed: int) -> int:
     """One process of the ``multihost`` phase: ``spec`` is
     ``port,process,n_processes,device,root,r,e,a,d,map_r,k,s,map_a``. It
@@ -11400,7 +11885,9 @@ def multihost_worker(spec: str, seed: int) -> int:
     their batches at the budgets of ``root/rounds.json``
     (:func:`mh_cross_ring`), every other fold and gossip kind
     (:func:`mh_small_kinds`), and the streams, sharded folds and elastic
-    loops (:func:`mh_stream_legs`). Writes ``root/worker<process>.json``."""
+    loops (:func:`mh_stream_legs`), and the serving dispatches, the
+    sidecar and the reclamation options (:func:`mh_options`). Writes
+    ``root/worker<process>.json``."""
     import torch
     import torch.distributed as dist
 
@@ -11459,7 +11946,9 @@ def multihost_worker(spec: str, seed: int) -> int:
         local = [time_ms(lambda: local_folds(blocks, fold_auto), device) for _ in range(3)]
         out.update(rows=hi - lo, wall_ms=walls, exchange_ms=[x for x, _ in exchange],
                    exchange_bytes=[b for _, b in exchange], local_fold_ms=local)
-        del blocks, dense
+        del blocks
+        dense_options = mh_dense_options(dense, mesh, device, True)
+        del dense
         # The δ rings across processes at the single-process ring's budget,
         # then every other fold and gossip kind at the tests' sizes.
         with open(os.path.join(root, "rounds.json")) as f:
@@ -11487,6 +11976,12 @@ def multihost_worker(spec: str, seed: int) -> int:
                                      flagship, pid=pid, n=n,
                                      delta_rounds=rounds["elastic_delta"],
                                      parking=rounds["elastic_parking"])
+        # The serving dispatches, then every option leg in one dict.
+        out["options"] = mh_options(
+            mh_dispatch_legs(seed, device, mesh, pid=pid, n=n,
+                             serve=tuple(rounds["options"]["serve"]),
+                             fan=tuple(rounds["options"]["fanout"])),
+            dense_options, out["rings"]["dense"], out["legs"])
         with open(os.path.join(root, f"worker{pid}.json"), "w") as f:
             json.dump(out, f)
     finally:
@@ -11503,7 +11998,7 @@ def sync(device) -> None:
 
 def phase_multihost(device, seed: int, r: int = 2048, e: int = 102400, a: int = 8, d: int = 4,
                     map_r: int = 8, k: int = 1_000_000, s: int = 2, map_a: int = 4,
-                    flagship=MH_FLAGSHIP) -> dict:
+                    flagship=MH_FLAGSHIP, serve=MH_SERVE, fan=MH_FANOUT) -> dict:
     """ROADMAP 5a on one card (module docstring, phase 42): the
     single-process folds of the whole batches on P = 8 virtual ranks
     first (the dense one timed), then two worker processes of this script
@@ -11545,6 +12040,7 @@ def phase_multihost(device, seed: int, r: int = 2048, e: int = 102400, a: int = 
         sync(device)
         walls.append((time.perf_counter() - t0) * 1e3)
     ref = {"fold": leaf_digests(want)}
+    dense_options = mh_dense_options(dense, mesh, device, False)
     del dense, want
     mwant, m_of = mesh_fold_map(mh_map_rows(seed, range(map_r), map_r, k, s, map_a, 4, device),
                                 mesh)
@@ -11569,6 +12065,8 @@ def phase_multihost(device, seed: int, r: int = 2048, e: int = 102400, a: int = 
     legs = mh_stream_legs(seed, device, mesh, VirtualMesh(MH_PROCESSES * MH_LOCAL_RANKS // 2,
                                                           device, s=2), r, e, a, d, k, s, map_a,
                           flagship)
+    options = mh_options(mh_dispatch_legs(seed, device, mesh, serve=serve, fan=fan),
+                         dense_options, rings["dense"], legs)
     if device.type == "cuda":
         torch.cuda.empty_cache()  # the workers need the card's memory
 
@@ -11579,7 +12077,8 @@ def phase_multihost(device, seed: int, r: int = 2048, e: int = 102400, a: int = 
     with open(os.path.join(root, "rounds.json"), "w") as f:
         json.dump({**{kind: ring["rounds"] for kind, ring in rings.items()},
                    "elastic_delta": legs["delta_gossip_elastic"]["rounds"],
-                   "elastic_parking": legs["gossip_elastic"]["parking"]}, f)
+                   "elastic_parking": legs["gossip_elastic"]["parking"],
+                   "options": {"serve": list(serve), "fanout": list(fan)}}, f)
     spec = lambda pid: ",".join(map(str, (port, pid, MH_PROCESSES, device, root, r, e, a,  # noqa: E731
                                            d, map_r, k, s, map_a, *flagship)))
     t0 = time.perf_counter()
@@ -11660,6 +12159,7 @@ def phase_multihost(device, seed: int, r: int = 2048, e: int = 102400, a: int = 
             check(got == want, f"worker {pid}: the cross-process {name} != the single-process "
                                f"entry")
         mh_check_legs(pid, w["legs"], legs, ranks, on_card)
+        mh_check_options(pid, w["options"], options, ranks, on_card)
     med = st.median
     out.update(
         single_process_fold_ms=walls, single_process_fold_ms_median=med(walls),
@@ -11671,14 +12171,18 @@ def phase_multihost(device, seed: int, r: int = 2048, e: int = 102400, a: int = 
         cross_over_single=(max(med(w["wall_ms"]) for w in workers) / med(walls)),
         k1_max_abs_err=max(max(w["max_abs_err"]["k1"], w["legs"]["dense_stream"]["max_abs_err"],
                                w["legs"]["gossip_elastic"]["max_abs_err"],
-                               w["legs"]["delta_gossip_elastic"]["k1_max_abs_err"])
+                               w["legs"]["delta_gossip_elastic"]["k1_max_abs_err"],
+                               w["options"]["telemetry"]["k1_max_abs_err"])
                            for w in workers),
         k2_max_abs_err=max(max(w["max_abs_err"]["k2"],
                                w["legs"]["map_gossip_elastic"]["max_abs_err"]) for w in workers),
         k3_max_abs_err=max(max(max(x["k3_max_abs_err"] for x in w["rings"].values()),
-                               w["legs"]["delta_gossip_elastic"]["k3_max_abs_err"])
+                               w["legs"]["delta_gossip_elastic"]["k3_max_abs_err"],
+                               w["options"]["fanout"]["k3_max_abs_err"],
+                               w["options"]["telemetry"]["ring"]["k3_max_abs_err"])
                            for w in workers),
         legs=mh_legs_report(legs, [w["legs"] for w in workers]),
+        options=mh_options_report(options, [w["options"] for w in workers]),
         rings={kind: mh_ring_report(kind, ring, [w["rings"][kind] for w in workers])
                for kind, ring in rings.items()},
         small_kinds=sorted(small),
@@ -11754,7 +12258,7 @@ def main(argv=None) -> int:
     if run("map_delta_scenarios"):
         phase_map_delta_scenarios(device, args.seed)
     if run("full_width_delta_map"):
-        res["delta_map"] = phase_full_width_delta_map(device, args.seed, ring_samples=3)
+        res["delta_map"] = phase_full_width_delta_map(device, args.seed, ring_samples=2)
     if run("sparse_scenarios"):
         phase_sparse_scenarios(device, args.seed)
     if run("flagship"):
@@ -11788,7 +12292,7 @@ def main(argv=None) -> int:
     if run("full_width_nested"):
         res["nested"] = phase_full_width_nested(device, args.seed)
     if run("full_width_delta_nested"):
-        res["delta_nested"] = phase_full_width_delta_nested(device, args.seed, ring_samples=3)
+        res["delta_nested"] = phase_full_width_delta_nested(device, args.seed, ring_samples=2)
     if run("kinds_scenarios"):
         phase_kinds_scenarios(device, args.seed)
     if run("full_width_clocks"):

@@ -210,6 +210,29 @@ def record_headroom(model) -> Dict[str, float]:
     return out
 
 
+def agreed_utilization(model, procs=None) -> Dict[str, Tuple[int, int]]:
+    """:func:`utilization` of a model whose rows are spread over the
+    processes of ``procs`` (a ``multihost.GlobalMesh``; this process's
+    ``model`` holds its rows): every process's ``(capacity, used)`` in ONE
+    small gather (``multihost.agree``), the occupancy the maximum over
+    the processes — every occupancy here is a maximum over rows or an
+    interned count — and the capacities equal on every process, or
+    ``ValueError`` on every process. Without processes to cross, the
+    model's own."""
+    util = utilization(model)
+    if procs is None or procs.process_count == 1:
+        return util
+    from .parallel import multihost
+
+    axes = list(util)
+    rows = multihost.agree([v for axis in axes for v in util[axis]], procs)
+    if len({r[0::2] for r in rows}) != 1:
+        raise ValueError(f"elastic capacities differ across processes: "
+                         f"{[dict(zip(axes, r[0::2])) for r in rows]}")
+    return {axis: (util[axis][0], max(r[2 * i + 1] for r in rows))
+            for i, axis in enumerate(axes)}
+
+
 # ---- the migration --------------------------------------------------------
 
 def _grown(cap: int, factor: float) -> int:
@@ -313,13 +336,20 @@ class Hysteresis:
         self._hot: Dict[str, int] = {}
         self._cold: Dict[str, int] = {}
 
-    def observe(self, model, policy: Optional[ElasticPolicy] = None) -> Dict[str, int]:
+    def observe(self, model, policy: Optional[ElasticPolicy] = None,
+                procs=None) -> Dict[str, int]:
         """Record one round's occupancy; shrink and return the narrowed
-        axes when the hysteresis clears (usually ``{}``)."""
+        axes when the hysteresis clears (usually ``{}``). With ``procs``
+        (a ``multihost.GlobalMesh``) ``model`` holds this process's rows
+        of the whole model: each axis's capacity and occupancy are agreed
+        over every process before deciding (:func:`agreed_utilization`),
+        so every process shrinks the same axes to the same capacities, as
+        one observation of the whole model would."""
         policy = policy or self.policy
         candidates = []
         narrowable = _narrowable_axes(model)
-        for axis, (cap, used) in utilization(model).items():
+        util = agreed_utilization(model, procs)
+        for axis, (cap, used) in util.items():
             prev = self._caps.get(axis)
             if prev is not None and cap > prev:
                 self._streak[axis] = 0  # widened since last round
@@ -331,7 +361,8 @@ class Hysteresis:
                 candidates.append(axis)
         if not candidates:
             return {}
-        shrunk = shrink(model, tuple(candidates), policy)
+        shrunk = shrink(model, policy=policy,
+                        **{axis: _shrink_target(*util[axis], policy) for axis in candidates})
         for axis in shrunk:
             self._streak[axis] = 0
             self._caps[axis] = capacities(model)[axis]
@@ -446,7 +477,7 @@ def migrate(model, counter_dtype: Optional[str] = None, axes: Optional[Tuple[str
 
 
 __all__ = [
-    "CAPACITY_ERRORS", "DEFAULT_POLICY", "ElasticPolicy", "Hysteresis", "axes_for",
-    "capacities", "elastic_call", "kind_of", "migrate", "record_headroom", "recover",
+    "CAPACITY_ERRORS", "DEFAULT_POLICY", "ElasticPolicy", "Hysteresis", "agreed_utilization",
+    "axes_for", "capacities", "elastic_call", "kind_of", "migrate", "record_headroom", "recover",
     "shrink", "utilization", "widen", "widen_dtype",
 ]

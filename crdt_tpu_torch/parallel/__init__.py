@@ -30,12 +30,12 @@ mesh in replica blocks, ``stream``); ``mesh_serve_apply`` (one coalesced op slab
 a tenant superblock, ``serve_apply``); ``mesh_fanout_push`` (one dispatch
 of cohort δ payloads against a superblock, K3 over B·E client lanes,
 ``fanout_push``). ``multihost`` joins processes (gloo): ``global_mesh``
-gives every fold and gossip of ``anti_entropy`` and the four δ rings a
-replica axis across processes (``multihost.CROSS_PROCESS_ENTRIES``; the
-streams, the element-sharded folds, the elastic loops,
-``mesh_serve_apply`` and ``mesh_fanout_push`` refuse it, ROADMAP item
-32), and ``sync_tenant_rows`` / ``sync_list`` are the serving tier's and
-the list's host exchanges.
+gives every entry above a replica axis across processes
+(``multihost.CROSS_PROCESS_ENTRIES``, their ``telemetry=``, ``stability=``,
+``lag_threshold=`` and ``reclaim=`` included; ``faults=``, ``wal=`` and
+a ``Superblock`` or ``FanoutPlane`` on it are refused, ROADMAP item 32),
+and ``sync_tenant_rows`` / ``sync_list`` are the serving tier's and the
+list's host exchanges.
 """
 
 from .anti_entropy import (

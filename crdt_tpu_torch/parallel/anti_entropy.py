@@ -70,10 +70,17 @@ process folds them on its own ranks, the all-reduce adds a process step
 and the gossip ring runs over every process's ranks (``collectives``),
 P-1 rounds by default with P the global rank count; the fold returns the
 global join on every process, the ring this process's rows, and the
-flags are OR-reduced over every process. ``telemetry=``, ``stability=``,
-``faults=`` and ``lag_threshold=`` are not taken there (ROADMAP item
-32). ``gossip_elastic`` takes it too, re-entering the cross-process
-rings (its docstring).
+flags are OR-reduced over every process. ``telemetry=True`` there
+returns the mesh-wide Telemetry on every process: each process reduces
+its own ranks, then one gather (``telemetry.reduce_processes``) sums the
+counters, maxes the gauges and sums every float32 byte count over the
+GLOBAL per-rank vector, the single-process order. ``stability=True``
+takes the minimum of every process's input tops (one gather before the
+rounds, the JAX ``lax.pmin``) and compacts each process's rows against
+it; the frontier lag is the maximum over the processes, so
+``lag_threshold=`` warns on every process alike. ``faults=`` is not
+taken there (ROADMAP item 32). ``gossip_elastic`` takes it too,
+re-entering the cross-process rings (its docstring).
 
 ``faults=`` (a ``faults.FaultPlan``) on the ring entries and
 ``gossip_elastic`` injects the plan's link faults into every exchange:
@@ -122,7 +129,7 @@ from ..faults import inject as flt
 from ..faults.integrity import checksum
 from ..reclaim.frontier import frontier_lag, top_of, watch_lag
 from .collectives import (
-    all_reduce_clock, all_reduce_join, all_reduce_lattice, permuter, psum, ring_round,
+    all_reduce_clock, all_reduce_join, all_reduce_lattice, permuter, pmax, pmin, psum, ring_round,
 )
 from . import multihost
 from .mesh import VirtualMesh, pad_replicas, pad_replicas_map, pad_replicas_sparse
@@ -160,13 +167,17 @@ def _split_mesh(mesh, entry: str, **options):
     :class:`~.mesh.VirtualMesh`; for a cross-process
     :class:`~.multihost.GlobalMesh`, the mesh itself (the process step's
     group) and its local ranks, after refusing the ``options`` set that
-    the cross-process entries do not take."""
+    the cross-process entries do not take (``faults=``, ``wal=``)."""
     if not isinstance(mesh, multihost.GlobalMesh):
         return None, mesh
     used = sorted(k for k, v in options.items() if v not in (None, False))
     if used:
+        why = {"faults": "a fault plan's fates would sit on the links between processes",
+               "wal": "the JAX package's Wal.append_state cannot copy an array that spans "
+                      "processes to the host either"}
         raise NotImplementedError(
-            f"{entry} on a cross-process mesh does not take {', '.join(used)} (ROADMAP item 32)")
+            f"{entry} on a cross-process mesh does not take {', '.join(used)} (ROADMAP item "
+            f"32: {'; '.join(why.get(k, k) for k in used)})")
     return mesh, mesh.local
 
 
@@ -182,39 +193,50 @@ def _exchange_count(p: int) -> int:
 
 
 def _tel_reduced(folded, slots, merges_per_rank: int, bytes_per_rank, p: int, residue=None,
-                 useful_per_rank=None, copies: int = 1) -> tele.Telemetry:
+                 useful_per_rank=None, copies: int = 1, procs=None, ranks=None,
+                 **fields) -> tele.Telemetry:
     """The JAX ``_tel_reduced`` on the virtual mesh: ``slots`` (0-d,
     already summed over the ranks), ``merges`` P times the per-rank count,
     the wire bytes (a Python count, the same on every rank, or a ``[P]``
     float32 tensor) summed over the ranks and the ``copies`` element
     shards that hold a replicated state (each ships its copy), the gauges
-    of ``folded`` (the ``[P, ...]`` rank rows) maxed. ``useful_per_rank``
-    None = no mask, wire == useful."""
+    of ``folded`` (the ``[P, ...]`` rank rows) maxed; ``fields`` are
+    further partial fields (0-d tensors) and ``ranks`` further per-rank
+    float32 sums (``telemetry.reduce_processes``). ``useful_per_rank``
+    None = no mask, wire == useful. With ``procs`` (a ``GlobalMesh``)
+    ``p`` is this process's ranks and the result is reduced over every
+    process: the mesh-wide Telemetry on every process."""
     dev = slots.device
 
     def per_rank(x):
         if not isinstance(x, torch.Tensor):
             x = torch.full((p,), float(x), dtype=torch.float32, device=dev)
-        return x.repeat(copies) if copies > 1 else x
+        # Each element shard ships its copy: the rank vector once a shard.
+        return x.expand(copies, p) if copies > 1 else x
 
-    wire = per_rank(bytes_per_rank).sum()
-    return tele.fill(
+    wire = per_rank(bytes_per_rank)
+    tel = tele.fill(
         tele.zeros(dev), merges=p * merges_per_rank, slots_changed=slots,
-        deferred_depth=tele.device_depth(folded), bytes_exchanged=wire,
-        bytes_useful=wire if useful_per_rank is None else per_rank(useful_per_rank).sum(),
-        residue=0 if residue is None else residue, widen_pressure=tele.device_pressure(folded),
-    )
+        deferred_depth=tele.device_depth(folded), residue=0 if residue is None else residue,
+        widen_pressure=tele.device_pressure(folded),
+    )._replace(**fields)
+    useful = wire if useful_per_rank is None else per_rank(useful_per_rank)
+    return tele.reduce_processes(
+        tel, procs, {"bytes_exchanged": wire, "bytes_useful": useful, **(ranks or {})})
 
 
 def _fold_tel(kind: str, folded, joined, blocks, slots_fn, p: int, t0: float,
-              copies: int = 1):
+              copies: int = 1, procs=None):
     """The telemetry of an all-reduce fold entry (JAX ``mesh_fold`` /
     ``_mesh_fold_lattice``): the kind's changed lanes between each rank's
-    local fold and the joined state, recorded under ``kind``."""
-    n_ex = _exchange_count(p)
+    local fold and its joined row (``joined``: the all-reduce's
+    ``rank_rows``), recorded under ``kind``. Across the processes of
+    ``procs`` the exchanges are the global rank count's."""
+    n_ex = _exchange_count(p * (1 if procs is None else procs.process_count))
     rl = tree_leaves(blocks)[0].shape[1]
     tel = _tel_reduced(joined, slots_fn(folded, joined), max(rl - 1, 0) + n_ex,
-                       tele.shipped_bytes(folded, batch_dims=1) * n_ex, p, copies=copies)
+                       tele.shipped_bytes(folded, batch_dims=1) * n_ex, p, copies=copies,
+                       procs=procs)
     return tele.finish_dispatch(kind, tel, t0)
 
 
@@ -334,18 +356,20 @@ def mesh_fold(
     On a cross-process mesh ``state`` is this process's rows (module
     docstring)."""
     t0 = time.perf_counter()
-    procs, mesh = _split_mesh(mesh, "mesh_fold", telemetry=telemetry)
+    procs, mesh = _split_mesh(mesh, "mesh_fold")
     blocks = rank_blocks(state, mesh)
     _record("anti_entropy.fold_rounds", 1, blocks, "anti_entropy.orswot_fold")
+    rank_rows = [] if telemetry else None
     with _timed("anti_entropy.fold", mesh.device):
         folded, of_local = local_folds(blocks, _fold_fn(local_fold))
-        joined, of = all_reduce_join(folded, procs, flags=torch.any(of_local))
+        joined, of = all_reduce_join(folded, procs, flags=torch.any(of_local),
+                                     rank_rows=rank_rows)
     out = tree_map(lambda x: x[0], joined)
     if donate:
         _consume(state, keep=out)
     if telemetry:
-        return out, of, _fold_tel("orswot_fold", folded, joined, blocks, ops.changed_members,
-                                  mesh.p, t0)
+        return out, of, _fold_tel("orswot_fold", folded, rank_rows[0], blocks,
+                                  ops.changed_members, mesh.p, t0, procs=procs)
     return out, of
 
 
@@ -366,8 +390,7 @@ def mesh_gossip(
     row is the full join. ``donate=True``: see the module docstring. On a
     cross-process mesh the ring spans every process's ranks (P is the
     global count) and the rows returned are this process's."""
-    procs, mesh = _split_mesh(mesh, "mesh_gossip", telemetry=telemetry,
-                              stability=stability, faults=faults, lag_threshold=lag_threshold)
+    procs, mesh = _split_mesh(mesh, "mesh_gossip", faults=faults)
     return _gossip("orswot_gossip", state, mesh, rounds, donate, _fold_fn(local_fold), ops.join,
                    telemetry, ops.changed_members, stability=stability, compact_fn=ops.compact,
                    lag_threshold=lag_threshold, faults=faults, procs=procs)
@@ -410,7 +433,8 @@ def _gossip(kind: str, state, mesh: VirtualMesh, rounds: Optional[int], donate: 
             if evicted:
                 ev = flt.evicted_mask(faults, mesh.p, mesh.device)
                 tmin = tmin.masked_fill(ev[:, None], torch.iinfo(torch.int64).max)
-            frontier = from_wide(tmin.amin(dim=0), top.dtype)
+            # Across processes the minimum of every process's (JAX ``lax.pmin``).
+            frontier = from_wide(pmin(tmin, procs), top.dtype)
         folded, of = local_folds(blocks, fold_fn)
         slots = 0
         if faulted:
@@ -423,19 +447,21 @@ def _gossip(kind: str, state, mesh: VirtualMesh, rounds: Optional[int], donate: 
             folded, of = new, of | of_r
         if stability:
             folded, freed, freed_b = _compact_ranks(compact_fn, folded, frontier, skip=evicted)
+            lag = frontier_lag(top_of(folded), frontier)
         if telemetry:
             rl = tree_leaves(blocks)[0].shape[1]
-            slots = tele.scalar("slots_changed", slots, mesh.device)
-            tel = _tel_reduced(folded, slots, max(rl - 1, 0) + rounds,
-                               tele.shipped_bytes(folded, batch_dims=1) * rounds, mesh.p,
-                               copies=copies)
+            fields, ranks = {}, {}
             if stability:
-                tel = tel._replace(reclaimed_slots=freed, reclaimed_bytes=freed_b,
-                                   frontier_lag=frontier_lag(top_of(folded), frontier))
+                fields.update(reclaimed_slots=freed, frontier_lag=lag)
+                ranks["reclaimed_bytes"] = freed_b
             if faulted:
-                tel = tel._replace(faults_dropped=fc.packets_dropped,
-                                   faults_rejected=fc.packets_rejected,
-                                   faults_delayed=fc.packets_delayed)
+                fields.update(faults_dropped=fc.packets_dropped,
+                              faults_rejected=fc.packets_rejected,
+                              faults_delayed=fc.packets_delayed)
+            tel = _tel_reduced(folded, tele.scalar("slots_changed", slots, mesh.device),
+                               max(rl - 1, 0) + rounds,
+                               tele.shipped_bytes(folded, batch_dims=1) * rounds, mesh.p,
+                               copies=copies, procs=procs, ranks=ranks, **fields)
         of = torch.any(of, dim=0) if procs is None else psum(of, procs) > 0
         out = _donate_ring(donate, aliasable, state, folded), of
     if telemetry:
@@ -443,7 +469,10 @@ def _gossip(kind: str, state, mesh: VirtualMesh, rounds: Optional[int], donate: 
     if stability:
         out = (*out, frontier)
         if lag_threshold is not None:
-            watch_lag(kind, int(frontier_lag(top_of(out[0]), frontier)), lag_threshold)
+            # The lag is the maximum over every process, so every process
+            # warns alike.
+            lag = tel.frontier_lag if telemetry else pmax(lag[None], procs)
+            watch_lag(kind, int(lag), lag_threshold)
     if faulted:
         flt.record(fc)
         out = (*out, fc)
@@ -493,9 +522,10 @@ def _faulted_rounds(folded, of, rounds: int, join_fn, faults, mesh: VirtualMesh,
 
 def _compact_ranks(compact_fn, folded, frontier, skip=()):
     """Each rank's compaction of its converged row (the JAX per-device
-    ``compact_fn``): the ``[P, ...]`` rows compacted, and the freed slots
-    and bytes summed over the ranks once (the ``psum``; ``float32``
-    bytes). The ranks in ``skip`` (evicted: the frontier may exceed
+    ``compact_fn``): the ``[P, ...]`` rows compacted, the freed slots
+    summed over the ranks once (the ``psum``) and the freed bytes of
+    each compacted rank (``float32``, for the Telemetry's one sum over
+    the ranks). The ranks in ``skip`` (evicted: the frontier may exceed
     their knowledge) keep their rows and free nothing."""
     p = tree_leaves(folded)[0].shape[0]
     outs = [compact_fn(tree_map(lambda x: x[q], folded), frontier) for q in range(p)]
@@ -503,8 +533,7 @@ def _compact_ranks(compact_fn, folded, frontier, skip=()):
                   for q, o in enumerate(outs)], outs[0][0])
     kept = [o for q, o in enumerate(outs) if q not in skip]
     freed = from_raw(torch.stack([raw(o[1]) for o in kept]).sum(), torch.uint32)
-    freed_b = torch.stack([o[2] for o in kept]).sum()
-    return rows, freed, freed_b
+    return rows, freed, torch.stack([o[2] for o in kept])
 
 
 def _mesh_fold_replicated(kind: str, states, mesh: VirtualMesh, join_fn, fold_fn, slots_fn,
@@ -521,16 +550,17 @@ def _mesh_fold_replicated(kind: str, states, mesh: VirtualMesh, join_fn, fold_fn
     t0 = time.perf_counter()
     blocks = rank_blocks(states, mesh)
     _record(f"anti_entropy.{kind}_rounds", 1, blocks, f"anti_entropy.{kind}")
+    rank_rows = [] if telemetry else None
     with _timed(f"anti_entropy.{kind}", mesh.device):
         folded, of_local = local_folds(blocks, fold_fn)
         joined, of = all_reduce_lattice(folded, join_fn, fold_fn, procs,
-                                        flags=torch.any(of_local, dim=0))
+                                        flags=torch.any(of_local, dim=0), rank_rows=rank_rows)
     out = tree_map(lambda x: x[0], joined)
     if donate:
         _consume(states, keep=out)
     if telemetry:
-        return out, of, _fold_tel(kind, folded, joined, blocks, slots_fn, mesh.p, t0,
-                                  copies=copies)
+        return out, of, _fold_tel(kind, folded, rank_rows[0], blocks, slots_fn, mesh.p, t0,
+                                  copies=copies, procs=procs)
     return out, of
 
 
@@ -544,7 +574,7 @@ def mesh_fold_map(
     [sibling slab, deferred buffer] as in ``ops.map.join``; the Telemetry
     third with ``telemetry=True``. Takes a cross-process mesh (module
     docstring)."""
-    procs, mesh = _split_mesh(mesh, "mesh_fold_map", telemetry=telemetry)
+    procs, mesh = _split_mesh(mesh, "mesh_fold_map")
     return _mesh_fold_replicated("map_fold", state, mesh, map_ops.join, map_ops.fold,
                                  map_ops.changed_keys, telemetry, donate, procs=procs)
 
@@ -563,8 +593,7 @@ def mesh_gossip_map(
     then ``rounds`` (default P-1) unit-shift ring rounds, each shipping
     one state per link. Returns ``(states [P, ...], overflow [2])``; with
     P-1 rounds every row is the full join."""
-    procs, mesh = _split_mesh(mesh, "mesh_gossip_map", telemetry=telemetry,
-                              stability=stability, faults=faults, lag_threshold=lag_threshold)
+    procs, mesh = _split_mesh(mesh, "mesh_gossip_map", faults=faults)
     return _gossip("map_gossip", state, mesh, rounds, donate, map_ops.fold, map_ops.join,
                    telemetry, map_ops.changed_keys, stability=stability,
                    compact_fn=map_ops.compact, lag_threshold=lag_threshold, faults=faults,
@@ -582,7 +611,7 @@ def mesh_fold_sparse(
     on ``mesh.device``. Returns ``(converged state, overflow [2])`` —
     [dot capacity, deferred capacity]; the Telemetry third with
     ``telemetry=True``."""
-    procs, mesh = _split_mesh(mesh, "mesh_fold_sparse", telemetry=telemetry)
+    procs, mesh = _split_mesh(mesh, "mesh_fold_sparse")
     return _mesh_fold_replicated("sparse_orswot_fold", states, mesh, sp.join, sp.fold,
                                  sp.changed_dots, telemetry, donate, copies=mesh.s, procs=procs)
 
@@ -603,8 +632,7 @@ def mesh_gossip_sparse(
     ring rounds of ``ops.sparse_orswot.join``, one segment table per link
     per round (traffic proportional to live dots, not the universe).
     Returns ``(states [P, ...], overflow [2])``."""
-    procs, mesh = _split_mesh(mesh, "mesh_gossip_sparse", telemetry=telemetry,
-                              stability=stability, faults=faults, lag_threshold=lag_threshold)
+    procs, mesh = _split_mesh(mesh, "mesh_gossip_sparse", faults=faults)
     return _gossip("sparse_gossip", states, mesh, rounds, donate, sp.fold, sp.join, telemetry,
                    sp.changed_dots, copies=mesh.s, stability=stability, compact_fn=sp.compact,
                    lag_threshold=lag_threshold, faults=faults, procs=procs)
@@ -622,7 +650,7 @@ def mesh_fold_sparse_mvmap(
     sibling capacity]; the Telemetry third with ``telemetry=True``
     (``slots_changed``: ``changed_cells``). Takes a cross-process mesh
     (module docstring)."""
-    procs, mesh = _split_mesh(mesh, "mesh_fold_sparse_mvmap", telemetry=telemetry)
+    procs, mesh = _split_mesh(mesh, "mesh_fold_sparse_mvmap")
     return _mesh_fold_replicated(
         f"sparse_mvmap_fold_s{sibling_cap}", states, mesh,
         lambda a, b: smv.join(a, b, sibling_cap=sibling_cap),
@@ -646,8 +674,7 @@ def mesh_gossip_sparse_mvmap(
     ring rounds, one cell table per link per round (traffic proportional
     to live cells, not the key universe). Returns ``(states [P, ...],
     flags [3])``."""
-    procs, mesh = _split_mesh(mesh, "mesh_gossip_sparse_mvmap", telemetry=telemetry,
-                              stability=stability, faults=faults, lag_threshold=lag_threshold)
+    procs, mesh = _split_mesh(mesh, "mesh_gossip_sparse_mvmap", faults=faults)
     return _gossip(f"sparse_mvmap_gossip_s{sibling_cap}", states, mesh, rounds, donate,
                    lambda x: smv.fold(x, sibling_cap=sibling_cap),
                    lambda a, b: smv.join(a, b, sibling_cap=sibling_cap), telemetry,
@@ -677,7 +704,7 @@ def mesh_fold_sparse_nested(
     Returns ``(state, flags [L+1])``; the Telemetry third with
     ``telemetry=True`` (``slots_changed``: every plane's changed
     entries)."""
-    procs, mesh = _split_mesh(mesh, "mesh_fold_sparse_nested", telemetry=telemetry)
+    procs, mesh = _split_mesh(mesh, "mesh_fold_sparse_nested")
     return _mesh_fold_replicated(_nested_kind(level, "fold"), states, mesh, level.join,
                                  level.fold, tele.generic_slots_changed, telemetry, donate,
                                  copies=mesh.s, procs=procs)
@@ -698,8 +725,7 @@ def mesh_gossip_sparse_nested(
     ``SparseNestLevel`` composition): each rank folds its block, then
     ``rounds`` (default P-1) unit-shift ring rounds of ``level.join``.
     Returns ``(states [P, ...], flags [L+1])``."""
-    procs, mesh = _split_mesh(mesh, "mesh_gossip_sparse_nested", telemetry=telemetry,
-                              stability=stability, faults=faults, lag_threshold=lag_threshold)
+    procs, mesh = _split_mesh(mesh, "mesh_gossip_sparse_nested", faults=faults)
     return _gossip(_nested_kind(level, "gossip"), states, mesh, rounds, donate, level.fold,
                    level.join, telemetry, tele.generic_slots_changed, copies=mesh.s,
                    stability=stability, compact_fn=sparse_nest_ops.compact,
@@ -721,7 +747,7 @@ def mesh_fold_map_orswot(state, mesh: VirtualMesh, telemetry: bool = False,
     all-reduce over the ranks. Returns ``(state, flags [2])``; the
     Telemetry third with ``telemetry=True`` (``slots_changed``: the leaf's
     ``changed_members``)."""
-    procs, mesh = _split_mesh(mesh, "mesh_fold_map_orswot", telemetry=telemetry)
+    procs, mesh = _split_mesh(mesh, "mesh_fold_map_orswot")
     return _mesh_fold_replicated("map_orswot_fold", state, mesh, mo_ops.join, mo_ops.fold,
                                  _leaf_members_changed(lambda s: s.core), telemetry, donate,
                                  procs=procs)
@@ -733,8 +759,7 @@ def mesh_gossip_map_orswot(state, mesh: VirtualMesh, rounds: Optional[int] = Non
     """Ring anti-entropy for ``Map<K, Orswot>`` replica blocks: each rank
     folds its block, then ``rounds`` (default P-1) unit-shift ring rounds
     of ``map_orswot.join``. Returns ``(states [P, ...], flags [2])``."""
-    procs, mesh = _split_mesh(mesh, "mesh_gossip_map_orswot", telemetry=telemetry,
-                              stability=stability, faults=faults, lag_threshold=lag_threshold)
+    procs, mesh = _split_mesh(mesh, "mesh_gossip_map_orswot", faults=faults)
     return _gossip("map_orswot_gossip", state, mesh, rounds, donate, mo_ops.fold, mo_ops.join,
                    telemetry, _leaf_members_changed(lambda s: s.core), stability=stability,
                    compact_fn=mo_ops.compact, lag_threshold=lag_threshold, faults=faults,
@@ -746,7 +771,7 @@ def mesh_fold_map3(state, mesh: VirtualMesh, telemetry: bool = False, donate: bo
     (``ops.map3``): each rank's fused level fold (K1 on the leaf, two
     ``settle_outer`` levels), then one lattice-join all-reduce. Returns
     ``(state, flags [3])``; the Telemetry third with ``telemetry=True``."""
-    procs, mesh = _split_mesh(mesh, "mesh_fold_map3", telemetry=telemetry)
+    procs, mesh = _split_mesh(mesh, "mesh_fold_map3")
     return _mesh_fold_replicated("map3_fold", state, mesh, m3_ops.join, m3_ops.fold,
                                  _leaf_members_changed(lambda s: s.mo.core), telemetry, donate,
                                  procs=procs)
@@ -757,8 +782,7 @@ def mesh_gossip_map3(state, mesh: VirtualMesh, rounds: Optional[int] = None,
                      faults=None, lag_threshold=None):
     """Ring anti-entropy for ``Map<K1, Map<K2, Orswot>>`` replica blocks.
     Returns ``(states [P, ...], flags [3])``."""
-    procs, mesh = _split_mesh(mesh, "mesh_gossip_map3", telemetry=telemetry,
-                              stability=stability, faults=faults, lag_threshold=lag_threshold)
+    procs, mesh = _split_mesh(mesh, "mesh_gossip_map3", faults=faults)
     return _gossip("map3_gossip", state, mesh, rounds, donate, m3_ops.fold, m3_ops.join,
                    telemetry, _leaf_members_changed(lambda s: s.mo.core), stability=stability,
                    compact_fn=m3_ops.compact, lag_threshold=lag_threshold, faults=faults,
@@ -773,7 +797,7 @@ def mesh_fold_nested_map(state, mesh: VirtualMesh, telemetry: bool = False,
     lattice-join all-reduce. Returns ``(state, flags [3])``; the Telemetry
     third with ``telemetry=True`` (``slots_changed``: the flat map's
     ``changed_keys``)."""
-    procs, mesh = _split_mesh(mesh, "mesh_fold_nested_map", telemetry=telemetry)
+    procs, mesh = _split_mesh(mesh, "mesh_fold_nested_map")
     return _mesh_fold_replicated("nested_map_fold", state, mesh, mm_ops.join, mm_ops.fold,
                                  lambda a, b: map_ops.changed_keys(a.m, b.m), telemetry, donate,
                                  procs=procs)
@@ -784,8 +808,7 @@ def mesh_gossip_nested_map(state, mesh: VirtualMesh, rounds: Optional[int] = Non
                            stability: bool = False, faults=None, lag_threshold=None):
     """Ring anti-entropy for ``Map<K1, Map<K2, MVReg>>`` replica blocks.
     Returns ``(states [P, ...], flags [3])``."""
-    procs, mesh = _split_mesh(mesh, "mesh_gossip_nested_map", telemetry=telemetry,
-                              stability=stability, faults=faults, lag_threshold=lag_threshold)
+    procs, mesh = _split_mesh(mesh, "mesh_gossip_nested_map", faults=faults)
     return _gossip("nested_map_gossip", state, mesh, rounds, donate, mm_ops.fold, mm_ops.join,
                    telemetry, lambda a, b: map_ops.changed_keys(a.m, b.m), stability=stability,
                    compact_fn=mm_ops.compact, lag_threshold=lag_threshold, faults=faults,
@@ -844,7 +867,7 @@ def mesh_fold_lww(states: LWWState, mesh: VirtualMesh, telemetry: bool = False,
     marks an equal-marker/different-value merge anywhere (reference:
     src/lwwreg.rs validate_merge); the Telemetry third with
     ``telemetry=True``."""
-    procs, mesh = _split_mesh(mesh, "mesh_fold_lww", telemetry=telemetry)
+    procs, mesh = _split_mesh(mesh, "mesh_fold_lww")
     return _mesh_fold_replicated("lww_fold", states, mesh, lww_ops.join, lww_ops.fold,
                                  tele.generic_slots_changed, telemetry, donate, procs=procs)
 
@@ -855,7 +878,7 @@ def mesh_fold_mvreg(states: MVRegState, mesh: VirtualMesh, telemetry: bool = Fal
     over the mesh's replica axis: dominated contents die, concurrent
     siblings survive (reference: src/mvreg.rs ``CvRDT::merge``). Returns
     ``(state, overflow)``; the Telemetry third with ``telemetry=True``."""
-    procs, mesh = _split_mesh(mesh, "mesh_fold_mvreg", telemetry=telemetry)
+    procs, mesh = _split_mesh(mesh, "mesh_fold_mvreg")
     return _mesh_fold_replicated("mvreg_fold", states, mesh, mv_ops.join, mv_ops.fold,
                                  tele.generic_slots_changed, telemetry, donate, procs=procs)
 
@@ -904,12 +927,13 @@ def gossip_elastic(model, mesh: VirtualMesh, rounds: Optional[int] = None, polic
     process widens the same axes and re-enters as often, and
     ``max_migrations`` fails on every process together. One gather at
     entry checks that every process's model has the same kind, rows and
-    capacities (``ValueError`` on every process otherwise). ``reclaim=``
-    (the hysteresis decides per process), ``telemetry=``,
-    ``stability=``, ``faults=`` and ``lag_threshold=`` are refused there
-    (ROADMAP item 32)."""
-    procs, _ = _split_mesh(mesh, "gossip_elastic", telemetry=telemetry, stability=stability,
-                           reclaim=reclaim, faults=faults, lag_threshold=lag_threshold)
+    capacities (``ValueError`` on every process otherwise). The rings'
+    ``telemetry=``, ``stability=`` and ``lag_threshold=`` are mesh-wide
+    there, and ``reclaim=``'s hysteresis decides on every process's
+    occupancy at once (``elastic.Hysteresis.observe(procs=)``), so every
+    process shrinks the same axes to the same capacities. ``faults=`` is
+    refused there (ROADMAP item 32)."""
+    procs, _ = _split_mesh(mesh, "gossip_elastic", faults=faults)
     from .. import elastic
     from ..models.map import BatchedMap
     from ..models.orswot import BatchedOrswot
@@ -967,7 +991,7 @@ def gossip_elastic(model, mesh: VirtualMesh, rounds: Optional[int] = None, polic
                 # must narrow the state the model carries into its next
                 # round), then let the hysteresis decide.
                 _commit_rows(model, rows)
-                reclaim.observe(model)
+                reclaim.observe(model, procs=procs)
             ret = (rows, widened)
             if telemetry:
                 ret = (*ret, tel)

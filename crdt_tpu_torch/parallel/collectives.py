@@ -15,8 +15,10 @@ rank would hold). The reductions of the JAX package follow:
 Handed a cross-process mesh (``multihost.GlobalMesh`` as ``procs``), the
 all-reduce adds a process step after the rank step — rank 0's join
 through ``multihost.all_reduce_processes`` (recursive doubling over the
-processes, or gather and fold) —, ``psum``/``pmax`` add the processes'
-sums and maxima (``multihost.gather_processes``), and a unit ring shift
+processes, or gather and fold) —, ``psum``/``pmax``/``pmin`` add the
+processes' sums, maxima and minima (``multihost.gather_processes``),
+``preduce`` gathers per-rank vectors whole for a float sum that must
+keep the single-process order, and a unit ring shift
 (:func:`across_processes`: the gossip round, the δ ring's packet shift)
 replaces the row its first rank receives with the previous process's
 last rank's (``multihost.ring_hop``); the inverse shift (the δ ring's
@@ -30,7 +32,7 @@ from typing import Any, Callable, Optional, Sequence, Tuple
 
 import torch
 
-from .._dtypes import bits, umax
+from .._dtypes import bits, from_wide, to_wide, umax
 from ..ops import orswot as ops
 from ..ops.lattice import tree_map
 
@@ -119,18 +121,33 @@ def _pmax(x: torch.Tensor) -> torch.Tensor:
     return x.amax(dim=0)
 
 
-def preduce(sums: Sequence[torch.Tensor] = (), maxes: Sequence[torch.Tensor] = (), procs=None):
-    """:func:`psum` of each of ``sums`` and :func:`pmax` of each of
-    ``maxes``, over the rank axis and then the processes of ``procs`` in
-    ONE exchange (``multihost.gather_processes``). Returns the two
-    lists."""
-    s, m = [_psum(x) for x in sums], [_pmax(x) for x in maxes]
+def _pmin(x: torch.Tensor) -> torch.Tensor:
+    if x.dtype in (torch.uint32, torch.uint64):
+        return from_wide(to_wide(x).amin(dim=0), x.dtype)
+    return x.amin(dim=0)
+
+
+def preduce(sums: Sequence[torch.Tensor] = (), maxes: Sequence[torch.Tensor] = (), procs=None,
+            mins: Sequence[torch.Tensor] = (), cats: Sequence[torch.Tensor] = ()):
+    """:func:`psum` of each of ``sums``, :func:`pmax` of each of ``maxes``
+    and :func:`pmin` of each of ``mins``, over the rank axis and then the
+    processes of ``procs``, and each of ``cats`` (per-rank values, the
+    rank axis LAST) concatenated along its rank axis over the processes
+    in process order — all in ONE exchange (``multihost.gather_processes``).
+    A float sum that must be the single-process sum bit for bit gathers
+    its per-rank vector as a ``cat`` and sums the global vector once:
+    adding every process's partial sum would change the order. Returns
+    the four lists."""
+    s, m, n = [_psum(x) for x in sums], [_pmax(x) for x in maxes], [_pmin(x) for x in mins]
     if procs is None or procs.process_count == 1:
-        return s, m
+        return s, m, n, list(cats)
     from .multihost import gather_processes
 
-    rows = gather_processes(s + m, procs)
-    return [_psum(x) for x in rows[:len(s)]], [_pmax(x) for x in rows[len(s):]]
+    rows = gather_processes(s + m + n + list(cats), procs)
+    i, j, k = len(s), len(s) + len(m), len(s) + len(m) + len(n)
+    return ([_psum(x) for x in rows[:i]], [_pmax(x) for x in rows[i:j]],
+            [_pmin(x) for x in rows[j:k]],
+            [torch.cat([bits(v) for v in x.unbind(0)], dim=-1).view(x.dtype) for x in rows[k:]])
 
 
 def psum(x: torch.Tensor, procs=None) -> torch.Tensor:
@@ -145,12 +162,19 @@ def pmax(x: torch.Tensor, procs=None) -> torch.Tensor:
     return preduce((), (x,), procs)[1][0]
 
 
+def pmin(x: torch.Tensor, procs=None) -> torch.Tensor:
+    """``lax.pmin`` over the rank axis, and over the processes of
+    ``procs``; unsigned lanes keep their order."""
+    return preduce(procs=procs, mins=(x,))[2][0]
+
+
 def all_reduce_lattice(
     local: Any,
     join_fn: Callable[[Any, Any], Tuple[Any, torch.Tensor]],
     fold_fn: Callable[[Any], Tuple[Any, torch.Tensor]],
     procs=None,
     flags: Optional[torch.Tensor] = None,
+    rank_rows: Optional[list] = None,
 ) -> Tuple[Any, torch.Tensor]:
     """All-reduce with a lattice-join monoid over the rank axis of
     ``local`` (``[P, ...]`` leaves). Returns every rank's global join
@@ -158,7 +182,15 @@ def all_reduce_lattice(
     per flag of ``join_fn``: a scalar for ORSWOT, ``[2]`` for the Map and
     the sparse ORSWOT), ORed with ``flags`` (the ranks' own, e.g. their
     local folds') — and over every process of ``procs`` (a
-    ``multihost.GlobalMesh``) when given."""
+    ``multihost.GlobalMesh``) when given; across processes every rank
+    holds rank 0's bits.
+
+    ``rank_rows``, a list, receives the rows each rank holds after a
+    single-process all-reduce over every rank — where the join's bits
+    depend on its order (an LWW tie, a sibling order) rank i holds
+    ``join(own, partner)``, for the Telemetry's per-rank count. Across a
+    power-of-two mesh of processes that carries every local rank's row
+    through the process step."""
     size = _size(local)
     overflow = torch.zeros((), dtype=torch.bool, device=_leaf(local).device)
     if size & (size - 1) == 0 and size > 1:
@@ -175,13 +207,20 @@ def all_reduce_lattice(
         overflow = torch.as_tensor(overflow, device=_leaf(local).device).to(torch.bool)
     if flags is not None:
         overflow = overflow | flags
+    rows = local
     if procs is not None and procs.process_count > 1:
         from .multihost import all_reduce_processes
 
-        one, overflow = all_reduce_processes(tree_map(lambda x: x[:1], local), overflow,
-                                             join_fn, fold_fn, procs)
+        n = procs.process_count
+        doubling = rank_rows is not None and size & (size - 1) == 0 and n & (n - 1) == 0
+        one, overflow, rows = all_reduce_processes(
+            tree_map(lambda x: x[:1], local), overflow, join_fn, fold_fn, procs,
+            rows=local if doubling else None)
         local = tree_map(lambda x: bits(x).expand(size, *x.shape[1:]).contiguous().view(x.dtype),
                          one)
+        rows = local if rows is None else rows
+    if rank_rows is not None:
+        rank_rows.append(rows)
     return local, overflow
 
 
@@ -192,13 +231,13 @@ def all_reduce_clock(clock: torch.Tensor, procs=None) -> torch.Tensor:
     return bits(top).expand(clock.shape).contiguous().view(clock.dtype)
 
 
-def all_reduce_join(local: ops.OrswotState, procs=None,
-                    flags: Optional[torch.Tensor] = None) -> Tuple[ops.OrswotState, torch.Tensor]:
+def all_reduce_join(local: ops.OrswotState, procs=None, flags: Optional[torch.Tensor] = None,
+                    rank_rows: Optional[list] = None) -> Tuple[ops.OrswotState, torch.Tensor]:
     """All-reduce with the ORSWOT lattice join over the rank axis (and the
     processes of ``procs``): every rank's global join and the overflow
     flag (True if a deferred buffer overflowed anywhere, ``flags``
-    included)."""
-    return all_reduce_lattice(local, ops.join, ops.fold, procs, flags)
+    included); ``rank_rows`` as in :func:`all_reduce_lattice`."""
+    return all_reduce_lattice(local, ops.join, ops.fold, procs, flags, rank_rows)
 
 
 def ring_round(
@@ -227,5 +266,5 @@ def ring_round(
 
 __all__ = [
     "across_processes", "all_reduce_clock", "all_reduce_join", "all_reduce_lattice", "permuter",
-    "pmax", "ppermute", "preduce", "psum", "ring_round",
+    "pmax", "pmin", "ppermute", "preduce", "psum", "ring_round",
 ]

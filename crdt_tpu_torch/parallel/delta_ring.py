@@ -95,10 +95,14 @@ once before the loop. After the loop one all-gather sums the parked loss,
 the starved rows, the overflow flags and the slot counts and maxes the
 top over every process (``multihost.gather_processes``), so every
 process closes with the mesh top and reads the mesh-wide residue and
-``stats``. ``pipeline=``, ``digest=``, ``fused=``, ``ack_window=``,
-``donate=``, ``stats=``, ``rounds=`` and ``cap=`` run across processes;
-``telemetry=``, ``faults=`` and ``wal=`` raise ``NotImplementedError``
-(ROADMAP item 32).
+``stats``. With ``telemetry=True`` each process's per-rank round
+vectors, histograms and gauges are reduced after the closing in one
+more gather (``telemetry.reduce_processes``: the gauges read the closed
+rows), the float32 byte sums over the GLOBAL per-rank vector, so every
+process returns the single-process Telemetry. ``pipeline=``,
+``digest=``, ``fused=``, ``ack_window=``, ``donate=``, ``stats=``,
+``rounds=``, ``cap=`` and ``telemetry=`` run across processes;
+``faults=`` and ``wal=`` raise ``NotImplementedError`` (ROADMAP item 32).
 """
 
 from __future__ import annotations
@@ -215,25 +219,29 @@ class RingTelemetry:
         self.shipped = self.shipped + float(dig_bytes)
         self.useful = self.useful + float(dig_bytes)
 
-    def telemetry(self, folded, merges_per_rank: int, residue, fused: bool, awin=None):
+    def telemetry(self, folded, merges_per_rank: int, residue, fused: bool, awin=None,
+                  procs=None):
         """The mesh-wide Telemetry of the run (``folded``: the closed
-        ``[P, ...]`` rows)."""
-        tel = _tel_reduced(folded, tele.scalar("slots_changed", self.slots, self.slots.device),
-                           merges_per_rank, self.shipped, self.p, residue=residue,
-                           useful_per_rank=self.useful)
-        psum = lambda h: _hist.psum(h._replace(  # noqa: E731
-            counts=from_wide(h.counts, torch.uint32)))
-        tel = tel._replace(hist_residue=psum(self.hresid), hist_useful_bytes=psum(self.huseful))
+        ``[P, ...]`` rows): each float32 byte sum and histogram total
+        over the rank vector once, across the processes of ``procs``
+        over the global one (``telemetry.reduce_processes``)."""
+        dev = self.slots.device
+        hists = {"hist_residue": self.hresid, "hist_useful_bytes": self.huseful}
+        ranks, fields = {}, {}
         if fused:
-            tel = tel._replace(wire_packed_bytes=self.packed.sum(),
-                               hist_packed_bytes=psum(self.hpacked))
+            hists["hist_packed_bytes"] = self.hpacked
+            ranks["wire_packed_bytes"] = self.packed
         if awin is not None:
-            tel = tel._replace(
-                bytes_acked_skipped=self.skip.sum(),
-                ack_window_depth=tele.scalar("ack_window_depth",
-                                             _ackwin.window_depth(awin).max(), self.slots.device),
-                hist_ack_depth=psum(self.hack))
-        return tel
+            hists["hist_ack_depth"] = self.hack
+            ranks["bytes_acked_skipped"] = self.skip
+            fields["ack_window_depth"] = tele.scalar(
+                "ack_window_depth", _ackwin.window_depth(awin).max(), dev)
+        for f, h in hists.items():
+            fields[f] = _hist.psum(h._replace(counts=from_wide(h.counts, torch.uint32)))
+            ranks[f] = h.total
+        return _tel_reduced(folded, tele.scalar("slots_changed", self.slots, dev),
+                            merges_per_rank, self.shipped, self.p, residue=residue,
+                            useful_per_rank=self.useful, procs=procs, ranks=ranks, **fields)
 
 
 def run_delta_ring(
@@ -309,8 +317,7 @@ def run_delta_ring(
             f"run_delta_ring: fused=True needs a wire codec for {kind!r}; the registered "
             f"codecs are {sorted(_wire.WIRE_SURFACES)}"
         )
-    procs, mesh = _split_mesh(mesh, f"the {kind} ring", telemetry=telemetry, faults=faults,
-                              wal=wal)
+    procs, mesh = _split_mesh(mesh, f"the {kind} ring", faults=faults, wal=wal)
     cross = procs is not None and procs.process_count > 1
     # Tensors hold this process's P local ranks; the ring's length (the
     # certificate window, the default budget, the links) is the global
@@ -567,7 +574,7 @@ def run_delta_ring(
         # exchange; the counts ride it too, so every process reads the
         # mesh-wide stats and residue.
         names = ("shipped", "deferred", "skipped")
-        sums, (top_max,) = preduce(
+        sums, (top_max,), _, _ = preduce(
             (nlost, starved, of, *(counts[k].reshape(1) for k in names)), (own_top,), procs)
         nlost_tot, starved_tot, of_tot = sums[:3]
         counts.update(zip(names, sums[3:]))
@@ -610,7 +617,7 @@ def run_delta_ring(
         counters = flt.finish_counters(fc)
     if telemetry:
         tel = rt.telemetry(folded, max(rl - 1, 0) + rounds, residue, fused,
-                           awin if acked else None)
+                           awin if acked else None, procs=procs)
         if faulted:
             tel = tel._replace(faults_dropped=counters.packets_dropped,
                                faults_rejected=counters.packets_rejected,
@@ -795,14 +802,16 @@ def delta_gossip_elastic(
     often, and ``max_migrations`` fails on every process together. One
     gather at entry checks that every process's model has the same rows
     and capacities (``ValueError`` on every process otherwise).
-    ``reclaim=``, ``telemetry=``, ``faults=`` and ``wal=`` are refused
-    there (ROADMAP item 32)."""
+    ``telemetry=`` is the rings' mesh-wide Telemetry there; ``reclaim=``
+    compacts against the frontier of every process's rows
+    (``reclaim.mesh_frontier``) and its hysteresis decides on every
+    process's occupancy at once, so every process shrinks alike.
+    ``faults=`` and ``wal=`` are refused there (ROADMAP item 32)."""
     from .. import elastic
     from .anti_entropy import _same_models
     from .delta import mesh_delta_gossip
 
-    procs, _ = _split_mesh(mesh, "delta_gossip_elastic", telemetry=telemetry, reclaim=reclaim,
-                           faults=faults, wal=wal)
+    procs, _ = _split_mesh(mesh, "delta_gossip_elastic", faults=faults, wal=wal)
     if procs is not None:
         _same_models("delta_gossip_elastic", model, procs)
     if wal is not None and wal.tail is None:
@@ -829,12 +838,14 @@ def delta_gossip_elastic(
             model.state, dirty = snap, snap_dirty
         if not bool(torch.any(out[2])):
             if reclaim is not None:
-                from ..reclaim import compact_model
+                from ..reclaim import compact_model, mesh_frontier
                 from .anti_entropy import _commit_rows
 
                 _commit_rows(model, out[0])
-                compact_model(model)
-                reclaim.observe(model)
+                # Across processes the frontier of every process's rows:
+                # this process's alone would claim too much stable.
+                compact_model(model, mesh_frontier(model, procs))
+                reclaim.observe(model, procs=procs)
             if wal is not None:
                 # The committed attempt is the durable transition.
                 wal.append_state("orswot", out[0])

@@ -29,6 +29,17 @@ decomposed (``cohorts_per_dispatch``), each cohort's push bytes times its
 weight, the subscribers it fans out to (``delta_push_bytes``), and the
 per-cohort push-bytes histogram (``hist_push_bytes``), each summed per
 rank and then over the ranks.
+
+Across processes (``mesh`` a ``multihost.GlobalMesh``) each process holds
+its own tenant rows, base lanes and ``idx`` (its block of the global
+dispatch, process-major) and gathers, decomposes and packs its lanes in
+ONE K3 launch on its local ranks; its wire lanes and push bytes are its
+own. ``nnz`` and ``chk`` are then summed mod 2³² over every process on
+every call (the JAX ``lax.psum`` over a replica axis that spans them),
+in one small gather after the entry's shape check
+(``serve_apply.check_lanes``); with ``telemetry=True`` one more reduces
+the Telemetry (``telemetry.reduce_processes``). ``hist_dispatch_us``
+stays each process's own.
 """
 
 from __future__ import annotations
@@ -44,20 +55,10 @@ from ..obs import hist as obs_hist
 from ..ops import superblock as sb_ops
 from ..ops.fanout_kernels import CohortWire, cohort_deltas, cohort_push_bytes, cohort_wire_encode
 from ..ops.lattice import mask_slots, tree_leaves, tree_map
+from .anti_entropy import _split_mesh
+from .collectives import preduce
 from .mesh import VirtualMesh
-from .serve_apply import global_rows
-
-
-def _validate(state, bases, idx, p: int) -> None:
-    t = tree_leaves(state)[0].shape[0]
-    b = tree_leaves(bases)[0].shape[0]
-    if t % p:
-        raise ValueError(f"{t} tenant rows do not divide the {p}-way replica axis")
-    if b % p or idx.shape[0] != b:
-        raise ValueError(
-            f"base lanes ({b}) and idx ({idx.shape[0]}) must match and divide the "
-            f"{p}-way replica axis"
-        )
+from .serve_apply import check_lanes, global_rows
 
 
 def fanout_deltas(kind: str, state, bases, idx: torch.Tensor, p: int):
@@ -85,8 +86,11 @@ def by_rank(d: Decomposition, base_ctr: torch.Tensor, p: int):
                           residual=tree_map(split, d.residual)), split(base_ctr))
 
 
-def _sum32(x: torch.Tensor) -> torch.Tensor:
-    return from_wide(to_wide(x).sum() & 0xFFFFFFFF, torch.uint32)
+def _sum32(xs, procs=None) -> list:
+    """Each of ``xs`` (u32 per-rank partials) summed mod 2³² over its
+    ranks and the processes of ``procs``, in one exchange."""
+    sums = preduce([to_wide(x).reshape(-1) for x in xs], procs=procs)[0]
+    return [from_wide(x & 0xFFFFFFFF, torch.uint32) for x in sums]
 
 
 def mesh_fanout_push(
@@ -105,33 +109,38 @@ def mesh_fanout_push(
     tensors launch K3 once or raise. ``weights[B]`` (cohort sizes, 1 by
     default) price subscriber deliveries in the telemetry sidecar:
     ``telemetry=True`` returns ``(wire, push_bytes, Telemetry)``, after
-    waiting for the card (``hist_dispatch_us``)."""
+    waiting for the card (``hist_dispatch_us``). Takes a cross-process mesh
+    (module docstring)."""
     t0 = time.perf_counter()
     sb_ops.tenant_kind(kind)  # fail fast on a kind with no superblock adapter
+    procs, mesh = _split_mesh(mesh, "mesh_fanout_push")
     p = mesh.p
     idx = idx if isinstance(idx, torch.Tensor) else torch.as_tensor(idx)
-    _validate(state, bases, idx, p)
+    check_lanes("base", tree_leaves(state)[0].shape[0], tree_leaves(bases)[0].shape[0],
+                idx.shape[0], p, procs)
     idx = idx.to(device=tree_leaves(state)[0].device, dtype=torch.int32)
     d, base_ctr, lane_ok = fanout_deltas(kind, state, bases, idx, p)
     b = idx.shape[0]
     wire = cohort_wire_encode(*by_rank(d, base_ctr, p))
     flat = lambda x: x.reshape(b, *x.shape[2:])  # noqa: E731
+    nnz, chk = _sum32((wire.nnz, wire.chk), procs)
     wire = CohortWire(
         words=flat(wire.words), keep=flat(wire.keep), defer=flat(wire.defer),
         valid=flat(wire.valid), raw=flat(wire.raw), residual=tree_map(flat, wire.residual),
-        nnz=_sum32(wire.nnz), chk=_sum32(wire.chk),
+        nnz=nnz, chk=chk,
     )
     pb = torch.where(lane_ok, cohort_push_bytes(wire), 0.0)
     if not telemetry:
         return wire, pb
     wts = (torch.ones(b, dtype=torch.float32, device=pb.device) if weights is None
            else torch.as_tensor(weights, dtype=torch.float32).to(pb.device))
-    # Per rank, then over the ranks: the JAX body's sums and psum.
+    # Per rank, then over the ranks (and processes): the JAX body's sums
+    # and psum.
     h = obs_hist.observe_vec(obs_hist.zeros(pb.device), pb, lane_ok)
-    h = h._replace(total=torch.where(lane_ok, pb, 0.0).reshape(p, -1).sum(dim=-1).sum())
-    tel = tele.fill(tele.zeros(pb.device), cohorts_per_dispatch=lane_ok.sum(),
-                    delta_push_bytes=(pb * wts).reshape(p, -1).sum(dim=-1).sum())
-    tel = tel._replace(hist_push_bytes=h)
+    tel = tele.fill(tele.zeros(pb.device), cohorts_per_dispatch=lane_ok.sum())
+    tel = tele.reduce_processes(tel._replace(hist_push_bytes=h), procs, {
+        "delta_push_bytes": (pb * wts).reshape(p, -1).sum(dim=-1),
+        "hist_push_bytes": torch.where(lane_ok, pb, 0.0).reshape(p, -1).sum(dim=-1)})
     if pb.device.type == "cuda":
         torch.cuda.synchronize(pb.device)
     return wire, pb, tele.time_dispatch(tel, time.perf_counter() - t0)

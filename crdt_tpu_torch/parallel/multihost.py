@@ -14,8 +14,10 @@ ranks on its card) and the processes meet in a process group:
   global rank ``process · local ranks + local rank`` (process-major, the
   JAX ``global_mesh`` order). The entries of ``CROSS_PROCESS_ENTRIES``
   take it — every fold and gossip of ``anti_entropy``, the four δ
-  rings, the four replica streams, the four element-sharded folds and
-  both elastic loops: each process folds its rows on its card (K1, K2),
+  rings, the four replica streams, the four element-sharded folds, both
+  elastic loops and the two serving-tier dispatches,
+  ``mesh_serve_apply`` and ``mesh_fanout_push``: each process folds its
+  rows on its card (K1, K2),
   then the fold's lattice all-reduce (``collectives.all_reduce_lattice``)
   gains a process step — recursive doubling with partner ``process ^
   2^k`` over ``send``/``recv``, since gloo takes no user-defined reduce
@@ -28,13 +30,28 @@ ranks on its card) and the processes meet in a process group:
   status (staged, source ended, failed, refused); an element-sharded
   fold exchanges rank 0's ``[1, S, ...]`` row (element shards never
   straddle processes); an elastic loop re-enters cross-process entries,
-  whose flags are global, so every process widens alike. The exchange
-  runs over host memory; every join and every K3 pack stays on the
-  card. ``mesh_serve_apply`` and ``mesh_fanout_push`` handed a
-  ``GlobalMesh`` raise ``NotImplementedError`` (ROADMAP item 32), as do
-  ``telemetry=``, ``stability=``, ``faults=``, ``lag_threshold=``,
-  ``wal=`` and the elastic loops' ``reclaim=`` on a cross-process
-  entry;
+  whose flags are global, so every process widens alike; a serving
+  dispatch applies (or gathers, decomposes and packs, one K3 launch)
+  its own lanes, and only its checks, the fan-out wire's ``nnz`` and
+  ``chk`` and the sidecar cross. ``telemetry=`` is mesh-wide on every
+  entry that takes it (``telemetry.reduce_processes``: one gather of
+  each process's partial sums, gauges and per-rank float32 byte
+  vectors, summed over the GLOBAL rank vector in the single-process
+  order); the gossip rings' ``stability=`` takes the minimum of every
+  process's tops (``collectives.pmin``) and ``lag_threshold=`` their
+  maximum lag; the elastic loops' ``reclaim=`` compacts against every
+  process's frontier (``reclaim.mesh_frontier``) and decides the shrink
+  on every process's occupancy (``elastic.agreed_utilization``). The
+  exchange runs over host memory; every join and every K3 pack stays on
+  the card. Still refused with ``NotImplementedError`` naming ROADMAP
+  item 32: ``faults=`` (its fates sit on the links between processes)
+  and ``wal=`` (the JAX ``Wal.append_state`` copies every leaf to the
+  host with ``np.asarray``, which a global array spanning processes
+  refuses: the reference cannot log across processes either) on every
+  cross-process entry, and a ``serve.Superblock`` or
+  ``fanout.FanoutPlane`` built on a ``GlobalMesh`` (the JAX package
+  serves each host's shard on a local mesh and syncs the shards with
+  ``sync_tenant_shards``, ported);
 - ``agree`` / ``require_same`` — a few integers of every process in ONE
   small all-gather: the entries' checks at entry (caps, rows, shard
   counts and ``init=`` shapes that differ across processes raise
@@ -81,7 +98,7 @@ CROSS_PROCESS_ENTRIES = (
     "mesh_stream_fold", "mesh_stream_fold_sparse_mvmap", "mesh_stream_fold_sparse_sharded",
     "mesh_fold_sparse_sharded", "mesh_fold_sparse_mvmap_sharded",
     "mesh_fold_sparse_nested_sharded", "mesh_fold_sparse_map", "gossip_elastic",
-    "delta_gossip_elastic",
+    "delta_gossip_elastic", "mesh_serve_apply", "mesh_fanout_push",
 )
 
 #: The integers a process may put on the table of one :func:`agree`.
@@ -134,8 +151,8 @@ def refuse(entry: Optional[str] = None):
     """The refusal of an entry that does not run across processes."""
     raise NotImplementedError(
         f"{entry + ': ' if entry else ''}a cross-process mesh (multihost.global_mesh) runs "
-        f"the entries of multihost.CROSS_PROCESS_ENTRIES only; the other mesh entries across "
-        f"processes are ROADMAP item 32")
+        f"the entries of multihost.CROSS_PROCESS_ENTRIES only; the other mesh entries (a "
+        f"Superblock or FanoutPlane on it) across processes are ROADMAP item 32")
 
 
 def _cross_process(*_):
@@ -381,7 +398,8 @@ def _sendrecv(payload: torch.Tensor, dst: int, src: int) -> torch.Tensor:
     return got
 
 
-def all_reduce_processes(state, flags: torch.Tensor, join_fn, fold_fn, mesh: GlobalMesh):
+def all_reduce_processes(state, flags: torch.Tensor, join_fn, fold_fn, mesh: GlobalMesh,
+                         rows=None):
     """The lattice all-reduce over the processes of ``mesh``: ``state`` is
     this process's joined row (leaves ``[1, ...]`` on its card), ``flags``
     its OR-reduced overflow flags. A power-of-two process count runs
@@ -391,20 +409,27 @@ def all_reduce_processes(state, flags: torch.Tensor, join_fn, fold_fn, mesh: Glo
     in rank 0's order and holds rank 0's bits, where a join's
     representation depends on its order (an LWW tie, a sibling or parked
     slot order); any other count all-gathers the states and folds them in
-    process order with ``fold_fn``. Returns every process's global join
-    (``[1, ...]``) and the flags OR-reduced over the processes."""
+    process order with ``fold_fn``. ``rows`` (every local rank's row,
+    power-of-two counts only) rides the same swaps, each rank joining its
+    own row first with the partner process's row of the same rank: the
+    rows a single-process recursive doubling over every rank leaves.
+    Returns every process's global join (``[1, ...]``), the flags
+    OR-reduced over the processes and the rows (None without)."""
     n, me = mesh.process_count, mesh.process_index
     if n & (n - 1) == 0:
         k = 1
         while k < n:
-            _settle(state)
+            payload = (state, flags) if rows is None else (state, flags, rows)
+            _settle(payload)
             with metrics.time("multihost.exchange"):
-                theirs, their_flags = _from_bytes(
-                    _sendrecv(_to_bytes((state, flags)), me ^ k, me ^ k), (state, flags))
+                got = _from_bytes(_sendrecv(_to_bytes(payload), me ^ k, me ^ k), payload)
+            theirs, their_flags = got[:2]
             state, of = join_fn(*((state, theirs) if me < me ^ k else (theirs, state)))
+            if rows is not None:
+                rows, _ = join_fn(rows, got[2])
             flags = flags | their_flags | torch.any(of, dim=0)
             k *= 2
-        return state, flags
+        return state, flags, rows
     _settle(state)
     with metrics.time("multihost.exchange"):
         rows = [_from_bytes(torch.from_numpy(b[0]), (state, flags))
@@ -415,7 +440,7 @@ def all_reduce_processes(state, flags: torch.Tensor, join_fn, fold_fn, mesh: Glo
     for _, f in rows:
         flags = flags | f
     flags = flags | torch.as_tensor(of, device=flags.device).to(torch.bool)
-    return tree_map(lambda x: x[None], folded), flags
+    return tree_map(lambda x: x[None], folded), flags, None
 
 
 def ring_hop(last, mesh: GlobalMesh):

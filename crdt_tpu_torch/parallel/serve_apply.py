@@ -23,6 +23,18 @@ caller's state untouched. Nothing in a call waits for the host.
 changed, the slab as the serving tier's wire (``bytes_exchanged``), its
 non-NOOP slots at one slot's price (``bytes_useful``), the touched rows'
 parked depth and pressure.
+
+Across processes (``mesh`` a ``multihost.GlobalMesh``) each process holds
+its own tenant rows, slab lanes and ``idx`` — its block of the global
+superblock and slab, process-major as every cross-process entry — and
+applies them on its local ranks. Tenants are independent, so nothing
+crosses processes but the checks and the sidecar: one small gather at
+entry (``multihost.require_same``) holds every process's rows and lanes
+alike, or raises ``ValueError`` on every process; with
+``telemetry=True`` one more reduces the Telemetry over every process
+(``telemetry.reduce_processes``: the JAX ``psum``/``pmax`` of a mesh
+that spans them), so ``sync=False`` waits for the card there.
+``hist_dispatch_us`` stays each process's own.
 """
 
 from __future__ import annotations
@@ -33,19 +45,27 @@ import torch
 
 from .. import telemetry as tele
 from ..ops import superblock as sb_ops
+from . import multihost
+from .anti_entropy import _split_mesh
 from .mesh import VirtualMesh
 
 
-def _validate(state, slab: sb_ops.OpSlab, idx, p: int) -> None:
-    t = state[0].shape[0]
-    b = slab.kind.shape[0]
+def check_lanes(entry: str, t: int, b: int, n_idx: int, p: int, procs=None) -> None:
+    """A dispatch's shape check: ``t`` tenant rows and ``b`` lanes (``n_idx``
+    indices) on ``p`` ranks; across the processes of ``procs`` every
+    process's shapes must agree too, and every process raises alike
+    (``multihost.require_same``)."""
+    error = None
     if t % p:
-        raise ValueError(f"{t} tenant rows do not divide the {p}-way replica axis")
-    if b % p or idx.shape[0] != b:
-        raise ValueError(
-            f"slab lanes ({b}) and idx ({idx.shape[0]}) must match and "
-            f"divide the {p}-way replica axis"
-        )
+        error = ValueError(f"{t} tenant rows do not divide the {p}-way replica axis")
+    elif b % p or n_idx != b:
+        error = ValueError(f"{entry} lanes ({b}) and idx ({n_idx}) must match and divide the "
+                           f"{p}-way replica axis")
+    if procs is not None:
+        multihost.require_same(f"{entry}: the tenant rows and lanes", (t, b, n_idx), procs,
+                               error)
+    elif error is not None:
+        raise error
 
 
 def global_rows(idx: torch.Tensor, lanes: int, b: int, p: int) -> torch.Tensor:
@@ -77,12 +97,14 @@ def mesh_serve_apply(
     with ``sync=True`` the call then waits for the card and folds its
     wall-clock into ``hist_dispatch_us``, with ``sync=False`` (the
     pipelined serving loop's issue half) it returns at once and the
-    caller times the dispatch."""
+    caller times the dispatch. Takes a cross-process mesh (module
+    docstring)."""
     t0 = time.perf_counter()
     tk = sb_ops.tenant_kind(kind)
+    procs, mesh = _split_mesh(mesh, "mesh_serve_apply")
     p = mesh.p
     idx = idx if isinstance(idx, torch.Tensor) else torch.as_tensor(idx)
-    _validate(state, slab, idx, p)
+    check_lanes("slab", state[0].shape[0], slab.kind.shape[0], idx.shape[0], p, procs)
     idx = idx.to(device=state[0].device)
     b, lanes = slab.kind.shape[0], state[0].shape[0]
     rows = sb_ops.gather_rows(state, global_rows(idx, lanes, b, p))
@@ -94,7 +116,7 @@ def mesh_serve_apply(
     sb_ops.write_rows_(out, tgt, new_rows)
     if not telemetry:
         return out, of & valid
-    tel = _dispatch_tel(tk, slab, rows, new_rows, p)
+    tel = _dispatch_tel(tk, slab, rows, new_rows, p, procs)
     if sync:
         if state[0].device.type == "cuda":
             torch.cuda.synchronize(state[0].device)
@@ -102,20 +124,23 @@ def mesh_serve_apply(
     return out, of & valid, tel
 
 
-def _dispatch_tel(tk, slab: sb_ops.OpSlab, rows, new_rows, p: int) -> tele.Telemetry:
+def _dispatch_tel(tk, slab: sb_ops.OpSlab, rows, new_rows, p: int,
+                  procs=None) -> tele.Telemetry:
     """The JAX dispatch's Telemetry: changed lanes, the slab's bytes (each
     rank receives its shard), its non-NOOP slots priced at one slot's
-    bytes, the touched rows' depth and pressure."""
+    bytes, the touched rows' depth and pressure; reduced over the
+    processes of ``procs`` too."""
     b, s = slab.kind.shape
     slot_bytes = tele.shipped_bytes(slab) // max(b * s, 1)
     per_rank = torch.full((p,), float(tele.shipped_bytes(slab) // p), dtype=torch.float32,
                           device=slab.kind.device)
     n_ops = (slab.kind != sb_ops.NOOP).reshape(p, -1).sum(dim=-1, dtype=torch.float32)
-    return tele.fill(
+    tel = tele.fill(
         tele.zeros(slab.kind.device), slots_changed=tk.changed(rows, new_rows),
-        bytes_exchanged=per_rank.sum(), bytes_useful=(n_ops * slot_bytes).sum(),
         deferred_depth=tele.device_depth(new_rows), widen_pressure=tele.device_pressure(new_rows),
     )
+    return tele.reduce_processes(tel, procs, {"bytes_exchanged": per_rank,
+                                              "bytes_useful": n_ops * slot_bytes})
 
 
-__all__ = ["global_rows", "mesh_serve_apply"]
+__all__ = ["check_lanes", "global_rows", "mesh_serve_apply"]

@@ -126,9 +126,14 @@ global and ``widen_policy=`` widens the same axes on every process.
 ``frontier=`` must be stable over the whole population (the caller's
 promise, as in the JAX package). The process step synchronises the card
 before its exchange, so less of a step overlaps the next block's upload:
-``stream.overlap_hit`` counts what each process saw. ``telemetry=``,
-``faults=`` and ``wal=`` raise ``NotImplementedError`` there (ROADMAP
-item 32).
+``stream.overlap_hit`` counts what each process saw. ``telemetry=True``
+counts the global mesh (its ranks, every process's share of a global
+block): every field but ``stream_staged_bytes`` reads the replicated
+accumulator and host counts every process shares, so only that one
+rides a gather, once at the end; the partial Telemetry of a
+``StreamInterrupted`` needs none and is the same on every process;
+``stream_overlap_hit`` stays each process's own. ``faults=`` and
+``wal=`` raise ``NotImplementedError`` there (ROADMAP item 32).
 
 The stream feeds the ``stream.<kind>.deferred_depth`` gauge (of the first
 block) and the ``stream.<kind>`` timer around the block loop, and counts
@@ -400,9 +405,13 @@ def _stream_fold(
     block, the double-buffered step loop and the interrupt protocol, on
     one process or across the processes of a cross-process mesh (see the
     module docstring)."""
-    procs, mesh = _split_mesh(mesh, entry, telemetry=telemetry, faults=faults, wal=wal)
+    procs, mesh = _split_mesh(mesh, entry, faults=faults, wal=wal)
     me = 0 if procs is None else procs.process_index
     device, p = mesh.device, mesh.p
+    # The Telemetry counts the global mesh: its ranks and a global block's
+    # rows (every process's share of it).
+    n_procs = 1 if procs is None else procs.process_count
+    p_all = p * n_procs
     faulted = faults is not None
     dropped_blocks: list = []
     rejected_blocks: list = []
@@ -588,7 +597,7 @@ def _stream_fold(
     status, staged, error = put((status, first, error))
 
     overflow = None
-    blocks_done = staged_bytes = overlap_hits = 0
+    blocks_done = staged_bytes = stepped_bytes = overlap_hits = 0
     slots = 0
     wire = np.float32(0)
     if wal is not None:
@@ -602,7 +611,7 @@ def _stream_fold(
         # identity block while another still has blocks.
         codes = [t[0] for t in multihost.agree((status,), procs)]
         halt(codes, error, acc, blocks_done,
-             lambda: (_stream_tel(acc, slots, blocks_done, template_rows, p, wire)
+             lambda: (_stream_tel(acc, slots, blocks_done, template_rows * n_procs, p_all, wire)
                       if telemetry else None))
         if all(c == _ENDED for c in codes):
             break
@@ -611,6 +620,8 @@ def _stream_fold(
             staged_bytes += _nbytes(block)
         else:
             block = plan.empty(caps, (template_rows, *shard_batch), device)
+        # This process's share of the global block, identity rows included.
+        stepped_bytes += _nbytes(block)
         new, of, code = step(acc, block, blocks_done)
         attempts = 0
         while widen_policy is not None:
@@ -646,7 +657,8 @@ def _stream_fold(
                 rejected_blocks.append(blocks_done)
         if telemetry:
             slots = slots + to_wide(plan.slots_fn(acc, new))
-            wire = np.float32(wire + _step_wire(new, p, shards=mesh.s if plan.sharded else 0))
+            wire = np.float32(wire + _step_wire(new, p_all,
+                                                shards=mesh.s if plan.sharded else 0))
         acc = new
         overflow = of if overflow is None else overflow | of
         blocks_done += 1
@@ -701,8 +713,11 @@ def _stream_fold(
                           rejected=len(rejected_blocks))
     if not telemetry:
         return (acc, overflow, report) if faulted else (acc, overflow)
-    tel = tele.fill(_stream_tel(acc, slots, blocks_done, template_rows, p, wire),
-                    stream_blocks=blocks_done, stream_staged_bytes=staged_bytes,
+    if n_procs > 1:
+        # The global blocks' bytes: every process's share, in one gather.
+        stepped_bytes = sum(t[0] for t in multihost.agree((stepped_bytes,), procs))
+    tel = tele.fill(_stream_tel(acc, slots, blocks_done, template_rows * n_procs, p_all, wire),
+                    stream_blocks=blocks_done, stream_staged_bytes=stepped_bytes,
                     stream_overlap_hit=overlap_hits)
     if compact_every:
         tel = tel._replace(reclaimed_slots=reclaimed[0], reclaimed_bytes=reclaimed[1])

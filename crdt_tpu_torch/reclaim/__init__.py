@@ -21,6 +21,7 @@ from .compaction import compact_model, compact_state, record_reclaim
 from .frontier import (
     frontier_lag,
     host_frontier,
+    mesh_frontier,
     model_frontier,
     reset_stall_warnings,
     stable_frontier,
@@ -41,7 +42,7 @@ def __getattr__(name):
 
 __all__ = [
     "Hysteresis", "compact_model", "compact_state", "frontier_lag",
-    "host_frontier", "model_frontier", "record_reclaim",
+    "host_frontier", "mesh_frontier", "model_frontier", "record_reclaim",
     "reset_stall_warnings", "shrink", "stable_frontier", "top_of",
     "watch_lag",
 ]

@@ -24,7 +24,9 @@ Three ways to compute it:
   one ``amin`` over every rank's PRE-fold input tops (the JAX
   ``jnp.min`` then ``lax.pmin``), returned as the last output;
 - :func:`host_frontier` — numpy over an explicit collection of tops, for
-  the oracle paths; :func:`model_frontier` over one model's own rows.
+  the oracle paths; :func:`model_frontier` over one model's own rows;
+  :func:`mesh_frontier` over every process's rows of one model (one
+  gather of the tops, then :func:`host_frontier`).
 
 Clock planes are unsigned; the comparisons run on the ``_dtypes`` wide
 view, never on a ``uint32`` tensor.
@@ -114,6 +116,23 @@ def model_frontier(model) -> Optional[np.ndarray]:
     return _host(top).reshape(-1, top.shape[-1]).min(axis=0)
 
 
+def mesh_frontier(model, procs=None) -> Optional[np.ndarray]:
+    """The frontier of a model whose rows are spread over the processes
+    of ``procs`` (a ``multihost.GlobalMesh``; this process's ``model``
+    holds its rows): :func:`host_frontier` over every process's tops,
+    gathered once (``multihost._allgather_host``) — this process's rows
+    alone would claim stability for a dot another process's straggler
+    has not seen. Without processes to cross, :func:`model_frontier`."""
+    if procs is None or procs.process_count == 1:
+        return model_frontier(model)
+    from ..parallel.multihost import _allgather_host
+
+    top = top_of(model.state)
+    if top is None:
+        return None
+    return host_frontier(_allgather_host(_host(top).reshape(-1, top.shape[-1])))
+
+
 def frontier_lag(top, frontier) -> torch.Tensor:
     """How far knowledge has run ahead of stability: the max over replicas
     and actor lanes of ``top - frontier`` (0 = a fully stable mesh), as a
@@ -166,6 +185,6 @@ def watch_lag(kind: str, lag: int, lag_threshold) -> None:
 
 
 __all__ = [
-    "frontier_lag", "host_frontier", "model_frontier",
+    "frontier_lag", "host_frontier", "mesh_frontier", "model_frontier",
     "reset_stall_warnings", "stable_frontier", "top_of", "watch_lag",
 ]

@@ -16,7 +16,10 @@ counters accumulate per virtual rank in float32, round by round, and sum
 over the ranks once at the end, the order the JAX ring's ``psum`` of its
 per-device carries gives. The port's meshes have no element axis (its
 multiplicity is 1), so the JAX package's sums over
-``(REPLICA_AXIS, ELEMENT_AXIS)`` are sums over the P ranks here.
+``(REPLICA_AXIS, ELEMENT_AXIS)`` are sums over the P ranks here. Across
+processes (a ``multihost.GlobalMesh``) :func:`reduce_processes` makes
+each process's sidecar the mesh-wide one in one gather, the float32 byte
+sums taken over the global per-rank vector.
 
 The fields, their meaning and which entry fills them are the JAX
 module's (its docstring lists them all): ``merges``, ``slots_changed``,
@@ -228,6 +231,65 @@ def copy(tel: Telemetry) -> Telemetry:
     totals = torch.stack([getattr(tel, f).total for f in HIST_FIELDS]).unbind()
     out.update((f, Hist(c, t)) for f, c, t in zip(HIST_FIELDS, counts, totals))
     return Telemetry(**out)
+
+
+#: The fields a process times or counts on its own host clock (dispatch
+#: and lag histograms, a stream's overlapped uploads): across processes
+#: each keeps its own (:func:`reduce_processes`).
+HOST_TIMED = frozenset({
+    "hist_dispatch_us", "hist_persist_us", "hist_queue_wait_us", "hist_dispatch_gap_us",
+    "hist_durable_lag_us", "hist_push_lag_us", "hist_ack_lag_us", "hist_freshness_us",
+    "stream_overlap_hit",
+})
+
+
+def reduce_processes(tel: Telemetry, procs=None, ranks: Optional[Dict[str, torch.Tensor]] = None
+                     ) -> Telemetry:
+    """``tel`` — this process's Telemetry, its counters summed and its
+    gauges maxed over its own ranks — reduced over the processes of
+    ``procs`` (a ``multihost.GlobalMesh``) field by field, as the JAX
+    entries' ``psum``/``pmax`` over a mesh that spans every process: the
+    u32 counters and the histograms' counts add (wrapping mod 2³², as
+    :func:`combine` does), the gauges max. The float32 sums named in
+    ``ranks`` — ``{field: per-rank values, the rank axis last}``; for a
+    ``hist_*`` field, its per-rank totals — are gathered whole,
+    concatenated along the rank axis in process order and summed in ONE
+    ``.sum()``: the single-process sum's order, bit for bit (a partial
+    sum a process would add changes the last bit once the bytes pass
+    2²⁴). Any other float32 counter adds the processes' partials.
+    ``HOST_TIMED`` fields stay this process's own. One exchange
+    (``collectives.preduce``). Without processes to cross, each
+    ``ranks`` field is its vector's sum and the rest is ``tel``."""
+    from .parallel.collectives import preduce
+
+    ranks = dict(ranks or {})
+    hists = [f for f in HIST_FIELDS if f not in HOST_TIMED]
+    if procs is None or procs.process_count == 1:
+        cats = list(ranks.values())
+    else:
+        u32 = [f for f in _U32_COUNTERS if f not in HOST_TIMED]
+        f32 = [f for f in _F32_COUNTERS if f not in ranks]
+        # Sorted: a set's order differs between processes.
+        g_int = sorted(GAUGE_FIELDS - {"widen_pressure"})
+        wide = lambda names: torch.stack([to_wide(getattr(tel, f)) for f in names])  # noqa: E731
+        (su, sf, sc, st), (mi, mf), _, cats = preduce(
+            sums=(wide(u32)[None], torch.stack([getattr(tel, f) for f in f32])[None],
+                  to_wide(torch.stack([getattr(tel, f).counts for f in hists]))[None],
+                  torch.stack([getattr(tel, f).total for f in hists])[None]),
+            maxes=(wide(g_int)[None], tel.widen_pressure.reshape(1, 1)),
+            procs=procs, cats=list(ranks.values()))
+        out = dict(zip(u32, from_wide(su & 0xFFFFFFFF, torch.uint32).unbind()))
+        out.update(zip(f32, sf.unbind()))
+        out.update((f, from_wide(v, field_dtype(f))) for f, v in zip(g_int, mi.unbind()))
+        out["widen_pressure"] = mf[0]
+        counts = from_wide(sc, torch.uint32)
+        out.update((f, Hist(c, t)) for f, c, t in zip(hists, counts.unbind(), st.unbind()))
+        tel = tel._replace(**out)
+    summed = {}
+    for f, x in zip(ranks, cats):
+        total = x.reshape(-1).sum()
+        summed[f] = getattr(tel, f)._replace(total=total) if f in HIST_FIELDS else total
+    return tel._replace(**summed)
 
 
 # ---- on-device reducers ---------------------------------------------------
@@ -552,7 +614,7 @@ def reset_residue_warnings() -> None:
 __all__ = [
     "GAUGE_FIELDS", "HIST_FIELDS", "Telemetry", "combine", "configure_tracing",
     "copy", "counter_increments", "device_depth", "device_pressure", "drain_events", "field_dtype",
-    "fill", "finish_dispatch", "generic_slots_changed", "is_concrete", "packet_useful_bytes", "record",
-    "reset_residue_warnings", "scalar",
+    "fill", "finish_dispatch", "generic_slots_changed", "HOST_TIMED", "is_concrete",
+    "packet_useful_bytes", "record", "reduce_processes", "reset_residue_warnings", "scalar",
     "shipped_bytes", "span", "time_dispatch", "to_dict", "zeros",
 ]

@@ -593,44 +593,41 @@ def test_sync_tenant_shards_joins_handoff_rows():
 
 
 def test_a_cross_process_mesh_is_refused_where_it_is_not_ported():
-    """The entries that do not run across processes — ``mesh_serve_apply``,
-    ``mesh_fanout_push`` — refuse a GlobalMesh naming ROADMAP item 32, as
-    do the options of the ported entries that the process step does not
-    carry (a stream's ``telemetry=``, ``faults=`` and ``wal=``, the
-    elastic loops' ``reclaim=`` and ``stability=``, the rings'
-    ``telemetry=``, ``faults=``, ``wal=``, ``stability=`` and
-    ``lag_threshold=``); element shards may not straddle processes."""
+    """The options the process step does not carry — ``faults=`` and
+    ``wal=`` on the streams, the rings, the gossip entries and the
+    elastic loops — refuse a GlobalMesh naming ROADMAP item 32, as does a
+    ``Superblock`` built on one; element shards may not straddle
+    processes."""
     import torch
 
-    from crdt_tpu_torch.elastic import Hysteresis
+    from crdt_tpu_torch import serve
     from crdt_tpu_torch.faults import FaultPlan
     from crdt_tpu_torch.ops import orswot
     from crdt_tpu_torch.parallel import (
-        delta_gossip_elastic, gossip_elastic, mesh_delta_gossip, mesh_fanout_push, mesh_fold,
-        mesh_gossip, mesh_gossip_map, mesh_serve_apply, mesh_stream_fold, multihost,
+        delta_gossip_elastic, gossip_elastic, mesh_delta_gossip, mesh_gossip, mesh_gossip_map,
+        mesh_stream_fold, multihost,
     )
 
     assert multihost.process_count() == 1 and multihost.process_index() == 0
     mesh = multihost.global_mesh(local_ranks=2, device="cpu")
     state = orswot.empty(4, 2, deferred_cap=1, batch=(4,), device="cpu")
     dirty = torch.zeros((4, 4), dtype=torch.bool)
-    for call in (lambda: mesh_stream_fold(iter([state]), mesh, telemetry=True),
-                 lambda: mesh_stream_fold(iter([state]), mesh, faults=FaultPlan(seed=1)),
+    for call in (lambda: mesh_stream_fold(iter([state]), mesh, faults=FaultPlan(seed=1)),
                  lambda: mesh_stream_fold(iter([state]), mesh, wal=object()),
-                 lambda: gossip_elastic(None, mesh, reclaim=Hysteresis()),
-                 lambda: gossip_elastic(None, mesh, stability=True),
-                 lambda: delta_gossip_elastic(None, dirty, state.ctr, mesh, reclaim=Hysteresis()),
-                 lambda: mesh_serve_apply(None, None, None, mesh),
-                 lambda: mesh_fanout_push(None, None, None, mesh),
+                 lambda: gossip_elastic(None, mesh, faults=FaultPlan(seed=1)),
+                 lambda: delta_gossip_elastic(None, dirty, state.ctr, mesh, wal=object()),
+                 lambda: delta_gossip_elastic(None, dirty, state.ctr, mesh,
+                                              faults=FaultPlan(seed=1)),
                  lambda: mesh_delta_gossip(state, dirty, state.ctr, mesh, faults=FaultPlan(seed=1)),
-                 lambda: mesh_delta_gossip(state, dirty, state.ctr, mesh, telemetry=True),
                  lambda: mesh_delta_gossip(state, dirty, state.ctr, mesh, wal=object()),
-                 lambda: mesh_fold(state, mesh, telemetry=True),
                  lambda: mesh_gossip(state, mesh, faults=FaultPlan(seed=1)),
-                 lambda: mesh_gossip(state, mesh, stability=True),
-                 lambda: mesh_gossip_map(state, mesh, lag_threshold=1)):
+                 lambda: mesh_gossip_map(state, mesh, faults=FaultPlan(seed=1)),
+                 lambda: serve.Superblock(8, mesh, kind="orswot",
+                                          caps=dict(n_elems=8, n_actors=2, deferred_cap=2))):
         with pytest.raises(NotImplementedError, match="item 32"):
             call()
+    with pytest.raises(NotImplementedError, match="cannot copy an array that spans"):
+        mesh_delta_gossip(state, dirty, state.ctr, mesh, wal=object())
     with pytest.raises(ValueError, match="straddle"):
         multihost.global_mesh(n_element_shards=3, local_ranks=4, device="cpu")
 

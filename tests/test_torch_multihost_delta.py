@@ -514,8 +514,10 @@ def test_rows_that_do_not_line_up_across_processes_are_refused(run):
 def test_the_cross_process_entries_are_the_ones_run_here():
     """``multihost.CROSS_PROCESS_ENTRIES`` names exactly the entries that
     run across processes: this file's rings and other kinds, the four of
-    ``tests/test_torch_multihost.py``, and the streams, element-sharded
-    folds and elastic loops of ``tests/test_torch_multihost_stream.py``."""
+    ``tests/test_torch_multihost.py``, the streams, element-sharded
+    folds and elastic loops of ``tests/test_torch_multihost_stream.py``,
+    and the serving dispatches of ``tests/test_torch_multihost_options.py``."""
+    import test_torch_multihost_options as tmo
     import test_torch_multihost_stream as tms
 
     from crdt_tpu_torch import parallel
@@ -524,7 +526,7 @@ def test_the_cross_process_entries_are_the_ones_run_here():
     ported = ({name.split()[0] for name in OTHER_CASES} | set(RINGS.values())
               | {"mesh_fold", "mesh_gossip", "mesh_fold_map", "mesh_fold_sparse_mvmap"}
               | set(tms.STREAMS.values()) | set(tms.SHARDED_FOLDS)
-              | {"gossip_elastic", "delta_gossip_elastic"})
+              | {"gossip_elastic", "delta_gossip_elastic"} | set(tmo.DISPATCHES))
     assert set(multihost.CROSS_PROCESS_ENTRIES) == ported
     assert len(multihost.CROSS_PROCESS_ENTRIES) == len(ported)
     assert all(callable(getattr(parallel, name)) for name in ported)
