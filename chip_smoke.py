@@ -502,6 +502,25 @@ at first use), then runs, printing one JSON line per phase:
                         host-timed ones, frontiers, capacities and shrinks
                         == the single-process entries'; dispatch p50/p99,
                         push walls and each sidecar's wall on against off.
+                        Then (ROADMAP 32, fourth part, key ``faults``)
+                        under ``faults=``: the dense δ ring under bench's
+                        chaos plan (``seed=17, corrupt=0.6, drop=0.2,
+                        evicted=(5,)``) fused and layered and a fused probe
+                        under an edge plan (ranks 3 and 4 evicted, delay,
+                        no corruption: 0 rejects), the Map δ ring, the
+                        dense and Map ``mesh_gossip*(stability=True)``, the
+                        flagship stream over 10 of its 40 blocks under
+                        ``drop=0.05, corrupt=0.05`` and the re-stream of its
+                        lost blocks (== the unfaulted stream), both dense
+                        elastic loops: rows, dirty rows, flags, residue,
+                        counters (the global streak), frontiers and the
+                        stream's report == the single-process entry on P =
+                        8 under the same plan; K3 once a fused round on
+                        each process (41 dense, 27 Map), K1/K2 in the local
+                        folds, each launch held against its plain version;
+                        the faulted walls against the single-process and
+                        the unfaulted cross-process walls, exchange ms and
+                        bytes a round.
 
 Then the ``nvidia-smi`` name/power-limit line, a ``kernels`` JSON line, and
 as the last line ``{"ok": true, "device": {...}}``. Any failed check raises
@@ -4848,16 +4867,17 @@ def phase_serve(device, seed: int, cfg=None) -> dict:
     return out
 
 
-# The zipf leg's depth in the full run: 6 of its committed 24 cycles (the
-# per-cycle shape, tenants, lanes, slabs, skew and rebalance unchanged; two
-# cycles before, during and after the hot shard). At 24 cycles the leg
+# The zipf leg's depth in the full run: 4 of its committed 24 cycles (the
+# per-cycle shape, tenants, lanes, slabs, skew and rebalance unchanged; one
+# cycle before and during the hot shard, two after). At 24 cycles the leg
 # took 739-824 s on an H100 machine whose /tmp is a 9p mount — 17,344
 # per-tenant snapshot persists a run as the working set pages through the
 # lane pool — more than the script's time limit allows beside the other
 # phases; at 9 it took 49-84 s, and the whole script up to 1,149 s of its
 # 1,200 on a slow host; at 7, with the multihost phase's serving and
-# sidecar legs, 1,139 s on another.
-ZIPF_CYCLES = 6
+# sidecar legs, 1,139 s on another; at 6, with the multihost phase's
+# faulted legs, 1,131 s on a third.
+ZIPF_CYCLES = 4
 
 
 def serve_traced_window(sb, ev, q, submit_cycle, touch_one, cfg, device, root, first_cycle: int,
@@ -11191,6 +11211,7 @@ def mh_stream_legs(seed: int, device, mesh, smesh, r: int, e: int, a: int, d: in
     import torch
     import torch.distributed as dist
 
+    from crdt_tpu_torch.faults import FaultPlan
     from crdt_tpu_torch.models import BatchedMap, BatchedOrswot
     from crdt_tpu_torch.ops import fold_kernels as fk
     from crdt_tpu_torch.ops.lattice import tree_map
@@ -11236,12 +11257,28 @@ def mh_stream_legs(seed: int, device, mesh, smesh, r: int, e: int, a: int, d: in
     del acc
     # The sidecar over the sharded leg's first blocks (ROADMAP 32, third
     # part), off and on.
-    (_, off_ms), (res, on_ms) = (mh_timed(lambda: parallel.mesh_stream_fold_sparse(
+    (clean, off_ms), (res, on_ms) = (mh_timed(lambda: parallel.mesh_stream_fold_sparse(
         flagship_blocks(MH_SHARDED_BLOCKS), mesh, telemetry=on), device, cross)
         for on in (False, True))
     out["flagship"]["telemetry"] = {"telemetry": mh_tel(res[2]), "blocks": MH_SHARDED_BLOCKS,
                                     "wall_ms_off": off_ms, "wall_ms_on": on_ms}
     del res
+    # The same blocks over a faulted upload wire, then the re-stream of
+    # the lost ones from the faulted accumulator: the unfaulted stream's
+    # state (ROADMAP 32, fourth part).
+    faults = {}
+    (acc, of, report), ms = mh_timed(lambda: parallel.mesh_stream_fold_sparse(
+        flagship_blocks(MH_SHARDED_BLOCKS), mesh, faults=FaultPlan(**MH_STREAM_FAULTS)),
+        device, cross)
+    lost = iter(report.lost_blocks)
+    healed, _ = parallel.mesh_stream_fold_sparse(
+        (gen(mh_half(b, block_rows, pid, n, device)) for b in lost), mesh, init=acc)
+    faults["stream"] = {"digest": leaf_digests(acc), "overflow": torch.atleast_1d(of).tolist(),
+                        "report": [report.dropped_blocks, report.rejected_blocks],
+                        "healed": leaf_digests(healed), "wall_ms": ms}
+    check(faults["stream"]["healed"] == leaf_digests(clean[0]) and report.lost_blocks,
+          f"the faulted flagship stream re-streamed ({report}) != the unfaulted stream")
+    del acc, healed, clean
     acc, of = parallel.mesh_stream_fold_sparse_sharded(
         flagship_blocks(MH_SHARDED_BLOCKS, split=True), smesh)
     out["flagship_sharded"] = {"digest": leaf_digests(acc),
@@ -11301,6 +11338,16 @@ def mh_stream_legs(seed: int, device, mesh, smesh, r: int, e: int, a: int, d: in
                              "k1": fk.fold_entries.launches, "checked": held.calls["k1"],
                              "max_abs_err": held.max_abs_err["k1"], "wall_ms": ms}
     del model, rows
+    # The same loop under faults (ROADMAP 32, fourth part).
+    model = BatchedOrswot(1, e, a, 2, device=device)
+    model.state = quiet
+    with FoldChecked() as held:
+        (rows, widened, fc), ms = mh_timed(lambda: parallel.gossip_elastic(
+            model, mesh, faults=FaultPlan(**MH_FAULTS)), device, cross)
+    faults["gossip_elastic"] = {"rows": rank_digests(rows), "widened": widened,
+                                "counters": mh_counters(fc), "max_abs_err": held.max_abs_err["k1"],
+                                "wall_ms": ms}
+    del model, rows
     # The reclaim half over the same rows (ROADMAP 32, third part).
     out["reclaim"] = {"gossip_elastic": mh_reclaim_loop("gossip_elastic", quiet, mesh, device,
                                                         cross, e, a)}
@@ -11325,6 +11372,21 @@ def mh_stream_legs(seed: int, device, mesh, smesh, r: int, e: int, a: int, d: in
     out["reclaim"]["delta_gossip_elastic"] = mh_reclaim_loop(
         "delta_gossip_elastic", st, mesh, device, cross, e, a, tracking=(dd, ff),
         rounds=delta_rounds)
+    model = BatchedOrswot(1, e, a, 2, device=device)
+    model.state = st
+    wire_pack.launches = 0
+    with FoldChecked() as held, K3Checked() as k3c:
+        res, ms = mh_timed(lambda: parallel.delta_gossip_elastic(
+            model, dd, ff, mesh, rounds=delta_rounds, cap=MH_ELASTIC_CAP,
+            faults=FaultPlan(**MH_FAULTS)), device, cross)
+    dig = mh_ring_digest(res[:4])
+    faults["delta_gossip_elastic"] = {
+        "rows": dig["rows"], "dirty": dig["dirty"], "widened": res[4],
+        "counters": mh_counters(res[5]), "k3": wire_pack.launches, "k3_checked": k3c.calls,
+        "rounds": delta_rounds, "max_abs_err": max(held.max_abs_err["k1"], k3c.max_abs_err),
+        "wall_ms": ms}
+    del model, res
+    out["faults"] = faults
     del st, dd, ff
     if device.type == "cuda":
         torch.cuda.empty_cache()
@@ -11873,6 +11935,222 @@ def mh_options_report(single: dict, cross: list) -> dict:
     return out
 
 
+# ``faults=`` across processes (ROADMAP item 32, fourth part): the plans
+# name global ranks of the phase's 2 × 4 mesh.
+MH_FAULTS = dict(seed=17, corrupt=0.6, drop=0.2, evicted=(5,))  # bench.py's chaos plan at P = 8
+# Both ranks at the process edge out (the hop 2 → 5 crosses), delay, no
+# corruption: the probe ring must reject nothing.
+MH_EDGE_FAULTS = dict(seed=17, drop=0.1, delay=0.3, evicted=(3, 4))
+# The flagship stream's upload wire: block 4 drops, block 9 is rejected.
+MH_STREAM_FAULTS = dict(seed=2, drop=0.05, corrupt=0.05)
+MH_FAULT_RINGS = ("dense", "map")
+
+
+def mh_counters(fc) -> dict:
+    """``FaultCounters`` as integers (the streak a list, one a rank)."""
+    from crdt_tpu_torch._dtypes import to_wide
+
+    return {"dropped": int(to_wide(fc.packets_dropped)),
+            "rejected": int(to_wide(fc.packets_rejected)),
+            "delayed": int(to_wide(fc.packets_delayed)), "miss_streak": fc.miss_streak.tolist()}
+
+
+def mh_fault_digest(out) -> dict:
+    """A faulted δ ring's or gossip's result: the ring digest (rank by
+    rank) or the gossip's rows, flags and frontier, and its
+    ``FaultCounters`` (the last output) as integers."""
+    import torch
+
+    counters = mh_counters(out[-1])
+    if len(out) == 5:  # a ring: rows, dirty, flags, residue, counters
+        return {**mh_ring_digest(out[:4]), "counters": counters}
+    from crdt_tpu_torch.ops.lattice import tree_leaves, tree_map
+
+    rows = out[0]
+    n = tree_leaves(rows)[0].shape[0]
+    return {"rows": [leaf_digests(tree_map(lambda x: x[q], rows)) for q in range(n)],
+            "overflow": torch.atleast_1d(out[1]).tolist(), "frontier": leaf_digests(out[2]),
+            "counters": counters}
+
+
+def mh_fault_ring(kind: str, inputs: tuple, rounds: int, mesh, device, cross: bool) -> dict:
+    """One δ ring of the phase under ``MH_FAULTS`` at its certified budget,
+    fused, on this process's rows (or the single-process P = 8 ring): K3
+    and the local fold's kernel counted from 0 and every launch held
+    against its plain version; the dense ring layered too and a fused
+    probe under ``MH_EDGE_FAULTS`` (its K3 launches counted and held);
+    then the fused
+    ring's wall and, across processes, its exchange ms and bytes a round."""
+    import torch.distributed as dist
+
+    from crdt_tpu_torch import parallel
+    from crdt_tpu_torch.faults import FaultPlan
+    from crdt_tpu_torch.ops.wire_kernels import wire_pack
+
+    name, cap = MH_RINGS[kind]
+    ring = getattr(parallel, name)
+    st, dirty, fctx = inputs
+    leaf = mh_leaf_counter(kind)
+
+    def run(plan=MH_FAULTS, **kw):
+        return ring(st, dirty, fctx, mesh, rounds=rounds, cap=cap, faults=FaultPlan(**plan), **kw)
+
+    sync(device)
+    wire_pack.launches = leaf.launches = 0
+    with FoldChecked() as held, K3Checked() as k3c:
+        fused = mh_fault_digest(run())
+        sync(device)
+    out = {"fused": fused, "rounds": rounds, "k3": wire_pack.launches, "k3_checked": k3c.calls,
+           "k3_max_abs_err": k3c.max_abs_err, "leaf": mh_leaf_counter(kind).launches,
+           "leaf_max_abs_err": max(held.max_abs_err.values())}
+    if kind == "dense":
+        out["layered"] = mh_fault_digest(run(fused=False))
+        wire_pack.launches = 0
+        with K3Checked() as edge_k3c:
+            out["edge"] = mh_fault_digest(run(MH_EDGE_FAULTS))
+            sync(device)
+        out.update(edge_k3=wire_pack.launches, edge_k3_checked=edge_k3c.calls,
+                   edge_k3_max_abs_err=edge_k3c.max_abs_err)
+    sync(device)
+    if cross:
+        dist.barrier()
+    x0, t0 = mh_exchange(), time.perf_counter()
+    run()
+    sync(device)
+    x1 = mh_exchange()
+    out.update(wall_ms=(time.perf_counter() - t0) * 1e3,
+               exchange_ms_per_round=(x1[0] - x0[0]) * 1e3 / rounds,
+               exchange_bytes_per_round=(x1[1] - x0[1]) / rounds)
+    return out
+
+
+def mh_fault_gossip(entry, state, mesh, device, cross: bool) -> dict:
+    """A gossip entry (``mesh_gossip`` / ``mesh_gossip_map``) with
+    ``stability=True`` under ``MH_FAULTS``: the local folds' kernel (K1 or
+    K2) counted from 0 and held against its plain version; rows rank by
+    rank, flags, frontier and counters; its wall."""
+    from crdt_tpu_torch.faults import FaultPlan
+    from crdt_tpu_torch.ops import fold_kernels as fk
+
+    run = lambda: entry(state, mesh, stability=True, faults=FaultPlan(**MH_FAULTS))  # noqa: E731
+    sync(device)
+    fk.fold_entries.launches = fk.fold_cells.launches = 0
+    with FoldChecked() as held:
+        out = mh_fault_digest(run())
+        sync(device)
+    out.update(k1=fk.fold_entries.launches, k2=fk.fold_cells.launches,
+               max_abs_err=max(held.max_abs_err.values()),
+               wall_ms=mh_timed(run, device, cross)[1])
+    return out
+
+
+def mh_check_faults(pid: int, got: dict, want: dict, ranks: slice, on_card: bool) -> None:
+    """Worker ``pid``'s faulted legs against the single-process ones on P =
+    8 under the same plans (``ranks``: its global ranks): rows and dirty
+    rows of its ranks, flags, residue, the counters (the global streak)
+    and frontiers; the streams' accumulators and reports; the elastic
+    loops; K3 once a fused round (the edge probe's too) and twice the
+    budget in the faulted δ loop, every launch == plain; no reject under
+    a plan without corruption."""
+    def same(g, w, rows=True):
+        w = dict(w)
+        if rows:
+            w["rows"] = w["rows"][ranks]
+            if "dirty" in w:
+                w["dirty"] = w["dirty"][ranks]
+        return g == w
+
+    for kind in MH_FAULT_RINGS:
+        g, w = got[kind], want[kind]
+        for mode in ("fused", "layered", "edge"):
+            if mode in w:
+                check(same(g[mode], w[mode]),
+                      f"worker {pid}: the faulted {kind} ring ({mode}) != the single-process "
+                      f"ring: {g[mode]['counters']} vs {w[mode]['counters']}")
+        check(g["k3_max_abs_err"] == g["leaf_max_abs_err"] == g.get("edge_k3_max_abs_err", 0)
+              == 0,
+              f"worker {pid}: a K3/K1/K2 launch of the faulted {kind} ring != its plain version")
+        check(g["fused"]["residue"] >= 1 and g["fused"]["counters"]["rejected"] > 0,
+              f"worker {pid}: the faulted {kind} ring lost nothing: {g['fused']}")
+        if "edge" in g:
+            check(g["edge"]["counters"]["rejected"] == 0,
+                  f"worker {pid}: a plan without corruption rejected {g['edge']['counters']}")
+        if on_card:
+            launches = {"k3": (g["k3"], g["rounds"]), "checked": (g["k3_checked"], g["rounds"]),
+                        "leaf": (g["leaf"], MH_LOCAL_RANKS)}
+            if "edge_k3" in g:
+                launches["edge k3"] = (g["edge_k3"], g["rounds"])
+                launches["edge checked"] = (g["edge_k3_checked"], g["rounds"])
+            check(all(x == y for x, y in launches.values()),
+                  f"worker {pid}: the faulted {kind} ring's launches (counted, expected) "
+                  f"{launches}")
+    for name in ("gossip", "map_gossip"):
+        g, w = got[name], want[name]
+        check(all(g[k] == (w[k][ranks] if k == "rows" else w[k])
+                  for k in ("rows", "overflow", "frontier", "counters"))
+              and g["max_abs_err"] == 0,
+              f"worker {pid}: the faulted {name} != the single-process gossip")
+        if on_card:
+            check((g["k1"], g["k2"]) == ((MH_LOCAL_RANKS, 0) if name == "gossip"
+                                         else (0, MH_LOCAL_RANKS)),
+                  f"worker {pid}: the faulted {name}'s local folds launched K1 {g['k1']}, K2 "
+                  f"{g['k2']} times")
+    g, w = got["stream"], want["stream"]
+    check(all(g[k] == w[k] for k in ("digest", "overflow", "report", "healed")),
+          f"worker {pid}: the faulted flagship stream (report {g['report']}) != the "
+          f"single-process stream (report {w['report']})")
+    for loop in ("gossip_elastic", "delta_gossip_elastic"):
+        g, w = got[loop], want[loop]
+        check(g["widened"] == w["widened"] and g["counters"] == w["counters"]
+              and g["rows"] == w["rows"][ranks] and g.get("dirty") == (
+                  w["dirty"][ranks] if "dirty" in w else None)
+              and g["max_abs_err"] == 0,
+              f"worker {pid}: the faulted {loop} != the single-process loop")
+    g = got["delta_gossip_elastic"]
+    check(not on_card or g["k3"] == g["k3_checked"] == 2 * g["rounds"],
+          f"worker {pid}: the faulted delta_gossip_elastic launched K3 {g['k3']} times "
+          f"({g['k3_checked']} checked), expected {2 * g['rounds']} (two attempts)")
+
+
+def mh_faults_report(single: dict, cross: list, rings: dict, rings_cross: list) -> dict:
+    """The faulted legs' figures: each faulted ring's wall across (the
+    slower process) against the single-process faulted wall and the
+    unfaulted wall across, its exchange ms and bytes a round; the
+    gossips', stream's and loops' walls; the counters; the launches per
+    process."""
+    out = {"plans": {"chaos": MH_FAULTS, "edge": MH_EDGE_FAULTS, "stream": MH_STREAM_FAULTS}}
+    for kind in MH_FAULT_RINGS:
+        s = single[kind]
+        across = max(x[kind]["wall_ms"] for x in cross)
+        clean = max(min(r[kind]["wall_ms"]) for r in rings_cross)
+        out[kind] = {"rounds": s["rounds"], "single_process_wall_ms": s["wall_ms"],
+                     "workers_wall_ms": [x[kind]["wall_ms"] for x in cross],
+                     "unfaulted_workers_wall_ms": [r[kind]["wall_ms"] for r in rings_cross],
+                     "unfaulted_single_process_wall_ms": rings[kind]["wall_ms"],
+                     "across_over_single": across / s["wall_ms"],
+                     "across_over_unfaulted_across": across / clean,
+                     "exchange_ms_per_round": [x[kind]["exchange_ms_per_round"] for x in cross],
+                     "exchange_bytes_per_round": [x[kind]["exchange_bytes_per_round"]
+                                                  for x in cross],
+                     "counters": s["fused"]["counters"], "residue": s["fused"]["residue"]}
+        if "edge" in s:
+            out[kind]["edge_counters"] = s["edge"]["counters"]
+    for name in ("gossip", "map_gossip", "stream", "gossip_elastic", "delta_gossip_elastic"):
+        out[name] = {"single_process_wall_ms": single[name]["wall_ms"],
+                     "workers_wall_ms": [x[name]["wall_ms"] for x in cross]}
+    out["stream"].update(report=single["stream"]["report"], blocks=MH_SHARDED_BLOCKS)
+    out["launches_per_process"] = [
+        {"dense_k3": x["dense"]["k3"], "dense_edge_k3": x["dense"]["edge_k3"],
+         "dense_k1": x["dense"]["leaf"], "map_k3": x["map"]["k3"], "map_k2": x["map"]["leaf"],
+         "gossip_k1": x["gossip"]["k1"], "map_gossip_k2": x["map_gossip"]["k2"],
+         "delta_gossip_elastic_k3": x["delta_gossip_elastic"]["k3"]} for x in cross]
+    out["reduced"] = {"stream": f"{MH_SHARDED_BLOCKS} of the flagship's 40 blocks (the sharded "
+                                f"leg's cut)",
+                      "rings_and_loops": "the phase's cuts (dense R = 2,048; Map R = 8, K "
+                                         f"{MH_DELTA_MAP_K:,})"}
+    return out
+
+
 def multihost_worker(spec: str, seed: int) -> int:
     """One process of the ``multihost`` phase: ``spec`` is
     ``port,process,n_processes,device,root,r,e,a,d,map_r,k,s,map_a``. It
@@ -11896,7 +12174,7 @@ def multihost_worker(spec: str, seed: int) -> int:
     from crdt_tpu_torch.ops.fold_kernels import fold_auto
     from crdt_tpu_torch.ops.lattice import tree_map
     from crdt_tpu_torch.parallel import (
-        mesh_fold, mesh_fold_map, mesh_fold_sparse_mvmap, mesh_gossip, multihost,
+        mesh_fold, mesh_fold_map, mesh_fold_sparse_mvmap, mesh_gossip, mesh_gossip_map, multihost,
     )
     from crdt_tpu_torch.parallel.anti_entropy import local_folds, rank_blocks
 
@@ -11929,6 +12207,7 @@ def multihost_worker(spec: str, seed: int) -> int:
                "gossip": [leaf_digests(tuple(x[q] for x in rows)) for q in range(rows.top.shape[0])],
                "map": leaf_digests(mjoined), "sparse": leaf_digests(sjoined),
                "list": mh_list_rounds(pid, device), "handoff": mh_handoff(pid, device)}
+        faults = {"map_gossip": mh_fault_gossip(mesh_gossip_map, mstate, mesh, device, True)}
         del rows, mjoined, mstate, sjoined, sstate
         # The figures: the dense fold end to end, its exchange, and this
         # process's local folds alone (both processes share the card).
@@ -11948,6 +12227,7 @@ def multihost_worker(spec: str, seed: int) -> int:
                    exchange_bytes=[b for _, b in exchange], local_fold_ms=local)
         del blocks
         dense_options = mh_dense_options(dense, mesh, device, True)
+        faults["gossip"] = mh_fault_gossip(mesh_gossip, dense, mesh, device, True)
         del dense
         # The δ rings across processes at the single-process ring's budget,
         # then every other fold and gossip kind at the tests' sizes.
@@ -11964,6 +12244,8 @@ def multihost_worker(spec: str, seed: int) -> int:
             del batch
             out["rings"][kind] = mh_cross_ring(kind, inputs, rounds[kind], mesh, device,
                                                MH_RING_SAMPLES[kind])
+            if kind in MH_FAULT_RINGS:
+                faults[kind] = mh_fault_ring(kind, inputs, rounds[kind], mesh, device, True)
             del inputs
         out["small"] = mh_small_digests(mh_small_kinds(seed, device), mesh,
                                         slice(pid * MH_SMALL_R // n, (pid + 1) * MH_SMALL_R // n))
@@ -11976,6 +12258,7 @@ def multihost_worker(spec: str, seed: int) -> int:
                                      flagship, pid=pid, n=n,
                                      delta_rounds=rounds["elastic_delta"],
                                      parking=rounds["elastic_parking"])
+        out["faults"] = {**faults, **out["legs"].pop("faults")}
         # The serving dispatches, then every option leg in one dict.
         out["options"] = mh_options(
             mh_dispatch_legs(seed, device, mesh, pid=pid, n=n,
@@ -12014,7 +12297,7 @@ def phase_multihost(device, seed: int, r: int = 2048, e: int = 102400, a: int = 
     import torch
 
     from crdt_tpu_torch.parallel import (
-        VirtualMesh, mesh_fold, mesh_fold_map, mesh_fold_sparse_mvmap,
+        VirtualMesh, mesh_fold, mesh_fold_map, mesh_fold_sparse_mvmap, mesh_gossip, mesh_gossip_map,
     )
 
     t_phase = time.perf_counter()
@@ -12041,9 +12324,12 @@ def phase_multihost(device, seed: int, r: int = 2048, e: int = 102400, a: int = 
         walls.append((time.perf_counter() - t0) * 1e3)
     ref = {"fold": leaf_digests(want)}
     dense_options = mh_dense_options(dense, mesh, device, False)
+    faults = {"gossip": mh_fault_gossip(mesh_gossip, dense, mesh, device, False)}
     del dense, want
-    mwant, m_of = mesh_fold_map(mh_map_rows(seed, range(map_r), map_r, k, s, map_a, 4, device),
-                                mesh)
+    mstate = mh_map_rows(seed, range(map_r), map_r, k, s, map_a, 4, device)
+    mwant, m_of = mesh_fold_map(mstate, mesh)
+    faults["map_gossip"] = mh_fault_gossip(mesh_gossip_map, mstate, mesh, device, False)
+    del mstate
     swant, s_of = mesh_fold_sparse_mvmap(mh_sparse_rows(range(8), device), mesh, sibling_cap=4)
     check(not bool(torch.any(m_of)) and not bool(torch.any(s_of)),
           "a single-process Map fold overflowed")
@@ -12058,6 +12344,8 @@ def phase_multihost(device, seed: int, r: int = 2048, e: int = 102400, a: int = 
             torch.cuda.empty_cache()
         inputs = mh_ring_inputs(kind, seed, device, r, e, a, d, k, s, map_a)
         rings[kind] = mh_single_ring(kind, inputs, device, MH_RING_SAMPLES[kind])
+        if kind in MH_FAULT_RINGS:
+            faults[kind] = mh_fault_ring(kind, inputs, rings[kind]["rounds"], mesh, device, False)
         del inputs
     small = mh_small_digests(mh_small_kinds(seed, device), mesh)
     if device.type == "cuda":
@@ -12065,6 +12353,7 @@ def phase_multihost(device, seed: int, r: int = 2048, e: int = 102400, a: int = 
     legs = mh_stream_legs(seed, device, mesh, VirtualMesh(MH_PROCESSES * MH_LOCAL_RANKS // 2,
                                                           device, s=2), r, e, a, d, k, s, map_a,
                           flagship)
+    faults.update(legs.pop("faults"))
     options = mh_options(mh_dispatch_legs(seed, device, mesh, serve=serve, fan=fan),
                          dense_options, rings["dense"], legs)
     if device.type == "cuda":
@@ -12160,6 +12449,7 @@ def phase_multihost(device, seed: int, r: int = 2048, e: int = 102400, a: int = 
                                f"entry")
         mh_check_legs(pid, w["legs"], legs, ranks, on_card)
         mh_check_options(pid, w["options"], options, ranks, on_card)
+        mh_check_faults(pid, w["faults"], faults, ranks, on_card)
     med = st.median
     out.update(
         single_process_fold_ms=walls, single_process_fold_ms_median=med(walls),
@@ -12183,6 +12473,8 @@ def phase_multihost(device, seed: int, r: int = 2048, e: int = 102400, a: int = 
                            for w in workers),
         legs=mh_legs_report(legs, [w["legs"] for w in workers]),
         options=mh_options_report(options, [w["options"] for w in workers]),
+        faults=mh_faults_report(faults, [w["faults"] for w in workers], rings,
+                                [w["rings"] for w in workers]),
         rings={kind: mh_ring_report(kind, ring, [w["rings"][kind] for w in workers])
                for kind, ring in rings.items()},
         small_kinds=sorted(small),
@@ -12254,15 +12546,15 @@ def main(argv=None) -> int:
     if run("delta_scenarios"):
         phase_delta_scenarios(device, args.seed)
     if run("full_width_delta"):
-        res["delta"] = phase_full_width_delta(device, args.seed)
+        res["delta"] = phase_full_width_delta(device, args.seed, ring_samples=3)
     if run("map_delta_scenarios"):
         phase_map_delta_scenarios(device, args.seed)
     if run("full_width_delta_map"):
-        res["delta_map"] = phase_full_width_delta_map(device, args.seed, ring_samples=2)
+        res["delta_map"] = phase_full_width_delta_map(device, args.seed, ring_samples=1)
     if run("sparse_scenarios"):
         phase_sparse_scenarios(device, args.seed)
     if run("flagship"):
-        res["flagship"] = phase_flagship(device, args.seed)
+        res["flagship"] = phase_flagship(device, args.seed, passes=2, durable_passes=2)
     if run("elastic"):
         phase_elastic(device, args.seed)
     if run("resync"):
@@ -12286,13 +12578,13 @@ def main(argv=None) -> int:
     if run("sparse_map_scenarios"):
         phase_sparse_map_scenarios(device, args.seed)
     if run("full_width_sparse_map"):
-        phase_full_width_sparse_map(device, args.seed)
+        phase_full_width_sparse_map(device, args.seed, passes=2)
     if run("nested_scenarios"):
         phase_nested_scenarios(device, args.seed)
     if run("full_width_nested"):
         res["nested"] = phase_full_width_nested(device, args.seed)
     if run("full_width_delta_nested"):
-        res["delta_nested"] = phase_full_width_delta_nested(device, args.seed, ring_samples=2)
+        res["delta_nested"] = phase_full_width_delta_nested(device, args.seed, ring_samples=1)
     if run("kinds_scenarios"):
         phase_kinds_scenarios(device, args.seed)
     if run("full_width_clocks"):

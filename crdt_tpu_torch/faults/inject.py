@@ -29,7 +29,10 @@ the top adoption, so a faulted run is never read as certified.
 Every per-rank quantity is a ``[P]`` tensor over the virtual ranks (the
 JAX per-device scalar); the counters stay on the device until the run's
 end read, where ``record`` also emits the ``fault_counters`` flight
-event.
+event. Across processes (a ``multihost.GlobalMesh``) the plan names
+global ranks: each process holds its own ranks' columns of the global
+fate table and masks, and the run's counters are reduced over every
+process before they are read.
 """
 
 from __future__ import annotations
@@ -168,19 +171,38 @@ def sender_of(p: int, evicted: Tuple[int, ...] = ()) -> List[int]:
 
 # ---- the fate table and the receive ---------------------------------------
 
+def _local_ranks(p: int, procs) -> Tuple[int, slice]:
+    """The global rank count and this process's ranks ``[lo, hi)`` of a
+    mesh of ``p`` local ranks over the processes of ``procs`` (a
+    ``multihost.GlobalMesh``: global rank ``process · p + local rank``);
+    ``(p, all of them)`` without processes."""
+    if procs is None:
+        return p, slice(0, p)
+    me = procs.process_index
+    return p * procs.process_count, slice(me * p, (me + 1) * p)
+
+
 class LinkFates:
     """One run's fates on the device, built before its first round: the
     ``[rounds, P, 3]`` table of ``(dropped, corrupted, delayed)`` for
     round indices ``0..rounds-1`` (``_threefry.fates``), the live-rank
     mask and the sender table. ``round_faults`` and ``receive_wire``
-    index it; no round reads the host."""
+    index it; no round reads the host.
 
-    def __init__(self, plan: FaultPlan, rounds: int, p: int, device):
+    Across the processes of ``procs`` (a ``multihost.GlobalMesh``, ``p``
+    its local ranks) the table and the sender table are the GLOBAL rank
+    count's, and this process keeps its own receivers' columns ``[lo,
+    hi)`` of the table and of the masks: the draws are keyed on the seed,
+    the round and the global rank, so every process derives the same
+    table without an exchange."""
+
+    def __init__(self, plan: FaultPlan, rounds: int, p: int, device, procs=None):
+        total, mine = _local_ranks(p, procs)
         self.plan, self.p = plan, p
-        self.senders = sender_of(p, plan.evicted)
-        table = _threefry.fates(plan, range(max(rounds, 0)), p, self.senders)
-        self.table = torch.as_tensor(table, device=device)
-        self.evicted = torch.as_tensor(np.isin(np.arange(p), plan.evicted), device=device)
+        self.senders = sender_of(total, plan.evicted)
+        table = _threefry.fates(plan, range(max(rounds, 0)), total, self.senders)
+        self.table = torch.as_tensor(np.ascontiguousarray(table[:, mine]), device=device)
+        self.evicted = evicted_mask(plan, p, device, procs)
         self.none = torch.zeros((p,), dtype=torch.bool, device=device)
 
 
@@ -192,10 +214,13 @@ def round_faults(fates: LinkFates, r: int):
     return row[:, 0], row[:, 1], row[:, 2]
 
 
-def evicted_mask(plan: Optional[FaultPlan], p: int, device="cuda") -> torch.Tensor:
-    """``[P]`` bool: which ranks are evicted (all False without a plan)."""
+def evicted_mask(plan: Optional[FaultPlan], p: int, device="cuda", procs=None) -> torch.Tensor:
+    """``[P]`` bool: which ranks are evicted (all False without a plan);
+    across the processes of ``procs``, which of this process's ``p``
+    local ranks (the plan names global ranks)."""
     ev = () if plan is None else plan.evicted
-    return torch.as_tensor(np.isin(np.arange(p), ev), device=device)
+    total, mine = _local_ranks(p, procs)
+    return torch.as_tensor(np.isin(np.arange(total), ev)[mine], device=device)
 
 
 def corrupt_tree(tree, corrupted):

@@ -32,8 +32,9 @@ of cohort δ payloads against a superblock, K3 over B·E client lanes,
 ``fanout_push``). ``multihost`` joins processes (gloo): ``global_mesh``
 gives every entry above a replica axis across processes
 (``multihost.CROSS_PROCESS_ENTRIES``, their ``telemetry=``, ``stability=``,
-``lag_threshold=`` and ``reclaim=`` included; ``faults=``, ``wal=`` and
-a ``Superblock`` or ``FanoutPlane`` on it are refused, ROADMAP item 32),
+``lag_threshold=``, ``reclaim=`` and ``faults=`` included; ``wal=`` and a
+``Superblock`` or ``FanoutPlane`` on it are refused, as the JAX package
+cannot run them across processes either),
 and ``sync_tenant_rows`` / ``sync_list`` are the serving tier's and the
 list's host exchanges.
 """

@@ -78,8 +78,14 @@ GLOBAL per-rank vector, the single-process order. ``stability=True``
 takes the minimum of every process's input tops (one gather before the
 rounds, the JAX ``lax.pmin``) and compacts each process's rows against
 it; the frontier lag is the maximum over the processes, so
-``lag_threshold=`` warns on every process alike. ``faults=`` is not
-taken there (ROADMAP item 32). ``gossip_elastic`` takes it too,
+``lag_threshold=`` warns on every process alike. ``faults=`` runs the
+live ring over every process's ranks: the plan names global ranks, each
+process draws the global fate table and keeps its own receivers'
+columns, a state whose sender sits on another process crosses point to
+point (``collectives.ring_permuter``), and the flags and the fault
+counters are reduced over every process in one gather (the streaks
+gathered whole, in global rank order), so every process returns the
+single-process counters. ``gossip_elastic`` takes all of these too,
 re-entering the cross-process rings (its docstring).
 
 ``faults=`` (a ``faults.FaultPlan``) on the ring entries and
@@ -129,7 +135,8 @@ from ..faults import inject as flt
 from ..faults.integrity import checksum
 from ..reclaim.frontier import frontier_lag, top_of, watch_lag
 from .collectives import (
-    all_reduce_clock, all_reduce_join, all_reduce_lattice, permuter, pmax, pmin, psum, ring_round,
+    all_reduce_clock, all_reduce_join, all_reduce_lattice, pmax, pmin, preduce, psum,
+    ring_permuter, ring_round,
 )
 from . import multihost
 from .mesh import VirtualMesh, pad_replicas, pad_replicas_map, pad_replicas_sparse
@@ -162,22 +169,19 @@ def _timed(name: str, device):
             torch.cuda.synchronize(device)
 
 
-def _split_mesh(mesh, entry: str, **options):
+def _split_mesh(mesh, entry: str, wal=None):
     """``(procs, local mesh)`` of a mesh entry: ``(None, mesh)`` for a
     :class:`~.mesh.VirtualMesh`; for a cross-process
     :class:`~.multihost.GlobalMesh`, the mesh itself (the process step's
-    group) and its local ranks, after refusing the ``options`` set that
-    the cross-process entries do not take (``faults=``, ``wal=``)."""
+    group) and its local ranks, after refusing ``wal=``, which the
+    cross-process entries do not take."""
     if not isinstance(mesh, multihost.GlobalMesh):
         return None, mesh
-    used = sorted(k for k, v in options.items() if v not in (None, False))
-    if used:
-        why = {"faults": "a fault plan's fates would sit on the links between processes",
-               "wal": "the JAX package's Wal.append_state cannot copy an array that spans "
-                      "processes to the host either"}
+    if wal is not None:
         raise NotImplementedError(
-            f"{entry} on a cross-process mesh does not take {', '.join(used)} (ROADMAP item "
-            f"32: {'; '.join(why.get(k, k) for k in used)})")
+            f"{entry} on a cross-process mesh does not take wal (ROADMAP item 32: the JAX "
+            f"package's Wal.append_state cannot copy an array that spans processes to the host "
+            f"either)")
     return mesh, mesh.local
 
 
@@ -390,7 +394,7 @@ def mesh_gossip(
     row is the full join. ``donate=True``: see the module docstring. On a
     cross-process mesh the ring spans every process's ranks (P is the
     global count) and the rows returned are this process's."""
-    procs, mesh = _split_mesh(mesh, "mesh_gossip", faults=faults)
+    procs, mesh = _split_mesh(mesh, "mesh_gossip")
     return _gossip("orswot_gossip", state, mesh, rounds, donate, _fold_fn(local_fold), ops.join,
                    telemetry, ops.changed_members, stability=stability, compact_fn=ops.compact,
                    lag_threshold=lag_threshold, faults=faults, procs=procs)
@@ -431,7 +435,7 @@ def _gossip(kind: str, state, mesh: VirtualMesh, rounds: Optional[int], donate: 
             top = top_of(blocks)
             tmin = to_wide(top).reshape(mesh.p, -1, top.shape[-1]).amin(dim=1)
             if evicted:
-                ev = flt.evicted_mask(faults, mesh.p, mesh.device)
+                ev = flt.evicted_mask(faults, mesh.p, mesh.device, procs)
                 tmin = tmin.masked_fill(ev[:, None], torch.iinfo(torch.int64).max)
             # Across processes the minimum of every process's (JAX ``lax.pmin``).
             frontier = from_wide(pmin(tmin, procs), top.dtype)
@@ -439,14 +443,22 @@ def _gossip(kind: str, state, mesh: VirtualMesh, rounds: Optional[int], donate: 
         slots = 0
         if faulted:
             folded, of, slots, fc = _faulted_rounds(folded, of, rounds, join_fn, faults, mesh,
-                                                    slots_fn if telemetry else None)
+                                                    slots_fn if telemetry else None, procs)
+            # The flags and the counter carry over every process in one
+            # exchange: the packet totals and the streaks in global rank
+            # order (the rank axis spans the processes).
+            sums, _, _, cats = preduce((of, *fc[:3]), procs=procs, cats=(fc[3],))
+            of, fc = sums[0] > 0, flt.finish_counters((*sums[1:], cats[0]))
         for _ in range(0 if faulted else rounds):
             new, of_r = ring_round(folded, reduce_overflow=False, join_fn=join_fn, procs=procs)
             if telemetry:
                 slots = slots + to_wide(slots_fn(folded, new))
             folded, of = new, of | of_r
         if stability:
-            folded, freed, freed_b = _compact_ranks(compact_fn, folded, frontier, skip=evicted)
+            # The plan names global ranks; this process skips its own.
+            lo = 0 if procs is None else procs.process_index * mesh.p
+            folded, freed, freed_b = _compact_ranks(
+                compact_fn, folded, frontier, skip={q - lo for q in evicted})
             lag = frontier_lag(top_of(folded), frontier)
         if telemetry:
             rl = tree_leaves(blocks)[0].shape[1]
@@ -454,15 +466,17 @@ def _gossip(kind: str, state, mesh: VirtualMesh, rounds: Optional[int], donate: 
             if stability:
                 fields.update(reclaimed_slots=freed, frontier_lag=lag)
                 ranks["reclaimed_bytes"] = freed_b
-            if faulted:
-                fields.update(faults_dropped=fc.packets_dropped,
-                              faults_rejected=fc.packets_rejected,
-                              faults_delayed=fc.packets_delayed)
             tel = _tel_reduced(folded, tele.scalar("slots_changed", slots, mesh.device),
                                max(rl - 1, 0) + rounds,
                                tele.shipped_bytes(folded, batch_dims=1) * rounds, mesh.p,
                                copies=copies, procs=procs, ranks=ranks, **fields)
-        of = torch.any(of, dim=0) if procs is None else psum(of, procs) > 0
+            if faulted:
+                # Already the totals over every process.
+                tel = tel._replace(faults_dropped=fc.packets_dropped,
+                                   faults_rejected=fc.packets_rejected,
+                                   faults_delayed=fc.packets_delayed)
+        if not faulted:
+            of = torch.any(of, dim=0) if procs is None else psum(of, procs) > 0
         out = _donate_ring(donate, aliasable, state, folded), of
     if telemetry:
         out = (*out, tele.finish_dispatch(kind, tel, t0))
@@ -479,7 +493,8 @@ def _gossip(kind: str, state, mesh: VirtualMesh, rounds: Optional[int], donate: 
     return out
 
 
-def _faulted_rounds(folded, of, rounds: int, join_fn, faults, mesh: VirtualMesh, slots_fn):
+def _faulted_rounds(folded, of, rounds: int, join_fn, faults, mesh: VirtualMesh, slots_fn,
+                    procs=None):
     """The faulted exchange of the gossip ring (JAX ``_mesh_gossip_lattice``
     under ``faults=``): every round each rank ships its state with a
     checksum lane over the live ring, each receiver takes the round's
@@ -487,11 +502,15 @@ def _faulted_rounds(folded, of, rounds: int, join_fn, faults, mesh: VirtualMesh,
     joins and deselects the join where the state was dropped, rejected or
     held; a delayed state joins the next round (the last round delivers
     it at once). Full-state loss is never unsound: a missed round only
-    slows convergence. Returns ``(rows, overflow, changed slots,
-    FaultCounters)``."""
+    slows convergence. With ``procs`` (a ``GlobalMesh``) the live ring
+    spans every process's ranks (``collectives.ring_permuter``) and the
+    fates are this process's columns of the global table. Returns
+    ``(rows, overflow [P, ...], changed slots, the per-rank counter
+    carry)``: the caller reduces the last over every process."""
     p = mesh.p
-    shift = permuter(flt.ring_perm(p, faults.evicted), p, mesh.device)
-    fates = flt.LinkFates(faults, rounds, p, mesh.device)
+    total = p * (1 if procs is None else procs.process_count)
+    shift = ring_permuter(flt.ring_perm(total, faults.evicted), p, procs, mesh.device)
+    fates = flt.LinkFates(faults, rounds, p, mesh.device, procs)
     fc = flt.zero_counters(p, mesh.device)[:4]
     delay_mode = faults.delay > 0
     held = heldv = None
@@ -517,23 +536,25 @@ def _faulted_rounds(folded, of, rounds: int, join_fn, faults, mesh: VirtualMesh,
         if slots_fn is not None:
             slots = slots + to_wide(slots_fn(base, new))
         folded, of = new, of | flag(of_r, keep)
-    return folded, of, slots, flt.finish_counters(fc)
+    return folded, of, slots, fc
 
 
 def _compact_ranks(compact_fn, folded, frontier, skip=()):
     """Each rank's compaction of its converged row (the JAX per-device
     ``compact_fn``): the ``[P, ...]`` rows compacted, the freed slots
     summed over the ranks once (the ``psum``) and the freed bytes of
-    each compacted rank (``float32``, for the Telemetry's one sum over
-    the ranks). The ranks in ``skip`` (evicted: the frontier may exceed
-    their knowledge) keep their rows and free nothing."""
+    every rank (``float32 [P]``, for the Telemetry's one sum over the
+    ranks). The ranks in ``skip`` (evicted: the frontier may exceed
+    their knowledge) keep their rows and free nothing: their counts are
+    0, as the JAX ranks mask theirs."""
     p = tree_leaves(folded)[0].shape[0]
     outs = [compact_fn(tree_map(lambda x: x[q], folded), frontier) for q in range(p)]
     rows = stack([tree_map(lambda x: x[q], folded) if q in skip else o[0]
                   for q, o in enumerate(outs)], outs[0][0])
-    kept = [o for q, o in enumerate(outs) if q not in skip]
-    freed = from_raw(torch.stack([raw(o[1]) for o in kept]).sum(), torch.uint32)
-    return rows, freed, torch.stack([o[2] for o in kept])
+    kept = torch.tensor([q not in skip for q in range(p)], device=tree_leaves(folded)[0].device)
+    freed = torch.stack([raw(o[1]) for o in outs]).masked_fill(~kept, 0)
+    freed_b = torch.stack([o[2] for o in outs]).masked_fill(~kept, 0.0)
+    return rows, from_raw(freed.sum(), torch.uint32), freed_b
 
 
 def _mesh_fold_replicated(kind: str, states, mesh: VirtualMesh, join_fn, fold_fn, slots_fn,
@@ -593,7 +614,7 @@ def mesh_gossip_map(
     then ``rounds`` (default P-1) unit-shift ring rounds, each shipping
     one state per link. Returns ``(states [P, ...], overflow [2])``; with
     P-1 rounds every row is the full join."""
-    procs, mesh = _split_mesh(mesh, "mesh_gossip_map", faults=faults)
+    procs, mesh = _split_mesh(mesh, "mesh_gossip_map")
     return _gossip("map_gossip", state, mesh, rounds, donate, map_ops.fold, map_ops.join,
                    telemetry, map_ops.changed_keys, stability=stability,
                    compact_fn=map_ops.compact, lag_threshold=lag_threshold, faults=faults,
@@ -632,7 +653,7 @@ def mesh_gossip_sparse(
     ring rounds of ``ops.sparse_orswot.join``, one segment table per link
     per round (traffic proportional to live dots, not the universe).
     Returns ``(states [P, ...], overflow [2])``."""
-    procs, mesh = _split_mesh(mesh, "mesh_gossip_sparse", faults=faults)
+    procs, mesh = _split_mesh(mesh, "mesh_gossip_sparse")
     return _gossip("sparse_gossip", states, mesh, rounds, donate, sp.fold, sp.join, telemetry,
                    sp.changed_dots, copies=mesh.s, stability=stability, compact_fn=sp.compact,
                    lag_threshold=lag_threshold, faults=faults, procs=procs)
@@ -674,7 +695,7 @@ def mesh_gossip_sparse_mvmap(
     ring rounds, one cell table per link per round (traffic proportional
     to live cells, not the key universe). Returns ``(states [P, ...],
     flags [3])``."""
-    procs, mesh = _split_mesh(mesh, "mesh_gossip_sparse_mvmap", faults=faults)
+    procs, mesh = _split_mesh(mesh, "mesh_gossip_sparse_mvmap")
     return _gossip(f"sparse_mvmap_gossip_s{sibling_cap}", states, mesh, rounds, donate,
                    lambda x: smv.fold(x, sibling_cap=sibling_cap),
                    lambda a, b: smv.join(a, b, sibling_cap=sibling_cap), telemetry,
@@ -725,7 +746,7 @@ def mesh_gossip_sparse_nested(
     ``SparseNestLevel`` composition): each rank folds its block, then
     ``rounds`` (default P-1) unit-shift ring rounds of ``level.join``.
     Returns ``(states [P, ...], flags [L+1])``."""
-    procs, mesh = _split_mesh(mesh, "mesh_gossip_sparse_nested", faults=faults)
+    procs, mesh = _split_mesh(mesh, "mesh_gossip_sparse_nested")
     return _gossip(_nested_kind(level, "gossip"), states, mesh, rounds, donate, level.fold,
                    level.join, telemetry, tele.generic_slots_changed, copies=mesh.s,
                    stability=stability, compact_fn=sparse_nest_ops.compact,
@@ -759,7 +780,7 @@ def mesh_gossip_map_orswot(state, mesh: VirtualMesh, rounds: Optional[int] = Non
     """Ring anti-entropy for ``Map<K, Orswot>`` replica blocks: each rank
     folds its block, then ``rounds`` (default P-1) unit-shift ring rounds
     of ``map_orswot.join``. Returns ``(states [P, ...], flags [2])``."""
-    procs, mesh = _split_mesh(mesh, "mesh_gossip_map_orswot", faults=faults)
+    procs, mesh = _split_mesh(mesh, "mesh_gossip_map_orswot")
     return _gossip("map_orswot_gossip", state, mesh, rounds, donate, mo_ops.fold, mo_ops.join,
                    telemetry, _leaf_members_changed(lambda s: s.core), stability=stability,
                    compact_fn=mo_ops.compact, lag_threshold=lag_threshold, faults=faults,
@@ -782,7 +803,7 @@ def mesh_gossip_map3(state, mesh: VirtualMesh, rounds: Optional[int] = None,
                      faults=None, lag_threshold=None):
     """Ring anti-entropy for ``Map<K1, Map<K2, Orswot>>`` replica blocks.
     Returns ``(states [P, ...], flags [3])``."""
-    procs, mesh = _split_mesh(mesh, "mesh_gossip_map3", faults=faults)
+    procs, mesh = _split_mesh(mesh, "mesh_gossip_map3")
     return _gossip("map3_gossip", state, mesh, rounds, donate, m3_ops.fold, m3_ops.join,
                    telemetry, _leaf_members_changed(lambda s: s.mo.core), stability=stability,
                    compact_fn=m3_ops.compact, lag_threshold=lag_threshold, faults=faults,
@@ -808,7 +829,7 @@ def mesh_gossip_nested_map(state, mesh: VirtualMesh, rounds: Optional[int] = Non
                            stability: bool = False, faults=None, lag_threshold=None):
     """Ring anti-entropy for ``Map<K1, Map<K2, MVReg>>`` replica blocks.
     Returns ``(states [P, ...], flags [3])``."""
-    procs, mesh = _split_mesh(mesh, "mesh_gossip_nested_map", faults=faults)
+    procs, mesh = _split_mesh(mesh, "mesh_gossip_nested_map")
     return _gossip("nested_map_gossip", state, mesh, rounds, donate, mm_ops.fold, mm_ops.join,
                    telemetry, lambda a, b: map_ops.changed_keys(a.m, b.m), stability=stability,
                    compact_fn=mm_ops.compact, lag_threshold=lag_threshold, faults=faults,
@@ -931,9 +952,9 @@ def gossip_elastic(model, mesh: VirtualMesh, rounds: Optional[int] = None, polic
     ``telemetry=``, ``stability=`` and ``lag_threshold=`` are mesh-wide
     there, and ``reclaim=``'s hysteresis decides on every process's
     occupancy at once (``elastic.Hysteresis.observe(procs=)``), so every
-    process shrinks the same axes to the same capacities. ``faults=`` is
-    refused there (ROADMAP item 32)."""
-    procs, _ = _split_mesh(mesh, "gossip_elastic", faults=faults)
+    process shrinks the same axes to the same capacities; ``faults=``
+    counts every process's links in each attempt's counters."""
+    procs, _ = _split_mesh(mesh, "gossip_elastic")
     from .. import elastic
     from ..models.map import BatchedMap
     from ..models.orswot import BatchedOrswot

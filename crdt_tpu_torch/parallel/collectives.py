@@ -18,12 +18,12 @@ through ``multihost.all_reduce_processes`` (recursive doubling over the
 processes, or gather and fold) —, ``psum``/``pmax``/``pmin`` add the
 processes' sums, maxima and minima (``multihost.gather_processes``),
 ``preduce`` gathers per-rank vectors whole for a float sum that must
-keep the single-process order, and a unit ring shift
-(:func:`across_processes`: the gossip round, the δ ring's packet shift)
-replaces the row its first rank receives with the previous process's
-last rank's (``multihost.ring_hop``); the inverse shift (the δ ring's
-digest and acks) replaces its last rank's with the next process's first
-rank's (``multihost.ring_hop_back``).
+keep the single-process order, and a ring shift over every process's
+ranks (:func:`ring_permuter`: the gossip round, the δ ring's packet
+shift and its inverse, a faulted ring's shift over the live ranks)
+sends each row whose sender and receiver sit on different processes
+point to point (``multihost.exchange_rows``): one row a process for the
+unit shift.
 """
 
 from __future__ import annotations
@@ -86,29 +86,57 @@ def permuter(perm: Sequence[Tuple[int, int]], p: int, device):
     return lambda tree: tree_map(move, tree)
 
 
-def across_processes(move: Callable, procs=None, back: bool = False) -> Callable:
-    """A unit ring shift over the local ranks (``move``: rank i's row to
-    rank i+1, a roll; ``back=True``: rank i+1's to rank i) made to span
-    the processes of ``procs`` (a ``multihost.GlobalMesh``), process-major:
-    after the local roll the first rank's row is replaced by the previous
-    process's last row (``multihost.ring_hop``), or, going back, the last
-    rank's row by the next process's first row
-    (``multihost.ring_hop_back``). Only that one row of every leaf
-    crosses. Without processes to cross, ``move`` itself."""
+def process_schedule(perm: Sequence[Tuple[int, int]], p: int, me: int):
+    """Process ``me``'s part of ``perm`` (pairs of GLOBAL ranks, ``p``
+    local ranks a process, global rank ``process · p + local rank``):
+    ``(local pairs, sends, recvs)`` — the pairs whose two ranks are its
+    own, as local indices; ``(local sender, destination process, tag)``
+    of each row it sends; ``(local receiver, source process, tag)`` of
+    each row it receives. The tag is the receiving global rank, so a send
+    and its receive carry the same one. Every process derives its part
+    from ``perm`` alone."""
+    lo = me * p
+    local = [(s - lo, d - lo) for s, d in perm if s // p == me and d // p == me]
+    sends = [(s - lo, d // p, d) for s, d in perm if s // p == me and d // p != me]
+    recvs = [(d - lo, s // p, d) for s, d in perm if d // p == me and s // p != me]
+    return local, sends, recvs
+
+
+def ring_permuter(perm: Sequence[Tuple[int, int]], p: int, procs=None, device=None) -> Callable:
+    """:func:`permuter` of ``perm``, a permutation of the GLOBAL rank axis
+    of ``procs`` (a ``multihost.GlobalMesh``: ``p`` local ranks a process,
+    global rank ``process · p + local rank``), as a function of this
+    process's ``[p, ...]`` tree: a ring round's shift over every rank, or
+    a faulted ring's over the live ranks (``faults.ring_perm`` /
+    ``inv_ring_perm`` of the global rank count). A pair whose two ranks
+    sit on this process moves through :func:`permuter`'s index table; the
+    row of every pair that crosses processes goes point to point
+    (``multihost.exchange_rows``), on a schedule every process derives
+    from ``perm`` alone: each process sends the rows of its ranks whose
+    receiver is elsewhere and receives those of its ranks whose sender
+    is. The unit shift sends one row a process; a process whose ranks all
+    self-loop (evicted) neither sends nor receives. Without processes to
+    cross, ``permuter(perm, p, device)``."""
     if procs is None or procs.process_count == 1:
+        return permuter(perm, p, device)
+    me = procs.process_index
+    local, sends, recvs = process_schedule(perm, p, me)
+    move = permuter(local, p, device)
+    if not (sends or recvs):
         return move
-    from .multihost import ring_hop, ring_hop_back
+    from .multihost import exchange_rows
 
-    def shifted(tree):
-        moved = move(tree)
-        if back:
-            came = ring_hop_back(tree_map(lambda x: x[:1], tree), procs)
-            return tree_map(lambda m, c: torch.cat([bits(m[:-1]), bits(c)]).view(m.dtype),
-                            moved, came)
-        came = ring_hop(tree_map(lambda x: x[-1:], tree), procs)
-        return tree_map(lambda m, c: torch.cat([bits(c), bits(m[1:])]).view(m.dtype), moved, came)
+    at = torch.tensor([d for d, _, _ in recvs], device=device)
 
-    return shifted
+    def moved(tree):
+        out = move(tree)
+        got = exchange_rows([(tree_map(lambda x: x[i:i + 1], tree), dst, tag)
+                             for i, dst, tag in sends],
+                            [(src, tag) for _, src, tag in recvs], tree_map(lambda x: x[:1], tree))
+        came = tree_map(lambda *xs: torch.cat([bits(x) for x in xs]), *got)
+        return tree_map(lambda o, c: bits(o).index_copy(0, at, c).view(o.dtype), out, came)
+
+    return moved
 
 
 def _psum(x: torch.Tensor) -> torch.Tensor:
@@ -251,12 +279,11 @@ def ring_round(
     ``shift`` positions up-ring. P-1 unit-shift rounds converge all
     ranks. ``reduce_overflow=False`` keeps the per-rank flags. With
     ``procs`` (a ``multihost.GlobalMesh``) the ring runs over every
-    process's ranks, process-major, one unit shift a round."""
+    process's ranks, process-major (:func:`ring_permuter`)."""
     size = _size(local)
-    if procs is not None and procs.process_count > 1 and shift != 1:
-        raise ValueError(f"a cross-process ring round shifts by 1, got {shift}")
-    move = across_processes(
-        lambda t: ppermute(t, [(i, (i + shift) % size) for i in range(size)]), procs)
+    total = size if procs is None else size * procs.process_count
+    move = ring_permuter([(i, (i + shift) % total) for i in range(total)], size, procs,
+                         _leaf(local).device)
     other = move(local)
     joined, of = join_fn(local, other)
     if reduce_overflow:
@@ -265,6 +292,6 @@ def ring_round(
 
 
 __all__ = [
-    "across_processes", "all_reduce_clock", "all_reduce_join", "all_reduce_lattice", "permuter",
-    "pmax", "pmin", "ppermute", "preduce", "psum", "ring_round",
+    "all_reduce_clock", "all_reduce_join", "all_reduce_lattice", "permuter", "pmax", "pmin",
+    "ppermute", "preduce", "process_schedule", "psum", "ring_permuter", "ring_round",
 ]

@@ -90,7 +90,7 @@ default budget, ``stats["links"]`` — is the global rank count; tensor
 shapes and donation are the local one. Per round, the packet shift sends
 one row (the last rank's wire or packet) to the next process, and under
 ``ack_window=`` the ack bitmap's inverse shift one row to the previous
-(``collectives.across_processes``); the digest's inverse shift crosses
+(``collectives.ring_permuter``); the digest's inverse shift crosses
 once before the loop. After the loop one all-gather sums the parked loss,
 the starved rows, the overflow flags and the slot counts and maxes the
 top over every process (``multihost.gather_processes``), so every
@@ -99,10 +99,21 @@ process closes with the mesh top and reads the mesh-wide residue and
 vectors, histograms and gauges are reduced after the closing in one
 more gather (``telemetry.reduce_processes``: the gauges read the closed
 rows), the float32 byte sums over the GLOBAL per-rank vector, so every
-process returns the single-process Telemetry. ``pipeline=``,
-``digest=``, ``fused=``, ``ack_window=``, ``donate=``, ``stats=``,
-``rounds=``, ``cap=`` and ``telemetry=`` run across processes;
-``faults=`` and ``wal=`` raise ``NotImplementedError`` (ROADMAP item 32).
+process returns the single-process Telemetry. ``faults=`` runs the live
+ring over every process's ranks (the plan names global ranks): each
+process keeps its own receivers' columns of the global fate table, the
+shifts over the live ranks send each row whose sender and receiver sit
+on different processes point to point (``collectives.ring_permuter``; an
+evicted rank on a process edge moves the hop to the next live rank, a
+process whose ranks are all evicted sends nothing), the checksum lane
+crossing with its row, and the end-of-run gather also sums the counter
+carry, gathers the streaks whole in global rank order and maxes the live
+ranks' top, so every process adopts, certifies and counts as the
+single-process ring does. ``pipeline=``, ``digest=``, ``fused=``,
+``ack_window=``, ``donate=``, ``stats=``, ``rounds=``, ``cap=``,
+``telemetry=`` and ``faults=`` run across processes; ``wal=`` raises
+``NotImplementedError``: the JAX package's log cannot copy a global array
+to the host either.
 """
 
 from __future__ import annotations
@@ -125,7 +136,7 @@ from . import wire as _wire
 from .anti_entropy import (
     _consume, _donation, _split_mesh, _tel_reduced, _write_back, local_folds, rank_blocks,
 )
-from .collectives import across_processes, permuter, pmax, preduce, psum
+from .collectives import pmax, preduce, psum, ring_permuter
 from .delta import DeltaPacket
 from .mesh import VirtualMesh
 
@@ -317,7 +328,7 @@ def run_delta_ring(
             f"run_delta_ring: fused=True needs a wire codec for {kind!r}; the registered "
             f"codecs are {sorted(_wire.WIRE_SURFACES)}"
         )
-    procs, mesh = _split_mesh(mesh, f"the {kind} ring", faults=faults, wal=wal)
+    procs, mesh = _split_mesh(mesh, f"the {kind} ring", wal=wal)
     cross = procs is not None and procs.process_count > 1
     # Tensors hold this process's P local ranks; the ring's length (the
     # certificate window, the default budget, the links) is the global
@@ -336,11 +347,11 @@ def run_delta_ring(
     evicted = faults.evicted if faulted else ()
     # Digest exchange and acks run against the ring: rank i's packets land
     # on i+1, so i needs i+1's frozen top and i+1's acks. A faulted ring
-    # runs over the live ranks (evicted ranks self-loop). Across processes
-    # one row of each crosses a process boundary (collectives.across_processes).
-    shift = across_processes(permuter(flt.ring_perm(p, evicted), p, mesh.device), procs)
-    unshift = across_processes(permuter(flt.inv_ring_perm(p, evicted), p, mesh.device), procs,
-                               back=True)
+    # runs over the live ranks of every process (evicted ranks self-loop);
+    # a row whose sender and receiver sit on different processes crosses
+    # point to point (collectives.ring_permuter).
+    shift = ring_permuter(flt.ring_perm(ring_p, evicted), p, procs, mesh.device)
+    unshift = ring_permuter(flt.inv_ring_perm(ring_p, evicted), p, procs, mesh.device)
     aliasable = _donation(state, mesh, donate)
     caller = (state, dirty)
 
@@ -369,7 +380,7 @@ def run_delta_ring(
     rtop = unshift(top_of(folded)) if gated else None
     if faulted:
         # The whole run's fates, drawn and uploaded before the first round.
-        fates = flt.LinkFates(faults, rounds, p, mesh.device)
+        fates = flt.LinkFates(faults, rounds, p, mesh.device, procs)
         fc = flt.zero_counters(p, mesh.device)
         # The checksum word rides every packet (one u32 per link).
         chk_bytes = 4
@@ -400,9 +411,10 @@ def run_delta_ring(
                 counts["skipped"] += aux.covered.sum()
             sent = codec.mask(pkt, aux.keep) if acked else None
             useful = codec.useful_bytes(pkt, aux.keep) if telemetry else None
-            # K3's chained checksum is the integrity lane of a faulted run.
-            chk = shift(aux.checksum) if faulted else None
-            return shift(wired), chk, aux, sent, useful, aux.covered if acked else None
+            # K3's chained checksum is the integrity lane of a faulted run;
+            # it crosses with its row.
+            wired, chk = shift((wired, aux.checksum)) if faulted else (shift(wired), None)
+            return wired, chk, aux, sent, useful, aux.covered if acked else None
 
         def receive(wired, st, mirror):
             return codec.unpack(wired, own_top=top_of(st) if gated else None, mirror_ctx=mirror)
@@ -417,8 +429,8 @@ def run_delta_ring(
                 pkt, covered = _ackwin.gate_window(pkt, aw)
                 counts["skipped"] += covered.sum()
             counts["shipped"] += _ackwin._core(pkt).valid.sum()
-            chk = shift(checksum(pkt, batch_dims=1)) if faulted else None
-            wired = shift(pkt)
+            wired, chk = (shift((pkt, checksum(pkt, batch_dims=1))) if faulted
+                          else (shift(pkt), None))
             # The JAX layered ring prices the packet each rank receives.
             useful = tele.packet_useful_bytes(wired, batch_dims=1) if telemetry else None
             return wired, chk, None, pkt, useful, covered
@@ -569,27 +581,40 @@ def run_delta_ring(
     if telemetry and gated:
         rt.digest(_nbytes(rtop))
     own_top = top_of(folded)
+    if faulted:
+        # Evicted ranks stay out of the live maximum.
+        ev = fates.evicted.reshape(p, *([1] * (own_top.dim() - 1)))
+        live_tops = from_wide(torch.where(ev, 0, to_wide(own_top)), own_top.dtype)
     if cross:
         # The run's sums and the top's maximum over every process, in one
         # exchange; the counts ride it too, so every process reads the
-        # mesh-wide stats and residue.
+        # mesh-wide stats and residue — and a faulted run's counter carry
+        # (its streaks gathered whole, in global rank order) and live top.
         names = ("shipped", "deferred", "skipped")
-        sums, (top_max,), _, _ = preduce(
-            (nlost, starved, of, *(counts[k].reshape(1) for k in names)), (own_top,), procs)
+        sums, maxes, _, cats = preduce(
+            (nlost, starved, of, *(counts[k].reshape(1) for k in names),
+             *((*fc[:3], fc[4]) if faulted else ())),
+            (own_top, *((live_tops,) if faulted else ())), procs,
+            cats=(fc[3],) if faulted else ())
         nlost_tot, starved_tot, of_tot = sums[:3]
-        counts.update(zip(names, sums[3:]))
+        counts.update(zip(names, sums[3:6]))
+        top_max = maxes[0]
+        if faulted:
+            live_top, lost_tot = maxes[1], sums[9]
+            counters = flt.finish_counters((*sums[6:9], cats[0]))
     elif fused:
         # Unencodable parked removes never reached the wire: count them as
         # loss mesh-wide and keep each rank's own top if any was lost.
         nlost_tot = psum(nlost)
     if faulted:
+        if not cross:
+            # One process reduces each on its own: riding one reduction
+            # as across processes would add kernels to every ring's end.
+            live_top, lost_tot = pmax(live_tops), psum(fc[4])
+            counters = flt.finish_counters(fc)
         # Adopt the live ranks' top only when the run lost nothing:
         # adoption after loss would claim observed-and-removed for dots a
-        # receiver never got. Evicted ranks never adopt and stay out of
-        # the live maximum.
-        ev = fates.evicted.reshape(p, *([1] * (own_top.dim() - 1)))
-        live_top = pmax(from_wide(torch.where(ev, 0, to_wide(own_top)), own_top.dtype))
-        lost_tot = psum(fc[4])
+        # receiver never got. Evicted ranks never adopt.
         adopt = (lost_tot == 0) & ~fates.evicted
         if fused:
             adopt = adopt & (nlost_tot == 0)
@@ -613,8 +638,6 @@ def run_delta_ring(
         residue = torch.maximum(residue, (nlost_tot > 0).to(residue.dtype))
     if rounds < win:
         residue = torch.clamp_min(residue, 1)
-    if faulted:
-        counters = flt.finish_counters(fc)
     if telemetry:
         tel = rt.telemetry(folded, max(rl - 1, 0) + rounds, residue, fused,
                            awin if acked else None, procs=procs)
@@ -806,12 +829,13 @@ def delta_gossip_elastic(
     compacts against the frontier of every process's rows
     (``reclaim.mesh_frontier``) and its hysteresis decides on every
     process's occupancy at once, so every process shrinks alike.
-    ``faults=`` and ``wal=`` are refused there (ROADMAP item 32)."""
+    ``faults=`` sums every process's links into each attempt's counters;
+    ``wal=`` is refused there, as on the ring."""
     from .. import elastic
     from .anti_entropy import _same_models
     from .delta import mesh_delta_gossip
 
-    procs, _ = _split_mesh(mesh, "delta_gossip_elastic", faults=faults, wal=wal)
+    procs, _ = _split_mesh(mesh, "delta_gossip_elastic", wal=wal)
     if procs is not None:
         _same_models("delta_gossip_elastic", model, procs)
     if wal is not None and wal.tail is None:

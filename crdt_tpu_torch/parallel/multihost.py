@@ -21,13 +21,14 @@ ranks on its card) and the processes meet in a process group:
   then the fold's lattice all-reduce (``collectives.all_reduce_lattice``)
   gains a process step — recursive doubling with partner ``process ^
   2^k`` over ``send``/``recv``, since gloo takes no user-defined reduce
-  op — and a ring's hop from a process's last rank to the next
-  process's first is one ``send``/``recv`` of that rank's row
-  (``ring_hop``; the δ ring's inverse hop, the digest and the acks, is
-  ``ring_hop_back``). The δ ring's end-of-run sums and top maximum ride
-  one all-gather (``gather_processes``). A stream runs that process step
-  once a block, after one :func:`agree` gather of every process's block
-  status (staged, source ended, failed, refused); an element-sharded
+  op — and a ring's shift sends each row whose sender and receiver sit
+  on different processes point to point (:func:`exchange_rows`,
+  scheduled by ``collectives.ring_permuter``): the unit shift's hop from
+  a process's last rank to the next process's first, and the δ ring's
+  inverse hop, the digest and the acks. The δ ring's end-of-run sums
+  and top maximum ride one all-gather (``gather_processes``). A stream
+  runs that process step once a block, after one :func:`agree` gather
+  of every process's block status (staged, source ended, failed, refused); an element-sharded
   fold exchanges rank 0's ``[1, S, ...]`` row (element shards never
   straddle processes); an elastic loop re-enters cross-process entries,
   whose flags are global, so every process widens alike; a serving
@@ -42,13 +43,19 @@ ranks on its card) and the processes meet in a process group:
   maximum lag; the elastic loops' ``reclaim=`` compacts against every
   process's frontier (``reclaim.mesh_frontier``) and decides the shrink
   on every process's occupancy (``elastic.agreed_utilization``). The
-  exchange runs over host memory; every join and every K3 pack stays on
-  the card. Still refused with ``NotImplementedError`` naming ROADMAP
-  item 32: ``faults=`` (its fates sit on the links between processes)
-  and ``wal=`` (the JAX ``Wal.append_state`` copies every leaf to the
-  host with ``np.asarray``, which a global array spanning processes
-  refuses: the reference cannot log across processes either) on every
-  cross-process entry, and a ``serve.Superblock`` or
+  ``faults=`` runs on every ring, stream and elastic loop: the plan
+  names global ranks, each process draws the global fate table (numpy
+  threefry, keyed on the seed: no exchange) and keeps its own receivers'
+  columns, a faulted ring's shift over the live ranks crosses through
+  the same :func:`exchange_rows` (a hop skips an evicted rank, or a
+  whole evicted process), and the counters ride the entry's end-of-run
+  gather. The exchange runs
+  over host memory; every join and every K3 pack stays on the card.
+  Still refused with ``NotImplementedError`` naming ROADMAP item 32,
+  because the JAX package cannot run them across processes either:
+  ``wal=`` (the JAX ``Wal.append_state`` copies every leaf to the host
+  with ``np.asarray``, which a global array spanning processes refuses)
+  on every cross-process entry, and a ``serve.Superblock`` or
   ``fanout.FanoutPlane`` built on a ``GlobalMesh`` (the JAX package
   serves each host's shard on a local mesh and syncs the shards with
   ``sync_tenant_shards``, ported);
@@ -443,26 +450,29 @@ def all_reduce_processes(state, flags: torch.Tensor, join_fn, fold_fn, mesh: Glo
     return tree_map(lambda x: x[None], folded), flags, None
 
 
-def ring_hop(last, mesh: GlobalMesh):
-    """A ring's hop across processes: this process's last rank's row
-    (leaves ``[1, ...]``: a state, or a δ packet) goes to the next
-    process, and the previous process's last row arrives for this
-    process's first rank."""
-    n, me = mesh.process_count, mesh.process_index
-    _settle(last)
-    with metrics.time("multihost.exchange"):
-        return _from_bytes(_sendrecv(_to_bytes(last), (me + 1) % n, (me - 1) % n), last)
+def exchange_rows(sends, recvs, like) -> list:
+    """Point-to-point moves of single rows between processes (a ring's
+    hops, ``collectives.ring_permuter``):
+    ``sends`` is ``[(row, destination process, tag)]`` (``row`` a tree
+    shaped like ``like``, leaves ``[1, ...]``), ``recvs`` ``[(source
+    process, tag)]``; the tag (the receiving global rank) pairs each send
+    with its receive. Every ``isend`` and ``irecv`` is posted before any
+    wait, so no order of the processes' calls can deadlock gloo. Returns
+    the received rows in ``recvs`` order, on ``like``'s device."""
+    import torch.distributed as dist
 
-
-def ring_hop_back(first, mesh: GlobalMesh):
-    """The inverse hop (the δ ring's digest and acks, which run against
-    the ring): this process's first rank's row (leaves ``[1, ...]``) goes
-    to the previous process, and the next process's first row arrives
-    for this process's last rank."""
-    n, me = mesh.process_count, mesh.process_index
-    _settle(first)
+    _settle(like)
+    width = sum(x.numel() * x.element_size() for x in tree_leaves(like))
     with metrics.time("multihost.exchange"):
-        return _from_bytes(_sendrecv(_to_bytes(first), (me - 1) % n, (me + 1) % n), first)
+        out = [_to_bytes(row) for row, _, _ in sends]
+        got = [torch.empty(width, dtype=torch.uint8) for _ in recvs]
+        reqs = [dist.isend(b, dst, tag=tag) for b, (_, dst, tag) in zip(out, sends)]
+        reqs += [dist.irecv(g, src, tag=tag) for g, (src, tag) in zip(got, recvs)]
+        for req in reqs:
+            req.wait()
+        rows = [_from_bytes(g, like) for g in got]
+    metrics.count("multihost.bytes_sent", sum(b.numel() for b in out))
+    return rows
 
 
 def gather_processes(tensors, mesh: GlobalMesh) -> list:
@@ -600,7 +610,7 @@ def sync_list(model, since: int = 0, retry=None) -> int:
 
 __all__ = [
     "AGREE_WIDTH", "CROSS_PROCESS_ENTRIES", "GlobalMesh", "TIMEOUT", "agree",
-    "all_reduce_processes", "gather_processes", "global_mesh", "global_to_host",
+    "all_reduce_processes", "exchange_rows", "gather_processes", "global_mesh", "global_to_host",
     "host_to_global", "initialize", "process_count", "process_index", "refuse", "require_same",
-    "ring_hop", "ring_hop_back", "shape_digest", "sync_list", "sync_tenant_rows",
+    "shape_digest", "sync_list", "sync_tenant_rows",
 ]

@@ -132,8 +132,17 @@ block): every field but ``stream_staged_bytes`` reads the replicated
 accumulator and host counts every process shares, so only that one
 rides a gather, once at the end; the partial Telemetry of a
 ``StreamInterrupted`` needs none and is the same on every process;
-``stream_overlap_hit`` stays each process's own. ``faults=`` and
-``wal=`` raise ``NotImplementedError`` there (ROADMAP item 32).
+``stream_overlap_hit`` stays each process's own. ``faults=`` draws
+each block's fate keyed on ``(seed, block index)``, and every process
+steps its share of the same global block in lockstep, so every process
+draws the same fate, and a corruption (each process perturbs the first
+lane of its own share) fails every process's verify: every process
+deselects the same blocks and returns the same
+:class:`StreamFaultReport` with no exchange (the JAX stream takes the
+``pmax`` of the code over the mesh, which is then the code itself); the
+re-stream of ``lost_blocks`` with ``init=acc`` runs across processes
+like any other. ``wal=`` raises ``NotImplementedError`` there: the JAX
+package's log cannot copy a global array to the host either.
 
 The stream feeds the ``stream.<kind>.deferred_depth`` gauge (of the first
 block) and the ``stream.<kind>`` timer around the block loop, and counts
@@ -405,7 +414,7 @@ def _stream_fold(
     block, the double-buffered step loop and the interrupt protocol, on
     one process or across the processes of a cross-process mesh (see the
     module docstring)."""
-    procs, mesh = _split_mesh(mesh, entry, faults=faults, wal=wal)
+    procs, mesh = _split_mesh(mesh, entry, wal=wal)
     me = 0 if procs is None else procs.process_index
     device, p = mesh.device, mesh.p
     # The Telemetry counts the global mesh: its ranks and a global block's

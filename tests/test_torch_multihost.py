@@ -593,35 +593,25 @@ def test_sync_tenant_shards_joins_handoff_rows():
 
 
 def test_a_cross_process_mesh_is_refused_where_it_is_not_ported():
-    """The options the process step does not carry — ``faults=`` and
-    ``wal=`` on the streams, the rings, the gossip entries and the
-    elastic loops — refuse a GlobalMesh naming ROADMAP item 32, as does a
-    ``Superblock`` built on one; element shards may not straddle
-    processes."""
+    """What the JAX package cannot run across processes either — ``wal=``
+    on the streams, the rings and the δ elastic loop, and a
+    ``Superblock`` built on a GlobalMesh — refuses it naming ROADMAP item
+    32; element shards may not straddle processes."""
     import torch
 
     from crdt_tpu_torch import serve
-    from crdt_tpu_torch.faults import FaultPlan
     from crdt_tpu_torch.ops import orswot
     from crdt_tpu_torch.parallel import (
-        delta_gossip_elastic, gossip_elastic, mesh_delta_gossip, mesh_gossip, mesh_gossip_map,
-        mesh_stream_fold, multihost,
+        delta_gossip_elastic, mesh_delta_gossip, mesh_stream_fold, multihost,
     )
 
     assert multihost.process_count() == 1 and multihost.process_index() == 0
     mesh = multihost.global_mesh(local_ranks=2, device="cpu")
     state = orswot.empty(4, 2, deferred_cap=1, batch=(4,), device="cpu")
     dirty = torch.zeros((4, 4), dtype=torch.bool)
-    for call in (lambda: mesh_stream_fold(iter([state]), mesh, faults=FaultPlan(seed=1)),
-                 lambda: mesh_stream_fold(iter([state]), mesh, wal=object()),
-                 lambda: gossip_elastic(None, mesh, faults=FaultPlan(seed=1)),
+    for call in (lambda: mesh_stream_fold(iter([state]), mesh, wal=object()),
                  lambda: delta_gossip_elastic(None, dirty, state.ctr, mesh, wal=object()),
-                 lambda: delta_gossip_elastic(None, dirty, state.ctr, mesh,
-                                              faults=FaultPlan(seed=1)),
-                 lambda: mesh_delta_gossip(state, dirty, state.ctr, mesh, faults=FaultPlan(seed=1)),
                  lambda: mesh_delta_gossip(state, dirty, state.ctr, mesh, wal=object()),
-                 lambda: mesh_gossip(state, mesh, faults=FaultPlan(seed=1)),
-                 lambda: mesh_gossip_map(state, mesh, faults=FaultPlan(seed=1)),
                  lambda: serve.Superblock(8, mesh, kind="orswot",
                                           caps=dict(n_elems=8, n_actors=2, deferred_cap=2))):
         with pytest.raises(NotImplementedError, match="item 32"):
