@@ -7318,14 +7318,17 @@ class K3Checked:
 
     def __enter__(self):
         from crdt_tpu_torch.ops import wire_kernels as wk
+        from crdt_tpu_torch.utils import ophooks
 
         self._wk, self._many = wk, wk.wire_pack_many
         self.max_abs_err, self.calls = 0, 0
 
         def checked(group, *args, **kw):
             outs = self._many(group, *args, **kw)
-            for x, g in zip(outs, group):
-                self.max_abs_err = max(self.max_abs_err, wire_diff(x, wk.wire_pack_plain(**g)))
+            with ophooks.quiet():  # the check is not the traced program
+                for x, g in zip(outs, group):
+                    self.max_abs_err = max(self.max_abs_err,
+                                           wire_diff(x, wk.wire_pack_plain(**g)))
             self.calls += 1
             return outs
 
@@ -10507,24 +10510,81 @@ def static_wire_probes(device) -> dict:
             "cohort": {k: host(getattr(cw, k)) for k in ("words", "keep", "defer", "chk")}}
 
 
+# The sections that run every registered mesh entry: each may launch K1-K3
+# (the entries' folds and packs), each launch held against its plain
+# version. ``jit-lint`` and ``cost`` each start from a cleared trace memo,
+# as each runs alone; ``aliasing`` records its own runs.
+TRACE_SECTIONS = ("jit-lint", "cost", "aliasing")
+_KERNEL_OF = {"fold_entries": "k1", "fold_cells": "k2", "wire_pack": "k3",
+              "cohort_wire_encode": "k3"}
+
+
+def entry_card_gates(device) -> dict:
+    """Every registered entry's card trace (the ``cost`` section's) held
+    against the committed table: ``collective_bytes`` and ``host_syncs``
+    equal, ``ops`` within the table's tolerance (the entries take no
+    route the CPU trace does not: ``jit_lint.entry_traces`` records the
+    card's routes on both); each entry's K1-K3 events printed. Then each
+    donating entry's ``max_memory_allocated`` growth over one donating
+    call."""
+    import torch
+
+    from crdt_tpu_torch.analysis import cost, jit_lint
+    from crdt_tpu_torch.analysis.registry import entry_points
+
+    table = cost.load_budgets()["entries"]
+    rows = {}
+    for name, (ep, trace, _n) in jit_lint.entry_traces(device=device).items():
+        check(not isinstance(trace, Exception), f"{name} failed on the card: {trace}")
+        got, want = cost.cost_of_trace(trace), table[name]
+        kernels = {"k1": 0, "k2": 0, "k3": 0}
+        for e in trace.events:
+            if e.kind == "kernel":
+                kernels[_KERNEL_OF[e.name]] += 1
+        for metric in ("collective_bytes", "host_syncs"):
+            check(got[metric] == want[metric],
+                  f"{name}: {metric} on the card {got[metric]} != the table's {want[metric]}")
+        check(got["ops"] <= want["ops"] * (1 + cost.TOL),
+              f"{name}: {got['ops']} ops on the card, the table {want['ops']} (+{cost.TOL:.0%})")
+        rows[name] = {"card": got, "table": want, "kernels": kernels}
+    growth = {}
+    mesh = jit_lint.gate_mesh(device)
+    for ep in entry_points(donatable=True) if device.type == "cuda" else ():
+        args = ep.make_args(mesh, device)
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        m0 = torch.cuda.memory_allocated(device)
+        out = ep.invoke(mesh, args)
+        torch.cuda.synchronize(device)
+        growth[ep.name] = torch.cuda.max_memory_allocated(device) - m0
+        del out, args
+    return {"entries": rows, "donated_peak_growth_bytes": growth}
+
+
 def phase_static_scenarios(device) -> dict:
     """The port's static-check runner on the card (ROADMAP 16): each
     section of ``analysis.run`` clean, timed, with its K1-K3 launches —
-    every K3 launch held against the plain pack (``K3Checked``); K3 above
-    0 in ``wire`` and ``fanout``, K1 and K2 at 0 everywhere. The
-    ``concurrency`` section reads the explorer's worlds explored once on
-    the card. Then every broken twin, the explorer's results and the wire
-    and cohort probes, each card == CPU."""
+    every K3 launch held against the plain pack (``K3Checked``), every K1
+    and K2 launch against its plain fold (``FoldChecked``); K3 above 0 in
+    ``wire``, ``fanout``, ``jit-lint`` and ``cost``, K1 and K2 at 0 but in
+    the three trace sections. The ``concurrency`` section reads the
+    explorer's worlds explored once on the card. Then every entry's card
+    trace against the committed cost table (``entry_card_gates``), every
+    broken twin, the lint twins, the explorer's results and the wire and
+    cohort probes, each card == CPU."""
     import torch
 
+    from crdt_tpu_torch.analysis import jit_lint
     from crdt_tpu_torch.analysis import run as static_run
 
     t_phase = time.perf_counter()
     cpu = torch.device("cpu")
     out = {"phase": "static_scenarios", "card": card_label(device), "sections": {}}
     explored = None
-    with K3Checked() as k3:
+    with K3Checked() as k3, FoldChecked() as folds:
         for section in static_run.SECTIONS:
+            if section in ("jit-lint", "cost"):
+                jit_lint._TRACE_CACHE.clear()
             before = kernel_launches()
             t0 = time.perf_counter()
             if section == "concurrency":
@@ -10537,16 +10597,29 @@ def phase_static_scenarios(device) -> dict:
             wall = time.perf_counter() - t0
             launches = {k: v - before[k] for k, v in kernel_launches().items()}
             check(found == [], f"section {section} on {device}: {[str(f) for f in found]}")
-            check(launches["k1"] == 0 and launches["k2"] == 0,
+            check(section in TRACE_SECTIONS or (launches["k1"] == 0 and launches["k2"] == 0),
                   f"section {section} launched K1/K2: {launches}")
             out["sections"][section] = {"s": wall, "launches": launches}
             note(f"static_scenarios: {section} {wall:.1f} s, launches {launches}")
-    for section in ("wire", "fanout"):  # a CPU rehearsal runs K3's plain version
+        t0 = time.perf_counter()
+        gates = entry_card_gates(device)
+        out["entry_gates_s"] = time.perf_counter() - t0
+    for section in ("wire", "fanout", "jit-lint", "cost"):  # a CPU rehearsal runs plain versions
         check(out["sections"][section]["launches"]["k3"] > 0 or device.type != "cuda",
               f"the {section} section launched no K3")
     out["k3_checked_groups"] = k3.calls
     out["k3_max_abs_err"] = k3.max_abs_err
     check(k3.max_abs_err == 0, f"K3 differs from its plain version: {k3.max_abs_err}")
+    out["k1_k2_checked"] = folds.calls
+    out["k1_max_abs_err"], out["k2_max_abs_err"] = folds.max_abs_err["k1"], folds.max_abs_err["k2"]
+    check(not any(folds.max_abs_err.values()),
+          f"K1/K2 differ from their plain versions: {folds.max_abs_err}")
+    if gates:  # the card's numbers (a CPU rehearsal's are the table's)
+        out["entries"] = gates["entries"]
+        out["donated_peak_growth_bytes"] = gates["donated_peak_growth_bytes"]
+        for name, row in gates["entries"].items():
+            note(f"static_scenarios: {name} card {row['card']} table {row['table']} "
+                 f"kernels {row['kernels']}")
 
     card, host = ({k: _twin_rows(v) for k, v in static_twins(dev).items()}
                   for dev in (device, cpu))
@@ -10555,6 +10628,10 @@ def phase_static_scenarios(device) -> dict:
     uncaught = [k for k, v in host.items() if v is True or v == []]
     check(not uncaught, f"broken twins not caught: {uncaught}")
     out["twins_caught"] = sorted(host)
+    lint_card, lint_cpu = jit_lint.twin_checks(device), jit_lint.twin_checks(cpu)
+    check(lint_card == lint_cpu and not jit_lint.missed_twins(lint_card),
+          f"lint twins: card {lint_card} != CPU {lint_cpu} or missed")
+    out["lint_twins"] = lint_card
 
     card_ex = explored_rows(explored)
     cpu_ex = explored_rows(static_run.explore_worlds(cpu))
@@ -10572,6 +10649,7 @@ def phase_static_scenarios(device) -> dict:
           f"fixture keep verdicts {probes['fixture_keep']}")
     out["fixture_keep"] = probes["fixture_keep"]
     out["phase_s"] = time.perf_counter() - t_phase
+    note(f"static_scenarios: phase {out['phase_s']:.1f} s")
     emit(out)
     return out
 
@@ -10785,14 +10863,17 @@ class FoldChecked:
 
     def __enter__(self):
         from crdt_tpu_torch.ops import fold_kernels as fk
+        from crdt_tpu_torch.utils import ophooks
 
         self._fk, self._k1, self._k2 = fk, fk.fold_entries, fk.fold_cells
         self.max_abs_err, self.calls = {"k1": 0, "k2": 0}, {"k1": 0, "k2": 0}
 
         def held(name, kernel, plain):
             def run(*args):
-                got, want = kernel(*args), plain(*args)
-                err = max(max_abs_diff(g, w) for g, w in zip(got, want))
+                got = kernel(*args)
+                with ophooks.quiet():  # the check is not the traced program
+                    want = plain(*args)
+                    err = max(max_abs_diff(g, w) for g, w in zip(got, want))
                 self.max_abs_err[name] = max(self.max_abs_err[name], err)
                 self.calls[name] += 1
                 return got
@@ -12523,7 +12604,12 @@ def main(argv=None) -> int:
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     dev = phase_device(device)
-    run = lambda name: not only or name in only  # noqa: E731
+    marks = []  # (phase, time its turn came): the phases' walls, printed at the end
+
+    def run(name: str) -> bool:
+        marks.append((name, time.perf_counter()))
+        return not only or name in only
+
     res = {}
     if run("k1"):
         res["k1"] = phase_k1_shapes(device, args.seed)
@@ -12611,6 +12697,9 @@ def main(argv=None) -> int:
         res["static"] = phase_static_scenarios(device)
     if run("multihost"):
         res["multihost"] = phase_multihost(device, args.seed)
+    marks.append(("end", time.perf_counter()))
+    note("phase walls (s): " + json.dumps({
+        a: round(tb - ta, 1) for (a, ta), (_, tb) in zip(marks, marks[1:]) if a in only or not only}))
     if only:
         print(f"chip_smoke: partial run of {only}; no kernels line", flush=True)
         return 0
@@ -12635,6 +12724,7 @@ def main(argv=None) -> int:
                            res["reclaim_scenarios"]["k1_max_abs_err"],
                            res["reclaim"]["dense"]["k1_max_abs_err"],
                            res["faults_scenarios"]["k1_max_abs_err"],
+                           res["static"]["k1_max_abs_err"],
                            res["multihost"]["k1_max_abs_err"]),
         "ms": full["k1_ms_median"],
         "plain_ms": full["plain_chunked_ms_check_not_a_yardstick"],
@@ -12647,6 +12737,7 @@ def main(argv=None) -> int:
         "max_abs_err": max(res["k2"], full_map["max_abs_err"], wide_map["max_abs_err"],
                            *(leg["max_abs_err"] for leg in nested["map_map"]),
                            res["reclaim_scenarios"]["k2_max_abs_err"],
+                           res["static"]["k2_max_abs_err"],
                            res["multihost"]["k2_max_abs_err"]),
         "ms": full_map["k2_ms_median"],
         "plain_ms": full_map["k2_plain_ms"],

@@ -2,8 +2,9 @@
 port of the twins of the JAX package's ``analysis/fixtures.py`` that the
 law engine, the SEC schedule checker, the compaction and decomposition
 laws, every package's static-check section and the host-concurrency plane
-run. None of this is imported by production code. The JAX twins of the
-jaxpr lints, the cost model and the gate-state walk have no counterpart.
+run, and the twins of the program lint, the δ digest-gate check and the
+cost gate (``analysis/jit_lint.py``, ``cost.py``), which run over the
+port's op trace. None of this is imported by production code.
 
 The law twins are scalar ``uint32`` lattices whose honest join is max;
 each broken kind violates exactly the law it is named for. Their states
@@ -195,6 +196,175 @@ REDUNDANT_DECOMPOSER = FixtureDecomposer(
     name="fixture_redundant_decomposer", decompose=_decompose_redundant,
     reconstruct=_reconstruct_rows,
 )
+
+
+# ---- program-lint twins (analysis/jit_lint.py) ----------------------------
+#
+# Each broken kernel trips exactly the check it is named for; its honest
+# twin stays clean. Lanes are ``uint32`` as in the JAX twins, computed
+# through signed views (``_dtypes``) where eager torch has no unsigned op.
+
+def kernel_traced_branch(x):
+    """A host ``if`` on a device value: the host waits for the device and
+    branches on its data."""
+    if to_wide(x).sum() > 0:
+        return from_wide(to_wide(x) + 1, x.dtype)
+    return x
+
+
+def kernel_unstable_sort(x):
+    """An unstable argsort whose order gathers the values: tie order is
+    device-dependent."""
+    order = torch.argsort(to_wide(x))
+    return bits(x)[order].view(x.dtype)
+
+
+def kernel_float_accum(x):
+    """Sums ``uint32`` counters through float32 — non-associative bits."""
+    return torch.sum(to_wide(x).to(torch.float32))
+
+
+def kernel_exact_bool_accum(sel, mask):
+    """Honest twin of the above: 0/1 masks through a bf16 matmul with an
+    f32 result (the dedupe group-OR idiom), exact at any realistic slot
+    count. Must NOT be flagged."""
+    merged = torch.einsum("ij,ie->je", sel.to(torch.bfloat16),
+                          mask.to(torch.bfloat16)).to(torch.float32)
+    return merged > 0.5, torch.sum(mask.to(torch.float32))
+
+
+def kernel_u8_counter(x):
+    """Increments a ``uint8`` counter lane — wraps at 256 ops (the JAX
+    twin's ``uint16`` lane; eager torch adds no ``uint16``)."""
+    return x + 1
+
+
+def kernel_narrowing_convert(x):
+    """A ``uint32`` clock truncated to ``uint16`` — dot comparisons
+    reorder."""
+    return x.to(torch.uint16)
+
+
+def donating_reshape(n: int = 8, device="cuda"):
+    """A donating callable whose output is a fresh tensor, not the donated
+    input's storage — the donation silently degrades to a copy. Returns
+    ``(fn, args)`` for ``lint_callable(n_donated_leaves=1)``."""
+    def fn(s):
+        return (bits(s).reshape(2, n // 2) + 1).view(s.dtype)
+
+    return fn, (torch.zeros((n,), dtype=torch.int32, device=device).view(_U32),)
+
+
+def donating_aligned(n: int = 8, device="cuda"):
+    """Honest twin: writes into the donated input in place and returns it
+    — must stay clean."""
+    def fn(s):
+        bits(s).add_(1)
+        return s
+
+    return fn, (torch.zeros((n,), dtype=torch.int32, device=device).view(_U32),)
+
+
+# ---- collective-semantics twins (jit_lint collective checks) --------------
+#
+# Each returns ``(fn, args)`` for ``lint_callable(axis_sizes=..., allowed_
+# axes=...)`` over a ``VirtualMesh(4, s=2)``; the broken kernels run fine —
+# only the lint sees the wiring hazard.
+
+def _ranked(mesh):
+    return (torch.zeros((mesh.p, 8), dtype=torch.int32, device=mesh.device).view(_U32),)
+
+
+def _ring(p: int, links: int):
+    return [(i, (i + 1) % p) for i in range(links)]
+
+
+def collective_bad_ppermute(mesh):
+    """A ring missing one link: the uncovered rank receives zeros and its
+    state silently resets."""
+    from ..parallel.collectives import ppermute
+
+    perm = _ring(mesh.p, mesh.p - 1)
+    return (lambda x: ppermute(x, perm)), _ranked(mesh)
+
+
+def collective_good_ppermute(mesh):
+    """Honest twin: the full ring bijection — must stay clean."""
+    from ..parallel.collectives import ppermute
+
+    perm = _ring(mesh.p, mesh.p)
+    return (lambda x: ppermute(x, perm)), _ranked(mesh)
+
+
+def collective_wrong_axis(mesh):
+    """A psum over the replica (rank) axis — lint with
+    ``allowed_axes=("element",)``."""
+    from ..parallel.collectives import psum
+
+    return (lambda x: psum(bits(x))), _ranked(mesh)
+
+
+def collective_read_after_donation(mesh):
+    """The donated state feeds a shift, the shift's output is written into
+    the donated storage (the donation taking its place), and the state is
+    then read again: ``x + y`` reads the written data, not the input —
+    lint with ``n_donated_leaves=1``."""
+    from ..parallel.collectives import ppermute
+
+    perm = _ring(mesh.p, mesh.p)
+
+    def fn(x):
+        y = ppermute(x, perm)
+        bits(x).copy_(bits(y))  # the shift's output takes the donated storage
+        total = to_wide(x) + to_wide(y)  # stale: x now holds y
+        bits(x).copy_(bits(from_wide(total, x.dtype)))
+        return x
+
+    return fn, _ranked(mesh)
+
+
+def collective_read_before_donation(mesh):
+    """Honest twin: the donated state is consumed BEFORE the shift and the
+    result written back last (the ring discipline) — must stay clean."""
+    from ..parallel.collectives import ppermute
+
+    perm = _ring(mesh.p, mesh.p)
+
+    def fn(x):
+        y = from_wide(to_wide(x) + 1, x.dtype)
+        bits(x).copy_(bits(ppermute(y, perm)))
+        return x
+
+    return fn, _ranked(mesh)
+
+
+# ---- unsound δ digest gate (jit_lint.check_gates) -------------------------
+
+def gate_top_covered_unsound(pkt, digest):
+    """The wider gate: it masks every slot the receiver's top covers,
+    ignoring that a context lane above the row is removal knowledge a top
+    digest can never vouch for. ``check_orswot_gate`` must report
+    gate-removal-dropped."""
+    covered = torch.all(to_wide(pkt.rows) <= to_wide(digest)[None, :], dim=-1)
+    keep = pkt.valid & ~covered
+    return pkt._replace(valid=keep, rows=mask_slots(keep, pkt.rows),
+                        ctxs=mask_slots(keep, pkt.ctxs))
+
+
+# ---- cost-budget twins (analysis/cost.py) ---------------------------------
+
+def kernel_budget_pad(x):
+    """Budget-buster: pads an 8-lane input out to 1M lanes and keeps the
+    pad live across an elementwise op — peak_bytes grows ~1e5× over the
+    lean twin while the I/O signature stays the same."""
+    big = torch.nn.functional.pad(to_wide(x), (0, 1_000_000 - x.shape[0]))
+    return torch.sum(big * big)
+
+
+def kernel_budget_lean(x):
+    """Honest twin of the same contract (sum of squares of 8 lanes)."""
+    w = to_wide(x)
+    return torch.sum(w * w)
 
 
 # ---- broken fused-wire twins (parallel/wire_checks.py) --------------------

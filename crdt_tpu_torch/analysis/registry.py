@@ -19,7 +19,11 @@ module ``register_shared_field``). The port keeps tables instead, as
   ``stamp("...")`` against the tracer's stages, ``run_delta_ring("...")``
   against the wire codecs;
 - :data:`SHARED_FIELDS` and :data:`EFFECT_SOURCES` are the host
-  concurrency plane's tables (``analysis/effects.py``, ``concur.py``).
+  concurrency plane's tables (``analysis/effects.py``, ``concur.py``);
+- :func:`entry_points` builds the table of the 34 mesh entries the
+  program checks run (``jit_lint``, ``cost``, ``aliasing``) on first use,
+  and :func:`unregistered_entry_points` walks the ``parallel`` package for
+  a public ``mesh_*`` entry the table lacks.
 
 The joins, the decomposers, the compactors and the flight-recorder event
 schemas are not copied here: the law engine reads the port's one table
@@ -35,8 +39,13 @@ from __future__ import annotations
 
 import ast
 import os
+import re
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import torch
+
+from .._dtypes import zeros
 
 
 @dataclass(frozen=True)
@@ -315,6 +324,209 @@ def unregistered_fault_surfaces() -> List[str]:
     return sorted(_discover_public(takes_faults) - {s.name for s in FAULT_SURFACES})
 
 
+# ---- the mesh entries the program checks run ------------------------------
+
+@dataclass(frozen=True)
+class EntryPoint:
+    """One public mesh entry: ``make_args(mesh, device)`` builds its
+    example arguments in the gate geometry (``analysis/gate_states.py``),
+    ``invoke(mesh, args)`` runs it (donating where it donates);
+    ``n_donated`` is how many leading arguments it donates, ``mesh_axes``
+    the mesh axes its collectives may name (``"replica"``: the rank axis
+    of length P; ``"element"``: the shard axis of length S). ``kind`` is
+    the entry's metrics kind, the JAX package's jit-cache kind.
+    ``copies_donated``: the entry copies its donated accumulator once and
+    keeps the result in that copy (a replica stream never consumes the
+    caller's ``init``; the JAX stream's step donation)."""
+
+    name: str
+    kind: str
+    make_args: Callable[[Any, Any], tuple]
+    invoke: Callable[[Any, tuple], Any]
+    n_donated: int = 0
+    mesh_axes: Tuple[str, ...] = ("replica", "element")
+    copies_donated: bool = False
+
+
+# The public callables the entry discovery gate covers (the JAX package's
+# ``ENTRY_NAME_RE``).
+ENTRY_NAME_RE = re.compile(r"^mesh_(gossip|fold|delta_gossip|stream|serve|fanout)")
+
+
+def _entry_table() -> Dict[str, EntryPoint]:
+    """The rows, in the JAX package's registration order: the gossip rings
+    (donating), the all-reduce folds, the δ rings (donating state and
+    dirty), the element-sharded folds, the replica streams (donating the
+    accumulator), the serving and fan-out dispatches."""
+    from ..ops.lattice import tree_leaves, tree_map
+    from ..parallel import anti_entropy as ae
+    from ..parallel import (
+        delta, delta_map, delta_map3, delta_map_orswot, fanout_push, serve_apply,
+        sparse_shard, stream,
+    )
+    from . import gate_states as gs
+
+    rows = []
+
+    def row(name, kind, make_args, invoke, n_donated=0, copies_donated=False):
+        rows.append(EntryPoint(name, kind, make_args, invoke, n_donated,
+                               copies_donated=copies_donated))
+
+    def one(mk):
+        return lambda mesh, device: (mk(gs.replicas(mesh), device),)
+
+    for name, kind, mk, call in (
+        ("mesh_gossip", "orswot_gossip", gs.mk_dense,
+         lambda s, m: ae.mesh_gossip(s, m, local_fold="tree", donate=True)),
+        ("mesh_gossip_map", "map_gossip", gs.mk_map,
+         lambda s, m: ae.mesh_gossip_map(s, m, donate=True)),
+        ("mesh_gossip_map_orswot", "map_orswot_gossip", gs.mk_map_orswot,
+         lambda s, m: ae.mesh_gossip_map_orswot(s, m, donate=True)),
+        ("mesh_gossip_nested_map", "nested_map_gossip", gs.mk_nested_map,
+         lambda s, m: ae.mesh_gossip_nested_map(s, m, donate=True)),
+        ("mesh_gossip_map3", "map3_gossip", gs.mk_map3,
+         lambda s, m: ae.mesh_gossip_map3(s, m, donate=True)),
+        ("mesh_gossip_sparse", "sparse_gossip", gs.mk_sparse,
+         lambda s, m: ae.mesh_gossip_sparse(s, m, donate=True)),
+        ("mesh_gossip_sparse_mvmap", "sparse_mvmap_gossip_s4", gs.mk_sparse_mvmap,
+         lambda s, m: ae.mesh_gossip_sparse_mvmap(s, m, donate=True)),
+        ("mesh_gossip_sparse_nested", f"sparse_nested_gossip_{gs.GM}_s0", gs.mk_sparse_nested,
+         lambda s, m: ae.mesh_gossip_sparse_nested(s, m, gs.sparse_nested_level(),
+                                                   donate=True)),
+    ):
+        row(name, kind, one(mk), lambda m, a, call=call: call(a[0], m), n_donated=1)
+    for name, kind, mk, call in (
+        ("mesh_fold", "orswot_fold", gs.mk_dense,
+         lambda s, m: ae.mesh_fold(s, m, local_fold="tree")),
+        ("mesh_fold_map", "map_fold", gs.mk_map, ae.mesh_fold_map),
+        ("mesh_fold_map_orswot", "map_orswot_fold", gs.mk_map_orswot, ae.mesh_fold_map_orswot),
+        ("mesh_fold_nested_map", "nested_map_fold", gs.mk_nested_map, ae.mesh_fold_nested_map),
+        ("mesh_fold_map3", "map3_fold", gs.mk_map3, ae.mesh_fold_map3),
+        ("mesh_fold_gset", "gset_fold", gs.mk_gset, ae.mesh_fold_gset),
+        ("mesh_fold_lww", "lww_fold", gs.mk_lww, ae.mesh_fold_lww),
+        ("mesh_fold_mvreg", "mvreg_fold", gs.mk_mvreg, ae.mesh_fold_mvreg),
+        ("mesh_fold_sparse", "sparse_orswot_fold", gs.mk_sparse, ae.mesh_fold_sparse),
+        ("mesh_fold_sparse_mvmap", "sparse_mvmap_fold_s4", gs.mk_sparse_mvmap,
+         ae.mesh_fold_sparse_mvmap),
+        ("mesh_fold_sparse_nested", f"sparse_nested_fold_{gs.GM}_s0", gs.mk_sparse_nested,
+         lambda s, m: ae.mesh_fold_sparse_nested(s, m, gs.sparse_nested_level())),
+        ("mesh_fold_clocks", "clock_fold", gs.mk_clocks, ae.mesh_fold_clocks),
+    ):
+        row(name, kind, one(mk), lambda m, a, call=call: call(a[0], m))
+
+    def delta_args(mk, n_rows):
+        def make(mesh, device):
+            p = gs.replicas(mesh)
+            state = mk(p, device)
+            # fctx rides the state's clock dtype (its leading leaf, the top).
+            clock = tree_leaves(state)[0].dtype
+            return (state, torch.zeros((p, n_rows), dtype=torch.bool, device=device),
+                    zeros((p, n_rows, gs.GA), clock, device))
+        return make
+
+    for name, kind, mk, n_rows, call in (
+        ("mesh_delta_gossip", "delta_gossip", gs.mk_dense, gs.GE,
+         lambda s, d, f, m: delta.mesh_delta_gossip(s, d, f, m, local_fold="tree",
+                                                    donate=True)),
+        ("mesh_delta_gossip_map", "map_delta_gossip", gs.mk_map, gs.GE,
+         lambda s, d, f, m: delta_map.mesh_delta_gossip_map(s, d, f, m, donate=True)),
+        ("mesh_delta_gossip_map3", "map3_delta_gossip", gs.mk_map3,
+         gs.GK1 * gs.GK2 * gs.GM,
+         lambda s, d, f, m: delta_map3.mesh_delta_gossip_map3(s, d, f, m, donate=True)),
+        ("mesh_delta_gossip_map_orswot", "map_orswot_delta_gossip", gs.mk_map_orswot,
+         gs.GK1 * gs.GM,
+         lambda s, d, f, m: delta_map_orswot.mesh_delta_gossip_map_orswot(s, d, f, m,
+                                                                        donate=True)),
+    ):
+        row(name, kind, delta_args(mk, n_rows), lambda m, a, call=call: call(*a, m), n_donated=2)
+
+    def sharded(mk, split):
+        return lambda mesh, device: (split(mk(gs.replicas(mesh), device), mesh.s),)
+
+    for name, kind, mk, split, call in (
+        ("mesh_fold_sparse_sharded", "sparse_sharded_fold", gs.mk_sparse,
+         sparse_shard.split_segments, sparse_shard.mesh_fold_sparse_sharded),
+        ("mesh_fold_sparse_mvmap_sharded", "sparse_mvmap_sharded_fold_s4", gs.mk_sparse_mvmap,
+         sparse_shard.split_cells, sparse_shard.mesh_fold_sparse_mvmap_sharded),
+        ("mesh_fold_sparse_nested_sharded", f"sparse_nested_sharded_{gs.GM}_s0",
+         gs.mk_sparse_nested, sparse_shard.split_nested,
+         lambda s, m: sparse_shard.mesh_fold_sparse_nested_sharded(
+             s, m, gs.sparse_nested_level())),
+        ("mesh_fold_sparse_map", "sparse_map_fold", gs.mk_sparse_nested,
+         sparse_shard.split_nested,
+         lambda s, m: sparse_shard.mesh_fold_sparse_map(s, m, span=gs.GM)),
+    ):
+        row(name, kind, sharded(mk, split), lambda m, a, call=call: call(a[0], m))
+
+    def stream_args(mk_acc, mk_block):
+        return lambda mesh, device: (mk_acc(mesh, device), mk_block(mesh, device))
+
+    def unbatched(mk):
+        return lambda mesh, device: tree_map(lambda x: x[0], mk(1, device))
+
+    def sharded_acc(mesh, device):
+        from ..ops import sparse_orswot as sp
+
+        return sp.empty(gs.GE, gs.GA, gs.GD, 8, batch=(mesh.s,), device=device)
+
+    def sharded_block(mesh, device):
+        return sparse_shard.split_segments(gs.mk_sparse(gs.replicas(mesh), device), mesh.s)
+
+    for name, kind, mk, block, call in (
+        ("mesh_stream_fold_sparse", "sparse_stream_fold", unbatched(gs.mk_sparse),
+         lambda mesh, device: gs.mk_sparse(gs.replicas(mesh), device),
+         stream.mesh_stream_fold_sparse),
+        ("mesh_stream_fold", "orswot_stream_fold", unbatched(gs.mk_dense),
+         lambda mesh, device: gs.mk_dense(gs.replicas(mesh), device), stream.mesh_stream_fold),
+        ("mesh_stream_fold_sparse_mvmap", "sparse_mvmap_stream_fold_s4",
+         unbatched(gs.mk_sparse_mvmap),
+         lambda mesh, device: gs.mk_sparse_mvmap(gs.replicas(mesh), device),
+         stream.mesh_stream_fold_sparse_mvmap),
+        ("mesh_stream_fold_sparse_sharded", "sparse_sharded_stream_fold", sharded_acc,
+         sharded_block, stream.mesh_stream_fold_sparse_sharded),
+    ):
+        row(name, kind, stream_args(mk, block),
+            lambda m, a, call=call: call([a[1]], m, init=a[0], donate=True), n_donated=1,
+            copies_donated=True)
+
+    row("mesh_serve_apply", "serve_apply", gs.mk_serve_args,
+        lambda m, a: serve_apply.mesh_serve_apply(a[0], a[1], a[2], m, donate=True),
+        n_donated=1)
+    row("mesh_fanout_push", "fanout_push", gs.mk_fanout_args,
+        lambda m, a: fanout_push.mesh_fanout_push(a[0], a[1], a[2], m, weights=a[3]))
+    return {ep.name: ep for ep in rows}
+
+
+_ENTRY: Dict[str, EntryPoint] = {}
+
+
+def _entries() -> Dict[str, EntryPoint]:
+    if not _ENTRY:
+        _ENTRY.update(_entry_table())
+    return _ENTRY
+
+
+def entry_points(donatable: Optional[bool] = None) -> Tuple[EntryPoint, ...]:
+    """Every registered mesh entry, sorted by name; ``donatable`` keeps
+    the donating (True) or the other (False) entries only."""
+    eps = tuple(ep for _, ep in sorted(_entries().items()))
+    if donatable is None:
+        return eps
+    return tuple(ep for ep in eps if (ep.n_donated > 0) == donatable)
+
+
+def registered_entry_names() -> Tuple[str, ...]:
+    return tuple(sorted(_entries()))
+
+
+def unregistered_entry_points() -> List[str]:
+    """Public ``mesh_*`` entries of ``crdt_tpu_torch.parallel`` (the package
+    surface and every submodule's own definitions) missing from the entry
+    table — each fails the ``jit-lint`` and ``aliasing`` sections."""
+    found = _discover_public(lambda n, obj: bool(ENTRY_NAME_RE.match(n)) and callable(obj))
+    return sorted(found - set(registered_entry_names()))
+
+
 # ---- literal call-site scans over the port's own source tree --------------
 
 _PKG_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -566,13 +778,14 @@ def effect_sources() -> Tuple[EffectSource, ...]:
 
 
 __all__ = [
-    "EFFECT_SOURCES", "EffectSource", "FANOUT_SURFACES", "FAULT_SURFACES", "GEO_SURFACES",
-    "MergeKind", "SCALEOUT_SURFACES", "SERVE_SURFACES", "SHARED_FIELDS", "SharedField",
-    "Surface", "TraceStage", "call_name", "delta_ring_kinds", "effect_sources",
-    "fanout_surfaces", "fault_surfaces", "geo_surfaces", "get_merge_kind", "get_shared_field",
-    "merge_kinds", "parse_sources", "scaleout_surfaces", "serve_surfaces", "shared_fields",
-    "trace_stages", "uncompactable_kinds", "undecomposable_kinds",
-    "unregistered_fanout_surfaces", "unregistered_fault_surfaces", "unregistered_geo_surfaces",
-    "unregistered_obs_events", "unregistered_scaleout_surfaces", "unregistered_serve_surfaces",
-    "unregistered_trace_stages", "unwired_delta_kinds", "wire_surfaces",
+    "EFFECT_SOURCES", "ENTRY_NAME_RE", "EffectSource", "EntryPoint", "FANOUT_SURFACES",
+    "FAULT_SURFACES", "GEO_SURFACES", "MergeKind", "SCALEOUT_SURFACES", "SERVE_SURFACES",
+    "SHARED_FIELDS", "SharedField", "Surface", "TraceStage", "call_name", "delta_ring_kinds",
+    "effect_sources", "entry_points", "fanout_surfaces", "fault_surfaces", "geo_surfaces",
+    "get_merge_kind", "get_shared_field", "merge_kinds", "parse_sources", "registered_entry_names",
+    "scaleout_surfaces", "serve_surfaces", "shared_fields", "trace_stages", "uncompactable_kinds",
+    "undecomposable_kinds", "unregistered_entry_points", "unregistered_fanout_surfaces",
+    "unregistered_fault_surfaces", "unregistered_geo_surfaces", "unregistered_obs_events",
+    "unregistered_scaleout_surfaces", "unregistered_serve_surfaces", "unregistered_trace_stages",
+    "unwired_delta_kinds", "wire_surfaces",
 ]

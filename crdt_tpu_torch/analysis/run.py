@@ -18,16 +18,28 @@ card) and returns a list of :class:`~.report.Finding` (empty = clean):
   happens-before contracts, the cross-thread conflict gate, the retry and
   thread lints, and the interleaving explorer over the serve and fan-out
   worlds, with its five broken twins;
+- ``jit-lint``    — the program lint over every registered mesh entry's
+  op trace (``jit_lint.lint_entry_points``: entry discovery and the eight
+  checks), the δ digest-gate soundness check (``jit_lint.check_gates``),
+  and every lint and gate twin proven firing;
+- ``cost``        — the committed cost budget gate
+  (``cost.check_budgets``: peak bytes, collective bytes, ops, host reads
+  per entry), with the budget-busting twin proven caught;
 - ``slo``         — trace-stage coverage, the tracer conformance detector
-  with its two twins, and the committed SLO budget gate.
+  with its two twins, and the committed SLO budget gate;
+- ``aliasing``    — every donating entry's outputs in its donated storage
+  at R == P, its donated inputs freed at R = 2P (``aliasing.check_all``).
 
-The JAX runner's ``lint`` (a repository tool), ``jit-lint``, ``cost`` and
-``aliasing`` (jaxpr and compiled-HLO walks) have no counterpart.
+The JAX runner's ``lint`` (a repository tool) has no counterpart. The
+``jit-lint``, ``cost`` and ``aliasing`` sections read one op trace of each
+entry (``analysis/optrace.py``), where the JAX runner walks jaxprs and
+compiled HLO.
 
 CLI::
 
     python -m crdt_tpu_torch.analysis.run                     # every section on the card
     python -m crdt_tpu_torch.analysis.run --only wire,fanout --device cpu
+    python -m crdt_tpu_torch.analysis.run --only cost --device cpu --write-budgets
 
 It prints each section's verdict, wall time and findings, and exits 1 on
 any error finding.
@@ -44,7 +56,8 @@ from .report import Finding, errors
 
 SECTIONS = (
     "schema", "laws", "schedules", "faults", "decomp", "durability", "scaleout", "obs",
-    "wire", "serve", "fanout", "federation", "pipeline", "concurrency", "slo",
+    "wire", "serve", "fanout", "federation", "pipeline", "concurrency", "jit-lint", "cost",
+    "slo", "aliasing",
 )
 
 
@@ -259,6 +272,53 @@ def run_slo(device="cuda") -> List[Finding]:
     return findings + slo.check_budgets(device=device)
 
 
+def run_jit_lint(device="cuda") -> List[Finding]:
+    """The program lint over every entry, the δ gate check, and every lint
+    and gate twin proven firing (its honest twin clean)."""
+    from . import jit_lint
+
+    return (jit_lint.lint_entry_points(device=device) + jit_lint.check_gates(device=device)
+            + jit_lint.missed_twins(jit_lint.twin_checks(device)))
+
+
+def budget_twin(device="cuda") -> Dict[str, Dict[str, int]]:
+    """The cost twins' metrics on ``device``: ``kernel_budget_pad`` and
+    ``kernel_budget_lean`` on one 8-lane input."""
+    import torch
+
+    from . import cost, fixtures, optrace
+
+    x = torch.arange(8, dtype=torch.int32, device=device).view(torch.uint32)
+    return {name: cost.cost_of_trace(optrace.record(getattr(fixtures, name), x))
+            for name in ("kernel_budget_pad", "kernel_budget_lean")}
+
+
+def run_cost(device="cuda", write_budgets: bool = False) -> List[Finding]:
+    """The committed cost budget gate (``--write-budgets`` re-baselines it
+    on the CPU instead), and the budget-busting twin caught."""
+    from . import cost
+
+    if write_budgets:
+        measured = cost.write_budgets()
+        print(f"     wrote {len(measured)} entry budgets -> {cost.BUDGET_PATH}")
+        return []
+    findings = cost.check_budgets(device=device)
+    twin = budget_twin(device)
+    pad, lean = twin["kernel_budget_pad"], twin["kernel_budget_lean"]
+    if not cost.check_budgets(measured={"twin": pad}, budgets={"twin": lean}):
+        findings.append(Finding(
+            "broken-fixture-missed", "kernel_budget_pad",
+            f"the budget-busting twin ({pad}) PASSED its lean twin's budget ({lean})"))
+    return findings
+
+
+def run_aliasing(device="cuda") -> List[Finding]:
+    from . import aliasing
+
+    return [Finding("aliasing", kind, detail)
+            for kind, ok, detail in aliasing.check_all(device=device) if not ok]
+
+
 RUNNERS: Dict[str, Callable[..., List[Finding]]] = {
     "schema": run_schema,
     "laws": run_laws,
@@ -274,7 +334,10 @@ RUNNERS: Dict[str, Callable[..., List[Finding]]] = {
     "federation": _package_section("..geo"),
     "pipeline": run_pipeline,
     "concurrency": run_concurrency,
+    "jit-lint": run_jit_lint,
+    "cost": run_cost,
     "slo": run_slo,
+    "aliasing": run_aliasing,
 }
 
 
@@ -288,16 +351,20 @@ def _chosen(sections: Optional[Sequence[str]]) -> List[str]:
 
 
 def run_static_checks(sections: Optional[Sequence[str]] = None, device="cuda",
-                      seconds: Optional[Dict[str, float]] = None) -> Dict[str, List[Finding]]:
+                      seconds: Optional[Dict[str, float]] = None,
+                      write_budgets: bool = False) -> Dict[str, List[Finding]]:
     """Run the chosen sections (default every one, in :data:`SECTIONS`
     order) on ``device``: ``{section: findings}``. A section that raises
     is a failed gate (one ``section-crash`` finding). ``seconds``, when
-    given, receives each section's wall time."""
+    given, receives each section's wall time. ``write_budgets``: the
+    ``cost`` section re-baselines its committed table instead of
+    checking it."""
     out: Dict[str, List[Finding]] = {}
     for section in _chosen(sections):
         t0 = time.perf_counter()
+        kw = {"write_budgets": True} if write_budgets and section == "cost" else {}
         try:
-            out[section] = list(RUNNERS[section](device=device))
+            out[section] = list(RUNNERS[section](device=device, **kw))
         except Exception as exc:  # a crashed section is a failed gate
             out[section] = [Finding("section-crash", section,
                                     f"section crashed: {type(exc).__name__}: {exc}")]
@@ -310,6 +377,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default="", help=f"comma-separated sections of {SECTIONS}")
     ap.add_argument("--device", default="cuda", help="where the checks run (default: cuda)")
+    ap.add_argument("--write-budgets", action="store_true",
+                    help="re-baseline the cost section's committed table (measured on the CPU)")
     args = ap.parse_args(argv)
     only = [s for s in args.only.split(",") if s] or None
     try:
@@ -318,7 +387,8 @@ def main(argv=None) -> int:
         ap.error(str(exc))
     seconds: Dict[str, float] = {}
     t_all = time.perf_counter()
-    results = run_static_checks(only, device=args.device, seconds=seconds)
+    results = run_static_checks(only, device=args.device, seconds=seconds,
+                                write_budgets=args.write_budgets)
     rc = 0
     for section, findings in results.items():
         bad = errors(findings)

@@ -46,6 +46,7 @@ import torch
 
 from .._dtypes import bits
 from ..delta_opt.decompose import Decomposition, decompose
+from ..utils import ophooks
 from .lattice import tree_leaves, tree_map
 from .wire_kernels import WireLaneSpec, pack_bits, unpack_bits, wire_pack, wire_unpack
 
@@ -127,6 +128,7 @@ def cohort_pack_args(d: Decomposition, base_ctr: torch.Tensor) -> dict:
     )
 
 
+@ophooks.kernel("cohort_wire_encode")
 def cohort_wire_encode(d: Decomposition, base_ctr: torch.Tensor) -> CohortWire:
     """Encode one dispatch's stacked decomposition against the cohort
     bases' clock plane ``base_ctr [B, E, A]`` (or ``[P, B/P, E, A]``, one

@@ -41,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from .._dtypes import bits, from_wide, to_wide, zeros
+from ..utils import ophooks
 from .lattice import tree_map
 from .mvreg import MVRegState
 from .orswot import (
@@ -144,6 +145,7 @@ def _launch(fn: str, entry: str, top: torch.Tensor, ctr: torch.Tensor, n_passes:
     return top_out, ctr_out
 
 
+@ophooks.kernel("fold_entries")
 def fold_entries(
     top: torch.Tensor, ctr: torch.Tensor, n_passes: int = 1
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -169,6 +171,7 @@ def fold_entries(
 fold_entries.launches = 0
 
 
+@ophooks.kernel("fold_cells")
 def fold_cells(top: torch.Tensor, wctr: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused fold of the Map<K, MVReg> witness-counter cells:
     ``top[R, A]``, ``wctr[R, K, A]`` (u32) → ``(top[A], wctr[K, A])``.
@@ -240,10 +243,12 @@ def fold_fused(states: OrswotState, n_passes: int = 1) -> Tuple[OrswotState, tor
 
 
 def _pick(prefer: str, states_on_card: bool) -> bool:
-    """True for the fused fold: "fused", or "auto" on a CUDA state."""
+    """True for the fused fold: "fused", or "auto" on a CUDA state (or on
+    any state inside ``utils.ophooks.card_routes``)."""
     if prefer not in ("auto", "fused", "tree"):
         raise ValueError(f"prefer must be auto|fused|tree, got {prefer!r}")
-    return prefer == "fused" or (prefer == "auto" and states_on_card)
+    return prefer == "fused" or (prefer == "auto" and (states_on_card
+                                                       or ophooks.on_card_routes()))
 
 
 def fold_auto(states: OrswotState, prefer: str = "auto"):

@@ -35,6 +35,7 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from .._dtypes import bits, from_raw, from_wide, mul32, raw, to_wide
+from ..utils import ophooks
 
 # The biased-u16 window: a clock lane encodes exactly when its value is
 # within [-BIAS, BIAS - 1] of the link watermark (wrapping arithmetic).
@@ -303,6 +304,7 @@ def _launch(calls) -> List[WirePackOut]:
 _ARGS = ("clocks", "base", "valid", "know", "dig", "winc", "ack_ok")
 
 
+@ophooks.kernel("wire_pack")
 def wire_pack_many(calls: Sequence[dict]) -> List[WirePackOut]:
     """Several fused pack passes in ONE launch of K3: ``calls`` holds each
     instance's :func:`wire_pack` keyword arguments (``spec``, ``clocks``,

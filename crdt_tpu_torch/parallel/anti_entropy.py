@@ -179,9 +179,9 @@ def _split_mesh(mesh, entry: str, wal=None):
         return None, mesh
     if wal is not None:
         raise NotImplementedError(
-            f"{entry} on a cross-process mesh does not take wal (ROADMAP item 32: the JAX "
-            f"package's Wal.append_state cannot copy an array that spans processes to the host "
-            f"either)")
+            f"{entry} on a cross-process mesh does not take wal, and stays refused: the JAX "
+            f"package does not run it across processes either (its Wal.append_state cannot "
+            f"copy an array that spans processes to the host)")
     return mesh, mesh.local
 
 

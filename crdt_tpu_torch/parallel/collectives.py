@@ -35,6 +35,7 @@ import torch
 from .._dtypes import bits, from_wide, to_wide, umax
 from ..ops import orswot as ops
 from ..ops.lattice import tree_map
+from ..utils import ophooks
 
 
 def _leaf(tree) -> torch.Tensor:
@@ -47,6 +48,7 @@ def _size(tree) -> int:
     return _leaf(tree).shape[0]
 
 
+@ophooks.collective("ppermute", perm=lambda args, kw: args[1])
 def ppermute(tree, perm: Sequence[Tuple[int, int]]):
     """``lax.ppermute`` on the rank axis: rank ``dst`` receives rank
     ``src``'s slice for every ``(src, dst)`` pair; a rank no pair
@@ -57,6 +59,7 @@ def ppermute(tree, perm: Sequence[Tuple[int, int]]):
     return permuter(perm, leaf.shape[0], leaf.device)(tree)
 
 
+@ophooks.shift_factory("permuter")
 def permuter(perm: Sequence[Tuple[int, int]], p: int, device):
     """:func:`ppermute` over ``p`` ranks as a function of the tree, its
     index table (when the permutation is neither a roll nor a swap of
@@ -102,6 +105,7 @@ def process_schedule(perm: Sequence[Tuple[int, int]], p: int, me: int):
     return local, sends, recvs
 
 
+@ophooks.shift_factory("ring_permuter")
 def ring_permuter(perm: Sequence[Tuple[int, int]], p: int, procs=None, device=None) -> Callable:
     """:func:`permuter` of ``perm``, a permutation of the GLOBAL rank axis
     of ``procs`` (a ``multihost.GlobalMesh``: ``p`` local ranks a process,
@@ -155,6 +159,18 @@ def _pmin(x: torch.Tensor) -> torch.Tensor:
     return x.amin(dim=0)
 
 
+def _preduce_ranks(args, kwargs) -> Optional[int]:
+    """The rank count of a :func:`preduce` call: the leading axis of its
+    first sum, maximum or minimum, else the last axis of its first cat."""
+    named = dict(zip(("sums", "maxes", "procs", "mins", "cats"), args), **kwargs)
+    for key in ("sums", "maxes", "mins"):
+        if named.get(key):
+            return int(named[key][0].shape[0])
+    cats = named.get("cats")
+    return int(cats[0].shape[-1]) if cats else None
+
+
+@ophooks.collective("preduce", ranks=_preduce_ranks)
 def preduce(sums: Sequence[torch.Tensor] = (), maxes: Sequence[torch.Tensor] = (), procs=None,
             mins: Sequence[torch.Tensor] = (), cats: Sequence[torch.Tensor] = ()):
     """:func:`psum` of each of ``sums``, :func:`pmax` of each of ``maxes``
@@ -178,24 +194,28 @@ def preduce(sums: Sequence[torch.Tensor] = (), maxes: Sequence[torch.Tensor] = (
             [torch.cat([bits(v) for v in x.unbind(0)], dim=-1).view(x.dtype) for x in rows[k:]])
 
 
+@ophooks.collective("psum")
 def psum(x: torch.Tensor, procs=None) -> torch.Tensor:
     """``lax.psum`` over the rank axis (integer or bool lanes), and over
     the processes of ``procs``."""
     return preduce((x,), (), procs)[0][0]
 
 
+@ophooks.collective("pmax")
 def pmax(x: torch.Tensor, procs=None) -> torch.Tensor:
     """``lax.pmax`` over the rank axis, and over the processes of
     ``procs``; unsigned lanes keep their order."""
     return preduce((), (x,), procs)[1][0]
 
 
+@ophooks.collective("pmin")
 def pmin(x: torch.Tensor, procs=None) -> torch.Tensor:
     """``lax.pmin`` over the rank axis, and over the processes of
     ``procs``; unsigned lanes keep their order."""
     return preduce(procs=procs, mins=(x,))[2][0]
 
 
+@ophooks.collective("all_reduce_lattice", primitive=False)
 def all_reduce_lattice(
     local: Any,
     join_fn: Callable[[Any, Any], Tuple[Any, torch.Tensor]],
@@ -268,6 +288,7 @@ def all_reduce_join(local: ops.OrswotState, procs=None, flags: Optional[torch.Te
     return all_reduce_lattice(local, ops.join, ops.fold, procs, flags, rank_rows)
 
 
+@ophooks.collective("ring_round", primitive=False)
 def ring_round(
     local: ops.OrswotState,
     shift: int = 1,

@@ -51,8 +51,8 @@ ranks on its card) and the processes meet in a process group:
   whole evicted process), and the counters ride the entry's end-of-run
   gather. The exchange runs
   over host memory; every join and every K3 pack stays on the card.
-  Still refused with ``NotImplementedError`` naming ROADMAP item 32,
-  because the JAX package cannot run them across processes either:
+  Refused with ``NotImplementedError``, and to stay so, because the JAX
+  package does not run them across processes either:
   ``wal=`` (the JAX ``Wal.append_state`` copies every leaf to the host
   with ``np.asarray``, which a global array spanning processes refuses)
   on every cross-process entry, and a ``serve.Superblock`` or
@@ -158,8 +158,9 @@ def refuse(entry: Optional[str] = None):
     """The refusal of an entry that does not run across processes."""
     raise NotImplementedError(
         f"{entry + ': ' if entry else ''}a cross-process mesh (multihost.global_mesh) runs "
-        f"the entries of multihost.CROSS_PROCESS_ENTRIES only; the other mesh entries (a "
-        f"Superblock or FanoutPlane on it) across processes are ROADMAP item 32")
+        f"the entries of multihost.CROSS_PROCESS_ENTRIES only; a Superblock or FanoutPlane "
+        f"on it stays refused: the JAX package does not run them across processes either "
+        f"(it serves each host's shard on a local mesh)")
 
 
 def _cross_process(*_):

@@ -38,10 +38,14 @@ tensors until the caller reads them); the dense join's parked-slot dedupe
   block already on the card is not copied. ``pipeline=False`` copies on
   the step's stream and synchronises after every step (the counter stays
   0).
-- ``donate=True`` (default): torch has no aliasing program; the caller's
-  ``init`` is copied once and never consumed, and each step drops the old
-  accumulator as soon as the new one is enqueued. With ``donate=False``
-  the ``init`` tensors are the first accumulator (no op writes in place).
+- ``donate=True`` (default): the running accumulator is ONE set of
+  buffers for the whole stream, as the JAX step's ``input_output_alias``
+  keeps it: each step's new accumulator is written into the old one's
+  storage (where the shapes hold; a widened step starts a new buffer).
+  The caller's ``init`` is copied into that buffer once and never
+  consumed. With ``donate=False`` the ``init`` tensors are the first
+  accumulator and each step's result is a new one (no op writes in
+  place).
 - Residency: the accumulator, the block in its step and the next staged
   block — independent of the population.
 - A block that fails to fetch or stage raises :class:`StreamInterrupted`
@@ -170,7 +174,7 @@ from ..ops.fold_kernels import fold_auto
 from ..ops.lattice import tree_map
 from ..utils.metrics import metrics, observe_depth
 from . import multihost
-from .anti_entropy import _exchange_count, _split_mesh, local_folds
+from .anti_entropy import _exchange_count, _split_mesh, _write_back, local_folds
 from .collectives import all_reduce_lattice
 from .mesh import VirtualMesh
 
@@ -668,7 +672,8 @@ def _stream_fold(
             slots = slots + to_wide(plan.slots_fn(acc, new))
             wire = np.float32(wire + _step_wire(new, p_all,
                                                 shards=mesh.s if plan.sharded else 0))
-        acc = new
+        # Donated: the new accumulator takes the old one's buffers.
+        acc = _write_back(acc, new) if donate else new
         overflow = of if overflow is None else overflow | of
         blocks_done += 1
         del block, staged

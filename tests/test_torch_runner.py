@@ -23,9 +23,9 @@ def test_only_selects_sections_in_runner_order():
 
 def test_an_unknown_section_is_an_error(capsys):
     with pytest.raises(ValueError, match="unknown sections"):
-        run.run_static_checks(["wire", "jit-lint"], device="cpu")
+        run.run_static_checks(["wire", "lint"], device="cpu")
     with pytest.raises(SystemExit) as e:
-        run.main(["--only", "cost", "--device", "cpu"])
+        run.main(["--only", "lint", "--device", "cpu"])
     assert e.value.code == 2 and "unknown sections" in capsys.readouterr().err
 
 
