@@ -521,6 +521,16 @@ at first use), then runs, printing one JSON line per phase:
                         the faulted walls against the single-process and
                         the unfaulted cross-process walls, exchange ms and
                         bytes a round.
+43. ``examples``      — the seven tours of ``crdt_tpu_torch/examples`` (the
+                        JAX package's ``examples/``, line for line), each run
+                        on the CPU and then on the card through its public
+                        entry ``main(device)`` (ex04: its two gloo worker
+                        processes, here ``--examples-worker``): the tour's
+                        assertions hold on the card, its dict and lines ==
+                        the CPU run's, its K1-K3 launches counted from 0 and
+                        each held against its plain version; K1 >= 1 in 01,
+                        02, 04, 05, 07, K3 >= 1 in 05 and 07, none in 03,
+                        06's printed; each tour's wall and the phase's.
 
 Then the ``nvidia-smi`` name/power-limit line, a ``kernels`` JSON line, and
 as the last line ``{"ok": true, "device": {...}}``. Any failed check raises
@@ -610,6 +620,19 @@ def time_ms(fn, device) -> float:
     t0 = time.perf_counter()
     fn()
     return (time.perf_counter() - t0) * 1e3
+
+
+class Laps:
+    """The wall seconds of a phase's parts: ``laps("name")`` closes the part
+    that ran since the previous call (or since the start)."""
+
+    def __init__(self):
+        self.t, self.s = time.perf_counter(), {}
+
+    def __call__(self, name: str) -> None:
+        now = time.perf_counter()
+        self.s[name] = now - self.t
+        self.t = now
 
 
 def fold_bound_ms(r: int, e: int, a: int, ops_per_lane: int = OPS_PER_LANE) -> dict:
@@ -2409,7 +2432,10 @@ def phase_full_width_delta(device, seed: int, r: int = 5120, e: int = 102400, a:
         "phase": "full_width_delta",
         "R": r, "E": e, "A": a, "D": d, "P": p, "cap": cap,
         "reduced": {"R": [10240, r, "fctx [R, E, A] is as large as ctr; at R=10240 the inputs "
-                                   "alone are 72.3 GB"]},
+                                   "alone are 72.3 GB"],
+                    "ring_samples": [5, ring_samples, "walls of each ring kind, acked and "
+                                                      "unacked: sampling depth cut so the "
+                                                      "whole script fits its 1,200 s"]},
         "setup_s": setup_s, **info,
         "backlog_max_per_rank": backlog, "rounds_formula": base_rounds, "attempts": attempts,
         "rounds": rounds, "residue": int(fused[3]),
@@ -2827,7 +2853,8 @@ def fill_delta_config4(r, k, s, a, d, p, seed, device, chunk=8, n_ops=1024, n_cr
 def phase_full_width_delta_map(device, seed: int, r: int = 64, k: int = 1_000_000, s: int = 2,
                                a: int = 4, d: int = 4, p: int = 8, cap: int = 4096,
                                chunk: int = 8, repeats: int = 7, per_sample: int = 50,
-                               ring_samples: int = 5, durable_samples: int = 2) -> dict:
+                               ring_samples: int = 5, durable_samples: int = 2,
+                               acked_samples: int = 3) -> dict:
     import torch
 
     from crdt_tpu_torch._dtypes import bits, umax
@@ -2851,11 +2878,13 @@ def phase_full_width_delta_map(device, seed: int, r: int = 64, k: int = 1_000_00
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
+    laps = Laps()
     synced = []
     state, dirty, fctx, info = fill_delta_config4(r, k, s, a, d, p, seed, device, chunk,
                                                   synced_out=synced)
     sync()
     setup_s = time.perf_counter() - t0
+    laps("fill")
     state_gb = sum(x.numel() * x.element_size() for x in (*state.child, state.top, state.dcl,
                                                            state.dkeys, state.dvalid)) / 1e9
     mesh = VirtualMesh(p, device)
@@ -2891,12 +2920,14 @@ def phase_full_width_delta_map(device, seed: int, r: int = 64, k: int = 1_000_00
     converged = {"converged_keys": int(folded.child.valid.any(-1).sum()),
                  "converged_parked": int(folded.dvalid.sum())}
     del layered
+    laps("certify_and_gates")
 
     # Ring wall time: the counted ring and the gate's layered ring were each
     # kind's untimed warm-up; now `ring_samples` of each, alternating.
     ring_runs = alternate_rings(lambda kind: mesh_delta_gossip_map(
         state, dirty, fctx, mesh, rounds=rounds, cap=cap, fused=kind), ring_samples, sync)
     ring_ms, layered_ms = (statistics.median(ring_runs[x]) for x in (True, False))
+    laps("ring_walls")
 
     # K3 at the Map layout, on round 0's packet (P links × cap slots × LC
     # = S + S·A + A lanes against a per-slot base), CUDA events over a
@@ -2957,16 +2988,21 @@ def phase_full_width_delta_map(device, seed: int, r: int = 64, k: int = 1_000_00
         if on_card:
             torch.cuda.set_sync_debug_mode("default")
     sync()
+    laps("rounds_without_sync")
     k3 = k3_at_ring_shape(args, pargs, device, repeats, per_sample)
+    laps("k3_at_ring_shape")
     busy = profile_busy(lambda: mesh_delta_gossip_map(state, dirty, fctx, mesh, rounds=rounds,
                                                       cap=cap), device, host_top=12)
     busy_layered = profile_busy(lambda: mesh_delta_gossip_map(
         state, dirty, fctx, mesh, rounds=rounds, cap=cap, fused=False), device, host_top=12)
+    laps("busy_profiles")
     acked = acked_map_ring(state, dirty, fctx, mesh, rounds, cap, fused, folded,
-                           (ranks, d0, f0, rtop), device, sync, repeats, per_sample)
+                           (ranks, d0, f0, rtop), device, sync, repeats, per_sample,
+                           samples=acked_samples)
     del folded
-    # The ring with wal= (ROADMAP 9), as in full_width_delta; 2 walls of
-    # each kind (a Map ring takes seconds).
+    laps("ack_window")
+    # The ring with wal= (ROADMAP 9), as in full_width_delta;
+    # `durable_samples` walls of each kind (a Map ring takes seconds).
     durable = with_scratch_dir(lambda root: durable_ring(
         "map", lambda wal: mesh_delta_gossip_map(state, dirty, fctx, mesh, rounds=rounds,
                                                  cap=cap, wal=wal),
@@ -2974,7 +3010,9 @@ def phase_full_width_delta_map(device, seed: int, r: int = 64, k: int = 1_000_00
         (wire_pack, fold_cells), rounds, sync, durable_samples, root))
     check(not on_card or durable["launches_in_logged_ring"] == [rounds, p],
           f"the map ring with wal= launched K3 and K2 {durable['launches_in_logged_ring']} times")
-    # The rings with the telemetry sidecar (ROADMAP 15.1), 2 walls of each.
+    laps("durable")
+    # The rings with the telemetry sidecar (ROADMAP 15.1), `durable_samples`
+    # walls of each.
     telemetry = telemetry_ring_leg(
         lambda on, ack, st: mesh_delta_gossip_map(state, dirty, fctx, mesh, rounds=rounds,
                                                   cap=cap, ack_window=ack, telemetry=on,
@@ -2985,6 +3023,7 @@ def phase_full_width_delta_map(device, seed: int, r: int = 64, k: int = 1_000_00
     links = stats["rounds"] * stats["links"]
     peak_gb = torch.cuda.max_memory_allocated(device) / 1e9 if on_card else None
     residue = int(fused[3])
+    laps("telemetry")
 
     # The same traffic with every key written (bench.py's key count; tops
     # K·S/A): a row with a zero lane — a dead sibling slot, a removed key —
@@ -3004,12 +3043,18 @@ def phase_full_width_delta_map(device, seed: int, r: int = 64, k: int = 1_000_00
                    "fused_residue": int(all_fused[3]), "layered_residue": int(all_layered[3]),
                    "fused_slots_deferred": all_stats["slots_deferred"]}
     del st_all, d_all, f_all, all_fused, all_layered
+    laps("every_key_written")
     out = {
         "phase": "full_width_delta_map",
         "R": r, "K": k, "S": s, "A": a, "D": d, "P": p, "cap": cap,
         "reduced": {"written_keys": [k, info["written_keys"],
                                      "the synced store's counters stay inside the wire's "
-                                     "±32 Ki window (see every_key_written)"]},
+                                     "±32 Ki window (see every_key_written)"],
+                    "samples": {"ring_walls": ring_samples, "ack_window_walls": acked_samples,
+                                "logged_and_telemetry_walls": durable_samples,
+                                "why": "sampling depth (the signature's defaults uncut) cut "
+                                       "so the whole script fits its 1,200 s; widths and "
+                                       "gates unchanged"}},
         "setup_s": setup_s, "state_gb": state_gb, **info,
         "backlog_max_per_rank": backlog, "rounds_formula": base_rounds, "attempts": attempts,
         "rounds": rounds, "residue": residue,
@@ -3031,6 +3076,7 @@ def phase_full_width_delta_map(device, seed: int, r: int = 64, k: int = 1_000_00
             busy_layered["launch_kernel_calls"] / rounds if busy_layered else None,
         **converged, "every_key_written": all_written, "peak_mem_gb": peak_gb,
         "ack_window": acked, "durable": durable, "telemetry": telemetry,
+        "parts_s": laps.s,
     }
     emit(out)
     return out
@@ -3485,6 +3531,10 @@ def phase_flagship(device, seed: int, r: int = 10240, universe: int = 1_000_000,
         root))
     out = {
         "phase": "flagship",
+        "reduced": {"passes": [5, passes, "timed passes a source"],
+                    "durable_passes": [3, durable_passes, "logged and unlogged walls"],
+                    "why": "sampling depth cut so the whole script fits its 1,200 s; widths, "
+                           "blocks and gates uncut"},
         "R": r_run, "universe": universe, "A": a, "segment_cap": cap, "D": 4, "Q": 8,
         "block_rows": block_rows, "blocks": n_blocks, "P": p, "profiled_blocks": profile_blocks,
         "bit_identity_gate": gate, "setup_s": setup_s,
@@ -4877,7 +4927,7 @@ def phase_serve(device, seed: int, cfg=None) -> dict:
 # 1,200 on a slow host; at 7, with the multihost phase's serving and
 # sidecar legs, 1,139 s on another; at 6, with the multihost phase's
 # faulted legs, 1,131 s on a third.
-ZIPF_CYCLES = 4
+ZIPF_CYCLES = 3
 
 
 def serve_traced_window(sb, ev, q, submit_cycle, touch_one, cfg, device, root, first_cycle: int,
@@ -12382,6 +12432,7 @@ def phase_multihost(device, seed: int, r: int = 2048, e: int = 102400, a: int = 
     )
 
     t_phase = time.perf_counter()
+    laps = Laps()
     out = {"phase": "multihost", "nvidia_smi": card_label(device), "processes": MH_PROCESSES,
            "local_ranks": MH_LOCAL_RANKS, "R": r, "E": e, "A": a, "map_R": map_r, "K": k,
            "delta_map_K": min(k, MH_DELTA_MAP_K)}
@@ -12407,6 +12458,7 @@ def phase_multihost(device, seed: int, r: int = 2048, e: int = 102400, a: int = 
     dense_options = mh_dense_options(dense, mesh, device, False)
     faults = {"gossip": mh_fault_gossip(mesh_gossip, dense, mesh, device, False)}
     del dense, want
+    laps("single_dense")
     mstate = mh_map_rows(seed, range(map_r), map_r, k, s, map_a, 4, device)
     mwant, m_of = mesh_fold_map(mstate, mesh)
     faults["map_gossip"] = mh_fault_gossip(mesh_gossip_map, mstate, mesh, device, False)
@@ -12417,6 +12469,7 @@ def phase_multihost(device, seed: int, r: int = 2048, e: int = 102400, a: int = 
     ref.update(map=leaf_digests(mwant), sparse=leaf_digests(swant))
     lists = mh_list_reference(device)
     del mwant, swant
+    laps("single_map_sparse_list")
     # The δ rings on P = 8 virtual ranks (their budgets go to the
     # workers), then the other kinds at the tests' sizes.
     rings = {}
@@ -12428,15 +12481,19 @@ def phase_multihost(device, seed: int, r: int = 2048, e: int = 102400, a: int = 
         if kind in MH_FAULT_RINGS:
             faults[kind] = mh_fault_ring(kind, inputs, rings[kind]["rounds"], mesh, device, False)
         del inputs
+    laps("single_rings")
     small = mh_small_digests(mh_small_kinds(seed, device), mesh)
+    laps("single_small_kinds")
     if device.type == "cuda":
         torch.cuda.empty_cache()
     legs = mh_stream_legs(seed, device, mesh, VirtualMesh(MH_PROCESSES * MH_LOCAL_RANKS // 2,
                                                           device, s=2), r, e, a, d, k, s, map_a,
                           flagship)
     faults.update(legs.pop("faults"))
+    laps("single_legs")
     options = mh_options(mh_dispatch_legs(seed, device, mesh, serve=serve, fan=fan),
                          dense_options, rings["dense"], legs)
+    laps("single_dispatches")
     if device.type == "cuda":
         torch.cuda.empty_cache()  # the workers need the card's memory
 
@@ -12466,6 +12523,7 @@ def phase_multihost(device, seed: int, r: int = 2048, e: int = 102400, a: int = 
             p.communicate()
         raise AssertionError(f"multihost workers outlived {MH_TIMEOUT} s")
     out["workers_wall_s"] = time.perf_counter() - t0
+    laps("workers")
     for pid, (p, log) in enumerate(zip(procs, logs)):
         check(p.returncode == 0, f"multihost worker {pid} exited {p.returncode}:\n{log[-4000:]}")
     workers = []
@@ -12561,6 +12619,153 @@ def phase_multihost(device, seed: int, r: int = 2048, e: int = 102400, a: int = 
         small_kinds=sorted(small),
         phase_s=time.perf_counter() - t_phase,
     )
+    laps("checks")
+    out["parts_s"] = laps.s
+    emit(out)
+    return out
+
+
+# ---- phase 43: examples (the JAX package's runnable tours) ------------------
+
+#: The kernels each tour must launch at least once on the card; ex03 must
+#: launch none at all, and ex06's launches are printed, not gated.
+EXAMPLE_KERNELS = {
+    "ex01_collaborative_tags": ("k1",), "ex02_mesh_anti_entropy": ("k1",),
+    "ex03_streamed_editing": (), "ex04_multihost": ("k1",), "ex05_delta_sync": ("k1", "k3"),
+    "ex06_deep_nesting_and_sparse": None, "ex07_lifecycle_and_certificates": ("k1", "k3"),
+}
+
+
+def counted_tour(fn, device) -> dict:
+    """``fn()`` with its standard output captured, the K1-K3 counts set to
+    0 just before it and read just after, and every launch held against
+    its kernel's plain version."""
+    import io
+
+    from crdt_tpu_torch.ops import fold_kernels as fk
+    from crdt_tpu_torch.ops.wire_kernels import wire_pack
+
+    buf = io.StringIO()
+    with FoldChecked() as folds, K3Checked() as k3:
+        fk.fold_entries.launches = fk.fold_cells.launches = wire_pack.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res = fn()
+        sync(device)
+        wall = time.perf_counter() - t0
+        launches = {"k1": fk.fold_entries.launches, "k2": fk.fold_cells.launches,
+                    "k3": wire_pack.launches}
+    return {"result": res, "lines": buf.getvalue().splitlines(), "wall_s": wall,
+            "launches": launches, "checked": {**folds.calls, "k3": k3.calls},
+            "max_abs_err": {**folds.max_abs_err, "k3": k3.max_abs_err}}
+
+
+def examples_worker(spec: str) -> int:
+    """One process of the ``ex04_multihost`` tour (``spec`` is
+    ``port,process,device,out,root``): ``ex04_multihost.worker`` counted
+    and held as :func:`counted_tour` does, its result written to ``out``
+    (which the tour's ``main`` reads) and its lines, launches and checks
+    to ``root/kernels<process>.json``. Gloo's own lines go to standard
+    error; the tour's lines are captured."""
+    import torch
+
+    from crdt_tpu_torch.examples import ex04_multihost
+
+    port, pid, dev, out, root = spec.split(",")
+    os.dup2(2, 1)
+    device = torch.device(dev)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    run = counted_tour(lambda: ex04_multihost.worker(int(port), int(pid), device), device)
+    with open(out, "w") as f:
+        json.dump(run.pop("result"), f)
+    with open(os.path.join(root, f"kernels{pid}.json"), "w") as f:
+        json.dump(run, f)
+    return 0
+
+
+def multihost_tour(mod, device) -> dict:
+    """``ex04_multihost.main`` with its two workers run by
+    :func:`examples_worker`: the parent's run, with the workers' lines,
+    launches and checks added to it."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-examples-") as root:
+        def command(port, pid, dev, out):
+            return [sys.executable, os.path.abspath(__file__), "--examples-worker",
+                    f"{port},{pid},{dev},{out},{root}"]
+
+        run = counted_tour(lambda: mod.main(device=device, command=command), device)
+        workers = []
+        for pid in (0, 1):
+            with open(os.path.join(root, f"kernels{pid}.json")) as f:
+                workers.append(json.load(f))
+    for w in workers:
+        run["lines"] += w["lines"]
+        for key in ("launches", "checked"):
+            run[key] = {k: run[key][k] + w[key][k] for k in run[key]}
+        run["max_abs_err"] = {k: max(run["max_abs_err"][k], w["max_abs_err"][k])
+                              for k in run["max_abs_err"]}
+    run["workers"] = [{k: w[k] for k in ("wall_s", "launches")} for w in workers]
+    return run
+
+
+def tour_lines_of(name: str, lines: list) -> list:
+    """A tour's lines as the card and the CPU must agree on them: the
+    ``mesh:`` line without its device, and ex04's two processes'
+    interleaving as one sorted list."""
+    out = [re.sub(r" on \S+$", "", x) if x.startswith("mesh: ") else x for x in lines]
+    return sorted(out) if name == "ex04_multihost" else out
+
+
+def phase_examples(device) -> dict:
+    """The seven tours of ``crdt_tpu_torch/examples`` (the JAX package's
+    ``examples/``, line for line): each run on the CPU, then on the card
+    with its K1-K3 counts set to 0 just before and read just after (ex04:
+    in each of its two worker processes) and every launch held against
+    its plain version. The tour's own assertions hold on the card, its
+    returned dict and printed lines equal the CPU run's, and the launches
+    meet ``EXAMPLE_KERNELS``."""
+    import importlib
+
+    import torch
+
+    from crdt_tpu_torch.examples import EXAMPLES
+
+    t_phase = time.perf_counter()
+    on_card = device.type == "cuda"
+    cpu = torch.device("cpu")
+    out = {"phase": "examples", "card": card_label(device), "tours": {}}
+    worst = {"k1": 0, "k2": 0, "k3": 0}
+    for name, jax_tour in EXAMPLES:
+        mod = importlib.import_module(f"crdt_tpu_torch.examples.{name}")
+        run_on = ((lambda dev: multihost_tour(mod, dev)) if name == "ex04_multihost"
+                  else (lambda dev: counted_tour(lambda: mod.main(device=dev), dev)))
+        want = run_on(cpu)
+        got = run_on(device)
+        check(got["result"] == want["result"],
+              f"{name}: the card's result {got['result']} != the CPU's {want['result']}")
+        check(tour_lines_of(name, got["lines"]) == tour_lines_of(name, want["lines"]),
+              f"{name}: the card printed {got['lines']}, the CPU {want['lines']}")
+        launches, gate = got["launches"], EXAMPLE_KERNELS[name]
+        check(not on_card or got["checked"] == launches,
+              f"{name}: {launches} launches, {got['checked']} held against the plain versions")
+        check(not any(got["max_abs_err"].values()),
+              f"{name}: a launch != its plain version: {got['max_abs_err']}")
+        if gate is not None and on_card:
+            check(all(launches[k] >= 1 for k in gate)
+                  and (gate or not any(launches.values())),
+                  f"{name}: launches {launches}, expected at least one of each of {gate} "
+                  f"(none at all where none is named)")
+        worst = {k: max(worst[k], got["max_abs_err"][k]) for k in worst}
+        out["tours"][name] = {"jax_tour": jax_tour, "wall_s": got["wall_s"],
+                              "cpu_wall_s": want["wall_s"], "launches": launches,
+                              "gate": list(gate) if gate is not None else "printed",
+                              "lines": len(got["lines"]), **({"workers": got["workers"]}
+                                                             if "workers" in got else {})}
+        note(f"examples: {name} {got['wall_s']:.1f} s on the card, launches {launches}")
+    out.update({f"{k}_max_abs_err": v for k, v in worst.items()})
+    out["phase_s"] = time.perf_counter() - t_phase
     emit(out)
     return out
 
@@ -12574,13 +12779,14 @@ PHASES = ("k1", "scenarios", "full_width", "k2", "map_scenarios", "full_width_ma
           "kinds_scenarios", "full_width_clocks", "full_width_list", "reclaim_scenarios",
           "full_width_reclaim", "faults_scenarios", "full_width_chaos", "obs_scenarios",
           "full_width_scaleout", "full_width_geo", "laws_scenarios", "static_scenarios",
-          "multihost")
+          "multihost", "examples")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=20261016)
     ap.add_argument("--multihost-worker", default="", help=argparse.SUPPRESS)
+    ap.add_argument("--examples-worker", default="", help=argparse.SUPPRESS)
     ap.add_argument("--only", default="",
                     help="comma-separated phases to run (a partial run prints no kernels "
                          f"line and no ok line); phases: {', '.join(PHASES)}")
@@ -12595,6 +12801,9 @@ def main(argv=None) -> int:
     if args.multihost_worker:  # one process of the multihost phase (its rehearsal: the CPU)
         sys.path.insert(0, HERE)
         return multihost_worker(args.multihost_worker, args.seed)
+    if args.examples_worker:  # one process of the ex04 tour (its rehearsal: the CPU)
+        sys.path.insert(0, HERE)
+        return examples_worker(args.examples_worker)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one GPU", file=sys.stderr)
         return 2
@@ -12632,15 +12841,17 @@ def main(argv=None) -> int:
     if run("delta_scenarios"):
         phase_delta_scenarios(device, args.seed)
     if run("full_width_delta"):
-        res["delta"] = phase_full_width_delta(device, args.seed, ring_samples=3)
+        res["delta"] = phase_full_width_delta(device, args.seed, ring_samples=2)
     if run("map_delta_scenarios"):
         phase_map_delta_scenarios(device, args.seed)
     if run("full_width_delta_map"):
-        res["delta_map"] = phase_full_width_delta_map(device, args.seed, ring_samples=1)
+        # Sampling depth cut for the 1,200 s limit (the phase's "reduced").
+        res["delta_map"] = phase_full_width_delta_map(device, args.seed, ring_samples=1,
+                                                      durable_samples=1, acked_samples=1)
     if run("sparse_scenarios"):
         phase_sparse_scenarios(device, args.seed)
     if run("flagship"):
-        res["flagship"] = phase_flagship(device, args.seed, passes=2, durable_passes=2)
+        res["flagship"] = phase_flagship(device, args.seed, passes=2, durable_passes=1)
     if run("elastic"):
         phase_elastic(device, args.seed)
     if run("resync"):
@@ -12697,6 +12908,8 @@ def main(argv=None) -> int:
         res["static"] = phase_static_scenarios(device)
     if run("multihost"):
         res["multihost"] = phase_multihost(device, args.seed)
+    if run("examples"):
+        res["examples"] = phase_examples(device)
     marks.append(("end", time.perf_counter()))
     note("phase walls (s): " + json.dumps({
         a: round(tb - ta, 1) for (a, ta), (_, tb) in zip(marks, marks[1:]) if a in only or not only}))
@@ -12725,7 +12938,8 @@ def main(argv=None) -> int:
                            res["reclaim"]["dense"]["k1_max_abs_err"],
                            res["faults_scenarios"]["k1_max_abs_err"],
                            res["static"]["k1_max_abs_err"],
-                           res["multihost"]["k1_max_abs_err"]),
+                           res["multihost"]["k1_max_abs_err"],
+                           res["examples"]["k1_max_abs_err"]),
         "ms": full["k1_ms_median"],
         "plain_ms": full["plain_chunked_ms_check_not_a_yardstick"],
         "bound_ms": full["bound_ms"],
@@ -12738,7 +12952,8 @@ def main(argv=None) -> int:
                            *(leg["max_abs_err"] for leg in nested["map_map"]),
                            res["reclaim_scenarios"]["k2_max_abs_err"],
                            res["static"]["k2_max_abs_err"],
-                           res["multihost"]["k2_max_abs_err"]),
+                           res["multihost"]["k2_max_abs_err"],
+                           res["examples"]["k2_max_abs_err"]),
         "ms": full_map["k2_ms_median"],
         "plain_ms": full_map["k2_plain_ms"],
         "bound_ms": full_map["bound_ms"],
@@ -12759,7 +12974,8 @@ def main(argv=None) -> int:
                            res["obs_scenarios"]["k3_max_abs_err"],
                            res["scaleout"]["k3_max_abs_err"],
                            res["static"]["k3_max_abs_err"],
-                           res["multihost"]["k3_max_abs_err"]),
+                           res["multihost"]["k3_max_abs_err"],
+                           res["examples"]["k3_max_abs_err"]),
         "ms": delta["k3_ms_median"],
         "plain_ms": delta["k3_plain_ms"],
         "bound_ms": delta["k3_bound_ms"],
